@@ -1,0 +1,144 @@
+"""Build, load and count the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
+-shared -Xcompiler -fPIC`` into its own shared library with a plain C
+interface, loaded with ``ctypes``: no PyTorch headers, so a build takes
+seconds. Libraries go to ``finchat_tpu_torch/build/<hash>/`` (listed in
+``.gitignore``), keyed by a hash of every source and header, at first use —
+one ``nvcc`` per source, all started together. Nothing here runs at import
+time: the CPU tests import every module of the package.
+
+``LAUNCHES`` counts kernel launches per kernel. A wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that the main path
+went through the kernels (``chip_smoke.py`` resets the counts before it
+drives the path and reads them after).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
+
+# kernel name -> (source file, exported C entry point, argtypes)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+KERNELS: dict[str, tuple[str, str, list]] = {
+    "paged_attention": (
+        "paged_attention.cu", "paged_attention_bf16",
+        # q, k_pages, v_pages, out, part_acc, part_ml, page_table, q_offset, kv_len
+        [_P] * 9
+        # layer, B, C, H, HKV, D, P, PS, KT, MP, BQ, splits, pages_per_split
+        + [_I] * 13 + [_F, _P],  # scale, stream
+    ),
+    "kv_append": (
+        "kv_append.cu", "kv_append_bf16",
+        # kv_new, k_pages, v_pages, page_table, pos, n_valid
+        [_P] * 6
+        # layer, B, P, PS, HD, MP
+        + [_I] * 6 + [_P],  # stream
+    ),
+    "ragged_paged_attention": (
+        "ragged_paged_attention.cu", "ragged_paged_attention_bf16",
+        # q, k_pages, v_pages, out, page_table, tok_pos, kv_len,
+        # tile_row, tile_start, tile_len
+        [_P] * 10
+        # layer, T, R, H, HKV, D, P, PS, KT, MP, NT, BQ
+        + [_I] * 12 + [_F, _P],  # scale, stream
+    ),
+}
+
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: float | None = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                           "the CUDA toolkit is installed")
+    return found
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> float:
+    """Compile every kernel source that is not built yet (in parallel) and
+    load all of them. Returns the wall seconds spent; raises with the
+    compiler's output if a build fails."""
+    global BUILD_SECONDS
+    if len(_LIBS) == len(KERNELS):
+        return BUILD_SECONDS or 0.0
+    t0 = time.perf_counter()
+    out_dir = BUILD_ROOT / _source_hash()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, (src, _sym, _args) in KERNELS.items():
+        so = out_dir / f"lib{name}.so"
+        if so.exists():
+            continue
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+               "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+        procs.append((name, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for name, so, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, so)  # atomic: a concurrent builder sees all or nothing
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    for name, (_src, sym, argtypes) in KERNELS.items():
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    BUILD_SECONDS = time.perf_counter() - t0
+    return BUILD_SECONDS
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry point on the current CUDA stream and
+    raise if the launch was refused (``cudaGetLastError`` != 0). Counts the
+    launch in ``LAUNCHES``."""
+    build_all()
+    sym = KERNELS[name][1]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(_LIBS[name], sym)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)

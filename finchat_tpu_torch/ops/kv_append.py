@@ -1,0 +1,87 @@
+"""In-place decode KV append: the write half of the decode hot path.
+
+``paged_kv_append`` writes one token's K row and V row per sequence into
+layer ``layer`` of the paged cache at ``page_table[b, pos // page_size]``,
+row ``pos % page_size``; a lane with ``n_valid == 0`` writes the trash page
+0 instead. The update is in place (the JAX kernel's
+``input_output_aliases`` is what PyTorch gives for free).
+
+``paged_kv_append`` launches the hand-written kernel (``csrc/kv_append.cu``,
+replacing the TPU kernel ``_append_kernel``) and takes CUDA tensors only;
+``paged_kv_append_ref`` is its plain version, which the tests and
+``chip_smoke.py`` hold the kernel against (bit-exact). ``ops/dispatch.py``
+picks one by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from finchat_tpu_torch.ops import kernels
+from finchat_tpu_torch.ops.kernels import check
+
+TRASH_PAGE = 0
+
+
+def paged_kv_append_ref(
+    kv_new: torch.Tensor,  # [B, 1, 2*Hkv*hd] — fused k row ++ v row per sequence
+    k_pages: torch.Tensor,  # [L, P, page_size, Hkv*hd]
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, max_pages] int32
+    pos: torch.Tensor,  # [B] int32 absolute write positions
+    n_valid: torch.Tensor,  # [B] int32 (0 redirects the write to the trash page)
+    layer: int,
+    *,
+    page_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: one indexed row write per sequence, in place."""
+    HD = k_pages.shape[-1]
+    valid = n_valid.long() > 0
+    pos_l = pos.long()
+    # an invalid lane's pos may lie past its table row: read column 0 then
+    logical = torch.where(valid, pos_l // page_size, torch.zeros_like(pos_l))
+    phys = torch.gather(page_table.long(), 1, logical[:, None])[:, 0]
+    phys = torch.where(valid, phys, torch.full_like(phys, TRASH_PAGE))
+    off = pos_l % page_size
+    k_pages[layer].index_put_((phys, off), kv_new[:, 0, :HD].to(k_pages.dtype))
+    v_pages[layer].index_put_((phys, off), kv_new[:, 0, HD:].to(v_pages.dtype))
+    return k_pages, v_pages
+
+
+def paged_kv_append(
+    kv_new: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    pos: torch.Tensor,
+    n_valid: torch.Tensor,
+    layer: int,
+    *,
+    page_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Append one token's K/V per sequence into layer ``layer``'s pages, in
+    place, by the CUDA kernel (bf16 only); returns the same cache pair.
+    Raises on a tensor it does not take, a CPU one included."""
+    check(k_pages.is_cuda, "the kv_append kernel runs on CUDA tensors "
+          "(paged_kv_append_ref is the plain version)")
+    L, P, PS, HD = k_pages.shape
+    B = kv_new.shape[0]
+    check(k_pages.dtype == torch.bfloat16 and v_pages.dtype == torch.bfloat16
+          and kv_new.dtype == torch.bfloat16, "kv_append kernel takes bf16 only")
+    check(v_pages.shape == k_pages.shape and kv_new.shape == (B, 1, 2 * HD),
+          f"kv_append shapes: kv_new {tuple(kv_new.shape)}, pages {tuple(k_pages.shape)}")
+    check(PS == page_size and HD % 8 == 0, "kv_append needs page_size match, Hkv*hd % 8 == 0")
+    check(page_table.dtype == torch.int32 and pos.dtype == torch.int32
+          and n_valid.dtype == torch.int32, "kv_append index tensors must be int32")
+    check(page_table.shape[0] == B and pos.shape == (B,) and n_valid.shape == (B,),
+          "kv_append per-sequence shapes disagree")
+    for t in (kv_new, k_pages, v_pages, page_table, pos, n_valid):
+        check(t.is_cuda and t.device == k_pages.device and t.is_contiguous(),
+              "kv_append tensors must be contiguous on one CUDA device")
+    check(0 <= layer < L, f"layer {layer} out of range")
+    kernels.launch(
+        "kv_append", kv_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), pos.data_ptr(), n_valid.data_ptr(),
+        layer, B, P, PS, HD, page_table.shape[1],
+    )
+    return k_pages, v_pages

@@ -1,0 +1,177 @@
+"""Ragged paged attention: one dispatch shape for every row of a round.
+
+The batch is a PACKED token buffer ``q [T, H, D]``: each row owns a
+contiguous span of tokens and carries its own descriptors —
+
+- ``tok_row [T]``: the row each packed token belongs to (``R`` marks buffer
+  padding). Rows are packed in ascending, contiguous order (the engine packs
+  them so).
+- ``tok_pos [T]``: the token's absolute position in its sequence.
+- ``page_table [R, max_pages]``: per-row physical page list (0 = trash).
+- ``kv_len [R]``: valid KV length per row INCLUDING this dispatch's tokens.
+
+A 512-token prefill chunk and a 1-token decode row are both rows of the
+same buffer. ``kv_gap`` (bounded KV) shifts positions and lengths into
+compacted coordinates at the wrapper (``_compact_window``), so the kernel
+body is gap-oblivious, as in the JAX package.
+
+``ragged_flash_attention`` launches the hand-written kernel
+(``csrc/ragged_paged_attention.cu``, replacing the TPU kernel
+``_ragged_kernel``) on CUDA tensors, over tiles that each belong to exactly
+one row, built here with a few torch ops and no host sync;
+``ragged_paged_attention_ref`` is its plain version, the JAX reference's
+per-token ``gather_kv`` + ``mha_reference`` math. ``ops/dispatch.py`` picks
+one by the tensors' device. Padding tokens: the kernel writes zeros, the
+reference (like JAX's) averages the trash row; nothing reads them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from finchat_tpu_torch.engine.kv_cache import gather_kv
+from finchat_tpu_torch.ops import kernels
+from finchat_tpu_torch.ops.kernels import check
+from finchat_tpu_torch.ops.paged_attention import check_kernel_shapes, key_tile, tile_tokens
+from finchat_tpu_torch.ops.refs import mha_reference
+
+# bytes of gathered KV the plain version materializes per token chunk
+_REF_CHUNK_BYTES = 512 << 20
+
+
+def _compact_window(tok_row, tok_pos, kv_len, kv_gap, R: int):
+    """Bounded-KV coordinate shift: ``kv_gap[r]`` tokens of row ``r`` were
+    evicted and its page table walks only the survivors, so masking runs in
+    compacted coordinates (positions and lengths shift down by the row's
+    gap) while rotary positions upstream stay absolute. ``kv_gap=None`` is
+    the identity."""
+    if kv_gap is None:
+        return tok_pos, kv_len
+    gap = kv_gap.to(torch.int32)
+    safe = tok_row.long().clamp(max=R - 1)
+    # the clamp guards padding tokens (tok_pos 0)
+    tok_pos = (tok_pos.to(torch.int32) - gap[safe]).clamp(min=0)
+    kv_len = (kv_len.to(torch.int32) - gap).clamp(min=0)
+    return tok_pos, kv_len
+
+
+def ragged_paged_attention_ref(
+    q: torch.Tensor,  # [T, H, D] packed query tokens
+    k_pages: torch.Tensor,  # [L, P, page_size, Hkv*D]
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [R, max_pages] int32 per-row physical pages
+    tok_row: torch.Tensor,  # [T] int32 — owning row per packed token (R = padding)
+    tok_pos: torch.Tensor,  # [T] int32 — absolute position per packed token
+    kv_len: torch.Tensor,  # [R] int32
+    layer: int,
+    *,
+    page_size: int,
+    n_kv: int,
+    scale: float | None = None,
+    kv_gap: torch.Tensor | None = None,  # [R] int32 — bounded-KV window offset
+) -> torch.Tensor:
+    """Plain version: each packed token is one batch element with ``Sq = 1``
+    over its row's gathered pages (the JAX reference's math), taken in
+    token chunks so the dense copy stays bounded at production shapes."""
+    T = q.shape[0]
+    R, MP = page_table.shape
+    dev = q.device
+    tok_pos, kv_len = _compact_window(tok_row, tok_pos, kv_len, kv_gap, R)
+    # row R = an all-trash row with kv_len 0 (the padding-token row)
+    pt_pad = torch.cat([page_table.to(torch.int32),
+                        torch.zeros((1, MP), dtype=torch.int32, device=dev)])
+    kv_pad = torch.cat([kv_len.to(torch.int32), torch.zeros((1,), dtype=torch.int32, device=dev)])
+    row = tok_row.long().clamp(max=R)
+    per_token = MP * page_size * k_pages.shape[-1] * k_pages.element_size() * 2
+    chunk = max(1, _REF_CHUNK_BYTES // per_token)
+    outs = []
+    for t0 in range(0, T, chunk):
+        r = row[t0:t0 + chunk]
+        k_all, v_all = gather_kv(k_pages, v_pages, pt_pad[r], page_size, layer, n_kv)
+        outs.append(mha_reference(
+            q[t0:t0 + chunk, None], k_all.to(q.dtype), v_all.to(q.dtype), causal=True,
+            q_offset=tok_pos[t0:t0 + chunk], kv_len=kv_pad[r], scale=scale,
+        )[:, 0])
+    return torch.cat(outs)
+
+
+def ragged_tiles(tok_row: torch.Tensor, R: int, bq: int):
+    """Tile descriptors for the kernel, from ``tok_row`` alone and without a
+    host sync: ``NT = ceil(T / bq) + R`` tiles (an upper bound on what the
+    rows need); tile j covers tokens ``[tile_start, tile_start + tile_len)``
+    of row ``tile_row``. Tiles past the rows' own (``tile_row == R``) cover
+    the padding suffix, at most ``bq`` tokens each — the bound guarantees
+    they reach the end of the buffer."""
+    T = tok_row.shape[0]
+    dev = tok_row.device
+    row = tok_row.long().clamp(max=R)
+    q_len = torch.zeros(R + 1, dtype=torch.long, device=dev)
+    q_len.scatter_add_(0, row, torch.ones_like(row))
+    q_len = q_len[:R]
+    q_start = torch.cumsum(q_len, 0) - q_len  # [R] exclusive
+    n_tiles = (q_len + bq - 1) // bq
+    cum = torch.cumsum(n_tiles, 0)  # [R] inclusive
+    NT = -(-T // bq) + R
+    j = torch.arange(NT, device=dev)
+    r_of_j = torch.searchsorted(cum, j, right=True)  # R = past every row
+    spare = r_of_j >= R
+    r_safe = r_of_j.clamp(max=R - 1)
+    k = j - (cum[r_safe] - n_tiles[r_safe])
+    start = q_start[r_safe] + k * bq
+    length = torch.minimum(q_len[r_safe] - k * bq, torch.full_like(k, bq))
+    pad_start = q_len.sum() + (j - cum[-1]) * bq
+    pad_len = (T - pad_start).clamp(min=0, max=bq)
+    tile_row = torch.where(spare, torch.full_like(r_of_j, R), r_of_j)
+    tile_start = torch.where(spare, pad_start, start)
+    tile_len = torch.where(spare, pad_len, length)
+    return (tile_row.to(torch.int32), tile_start.to(torch.int32),
+            tile_len.to(torch.int32), NT)
+
+
+def ragged_flash_attention(
+    q: torch.Tensor,  # [T, H, D] packed
+    k_pages: torch.Tensor,  # [L, P, page_size, Hkv*D]
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [R, max_pages]
+    tok_row: torch.Tensor,  # [T]
+    tok_pos: torch.Tensor,  # [T]
+    kv_len: torch.Tensor,  # [R]
+    layer: int,
+    *,
+    page_size: int,
+    n_kv: int,
+    scale: float | None = None,
+    kv_gap: torch.Tensor | None = None,  # [R] int32 — bounded-KV window offset
+) -> torch.Tensor:
+    """Ragged paged attention by the CUDA kernel (bf16); returns [T, H, D].
+    Raises on a tensor it does not take, a CPU one included."""
+    check(q.is_cuda, "the ragged attention kernel runs on CUDA tensors "
+          "(ragged_paged_attention_ref is the plain version)")
+    T, H, D = q.shape
+    R, MP = page_table.shape
+    group = H // n_kv
+    bq = tile_tokens(group, 64)
+    check(q.dtype == torch.bfloat16, "ragged attention kernel takes bf16 q only")
+    check_kernel_shapes(H, D, k_pages, v_pages, page_size, n_kv, group * bq)
+    check(page_table.dtype == torch.int32 and tok_row.dtype == torch.int32
+          and tok_pos.dtype == torch.int32 and kv_len.dtype == torch.int32,
+          "page_table, tok_row, tok_pos, kv_len must be int32")
+    check(tok_row.shape == (T,) and tok_pos.shape == (T,) and kv_len.shape == (R,),
+          "ragged descriptor shapes disagree with q / page_table")
+    for t in (q, k_pages, v_pages, page_table, tok_row, tok_pos, kv_len):
+        check(t.is_cuda and t.device == q.device and t.is_contiguous(),
+              "ragged attention tensors must be contiguous on one CUDA device")
+    check(0 <= layer < k_pages.shape[0], f"layer {layer} out of range")
+    tok_pos, kv_len = _compact_window(tok_row, tok_pos, kv_len, kv_gap, R)
+    tok_pos, kv_len = tok_pos.contiguous(), kv_len.contiguous()
+    tile_row, tile_start, tile_len, NT = ragged_tiles(tok_row, R, bq)
+    out = torch.empty_like(q)
+    L, P, PS, _ = k_pages.shape
+    kernels.launch(
+        "ragged_paged_attention", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        out.data_ptr(), page_table.data_ptr(), tok_pos.data_ptr(), kv_len.data_ptr(),
+        tile_row.data_ptr(), tile_start.data_ptr(), tile_len.data_ptr(),
+        layer, T, R, H, n_kv, D, P, PS, key_tile(PS), MP, NT, bq,
+        float(scale if scale is not None else D ** -0.5),
+    )
+    return out

@@ -1,0 +1,184 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU (the kernels have no CPU mode) and skips
+elsewhere. The file imports no JAX, so it runs on the GPU machine as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest sets up JAX). The cases cover every
+kernel variant a wrapper can select, at small shapes: decode blocks with
+page splits, full 64-row tiles on tensor cores (Llama-3's group of 4, and
+groups of 2 and 8), the FMA fallback for pages that are not a multiple of
+64 keys, small row groups, ragged rows with padding and a ``kv_gap`` row,
+and the KV append.
+
+Tolerance for attention, per output row (one token of one head):
+``max|got - want| <= min(2e-2, 2^-6 * max|want|)`` over the row. Both sides
+round their output to bf16, one ulp apart at worst (2^-7 of the row's top
+binade), and round P to bf16 at different points of the fp32 softmax; 2^-6
+is two ulps at the row's own scale, so a dropped key tile or a
+mis-weighted split shows at any context length, and 2e-2 caps rows of
+large values (a query with a handful of keys) at the former flat limit. The
+append is held bit-exact (a copy). Rows with no key (``kv_len == 0``,
+padding tokens) are zeros in the kernels, while the plain versions keep the
+reference's average over trash; those rows are checked for zeros instead.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from finchat_tpu_torch.ops.kernels import LAUNCHES  # noqa: E402
+from finchat_tpu_torch.ops.kv_append import paged_kv_append, paged_kv_append_ref  # noqa: E402
+from finchat_tpu_torch.ops.paged_attention import (  # noqa: E402
+    paged_attention_ref,
+    paged_flash_attention,
+)
+from finchat_tpu_torch.ops.ragged_paged_attention import (  # noqa: E402
+    ragged_flash_attention,
+    ragged_paged_attention_ref,
+)
+
+pytestmark = pytest.mark.cuda
+
+REL_TOL = 2.0 ** -6
+ATOL = 2e-2
+D = 128
+
+
+def _assert_rows_close(got, want):
+    """Each output row within min(ATOL, REL_TOL * its largest reference
+    value)."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    limit = (REL_TOL * want.float().abs().amax(-1)).clamp(max=ATOL)
+    worst = (diff / limit).max().item()
+    assert worst <= 1.0, f"a row's error is {worst:.3f} x its limit"
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _cache(dev, n_kv: int, ps: int, n_pages: int, seed: int):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (2, n_pages, ps, n_kv * D)
+    return (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16),
+            torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16), g)
+
+
+def _page_table(rng, kv_lens, ps: int, mp: int, n_pages: int, dev):
+    ids = rng.permutation(np.arange(1, n_pages))
+    pt = np.zeros((len(kv_lens), mp), np.int32)
+    nxt = 0
+    for b, n in enumerate(kv_lens):
+        k = max(1, -(-n // ps))
+        pt[b, :k] = ids[nxt:nxt + k]
+        nxt += k
+    return torch.from_numpy(pt).to(dev)
+
+
+# (name, H, Hkv, page_size, max_pages, C, q_offsets, kv_lens)
+PAGED = [
+    ("decode_splits", 8, 2, 128, 8, 1, [9, 300, 0, 1000, 511], [10, 301, 0, 1001, 512]),
+    ("decode_ps16", 8, 2, 16, 20, 1, [3, 150, 299], [4, 151, 300]),
+    ("prefill_tc_ps64", 8, 2, 64, 6, 40, [0, 70], [40, 110]),
+    ("prefill_fma_ps16", 8, 2, 16, 12, 40, [0, 70], [40, 110]),
+    ("prefill_tc_group2", 4, 2, 128, 4, 40, [0, 200, 0], [40, 240, 0]),
+    ("prefill_tc_group8", 16, 2, 128, 4, 40, [5, 100], [45, 140]),
+    ("prefill_small_rows", 8, 2, 128, 4, 3, [0, 77], [3, 80]),
+]
+
+
+@pytest.mark.parametrize("case", PAGED, ids=[c[0] for c in PAGED])
+def test_paged_attention_kernel_matches_plain(dev, case):
+    _name, H, Hkv, ps, mp, C, q_off, kv_len = case
+    rng = np.random.default_rng(0)
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in kv_len)
+    kp, vp, g = _cache(dev, Hkv, ps, n_pages, seed=1)
+    pt = _page_table(rng, kv_len, ps, mp, n_pages, dev)
+    q = torch.randn((len(kv_len), C, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = LAUNCHES["paged_attention"]
+    got = paged_flash_attention(q, kp, vp, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_attention"] == before + 1
+    want = paged_attention_ref(q, kp, vp, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
+    live = kl > 0
+    _assert_rows_close(got[live], want[live])
+    assert bool((got[~live] == 0).all())
+
+
+# rows (q_len, pos0, kv_len), padded length, page_size, per-row kv_gap
+RAGGED = [
+    ("chunks_decode_padding_tc", [(40, 0, 40), (1, 90, 91), (20, 64, 84), (1, 5, 6)],
+     96, 128, None),
+    ("fma_ps16", [(40, 0, 40), (1, 90, 91), (20, 64, 84)], 70, 16, None),
+    ("gap_row", [(24, 300, 324), (1, 40, 41)], 40, 128, [128, 0]),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED, ids=[c[0] for c in RAGGED])
+def test_ragged_attention_kernel_matches_plain(dev, case):
+    _name, rows, T, ps, gaps = case
+    H, Hkv, mp = 8, 2, 8
+    rng = np.random.default_rng(2)
+    comp = [kv - (gaps[r] if gaps else 0) for r, (_q, _p, kv) in enumerate(rows)]
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in comp)
+    kp, vp, g = _cache(dev, Hkv, ps, n_pages, seed=3)
+    pt = _page_table(rng, comp, ps, mp, n_pages, dev)
+    tok_row, tok_pos = [], []
+    for r, (q_len, p0, _kv) in enumerate(rows):
+        tok_row += [r] * q_len
+        tok_pos += list(range(p0, p0 + q_len))
+    n_real = len(tok_row)
+    tok_row += [len(rows)] * (T - n_real)
+    tok_pos += [0] * (T - n_real)
+    args = (
+        torch.randn((T, H, D), generator=g, device=dev, dtype=torch.bfloat16), kp, vp, pt,
+        torch.tensor(tok_row, dtype=torch.int32, device=dev),
+        torch.tensor(tok_pos, dtype=torch.int32, device=dev),
+        torch.tensor([kv for _q, _p, kv in rows], dtype=torch.int32, device=dev), 1,
+    )
+    kw = dict(page_size=ps, n_kv=Hkv,
+              kv_gap=None if gaps is None else torch.tensor(gaps, dtype=torch.int32,
+                                                            device=dev))
+    got = ragged_flash_attention(*args, **kw)
+    want = ragged_paged_attention_ref(*args, **kw)
+    _assert_rows_close(got[:n_real], want[:n_real])
+    assert bool((got[n_real:] == 0).all())
+
+
+def test_kv_append_kernel_bit_exact(dev):
+    B, ps, Hkv, mp, P = 9, 16, 2, 4, 40
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    kp = torch.randn((3, P, ps, Hkv * D), generator=g, device=dev, dtype=torch.bfloat16)
+    vp = torch.randn_like(kp)
+    pt = torch.arange(1, 1 + B * mp, dtype=torch.int32, device=dev).reshape(B, mp)
+    # two invalid lanes at distinct offsets, one with pos past its table row
+    pos = torch.tensor([0, 5, 17, 33, 63, 1, 9, 40, 500], dtype=torch.int32, device=dev)
+    n_valid = torch.tensor([1, 1, 1, 1, 1, 0, 1, 1, 0], dtype=torch.int32, device=dev)
+    kv_new = torch.randn((B, 1, 2 * Hkv * D), generator=g, device=dev, dtype=torch.bfloat16)
+    k_ref, v_ref = kp.clone(), vp.clone()
+    paged_kv_append(kv_new, kp, vp, pt, pos, n_valid, 2, page_size=ps)
+    paged_kv_append_ref(kv_new, k_ref, v_ref, pt, pos, n_valid, 2, page_size=ps)
+    assert torch.equal(kp, k_ref) and torch.equal(vp, v_ref)
+
+
+def test_kernel_wrappers_refuse_what_they_do_not_take(dev):
+    kp = torch.zeros((1, 4, 16, 2 * D), dtype=torch.float32, device=dev)
+    q = torch.zeros((1, 1, 4, D), dtype=torch.bfloat16, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        paged_flash_attention(q, kp, kp, torch.zeros((1, 2), **i32), torch.zeros(1, **i32),
+                              torch.ones(1, **i32), 0, page_size=16, n_kv=2)
+    with pytest.raises(ValueError, match="int32"):
+        paged_flash_attention(q, kp.bfloat16(), kp.bfloat16(), torch.zeros((1, 2), device=dev,
+                              dtype=torch.int64), torch.zeros(1, **i32), torch.ones(1, **i32),
+                              0, page_size=16, n_kv=2)
