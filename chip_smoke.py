@@ -9,31 +9,49 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the CUDA kernels built from ``finchat_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (build seconds printed).
 2. Kernels against their plain PyTorch versions on the card, at the serving
-   shapes of Llama-3-8B in bf16 (32 query heads, 8 KV heads, head_dim 128,
-   page_size 128, 64 pages per sequence): paged attention (decode B=64 C=1
-   over 1-4k-token contexts; prefill B=4 C=512 at q_offset 0 and 1024), the
-   decode KV append (B=64 with invalid lanes), and ragged attention (two
-   512-token prefill rows, 60 decode rows, padding to a 2048 bucket). Each
-   case prints its max abs error and, for attention, the largest error of
-   any output row (one token of one head) relative to that row's largest
-   reference value; each row is held to min(2e-2, 2^-6 of that value), two
-   bf16 ulps (the append is held bit-exact). Then it prints the kernel's
-   and the plain version's median time over 20 CUDA-event-timed runs, the
-   bound (the larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, counted
-   from this run's inputs) and, for attention, ``scaled_dot_product_attention`` over
-   the pre-gathered KV on the same work (decode rows as one call, prefill
-   rows as another) as a yardstick the port never calls.
+   shapes of Llama-3-8B (32 query heads, 8 KV heads, head_dim 128,
+   page_size 128, 64 pages per sequence), over a bf16 cache and over an
+   int8 cache with its scale planes: paged attention (decode B=64 C=1 over
+   1-4k-token contexts; prefill B=4 C=512 at q_offset 0 and 1024), the
+   decode KV append (B=64 with invalid lanes; the int8 one quantizes), and
+   ragged attention (two 512-token prefill rows, 60 decode rows, padding to
+   a 2048 bucket); then the fused dequant matmul (int8 at M=64 and M=2048
+   on the [4096, 14336] MLP weight and at M=64 on the [4096, 128256] head
+   with fp32 output; int4 at M=64 on [4096, 14336], per column and per group
+   of 128). Each case prints its max abs error; attention is held per
+   output row (one token of one head) to min(2e-2, 2^-6 of the row's
+   largest reference value), two bf16 ulps; a bf16 matmul output row to
+   2^-7 of its largest value (one ulp: both sides round an fp32 sum of the
+   same exact products); the fp32 head per element to K * 2^-22 * (|x| @
+   |w|), a bound on two fp32 summations of K = 4096 products in any order;
+   the appends bit-exact. Then it prints the kernel's and the plain
+   version's median time over 20 CUDA-event-timed runs, the bound (the
+   larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, counted from this
+   run's inputs) and a library yardstick the port never calls:
+   ``scaled_dot_product_attention`` over the pre-gathered (dequantized) KV
+   on the same work, ``index_put_`` of the same rows for the bf16 append,
+   ``torch.matmul`` with the already dequantized bf16 weight for the
+   matmul (none for the quantizing append: no one call quantizes and
+   scatters).
 3. Serve: ``llama3-8b`` with random bf16 weights from a seeded generator,
    ``EngineConfig`` defaults minus the planes not ported yet, behind the
    scheduler, ``EngineGenerator`` and ``LLMService``. Four greedy requests
    at once, four more once the first tokens stream (so prefill coexists
    with decode and the packed ragged rounds run), 64 new tokens each. Every
-   request must complete; every kernel's launch count must move during this
-   phase; one served stream is then checked teacher-forced against the
-   plain dense forward (same weights, plain attention). Last, one decode
-   step and one prefill chunk at the served context length are timed and
-   profiled (device time by kernel class, and the device's idle share of
-   the profiled window).
+   request must complete; every kernel of the plane must be launched in
+   this phase (counts set to 0 just before it); one served stream is then
+   checked teacher-forced against the plain dense forward (same weights,
+   plain attention). Last, one decode step and one prefill chunk at the
+   served context length are timed and profiled (device time by kernel
+   class, and the device's idle share of the profiled window).
+4. Serve the quantized plane the same way: int8 weights made by
+   ``init_quantized_params`` (the bf16 tree never exists) and an int8 KV
+   pool, same 8 requests and two waves. The teacher-forced check runs the
+   plain forward on the dequantized weights with every K/V row quantized
+   and dequantized as the cache stores it; then the step profile.
+5. Serve int4 weights (per group of 128) over the int8 KV pool: two
+   requests, one after the other's first token, 16 new tokens each, with
+   the same teacher-forced check — the path of the int4 matmul kernel.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -43,6 +61,7 @@ CUDA device is visible or when the port package is not beside this file.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import statistics
 import subprocess
@@ -61,7 +80,21 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 # with a handful of keys) at the former flat limit.
 REL_TOL = 2.0 ** -6
 ATOL = 2e-2
+# fused dequant matmul: a bf16 output row within one ulp of its top binade;
+# an fp32 output element within K * 2^-22 of the sum of |x| |w| products
+QMM_ROW_TOL = 2.0 ** -7
+QMM_F32_TOL = 2.0 ** -22
 REPO = Path(__file__).resolve().parent
+# the serving planes: the kernels each must launch, and its quant modes
+PLANES = {
+    "bf16": dict(kernels=("paged_attention", "kv_append", "ragged_paged_attention"),
+                 quant="", group=0, kv_quant=""),
+    "int8+kv8": dict(kernels=("paged_attention_q8", "kv_append_q8", "ragged_paged_attention_q8",
+                              "quant_matmul_int8"), quant="int8", group=0, kv_quant="int8"),
+    "int4g128+kv8": dict(kernels=("paged_attention_q8", "kv_append_q8",
+                                  "ragged_paged_attention_q8", "quant_matmul_int4"),
+                         quant="int4", group=128, kv_quant="int8"),
+}
 
 
 def log(msg: str) -> None:
@@ -103,11 +136,26 @@ def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
 H, HKV, D, PS, MP = 32, 8, 128, 128, 64  # llama3-8b heads, page_size, pages/seq
 
 
-def _cache(torch, gen, dev, n_layers: int, n_pages: int):
+def _cache(torch, gen, dev, n_layers: int, n_pages: int, q8: bool = False):
+    """(k, v, k_scales, v_scales): random bf16 pages, or for ``q8`` the same
+    random rows quantized as the int8 cache stores them (scales None for
+    bf16)."""
+    from finchat_tpu_torch.engine.kv_cache import quantize_kv_rows, scale_rows
+
     shape = (n_layers, n_pages, PS, HKV * D)
-    k = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
-    v = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
-    return k, v
+    out = []
+    for _ in range(2):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        if not q8:
+            out.append((x, None))
+            continue
+        q, s = quantize_kv_rows(x, HKV)  # s [L, P, PS, HKV]
+        planes = torch.zeros((n_layers, n_pages, scale_rows(HKV), PS), device=dev)
+        planes[:, :, :HKV] = s.transpose(2, 3)
+        out.append((q, planes))
+        del x
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
 
 
 def _page_table(torch, gen, dev, kv_lens: list[int], n_pages: int):
@@ -127,6 +175,12 @@ def _attention_flops(q_pos_kv: list[tuple[int, int]]) -> float:
     """QK and PV FLOPs for queries given as (position, kv_len) pairs."""
     keys = sum(min(p + 1, kl) for p, kl in q_pos_kv)
     return 4.0 * keys * H * D
+
+
+def _kv_bytes(tokens: int, q8: bool) -> float:
+    """Bytes of K and V for ``tokens`` cached tokens: bf16, or int8 plus
+    one fp32 scale per token and KV head."""
+    return tokens * HKV * (D + 4) * 2 if q8 else tokens * HKV * D * 2 * 2
 
 
 def attention_errors(torch, got, want) -> tuple[float, float, bool]:
@@ -153,38 +207,51 @@ def _sdpa_ms(torch, calls) -> float:
     return time_ms(torch, run)
 
 
-def _gather_dense(torch, k_pages, v_pages, pt, layer: int, S: int):
-    """Dense [B, Hkv, S, D] K/V of each sequence's first S tokens."""
-    from finchat_tpu_torch.engine.kv_cache import gather_kv
+def _gather_dense(torch, cache, pt, layer: int, S: int):
+    """Dense bf16 [B, Hkv, S, D] K/V of each sequence's first S tokens
+    (dequantized for an int8 cache)."""
+    from finchat_tpu_torch.engine.kv_cache import gather_kv_any
 
-    k, v = gather_kv(k_pages, v_pages, pt, PS, layer, HKV)
+    k, v = gather_kv_any(*cache, pt, PS, layer, HKV, dtype=torch.bfloat16)
     return (k[:, :S].permute(0, 2, 1, 3).contiguous(), v[:, :S].permute(0, 2, 1, 3).contiguous())
 
 
 def check_paged(torch, name, gen, dev, C: int, q_offsets: list[int], kv_lens: list[int],
-                results: list) -> None:
+                results: list, q8: bool = False) -> None:
     from finchat_tpu_torch.ops.kernels import LAUNCHES
-    from finchat_tpu_torch.ops.paged_attention import paged_attention_ref, paged_flash_attention
+    from finchat_tpu_torch.ops.paged_attention import (
+        paged_attention_q8_ref,
+        paged_attention_ref,
+        paged_flash_attention,
+        paged_flash_attention_q8,
+    )
 
     B, layer = len(kv_lens), 1
     n_pages = 2 + sum(max(1, -(-n // PS)) for n in kv_lens)
-    k_pages, v_pages = _cache(torch, gen, dev, 2, n_pages)
+    k_pages, v_pages, k_scales, v_scales = cache = _cache(torch, gen, dev, 2, n_pages, q8)
     pt = _page_table(torch, gen, dev, kv_lens, n_pages)
     q = torch.randn((B, C, H, D), generator=gen, device=dev, dtype=torch.bfloat16)
     q_off = torch.tensor(q_offsets, dtype=torch.int32, device=dev)
     kv = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     kw = dict(page_size=PS, n_kv=HKV)
+    kname = "paged_attention_q8" if q8 else "paged_attention"
 
     def kern():
+        if q8:
+            return paged_flash_attention_q8(q, k_pages, v_pages, k_scales, v_scales, pt, q_off,
+                                            kv, layer, **kw)
         return paged_flash_attention(q, k_pages, v_pages, pt, q_off, kv, layer, **kw)
 
     def plain():
+        if q8:
+            return paged_attention_q8_ref(q, k_pages, v_pages, k_scales, v_scales, pt, q_off,
+                                          kv, layer, **kw)
         return paged_attention_ref(q, k_pages, v_pages, pt, q_off, kv, layer, **kw)
 
-    before = LAUNCHES["paged_attention"]
+    before = LAUNCHES[kname]
     got = kern()
     torch.cuda.synchronize()
-    assert LAUNCHES["paged_attention"] == before + 1
+    assert LAUNCHES[kname] == before + 1
     want = plain()
     live = kv > 0
     err, rel, close = attention_errors(torch, got[live], want[live])
@@ -199,21 +266,34 @@ def check_paged(torch, name, gen, dev, C: int, q_offsets: list[int], kv_lens: li
     ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain)
     S = max(kv_lens)
-    k_rows, v_rows = _gather_dense(torch, k_pages, v_pages, pt, layer, S)
+    k_rows, v_rows = _gather_dense(torch, cache, pt, layer, S)
     pos = torch.arange(S, device=dev)
     qp = q_off[:, None] + torch.arange(C, device=dev)[None, :]  # [B, C]
     mask = (pos[None, None, :] <= qp[:, :, None]) & (pos[None, None, :] < kv[:, None, None])
     lib_ms = _sdpa_ms(torch, [(q.transpose(1, 2).contiguous(), k_rows, v_rows, mask[:, None])])
-    kv_bytes = sum(kv_lens) * HKV * D * 2 * 2
     io_bytes = q.numel() * 2 * 2 + pt.numel() * 4 + B * 8
     flops = _attention_flops([(o + i, kl) for o, kl in zip(q_offsets, kv_lens) for i in range(C)])
-    b_ms, b_by = bound_ms(kv_bytes + io_bytes, flops)
+    b_ms, b_by = bound_ms(_kv_bytes(sum(kv_lens), q8) + io_bytes, flops)
     log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
     results.append(dict(case=name, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-    del k_pages, v_pages, k_rows, v_rows
+    del k_pages, v_pages, k_scales, v_scales, cache, k_rows, v_rows
     torch.cuda.empty_cache()
+
+
+def _append_lanes(torch, gen, dev, B: int, P: int):
+    """Page table, positions and validity of the append cases: positions
+    inside each lane's first 8 pages; invalid lanes (every 8th) at distinct
+    offsets so their trash-page writes never collide."""
+    kv_lens = [int(x) for x in torch.randint(1, 4096, (B,), generator=gen, device=dev)]
+    pt = torch.zeros((B, MP), dtype=torch.int32, device=dev)
+    pt[:, :8] = (torch.arange(B * 8, device=dev, dtype=torch.int32).reshape(B, 8) % (P - 1)) + 1
+    pos = torch.tensor([(n % (8 * PS)) if b % 8 else b for b, n in enumerate(kv_lens)],
+                       dtype=torch.int32, device=dev)
+    n_valid = torch.tensor([0 if b % 8 == 0 else 1 for b in range(B)], dtype=torch.int32,
+                           device=dev)
+    return pt, pos, n_valid
 
 
 def check_append(torch, gen, dev, results: list) -> None:
@@ -224,15 +304,7 @@ def check_append(torch, gen, dev, results: list) -> None:
     HD = HKV * D
     k_pages = torch.zeros((L, P, PS, HD), dtype=torch.bfloat16, device=dev)
     v_pages = torch.zeros_like(k_pages)
-    kv_lens = [int(x) for x in torch.randint(1, 4096, (B,), generator=gen, device=dev)]
-    pt = torch.zeros((B, MP), dtype=torch.int32, device=dev)
-    pt[:, :8] = (torch.arange(B * 8, device=dev, dtype=torch.int32).reshape(B, 8) % (P - 1)) + 1
-    # positions inside each lane's first 8 pages; invalid lanes (every 8th)
-    # at distinct offsets so their trash-page writes never collide
-    pos = torch.tensor([(n % (8 * PS)) if b % 8 else b for b, n in enumerate(kv_lens)],
-                       dtype=torch.int32, device=dev)
-    n_valid = torch.tensor([0 if b % 8 == 0 else 1 for b in range(B)], dtype=torch.int32,
-                           device=dev)
+    pt, pos, n_valid = _append_lanes(torch, gen, dev, B, P)
     kv_new = torch.randn((B, 1, 2 * HD), generator=gen, device=dev, dtype=torch.bfloat16)
     layer = 17
     before = LAUNCHES["kv_append"]
@@ -254,24 +326,86 @@ def check_append(torch, gen, dev, results: list) -> None:
     def plain():
         paged_kv_append_ref(kv_new, k_ref, v_ref, pt, pos, n_valid, layer, page_size=PS)
 
+    # yardstick: index_put_ of the same rows at their (page, row) addresses
+    phys = torch.where(n_valid > 0, pt.long().gather(1, (pos.long() // PS)[:, None])[:, 0], 0)
+    off = pos.long() % PS
+    k_rows, v_rows = kv_new[:, 0, :HD].contiguous(), kv_new[:, 0, HD:].contiguous()
+
+    def library():
+        k_ref[layer].index_put_((phys, off), k_rows)
+        v_ref[layer].index_put_((phys, off), v_rows)
+
     ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain)
+    lib_ms = time_ms(torch, library)
     moved = 2 * kv_new.numel() * 2 + B * (4 + 4 + 4)  # rows in, rows out, pos/valid/table
     b_ms, b_by = bound_ms(moved, 0.0)
-    log(f"  kv_append: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    log(f"  kv_append: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_put_ {lib_ms:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})")
     results.append(dict(case="kv_append", err=err, rel_err=None, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     del k_pages, v_pages, k_ref, v_ref
     torch.cuda.empty_cache()
 
 
-def check_ragged(torch, gen, dev, results: list) -> None:
+def check_append_q8(torch, gen, dev, results: list) -> None:
+    from finchat_tpu_torch.engine.kv_cache import scale_rows
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+    from finchat_tpu_torch.ops.kv_append import paged_kv_append_q8, paged_kv_append_q8_ref
+
+    B, L, P = 64, 32, 512  # the serving int8 cache: [32, 512, 128, 1024] + scale planes
+    HD = HKV * D
+    k_pages = torch.zeros((L, P, PS, HD), dtype=torch.int8, device=dev)
+    v_pages = torch.zeros_like(k_pages)
+    k_scales = torch.zeros((L, P, scale_rows(HKV), PS), device=dev)
+    v_scales = torch.zeros_like(k_scales)
+    cache = (k_pages, v_pages, k_scales, v_scales)
+    pt, pos, n_valid = _append_lanes(torch, gen, dev, B, P)
+    kv_new = torch.randn((B, 1, 2 * HD), generator=gen, device=dev, dtype=torch.bfloat16)
+    kv_new[5, 0, :D] = 0  # an all-zero head: scale 1/127
+    layer = 17
+    kw = dict(page_size=PS, n_kv=HKV)
+    before = LAUNCHES["kv_append_q8"]
+    paged_kv_append_q8(kv_new, *cache, pt, pos, n_valid, layer, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["kv_append_q8"] == before + 1
+    ref = tuple(torch.zeros_like(t) for t in cache)
+    paged_kv_append_q8_ref(kv_new, *ref, pt, pos, n_valid, layer, **kw)
+    exact = all(bool(torch.equal(a, b)) for a, b in zip(cache, ref))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(cache, ref))
+    log(f"  kv_append_q8: bit-exact {exact}, pages and scale planes (max_abs_err {err:.3e})")
+    if not exact:
+        fail("kv_append_q8: kernel is not bit-exact against its plain version")
+
+    def kern():
+        paged_kv_append_q8(kv_new, *cache, pt, pos, n_valid, layer, **kw)
+
+    def plain():
+        paged_kv_append_q8_ref(kv_new, *ref, pt, pos, n_valid, layer, **kw)
+
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain)
+    # bf16 rows in, int8 rows and fp32 scales out, pos/valid/table entries
+    moved = kv_new.numel() * 2 + kv_new.numel() + B * 2 * HKV * 4 + B * (4 + 4 + 4)
+    b_ms, b_by = bound_ms(moved, 0.0)
+    log(f"  kv_append_q8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
+        f"bound {b_ms:.6f} ms ({b_by})")
+    results.append(dict(case="kv_append_q8", err=err, rel_err=None, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    del cache, ref, k_pages, v_pages, k_scales, v_scales
+    torch.cuda.empty_cache()
+
+
+def check_ragged(torch, gen, dev, results: list, q8: bool = False) -> None:
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.ragged_paged_attention import (
         ragged_flash_attention,
+        ragged_flash_attention_q8,
         ragged_paged_attention_ref,
     )
 
+    name = "ragged_q8" if q8 else "ragged"
+    kname = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
     R, T, layer = 64, 2048, 1
     # rows 0-1: 512-token prefill chunks at q_offset 0 and 1024; rows 2-61:
     # decode rows over 1-4k contexts; rows 62-63: empty (padding rows)
@@ -279,7 +413,7 @@ def check_ragged(torch, gen, dev, results: list) -> None:
     spans = [(512, 0), (512, 1024)] + [(1, n - 1) for n in dec] + [(0, 0), (0, 0)]
     kv_lens = [q + p for q, p in spans[:62]] + [0, 0]
     n_pages = 2 + sum(max(1, -(-n // PS)) for n in kv_lens)
-    k_pages, v_pages = _cache(torch, gen, dev, 2, n_pages)
+    k_pages, v_pages, k_scales, v_scales = cache = _cache(torch, gen, dev, 2, n_pages, q8)
     pt = _page_table(torch, gen, dev, kv_lens, n_pages)
     tok_row, tok_pos = [], []
     for r, (q_len, p0) in enumerate(spans):
@@ -295,32 +429,36 @@ def check_ragged(torch, gen, dev, results: list) -> None:
     kw = dict(page_size=PS, n_kv=HKV)
 
     def kern():
+        if q8:
+            return ragged_flash_attention_q8(q, k_pages, v_pages, k_scales, v_scales, pt, tr,
+                                             tp, kv, layer, **kw)
         return ragged_flash_attention(q, k_pages, v_pages, pt, tr, tp, kv, layer, **kw)
 
     def plain():
-        return ragged_paged_attention_ref(q, k_pages, v_pages, pt, tr, tp, kv, layer, **kw)
+        return ragged_paged_attention_ref(q, k_pages, v_pages, pt, tr, tp, kv, layer,
+                                          k_scales=k_scales, v_scales=v_scales, **kw)
 
-    before = LAUNCHES["ragged_paged_attention"]
+    before = LAUNCHES[kname]
     got = kern()
     torch.cuda.synchronize()
-    assert LAUNCHES["ragged_paged_attention"] == before + 1
+    assert LAUNCHES[kname] == before + 1
     want = plain()
     err, rel, close = attention_errors(torch, got[:n_real], want[:n_real])
     zeros_ok = bool((got[n_real:] == 0).all().item())
     finite = bool(torch.isfinite(got.float()).all().item())
-    log(f"  ragged: max_abs_err {err:.3e}, row-relative {rel:.3e} (limit per row: "
+    log(f"  {name}: max_abs_err {err:.3e}, row-relative {rel:.3e} (limit per row: "
         f"min({ATOL}, {REL_TOL} * max|want|)), "
         f"padding tokens zero: {zeros_ok}")
     if not (close and zeros_ok and finite):
-        fail(f"ragged: kernel disagrees with its plain version (row-relative {rel}, "
+        fail(f"{name}: kernel disagrees with its plain version (row-relative {rel}, "
              f"zeros {zeros_ok}, finite {finite})")
     ms = time_ms(torch, kern)
-    plain_ms = time_ms(torch, plain, iters=5, warmup=1)
+    plain_ms = time_ms(torch, plain, iters=3 if q8 else 5, warmup=1)
     # yardstick on the same work: the two prefill rows as one call (B=2,
     # Sq=512), the 60 decode rows as another (B=60, Sq=1), each over its
     # rows' KV padded to the longest of them and masked
     S = max(kv_lens)
-    k_rows, v_rows = _gather_dense(torch, k_pages, v_pages, pt, layer, S)
+    k_rows, v_rows = _gather_dense(torch, cache, pt, layer, S)
     pre, dec_r = slice(0, 2), slice(2, 62)
     s_pre, s_dec = max(kv_lens[pre]), max(kv_lens[dec_r])
     q_pre = q[:1024].reshape(2, 512, H, D).transpose(1, 2).contiguous()
@@ -336,16 +474,77 @@ def check_ragged(torch, gen, dev, results: list) -> None:
         (q_dec.contiguous(), k_rows[dec_r, :, :s_dec].contiguous(),
          v_rows[dec_r, :, :s_dec].contiguous(), m_dec),
     ])
-    kv_bytes = sum(kv_lens) * HKV * D * 2 * 2
     io_bytes = q.numel() * 2 * 2 + pt.numel() * 4 + T * 8 + R * 4
     flops = _attention_flops([(p0 + i, kl) for (q_len, p0), kl in zip(spans, kv_lens)
                               for i in range(q_len)])
-    b_ms, b_by = bound_ms(kv_bytes + io_bytes, flops)
-    log(f"  ragged: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+    b_ms, b_by = bound_ms(_kv_bytes(sum(kv_lens), q8) + io_bytes, flops)
+    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
-    results.append(dict(case="ragged", err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+    results.append(dict(case=name, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-    del k_pages, v_pages, k_rows, v_rows
+    del k_pages, v_pages, k_scales, v_scales, cache, k_rows, v_rows
+    torch.cuda.empty_cache()
+
+
+def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, group: int,
+              out_f32: bool, results: list) -> None:
+    """The fused dequant matmul against its plain version at one shape."""
+    from finchat_tpu_torch.models.quant import dequantize, quantize, quantize_int4
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+    from finchat_tpu_torch.ops.quant_matmul import (
+        quant_matmul_int4,
+        quant_matmul_int8,
+        quant_matmul_ref,
+    )
+
+    w = torch.randn((K, N), generator=gen, device=dev, dtype=torch.bfloat16).mul_(K ** -0.5)
+    qt = quantize_int4(w, group) if mode == "int4" else quantize(w)
+    del w
+    x = torch.randn((M, K), generator=gen, device=dev, dtype=torch.bfloat16)
+    out_dtype = torch.float32 if out_f32 else None
+    kname = f"quant_matmul_{mode}"
+    fn = quant_matmul_int4 if mode == "int4" else quant_matmul_int8
+
+    def kern():
+        return fn(x, qt.q, qt.scale, out_dtype=out_dtype)
+
+    def plain():
+        return quant_matmul_ref(x, qt, out_dtype=out_dtype)
+
+    before = LAUNCHES[kname]
+    got = kern()
+    torch.cuda.synchronize()
+    assert LAUNCHES[kname] == before + 1
+    want = plain()
+    w_deq = dequantize(qt, torch.bfloat16)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    finite = bool(torch.isfinite(got.float()).all().item())
+    if out_f32:
+        limit = K * QMM_F32_TOL * (x.float().abs() @ w_deq.float().abs())
+        how = f"per element {K} * 2^-22 * (|x| @ |w|)"
+    else:
+        limit = QMM_ROW_TOL * want.float().abs().amax(-1, keepdim=True)
+        how = "per row 2^-7 * max|want row|"
+    worst = (diff / limit.clamp(min=1e-30)).max().item()
+    log(f"  {name}: max_abs_err {err:.3e}, worst error / limit {worst:.3f} ({how})")
+    if not (worst <= 1.0 and finite):
+        fail(f"{name}: kernel disagrees with its plain version (error / limit {worst})")
+    del limit, diff
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain)
+    if out_f32:
+        lib_ms = time_ms(torch, lambda: torch.mm(x, w_deq, out_dtype=torch.float32))
+    else:
+        lib_ms = time_ms(torch, lambda: torch.matmul(x, w_deq))
+    moved = (x.numel() * 2 + qt.q.numel() + qt.scale.numel() * 4
+             + M * N * (4 if out_f32 else 2))
+    b_ms, b_by = bound_ms(moved, 2.0 * M * K * N)
+    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul (bf16 weight) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results.append(dict(case=name, err=err, rel_err=worst, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    del qt, w_deq, x, got, want
     torch.cuda.empty_cache()
 
 
@@ -353,29 +552,59 @@ def check_ragged(torch, gen, dev, results: list) -> None:
 # phase 3: serve
 # --------------------------------------------------------------------------
 
-async def serve(torch, dev) -> dict:
+CONTEXTS = [
+    "Income: 6,200/month. Savings goal: emergency fund of 15,000.",
+    "Recent transactions: groceries 142.10, rent 1,850.00, utilities 96.45. " * 6,
+    "Accounts: checking 3,410; savings 8,900; 401k 41,250; credit card balance 1,240. " * 12,
+    "Goal: pay off a 9,800 car loan at 6.9% APR within 18 months. " * 20,
+    "User profile: 29 years old, salaried, contributes 6% to a 401k with 4% match. " * 4,
+    "Spending last month: dining 410, travel 980, subscriptions 64, fuel 188. " * 10,
+    "Debts: student loan 22,400 at 5.1%; no other debt. Risk appetite: moderate. " * 16,
+    "Question context: considering a Roth IRA versus paying extra on the student loan. " * 8,
+]
+
+
+async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: bool) -> dict:
+    """Serve ``n_requests`` greedy requests through ``LLMService`` on one
+    serving plane (``PLANES``): half at once, the rest once a first token
+    streams. Launch counts are set to 0 just before and read just after."""
     from finchat_tpu_torch.engine.engine import InferenceEngine
     from finchat_tpu_torch.engine.generator import EngineGenerator
     from finchat_tpu_torch.engine.sampler import SamplingParams
     from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
     from finchat_tpu_torch.models.llama import PRESETS, init_params, n_params
+    from finchat_tpu_torch.models.quant import init_quantized_params
     from finchat_tpu_torch.models.tokenizer import ByteTokenizer
     from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from finchat_tpu_torch.serve.simple import LLMService
     from finchat_tpu_torch.utils.config import EngineConfig
     from finchat_tpu_torch.utils.metrics import METRICS
 
+    spec = PLANES[plane]
     config = PRESETS["llama3-8b"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    gc.collect()  # the previous plane's tree and cache are gone before this one's
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(config, gen, dev)
+    if spec["quant"]:
+        params = init_quantized_params(config, gen, dev, mode=spec["quant"],
+                                       group_size=spec["group"])
+    else:
+        params = init_params(config, gen, dev)
     torch.cuda.synchronize()
-    log(f"  llama3-8b: {config.n_layers} layers, {n_params(config) / 1e9:.2f} B params bf16, "
-        f"random init {time.perf_counter() - t0:.1f} s")
+    init_s = time.perf_counter() - t0
+    weight_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    log(f"  llama3-8b: {config.n_layers} layers, {n_params(config) / 1e9:.2f} B params, "
+        f"weights {weight_gb:.2f} GB on the card ({plane}), random init {init_s:.1f} s, "
+        f"init peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above the "
+        f"{base / 1e9:.2f} GB held before")
     ecfg = EngineConfig(prefix_cache=False, session_cache=False, preemption=False,
-                        breaker_threshold=0)
-    engine = InferenceEngine(config, params, ecfg, device=dev)
+                        breaker_threshold=0, kv_quant=spec["kv_quant"])
+    engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
+                             quant_group=spec["group"])
     tok = ByteTokenizer()
     sched = ContinuousBatchingScheduler(engine, tok.eos_id)
     handles = []
@@ -388,34 +617,26 @@ async def serve(torch, dev) -> dict:
 
     sched.submit = recording_submit
     system_prompt = (REPO / "prompts" / "system_prompt.txt").read_text()
-    max_new = 64
     svc = LLMService(EngineGenerator(sched, tok), system_prompt,
                      SamplingParams(temperature=0.0, max_new_tokens=max_new))
-    contexts = [
-        "Income: 6,200/month. Savings goal: emergency fund of 15,000.",
-        "Recent transactions: groceries 142.10, rent 1,850.00, utilities 96.45. " * 6,
-        "Accounts: checking 3,410; savings 8,900; 401k 41,250; credit card balance 1,240. " * 12,
-        "Goal: pay off a 9,800 car loan at 6.9% APR within 18 months. " * 20,
-        "User profile: 29 years old, salaried, contributes 6% to a 401k with 4% match. " * 4,
-        "Spending last month: dining 410, travel 980, subscriptions 64, fuel 188. " * 10,
-        "Debts: student loan 22,400 at 5.1%; no other debt. Risk appetite: moderate. " * 16,
-        "Question context: considering a Roth IRA versus paying extra on the student loan. " * 8,
-    ]
     messages = [f"Request {i}: what should I do next with my money?" for i in range(8)]
+    mixed0 = METRICS.get("finchat_mixed_dispatches_total")
+    coexist0 = METRICS.get("finchat_coexist_iterations_total")
     reset_launches()
     await sched.start()
 
     async def one(i: int) -> str:
         text = []
-        async for chunk in svc.process_message(messages[i], context=contexts[i]):
+        async for chunk in svc.process_message(messages[i], context=CONTEXTS[i]):
             text.append(chunk)
         return "".join(text)
 
     t_start = time.perf_counter()
-    wave1 = [asyncio.create_task(one(i)) for i in range(4)]
+    first = n_requests // 2
+    wave1 = [asyncio.create_task(one(i)) for i in range(first)]
     while not any(h.generated > 0 for h in handles):
         await asyncio.sleep(0.005)
-    wave2 = [asyncio.create_task(one(i)) for i in range(4, 8)]
+    wave2 = [asyncio.create_task(one(i)) for i in range(first, n_requests)]
     await asyncio.gather(*wave1, *wave2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
@@ -424,14 +645,17 @@ async def serve(torch, dev) -> dict:
     prompt_lens = [len(h.prompt_ids) for h in handles]
     log(f"  served {len(handles)} requests in {wall:.2f} s; prompt tokens {prompt_lens}")
     log(f"  launches during serve: {launches}")
-    if len(handles) != 8 or not all(h.finished and h.generated > 0 for h in handles):
-        fail("serve: not every request completed with tokens")
+    if len(handles) != n_requests or not all(h.finished and h.generated > 0 for h in handles):
+        fail(f"serve {plane}: not every request completed with tokens")
     if not all(h.generated == max_new or h.history[-1] == tok.eos_id for h in handles):
-        fail("serve: a request ended before max_new_tokens without EOS")
-    if not all(launches[k] > 0 for k in launches):
-        fail(f"serve: a kernel was not launched on the main path: {launches}")
+        fail(f"serve {plane}: a request ended before max_new_tokens without EOS")
+    missing = [k for k in spec["kernels"] if launches[k] == 0]
+    if missing:
+        fail(f"serve {plane}: kernels not launched on the main path: {missing}")
     if sched.allocator.used_count != 0:
-        fail(f"serve: {sched.allocator.used_count} KV pages still allocated after the run")
+        fail(f"serve {plane}: {sched.allocator.used_count} KV pages still allocated")
+    if sched.quant_label != plane.replace("g128", ""):
+        fail(f"serve {plane}: the scheduler reports quant label {sched.quant_label}")
     ttfts = sorted(h.first_token_at - h.submitted_at for h in handles)
     ttft_p50 = statistics.median(ttfts)
     decode_tokens = sum(h.generated - 1 for h in handles)
@@ -440,18 +664,25 @@ async def serve(torch, dev) -> dict:
     agg_tps = decode_tokens / max(t_last - t_first, 1e-9)
     per_stream = statistics.median(
         (h.generated - 1) / max(h.last_token_at - h.first_token_at, 1e-9) for h in handles)
-    mixed = METRICS.get("finchat_mixed_dispatches_total")
-    coexist = METRICS.get("finchat_coexist_iterations_total")
-    log(f"  ragged rounds {mixed:.0f}, coexist iterations {coexist:.0f}")
+    mixed = METRICS.get("finchat_mixed_dispatches_total") - mixed0
+    coexist = METRICS.get("finchat_coexist_iterations_total") - coexist0
+    log(f"  ragged rounds {mixed:.0f}, coexist iterations {coexist:.0f}; gauges: "
+        f"weight bits {METRICS.get('finchat_quant_weight_bits'):.0f}, "
+        f"KV bits {METRICS.get('finchat_quant_kv_bits'):.0f}")
     if mixed < 1:
-        fail("serve: no packed ragged round ran (prefill never coexisted with decode)")
-    check = teacher_forced_check(torch, params, config, handles)
-    steps = profile_steps(torch, engine, context=max(prompt_lens), active=len(handles))
-    del engine, sched, svc
-    return dict(ttft_p50_s=ttft_p50, ttft_s=ttfts, decode_tokens_per_s=agg_tps,
+        fail(f"serve {plane}: no packed ragged round ran (prefill never coexisted with decode)")
+    check = teacher_forced_check(torch, params, config, handles, spec["kv_quant"])
+    steps = (profile_steps(torch, engine, context=max(prompt_lens), active=len(handles))
+             if profile else None)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sched.submit = submit  # break the wrapper's cycle so the tree can go
+    del engine, sched, svc, params, recording_submit, submit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(plane=plane, ttft_p50_s=ttft_p50, ttft_s=ttfts, decode_tokens_per_s=agg_tps,
                 decode_tokens_per_s_per_stream=per_stream, wall_s=wall,
                 prompt_tokens=prompt_lens, launches=launches, ragged_rounds=mixed,
-                teacher_forced=check, steps=steps)
+                weight_gb=weight_gb, peak_gb=peak_gb, teacher_forced=check, steps=steps)
 
 
 def _kernel_class(name: str) -> str:
@@ -460,6 +691,8 @@ def _kernel_class(name: str) -> str:
         return "attention (ours)"
     if "kv_append" in n:
         return "kv_append (ours)"
+    if "quant_matmul_kernel" in n:
+        return "quant_matmul (ours)"
     if any(k in n for k in ("gemm", "gemv", "xmma", "cutlass", "sm90", "nvjet", "matmul")):
         return "matmul (cuBLAS)"
     return "other"
@@ -532,13 +765,48 @@ def profile_steps(torch, engine, context: int, active: int) -> dict:
     return out
 
 
-def teacher_forced_check(torch, params, config, handles) -> dict:
+class _Dequantized:
+    """A stacked quantized leaf read one layer at a time as its dequantized
+    bf16 weight (``leaf[i]``, how the forward slices a layer), so the plain
+    forward never holds the whole bf16 tree."""
+
+    def __init__(self, leaf):
+        self.leaf = leaf
+
+    def __getitem__(self, i):
+        from finchat_tpu_torch.models.quant import dequantize
+
+        return dequantize(self.leaf[i])
+
+
+def teacher_forced_check(torch, params, config, handles, kv_quant: str) -> dict:
     """Re-run the shortest served stream through the plain dense forward
-    (same weights, plain attention, no cache) and require the served greedy
+    (no cache, plain attention, plain matmuls) and require the served greedy
     token wherever the plain forward's top-2 logit margin exceeds 0.25 —
     bf16 activations through 32 layers move logits by a few hundredths, so
-    a larger margin cannot flip."""
-    from finchat_tpu_torch.models.llama import forward_full
+    a larger margin cannot flip. A quantized tree runs on its dequantized
+    weights; an int8 KV cache is mirrored by quantizing and dequantizing
+    every K/V row (``quantize_kv_rows``) before attention, so both sides see
+    the same values."""
+    from finchat_tpu_torch.engine.kv_cache import quantize_kv_rows
+    from finchat_tpu_torch.models.llama import dense_causal_attention, forward
+    from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dequantize
+    from finchat_tpu_torch.ops.refs import mha_reference
+
+    def plain_leaf(leaf):
+        return _Dequantized(leaf) if isinstance(leaf, (QTensor, Q4Tensor)) else leaf
+
+    plain = {**params, "layers": {n: plain_leaf(v) for n, v in params["layers"].items()}}
+    if isinstance(params.get("lm_head"), (QTensor, Q4Tensor)):
+        plain["lm_head"] = dequantize(params["lm_head"])
+
+    def kv_roundtrip(x):  # [B, S, Hkv, hd]
+        B, S, n_kv, hd = x.shape
+        q8, sc = quantize_kv_rows(x.reshape(B, S, n_kv * hd), n_kv)
+        return (q8.reshape(B, S, n_kv, hd).float() * sc[..., None]).to(x.dtype)
+
+    def q8_attention(q, k, v, cache, layer_idx):
+        return mha_reference(q, kv_roundtrip(k), kv_roundtrip(v), causal=True), cache
 
     h = min(handles, key=lambda x: len(x.prompt_ids))
     ids = h.history[:-1]
@@ -546,8 +814,10 @@ def teacher_forced_check(torch, params, config, handles) -> dict:
     dev = params["embed"].device
     tokens = torch.tensor([ids], dtype=torch.int64, device=dev)
     positions = torch.arange(len(ids), device=dev)[None]
+    attention = q8_attention if kv_quant else dense_causal_attention
     with torch.no_grad():
-        logits = forward_full(params, tokens, positions, config=config)[0, n_prompt - 1:]
+        logits, _ = forward(plain, tokens, positions, config=config, attention=attention)
+        logits = logits[0, n_prompt - 1:]
     if not bool(torch.isfinite(logits).all().item()):
         fail("teacher-forced check: non-finite logits from the plain forward")
     top2 = torch.topk(logits, 2, dim=-1)
@@ -562,6 +832,7 @@ def teacher_forced_check(torch, params, config, handles) -> dict:
         f"argmax; {int(decided.sum())} have margin > 0.25, {bad} of those disagree")
     if bad:
         fail("teacher-forced check: served tokens disagree with the plain forward")
+    del plain, logits
     return dict(tokens=n, agree=int(agree.sum()), decided=int(decided.sum()))
 
 
@@ -591,7 +862,7 @@ def main() -> None:
     build_s = kernels.build_all()
     log(f"  kernels built in {build_s:.1f} s from {kernels.CSRC}")
 
-    log("phase 2: kernels against their plain versions (bf16, llama3-8b shapes)")
+    log("phase 2: kernels against their plain versions (llama3-8b shapes)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     results: list[dict] = []
@@ -601,37 +872,76 @@ def main() -> None:
     check_paged(torch, "paged_prefill_q1024", gen, dev, 512, [1024] * 4, [1536] * 4, results)
     check_append(torch, gen, dev, results)
     check_ragged(torch, gen, dev, results)
+    log("  int8 KV cache:")
+    check_paged(torch, "paged_q8_decode", gen, dev, 1, [n - 1 for n in dec_lens], dec_lens,
+                results, q8=True)
+    check_paged(torch, "paged_q8_prefill_q0", gen, dev, 512, [0] * 4, [512] * 4, results,
+                q8=True)
+    check_paged(torch, "paged_q8_prefill_q1024", gen, dev, 512, [1024] * 4, [1536] * 4,
+                results, q8=True)
+    check_append_q8(torch, gen, dev, results)
+    check_ragged(torch, gen, dev, results, q8=True)
+    log("  fused dequant matmul:")
+    check_qmm(torch, "int8_m64_4096x14336", gen, dev, 64, 4096, 14336, "int8", 0, False, results)
+    check_qmm(torch, "int8_m2048_4096x14336", gen, dev, 2048, 4096, 14336, "int8", 0, False,
+              results)
+    check_qmm(torch, "int8_m64_head_fp32", gen, dev, 64, 4096, 128256, "int8", 0, True, results)
+    check_qmm(torch, "int4_g0_m64_4096x14336", gen, dev, 64, 4096, 14336, "int4", 0, False,
+              results)
+    check_qmm(torch, "int4_g128_m64_4096x14336", gen, dev, 64, 4096, 14336, "int4", 128, False,
+              results)
 
-    log("phase 3: serve llama3-8b (bf16, random weights) through LLMService")
-    serve_stats = asyncio.run(serve(torch, dev))
-    log(f"  TTFT p50 {serve_stats['ttft_p50_s']:.3f} s; decode "
-        f"{serve_stats['decode_tokens_per_s']:.1f} tokens/s aggregate, "
-        f"{serve_stats['decode_tokens_per_s_per_stream']:.1f} per stream ({card})")
-    log("serve: " + json.dumps(serve_stats))
+    serves = {}
+    for phase, plane, n_req, max_new, profile in ((3, "bf16", 8, 64, True),
+                                                  (4, "int8+kv8", 8, 64, True),
+                                                  (5, "int4g128+kv8", 2, 16, False)):
+        log(f"phase {phase}: serve llama3-8b ({plane}, random weights) through LLMService")
+        stats = asyncio.run(serve(torch, dev, plane, n_req, max_new, profile))
+        log(f"  TTFT p50 {stats['ttft_p50_s']:.3f} s; decode "
+            f"{stats['decode_tokens_per_s']:.1f} tokens/s aggregate, "
+            f"{stats['decode_tokens_per_s_per_stream']:.1f} per stream ({card})")
+        log("serve: " + json.dumps(stats))
+        serves[plane] = stats
 
     src = "finchat_tpu_torch/csrc/"
     by_case = {r["case"]: r for r in results}
-    launches = serve_stats["launches"]
+    # (kernel, phase-2 case, source, TPU kernel it replaces, serving plane
+    # whose run gives its launches)
+    paged = "finchat_tpu/ops/paged_attention.py:305"
+    q8_paged = "finchat_tpu/ops/paged_attention.py:221"
+    qmm = "finchat_tpu/ops/quant_matmul.py:144"
     rows = [
-        ("paged_attention", "paged_decode", "paged_attention.cu",
-         "finchat_tpu/ops/paged_attention.py:305"),
-        ("paged_attention", "paged_prefill_q0", "paged_attention.cu",
-         "finchat_tpu/ops/paged_attention.py:305"),
-        ("paged_attention", "paged_prefill_q1024", "paged_attention.cu",
-         "finchat_tpu/ops/paged_attention.py:305"),
-        ("kv_append", "kv_append", "kv_append.cu", "finchat_tpu/ops/kv_append.py:241"),
+        ("paged_attention", "paged_decode", "paged_attention.cu", paged, "bf16"),
+        ("paged_attention", "paged_prefill_q0", "paged_attention.cu", paged, "bf16"),
+        ("paged_attention", "paged_prefill_q1024", "paged_attention.cu", paged, "bf16"),
+        ("kv_append", "kv_append", "kv_append.cu", "finchat_tpu/ops/kv_append.py:241", "bf16"),
         ("ragged_paged_attention", "ragged", "ragged_paged_attention.cu",
-         "finchat_tpu/ops/ragged_paged_attention.py:383"),
+         "finchat_tpu/ops/ragged_paged_attention.py:383", "bf16"),
+        ("paged_attention_q8", "paged_q8_decode", "paged_attention.cu", q8_paged, "int8+kv8"),
+        ("paged_attention_q8", "paged_q8_prefill_q0", "paged_attention.cu", q8_paged,
+         "int8+kv8"),
+        ("paged_attention_q8", "paged_q8_prefill_q1024", "paged_attention.cu", q8_paged,
+         "int8+kv8"),
+        ("kv_append_q8", "kv_append_q8", "kv_append.cu", "finchat_tpu/ops/kv_append.py:175",
+         "int8+kv8"),
+        ("ragged_paged_attention_q8", "ragged_q8", "ragged_paged_attention.cu",
+         "finchat_tpu/ops/ragged_paged_attention.py:478", "int8+kv8"),
+        ("quant_matmul_int8", "int8_m64_4096x14336", "quant_matmul.cu", qmm, "int8+kv8"),
+        ("quant_matmul_int8", "int8_m2048_4096x14336", "quant_matmul.cu", qmm, "int8+kv8"),
+        ("quant_matmul_int8", "int8_m64_head_fp32", "quant_matmul.cu", qmm, "int8+kv8"),
+        ("quant_matmul_int4", "int4_g0_m64_4096x14336", "quant_matmul.cu", qmm, "int4g128+kv8"),
+        ("quant_matmul_int4", "int4_g128_m64_4096x14336", "quant_matmul.cu", qmm,
+         "int4g128+kv8"),
     ]
     table = []
-    for kname, case, source, replaces in rows:
+    for kname, case, source, replaces, plane in rows:
         r = by_case[case]
         table.append({
             "name": kname if case == kname else f"{kname}[{case}]",
             "route": "cuda", "source": src + source, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "launches": serves[plane]["launches"][kname], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

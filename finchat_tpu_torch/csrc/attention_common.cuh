@@ -8,9 +8,13 @@
 //   for each staged key tile (KT keys of one page) in the block's page range
 //   that the tile needs (key < kv_len and key <= the tile's largest query
 //   position):
-//     1. stage the [KT, D] K and V slice of head g in shared memory (K rows
-//        padded by one 32-bit word so the per-key reads of step 2 hit
-//        distinct banks);
+//     1. stage the [KT, D] K and V slice of head g in shared memory as bf16
+//        (K rows padded by one 32-bit word so the per-key reads of step 2
+//        hit distinct banks) through the cache's loader: KVBf16 copies
+//        bf16 pages, KVInt8 dequantizes int8 pages on the way in as
+//        bf16(float(q8) * scale[head][token]) — the cast point of the TPU
+//        kernels (_paged_kernel_q8, _ragged_kernel_q8) — so every step
+//        below is the same code for both cache types;
 //     2. S[r, t] = scale * q_r . k_t, masked to -inf past kv_len, in the
 //        causal future of the row's own position, or on a padding row;
 //     3. online softmax per row in fp32 (m, l in shared memory), the
@@ -31,7 +35,67 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace fct {
+
+// ---------------------------------------------------------------------------
+// KV tile loaders: 8 consecutive head-dim values (one 16-byte bf16 chunk,
+// columns [c*8, c*8+8)) of KV head g at token `off` of physical page `phys`,
+// from one layer of the cache [P, page_size, Hkv*D].
+// ---------------------------------------------------------------------------
+
+struct KVBf16 {
+  const __nv_bfloat16* k;  // the layer's pages
+  const __nv_bfloat16* v;
+  long hd;                 // Hkv * D
+  int d;
+  int ps;
+
+  __device__ __forceinline__ uint4 load(const __nv_bfloat16* p, long phys, int off, int g,
+                                        int c) const {
+    return *reinterpret_cast<const uint4*>(p + (phys * ps + off) * hd + (long)g * d + c * 8);
+  }
+  __device__ __forceinline__ uint4 k8(long phys, int off, int g, int c) const {
+    return load(k, phys, off, g, c);
+  }
+  __device__ __forceinline__ uint4 v8(long phys, int off, int g, int c) const {
+    return load(v, phys, off, g, c);
+  }
+};
+
+// int8 pages with per-token-per-head fp32 scales [P, spad, page_size]
+// (spad = Hkv padded to 8 rows, the cache's scale_rows layout)
+struct KVInt8 {
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  long hd;
+  int d;
+  int ps;
+  int spad;
+
+  __device__ __forceinline__ uint4 load(const int8_t* p, const float* s, long phys, int off,
+                                        int g, int c) const {
+    const uint2 raw =
+        *reinterpret_cast<const uint2*>(p + (phys * ps + off) * hd + (long)g * d + c * 8);
+    const float sc = s[(phys * spad + g) * ps + off];
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+    uint4 out;
+    out.x = pack_bf16((float)b[0] * sc, (float)b[1] * sc);
+    out.y = pack_bf16((float)b[2] * sc, (float)b[3] * sc);
+    out.z = pack_bf16((float)b[4] * sc, (float)b[5] * sc);
+    out.w = pack_bf16((float)b[6] * sc, (float)b[7] * sc);
+    return out;
+  }
+  __device__ __forceinline__ uint4 k8(long phys, int off, int g, int c) const {
+    return load(k, ks, phys, off, g, c);
+  }
+  __device__ __forceinline__ uint4 v8(long phys, int off, int g, int c) const {
+    return load(v, vs, phys, off, g, c);
+  }
+};
 
 constexpr int kThreads = 128;
 constexpr int kMaxRows = 64;             // query rows per block (group * tile tokens)
@@ -57,13 +121,12 @@ struct TileOut {
   int H;
 };
 
-template <int D, int MAXROWS>
+template <int D, int MAXROWS, class KV>
 __device__ __forceinline__ void attend_tile(
     const __nv_bfloat16* __restrict__ q_tile, long q_tok_stride, TileOut dst,
-    const int* s_pos, int n_tok, int bq, int group, int g,
-    const __nv_bfloat16* __restrict__ k_layer, const __nv_bfloat16* __restrict__ v_layer,
+    const int* s_pos, int n_tok, int bq, int group, int g, const KV& kv,
     const int* __restrict__ pt_row, int kv_len, int ps, int kt, int p_begin, int p_end,
-    int hkv, float scale, unsigned char* smem) {
+    float scale, unsigned char* smem) {
   constexpr int RG = kThreads / D;         // row groups sharing one column
   constexpr int MAXR = MAXROWS / RG;       // accumulator rows per thread
   constexpr int KW = D / 2 + 1;            // padded K row stride in words
@@ -71,7 +134,6 @@ __device__ __forceinline__ void attend_tile(
   constexpr int RCH = MAXROWS < 16 ? MAXROWS : 16;  // score rows per pass
   const int tid = threadIdx.x;
   const int R = group * bq;
-  const long HD = (long)hkv * D;
 
   uint32_t* Ks = reinterpret_cast<uint32_t*>(smem);
   __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + (size_t)kt * KW * 4);
@@ -112,19 +174,16 @@ __device__ __forceinline__ void attend_tile(
 
   for (int k0 = k_begin; k0 < k_end; k0 += kt) {
     const long phys = pt_row[k0 / ps];
-    const long row0 = phys * ps + (k0 % ps);  // kt divides ps: one page per tile
-    const __nv_bfloat16* kp = k_layer + row0 * HD + (long)g * D;
-    const __nv_bfloat16* vp = v_layer + row0 * HD + (long)g * D;
+    const int off0 = k0 % ps;  // kt divides ps: one page per tile
     for (int idx = tid; idx < kt * V8; idx += kThreads) {
       const int t = idx / V8, c = idx % V8;
-      const uint4 kv = *reinterpret_cast<const uint4*>(kp + (long)t * HD + c * 8);
+      const uint4 kc = kv.k8(phys, off0 + t, g, c);
       uint32_t* kd = Ks + t * KW + c * 4;
-      kd[0] = kv.x;
-      kd[1] = kv.y;
-      kd[2] = kv.z;
-      kd[3] = kv.w;
-      *reinterpret_cast<uint4*>(Vs + t * D + c * 8) =
-          *reinterpret_cast<const uint4*>(vp + (long)t * HD + c * 8);
+      kd[0] = kc.x;
+      kd[1] = kc.y;
+      kd[2] = kc.z;
+      kd[3] = kc.w;
+      *reinterpret_cast<uint4*>(Vs + t * D + c * 8) = kv.v8(phys, off0 + t, g, c);
     }
     __syncthreads();
 
@@ -255,47 +314,15 @@ inline size_t smem_bytes_tc() {
   return kPosBytes + 3 * (size_t)kTcRows * kTcStride * 2;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // R = group * bq must be 64 and D 128; writes the final output (no splits).
+template <class KV>
 __device__ __forceinline__ void attend_tile_tc(
     const __nv_bfloat16* __restrict__ q_tile, long q_tok_stride, TileOut dst,
-    const int* s_pos, int n_tok, int bq, int group, int g,
-    const __nv_bfloat16* __restrict__ k_layer, const __nv_bfloat16* __restrict__ v_layer,
-    const int* __restrict__ pt_row, int kv_len, int ps, int p_begin, int p_end, int hkv,
-    float scale, unsigned char* smem) {
+    const int* s_pos, int n_tok, int bq, int group, int g, const KV& kv,
+    const int* __restrict__ pt_row, int kv_len, int ps, int p_begin, int p_end, float scale,
+    unsigned char* smem) {
   constexpr int D = 128, ST = kTcStride, KT = kTcKeys, C8 = D / 8;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long HD = (long)hkv * D;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + kTcRows * ST;
   __nv_bfloat16* Vs = Ks + KT * ST;
@@ -336,15 +363,12 @@ __device__ __forceinline__ void attend_tile_tc(
   const int mi = lane / 8, rr = lane % 8;
   for (int k0 = k_begin; k0 < k_end; k0 += KT) {
     __syncthreads();  // the previous tile's ldmatrix reads are done
-    const long row0 = (long)pt_row[k0 / ps] * ps + (k0 % ps);
-    const __nv_bfloat16* kp = k_layer + row0 * HD + (long)g * D;
-    const __nv_bfloat16* vp = v_layer + row0 * HD + (long)g * D;
+    const long phys = pt_row[k0 / ps];
+    const int off0 = k0 % ps;
     for (int idx = tid; idx < KT * C8; idx += kThreads) {
       const int t = idx / C8, c = idx % C8;
-      *reinterpret_cast<uint4*>(Ks + t * ST + c * 8) =
-          *reinterpret_cast<const uint4*>(kp + (long)t * HD + c * 8);
-      *reinterpret_cast<uint4*>(Vs + t * ST + c * 8) =
-          *reinterpret_cast<const uint4*>(vp + (long)t * HD + c * 8);
+      *reinterpret_cast<uint4*>(Ks + t * ST + c * 8) = kv.k8(phys, off0 + t, g, c);
+      *reinterpret_cast<uint4*>(Vs + t * ST + c * 8) = kv.v8(phys, off0 + t, g, c);
     }
     __syncthreads();
 

@@ -20,6 +20,12 @@ into the layer's pages. The JAX package donates its state to every jitted
 step and aliases the append kernel's output to its input to get the same
 effect; in PyTorch a step writes the tensors it was given. The step
 functions mutate ``state`` and return it for symmetry with the reference.
+
+With ``EngineConfig.kv_quant = "int8"`` the pages are int8 with
+per-token-per-head scale planes: every write quantizes its rows (the
+quantizing append kernel, ``scatter_kv_chunk_q8``) and every attention read
+dequantizes them. ``InferenceEngine(quant="int8" | "int4")`` serves
+int8/int4 weights through the fused dequant-matmul kernel.
 """
 
 from __future__ import annotations
@@ -30,9 +36,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from finchat_tpu_torch.engine.kv_cache import PagedKVCache, scatter_kv_chunk
+from finchat_tpu_torch.engine.kv_cache import (
+    PagedKVCache,
+    scatter_kv_chunk,
+    scatter_kv_chunk_q8,
+)
 from finchat_tpu_torch.engine.sampler import sample
 from finchat_tpu_torch.models.llama import LlamaConfig, forward, lm_head
+from finchat_tpu_torch.models.quant import quantize_llama_params, validate_quant_mode
 from finchat_tpu_torch.ops.dispatch import kv_append, paged_attention, ragged_paged_attention
 from finchat_tpu_torch.utils.config import EngineConfig
 from finchat_tpu_torch.utils.logging import get_logger
@@ -56,13 +67,17 @@ def round_up_pow2(n: int) -> int:
 class DecodeState:
     """Device-resident engine state.
 
-    ``kv_gaps`` is the bounded-KV compaction offset per slot; this slice
-    does not carry bounded KV, so it stays zero and every compacted
-    expression reduces to the absolute one. ``generator`` is the sampling
-    noise source (the JAX package's ``rng`` key)."""
+    ``k_scales``/``v_scales`` are the int8 cache's scale planes, ``None``
+    for a float cache (the JAX package keeps placeholders there only for
+    its pytree's shape). ``kv_gaps`` is the bounded-KV compaction offset
+    per slot; this port does not carry bounded KV yet, so it stays zero and
+    every compacted expression reduces to the absolute one. ``generator``
+    is the sampling noise source (the JAX package's ``rng`` key)."""
 
-    k_pages: torch.Tensor  # [L, P, page_size, Hkv*hd]
+    k_pages: torch.Tensor  # [L, P, page_size, Hkv*hd] (model dtype, or int8)
     v_pages: torch.Tensor
+    k_scales: torch.Tensor | None  # [L, P, scale_rows, page_size] fp32, int8 cache only
+    v_scales: torch.Tensor | None
     page_table: torch.Tensor  # [max_seqs, max_pages_per_seq] int32 (0 = trash)
     context_lens: torch.Tensor  # [max_seqs] int32 — tokens seen (rotary)
     last_tokens: torch.Tensor  # [max_seqs] int32 — next decode input per slot
@@ -71,20 +86,43 @@ class DecodeState:
 
 
 def create_state(config: LlamaConfig, engine_cfg: EngineConfig, max_pages_per_seq: int,
-                 device: torch.device) -> DecodeState:
-    cache = PagedKVCache.create(config, engine_cfg.num_pages, engine_cfg.page_size, device)
+                 device: torch.device, kv_quant: str = "") -> DecodeState:
+    cache = PagedKVCache.create(config, engine_cfg.num_pages, engine_cfg.page_size, device,
+                                kv_quant=kv_quant)
     B = engine_cfg.max_seqs
     gen = torch.Generator(device=device)
     gen.manual_seed(B)
     return DecodeState(
         k_pages=cache.k_pages,
         v_pages=cache.v_pages,
+        k_scales=cache.k_scales,
+        v_scales=cache.v_scales,
         page_table=torch.zeros((B, max_pages_per_seq), dtype=I32, device=device),
         context_lens=torch.zeros((B,), dtype=I32, device=device),
         last_tokens=torch.zeros((B,), dtype=I32, device=device),
         kv_gaps=torch.zeros((B,), dtype=I32, device=device),
         generator=gen,
     )
+
+
+def _cache(state: DecodeState) -> tuple:
+    """The (k_pages, v_pages, k_scales, v_scales) tuple the model forward
+    hands every attention callback (scales ``None`` for a float cache)."""
+    return (state.k_pages, state.v_pages, state.k_scales, state.v_scales)
+
+
+def _scatter_kv(cache: tuple, k: torch.Tensor, v: torch.Tensor, page_table: torch.Tensor,
+                start_pos: torch.Tensor, n_valid: torch.Tensor, page_size: int, layer: int,
+                n_kv: int) -> None:
+    """Write one chunk's K/V into the paged cache in place, quantizing for
+    an int8 cache — the one place the write path picks its cache type."""
+    k_pages, v_pages, k_scales, v_scales = cache
+    if k_pages.dtype == torch.int8:
+        scatter_kv_chunk_q8(k_pages, v_pages, k_scales, v_scales, k, v, page_table, start_pos,
+                            n_valid, page_size, layer, n_kv)
+    else:
+        scatter_kv_chunk(k_pages, v_pages, k, v, page_table, start_pos, n_valid, page_size,
+                         layer)
 
 
 def _paged_attention_fn(page_table: torch.Tensor, start_pos: torch.Tensor,
@@ -94,24 +132,25 @@ def _paged_attention_fn(page_table: torch.Tensor, start_pos: torch.Tensor,
     ``page_table`` [B, max_pages], ``start_pos`` [B] (position of the first
     query token), ``n_valid`` [B] (real tokens in this chunk; 0 for inactive
     decode slots). C == 1 writes through the in-place append (kernel on the
-    card), a prefill chunk through the indexed scatter; the write lands
-    before the attention launch on the same stream, and ``kv_len`` counts
-    the chunk's own tokens."""
+    card; the quantizing one for an int8 cache), a prefill chunk through
+    the indexed scatter; the write lands before the attention launch on the
+    same stream, and ``kv_len`` counts the chunk's own tokens."""
     kv_len = (start_pos + n_valid).to(I32)
     lane_valid = (n_valid > 0).to(I32)
 
     def attention(q, k, v, cache, layer_idx: int):
-        k_pages, v_pages = cache
+        k_pages, v_pages, k_scales, v_scales = cache
+        scales = dict(k_scales=k_scales, v_scales=v_scales)
         B, C = k.shape[:2]
         if C == 1:
             kv_new = torch.cat([k.reshape(B, 1, -1), v.reshape(B, 1, -1)], dim=-1)
             kv_append(kv_new, k_pages, v_pages, page_table, start_pos, lane_valid,
-                      layer_idx, page_size=page_size)
+                      layer_idx, page_size=page_size, n_kv=n_kv, **scales)
         else:
-            scatter_kv_chunk(k_pages, v_pages, k, v, page_table, start_pos, n_valid,
-                             page_size, layer_idx)
+            _scatter_kv(cache, k, v, page_table, start_pos, n_valid, page_size, layer_idx,
+                        n_kv)
         out = paged_attention(q, k_pages, v_pages, page_table, start_pos, kv_len,
-                              layer_idx, page_size=page_size, n_kv=n_kv)
+                              layer_idx, page_size=page_size, n_kv=n_kv, **scales)
         return out, cache
 
     return attention
@@ -141,7 +180,7 @@ def prefill_step(
         page_size, config.n_kv_heads,
     )
     hidden, _ = forward(params, tokens, positions, config=config, attention=attention,
-                        cache=(state.k_pages, state.v_pages), return_hidden=True)
+                        cache=_cache(state), return_hidden=True)
     last = (n_valid.long() - 1).clamp(min=0)
     last_hidden = hidden[torch.arange(N, device=dev), last]  # [N, D]
     last_logits = lm_head(params, last_hidden, config=config)
@@ -189,7 +228,7 @@ def decode_step(
         page_size, config.n_kv_heads,
     )
     logits, _ = forward(params, tokens, positions, config=config, attention=attention,
-                        cache=(state.k_pages, state.v_pages))
+                        cache=_cache(state))
     step_logits = logits[:, 0, :]
     next_tokens = sample(step_logits, state.generator, temperature, top_p, top_k)
     state.context_lens = (state.context_lens + n_valid).to(I32)
@@ -218,14 +257,13 @@ def _ragged_attention_fn(
     tok_wpos = (tok_pos - row_gap[safe_row]).clamp(min=0).to(I32)
 
     def attention(q, k, v, cache, layer_idx: int):
-        k_pages, v_pages = cache
+        k_pages, v_pages, k_scales, v_scales = cache
         T = k.shape[1]
-        scatter_kv_chunk(k_pages, v_pages, k.reshape(T, 1, n_kv, -1),
-                         v.reshape(T, 1, n_kv, -1), pt_tok, tok_wpos, n_valid_tok,
-                         page_size, layer_idx)
+        _scatter_kv(cache, k.reshape(T, 1, n_kv, -1), v.reshape(T, 1, n_kv, -1), pt_tok,
+                    tok_wpos, n_valid_tok, page_size, layer_idx, n_kv)
         out = ragged_paged_attention(q[0], k_pages, v_pages, page_rows, tok_row, tok_pos,
                                      row_kv_len, layer_idx, page_size=page_size, n_kv=n_kv,
-                                     kv_gap=row_gap)
+                                     kv_gap=row_gap, k_scales=k_scales, v_scales=v_scales)
         return out[None], cache
 
     return attention
@@ -274,8 +312,7 @@ def _ragged_round_math(
     attention = _ragged_attention_fn(page_rows, tok_row, tok_pos, row_kv_len, tok_valid,
                                      page_size, config.n_kv_heads, row_gap)
     hidden, _ = forward(params, tok_in[None], tok_pos[None], config=config,
-                        attention=attention, cache=(state.k_pages, state.v_pages),
-                        return_hidden=True)
+                        attention=attention, cache=_cache(state), return_hidden=True)
     h = hidden[0]  # [T, D]
     last_off = (row_len - 1).clamp(min=0)
     sel_idx = (q_start + last_off).clamp(0, T - 1).long()
@@ -332,10 +369,17 @@ class InferenceEngine:
     Runs on ``device`` — ``"cuda"`` unless the caller asks for ``"cpu"``.
     It never falls back to the CPU: on a machine without a GPU, a CUDA
     engine raises at construction. ``params`` must already live on the
-    device (the engine does not copy them: the 8B tree is 16 GB)."""
+    device (the engine does not copy them: the 8B tree is 16 GB).
+
+    ``quant`` ("int8" | "int4", ``quant_group`` rows of K per int4 scale, 0
+    = per column) serves quantized weights: a float tree is quantized here,
+    a tree that is already quantized (``models/quant.init_quantized_params``)
+    is kept as it is. ``engine_cfg.kv_quant = "int8"`` makes the page pool
+    int8 with scale planes."""
 
     def __init__(self, config: LlamaConfig, params: dict[str, Any], engine_cfg: EngineConfig,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", quant: str = "", quant_group: int = 0):
+        validate_quant_mode(quant)
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -343,14 +387,16 @@ class InferenceEngine:
                                    "(pass device='cpu' to run the plain CPU path)")
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
-        if engine_cfg.kv_quant:
-            raise NotImplementedError("int8 KV pages are not ported yet")
         if params["embed"].device != device:
             raise ValueError(f"params live on {params['embed'].device}, engine on {device}")
         if params["embed"].dtype != config.dtype:
             raise ValueError(f"params are {params['embed'].dtype}, config is {config.dtype}")
+        if quant:
+            params = quantize_llama_params(params, mode=quant, group_size=quant_group)
         self.config = config
         self.params = params
+        self.quant = quant
+        self.kv_quant = engine_cfg.kv_quant
         self.engine_cfg = engine_cfg
         self.device = device
         self.page_size = engine_cfg.page_size
@@ -358,7 +404,14 @@ class InferenceEngine:
             engine_cfg.num_pages - 1,
             -(-engine_cfg.max_seq_len // engine_cfg.page_size),
         )
-        self.state = create_state(config, engine_cfg, self.max_pages_per_seq, device)
+        self.state = create_state(config, engine_cfg, self.max_pages_per_seq, device,
+                                  kv_quant=self.kv_quant)
+
+    @property
+    def quant_label(self) -> str:
+        """The serving quant mode as one label: "bf16", "int8" or "int4",
+        with "+kv8" when the page pool is int8."""
+        return (self.quant or "bf16") + ("+kv8" if self.kv_quant else "")
 
     # --- host <-> device -------------------------------------------------
     def to_device(self, array: Any, dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -24,10 +24,13 @@ Many sequences multiplexed onto one model replica:
   freed, an error event emitted on its stream; a whole-round failure evicts
   that round's population, and the engine keeps serving the others.
 
-The serving planes this slice does not carry yet — prefix and session KV
+The serving planes this port does not carry yet — prefix and session KV
 caches, speculative decode, the fused decode loop, the free-running loop,
 bounded KV, recompute preemption and the circuit breaker — are refused at
-construction (``check_supported``) instead of being silently ignored.
+construction (``check_supported``) instead of being silently ignored. The
+quantized plane (int8/int4 weights, int8 KV pages) is served: the
+scheduler keeps the engine's quant label and sets the
+``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
 """
 
 from __future__ import annotations
@@ -63,7 +66,6 @@ def check_supported(cfg: EngineConfig) -> None:
             cfg.kv_sink_pages > 0 or cfg.kv_window_pages > 0,
         "preemption": cfg.preemption,
         "breaker_threshold > 0": cfg.breaker_threshold > 0,
-        "kv_quant": bool(cfg.kv_quant),
     }
     on = [name for name, flag in unsupported.items() if flag]
     if on:
@@ -140,6 +142,14 @@ class ContinuousBatchingScheduler:
         self._dispatch_tally = 0
         self._coexist_mark: int | None = None
         self._top_k_clamp_warned: set[int] = set()
+        # the quantized serving plane: the engine's mode as one label, and
+        # bits per weight / per KV element as gauges (the model dtype's
+        # width when that side is not quantized)
+        self.quant_label = engine.quant_label
+        elem_bits = 8 * engine.config.dtype.itemsize
+        self.metrics.set_gauge("finchat_quant_weight_bits",
+                               {"int8": 8, "int4": 4}.get(engine.quant, elem_bits))
+        self.metrics.set_gauge("finchat_quant_kv_bits", 8 if engine.kv_quant else elem_bits)
 
     # --- public API -----------------------------------------------------
     async def start(self) -> None:
@@ -460,7 +470,8 @@ class ContinuousBatchingScheduler:
         return None
 
     async def _loop(self) -> None:
-        logger.info("scheduler loop started (max_seqs=%d)", self.engine.engine_cfg.max_seqs)
+        logger.info("scheduler loop started (max_seqs=%d, quant=%s)",
+                    self.engine.engine_cfg.max_seqs, self.quant_label)
         inflight: _InFlightStep | None = None
         while self._running:
             if self._coexist_mark is not None:

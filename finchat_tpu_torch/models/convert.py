@@ -6,6 +6,9 @@ returns the port's tree of torch tensors with the same nesting and shapes.
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which torch cannot
 read directly; their bytes go through a ``uint16 -> int16 ->
 torch.bfloat16`` view, never through float32, so every bit survives.
+The JAX package's quantized leaves (``QTensor`` / ``Q4Tensor``, recognised
+by their class name and their ``q`` / ``scale`` fields, without importing
+that package) become the port's classes of the same name, bit for bit.
 """
 
 from __future__ import annotations
@@ -14,6 +17,10 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from finchat_tpu_torch.models.quant import Q4Tensor, QTensor
+
+_QUANT_CLASSES = {"QTensor": QTensor, "Q4Tensor": Q4Tensor}
 
 
 def _leaf(a: np.ndarray, device: torch.device | str) -> torch.Tensor:
@@ -29,5 +36,8 @@ def params_from_numpy(tree: Any, device: torch.device | str) -> Any:
     """Convert a (nested dict of) numpy leaves to torch tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    cls = _QUANT_CLASSES.get(type(tree).__name__)
+    if cls is not None and hasattr(tree, "q") and hasattr(tree, "scale"):
+        return cls(q=_leaf(np.asarray(tree.q), device), scale=_leaf(np.asarray(tree.scale), device))
     return _leaf(np.asarray(tree), device)
 

@@ -13,6 +13,9 @@
 - The attention inner op is a callback (``AttentionFn``), so the same
   forward serves chunked prefill, paged decode and the packed ragged round.
   The cache it receives is updated in place.
+- Every matmul goes through ``models/quant.dense``: a plain weight is
+  ``x @ w``, an int8/int4 leaf (``QTensor``/``Q4Tensor``, quantized serving)
+  the fused dequant matmul; a quantized ``lm_head`` produces fp32 logits.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+
+from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dense
 
 # attention callback signature:
 #   fn(q[B,S,H,D], k[B,S,Hkv,D], v[B,S,Hkv,D], cache, layer_idx) ->
@@ -92,38 +97,43 @@ def _check_dense(config: LlamaConfig) -> None:
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                device: torch.device | str) -> dict[str, Any]:
+                device: torch.device | str,
+                leaf_transform: Callable[[str, torch.Tensor], Any] | None = None,
+                ) -> dict[str, Any]:
     """Random weights made directly in the model dtype on ``device`` (no fp32
     intermediate: the 8B tree is 16 GB in bf16), each matmul weight scaled
     by ``fan_in ** -0.5`` as the JAX package's ``init_params`` does; norms
     are ones. ``generator`` must live on ``device``. The values differ from
     the JAX package's (another generator); tests convert a JAX tree with
-    ``models/convert.py`` instead."""
+    ``models/convert.py`` instead. ``leaf_transform(name, leaf)`` is applied
+    to each random leaf as soon as it is made, before the next one exists
+    (``models/quant.init_quantized_params`` quantizes there)."""
     _check_dense(config)
     c = config
     L, D, H, Hkv, hd, F = c.n_layers, c.dim, c.n_heads, c.n_kv_heads, c.head_dim, c.hidden_dim
 
-    def rand(shape: tuple[int, ...], fan_in: int) -> torch.Tensor:
+    def rand(name: str, shape: tuple[int, ...], fan_in: int) -> Any:
         w = torch.randn(shape, generator=generator, device=device, dtype=c.dtype)
-        return w.mul_(fan_in ** -0.5)
+        w.mul_(fan_in ** -0.5)
+        return leaf_transform(name, w) if leaf_transform is not None else w
 
     params: dict[str, Any] = {
-        "embed": rand((c.vocab_size, D), D),
+        "embed": rand("embed", (c.vocab_size, D), D),
         "layers": {
-            "attn_q": rand((L, D, H * hd), D),
-            "attn_k": rand((L, D, Hkv * hd), D),
-            "attn_v": rand((L, D, Hkv * hd), D),
-            "attn_o": rand((L, H * hd, D), H * hd),
+            "attn_q": rand("attn_q", (L, D, H * hd), D),
+            "attn_k": rand("attn_k", (L, D, Hkv * hd), D),
+            "attn_v": rand("attn_v", (L, D, Hkv * hd), D),
+            "attn_o": rand("attn_o", (L, H * hd, D), H * hd),
             "ln_attn": torch.ones((L, D), dtype=c.dtype, device=device),
             "ln_mlp": torch.ones((L, D), dtype=c.dtype, device=device),
-            "mlp_gate": rand((L, D, F), D),
-            "mlp_up": rand((L, D, F), D),
-            "mlp_down": rand((L, F, D), F),
+            "mlp_gate": rand("mlp_gate", (L, D, F), D),
+            "mlp_up": rand("mlp_up", (L, D, F), D),
+            "mlp_down": rand("mlp_down", (L, F, D), F),
         },
         "norm": torch.ones((D,), dtype=c.dtype, device=device),
     }
     if not c.tie_embeddings:
-        params["lm_head"] = rand((D, c.vocab_size), D)
+        params["lm_head"] = rand("lm_head", (D, c.vocab_size), D)
     return params
 
 
@@ -162,20 +172,20 @@ def _layer(
     c = config
     B, S, _ = x.shape
     h = rms_norm(x, lp["ln_attn"], c.norm_eps)
-    q = (h @ lp["attn_q"]).view(B, S, c.n_heads, c.head_dim)
-    k = (h @ lp["attn_k"]).view(B, S, c.n_kv_heads, c.head_dim)
-    v = (h @ lp["attn_v"]).view(B, S, c.n_kv_heads, c.head_dim)
+    q = dense(h, lp["attn_q"]).view(B, S, c.n_heads, c.head_dim)
+    k = dense(h, lp["attn_k"]).view(B, S, c.n_kv_heads, c.head_dim)
+    v = dense(h, lp["attn_v"]).view(B, S, c.n_kv_heads, c.head_dim)
     q = rope(q, positions, c.rope_theta)
     k = rope(k, positions, c.rope_theta)
 
     attn_out, cache = attention(q, k, v, cache, layer_idx)
-    x = x + attn_out.reshape(B, S, -1) @ lp["attn_o"]
+    x = x + dense(attn_out.reshape(B, S, -1), lp["attn_o"])
 
     h = rms_norm(x, lp["ln_mlp"], c.norm_eps)
-    gate = h @ lp["mlp_gate"]
-    up = h @ lp["mlp_up"]
+    gate = dense(h, lp["mlp_gate"])
+    up = dense(h, lp["mlp_up"])
     act = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
-    return x + act @ lp["mlp_down"], cache
+    return x + dense(act, lp["mlp_down"]), cache
 
 
 def forward(
@@ -209,8 +219,14 @@ def forward(
 def lm_head(params: dict[str, Any], x: torch.Tensor, *, config: LlamaConfig) -> torch.Tensor:
     """Project hidden states [..., D] to fp32 logits [..., vocab]. A bf16
     head multiplies in bf16 with an fp32 result (``out_dtype`` on the card),
-    never through an fp32 copy of the [D, vocab] weight."""
+    never through an fp32 copy of the [D, vocab] weight; a quantized head
+    goes through the fused dequant matmul with fp32 output, as the JAX
+    package's ``preferred_element_type=float32``."""
     head = params["embed"].T if config.tie_embeddings else params["lm_head"]
+    if isinstance(head, (QTensor, Q4Tensor)):
+        from finchat_tpu_torch.ops.dispatch import quant_matmul
+
+        return quant_matmul(x, head, out_dtype=torch.float32)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if head.dtype == torch.float32:

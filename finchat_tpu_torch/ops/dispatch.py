@@ -1,29 +1,55 @@
 """Kernel dispatch for the engine: the kernel for a CUDA tensor, the plain
 version for a CPU tensor.
 
-The JAX package resolves a backend switch (``FINCHAT_ATTN``) once per
-engine. Here the tensor's device is the switch, and this module is the only
-place that reads it: a CUDA tensor always goes to the hand-written kernel's
-wrapper (which launches or raises), a CPU tensor to its plain PyTorch
-version. There is no environment variable and no fallback from a failed
-kernel to the plain version.
+The JAX package resolves a backend switch (``FINCHAT_ATTN``,
+``FINCHAT_QUANT_MATMUL``) once per engine. Here the tensor's device is the
+switch, and this module is the only place that reads it: a CUDA tensor
+always goes to the hand-written kernel's wrapper (which launches or
+raises), a CPU tensor to its plain PyTorch version. There is no environment
+variable and no fallback from a failed kernel to the plain version. An int8
+KV cache is detected from the page dtype, as the JAX dispatch does; its
+scale planes must then be given.
 """
 
 from __future__ import annotations
 
 import torch
 
-from finchat_tpu_torch.ops.kv_append import paged_kv_append, paged_kv_append_ref
-from finchat_tpu_torch.ops.paged_attention import paged_attention_ref, paged_flash_attention
+from finchat_tpu_torch.models.quant import Q4Tensor, QTensor
+from finchat_tpu_torch.ops.kv_append import (
+    paged_kv_append,
+    paged_kv_append_q8,
+    paged_kv_append_q8_ref,
+    paged_kv_append_ref,
+)
+from finchat_tpu_torch.ops.paged_attention import (
+    paged_attention_q8_ref,
+    paged_attention_ref,
+    paged_flash_attention,
+    paged_flash_attention_q8,
+)
+from finchat_tpu_torch.ops.quant_matmul import (
+    quant_matmul_int4,
+    quant_matmul_int8,
+    quant_matmul_ref,
+)
 from finchat_tpu_torch.ops.ragged_paged_attention import (
     ragged_flash_attention,
+    ragged_flash_attention_q8,
     ragged_paged_attention_ref,
 )
 
 
+def _int8_cache(k_pages: torch.Tensor, k_scales, v_scales) -> bool:
+    quantized = k_pages.dtype == torch.int8
+    if quantized and (k_scales is None or v_scales is None):
+        raise ValueError("an int8 KV cache needs its k_scales / v_scales planes")
+    return quantized
+
+
 def paged_attention(
     q: torch.Tensor,  # [B, C, H, D]
-    k_pages: torch.Tensor,  # [L, P, page_size, Hkv*D] — full-depth cache
+    k_pages: torch.Tensor,  # [L, P, page_size, Hkv*D] — full-depth cache (or int8)
     v_pages: torch.Tensor,
     page_table: torch.Tensor,  # [B, max_pages]
     q_offset: torch.Tensor,  # [B]
@@ -32,11 +58,17 @@ def paged_attention(
     *,
     page_size: int,
     n_kv: int,
+    k_scales: torch.Tensor | None = None,  # int8 cache: [L, P, scale_rows, page_size] fp32
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Paged-KV attention (ops/paged_attention.py)."""
+    kw = dict(page_size=page_size, n_kv=n_kv)
+    if _int8_cache(k_pages, k_scales, v_scales):
+        fn = paged_flash_attention_q8 if q.is_cuda else paged_attention_q8_ref
+        return fn(q, k_pages, v_pages, k_scales, v_scales, page_table, q_offset, kv_len,
+                  layer, **kw)
     fn = paged_flash_attention if q.is_cuda else paged_attention_ref
-    return fn(q, k_pages, v_pages, page_table, q_offset, kv_len, layer,
-              page_size=page_size, n_kv=n_kv)
+    return fn(q, k_pages, v_pages, page_table, q_offset, kv_len, layer, **kw)
 
 
 def kv_append(
@@ -49,15 +81,26 @@ def kv_append(
     layer: int,
     *,
     page_size: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """In-place decode KV append (ops/kv_append.py)."""
+    n_kv: int | None = None,  # KV heads: needed by the int8 cache
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+) -> None:
+    """In-place decode KV append (ops/kv_append.py); an int8 cache
+    quantizes the rows per head and writes their scales."""
+    if _int8_cache(k_pages, k_scales, v_scales):
+        if n_kv is None:
+            raise ValueError("an int8 KV append needs n_kv")
+        fn = paged_kv_append_q8 if k_pages.is_cuda else paged_kv_append_q8_ref
+        fn(kv_new, k_pages, v_pages, k_scales, v_scales, page_table, pos, n_valid, layer,
+           page_size=page_size, n_kv=n_kv)
+        return
     fn = paged_kv_append if k_pages.is_cuda else paged_kv_append_ref
-    return fn(kv_new, k_pages, v_pages, page_table, pos, n_valid, layer, page_size=page_size)
+    fn(kv_new, k_pages, v_pages, page_table, pos, n_valid, layer, page_size=page_size)
 
 
 def ragged_paged_attention(
     q: torch.Tensor,  # [T, H, D] — packed ragged token buffer
-    k_pages: torch.Tensor,  # [L, P, page_size, Hkv*D]
+    k_pages: torch.Tensor,  # [L, P, page_size, Hkv*D] (or int8)
     v_pages: torch.Tensor,
     page_table: torch.Tensor,  # [R, max_pages] — per-ROW physical page lists
     tok_row: torch.Tensor,  # [T] — owning row per packed token (R = padding)
@@ -68,8 +111,28 @@ def ragged_paged_attention(
     page_size: int,
     n_kv: int,
     kv_gap: torch.Tensor | None = None,  # [R] — bounded-KV window offset per row
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Ragged paged-KV attention (ops/ragged_paged_attention.py)."""
+    kw = dict(page_size=page_size, n_kv=n_kv, kv_gap=kv_gap)
+    if _int8_cache(k_pages, k_scales, v_scales):
+        if q.is_cuda:
+            return ragged_flash_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
+                                             page_table, tok_row, tok_pos, kv_len, layer, **kw)
+        return ragged_paged_attention_ref(q, k_pages, v_pages, page_table, tok_row, tok_pos,
+                                          kv_len, layer, k_scales=k_scales, v_scales=v_scales,
+                                          **kw)
     fn = ragged_flash_attention if q.is_cuda else ragged_paged_attention_ref
-    return fn(q, k_pages, v_pages, page_table, tok_row, tok_pos, kv_len, layer,
-              page_size=page_size, n_kv=n_kv, kv_gap=kv_gap)
+    return fn(q, k_pages, v_pages, page_table, tok_row, tok_pos, kv_len, layer, **kw)
+
+
+def quant_matmul(x: torch.Tensor, w: QTensor | Q4Tensor,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ dequant(w)`` (ops/quant_matmul.py): the int8 or int4 kernel on
+    the card, ``quant_matmul_ref`` on the CPU; ``out_dtype=torch.float32``
+    for the lm_head's logits."""
+    if not x.is_cuda:
+        return quant_matmul_ref(x, w, out_dtype=out_dtype)
+    fn = quant_matmul_int4 if isinstance(w, Q4Tensor) else quant_matmul_int8
+    return fn(x, w.q, w.scale, out_dtype=out_dtype)

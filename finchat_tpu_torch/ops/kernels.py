@@ -2,10 +2,12 @@
 
 Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC`` into its own shared library with a plain C
-interface, loaded with ``ctypes``: no PyTorch headers, so a build takes
-seconds. Libraries go to ``finchat_tpu_torch/build/<hash>/`` (listed in
-``.gitignore``), keyed by a hash of every source and header, at first use —
-one ``nvcc`` per source, all started together. Nothing here runs at import
+interface (one entry point per kernel it holds), loaded with ``ctypes``: no
+PyTorch headers, so a build takes seconds. No ``--use_fast_math``: the
+quantizing kernels rely on IEEE division and round-half-even. Libraries go
+to ``finchat_tpu_torch/build/<hash>/`` (listed in ``.gitignore``), keyed by
+a hash of every source and header, at first use — one ``nvcc`` per source,
+all started together. Nothing here runs at import
 time: the CPU tests import every module of the package.
 
 ``LAUNCHES`` counts kernel launches per kernel. A wrapper adds one where it
@@ -41,12 +43,27 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # layer, B, C, H, HKV, D, P, PS, KT, MP, BQ, splits, pages_per_split
         + [_I] * 13 + [_F, _P],  # scale, stream
     ),
+    "paged_attention_q8": (
+        "paged_attention.cu", "paged_attention_int8",
+        # q, k_pages, v_pages, k_scales, v_scales, out, part_acc, part_ml,
+        # page_table, q_offset, kv_len
+        [_P] * 11
+        # layer, B, C, H, HKV, D, P, PS, SPAD, KT, MP, BQ, splits, pages_per_split
+        + [_I] * 14 + [_F, _P],  # scale, stream
+    ),
     "kv_append": (
         "kv_append.cu", "kv_append_bf16",
         # kv_new, k_pages, v_pages, page_table, pos, n_valid
         [_P] * 6
         # layer, B, P, PS, HD, MP
         + [_I] * 6 + [_P],  # stream
+    ),
+    "kv_append_q8": (
+        "kv_append.cu", "kv_append_int8",
+        # kv_new, k_pages, v_pages, k_scales, v_scales, page_table, pos, n_valid
+        [_P] * 8
+        # layer, B, P, PS, HKV, D, SPAD, MP
+        + [_I] * 8 + [_P],  # stream
     ),
     "ragged_paged_attention": (
         "ragged_paged_attention.cu", "ragged_paged_attention_bf16",
@@ -56,11 +73,30 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # layer, T, R, H, HKV, D, P, PS, KT, MP, NT, BQ
         + [_I] * 12 + [_F, _P],  # scale, stream
     ),
+    "ragged_paged_attention_q8": (
+        "ragged_paged_attention.cu", "ragged_paged_attention_int8",
+        # q, k_pages, v_pages, k_scales, v_scales, out, page_table, tok_pos,
+        # kv_len, tile_row, tile_start, tile_len
+        [_P] * 12
+        # layer, T, R, H, HKV, D, P, PS, SPAD, KT, MP, NT, BQ
+        + [_I] * 13 + [_F, _P],  # scale, stream
+    ),
+    "quant_matmul_int8": (
+        "quant_matmul.cu", "quant_matmul_int8",
+        # x, q, scale, out; M, K, N, out_f32, x_vec, q_vec
+        [_P] * 4 + [_I] * 6 + [_P],  # stream
+    ),
+    "quant_matmul_int4": (
+        "quant_matmul.cu", "quant_matmul_int4",
+        # x, q, scale, out; M, K, N, G, out_f32, x_vec, q_vec
+        [_P] * 4 + [_I] * 7 + [_P],  # stream
+    ),
 }
+SOURCES = sorted({src for src, _sym, _args in KERNELS.values()})
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, ctypes._CFuncPtr] = {}
 BUILD_SECONDS: float | None = None
 
 
@@ -90,14 +126,15 @@ def build_all() -> float:
     load all of them. Returns the wall seconds spent; raises with the
     compiler's output if a build fails."""
     global BUILD_SECONDS
-    if len(_LIBS) == len(KERNELS):
+    if len(_FNS) == len(KERNELS):
         return BUILD_SECONDS or 0.0
     t0 = time.perf_counter()
     out_dir = BUILD_ROOT / _source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for name, (src, _sym, _args) in KERNELS.items():
+    for src in SOURCES:
+        name = Path(src).stem
         so = out_dir / f"lib{name}.so"
         if so.exists():
             continue
@@ -116,12 +153,12 @@ def build_all() -> float:
         os.replace(tmp, so)  # atomic: a concurrent builder sees all or nothing
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    for name, (_src, sym, argtypes) in KERNELS.items():
-        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        fn = getattr(lib, sym)
+    libs = {src: ctypes.CDLL(str(out_dir / f"lib{Path(src).stem}.so")) for src in SOURCES}
+    for name, (src, sym, argtypes) in KERNELS.items():
+        fn = getattr(libs[src], sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        _FNS[name] = fn
     BUILD_SECONDS = time.perf_counter() - t0
     return BUILD_SECONDS
 
@@ -131,9 +168,8 @@ def launch(name: str, *args) -> None:
     raise if the launch was refused (``cudaGetLastError`` != 0). Counts the
     launch in ``LAUNCHES``."""
     build_all()
-    sym = KERNELS[name][1]
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(_LIBS[name], sym)(*args, stream)
+    err = _FNS[name](*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1

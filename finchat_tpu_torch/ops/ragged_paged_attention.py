@@ -23,13 +23,18 @@ one row, built here with a few torch ops and no host sync;
 per-token ``gather_kv`` + ``mha_reference`` math. ``ops/dispatch.py`` picks
 one by the tensors' device. Padding tokens: the kernel writes zeros, the
 reference (like JAX's) averages the trash row; nothing reads them.
+
+``ragged_flash_attention_q8`` is the same over an int8 cache with its
+scale planes (replacing ``_ragged_kernel_q8``), dequantizing each staged
+K/V tile as ``bf16(float(q8) * scale)``; the plain version is
+``ragged_paged_attention_ref`` given the scale planes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from finchat_tpu_torch.engine.kv_cache import gather_kv
+from finchat_tpu_torch.engine.kv_cache import gather_kv_any
 from finchat_tpu_torch.ops import kernels
 from finchat_tpu_torch.ops.kernels import check
 from finchat_tpu_torch.ops.paged_attention import check_kernel_shapes, key_tile, tile_tokens
@@ -69,10 +74,14 @@ def ragged_paged_attention_ref(
     n_kv: int,
     scale: float | None = None,
     kv_gap: torch.Tensor | None = None,  # [R] int32 — bounded-KV window offset
+    k_scales: torch.Tensor | None = None,  # int8 cache: [L, P, scale_rows, page_size] fp32
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain version: each packed token is one batch element with ``Sq = 1``
     over its row's gathered pages (the JAX reference's math), taken in
-    token chunks so the dense copy stays bounded at production shapes."""
+    token chunks so the dense copy stays bounded at production shapes. An
+    int8 cache (with its scale planes) is dequantized to ``q.dtype`` as it
+    is gathered."""
     T = q.shape[0]
     R, MP = page_table.shape
     dev = q.device
@@ -82,14 +91,17 @@ def ragged_paged_attention_ref(
                         torch.zeros((1, MP), dtype=torch.int32, device=dev)])
     kv_pad = torch.cat([kv_len.to(torch.int32), torch.zeros((1,), dtype=torch.int32, device=dev)])
     row = tok_row.long().clamp(max=R)
-    per_token = MP * page_size * k_pages.shape[-1] * k_pages.element_size() * 2
+    # the int8 gather dequantizes through an fp32 copy: budget 4 bytes a value
+    val_bytes = 4 if k_pages.dtype == torch.int8 else k_pages.element_size()
+    per_token = MP * page_size * k_pages.shape[-1] * val_bytes * 2
     chunk = max(1, _REF_CHUNK_BYTES // per_token)
     outs = []
     for t0 in range(0, T, chunk):
         r = row[t0:t0 + chunk]
-        k_all, v_all = gather_kv(k_pages, v_pages, pt_pad[r], page_size, layer, n_kv)
+        k_all, v_all = gather_kv_any(k_pages, v_pages, k_scales, v_scales, pt_pad[r],
+                                     page_size, layer, n_kv, dtype=q.dtype)
         outs.append(mha_reference(
-            q[t0:t0 + chunk, None], k_all.to(q.dtype), v_all.to(q.dtype), causal=True,
+            q[t0:t0 + chunk, None], k_all, v_all, causal=True,
             q_offset=tok_pos[t0:t0 + chunk], kv_len=kv_pad[r], scale=scale,
         )[:, 0])
     return torch.cat(outs)
@@ -147,18 +159,55 @@ def ragged_flash_attention(
     Raises on a tensor it does not take, a CPU one included."""
     check(q.is_cuda, "the ragged attention kernel runs on CUDA tensors "
           "(ragged_paged_attention_ref is the plain version)")
+    return _launch_ragged("ragged_paged_attention", q, k_pages, v_pages, None, page_table,
+                          tok_row, tok_pos, kv_len, layer, page_size=page_size, n_kv=n_kv,
+                          scale=scale, kv_gap=kv_gap)
+
+
+def ragged_flash_attention_q8(
+    q: torch.Tensor,  # [T, H, D] packed
+    k_pages: torch.Tensor,  # [L, P, page_size, Hkv*D] int8
+    v_pages: torch.Tensor,
+    k_scales: torch.Tensor,  # [L, P, scale_rows, page_size] fp32
+    v_scales: torch.Tensor,
+    page_table: torch.Tensor,  # [R, max_pages]
+    tok_row: torch.Tensor,  # [T]
+    tok_pos: torch.Tensor,  # [T]
+    kv_len: torch.Tensor,  # [R]
+    layer: int,
+    *,
+    page_size: int,
+    n_kv: int,
+    scale: float | None = None,
+    kv_gap: torch.Tensor | None = None,  # [R] int32 — bounded-KV window offset
+) -> torch.Tensor:
+    """Ragged paged attention over the int8 cache by the CUDA kernel;
+    returns [T, H, D] bf16. Raises on a tensor it does not take, a CPU one
+    included."""
+    check(q.is_cuda, "the ragged attention kernel runs on CUDA tensors "
+          "(ragged_paged_attention_ref is the plain version)")
+    return _launch_ragged("ragged_paged_attention_q8", q, k_pages, v_pages,
+                          (k_scales, v_scales), page_table, tok_row, tok_pos, kv_len, layer,
+                          page_size=page_size, n_kv=n_kv, scale=scale, kv_gap=kv_gap)
+
+
+def _launch_ragged(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                   scales: tuple[torch.Tensor, torch.Tensor] | None, page_table: torch.Tensor,
+                   tok_row: torch.Tensor, tok_pos: torch.Tensor, kv_len: torch.Tensor,
+                   layer: int, *, page_size: int, n_kv: int, scale: float | None,
+                   kv_gap: torch.Tensor | None) -> torch.Tensor:
     T, H, D = q.shape
     R, MP = page_table.shape
     group = H // n_kv
     bq = tile_tokens(group, 64)
     check(q.dtype == torch.bfloat16, "ragged attention kernel takes bf16 q only")
-    check_kernel_shapes(H, D, k_pages, v_pages, page_size, n_kv, group * bq)
+    check_kernel_shapes(H, D, k_pages, v_pages, page_size, n_kv, group * bq, scales)
     check(page_table.dtype == torch.int32 and tok_row.dtype == torch.int32
           and tok_pos.dtype == torch.int32 and kv_len.dtype == torch.int32,
           "page_table, tok_row, tok_pos, kv_len must be int32")
     check(tok_row.shape == (T,) and tok_pos.shape == (T,) and kv_len.shape == (R,),
           "ragged descriptor shapes disagree with q / page_table")
-    for t in (q, k_pages, v_pages, page_table, tok_row, tok_pos, kv_len):
+    for t in (q, k_pages, v_pages, page_table, tok_row, tok_pos, kv_len, *(scales or ())):
         check(t.is_cuda and t.device == q.device and t.is_contiguous(),
               "ragged attention tensors must be contiguous on one CUDA device")
     check(0 <= layer < k_pages.shape[0], f"layer {layer} out of range")
@@ -167,11 +216,16 @@ def ragged_flash_attention(
     tile_row, tile_start, tile_len, NT = ragged_tiles(tok_row, R, bq)
     out = torch.empty_like(q)
     L, P, PS, _ = k_pages.shape
+    cache = [k_pages.data_ptr(), v_pages.data_ptr()]
+    dims = [layer, T, R, H, n_kv, D, P, PS]
+    if scales is not None:
+        cache += [scales[0].data_ptr(), scales[1].data_ptr()]
+        dims.append(scales[0].shape[2])
     kernels.launch(
-        "ragged_paged_attention", q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        name, q.data_ptr(), *cache,
         out.data_ptr(), page_table.data_ptr(), tok_pos.data_ptr(), kv_len.data_ptr(),
         tile_row.data_ptr(), tile_start.data_ptr(), tile_len.data_ptr(),
-        layer, T, R, H, n_kv, D, P, PS, key_tile(PS), MP, NT, bq,
+        *dims, key_tile(PS), MP, NT, bq,
         float(scale if scale is not None else D ** -0.5),
     )
     return out

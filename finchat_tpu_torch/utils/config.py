@@ -5,7 +5,8 @@ Field names and defaults are those of the JAX package's ``ModelConfig`` and
 other. The serving planes this port does not carry yet (prefix and session
 caches, spec decode, decode loop, free-run, bounded KV, preemption, the
 breaker) keep their fields; the scheduler refuses a config that turns one
-of them on (engine/scheduler.py ``check_supported``).
+of them on (engine/scheduler.py ``check_supported``). ``kv_quant = "int8"``
+(int8 KV pages) and ``ModelConfig.quant`` (int8/int4 weights) are served.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ class ModelConfig:
     tokenizer_path: str = ""  # empty = byte tokenizer
     dtype: str = "bfloat16"
     seed: int = 0
-    quant: str = ""  # weight-only quantized serving: not ported yet
-    quant_group: int = 0
+    quant: str = ""  # weight-only quantized serving: "" | "int8" | "int4"
+    quant_group: int = 0  # int4 rows of K per scale (0 = one scale per column)
 
 
 @dataclass

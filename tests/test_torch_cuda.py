@@ -10,7 +10,10 @@ kernel variant a wrapper can select, at small shapes: decode blocks with
 page splits, full 64-row tiles on tensor cores (Llama-3's group of 4, and
 groups of 2 and 8), the FMA fallback for pages that are not a multiple of
 64 keys, small row groups, ragged rows with padding and a ``kv_gap`` row,
-and the KV append.
+and the KV append — each over a bf16 cache and over an int8 cache with its
+scale planes — and the fused dequant matmul (int8, int4 per column and per
+group of 128, bf16 and fp32 output, 64- and 128-row blocks, ragged M, N
+and unaligned rows).
 
 Tolerance for attention, per output row (one token of one head):
 ``max|got - want| <= min(2e-2, 2^-6 * max|want|)`` over the row. Both sides
@@ -19,9 +22,18 @@ binade), and round P to bf16 at different points of the fp32 softmax; 2^-6
 is two ulps at the row's own scale, so a dropped key tile or a
 mis-weighted split shows at any context length, and 2e-2 caps rows of
 large values (a query with a handful of keys) at the former flat limit. The
-append is held bit-exact (a copy). Rows with no key (``kv_len == 0``,
-padding tokens) are zeros in the kernels, while the plain versions keep the
-reference's average over trash; those rows are checked for zeros instead.
+appends are held bit-exact (a copy; the quantizing one divides and rounds
+as its plain version does, IEEE, no fast math). Rows with no key
+(``kv_len == 0``, padding tokens) are zeros in the kernels, while the plain
+versions keep the reference's average over trash; those rows are checked
+for zeros instead.
+
+Tolerance for the dequant matmul: with bf16 output, per output row
+``max|got - want| <= 2^-7 * max|want row|`` (both round an fp32 sum of the
+same exact products to bf16, one ulp of the row's top binade apart at
+worst); with fp32 output, per element ``K * 2^-22 * (|x| @ |w|)``, a bound
+on two fp32 summations of K products in any order (each within ``K * 2^-23``
+of the exact sum, relative to the sum of magnitudes).
 """
 
 import numpy as np
@@ -29,14 +41,29 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from finchat_tpu_torch.engine.kv_cache import scale_rows  # noqa: E402
+from finchat_tpu_torch.models.quant import dequantize, quantize, quantize_int4  # noqa: E402
 from finchat_tpu_torch.ops.kernels import LAUNCHES  # noqa: E402
-from finchat_tpu_torch.ops.kv_append import paged_kv_append, paged_kv_append_ref  # noqa: E402
+from finchat_tpu_torch.ops.kv_append import (  # noqa: E402
+    paged_kv_append,
+    paged_kv_append_q8,
+    paged_kv_append_q8_ref,
+    paged_kv_append_ref,
+)
 from finchat_tpu_torch.ops.paged_attention import (  # noqa: E402
+    paged_attention_q8_ref,
     paged_attention_ref,
     paged_flash_attention,
+    paged_flash_attention_q8,
+)
+from finchat_tpu_torch.ops.quant_matmul import (  # noqa: E402
+    quant_matmul_int4,
+    quant_matmul_int8,
+    quant_matmul_ref,
 )
 from finchat_tpu_torch.ops.ragged_paged_attention import (  # noqa: E402
     ragged_flash_attention,
+    ragged_flash_attention_q8,
     ragged_paged_attention_ref,
 )
 
@@ -182,3 +209,154 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(dev):
         paged_flash_attention(q, kp.bfloat16(), kp.bfloat16(), torch.zeros((1, 2), device=dev,
                               dtype=torch.int64), torch.zeros(1, **i32), torch.ones(1, **i32),
                               0, page_size=16, n_kv=2)
+
+
+# --- the quantized plane -------------------------------------------------------
+
+def _q8_cache(dev, n_kv: int, ps: int, n_pages: int, seed: int):
+    """An int8 cache: random rows in [-127, 127] and positive scales."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    shape = (2, n_pages, ps, n_kv * D)
+    sshape = (2, n_pages, scale_rows(n_kv), ps)
+    k = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    v = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    ks = torch.rand(sshape, generator=g, device=dev) * 0.02 + 1e-3
+    vs = torch.rand(sshape, generator=g, device=dev) * 0.02 + 1e-3
+    return k, v, ks, vs, g
+
+
+@pytest.mark.parametrize("case", PAGED, ids=[c[0] for c in PAGED])
+def test_paged_attention_q8_kernel_matches_plain(dev, case):
+    _name, H, Hkv, ps, mp, C, q_off, kv_len = case
+    rng = np.random.default_rng(0)
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in kv_len)
+    kp, vp, ks, vs, g = _q8_cache(dev, Hkv, ps, n_pages, seed=5)
+    pt = _page_table(rng, kv_len, ps, mp, n_pages, dev)
+    q = torch.randn((len(kv_len), C, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = LAUNCHES["paged_attention_q8"]
+    got = paged_flash_attention_q8(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_attention_q8"] == before + 1
+    want = paged_attention_q8_ref(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
+    live = kl > 0
+    _assert_rows_close(got[live], want[live])
+    assert bool((got[~live] == 0).all())
+
+
+@pytest.mark.parametrize("case", RAGGED, ids=[c[0] for c in RAGGED])
+def test_ragged_attention_q8_kernel_matches_plain(dev, case):
+    _name, rows, T, ps, gaps = case
+    H, Hkv, mp = 8, 2, 8
+    rng = np.random.default_rng(2)
+    comp = [kv - (gaps[r] if gaps else 0) for r, (_q, _p, kv) in enumerate(rows)]
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in comp)
+    kp, vp, ks, vs, g = _q8_cache(dev, Hkv, ps, n_pages, seed=6)
+    pt = _page_table(rng, comp, ps, mp, n_pages, dev)
+    tok_row, tok_pos = [], []
+    for r, (q_len, p0, _kv) in enumerate(rows):
+        tok_row += [r] * q_len
+        tok_pos += list(range(p0, p0 + q_len))
+    n_real = len(tok_row)
+    tok_row += [len(rows)] * (T - n_real)
+    tok_pos += [0] * (T - n_real)
+    q = torch.randn((T, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    desc = (pt, torch.tensor(tok_row, dtype=torch.int32, device=dev),
+            torch.tensor(tok_pos, dtype=torch.int32, device=dev),
+            torch.tensor([kv for _q, _p, kv in rows], dtype=torch.int32, device=dev), 1)
+    kw = dict(page_size=ps, n_kv=Hkv,
+              kv_gap=None if gaps is None else torch.tensor(gaps, dtype=torch.int32,
+                                                            device=dev))
+    got = ragged_flash_attention_q8(q, kp, vp, ks, vs, *desc, **kw)
+    want = ragged_paged_attention_ref(q, kp, vp, *desc, k_scales=ks, v_scales=vs, **kw)
+    _assert_rows_close(got[:n_real], want[:n_real])
+    assert bool((got[n_real:] == 0).all())
+
+
+def test_kv_append_q8_kernel_bit_exact(dev):
+    """Quantized rows and scales, bit-exact, with invalid lanes (one with
+    pos past its table row) and an all-zero head."""
+    B, ps, Hkv, mp, P = 9, 16, 2, 4, 40
+    kp, vp, ks, vs, g = _q8_cache(dev, Hkv, ps, P, seed=7)
+    pt = torch.arange(1, 1 + B * mp, dtype=torch.int32, device=dev).reshape(B, mp)
+    pos = torch.tensor([0, 5, 17, 33, 63, 1, 9, 40, 500], dtype=torch.int32, device=dev)
+    n_valid = torch.tensor([1, 1, 1, 1, 1, 0, 1, 1, 0], dtype=torch.int32, device=dev)
+    kv_new = torch.randn((B, 1, 2 * Hkv * D), generator=g, device=dev, dtype=torch.bfloat16)
+    kv_new[2, 0, :D] = 0
+    ref = [t.clone() for t in (kp, vp, ks, vs)]
+    before = LAUNCHES["kv_append_q8"]
+    paged_kv_append_q8(kv_new, kp, vp, ks, vs, pt, pos, n_valid, 1, page_size=ps, n_kv=Hkv)
+    torch.cuda.synchronize()
+    assert LAUNCHES["kv_append_q8"] == before + 1
+    paged_kv_append_q8_ref(kv_new, *ref, pt, pos, n_valid, 1, page_size=ps, n_kv=Hkv)
+    for got, want in zip((kp, vp, ks, vs), ref):
+        assert torch.equal(got, want)
+
+
+# (M, K, N, mode, group, out fp32): 64- and 128-row blocks, ragged M and N,
+# N = 260 (rows not 16-byte aligned), K not a multiple of the 64-key tile
+QMM = [
+    ("int8_decode", 64, 512, 384, "int8", 0, False),
+    ("int8_prefill", 300, 256, 260, "int8", 0, False),
+    ("int8_head_fp32", 7, 256, 520, "int8", 0, True),
+    ("int8_k_edge", 33, 200, 256, "int8", 0, False),
+    ("int4_g0", 64, 512, 384, "int4", 0, False),
+    ("int4_g128", 130, 512, 260, "int4", 128, False),
+    ("int4_g8_fp32", 5, 96, 128, "int4", 8, True),
+]
+
+
+@pytest.mark.parametrize("case", QMM, ids=[c[0] for c in QMM])
+def test_quant_matmul_kernel_matches_plain(dev, case):
+    _name, M, K, N, mode, group, f32 = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    qt = quantize_int4(w, group) if mode == "int4" else quantize(w)
+    x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+    out_dtype = torch.float32 if f32 else None
+    name = f"quant_matmul_{mode}"
+    before = LAUNCHES[name]
+    fn = quant_matmul_int4 if mode == "int4" else quant_matmul_int8
+    got = fn(x, qt.q, qt.scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    want = quant_matmul_ref(x, qt, out_dtype=out_dtype)
+    assert got.dtype == want.dtype and got.shape == (M, N)
+    diff = (got.float() - want.float()).abs()
+    if f32:
+        mag = x.float().abs() @ dequantize(qt, torch.bfloat16).float().abs()
+        assert bool((diff <= K * 2.0 ** -22 * mag).all())
+    else:
+        limit = 2.0 ** -7 * want.float().abs().amax(-1, keepdim=True)
+        assert bool((diff <= limit).all()), (diff / limit.clamp(min=1e-30)).max().item()
+
+
+def test_quantized_wrappers_refuse_what_they_do_not_take(dev):
+    qt = quantize(torch.randn((128, 64), device=dev))
+    x = torch.zeros((4, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        quant_matmul_int8(x.float(), qt.q, qt.scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul_int8(torch.zeros((128, 4), dtype=torch.bfloat16, device=dev).T, qt.q,
+                          qt.scale)
+    with pytest.raises(ValueError, match="int8"):
+        quant_matmul_int4(x, qt.q.float(), qt.scale[None])
+    kp, vp, ks, vs, _g = _q8_cache(dev, 2, 16, 4, seed=9)
+    i32 = dict(dtype=torch.int32, device=dev)
+    q = torch.zeros((1, 1, 4, D), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="int8 cache"):
+        paged_flash_attention_q8(q, kp.float(), vp.float(), ks, vs, torch.zeros((1, 2), **i32),
+                                 torch.zeros(1, **i32), torch.ones(1, **i32), 0, page_size=16,
+                                 n_kv=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_flash_attention_q8(q, kp, vp, ks.transpose(2, 3).contiguous().transpose(2, 3), vs,
+                                 torch.zeros((1, 2), **i32), torch.zeros(1, **i32),
+                                 torch.ones(1, **i32), 0, page_size=16, n_kv=2)
+    with pytest.raises(ValueError, match="fp32"):
+        paged_kv_append_q8(torch.zeros((1, 1, 4 * D), dtype=torch.bfloat16, device=dev), kp, vp,
+                           ks.half(), vs.half(), torch.zeros((1, 2), **i32),
+                           torch.zeros(1, **i32), torch.ones(1, **i32), 0, page_size=16,
+                           n_kv=2)
