@@ -32,7 +32,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    on the same work, ``index_put_`` of the same rows for the bf16 append,
    ``torch.matmul`` with the already dequantized bf16 weight for the
    matmul (none for the quantizing append: no one call quantizes and
-   scatters).
+   scatters). Last, contiguous flash attention (K7, the training path):
+   the forward causal at B=1 S=2048 and with ``q_offset`` 1024 / ``kv_len``
+   1536 at B=4 Sq=512 (held per row as above, plus the log-sum-exp), and the
+   backward on the first case: dq, dk, dv against the plain backward on the
+   same inputs (per tensor ``||err|| / ||want|| <= 1e-2``, per row
+   ``max|err| <= 2^-5 * max(row max, 2^-10 * tensor max)``: the kernel
+   rounds dS to bf16 before its products) and against autograd of the
+   plain ``mha_reference`` in fp32 on the same bf16 inputs (per tensor
+   1e-2). Yardstick: ``scaled_dot_product_attention`` forward, and its
+   backward through autograd, on the same work.
 3. Serve: ``llama3-8b`` with random bf16 weights from a seeded generator,
    ``EngineConfig`` defaults minus the planes not ported yet, behind the
    scheduler, ``EngineGenerator`` and ``LLMService``. Four greedy requests
@@ -52,6 +61,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5. Serve int4 weights (per group of 128) over the int8 KV pool: two
    requests, one after the other's first token, 16 new tokens each, with
    the same teacher-forced check — the path of the int4 matmul kernel.
+6. Train: first ``llama3-8b`` widths at 2 layers, B=1, S=2048 — the loss,
+   every leaf's gradient and the one-shot forward's logits through K7
+   against the same step with the plain attention (relative per leaf and on
+   the logits <= 5e-2, loss within 1e-2: both paths round every activation
+   to bf16, and a one-ulp difference in an attention output spreads through
+   the bf16 layers after it). Then the full model, 32 layers, random bf16
+   weights: five AdamW steps (``train/train_step.py``, remat on) on one
+   fixed batch of 2048 tokens. Every loss must be finite and the fifth
+   below the first; K7's forward and backward must launch in those steps
+   (counts set to 0 just before). Prints the step time, tokens/s, the
+   model-FLOP share of the bf16 peak, the peak memory, and a sixth step's
+   device time by class (profiler).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -63,6 +84,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -84,6 +106,22 @@ ATOL = 2e-2
 # an fp32 output element within K * 2^-22 of the sum of |x| |w| products
 QMM_ROW_TOL = 2.0 ** -7
 QMM_F32_TOL = 2.0 ** -22
+# K7's backward against its plain version on the same inputs: the kernel
+# rounds dS to bf16 (2^-9 relative) before its products, the plain version
+# keeps it in fp32, and both round each gradient to bf16 (an emulation of
+# those rounding points on the CPU, tests/test_torch_k7_rounding.py: 2.6e-3
+# per tensor, a quarter of the row limit).
+# The row floor is for rows whose gradient vanishes: the first query of a
+# causal sequence sees one key, so its dS is zero up to fp32 cancellation.
+GRAD_REL_TOL = 1e-2
+GRAD_ROW_TOL = 2.0 ** -5
+GRAD_ROW_FLOOR = 2.0 ** -10
+# the training check, K7 against the plain attention through 2 full-width
+# layers: every activation is bf16 on both paths, so a one-ulp difference in
+# an attention output spreads through the layers after it (the emulation at
+# dim 1024: 0.9-1.4e-2 per leaf, 1.0e-2 on the logits, 5e-5 on the loss)
+TRAIN_REL_TOL = 5e-2
+TRAIN_LOSS_TOL = 1e-2
 REPO = Path(__file__).resolve().parent
 # the serving planes: the kernels each must launch, and its quant modes
 PLANES = {
@@ -548,6 +586,133 @@ def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, gro
     torch.cuda.empty_cache()
 
 
+def _causal_pairs(q_offsets: list[int], Sq: int, kv_lens: list[int]) -> int:
+    """(query, key) pairs a causal attention with these descriptors needs."""
+    return sum(min(o + i + 1, kl) for o, kl in zip(q_offsets, kv_lens) for i in range(Sq))
+
+
+def grad_errors(torch, got, want) -> tuple[float, float, float]:
+    """(max abs error, ||got - want|| / ||want||, worst per-row error over
+    its limit 2^-5 * max(row max, 2^-10 * tensor max)); a row is one token
+    of one head."""
+    got, want = got.float(), want.float()
+    rel = ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+    diff = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1).clamp(min=GRAD_ROW_FLOOR * want.abs().max().item())
+    return diff.max().item(), rel, (diff / (GRAD_ROW_TOL * scale).clamp(min=1e-30)).max().item()
+
+
+def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list[int],
+                kv_lens: list[int], results: list, backward: bool = False) -> None:
+    """K7 against its plain version at one causal shape: the forward (out
+    and log-sum-exp), or with ``backward`` the backward kernels on the
+    forward kernel's out and lse."""
+    import torch.nn.functional as F
+
+    from finchat_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+        flash_attention_fwd,
+        flash_attention_ref,
+    )
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+    from finchat_tpu_torch.ops.refs import mha_reference
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    q, k, v, dout = rnd(B, Sq, H, D), rnd(B, Sk, HKV, D), rnd(B, Sk, HKV, D), rnd(B, Sq, H, D)
+    qo = torch.tensor(q_offsets, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, qo, kl, causal=True, scale=scale)
+    pairs = _causal_pairs(q_offsets, Sq, kv_lens)
+    # SDPA's own causal mask is top-left aligned: give it the mask when the
+    # queries sit at an offset
+    pos = torch.arange(Sk, device=dev)
+    qpos = qo[:, None] + torch.arange(Sq, device=dev)[None, :]
+    mask = ((pos[None, None, :] <= qpos[:, :, None])
+            & (pos[None, None, :] < kl[:, None, None]))[:, None]
+    square = Sq == Sk and not any(q_offsets) and all(n == Sk for n in kv_lens)
+    sdpa_kw = dict(is_causal=True) if square else dict(attn_mask=mask)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    io = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4 + B * 8
+    if not backward:
+        kname = "flash_attention"
+
+        def kern():
+            return flash_attention_fwd(q, k, v, qo, kl, causal=True, scale=scale)
+
+        def plain():
+            return flash_attention_ref(q, k, v, q_offset=qo, kv_len=kl, causal=True)
+
+        before = LAUNCHES[kname]
+        got, got_lse = kern()
+        torch.cuda.synchronize()
+        assert LAUNCHES[kname] == before + 1
+        want, want_lse = plain()
+        err, rel, close = attention_errors(torch, got, want)
+        lse_err = (got_lse - want_lse).abs().max().item()
+        finite = bool(torch.isfinite(got.float()).all().item())
+        log(f"  {name}: max_abs_err {err:.3e}, row-relative {rel:.3e} (limit per row: "
+            f"min({ATOL}, {REL_TOL} * max|want|)), lse max_abs_err {lse_err:.3e} (limit 1e-3)")
+        if not (close and finite and lse_err <= 1e-3):
+            fail(f"{name}: kernel disagrees with its plain version (row-relative {rel}, "
+                 f"lse {lse_err}, finite {finite})")
+
+        def library():
+            F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
+
+        flops = 4.0 * pairs * H * D
+    else:
+        kname = "flash_attention_bwd"
+
+        def kern():
+            return flash_attention_bwd(q, k, v, out, lse, dout, qo, kl, causal=True, scale=scale)
+
+        def plain():
+            return flash_attention_bwd_ref(q, k, v, out, lse, dout, q_offset=qo, kv_len=kl)
+
+        before = LAUNCHES[kname]
+        got = kern()
+        torch.cuda.synchronize()
+        assert LAUNCHES[kname] == before + 1
+        want = plain()
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        mha_reference(*leaves, causal=True, q_offset=qo, kv_len=kl).backward(dout.float())
+        err, worst = 0.0, 0.0
+        for gname, g, w, w32 in zip(("dq", "dk", "dv"), got, want, leaves):
+            e, r, row = grad_errors(torch, g, w)
+            _e32, r32, _row32 = grad_errors(torch, g, w32.grad)
+            finite = bool(torch.isfinite(g.float()).all().item())
+            log(f"  {name} {gname}: max_abs_err {e:.3e}, relative {r:.3e} (limit "
+                f"{GRAD_REL_TOL}), worst row / limit {row:.3f}; against fp32 autograd of "
+                f"mha_reference: relative {r32:.3e} (limit {GRAD_REL_TOL})")
+            if not (r <= GRAD_REL_TOL and row <= 1.0 and r32 <= GRAD_REL_TOL and finite):
+                fail(f"{name} {gname}: kernel disagrees with its plain backward")
+            err, worst = max(err, e), max(worst, r)
+        rel = worst
+        del leaves
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True, **sdpa_kw)
+        do_lib = dout.transpose(1, 2).contiguous()
+
+        def library():
+            torch.autograd.grad(o_lib, (qg, kg, vg), do_lib, retain_graph=True)
+
+        io += dout.numel() * 2 + (q.numel() + k.numel() + v.numel()) * 2  # dout in, grads out
+        flops = 10.0 * pairs * H * D  # S again, dP, dV, dQ, dK: five products
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain, iters=5, warmup=1)
+    lib_ms = time_ms(torch, library)
+    b_ms, b_by = bound_ms(io, flops)
+    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{'backward ' if backward else ''}{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results.append(dict(case=name, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------------
 # phase 3: serve
 # --------------------------------------------------------------------------
@@ -698,6 +863,26 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def device_ms(torch, prof, classify, runs: int = 1, top: int = 4) -> tuple[dict, dict]:
+    """Device milliseconds per run by kernel class from a profile, and the
+    ``top`` largest kernels of the class "other"."""
+    by_class: dict[str, float] = {}
+    others: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host ops also carry their kernels' device time
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us:
+            cls = classify(ev.key)
+            by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / runs
+            if cls == "other":  # names cut to 90 characters: sum what they merge
+                key = ev.key[:90]
+                others[key] = others.get(key, 0.0) + dev_us / 1e3 / runs
+    return by_class, dict(sorted(others.items(), key=lambda x: -x[1])[:top])
+
+
 def profile_steps(torch, engine, context: int, active: int) -> dict:
     """Where a step's time goes, after serving: a decode step with ``active``
     slots at ``context`` tokens, and a 4 x 512 prefill chunk at q_offset
@@ -739,22 +924,9 @@ def profile_steps(torch, engine, context: int, active: int) -> dict:
             w_end.record()
             torch.cuda.synchronize()
         window_ms = w_start.elapsed_time(w_end) / 3
-        by_class: dict[str, float] = {}
-        others: dict[str, float] = {}
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue  # host ops also carry their kernels' device time
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us:
-                cls = _kernel_class(ev.key)
-                by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / 3
-                if cls == "other":
-                    others[ev.key[:60]] = dev_us / 1e3 / 3
+        by_class, top_other = device_ms(torch, prof, _kernel_class, runs=3)
         ev_ms = time_ms(torch, fn, iters=5, warmup=1)
         busy = sum(by_class.values())
-        top_other = dict(sorted(others.items(), key=lambda x: -x[1])[:4])
         out[name] = dict(event_ms=ev_ms, profiled_window_ms=window_ms, device_busy_ms=busy,
                          idle_share=1.0 - busy / window_ms,
                          device_ms_by_class=by_class, top_other=top_other)
@@ -837,6 +1009,165 @@ def teacher_forced_check(torch, params, config, handles, kv_quant: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 6: train
+# --------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 1, 2048
+
+
+def _free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_check(torch, dev) -> dict:
+    """``llama3-8b`` widths at 2 layers: loss, every leaf's gradient and the
+    one-shot forward's logits through K7 against the plain attention."""
+    import dataclasses
+
+    from finchat_tpu_torch.models.llama import (
+        PRESETS,
+        dense_causal_attention,
+        forward,
+        forward_full,
+        init_params,
+    )
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.train.train_step import named_leaves, value_and_grad
+
+    _free(torch)
+    config = dataclasses.replace(PRESETS["llama3-8b"], n_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    params = init_params(config, gen, dev)
+    tokens = torch.randint(0, config.vocab_size, (TRAIN_B, TRAIN_S), generator=gen, device=dev)
+    reset_launches()
+    loss_k, grads_k = value_and_grad(params, tokens, config=config)
+    torch.cuda.synchronize()
+    launches = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"])
+    loss_p, grads_p = value_and_grad(params, tokens, config=config,
+                                     attention=dense_causal_attention)
+    plain = dict(named_leaves(grads_p))
+    worst_leaf, worst = "", 0.0
+    for path, g in named_leaves(grads_k):
+        want = plain[path].float()
+        rel = ((g.float() - want).norm() / want.norm().clamp(min=1e-30)).item()
+        if rel >= worst:
+            worst_leaf, worst = path, rel
+    loss_diff = abs(loss_k.item() - loss_p.item())
+    del grads_k, grads_p, plain
+    for _path, leaf in named_leaves(params):
+        leaf.requires_grad_(False)
+    positions = torch.arange(TRAIN_S, device=dev).expand(TRAIN_B, TRAIN_S)
+    with torch.no_grad():
+        got = forward_full(params, tokens, positions, config=config)
+        want, _ = forward(params, tokens, positions, config=config,
+                          attention=dense_causal_attention)
+        logit_rel = ((got - want).norm() / want.norm()).item()
+        finite = bool(torch.isfinite(got).all().item())
+    log(f"  2 layers at llama3-8b widths, B={TRAIN_B} S={TRAIN_S}: loss K7 {loss_k.item():.6f}, "
+        f"plain {loss_p.item():.6f} (|diff| {loss_diff:.3e}, limit {TRAIN_LOSS_TOL}); worst "
+        f"leaf gradient {worst_leaf} relative {worst:.3e}; one-shot forward logits relative "
+        f"{logit_rel:.3e} (limits {TRAIN_REL_TOL}); K7 launches forward {launches[0]}, "
+        f"backward {launches[1]}")
+    if not (loss_diff <= TRAIN_LOSS_TOL and worst <= TRAIN_REL_TOL
+            and logit_rel <= TRAIN_REL_TOL and finite and all(launches)):
+        fail("train check: the K7 path disagrees with the plain attention")
+    del params, got, want
+    _free(torch)
+    return dict(loss_k7=loss_k.item(), loss_plain=loss_p.item(), worst_leaf=worst_leaf,
+                worst_leaf_rel=worst, logits_rel=logit_rel, launches=launches)
+
+
+def _train_class(name: str) -> str:
+    n = name.lower()
+    if "flash_fwd_kernel" in n:
+        return "K7 forward"
+    if "flash_bwd" in n:
+        return "K7 backward"
+    if "adam" in n:
+        return "optimizer"
+    return "cuBLAS" if _kernel_class(name) == "matmul (cuBLAS)" else "other"
+
+
+def train_full(torch, dev, card: str, steps: int = 5) -> dict:
+    """Five AdamW steps of the full ``llama3-8b`` on one fixed batch, then a
+    profiled sixth. Launch counts are set to 0 just before the five steps
+    and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from finchat_tpu_torch.models.llama import PRESETS, init_params, n_params
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.train.train_step import init_train_state, make_optimizer, make_train_step
+
+    _free(torch)
+    config = PRESETS["llama3-8b"]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(config, gen, dev)
+    tokens = torch.randint(0, config.vocab_size, (TRAIN_B, TRAIN_S), generator=gen, device=dev)
+    optimizer = make_optimizer()
+    state = init_train_state(config, params, optimizer)
+    train_step = make_train_step(config, optimizer)
+    losses, times, per_step = [], [], []
+    reset_launches()
+    for _ in range(steps):
+        f0, b0 = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]
+        t0 = time.perf_counter()
+        state, loss = train_step(state, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        per_step.append((LAUNCHES["flash_attention"] - f0, LAUNCHES["flash_attention_bwd"] - b0))
+    launches = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  llama3-8b, {config.n_layers} layers, {n_params(config) / 1e9:.2f} B params, "
+        f"B={TRAIN_B} S={TRAIN_S}, remat on: losses {losses}; step seconds "
+        f"{[round(t, 4) for t in times]}; K7 launches per step (forward, backward) {per_step}")
+    L = config.n_layers
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train: losses not finite and falling: {losses}")
+    if not all(f >= L and b == L for f, b in per_step):
+        fail(f"train: K7 did not run in every layer of every step: {per_step}")
+
+    step_s = statistics.median(times[1:])  # step 1 also allocates moments and grads
+    T = TRAIN_B * TRAIN_S
+    n_matmul = n_params(config) - config.vocab_size * config.dim  # the embedding is a lookup
+    pairs = TRAIN_B * TRAIN_S * (TRAIN_S + 1) // 2
+    attn_flops = 3 * 4.0 * pairs * config.n_heads * config.head_dim * L  # forward + backward
+    model_flops = 6.0 * n_matmul * T + attn_flops
+    mfu = model_flops / step_s / BF16_FLOPS_PER_S
+
+    w_start = torch.cuda.Event(enable_timing=True)
+    w_end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w_start.record()
+        state, loss = train_step(state, tokens)
+        w_end.record()
+        torch.cuda.synchronize()
+    window_ms = w_start.elapsed_time(w_end)
+    by_class, top_other = device_ms(torch, prof, _train_class, top=6)
+    busy = sum(by_class.values())
+    log(f"  train step: {step_s * 1e3:.1f} ms (median of steps 2-{steps}), "
+        f"{T / step_s:.1f} tokens/s, model-FLOP share {mfu:.3f} of 989 TFLOP/s "
+        f"(6 N T + attention, N = {n_matmul / 1e9:.2f} B matmul params), peak memory "
+        f"{peak_gb:.2f} GB ({card})")
+    log(f"  profiled step: window {window_ms:.1f} ms, device busy {busy:.1f} ms (idle share "
+        f"{1.0 - busy / window_ms:.3f}): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(by_class.items(), key=lambda x: -x[1]))
+        + f" ({card})")
+    log("  largest 'other' kernels (ms): "
+        + "; ".join(f"{k} {v:.1f}" for k, v in top_other.items()))
+    del state, params, prof
+    _free(torch)
+    return dict(losses=losses, step_s=times, median_step_s=step_s, tokens_per_s=T / step_s,
+                model_flop_share=mfu, peak_gb=peak_gb, launches=launches,
+                launches_per_step=per_step, profiled_window_ms=window_ms,
+                device_busy_ms=busy, device_ms_by_class=by_class, top_other=top_other)
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -890,6 +1221,12 @@ def main() -> None:
               results)
     check_qmm(torch, "int4_g128_m64_4096x14336", gen, dev, 64, 4096, 14336, "int4", 128, False,
               results)
+    log("  contiguous flash attention (training shapes):")
+    check_flash(torch, "flash_fwd_causal_s2048", gen, dev, 1, 2048, 2048, [0], [2048], results)
+    check_flash(torch, "flash_fwd_q1024_kv1536", gen, dev, 4, 512, 1536, [1024] * 4, [1536] * 4,
+                results)
+    check_flash(torch, "flash_bwd_causal_s2048", gen, dev, 1, 2048, 2048, [0], [2048], results,
+                backward=True)
 
     serves = {}
     for phase, plane, n_req, max_new, profile in ((3, "bf16", 8, 64, True),
@@ -903,13 +1240,20 @@ def main() -> None:
         log("serve: " + json.dumps(stats))
         serves[plane] = stats
 
+    log("phase 6: train llama3-8b (random weights) through K7, forward and backward")
+    check = train_check(torch, dev)
+    train = train_full(torch, dev, card)
+    train["check"] = check
+    log("train: " + json.dumps(train))
+
     src = "finchat_tpu_torch/csrc/"
     by_case = {r["case"]: r for r in results}
     # (kernel, phase-2 case, source, TPU kernel it replaces, serving plane
-    # whose run gives its launches)
+    # or training run whose main path gives its launches)
     paged = "finchat_tpu/ops/paged_attention.py:305"
     q8_paged = "finchat_tpu/ops/paged_attention.py:221"
     qmm = "finchat_tpu/ops/quant_matmul.py:144"
+    flash = "finchat_tpu/ops/flash_attention.py:160"  # the backward: the gradient of it
     rows = [
         ("paged_attention", "paged_decode", "paged_attention.cu", paged, "bf16"),
         ("paged_attention", "paged_prefill_q0", "paged_attention.cu", paged, "bf16"),
@@ -932,14 +1276,19 @@ def main() -> None:
         ("quant_matmul_int4", "int4_g0_m64_4096x14336", "quant_matmul.cu", qmm, "int4g128+kv8"),
         ("quant_matmul_int4", "int4_g128_m64_4096x14336", "quant_matmul.cu", qmm,
          "int4g128+kv8"),
+        ("flash_attention", "flash_fwd_causal_s2048", "flash_attention.cu", flash, "train"),
+        ("flash_attention", "flash_fwd_q1024_kv1536", "flash_attention.cu", flash, "train"),
+        ("flash_attention_bwd", "flash_bwd_causal_s2048", "flash_attention.cu", flash, "train"),
     ]
+    launched = {plane: stats["launches"] for plane, stats in serves.items()}
+    launched["train"] = train["launches"]
     table = []
     for kname, case, source, replaces, plane in rows:
         r = by_case[case]
         table.append({
             "name": kname if case == kname else f"{kname}[{case}]",
             "route": "cuda", "source": src + source, "replaces": replaces,
-            "launches": serves[plane]["launches"][kname], "max_abs_err": r["err"],
+            "launches": launched[plane][kname], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })

@@ -9,6 +9,12 @@ torch.bfloat16`` view, never through float32, so every bit survives.
 The JAX package's quantized leaves (``QTensor`` / ``Q4Tensor``, recognised
 by their class name and their ``q`` / ``scale`` fields, without importing
 that package) become the port's classes of the same name, bit for bit.
+
+``train_state_from_numpy(state, device)`` converts the JAX package's
+``TrainState`` (params, the optax AdamW state, step) the same way: optax's
+``ScaleByAdamState`` ``count`` / ``mu`` / ``nu`` become each leaf's
+``step`` / ``exp_avg`` / ``exp_avg_sq`` in the port's optimizer, so a JAX
+run resumes in the port from the same bits.
 """
 
 from __future__ import annotations
@@ -41,3 +47,31 @@ def params_from_numpy(tree: Any, device: torch.device | str) -> Any:
         return cls(q=_leaf(np.asarray(tree.q), device), scale=_leaf(np.asarray(tree.scale), device))
     return _leaf(np.asarray(tree), device)
 
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """optax's ``ScaleByAdamState`` inside the chained optimizer state,
+    recognised by its fields (``count``, ``mu``, ``nu``)."""
+    for part in opt_state if isinstance(opt_state, tuple) else (opt_state,):
+        if all(hasattr(part, f) for f in ("count", "mu", "nu")):
+            return part
+    raise ValueError("no AdamW moments (count, mu, nu) in the optimizer state")
+
+
+def train_state_from_numpy(state: Any, device: torch.device | str, optimizer: Any = None) -> Any:
+    """The JAX package's ``TrainState`` (numpy leaves, ``jax.device_get``)
+    as the port's ``train/train_step.TrainState``: the same parameters,
+    moments and step count, bit for bit. ``optimizer`` is the port's
+    ``make_optimizer()`` settings (its defaults when omitted)."""
+    from finchat_tpu_torch.train.train_step import AdamW, init_train_state, named_leaves
+
+    optimizer = optimizer or AdamW()
+    adam = _adam_state(state.opt_state)
+    mu = dict(named_leaves(params_from_numpy(adam.mu, device)))
+    nu = dict(named_leaves(params_from_numpy(adam.nu, device)))
+    out = init_train_state(None, params_from_numpy(state.params, device), optimizer)
+    count = int(np.asarray(adam.count))
+    for path, leaf in named_leaves(out.params):
+        optimizer.load_state(out.opt_state, leaf, count, mu[path], nu[path])
+    out.step = int(np.asarray(state.step))
+    return out

@@ -6,7 +6,8 @@
   hidden]``, ``layers/mlp_down [L, hidden, dim]``, ``layers/ln_{attn,mlp}
   [L, dim]``, ``norm [dim]``, ``lm_head [dim, vocab]`` — so a JAX tree
   converts leaf by leaf (models/convert.py). ``forward`` loops over layers
-  in Python, indexing each stacked leaf.
+  in Python, indexing each stacked leaf; ``remat`` checkpoints each layer
+  for training (train/train_step.py).
 - Dtype policy of the reference: bf16 weights and activations; RMSNorm and
   RoPE math in fp32 (the normalized activations cast to the model dtype
   BEFORE the weight multiply); SiLU in fp32 then cast; fp32 logits.
@@ -24,6 +25,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+import torch.utils.checkpoint
 
 from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dense
 
@@ -196,24 +198,51 @@ def forward(
     config: LlamaConfig,
     attention: AttentionFn,
     cache: Any = None,
+    remat: bool = False,
     return_hidden: bool = False,
 ) -> tuple[torch.Tensor, Any]:
     """Run the decoder; returns (logits [B,S,vocab] fp32, cache) — or the
     post-norm hidden states [B,S,D] with ``return_hidden``, for callers that
     project only a few positions (a full-chunk fp32 logits tensor costs GBs
-    at the 8B vocabulary)."""
+    at the 8B vocabulary). ``remat`` recomputes each layer in the backward
+    (non-reentrant ``torch.utils.checkpoint`` around the layer, the
+    counterpart of the JAX package's ``jax.checkpoint`` on its scan body):
+    live activations stay one layer's instead of every layer's. A stacked
+    leaf may also be a list of per-layer tensors (the train step's views)."""
     _check_dense(config)
     c = config
     x = params["embed"][tokens.long()]
     layers = params["layers"]
     for i in range(c.n_layers):
         lp = {name: leaf[i] for name, leaf in layers.items()}
-        x, cache = _layer(x, lp, cache, i, positions=positions, config=c,
-                          attention=attention)
+        kw = dict(positions=positions, config=c, attention=attention)
+        if remat:
+            x, cache = torch.utils.checkpoint.checkpoint(_layer, x, lp, cache, i,
+                                                         use_reentrant=False, **kw)
+        else:
+            x, cache = _layer(x, lp, cache, i, **kw)
     x = rms_norm(x, params["norm"], c.norm_eps)
     if return_hidden:
         return x, cache
     return lm_head(params, x, config=c), cache
+
+
+class _HeadMatmul(torch.autograd.Function):
+    """bf16 ``x @ head`` with an fp32 result on the card (``torch.mm``'s
+    ``out_dtype``), and its gradient without an fp32 copy of the head: the
+    fp32 logit gradient is rounded to bf16 and both products run in bf16
+    with fp32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        g16 = g.to(head.dtype)
+        return torch.mm(g16, head.t()), torch.mm(x2.t(), g16)
 
 
 def lm_head(params: dict[str, Any], x: torch.Tensor, *, config: LlamaConfig) -> torch.Tensor:
@@ -232,24 +261,37 @@ def lm_head(params: dict[str, Any], x: torch.Tensor, *, config: LlamaConfig) -> 
     if head.dtype == torch.float32:
         out = x2.float() @ head
     elif x2.is_cuda:
-        out = torch.mm(x2, head, out_dtype=torch.float32)
+        out = _HeadMatmul.apply(x2, head)
     else:
         out = x2.float() @ head.float()
     return out.reshape(*lead, head.shape[-1])
 
 
 def dense_causal_attention(q, k, v, cache, layer_idx):
-    """Cache-less causal attention over the whole sequence (tests, one-shot
-    forward): the plain reference, as the JAX package's ``ref`` backend."""
+    """Cache-less causal attention over the whole sequence by the plain
+    reference on any device (the JAX package's ``ref`` backend): the oracle
+    the kernel paths are checked against."""
     from finchat_tpu_torch.ops.refs import mha_reference
 
     return mha_reference(q, k, v, causal=True), cache
 
 
+def make_causal_attention() -> AttentionFn:
+    """Cache-less causal attention over the whole sequence (training, the
+    one-shot forward) through ``ops/dispatch.causal_attention``: K7 on the
+    card, its plain version on the CPU."""
+    from finchat_tpu_torch.ops.dispatch import causal_attention
+
+    def attention(q, k, v, cache, layer_idx):
+        return causal_attention(q, k, v), cache
+
+    return attention
+
+
 def forward_full(params: dict[str, Any], tokens: torch.Tensor, positions: torch.Tensor,
                  *, config: LlamaConfig) -> torch.Tensor:
-    """Forward with full causal attention and no cache; fp32 logits."""
+    """Forward with full causal attention (``make_causal_attention``) and no
+    cache; fp32 logits."""
     logits, _ = forward(params, tokens, positions, config=config,
-                        attention=dense_causal_attention)
+                        attention=make_causal_attention())
     return logits
-

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from finchat_tpu_torch.models.quant import Q4Tensor, QTensor
+from finchat_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
 from finchat_tpu_torch.ops.kv_append import (
     paged_kv_append,
     paged_kv_append_q8,
@@ -125,6 +126,15 @@ def ragged_paged_attention(
                                           **kw)
     fn = ragged_flash_attention if q.is_cuda else ragged_paged_attention_ref
     return fn(q, k_pages, v_pages, page_table, tok_row, tok_pos, kv_len, layer, **kw)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Full contiguous causal attention (training, one-shot forward): K7's
+    differentiable kernel on the card, the plain ``flash_attention_ref``
+    (plain autograd) on the CPU."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=True)
+    return flash_attention_ref(q, k, v, causal=True)[0]
 
 
 def quant_matmul(x: torch.Tensor, w: QTensor | Q4Tensor,

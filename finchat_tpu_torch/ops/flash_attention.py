@@ -1,0 +1,207 @@
+"""Contiguous flash attention (K7): the one-shot forward and training.
+
+``flash_attention(q [B, Sq, H, D], k [B, Sk, Hkv, D], v, *, q_offset,
+kv_len, causal, scale)`` has the JAX package's signature and semantics
+(``finchat_tpu/ops/flash_attention.py``): query row i of sequence b sits at
+``q_offset[b] + i`` and sees keys at or before it (causal mode), keys at or
+past ``kv_len[b]`` are masked, and GQA groups ``H // Hkv`` query heads on
+one KV head without repeating K or V. It launches the hand-written kernel
+(``csrc/flash_attention.cu``, replacing the TPU kernel ``_flash_kernel``),
+which also writes the per-row log-sum-exp, and it is differentiable:
+``FlashAttentionFn``'s backward launches the backward kernels, which rebuild
+P from that log-sum-exp (the flash-attention-2 form). The JAX package has
+no backward for its kernel; its train step differentiates ``mha_reference``.
+
+``flash_attention_ref`` is the plain version (``mha_reference``'s math, plus
+the log-sum-exp ``[B, H, Sq]`` fp32) and ``flash_attention_bwd_ref`` the
+plain backward: ``P = exp(S - lse)``, ``delta = rowsum(dout * out)``,
+``dS = P * (dP - delta)``, with P rounded to the value dtype before
+``P^T dout`` as the forward rounds it before ``P V``. ``ops/dispatch.py``
+picks the kernel for a CUDA tensor and ``flash_attention_ref`` (whose
+autograd is plain PyTorch) for a CPU one.
+
+Rows with no valid key output zeros in the kernel, as the JAX kernel does
+(``acc / max(l, 1e-30)``), while the plain version, like ``mha_reference``,
+averages over the masked keys; comparisons mask those rows. The plain
+backward gives such rows no gradient, as the kernel does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from finchat_tpu_torch.ops import kernels
+from finchat_tpu_torch.ops.kernels import check
+from finchat_tpu_torch.ops.refs import attention_mask, gqa_repeat, masked_logits
+
+HEAD_DIM = 128  # the kernels are built for Llama-3's head_dim
+
+
+def _descriptors(B: int, Sk: int, q_offset, kv_len, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B] int32 ``q_offset`` (default 0) and ``kv_len`` (default Sk)."""
+    if q_offset is None:
+        q_offset = torch.zeros((B,), dtype=torch.int32, device=device)
+    else:
+        q_offset = torch.broadcast_to(torch.as_tensor(q_offset, device=device), (B,))
+        q_offset = q_offset.to(torch.int32)
+    if kv_len is None:
+        kv_len = torch.full((B,), Sk, dtype=torch.int32, device=device)
+    else:
+        kv_len = torch.as_tensor(kv_len, device=device).to(torch.int32)
+    return q_offset.contiguous(), kv_len.contiguous()
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, Hkv, D]
+    v: torch.Tensor,
+    *,
+    q_offset: torch.Tensor | int | None = None,
+    kv_len: torch.Tensor | None = None,
+    causal: bool = True,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: ``(out [B, Sq, H, D] in q's dtype, lse [B, H, Sq]
+    fp32)``, out exactly ``mha_reference``'s."""
+    B, Sq, H, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    mask = attention_mask(B, Sq, k.shape[1], q.device, causal=causal,
+                          q_offset=0 if q_offset is None else q_offset, kv_len=kv_len)
+    logits = masked_logits(q, k, mask, scale)
+    lse = torch.logsumexp(logits, dim=-1)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(),
+                       gqa_repeat(v, H).float())
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    out: torch.Tensor,  # [B, Sq, H, D] the forward's output
+    lse: torch.Tensor,  # [B, H, Sq] fp32
+    dout: torch.Tensor,  # [B, Sq, H, D]
+    *,
+    q_offset: torch.Tensor | int | None = None,
+    kv_len: torch.Tensor | None = None,
+    causal: bool = True,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain flash-attention-2 backward: ``(dq, dk, dv)`` in the inputs'
+    dtypes, dk and dv summed over each KV head's group of query heads."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    mask = attention_mask(B, Sq, Sk, q.device, causal=causal,
+                          q_offset=0 if q_offset is None else q_offset, kv_len=kv_len)
+    p = torch.exp(masked_logits(q, k, mask, scale) - lse[..., None])
+    p = torch.where(mask, torch.zeros_like(p), p)
+    do32 = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), do32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, gqa_repeat(v, H).float())
+    delta = (do32 * out.float()).sum(-1).permute(0, 2, 1)  # [B, H, Sq]
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, gqa_repeat(k, H).float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    group = H // Hkv
+    dk = dk.reshape(B, Sk, Hkv, group, D).sum(3)
+    dv = dv.reshape(B, Sk, Hkv, group, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra: torch.Tensor) -> None:
+    check(q.is_cuda, "the flash attention kernels run on CUDA tensors "
+          "(flash_attention_ref is the plain version)")
+    check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
+          and k.shape[0] == q.shape[0] and k.shape[3] == q.shape[3],
+          f"want q [B, Sq, H, D] and k, v [B, Sk, Hkv, D], got {tuple(q.shape)}, "
+          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    for t in (q, k, v, *extra):
+        check(t.dtype == torch.bfloat16, "the flash attention kernels take bf16 tensors only")
+        check(t.is_cuda and t.device == q.device and t.is_contiguous()
+              and t.data_ptr() % 16 == 0,
+              "flash attention tensors must be contiguous and 16-byte aligned on one "
+              "CUDA device")
+    check(q.shape[3] == HEAD_DIM,
+          f"flash attention kernels are built for head_dim {HEAD_DIM}, got {q.shape[3]}")
+    check(q.shape[2] % k.shape[2] == 0,
+          f"heads {q.shape[2]} must be a multiple of kv heads {k.shape[2]}")
+    check(q.shape[1] > 0 and k.shape[1] > 0, "empty sequence")
+
+
+def _check_descriptors(q: torch.Tensor, q_offset: torch.Tensor, kv_len: torch.Tensor) -> None:
+    for t in (q_offset, kv_len):
+        check(t.dtype == torch.int32 and t.shape == (q.shape[0],) and t.is_contiguous()
+              and t.device == q.device, "q_offset and kv_len must be [B] int32 on q's device")
+
+
+def flash_attention_fwd(q, k, v, q_offset: torch.Tensor, kv_len: torch.Tensor, *,
+                        causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel: ``(out, lse)``. Raises on a tensor it does not
+    take, a CPU one included."""
+    _check(q, k, v)
+    _check_descriptors(q, q_offset, kv_len)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    kernels.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   lse.data_ptr(), q_offset.data_ptr(), kv_len.data_ptr(),
+                   B, Sq, Sk, H, Hkv, D, int(causal), float(scale))
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, q_offset: torch.Tensor, kv_len: torch.Tensor,
+                        *, causal: bool, scale: float
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels (delta pre-pass, dK/dV, dQ; one launch count):
+    ``(dq, dk, dv)`` bf16."""
+    _check(q, k, v, out, dout)
+    _check_descriptors(q, q_offset, kv_len)
+    check(lse.dtype == torch.float32 and lse.is_contiguous()
+          and lse.shape == (q.shape[0], q.shape[2], q.shape[1]), "lse must be [B, H, Sq] fp32")
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)  # scratch: rowsum(dout * out)
+    kernels.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_offset.data_ptr(),
+                   kv_len.data_ptr(), B, Sq, Sk, H, Hkv, D, int(causal), float(scale))
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K7 with its gradient: the forward kernel saves ``out`` and ``lse``;
+    the backward kernels recompute P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_len, causal: bool, scale: float):
+        out, lse = flash_attention_fwd(q, k, v, q_offset, kv_len, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse, q_offset, kv_len)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_offset, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), q_offset, kv_len,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, H, D] bf16, CUDA
+    k: torch.Tensor,  # [B, Sk, Hkv, D]
+    v: torch.Tensor,
+    *,
+    q_offset: torch.Tensor | int | None = None,  # [B] abs position of q[:, 0]
+    kv_len: torch.Tensor | None = None,  # [B] valid KV length
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Attention by the CUDA kernel, differentiable in q, k and v; returns
+    [B, Sq, H, D] bf16. Raises on a tensor it does not take, a CPU one
+    included."""
+    q_offset, kv_len = _descriptors(q.shape[0], k.shape[1], q_offset, kv_len, q.device)
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    return FlashAttentionFn.apply(q, k, v, q_offset, kv_len, causal, float(scale))

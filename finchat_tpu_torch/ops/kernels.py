@@ -11,9 +11,11 @@ all started together. Nothing here runs at import
 time: the CPU tests import every module of the package.
 
 ``LAUNCHES`` counts kernel launches per kernel. A wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that the main path
-went through the kernels (``chip_smoke.py`` resets the counts before it
-drives the path and reads them after).
+launches its kernel and nowhere else (one C entry point is one launch, even
+where it runs a few kernels in a row, as K7's backward and the split decode
+do), so a run can show that the main path went through the kernels
+(``chip_smoke.py`` resets the counts before it drives the path and reads
+them after).
 """
 
 from __future__ import annotations
@@ -90,6 +92,17 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         "quant_matmul.cu", "quant_matmul_int4",
         # x, q, scale, out; M, K, N, G, out_f32, x_vec, q_vec
         [_P] * 4 + [_I] * 7 + [_P],  # stream
+    ),
+    "flash_attention": (
+        "flash_attention.cu", "flash_attention_fwd_bf16",
+        # q, k, v, out, lse, q_offset, kv_len; B, Sq, Sk, H, HKV, D, causal
+        [_P] * 7 + [_I] * 7 + [_F, _P],  # scale, stream
+    ),
+    "flash_attention_bwd": (
+        "flash_attention.cu", "flash_attention_bwd_bf16",
+        # q, k, v, out, dout, lse, delta, dq, dk, dv, q_offset, kv_len;
+        # B, Sq, Sk, H, HKV, D, causal
+        [_P] * 12 + [_I] * 7 + [_F, _P],  # scale, stream
     ),
 }
 SOURCES = sorted({src for src, _sym, _args in KERNELS.values()})

@@ -23,6 +23,34 @@ def gqa_repeat(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(kv, n_heads // n_kv, dim=-2)
 
 
+def attention_mask(B: int, Sq: int, Sk: int, device, *, causal: bool,
+                   q_offset: torch.Tensor | int = 0,
+                   kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, 1, Sq, Sk] bool, True where query row i (absolute position
+    ``q_offset + i``) may NOT see key j: a causal-future key, or one at or
+    past ``kv_len``."""
+    kv_pos = torch.arange(Sk, device=device)[None, None, None, :]
+    mask = torch.zeros((B, 1, Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        if isinstance(q_offset, int):
+            q_pos = (q_offset + torch.arange(Sq, device=device)).expand(B, Sq)
+        else:
+            q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=device)[None, :]
+        mask = mask | (kv_pos > q_pos[:, None, :, None])
+    if kv_len is not None:
+        mask = mask | (kv_pos >= kv_len.long()[:, None, None, None])
+    return mask
+
+
+def masked_logits(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """fp32 ``scale * q . k`` [B, H, Sq, Sk] over GQA-repeated keys, masked
+    positions set to ``NEG_INF``."""
+    k = gqa_repeat(k, q.shape[2])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return torch.where(mask, torch.full_like(logits, NEG_INF), logits)
+
+
 def mha_reference(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Sk, Hkv, D]
@@ -41,27 +69,10 @@ def mha_reference(
     finite), exactly as the JAX reference does.
     """
     B, Sq, H, D = q.shape
-    Sk = k.shape[1]
     scale = scale if scale is not None else D ** -0.5
-    dev = q.device
-
-    k = gqa_repeat(k, H)
+    mask = attention_mask(B, Sq, k.shape[1], q.device, causal=causal, q_offset=q_offset,
+                          kv_len=kv_len)
+    weights = torch.softmax(masked_logits(q, k, mask, scale), dim=-1)
     v = gqa_repeat(v, H)
-
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-
-    kv_pos = torch.arange(Sk, device=dev)[None, None, None, :]
-    mask = torch.zeros((B, 1, Sq, Sk), dtype=torch.bool, device=dev)
-    if causal:
-        if isinstance(q_offset, int):
-            q_pos = (q_offset + torch.arange(Sq, device=dev)).expand(B, Sq)
-        else:
-            q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
-        mask = mask | (kv_pos > q_pos[:, None, :, None])
-    if kv_len is not None:
-        mask = mask | (kv_pos >= kv_len.long()[:, None, None, None])
-
-    logits = torch.where(mask, torch.full_like(logits, NEG_INF), logits)
-    weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float())
     return out.to(q.dtype)

@@ -13,7 +13,9 @@ groups of 2 and 8), the FMA fallback for pages that are not a multiple of
 and the KV append — each over a bf16 cache and over an int8 cache with its
 scale planes — and the fused dequant matmul (int8, int4 per column and per
 group of 128, bf16 and fp32 output, 64- and 128-row blocks, ragged M, N
-and unaligned rows).
+and unaligned rows) — and contiguous flash attention (K7), forward and
+backward (causal and not, ``q_offset``/``kv_len`` with an empty sequence,
+GQA groups of 4 and 8, lengths off the 64-row tile).
 
 Tolerance for attention, per output row (one token of one head):
 ``max|got - want| <= min(2e-2, 2^-6 * max|want|)`` over the row. Both sides
@@ -34,6 +36,19 @@ same exact products to bf16, one ulp of the row's top binade apart at
 worst); with fp32 output, per element ``K * 2^-22 * (|x| @ |w|)``, a bound
 on two fp32 summations of K products in any order (each within ``K * 2^-23``
 of the exact sum, relative to the sum of magnitudes).
+
+Tolerance for K7's backward against its plain version on the same inputs
+(q, k, v, the kernel's out and lse, dout): per tensor
+``||got - want|| / ||want|| <= 1e-2`` and per row (one token of one head)
+``max|got - want| <= 2^-5 * max(max|want row|, 2^-10 * max|want|)``. The
+kernel rounds dS to bf16 (2^-9 relative) before its two products and every
+gradient to bf16 once; the plain version keeps dS in fp32. An emulation of
+those rounding points on the CPU (tests/test_torch_k7_rounding.py) gives
+2.6e-3 per tensor and a quarter of the row limit. The floor is for rows whose gradient vanishes: the first
+query of a causal sequence sees one key, so its dS = dP - delta is zero up
+to fp32 cancellation (~1e-7 on both sides, in different orders). Rows with
+no valid key (``kv_len == 0``) are zeros in the kernel, forward and
+backward; the plain forward averages over them, so they are masked.
 """
 
 import numpy as np
@@ -42,6 +57,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from finchat_tpu_torch.engine.kv_cache import scale_rows  # noqa: E402
+from finchat_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_fwd,
+    flash_attention_ref,
+)
 from finchat_tpu_torch.models.quant import dequantize, quantize, quantize_int4  # noqa: E402
 from finchat_tpu_torch.ops.kernels import LAUNCHES  # noqa: E402
 from finchat_tpu_torch.ops.kv_append import (  # noqa: E402
@@ -360,3 +382,101 @@ def test_quantized_wrappers_refuse_what_they_do_not_take(dev):
                            ks.half(), vs.half(), torch.zeros((1, 2), **i32),
                            torch.zeros(1, **i32), torch.ones(1, **i32), 0, page_size=16,
                            n_kv=2)
+
+
+# --- contiguous flash attention (K7) ----------------------------------------
+
+# (name, B, Sq, Sk, H, Hkv, causal, q_offsets, kv_lens)
+FLASH = [
+    ("causal_square_group4", 2, 200, 200, 8, 2, True, None, None),
+    ("offset_kv_len_empty_row", 3, 70, 300, 8, 2, True, [0, 100, 230], [70, 170, 0]),
+    ("offset_short_kv", 2, 96, 160, 4, 1, True, [64, 40], [160, 100]),
+    ("non_causal_mha", 1, 100, 130, 4, 4, False, None, [117]),
+    ("causal_group8", 1, 129, 129, 16, 2, True, None, None),
+]
+
+
+def _flash_inputs(dev, case, seed: int):
+    _name, B, Sq, Sk, H, Hkv, causal, q_off, kv_len = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    q, k, v, dout = rnd(B, Sq, H, D), rnd(B, Sk, Hkv, D), rnd(B, Sk, Hkv, D), rnd(B, Sq, H, D)
+    qo = torch.tensor(q_off or [0] * B, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len or [Sk] * B, dtype=torch.int32, device=dev)
+    return q, k, v, dout, qo, kl, causal
+
+
+def _assert_grad_close(got, want):
+    """Per tensor relative norm <= 1e-2 and per row <= 2^-5 of the row's
+    largest reference value (floored at 2^-10 of the tensor's)."""
+    got, want = got.float(), want.float()
+    rel = ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+    assert rel <= 1e-2, f"relative error {rel:.3e}"
+    diff = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1).clamp(min=2.0 ** -10 * want.abs().max().item())
+    assert bool((diff <= 2.0 ** -5 * scale).all()), "a row is off"
+
+
+@pytest.mark.parametrize("case", FLASH, ids=[c[0] for c in FLASH])
+def test_flash_attention_forward_kernel_matches_plain(dev, case):
+    q, k, v, _dout, qo, kl, causal = _flash_inputs(dev, case, seed=10)
+    before = LAUNCHES["flash_attention"]
+    out, lse = flash_attention_fwd(q, k, v, qo, kl, causal=causal, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    want, want_lse = flash_attention_ref(q, k, v, q_offset=qo, kv_len=kl, causal=causal)
+    live = kl > 0
+    _assert_rows_close(out[live], want[live])
+    assert bool((out[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all())
+    torch.testing.assert_close(lse[live], want_lse[live], atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", FLASH, ids=[c[0] for c in FLASH])
+def test_flash_attention_backward_kernel_matches_plain(dev, case):
+    q, k, v, dout, qo, kl, causal = _flash_inputs(dev, case, seed=11)
+    kw = dict(causal=causal, scale=D ** -0.5)
+    out, lse = flash_attention_fwd(q, k, v, qo, kl, **kw)
+    before = LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, dout, qo, kl, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, q_offset=qo, kv_len=kl, **kw)
+    for g, w in zip(got, want):
+        _assert_grad_close(g, w)
+    live = kl > 0
+    assert all(bool((g[~live] == 0).all()) for g in got)
+
+
+def test_flash_attention_autograd_launches_both_kernels(dev):
+    """``flash_attention`` is differentiable: backward() runs the backward
+    kernel, and the gradients equal a direct call's."""
+    q, k, v, dout, qo, kl, _causal = _flash_inputs(dev, FLASH[0], seed=12)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]
+    out = flash_attention(*leaves)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == (f0 + 1, b0 + 1)
+    _o, lse = flash_attention_fwd(q, k, v, qo, kl, causal=True, scale=D ** -0.5)
+    direct = flash_attention_bwd(q, k, v, out.detach(), lse, dout, qo, kl, causal=True,
+                                 scale=D ** -0.5)
+    for leaf, want in zip(leaves, direct):
+        assert torch.equal(leaf.grad, want)
+
+
+def test_flash_attention_wrapper_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((1, 8, 4, D), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((1, 8, 2, D), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention(q.float(), k.float(), k.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                        k[..., :64].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q.cpu(), k.cpu(), k.cpu())
