@@ -15,17 +15,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1-4k-token contexts; prefill B=4 C=512 at q_offset 0 and 1024), the
    decode KV append (B=64 with invalid lanes; the int8 one quantizes), and
    ragged attention (two 512-token prefill rows, 60 decode rows, padding to
-   a 2048 bucket); then the fused dequant matmul (int8 at M=64 and M=2048
-   on the [4096, 14336] MLP weight and at M=64 on the [4096, 128256] head
-   with fp32 output; int4 at M=64 on [4096, 14336], per column and per group
-   of 128). Each case prints its max abs error; attention is held per
+   a 2048 bucket); then the fused dequant matmul's two kernels: v2 at
+   decode (int8 at M=64 on the [4096, 14336] MLP weight and on the [4096,
+   128256] head with fp32 output; int4 at M=64 on [4096, 14336], per column
+   and per group of 128) and the Hopper kernel at prefill (M=2048 and the
+   ragged round's M=1084, int8 on every weight shape — [4096, 4096],
+   [4096, 1024], [4096, 14336], [14336, 4096] — and int4 per group of 128
+   on [4096, 14336]), with v2 held and timed beside it on the same inputs.
+   The wrapper must launch the kernel its routing rule names. Each case
+   prints its max abs error; attention is held per
    output row (one token of one head) to min(2e-2, 2^-6 of the row's
    largest reference value), two bf16 ulps; a bf16 matmul output row to
    2^-7 of its largest value (one ulp: both sides round an fp32 sum of the
    same exact products); the fp32 head per element to K * 2^-22 * (|x| @
    |w|), a bound on two fp32 summations of K = 4096 products in any order;
    the appends bit-exact. Then it prints the kernel's and the plain
-   version's median time over 20 CUDA-event-timed runs, the bound (the
+   version's median time per call over 20 CUDA-event-timed runs (each of
+   back-to-back calls filling ~1 ms, at most 20), the bound (the
    larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, counted from this
    run's inputs) and a library yardstick the port never calls:
    ``scaled_dot_product_attention`` over the pre-gathered (dequantized) KV
@@ -106,6 +112,11 @@ ATOL = 2e-2
 # an fp32 output element within K * 2^-22 of the sum of |x| |w| products
 QMM_ROW_TOL = 2.0 ** -7
 QMM_F32_TOL = 2.0 ** -22
+# the prefill cases of the fused dequant matmul: a 4 x 512 chunk and the
+# ragged round of two 512-token rows and 60 decode rows, on every llama3-8b
+# weight shape — q and o, k and v, gate and up, down ([K, N])
+QMM_PREFILL_ROWS = (2048, 1084)
+QMM_PREFILL_WEIGHTS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 # K7's backward against its plain version on the same inputs: the kernel
 # rounds dS to bf16 (2^-9 relative) before its products, the plain version
 # keeps it in fp32, and both round each gradient to bf16 (an emulation of
@@ -127,10 +138,13 @@ REPO = Path(__file__).resolve().parent
 PLANES = {
     "bf16": dict(kernels=("paged_attention", "kv_append", "ragged_paged_attention"),
                  quant="", group=0, kv_quant=""),
+    # K8: the Hopper kernel serves prefill (more than 64 rows), v2 decode
     "int8+kv8": dict(kernels=("paged_attention_q8", "kv_append_q8", "ragged_paged_attention_q8",
-                              "quant_matmul_int8"), quant="int8", group=0, kv_quant="int8"),
+                              "quant_matmul_int8_sm90", "quant_matmul_int8"),
+                     quant="int8", group=0, kv_quant="int8"),
     "int4g128+kv8": dict(kernels=("paged_attention_q8", "kv_append_q8",
-                                  "ragged_paged_attention_q8", "quant_matmul_int4"),
+                                  "ragged_paged_attention_q8", "quant_matmul_int4_sm90",
+                                  "quant_matmul_int4"),
                          quant="int4", group=128, kv_quant="int8"),
 }
 
@@ -144,21 +158,43 @@ def fail(msg: str, code: int = 1) -> None:
     sys.exit(code)
 
 
+def log_resource_usage(lib: Path, kernel: str) -> None:
+    """Registers, stack (spills) and static shared memory of each
+    instantiation of ``kernel`` in a built library, as ``cuobjdump
+    -res-usage`` reports them."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        log(f"  {kernel}: resource usage not measured (no cuobjdump)")
+        return
+    out = subprocess.run([str(tool), "-res-usage", str(lib)], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    for name, usage in zip(out, out[1:]):
+        if kernel in name and "Function" in name:
+            log(f"  {name.strip()[:100]}: {usage.strip()}")
+
+
+def _events_ms(torch, fn, reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` CUDA-event-timed runs."""
+    """Median milliseconds of one call of ``fn`` over ``iters``
+    CUDA-event-timed runs. A run is as many back-to-back calls (at most 20)
+    as fill about a millisecond, so the host's cost of a launch hides behind
+    the card's work wherever the card takes longer than the host; a call of
+    a millisecond or more runs alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    reps = max(1, min(20, int(1.0 / max(_events_ms(torch, fn, 1), 0.05))))
+    return statistics.median(_events_ms(torch, fn, reps) / reps for _ in range(iters))
 
 
 def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -526,13 +562,18 @@ def check_ragged(torch, gen, dev, results: list, q8: bool = False) -> None:
 
 def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, group: int,
               out_f32: bool, results: list) -> None:
-    """The fused dequant matmul against its plain version at one shape."""
+    """The fused dequant matmul against its plain version at one shape,
+    through the wrapper (which must pick the kernel ``kernel_for`` names).
+    Where that is the Hopper kernel, v2 is also held and timed on the same
+    inputs, launched by its own name."""
     from finchat_tpu_torch.models.quant import dequantize, quantize, quantize_int4
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.quant_matmul import (
+        kernel_for,
         quant_matmul_int4,
         quant_matmul_int8,
         quant_matmul_ref,
+        run_kernel,
     )
 
     w = torch.randn((K, N), generator=gen, device=dev, dtype=torch.bfloat16).mul_(K ** -0.5)
@@ -540,36 +581,20 @@ def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, gro
     del w
     x = torch.randn((M, K), generator=gen, device=dev, dtype=torch.bfloat16)
     out_dtype = torch.float32 if out_f32 else None
-    kname = f"quant_matmul_{mode}"
+    routed = kernel_for(mode, M, K, N, group or K, out_f32)
     fn = quant_matmul_int4 if mode == "int4" else quant_matmul_int8
-
-    def kern():
-        return fn(x, qt.q, qt.scale, out_dtype=out_dtype)
 
     def plain():
         return quant_matmul_ref(x, qt, out_dtype=out_dtype)
 
-    before = LAUNCHES[kname]
-    got = kern()
-    torch.cuda.synchronize()
-    assert LAUNCHES[kname] == before + 1
     want = plain()
     w_deq = dequantize(qt, torch.bfloat16)
-    diff = (got.float() - want.float()).abs()
-    err = diff.max().item()
-    finite = bool(torch.isfinite(got.float()).all().item())
     if out_f32:
         limit = K * QMM_F32_TOL * (x.float().abs() @ w_deq.float().abs())
         how = f"per element {K} * 2^-22 * (|x| @ |w|)"
     else:
         limit = QMM_ROW_TOL * want.float().abs().amax(-1, keepdim=True)
         how = "per row 2^-7 * max|want row|"
-    worst = (diff / limit.clamp(min=1e-30)).max().item()
-    log(f"  {name}: max_abs_err {err:.3e}, worst error / limit {worst:.3f} ({how})")
-    if not (worst <= 1.0 and finite):
-        fail(f"{name}: kernel disagrees with its plain version (error / limit {worst})")
-    del limit, diff
-    ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain)
     if out_f32:
         lib_ms = time_ms(torch, lambda: torch.mm(x, w_deq, out_dtype=torch.float32))
@@ -578,11 +603,32 @@ def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, gro
     moved = (x.numel() * 2 + qt.q.numel() + qt.scale.numel() * 4
              + M * N * (4 if out_f32 else 2))
     b_ms, b_by = bound_ms(moved, 2.0 * M * K * N)
-    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul (bf16 weight) "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    results.append(dict(case=name, err=err, rel_err=worst, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-    del qt, w_deq, x, got, want
+    plane = "int4g128+kv8" if mode == "int4" else "int8+kv8"
+    kernels_here = [(routed, lambda: fn(x, qt.q, qt.scale, out_dtype=out_dtype))]
+    v2 = f"quant_matmul_{mode}"
+    if routed != v2:
+        kernels_here.append((v2, lambda: run_kernel(v2, x, qt.q, qt.scale, out_dtype=out_dtype)))
+    for kname, kern in kernels_here:
+        before = dict(LAUNCHES)
+        got = kern()
+        torch.cuda.synchronize()
+        if {k for k in LAUNCHES if LAUNCHES[k] != before[k]} != {kname}:
+            fail(f"{name}: expected one launch of {kname}, launches moved: "
+                 f"{ {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} }")
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        finite = bool(torch.isfinite(got.float()).all().item())
+        worst = (diff / limit.clamp(min=1e-30)).max().item()
+        log(f"  {name} [{kname}]: max_abs_err {err:.3e}, worst error / limit {worst:.3f} ({how})")
+        if not (worst <= 1.0 and finite):
+            fail(f"{name}: {kname} disagrees with its plain version (error / limit {worst})")
+        del got, diff
+        ms = time_ms(torch, kern)
+        log(f"  {name} [{kname}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+            f"(bf16 weight) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        results.append(dict(case=name, kernel=kname, plane=plane, err=err, rel_err=worst, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    del qt, w_deq, x, want, limit
     torch.cuda.empty_cache()
 
 
@@ -856,8 +902,10 @@ def _kernel_class(name: str) -> str:
         return "attention (ours)"
     if "kv_append" in n:
         return "kv_append (ours)"
+    if "quant_matmul_sm90_kernel" in n:
+        return "quant_matmul sm90 (ours)"
     if "quant_matmul_kernel" in n:
-        return "quant_matmul (ours)"
+        return "quant_matmul v2 (ours)"
     if any(k in n for k in ("gemm", "gemv", "xmma", "cutlass", "sm90", "nvjet", "matmul")):
         return "matmul (cuBLAS)"
     return "other"
@@ -1192,6 +1240,7 @@ def main() -> None:
     log(f"phase 1: device {kind} ({card}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_s = kernels.build_all()
     log(f"  kernels built in {build_s:.1f} s from {kernels.CSRC}")
+    log_resource_usage(kernels.library_path("quant_matmul_sm90.cu"), "quant_matmul_sm90_kernel")
 
     log("phase 2: kernels against their plain versions (llama3-8b shapes)")
     gen = torch.Generator(device=dev)
@@ -1212,15 +1261,19 @@ def main() -> None:
                 results, q8=True)
     check_append_q8(torch, gen, dev, results)
     check_ragged(torch, gen, dev, results, q8=True)
-    log("  fused dequant matmul:")
+    log("  fused dequant matmul (v2 at decode and for the fp32 head; the Hopper kernel at "
+        "prefill, v2 beside it on the same inputs):")
     check_qmm(torch, "int8_m64_4096x14336", gen, dev, 64, 4096, 14336, "int8", 0, False, results)
-    check_qmm(torch, "int8_m2048_4096x14336", gen, dev, 2048, 4096, 14336, "int8", 0, False,
-              results)
     check_qmm(torch, "int8_m64_head_fp32", gen, dev, 64, 4096, 128256, "int8", 0, True, results)
     check_qmm(torch, "int4_g0_m64_4096x14336", gen, dev, 64, 4096, 14336, "int4", 0, False,
               results)
     check_qmm(torch, "int4_g128_m64_4096x14336", gen, dev, 64, 4096, 14336, "int4", 128, False,
               results)
+    for M in QMM_PREFILL_ROWS:
+        for K, N in QMM_PREFILL_WEIGHTS:
+            check_qmm(torch, f"int8_m{M}_{K}x{N}", gen, dev, M, K, N, "int8", 0, False, results)
+        check_qmm(torch, f"int4_g128_m{M}_4096x14336", gen, dev, M, 4096, 14336, "int4", 128,
+                  False, results)
     log("  contiguous flash attention (training shapes):")
     check_flash(torch, "flash_fwd_causal_s2048", gen, dev, 1, 2048, 2048, [0], [2048], results)
     check_flash(torch, "flash_fwd_q1024_kv1536", gen, dev, 4, 512, 1536, [1024] * 4, [1536] * 4,
@@ -1247,7 +1300,7 @@ def main() -> None:
     log("train: " + json.dumps(train))
 
     src = "finchat_tpu_torch/csrc/"
-    by_case = {r["case"]: r for r in results}
+    by_case = {r["case"]: r for r in results if "kernel" not in r}
     # (kernel, phase-2 case, source, TPU kernel it replaces, serving plane
     # or training run whose main path gives its launches)
     paged = "finchat_tpu/ops/paged_attention.py:305"
@@ -1270,12 +1323,6 @@ def main() -> None:
          "int8+kv8"),
         ("ragged_paged_attention_q8", "ragged_q8", "ragged_paged_attention.cu",
          "finchat_tpu/ops/ragged_paged_attention.py:478", "int8+kv8"),
-        ("quant_matmul_int8", "int8_m64_4096x14336", "quant_matmul.cu", qmm, "int8+kv8"),
-        ("quant_matmul_int8", "int8_m2048_4096x14336", "quant_matmul.cu", qmm, "int8+kv8"),
-        ("quant_matmul_int8", "int8_m64_head_fp32", "quant_matmul.cu", qmm, "int8+kv8"),
-        ("quant_matmul_int4", "int4_g0_m64_4096x14336", "quant_matmul.cu", qmm, "int4g128+kv8"),
-        ("quant_matmul_int4", "int4_g128_m64_4096x14336", "quant_matmul.cu", qmm,
-         "int4g128+kv8"),
         ("flash_attention", "flash_fwd_causal_s2048", "flash_attention.cu", flash, "train"),
         ("flash_attention", "flash_fwd_q1024_kv1536", "flash_attention.cu", flash, "train"),
         ("flash_attention_bwd", "flash_bwd_causal_s2048", "flash_attention.cu", flash, "train"),
@@ -1283,10 +1330,14 @@ def main() -> None:
     launched = {plane: stats["launches"] for plane, stats in serves.items()}
     launched["train"] = train["launches"]
     table = []
-    for kname, case, source, replaces, plane in rows:
-        r = by_case[case]
+    rows = [(kname, by_case[case], source, rep, plane) for kname, case, source, rep, plane in rows]
+    # K8's two kernels, every case each ran in phase 2
+    rows += [(r["kernel"], r, ("quant_matmul_sm90.cu" if r["kernel"].endswith("_sm90")
+                               else "quant_matmul.cu"), qmm, r["plane"])
+             for r in results if "kernel" in r]
+    for kname, r, source, replaces, plane in rows:
         table.append({
-            "name": kname if case == kname else f"{kname}[{case}]",
+            "name": kname if r["case"] == kname else f"{kname}[{r['case']}]",
             "route": "cuda", "source": src + source, "replaces": replaces,
             "launches": launched[plane][kname], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -93,6 +93,16 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # x, q, scale, out; M, K, N, G, out_f32, x_vec, q_vec
         [_P] * 4 + [_I] * 7 + [_P],  # stream
     ),
+    "quant_matmul_int8_sm90": (
+        "quant_matmul_sm90.cu", "quant_matmul_int8_sm90",
+        # x, q, scale, out; M, K, N
+        [_P] * 4 + [_I] * 3 + [_P],  # stream
+    ),
+    "quant_matmul_int4_sm90": (
+        "quant_matmul_sm90.cu", "quant_matmul_int4_sm90",
+        # x, q, scale, out; M, K, N, G
+        [_P] * 4 + [_I] * 4 + [_P],  # stream
+    ),
     "flash_attention": (
         "flash_attention.cu", "flash_attention_fwd_bf16",
         # q, k, v, out, lse, q_offset, kv_len; B, Sq, Sk, H, HKV, D, causal
@@ -132,6 +142,11 @@ def _source_hash() -> str:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
+
+
+def library_path(source: str) -> Path:
+    """Where the shared library built from ``csrc/<source>`` lives."""
+    return BUILD_ROOT / _source_hash() / f"lib{Path(source).stem}.so"
 
 
 def build_all() -> float:

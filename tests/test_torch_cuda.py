@@ -11,9 +11,12 @@ page splits, full 64-row tiles on tensor cores (Llama-3's group of 4, and
 groups of 2 and 8), the FMA fallback for pages that are not a multiple of
 64 keys, small row groups, ragged rows with padding and a ``kv_gap`` row,
 and the KV append — each over a bf16 cache and over an int8 cache with its
-scale planes — and the fused dequant matmul (int8, int4 per column and per
-group of 128, bf16 and fp32 output, 64- and 128-row blocks, ragged M, N
-and unaligned rows) — and contiguous flash attention (K7), forward and
+scale planes — and the fused dequant matmul's two kernels: v2 (int8, int4
+per column and per group of 128, bf16 and fp32 output, 64- and 128-row
+blocks, ragged M, N and unaligned rows) and the Hopper kernel (TMA +
+``wgmma``: ragged M, N off the 128-column tile, K off the 64-row tile,
+128- and 256-row tiles, int4 per column and per group of 128), with the
+routing rule between them — and contiguous flash attention (K7), forward and
 backward (causal and not, ``q_offset``/``kv_len`` with an empty sequence,
 GQA groups of 4 and 8, lengths off the 64-row tile).
 
@@ -82,6 +85,7 @@ from finchat_tpu_torch.ops.quant_matmul import (  # noqa: E402
     quant_matmul_int4,
     quant_matmul_int8,
     quant_matmul_ref,
+    run_kernel,
 )
 from finchat_tpu_torch.ops.ragged_paged_attention import (  # noqa: E402
     ragged_flash_attention,
@@ -356,6 +360,78 @@ def test_quant_matmul_kernel_matches_plain(dev, case):
         assert bool((diff <= limit).all()), (diff / limit.clamp(min=1e-30)).max().item()
 
 
+# (M, K, N, mode, group): calls the Hopper kernel serves — ragged M (130,
+# 300, and 1084 = 2 x 512 + 60, the ragged round's rows), N a multiple of 16
+# but not of the 128-column tile (1040), K a multiple of 8 but not of the
+# 64-row tile (200), a K of 64 tiles (the ring wraps 16 times), int4 per
+# group of 128 and per column; 128-row tiles, and 256-row ones where the
+# grid fills the card (the two "wide" cases, on 132 SMs)
+QMM_SM90 = [
+    ("int8_m130", 130, 512, 384, "int8", 0),
+    ("int8_m1084_n14336_wide", 1084, 512, 14336, "int8", 0),
+    ("int4_g128_m2048_wide", 2048, 256, 14336, "int4", 128),
+    ("int8_m300_n1040", 300, 256, 1040, "int8", 0),
+    ("int8_m1084", 1084, 512, 256, "int8", 0),
+    ("int8_k200", 130, 200, 256, "int8", 0),
+    ("int8_m1084_k4096", 1084, 4096, 1024, "int8", 0),
+    ("int4_g128", 300, 512, 384, "int4", 128),
+    ("int4_g128_m1084_n1040", 1084, 1024, 1040, "int4", 128),
+    ("int4_g0_n1040", 130, 256, 1040, "int4", 0),
+]
+
+
+@pytest.mark.parametrize("case", QMM_SM90, ids=[c[0] for c in QMM_SM90])
+def test_quant_matmul_sm90_kernel_matches_plain(dev, case):
+    _name, M, K, N, mode, group = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    qt = quantize_int4(w, group) if mode == "int4" else quantize(w)
+    x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+    name, v2 = f"quant_matmul_{mode}_sm90", f"quant_matmul_{mode}"
+    before, before_v2 = LAUNCHES[name], LAUNCHES[v2]
+    fn = quant_matmul_int4 if mode == "int4" else quant_matmul_int8
+    got = fn(x, qt.q, qt.scale)
+    again = fn(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 2 and LAUNCHES[v2] == before_v2
+    # one accumulation order: a stale or half-written tile shows as a change
+    assert torch.equal(got, again)
+    want = quant_matmul_ref(x, qt)
+    assert got.dtype == want.dtype and got.shape == (M, N)
+    diff = (got.float() - want.float()).abs()
+    limit = 2.0 ** -7 * want.float().abs().amax(-1, keepdim=True)
+    assert bool((diff <= limit).all()), (diff / limit.clamp(min=1e-30)).max().item()
+
+
+# (M, N, fp32 out, Hopper kernel?): decode rows, the fp32 head and weight
+# rows that are not 16-byte multiples stay on v2; 65 rows do not
+QMM_ROUTES = [(64, 256, False, False), (130, 256, True, False), (130, 260, False, False),
+              (65, 256, False, True)]
+
+
+@pytest.mark.parametrize("case", QMM_ROUTES, ids=[f"M{c[0]}_N{c[1]}_f32{int(c[2])}"
+                                                  for c in QMM_ROUTES])
+def test_quant_matmul_routes_between_the_two_kernels(dev, case):
+    M, N, f32, hopper = case
+    K = 256
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    qt = quantize(torch.randn((K, N), generator=g, device=dev) * K ** -0.5)
+    x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+    before = {k: LAUNCHES[k] for k in ("quant_matmul_int8", "quant_matmul_int8_sm90")}
+    out_dtype = torch.float32 if f32 else None
+    got = quant_matmul_int8(x, qt.q, qt.scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    moved = "quant_matmul_int8_sm90" if hopper else "quant_matmul_int8"
+    stayed = "quant_matmul_int8" if hopper else "quant_matmul_int8_sm90"
+    assert LAUNCHES[moved] == before[moved] + 1 and LAUNCHES[stayed] == before[stayed]
+    want = quant_matmul_ref(x, qt, out_dtype=out_dtype)
+    limit = (K * 2.0 ** -22 * (x.float().abs() @ dequantize(qt, torch.bfloat16).float().abs())
+             if f32 else 2.0 ** -7 * want.float().abs().amax(-1, keepdim=True))
+    assert bool(((got.float() - want.float()).abs() <= limit).all())
+
+
 def test_quantized_wrappers_refuse_what_they_do_not_take(dev):
     qt = quantize(torch.randn((128, 64), device=dev))
     x = torch.zeros((4, 128), dtype=torch.bfloat16, device=dev)
@@ -366,6 +442,8 @@ def test_quantized_wrappers_refuse_what_they_do_not_take(dev):
                           qt.scale)
     with pytest.raises(ValueError, match="int8"):
         quant_matmul_int4(x, qt.q.float(), qt.scale[None])
+    with pytest.raises(ValueError, match="bf16 output"):
+        run_kernel("quant_matmul_int8_sm90", x, qt.q, qt.scale, out_dtype=torch.float32)
     kp, vp, ks, vs, _g = _q8_cache(dev, 2, 16, 4, seed=9)
     i32 = dict(dtype=torch.int32, device=dev)
     q = torch.zeros((1, 1, 4, D), dtype=torch.bfloat16, device=dev)
