@@ -15,7 +15,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1-4k-token contexts; prefill B=4 C=512 at q_offset 0 and 1024), the
    decode KV append (B=64 with invalid lanes; the int8 one quantizes), and
    ragged attention (two 512-token prefill rows, 60 decode rows, padding to
-   a 2048 bucket); then the fused dequant matmul's two kernels: v2 at
+   a 2048 bucket). Over the int8 cache the prefill chunks and the ragged
+   round go to the Hopper body (``attention_q8_sm90.cu``), and the older
+   body is held and timed beside it on the same inputs; every attention
+   launch runs twice and must give identical outputs. Then the fused
+   dequant matmul's two kernels: v2 at
    decode (int8 at M=64 on the [4096, 14336] MLP weight and on the [4096,
    128256] head with fp32 output; int4 at M=64 on [4096, 14336], per column
    and per group of 128) and the Hopper kernel at prefill (M=2048 and the
@@ -31,7 +35,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    |w|), a bound on two fp32 summations of K = 4096 products in any order;
    the appends bit-exact. Then it prints the kernel's and the plain
    version's median time per call over 20 CUDA-event-timed runs (each of
-   back-to-back calls filling ~1 ms, at most 20), the bound (the
+   back-to-back calls filling ~1 ms, at most 20; an attention kernel's
+   launch is timed alone, its call's checks and tile descriptors built
+   once, and the routed wrapper's time, host work included, beside it),
+   the bound (the
    larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, counted from this
    run's inputs) and a library yardstick the port never calls:
    ``scaled_dot_product_attention`` over the pre-gathered (dequantized) KV
@@ -138,13 +145,16 @@ REPO = Path(__file__).resolve().parent
 PLANES = {
     "bf16": dict(kernels=("paged_attention", "kv_append", "ragged_paged_attention"),
                  quant="", group=0, kv_quant=""),
-    # K8: the Hopper kernel serves prefill (more than 64 rows), v2 decode
-    "int8+kv8": dict(kernels=("paged_attention_q8", "kv_append_q8", "ragged_paged_attention_q8",
-                              "quant_matmul_int8_sm90", "quant_matmul_int8"),
+    # K8: the Hopper kernel serves prefill (more than 64 rows), v2 decode;
+    # int8 attention: the Hopper body serves prefill chunks and every ragged
+    # tile (64 rows, page 128), the older one decode
+    "int8+kv8": dict(kernels=("paged_attention_q8", "paged_attention_q8_sm90", "kv_append_q8",
+                              "ragged_paged_attention_q8_sm90", "quant_matmul_int8_sm90",
+                              "quant_matmul_int8"),
                      quant="int8", group=0, kv_quant="int8"),
-    "int4g128+kv8": dict(kernels=("paged_attention_q8", "kv_append_q8",
-                                  "ragged_paged_attention_q8", "quant_matmul_int4_sm90",
-                                  "quant_matmul_int4"),
+    "int4g128+kv8": dict(kernels=("paged_attention_q8", "paged_attention_q8_sm90",
+                                  "kv_append_q8", "ragged_paged_attention_q8_sm90",
+                                  "quant_matmul_int4_sm90", "quant_matmul_int4"),
                          quant="int4", group=128, kv_quant="int8"),
 }
 
@@ -290,6 +300,45 @@ def _gather_dense(torch, cache, pt, layer: int, S: int):
     return (k[:, :S].permute(0, 2, 1, 3).contiguous(), v[:, :S].permute(0, 2, 1, 3).contiguous())
 
 
+def check_attention_calls(torch, name: str, calls, want, live, results: list,
+                          extra: dict, wrapper_ms: float) -> None:
+    """Each prepared attention launch in ``calls`` (the routed kernel first,
+    then the older body on the same inputs where the routing picked the
+    Hopper one): launched twice (identical outputs), its live rows held
+    against ``want``, its dead rows (no key, padding) zero, and its launch
+    alone timed; ``wrapper_ms`` (the routed wrapper's time, its host work
+    included) goes with the first."""
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+
+    for n, call in enumerate(calls):
+        before = dict(LAUNCHES)
+        got = call.launch().clone()
+        again = call.launch()
+        torch.cuda.synchronize()
+        moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        if moved != {call.name: 2}:
+            fail(f"{name}: expected two launches of {call.name}, launches moved: {moved}")
+        same = bool(torch.equal(got, again))
+        err, rel, close = attention_errors(torch, got[live], want[live])
+        zeros_ok = bool((got[~live] == 0).all().item())
+        finite = bool(torch.isfinite(got.float()).all().item())
+        log(f"  {name} [{call.name}]: max_abs_err {err:.3e}, row-relative {rel:.3e} (limit per "
+            f"row: min({ATOL}, {REL_TOL} * max|want|)), rows without keys zero: {zeros_ok}, "
+            f"two launches identical: {same}")
+        if not (close and zeros_ok and finite and same):
+            fail(f"{name}: {call.name} disagrees with its plain version (row-relative {rel}, "
+                 f"zeros {zeros_ok}, finite {finite}, identical {same})")
+        del got, again
+        ms = time_ms(torch, call.launch)
+        routed = dict(wrapper_ms=wrapper_ms) if n == 0 else {}
+        log(f"  {name} [{call.name}]: kernel {ms:.4f} ms, plain {extra['plain_ms']:.4f} ms, "
+            f"sdpa {extra['library_ms']:.4f} ms, bound {extra['bound_ms']:.4f} ms "
+            f"({extra['bound_by']})" + (f"; the routed wrapper, its host work included, "
+                                         f"{wrapper_ms:.4f} ms" if routed else ""))
+        results.append(dict(case=name, kernel=call.name, err=err, rel_err=rel, ms=ms, **extra,
+                            **routed))
+
+
 def check_paged(torch, name, gen, dev, C: int, q_offsets: list[int], kv_lens: list[int],
                 results: list, q8: bool = False) -> None:
     from finchat_tpu_torch.ops.kernels import LAUNCHES
@@ -298,6 +347,7 @@ def check_paged(torch, name, gen, dev, C: int, q_offsets: list[int], kv_lens: li
         paged_attention_ref,
         paged_flash_attention,
         paged_flash_attention_q8,
+        prepare_paged,
     )
 
     B, layer = len(kv_lens), 1
@@ -308,9 +358,10 @@ def check_paged(torch, name, gen, dev, C: int, q_offsets: list[int], kv_lens: li
     q_off = torch.tensor(q_offsets, dtype=torch.int32, device=dev)
     kv = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     kw = dict(page_size=PS, n_kv=HKV)
-    kname = "paged_attention_q8" if q8 else "paged_attention"
+    kind = "paged_attention_q8" if q8 else "paged_attention"
+    scales = dict(k_scales=k_scales, v_scales=v_scales) if q8 else {}
 
-    def kern():
+    def wrapper():
         if q8:
             return paged_flash_attention_q8(q, k_pages, v_pages, k_scales, v_scales, pt, q_off,
                                             kv, layer, **kw)
@@ -322,37 +373,32 @@ def check_paged(torch, name, gen, dev, C: int, q_offsets: list[int], kv_lens: li
                                           kv, layer, **kw)
         return paged_attention_ref(q, k_pages, v_pages, pt, q_off, kv, layer, **kw)
 
-    before = LAUNCHES[kname]
-    got = kern()
+    args = (q, k_pages, v_pages, pt, q_off, kv, layer)
+    routed = prepare_paged(kind, *args, **kw, **scales)
+    calls = [routed]
+    if routed.name != kind:  # the older body on the same inputs, launched by name
+        calls.append(prepare_paged(kind, *args, **kw, **scales, route=False))
+    before = LAUNCHES[routed.name]
+    wrapper()
     torch.cuda.synchronize()
-    assert LAUNCHES[kname] == before + 1
+    if LAUNCHES[routed.name] != before + 1:
+        fail(f"{name}: the wrapper did not launch {routed.name}, the kernel its rule names")
     want = plain()
-    live = kv > 0
-    err, rel, close = attention_errors(torch, got[live], want[live])
-    zeros_ok = bool((got[~live] == 0).all().item())
-    finite = bool(torch.isfinite(got.float()).all().item())
-    log(f"  {name}: max_abs_err {err:.3e}, row-relative {rel:.3e} (limit per row: "
-        f"min({ATOL}, {REL_TOL} * max|want|)), "
-        f"kv_len==0 rows zero: {zeros_ok}")
-    if not (close and zeros_ok and finite):
-        fail(f"{name}: kernel disagrees with its plain version (row-relative {rel}, "
-             f"zeros {zeros_ok}, finite {finite})")
-    ms = time_ms(torch, kern)
-    plain_ms = time_ms(torch, plain)
     S = max(kv_lens)
     k_rows, v_rows = _gather_dense(torch, cache, pt, layer, S)
     pos = torch.arange(S, device=dev)
     qp = q_off[:, None] + torch.arange(C, device=dev)[None, :]  # [B, C]
     mask = (pos[None, None, :] <= qp[:, :, None]) & (pos[None, None, :] < kv[:, None, None])
     lib_ms = _sdpa_ms(torch, [(q.transpose(1, 2).contiguous(), k_rows, v_rows, mask[:, None])])
+    del k_rows, v_rows
     io_bytes = q.numel() * 2 * 2 + pt.numel() * 4 + B * 8
     flops = _attention_flops([(o + i, kl) for o, kl in zip(q_offsets, kv_lens) for i in range(C)])
     b_ms, b_by = bound_ms(_kv_bytes(sum(kv_lens), q8) + io_bytes, flops)
-    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    results.append(dict(case=name, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-    del k_pages, v_pages, k_scales, v_scales, cache, k_rows, v_rows
+    extra = dict(plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
+                 library_ms=lib_ms)
+    check_attention_calls(torch, name, calls, want, kv > 0, results, extra,
+                          time_ms(torch, wrapper))
+    del k_pages, v_pages, k_scales, v_scales, cache, calls, routed
     torch.cuda.empty_cache()
 
 
@@ -416,7 +462,7 @@ def check_append(torch, gen, dev, results: list) -> None:
     b_ms, b_by = bound_ms(moved, 0.0)
     log(f"  kv_append: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_put_ {lib_ms:.4f} ms, "
         f"bound {b_ms:.6f} ms ({b_by})")
-    results.append(dict(case="kv_append", err=err, rel_err=None, ms=ms, plain_ms=plain_ms,
+    results.append(dict(case="kv_append", kernel="kv_append", err=err, rel_err=None, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     del k_pages, v_pages, k_ref, v_ref
     torch.cuda.empty_cache()
@@ -464,7 +510,7 @@ def check_append_q8(torch, gen, dev, results: list) -> None:
     b_ms, b_by = bound_ms(moved, 0.0)
     log(f"  kv_append_q8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
         f"bound {b_ms:.6f} ms ({b_by})")
-    results.append(dict(case="kv_append_q8", err=err, rel_err=None, ms=ms, plain_ms=plain_ms,
+    results.append(dict(case="kv_append_q8", kernel="kv_append_q8", err=err, rel_err=None, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     del cache, ref, k_pages, v_pages, k_scales, v_scales
     torch.cuda.empty_cache()
@@ -473,13 +519,14 @@ def check_append_q8(torch, gen, dev, results: list) -> None:
 def check_ragged(torch, gen, dev, results: list, q8: bool = False) -> None:
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.ragged_paged_attention import (
+        prepare_ragged,
         ragged_flash_attention,
         ragged_flash_attention_q8,
         ragged_paged_attention_ref,
     )
 
     name = "ragged_q8" if q8 else "ragged"
-    kname = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
+    kind = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
     R, T, layer = 64, 2048, 1
     # rows 0-1: 512-token prefill chunks at q_offset 0 and 1024; rows 2-61:
     # decode rows over 1-4k contexts; rows 62-63: empty (padding rows)
@@ -501,8 +548,9 @@ def check_ragged(torch, gen, dev, results: list, q8: bool = False) -> None:
     kv = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     q = torch.randn((T, H, D), generator=gen, device=dev, dtype=torch.bfloat16)
     kw = dict(page_size=PS, n_kv=HKV)
+    scales = dict(k_scales=k_scales, v_scales=v_scales) if q8 else {}
 
-    def kern():
+    def wrapper():
         if q8:
             return ragged_flash_attention_q8(q, k_pages, v_pages, k_scales, v_scales, pt, tr,
                                              tp, kv, layer, **kw)
@@ -512,22 +560,17 @@ def check_ragged(torch, gen, dev, results: list, q8: bool = False) -> None:
         return ragged_paged_attention_ref(q, k_pages, v_pages, pt, tr, tp, kv, layer,
                                           k_scales=k_scales, v_scales=v_scales, **kw)
 
-    before = LAUNCHES[kname]
-    got = kern()
+    args = (q, k_pages, v_pages, pt, tr, tp, kv, layer)
+    routed = prepare_ragged(kind, *args, **kw, **scales)
+    calls = [routed]
+    if routed.name != kind:  # the older body on the same inputs, launched by name
+        calls.append(prepare_ragged(kind, *args, **kw, **scales, route=False))
+    before = LAUNCHES[routed.name]
+    wrapper()
     torch.cuda.synchronize()
-    assert LAUNCHES[kname] == before + 1
+    if LAUNCHES[routed.name] != before + 1:
+        fail(f"{name}: the wrapper did not launch {routed.name}, the kernel its rule names")
     want = plain()
-    err, rel, close = attention_errors(torch, got[:n_real], want[:n_real])
-    zeros_ok = bool((got[n_real:] == 0).all().item())
-    finite = bool(torch.isfinite(got.float()).all().item())
-    log(f"  {name}: max_abs_err {err:.3e}, row-relative {rel:.3e} (limit per row: "
-        f"min({ATOL}, {REL_TOL} * max|want|)), "
-        f"padding tokens zero: {zeros_ok}")
-    if not (close and zeros_ok and finite):
-        fail(f"{name}: kernel disagrees with its plain version (row-relative {rel}, "
-             f"zeros {zeros_ok}, finite {finite})")
-    ms = time_ms(torch, kern)
-    plain_ms = time_ms(torch, plain, iters=3 if q8 else 5, warmup=1)
     # yardstick on the same work: the two prefill rows as one call (B=2,
     # Sq=512), the 60 decode rows as another (B=60, Sq=1), each over its
     # rows' KV padded to the longest of them and masked
@@ -548,15 +591,17 @@ def check_ragged(torch, gen, dev, results: list, q8: bool = False) -> None:
         (q_dec.contiguous(), k_rows[dec_r, :, :s_dec].contiguous(),
          v_rows[dec_r, :, :s_dec].contiguous(), m_dec),
     ])
+    del k_rows, v_rows
     io_bytes = q.numel() * 2 * 2 + pt.numel() * 4 + T * 8 + R * 4
     flops = _attention_flops([(p0 + i, kl) for (q_len, p0), kl in zip(spans, kv_lens)
                               for i in range(q_len)])
     b_ms, b_by = bound_ms(_kv_bytes(sum(kv_lens), q8) + io_bytes, flops)
-    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    results.append(dict(case=name, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-    del k_pages, v_pages, k_scales, v_scales, cache, k_rows, v_rows
+    extra = dict(plain_ms=time_ms(torch, plain, iters=3 if q8 else 5, warmup=1), bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib_ms)
+    live = torch.arange(T, device=dev) < n_real
+    check_attention_calls(torch, name, calls, want, live, results, extra,
+                          time_ms(torch, wrapper))
+    del k_pages, v_pages, k_scales, v_scales, cache, calls, routed
     torch.cuda.empty_cache()
 
 
@@ -754,7 +799,7 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
     b_ms, b_by = bound_ms(io, flops)
     log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"{'backward ' if backward else ''}{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    results.append(dict(case=name, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+    results.append(dict(case=name, kernel=kname, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     torch.cuda.empty_cache()
 
@@ -898,7 +943,8 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "paged_attention_kernel" in n or "ragged_attention_kernel" in n or "combine_splits" in n:
+    if any(k in n for k in ("paged_attention_kernel", "ragged_attention_kernel",
+                            "attention_q8_sm90_kernel", "combine_splits")):
         return "attention (ours)"
     if "kv_append" in n:
         return "kv_append (ours)"
@@ -1241,6 +1287,7 @@ def main() -> None:
     build_s = kernels.build_all()
     log(f"  kernels built in {build_s:.1f} s from {kernels.CSRC}")
     log_resource_usage(kernels.library_path("quant_matmul_sm90.cu"), "quant_matmul_sm90_kernel")
+    log_resource_usage(kernels.library_path("attention_q8_sm90.cu"), "attention_q8_sm90_kernel")
 
     log("phase 2: kernels against their plain versions (llama3-8b shapes)")
     gen = torch.Generator(device=dev)
@@ -1300,49 +1347,46 @@ def main() -> None:
     log("train: " + json.dumps(train))
 
     src = "finchat_tpu_torch/csrc/"
-    by_case = {r["case"]: r for r in results if "kernel" not in r}
-    # (kernel, phase-2 case, source, TPU kernel it replaces, serving plane
-    # or training run whose main path gives its launches)
     paged = "finchat_tpu/ops/paged_attention.py:305"
     q8_paged = "finchat_tpu/ops/paged_attention.py:221"
+    q8_ragged = "finchat_tpu/ops/ragged_paged_attention.py:478"
     qmm = "finchat_tpu/ops/quant_matmul.py:144"
     flash = "finchat_tpu/ops/flash_attention.py:160"  # the backward: the gradient of it
-    rows = [
-        ("paged_attention", "paged_decode", "paged_attention.cu", paged, "bf16"),
-        ("paged_attention", "paged_prefill_q0", "paged_attention.cu", paged, "bf16"),
-        ("paged_attention", "paged_prefill_q1024", "paged_attention.cu", paged, "bf16"),
-        ("kv_append", "kv_append", "kv_append.cu", "finchat_tpu/ops/kv_append.py:241", "bf16"),
-        ("ragged_paged_attention", "ragged", "ragged_paged_attention.cu",
-         "finchat_tpu/ops/ragged_paged_attention.py:383", "bf16"),
-        ("paged_attention_q8", "paged_q8_decode", "paged_attention.cu", q8_paged, "int8+kv8"),
-        ("paged_attention_q8", "paged_q8_prefill_q0", "paged_attention.cu", q8_paged,
-         "int8+kv8"),
-        ("paged_attention_q8", "paged_q8_prefill_q1024", "paged_attention.cu", q8_paged,
-         "int8+kv8"),
-        ("kv_append_q8", "kv_append_q8", "kv_append.cu", "finchat_tpu/ops/kv_append.py:175",
-         "int8+kv8"),
-        ("ragged_paged_attention_q8", "ragged_q8", "ragged_paged_attention.cu",
-         "finchat_tpu/ops/ragged_paged_attention.py:478", "int8+kv8"),
-        ("flash_attention", "flash_fwd_causal_s2048", "flash_attention.cu", flash, "train"),
-        ("flash_attention", "flash_fwd_q1024_kv1536", "flash_attention.cu", flash, "train"),
-        ("flash_attention_bwd", "flash_bwd_causal_s2048", "flash_attention.cu", flash, "train"),
-    ]
+    # kernel -> (source, TPU kernel it replaces, serving plane or training
+    # run whose main path gives its launches)
+    kernel_rows = {
+        "paged_attention": ("paged_attention.cu", paged, "bf16"),
+        "kv_append": ("kv_append.cu", "finchat_tpu/ops/kv_append.py:241", "bf16"),
+        "ragged_paged_attention": ("ragged_paged_attention.cu",
+                                   "finchat_tpu/ops/ragged_paged_attention.py:383", "bf16"),
+        "paged_attention_q8": ("paged_attention.cu", q8_paged, "int8+kv8"),
+        "paged_attention_q8_sm90": ("attention_q8_sm90.cu", q8_paged, "int8+kv8"),
+        "kv_append_q8": ("kv_append.cu", "finchat_tpu/ops/kv_append.py:175", "int8+kv8"),
+        "ragged_paged_attention_q8": ("ragged_paged_attention.cu", q8_ragged, "int8+kv8"),
+        "ragged_paged_attention_q8_sm90": ("attention_q8_sm90.cu", q8_ragged, "int8+kv8"),
+        "quant_matmul_int8": ("quant_matmul.cu", qmm, "int8+kv8"),
+        "quant_matmul_int8_sm90": ("quant_matmul_sm90.cu", qmm, "int8+kv8"),
+        "quant_matmul_int4": ("quant_matmul.cu", qmm, "int4g128+kv8"),
+        "quant_matmul_int4_sm90": ("quant_matmul_sm90.cu", qmm, "int4g128+kv8"),
+        "flash_attention": ("flash_attention.cu", flash, "train"),
+        "flash_attention_bwd": ("flash_attention.cu", flash, "train"),
+    }
     launched = {plane: stats["launches"] for plane, stats in serves.items()}
     launched["train"] = train["launches"]
     table = []
-    rows = [(kname, by_case[case], source, rep, plane) for kname, case, source, rep, plane in rows]
-    # K8's two kernels, every case each ran in phase 2
-    rows += [(r["kernel"], r, ("quant_matmul_sm90.cu" if r["kernel"].endswith("_sm90")
-                               else "quant_matmul.cu"), qmm, r["plane"])
-             for r in results if "kernel" in r]
-    for kname, r, source, replaces, plane in rows:
-        table.append({
+    for r in results:
+        kname = r["kernel"]
+        source, replaces, plane = kernel_rows[kname]
+        row = {
             "name": kname if r["case"] == kname else f"{kname}[{r['case']}]",
             "route": "cuda", "source": src + source, "replaces": replaces,
             "launches": launched[plane][kname], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+        }
+        if "wrapper_ms" in r:
+            row["wrapper_ms"] = r["wrapper_ms"]
+        table.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

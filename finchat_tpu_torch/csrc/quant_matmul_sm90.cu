@@ -62,6 +62,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "sm90_pipeline.cuh"
 
 namespace {
 
@@ -79,38 +80,15 @@ constexpr int B_TILE = BN * BK * 2;  // dequantized tile bytes
 
 // ---------------------------------------------------------------- PTX helpers
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity)) {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
+using fct::byte_as_float;
+using fct::fence_proxy_async;
+using fct::kInt4Bias;
+using fct::kInt8Bias;
+using fct::mbar_arrive;
+using fct::mbar_expect_tx;
+using fct::mbar_init;
+using fct::mbar_wait;
+using fct::sw128_desc;
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
@@ -119,22 +97,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// shared-memory matrix descriptor: K-major, 128-byte swizzle, rows of 128
-// bytes in atoms of 8 rows (1024 bytes apart); the leading offset is unused
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x 128] += A[64 x 16] * B[16 x 128], both K-major in shared memory
@@ -164,17 +126,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
 }
-
-// ---------------------------------------------------------------- dequant
-
-// byte j of u (an unsigned value v < 256) as the exact float v - bias: the
-// byte under the exponent of 2^23 reads 2^23 + v
-__device__ __forceinline__ float byte_as_float(uint32_t u, int j, float bias) {
-  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + j)) - bias;
-}
-
-constexpr float kInt8Bias = 8388608.f + 128.f;  // 2^23 + the 0x80 offset
-constexpr float kInt4Bias = 8388608.f + 8.f;    // 2^23 + the 8 offset
 
 // ---------------------------------------------------------------- kernel
 
@@ -336,7 +287,7 @@ __global__ void __launch_bounds__(THREADS, 1) quant_matmul_sm90_kernel(
       mbar_wait(full_bar(s), ph);
       const uint64_t db = sw128_desc(base + S::B_OFF + s * B_TILE);
 #pragma unroll
-      for (int p = 0; p < S::MW; ++p) fence_acc(acc[p]);
+      for (int p = 0; p < S::MW; ++p) fct::fence_regs(acc[p]);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int k = 0; k < BK / 16; ++k) {
@@ -348,11 +299,11 @@ __global__ void __launch_bounds__(THREADS, 1) quant_matmul_sm90_kernel(
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int p = 0; p < S::MW; ++p) fence_acc(acc[p]);
+      for (int p = 0; p < S::MW; ++p) fct::fence_regs(acc[p]);
       // the previous tile's products are done: release its stage
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 #pragma unroll
-      for (int p = 0; p < S::MW; ++p) fence_acc(acc[p]);
+      for (int p = 0; p < S::MW; ++p) fct::fence_regs(acc[p]);
       if (kt > 0) {
         const int ps = (kt - 1) % kStages;
         mbar_arrive(empty_bar(ps));
@@ -364,7 +315,7 @@ __global__ void __launch_bounds__(THREADS, 1) quant_matmul_sm90_kernel(
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-    for (int p = 0; p < S::MW; ++p) fence_acc(acc[p]);
+    for (int p = 0; p < S::MW; ++p) fct::fence_regs(acc[p]);
 
     // accumulator layout of m64nNk16: rows 16 * warp + lane / 4 (+ 8),
     // columns 8 * j + 2 * (lane % 4) (+ 1) of each 8-column piece j

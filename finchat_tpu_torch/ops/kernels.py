@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -52,6 +53,10 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         [_P] * 11
         # layer, B, C, H, HKV, D, P, PS, SPAD, KT, MP, BQ, splits, pages_per_split
         + [_I] * 14 + [_F, _P],  # scale, stream
+    ),
+    # the Hopper body of int8 calls of 64-row tiles: paged_attention_q8's arguments
+    "paged_attention_q8_sm90": (
+        "attention_q8_sm90.cu", "paged_attention_int8_sm90", [_P] * 11 + [_I] * 14 + [_F, _P],
     ),
     "kv_append": (
         "kv_append.cu", "kv_append_bf16",
@@ -82,6 +87,11 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         [_P] * 12
         # layer, T, R, H, HKV, D, P, PS, SPAD, KT, MP, NT, BQ
         + [_I] * 13 + [_F, _P],  # scale, stream
+    ),
+    # ... and ragged_paged_attention_q8's
+    "ragged_paged_attention_q8_sm90": (
+        "attention_q8_sm90.cu", "ragged_paged_attention_int8_sm90",
+        [_P] * 12 + [_I] * 13 + [_F, _P],
     ),
     "quant_matmul_int8": (
         "quant_matmul.cu", "quant_matmul_int8",
@@ -201,6 +211,23 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+@dataclass(frozen=True)
+class Prepared:
+    """One checked launch of kernel ``name``: its C arguments, its output
+    and every tensor the arguments point into (kept alive here).
+    ``launch()`` runs it on the current stream and returns ``out``; a
+    caller that launches it again reuses the same buffers."""
+
+    name: str
+    args: tuple
+    out: torch.Tensor
+    keep: tuple
+
+    def launch(self) -> torch.Tensor:
+        launch(self.name, *self.args)
+        return self.out
 
 
 def check(cond: bool, msg: str) -> None:

@@ -15,11 +15,25 @@ differ on a sequence with ``kv_len == 0``: the kernel writes zeros, the
 reference (like JAX's) averages the gathered trash values; nothing reads
 such a row.
 
-``paged_flash_attention_q8`` is the same kernel body over an int8 cache
-with per-token-per-head scale planes (replacing ``_paged_kernel_q8``): each
-staged K/V tile is dequantized as ``bf16(float(q8) * scale)`` on its way
-into shared memory. ``paged_attention_q8_ref`` is its plain version
-(``gather_kv_q8`` + ``mha_reference``).
+``paged_flash_attention_q8`` is the same over an int8 cache with
+per-token-per-head scale planes (replacing ``_paged_kernel_q8``): each K/V
+tile is dequantized as ``bf16(float(q8) * scale)`` in shared memory.
+``paged_attention_q8_ref`` is its plain version (``gather_kv_q8`` +
+``mha_reference``). Two kernels serve the int8 calls, picked by
+``attention_kernel_for``, a pure function of the call's block shape:
+
+- ``paged_attention_q8_sm90`` (``csrc/attention_q8_sm90.cu``): blocks of 64
+  query rows over pages of whole 64-key tiles, no page split — the prefill
+  chunks. An asynchronous ring of raw int8 tiles, one dequantization per
+  tile from shared memory, tensor-core products.
+- ``paged_attention_q8`` (``csrc/paged_attention.cu``, K1's body with an
+  int8 loader): every other call — decode (split over blocks), small row
+  groups, pages that are not a multiple of 64 keys.
+
+Nothing gives way to anything else: a CUDA tensor reaches the one kernel
+the rule names or raises. ``prepare_paged(name, ..., route=False)`` builds
+the launch of a named kernel with no routing (``chip_smoke.py`` times both
+bodies on the same inputs with it).
 """
 
 from __future__ import annotations
@@ -34,6 +48,10 @@ from finchat_tpu_torch.ops.refs import mha_reference
 MAX_ROWS = 64  # query rows per kernel block: group * tile tokens
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may opt into
 DECODE_PAGES_PER_SPLIT = 4  # decode: pages per block before splitting a sequence
+SM90_ROWS = 64  # the Hopper int8 body: query rows per block
+SM90_KEYS = 64  # ... and keys per tile (a page holds whole tiles)
+ATTENTION_KINDS = ("paged_attention", "paged_attention_q8", "ragged_paged_attention",
+                   "ragged_paged_attention_q8")
 
 
 def paged_attention_ref(
@@ -97,6 +115,42 @@ def tile_tokens(group: int, C: int) -> int:
     return max(1, min(C, MAX_ROWS // group))
 
 
+def decode_splits(C: int, max_pages: int) -> tuple[int, int]:
+    """(splits, pages per split) of a paged call: a decode call (C == 1)
+    over more than ``DECODE_PAGES_PER_SPLIT`` pages spreads each sequence
+    over several blocks whose fp32 partials a second kernel merges; every
+    other call walks all its pages in one block."""
+    if C == 1 and max_pages > DECODE_PAGES_PER_SPLIT:
+        return -(-max_pages // DECODE_PAGES_PER_SPLIT), DECODE_PAGES_PER_SPLIT
+    return 1, max_pages
+
+
+def attention_kernel_for(kind: str, rows: int, page_size: int, splits: int) -> str:
+    """The kernel that serves an attention call of ``kind`` (one of
+    ``ATTENTION_KINDS``) whose blocks hold ``rows`` query rows (group *
+    tile tokens) over pages of ``page_size`` tokens, each sequence's pages
+    split over ``splits`` blocks: an int8 call of 64-row blocks over whole
+    64-key tiles with no split goes to the Hopper body (``kind + "_sm90"``),
+    every other call to ``kind``."""
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(f"unknown attention kernel kind {kind!r}")
+    if (kind.endswith("_q8") and rows == SM90_ROWS and page_size % SM90_KEYS == 0
+            and splits == 1):
+        return f"{kind}_sm90"
+    return kind
+
+
+def check_sm90_call(name: str, rows: int, page_size: int, splits: int,
+                    tensors: tuple[torch.Tensor, ...]) -> None:
+    """Raise unless the Hopper body ``name`` takes this call: the block shape
+    ``attention_kernel_for`` sends to it, 16-byte aligned operands."""
+    check(attention_kernel_for(name.removesuffix("_sm90"), rows, page_size, splits) == name,
+          f"{name} takes 64-row blocks over pages of whole 64-key tiles, no split "
+          f"(got {rows} rows, page_size {page_size}, {splits} splits)")
+    check(all(t.data_ptr() % 16 == 0 for t in tensors),
+          f"{name} takes 16-byte aligned q, pages and scale planes")
+
+
 def check_kernel_shapes(q_heads: int, D: int, k_pages: torch.Tensor, v_pages: torch.Tensor,
                         page_size: int, n_kv: int, rows: int,
                         scales: tuple[torch.Tensor, torch.Tensor] | None = None) -> None:
@@ -143,11 +197,10 @@ def paged_flash_attention(
 ) -> torch.Tensor:
     """Attention over the paged KV cache by the CUDA kernel (bf16); returns
     [B, C, H, D]. Raises on a tensor it does not take, a CPU one included."""
-    B, C, H, D = q.shape
     check(q.is_cuda, "the paged attention kernel runs on CUDA tensors "
           "(paged_attention_ref is the plain version)")
-    return _launch_paged("paged_attention", q, k_pages, v_pages, None, page_table, q_offset,
-                         kv_len, layer, page_size=page_size, n_kv=n_kv, scale=scale)
+    return prepare_paged("paged_attention", q, k_pages, v_pages, page_table, q_offset, kv_len,
+                         layer, page_size=page_size, n_kv=n_kv, scale=scale).launch()
 
 
 def paged_flash_attention_q8(
@@ -165,20 +218,32 @@ def paged_flash_attention_q8(
     n_kv: int,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention over the int8 paged KV cache by the CUDA kernel; returns
-    [B, C, H, D] bf16. Raises on a tensor it does not take, a CPU one
-    included."""
+    """Attention over the int8 paged KV cache by the CUDA kernel
+    ``attention_kernel_for`` picks; returns [B, C, H, D] bf16. Raises on a
+    tensor it does not take, a CPU one included."""
     check(q.is_cuda, "the paged attention kernel runs on CUDA tensors "
           "(paged_attention_q8_ref is the plain version)")
-    return _launch_paged("paged_attention_q8", q, k_pages, v_pages, (k_scales, v_scales),
-                         page_table, q_offset, kv_len, layer, page_size=page_size, n_kv=n_kv,
-                         scale=scale)
+    return prepare_paged("paged_attention_q8", q, k_pages, v_pages, page_table, q_offset,
+                         kv_len, layer, page_size=page_size, n_kv=n_kv, k_scales=k_scales,
+                         v_scales=v_scales, scale=scale).launch()
 
 
-def _launch_paged(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                  scales: tuple[torch.Tensor, torch.Tensor] | None, page_table: torch.Tensor,
-                  q_offset: torch.Tensor, kv_len: torch.Tensor, layer: int, *, page_size: int,
-                  n_kv: int, scale: float | None) -> torch.Tensor:
+def prepare_paged(kind: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  page_table: torch.Tensor, q_offset: torch.Tensor, kv_len: torch.Tensor,
+                  layer: int, *, page_size: int, n_kv: int,
+                  k_scales: torch.Tensor | None = None, v_scales: torch.Tensor | None = None,
+                  scale: float | None = None, route: bool = True) -> kernels.Prepared:
+    """Check a paged attention call and build its launch, without launching:
+    the kernel ``attention_kernel_for`` picks for ``kind`` (one of
+    ``ATTENTION_KINDS``), or with ``route=False`` the kernel named ``kind``.
+    The wrappers launch it once; ``chip_smoke.py`` times the launch alone."""
+    check(q.is_cuda, f"the {kind} kernel runs on CUDA tensors")
+    names = ("paged_attention", "paged_attention_q8") + (() if route else
+                                                          ("paged_attention_q8_sm90",))
+    check(kind in names, f"{kind} is not a paged attention kernel")
+    scales = None if kind == "paged_attention" else (k_scales, v_scales)
+    check(scales is None or (k_scales is not None and v_scales is not None),
+          f"{kind} reads an int8 cache: give its k_scales and v_scales")
     B, C, H, D = q.shape
     group = H // n_kv
     bq = tile_tokens(group, C)
@@ -192,16 +257,17 @@ def _launch_paged(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: to
         check(t.is_cuda and t.device == q.device and t.is_contiguous(),
               "paged attention tensors must be contiguous on one CUDA device")
     check(0 <= layer < k_pages.shape[0], f"layer {layer} out of range")
-    out = torch.empty_like(q)
     L, P, PS, _ = k_pages.shape
     MP = page_table.shape[1]
+    splits, pps = decode_splits(C, MP)
+    name = attention_kernel_for(kind, group * bq, PS, splits) if route else kind
+    if name.endswith("_sm90"):
+        check_sm90_call(name, group * bq, PS, splits, (q, k_pages, v_pages, *scales))
+    out = torch.empty_like(q)
     part_acc = part_ml = None
-    splits, pps = 1, MP
-    if C == 1 and MP > DECODE_PAGES_PER_SPLIT:
-        # decode: split each sequence's pages over several blocks; the fp32
-        # partials (scratch, allocated here) merge in a second small kernel
-        pps = DECODE_PAGES_PER_SPLIT
-        splits = -(-MP // pps)
+    if splits > 1:
+        # the fp32 partials of the split blocks (scratch, allocated here),
+        # merged by a second small kernel
         part_acc = torch.empty((splits, B * C, H, D), dtype=torch.float32, device=q.device)
         part_ml = torch.empty((splits, B * C, H, 2), dtype=torch.float32, device=q.device)
     cache = [k_pages.data_ptr(), v_pages.data_ptr()]
@@ -209,12 +275,11 @@ def _launch_paged(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: to
     if scales is not None:
         cache += [scales[0].data_ptr(), scales[1].data_ptr()]
         dims.append(scales[0].shape[2])
-    kernels.launch(
-        name, q.data_ptr(), *cache,
-        out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(), page_table.data_ptr(),
-        q_offset.data_ptr(), kv_len.data_ptr(),
-        *dims, key_tile(PS), MP, bq, splits, pps,
-        float(scale if scale is not None else D ** -0.5),
-    )
-    return out
+    args = (q.data_ptr(), *cache,
+            out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(), page_table.data_ptr(),
+            q_offset.data_ptr(), kv_len.data_ptr(),
+            *dims, key_tile(PS), MP, bq, splits, pps,
+            float(scale if scale is not None else D ** -0.5))
+    keep = (q, k_pages, v_pages, *(scales or ()), page_table, q_offset, kv_len, part_acc, part_ml)
+    return kernels.Prepared(name, args, out, keep)

@@ -25,9 +25,15 @@ one by the tensors' device. Padding tokens: the kernel writes zeros, the
 reference (like JAX's) averages the trash row; nothing reads them.
 
 ``ragged_flash_attention_q8`` is the same over an int8 cache with its
-scale planes (replacing ``_ragged_kernel_q8``), dequantizing each staged
-K/V tile as ``bf16(float(q8) * scale)``; the plain version is
-``ragged_paged_attention_ref`` given the scale planes.
+scale planes (replacing ``_ragged_kernel_q8``), dequantizing each K/V tile
+as ``bf16(float(q8) * scale)``; the plain version is
+``ragged_paged_attention_ref`` given the scale planes. Its tiles hold 64
+query rows (Llama-3's group of 4 times 16 tokens), so at a page size of a
+multiple of 64 ``attention_kernel_for`` (ops/paged_attention.py) sends it to
+the Hopper body ``ragged_paged_attention_q8_sm90``
+(``csrc/attention_q8_sm90.cu``), and every other call to
+``ragged_paged_attention_q8``. ``prepare_ragged(name, ..., route=False)``
+builds the launch of a named kernel with no routing.
 """
 
 from __future__ import annotations
@@ -37,7 +43,13 @@ import torch
 from finchat_tpu_torch.engine.kv_cache import gather_kv_any
 from finchat_tpu_torch.ops import kernels
 from finchat_tpu_torch.ops.kernels import check
-from finchat_tpu_torch.ops.paged_attention import check_kernel_shapes, key_tile, tile_tokens
+from finchat_tpu_torch.ops.paged_attention import (
+    attention_kernel_for,
+    check_kernel_shapes,
+    check_sm90_call,
+    key_tile,
+    tile_tokens,
+)
 from finchat_tpu_torch.ops.refs import mha_reference
 
 # bytes of gathered KV the plain version materializes per token chunk
@@ -159,9 +171,9 @@ def ragged_flash_attention(
     Raises on a tensor it does not take, a CPU one included."""
     check(q.is_cuda, "the ragged attention kernel runs on CUDA tensors "
           "(ragged_paged_attention_ref is the plain version)")
-    return _launch_ragged("ragged_paged_attention", q, k_pages, v_pages, None, page_table,
-                          tok_row, tok_pos, kv_len, layer, page_size=page_size, n_kv=n_kv,
-                          scale=scale, kv_gap=kv_gap)
+    return prepare_ragged("ragged_paged_attention", q, k_pages, v_pages, page_table, tok_row,
+                          tok_pos, kv_len, layer, page_size=page_size, n_kv=n_kv, scale=scale,
+                          kv_gap=kv_gap).launch()
 
 
 def ragged_flash_attention_q8(
@@ -181,21 +193,35 @@ def ragged_flash_attention_q8(
     scale: float | None = None,
     kv_gap: torch.Tensor | None = None,  # [R] int32 — bounded-KV window offset
 ) -> torch.Tensor:
-    """Ragged paged attention over the int8 cache by the CUDA kernel;
-    returns [T, H, D] bf16. Raises on a tensor it does not take, a CPU one
-    included."""
+    """Ragged paged attention over the int8 cache by the CUDA kernel
+    ``attention_kernel_for`` picks; returns [T, H, D] bf16. Raises on a
+    tensor it does not take, a CPU one included."""
     check(q.is_cuda, "the ragged attention kernel runs on CUDA tensors "
           "(ragged_paged_attention_ref is the plain version)")
-    return _launch_ragged("ragged_paged_attention_q8", q, k_pages, v_pages,
-                          (k_scales, v_scales), page_table, tok_row, tok_pos, kv_len, layer,
-                          page_size=page_size, n_kv=n_kv, scale=scale, kv_gap=kv_gap)
+    return prepare_ragged("ragged_paged_attention_q8", q, k_pages, v_pages, page_table, tok_row,
+                          tok_pos, kv_len, layer, page_size=page_size, n_kv=n_kv, scale=scale,
+                          kv_gap=kv_gap, k_scales=k_scales, v_scales=v_scales).launch()
 
 
-def _launch_ragged(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                   scales: tuple[torch.Tensor, torch.Tensor] | None, page_table: torch.Tensor,
-                   tok_row: torch.Tensor, tok_pos: torch.Tensor, kv_len: torch.Tensor,
-                   layer: int, *, page_size: int, n_kv: int, scale: float | None,
-                   kv_gap: torch.Tensor | None) -> torch.Tensor:
+def prepare_ragged(kind: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                   page_table: torch.Tensor, tok_row: torch.Tensor, tok_pos: torch.Tensor,
+                   kv_len: torch.Tensor, layer: int, *, page_size: int, n_kv: int,
+                   scale: float | None = None, kv_gap: torch.Tensor | None = None,
+                   k_scales: torch.Tensor | None = None, v_scales: torch.Tensor | None = None,
+                   route: bool = True) -> kernels.Prepared:
+    """Check a ragged attention call and build its launch — the tile
+    descriptors included — without launching: the kernel
+    ``attention_kernel_for`` picks for ``kind``, or with ``route=False`` the
+    kernel named ``kind``. The wrappers launch it once; ``chip_smoke.py``
+    times the launch alone (the descriptors cost the host more than the
+    kernel costs the card at a served round's shapes)."""
+    check(q.is_cuda, f"the {kind} kernel runs on CUDA tensors")
+    names = ("ragged_paged_attention", "ragged_paged_attention_q8") + (
+        () if route else ("ragged_paged_attention_q8_sm90",))
+    check(kind in names, f"{kind} is not a ragged attention kernel")
+    scales = None if kind == "ragged_paged_attention" else (k_scales, v_scales)
+    check(scales is None or (k_scales is not None and v_scales is not None),
+          f"{kind} reads an int8 cache: give its k_scales and v_scales")
     T, H, D = q.shape
     R, MP = page_table.shape
     group = H // n_kv
@@ -211,6 +237,9 @@ def _launch_ragged(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: t
         check(t.is_cuda and t.device == q.device and t.is_contiguous(),
               "ragged attention tensors must be contiguous on one CUDA device")
     check(0 <= layer < k_pages.shape[0], f"layer {layer} out of range")
+    name = attention_kernel_for(kind, group * bq, page_size, 1) if route else kind
+    if name.endswith("_sm90"):
+        check_sm90_call(name, group * bq, page_size, 1, (q, k_pages, v_pages, *scales))
     tok_pos, kv_len = _compact_window(tok_row, tok_pos, kv_len, kv_gap, R)
     tok_pos, kv_len = tok_pos.contiguous(), kv_len.contiguous()
     tile_row, tile_start, tile_len, NT = ragged_tiles(tok_row, R, bq)
@@ -221,11 +250,11 @@ def _launch_ragged(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: t
     if scales is not None:
         cache += [scales[0].data_ptr(), scales[1].data_ptr()]
         dims.append(scales[0].shape[2])
-    kernels.launch(
-        name, q.data_ptr(), *cache,
-        out.data_ptr(), page_table.data_ptr(), tok_pos.data_ptr(), kv_len.data_ptr(),
-        tile_row.data_ptr(), tile_start.data_ptr(), tile_len.data_ptr(),
-        *dims, key_tile(PS), MP, NT, bq,
-        float(scale if scale is not None else D ** -0.5),
-    )
-    return out
+    args = (q.data_ptr(), *cache,
+            out.data_ptr(), page_table.data_ptr(), tok_pos.data_ptr(), kv_len.data_ptr(),
+            tile_row.data_ptr(), tile_start.data_ptr(), tile_len.data_ptr(),
+            *dims, key_tile(PS), MP, NT, bq,
+            float(scale if scale is not None else D ** -0.5))
+    keep = (q, k_pages, v_pages, *(scales or ()), page_table, tok_pos, kv_len, tile_row,
+            tile_start, tile_len)
+    return kernels.Prepared(name, args, out, keep)

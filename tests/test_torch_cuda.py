@@ -76,10 +76,14 @@ from finchat_tpu_torch.ops.kv_append import (  # noqa: E402
     paged_kv_append_ref,
 )
 from finchat_tpu_torch.ops.paged_attention import (  # noqa: E402
+    attention_kernel_for,
+    decode_splits,
     paged_attention_q8_ref,
     paged_attention_ref,
     paged_flash_attention,
     paged_flash_attention_q8,
+    prepare_paged,
+    tile_tokens,
 )
 from finchat_tpu_torch.ops.quant_matmul import (  # noqa: E402
     quant_matmul_int4,
@@ -88,6 +92,7 @@ from finchat_tpu_torch.ops.quant_matmul import (  # noqa: E402
     run_kernel,
 )
 from finchat_tpu_torch.ops.ragged_paged_attention import (  # noqa: E402
+    prepare_ragged,
     ragged_flash_attention,
     ragged_flash_attention_q8,
     ragged_paged_attention_ref,
@@ -262,10 +267,13 @@ def test_paged_attention_q8_kernel_matches_plain(dev, case):
     q = torch.randn((len(kv_len), C, H, D), generator=g, device=dev, dtype=torch.bfloat16)
     qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
     kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
-    before = LAUNCHES["paged_attention_q8"]
+    group = H // Hkv
+    name = attention_kernel_for("paged_attention_q8", group * tile_tokens(group, C), ps,
+                                decode_splits(C, mp)[0])
+    before = LAUNCHES[name]
     got = paged_flash_attention_q8(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
     torch.cuda.synchronize()
-    assert LAUNCHES["paged_attention_q8"] == before + 1
+    assert LAUNCHES[name] == before + 1
     want = paged_attention_q8_ref(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
     live = kl > 0
     _assert_rows_close(got[live], want[live])
@@ -299,6 +307,137 @@ def test_ragged_attention_q8_kernel_matches_plain(dev, case):
     want = ragged_paged_attention_ref(q, kp, vp, *desc, k_scales=ks, v_scales=vs, **kw)
     _assert_rows_close(got[:n_real], want[:n_real])
     assert bool((got[n_real:] == 0).all())
+
+
+# The Hopper body of int8 attention (csrc/attention_q8_sm90.cu): calls of
+# 64-row blocks over pages of whole 64-key tiles. (name, H, Hkv, page_size,
+# max_pages, C, q_offsets, kv_lens): page sizes 64 and 128, kv_len off the
+# 64-key tile and a sequence with kv_len 0, query tiles crossing a page
+# boundary, enough key tiles for the 4-stage ring to wrap, groups of 2 and 8
+PAGED_SM90 = [
+    ("ps64_kv_len_odd_and_empty", 8, 2, 64, 8, 40, [0, 70, 0], [40, 110, 0]),
+    ("ps128_tiles_cross_pages", 8, 2, 128, 6, 48, [100, 230], [148, 278]),
+    ("ps128_ring_wraps", 8, 2, 128, 8, 64, [500, 900], [564, 964]),
+    ("ps64_group2", 4, 2, 64, 8, 64, [0, 200], [64, 264]),
+    ("ps128_group8", 16, 2, 128, 4, 24, [5, 100], [29, 124]),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_SM90, ids=[c[0] for c in PAGED_SM90])
+def test_paged_attention_q8_sm90_matches_plain(dev, case):
+    _name, H, Hkv, ps, mp, C, q_off, kv_len = case
+    rng = np.random.default_rng(10)
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in kv_len)
+    kp, vp, ks, vs, g = _q8_cache(dev, Hkv, ps, n_pages, seed=11)
+    pt = _page_table(rng, kv_len, ps, mp, n_pages, dev)
+    q = torch.randn((len(kv_len), C, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = dict(LAUNCHES)
+    got = paged_flash_attention_q8(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
+    again = paged_flash_attention_q8(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_attention_q8_sm90"] == before["paged_attention_q8_sm90"] + 2
+    assert LAUNCHES["paged_attention_q8"] == before["paged_attention_q8"]
+    # one order of operations: a stale ring stage shows as a change
+    assert torch.equal(got, again)
+    want = paged_attention_q8_ref(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
+    live = kl > 0
+    _assert_rows_close(got[live], want[live])
+    assert bool((got[~live] == 0).all())
+    # the older body on the same inputs, launched by name, agrees as well
+    old = prepare_paged("paged_attention_q8", q, kp, vp, pt, qo, kl, 1, page_size=ps, n_kv=Hkv,
+                        k_scales=ks, v_scales=vs, route=False).launch()
+    _assert_rows_close(old[live], want[live])
+
+
+# rows (q_len, pos0, kv_len), padded length, page_size, per-row kv_gap:
+# prefill rows, decode rows over several key tiles and padding tokens
+RAGGED_SM90 = [
+    ("mixed_ps128", [(40, 0, 40), (1, 90, 91), (20, 64, 84), (1, 600, 601), (1, 5, 6)],
+     96, 128, None),
+    ("mixed_ps64", [(33, 0, 33), (1, 1000, 1001), (50, 150, 200), (1, 63, 64)], 100, 64, None),
+    ("mixed_ps64_gap", [(24, 300, 324), (1, 40, 41), (30, 100, 130)], 64, 64, [128, 0, 64]),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_SM90, ids=[c[0] for c in RAGGED_SM90])
+def test_ragged_attention_q8_sm90_matches_plain(dev, case):
+    _name, rows, T, ps, gaps = case
+    H, Hkv, mp = 8, 2, 20
+    rng = np.random.default_rng(12)
+    comp = [kv - (gaps[r] if gaps else 0) for r, (_q, _p, kv) in enumerate(rows)]
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in comp)
+    kp, vp, ks, vs, g = _q8_cache(dev, Hkv, ps, n_pages, seed=13)
+    pt = _page_table(rng, comp, ps, mp, n_pages, dev)
+    tok_row, tok_pos = [], []
+    for r, (q_len, p0, _kv) in enumerate(rows):
+        tok_row += [r] * q_len
+        tok_pos += list(range(p0, p0 + q_len))
+    n_real = len(tok_row)
+    tok_row += [len(rows)] * (T - n_real)
+    tok_pos += [0] * (T - n_real)
+    q = torch.randn((T, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    desc = (pt, torch.tensor(tok_row, dtype=torch.int32, device=dev),
+            torch.tensor(tok_pos, dtype=torch.int32, device=dev),
+            torch.tensor([kv for _q, _p, kv in rows], dtype=torch.int32, device=dev), 1)
+    kw = dict(page_size=ps, n_kv=Hkv,
+              kv_gap=None if gaps is None else torch.tensor(gaps, dtype=torch.int32,
+                                                            device=dev))
+    before = dict(LAUNCHES)
+    got = ragged_flash_attention_q8(q, kp, vp, ks, vs, *desc, **kw)
+    again = ragged_flash_attention_q8(q, kp, vp, ks, vs, *desc, **kw)
+    torch.cuda.synchronize()
+    name = "ragged_paged_attention_q8"
+    assert LAUNCHES[f"{name}_sm90"] == before[f"{name}_sm90"] + 2
+    assert LAUNCHES[name] == before[name]
+    assert torch.equal(got, again)
+    want = ragged_paged_attention_ref(q, kp, vp, *desc, k_scales=ks, v_scales=vs, **kw)
+    _assert_rows_close(got[:n_real], want[:n_real])
+    assert bool((got[n_real:] == 0).all())
+    old = prepare_ragged(name, q, kp, vp, *desc, k_scales=ks, v_scales=vs, route=False,
+                         **kw).launch()
+    _assert_rows_close(old[:n_real], want[:n_real])
+
+
+# (kind, C or ragged tokens, page_size): int8 calls the older body keeps
+Q8_OLD_ROUTES = [("paged_attention_q8", 40, 16), ("paged_attention_q8", 1, 128),
+                 ("ragged_paged_attention_q8", 20, 16)]
+
+
+@pytest.mark.parametrize("case", Q8_OLD_ROUTES, ids=[f"{k}_C{c}_ps{p}"
+                                                     for k, c, p in Q8_OLD_ROUTES])
+def test_q8_attention_keeps_the_older_body_off_the_hopper_shapes(dev, case):
+    kind, C, ps = case
+    H, Hkv, mp = 8, 2, 40
+    kv_len = [C + 300, C + 7]
+    rng = np.random.default_rng(14)
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in kv_len)
+    kp, vp, ks, vs, g = _q8_cache(dev, Hkv, ps, n_pages, seed=15)
+    pt = _page_table(rng, kv_len, ps, mp, n_pages, dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = dict(LAUNCHES)
+    if kind == "paged_attention_q8":
+        q = torch.randn((2, C, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+        qo = kl - C
+        got = paged_flash_attention_q8(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
+        want = paged_attention_q8_ref(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
+    else:
+        tr = torch.tensor([0] * C + [1] * C, dtype=torch.int32, device=dev)
+        tp = torch.cat([torch.arange(n - C, n, device=dev) for n in kv_len]).to(torch.int32)
+        q = torch.randn((2 * C, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+        got = ragged_flash_attention_q8(q, kp, vp, ks, vs, pt, tr, tp, kl, 1, page_size=ps,
+                                        n_kv=Hkv)
+        want = ragged_paged_attention_ref(q, kp, vp, pt, tr, tp, kl, 1, page_size=ps, n_kv=Hkv,
+                                          k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kind] == before[kind] + 1
+    assert LAUNCHES[f"{kind}_sm90"] == before[f"{kind}_sm90"]
+    _assert_rows_close(got, want)
+    if kind == "paged_attention_q8":
+        with pytest.raises(ValueError, match="64-row blocks"):
+            prepare_paged(f"{kind}_sm90", q, kp, vp, pt, qo, kl, 1, page_size=ps, n_kv=Hkv,
+                          k_scales=ks, v_scales=vs, route=False)
 
 
 def test_kv_append_q8_kernel_bit_exact(dev):
@@ -364,7 +503,7 @@ def test_quant_matmul_kernel_matches_plain(dev, case):
 # 300, and 1084 = 2 x 512 + 60, the ragged round's rows), N a multiple of 16
 # but not of the 128-column tile (1040), K a multiple of 8 but not of the
 # 64-row tile (200), a K of 64 tiles (the ring wraps 16 times), int4 per
-# group of 128 and per column; 128-row tiles, and 256-row ones where the
+# group of 128, 32 and 8 and per column; 128-row tiles, and 256-row ones where the
 # grid fills the card (the two "wide" cases, on 132 SMs)
 QMM_SM90 = [
     ("int8_m130", 130, 512, 384, "int8", 0),
@@ -377,6 +516,9 @@ QMM_SM90 = [
     ("int4_g128", 300, 512, 384, "int4", 128),
     ("int4_g128_m1084_n1040", 1084, 1024, 1040, "int4", 128),
     ("int4_g0_n1040", 130, 256, 1040, "int4", 0),
+    # groups of 8 and 32 rows: several scale groups inside one 64-row K tile
+    ("int4_g8_m300", 300, 512, 384, "int4", 8),
+    ("int4_g32_m1084_n1040", 1084, 1024, 1040, "int4", 32),
 ]
 
 
