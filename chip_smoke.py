@@ -7,18 +7,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), then
    the CUDA kernels built from ``finchat_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a`` (build seconds printed).
+   ``sm_90a`` (build seconds printed), and the registers, stack and spills
+   of the Hopper kernels (``cuobjdump -res-usage``).
 2. Kernels against their plain PyTorch versions on the card, at the serving
    shapes of Llama-3-8B (32 query heads, 8 KV heads, head_dim 128,
    page_size 128, 64 pages per sequence), over a bf16 cache and over an
    int8 cache with its scale planes: paged attention (decode B=64 C=1 over
-   1-4k-token contexts; prefill B=4 C=512 at q_offset 0 and 1024), the
+   1-4k-token contexts and B=8 at the serve's 5,236 tokens; prefill B=4
+   C=512 at q_offset 0 and 1024), the
    decode KV append (B=64 with invalid lanes; the int8 one quantizes), and
    ragged attention (two 512-token prefill rows, 60 decode rows, padding to
-   a 2048 bucket). Over the int8 cache the prefill chunks and the ragged
-   round go to the Hopper body (``attention_q8_sm90.cu``), and the older
-   body is held and timed beside it on the same inputs; every attention
-   launch runs twice and must give identical outputs. Then the fused
+   a 2048 bucket). Decode goes to the Hopper decode body
+   (``attention_decode_sm90.cu``) over both caches; over the int8 cache the
+   prefill chunks and the ragged round go to the Hopper body
+   (``attention_q8_sm90.cu``); wherever the routing picks a Hopper body, the
+   older body is held and timed beside it on the same inputs; every
+   attention launch runs twice and must give identical outputs. Then the fused
    dequant matmul's two kernels: v2 at
    decode (int8 at M=64 on the [4096, 14336] MLP weight and on the [4096,
    128256] head with fp32 output; int4 at M=64 on [4096, 14336], per column
@@ -61,7 +65,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at once, four more once the first tokens stream (so prefill coexists
    with decode and the packed ragged rounds run), 64 new tokens each. Every
    request must complete; every kernel of the plane must be launched in
-   this phase (counts set to 0 just before it); one served stream is then
+   this phase (counts set to 0 just before it), and no decode call may reach
+   the older paged body (bf16: its launches are the prefill chunks', one a
+   layer; int8: none); one served stream is then
    checked teacher-forced against the plain dense forward (same weights,
    plain attention). Last, one decode step and one prefill chunk at the
    served context length are timed and profiled (device time by kernel
@@ -142,17 +148,20 @@ TRAIN_REL_TOL = 5e-2
 TRAIN_LOSS_TOL = 1e-2
 REPO = Path(__file__).resolve().parent
 # the serving planes: the kernels each must launch, and its quant modes
+# decode (C = 1 at page 128) goes to the Hopper decode body on every plane;
+# bf16 prefill chunks to the older paged body; K8: the Hopper kernel serves
+# prefill (more than 64 rows), v2 decode; int8 attention: the Hopper body
+# serves prefill chunks and every ragged tile (64 rows, page 128), and the
+# older int8 body nothing
 PLANES = {
-    "bf16": dict(kernels=("paged_attention", "kv_append", "ragged_paged_attention"),
+    "bf16": dict(kernels=("paged_attention", "paged_attention_decode_sm90", "kv_append",
+                          "ragged_paged_attention"),
                  quant="", group=0, kv_quant=""),
-    # K8: the Hopper kernel serves prefill (more than 64 rows), v2 decode;
-    # int8 attention: the Hopper body serves prefill chunks and every ragged
-    # tile (64 rows, page 128), the older one decode
-    "int8+kv8": dict(kernels=("paged_attention_q8", "paged_attention_q8_sm90", "kv_append_q8",
-                              "ragged_paged_attention_q8_sm90", "quant_matmul_int8_sm90",
-                              "quant_matmul_int8"),
+    "int8+kv8": dict(kernels=("paged_attention_q8_decode_sm90", "paged_attention_q8_sm90",
+                              "kv_append_q8", "ragged_paged_attention_q8_sm90",
+                              "quant_matmul_int8_sm90", "quant_matmul_int8"),
                      quant="int8", group=0, kv_quant="int8"),
-    "int4g128+kv8": dict(kernels=("paged_attention_q8", "paged_attention_q8_sm90",
+    "int4g128+kv8": dict(kernels=("paged_attention_q8_decode_sm90", "paged_attention_q8_sm90",
                                   "kv_append_q8", "ragged_paged_attention_q8_sm90",
                                   "quant_matmul_int4_sm90", "quant_matmul_int4"),
                          quant="int4", group=128, kv_quant="int8"),
@@ -218,6 +227,7 @@ def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
 # --------------------------------------------------------------------------
 
 H, HKV, D, PS, MP = 32, 8, 128, 128, 64  # llama3-8b heads, page_size, pages/seq
+SERVE_CONTEXT = 5236  # the serves' longest prompt: the decode step's context in profile_steps
 
 
 def _cache(torch, gen, dev, n_layers: int, n_pages: int, q8: bool = False):
@@ -861,6 +871,14 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
                         breaker_threshold=0, kv_quant=spec["kv_quant"])
     engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
                              quant_group=spec["group"])
+    chunk_calls = [0]  # prefill chunks: one older-body paged launch a layer on bf16
+    prefill_chunk = engine.prefill_chunk
+
+    def counting_prefill_chunk(*a, **k):
+        chunk_calls[0] += 1
+        return prefill_chunk(*a, **k)
+
+    engine.prefill_chunk = counting_prefill_chunk
     tok = ByteTokenizer()
     sched = ContinuousBatchingScheduler(engine, tok.eos_id)
     handles = []
@@ -908,6 +926,13 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
     missing = [k for k in spec["kernels"] if launches[k] == 0]
     if missing:
         fail(f"serve {plane}: kernels not launched on the main path: {missing}")
+    del engine.prefill_chunk
+    older = "paged_attention_q8" if spec["kv_quant"] else "paged_attention"
+    old_decode = launches[older] - (0 if spec["kv_quant"] else chunk_calls[0] * config.n_layers)
+    log(f"  prefill chunks {chunk_calls[0]}; decode launches of the older paged body "
+        f"{old_decode}")
+    if old_decode != 0:
+        fail(f"serve {plane}: {old_decode} decode calls reached the older paged body")
     if sched.allocator.used_count != 0:
         fail(f"serve {plane}: {sched.allocator.used_count} KV pages still allocated")
     if sched.quant_label != plane.replace("g128", ""):
@@ -943,6 +968,8 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
+    if "attention_decode_sm90" in n:
+        return "attention decode sm90 (ours)"
     if any(k in n for k in ("paged_attention_kernel", "ragged_attention_kernel",
                             "attention_q8_sm90_kernel", "combine_splits")):
         return "attention (ours)"
@@ -1288,13 +1315,17 @@ def main() -> None:
     log(f"  kernels built in {build_s:.1f} s from {kernels.CSRC}")
     log_resource_usage(kernels.library_path("quant_matmul_sm90.cu"), "quant_matmul_sm90_kernel")
     log_resource_usage(kernels.library_path("attention_q8_sm90.cu"), "attention_q8_sm90_kernel")
+    log_resource_usage(kernels.library_path("attention_decode_sm90.cu"), "attention_decode_sm90")
 
     log("phase 2: kernels against their plain versions (llama3-8b shapes)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     results: list[dict] = []
     dec_lens = [int(x) for x in torch.randint(1, 4097, (64,), generator=gen, device=dev)]
+    serve_lens = [SERVE_CONTEXT] * 8
     check_paged(torch, "paged_decode", gen, dev, 1, [n - 1 for n in dec_lens], dec_lens, results)
+    check_paged(torch, "paged_decode_b8", gen, dev, 1, [n - 1 for n in serve_lens], serve_lens,
+                results)
     check_paged(torch, "paged_prefill_q0", gen, dev, 512, [0] * 4, [512] * 4, results)
     check_paged(torch, "paged_prefill_q1024", gen, dev, 512, [1024] * 4, [1536] * 4, results)
     check_append(torch, gen, dev, results)
@@ -1302,6 +1333,8 @@ def main() -> None:
     log("  int8 KV cache:")
     check_paged(torch, "paged_q8_decode", gen, dev, 1, [n - 1 for n in dec_lens], dec_lens,
                 results, q8=True)
+    check_paged(torch, "paged_q8_decode_b8", gen, dev, 1, [n - 1 for n in serve_lens],
+                serve_lens, results, q8=True)
     check_paged(torch, "paged_q8_prefill_q0", gen, dev, 512, [0] * 4, [512] * 4, results,
                 q8=True)
     check_paged(torch, "paged_q8_prefill_q1024", gen, dev, 512, [1024] * 4, [1536] * 4,
@@ -1361,6 +1394,8 @@ def main() -> None:
                                    "finchat_tpu/ops/ragged_paged_attention.py:383", "bf16"),
         "paged_attention_q8": ("paged_attention.cu", q8_paged, "int8+kv8"),
         "paged_attention_q8_sm90": ("attention_q8_sm90.cu", q8_paged, "int8+kv8"),
+        "paged_attention_decode_sm90": ("attention_decode_sm90.cu", paged, "bf16"),
+        "paged_attention_q8_decode_sm90": ("attention_decode_sm90.cu", q8_paged, "int8+kv8"),
         "kv_append_q8": ("kv_append.cu", "finchat_tpu/ops/kv_append.py:175", "int8+kv8"),
         "ragged_paged_attention_q8": ("ragged_paged_attention.cu", q8_ragged, "int8+kv8"),
         "ragged_paged_attention_q8_sm90": ("attention_q8_sm90.cu", q8_ragged, "int8+kv8"),

@@ -58,6 +58,15 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "paged_attention_q8_sm90": (
         "attention_q8_sm90.cu", "paged_attention_int8_sm90", [_P] * 11 + [_I] * 14 + [_F, _P],
     ),
+    # the Hopper decode body (C = 1): paged_attention's and paged_attention_q8's arguments
+    "paged_attention_decode_sm90": (
+        "attention_decode_sm90.cu", "paged_attention_decode_bf16_sm90",
+        [_P] * 9 + [_I] * 13 + [_F, _P],
+    ),
+    "paged_attention_q8_decode_sm90": (
+        "attention_decode_sm90.cu", "paged_attention_decode_int8_sm90",
+        [_P] * 11 + [_I] * 14 + [_F, _P],
+    ),
     "kv_append": (
         "kv_append.cu", "kv_append_bf16",
         # kv_new, k_pages, v_pages, page_table, pos, n_valid

@@ -17,18 +17,25 @@ such a row.
 
 ``paged_flash_attention_q8`` is the same over an int8 cache with
 per-token-per-head scale planes (replacing ``_paged_kernel_q8``): each K/V
-tile is dequantized as ``bf16(float(q8) * scale)`` in shared memory.
-``paged_attention_q8_ref`` is its plain version (``gather_kv_q8`` +
-``mha_reference``). Two kernels serve the int8 calls, picked by
-``attention_kernel_for``, a pure function of the call's block shape:
+value is ``bf16(float(q8) * scale)``. ``paged_attention_q8_ref`` is its
+plain version (``gather_kv_q8`` + ``mha_reference``). ``attention_kernel_for``,
+a pure function of the call's block shape, picks the kernel:
 
-- ``paged_attention_q8_sm90`` (``csrc/attention_q8_sm90.cu``): blocks of 64
-  query rows over pages of whole 64-key tiles, no page split — the prefill
-  chunks. An asynchronous ring of raw int8 tiles, one dequantization per
-  tile from shared memory, tensor-core products.
-- ``paged_attention_q8`` (``csrc/paged_attention.cu``, K1's body with an
-  int8 loader): every other call — decode (split over blocks), small row
-  groups, pages that are not a multiple of 64 keys.
+- ``paged_attention_decode_sm90`` / ``paged_attention_q8_decode_sm90``
+  (``csrc/attention_decode_sm90.cu``): every decode call (C == 1, a group
+  of at most 16 query heads) over pages of whole 64-key tiles, for both
+  caches. An asynchronous ring of K/V tiles, the 4 warps of a block each
+  taking 16 keys of every tile, tensor-core products; each sequence's
+  pages are split over blocks by ``decode_split``, sized for the card's
+  SMs, and the fp32 partials merged in the same launch.
+- ``paged_attention_q8_sm90`` (``csrc/attention_q8_sm90.cu``): int8 blocks
+  of 64 query rows over pages of whole 64-key tiles, no page split — the
+  prefill chunks. An asynchronous ring of raw int8 tiles, one
+  dequantization per tile from shared memory, tensor-core products.
+- ``paged_attention`` / ``paged_attention_q8`` (``csrc/paged_attention.cu``,
+  one body with a bf16 or an int8 loader): every other call — bf16
+  prefill chunks, small row groups, pages that are not a multiple of 64
+  keys, and decode there (split by ``decode_splits``).
 
 Nothing gives way to anything else: a CUDA tensor reaches the one kernel
 the rule names or raises. ``prepare_paged(name, ..., route=False)`` builds
@@ -37,6 +44,8 @@ bodies on the same inputs with it).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -50,6 +59,14 @@ SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may opt into
 DECODE_PAGES_PER_SPLIT = 4  # decode: pages per block before splitting a sequence
 SM90_ROWS = 64  # the Hopper int8 body: query rows per block
 SM90_KEYS = 64  # ... and keys per tile (a page holds whole tiles)
+DECODE_KEYS = 64  # the Hopper decode body: keys per tile (a page holds whole tiles)
+DECODE_MAX_GROUP = 16  # ... query rows per block (the mma's 16 rows)
+# decode_split: blocks per SM the split aims at were every sequence's row
+# full — 16, so that calls whose rows are mostly empty (B=64 over 1-4k of 8k;
+# the serve's 8 live slots of 64 at 41 of 64 pages) still give ~2 blocks an
+# SM with a live key — and the fewest tiles a split takes
+DECODE_BLOCKS_PER_SM = 16
+DECODE_MIN_TILES = 4
 ATTENTION_KINDS = ("paged_attention", "paged_attention_q8", "ragged_paged_attention",
                    "ragged_paged_attention_q8")
 
@@ -125,19 +142,54 @@ def decode_splits(C: int, max_pages: int) -> tuple[int, int]:
     return 1, max_pages
 
 
-def attention_kernel_for(kind: str, rows: int, page_size: int, splits: int) -> str:
+def decode_split(B: int, n_kv: int, max_pages: int, page_size: int, n_sm: int
+                 ) -> tuple[int, int]:
+    """(splits, pages per split) of a call to the Hopper decode body: the
+    pages of a row over the splits that would give ``DECODE_BLOCKS_PER_SM *
+    n_sm`` blocks were every sequence's ``max_pages`` pages live, rounded
+    up, but never fewer than ``DECODE_MIN_TILES`` key tiles a split (so a
+    split's ring has tiles to keep in flight) nor more than ``max_pages``.
+    Split s covers pages
+    [s * pps, (s + 1) * pps); the splits together cover ``max_pages``. The
+    kernel reads ``kv_len`` on the card: blocks past a sequence's last live
+    key return at once, and a sequence within one split writes its output
+    directly."""
+    if min(B, n_kv, max_pages, page_size, n_sm) < 1:
+        raise ValueError("decode_split takes positive B, n_kv, max_pages, page_size, n_sm")
+    want = -(-DECODE_BLOCKS_PER_SM * n_sm // (B * n_kv))
+    min_pages = -(-DECODE_MIN_TILES * DECODE_KEYS // page_size)
+    pps = min(max_pages, max(min_pages, -(-max_pages // want)))
+    return -(-max_pages // pps), pps
+
+
+def attention_kernel_for(kind: str, rows: int, page_size: int, splits: int, *,
+                         decode: bool = False) -> str:
     """The kernel that serves an attention call of ``kind`` (one of
     ``ATTENTION_KINDS``) whose blocks hold ``rows`` query rows (group *
     tile tokens) over pages of ``page_size`` tokens, each sequence's pages
-    split over ``splits`` blocks: an int8 call of 64-row blocks over whole
-    64-key tiles with no split goes to the Hopper body (``kind + "_sm90"``),
-    every other call to ``kind``."""
+    split over ``splits`` blocks (``decode_splits``); ``decode`` for a paged
+    call of one query token per sequence. A paged decode call of at most
+    ``DECODE_MAX_GROUP`` rows over pages of whole 64-key tiles goes to the
+    Hopper decode body (``kind + "_decode_sm90"``, either cache; it takes
+    its own split, ``decode_split``); an int8 call of 64-row blocks over
+    whole 64-key tiles with no split to the Hopper int8 body (``kind +
+    "_sm90"``); every other call to ``kind``."""
     if kind not in ATTENTION_KINDS:
         raise ValueError(f"unknown attention kernel kind {kind!r}")
+    if (decode and kind.startswith("paged_") and rows <= DECODE_MAX_GROUP
+            and page_size % DECODE_KEYS == 0):
+        return f"{kind}_decode_sm90"
     if (kind.endswith("_q8") and rows == SM90_ROWS and page_size % SM90_KEYS == 0
             and splits == 1):
         return f"{kind}_sm90"
     return kind
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (``decode_split``'s
+    ``n_sm``)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_sm90_call(name: str, rows: int, page_size: int, splits: int,
@@ -147,6 +199,20 @@ def check_sm90_call(name: str, rows: int, page_size: int, splits: int,
     check(attention_kernel_for(name.removesuffix("_sm90"), rows, page_size, splits) == name,
           f"{name} takes 64-row blocks over pages of whole 64-key tiles, no split "
           f"(got {rows} rows, page_size {page_size}, {splits} splits)")
+    check(all(t.data_ptr() % 16 == 0 for t in tensors),
+          f"{name} takes 16-byte aligned q, pages and scale planes")
+
+
+def check_decode_call(name: str, C: int, group: int, page_size: int,
+                      tensors: tuple[torch.Tensor, ...]) -> None:
+    """Raise unless the Hopper decode body ``name`` takes this call: one
+    query token a sequence, a group of at most 16 rows, pages of whole
+    64-key tiles, 16-byte aligned operands."""
+    kind = name.removesuffix("_decode_sm90")
+    check(attention_kernel_for(kind, group, page_size, 1, decode=C == 1) == name,
+          f"{name} takes one query token a sequence, a group of at most "
+          f"{DECODE_MAX_GROUP} rows and pages of whole {DECODE_KEYS}-key tiles "
+          f"(got C={C}, group {group}, page_size {page_size})")
     check(all(t.data_ptr() % 16 == 0 for t in tensors),
           f"{name} takes 16-byte aligned q, pages and scale planes")
 
@@ -195,8 +261,9 @@ def paged_flash_attention(
     n_kv: int,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention over the paged KV cache by the CUDA kernel (bf16); returns
-    [B, C, H, D]. Raises on a tensor it does not take, a CPU one included."""
+    """Attention over the bf16 paged KV cache by the CUDA kernel
+    ``attention_kernel_for`` picks; returns [B, C, H, D]. Raises on a tensor
+    it does not take, a CPU one included."""
     check(q.is_cuda, "the paged attention kernel runs on CUDA tensors "
           "(paged_attention_ref is the plain version)")
     return prepare_paged("paged_attention", q, k_pages, v_pages, page_table, q_offset, kv_len,
@@ -238,10 +305,12 @@ def prepare_paged(kind: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: to
     ``ATTENTION_KINDS``), or with ``route=False`` the kernel named ``kind``.
     The wrappers launch it once; ``chip_smoke.py`` times the launch alone."""
     check(q.is_cuda, f"the {kind} kernel runs on CUDA tensors")
-    names = ("paged_attention", "paged_attention_q8") + (() if route else
-                                                          ("paged_attention_q8_sm90",))
+    names = ("paged_attention", "paged_attention_q8") + (() if route else (
+        "paged_attention_q8_sm90", "paged_attention_decode_sm90",
+        "paged_attention_q8_decode_sm90"))
     check(kind in names, f"{kind} is not a paged attention kernel")
-    scales = None if kind == "paged_attention" else (k_scales, v_scales)
+    scales = None if kind.removesuffix("_decode_sm90") == "paged_attention" else (
+        k_scales, v_scales)
     check(scales is None or (k_scales is not None and v_scales is not None),
           f"{kind} reads an int8 cache: give its k_scales and v_scales")
     B, C, H, D = q.shape
@@ -260,8 +329,11 @@ def prepare_paged(kind: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: to
     L, P, PS, _ = k_pages.shape
     MP = page_table.shape[1]
     splits, pps = decode_splits(C, MP)
-    name = attention_kernel_for(kind, group * bq, PS, splits) if route else kind
-    if name.endswith("_sm90"):
+    name = attention_kernel_for(kind, group * bq, PS, splits, decode=C == 1) if route else kind
+    if name.endswith("_decode_sm90"):
+        check_decode_call(name, C, group, PS, (q, k_pages, v_pages, *(scales or ())))
+        splits, pps = decode_split(B, n_kv, MP, PS, sm_count(q.device))
+    elif name.endswith("_sm90"):
         check_sm90_call(name, group * bq, PS, splits, (q, k_pages, v_pages, *scales))
     out = torch.empty_like(q)
     part_acc = part_ml = None

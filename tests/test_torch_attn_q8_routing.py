@@ -1,13 +1,16 @@
 """Which hand-written kernel serves an attention call over the int8 KV cache.
 
 ``ops/paged_attention.attention_kernel_for`` is a pure function of the
-call's block shape: the Hopper body (``paged_attention_q8_sm90``,
-``ragged_paged_attention_q8_sm90``: an asynchronous ring of raw int8 tiles,
-one dequantization per tile) for blocks of 64 query rows over pages of whole
-64-key tiles with no page split, the older body (``paged_attention_q8``,
-``ragged_paged_attention_q8``) for every other int8 call. These tests pin
-that rule at the ``llama3-8b`` serving shapes — prefill chunks, decode
-batches, ragged rounds — and at its edges. No card is needed: only the
+call's block shape: the Hopper decode body (``paged_attention_q8_decode_sm90``,
+and ``paged_attention_decode_sm90`` over a bf16 cache) for every paged call
+of one query token over pages of whole 64-key tiles; the Hopper int8 body
+(``paged_attention_q8_sm90``, ``ragged_paged_attention_q8_sm90``: an
+asynchronous ring of raw int8 tiles, one dequantization per tile) for blocks
+of 64 query rows over pages of whole 64-key tiles with no page split; the
+older body (``paged_attention_q8``, ``ragged_paged_attention_q8``) for
+every other int8 call. These tests pin that rule at the ``llama3-8b``
+serving shapes — prefill chunks, decode batches, ragged rounds — and at its
+edges (tests/test_torch_attn_decode.py holds the decode rule in full). No card is needed: only the
 choice is tested here, and the exact conversion the new body applies to
 each stored byte; ``tests/test_torch_cuda.py`` holds both bodies against the
 plain versions on the card.
@@ -36,7 +39,7 @@ def _paged_route(kind: str, C: int, group: int = _GROUP, page_size: int = _PS,
     """The kernel a paged call of C query tokens per sequence reaches."""
     rows = group * pa.tile_tokens(group, C)
     splits, _pps = pa.decode_splits(C, max_pages)
-    return pa.attention_kernel_for(kind, rows, page_size, splits)
+    return pa.attention_kernel_for(kind, rows, page_size, splits, decode=C == 1)
 
 
 @pytest.mark.parametrize("C", [512, 256, 100, 17, 16])
@@ -48,7 +51,15 @@ def test_prefill_chunks_go_to_the_hopper_body(C, max_pages):
 
 @pytest.mark.parametrize("max_pages", [1, 4, 5, _MP])
 def test_decode_stays_on_the_older_body(max_pages):
-    assert _paged_route("paged_attention_q8", 1, max_pages=max_pages) == "paged_attention_q8"
+    """Decode stays on the older body only over pages that are not a whole
+    number of 64-key tiles; over the serving page of 128 (and 64, 256) every
+    decode call reaches the Hopper decode body, over either cache."""
+    for kind in ("paged_attention_q8", "paged_attention"):
+        for ps in (8, 16, 32, 96):
+            assert _paged_route(kind, 1, page_size=ps, max_pages=max_pages) == kind
+        for ps in (64, _PS, 256):
+            assert _paged_route(kind, 1, page_size=ps, max_pages=max_pages) == \
+                f"{kind}_decode_sm90"
 
 
 @pytest.mark.parametrize("C", [2, 8, 15])
@@ -87,7 +98,15 @@ def test_routing_edges(case):
 
 @pytest.mark.parametrize("kind", ["paged_attention", "ragged_paged_attention"])
 def test_bf16_calls_keep_their_kernel(kind):
-    assert pa.attention_kernel_for(kind, 64, 128, 1) == kind
+    """A bf16 call keeps its kernel — prefill chunks and ragged rounds of any
+    row count, with or without splits — except a paged decode call over
+    whole 64-key tiles, which reaches the Hopper decode body."""
+    for rows in (8, 16, 63, 64):
+        for splits in (1, 2):
+            assert pa.attention_kernel_for(kind, rows, 128, splits) == kind
+    want = "paged_attention_decode_sm90" if kind == "paged_attention" else kind
+    assert pa.attention_kernel_for(kind, 4, 128, 16, decode=True) == want
+    assert pa.attention_kernel_for(kind, 4, 16, 16, decode=True) == kind
 
 
 def test_unknown_kind_is_refused():

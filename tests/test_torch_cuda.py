@@ -6,8 +6,11 @@ elsewhere. The file imports no JAX, so it runs on the GPU machine as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's conftest sets up JAX). The cases cover every
-kernel variant a wrapper can select, at small shapes: decode blocks with
-page splits, full 64-row tiles on tensor cores (Llama-3's group of 4, and
+kernel variant a wrapper can select, at small shapes: the Hopper decode
+body (bf16 and int8 caches; contexts of 0, 1, a tile edge and a split edge
+plus and minus one, B=64 over 1-4k and one 16k-token sequence; two launches
+bit-identical; the older decode body by name beside it), the older body's
+decode blocks with page splits (pages of 16), full 64-row tiles on tensor cores (Llama-3's group of 4, and
 groups of 2 and 8), the FMA fallback for pages that are not a multiple of
 64 keys, small row groups, ragged rows with padding and a ``kv_gap`` row,
 and the KV append — each over a bf16 cache and over an int8 cache with its
@@ -77,12 +80,14 @@ from finchat_tpu_torch.ops.kv_append import (  # noqa: E402
 )
 from finchat_tpu_torch.ops.paged_attention import (  # noqa: E402
     attention_kernel_for,
+    decode_split,
     decode_splits,
     paged_attention_q8_ref,
     paged_attention_ref,
     paged_flash_attention,
     paged_flash_attention_q8,
     prepare_paged,
+    sm_count,
     tile_tokens,
 )
 from finchat_tpu_torch.ops.quant_matmul import (  # noqa: E402
@@ -162,10 +167,13 @@ def test_paged_attention_kernel_matches_plain(dev, case):
     q = torch.randn((len(kv_len), C, H, D), generator=g, device=dev, dtype=torch.bfloat16)
     qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
     kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
-    before = LAUNCHES["paged_attention"]
+    group = H // Hkv
+    name = attention_kernel_for("paged_attention", group * tile_tokens(group, C), ps,
+                                decode_splits(C, mp)[0], decode=C == 1)
+    before = LAUNCHES[name]
     got = paged_flash_attention(q, kp, vp, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
     torch.cuda.synchronize()
-    assert LAUNCHES["paged_attention"] == before + 1
+    assert LAUNCHES[name] == before + 1
     want = paged_attention_ref(q, kp, vp, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
     live = kl > 0
     _assert_rows_close(got[live], want[live])
@@ -269,7 +277,7 @@ def test_paged_attention_q8_kernel_matches_plain(dev, case):
     kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     group = H // Hkv
     name = attention_kernel_for("paged_attention_q8", group * tile_tokens(group, C), ps,
-                                decode_splits(C, mp)[0])
+                                decode_splits(C, mp)[0], decode=C == 1)
     before = LAUNCHES[name]
     got = paged_flash_attention_q8(q, kp, vp, ks, vs, pt, qo, kl, 1, page_size=ps, n_kv=Hkv)
     torch.cuda.synchronize()
@@ -401,7 +409,7 @@ def test_ragged_attention_q8_sm90_matches_plain(dev, case):
 
 
 # (kind, C or ragged tokens, page_size): int8 calls the older body keeps
-Q8_OLD_ROUTES = [("paged_attention_q8", 40, 16), ("paged_attention_q8", 1, 128),
+Q8_OLD_ROUTES = [("paged_attention_q8", 40, 16), ("paged_attention_q8", 1, 16),
                  ("ragged_paged_attention_q8", 20, 16)]
 
 
@@ -462,6 +470,104 @@ def test_kv_append_q8_kernel_bit_exact(dev):
 
 # (M, K, N, mode, group, out fp32): 64- and 128-row blocks, ragged M and N,
 # N = 260 (rows not 16-byte aligned), K not a multiple of the 64-key tile
+# --- the Hopper decode body (C = 1, csrc/attention_decode_sm90.cu) -------------
+
+def _decode_lens(case: str, B: int, Hkv: int, ps: int, mp: int, dev) -> list[int]:
+    """Contexts of a decode case. "edges": 0, 1, a 64-key tile edge and the
+    split edge (``decode_split`` on this card) each plus and minus one, and a
+    sequence whose page-table tail is the trash page; "b64": 64 sequences
+    over 1-4k tokens; "long": one 16k-token sequence."""
+    if case == "b64":
+        return [int(x) for x in np.random.default_rng(21).integers(1, 4097, 64)]
+    if case == "long":
+        return [16384]
+    span = decode_split(B, Hkv, mp, ps, sm_count(dev))[1] * ps
+    lens = [0, 1, 63, 64, 65, span - 1, span, span + 1, 2 * span + 7, 3]
+    return lens[:B]
+
+
+# (name, contexts, page_size, max_pages, H, Hkv)
+DECODE_SM90 = [
+    ("edges_ps64", "edges", 64, 12, 8, 2),
+    ("edges_ps128", "edges", 128, 8, 8, 2),
+    ("edges_group8_ps128", "edges", 128, 8, 16, 2),
+    ("b64_1to4k", "b64", 128, 32, 32, 8),
+    ("one_16k", "long", 128, 128, 32, 8),
+]
+
+
+def _decode_call(dev, case, q8: bool, seed: int):
+    _name, lens, ps, mp, H, Hkv = case
+    B = 64 if lens == "b64" else (1 if lens == "long" else 10)
+    kv_len = _decode_lens(lens, B, Hkv, ps, mp, dev)
+    rng = np.random.default_rng(seed)
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in kv_len)
+    if q8:
+        kp, vp, ks, vs, g = _q8_cache(dev, Hkv, ps, n_pages, seed=seed)
+        scales = dict(k_scales=ks, v_scales=vs)
+    else:
+        kp, vp, g = _cache(dev, Hkv, ps, n_pages, seed=seed)
+        scales = {}
+    pt = _page_table(rng, kv_len, ps, mp, n_pages, dev)
+    q = torch.randn((B, 1, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    qo = (kl - 1).clamp(min=0)
+    if B > 3:
+        qo[3] = 0  # a query behind its context: the causal bound cuts its keys to one
+    return (q, kp, vp, pt, qo, kl, 1), dict(page_size=ps, n_kv=Hkv, **scales)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", DECODE_SM90, ids=[c[0] for c in DECODE_SM90])
+def test_paged_attention_decode_sm90_matches_plain(dev, case, q8):
+    """The routed wrapper launches the decode body once; its rows match the
+    plain version, rows without keys are zeros, and two launches of the same
+    call are bit-identical. The older body, launched by name on the same
+    inputs, still matches."""
+    args, kw = _decode_call(dev, case, q8, seed=31)
+    kind = "paged_attention_q8" if q8 else "paged_attention"
+    name = f"{kind}_decode_sm90"
+    kl = args[5]
+    before = dict(LAUNCHES)
+    if q8:
+        got = paged_flash_attention_q8(*args[:3], kw["k_scales"], kw["v_scales"], *args[3:],
+                                       page_size=kw["page_size"], n_kv=kw["n_kv"])
+        want = paged_attention_q8_ref(*args[:3], kw["k_scales"], kw["v_scales"], *args[3:],
+                                      page_size=kw["page_size"], n_kv=kw["n_kv"])
+    else:
+        got = paged_flash_attention(*args, **kw)
+        want = paged_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    assert moved == {name: 1}
+    live = kl > 0
+    _assert_rows_close(got[live], want[live])
+    assert bool((got[~live] == 0).all())
+    call = prepare_paged(kind, *args, **kw)
+    assert call.name == name
+    first = call.launch().clone()
+    assert torch.equal(first, call.launch())
+    assert torch.equal(first, got)
+    old = prepare_paged(kind, *args, **kw, route=False).launch()
+    torch.cuda.synchronize()
+    _assert_rows_close(old[live], want[live])
+
+
+def test_decode_sm90_wrapper_refuses_what_it_does_not_take(dev):
+    args, kw = _decode_call(dev, DECODE_SM90[1], False, seed=32)
+    q = args[0]
+    for name in ("paged_attention_decode_sm90", "paged_attention_q8_decode_sm90"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            prepare_paged(name, q.cpu(), *args[1:], **kw, route=False)
+    wide = torch.zeros((q.shape[0], 1, q.shape[2], 2 * D), dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        prepare_paged("paged_attention_decode_sm90", wide[..., :D], *args[1:], **kw,
+                      route=False)
+    q2 = torch.zeros((q.shape[0], 2, q.shape[2], D), dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError, match="one query token"):
+        prepare_paged("paged_attention_decode_sm90", q2, *args[1:], **kw, route=False)
+
+
 QMM = [
     ("int8_decode", 64, 512, 384, "int8", 0, False),
     ("int8_prefill", 300, 256, 260, "int8", 0, False),
