@@ -8,19 +8,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. Device and build: the card's name and power limit (``nvidia-smi``), then
    the CUDA kernels built from ``finchat_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (build seconds printed), and the registers, stack and spills
-   of the Hopper kernels (``cuobjdump -res-usage``).
+   of the Hopper kernels (``cuobjdump -res-usage``), the bf16 prefill body
+   (``attention_bf16_sm90.cu``) among them.
 2. Kernels against their plain PyTorch versions on the card, at the serving
    shapes of Llama-3-8B (32 query heads, 8 KV heads, head_dim 128,
    page_size 128, 64 pages per sequence), over a bf16 cache and over an
    int8 cache with its scale planes: paged attention (decode B=64 C=1 over
    1-4k-token contexts and B=8 at the serve's 5,236 tokens; prefill B=4
-   C=512 at q_offset 0 and 1024), the
+   C=512 at q_offset 0 and 1024, and over the bf16 cache at the serve's
+   q_offset 2048 and a lone 512-token chunk, B=1, at q_offset 0 and
+   2048), the
    decode KV append (B=64 with invalid lanes; the int8 one quantizes), and
    ragged attention (two 512-token prefill rows, 60 decode rows, padding to
    a 2048 bucket). Decode goes to the Hopper decode body
-   (``attention_decode_sm90.cu``) over both caches; over the int8 cache the
-   prefill chunks and the ragged round go to the Hopper body
-   (``attention_q8_sm90.cu``); wherever the routing picks a Hopper body, the
+   (``attention_decode_sm90.cu``) over both caches; the prefill chunks go to
+   the Hopper prefill body of their cache (``attention_bf16_sm90.cu``,
+   ``attention_q8_sm90.cu``), and over the int8 cache the ragged round to
+   the Hopper int8 body; wherever the routing picks a Hopper body, the
    older body is held and timed beside it on the same inputs; every
    attention launch runs twice and must give identical outputs. Then the fused
    dequant matmul's two kernels: v2 at
@@ -65,9 +69,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at once, four more once the first tokens stream (so prefill coexists
    with decode and the packed ragged rounds run), 64 new tokens each. Every
    request must complete; every kernel of the plane must be launched in
-   this phase (counts set to 0 just before it), and no decode call may reach
-   the older paged body (bf16: its launches are the prefill chunks', one a
-   layer; int8: none); one served stream is then
+   this phase (counts set to 0 just before it), the older paged body may
+   not be launched at all, and the Hopper prefill body of the plane's
+   cache must take every prefill chunk, one launch a layer; one served
+   stream is then
    checked teacher-forced against the plain dense forward (same weights,
    plain attention). Last, one decode step and one prefill chunk at the
    served context length are timed and profiled (device time by kernel
@@ -149,12 +154,13 @@ TRAIN_LOSS_TOL = 1e-2
 REPO = Path(__file__).resolve().parent
 # the serving planes: the kernels each must launch, and its quant modes
 # decode (C = 1 at page 128) goes to the Hopper decode body on every plane;
-# bf16 prefill chunks to the older paged body; K8: the Hopper kernel serves
-# prefill (more than 64 rows), v2 decode; int8 attention: the Hopper body
-# serves prefill chunks and every ragged tile (64 rows, page 128), and the
-# older int8 body nothing
+# prefill chunks (64-row blocks, page 128) to the Hopper prefill body of the
+# cache — bf16 (attention_bf16_sm90.cu) or int8 — and the older paged body
+# nothing; bf16 ragged rounds to K3; K8: the Hopper kernel serves prefill
+# (more than 64 rows), v2 decode; int8 attention: the Hopper int8 body also
+# serves every ragged tile, and the older int8 ragged body nothing
 PLANES = {
-    "bf16": dict(kernels=("paged_attention", "paged_attention_decode_sm90", "kv_append",
+    "bf16": dict(kernels=("paged_attention_sm90", "paged_attention_decode_sm90", "kv_append",
                           "ragged_paged_attention"),
                  quant="", group=0, kv_quant=""),
     "int8+kv8": dict(kernels=("paged_attention_q8_decode_sm90", "paged_attention_q8_sm90",
@@ -871,7 +877,7 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
                         breaker_threshold=0, kv_quant=spec["kv_quant"])
     engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
                              quant_group=spec["group"])
-    chunk_calls = [0]  # prefill chunks: one older-body paged launch a layer on bf16
+    chunk_calls = [0]  # prefill chunks: one launch of the Hopper prefill body a layer
     prefill_chunk = engine.prefill_chunk
 
     def counting_prefill_chunk(*a, **k):
@@ -928,11 +934,14 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         fail(f"serve {plane}: kernels not launched on the main path: {missing}")
     del engine.prefill_chunk
     older = "paged_attention_q8" if spec["kv_quant"] else "paged_attention"
-    old_decode = launches[older] - (0 if spec["kv_quant"] else chunk_calls[0] * config.n_layers)
-    log(f"  prefill chunks {chunk_calls[0]}; decode launches of the older paged body "
-        f"{old_decode}")
-    if old_decode != 0:
-        fail(f"serve {plane}: {old_decode} decode calls reached the older paged body")
+    want_chunks = chunk_calls[0] * config.n_layers
+    log(f"  prefill chunks {chunk_calls[0]}: {launches[older + '_sm90']} launches of the "
+        f"Hopper prefill body (want {want_chunks}), {launches[older]} of the older paged body")
+    if launches[older] != 0:
+        fail(f"serve {plane}: {launches[older]} calls reached the older paged body")
+    if launches[older + "_sm90"] != want_chunks:
+        fail(f"serve {plane}: the Hopper prefill body took {launches[older + '_sm90']} "
+             f"calls, not one a layer of each of {chunk_calls[0]} prefill chunks")
     if sched.allocator.used_count != 0:
         fail(f"serve {plane}: {sched.allocator.used_count} KV pages still allocated")
     if sched.quant_label != plane.replace("g128", ""):
@@ -971,7 +980,8 @@ def _kernel_class(name: str) -> str:
     if "attention_decode_sm90" in n:
         return "attention decode sm90 (ours)"
     if any(k in n for k in ("paged_attention_kernel", "ragged_attention_kernel",
-                            "attention_q8_sm90_kernel", "combine_splits")):
+                            "attention_q8_sm90_kernel", "attention_bf16_sm90_kernel",
+                            "combine_splits")):
         return "attention (ours)"
     if "kv_append" in n:
         return "kv_append (ours)"
@@ -1315,6 +1325,8 @@ def main() -> None:
     log(f"  kernels built in {build_s:.1f} s from {kernels.CSRC}")
     log_resource_usage(kernels.library_path("quant_matmul_sm90.cu"), "quant_matmul_sm90_kernel")
     log_resource_usage(kernels.library_path("attention_q8_sm90.cu"), "attention_q8_sm90_kernel")
+    log_resource_usage(kernels.library_path("attention_bf16_sm90.cu"),
+                       "attention_bf16_sm90_kernel")
     log_resource_usage(kernels.library_path("attention_decode_sm90.cu"), "attention_decode_sm90")
 
     log("phase 2: kernels against their plain versions (llama3-8b shapes)")
@@ -1328,6 +1340,9 @@ def main() -> None:
                 results)
     check_paged(torch, "paged_prefill_q0", gen, dev, 512, [0] * 4, [512] * 4, results)
     check_paged(torch, "paged_prefill_q1024", gen, dev, 512, [1024] * 4, [1536] * 4, results)
+    check_paged(torch, "paged_prefill_q2048", gen, dev, 512, [2048] * 4, [2560] * 4, results)
+    check_paged(torch, "paged_prefill_b1_q0", gen, dev, 512, [0], [512], results)
+    check_paged(torch, "paged_prefill_b1_q2048", gen, dev, 512, [2048], [2560], results)
     check_append(torch, gen, dev, results)
     check_ragged(torch, gen, dev, results)
     log("  int8 KV cache:")
@@ -1389,6 +1404,7 @@ def main() -> None:
     # run whose main path gives its launches)
     kernel_rows = {
         "paged_attention": ("paged_attention.cu", paged, "bf16"),
+        "paged_attention_sm90": ("attention_bf16_sm90.cu", paged, "bf16"),
         "kv_append": ("kv_append.cu", "finchat_tpu/ops/kv_append.py:241", "bf16"),
         "ragged_paged_attention": ("ragged_paged_attention.cu",
                                    "finchat_tpu/ops/ragged_paged_attention.py:383", "bf16"),

@@ -88,16 +88,9 @@ using fct::mbar_arrive;
 using fct::mbar_expect_tx;
 using fct::mbar_init;
 using fct::mbar_wait;
+using fct::make_map;
 using fct::sw128_desc;
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
+using fct::tma_load_2d;
 
 // d[64 x 128] += A[64 x 16] * B[16 x 128], both K-major in shared memory
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
@@ -341,48 +334,6 @@ __global__ void __launch_bounds__(THREADS, 1) quant_matmul_sm90_kernel(
 }
 
 // ---------------------------------------------------------------- host
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda: reached through the runtime's
-// entry-point lookup, so this library needs no link against it
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// a row-major [rows, cols] tensor read in boxes of [box_rows, box_cols]
-bool make_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem_bytes, const void* ptr,
-              uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols,
-              CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <bool PACKED, int MW>
 int launch(const void* x, const void* q, const void* scale, void* out, int M, int K, int N, int G,

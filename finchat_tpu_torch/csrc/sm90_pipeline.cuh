@@ -1,10 +1,13 @@
 // Pipeline helpers shared by the Hopper kernels (quant_matmul_sm90.cu,
-// attention_q8_sm90.cu): mbarrier waits that trap instead of hanging, the
-// cp.async copies that complete on an mbarrier, the wgmma shared-memory
-// descriptor and fences, and the byte permute that turns a stored int8 (or
-// int4) value into an exact float.
+// attention_q8_sm90.cu, attention_bf16_sm90.cu, attention_decode_sm90.cu):
+// mbarrier waits that trap instead of hanging, the cp.async copies that
+// complete on an mbarrier, TMA tile loads and the host encoding of their
+// tensor maps, the wgmma shared-memory descriptor and fences, and the byte
+// permute that turns a stored int8 (or int4) value into an exact float.
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace fct {
@@ -56,6 +59,61 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
 // landed (the barrier's count includes this thread: no arrival of its own)
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// ---------------------------------------------------------------- TMA
+
+// a 2D box of the tensor `map` at coordinates (c0 innermost, c1) into
+// shared memory at `dst`, completing its bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: reached through the runtime's
+// entry-point lookup, so a library needs no link against it
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a row-major [rows, cols] tensor read in boxes of [box_rows, box_cols]
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem_bytes,
+                     const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
+                     uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---------------------------------------------------------------- wgmma

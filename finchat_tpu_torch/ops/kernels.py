@@ -58,6 +58,12 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "paged_attention_q8_sm90": (
         "attention_q8_sm90.cu", "paged_attention_int8_sm90", [_P] * 11 + [_I] * 14 + [_F, _P],
     ),
+    # the Hopper body of bf16 calls of 64-row tiles: paged_attention's
+    # arguments, then the query tiles a block (before scale and stream)
+    "paged_attention_sm90": (
+        "attention_bf16_sm90.cu", "paged_attention_bf16_sm90",
+        [_P] * 9 + [_I] * 13 + [_I] + [_F, _P],
+    ),
     # the Hopper decode body (C = 1): paged_attention's and paged_attention_q8's arguments
     "paged_attention_decode_sm90": (
         "attention_decode_sm90.cu", "paged_attention_decode_bf16_sm90",

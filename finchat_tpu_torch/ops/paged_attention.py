@@ -28,14 +28,19 @@ a pure function of the call's block shape, picks the kernel:
   taking 16 keys of every tile, tensor-core products; each sequence's
   pages are split over blocks by ``decode_split``, sized for the card's
   SMs, and the fp32 partials merged in the same launch.
+- ``paged_attention_sm90`` (``csrc/attention_bf16_sm90.cu``): bf16 blocks
+  of 64 query rows over pages of whole 64-key tiles, no page split — the
+  prefill chunks. An asynchronous ring of K/V tiles landing in the layout
+  the tensor cores read, ``query_tiles_per_block`` query tiles of 64 rows
+  a block sharing each fetched tile.
 - ``paged_attention_q8_sm90`` (``csrc/attention_q8_sm90.cu``): int8 blocks
   of 64 query rows over pages of whole 64-key tiles, no page split — the
   prefill chunks. An asynchronous ring of raw int8 tiles, one
   dequantization per tile from shared memory, tensor-core products.
 - ``paged_attention`` / ``paged_attention_q8`` (``csrc/paged_attention.cu``,
-  one body with a bf16 or an int8 loader): every other call — bf16
-  prefill chunks, small row groups, pages that are not a multiple of 64
-  keys, and decode there (split by ``decode_splits``).
+  one body with a bf16 or an int8 loader): every other call — small row
+  groups, pages that are not a multiple of 64 keys, and decode there
+  (split by ``decode_splits``).
 
 Nothing gives way to anything else: a CUDA tensor reaches the one kernel
 the rule names or raises. ``prepare_paged(name, ..., route=False)`` builds
@@ -57,8 +62,9 @@ from finchat_tpu_torch.ops.refs import mha_reference
 MAX_ROWS = 64  # query rows per kernel block: group * tile tokens
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may opt into
 DECODE_PAGES_PER_SPLIT = 4  # decode: pages per block before splitting a sequence
-SM90_ROWS = 64  # the Hopper int8 body: query rows per block
+SM90_ROWS = 64  # the Hopper prefill bodies (bf16, int8): query rows per tile
 SM90_KEYS = 64  # ... and keys per tile (a page holds whole tiles)
+SM90_MAX_TILES = 2  # the Hopper bf16 body: query tiles a block (one a warpgroup)
 DECODE_KEYS = 64  # the Hopper decode body: keys per tile (a page holds whole tiles)
 DECODE_MAX_GROUP = 16  # ... query rows per block (the mma's 16 rows)
 # decode_split: blocks per SM the split aims at were every sequence's row
@@ -162,6 +168,23 @@ def decode_split(B: int, n_kv: int, max_pages: int, page_size: int, n_sm: int
     return -(-max_pages // pps), pps
 
 
+def query_tiles_per_block(B: int, C: int, group: int, n_kv: int, n_sm: int) -> int:
+    """Query tiles of 64 rows a block of the Hopper bf16 body takes (one a
+    consumer warpgroup, sharing every fetched K/V tile). A block holds the
+    whole ring, so one runs per SM: the fewest waves over ``n_sm`` SMs win.
+    One tile a block where the call's one-tile blocks (``B * n_kv`` pairs
+    of sequence and KV head, ``ceil(C / tile_tokens)`` tiles each) all fit
+    in one wave, so each SM takes the least work a block can; else
+    ``SM90_MAX_TILES`` (or the chunk's one tile), which halves the waves —
+    a lone 512-token chunk among them. Block j of a sequence and KV head
+    takes tiles [j * tiles, (j + 1) * tiles) of the chunk's.
+    ``tools/attention_bf16_diag.py`` times both choices."""
+    if min(B, C, group, n_kv, n_sm) < 1:
+        raise ValueError("query_tiles_per_block takes positive B, C, group, n_kv, n_sm")
+    n_tiles = -(-C // tile_tokens(group, C))
+    return 1 if B * n_kv * n_tiles <= n_sm else min(SM90_MAX_TILES, n_tiles)
+
+
 def attention_kernel_for(kind: str, rows: int, page_size: int, splits: int, *,
                          decode: bool = False) -> str:
     """The kernel that serves an attention call of ``kind`` (one of
@@ -171,16 +194,17 @@ def attention_kernel_for(kind: str, rows: int, page_size: int, splits: int, *,
     call of one query token per sequence. A paged decode call of at most
     ``DECODE_MAX_GROUP`` rows over pages of whole 64-key tiles goes to the
     Hopper decode body (``kind + "_decode_sm90"``, either cache; it takes
-    its own split, ``decode_split``); an int8 call of 64-row blocks over
-    whole 64-key tiles with no split to the Hopper int8 body (``kind +
-    "_sm90"``); every other call to ``kind``."""
+    its own split, ``decode_split``); a paged call (either cache) or an
+    int8 ragged call of 64-row blocks over whole 64-key tiles with no split
+    to the Hopper prefill bodies (``kind + "_sm90"``: bf16 or int8); every
+    other call, bf16 ragged rounds included, to ``kind``."""
     if kind not in ATTENTION_KINDS:
         raise ValueError(f"unknown attention kernel kind {kind!r}")
     if (decode and kind.startswith("paged_") and rows <= DECODE_MAX_GROUP
             and page_size % DECODE_KEYS == 0):
         return f"{kind}_decode_sm90"
-    if (kind.endswith("_q8") and rows == SM90_ROWS and page_size % SM90_KEYS == 0
-            and splits == 1):
+    if ((kind.endswith("_q8") or kind == "paged_attention") and rows == SM90_ROWS
+            and page_size % SM90_KEYS == 0 and splits == 1):
         return f"{kind}_sm90"
     return kind
 
@@ -306,11 +330,10 @@ def prepare_paged(kind: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: to
     The wrappers launch it once; ``chip_smoke.py`` times the launch alone."""
     check(q.is_cuda, f"the {kind} kernel runs on CUDA tensors")
     names = ("paged_attention", "paged_attention_q8") + (() if route else (
-        "paged_attention_q8_sm90", "paged_attention_decode_sm90",
+        "paged_attention_sm90", "paged_attention_q8_sm90", "paged_attention_decode_sm90",
         "paged_attention_q8_decode_sm90"))
     check(kind in names, f"{kind} is not a paged attention kernel")
-    scales = None if kind.removesuffix("_decode_sm90") == "paged_attention" else (
-        k_scales, v_scales)
+    scales = (k_scales, v_scales) if kind.startswith("paged_attention_q8") else None
     check(scales is None or (k_scales is not None and v_scales is not None),
           f"{kind} reads an int8 cache: give its k_scales and v_scales")
     B, C, H, D = q.shape
@@ -334,7 +357,7 @@ def prepare_paged(kind: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: to
         check_decode_call(name, C, group, PS, (q, k_pages, v_pages, *(scales or ())))
         splits, pps = decode_split(B, n_kv, MP, PS, sm_count(q.device))
     elif name.endswith("_sm90"):
-        check_sm90_call(name, group * bq, PS, splits, (q, k_pages, v_pages, *scales))
+        check_sm90_call(name, group * bq, PS, splits, (q, k_pages, v_pages, *(scales or ())))
     out = torch.empty_like(q)
     part_acc = part_ml = None
     if splits > 1:
@@ -347,11 +370,14 @@ def prepare_paged(kind: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: to
     if scales is not None:
         cache += [scales[0].data_ptr(), scales[1].data_ptr()]
         dims.append(scales[0].shape[2])
+    # the bf16 Hopper body also takes its query tiles a block
+    tiles = ((query_tiles_per_block(B, C, group, n_kv, sm_count(q.device)),)
+             if name == "paged_attention_sm90" else ())
     args = (q.data_ptr(), *cache,
             out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(), page_table.data_ptr(),
             q_offset.data_ptr(), kv_len.data_ptr(),
-            *dims, key_tile(PS), MP, bq, splits, pps,
+            *dims, key_tile(PS), MP, bq, splits, pps, *tiles,
             float(scale if scale is not None else D ** -0.5))
     keep = (q, k_pages, v_pages, *(scales or ()), page_table, q_offset, kv_len, part_acc, part_ml)
     return kernels.Prepared(name, args, out, keep)

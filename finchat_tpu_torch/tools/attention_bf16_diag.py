@@ -1,0 +1,163 @@
+"""What paces the Hopper bf16 prefill attention body, on one H100.
+
+    python -m finchat_tpu_torch.tools.attention_bf16_diag
+
+Times, at the prefill shapes of ``chip_smoke.py`` (Llama-3-8B heads, page
+128; a 4 x 512 chunk at q_offset 0, 1024 and 2048), the older bf16 body
+(``paged_attention.cu``, launched by name), the Hopper bf16 body
+(``attention_bf16_sm90.cu``) and three diagnostic builds of it, each a copy
+of the sources with one stage cut out by text substitution (the script
+fails if a substitution no longer matches):
+
+- ``no fetch``: no TMA copies into the ring (the producer arrives on each
+  stage's barrier without bytes), so the products and the softmax run on
+  whatever the ring holds;
+- ``no products``: no ``wgmma``; the scores are made from the Q fragments
+  and the P fragments folded into the output, so the fetch and the softmax
+  still run;
+- ``neither``: both cuts, what the softmax, the barriers and the loop cost
+  alone.
+
+Beside each case: the bound (the larger of the bytes — q in and out, each
+key's K and V once — over 3.35 TB/s and the FLOPs the causal chunk needs
+over 989 TFLOP/s) and the query tiles a block (``query_tiles_per_block``).
+
+Then the query tiles a block: the Hopper body on the same inputs forced to
+one and to two tiles a block, beside the rule's choice, for a lone chunk
+(B=1 x 512 at q_offset 0 and 2048), the serving chunk (4 x 512) and short
+final chunks (B=1, C=64 and 128 at q_offset 2048).
+The diagnostic builds compute garbage and are only timed. Every time is the
+median over 20 CUDA-event-timed runs of back-to-back launches (each launch
+prepared once, ``prepare_paged``); nvcc's register and spill counts of each
+build are printed. Needs a CUDA device and nvcc; writes its builds under
+``finchat_tpu_torch/build/diag/``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import subprocess
+import sys
+
+import torch
+
+from finchat_tpu_torch.ops import kernels
+from finchat_tpu_torch.ops.paged_attention import (
+    prepare_paged,
+    query_tiles_per_block,
+    sm_count,
+)
+from finchat_tpu_torch.tools.attention_q8_diag import _page_table, build_variant, timed
+
+H, HKV, D, PS = 32, 8, 128, 128
+SOURCE = "attention_bf16_sm90.cu"
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+
+# (source file, text to cut, its replacement) per diagnostic build
+_NO_FETCH = [
+    (SOURCE, "    fct::mbar_expect_tx(bar, nb * 4 * kBoxBytes);\n", "    fct::mbar_arrive(bar);\n"),
+    (SOURCE, "      fct::tma_load_2d(st, kmap, bar, g * D, row);\n"
+             "      fct::tma_load_2d(st + kPanel, kmap, bar, g * D + 64, row);\n"
+             "      fct::tma_load_2d(st + kV, vmap, bar, g * D, row);\n"
+             "      fct::tma_load_2d(st + kV + kPanel, vmap, bar, g * D + 64, row);\n",
+     "      (void)st, (void)row;\n"),
+]
+_NO_PRODUCTS = [
+    (SOURCE, "    wgmma_m64n128k16_rs<0>(s, qf[ks], fct::sw128_desc(stage + (ks / 4) * kPanel)"
+             " + 2 * (ks % 4),\n                           ks > 0);\n",
+     "    for (int i = 0; i < 8; ++i) s[8 * ks + i] = __uint_as_float(qf[ks][i % 4] & 0x3f7fffffu);\n"),
+    (SOURCE, "    wgmma_m64n128k16_rs<1>(o, pf[kk], v_desc(stage + kV + kk * 16 * 128), 1);\n",
+     "    o[kk] += __uint_as_float(pf[kk][0] & 0x3f7fffffu);\n"),
+]
+VARIANTS = {"no fetch": _NO_FETCH, "no products": _NO_PRODUCTS,
+            "neither": _NO_FETCH + _NO_PRODUCTS}
+
+
+def bound_ms(q_offset: int, B: int = 4, C: int = 512) -> float:
+    """The least time of one 4 x C chunk at ``q_offset``: bytes (q in, out,
+    K and V of every key once) or causal FLOPs, whichever is larger."""
+    kv_len = q_offset + C
+    moved = 2 * B * C * H * D * 2 + B * kv_len * HKV * D * 2 * 2
+    keys = B * sum(q_offset + i + 1 for i in range(C))
+    return max(moved / HBM_BYTES_PER_S, 4.0 * keys * H * D / BF16_FLOPS_PER_S) * 1e3
+
+
+def _inputs(gen, dev, B: int, C: int, q_off: int):
+    """A paged call of ``B`` sequences of ``C`` query tokens at ``q_off``
+    over a random cache of two layers (layer 1 read)."""
+    kv_lens = [q_off + C] * B
+    n_pages = 2 + sum(-(-n // PS) for n in kv_lens)
+    shape = (2, n_pages, PS, HKV * D)
+    k = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    q = torch.randn((B, C, H, D), generator=gen, device=dev, dtype=torch.bfloat16)
+    return (q, k, v, _page_table(gen, dev, kv_lens, n_pages),
+            torch.full((B,), q_off, dtype=torch.int32, device=dev),
+            torch.tensor(kv_lens, dtype=torch.int32, device=dev), 1)
+
+
+def with_tiles(prep: kernels.Prepared, tiles: int) -> kernels.Prepared:
+    """A prepared launch of the bf16 Hopper body with ``tiles`` query tiles a
+    block in place of the rule's (the argument before the scale)."""
+    *head, _rule, scale = prep.args
+    return dataclasses.replace(prep, args=(*head, tiles, scale))
+
+
+def time_tiles(gen, dev) -> None:
+    """The body at one and at two query tiles a block, on the same inputs."""
+    name = "paged_attention_sm90"
+    print("query tiles a block (ms at 1 / 2 tiles; the rule's choice):")
+    for B, C, q_off in ((1, 512, 0), (1, 512, 2048), (4, 512, 0), (4, 512, 2048),
+                        (1, 64, 2048), (1, 128, 2048)):
+        args = _inputs(gen, dev, B, C, q_off)
+        prep = prepare_paged(name, *args, page_size=PS, n_kv=HKV, route=False)
+        rule = query_tiles_per_block(B, C, H // HKV, HKV, sm_count(dev))
+        ref = prep.launch().clone()
+        ms = []
+        for tiles in (1, 2, 1, 2):
+            launch = with_tiles(prep, tiles)
+            if not torch.equal(launch.launch(), ref):
+                raise SystemExit(f"{B}x{C} at q{q_off}: {tiles} tiles a block change the output")
+            ms.append(timed(launch.launch, name, None))
+        print(f"  {B}x{C} at q{q_off} (bound {bound_ms(q_off, B, C):.4f}): "
+              f"{ms[0]:.4f} / {ms[1]:.4f}, again {ms[2]:.4f} / {ms[3]:.4f}; rule {rule}",
+              flush=True)
+        del args, prep, ref
+        torch.cuda.empty_cache()
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device is visible")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(f"{torch.cuda.get_device_name(0)} ({smi.stdout.strip()})")
+    kernels.build_all()
+    print("builds:")
+    libs = {label: build_variant("bf16_" + label.replace(" ", "_"), SOURCE, cuts)
+            for label, cuts in VARIANTS.items()}
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    kw = dict(page_size=PS, n_kv=HKV)
+    new, old = "paged_attention_sm90", "paged_attention"
+    for q_off in (0, 1024, 2048):
+        args = _inputs(gen, dev, 4, 512, q_off)
+        tiles = query_tiles_per_block(4, 512, H // HKV, HKV, sm_count(dev))
+        print(f"paged prefill 4x512 at q{q_off} (ms; bound {bound_ms(q_off):.4f}, "
+              f"{tiles} query tiles a block):")
+        rows = [("old body", old, None), ("new body", new, None)]
+        rows += [(f"new, {label}", new, lib) for label, lib in libs.items()]
+        rows += [("new body, again", new, None), ("old body, again", old, None)]
+        for label, name, lib in rows:
+            launch = prepare_paged(name, *args, **kw, route=False).launch
+            print(f"  {label}: {timed(launch, name, lib):.4f}", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    time_tiles(gen, dev)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -81,8 +81,9 @@ def test_ragged_calls_never_reach_the_decode_body(kind, rows):
 @pytest.mark.parametrize("C", [1, 2, 16, 512])
 def test_serving_shapes_route(C):
     """The llama3-8b engine's calls at page 128: decode to the decode body
-    on both caches, prefill chunks as before (bf16 to the older body, int8
-    to the Hopper int8 body once a block holds 64 rows)."""
+    on both caches, prefill chunks to the Hopper prefill body of their cache
+    (bf16 or int8) once a block holds 64 rows, and to the older body below
+    that."""
     group = _C.n_heads // _C.n_kv_heads
     rows = group * pa.tile_tokens(group, C)
     splits = pa.decode_splits(C, 64)[0]
@@ -91,9 +92,7 @@ def test_serving_shapes_route(C):
     if C == 1:
         assert got == {kind: f"{kind}_decode_sm90" for kind in KINDS}
     else:
-        assert got["paged_attention"] == "paged_attention"
-        assert got["paged_attention_q8"] == ("paged_attention_q8_sm90" if rows == 64
-                                             else "paged_attention_q8")
+        assert got == {kind: f"{kind}_sm90" if rows == 64 else kind for kind in KINDS}
 
 
 def test_decode_bodies_are_registered():

@@ -8,12 +8,15 @@ of one query token over pages of whole 64-key tiles; the Hopper int8 body
 asynchronous ring of raw int8 tiles, one dequantization per tile) for blocks
 of 64 query rows over pages of whole 64-key tiles with no page split; the
 older body (``paged_attention_q8``, ``ragged_paged_attention_q8``) for
-every other int8 call. These tests pin that rule at the ``llama3-8b``
-serving shapes — prefill chunks, decode batches, ragged rounds — and at its
-edges (tests/test_torch_attn_decode.py holds the decode rule in full). No card is needed: only the
-choice is tested here, and the exact conversion the new body applies to
-each stored byte; ``tests/test_torch_cuda.py`` holds both bodies against the
-plain versions on the card.
+every other int8 call. A bf16 paged call of the same blocks goes to the
+Hopper bf16 body (``paged_attention_sm90``), a bf16 ragged round to K3.
+These tests pin that rule at the ``llama3-8b`` serving shapes — prefill
+chunks, decode batches, ragged rounds — and at its edges
+(tests/test_torch_attn_decode.py holds the decode rule in full,
+tests/test_torch_attn_bf16.py the bf16 prefill rule). No card is needed:
+only the choice is tested here, and the exact conversion the new body
+applies to each stored byte; ``tests/test_torch_cuda.py`` holds both bodies
+against the plain versions on the card.
 """
 
 import numpy as np
@@ -98,12 +101,18 @@ def test_routing_edges(case):
 
 @pytest.mark.parametrize("kind", ["paged_attention", "ragged_paged_attention"])
 def test_bf16_calls_keep_their_kernel(kind):
-    """A bf16 call keeps its kernel — prefill chunks and ragged rounds of any
-    row count, with or without splits — except a paged decode call over
-    whole 64-key tiles, which reaches the Hopper decode body."""
+    """A bf16 call keeps its kernel — ragged rounds of any row count, and
+    paged calls of other than 64 rows or with splits — except a paged call
+    of 64-row blocks over whole 64-key tiles with no split, which reaches
+    the Hopper bf16 body, and a paged decode call over whole 64-key tiles,
+    which reaches the Hopper decode body."""
     for rows in (8, 16, 63, 64):
         for splits in (1, 2):
-            assert pa.attention_kernel_for(kind, rows, 128, splits) == kind
+            hopper = kind == "paged_attention" and rows == 64 and splits == 1
+            want = "paged_attention_sm90" if hopper else kind
+            assert pa.attention_kernel_for(kind, rows, 128, splits) == want
+            # pages of part tiles: the older body, whatever the rows
+            assert pa.attention_kernel_for(kind, rows, 96, splits) == kind
     want = "paged_attention_decode_sm90" if kind == "paged_attention" else kind
     assert pa.attention_kernel_for(kind, 4, 128, 16, decode=True) == want
     assert pa.attention_kernel_for(kind, 4, 16, 16, decode=True) == kind
@@ -115,13 +124,17 @@ def test_unknown_kind_is_refused():
 
 
 def test_both_bodies_of_each_call_are_registered():
-    for kind in ("paged_attention_q8", "ragged_paged_attention_q8"):
+    for kind in ("paged_attention_q8", "ragged_paged_attention_q8", "paged_attention"):
         for name in (kind, f"{kind}_sm90"):
             assert name in kernels.KERNELS and name in kernels.LAUNCHES
-        # the new body takes the older one's arguments
-        assert kernels.KERNELS[f"{kind}_sm90"][2] == kernels.KERNELS[kind][2]
-        assert kernels.KERNELS[f"{kind}_sm90"][0] == "attention_q8_sm90.cu"
-    assert "attention_q8_sm90.cu" in kernels.SOURCES
+        new, old = kernels.KERNELS[f"{kind}_sm90"][2], kernels.KERNELS[kind][2]
+        if kind.endswith("_q8"):  # the int8 body takes the older one's arguments
+            assert new == old
+            assert kernels.KERNELS[f"{kind}_sm90"][0] == "attention_q8_sm90.cu"
+        else:  # ... the bf16 body those and its query tiles a block
+            assert new == old[:-2] + [kernels._I] + old[-2:]
+            assert kernels.KERNELS[f"{kind}_sm90"][0] == "attention_bf16_sm90.cu"
+    assert {"attention_q8_sm90.cu", "attention_bf16_sm90.cu"} <= set(kernels.SOURCES)
 
 
 def _q8_call(T: int = 32, n_kv: int = 2, ps: int = 64, pages: int = 4):

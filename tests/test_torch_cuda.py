@@ -12,7 +12,10 @@ plus and minus one, B=64 over 1-4k and one 16k-token sequence; two launches
 bit-identical; the older decode body by name beside it), the older body's
 decode blocks with page splits (pages of 16), full 64-row tiles on tensor cores (Llama-3's group of 4, and
 groups of 2 and 8), the FMA fallback for pages that are not a multiple of
-64 keys, small row groups, ragged rows with padding and a ``kv_gap`` row,
+64 keys, small row groups, the Hopper bf16 prefill body (64-row query
+tiles, one or two a block, over a cache whose trash page and stale rows
+are NaN; Llama-3-8B's 4 x 512 chunk at q_offset 0, 1024 and 2048; two
+launches bit-identical; the older body by name beside it), ragged rows with padding and a ``kv_gap`` row,
 and the KV append — each over a bf16 cache and over an int8 cache with its
 scale planes — and the fused dequant matmul's two kernels: v2 (int8, int4
 per column and per group of 128, bf16 and fp32 output, 64- and 128-row
@@ -248,6 +251,103 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(dev):
         paged_flash_attention(q, kp.bfloat16(), kp.bfloat16(), torch.zeros((1, 2), device=dev,
                               dtype=torch.int64), torch.zeros(1, **i32), torch.ones(1, **i32),
                               0, page_size=16, n_kv=2)
+
+
+# --- the Hopper bf16 prefill body (csrc/attention_bf16_sm90.cu) -----------------
+
+# (name, H, Hkv, page_size, C, q_offsets, kv_lens): the cases of the CPU
+# emulation (tests/test_torch_attn_bf16.py) — q_offset 0 with a partial
+# query tile, a 64-key tile edge and +-1, kv_len below q_offset + C and a
+# sequence with kv_len 0, at pages of 64 and 128 — then groups of 2 (32
+# tokens a tile) and 8 (8 tokens, a thread's two rows in different heads)
+# over an odd number of query tiles with a partial last one and padding,
+# then Llama-3-8B's serving chunk, 4 x 512 at q_offset 0, 1024 and 2048
+PAGED_BF16_SM90 = [
+    (f"{name}_ps{ps}", 8, 2, ps, C, q_off, kv_len)
+    for name, C, q_off, kv_len in (
+        ("q0", 192, [0, 0, 0], [192, 150, 192]),
+        ("tile_edges", 64, [63, 64, 65, 0], [127, 128, 129, 64]),
+        ("padding_and_empty", 100, [30, 0, 200], [90, 0, 257]))
+    for ps in (64, 128)
+] + [
+    (f"group{H // 2}_ps{ps}", H, 2, ps, 100, [0, 70, 130], [100, 170, 200])
+    for H, ps in ((4, 64), (16, 128))
+] + [(f"llama3_8b_4x512_q{o}", 32, 8, 128, 512, [o] * 4, [o + 512] * 4) for o in (0, 1024, 2048)]
+
+
+def _bf16_sm90_call(dev, case, seed: int):
+    """A call of PAGED_BF16_SM90 over a cache whose trash page and rows at or
+    past each kv_len are NaN (the body must never read them), and the same
+    call over a clean copy for the plain version."""
+    _name, H, Hkv, ps, C, q_off, kv_len = case
+    rng = np.random.default_rng(seed)
+    mp = -(-(max(kv_len) + 64) // ps) + 1  # every row's tail is the trash page
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in kv_len)
+    kp, vp, g = _cache(dev, Hkv, ps, n_pages, seed=seed)
+    pt = _page_table(rng, kv_len, ps, mp, n_pages, dev)
+    q = torch.randn((len(kv_len), C, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    kp_bad, vp_bad = kp.clone(), vp.clone()
+    for t in (kp_bad, vp_bad):
+        t[:, 0] = float("nan")
+        for b, n in enumerate(kv_len):
+            for p in range(mp):
+                lo = n - p * ps
+                if int(pt[b, p]) and lo < ps:
+                    t[:, int(pt[b, p]), max(lo, 0):] = float("nan")
+    kw = dict(page_size=ps, n_kv=Hkv)
+    return (q, kp_bad, vp_bad, pt, qo, kl, 1), (q, kp, vp, pt, qo, kl, 1), kw
+
+
+@pytest.mark.parametrize("n_sm", ["card", "one"])
+@pytest.mark.parametrize("case", PAGED_BF16_SM90, ids=[c[0] for c in PAGED_BF16_SM90])
+def test_paged_attention_bf16_sm90_matches_plain(dev, case, n_sm, monkeypatch):
+    """The routed wrapper launches the Hopper bf16 body once a call; its rows
+    match the plain version, rows without keys are zeros, and two launches
+    are bit-identical, over a cache whose trash page and stale rows are
+    NaN. With ``n_sm`` "one", ``query_tiles_per_block`` sees a card of one
+    SM and gives every block two query tiles wherever the chunk has two. The
+    older body, launched by name on the same inputs, still matches."""
+    import finchat_tpu_torch.ops.paged_attention as pa
+
+    if n_sm == "one":
+        monkeypatch.setattr(pa, "sm_count", lambda device: 1)
+    args, clean, kw = _bf16_sm90_call(dev, case, seed=41)
+    kl = args[5]
+    before = dict(LAUNCHES)
+    got = paged_flash_attention(*args, **kw)
+    again = paged_flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    assert moved == {"paged_attention_sm90": 2}
+    assert torch.equal(got, again)  # one order of operations: a stale stage shows as a change
+    want = paged_attention_ref(*clean, **kw)
+    live = kl > 0
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_rows_close(got[live], want[live])
+    assert bool((got[~live] == 0).all())
+    old = prepare_paged("paged_attention", *clean, **kw, route=False)
+    assert old.name == "paged_attention"
+    got_old = old.launch()
+    torch.cuda.synchronize()
+    _assert_rows_close(got_old[live], want[live])
+
+
+def test_paged_attention_bf16_sm90_refuses_what_it_does_not_take(dev):
+    args, _clean, kw = _bf16_sm90_call(dev, PAGED_BF16_SM90[0], seed=42)
+    q = args[0]
+    name = "paged_attention_sm90"
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        prepare_paged(name, q.cpu(), *args[1:], **kw, route=False)
+    wide = torch.zeros((*q.shape[:3], 2 * D), dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        prepare_paged(name, wide[..., :D], *args[1:], **kw, route=False)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        prepare_paged(name, flat[1:].view(q.shape), *args[1:], **kw, route=False)
+    with pytest.raises(ValueError, match="64-row blocks"):  # 8 tokens: 32 rows
+        prepare_paged(name, q[:, :8].contiguous(), *args[1:], **kw, route=False)
 
 
 # --- the quantized plane -------------------------------------------------------
