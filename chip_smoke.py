@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the CUDA kernels built from ``finchat_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (build seconds printed), and the registers, stack and spills
    of the Hopper kernels (``cuobjdump -res-usage``), the bf16 prefill body
-   (``attention_bf16_sm90.cu``) among them.
+   (``attention_bf16_sm90.cu``) and the fused dequant matmul's decode body
+   (``quant_matmul_decode_sm90.cu``) among them.
 2. Kernels against their plain PyTorch versions on the card, at the serving
    shapes of Llama-3-8B (32 query heads, 8 KV heads, head_dim 128,
    page_size 128, 64 pages per sequence), over a bf16 cache and over an
@@ -27,14 +28,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the Hopper int8 body; wherever the routing picks a Hopper body, the
    older body is held and timed beside it on the same inputs; every
    attention launch runs twice and must give identical outputs. Then the fused
-   dequant matmul's two kernels: v2 at
-   decode (int8 at M=64 on the [4096, 14336] MLP weight and on the [4096,
-   128256] head with fp32 output; int4 at M=64 on [4096, 14336], per column
-   and per group of 128) and the Hopper kernel at prefill (M=2048 and the
-   ragged round's M=1084, int8 on every weight shape — [4096, 4096],
-   [4096, 1024], [4096, 14336], [14336, 4096] — and int4 per group of 128
-   on [4096, 14336]), with v2 held and timed beside it on the same inputs.
-   The wrapper must launch the kernel its routing rule names. Each case
+   dequant matmul: the decode body (``quant_matmul_decode_sm90.cu``) at the
+   decode step's M=64 on every llama3-8b layer weight shape — [4096, 4096]
+   (q, o), [4096, 1024] (k, v), [4096, 14336] (gate, up), [14336, 4096]
+   (down) — and on the [4096, 128256] head with fp32 output, and at the
+   prefill chunk's M=4 head call; int4 at M=64 on [4096, 14336], per
+   column and per group of 128; the Hopper kernel at prefill (M=2048 and
+   the ragged round's M=1084, int8 on every weight shape and int4 per group
+   of 128 on [4096, 14336]); v2 held and timed beside each on the same
+   inputs, launched by its own name. The wrapper must launch the kernel its
+   routing rule names, each kernel launches twice with identical outputs,
+   and its time is that of one launch of 20 captured in a CUDA graph (the
+   library call's likewise; no host work between launches, which would
+   pace the small shapes), the routed wrapper's time beside it. Each case
    prints its max abs error; attention is held per
    output row (one token of one head) to min(2e-2, 2^-6 of the row's
    largest reference value), two bf16 ulps; a bf16 matmul output row to
@@ -70,7 +76,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    with decode and the packed ragged rounds run), 64 new tokens each. Every
    request must complete; every kernel of the plane must be launched in
    this phase (counts set to 0 just before it), the older paged body may
-   not be launched at all, and the Hopper prefill body of the plane's
+   not be launched at all (nor, on the quantized planes, K8's v2: every
+   matmul of at most 64 rows, decode steps and heads, goes to the decode
+   body), and the Hopper prefill body of the plane's
    cache must take every prefill chunk, one launch a layer; one served
    stream is then
    checked teacher-forced against the plain dense forward (same weights,
@@ -135,6 +143,9 @@ QMM_F32_TOL = 2.0 ** -22
 # weight shape — q and o, k and v, gate and up, down ([K, N])
 QMM_PREFILL_ROWS = (2048, 1084)
 QMM_PREFILL_WEIGHTS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+# the decode step's seven matmuls a layer at M=64, by their four shapes
+QMM_DECODE_WEIGHTS = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
+                      "down": (14336, 4096)}
 # K7's backward against its plain version on the same inputs: the kernel
 # rounds dS to bf16 (2^-9 relative) before its products, the plain version
 # keeps it in fp32, and both round each gradient to bf16 (an emulation of
@@ -157,7 +168,8 @@ REPO = Path(__file__).resolve().parent
 # prefill chunks (64-row blocks, page 128) to the Hopper prefill body of the
 # cache — bf16 (attention_bf16_sm90.cu) or int8 — and the older paged body
 # nothing; bf16 ragged rounds to K3; K8: the Hopper kernel serves prefill
-# (more than 64 rows), v2 decode; int8 attention: the Hopper int8 body also
+# (more than 64 rows), the decode body every call of at most 64 rows (decode
+# steps, heads), v2 nothing; int8 attention: the Hopper int8 body also
 # serves every ragged tile, and the older int8 ragged body nothing
 PLANES = {
     "bf16": dict(kernels=("paged_attention_sm90", "paged_attention_decode_sm90", "kv_append",
@@ -165,12 +177,13 @@ PLANES = {
                  quant="", group=0, kv_quant=""),
     "int8+kv8": dict(kernels=("paged_attention_q8_decode_sm90", "paged_attention_q8_sm90",
                               "kv_append_q8", "ragged_paged_attention_q8_sm90",
-                              "quant_matmul_int8_sm90", "quant_matmul_int8"),
-                     quant="int8", group=0, kv_quant="int8"),
+                              "quant_matmul_int8_sm90", "quant_matmul_int8_decode_sm90"),
+                     never=("quant_matmul_int8",), quant="int8", group=0, kv_quant="int8"),
     "int4g128+kv8": dict(kernels=("paged_attention_q8_decode_sm90", "paged_attention_q8_sm90",
                                   "kv_append_q8", "ragged_paged_attention_q8_sm90",
-                                  "quant_matmul_int4_sm90", "quant_matmul_int4"),
-                         quant="int4", group=128, kv_quant="int8"),
+                                  "quant_matmul_int4_sm90", "quant_matmul_int4_decode_sm90"),
+                         never=("quant_matmul_int4",), quant="int4", group=128,
+                         kv_quant="int8"),
 }
 
 
@@ -625,17 +638,21 @@ def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, gro
               out_f32: bool, results: list) -> None:
     """The fused dequant matmul against its plain version at one shape,
     through the wrapper (which must pick the kernel ``kernel_for`` names).
-    Where that is the Hopper kernel, v2 is also held and timed on the same
-    inputs, launched by its own name."""
+    Where that is a Hopper kernel, v2 is also held and timed on the same
+    inputs, launched by its own name. Each kernel launches twice with
+    identical outputs; the kernels' and the library call's times are those
+    of one launch of 20 in a CUDA graph (``graph_ms``), the routed
+    wrapper's (host work included) and the plain version's by CUDA events."""
     from finchat_tpu_torch.models.quant import dequantize, quantize, quantize_int4
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.quant_matmul import (
         kernel_for,
+        prepare,
         quant_matmul_int4,
         quant_matmul_int8,
         quant_matmul_ref,
-        run_kernel,
     )
+    from finchat_tpu_torch.tools.qmm_decode_diag import graph_ms
 
     w = torch.randn((K, N), generator=gen, device=dev, dtype=torch.bfloat16).mul_(K ** -0.5)
     qt = quantize_int4(w, group) if mode == "int4" else quantize(w)
@@ -658,37 +675,55 @@ def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, gro
         how = "per row 2^-7 * max|want row|"
     plain_ms = time_ms(torch, plain)
     if out_f32:
-        lib_ms = time_ms(torch, lambda: torch.mm(x, w_deq, out_dtype=torch.float32))
+        lib_ms = graph_ms(lambda: torch.mm(x, w_deq, out_dtype=torch.float32))
     else:
-        lib_ms = time_ms(torch, lambda: torch.matmul(x, w_deq))
+        lib_ms = graph_ms(lambda: torch.matmul(x, w_deq))
     moved = (x.numel() * 2 + qt.q.numel() + qt.scale.numel() * 4
              + M * N * (4 if out_f32 else 2))
     b_ms, b_by = bound_ms(moved, 2.0 * M * K * N)
     plane = "int4g128+kv8" if mode == "int4" else "int8+kv8"
-    kernels_here = [(routed, lambda: fn(x, qt.q, qt.scale, out_dtype=out_dtype))]
     v2 = f"quant_matmul_{mode}"
-    if routed != v2:
-        kernels_here.append((v2, lambda: run_kernel(v2, x, qt.q, qt.scale, out_dtype=out_dtype)))
-    for kname, kern in kernels_here:
-        before = dict(LAUNCHES)
-        got = kern()
-        torch.cuda.synchronize()
-        if {k for k in LAUNCHES if LAUNCHES[k] != before[k]} != {kname}:
-            fail(f"{name}: expected one launch of {kname}, launches moved: "
-                 f"{ {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} }")
+    for kname in (routed, v2) if routed != v2 else (routed,):
+        if kname == routed:  # the wrapper launches what kernel_for names
+            before = dict(LAUNCHES)
+            fn(x, qt.q, qt.scale, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            moved_by = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+            if set(moved_by) != {kname}:
+                fail(f"{name}: expected the wrapper to launch {kname}, launches moved: {moved_by}")
+        call = prepare(kname, x, qt.q, qt.scale, out_dtype=out_dtype)
+        outs = []
+        for _ in range(2):
+            before = dict(LAUNCHES)
+            outs.append(call.launch().clone())
+            torch.cuda.synchronize()
+            if {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} != \
+                    {kname: 1}:
+                fail(f"{name}: a launch of {kname} was not counted once")
+        got = outs[0]
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
         finite = bool(torch.isfinite(got.float()).all().item())
         worst = (diff / limit.clamp(min=1e-30)).max().item()
-        log(f"  {name} [{kname}]: max_abs_err {err:.3e}, worst error / limit {worst:.3f} ({how})")
-        if not (worst <= 1.0 and finite):
-            fail(f"{name}: {kname} disagrees with its plain version (error / limit {worst})")
-        del got, diff
-        ms = time_ms(torch, kern)
-        log(f"  {name} [{kname}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
-            f"(bf16 weight) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        results.append(dict(case=name, kernel=kname, plane=plane, err=err, rel_err=worst, ms=ms,
-                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        same = torch.equal(outs[0], outs[1])
+        log(f"  {name} [{kname}]: max_abs_err {err:.3e}, worst error / limit {worst:.3f} "
+            f"({how}), two launches identical: {same}")
+        if not (worst <= 1.0 and finite and same):
+            fail(f"{name}: {kname} disagrees with its plain version (error / limit {worst}) "
+                 f"or with itself (identical: {same})")
+        del got, diff, outs
+        ms = graph_ms(call.launch)
+        row = dict(case=name, kernel=kname, plane=plane, err=err, rel_err=worst, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        extra = ""
+        if kname == routed:
+            row["wrapper_ms"] = time_ms(torch, lambda: fn(x, qt.q, qt.scale, out_dtype=out_dtype))
+            extra = f" (the routed wrapper, host work included: {row['wrapper_ms']:.4f} ms)"
+        log(f"  {name} [{kname}]: kernel {ms:.4f} ms{extra}, plain {plain_ms:.4f} ms, "
+            f"torch.{'mm' if out_f32 else 'matmul'} (bf16 weight) {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), share {b_ms / ms:.2f}")
+        results.append(row)
+        del call
     del qt, w_deq, x, want, limit
     torch.cuda.empty_cache()
 
@@ -932,6 +967,9 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
     missing = [k for k in spec["kernels"] if launches[k] == 0]
     if missing:
         fail(f"serve {plane}: kernels not launched on the main path: {missing}")
+    stray = {k: launches[k] for k in spec.get("never", ()) if launches[k]}
+    if stray:
+        fail(f"serve {plane}: calls reached kernels the routing keeps off this path: {stray}")
     del engine.prefill_chunk
     older = "paged_attention_q8" if spec["kv_quant"] else "paged_attention"
     want_chunks = chunk_calls[0] * config.n_layers
@@ -985,6 +1023,8 @@ def _kernel_class(name: str) -> str:
         return "attention (ours)"
     if "kv_append" in n:
         return "kv_append (ours)"
+    if "quant_matmul_decode" in n:
+        return "quant_matmul decode sm90 (ours)"
     if "quant_matmul_sm90_kernel" in n:
         return "quant_matmul sm90 (ours)"
     if "quant_matmul_kernel" in n:
@@ -1324,6 +1364,7 @@ def main() -> None:
     build_s = kernels.build_all()
     log(f"  kernels built in {build_s:.1f} s from {kernels.CSRC}")
     log_resource_usage(kernels.library_path("quant_matmul_sm90.cu"), "quant_matmul_sm90_kernel")
+    log_resource_usage(kernels.library_path("quant_matmul_decode_sm90.cu"), "quant_matmul_decode")
     log_resource_usage(kernels.library_path("attention_q8_sm90.cu"), "attention_q8_sm90_kernel")
     log_resource_usage(kernels.library_path("attention_bf16_sm90.cu"),
                        "attention_bf16_sm90_kernel")
@@ -1356,10 +1397,13 @@ def main() -> None:
                 results, q8=True)
     check_append_q8(torch, gen, dev, results)
     check_ragged(torch, gen, dev, results, q8=True)
-    log("  fused dequant matmul (v2 at decode and for the fp32 head; the Hopper kernel at "
-        "prefill, v2 beside it on the same inputs):")
-    check_qmm(torch, "int8_m64_4096x14336", gen, dev, 64, 4096, 14336, "int8", 0, False, results)
+    log("  fused dequant matmul (the decode body at M <= 64, the Hopper kernel at prefill; v2 "
+        "beside each on the same inputs):")
+    for label, (K, N) in QMM_DECODE_WEIGHTS.items():
+        check_qmm(torch, f"int8_m64_{label}_{K}x{N}", gen, dev, 64, K, N, "int8", 0, False,
+                  results)
     check_qmm(torch, "int8_m64_head_fp32", gen, dev, 64, 4096, 128256, "int8", 0, True, results)
+    check_qmm(torch, "int8_m4_head_fp32", gen, dev, 4, 4096, 128256, "int8", 0, True, results)
     check_qmm(torch, "int4_g0_m64_4096x14336", gen, dev, 64, 4096, 14336, "int4", 0, False,
               results)
     check_qmm(torch, "int4_g128_m64_4096x14336", gen, dev, 64, 4096, 14336, "int4", 128, False,
@@ -1419,6 +1463,8 @@ def main() -> None:
         "quant_matmul_int8_sm90": ("quant_matmul_sm90.cu", qmm, "int8+kv8"),
         "quant_matmul_int4": ("quant_matmul.cu", qmm, "int4g128+kv8"),
         "quant_matmul_int4_sm90": ("quant_matmul_sm90.cu", qmm, "int4g128+kv8"),
+        "quant_matmul_int8_decode_sm90": ("quant_matmul_decode_sm90.cu", qmm, "int8+kv8"),
+        "quant_matmul_int4_decode_sm90": ("quant_matmul_decode_sm90.cu", qmm, "int4g128+kv8"),
         "flash_attention": ("flash_attention.cu", flash, "train"),
         "flash_attention_bwd": ("flash_attention.cu", flash, "train"),
     }

@@ -27,9 +27,12 @@
 // leaves the signed value — two byte permutes and an add in place of the
 // slow int-to-float unit. Edges in M, N and K are masked in the kernel
 // (zeros in, nothing out); rows and columns that are not 16-byte aligned
-// load element by element. At M = 64 a [4096, N] weight gives only N/128
-// blocks (32 for N = 4096 on 132 SMs): split-K would fill the card and is
-// left for later.
+// load element by element. It serves the calls the Hopper kernels do not
+// take (ops/quant_matmul.kernel_for): rows or weights that are not 16-byte
+// multiples or not aligned, int4 groups of fewer than 8 rows, and more than
+// 64 rows with fp32 output; quant_matmul_decode_sm90.cu splits K for the
+// aligned calls of at most 64 rows, where this grid of N/128 blocks leaves
+// most of the card idle.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

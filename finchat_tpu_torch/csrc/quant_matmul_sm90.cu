@@ -3,9 +3,10 @@
 //
 // Replaces the TPU kernel finchat_tpu/ops/quant_matmul.py _quant_matmul_2d
 // (_qmm_kernel, via quant_matmul_int8 and quant_matmul_int4) for calls of
-// more than 64 rows with bf16 output; quant_matmul.cu ("v2") serves the
-// other calls (decode at M <= 64, the fp32-logit head, shapes TMA cannot
-// take). It computes what v2 computes: x bf16 [M, K] times a weight stored
+// more than 64 rows with bf16 output; quant_matmul_decode_sm90.cu serves
+// the calls of at most 64 rows (decode, the fp32-logit head) and
+// quant_matmul.cu ("v2") the rest (shapes TMA cannot take, more rows with
+// fp32 output). It computes what v2 computes: x bf16 [M, K] times a weight stored
 // as int8 [K, N] with per-column fp32 scales [N], or as int4 nibbles
 // [K/2, N] (byte i holds row 2i in its low nibble and row 2i+1 in its high
 // nibble, signed) with per-group scales [G, N], group g = K / G. The weight

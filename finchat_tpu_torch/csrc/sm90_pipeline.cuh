@@ -1,9 +1,10 @@
 // Pipeline helpers shared by the Hopper kernels (quant_matmul_sm90.cu,
-// attention_q8_sm90.cu, attention_bf16_sm90.cu, attention_decode_sm90.cu):
-// mbarrier waits that trap instead of hanging, the cp.async copies that
-// complete on an mbarrier, TMA tile loads and the host encoding of their
-// tensor maps, the wgmma shared-memory descriptor and fences, and the byte
-// permute that turns a stored int8 (or int4) value into an exact float.
+// quant_matmul_decode_sm90.cu, attention_q8_sm90.cu, attention_bf16_sm90.cu,
+// attention_decode_sm90.cu): mbarrier waits that trap instead of hanging,
+// the cp.async copies that complete on an mbarrier, TMA tile loads and the
+// host encoding of their tensor maps, the wgmma shared-memory descriptor and
+// fences, and the byte permute that turns a stored int8 (or int4) value into
+// an exact float.
 #pragma once
 
 #include <cuda.h>

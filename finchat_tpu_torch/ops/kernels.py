@@ -12,10 +12,10 @@ time: the CPU tests import every module of the package.
 
 ``LAUNCHES`` counts kernel launches per kernel. A wrapper adds one where it
 launches its kernel and nowhere else (one C entry point is one launch, even
-where it runs a few kernels in a row, as K7's backward and the split decode
-do), so a run can show that the main path went through the kernels
-(``chip_smoke.py`` resets the counts before it drives the path and reads
-them after).
+where it runs a few kernels in a row, as K7's backward, the split decode
+attention and the split decode matmul do), so a run can show that the main
+path went through the kernels (``chip_smoke.py`` resets the counts before it
+drives the path and reads them after).
 """
 
 from __future__ import annotations
@@ -128,6 +128,18 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # x, q, scale, out; M, K, N, G
         [_P] * 4 + [_I] * 4 + [_P],  # stream
     ),
+    # the decode body (at most 64 rows, bf16 or fp32 out): the split plan
+    # of ops/quant_matmul.decode_split, its fp32 partials in ws
+    "quant_matmul_int8_decode_sm90": (
+        "quant_matmul_decode_sm90.cu", "quant_matmul_int8_decode_sm90",
+        # x, q, scale, out, ws; M, K, N, out_f32, splits, k_split
+        [_P] * 5 + [_I] * 6 + [_P],  # stream
+    ),
+    "quant_matmul_int4_decode_sm90": (
+        "quant_matmul_decode_sm90.cu", "quant_matmul_int4_decode_sm90",
+        # x, q, scale, out, ws; M, K, N, G, out_f32, splits, k_split
+        [_P] * 5 + [_I] * 7 + [_P],  # stream
+    ),
     "flash_attention": (
         "flash_attention.cu", "flash_attention_fwd_bf16",
         # q, k, v, out, lse, q_offset, kv_len; B, Sq, Sk, H, HKV, D, causal
@@ -231,7 +243,8 @@ def launch(name: str, *args) -> None:
 @dataclass(frozen=True)
 class Prepared:
     """One checked launch of kernel ``name``: its C arguments, its output
-    and every tensor the arguments point into (kept alive here).
+    and every tensor the arguments point into (kept alive here), among them
+    ``scratch``, the workspace it writes before ``out`` where it has one.
     ``launch()`` runs it on the current stream and returns ``out``; a
     caller that launches it again reuses the same buffers."""
 
@@ -239,6 +252,7 @@ class Prepared:
     args: tuple
     out: torch.Tensor
     keep: tuple
+    scratch: torch.Tensor | None = None
 
     def launch(self) -> torch.Tensor:
         launch(self.name, *self.args)

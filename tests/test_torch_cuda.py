@@ -17,12 +17,16 @@ tiles, one or two a block, over a cache whose trash page and stale rows
 are NaN; Llama-3-8B's 4 x 512 chunk at q_offset 0, 1024 and 2048; two
 launches bit-identical; the older body by name beside it), ragged rows with padding and a ``kv_gap`` row,
 and the KV append — each over a bf16 cache and over an int8 cache with its
-scale planes — and the fused dequant matmul's two kernels: v2 (int8, int4
-per column and per group of 128, bf16 and fp32 output, 64- and 128-row
-blocks, ragged M, N and unaligned rows) and the Hopper kernel (TMA +
+scale planes — and the fused dequant matmul's three kernels: v2 by name
+(int8, int4 per column and per group of 128, bf16 and fp32 output, 64- and
+128-row blocks, ragged M, N and unaligned rows), the Hopper kernel (TMA +
 ``wgmma``: ragged M, N off the 128-column tile, K off the 64-row tile,
-128- and 256-row tiles, int4 per column and per group of 128), with the
-routing rule between them — and contiguous flash attention (K7), forward and
+128- and 256-row tiles, int4 per column and per group of 128) and the
+decode body (``-k qmm_decode``: split K over a TMA ring, M of 1 to 64,
+llama3-8b's layer shapes at M=64, a head-like fp32 N, int4 groups of 8 to
+128 and a split ending inside a K tile; each case launched twice over a
+workspace and output filled with NaN, bit-identical), with the routing
+rule among them — and contiguous flash attention (K7), forward and
 backward (causal and not, ``q_offset``/``kv_len`` with an empty sequence,
 GQA groups of 4 and 8, lengths off the 64-row tile).
 
@@ -93,7 +97,10 @@ from finchat_tpu_torch.ops.paged_attention import (  # noqa: E402
     sm_count,
     tile_tokens,
 )
+from finchat_tpu_torch.ops.quant_matmul import decode_split as qmm_decode_split  # noqa: E402
 from finchat_tpu_torch.ops.quant_matmul import (  # noqa: E402
+    kernel_for,
+    prepare,
     quant_matmul_int4,
     quant_matmul_int8,
     quant_matmul_ref,
@@ -690,8 +697,8 @@ def test_quant_matmul_kernel_matches_plain(dev, case):
     out_dtype = torch.float32 if f32 else None
     name = f"quant_matmul_{mode}"
     before = LAUNCHES[name]
-    fn = quant_matmul_int4 if mode == "int4" else quant_matmul_int8
-    got = fn(x, qt.q, qt.scale, out_dtype=out_dtype)
+    # v2 by name: the aligned cases of at most 64 rows route to the decode body
+    got = run_kernel(name, x, qt.q, qt.scale, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert LAUNCHES[name] == before + 1
     want = quant_matmul_ref(x, qt, out_dtype=out_dtype)
@@ -752,28 +759,110 @@ def test_quant_matmul_sm90_kernel_matches_plain(dev, case):
     assert bool((diff <= limit).all()), (diff / limit.clamp(min=1e-30)).max().item()
 
 
-# (M, N, fp32 out, Hopper kernel?): decode rows, the fp32 head and weight
-# rows that are not 16-byte multiples stay on v2; 65 rows do not
-QMM_ROUTES = [(64, 256, False, False), (130, 256, True, False), (130, 260, False, False),
-              (65, 256, False, True)]
+# (name, M, K, N, mode, group, fp32 out): calls the decode body serves —
+# llama3-8b's four layer shapes at M=64 (k/v [4096, 1024] in 32 splits, q/o
+# in 8, gate/up in 2, down [14336, 4096] in 8 on 132 SMs), M of 1, 5, 8, 16
+# and 33 (x's tile of 8, 16, 32 and 64 rows, rows past M zero), N off the
+# 128-column block (1040), K of 4 tiles, a head-like fp32 N of 32,768 at
+# M=64 and at the prefill chunk's M=4, fp32 out through the split sum, int4
+# per column and per group of 128, 32 and 8 (two groups in a 16-k step),
+# and int4 g32 at K = 1,056: the last split ends on a group boundary inside
+# its K tile
+QMM_DECODE = [
+    ("int8_m64_kv", 64, 4096, 1024, "int8", 0, False),
+    ("int8_m64_qo", 64, 4096, 4096, "int8", 0, False),
+    ("int8_m64_gate_up", 64, 4096, 14336, "int8", 0, False),
+    ("int8_m64_down", 64, 14336, 4096, "int8", 0, False),
+    ("int8_m1_kv", 1, 4096, 1024, "int8", 0, False),
+    ("int8_m5_k256_n1040", 5, 256, 1040, "int8", 0, False),
+    ("int8_m8_k14336_n1040", 8, 14336, 1040, "int8", 0, False),
+    ("int8_m16_k256_n14336", 16, 256, 14336, "int8", 0, False),
+    ("int8_m33_n1040", 33, 4096, 1040, "int8", 0, False),
+    ("int8_m64_head_fp32", 64, 4096, 32768, "int8", 0, True),
+    ("int8_m4_head_fp32", 4, 4096, 32768, "int8", 0, True),
+    ("int8_m33_k14336_n1024_fp32", 33, 14336, 1024, "int8", 0, True),
+    ("int4_g0_m64_gate_up", 64, 4096, 14336, "int4", 0, False),
+    ("int4_g0_m5_k256_n1040", 5, 256, 1040, "int4", 0, False),
+    ("int4_g128_m64_gate_up", 64, 4096, 14336, "int4", 128, False),
+    ("int4_g128_m64_down", 64, 14336, 4096, "int4", 128, False),
+    ("int4_g128_m1_kv", 1, 4096, 1024, "int4", 128, False),
+    ("int4_g128_m16_head_fp32", 16, 4096, 32768, "int4", 128, True),
+    ("int4_g32_m33_qo", 33, 4096, 4096, "int4", 32, False),
+    ("int4_g32_m8_k1056_n1040", 8, 1056, 1040, "int4", 32, False),
+    ("int4_g32_m64_k1056_n1024", 64, 1056, 1024, "int4", 32, False),
+    ("int4_g8_m64_k256_n1024", 64, 256, 1024, "int4", 8, False),
+    ("int4_g8_m5_n1040_fp32", 5, 4096, 1040, "int4", 8, True),
+]
+
+
+@pytest.mark.parametrize("case", QMM_DECODE, ids=[c[0] for c in QMM_DECODE])
+def test_qmm_decode_sm90_matches_plain(dev, case):
+    _name, M, K, N, mode, group, f32 = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    qt = quantize_int4(w, group) if mode == "int4" else quantize(w)
+    del w
+    x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+    out_dtype = torch.float32 if f32 else None
+    name = f"quant_matmul_{mode}_decode_sm90"
+    assert kernel_for(mode, M, K, N, group or K, f32) == name
+    call = prepare(name, x, qt.q, qt.scale, out_dtype=out_dtype)
+    splits, _k_split = qmm_decode_split(K, N, group or K, sm_count(dev))
+    assert (call.scratch is None) == (splits == 1)
+    outs = []
+    for _ in range(2):
+        # a split never written, or never summed, shows as NaN
+        call.out.fill_(float("nan"))
+        if call.scratch is not None:
+            call.scratch.fill_(float("nan"))
+        before = dict(LAUNCHES)
+        outs.append(call.launch().clone())
+        torch.cuda.synchronize()
+        assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]} == \
+            {name: 1}
+    # one accumulation order: a stale or half-summed split shows as a change
+    assert torch.equal(outs[0], outs[1])
+    before = LAUNCHES[name]
+    routed = (quant_matmul_int4 if mode == "int4" else quant_matmul_int8)(
+        x, qt.q, qt.scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1 and torch.equal(routed, outs[0])
+    got = outs[0]
+    want = quant_matmul_ref(x, qt, out_dtype=out_dtype)
+    assert got.dtype == want.dtype and got.shape == (M, N)
+    diff = (got.float() - want.float()).abs()
+    if f32:
+        limit = K * 2.0 ** -22 * (x.float().abs() @ dequantize(qt, torch.bfloat16).float().abs())
+    else:
+        limit = 2.0 ** -7 * want.float().abs().amax(-1, keepdim=True)
+    assert bool((diff <= limit).all()), (diff / limit.clamp(min=1e-30)).max().item()
+
+
+# (M, N, fp32 out, kernel): at most 64 rows go to the decode body, bf16 or
+# fp32 out; 65 rows to the Hopper kernel with bf16 out, to v2 with fp32 out;
+# weight rows that are not 16-byte multiples to v2 at any row count
+QMM_ROUTES = [(64, 256, False, "_decode_sm90"), (130, 256, True, ""), (130, 260, False, ""),
+              (65, 256, False, "_sm90"), (64, 256, True, "_decode_sm90"), (64, 260, False, "")]
+_QMM_INT8 = ("quant_matmul_int8", "quant_matmul_int8_sm90", "quant_matmul_int8_decode_sm90")
 
 
 @pytest.mark.parametrize("case", QMM_ROUTES, ids=[f"M{c[0]}_N{c[1]}_f32{int(c[2])}"
                                                   for c in QMM_ROUTES])
 def test_quant_matmul_routes_between_the_two_kernels(dev, case):
-    M, N, f32, hopper = case
+    M, N, f32, kind = case
     K = 256
     g = torch.Generator(device=dev)
     g.manual_seed(9)
     qt = quantize(torch.randn((K, N), generator=g, device=dev) * K ** -0.5)
     x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
-    before = {k: LAUNCHES[k] for k in ("quant_matmul_int8", "quant_matmul_int8_sm90")}
+    before = {k: LAUNCHES[k] for k in _QMM_INT8}
     out_dtype = torch.float32 if f32 else None
     got = quant_matmul_int8(x, qt.q, qt.scale, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    moved = "quant_matmul_int8_sm90" if hopper else "quant_matmul_int8"
-    stayed = "quant_matmul_int8" if hopper else "quant_matmul_int8_sm90"
-    assert LAUNCHES[moved] == before[moved] + 1 and LAUNCHES[stayed] == before[stayed]
+    moved = f"quant_matmul_int8{kind}"
+    assert {k: LAUNCHES[k] - before[k] for k in _QMM_INT8} == \
+        {k: int(k == moved) for k in _QMM_INT8}
     want = quant_matmul_ref(x, qt, out_dtype=out_dtype)
     limit = (K * 2.0 ** -22 * (x.float().abs() @ dequantize(qt, torch.bfloat16).float().abs())
              if f32 else 2.0 ** -7 * want.float().abs().amax(-1, keepdim=True))
@@ -792,6 +881,12 @@ def test_quantized_wrappers_refuse_what_they_do_not_take(dev):
         quant_matmul_int4(x, qt.q.float(), qt.scale[None])
     with pytest.raises(ValueError, match="bf16 output"):
         run_kernel("quant_matmul_int8_sm90", x, qt.q, qt.scale, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="1 to 64 rows"):
+        run_kernel("quant_matmul_int8_decode_sm90", torch.zeros((65, 128), dtype=torch.bfloat16,
+                                                                device=dev), qt.q, qt.scale)
+    with pytest.raises(ValueError, match="N % 16 == 0"):
+        qt_260 = quantize(torch.randn((128, 260), device=dev))
+        run_kernel("quant_matmul_int8_decode_sm90", x, qt_260.q, qt_260.scale)
     kp, vp, ks, vs, _g = _q8_cache(dev, 2, 16, 4, seed=9)
     i32 = dict(dtype=torch.int32, device=dev)
     q = torch.zeros((1, 1, 4, D), dtype=torch.bfloat16, device=dev)
