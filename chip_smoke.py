@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``sm_90a`` (build seconds printed), and the registers, stack and spills
    of the Hopper kernels (``cuobjdump -res-usage``), the bf16 prefill body
    (``attention_bf16_sm90.cu``) and the fused dequant matmul's decode body
-   (``quant_matmul_decode_sm90.cu``) among them.
+   (``quant_matmul_decode_sm90.cu``) among them; a Hopper attention kernel
+   that spills (stack or local memory) fails the run.
 2. Kernels against their plain PyTorch versions on the card, at the serving
    shapes of Llama-3-8B (32 query heads, 8 KV heads, head_dim 128,
    page_size 128, 64 pages per sequence), over a bf16 cache and over an
@@ -21,11 +22,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    2048), the
    decode KV append (B=64 with invalid lanes; the int8 one quantizes), and
    ragged attention (two 512-token prefill rows, 60 decode rows, padding to
-   a 2048 bucket). Decode goes to the Hopper decode body
+   a 2048 bucket; over the bf16 cache also a round shaped like the serve's,
+   three 512-token rows at q_offset 1024, 2048 and 4096 beside 4 decode rows
+   at 5,236 tokens). Decode goes to the Hopper decode body
    (``attention_decode_sm90.cu``) over both caches; the prefill chunks go to
    the Hopper prefill body of their cache (``attention_bf16_sm90.cu``,
-   ``attention_q8_sm90.cu``), and over the int8 cache the ragged round to
-   the Hopper int8 body; wherever the routing picks a Hopper body, the
+   ``attention_q8_sm90.cu``); over the int8 cache the ragged round to the
+   Hopper int8 body, over the bf16 cache to a pair of launches — the
+   prefill tiles through the bf16 prefill body's ragged entry, the one-token
+   rows through the decode body's — each entry held on its own rows and its
+   launch timed alone against its own bound, plain version and SDPA calls,
+   and the pair timed together; wherever the routing picks a Hopper body, the
    older body is held and timed beside it on the same inputs; every
    attention launch runs twice and must give identical outputs. Then the fused
    dequant matmul: the decode body (``quant_matmul_decode_sm90.cu``) at the
@@ -76,15 +83,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    with decode and the packed ragged rounds run), 64 new tokens each. Every
    request must complete; every kernel of the plane must be launched in
    this phase (counts set to 0 just before it), the older paged body may
-   not be launched at all (nor, on the quantized planes, K8's v2: every
+   not be launched at all (nor K3 on the bf16 plane, nor, on the quantized
+   planes, K8's v2: every
    matmul of at most 64 rows, decode steps and heads, goes to the decode
    body), and the Hopper prefill body of the plane's
    cache must take every prefill chunk, one launch a layer; one served
    stream is then
    checked teacher-forced against the plain dense forward (same weights,
-   plain attention). Last, one decode step and one prefill chunk at the
-   served context length are timed and profiled (device time by kernel
-   class, and the device's idle share of the profiled window).
+   plain attention). Last, one decode step, one prefill chunk and one
+   serve-shaped ragged round at the served context length are timed and
+   profiled (device time by kernel class, and the device's idle share of
+   the profiled window).
 4. Serve the quantized plane the same way: int8 weights made by
    ``init_quantized_params`` (the bf16 tree never exists) and an int8 KV
    pool, same 8 requests and two waves. The teacher-forced check runs the
@@ -117,6 +126,7 @@ import asyncio
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -167,14 +177,16 @@ REPO = Path(__file__).resolve().parent
 # decode (C = 1 at page 128) goes to the Hopper decode body on every plane;
 # prefill chunks (64-row blocks, page 128) to the Hopper prefill body of the
 # cache — bf16 (attention_bf16_sm90.cu) or int8 — and the older paged body
-# nothing; bf16 ragged rounds to K3; K8: the Hopper kernel serves prefill
+# nothing; bf16 ragged rounds to the pair of Hopper ragged entries (the
+# prefill tiles through the bf16 prefill body's, the one-token rows through
+# the decode body's) and K3 nothing; K8: the Hopper kernel serves prefill
 # (more than 64 rows), the decode body every call of at most 64 rows (decode
 # steps, heads), v2 nothing; int8 attention: the Hopper int8 body also
 # serves every ragged tile, and the older int8 ragged body nothing
 PLANES = {
     "bf16": dict(kernels=("paged_attention_sm90", "paged_attention_decode_sm90", "kv_append",
-                          "ragged_paged_attention"),
-                 quant="", group=0, kv_quant=""),
+                          "ragged_paged_attention_sm90", "ragged_paged_attention_decode_sm90"),
+                 never=("ragged_paged_attention",), quant="", group=0, kv_quant=""),
     "int8+kv8": dict(kernels=("paged_attention_q8_decode_sm90", "paged_attention_q8_sm90",
                               "kv_append_q8", "ragged_paged_attention_q8_sm90",
                               "quant_matmul_int8_sm90", "quant_matmul_int8_decode_sm90"),
@@ -196,19 +208,23 @@ def fail(msg: str, code: int = 1) -> None:
     sys.exit(code)
 
 
-def log_resource_usage(lib: Path, kernel: str) -> None:
+def log_resource_usage(lib: Path, kernel: str) -> bool:
     """Registers, stack (spills) and static shared memory of each
     instantiation of ``kernel`` in a built library, as ``cuobjdump
-    -res-usage`` reports them."""
+    -res-usage`` reports them. Returns whether one has a stack or local
+    memory (a spill)."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     if not tool.exists():
         log(f"  {kernel}: resource usage not measured (no cuobjdump)")
-        return
+        return False
     out = subprocess.run([str(tool), "-res-usage", str(lib)], capture_output=True, text=True,
                          timeout=60).stdout.splitlines()
+    spills = False
     for name, usage in zip(out, out[1:]):
         if kernel in name and "Function" in name:
             log(f"  {name.strip()[:100]}: {usage.strip()}")
+            spills |= any(int(n) > 0 for n in re.findall(r"(?:STACK|LOCAL):(\d+)", usage))
+    return spills
 
 
 def _events_ms(torch, fn, reps: int) -> float:
@@ -247,6 +263,10 @@ def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 H, HKV, D, PS, MP = 32, 8, 128, 128, 64  # llama3-8b heads, page_size, pages/seq
 SERVE_CONTEXT = 5236  # the serves' longest prompt: the decode step's context in profile_steps
+# a ragged round shaped like the serve's: three 512-token chunks at q_offset
+# 1024, 2048 and 4096 beside 4 decode rows at SERVE_CONTEXT, in the 2048
+# bucket of the 64-row round ((tokens, first position) per row)
+SERVE_ROUND = [(512, 1024), (512, 2048), (512, 4096)] + [(1, SERVE_CONTEXT - 1)] * 4
 
 
 def _cache(torch, gen, dev, n_layers: int, n_pages: int, q8: bool = False):
@@ -359,7 +379,7 @@ def check_attention_calls(torch, name: str, calls, want, live, results: list,
                  f"zeros {zeros_ok}, finite {finite}, identical {same})")
         del got, again
         ms = time_ms(torch, call.launch)
-        routed = dict(wrapper_ms=wrapper_ms) if n == 0 else {}
+        routed = dict(wrapper_ms=wrapper_ms) if n == 0 and wrapper_ms is not None else {}
         log(f"  {name} [{call.name}]: kernel {ms:.4f} ms, plain {extra['plain_ms']:.4f} ms, "
             f"sdpa {extra['library_ms']:.4f} ms, bound {extra['bound_ms']:.4f} ms "
             f"({extra['bound_by']})" + (f"; the routed wrapper, its host work included, "
@@ -545,8 +565,53 @@ def check_append_q8(torch, gen, dev, results: list) -> None:
     torch.cuda.empty_cache()
 
 
-def check_ragged(torch, gen, dev, results: list, q8: bool = False) -> None:
-    from finchat_tpu_torch.ops.kernels import LAUNCHES
+def _ragged_sdpa_calls(torch, q, k_rows, v_rows, kv, spans, rows):
+    """scaled_dot_product_attention's calls on the same work as ``rows`` of
+    a ragged round (each 512 tokens long, or one token): the prefill rows as
+    one call (B rows, Sq=512), the decode rows as another (Sq=1), each over
+    its rows' KV padded to the longest of them and masked. Token offsets
+    follow the packing (rows in order from token 0)."""
+    starts = [sum(q_len for q_len, _p in spans[:r]) for r in range(len(spans))]
+    pre = [r for r in rows if spans[r][0] > 1]
+    dec = [r for r in rows if spans[r][0] == 1]
+    dev = q.device
+    calls = []
+    if pre:
+        s_pre = max(int(kv[r]) for r in pre)
+        q_pre = torch.stack([q[starts[r]:starts[r] + 512] for r in pre]).transpose(1, 2)
+        qpos = torch.tensor([[spans[r][1] + i for i in range(512)] for r in pre], device=dev)
+        pos = torch.arange(s_pre, device=dev)
+        idx = torch.tensor(pre, device=dev)
+        mask = (pos[None, None, :] <= qpos[:, :, None]) & (pos[None, None, :] < kv[idx, None, None])
+        calls.append((q_pre.contiguous(), k_rows[idx, :, :s_pre].contiguous(),
+                      v_rows[idx, :, :s_pre].contiguous(), mask[:, None]))
+    if dec:
+        s_dec = max(int(kv[r]) for r in dec)
+        idx = torch.tensor(dec, device=dev)
+        q_dec = q[torch.tensor([starts[r] for r in dec], device=dev), :, None, :]
+        mask = torch.arange(s_dec, device=dev)[None, None, None, :] < kv[idx, None, None, None]
+        calls.append((q_dec.contiguous(), k_rows[idx, :, :s_dec].contiguous(),
+                      v_rows[idx, :, :s_dec].contiguous(), mask))
+    return calls
+
+
+def _ragged_work(spans, kv_lens, rows, q8: bool, io: float):
+    """(bound ms, bound by) of the work of ``rows`` of a round: their KV read
+    once and ``io`` bytes of queries, outputs and descriptors; their
+    tokens' causal FLOPs."""
+    flops = _attention_flops([(p0 + i, kv_lens[r]) for r in rows
+                              for q_len, p0 in [spans[r]] for i in range(q_len)])
+    return bound_ms(_kv_bytes(sum(kv_lens[r] for r in rows), q8) + io, flops)
+
+
+def check_ragged(torch, gen, dev, results: list, name: str, spans, T: int, R: int = 64,
+                 q8: bool = False) -> None:
+    """A ragged round (``spans``: (tokens, first position) per row, rows
+    padded with empty ones to ``R``, tokens to ``T``) through the routed
+    launches against the plain version; over the bf16 cache the pair of
+    Hopper entries, each held on its own rows and timed alone, with the
+    older body (K3) by name beside them on the same inputs."""
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, PreparedSeq
     from finchat_tpu_torch.ops.ragged_paged_attention import (
         prepare_ragged,
         ragged_flash_attention,
@@ -554,14 +619,10 @@ def check_ragged(torch, gen, dev, results: list, q8: bool = False) -> None:
         ragged_paged_attention_ref,
     )
 
-    name = "ragged_q8" if q8 else "ragged"
     kind = "ragged_paged_attention_q8" if q8 else "ragged_paged_attention"
-    R, T, layer = 64, 2048, 1
-    # rows 0-1: 512-token prefill chunks at q_offset 0 and 1024; rows 2-61:
-    # decode rows over 1-4k contexts; rows 62-63: empty (padding rows)
-    dec = [int(x) for x in torch.randint(1, 4096, (60,), generator=gen, device=dev)]
-    spans = [(512, 0), (512, 1024)] + [(1, n - 1) for n in dec] + [(0, 0), (0, 0)]
-    kv_lens = [q + p for q, p in spans[:62]] + [0, 0]
+    layer = 1
+    spans = list(spans) + [(0, 0)] * (R - len(spans))
+    kv_lens = [q_len + p0 for q_len, p0 in spans]
     n_pages = 2 + sum(max(1, -(-n // PS)) for n in kv_lens)
     k_pages, v_pages, k_scales, v_scales = cache = _cache(torch, gen, dev, 2, n_pages, q8)
     pt = _page_table(torch, gen, dev, kv_lens, n_pages)
@@ -585,53 +646,106 @@ def check_ragged(torch, gen, dev, results: list, q8: bool = False) -> None:
                                              tp, kv, layer, **kw)
         return ragged_flash_attention(q, k_pages, v_pages, pt, tr, tp, kv, layer, **kw)
 
-    def plain():
-        return ragged_paged_attention_ref(q, k_pages, v_pages, pt, tr, tp, kv, layer,
+    def plain(idx=None):
+        """The plain version on every token, or on the tokens ``idx``."""
+        qq, rr, pp = (q, tr, tp) if idx is None else (q[idx], tr[idx], tp[idx])
+        return ragged_paged_attention_ref(qq, k_pages, v_pages, pt, rr, pp, kv, layer,
                                           k_scales=k_scales, v_scales=v_scales, **kw)
 
     args = (q, k_pages, v_pages, pt, tr, tp, kv, layer)
     routed = prepare_ragged(kind, *args, **kw, **scales)
-    calls = [routed]
-    if routed.name != kind:  # the older body on the same inputs, launched by name
-        calls.append(prepare_ragged(kind, *args, **kw, **scales, route=False))
-    before = LAUNCHES[routed.name]
+    before = dict(LAUNCHES)
     wrapper()
     torch.cuda.synchronize()
-    if LAUNCHES[routed.name] != before + 1:
-        fail(f"{name}: the wrapper did not launch {routed.name}, the kernel its rule names")
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    if moved != {p.name: 1 for p in routed.parts}:
+        fail(f"{name}: the wrapper launched {moved}, not the kernels its rule names "
+             f"({routed.name})")
     want = plain()
-    # yardstick on the same work: the two prefill rows as one call (B=2,
-    # Sq=512), the 60 decode rows as another (B=60, Sq=1), each over its
-    # rows' KV padded to the longest of them and masked
     S = max(kv_lens)
     k_rows, v_rows = _gather_dense(torch, cache, pt, layer, S)
-    pre, dec_r = slice(0, 2), slice(2, 62)
-    s_pre, s_dec = max(kv_lens[pre]), max(kv_lens[dec_r])
-    q_pre = q[:1024].reshape(2, 512, H, D).transpose(1, 2).contiguous()
-    qpos_pre = torch.tensor([[p0 + i for i in range(512)] for _q, p0 in spans[pre]], device=dev)
-    pos = torch.arange(S, device=dev)
-    m_pre = ((pos[None, None, :s_pre] <= qpos_pre[:, :, None])
-             & (pos[None, None, :s_pre] < kv[pre, None, None]))
-    q_dec = q[1024:1084, :, None, :]  # [60, H, 1, D]
-    m_dec = pos[None, None, None, :s_dec] < kv[dec_r, None, None, None]
-    lib_ms = _sdpa_ms(torch, [
-        (q_pre, k_rows[pre, :, :s_pre].contiguous(), v_rows[pre, :, :s_pre].contiguous(),
-         m_pre[:, None]),
-        (q_dec.contiguous(), k_rows[dec_r, :, :s_dec].contiguous(),
-         v_rows[dec_r, :, :s_dec].contiguous(), m_dec),
-    ])
-    del k_rows, v_rows
-    io_bytes = q.numel() * 2 * 2 + pt.numel() * 4 + T * 8 + R * 4
-    flops = _attention_flops([(p0 + i, kl) for (q_len, p0), kl in zip(spans, kv_lens)
-                              for i in range(q_len)])
-    b_ms, b_by = bound_ms(_kv_bytes(sum(kv_lens), q8) + io_bytes, flops)
-    extra = dict(plain_ms=time_ms(torch, plain, iters=3 if q8 else 5, warmup=1), bound_ms=b_ms,
-                 bound_by=b_by, library_ms=lib_ms)
+    live_rows = [r for r in range(R) if spans[r][0] > 0]
+    lib_ms = _sdpa_ms(torch, _ragged_sdpa_calls(torch, q, k_rows, v_rows, kv, spans, live_rows))
+    # q read and out written for every token of the bucket, the page table,
+    # tok_row and tok_pos, kv_len
+    io = q.numel() * 2 * 2 + pt.numel() * 4 + T * 8 + R * 4
+    b_ms, b_by = _ragged_work(spans, kv_lens, live_rows, q8, io)
+    plain_ms = time_ms(torch, plain, iters=3, warmup=1)
+    extra = dict(plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     live = torch.arange(T, device=dev) < n_real
-    check_attention_calls(torch, name, calls, want, live, results, extra,
-                          time_ms(torch, wrapper))
-    del k_pages, v_pages, k_scales, v_scales, cache, calls, routed
+    wrapper_ms = time_ms(torch, wrapper)
+    if isinstance(routed, PreparedSeq):
+        check_ragged_pair(torch, name, routed, want, live, tr, spans, kv_lens, R, n_real, T,
+                          (q, k_rows, v_rows, kv), plain, results, wrapper_ms, extra)
+        calls = [prepare_ragged(kind, *args, **kw, **scales, route=False)]
+        check_attention_calls(torch, name, calls, want, live, results, extra, None)
+    else:
+        calls = [routed]
+        if routed.name != kind:  # the older body on the same inputs, launched by name
+            calls.append(prepare_ragged(kind, *args, **kw, **scales, route=False))
+        check_attention_calls(torch, name, calls, want, live, results, extra, wrapper_ms)
+    del k_rows, v_rows, k_pages, v_pages, k_scales, v_scales, cache, calls, routed
     torch.cuda.empty_cache()
+
+
+def check_ragged_pair(torch, name, pair, want, live, tr, spans, kv_lens, R: int, n_real: int,
+                      T: int, dense, plain, results: list, wrapper_ms: float,
+                      whole: dict) -> None:
+    """A bf16 round's pair of launches (the prefill tiles, then the
+    one-token rows, into one output): launched twice, identical; the
+    round's live rows held against the plain version, padding zero; then
+    each entry on the rows it writes — its error, its launch alone timed,
+    its own bound, the plain version and SDPA on its rows — and the pair's
+    time together."""
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+
+    q, k_rows, v_rows, kv = dense
+    before = dict(LAUNCHES)
+    got = pair.launch().clone()
+    again = pair.launch()
+    torch.cuda.synchronize()
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    if moved != {p.name: 2 for p in pair.parts}:
+        fail(f"{name}: expected two launches of each of {pair.name}, launches moved: {moved}")
+    same = bool(torch.equal(got, again))
+    err, rel, close = attention_errors(torch, got[live], want[live])
+    zeros_ok = bool((got[~live] == 0).all().item())
+    finite = bool(torch.isfinite(got.float()).all().item())
+    log(f"  {name} [{pair.name}]: max_abs_err {err:.3e}, row-relative {rel:.3e} (limit per "
+        f"row: min({ATOL}, {REL_TOL} * max|want|)), padding zero: {zeros_ok}, two launches "
+        f"identical: {same}")
+    if not (close and zeros_ok and finite and same):
+        fail(f"{name}: {pair.name} disagrees with its plain version (row-relative {rel}, "
+             f"zeros {zeros_ok}, finite {finite}, identical {same})")
+    pair_ms = time_ms(torch, pair.launch)
+    log(f"  {name} [{pair.name}]: the pair {pair_ms:.4f} ms (K3's bound {whole['bound_ms']:.4f} "
+        f"ms, {whole['bound_by']}; sdpa {whole['library_ms']:.4f} ms); the routed wrapper, its "
+        f"host work included, {wrapper_ms:.4f} ms")
+    one = torch.tensor([q_len == 1 for q_len, _p in spans] + [False], device=got.device)
+    dec_tok = one[tr.long().clamp(max=R)] & (tr < R)
+    rows = {"ragged_paged_attention_sm90": [r for r in range(R) if spans[r][0] > 1],
+            "ragged_paged_attention_decode_sm90": [r for r in range(R) if spans[r][0] == 1]}
+    for part in pair.parts:
+        decode = part.name.endswith("_decode_sm90")
+        mine = dec_tok if decode else ~dec_tok  # the prefill entry also zeroes the padding
+        idx = torch.nonzero(mine & live).flatten()
+        p_err, p_rel, _ok = attention_errors(torch, got[idx], want[idx])
+        ms = time_ms(torch, part.launch)
+        p_plain = time_ms(torch, lambda: plain(idx), iters=3, warmup=1)
+        lib = _sdpa_ms(torch, _ragged_sdpa_calls(torch, q, k_rows, v_rows, kv, spans,
+                                                 rows[part.name]))
+        # its tokens' q read and out written (the prefill entry also writes
+        # the padding's zeros), its rows' page-table rows and descriptors
+        n_tok, pad = int(idx.numel()), 0 if decode else T - n_real
+        io = ((2 * n_tok + pad) * H * D * 2 + len(rows[part.name]) * (MP + 3) * 4
+              + (n_tok + pad) * 8)
+        b_ms, b_by = _ragged_work(spans, kv_lens, rows[part.name], False, io)
+        log(f"  {name} [{part.name}]: its rows max_abs_err {p_err:.3e}, row-relative "
+            f"{p_rel:.3e}; kernel {ms:.4f} ms alone, plain {p_plain:.4f} ms, sdpa {lib:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        results.append(dict(case=name, kernel=part.name, err=p_err, rel_err=p_rel, ms=ms,
+                            plain_ms=p_plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                            pair_ms=pair_ms, wrapper_ms=wrapper_ms))
 
 
 def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, group: int,
@@ -1016,7 +1130,10 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attention_decode_sm90" in n:
-        return "attention decode sm90 (ours)"
+        return ("attention ragged decode sm90 (ours)" if "raggedrows" in n
+                else "attention decode sm90 (ours)")
+    if "ragged_attention_bf16_sm90" in n:
+        return "attention ragged sm90 (ours)"
     if any(k in n for k in ("paged_attention_kernel", "ragged_attention_kernel",
                             "attention_q8_sm90_kernel", "attention_bf16_sm90_kernel",
                             "combine_splits")):
@@ -1056,11 +1173,13 @@ def device_ms(torch, prof, classify, runs: int = 1, top: int = 4) -> tuple[dict,
 
 def profile_steps(torch, engine, context: int, active: int) -> dict:
     """Where a step's time goes, after serving: a decode step with ``active``
-    slots at ``context`` tokens, and a 4 x 512 prefill chunk at q_offset
-    2048, each timed with CUDA events around whole steps (host enqueue
-    included) and profiled with torch.profiler for device time by kernel
-    class. The idle share is 1 - device busy / window, both taken in the
-    same profiled window: CUDA events recorded inside the profile around
+    slots at ``context`` tokens, a 4 x 512 prefill chunk at q_offset 2048,
+    and a ragged round shaped like the serve's (``SERVE_ROUND``: three
+    512-token chunks at q_offset 1024, 2048 and 4096 beside 4 decode rows at
+    ``context``, their positions given by the host), each timed with CUDA
+    events around whole steps (host enqueue included) and profiled with
+    torch.profiler for device time by kernel class. The idle share is 1 -
+    device busy / window, both taken in the same profiled window: CUDA events recorded inside the profile around
     its steps (the profiler's own host cost is in that window, so the share
     reads high against an unprofiled step). Uses the engine's own state
     (random KV), slots 0..active-1."""
@@ -1081,8 +1200,24 @@ def profile_steps(torch, engine, context: int, active: int) -> dict:
     def prefill():
         engine.prefill_chunk(*prefill_args)
 
+    # the round's rows on slots 0..6, every row's first position from the
+    # host (so repeated rounds see the same positions), nothing committed
+    R = B
+    chunks = [(min(p0, context - q_len), q_len) for q_len, p0 in SERVE_ROUND if q_len > 1]
+    spans = chunks + [(context - 1, 1)] * sum(q_len == 1 for q_len, _p in SERVE_ROUND)
+    tok_row = [r for r, (_p, q_len) in enumerate(spans) for _ in range(q_len)]
+    T = engine.ragged_bucket(len(tok_row))
+    pad = [0] * (R - len(spans))
+    ragged_args = ([7] * T, tok_row + [R] * (T - len(tok_row)), list(range(len(spans))) + pad,
+                   [p for p, _q in spans] + pad, [q_len for _p, q_len in spans] + pad,
+                   [False] * R, [False] * R, zeros, ones, izeros)
+
+    def ragged():
+        engine.ragged_mixed(*ragged_args)
+
     out = {}
-    for name, fn in (("decode_step", decode), ("prefill_chunk_4x512", prefill)):
+    for name, fn in (("decode_step", decode), ("prefill_chunk_4x512", prefill),
+                     ("ragged_round_serve", ragged)):
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
@@ -1366,9 +1501,13 @@ def main() -> None:
     log_resource_usage(kernels.library_path("quant_matmul_sm90.cu"), "quant_matmul_sm90_kernel")
     log_resource_usage(kernels.library_path("quant_matmul_decode_sm90.cu"), "quant_matmul_decode")
     log_resource_usage(kernels.library_path("attention_q8_sm90.cu"), "attention_q8_sm90_kernel")
-    log_resource_usage(kernels.library_path("attention_bf16_sm90.cu"),
-                       "attention_bf16_sm90_kernel")
-    log_resource_usage(kernels.library_path("attention_decode_sm90.cu"), "attention_decode_sm90")
+    # the bf16 prefill body's paged and ragged entries, the decode body's
+    # instantiations (paged bf16 and int8, ragged bf16) and their merges
+    spills = [src for src, kernel in (("attention_bf16_sm90.cu", "attention_bf16_sm90_kernel"),
+                                      ("attention_decode_sm90.cu", "attention_decode_sm90"))
+              if log_resource_usage(kernels.library_path(src), kernel)]
+    if spills:
+        fail(f"the Hopper attention kernels of {spills} spill to local memory")
 
     log("phase 2: kernels against their plain versions (llama3-8b shapes)")
     gen = torch.Generator(device=dev)
@@ -1385,7 +1524,13 @@ def main() -> None:
     check_paged(torch, "paged_prefill_b1_q0", gen, dev, 512, [0], [512], results)
     check_paged(torch, "paged_prefill_b1_q2048", gen, dev, 512, [2048], [2560], results)
     check_append(torch, gen, dev, results)
-    check_ragged(torch, gen, dev, results)
+    dec = [int(x) for x in torch.randint(1, 4096, (60,), generator=gen, device=dev)]
+    check_ragged(torch, gen, dev, results, "ragged",
+                 [(512, 0), (512, 1024)] + [(1, n - 1) for n in dec], 2048)
+    # its own generator: the draws of the cases after it stay as they were
+    serve_gen = torch.Generator(device=dev)
+    serve_gen.manual_seed(4321)
+    check_ragged(torch, serve_gen, dev, results, "ragged_serve", SERVE_ROUND, 2048)
     log("  int8 KV cache:")
     check_paged(torch, "paged_q8_decode", gen, dev, 1, [n - 1 for n in dec_lens], dec_lens,
                 results, q8=True)
@@ -1396,7 +1541,9 @@ def main() -> None:
     check_paged(torch, "paged_q8_prefill_q1024", gen, dev, 512, [1024] * 4, [1536] * 4,
                 results, q8=True)
     check_append_q8(torch, gen, dev, results)
-    check_ragged(torch, gen, dev, results, q8=True)
+    dec = [int(x) for x in torch.randint(1, 4096, (60,), generator=gen, device=dev)]
+    check_ragged(torch, gen, dev, results, "ragged_q8",
+                 [(512, 0), (512, 1024)] + [(1, n - 1) for n in dec], 2048, q8=True)
     log("  fused dequant matmul (the decode body at M <= 64, the Hopper kernel at prefill; v2 "
         "beside each on the same inputs):")
     for label, (K, N) in QMM_DECODE_WEIGHTS.items():
@@ -1441,6 +1588,7 @@ def main() -> None:
     src = "finchat_tpu_torch/csrc/"
     paged = "finchat_tpu/ops/paged_attention.py:305"
     q8_paged = "finchat_tpu/ops/paged_attention.py:221"
+    ragged = "finchat_tpu/ops/ragged_paged_attention.py:383"
     q8_ragged = "finchat_tpu/ops/ragged_paged_attention.py:478"
     qmm = "finchat_tpu/ops/quant_matmul.py:144"
     flash = "finchat_tpu/ops/flash_attention.py:160"  # the backward: the gradient of it
@@ -1450,8 +1598,9 @@ def main() -> None:
         "paged_attention": ("paged_attention.cu", paged, "bf16"),
         "paged_attention_sm90": ("attention_bf16_sm90.cu", paged, "bf16"),
         "kv_append": ("kv_append.cu", "finchat_tpu/ops/kv_append.py:241", "bf16"),
-        "ragged_paged_attention": ("ragged_paged_attention.cu",
-                                   "finchat_tpu/ops/ragged_paged_attention.py:383", "bf16"),
+        "ragged_paged_attention": ("ragged_paged_attention.cu", ragged, "bf16"),
+        "ragged_paged_attention_sm90": ("attention_bf16_sm90.cu", ragged, "bf16"),
+        "ragged_paged_attention_decode_sm90": ("attention_decode_sm90.cu", ragged, "bf16"),
         "paged_attention_q8": ("paged_attention.cu", q8_paged, "int8+kv8"),
         "paged_attention_q8_sm90": ("attention_q8_sm90.cu", q8_paged, "int8+kv8"),
         "paged_attention_decode_sm90": ("attention_decode_sm90.cu", paged, "bf16"),
@@ -1481,8 +1630,9 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
-        if "wrapper_ms" in r:
-            row["wrapper_ms"] = r["wrapper_ms"]
+        for key in ("wrapper_ms", "pair_ms"):
+            if key in r:
+                row[key] = r[key]
         table.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

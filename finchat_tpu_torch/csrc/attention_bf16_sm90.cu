@@ -1,5 +1,5 @@
 // Attention over the bf16 paged KV cache for Hopper, at prefill: K1's
-// chunks of 64-row query tiles.
+// chunks of 64-row query tiles, and the prefill tiles of K3's ragged rounds.
 //
 // Replaces the TPU kernel finchat_tpu/ops/paged_attention.py
 // paged_flash_attention (_paged_kernel) for calls whose query tiles hold 64
@@ -69,6 +69,24 @@
 //   same zeros), so no stale value reaches a sum (0 x NaN is NaN); their
 //   scores are masked.
 // Every mbarrier wait traps after ~2^34 cycles instead of hanging.
+//
+// The ragged entry (ragged_paged_attention_bf16_sm90) replaces
+// finchat_tpu/ops/ragged_paged_attention.py ragged_flash_attention
+// (_ragged_kernel) for the prefill tiles of a bf16 round of 64-row tiles
+// over pages of whole 64-key tiles (ops/paged_attention.ragged_kernels_for);
+// the round's rows of one token go to the ragged entry of
+// attention_decode_sm90.cu in a second launch. A block takes `tiles` (1
+// or 2, ops/paged_attention.query_tiles_per_block over the bucket's tiles)
+// consecutive tiles of one row: block j takes tile j and, at two, the
+// row's next tile too, unless tile j is an odd tile of its row (the block
+// before took it). Their tokens, row and positions come from the round's
+// tile descriptors (ops/ragged_paged_attention.ragged_tiles), the row's
+// page table and kv_len, the keys the block walks cut at its last tile's
+// last position; the same producer, consumers, ring and waits as a chunk's
+// block. Tiles of one-token rows return at once; a padding tile (row R)
+// writes zeros for its KV head's columns, so the output needs no memset.
+// Blocks are issued from the last tile, so a row's later tiles, which see
+// the most keys, start first.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -476,6 +494,100 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_bf16_sm90_kernel(
           kvl, n_tiles, block_keys, scale, wg, sm, ring, full, empty);
 }
 
+// `tiles` consecutive 64-row ragged tiles of one row a block (one a
+// consumer warpgroup); blockIdx.x counts from the last tile
+__global__ void __launch_bounds__(kThreads, 1) ragged_attention_bf16_sm90_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const int* __restrict__ page_table, const int* __restrict__ tok_pos,
+    const int* __restrict__ kv_len, const int* __restrict__ tile_row,
+    const int* __restrict__ tile_start, const int* __restrict__ tile_len,
+    const int* __restrict__ q_start, const int* __restrict__ q_len, int R, int H, int HKV,
+    int PS, int MP, int BQ, int tiles, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int j = gridDim.x - 1 - blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
+  const int row = tile_row[j], ts = tile_start[j], n_tok = tile_len[j];
+  const long tok = (long)H * D;
+  if (row >= R) {  // a padding tile: zeros for this KV head's columns, 16 bytes a store
+    const int w = (H / HKV) * D / 8;
+    for (int idx = tid; idx < n_tok * w; idx += kThreads) {
+      const int i = idx / w, c = idx % w;
+      *reinterpret_cast<uint4*>(out + (long)(ts + i) * tok + (long)g * w * 8 + c * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  if (q_len[row] == 1) return;  // a one-token row: the decode body's ragged entry
+  // the row's tiles lie at tile_start q_start + k * BQ, in consecutive
+  // descriptors: at two a block, an even tile k takes tile k + 1 too
+  int n_tok2 = 0;
+  if (tiles == 2) {
+    if (((ts - q_start[row]) / BQ) & 1) return;
+    if (j + 1 < gridDim.x && tile_row[j + 1] == row) n_tok2 = tile_len[j + 1];
+  }
+  const int active = n_tok2 > 0 ? 2 : 1;  // consumer warpgroups with a tile
+  unsigned char* sm = aligned_smem(smem);
+  const uint32_t base = fct::smem_u32(sm);
+  const uint32_t ring = base + RING_OFF, full = base + FULL_OFF, empty = base + EMPTY_OFF;
+  int* s_pos = reinterpret_cast<int*>(sm + POS_OFF);
+  for (int i = tid; i < n_tok + n_tok2; i += kThreads) {
+    s_pos[i < n_tok ? i : kRows + i - n_tok] = tok_pos[ts + i];  // tile 2's tokens follow
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      fct::mbar_init(full + 8 * s, 1);
+      fct::mbar_init(empty + 8 * s, active * kWarpgroup);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the block's keys: cut at kv_len and at its last tile's last (largest)
+  // position (the first tile walks them all, the extra keys masked)
+  const int kvl = kv_len[row];
+  const int last = active == 2 ? s_pos[kRows + n_tok2 - 1] : s_pos[n_tok - 1];
+  const int block_keys = min(min(MP * PS, kvl), last + 1);
+  const int n_tiles = (max(block_keys, 0) + kKeys - 1) / kKeys;
+  const int wg = tid / kWarpgroup - 1;
+  if (wg < 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) produce(&kmap, &vmap, page_table + (long)row * MP, PS, g, n_tiles, block_keys,
+                          ring, full, empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  if (wg >= active) return;
+  const long tok0 = ts + (long)wg * BQ;
+  consume(q + tok0 * tok, out + tok0 * tok, tok, s_pos + wg * kRows, wg ? n_tok2 : n_tok, BQ,
+          H / HKV, g, kvl, n_tiles, block_keys, scale, wg, sm, ring, full, empty);
+}
+
+// the layer's pages as [P * page_size, Hkv * 128], read in 64 x 64 boxes,
+// and the kernel's shared memory opted into
+int prepare_maps(CUtensorMap* kmap, CUtensorMap* vmap, const void* k_pages, const void* v_pages,
+                 int layer, int HKV, int P, int PS, const void* kernel) {
+  const long layer_off = (long)layer * P * PS * HKV * D;
+  if (!fct::make_map(kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                     static_cast<const __nv_bfloat16*>(k_pages) + layer_off, (uint64_t)P * PS,
+                     (uint64_t)HKV * D, kBox, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !fct::make_map(vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                     static_cast<const __nv_bfloat16*>(v_pages) + layer_off, (uint64_t)P * PS,
+                     (uint64_t)HKV * D, kBox, 64, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem));
+}
+
+// the calls both entries take: head_dim 128, 64-row tiles, whole 64-key
+// boxes in a page, 16-byte aligned operands
+bool takes(const void* q, const void* k, const void* v, const void* out, int H, int HKV,
+           int D_, int PS, int BQ) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return D_ == D && HKV > 0 && H % HKV == 0 && (H / HKV) * BQ == kRows && PS % kBox == 0 &&
+         aligned(q) && aligned(k) && aligned(v) && aligned(out);
+}
+
 }  // namespace
 
 // the arguments of paged_attention_bf16 (paged_attention.cu), then the
@@ -491,30 +603,49 @@ extern "C" int paged_attention_bf16_sm90(const void* q, const void* k_pages, con
                                          int splits, int pages_per_split, int tiles,
                                          float scale, void* stream) {
   (void)part_acc, (void)part_ml, (void)KT, (void)pages_per_split;
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  if (D_ != D || HKV <= 0 || H % HKV != 0 || (H / HKV) * BQ != kRows || PS % kBox != 0 ||
-      splits != 1 || tiles < 1 || tiles > kMaxTiles || !aligned(q) || !aligned(k_pages) ||
-      !aligned(v_pages)) {
+  if (!takes(q, k_pages, v_pages, out, H, HKV, D_, PS, BQ) || splits != 1 || tiles < 1 ||
+      tiles > kMaxTiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // the layer's pages as [P * page_size, Hkv * 128], read in 64 x 64 boxes
-  const long layer_off = (long)layer * P * PS * HKV * D;
   CUtensorMap kmap, vmap;
-  if (!fct::make_map(&kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     static_cast<const __nv_bfloat16*>(k_pages) + layer_off, (uint64_t)P * PS,
-                     (uint64_t)HKV * D, kBox, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !fct::make_map(&vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     static_cast<const __nv_bfloat16*>(v_pages) + layer_off, (uint64_t)P * PS,
-                     (uint64_t)HKV * D, kBox, 64, CU_TENSOR_MAP_SWIZZLE_128B)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaFuncSetAttribute(paged_attention_bf16_sm90_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = prepare_maps(&kmap, &vmap, k_pages, v_pages, layer, HKV, P, PS,
+                               reinterpret_cast<const void*>(paged_attention_bf16_sm90_kernel));
+  if (err != 0) return err;
   const dim3 grid((C + tiles * BQ - 1) / (tiles * BQ), HKV, B);
   paged_attention_bf16_sm90_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
       static_cast<const int*>(page_table), static_cast<const int*>(q_offset),
       static_cast<const int*>(kv_len), C, H, HKV, PS, MP, BQ, tiles, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the arguments of ragged_paged_attention_bf16 (ragged_paged_attention.cu)
+// with each row's first token and token count (q_start, q_len [R]) after
+// its pointers, then the tiles a block (1 or 2); KT and T are unused.
+// Refuses (cudaErrorInvalidValue) a call it does not take, as the paged
+// entry does.
+extern "C" int ragged_paged_attention_bf16_sm90(
+    const void* q, const void* k_pages, const void* v_pages, void* out, const void* page_table,
+    const void* tok_pos, const void* kv_len, const void* tile_row, const void* tile_start,
+    const void* tile_len, const void* q_start, const void* q_len, int layer, int T, int R,
+    int H, int HKV, int D_, int P, int PS, int KT, int MP, int NT, int BQ, int tiles,
+    float scale, void* stream) {
+  (void)T, (void)KT;
+  if (!takes(q, k_pages, v_pages, out, H, HKV, D_, PS, BQ) || NT < 1 || tiles < 1 ||
+      tiles > kMaxTiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap kmap, vmap;
+  const int err = prepare_maps(&kmap, &vmap, k_pages, v_pages, layer, HKV, P, PS,
+                               reinterpret_cast<const void*>(ragged_attention_bf16_sm90_kernel));
+  if (err != 0) return err;
+  ragged_attention_bf16_sm90_kernel<<<dim3(NT, HKV), kThreads, kSmem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
+      static_cast<const int*>(page_table), static_cast<const int*>(tok_pos),
+      static_cast<const int*>(kv_len), static_cast<const int*>(tile_row),
+      static_cast<const int*>(tile_start), static_cast<const int*>(tile_len),
+      static_cast<const int*>(q_start), static_cast<const int*>(q_len), R, H, HKV, PS, MP, BQ,
+      tiles, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,19 @@
 // - Partials: a sequence whose keys fit one split writes its bf16 output
 //   from the block; otherwise each live split writes fp32 (m, l, acc) (m in
 //   base 2) and a second kernel in this file merges the live splits.
+// - Rows: the kernels read a sequence's query, output, position and length
+//   through a policy: PagedRows (sequence b is token b, at q_offset[b]) for
+//   the paged entries, RaggedRows for the ragged one.
+// The ragged entry (ragged_paged_attention_decode_bf16_sm90) replaces
+// finchat_tpu/ops/ragged_paged_attention.py ragged_flash_attention
+// (_ragged_kernel) for the rows of one token of a bf16 round of 64-row
+// tiles over pages of whole 64-key tiles (ops/paged_attention
+// .ragged_kernels_for); its prefill tiles go to attention_bf16_sm90.cu in
+// the launch before. A round's row r is a sequence: its query and output at
+// its first packed token q_start[r], its position tok_pos[q_start[r]] (in
+// the compacted coordinates of a bounded-KV row), kv_len[r] and page-table
+// row r; blocks of rows that are not one token long return at once, and
+// the split is decode_split's with the round's R rows as B.
 // Every mbarrier wait traps after ~2^34 cycles instead of hanging. Defining
 // FCT_DECODE_NO_FETCH (no copies: the ring is read as it stands) or
 // FCT_DECODE_NO_PRODUCTS (no mma: fragments are read, converted and folded
@@ -261,6 +274,35 @@ struct CacheInt8 {
   }
 };
 
+// Where sequence b of a paged call lives: token b, at q_offset[b].
+struct PagedRows {
+  const int* q_offset;
+  const int* kv_len;
+  __device__ __forceinline__ bool at(int b, long& tok, int& pos, int& kv) const {
+    tok = b;
+    pos = q_offset[b];
+    kv = kv_len[b];
+    return true;
+  }
+};
+
+// Where row b of a ragged round lives: its first packed token q_start[b],
+// at that token's position; false for a row that is not one token long
+// (the prefill body's ragged entry takes its tiles).
+struct RaggedRows {
+  const int* tok_pos;
+  const int* kv_len;
+  const int* q_start;
+  const int* q_len;
+  __device__ __forceinline__ bool at(int b, long& tok, int& pos, int& kv) const {
+    if (q_len[b] != 1) return false;
+    tok = q_start[b];
+    pos = tok_pos[tok];
+    kv = kv_len[b];
+    return true;
+  }
+};
+
 // keys the sequence's query attends: below kv_len, at most its own
 // position, inside its page-table row
 __device__ __forceinline__ int row_keys(int q_pos, int kv, int max_keys) {
@@ -273,17 +315,19 @@ __device__ __forceinline__ int live_splits(int keys, int span) {
   return max(1, (keys + span - 1) / span);
 }
 
-template <class Cache>
+template <class Cache, class Rows>
 __global__ void __launch_bounds__(kThreads, 2) attention_decode_sm90_kernel(
-    const __nv_bfloat16* __restrict__ q, Cache cache, __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ q, Cache cache, Rows rows, __nv_bfloat16* __restrict__ out,
     float* __restrict__ part_acc, float* __restrict__ part_ml,
-    const int* __restrict__ page_table, const int* __restrict__ q_offset,
-    const int* __restrict__ kv_len, int B, int H, int HKV, int MP, int pps, float scale) {
+    const int* __restrict__ page_table, int B, int H, int HKV, int MP, int pps, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int S = Cache::kStages;
   const int s = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  long tok;  // the sequence's query and output token
+  int pos, kv;
+  if (!rows.at(b, tok, pos, kv)) return;
   const int span = pps * cache.ps;
-  const int keys = row_keys(q_offset[b], kv_len[b], MP * cache.ps);
+  const int keys = row_keys(pos, kv, MP * cache.ps);
   const int live = live_splits(keys, span);
   if (s >= live) return;
   const int k_lo = s * span, k_hi = min(keys, k_lo + span);
@@ -314,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_decode_sm90_kernel(
   for (int x = 0; x < 2; ++x) {
     const bool ok = x ? v1 : v0;
     const uint4* src = reinterpret_cast<const uint4*>(
-        q + ((long)b * H + (long)g * group + gr + 8 * x) * D + 32 * t);
+        q + (tok * H + (long)g * group + gr + 8 * x) * D + 32 * t);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const uint4 u = ok ? src[i] : make_uint4(0u, 0u, 0u, 0u);
@@ -473,7 +517,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_decode_sm90_kernel(
     }
     const long h = (long)g * group + r;
     if (live == 1) {
-      out[((long)b * H + h) * D + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+      out[(tok * H + h) * D + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
     } else {
       const long row = ((long)s * B + b) * H + h;
       part_acc[row * D + d] = a;
@@ -488,12 +532,15 @@ __global__ void __launch_bounds__(kThreads, 2) attention_decode_sm90_kernel(
 // out = sum_s acc_s 2^(m_s - m*) / sum_s l_s 2^(m_s - m*) over the live
 // splits of sequences whose keys span more than one; one block per (sequence,
 // query head), one thread per column
+template <class Rows>
 __global__ void __launch_bounds__(D) attention_decode_sm90_merge(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    __nv_bfloat16* __restrict__ out, const int* __restrict__ q_offset,
-    const int* __restrict__ kv_len, int B, int H, int max_keys, int span) {
+    __nv_bfloat16* __restrict__ out, Rows rows, int B, int H, int max_keys, int span) {
   const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
-  const int live = live_splits(row_keys(q_offset[b], kv_len[b], max_keys), span);
+  long tok;
+  int pos, kv;
+  if (!rows.at(b, tok, pos, kv)) return;
+  const int live = live_splits(row_keys(pos, kv, max_keys), span);
   if (live == 1) return;  // the split's block wrote the output
   float m_star = -INFINITY;
   for (int s = 0; s < live; ++s) m_star = fmaxf(m_star, part_ml[(((long)s * B + b) * H + h) * 2]);
@@ -504,7 +551,7 @@ __global__ void __launch_bounds__(D) attention_decode_sm90_merge(
     l += part_ml[row * 2 + 1] * f;
     a += part_acc[row * D + d] * f;
   }
-  out[((long)b * H + h) * D + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+  out[(tok * H + h) * D + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
 }
 
 struct Args {
@@ -513,8 +560,6 @@ struct Args {
   float* part_acc;
   float* part_ml;
   const int* page_table;
-  const int* q_offset;
-  const int* kv_len;
   int B, C, H, HKV, D, PS, MP, splits, pps;
   float scale;
   cudaStream_t stream;
@@ -533,38 +578,47 @@ bool takes(const Args& a, const void* k, const void* v) {
          aligned(a.out) && aligned(k) && aligned(v);
 }
 
-template <class Cache>
-int launch(const Args& a, const Cache& cache) {
+template <class Cache, class Rows>
+int launch(const Args& a, const Cache& cache, const Rows& rows) {
   constexpr int smem = Cache::kStages * Cache::kStage + Cache::kStages * 8;
   static_assert(smem >= kScratch, "the merge scratch lies over the ring");
   static bool configured = false;  // the attribute, once a process
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(attention_decode_sm90_kernel<Cache>,
+    const cudaError_t err = cudaFuncSetAttribute(attention_decode_sm90_kernel<Cache, Rows>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(a.splits, a.HKV, a.B);
-  attention_decode_sm90_kernel<Cache><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), cache, static_cast<__nv_bfloat16*>(a.out),
-      a.part_acc, a.part_ml, a.page_table, a.q_offset, a.kv_len, a.B, a.H, a.HKV, a.MP, a.pps,
-      a.scale);
+  attention_decode_sm90_kernel<Cache, Rows><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), cache, rows, static_cast<__nv_bfloat16*>(a.out),
+      a.part_acc, a.part_ml, a.page_table, a.B, a.H, a.HKV, a.MP, a.pps, a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
-  attention_decode_sm90_merge<<<dim3(a.B, a.H), D, 0, a.stream>>>(
-      a.part_acc, a.part_ml, static_cast<__nv_bfloat16*>(a.out), a.q_offset, a.kv_len, a.B, a.H,
-      a.MP * a.PS, a.pps * a.PS);
+  attention_decode_sm90_merge<Rows><<<dim3(a.B, a.H), D, 0, a.stream>>>(
+      a.part_acc, a.part_ml, static_cast<__nv_bfloat16*>(a.out), rows, a.B, a.H, a.MP * a.PS,
+      a.pps * a.PS);
   return static_cast<int>(cudaGetLastError());
 }
 
 Args make_args(const void* q, void* out, void* part_acc, void* part_ml, const void* page_table,
-               const void* q_offset, const void* kv_len, int B, int C, int H, int HKV, int D_,
-               int PS, int MP, int splits, int pps, float scale, void* stream) {
+               int B, int C, int H, int HKV, int D_, int PS, int MP, int splits, int pps,
+               float scale, void* stream) {
   return Args{q, out, static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-              static_cast<const int*>(page_table), static_cast<const int*>(q_offset),
-              static_cast<const int*>(kv_len), B, C, H, HKV, D_, PS, MP, splits, pps, scale,
+              static_cast<const int*>(page_table), B, C, H, HKV, D_, PS, MP, splits, pps, scale,
               static_cast<cudaStream_t>(stream)};
+}
+
+PagedRows paged_rows(const void* q_offset, const void* kv_len) {
+  return PagedRows{static_cast<const int*>(q_offset), static_cast<const int*>(kv_len)};
+}
+
+CacheBf16 bf16_cache(const void* k_pages, const void* v_pages, int layer, int HKV, int P,
+                     int PS) {
+  const long layer_off = (long)layer * P * PS * HKV * D;
+  return CacheBf16{static_cast<const __nv_bfloat16*>(k_pages) + layer_off,
+                   static_cast<const __nv_bfloat16*>(v_pages) + layer_off, (long)HKV * D, PS};
 }
 
 }  // namespace
@@ -577,14 +631,10 @@ extern "C" int paged_attention_decode_bf16_sm90(
     int B, int C, int H, int HKV, int D_, int P, int PS, int KT, int MP, int BQ, int splits,
     int pages_per_split, float scale, void* stream) {
   (void)KT, (void)BQ;
-  const Args a = make_args(q, out, part_acc, part_ml, page_table, q_offset, kv_len, B, C, H, HKV,
-                           D_, PS, MP, splits, pages_per_split, scale, stream);
+  const Args a = make_args(q, out, part_acc, part_ml, page_table, B, C, H, HKV, D_, PS, MP,
+                           splits, pages_per_split, scale, stream);
   if (!takes(a, k_pages, v_pages)) return static_cast<int>(cudaErrorInvalidValue);
-  const long layer_off = (long)layer * P * PS * HKV * D;
-  const CacheBf16 cache{static_cast<const __nv_bfloat16*>(k_pages) + layer_off,
-                        static_cast<const __nv_bfloat16*>(v_pages) + layer_off, (long)HKV * D,
-                        PS};
-  return launch(a, cache);
+  return launch(a, bf16_cache(k_pages, v_pages, layer, HKV, P, PS), paged_rows(q_offset, kv_len));
 }
 
 // the arguments of paged_attention_int8 (paged_attention.cu)
@@ -595,8 +645,8 @@ extern "C" int paged_attention_decode_int8_sm90(
     int P, int PS, int SPAD, int KT, int MP, int BQ, int splits, int pages_per_split,
     float scale, void* stream) {
   (void)KT, (void)BQ;
-  const Args a = make_args(q, out, part_acc, part_ml, page_table, q_offset, kv_len, B, C, H, HKV,
-                           D_, PS, MP, splits, pages_per_split, scale, stream);
+  const Args a = make_args(q, out, part_acc, part_ml, page_table, B, C, H, HKV, D_, PS, MP,
+                           splits, pages_per_split, scale, stream);
   if (!takes(a, k_pages, v_pages) || !aligned(k_scales) || !aligned(v_scales) || SPAD < HKV) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -606,5 +656,23 @@ extern "C" int paged_attention_decode_int8_sm90(
                         static_cast<const int8_t*>(v_pages) + layer_off,
                         static_cast<const float*>(k_scales) + scale_off,
                         static_cast<const float*>(v_scales) + scale_off, (long)HKV * D, PS, SPAD};
-  return launch(a, cache);
+  return launch(a, cache, paged_rows(q_offset, kv_len));
+}
+
+// a bf16 ragged round's rows of one token (R rows; the other rows' blocks
+// return at once): q and out packed [T, H, 128], each row at its first
+// token q_start[r]; tok_pos, kv_len and the page table in the round's
+// compacted coordinates; the split of decode_split(R, ...)
+extern "C" int ragged_paged_attention_decode_bf16_sm90(
+    const void* q, const void* k_pages, const void* v_pages, void* out, void* part_acc,
+    void* part_ml, const void* page_table, const void* tok_pos, const void* kv_len,
+    const void* q_start, const void* q_len, int layer, int T, int R, int H, int HKV, int D_,
+    int P, int PS, int MP, int splits, int pages_per_split, float scale, void* stream) {
+  (void)T;
+  const Args a = make_args(q, out, part_acc, part_ml, page_table, R, 1, H, HKV, D_, PS, MP,
+                           splits, pages_per_split, scale, stream);
+  if (!takes(a, k_pages, v_pages)) return static_cast<int>(cudaErrorInvalidValue);
+  const RaggedRows rows{static_cast<const int*>(tok_pos), static_cast<const int*>(kv_len),
+                        static_cast<const int*>(q_start), static_cast<const int*>(q_len)};
+  return launch(a, bf16_cache(k_pages, v_pages, layer, HKV, P, PS), rows);
 }

@@ -45,6 +45,7 @@ from finchat_tpu_torch.engine.sampler import sample
 from finchat_tpu_torch.models.llama import LlamaConfig, forward, lm_head
 from finchat_tpu_torch.models.quant import quantize_llama_params, validate_quant_mode
 from finchat_tpu_torch.ops.dispatch import kv_append, paged_attention, ragged_paged_attention
+from finchat_tpu_torch.ops.ragged_paged_attention import plan_ragged
 from finchat_tpu_torch.utils.config import EngineConfig
 from finchat_tpu_torch.utils.logging import get_logger
 from finchat_tpu_torch.utils.metrics import METRICS
@@ -244,26 +245,31 @@ def _ragged_attention_fn(
     tok_valid: torch.Tensor,  # [T] bool — real token (False = buffer padding)
     page_size: int,
     n_kv: int,
+    group: int,  # query heads per KV head
     row_gap: torch.Tensor,  # [R] int32 — bounded-KV eviction gap (0 here)
 ):
     """Attention callback for the packed ragged step: every packed token is
     one (B=T, C=1) row of the indexed scatter at its own compacted position
     through its row's page list (padding tokens write the trash page), then
-    the ragged attention reads each row's pages in place."""
+    the ragged attention reads each row's pages in place. The round's
+    descriptors (compacted positions and lengths, tiles, rows) are built
+    here once and shared by every layer's call, over either cache."""
     R = page_rows.shape[0]
     safe_row = tok_row.long().clamp(max=R - 1)
     pt_tok = page_rows[safe_row]  # [T, max_pages]
     n_valid_tok = tok_valid.to(I32)
-    tok_wpos = (tok_pos - row_gap[safe_row]).clamp(min=0).to(I32)
+    plan = plan_ragged(tok_row, tok_pos, row_kv_len, group=group, kv_gap=row_gap)
 
     def attention(q, k, v, cache, layer_idx: int):
         k_pages, v_pages, k_scales, v_scales = cache
         T = k.shape[1]
+        # each token's K/V row lands at its compacted position
         _scatter_kv(cache, k.reshape(T, 1, n_kv, -1), v.reshape(T, 1, n_kv, -1), pt_tok,
-                    tok_wpos, n_valid_tok, page_size, layer_idx, n_kv)
+                    plan.tok_pos, n_valid_tok, page_size, layer_idx, n_kv)
         out = ragged_paged_attention(q[0], k_pages, v_pages, page_rows, tok_row, tok_pos,
                                      row_kv_len, layer_idx, page_size=page_size, n_kv=n_kv,
-                                     kv_gap=row_gap, k_scales=k_scales, v_scales=v_scales)
+                                     kv_gap=row_gap, k_scales=k_scales, v_scales=v_scales,
+                                     plan=plan)
         return out[None], cache
 
     return attention
@@ -310,7 +316,8 @@ def _ragged_round_math(
     row_gap = state.kv_gaps[slot_l]
 
     attention = _ragged_attention_fn(page_rows, tok_row, tok_pos, row_kv_len, tok_valid,
-                                     page_size, config.n_kv_heads, row_gap)
+                                     page_size, config.n_kv_heads,
+                                     config.n_heads // config.n_kv_heads, row_gap)
     hidden, _ = forward(params, tok_in[None], tok_pos[None], config=config,
                         attention=attention, cache=_cache(state), return_hidden=True)
     h = hidden[0]  # [T, D]

@@ -35,6 +35,7 @@ from finchat_tpu_torch.ops.quant_matmul import (
     quant_matmul_ref,
 )
 from finchat_tpu_torch.ops.ragged_paged_attention import (
+    RaggedPlan,
     ragged_flash_attention,
     ragged_flash_attention_q8,
     ragged_paged_attention_ref,
@@ -114,18 +115,24 @@ def ragged_paged_attention(
     kv_gap: torch.Tensor | None = None,  # [R] — bounded-KV window offset per row
     k_scales: torch.Tensor | None = None,
     v_scales: torch.Tensor | None = None,
+    plan: RaggedPlan | None = None,  # the round's descriptors (plan_ragged), built once
 ) -> torch.Tensor:
-    """Ragged paged-KV attention (ops/ragged_paged_attention.py)."""
+    """Ragged paged-KV attention (ops/ragged_paged_attention.py). With a
+    ``plan``, the kernels take its descriptors and the plain version its
+    compacted positions and lengths (the same numbers either way)."""
     kw = dict(page_size=page_size, n_kv=n_kv, kv_gap=kv_gap)
     if _int8_cache(k_pages, k_scales, v_scales):
         if q.is_cuda:
             return ragged_flash_attention_q8(q, k_pages, v_pages, k_scales, v_scales,
-                                             page_table, tok_row, tok_pos, kv_len, layer, **kw)
-        return ragged_paged_attention_ref(q, k_pages, v_pages, page_table, tok_row, tok_pos,
-                                          kv_len, layer, k_scales=k_scales, v_scales=v_scales,
-                                          **kw)
-    fn = ragged_flash_attention if q.is_cuda else ragged_paged_attention_ref
-    return fn(q, k_pages, v_pages, page_table, tok_row, tok_pos, kv_len, layer, **kw)
+                                             page_table, tok_row, tok_pos, kv_len, layer,
+                                             plan=plan, **kw)
+    elif q.is_cuda:
+        return ragged_flash_attention(q, k_pages, v_pages, page_table, tok_row, tok_pos, kv_len,
+                                      layer, plan=plan, **kw)
+    if plan is not None:  # the plan holds the compacted coordinates
+        tok_pos, kv_len, kw["kv_gap"] = plan.tok_pos, plan.kv_len, None
+    return ragged_paged_attention_ref(q, k_pages, v_pages, page_table, tok_row, tok_pos, kv_len,
+                                      layer, k_scales=k_scales, v_scales=v_scales, **kw)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

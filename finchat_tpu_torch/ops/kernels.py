@@ -64,6 +64,14 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         "attention_bf16_sm90.cu", "paged_attention_bf16_sm90",
         [_P] * 9 + [_I] * 13 + [_I] + [_F, _P],
     ),
+    # the ragged entry of the bf16 prefill body: ragged_paged_attention's
+    # pointers, q_start and q_len [R] after them, its integers, then the
+    # tiles a block (a bf16 round's prefill tiles; tiles of one-token rows
+    # return at once)
+    "ragged_paged_attention_sm90": (
+        "attention_bf16_sm90.cu", "ragged_paged_attention_bf16_sm90",
+        [_P] * 12 + [_I] * 12 + [_I] + [_F, _P],
+    ),
     # the Hopper decode body (C = 1): paged_attention's and paged_attention_q8's arguments
     "paged_attention_decode_sm90": (
         "attention_decode_sm90.cu", "paged_attention_decode_bf16_sm90",
@@ -72,6 +80,16 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "paged_attention_q8_decode_sm90": (
         "attention_decode_sm90.cu", "paged_attention_decode_int8_sm90",
         [_P] * 11 + [_I] * 14 + [_F, _P],
+    ),
+    # ... and its ragged entry (a bf16 round's one-token rows, each row's
+    # pages split over blocks)
+    "ragged_paged_attention_decode_sm90": (
+        "attention_decode_sm90.cu", "ragged_paged_attention_decode_bf16_sm90",
+        # q, k_pages, v_pages, out, part_acc, part_ml, page_table, tok_pos,
+        # kv_len, q_start, q_len
+        [_P] * 11
+        # layer, T, R, H, HKV, D, P, PS, MP, splits, pages_per_split
+        + [_I] * 11 + [_F, _P],  # scale, stream
     ),
     "kv_append": (
         "kv_append.cu", "kv_append_bf16",
@@ -254,8 +272,36 @@ class Prepared:
     keep: tuple
     scratch: torch.Tensor | None = None
 
+    @property
+    def parts(self) -> tuple[Prepared, ...]:
+        return (self,)
+
     def launch(self) -> torch.Tensor:
         launch(self.name, *self.args)
+        return self.out
+
+
+@dataclass(frozen=True)
+class PreparedSeq:
+    """Checked launches that together compute one call into one output
+    (``parts``, each a ``Prepared``), run in order on the current stream:
+    a bf16 ragged round's prefill tiles, then its one-token rows.
+    ``launch()`` runs them all and returns the shared ``out``; each counts
+    its own launch."""
+
+    parts: tuple[Prepared, ...]
+
+    @property
+    def name(self) -> str:
+        return "+".join(p.name for p in self.parts)
+
+    @property
+    def out(self) -> torch.Tensor:
+        return self.parts[-1].out
+
+    def launch(self) -> torch.Tensor:
+        for part in self.parts:
+            part.launch()
         return self.out
 
 

@@ -42,6 +42,15 @@ a pure function of the call's block shape, picks the kernel:
   groups, pages that are not a multiple of 64 keys, and decode there
   (split by ``decode_splits``).
 
+A ragged round (ops/ragged_paged_attention.py) is routed by
+``ragged_kernels_for``: over the bf16 cache at 64-row tiles and pages of
+whole 64-key tiles it is two launches — its prefill tiles through the
+ragged entry of the bf16 prefill body (``ragged_paged_attention_sm90``),
+its one-token rows through the ragged entry of the decode body
+(``ragged_paged_attention_decode_sm90``, each row's pages split over
+blocks by ``decode_split``); every other ragged call is the one kernel
+``attention_kernel_for`` names.
+
 Nothing gives way to anything else: a CUDA tensor reaches the one kernel
 the rule names or raises. ``prepare_paged(name, ..., route=False)`` builds
 the launch of a named kernel with no routing (``chip_smoke.py`` times both
@@ -197,7 +206,9 @@ def attention_kernel_for(kind: str, rows: int, page_size: int, splits: int, *,
     its own split, ``decode_split``); a paged call (either cache) or an
     int8 ragged call of 64-row blocks over whole 64-key tiles with no split
     to the Hopper prefill bodies (``kind + "_sm90"``: bf16 or int8); every
-    other call, bf16 ragged rounds included, to ``kind``."""
+    other call to ``kind`` — a bf16 ragged round among them, which
+    ``ragged_kernels_for`` asks about only where it does not send the round
+    to its pair of Hopper entries."""
     if kind not in ATTENTION_KINDS:
         raise ValueError(f"unknown attention kernel kind {kind!r}")
     if (decode and kind.startswith("paged_") and rows <= DECODE_MAX_GROUP
@@ -207,6 +218,26 @@ def attention_kernel_for(kind: str, rows: int, page_size: int, splits: int, *,
             and page_size % SM90_KEYS == 0 and splits == 1):
         return f"{kind}_sm90"
     return kind
+
+
+RAGGED_BF16_PAIR = ("ragged_paged_attention_sm90", "ragged_paged_attention_decode_sm90")
+
+
+def ragged_kernels_for(kind: str, rows: int, page_size: int, group: int) -> tuple[str, ...]:
+    """The kernels that serve a ragged call of ``kind`` (``ragged_paged_attention``
+    or ``ragged_paged_attention_q8``), launched in order, whose tiles hold
+    ``rows`` query rows (group * tile tokens) over pages of ``page_size``
+    tokens. A bf16 round of 64-row tiles over pages of whole 64-key tiles,
+    with a group the decode body takes (at most ``DECODE_MAX_GROUP`` rows),
+    is ``RAGGED_BF16_PAIR``: the prefill tiles through the bf16 prefill
+    body's ragged entry, the rows of one token through the decode body's
+    (a row is judged by its length, never by its tiles). Every other call is
+    the one kernel ``attention_kernel_for`` names: K3 for the other bf16
+    rounds, the Hopper int8 body or the older one for the int8 cache."""
+    if (kind == "ragged_paged_attention" and rows == SM90_ROWS
+            and page_size % SM90_KEYS == 0 and group <= DECODE_MAX_GROUP):
+        return RAGGED_BF16_PAIR
+    return (attention_kernel_for(kind, rows, page_size, 1),)
 
 
 @functools.lru_cache(maxsize=None)

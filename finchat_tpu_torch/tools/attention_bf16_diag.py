@@ -25,7 +25,15 @@ over 989 TFLOP/s) and the query tiles a block (``query_tiles_per_block``).
 Then the query tiles a block: the Hopper body on the same inputs forced to
 one and to two tiles a block, beside the rule's choice, for a lone chunk
 (B=1 x 512 at q_offset 0 and 2048), the serving chunk (4 x 512) and short
-final chunks (B=1, C=64 and 128 at q_offset 2048).
+final chunks (B=1, C=64 and 128 at q_offset 2048); and the same for the
+body's ragged entry (``ragged_paged_attention_sm90``, a bf16 round's
+prefill tiles) over the two ragged rounds of ``chip_smoke.py`` — two
+512-token rows at q_offset 0 and 1024 beside 60 decode rows over 1-4k, and
+three 512-token rows at q_offset 1024, 2048 and 4096 beside 4 decode rows
+at 5,236 tokens, both in a 2048 bucket of 64 rows, the 60 decode rows
+alone (what the entry's blocks that return at once cost), and a 64-token
+chunk beside 4 decode rows in a 128 bucket (one-tile blocks fit a wave) —
+with the decode body's ragged entry and the pair beside them.
 The diagnostic builds compute garbage and are only timed. Every time is the
 median over 20 CUDA-event-timed runs of back-to-back launches (each launch
 prepared once, ``prepare_paged``); nvcc's register and spill counts of each
@@ -47,6 +55,7 @@ from finchat_tpu_torch.ops.paged_attention import (
     query_tiles_per_block,
     sm_count,
 )
+from finchat_tpu_torch.ops.ragged_paged_attention import prepare_ragged
 from finchat_tpu_torch.tools.attention_q8_diag import _page_table, build_variant, timed
 
 H, HKV, D, PS = 32, 8, 128, 128
@@ -127,6 +136,63 @@ def time_tiles(gen, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def _ragged_inputs(gen, dev, spans, T: int, R: int = 64):
+    """A bf16 round of ``spans`` ((tokens, first position) per row, empty
+    rows up to ``R``) padded to ``T`` tokens over a random cache of two
+    layers (layer 1 read)."""
+    spans = list(spans) + [(0, 0)] * (R - len(spans))
+    kv_lens = [n + p0 for n, p0 in spans]
+    n_pages = 2 + sum(max(1, -(-n // PS)) for n in kv_lens)
+    shape = (2, n_pages, PS, HKV * D)
+    k = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    tok_row = [r for r, (n, _p) in enumerate(spans) for _ in range(n)]
+    tok_pos = [p0 + i for n, p0 in spans for i in range(n)]
+    pad = T - len(tok_row)
+    i32 = dict(dtype=torch.int32, device=dev)
+    q = torch.randn((T, H, D), generator=gen, device=dev, dtype=torch.bfloat16)
+    return (q, k, v, _page_table(gen, dev, kv_lens, n_pages),
+            torch.tensor(tok_row + [R] * pad, **i32), torch.tensor(tok_pos + [0] * pad, **i32),
+            torch.tensor(kv_lens, **i32), 1)
+
+
+def time_ragged_tiles(gen, dev) -> None:
+    """The ragged entry at one and at two tiles a block on the same rounds
+    (the prefill rows' outputs must not change), the decode entry and the
+    pair as routed."""
+    name = "ragged_paged_attention_sm90"
+    dec = [int(x) for x in torch.randint(1, 4096, (60,), generator=gen, device=dev)]
+    rounds = {"2x512 + 60 decode rows": [(512, 0), (512, 1024)] + [(1, n - 1) for n in dec],
+              "3x512 + 4 decode rows at 5236": [(512, 1024), (512, 2048), (512, 4096)]
+              + [(1, 5235)] * 4}
+    # no prefill row: what the entry's blocks that return at once (or only
+    # zero the padding) cost on their own
+    rounds["60 decode rows alone"] = [(1, n - 1) for n in dec]
+    # a small bucket, where one-tile blocks fit a wave: a final 64-token
+    # chunk at q_offset 2048 beside 4 decode rows
+    rounds["64 tokens + 4 decode rows, 128 bucket"] = [(64, 2048)] + [(1, 5235)] * 4
+    print("ragged entry, tiles a block (ms at 1 / 2 tiles; the rule's choice):")
+    for label, spans in rounds.items():
+        args = _ragged_inputs(gen, dev, spans, 128 if "128 bucket" in label else 2048)
+        prep = prepare_ragged(name, *args, page_size=PS, n_kv=HKV, route=False)
+        rule = prep.args[-2]
+        n_pre = sum(n for n, _p in spans if n > 1)  # the prefill rows come first
+        ref = prep.launch().clone()
+        ms = []
+        for tiles in (1, 2, 1, 2):
+            launch = with_tiles(prep, tiles)
+            if not torch.equal(launch.launch()[:n_pre], ref[:n_pre]):
+                raise SystemExit(f"{label}: {tiles} tiles a block change the output")
+            ms.append(timed(launch.launch, name, None))
+        pair = prepare_ragged("ragged_paged_attention", *args, page_size=PS, n_kv=HKV)
+        dec_ms = timed(pair.parts[1].launch, pair.parts[1].name, None)
+        pair_ms = timed(pair.launch, name, None)
+        print(f"  {label}: {ms[0]:.4f} / {ms[1]:.4f}, again {ms[2]:.4f} / {ms[3]:.4f}; rule "
+              f"{rule}; decode entry {dec_ms:.4f}, the pair {pair_ms:.4f}", flush=True)
+        del args, prep, ref, pair
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
@@ -157,6 +223,7 @@ def main() -> None:
         del args
         torch.cuda.empty_cache()
     time_tiles(gen, dev)
+    time_ragged_tiles(gen, dev)
 
 
 if __name__ == "__main__":

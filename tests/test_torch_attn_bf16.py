@@ -5,7 +5,9 @@ it: ``attention_kernel_for`` sends every bf16 paged call of 64-row blocks
 over pages of whole 64-key tiles with no split (every prefill chunk at page
 128) to ``paged_attention_sm90``, and every other bf16 call to the kernel
 it reached before — decode to the decode body, fewer rows, pages of part
-tiles and splits to the older body, every ragged round to K3;
+tiles and splits to the older body; a bf16 ragged round of 64-row tiles
+over pages of whole 64-key tiles to the pair of Hopper ragged entries
+(``ragged_kernels_for``), every other ragged round to K3;
 ``query_tiles_per_block`` gives each block of the body at least one and at
 most two query tiles, never more than the chunk has, one only where the
 call's one-tile blocks fit in a wave, the blocks together cover every
@@ -105,6 +107,15 @@ def test_split_calls_keep_the_older_body(splits):
 @pytest.mark.parametrize("rows", [4, 16, 63, 64])
 @pytest.mark.parametrize("page_size", [16, 64, 128])
 def test_bf16_ragged_rounds_keep_k3(rows, page_size):
+    """A bf16 round of 64-row tiles over pages of whole 64-key tiles is two
+    launches — its prefill tiles through the bf16 prefill body's ragged
+    entry, its one-token rows through the decode body's — and every other
+    bf16 round keeps K3, which is what the single-kernel rule answers."""
+    got = pa.ragged_kernels_for("ragged_paged_attention", rows, page_size, _GROUP)
+    if rows == 64 and page_size % 64 == 0:
+        assert got == ("ragged_paged_attention_sm90", "ragged_paged_attention_decode_sm90")
+    else:
+        assert got == ("ragged_paged_attention",)
     for decode in (False, True):
         assert pa.attention_kernel_for("ragged_paged_attention", rows, page_size, 1,
                                        decode=decode) == "ragged_paged_attention"

@@ -16,6 +16,11 @@ groups of 2 and 8), the FMA fallback for pages that are not a multiple of
 tiles, one or two a block, over a cache whose trash page and stale rows
 are NaN; Llama-3-8B's 4 x 512 chunk at q_offset 0, 1024 and 2048; two
 launches bit-identical; the older body by name beside it), ragged rows with padding and a ``kv_gap`` row,
+K3's Hopper pair (``-k ragged_attention_bf16_pair``: a bf16 round's prefill
+tiles through the bf16 prefill body's ragged entry and its one-token rows
+through the decode body's, over a cache whose trash page and stale rows are
+NaN, each case launched twice over an output and a split workspace filled
+with NaN and bit-identical, each entry by name, the older body beside it),
 and the KV append — each over a bf16 cache and over an int8 cache with its
 scale planes — and the fused dequant matmul's three kernels: v2 by name
 (int8, int4 per column and per group of 128, bf16 and fp32 output, 64- and
@@ -355,6 +360,151 @@ def test_paged_attention_bf16_sm90_refuses_what_it_does_not_take(dev):
         prepare_paged(name, flat[1:].view(q.shape), *args[1:], **kw, route=False)
     with pytest.raises(ValueError, match="64-row blocks"):  # 8 tokens: 32 rows
         prepare_paged(name, q[:, :8].contiguous(), *args[1:], **kw, route=False)
+
+
+# --- K3's Hopper route: the bf16 ragged pair ------------------------------------
+
+# rows (q_len, pos0, kv_len) in absolute coordinates, padded length,
+# page_size, max_pages, per-row kv_gap, (H, Hkv): prefill rows beside decode
+# rows over several key tiles and padding, at pages of 128 and 64; a
+# 17-token row (its last tile holds one token) beside decode rows over many
+# splits; kv_gap rows; padding rows without tokens and a decode row with
+# kv_len 0; groups of 2 and 8; and Llama-3-8B's shape, two 512-token chunks
+# and 12 decode rows over 1-4k tokens in a 1,536-token bucket
+RAGGED_PAIR = [
+    ("mixed_ps128", [(40, 0, 40), (1, 90, 91), (20, 64, 84), (1, 600, 601), (1, 5, 6)],
+     96, 128, 8, None, (8, 2)),
+    ("mixed_ps64", [(33, 0, 33), (1, 1000, 1001), (50, 150, 200), (1, 63, 64)], 100, 64, 20,
+     None, (8, 2)),
+    ("row17_splits", [(17, 50, 67), (1, 5000, 5001), (1, 2100, 2101), (16, 300, 316)], 48, 128,
+     64, None, (8, 2)),
+    ("kv_gap_ps64", [(24, 300, 324), (1, 40, 41), (30, 100, 130), (1, 900, 905)], 64, 64, 20,
+     [128, 0, 64, 256], (8, 2)),
+    ("padding_rows_kv0", [(20, 10, 30), (0, 0, 0), (1, 0, 0), (1, 90, 91), (0, 0, 0)], 40, 128,
+     8, None, (8, 2)),
+    ("group2_ps64", [(70, 20, 90), (1, 300, 301), (1, 64, 65)], 96, 64, 8, None, (4, 2)),
+    ("group8_ps128", [(30, 0, 30), (1, 200, 201), (9, 120, 129)], 48, 128, 4, None, (16, 2)),
+    ("llama3_8b_round", [(512, 0, 512), (512, 1024, 1536)]
+     + [(1, n - 1, n) for n in (1, 63, 64, 65, 700, 1000, 1664, 1665, 2500, 3333, 4000, 4096)],
+     1536, 128, 64, None, (32, 8)),
+]
+
+
+def _ragged_pair_call(dev, case, seed: int):
+    """A round of RAGGED_PAIR over a cache whose trash page and rows at or
+    past each row's compacted kv_len are NaN (the entries must never read
+    them), and the same round over a clean copy for the plain version and
+    the older body."""
+    _name, rows, T, ps, mp, gaps, (H, Hkv) = case
+    rng = np.random.default_rng(seed)
+    comp = [kv - (gaps[r] if gaps else 0) for r, (_q, _p, kv) in enumerate(rows)]
+    n_pages = 2 + sum(max(1, -(-n // ps)) for n in comp)
+    kp, vp, g = _cache(dev, Hkv, ps, n_pages, seed=seed)
+    pt = _page_table(rng, comp, ps, mp, n_pages, dev)
+    tok_row, tok_pos = [], []
+    for r, (q_len, p0, _kv) in enumerate(rows):
+        tok_row += [r] * q_len
+        tok_pos += list(range(p0, p0 + q_len))
+    n_real = len(tok_row)
+    tok_row += [len(rows)] * (T - n_real)
+    tok_pos += [0] * (T - n_real)
+    q = torch.randn((T, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    desc = (pt, torch.tensor(tok_row, dtype=torch.int32, device=dev),
+            torch.tensor(tok_pos, dtype=torch.int32, device=dev),
+            torch.tensor([kv for _q, _p, kv in rows], dtype=torch.int32, device=dev), 1)
+    kp_bad, vp_bad = kp.clone(), vp.clone()
+    for t in (kp_bad, vp_bad):
+        t[:, 0] = float("nan")
+        for r, n in enumerate(comp):
+            for p in range(mp):
+                lo = n - p * ps
+                if int(pt[r, p]) and lo < ps:
+                    t[:, int(pt[r, p]), max(lo, 0):] = float("nan")
+    kw = dict(page_size=ps, n_kv=Hkv,
+              kv_gap=None if gaps is None else torch.tensor(gaps, dtype=torch.int32,
+                                                            device=dev))
+    # which packed tokens each entry writes: one-token rows (decode entry),
+    # the other rows' tokens (prefill entry), padding (prefill entry's zeros)
+    one = [q_len == 1 for q_len, _p, _kv in rows]
+    row_of = torch.tensor(tok_row, device=dev)
+    real = row_of < len(rows)
+    dec = real & torch.tensor(one + [False], device=dev)[row_of.clamp(max=len(rows))]
+    live = real & (torch.tensor(comp + [0], device=dev)[row_of] > 0)
+    return (q, kp_bad, vp_bad, *desc), (q, kp, vp, *desc), kw, dec, live, real
+
+
+def _nan_launch(call):
+    """Fill the call's output and every workspace with NaN, launch it, and
+    return a copy of the output."""
+    for part in call.parts:
+        part.out.fill_(float("nan"))
+        if part.scratch is not None:
+            part.scratch.fill_(float("nan"))
+    out = call.launch().clone()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("n_sm", ["card", "one"])
+@pytest.mark.parametrize("case", RAGGED_PAIR, ids=[c[0] for c in RAGGED_PAIR])
+def test_ragged_attention_bf16_pair_matches_plain(dev, case, n_sm, monkeypatch):
+    """The routed wrapper launches the two Hopper ragged entries once each
+    and nothing else; every real row matches the plain version, rows without
+    keys and the padding are zeros, over a cache whose trash page and stale
+    rows are NaN; two launches over an output and a split workspace filled
+    with NaN are bit-identical; each entry launched by name writes its own
+    rows; the older body, launched by name on the same inputs, matches.
+    With ``n_sm`` "one", the prefill entry takes two tiles of a row a block
+    (``query_tiles_per_block`` on one SM) and the decode entry splits for
+    one SM."""
+    import finchat_tpu_torch.ops.ragged_paged_attention as rpa
+
+    if n_sm == "one":
+        monkeypatch.setattr(rpa, "sm_count", lambda device: 1)
+    args, clean, kw, dec, live, real = _ragged_pair_call(dev, case, seed=51)
+    before = dict(LAUNCHES)
+    got = ragged_flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    assert moved == {"ragged_paged_attention_sm90": 1, "ragged_paged_attention_decode_sm90": 1}
+    want = ragged_paged_attention_ref(*clean, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_rows_close(got[live], want[live])
+    assert bool((got[~live] == 0).all())
+    call = prepare_ragged("ragged_paged_attention", *args, **kw)
+    assert [p.name for p in call.parts] == ["ragged_paged_attention_sm90",
+                                           "ragged_paged_attention_decode_sm90"]
+    first, second = _nan_launch(call), _nan_launch(call)
+    assert torch.equal(first, second) and torch.equal(first, got)
+    for name, mine in (("ragged_paged_attention_sm90", ~dec),
+                       ("ragged_paged_attention_decode_sm90", dec & real)):
+        alone = _nan_launch(prepare_ragged(name, *args, **kw, route=False))
+        assert torch.equal(alone[mine], got[mine]), name
+    old = prepare_ragged("ragged_paged_attention", *clean, **kw, route=False)
+    assert old.name == "ragged_paged_attention"
+    got_old = old.launch()
+    torch.cuda.synchronize()
+    _assert_rows_close(got_old[live], want[live])
+
+
+def test_ragged_bf16_pair_refuses_what_it_does_not_take(dev):
+    args, _clean, kw, *_ = _ragged_pair_call(dev, RAGGED_PAIR[0], seed=52)
+    q = args[0]
+    for name in ("ragged_paged_attention_sm90", "ragged_paged_attention_decode_sm90"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            prepare_ragged(name, q.cpu(), *args[1:], **kw, route=False)
+        flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=dev)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            prepare_ragged(name, flat[1:].view(q.shape), *args[1:], **kw, route=False)
+    wide = torch.zeros((*q.shape[:2], 2 * D), dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        prepare_ragged("ragged_paged_attention_sm90", wide[..., :D], *args[1:], **kw,
+                       route=False)
+    # pages of part tiles (16 keys): K3's round, not the pair's
+    kp16 = torch.zeros((2, 4, 16, 2 * D), dtype=q.dtype, device=dev)
+    with pytest.raises(ValueError, match="64-row tiles"):
+        prepare_ragged("ragged_paged_attention_sm90", q, kp16, kp16, *args[3:],
+                       page_size=16, n_kv=2, route=False)
 
 
 # --- the quantized plane -------------------------------------------------------

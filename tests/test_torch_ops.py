@@ -233,9 +233,12 @@ def test_ragged_tiles_cover_rows_and_padding(bq):
         if T == 0:
             continue
         tok_row = np.concatenate([np.repeat(np.arange(R), lens), np.full(T - T_real, R)])
-        tr, ts, tl, NT = ragged_tiles(torch.from_numpy(tok_row.astype(np.int32)), R, bq)
+        tr, ts, tl, NT, qs, ql = ragged_tiles(torch.from_numpy(tok_row.astype(np.int32)), R, bq)
         tr, ts, tl = tr.numpy(), ts.numpy(), tl.numpy()
         assert NT == -(-T // bq) + R
+        # each row's first packed token and token count
+        assert ql.numpy().tolist() == lens.tolist()
+        assert qs.numpy().tolist() == (np.cumsum(lens) - lens).tolist()
         cover = np.zeros(T, np.int32)
         for j in range(NT):
             for i in range(ts[j], ts[j] + tl[j]):
@@ -256,7 +259,7 @@ def test_ragged_tile_emulation_matches_plain():
     args = (_t(q, "float32"), _t(k_np, "float32"), _t(v_np, "float32"), torch.from_numpy(pt),
             torch.from_numpy(tok_row), torch.from_numpy(tok_pos), torch.from_numpy(kv_len))
     want = ragged_paged_attention_ref(*args, LAYER, page_size=PS, n_kv=Hkv)
-    tr, ts, tl, NT = ragged_tiles(torch.from_numpy(tok_row), len(rows), 4)
+    tr, ts, tl, NT, _q_start, _q_len = ragged_tiles(torch.from_numpy(tok_row), len(rows), 4)
     got = torch.zeros_like(want)
     for j in range(NT):
         r, s, n = int(tr[j]), int(ts[j]), int(tl[j])
