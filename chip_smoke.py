@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the CUDA kernels built from ``finchat_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (build seconds printed), and the registers, stack and spills
    of the Hopper kernels (``cuobjdump -res-usage``), the bf16 prefill body
-   (``attention_bf16_sm90.cu``) and the fused dequant matmul's decode body
+   (``attention_bf16_sm90.cu``: its paged, ragged and contiguous entries)
+   and the fused dequant matmul's decode body
    (``quant_matmul_decode_sm90.cu``) among them; a Hopper attention kernel
    that spills (stack or local memory) fails the run.
 2. Kernels against their plain PyTorch versions on the card, at the serving
@@ -58,7 +59,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    version's median time per call over 20 CUDA-event-timed runs (each of
    back-to-back calls filling ~1 ms, at most 20; an attention kernel's
    launch is timed alone, its call's checks and tile descriptors built
-   once, and the routed wrapper's time, host work included, beside it),
+   once, and the routed wrapper's time, host work included, beside it; the
+   appends' launch and K7's backward as one launch of 20 in a CUDA graph,
+   their yardsticks likewise, the wrapper's time beside it),
    the bound (the
    larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, counted from this
    run's inputs) and a library yardstick the port never calls:
@@ -68,8 +71,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    matmul (none for the quantizing append: no one call quantizes and
    scatters). Last, contiguous flash attention (K7, the training path):
    the forward causal at B=1 S=2048 and with ``q_offset`` 1024 / ``kv_len``
-   1536 at B=4 Sq=512 (held per row as above, plus the log-sum-exp), and the
-   backward on the first case: dq, dk, dv against the plain backward on the
+   1536 at B=4 Sq=512, through the bf16 prefill body's contiguous entry
+   (``flash_attention_sm90``, the kernel ``flash_kernel_for`` names) with the
+   older forward (``flash_attention.cu``) by name beside it, each launched
+   twice over an output and log-sum-exp filled with NaN (identical results),
+   held per row as above plus the log-sum-exp (1e-3); and the backward on
+   the first case, fed by the Hopper forward's out and log-sum-exp: dq, dk,
+   dv against the plain backward on the
    same inputs (per tensor ``||err|| / ||want|| <= 1e-2``, per row
    ``max|err| <= 2^-5 * max(row max, 2^-10 * tensor max)``: the kernel
    rounds dS to bf16 before its products) and against autograd of the
@@ -110,8 +118,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the bf16 layers after it). Then the full model, 32 layers, random bf16
    weights: five AdamW steps (``train/train_step.py``, remat on) on one
    fixed batch of 2048 tokens. Every loss must be finite and the fifth
-   below the first; K7's forward and backward must launch in those steps
-   (counts set to 0 just before). Prints the step time, tokens/s, the
+   below the first; in each step the Hopper forward must launch 64 times
+   (each layer's forward, again in the backward under remat), the older
+   forward never, and the backward 32 times (counts set to 0 just before).
+   Prints the step time, tokens/s, the
    model-FLOP share of the bf16 peak, the peak memory, and a sixth step's
    device time by class (profiler).
 
@@ -466,8 +476,16 @@ def _append_lanes(torch, gen, dev, B: int, P: int):
 
 
 def check_append(torch, gen, dev, results: list) -> None:
+    """K2 bit-exact against its plain version at the serving cache; its
+    prepared launch timed alone, one launch of 20 in a CUDA graph (as the
+    ``index_put_`` yardstick), the wrapper's time beside it."""
     from finchat_tpu_torch.ops.kernels import LAUNCHES
-    from finchat_tpu_torch.ops.kv_append import paged_kv_append, paged_kv_append_ref
+    from finchat_tpu_torch.ops.kv_append import (
+        paged_kv_append,
+        paged_kv_append_ref,
+        prepare_append,
+    )
+    from finchat_tpu_torch.tools.qmm_decode_diag import graph_ms
 
     B, L, P = 64, 32, 512  # the serving cache: [32, 512, 128, 1024]
     HD = HKV * D
@@ -489,7 +507,7 @@ def check_append(torch, gen, dev, results: list) -> None:
     if not exact:
         fail("kv_append: kernel is not bit-exact against its plain version")
 
-    def kern():
+    def wrapper():
         paged_kv_append(kv_new, k_pages, v_pages, pt, pos, n_valid, layer, page_size=PS)
 
     def plain():
@@ -504,23 +522,34 @@ def check_append(torch, gen, dev, results: list) -> None:
         k_ref[layer].index_put_((phys, off), k_rows)
         v_ref[layer].index_put_((phys, off), v_rows)
 
-    ms = time_ms(torch, kern)
+    ms = graph_ms(prepare_append(kv_new, k_pages, v_pages, pt, pos, n_valid, layer,
+                                 page_size=PS).launch)
+    wrapper_ms = time_ms(torch, wrapper)
     plain_ms = time_ms(torch, plain)
-    lib_ms = time_ms(torch, library)
+    lib_ms = graph_ms(library)
     moved = 2 * kv_new.numel() * 2 + B * (4 + 4 + 4)  # rows in, rows out, pos/valid/table
     b_ms, b_by = bound_ms(moved, 0.0)
-    log(f"  kv_append: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_put_ {lib_ms:.4f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by})")
-    results.append(dict(case="kv_append", kernel="kv_append", err=err, rel_err=None, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    log(f"  kv_append: kernel {ms:.4f} ms (a launch of 20 in a CUDA graph; the wrapper, its "
+        f"host work included, {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, index_put_ "
+        f"{lib_ms:.4f} ms (graph), bound {b_ms:.6f} ms ({b_by})")
+    results.append(dict(case="kv_append", kernel="kv_append", err=err, rel_err=None, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        wrapper_ms=wrapper_ms))
     del k_pages, v_pages, k_ref, v_ref
     torch.cuda.empty_cache()
 
 
 def check_append_q8(torch, gen, dev, results: list) -> None:
+    """K5 bit-exact against its plain version at the serving int8 cache;
+    timed as K2 is (no library call quantizes and scatters)."""
     from finchat_tpu_torch.engine.kv_cache import scale_rows
     from finchat_tpu_torch.ops.kernels import LAUNCHES
-    from finchat_tpu_torch.ops.kv_append import paged_kv_append_q8, paged_kv_append_q8_ref
+    from finchat_tpu_torch.ops.kv_append import (
+        paged_kv_append_q8,
+        paged_kv_append_q8_ref,
+        prepare_append_q8,
+    )
+    from finchat_tpu_torch.tools.qmm_decode_diag import graph_ms
 
     B, L, P = 64, 32, 512  # the serving int8 cache: [32, 512, 128, 1024] + scale planes
     HD = HKV * D
@@ -546,21 +575,24 @@ def check_append_q8(torch, gen, dev, results: list) -> None:
     if not exact:
         fail("kv_append_q8: kernel is not bit-exact against its plain version")
 
-    def kern():
+    def wrapper():
         paged_kv_append_q8(kv_new, *cache, pt, pos, n_valid, layer, **kw)
 
     def plain():
         paged_kv_append_q8_ref(kv_new, *ref, pt, pos, n_valid, layer, **kw)
 
-    ms = time_ms(torch, kern)
+    ms = graph_ms(prepare_append_q8(kv_new, *cache, pt, pos, n_valid, layer, **kw).launch)
+    wrapper_ms = time_ms(torch, wrapper)
     plain_ms = time_ms(torch, plain)
     # bf16 rows in, int8 rows and fp32 scales out, pos/valid/table entries
     moved = kv_new.numel() * 2 + kv_new.numel() + B * 2 * HKV * 4 + B * (4 + 4 + 4)
     b_ms, b_by = bound_ms(moved, 0.0)
-    log(f"  kv_append_q8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
+    log(f"  kv_append_q8: kernel {ms:.4f} ms (a launch of 20 in a CUDA graph; the wrapper, its "
+        f"host work included, {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, "
         f"bound {b_ms:.6f} ms ({b_by})")
-    results.append(dict(case="kv_append_q8", kernel="kv_append_q8", err=err, rel_err=None, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    results.append(dict(case="kv_append_q8", kernel="kv_append_q8", err=err, rel_err=None,
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        wrapper_ms=wrapper_ms))
     del cache, ref, k_pages, v_pages, k_scales, v_scales
     torch.cuda.empty_cache()
 
@@ -861,8 +893,12 @@ def grad_errors(torch, got, want) -> tuple[float, float, float]:
 def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list[int],
                 kv_lens: list[int], results: list, backward: bool = False) -> None:
     """K7 against its plain version at one causal shape: the forward (out
-    and log-sum-exp), or with ``backward`` the backward kernels on the
-    forward kernel's out and lse."""
+    and log-sum-exp) through the kernel ``flash_kernel_for`` names, and the
+    older forward by name beside it where that is another; or with
+    ``backward`` the backward kernels on the routed forward's out and lse.
+    Each forward launches twice over an output and lse filled with NaN
+    (identical results) and its prepared launch is timed alone, the routed
+    wrapper's time beside it."""
     import torch.nn.functional as F
 
     from finchat_tpu_torch.ops.flash_attention import (
@@ -870,9 +906,11 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
         flash_attention_bwd_ref,
         flash_attention_fwd,
         flash_attention_ref,
+        prepare_flash,
     )
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.refs import mha_reference
+    from finchat_tpu_torch.tools.qmm_decode_diag import graph_ms
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
@@ -881,7 +919,12 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
     qo = torch.tensor(q_offsets, dtype=torch.int32, device=dev)
     kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     scale = D ** -0.5
+    routed = prepare_flash(q, k, v, qo, kl, causal=True, scale=scale)
+    before = LAUNCHES[routed.name]
     out, lse = flash_attention_fwd(q, k, v, qo, kl, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    if LAUNCHES[routed.name] != before + 1:
+        fail(f"{name}: the wrapper did not launch {routed.name}, the kernel its rule names")
     pairs = _causal_pairs(q_offsets, Sq, kv_lens)
     # SDPA's own causal mask is top-left aligned: give it the mask when the
     # queries sit at an offset
@@ -894,78 +937,111 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     io = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4 + B * 8
     if not backward:
-        kname = "flash_attention"
-
-        def kern():
-            return flash_attention_fwd(q, k, v, qo, kl, causal=True, scale=scale)
+        calls = [routed]
+        if routed.name != "flash_attention":  # the older forward on the same inputs, by name
+            calls.append(prepare_flash(q, k, v, qo, kl, causal=True, scale=scale,
+                                       kernel="flash_attention"))
 
         def plain():
             return flash_attention_ref(q, k, v, q_offset=qo, kv_len=kl, causal=True)
 
-        before = LAUNCHES[kname]
-        got, got_lse = kern()
-        torch.cuda.synchronize()
-        assert LAUNCHES[kname] == before + 1
-        want, want_lse = plain()
-        err, rel, close = attention_errors(torch, got, want)
-        lse_err = (got_lse - want_lse).abs().max().item()
-        finite = bool(torch.isfinite(got.float()).all().item())
-        log(f"  {name}: max_abs_err {err:.3e}, row-relative {rel:.3e} (limit per row: "
-            f"min({ATOL}, {REL_TOL} * max|want|)), lse max_abs_err {lse_err:.3e} (limit 1e-3)")
-        if not (close and finite and lse_err <= 1e-3):
-            fail(f"{name}: kernel disagrees with its plain version (row-relative {rel}, "
-                 f"lse {lse_err}, finite {finite})")
-
         def library():
             F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
 
+        want, want_lse = plain()
         flops = 4.0 * pairs * H * D
-    else:
-        kname = "flash_attention_bwd"
+        b_ms, b_by = bound_ms(io, flops)
+        plain_ms = time_ms(torch, plain, iters=5, warmup=1)
+        lib_ms = time_ms(torch, library)
+        wrapper_ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, qo, kl, causal=True,
+                                                                scale=scale))
+        for n, call in enumerate(calls):
+            got = []
+            for _ in range(2):
+                call.out.fill_(float("nan"))
+                call.aux.fill_(float("nan"))
+                b4 = dict(LAUNCHES)
+                got.append((call.launch().clone(), call.aux.clone()))
+                torch.cuda.synchronize()
+                if {kk: LAUNCHES[kk] - b4[kk] for kk in LAUNCHES if LAUNCHES[kk] != b4[kk]} != \
+                        {call.name: 1}:
+                    fail(f"{name}: a launch of {call.name} was not counted once")
+            (o1, l1), (o2, l2) = got
+            same = bool(torch.equal(o1, o2) and torch.equal(l1, l2))
+            err, rel, close = attention_errors(torch, o1, want)
+            lse_err = (l1 - want_lse).abs().max().item()
+            finite = bool(torch.isfinite(o1.float()).all().item() and torch.isfinite(l1).all())
+            log(f"  {name} [{call.name}]: max_abs_err {err:.3e}, row-relative {rel:.3e} (limit "
+                f"per row: min({ATOL}, {REL_TOL} * max|want|)), lse max_abs_err {lse_err:.3e} "
+                f"(limit 1e-3), two launches identical: {same}")
+            if not (close and finite and lse_err <= 1e-3 and same):
+                fail(f"{name}: {call.name} disagrees with its plain version (row-relative "
+                     f"{rel}, lse {lse_err}, finite {finite}) or with itself ({same})")
+            del got, o1, o2, l1, l2
+            ms = time_ms(torch, call.launch)
+            routed_ms = dict(wrapper_ms=wrapper_ms) if n == 0 else {}
+            log(f"  {name} [{call.name}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share {b_ms / ms:.2f}"
+                + (f"; the routed wrapper, its host work included, {wrapper_ms:.4f} ms"
+                   if routed_ms else ""))
+            results.append(dict(case=name, kernel=call.name, err=err, rel_err=rel, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib_ms, **routed_ms))
+        torch.cuda.empty_cache()
+        return
+    kname = "flash_attention_bwd"
+    log(f"  {name}: the backward reads the out and lse of {routed.name}")
 
-        def kern():
-            return flash_attention_bwd(q, k, v, out, lse, dout, qo, kl, causal=True, scale=scale)
+    def kern():
+        return flash_attention_bwd(q, k, v, out, lse, dout, qo, kl, causal=True, scale=scale)
 
-        def plain():
-            return flash_attention_bwd_ref(q, k, v, out, lse, dout, q_offset=qo, kv_len=kl)
+    def plain():
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, q_offset=qo, kv_len=kl)
 
-        before = LAUNCHES[kname]
-        got = kern()
-        torch.cuda.synchronize()
-        assert LAUNCHES[kname] == before + 1
-        want = plain()
-        leaves = [t.float().requires_grad_() for t in (q, k, v)]
-        mha_reference(*leaves, causal=True, q_offset=qo, kv_len=kl).backward(dout.float())
-        err, worst = 0.0, 0.0
-        for gname, g, w, w32 in zip(("dq", "dk", "dv"), got, want, leaves):
-            e, r, row = grad_errors(torch, g, w)
-            _e32, r32, _row32 = grad_errors(torch, g, w32.grad)
-            finite = bool(torch.isfinite(g.float()).all().item())
-            log(f"  {name} {gname}: max_abs_err {e:.3e}, relative {r:.3e} (limit "
-                f"{GRAD_REL_TOL}), worst row / limit {row:.3f}; against fp32 autograd of "
-                f"mha_reference: relative {r32:.3e} (limit {GRAD_REL_TOL})")
-            if not (r <= GRAD_REL_TOL and row <= 1.0 and r32 <= GRAD_REL_TOL and finite):
-                fail(f"{name} {gname}: kernel disagrees with its plain backward")
-            err, worst = max(err, e), max(worst, r)
-        rel = worst
-        del leaves
-        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
-        o_lib = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True, **sdpa_kw)
-        do_lib = dout.transpose(1, 2).contiguous()
+    before = LAUNCHES[kname]
+    got = kern()
+    torch.cuda.synchronize()
+    assert LAUNCHES[kname] == before + 1
+    want = plain()
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    mha_reference(*leaves, causal=True, q_offset=qo, kv_len=kl).backward(dout.float())
+    err, worst = 0.0, 0.0
+    for gname, g, w, w32 in zip(("dq", "dk", "dv"), got, want, leaves):
+        e, r, row = grad_errors(torch, g, w)
+        _e32, r32, _row32 = grad_errors(torch, g, w32.grad)
+        finite = bool(torch.isfinite(g.float()).all().item())
+        log(f"  {name} {gname}: max_abs_err {e:.3e}, relative {r:.3e} (limit "
+            f"{GRAD_REL_TOL}), worst row / limit {row:.3f}; against fp32 autograd of "
+            f"mha_reference: relative {r32:.3e} (limit {GRAD_REL_TOL})")
+        if not (r <= GRAD_REL_TOL and row <= 1.0 and r32 <= GRAD_REL_TOL and finite):
+            fail(f"{name} {gname}: kernel disagrees with its plain backward")
+        err, worst = max(err, e), max(worst, r)
+    del leaves
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    do_lib = dout.transpose(1, 2).contiguous()
 
-        def library():
-            torch.autograd.grad(o_lib, (qg, kg, vg), do_lib, retain_graph=True)
+    def sdpa():
+        return F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True, **sdpa_kw)
 
-        io += dout.numel() * 2 + (q.numel() + k.numel() + v.numel()) * 2  # dout in, grads out
-        flops = 10.0 * pairs * H * D  # S again, dP, dV, dQ, dK: five products
-    ms = time_ms(torch, kern)
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qg, kg, vg), do_lib)
+
+    io += dout.numel() * 2 + (q.numel() + k.numel() + v.numel()) * 2  # dout in, grads out
+    flops = 10.0 * pairs * H * D  # S again, dP, dV, dQ, dK: five products
+    ms = graph_ms(kern)  # its allocations and checks captured once, not timed
+    wrapper_ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain, iters=5, warmup=1)
-    lib_ms = time_ms(torch, library)
+    # SDPA's backward alone: a graph of forward and backward less one of the
+    # forward (autograd's backward is captured only with its forward)
+    lib_ms = graph_ms(sdpa_fwd_bwd) - graph_ms(sdpa)
     b_ms, b_by = bound_ms(io, flops)
-    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{'backward ' if backward else ''}{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    results.append(dict(case=name, kernel=kname, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    log(f"  {name}: kernel {ms:.4f} ms (a launch of 20 in a CUDA graph; the wrapper, its host "
+        f"work included, {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa backward "
+        f"{lib_ms:.4f} ms (graphs: forward and backward less forward), bound {b_ms:.4f} ms "
+        f"({b_by})")
+    results.append(dict(case=name, kernel=kname, err=err, rel_err=worst, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        wrapper_ms=wrapper_ms))
     torch.cuda.empty_cache()
 
 
@@ -1319,6 +1395,9 @@ def teacher_forced_check(torch, params, config, handles, kv_quant: str) -> dict:
 # --------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S = 1, 2048
+# K7's kernels, counted in the train phase: the Hopper forward (the bf16
+# prefill body's contiguous entry), the older forward, the backward
+K7_KERNELS = ("flash_attention_sm90", "flash_attention", "flash_attention_bwd")
 
 
 def _free(torch) -> None:
@@ -1350,7 +1429,9 @@ def train_check(torch, dev) -> dict:
     reset_launches()
     loss_k, grads_k = value_and_grad(params, tokens, config=config)
     torch.cuda.synchronize()
-    launches = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"])
+    # (Hopper forward, older forward, backward): the training shape's forward
+    # is the bf16 prefill body's contiguous entry
+    launches = tuple(LAUNCHES[k] for k in K7_KERNELS)
     loss_p, grads_p = value_and_grad(params, tokens, config=config,
                                      attention=dense_causal_attention)
     plain = dict(named_leaves(grads_p))
@@ -1374,10 +1455,11 @@ def train_check(torch, dev) -> dict:
     log(f"  2 layers at llama3-8b widths, B={TRAIN_B} S={TRAIN_S}: loss K7 {loss_k.item():.6f}, "
         f"plain {loss_p.item():.6f} (|diff| {loss_diff:.3e}, limit {TRAIN_LOSS_TOL}); worst "
         f"leaf gradient {worst_leaf} relative {worst:.3e}; one-shot forward logits relative "
-        f"{logit_rel:.3e} (limits {TRAIN_REL_TOL}); K7 launches forward {launches[0]}, "
-        f"backward {launches[1]}")
+        f"{logit_rel:.3e} (limits {TRAIN_REL_TOL}); K7 launches (Hopper forward, older "
+        f"forward, backward) {launches}")
     if not (loss_diff <= TRAIN_LOSS_TOL and worst <= TRAIN_REL_TOL
-            and logit_rel <= TRAIN_REL_TOL and finite and all(launches)):
+            and logit_rel <= TRAIN_REL_TOL and finite and launches[0] > 0 and launches[1] == 0
+            and launches[2] > 0):
         fail("train check: the K7 path disagrees with the plain attention")
     del params, got, want
     _free(torch)
@@ -1387,7 +1469,7 @@ def train_check(torch, dev) -> dict:
 
 def _train_class(name: str) -> str:
     n = name.lower()
-    if "flash_fwd_kernel" in n:
+    if "flash_fwd_kernel" in n or "flash_attention_bf16_sm90" in n:
         return "K7 forward"
     if "flash_bwd" in n:
         return "K7 backward"
@@ -1419,23 +1501,27 @@ def train_full(torch, dev, card: str, steps: int = 5) -> dict:
     losses, times, per_step = [], [], []
     reset_launches()
     for _ in range(steps):
-        f0, b0 = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]
+        before = [LAUNCHES[k] for k in K7_KERNELS]
         t0 = time.perf_counter()
         state, loss = train_step(state, tokens)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(loss.item())
-        per_step.append((LAUNCHES["flash_attention"] - f0, LAUNCHES["flash_attention_bwd"] - b0))
+        per_step.append(tuple(LAUNCHES[k] - n for k, n in zip(K7_KERNELS, before)))
     launches = dict(LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"  llama3-8b, {config.n_layers} layers, {n_params(config) / 1e9:.2f} B params, "
         f"B={TRAIN_B} S={TRAIN_S}, remat on: losses {losses}; step seconds "
-        f"{[round(t, 4) for t in times]}; K7 launches per step (forward, backward) {per_step}")
+        f"{[round(t, 4) for t in times]}; K7 launches per step (Hopper forward, older forward, "
+        f"backward) {per_step}")
     L = config.n_layers
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"train: losses not finite and falling: {losses}")
-    if not all(f >= L and b == L for f, b in per_step):
-        fail(f"train: K7 did not run in every layer of every step: {per_step}")
+    # remat: each layer's forward runs twice a step (again in the backward)
+    if not all(step == (2 * L, 0, L) for step in per_step):
+        fail(f"train: K7's Hopper forward did not take every layer's forward twice a step "
+             f"({2 * L}), with none of the older forward, and the backward once ({L}): "
+             f"{per_step}")
 
     step_s = statistics.median(times[1:])  # step 1 also allocates moments and grads
     T = TRAIN_B * TRAIN_S
@@ -1501,8 +1587,9 @@ def main() -> None:
     log_resource_usage(kernels.library_path("quant_matmul_sm90.cu"), "quant_matmul_sm90_kernel")
     log_resource_usage(kernels.library_path("quant_matmul_decode_sm90.cu"), "quant_matmul_decode")
     log_resource_usage(kernels.library_path("attention_q8_sm90.cu"), "attention_q8_sm90_kernel")
-    # the bf16 prefill body's paged and ragged entries, the decode body's
-    # instantiations (paged bf16 and int8, ragged bf16) and their merges
+    # the bf16 prefill body's paged, ragged and contiguous entries, the
+    # decode body's instantiations (paged bf16 and int8, ragged bf16) and
+    # their merges
     spills = [src for src, kernel in (("attention_bf16_sm90.cu", "attention_bf16_sm90_kernel"),
                                       ("attention_decode_sm90.cu", "attention_decode_sm90"))
               if log_resource_usage(kernels.library_path(src), kernel)]
@@ -1560,7 +1647,8 @@ def main() -> None:
             check_qmm(torch, f"int8_m{M}_{K}x{N}", gen, dev, M, K, N, "int8", 0, False, results)
         check_qmm(torch, f"int4_g128_m{M}_4096x14336", gen, dev, M, 4096, 14336, "int4", 128,
                   False, results)
-    log("  contiguous flash attention (training shapes):")
+    log("  contiguous flash attention (training shapes; the Hopper forward, the older forward "
+        "by name beside it):")
     check_flash(torch, "flash_fwd_causal_s2048", gen, dev, 1, 2048, 2048, [0], [2048], results)
     check_flash(torch, "flash_fwd_q1024_kv1536", gen, dev, 4, 512, 1536, [1024] * 4, [1536] * 4,
                 results)
@@ -1615,6 +1703,7 @@ def main() -> None:
         "quant_matmul_int8_decode_sm90": ("quant_matmul_decode_sm90.cu", qmm, "int8+kv8"),
         "quant_matmul_int4_decode_sm90": ("quant_matmul_decode_sm90.cu", qmm, "int4g128+kv8"),
         "flash_attention": ("flash_attention.cu", flash, "train"),
+        "flash_attention_sm90": ("attention_bf16_sm90.cu", flash, "train"),
         "flash_attention_bwd": ("flash_attention.cu", flash, "train"),
     }
     launched = {plane: stats["launches"] for plane, stats in serves.items()}

@@ -1,5 +1,6 @@
 // Attention over the bf16 paged KV cache for Hopper, at prefill: K1's
-// chunks of 64-row query tiles, and the prefill tiles of K3's ragged rounds.
+// chunks of 64-row query tiles, and the prefill tiles of K3's ragged rounds;
+// and K7's forward, causal attention over contiguous K/V.
 //
 // Replaces the TPU kernel finchat_tpu/ops/paged_attention.py
 // paged_flash_attention (_paged_kernel) for calls whose query tiles hold 64
@@ -87,6 +88,23 @@
 // writes zeros for its KV head's columns, so the output needs no memset.
 // Blocks are issued from the last tile, so a row's later tiles, which see
 // the most keys, start first.
+//
+// The contiguous entry (flash_attention_bf16_sm90) replaces
+// finchat_tpu/ops/flash_attention.py flash_attention (_flash_kernel) for its
+// causal calls of 64-row tiles (ops/flash_attention.flash_kernel_for): the
+// training step's forward (Llama-3-8B, S = 2048: 34 GFLOP on 25 MB, 0.035
+// ms at the operations bound) and the one-shot forward. It is a chunk's
+// block over another key map: q [B, Sq, H, D] is a chunk's [B, C, H, D],
+// and contiguous k, v [B, Sk, Hkv, D] viewed as [B * Sk, Hkv * 128] are a
+// page pool of one Sk-row page per sequence (key j of sequence b at row b *
+// Sk + j), in the same boxes. A box that starts inside sequence b may run
+// past Sk into sequence b + 1 (TMA zero-fills only past the whole tensor):
+// kv_len is cut at Sk, so such rows lie at or past kv_len, in the last tile,
+// where their scores are masked and V's rows zeroed, and no value of the
+// next sequence reaches a sum. Each consumer also writes its rows'
+// log-sum-exp, m + ln(l) = ln 2 * (m * scale * log2 e + log2 l) from the
+// base-2 state (-inf for a row without a valid key), which K7's backward
+// kernels (flash_attention.cu) read.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,6 +148,7 @@ constexpr int kSmem = POS_OFF + kMaxTiles * kRows * 4 + 1024;  // + alignment sl
 static_assert(kStage % 1024 == 0 && kBoxBytes % 1024 == 0 && FULL_OFF % 8 == 0, "layout");
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x in one instruction (exp2f adds a range check per value); a result
 // under 2^-126 flushes to zero, a probability too small to move a row's
@@ -313,13 +332,28 @@ __device__ __forceinline__ void zero_v_tail(unsigned char* stage, int live, int 
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "n"(kWarpgroup) : "memory");
 }
 
+// Where a sequence's key lies in the tensor maps' rows: through its page
+// table (the paged and ragged entries), or at row0 + key of the contiguous
+// K/V viewed as [B * Sk, Hkv * 128] (the contiguous entry, row0 = b * Sk).
+struct PageKeys {
+  const int* __restrict__ pt_row;
+  int ps;
+  __device__ __forceinline__ int operator()(int key) const {
+    return pt_row[key / ps] * ps + key % ps;
+  }
+};
+struct ContigKeys {
+  int row0;
+  __device__ __forceinline__ int operator()(int key) const { return row0 + key; }
+};
+
 // The producer: the block's K/V tiles of KV head g into the ring by TMA, a
 // stage refilled once its previous tile is released; boxes wholly past the
 // block's keys are not fetched.
+template <class Keys>
 __device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorMap* vmap,
-                                        const int* __restrict__ pt_row, int ps, int g,
-                                        int n_tiles, int block_keys, uint32_t ring,
-                                        uint32_t full, uint32_t empty) {
+                                        Keys keys, int g, int n_tiles, int block_keys,
+                                        uint32_t ring, uint32_t full, uint32_t empty) {
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kStages;
     if (t >= kStages) fct::mbar_wait(empty + 8 * s, ((t / kStages) + 1) & 1);
@@ -328,7 +362,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorM
     fct::mbar_expect_tx(bar, nb * 4 * kBoxBytes);
     for (int h = 0; h < nb; ++h) {
       const int key = k0 + h * kBox;
-      const int row = pt_row[key / ps] * ps + key % ps;
+      const int row = keys(key);
       const uint32_t st = ring + s * kStage + h * kBoxBytes;
       fct::tma_load_2d(st, kmap, bar, g * D, row);
       fct::tma_load_2d(st + kPanel, kmap, bar, g * D + 64, row);
@@ -341,13 +375,16 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap, const CUtensorM
 // A consumer: query tile w (rows gq * bq + i, group * bq == 64) of KV head g
 // over the block's n_tiles K/V tiles of the ring (keys past its own rows'
 // positions are masked). Writes its bf16 output at out (bq tokens of
-// tok_stride).
+// tok_stride) and, with LSE, each row's natural log-sum-exp at lse[h *
+// lse_stride + i] (-inf for a row without a valid key).
+template <bool LSE>
 __device__ __forceinline__ void consume(const __nv_bfloat16* __restrict__ q_tile,
                                         __nv_bfloat16* __restrict__ out, long tok_stride,
                                         const int* s_pos, int n_tok, int bq, int group, int g,
                                         int kv_len, int n_tiles, int block_keys, float scale,
                                         int w, unsigned char* sm, uint32_t ring, uint32_t full,
-                                        uint32_t empty) {
+                                        uint32_t empty, float* __restrict__ lse,
+                                        long lse_stride) {
   const int wtid = threadIdx.x % kWarpgroup, warp = wtid / 32, lane = wtid % 32;
   // this thread's two rows of its warp's 16 (accumulator rows lane / 4, + 8)
   const int r_a = warp * 16 + lane / 4, r_b = r_a + 8;
@@ -435,18 +472,31 @@ __device__ __forceinline__ void consume(const __nv_bfloat16* __restrict__ q_tile
           __floats2bfloat162_rn(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
     }
   }
+  if (LSE && lane % 4 == 0) {
+    // m + ln(l) from the base-2 state: ln 2 * (m * scale2 + log2(l)); l is
+    // the quad's sum already (softmax_tile reduces it), each lane of the
+    // quad holds it
+    if (v_a) lse[h_a * lse_stride + i_a] = l[0] > 0.f ? kLn2 * fmaf(m[0], scale2, log2f(l[0]))
+                                                     : -INFINITY;
+    if (v_b) lse[h_b * lse_stride + i_b] = l[1] > 0.f ? kLn2 * fmaf(m[1], scale2, log2f(l[1]))
+                                                     : -INFINITY;
+  }
 }
 
-// a block takes `tiles` consecutive query tiles of a chunk (one a consumer
-// warpgroup); blockIdx.x counts from the chunk's end, so the blocks with
-// the most keys start first
-__global__ void __launch_bounds__(kThreads, 1) paged_attention_bf16_sm90_kernel(
-    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+// A block of a chunk: `tiles` consecutive query tiles (one a consumer
+// warpgroup) of sequence blockIdx.z and KV head blockIdx.y; blockIdx.x
+// counts from the chunk's end, so the blocks with the most keys start
+// first. Paged (CONTIG false): keys through the sequence's page table.
+// Contiguous (CONTIG true): each sequence is one page of PS = Sk rows (MP =
+// 1, no page table), kv_len cut at Sk, and each row's log-sum-exp written
+// to lse [B, H, C].
+template <bool CONTIG>
+__device__ __forceinline__ void chunk_block(
+    unsigned char* smem, const CUtensorMap* kmap, const CUtensorMap* vmap,
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-    const int* __restrict__ page_table, const int* __restrict__ q_offset,
-    const int* __restrict__ kv_len, int C, int H, int HKV, int PS, int MP, int BQ, int tiles,
-    float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+    float* __restrict__ lse, const int* __restrict__ page_table,
+    const int* __restrict__ q_offset, const int* __restrict__ kv_len, int C, int H, int HKV,
+    int PS, int MP, int BQ, int tiles, float scale) {
   unsigned char* sm = aligned_smem(smem);
   const uint32_t base = fct::smem_u32(sm);
   const uint32_t ring = base + RING_OFF, full = base + FULL_OFF, empty = base + EMPTY_OFF;
@@ -454,7 +504,9 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_bf16_sm90_kernel(
   const int c0 = (gridDim.x - 1 - blockIdx.x) * tiles * BQ;  // the first tile's first token
   int* s_ntok = reinterpret_cast<int*>(sm + NTOK_OFF);
   int* s_pos = reinterpret_cast<int*>(sm + POS_OFF);
-  const int qoff = q_offset[b], kvl = kv_len[b];
+  // contiguous: rows at or past Sk belong to the next sequence; cut there,
+  // the last tile's V rows from kv_len on are zeroed and their scores masked
+  const int qoff = q_offset[b], kvl = CONTIG ? min(kv_len[b], PS) : kv_len[b];
   for (int i = tid; i < kMaxTiles * kRows; i += kThreads) {
     const int w = i / kRows, k = i % kRows;
     if (k < BQ) s_pos[i] = qoff + c0 + w * BQ + k;
@@ -482,16 +534,46 @@ __global__ void __launch_bounds__(kThreads, 1) paged_attention_bf16_sm90_kernel(
 
   if (wg < 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (tid == 0) produce(&kmap, &vmap, page_table + (long)b * MP, PS, g, n_tiles, block_keys,
-                          ring, full, empty);
+    if (tid == 0) {
+      if (CONTIG) {
+        produce(kmap, vmap, ContigKeys{b * PS}, g, n_tiles, block_keys, ring, full, empty);
+      } else {
+        produce(kmap, vmap, PageKeys{page_table + (long)b * MP, PS}, g, n_tiles, block_keys, ring,
+                full, empty);
+      }
+    }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   if (wg >= tiles) return;
   const long tok = (long)H * D;
   const long tok0 = (long)b * C + c0 + (long)wg * BQ;
-  consume(q + tok0 * tok, out + tok0 * tok, tok, s_pos + wg * kRows, s_ntok[wg], BQ, H / HKV, g,
-          kvl, n_tiles, block_keys, scale, wg, sm, ring, full, empty);
+  consume<CONTIG>(q + tok0 * tok, out + tok0 * tok, tok, s_pos + wg * kRows, s_ntok[wg], BQ,
+                  H / HKV, g, kvl, n_tiles, block_keys, scale, wg, sm, ring, full, empty,
+                  CONTIG ? lse + (long)b * H * C + c0 + wg * BQ : nullptr, C);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) paged_attention_bf16_sm90_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const int* __restrict__ page_table, const int* __restrict__ q_offset,
+    const int* __restrict__ kv_len, int C, int H, int HKV, int PS, int MP, int BQ, int tiles,
+    float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  chunk_block<false>(smem, &kmap, &vmap, q, out, nullptr, page_table, q_offset, kv_len, C, H,
+                     HKV, PS, MP, BQ, tiles, scale);
+}
+
+// contiguous causal attention: q [B, Sq, H, D], k and v [B, Sk, HKV, D] (the
+// tensor maps' rows), out like q, lse [B, H, Sq]
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16_sm90_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, const int* __restrict__ q_offset, const int* __restrict__ kv_len,
+    int Sq, int Sk, int H, int HKV, int BQ, int tiles, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  chunk_block<true>(smem, &kmap, &vmap, q, out, lse, nullptr, q_offset, kv_len, Sq, H, HKV, Sk,
+                    1, BQ, tiles, scale);
 }
 
 // `tiles` consecutive 64-row ragged tiles of one row a block (one a
@@ -551,27 +633,26 @@ __global__ void __launch_bounds__(kThreads, 1) ragged_attention_bf16_sm90_kernel
   const int wg = tid / kWarpgroup - 1;
   if (wg < 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (tid == 0) produce(&kmap, &vmap, page_table + (long)row * MP, PS, g, n_tiles, block_keys,
-                          ring, full, empty);
+    if (tid == 0) produce(&kmap, &vmap, PageKeys{page_table + (long)row * MP, PS}, g, n_tiles,
+                          block_keys, ring, full, empty);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   if (wg >= active) return;
   const long tok0 = ts + (long)wg * BQ;
-  consume(q + tok0 * tok, out + tok0 * tok, tok, s_pos + wg * kRows, wg ? n_tok2 : n_tok, BQ,
-          H / HKV, g, kvl, n_tiles, block_keys, scale, wg, sm, ring, full, empty);
+  consume<false>(q + tok0 * tok, out + tok0 * tok, tok, s_pos + wg * kRows, wg ? n_tok2 : n_tok,
+                 BQ, H / HKV, g, kvl, n_tiles, block_keys, scale, wg, sm, ring, full, empty,
+                 nullptr, 0);
 }
 
-// the layer's pages as [P * page_size, Hkv * 128], read in 64 x 64 boxes,
-// and the kernel's shared memory opted into
-int prepare_maps(CUtensorMap* kmap, CUtensorMap* vmap, const void* k_pages, const void* v_pages,
-                 int layer, int HKV, int P, int PS, const void* kernel) {
-  const long layer_off = (long)layer * P * PS * HKV * D;
-  if (!fct::make_map(kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     static_cast<const __nv_bfloat16*>(k_pages) + layer_off, (uint64_t)P * PS,
+// K and V as [rows, Hkv * 128] from k and v (a layer's pages, rows P *
+// page_size; or contiguous K/V, rows B * Sk), read in 64 x 64 boxes, and
+// the kernel's shared memory opted into
+int prepare_maps(CUtensorMap* kmap, CUtensorMap* vmap, const __nv_bfloat16* k,
+                 const __nv_bfloat16* v, long rows, int HKV, const void* kernel) {
+  if (!fct::make_map(kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, (uint64_t)rows,
                      (uint64_t)HKV * D, kBox, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !fct::make_map(vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     static_cast<const __nv_bfloat16*>(v_pages) + layer_off, (uint64_t)P * PS,
+      !fct::make_map(vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, (uint64_t)rows,
                      (uint64_t)HKV * D, kBox, 64, CU_TENSOR_MAP_SWIZZLE_128B)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -579,13 +660,23 @@ int prepare_maps(CUtensorMap* kmap, CUtensorMap* vmap, const void* k_pages, cons
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem));
 }
 
-// the calls both entries take: head_dim 128, 64-row tiles, whole 64-key
-// boxes in a page, 16-byte aligned operands
+// a layer's pages as the tensor maps' rows
+int prepare_page_maps(CUtensorMap* kmap, CUtensorMap* vmap, const void* k_pages,
+                      const void* v_pages, int layer, int HKV, int P, int PS,
+                      const void* kernel) {
+  const long layer_off = (long)layer * P * PS * HKV * D;
+  return prepare_maps(kmap, vmap, static_cast<const __nv_bfloat16*>(k_pages) + layer_off,
+                      static_cast<const __nv_bfloat16*>(v_pages) + layer_off, (long)P * PS, HKV,
+                      kernel);
+}
+
+// the calls every entry takes: head_dim 128, 64-row tiles, 16-byte aligned
+// operands (the paged entries also whole 64-key boxes in a page)
 bool takes(const void* q, const void* k, const void* v, const void* out, int H, int HKV,
-           int D_, int PS, int BQ) {
+           int D_, int BQ) {
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  return D_ == D && HKV > 0 && H % HKV == 0 && (H / HKV) * BQ == kRows && PS % kBox == 0 &&
-         aligned(q) && aligned(k) && aligned(v) && aligned(out);
+  return D_ == D && HKV > 0 && H % HKV == 0 && (H / HKV) * BQ == kRows && aligned(q) &&
+         aligned(k) && aligned(v) && aligned(out);
 }
 
 }  // namespace
@@ -603,13 +694,14 @@ extern "C" int paged_attention_bf16_sm90(const void* q, const void* k_pages, con
                                          int splits, int pages_per_split, int tiles,
                                          float scale, void* stream) {
   (void)part_acc, (void)part_ml, (void)KT, (void)pages_per_split;
-  if (!takes(q, k_pages, v_pages, out, H, HKV, D_, PS, BQ) || splits != 1 || tiles < 1 ||
-      tiles > kMaxTiles) {
+  if (!takes(q, k_pages, v_pages, out, H, HKV, D_, BQ) || PS % kBox != 0 || splits != 1 ||
+      tiles < 1 || tiles > kMaxTiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap kmap, vmap;
-  const int err = prepare_maps(&kmap, &vmap, k_pages, v_pages, layer, HKV, P, PS,
-                               reinterpret_cast<const void*>(paged_attention_bf16_sm90_kernel));
+  const int err =
+      prepare_page_maps(&kmap, &vmap, k_pages, v_pages, layer, HKV, P, PS,
+                        reinterpret_cast<const void*>(paged_attention_bf16_sm90_kernel));
   if (err != 0) return err;
   const dim3 grid((C + tiles * BQ - 1) / (tiles * BQ), HKV, B);
   paged_attention_bf16_sm90_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
@@ -631,13 +723,14 @@ extern "C" int ragged_paged_attention_bf16_sm90(
     int H, int HKV, int D_, int P, int PS, int KT, int MP, int NT, int BQ, int tiles,
     float scale, void* stream) {
   (void)T, (void)KT;
-  if (!takes(q, k_pages, v_pages, out, H, HKV, D_, PS, BQ) || NT < 1 || tiles < 1 ||
-      tiles > kMaxTiles) {
+  if (!takes(q, k_pages, v_pages, out, H, HKV, D_, BQ) || PS % kBox != 0 || NT < 1 ||
+      tiles < 1 || tiles > kMaxTiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap kmap, vmap;
-  const int err = prepare_maps(&kmap, &vmap, k_pages, v_pages, layer, HKV, P, PS,
-                               reinterpret_cast<const void*>(ragged_attention_bf16_sm90_kernel));
+  const int err =
+      prepare_page_maps(&kmap, &vmap, k_pages, v_pages, layer, HKV, P, PS,
+                        reinterpret_cast<const void*>(ragged_attention_bf16_sm90_kernel));
   if (err != 0) return err;
   ragged_attention_bf16_sm90_kernel<<<dim3(NT, HKV), kThreads, kSmem,
                                       static_cast<cudaStream_t>(stream)>>>(
@@ -647,5 +740,31 @@ extern "C" int ragged_paged_attention_bf16_sm90(
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_len),
       static_cast<const int*>(q_start), static_cast<const int*>(q_len), R, H, HKV, PS, MP, BQ,
       tiles, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the arguments of flash_attention_fwd_bf16 (flash_attention.cu), then the
+// query tokens of a 64-row tile (BQ) and the query tiles a block (1 or 2).
+// Refuses (cudaErrorInvalidValue) a call it does not take: causal, head_dim
+// 128, 64-row tiles, 16-byte aligned operands.
+extern "C" int flash_attention_bf16_sm90(const void* q, const void* k, const void* v, void* out,
+                                         void* lse, const void* q_offset, const void* kv_len,
+                                         int B, int Sq, int Sk, int H, int HKV, int D_,
+                                         int causal, int BQ, int tiles, float scale,
+                                         void* stream) {
+  if (!takes(q, k, v, out, H, HKV, D_, BQ) || causal != 1 || B < 1 || B > 65535 || Sq < 1 ||
+      Sk < 1 || tiles < 1 || tiles > kMaxTiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap kmap, vmap;
+  const int err = prepare_maps(&kmap, &vmap, static_cast<const __nv_bfloat16*>(k),
+                               static_cast<const __nv_bfloat16*>(v), (long)B * Sk, HKV,
+                               reinterpret_cast<const void*>(flash_attention_bf16_sm90_kernel));
+  if (err != 0) return err;
+  const dim3 grid((Sq + tiles * BQ - 1) / (tiles * BQ), HKV, B);
+  flash_attention_bf16_sm90_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), static_cast<const int*>(q_offset),
+      static_cast<const int*>(kv_len), Sq, Sk, H, HKV, BQ, tiles, scale);
   return static_cast<int>(cudaGetLastError());
 }

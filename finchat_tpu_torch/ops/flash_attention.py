@@ -5,12 +5,29 @@ kv_len, causal, scale)`` has the JAX package's signature and semantics
 (``finchat_tpu/ops/flash_attention.py``): query row i of sequence b sits at
 ``q_offset[b] + i`` and sees keys at or before it (causal mode), keys at or
 past ``kv_len[b]`` are masked, and GQA groups ``H // Hkv`` query heads on
-one KV head without repeating K or V. It launches the hand-written kernel
-(``csrc/flash_attention.cu``, replacing the TPU kernel ``_flash_kernel``),
-which also writes the per-row log-sum-exp, and it is differentiable:
-``FlashAttentionFn``'s backward launches the backward kernels, which rebuild
-P from that log-sum-exp (the flash-attention-2 form). The JAX package has
-no backward for its kernel; its train step differentiates ``mha_reference``.
+one KV head without repeating K or V. It launches a hand-written forward
+kernel (replacing the TPU kernel ``_flash_kernel``), which also writes the
+per-row log-sum-exp, and it is differentiable: ``FlashAttentionFn``'s
+backward launches the backward kernels (``csrc/flash_attention.cu``), which
+rebuild P from that log-sum-exp (the flash-attention-2 form). The JAX
+package has no backward for its kernel; its train step differentiates
+``mha_reference``.
+
+``flash_kernel_for``, a pure function of the call, picks the forward:
+
+- ``flash_attention_sm90`` (``csrc/attention_bf16_sm90.cu``, the contiguous
+  entry of the bf16 prefill body): causal calls at head_dim 128 whose query
+  tiles hold 64 rows (group * tile tokens, ``paged_attention.tile_tokens``)
+  — the training step and the one-shot forward of Llama-3. A TMA ring of
+  K/V tiles and ``wgmma`` consumers, ``query_tiles_per_block`` query tiles a
+  block.
+- ``flash_attention`` (``csrc/flash_attention.cu``): every other call —
+  ``causal=False`` (only tests ask for it), other head dims, fewer rows.
+
+Nothing gives way to anything else: a CUDA tensor reaches the kernel the
+rule names or raises. ``prepare_flash(..., kernel=name)`` builds the launch
+of a named forward with no routing (``chip_smoke.py`` times both on the same
+inputs with it).
 
 ``flash_attention_ref`` is the plain version (``mha_reference``'s math, plus
 the log-sum-exp ``[B, H, Sq]`` fp32) and ``flash_attention_bwd_ref`` the
@@ -32,9 +49,16 @@ import torch
 
 from finchat_tpu_torch.ops import kernels
 from finchat_tpu_torch.ops.kernels import check
+from finchat_tpu_torch.ops.paged_attention import (
+    SM90_ROWS,
+    query_tiles_per_block,
+    sm_count,
+    tile_tokens,
+)
 from finchat_tpu_torch.ops.refs import attention_mask, gqa_repeat, masked_logits
 
 HEAD_DIM = 128  # the kernels are built for Llama-3's head_dim
+FORWARD_KERNELS = ("flash_attention_sm90", "flash_attention")
 
 
 def _descriptors(B: int, Sk: int, q_offset, kv_len, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -134,20 +158,55 @@ def _check_descriptors(q: torch.Tensor, q_offset: torch.Tensor, kv_len: torch.Te
               and t.device == q.device, "q_offset and kv_len must be [B] int32 on q's device")
 
 
-def flash_attention_fwd(q, k, v, q_offset: torch.Tensor, kv_len: torch.Tensor, *,
-                        causal: bool, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel: ``(out, lse)``. Raises on a tensor it does not
+def flash_kernel_for(causal: bool, group: int, head_dim: int, Sq: int, aligned: bool) -> str:
+    """The forward kernel of a call: ``flash_attention_sm90`` for causal
+    calls at head_dim 128 whose query tiles hold 64 rows (``group`` query
+    heads a KV head times ``tile_tokens(group, Sq)``) over 16-byte aligned
+    tensors; ``flash_attention`` for every other. No condition on Sk: the
+    entry cuts kv_len at Sk, which keeps the next sequence's rows out of
+    every sum."""
+    if (causal and head_dim == HEAD_DIM and group * tile_tokens(group, Sq) == SM90_ROWS
+            and aligned):
+        return "flash_attention_sm90"
+    return "flash_attention"
+
+
+def prepare_flash(q, k, v, q_offset: torch.Tensor, kv_len: torch.Tensor, *, causal: bool,
+                  scale: float, kernel: str | None = None) -> kernels.Prepared:
+    """Check a forward call and build its launch, without launching: the
+    kernel ``flash_kernel_for`` picks, or the forward named ``kernel`` (one
+    of ``FORWARD_KERNELS``) with no routing. ``out`` is the output,
+    ``aux`` the log-sum-exp [B, H, Sq] fp32. Raises on a tensor it does not
     take, a CPU one included."""
     _check(q, k, v)
     _check_descriptors(q, q_offset, kv_len)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    rule = flash_kernel_for(causal, group, D, Sq, aligned=True)  # _check: 16-byte aligned
+    name = rule if kernel is None else kernel
+    check(name in FORWARD_KERNELS, f"{name} is not a flash attention forward kernel")
+    extra = ()
+    if name == "flash_attention_sm90":
+        check(rule == name, "flash_attention_sm90 takes causal calls at head_dim 128 whose "
+              f"query tiles hold 64 rows (got causal={causal}, group {group}, Sq {Sq})")
+        extra = (tile_tokens(group, Sq), query_tiles_per_block(B, Sq, group, Hkv,
+                                                               sm_count(q.device)))
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    kernels.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   lse.data_ptr(), q_offset.data_ptr(), kv_len.data_ptr(),
-                   B, Sq, Sk, H, Hkv, D, int(causal), float(scale))
-    return out, lse
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            q_offset.data_ptr(), kv_len.data_ptr(), B, Sq, Sk, H, Hkv, D, int(causal), *extra,
+            float(scale))
+    return kernels.Prepared(name, args, out, (q, k, v, q_offset, kv_len), aux=lse)
+
+
+def flash_attention_fwd(q, k, v, q_offset: torch.Tensor, kv_len: torch.Tensor, *,
+                        causal: bool, scale: float, kernel: str | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel ``prepare_flash`` picks (or ``kernel``): ``(out,
+    lse)``. Raises on a tensor it does not take, a CPU one included."""
+    call = prepare_flash(q, k, v, q_offset, kv_len, causal=causal, scale=scale, kernel=kernel)
+    return call.launch(), call.aux
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, q_offset: torch.Tensor, kv_len: torch.Tensor,
@@ -171,8 +230,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_offset: torch.Tensor, kv_len:
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """K7 with its gradient: the forward kernel saves ``out`` and ``lse``;
-    the backward kernels recompute P from them."""
+    """K7 with its gradient: the routed forward kernel saves ``out`` and
+    ``lse``; the backward kernels recompute P from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, kv_len, causal: bool, scale: float):

@@ -163,6 +163,13 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # q, k, v, out, lse, q_offset, kv_len; B, Sq, Sk, H, HKV, D, causal
         [_P] * 7 + [_I] * 7 + [_F, _P],  # scale, stream
     ),
+    # K7's forward on the bf16 prefill body (causal, 64-row tiles):
+    # flash_attention's arguments, then the tile tokens and the query tiles
+    # a block
+    "flash_attention_sm90": (
+        "attention_bf16_sm90.cu", "flash_attention_bf16_sm90",
+        [_P] * 7 + [_I] * 7 + [_I] * 2 + [_F, _P],
+    ),
     "flash_attention_bwd": (
         "flash_attention.cu", "flash_attention_bwd_bf16",
         # q, k, v, out, dout, lse, delta, dq, dk, dv, q_offset, kv_len;
@@ -262,15 +269,18 @@ def launch(name: str, *args) -> None:
 class Prepared:
     """One checked launch of kernel ``name``: its C arguments, its output
     and every tensor the arguments point into (kept alive here), among them
-    ``scratch``, the workspace it writes before ``out`` where it has one.
-    ``launch()`` runs it on the current stream and returns ``out``; a
-    caller that launches it again reuses the same buffers."""
+    ``scratch``, the workspace it writes before ``out`` where it has one,
+    and ``aux``, a second output it writes beside ``out`` where it has one
+    (K7's log-sum-exp). ``launch()`` runs it on the current stream and
+    returns ``out``; a caller that launches it again reuses the same
+    buffers."""
 
     name: str
     args: tuple
     out: torch.Tensor
     keep: tuple
     scratch: torch.Tensor | None = None
+    aux: torch.Tensor | None = None
 
     @property
     def parts(self) -> tuple[Prepared, ...]:

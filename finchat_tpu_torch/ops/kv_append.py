@@ -19,6 +19,10 @@ round half to even), the int8 row written into the page and its scale
 into the scale plane at ``[layer, phys, head, pos % page_size]``. Only the
 one row is written; ``paged_kv_append_q8_ref`` is its plain version,
 held bit-exact, data and scales.
+
+``prepare_append`` / ``prepare_append_q8`` check a call and build its
+launch (``kernels.Prepared``, ``out`` the K pages, written in place); the
+wrappers launch it once, ``chip_smoke.py`` times the launch alone.
 """
 
 from __future__ import annotations
@@ -104,6 +108,15 @@ def paged_kv_append(
     """Append one token's K/V per sequence into layer ``layer``'s pages, in
     place, by the CUDA kernel (bf16 only); returns the same cache pair.
     Raises on a tensor it does not take, a CPU one included."""
+    prepare_append(kv_new, k_pages, v_pages, page_table, pos, n_valid, layer,
+                   page_size=page_size).launch()
+    return k_pages, v_pages
+
+
+def prepare_append(kv_new: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                   page_table: torch.Tensor, pos: torch.Tensor, n_valid: torch.Tensor,
+                   layer: int, *, page_size: int) -> kernels.Prepared:
+    """Check a ``paged_kv_append`` call and build its launch."""
     check(k_pages.is_cuda, "the kv_append kernel runs on CUDA tensors "
           "(paged_kv_append_ref is the plain version)")
     L, P, PS, HD = k_pages.shape
@@ -121,12 +134,10 @@ def paged_kv_append(
         check(t.is_cuda and t.device == k_pages.device and t.is_contiguous(),
               "kv_append tensors must be contiguous on one CUDA device")
     check(0 <= layer < L, f"layer {layer} out of range")
-    kernels.launch(
-        "kv_append", kv_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), pos.data_ptr(), n_valid.data_ptr(),
-        layer, B, P, PS, HD, page_table.shape[1],
-    )
-    return k_pages, v_pages
+    args = (kv_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+            pos.data_ptr(), n_valid.data_ptr(), layer, B, P, PS, HD, page_table.shape[1])
+    return kernels.Prepared("kv_append", args, k_pages,
+                            (kv_new, k_pages, v_pages, page_table, pos, n_valid))
 
 
 def paged_kv_append_q8(
@@ -147,6 +158,16 @@ def paged_kv_append_q8(
     ``layer``'s int8 pages and scale planes, in place, by the CUDA kernel
     (bf16 rows in); returns the same four tensors. Raises on a tensor it
     does not take, a CPU one included."""
+    prepare_append_q8(kv_new, k_pages, v_pages, k_scales, v_scales, page_table, pos, n_valid,
+                      layer, page_size=page_size, n_kv=n_kv).launch()
+    return k_pages, v_pages, k_scales, v_scales
+
+
+def prepare_append_q8(kv_new: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                      k_scales: torch.Tensor, v_scales: torch.Tensor, page_table: torch.Tensor,
+                      pos: torch.Tensor, n_valid: torch.Tensor, layer: int, *, page_size: int,
+                      n_kv: int) -> kernels.Prepared:
+    """Check a ``paged_kv_append_q8`` call and build its launch."""
     check(k_pages.is_cuda, "the kv_append_q8 kernel runs on CUDA tensors "
           "(paged_kv_append_q8_ref is the plain version)")
     L, P, PS, HD = k_pages.shape
@@ -170,9 +191,9 @@ def paged_kv_append_q8(
         check(t.is_cuda and t.device == k_pages.device and t.is_contiguous(),
               "kv_append_q8 tensors must be contiguous on one CUDA device")
     check(0 <= layer < L, f"layer {layer} out of range")
-    kernels.launch(
-        "kv_append_q8", kv_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr(), v_scales.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
-        n_valid.data_ptr(), layer, B, P, PS, n_kv, HD // n_kv, SPAD, page_table.shape[1],
-    )
-    return k_pages, v_pages, k_scales, v_scales
+    args = (kv_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
+            v_scales.data_ptr(), page_table.data_ptr(), pos.data_ptr(), n_valid.data_ptr(),
+            layer, B, P, PS, n_kv, HD // n_kv, SPAD, page_table.shape[1])
+    return kernels.Prepared("kv_append_q8", args, k_pages,
+                            (kv_new, k_pages, v_pages, k_scales, v_scales, page_table, pos,
+                             n_valid))

@@ -1,6 +1,6 @@
 """What paces the Hopper bf16 prefill attention body, on one H100.
 
-    python -m finchat_tpu_torch.tools.attention_bf16_diag
+    python -m finchat_tpu_torch.tools.attention_bf16_diag [--contiguous]
 
 Times, at the prefill shapes of ``chip_smoke.py`` (Llama-3-8B heads, page
 128; a 4 x 512 chunk at q_offset 0, 1024 and 2048), the older bf16 body
@@ -34,6 +34,13 @@ at 5,236 tokens, both in a 2048 bucket of 64 rows, the 60 decode rows
 alone (what the entry's blocks that return at once cost), and a 64-token
 chunk beside 4 decode rows in a 128 bucket (one-tile blocks fit a wave) —
 with the decode body's ragged entry and the pair beside them.
+
+Then, or alone with ``--contiguous``, the body's contiguous entry
+(``flash_attention_sm90``, K7's forward) at K7's two cases in
+``chip_smoke.py`` — causal B=1 S=2048 (the training step's call) and B=4
+Sq=512 at q_offset 1024 over 1,536 keys — at one and at two query tiles a
+block beside the rule's choice, the three diagnostic builds, and the older
+forward (``flash_attention.cu``) by name.
 The diagnostic builds compute garbage and are only timed. Every time is the
 median over 20 CUDA-event-timed runs of back-to-back launches (each launch
 prepared once, ``prepare_paged``); nvcc's register and spill counts of each
@@ -43,6 +50,7 @@ build are printed. Needs a CUDA device and nvcc; writes its builds under
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import subprocess
 import sys
@@ -50,6 +58,7 @@ import sys
 import torch
 
 from finchat_tpu_torch.ops import kernels
+from finchat_tpu_torch.ops.flash_attention import prepare_flash
 from finchat_tpu_torch.ops.paged_attention import (
     prepare_paged,
     query_tiles_per_block,
@@ -193,7 +202,47 @@ def time_ragged_tiles(gen, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def time_contiguous(gen, dev, libs) -> None:
+    """The contiguous entry at K7's two cases: one and two query tiles a
+    block (the outputs and log-sum-exps must not change), the diagnostic
+    builds and the older forward by name."""
+    name = "flash_attention_sm90"
+    print("contiguous entry (K7's forward; ms):")
+    for B, Sq, Sk, q_off in ((1, 2048, 2048, 0), (4, 512, 1536, 1024)):
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn((B, Sk, HKV, D), generator=gen, device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        qo = torch.full((B,), q_off, dtype=torch.int32, device=dev)
+        kl = torch.full((B,), Sk, dtype=torch.int32, device=dev)
+        prep = prepare_flash(q, k, v, qo, kl, causal=True, scale=D ** -0.5)
+        assert prep.name == name
+        rule = prep.args[-2]
+        ref = prep.launch().clone(), prep.aux.clone()
+        ms = []
+        for tiles in (1, 2, 1, 2):
+            launch = with_tiles(prep, tiles)
+            if not (torch.equal(launch.launch(), ref[0]) and torch.equal(launch.aux, ref[1])):
+                raise SystemExit(f"{B}x{Sq} at q{q_off}: {tiles} tiles a block change the output")
+            ms.append(timed(launch.launch, name, None))
+        keys = B * sum(min(q_off + i + 1, Sk) for i in range(Sq))
+        moved = 2 * B * Sq * H * D * 2 + 2 * B * Sk * HKV * D * 2 + B * H * Sq * 4
+        bound = max(moved / HBM_BYTES_PER_S, 4.0 * keys * H * D / BF16_FLOPS_PER_S) * 1e3
+        old = prepare_flash(q, k, v, qo, kl, causal=True, scale=D ** -0.5,
+                            kernel="flash_attention")
+        print(f"  {B}x{Sq} at q{q_off} over {Sk} keys (bound {bound:.4f}): tiles 1 / 2 "
+              f"{ms[0]:.4f} / {ms[1]:.4f}, again {ms[2]:.4f} / {ms[3]:.4f}; rule {rule}; "
+              + ", ".join(f"{label} {timed(prep.launch, name, lib):.4f}"
+                          for label, lib in libs.items())
+              + f"; older forward {timed(old.launch, old.name, None):.4f}", flush=True)
+        del q, k, v, prep, old, ref
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--contiguous", action="store_true",
+                        help="time the contiguous entry (K7's forward) only")
+    contiguous_only = parser.parse_args().contiguous
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
     dev = torch.device("cuda", 0)
@@ -207,6 +256,9 @@ def main() -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
+    if contiguous_only:
+        time_contiguous(gen, dev, libs)
+        return
     kw = dict(page_size=PS, n_kv=HKV)
     new, old = "paged_attention_sm90", "paged_attention"
     for q_off in (0, 1024, 2048):
@@ -224,6 +276,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     time_tiles(gen, dev)
     time_ragged_tiles(gen, dev)
+    time_contiguous(gen, dev, libs)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,14 @@ llama3-8b's layer shapes at M=64, a head-like fp32 N, int4 groups of 8 to
 workspace and output filled with NaN, bit-identical), with the routing
 rule among them — and contiguous flash attention (K7), forward and
 backward (causal and not, ``q_offset``/``kv_len`` with an empty sequence,
-GQA groups of 4 and 8, lengths off the 64-row tile).
+GQA groups of 4 and 8, lengths off the 64-row tile; the older forward by
+name), and K7's Hopper forward (``-k "flash and sm90"``: the bf16 prefill
+body's contiguous entry, routed by ``flash_kernel_for``; out and
+log-sum-exp over outputs filled with NaN and K/V whose rows at or past each
+kv_len are NaN, a sequence's last box running into the next sequence's NaN
+rows, a call smaller than one TMA box, groups of 1 to 8, one and two query
+tiles a block, two launches bit-identical, the refusals, and a 2-layer
+train step through it).
 
 Tolerance for attention, per output row (one token of one head):
 ``max|got - want| <= min(2e-2, 2^-6 * max|want|)`` over the row. Both sides
@@ -75,12 +82,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from finchat_tpu_torch.engine.kv_cache import scale_rows  # noqa: E402
+from finchat_tpu_torch.ops import kernels  # noqa: E402
 from finchat_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
     flash_attention_fwd,
     flash_attention_ref,
+    flash_kernel_for,
+    prepare_flash,
 )
 from finchat_tpu_torch.models.quant import dequantize, quantize, quantize_int4  # noqa: E402
 from finchat_tpu_torch.ops.kernels import LAUNCHES  # noqa: E402
@@ -1094,9 +1104,12 @@ def _assert_grad_close(got, want):
 
 @pytest.mark.parametrize("case", FLASH, ids=[c[0] for c in FLASH])
 def test_flash_attention_forward_kernel_matches_plain(dev, case):
+    """The older forward, launched by name (the rule sends the causal cases of
+    64-row tiles to the Hopper entry, held below)."""
     q, k, v, _dout, qo, kl, causal = _flash_inputs(dev, case, seed=10)
     before = LAUNCHES["flash_attention"]
-    out, lse = flash_attention_fwd(q, k, v, qo, kl, causal=causal, scale=D ** -0.5)
+    out, lse = flash_attention_fwd(q, k, v, qo, kl, causal=causal, scale=D ** -0.5,
+                                   kernel="flash_attention")
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == before + 1
     want, want_lse = flash_attention_ref(q, k, v, q_offset=qo, kv_len=kl, causal=causal)
@@ -1124,14 +1137,17 @@ def test_flash_attention_backward_kernel_matches_plain(dev, case):
 
 def test_flash_attention_autograd_launches_both_kernels(dev):
     """``flash_attention`` is differentiable: backward() runs the backward
-    kernel, and the gradients equal a direct call's."""
+    kernel after the routed forward (the Hopper entry at this causal group
+    of 4), and the gradients equal a direct call's."""
     q, k, v, dout, qo, kl, _causal = _flash_inputs(dev, FLASH[0], seed=12)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    f0, b0 = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]
+    fwd = flash_kernel_for(True, q.shape[2] // k.shape[2], D, q.shape[1], True)
+    assert fwd == "flash_attention_sm90"
+    f0, b0 = LAUNCHES[fwd], LAUNCHES["flash_attention_bwd"]
     out = flash_attention(*leaves)
     out.backward(dout)
     torch.cuda.synchronize()
-    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]) == (f0 + 1, b0 + 1)
+    assert (LAUNCHES[fwd], LAUNCHES["flash_attention_bwd"]) == (f0 + 1, b0 + 1)
     _o, lse = flash_attention_fwd(q, k, v, qo, kl, causal=True, scale=D ** -0.5)
     direct = flash_attention_bwd(q, k, v, out.detach(), lse, dout, qo, kl, causal=True,
                                  scale=D ** -0.5)
@@ -1151,3 +1167,138 @@ def test_flash_attention_wrapper_refuses_what_it_does_not_take(dev):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q.cpu(), k.cpu(), k.cpu())
+
+
+# --- K7's Hopper forward: the bf16 prefill body's contiguous entry ------------
+
+# (name, B, Sq, Sk, H, Hkv, q_offsets, kv_lens): causal calls the rule sends
+# to the entry — Sk off the 64-key box, so a sequence's last box runs into
+# the next sequence's rows (NaN where that sequence has kv_len 0); a call
+# smaller than one 64-row box; kv_len under Sk and q_offset; a partial last
+# query tile; groups of 1, 2, 4 and 8; and Llama-3-8B's training shape
+FLASH_SM90 = [
+    ("spill_into_next_sequence", 3, 100, 100, 8, 2, [0, 0, 0], [100, 0, 77]),
+    ("smaller_than_a_box", 1, 16, 16, 8, 2, [0], [16]),
+    ("offset_kv_len_empty_row", 3, 70, 300, 8, 2, [0, 100, 230], [70, 170, 0]),
+    ("partial_tile_group4", 2, 100, 163, 8, 2, [63, 0], [163, 100]),
+    ("mha_group1", 1, 130, 130, 2, 2, [0], [130]),
+    ("group2", 2, 96, 96, 4, 2, [0, 0], [96, 50]),
+    ("group8", 1, 129, 129, 16, 2, [0], [129]),
+    ("llama3_8b_train", 1, 2048, 2048, 32, 8, [0], [2048]),
+]
+
+
+def _flash_sm90_inputs(dev, case, seed: int):
+    """A call of FLASH_SM90 with K/V whose rows at or past each kv_len are
+    NaN (the entry must never read them into a sum), and the same call over
+    clean K/V for the plain version."""
+    _name, B, Sq, Sk, H, Hkv, q_off, kv_len = case
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, k, v = (torch.randn((B, S, n, D), generator=g, device=dev, dtype=torch.bfloat16)
+               for S, n in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+    qo = torch.tensor(q_off, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    stale = torch.arange(Sk, device=dev)[None, :] >= kl[:, None]  # [B, Sk]
+    k_bad, v_bad = (t.masked_fill(stale[:, :, None, None], float("nan")) for t in (k, v))
+    return (q, k_bad, v_bad, qo, kl), (q, k, v, qo, kl)
+
+
+def _nan_flash_launch(call):
+    """Fill the call's output and log-sum-exp with NaN, launch it, and
+    return copies of both."""
+    call.out.fill_(float("nan"))
+    call.aux.fill_(float("nan"))
+    out = call.launch().clone()
+    torch.cuda.synchronize()
+    return out, call.aux.clone()
+
+
+@pytest.mark.parametrize("n_sm", ["card", "one"])
+@pytest.mark.parametrize("case", FLASH_SM90, ids=[c[0] for c in FLASH_SM90])
+def test_flash_attention_sm90_matches_plain(dev, case, n_sm, monkeypatch):
+    """The routed wrapper launches the Hopper entry once a call; its rows and
+    log-sum-exp match the plain version, rows without keys are zeros with
+    lse -inf, over K/V whose stale rows are NaN and an output and lse filled
+    with NaN; two launches are bit-identical. With ``n_sm`` "one",
+    ``query_tiles_per_block`` gives every block two query tiles wherever the
+    call has two."""
+    import finchat_tpu_torch.ops.flash_attention as fa
+
+    if n_sm == "one":
+        monkeypatch.setattr(fa, "sm_count", lambda device: 1)
+    args, clean = _flash_sm90_inputs(dev, case, seed=61)
+    kl = args[4]
+    kw = dict(causal=True, scale=D ** -0.5)
+    before = dict(LAUNCHES)
+    flash_attention_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    assert moved == {"flash_attention_sm90": 1}
+    call = prepare_flash(*args, **kw)
+    assert call.name == "flash_attention_sm90"
+    (got, lse), (again, lse2) = _nan_flash_launch(call), _nan_flash_launch(call)
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    want, want_lse = flash_attention_ref(*clean[:3], q_offset=clean[3], kv_len=clean[4],
+                                         causal=True)
+    live = kl > 0
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_rows_close(got[live], want[live])
+    assert bool((got[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all())
+    torch.testing.assert_close(lse[live], want_lse[live], atol=1e-3, rtol=1e-4)
+
+
+def test_flash_attention_sm90_refuses_what_it_does_not_take(dev):
+    """The wrapper refuses a call the rule does not send to the entry; the
+    entry itself refuses (cudaErrorInvalidValue) a non-causal call, tiles
+    that do not hold 64 rows and a misaligned operand."""
+    args, _clean = _flash_sm90_inputs(dev, FLASH_SM90[2], seed=62)
+    q, k, v, qo, kl = args
+    with pytest.raises(ValueError, match="64 rows"):
+        prepare_flash(*args, causal=False, scale=1.0, kernel="flash_attention_sm90")
+    with pytest.raises(ValueError, match="64 rows"):  # 8 tokens: 32 rows
+        prepare_flash(q[:, :8].contiguous(), k, v, qo, kl, causal=True, scale=1.0,
+                      kernel="flash_attention_sm90")
+    with pytest.raises(ValueError, match="CUDA"):
+        prepare_flash(*(t.cpu() for t in args), causal=True, scale=1.0)
+    call = prepare_flash(*args, causal=True, scale=D ** -0.5)
+    ptrs, dims, (bq, tiles, scale) = call.args[:7], list(call.args[7:14]), call.args[14:]
+    causal_at = 6  # B, Sq, Sk, H, HKV, D, causal
+    bad = {"non-causal": (ptrs, dims[:causal_at] + [0], bq, tiles),
+           "32-row tiles": (ptrs, dims, bq // 2, tiles),
+           "three tiles a block": (ptrs, dims, bq, 3),
+           "misaligned q": ((ptrs[0] + 2,) + ptrs[1:], dims, bq, tiles)}
+    for label, (p, d, b, t) in bad.items():
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            kernels.launch("flash_attention_sm90", *p, *d, b, t, scale)
+        torch.cuda.synchronize()
+
+
+def test_train_step_through_flash_sm90(dev):
+    """A 2-layer step at head_dim 128 and a group of 4 through the Hopper
+    forward (each layer's forward twice under remat, the older forward never)
+    and K7's backward: the loss and every leaf's gradient against the same
+    step with the plain attention (loss within 1e-2, each leaf within 5e-2,
+    the limits chip_smoke.py holds the 8B widths to)."""
+    from finchat_tpu_torch.models.llama import LlamaConfig, dense_causal_attention, init_params
+    from finchat_tpu_torch.train.train_step import named_leaves, value_and_grad
+
+    config = LlamaConfig(vocab_size=260, dim=512, n_layers=2, n_heads=4, n_kv_heads=1,
+                         hidden_dim=1024)
+    g = torch.Generator(device=dev)
+    g.manual_seed(63)
+    params = init_params(config, g, dev)
+    tokens = torch.randint(0, config.vocab_size, (2, 256), generator=g, device=dev)
+    names = ("flash_attention_sm90", "flash_attention", "flash_attention_bwd")
+    before = [LAUNCHES[n] for n in names]
+    loss, grads = value_and_grad(params, tokens, config=config)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[n] - b for n, b in zip(names, before)] == [4, 0, 2]
+    loss_p, grads_p = value_and_grad(params, tokens, config=config,
+                                     attention=dense_causal_attention)
+    assert abs(loss.item() - loss_p.item()) <= 1e-2
+    plain = dict(named_leaves(grads_p))
+    for path, got in named_leaves(grads):
+        want = plain[path].float()
+        rel = ((got.float() - want).norm() / want.norm().clamp(min=1e-30)).item()
+        assert rel <= 5e-2, f"{path}: relative {rel:.3e}"
