@@ -9,10 +9,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the CUDA kernels built from ``finchat_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (build seconds printed), and the registers, stack and spills
    of the Hopper kernels (``cuobjdump -res-usage``), the bf16 prefill body
-   (``attention_bf16_sm90.cu``: its paged, ragged and contiguous entries)
-   and the fused dequant matmul's decode body
-   (``quant_matmul_decode_sm90.cu``) among them; a Hopper attention kernel
-   that spills (stack or local memory) fails the run.
+   (``attention_bf16_sm90.cu``: its paged, ragged and contiguous entries),
+   K7's Hopper backward (``flash_attention_bwd_sm90.cu``) and the fused
+   dequant matmul's decode body (``quant_matmul_decode_sm90.cu``) among
+   them; a Hopper attention kernel that spills (stack or local memory)
+   fails the run.
 2. Kernels against their plain PyTorch versions on the card, at the serving
    shapes of Llama-3-8B (32 query heads, 8 KV heads, head_dim 128,
    page_size 128, 64 pages per sequence), over a bf16 cache and over an
@@ -60,7 +61,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    back-to-back calls filling ~1 ms, at most 20; an attention kernel's
    launch is timed alone, its call's checks and tile descriptors built
    once, and the routed wrapper's time, host work included, beside it; the
-   appends' launch and K7's backward as one launch of 20 in a CUDA graph,
+   appends' launch and K7's backwards as one launch of 20 in a CUDA graph,
    their yardsticks likewise, the wrapper's time beside it),
    the bound (the
    larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, counted from this
@@ -75,13 +76,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``flash_attention_sm90``, the kernel ``flash_kernel_for`` names) with the
    older forward (``flash_attention.cu``) by name beside it, each launched
    twice over an output and log-sum-exp filled with NaN (identical results),
-   held per row as above plus the log-sum-exp (1e-3); and the backward on
-   the first case, fed by the Hopper forward's out and log-sum-exp: dq, dk,
-   dv against the plain backward on the
-   same inputs (per tensor ``||err|| / ||want|| <= 1e-2``, per row
-   ``max|err| <= 2^-5 * max(row max, 2^-10 * tensor max)``: the kernel
-   rounds dS to bf16 before its products) and against autograd of the
-   plain ``mha_reference`` in fp32 on the same bf16 inputs (per tensor
+   held per row as above plus the log-sum-exp (1e-3); and the backward at
+   both cases, fed by the Hopper forward's out and log-sum-exp: the Hopper
+   backward (``flash_attention_bwd_sm90``, the kernel
+   ``flash_bwd_kernel_for`` names) with the older backward
+   (``flash_attention.cu``) by name beside it, each launched twice over dq,
+   dk and dv filled with NaN (identical results), each against the plain
+   backward on the same inputs (per tensor ``||err|| / ||want|| <= 1e-2``,
+   per row ``max|err| <= 2^-5 * max(row max, 2^-10 * tensor max)``: the
+   kernels round dS to bf16 before their products) and against autograd of
+   the plain ``mha_reference`` in fp32 on the same bf16 inputs (per tensor
    1e-2). Yardstick: ``scaled_dot_product_attention`` forward, and its
    backward through autograd, on the same work.
 3. Serve: ``llama3-8b`` with random bf16 weights from a seeded generator,
@@ -120,7 +124,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    fixed batch of 2048 tokens. Every loss must be finite and the fifth
    below the first; in each step the Hopper forward must launch 64 times
    (each layer's forward, again in the backward under remat), the older
-   forward never, and the backward 32 times (counts set to 0 just before).
+   forward never, the Hopper backward 32 times and the older backward
+   never (counts set to 0 just before).
    Prints the step time, tokens/s, the
    model-FLOP share of the bf16 peak, the peak memory, and a sixth step's
    device time by class (profiler).
@@ -895,10 +900,13 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
     """K7 against its plain version at one causal shape: the forward (out
     and log-sum-exp) through the kernel ``flash_kernel_for`` names, and the
     older forward by name beside it where that is another; or with
-    ``backward`` the backward kernels on the routed forward's out and lse.
-    Each forward launches twice over an output and lse filled with NaN
-    (identical results) and its prepared launch is timed alone, the routed
-    wrapper's time beside it."""
+    ``backward`` the backward ``flash_bwd_kernel_for`` names on the routed
+    forward's out and lse, and the older backward by name beside it where
+    that is another. Each forward launches twice over an output and lse
+    filled with NaN, each backward over dq, dk and dv filled with NaN
+    (identical results); a forward's prepared launch is timed alone, a
+    backward's as one launch of 20 in a CUDA graph, the routed wrapper's
+    time beside it."""
     import torch.nn.functional as F
 
     from finchat_tpu_torch.ops.flash_attention import (
@@ -907,6 +915,7 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
         flash_attention_fwd,
         flash_attention_ref,
         prepare_flash,
+        prepare_flash_bwd,
     )
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.refs import mha_reference
@@ -989,34 +998,27 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
                                 library_ms=lib_ms, **routed_ms))
         torch.cuda.empty_cache()
         return
-    kname = "flash_attention_bwd"
-    log(f"  {name}: the backward reads the out and lse of {routed.name}")
+    log(f"  {name}: the backwards read the out and lse of {routed.name}")
+    kw = dict(causal=True, scale=scale)
 
     def kern():
-        return flash_attention_bwd(q, k, v, out, lse, dout, qo, kl, causal=True, scale=scale)
+        return flash_attention_bwd(q, k, v, out, lse, dout, qo, kl, **kw)
 
     def plain():
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, q_offset=qo, kv_len=kl)
 
-    before = LAUNCHES[kname]
-    got = kern()
+    calls = [prepare_flash_bwd(q, k, v, out, lse, dout, qo, kl, **kw)]
+    if calls[0].name != "flash_attention_bwd":  # the older backward on the same inputs, by name
+        calls.append(prepare_flash_bwd(q, k, v, out, lse, dout, qo, kl, **kw,
+                                       kernel="flash_attention_bwd"))
+    before = LAUNCHES[calls[0].name]
+    kern()
     torch.cuda.synchronize()
-    assert LAUNCHES[kname] == before + 1
+    if LAUNCHES[calls[0].name] != before + 1:
+        fail(f"{name}: the wrapper did not launch {calls[0].name}, the kernel its rule names")
     want = plain()
     leaves = [t.float().requires_grad_() for t in (q, k, v)]
     mha_reference(*leaves, causal=True, q_offset=qo, kv_len=kl).backward(dout.float())
-    err, worst = 0.0, 0.0
-    for gname, g, w, w32 in zip(("dq", "dk", "dv"), got, want, leaves):
-        e, r, row = grad_errors(torch, g, w)
-        _e32, r32, _row32 = grad_errors(torch, g, w32.grad)
-        finite = bool(torch.isfinite(g.float()).all().item())
-        log(f"  {name} {gname}: max_abs_err {e:.3e}, relative {r:.3e} (limit "
-            f"{GRAD_REL_TOL}), worst row / limit {row:.3f}; against fp32 autograd of "
-            f"mha_reference: relative {r32:.3e} (limit {GRAD_REL_TOL})")
-        if not (r <= GRAD_REL_TOL and row <= 1.0 and r32 <= GRAD_REL_TOL and finite):
-            fail(f"{name} {gname}: kernel disagrees with its plain backward")
-        err, worst = max(err, e), max(worst, r)
-    del leaves
     qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
     do_lib = dout.transpose(1, 2).contiguous()
 
@@ -1028,20 +1030,52 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
 
     io += dout.numel() * 2 + (q.numel() + k.numel() + v.numel()) * 2  # dout in, grads out
     flops = 10.0 * pairs * H * D  # S again, dP, dV, dQ, dK: five products
-    ms = graph_ms(kern)  # its allocations and checks captured once, not timed
+    b_ms, b_by = bound_ms(io, flops)
     wrapper_ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain, iters=5, warmup=1)
     # SDPA's backward alone: a graph of forward and backward less one of the
     # forward (autograd's backward is captured only with its forward)
     lib_ms = graph_ms(sdpa_fwd_bwd) - graph_ms(sdpa)
-    b_ms, b_by = bound_ms(io, flops)
-    log(f"  {name}: kernel {ms:.4f} ms (a launch of 20 in a CUDA graph; the wrapper, its host "
-        f"work included, {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa backward "
-        f"{lib_ms:.4f} ms (graphs: forward and backward less forward), bound {b_ms:.4f} ms "
-        f"({b_by})")
-    results.append(dict(case=name, kernel=kname, err=err, rel_err=worst, ms=ms,
-                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                        wrapper_ms=wrapper_ms))
+    for n, call in enumerate(calls):
+        got = []
+        for _ in range(2):
+            grads = (call.out, *call.aux)
+            for g in grads:
+                g.fill_(float("nan"))
+            b4 = dict(LAUNCHES)
+            call.launch()
+            torch.cuda.synchronize()
+            if {kk: LAUNCHES[kk] - b4[kk] for kk in LAUNCHES if LAUNCHES[kk] != b4[kk]} != \
+                    {call.name: 1}:
+                fail(f"{name}: a launch of {call.name} was not counted once")
+            got.append(tuple(g.clone() for g in grads))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(*got))
+        err, worst = 0.0, 0.0
+        for gname, g, w, w32 in zip(("dq", "dk", "dv"), got[0], want, leaves):
+            e, r, row = grad_errors(torch, g, w)
+            _e32, r32, _row32 = grad_errors(torch, g, w32.grad)
+            finite = bool(torch.isfinite(g.float()).all().item())
+            log(f"  {name} [{call.name}] {gname}: max_abs_err {e:.3e}, relative {r:.3e} (limit "
+                f"{GRAD_REL_TOL}), worst row / limit {row:.3f}; against fp32 autograd of "
+                f"mha_reference: relative {r32:.3e} (limit {GRAD_REL_TOL})")
+            if not (r <= GRAD_REL_TOL and row <= 1.0 and r32 <= GRAD_REL_TOL and finite):
+                fail(f"{name} {gname}: {call.name} disagrees with its plain backward")
+            err, worst = max(err, e), max(worst, r)
+        log(f"  {name} [{call.name}]: two launches identical: {same}")
+        if not same:
+            fail(f"{name}: two launches of {call.name} differ")
+        del got
+        ms = graph_ms(call.launch)  # one launch of 20 in a CUDA graph
+        routed_ms = dict(wrapper_ms=wrapper_ms) if n == 0 else {}
+        log(f"  {name} [{call.name}]: kernel {ms:.4f} ms (a launch of 20 in a CUDA graph"
+            + (f"; the routed wrapper, its host work included, {wrapper_ms:.4f} ms"
+               if routed_ms else "")
+            + f"), plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms (graphs: forward and "
+            f"backward less forward), bound {b_ms:.4f} ms ({b_by}), share {b_ms / ms:.2f}")
+        results.append(dict(case=name, kernel=call.name, err=err, rel_err=worst, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                            **routed_ms))
+    del leaves
     torch.cuda.empty_cache()
 
 
@@ -1396,8 +1430,10 @@ def teacher_forced_check(torch, params, config, handles, kv_quant: str) -> dict:
 
 TRAIN_B, TRAIN_S = 1, 2048
 # K7's kernels, counted in the train phase: the Hopper forward (the bf16
-# prefill body's contiguous entry), the older forward, the backward
-K7_KERNELS = ("flash_attention_sm90", "flash_attention", "flash_attention_bwd")
+# prefill body's contiguous entry), the older forward, the older backward,
+# the Hopper backward
+K7_KERNELS = ("flash_attention_sm90", "flash_attention", "flash_attention_bwd",
+              "flash_attention_bwd_sm90")
 
 
 def _free(torch) -> None:
@@ -1429,8 +1465,9 @@ def train_check(torch, dev) -> dict:
     reset_launches()
     loss_k, grads_k = value_and_grad(params, tokens, config=config)
     torch.cuda.synchronize()
-    # (Hopper forward, older forward, backward): the training shape's forward
-    # is the bf16 prefill body's contiguous entry
+    # (Hopper forward, older forward, older backward, Hopper backward): the
+    # training shape's forward is the bf16 prefill body's contiguous entry,
+    # its backward flash_attention_bwd_sm90
     launches = tuple(LAUNCHES[k] for k in K7_KERNELS)
     loss_p, grads_p = value_and_grad(params, tokens, config=config,
                                      attention=dense_causal_attention)
@@ -1456,10 +1493,10 @@ def train_check(torch, dev) -> dict:
         f"plain {loss_p.item():.6f} (|diff| {loss_diff:.3e}, limit {TRAIN_LOSS_TOL}); worst "
         f"leaf gradient {worst_leaf} relative {worst:.3e}; one-shot forward logits relative "
         f"{logit_rel:.3e} (limits {TRAIN_REL_TOL}); K7 launches (Hopper forward, older "
-        f"forward, backward) {launches}")
+        f"forward, older backward, Hopper backward) {launches}")
     if not (loss_diff <= TRAIN_LOSS_TOL and worst <= TRAIN_REL_TOL
             and logit_rel <= TRAIN_REL_TOL and finite and launches[0] > 0 and launches[1] == 0
-            and launches[2] > 0):
+            and launches[2] == 0 and launches[3] > 0):
         fail("train check: the K7 path disagrees with the plain attention")
     del params, got, want
     _free(torch)
@@ -1471,7 +1508,7 @@ def _train_class(name: str) -> str:
     n = name.lower()
     if "flash_fwd_kernel" in n or "flash_attention_bf16_sm90" in n:
         return "K7 forward"
-    if "flash_bwd" in n:
+    if "flash_bwd" in n:  # flash_attention.cu's three kernels and the Hopper backward's
         return "K7 backward"
     if "adam" in n:
         return "optimizer"
@@ -1513,15 +1550,15 @@ def train_full(torch, dev, card: str, steps: int = 5) -> dict:
     log(f"  llama3-8b, {config.n_layers} layers, {n_params(config) / 1e9:.2f} B params, "
         f"B={TRAIN_B} S={TRAIN_S}, remat on: losses {losses}; step seconds "
         f"{[round(t, 4) for t in times]}; K7 launches per step (Hopper forward, older forward, "
-        f"backward) {per_step}")
+        f"older backward, Hopper backward) {per_step}")
     L = config.n_layers
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"train: losses not finite and falling: {losses}")
     # remat: each layer's forward runs twice a step (again in the backward)
-    if not all(step == (2 * L, 0, L) for step in per_step):
+    if not all(step == (2 * L, 0, 0, L) for step in per_step):
         fail(f"train: K7's Hopper forward did not take every layer's forward twice a step "
-             f"({2 * L}), with none of the older forward, and the backward once ({L}): "
-             f"{per_step}")
+             f"({2 * L}), with none of the older forward, and the Hopper backward every "
+             f"layer's backward once ({L}), with none of the older backward: {per_step}")
 
     step_s = statistics.median(times[1:])  # step 1 also allocates moments and grads
     T = TRAIN_B * TRAIN_S
@@ -1589,9 +1626,10 @@ def main() -> None:
     log_resource_usage(kernels.library_path("attention_q8_sm90.cu"), "attention_q8_sm90_kernel")
     # the bf16 prefill body's paged, ragged and contiguous entries, the
     # decode body's instantiations (paged bf16 and int8, ragged bf16) and
-    # their merges
+    # their merges, K7's Hopper backward (pre-pass, dK/dV and dQ bodies)
     spills = [src for src, kernel in (("attention_bf16_sm90.cu", "attention_bf16_sm90_kernel"),
-                                      ("attention_decode_sm90.cu", "attention_decode_sm90"))
+                                      ("attention_decode_sm90.cu", "attention_decode_sm90"),
+                                      ("flash_attention_bwd_sm90.cu", "flash_bwd_"))
               if log_resource_usage(kernels.library_path(src), kernel)]
     if spills:
         fail(f"the Hopper attention kernels of {spills} spill to local memory")
@@ -1647,13 +1685,15 @@ def main() -> None:
             check_qmm(torch, f"int8_m{M}_{K}x{N}", gen, dev, M, K, N, "int8", 0, False, results)
         check_qmm(torch, f"int4_g128_m{M}_4096x14336", gen, dev, M, 4096, 14336, "int4", 128,
                   False, results)
-    log("  contiguous flash attention (training shapes; the Hopper forward, the older forward "
-        "by name beside it):")
+    log("  contiguous flash attention (training shapes; the Hopper forward and backward, the "
+        "older forward and backward by name beside them):")
     check_flash(torch, "flash_fwd_causal_s2048", gen, dev, 1, 2048, 2048, [0], [2048], results)
     check_flash(torch, "flash_fwd_q1024_kv1536", gen, dev, 4, 512, 1536, [1024] * 4, [1536] * 4,
                 results)
     check_flash(torch, "flash_bwd_causal_s2048", gen, dev, 1, 2048, 2048, [0], [2048], results,
                 backward=True)
+    check_flash(torch, "flash_bwd_q1024_kv1536", gen, dev, 4, 512, 1536, [1024] * 4, [1536] * 4,
+                results, backward=True)
 
     serves = {}
     for phase, plane, n_req, max_new, profile in ((3, "bf16", 8, 64, True),
@@ -1705,6 +1745,7 @@ def main() -> None:
         "flash_attention": ("flash_attention.cu", flash, "train"),
         "flash_attention_sm90": ("attention_bf16_sm90.cu", flash, "train"),
         "flash_attention_bwd": ("flash_attention.cu", flash, "train"),
+        "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90.cu", flash, "train"),
     }
     launched = {plane: stats["launches"] for plane, stats in serves.items()}
     launched["train"] = train["launches"]

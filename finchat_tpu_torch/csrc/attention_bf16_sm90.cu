@@ -104,7 +104,7 @@
 // next sequence reaches a sum. Each consumer also writes its rows'
 // log-sum-exp, m + ln(l) = ln 2 * (m * scale * log2 e + log2 l) from the
 // base-2 state (-inf for a row without a valid key), which K7's backward
-// kernels (flash_attention.cu) read.
+// (flash_attention_bwd_sm90.cu, or flash_attention.cu by name) reads.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,50 +150,11 @@ static_assert(kStage % 1024 == 0 && kBoxBytes % 1024 == 0 && FULL_OFF % 8 == 0, 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// 2^x in one instruction (exp2f adds a range check per value); a result
-// under 2^-126 flushes to zero, a probability too small to move a row's
-// fp32 sum, whose largest term is 1
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using fct::exp2_approx;
+using fct::wgmma_m64n128k16_rs;
 
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* smem) {
   return smem + (((fct::smem_u32(smem) + 1023u) & ~1023u) - fct::smem_u32(smem));
-}
-
-// d[64 x 128] (+)= A[64 x 16] (registers, the mma.sync A-fragment layout per
-// warp) * B[16 x 128] in shared memory, 128-byte swizzle: K-major, or with
-// TRANS_B MN-major (the transpose bit); d's old value is read only if
-// `accumulate`
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                  uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 // the MN-major descriptor of V's [16 key][128 d] slice starting at `addr`
@@ -645,19 +606,23 @@ __global__ void __launch_bounds__(kThreads, 1) ragged_attention_bf16_sm90_kernel
                  nullptr, 0);
 }
 
-// K and V as [rows, Hkv * 128] from k and v (a layer's pages, rows P *
-// page_size; or contiguous K/V, rows B * Sk), read in 64 x 64 boxes, and
-// the kernel's shared memory opted into
+// the kernel's shared memory opted into, then K and V as [rows, Hkv * 128]
+// from k and v (a layer's pages, rows P * page_size; or contiguous K/V, rows
+// B * Sk), read in 64 x 64 boxes. The runtime call comes first: it makes the
+// device's primary context current on this thread (autograd's thread, under
+// remat, may have none yet), which cuTensorMapEncodeTiled needs.
 int prepare_maps(CUtensorMap* kmap, CUtensorMap* vmap, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, long rows, int HKV, const void* kernel) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (!fct::make_map(kmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, (uint64_t)rows,
                      (uint64_t)HKV * D, kBox, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !fct::make_map(vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, (uint64_t)rows,
                      (uint64_t)HKV * D, kBox, 64, CU_TENSOR_MAP_SWIZZLE_128B)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem));
+  return 0;
 }
 
 // a layer's pages as the tensor maps' rows

@@ -1,10 +1,12 @@
 // Pipeline helpers shared by the Hopper kernels (quant_matmul_sm90.cu,
 // quant_matmul_decode_sm90.cu, attention_q8_sm90.cu, attention_bf16_sm90.cu,
-// attention_decode_sm90.cu): mbarrier waits that trap instead of hanging,
-// the cp.async copies that complete on an mbarrier, TMA tile loads and the
-// host encoding of their tensor maps, the wgmma shared-memory descriptor and
-// fences, and the byte permute that turns a stored int8 (or int4) value into
-// an exact float.
+// attention_decode_sm90.cu, flash_attention_bwd_sm90.cu): mbarrier waits
+// that trap instead of hanging, the cp.async copies that complete on an
+// mbarrier, TMA tile loads (2D and 4D boxes, and 1D bulk copies) and the host
+// encoding of their tensor maps, the wgmma shared-memory descriptor, fences
+// and the bf16 products the attention bodies issue, a one-instruction 2^x,
+// and the byte permute that turns a stored int8 (or int4) value into an
+// exact float.
 #pragma once
 
 #include <cuda.h>
@@ -75,6 +77,28 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// a 4D box of the tensor `map` at coordinates (c0 innermost .. c3) into
+// shared memory at `dst`, completing its bytes on `bar`; elements past any
+// dimension of the tensor land as zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from global memory at `src`
+// (16-byte aligned) into shared memory at `dst`, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -117,6 +141,23 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem_bytes
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// a 4D bf16 tensor (dims[0] innermost and contiguous; strides in bytes of
+// dims 1-3) read in boxes of `box` elements with the 128-byte swizzle: the
+// box's rows of box[0] * 2 = 128 bytes land one after another
+inline bool make_map_4d(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[4],
+                        const uint64_t (&strides)[3], const uint32_t (&box)[4]) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), d, st, bx,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------- wgmma
 
 // the generic proxy's shared-memory stores, visible to the async proxy
@@ -139,6 +180,89 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] (registers, the mma.sync A-fragment layout per
+// warp) * B[16 x 128] in shared memory, 128-byte swizzle: K-major, or with
+// TRANS_B MN-major (the transpose bit); d's old value is read only if
+// `accumulate`
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d[64 x 64] += A[64 x 16] * B[16 x 64], both in shared memory, K-major
+// with the 128-byte swizzle
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 64] = A[64 x 16] * B[16 x 64] as wgmma_m64n64k16_ss, the first
+// product of a sum: d is written only, so its old value is not kept live up
+// to here (with "+f" it would be, through a loop that reuses d, as if read)
+__device__ __forceinline__ void wgmma_m64n64k16_ss_first(float (&d)[32], uint64_t da,
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=&f"(d[0]), "=&f"(d[1]), "=&f"(d[2]), "=&f"(d[3]), "=&f"(d[4]), "=&f"(d[5]),
+        "=&f"(d[6]), "=&f"(d[7]), "=&f"(d[8]), "=&f"(d[9]), "=&f"(d[10]), "=&f"(d[11]),
+        "=&f"(d[12]), "=&f"(d[13]), "=&f"(d[14]), "=&f"(d[15]), "=&f"(d[16]), "=&f"(d[17]),
+        "=&f"(d[18]), "=&f"(d[19]), "=&f"(d[20]), "=&f"(d[21]), "=&f"(d[22]), "=&f"(d[23]),
+        "=&f"(d[24]), "=&f"(d[25]), "=&f"(d[26]), "=&f"(d[27]), "=&f"(d[28]), "=&f"(d[29]),
+        "=&f"(d[30]), "=&f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// 2^x in one instruction (exp2f adds a range check per value); a result
+// under 2^-126 flushes to zero, a probability too small to move an fp32 sum
+// whose largest term is 1
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------- dequant

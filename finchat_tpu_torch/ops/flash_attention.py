@@ -8,10 +8,9 @@ past ``kv_len[b]`` are masked, and GQA groups ``H // Hkv`` query heads on
 one KV head without repeating K or V. It launches a hand-written forward
 kernel (replacing the TPU kernel ``_flash_kernel``), which also writes the
 per-row log-sum-exp, and it is differentiable: ``FlashAttentionFn``'s
-backward launches the backward kernels (``csrc/flash_attention.cu``), which
-rebuild P from that log-sum-exp (the flash-attention-2 form). The JAX
-package has no backward for its kernel; its train step differentiates
-``mha_reference``.
+backward launches a backward kernel, which rebuilds P from that
+log-sum-exp (the flash-attention-2 form). The JAX package has no backward
+for its kernel; its train step differentiates ``mha_reference``.
 
 ``flash_kernel_for``, a pure function of the call, picks the forward:
 
@@ -24,10 +23,21 @@ package has no backward for its kernel; its train step differentiates
 - ``flash_attention`` (``csrc/flash_attention.cu``): every other call —
   ``causal=False`` (only tests ask for it), other head dims, fewer rows.
 
+``flash_bwd_kernel_for``, under the same condition, picks the backward:
+
+- ``flash_attention_bwd_sm90`` (``csrc/flash_attention_bwd_sm90.cu``): the
+  calls the Hopper forward takes. A pre-pass (delta and the base-2 lse per
+  query tile), a dK/dV body (a block per pair of 64-key tiles j and n - 1 - j
+  of a KV head, two ``wgmma`` consumers taking the streamed query tiles in
+  turn) and a dQ body (the forward's ring of K/V tiles, 64 keys a tile);
+  no atomics.
+- ``flash_attention_bwd`` (``csrc/flash_attention.cu``): every other call.
+
 Nothing gives way to anything else: a CUDA tensor reaches the kernel the
-rule names or raises. ``prepare_flash(..., kernel=name)`` builds the launch
-of a named forward with no routing (``chip_smoke.py`` times both on the same
-inputs with it).
+rule names or raises. ``prepare_flash(..., kernel=name)`` and
+``prepare_flash_bwd(..., kernel=name)`` build the launch of a named kernel
+with no routing (``chip_smoke.py`` times both of each on the same inputs
+with them).
 
 ``flash_attention_ref`` is the plain version (``mha_reference``'s math, plus
 the log-sum-exp ``[B, H, Sq]`` fp32) and ``flash_attention_bwd_ref`` the
@@ -59,6 +69,7 @@ from finchat_tpu_torch.ops.refs import attention_mask, gqa_repeat, masked_logits
 
 HEAD_DIM = 128  # the kernels are built for Llama-3's head_dim
 FORWARD_KERNELS = ("flash_attention_sm90", "flash_attention")
+BACKWARD_KERNELS = ("flash_attention_bwd_sm90", "flash_attention_bwd")
 
 
 def _descriptors(B: int, Sk: int, q_offset, kv_len, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -209,29 +220,69 @@ def flash_attention_fwd(q, k, v, q_offset: torch.Tensor, kv_len: torch.Tensor, *
     return call.launch(), call.aux
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, q_offset: torch.Tensor, kv_len: torch.Tensor,
-                        *, causal: bool, scale: float
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernels (delta pre-pass, dK/dV, dQ; one launch count):
-    ``(dq, dk, dv)`` bf16."""
+def flash_bwd_kernel_for(causal: bool, group: int, head_dim: int, Sq: int, aligned: bool) -> str:
+    """The backward kernel of a call: ``flash_attention_bwd_sm90`` for the
+    calls ``flash_kernel_for`` sends to the Hopper forward (causal, head_dim
+    128, query tiles of 64 rows, 16-byte aligned), ``flash_attention_bwd``
+    for every other."""
+    if flash_kernel_for(causal, group, head_dim, Sq, aligned) == "flash_attention_sm90":
+        return "flash_attention_bwd_sm90"
+    return "flash_attention_bwd"
+
+
+def prepare_flash_bwd(q, k, v, out, lse, dout, q_offset: torch.Tensor, kv_len: torch.Tensor,
+                      *, causal: bool, scale: float, kernel: str | None = None
+                      ) -> kernels.Prepared:
+    """Check a backward call and build its launch, without launching: the
+    kernel ``flash_bwd_kernel_for`` picks, or the backward named ``kernel``
+    (one of ``BACKWARD_KERNELS``) with no routing. ``out`` is dq, ``aux``
+    (dk, dv), all bf16; ``scratch`` what the kernel writes first (delta
+    [B, H, Sq], or each 64-row query tile's base-2 lse and delta). One C
+    entry, one launch count. Raises on a tensor it does not take, a CPU one
+    included."""
     _check(q, k, v, out, dout)
     _check_descriptors(q, q_offset, kv_len)
     check(lse.dtype == torch.float32 and lse.is_contiguous()
           and lse.shape == (q.shape[0], q.shape[2], q.shape[1]), "lse must be [B, H, Sq] fp32")
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    rule = flash_bwd_kernel_for(causal, group, D, Sq, aligned=True)  # _check: 16-byte aligned
+    name = rule if kernel is None else kernel
+    check(name in BACKWARD_KERNELS, f"{name} is not a flash attention backward kernel")
+    extra = ()
+    if name == "flash_attention_bwd_sm90":
+        check(rule == name, "flash_attention_bwd_sm90 takes causal calls at head_dim 128 whose "
+              f"query tiles hold 64 rows (got causal={causal}, group {group}, Sq {Sq})")
+        bq = tile_tokens(group, Sq)
+        extra = (bq, query_tiles_per_block(B, Sq, group, Hkv, sm_count(q.device)))
+        scratch = torch.empty((B, Hkv, -(-Sq // bq), 2, SM90_ROWS), dtype=torch.float32,
+                              device=q.device)
+    else:
+        scratch = torch.empty_like(lse)  # rowsum(dout * out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)  # scratch: rowsum(dout * out)
-    kernels.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_offset.data_ptr(),
-                   kv_len.data_ptr(), B, Sq, Sk, H, Hkv, D, int(causal), float(scale))
-    return dq, dk, dv
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q_offset.data_ptr(), kv_len.data_ptr(), B, Sq, Sk, H, Hkv, D, int(causal), *extra,
+            float(scale))
+    return kernels.Prepared(name, args, dq, (q, k, v, out, lse, dout, q_offset, kv_len),
+                            scratch=scratch, aux=(dk, dv))
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, q_offset: torch.Tensor, kv_len: torch.Tensor,
+                        *, causal: bool, scale: float, kernel: str | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel ``prepare_flash_bwd`` picks (or ``kernel``):
+    ``(dq, dk, dv)`` bf16. Raises on a tensor it does not take, a CPU one
+    included."""
+    call = prepare_flash_bwd(q, k, v, out, lse, dout, q_offset, kv_len, causal=causal,
+                             scale=scale, kernel=kernel)
+    return (call.launch(), *call.aux)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """K7 with its gradient: the routed forward kernel saves ``out`` and
-    ``lse``; the backward kernels recompute P from them."""
+    ``lse``; the routed backward kernel recomputes P from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, kv_len, causal: bool, scale: float):

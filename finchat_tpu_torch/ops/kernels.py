@@ -176,6 +176,13 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # B, Sq, Sk, H, HKV, D, causal
         [_P] * 12 + [_I] * 7 + [_F, _P],  # scale, stream
     ),
+    # K7's Hopper backward (causal, 64-row tiles): flash_attention_bwd's
+    # arguments (a scratch of each query tile's lse and delta in delta's
+    # place), then the tile tokens and the dQ pass's query tiles a block
+    "flash_attention_bwd_sm90": (
+        "flash_attention_bwd_sm90.cu", "flash_attention_bwd_bf16_sm90",
+        [_P] * 12 + [_I] * 7 + [_I] * 2 + [_F, _P],
+    ),
 }
 SOURCES = sorted({src for src, _sym, _args in KERNELS.values()})
 
@@ -270,8 +277,8 @@ class Prepared:
     """One checked launch of kernel ``name``: its C arguments, its output
     and every tensor the arguments point into (kept alive here), among them
     ``scratch``, the workspace it writes before ``out`` where it has one,
-    and ``aux``, a second output it writes beside ``out`` where it has one
-    (K7's log-sum-exp). ``launch()`` runs it on the current stream and
+    and ``aux``, what else it writes beside ``out`` where it writes more
+    (K7's log-sum-exp; its backward's dk and dv beside dq). ``launch()`` runs it on the current stream and
     returns ``out``; a caller that launches it again reuses the same
     buffers."""
 
@@ -280,7 +287,7 @@ class Prepared:
     out: torch.Tensor
     keep: tuple
     scratch: torch.Tensor | None = None
-    aux: torch.Tensor | None = None
+    aux: torch.Tensor | tuple[torch.Tensor, ...] | None = None
 
     @property
     def parts(self) -> tuple[Prepared, ...]:

@@ -1,6 +1,6 @@
 """What paces the Hopper bf16 prefill attention body, on one H100.
 
-    python -m finchat_tpu_torch.tools.attention_bf16_diag [--contiguous]
+    python -m finchat_tpu_torch.tools.attention_bf16_diag [--contiguous | --backward]
 
 Times, at the prefill shapes of ``chip_smoke.py`` (Llama-3-8B heads, page
 128; a 4 x 512 chunk at q_offset 0, 1024 and 2048), the older bf16 body
@@ -41,6 +41,18 @@ Then, or alone with ``--contiguous``, the body's contiguous entry
 Sq=512 at q_offset 1024 over 1,536 keys — at one and at two query tiles a
 block beside the rule's choice, the three diagnostic builds, and the older
 forward (``flash_attention.cu``) by name.
+
+With ``--backward``, only K7's Hopper backward (``flash_attention_bwd_sm90.cu``)
+at the same two cases, on the Hopper forward's out and lse: ptxas's registers
+and spills of the source as it is, then the kernel and three diagnostic
+builds of it — ``no fetch`` (neither ring is
+filled: the producer arrives on each stage's barrier without bytes),
+``no products`` (no ``wgmma``) and ``no elementwise`` (P and dS not formed:
+the scores go to the second products as they are) — and the older backward
+by name, each as a launch's device time by kernel (the pre-pass, the dK/dV
+body, the dQ body; ``torch.profiler`` over 20 launches) beside the whole
+launch's time by CUDA events, with each body's share of the bound: the
+dK/dV body's four products and the dQ body's three over 989 TFLOP/s.
 The diagnostic builds compute garbage and are only timed. Every time is the
 median over 20 CUDA-event-timed runs of back-to-back launches (each launch
 prepared once, ``prepare_paged``); nvcc's register and spill counts of each
@@ -52,20 +64,26 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import re
 import subprocess
 import sys
 
 import torch
 
 from finchat_tpu_torch.ops import kernels
-from finchat_tpu_torch.ops.flash_attention import prepare_flash
+from finchat_tpu_torch.ops.flash_attention import prepare_flash, prepare_flash_bwd
 from finchat_tpu_torch.ops.paged_attention import (
     prepare_paged,
     query_tiles_per_block,
     sm_count,
 )
 from finchat_tpu_torch.ops.ragged_paged_attention import prepare_ragged
-from finchat_tpu_torch.tools.attention_q8_diag import _page_table, build_variant, timed
+from finchat_tpu_torch.tools.attention_q8_diag import (
+    _page_table,
+    build_variant,
+    kernel_from,
+    timed,
+)
 
 H, HKV, D, PS = 32, 8, 128, 128
 SOURCE = "attention_bf16_sm90.cu"
@@ -90,6 +108,58 @@ _NO_PRODUCTS = [
 ]
 VARIANTS = {"no fetch": _NO_FETCH, "no products": _NO_PRODUCTS,
             "neither": _NO_FETCH + _NO_PRODUCTS}
+
+BWD_SOURCE = "flash_attention_bwd_sm90.cu"
+BWD_NAME = "flash_attention_bwd_sm90"
+_BWD_NO_FETCH = [
+    (BWD_SOURCE, "    fct::mbar_expect_tx(bar, 2 * kTile + kLd * 4);\n"
+                 "    for (int h = 0; h < 2; ++h) {\n"
+                 "      fct::tma_load_4d(st + h * kPanel, &qmap, bar, h * 64, g << gshift, t * BQ, b);\n"
+                 "      fct::tma_load_4d(st + kTile + h * kPanel, &omap, bar, h * 64, g << gshift, t * BQ, b);\n"
+                 "    }\n"
+                 "    fct::bulk_load(base + LD_OFF + s * kLd * 4, ld_bg + (long)t * kLd, kLd * 4, bar);\n",
+     "    fct::mbar_arrive(bar);\n    (void)st, (void)t;\n"),
+    (BWD_SOURCE, "        fct::mbar_expect_tx(bar, 2 * kTile);\n"
+                 "        for (int h = 0; h < 2; ++h) {\n"
+                 "          fct::tma_load_4d(st + h * kPanel, &kmap, bar, h * 64, g, kt * kRows, b);\n"
+                 "          fct::tma_load_4d(st + kTile + h * kPanel, &vmap, bar, h * 64, g, kt * kRows, b);\n"
+                 "        }\n",
+     "        fct::mbar_arrive(bar);\n        (void)st;\n"),
+]
+_BWD_NO_PRODUCTS = [
+    (BWD_SOURCE, "    if (ks == 0) {\n"
+                 "      fct::wgmma_m64n64k16_ss_first(d, da, db);\n"
+                 "    } else {\n"
+                 "      fct::wgmma_m64n64k16_ss(d, da, db);\n"
+                 "    }\n",
+     "    for (int i = 0; i < 4; ++i) d[4 * ks + i] = __uint_as_float((uint32_t)(da ^ db) & 0x3f7fffffu);\n"),
+    (BWD_SOURCE, "    fct::wgmma_m64n128k16_rs<1>(acc, f[kk], dt, 1);\n",
+     "    acc[kk] += __uint_as_float((f[kk][0] ^ (uint32_t)dt) & 0x3f7fffffu);\n"),
+]
+_BWD_NO_ELEMENTWISE = [
+    (BWD_SOURCE, "      if (masked) {\n"
+                 "        probs_t<true>(st, pf, lds, k0 + r_a, kvl, pos0, gshift, c2, lane);\n"
+                 "      } else {\n"
+                 "        probs_t<false>(st, pf, lds, k0 + r_a, kvl, pos0, gshift, c2, lane);\n"
+                 "      }\n",
+     "      for (int i = 0; i < 16; ++i) pf[i / 4][i % 4] = fct::pack_bf16(st[2 * i], st[2 * i + 1]);\n"
+     "      (void)masked;\n"),
+    (BWD_SOURCE, "      if (masked) {\n"
+                 "        dscores_t<true>(st, dpt, sf, lds, lane);\n"
+                 "      } else {\n"
+                 "        dscores_t<false>(st, dpt, sf, lds, lane);\n"
+                 "      }\n",
+     "      for (int i = 0; i < 16; ++i) sf[i / 4][i % 4] = fct::pack_bf16(st[2 * i], dpt[2 * i]);\n"),
+    (BWD_SOURCE, "    if (k0 + kRows - 1 > pos_lo || k0 + kRows > kvl) {\n"
+                 "      grads_q<true>(sc, dp, sf, l2, dl, pos, k0, kvl, c2, lane);\n"
+                 "    } else {\n"
+                 "      grads_q<false>(sc, dp, sf, l2, dl, pos, k0, kvl, c2, lane);\n"
+                 "    }\n",
+     "    for (int i = 0; i < 16; ++i) sf[i / 4][i % 4] = fct::pack_bf16(sc[2 * i], dp[2 * i]);\n"
+     "    (void)l2, (void)dl, (void)pos;\n"),
+]
+BWD_VARIANTS = {"no fetch": _BWD_NO_FETCH, "no products": _BWD_NO_PRODUCTS,
+                "no elementwise": _BWD_NO_ELEMENTWISE}
 
 
 def bound_ms(q_offset: int, B: int = 4, C: int = 512) -> float:
@@ -238,11 +308,77 @@ def time_contiguous(gen, dev, libs) -> None:
         torch.cuda.empty_cache()
 
 
+def device_ms_by_kernel(launch, n: int = 20) -> dict[str, float]:
+    """Device ms a launch of each kernel a prepared launch runs, from
+    ``torch.profiler`` over ``n`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            launch()
+        torch.cuda.synchronize()
+    got: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        found = re.search(r"flash_bwd_\w+", ev.key)
+        if us and found:
+            got[found.group(0)] = got.get(found.group(0), 0.0) + us / 1e3 / n
+    return got
+
+
+def time_backward(gen, dev, libs) -> None:
+    """K7's Hopper backward at K7's two cases: the kernel, its diagnostic
+    builds and the older backward by name, by kernel and as a whole."""
+    print("K7's backward (ms a launch; by kernel from the profiler, the whole launch by events):")
+    for B, Sq, Sk, q_off in ((1, 2048, 2048, 0), (4, 512, 1536, 1024)):
+        q, dout = (torch.randn((B, Sq, H, D), generator=gen, device=dev, dtype=torch.bfloat16)
+                   for _ in range(2))
+        k, v = (torch.randn((B, Sk, HKV, D), generator=gen, device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        qo = torch.full((B,), q_off, dtype=torch.int32, device=dev)
+        kl = torch.full((B,), Sk, dtype=torch.int32, device=dev)
+        kw = dict(causal=True, scale=D ** -0.5)
+        fwd = prepare_flash(q, k, v, qo, kl, **kw)
+        out, lse = fwd.launch(), fwd.aux
+        call = prepare_flash_bwd(q, k, v, out, lse, dout, qo, kl, **kw)
+        assert call.name == BWD_NAME
+        old = prepare_flash_bwd(q, k, v, out, lse, dout, qo, kl, **kw, kernel="flash_attention_bwd")
+        pairs = B * sum(min(q_off + i + 1, Sk) for i in range(Sq))
+        b_dkdv = 8.0 * pairs * H * D / BF16_FLOPS_PER_S * 1e3  # S^T, dP^T, dV, dK
+        b_dq = 6.0 * pairs * H * D / BF16_FLOPS_PER_S * 1e3  # S, dP, dQ
+        print(f"  {B}x{Sq} at q{q_off} over {Sk} keys (bound of the five products "
+              f"{10.0 * pairs * H * D / BF16_FLOPS_PER_S * 1e3:.4f}; the dK/dV body's four "
+              f"{b_dkdv:.4f}, the dQ body's three {b_dq:.4f}):", flush=True)
+        for label, lib in [("kernel", None)] + list(libs.items()) + [("kernel, again", None)]:
+            with kernel_from(BWD_NAME, lib):
+                parts = device_ms_by_kernel(call.launch)
+            whole = timed(call.launch, BWD_NAME, lib)
+            shares = ", ".join(
+                f"{n.removeprefix('flash_bwd_').removesuffix('_sm90_kernel')} {ms:.4f}"
+                + (f" (share {b_dkdv / ms:.2f})" if "dkdv" in n and label == "kernel" else "")
+                + (f" (share {b_dq / ms:.2f})" if "_dq_" in n and label == "kernel" else "")
+                for n, ms in sorted(parts.items()))
+            print(f"    {label}: {whole:.4f}; {shares}", flush=True)
+        print(f"    older backward: {timed(old.launch, old.name, None):.4f}", flush=True)
+        del q, dout, k, v, fwd, out, lse, call, old
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--contiguous", action="store_true",
-                        help="time the contiguous entry (K7's forward) only")
-    contiguous_only = parser.parse_args().contiguous
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--contiguous", action="store_true",
+                      help="time the contiguous entry (K7's forward) only")
+    mode.add_argument("--backward", action="store_true",
+                      help="time K7's Hopper backward only")
+    opts = parser.parse_args()
+    contiguous_only = opts.contiguous
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device is visible")
     dev = torch.device("cuda", 0)
@@ -251,6 +387,14 @@ def main() -> None:
     print(f"{torch.cuda.get_device_name(0)} ({smi.stdout.strip()})")
     kernels.build_all()
     print("builds:")
+    if opts.backward:
+        build_variant("bwd_kernel", BWD_SOURCE, [])  # ptxas's registers and spills of the kernel
+        libs = {label: build_variant("bwd_" + label.replace(" ", "_"), BWD_SOURCE, cuts)
+                for label, cuts in BWD_VARIANTS.items()}
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1234)
+        time_backward(gen, dev, libs)
+        return
     libs = {label: build_variant("bf16_" + label.replace(" ", "_"), SOURCE, cuts)
             for label, cuts in VARIANTS.items()}
 

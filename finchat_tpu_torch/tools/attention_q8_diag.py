@@ -25,6 +25,7 @@ writes its builds under ``finchat_tpu_torch/build/diag/``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import shutil
 import statistics
@@ -109,8 +110,10 @@ def time_ms(fn, iters: int = 20) -> float:
     return statistics.median(run(reps) / reps for _ in range(iters))
 
 
-def timed(launch, name: str, lib: ctypes.CDLL | None) -> float:
-    """Time a prepared launch of kernel ``name``, from ``lib`` if given."""
+@contextlib.contextmanager
+def kernel_from(name: str, lib: ctypes.CDLL | None):
+    """Kernel ``name``'s launches go to ``lib``'s entry point (the built one
+    if None) inside the block."""
     kept = kernels._FNS[name]
     if lib is not None:
         _src, sym, argtypes = kernels.KERNELS[name]
@@ -118,9 +121,15 @@ def timed(launch, name: str, lib: ctypes.CDLL | None) -> float:
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         kernels._FNS[name] = fn
     try:
-        return time_ms(launch)
+        yield
     finally:
         kernels._FNS[name] = kept
+
+
+def timed(launch, name: str, lib: ctypes.CDLL | None) -> float:
+    """Time a prepared launch of kernel ``name``, from ``lib`` if given."""
+    with kernel_from(name, lib):
+        return time_ms(launch)
 
 
 def _cache(gen, dev, n_pages: int):

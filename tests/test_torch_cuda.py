@@ -40,7 +40,12 @@ log-sum-exp over outputs filled with NaN and K/V whose rows at or past each
 kv_len are NaN, a sequence's last box running into the next sequence's NaN
 rows, a call smaller than one TMA box, groups of 1 to 8, one and two query
 tiles a block, two launches bit-identical, the refusals, and a 2-layer
-train step through it).
+train step through it), and K7's Hopper backward (``-k "flash and bwd"``:
+``flash_attention_bwd_sm90``, routed by ``flash_bwd_kernel_for``, on the
+Hopper forward's out and lse over the same calls; dq, dk and dv over
+outputs filled with NaN, at the card's SM count and at one SM, two launches
+bit-identical, the refusals; the older backward is held by name in the
+contiguous cases above).
 
 Tolerance for attention, per output row (one token of one head):
 ``max|got - want| <= min(2e-2, 2^-6 * max|want|)`` over the row. Both sides
@@ -89,8 +94,10 @@ from finchat_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd_ref,
     flash_attention_fwd,
     flash_attention_ref,
+    flash_bwd_kernel_for,
     flash_kernel_for,
     prepare_flash,
+    prepare_flash_bwd,
 )
 from finchat_tpu_torch.models.quant import dequantize, quantize, quantize_int4  # noqa: E402
 from finchat_tpu_torch.ops.kernels import LAUNCHES  # noqa: E402
@@ -1121,11 +1128,13 @@ def test_flash_attention_forward_kernel_matches_plain(dev, case):
 
 @pytest.mark.parametrize("case", FLASH, ids=[c[0] for c in FLASH])
 def test_flash_attention_backward_kernel_matches_plain(dev, case):
+    """The older backward, launched by name (the rule sends the causal cases
+    of 64-row tiles to the Hopper backward, held below)."""
     q, k, v, dout, qo, kl, causal = _flash_inputs(dev, case, seed=11)
     kw = dict(causal=causal, scale=D ** -0.5)
     out, lse = flash_attention_fwd(q, k, v, qo, kl, **kw)
     before = LAUNCHES["flash_attention_bwd"]
-    got = flash_attention_bwd(q, k, v, out, lse, dout, qo, kl, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, qo, kl, **kw, kernel="flash_attention_bwd")
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_bwd"] == before + 1
     want = flash_attention_bwd_ref(q, k, v, out, lse, dout, q_offset=qo, kv_len=kl, **kw)
@@ -1136,18 +1145,20 @@ def test_flash_attention_backward_kernel_matches_plain(dev, case):
 
 
 def test_flash_attention_autograd_launches_both_kernels(dev):
-    """``flash_attention`` is differentiable: backward() runs the backward
-    kernel after the routed forward (the Hopper entry at this causal group
-    of 4), and the gradients equal a direct call's."""
+    """``flash_attention`` is differentiable: backward() runs the routed
+    backward kernel after the routed forward (the Hopper forward and
+    backward at this causal group of 4), and the gradients equal a direct
+    call's."""
     q, k, v, dout, qo, kl, _causal = _flash_inputs(dev, FLASH[0], seed=12)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fwd = flash_kernel_for(True, q.shape[2] // k.shape[2], D, q.shape[1], True)
-    assert fwd == "flash_attention_sm90"
-    f0, b0 = LAUNCHES[fwd], LAUNCHES["flash_attention_bwd"]
+    bwd = flash_bwd_kernel_for(True, q.shape[2] // k.shape[2], D, q.shape[1], True)
+    assert (fwd, bwd) == ("flash_attention_sm90", "flash_attention_bwd_sm90")
+    f0, b0 = LAUNCHES[fwd], LAUNCHES[bwd]
     out = flash_attention(*leaves)
     out.backward(dout)
     torch.cuda.synchronize()
-    assert (LAUNCHES[fwd], LAUNCHES["flash_attention_bwd"]) == (f0 + 1, b0 + 1)
+    assert (LAUNCHES[fwd], LAUNCHES[bwd]) == (f0 + 1, b0 + 1)
     _o, lse = flash_attention_fwd(q, k, v, qo, kl, causal=True, scale=D ** -0.5)
     direct = flash_attention_bwd(q, k, v, out.detach(), lse, dout, qo, kl, causal=True,
                                  scale=D ** -0.5)
@@ -1277,7 +1288,7 @@ def test_flash_attention_sm90_refuses_what_it_does_not_take(dev):
 def test_train_step_through_flash_sm90(dev):
     """A 2-layer step at head_dim 128 and a group of 4 through the Hopper
     forward (each layer's forward twice under remat, the older forward never)
-    and K7's backward: the loss and every leaf's gradient against the same
+    and the Hopper backward (once a layer, the older backward never): the loss and every leaf's gradient against the same
     step with the plain attention (loss within 1e-2, each leaf within 5e-2,
     the limits chip_smoke.py holds the 8B widths to)."""
     from finchat_tpu_torch.models.llama import LlamaConfig, dense_causal_attention, init_params
@@ -1289,11 +1300,12 @@ def test_train_step_through_flash_sm90(dev):
     g.manual_seed(63)
     params = init_params(config, g, dev)
     tokens = torch.randint(0, config.vocab_size, (2, 256), generator=g, device=dev)
-    names = ("flash_attention_sm90", "flash_attention", "flash_attention_bwd")
+    names = ("flash_attention_sm90", "flash_attention", "flash_attention_bwd",
+             "flash_attention_bwd_sm90")
     before = [LAUNCHES[n] for n in names]
     loss, grads = value_and_grad(params, tokens, config=config)
     torch.cuda.synchronize()
-    assert [LAUNCHES[n] - b for n, b in zip(names, before)] == [4, 0, 2]
+    assert [LAUNCHES[n] - b for n, b in zip(names, before)] == [4, 0, 0, 2]
     loss_p, grads_p = value_and_grad(params, tokens, config=config,
                                      attention=dense_causal_attention)
     assert abs(loss.item() - loss_p.item()) <= 1e-2
@@ -1302,3 +1314,90 @@ def test_train_step_through_flash_sm90(dev):
         want = plain[path].float()
         rel = ((got.float() - want).norm() / want.norm().clamp(min=1e-30)).item()
         assert rel <= 5e-2, f"{path}: relative {rel:.3e}"
+
+
+# --- K7's Hopper backward ------------------------------------------------------
+
+BWD_SM90 = "flash_attention_bwd_sm90"
+
+
+def _nan_bwd_launch(call):
+    """Fill the call's dq, dk and dv with NaN, launch it, and return copies
+    of the three."""
+    grads = (call.out, *call.aux)
+    for g in grads:
+        g.fill_(float("nan"))
+    call.launch()
+    torch.cuda.synchronize()
+    return tuple(g.clone() for g in grads)
+
+
+@pytest.mark.parametrize("n_sm", ["card", "one"])
+@pytest.mark.parametrize("case", FLASH_SM90, ids=[c[0] for c in FLASH_SM90])
+def test_flash_attention_bwd_sm90_matches_plain(dev, case, n_sm, monkeypatch):
+    """The routed backward launches the Hopper kernel once a call, on the
+    Hopper forward's out and lse over K/V whose rows at or past each kv_len
+    are NaN; its dq, dk and dv, over outputs filled with NaN, match the plain
+    backward on clean K/V (per tensor and per row, ``_assert_grad_close``),
+    a kv_len-0 sequence's are zeros, and two launches are bit-identical. With
+    ``n_sm`` "one", the dQ pass takes two query tiles a block wherever the
+    call has two."""
+    import finchat_tpu_torch.ops.flash_attention as fa
+
+    if n_sm == "one":
+        monkeypatch.setattr(fa, "sm_count", lambda device: 1)
+    args, clean = _flash_sm90_inputs(dev, case, seed=64)
+    q, k, v, qo, kl = args
+    g = torch.Generator(device=dev)
+    g.manual_seed(65)
+    dout = torch.randn(q.shape, generator=g, device=dev, dtype=torch.bfloat16)
+    kw = dict(causal=True, scale=D ** -0.5)
+    out, lse = flash_attention_fwd(*args, **kw)
+    before = dict(LAUNCHES)
+    flash_attention_bwd(q, k, v, out, lse, dout, qo, kl, **kw)
+    torch.cuda.synchronize()
+    moved = {n: LAUNCHES[n] - before[n] for n in LAUNCHES if LAUNCHES[n] != before[n]}
+    assert moved == {BWD_SM90: 1}
+    call = prepare_flash_bwd(q, k, v, out, lse, dout, qo, kl, **kw)
+    assert call.name == BWD_SM90
+    got, again = _nan_bwd_launch(call), _nan_bwd_launch(call)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = flash_attention_bwd_ref(*clean[:3], out, lse, dout, q_offset=clean[3],
+                                   kv_len=clean[4], **kw)
+    live = kl > 0
+    for grad, w in zip(got, want):
+        assert bool(torch.isfinite(grad.float()).all())
+        _assert_grad_close(grad[live], w[live])
+        assert bool((grad[~live] == 0).all())
+
+
+def test_flash_attention_bwd_sm90_refuses_what_it_does_not_take(dev):
+    """The wrapper refuses a call the rule does not send to the kernel; the
+    C entry itself refuses (cudaErrorInvalidValue) a non-causal call, tiles
+    that do not hold 64 rows, three dQ tiles a block and a misaligned
+    operand."""
+    args, _clean = _flash_sm90_inputs(dev, FLASH_SM90[2], seed=66)
+    q, k, v, qo, kl = args
+    out, lse = flash_attention_fwd(*args, causal=True, scale=D ** -0.5)
+    dout = torch.zeros_like(q)
+    with pytest.raises(ValueError, match="64 rows"):
+        prepare_flash_bwd(q, k, v, out, lse, dout, qo, kl, causal=False, scale=1.0,
+                          kernel=BWD_SM90)
+    q8 = q[:, :8].contiguous()  # 8 tokens: 32 rows
+    with pytest.raises(ValueError, match="64 rows"):
+        prepare_flash_bwd(q8, k, v, q8, lse[:, :, :8].contiguous(), q8, qo, kl, causal=True,
+                          scale=1.0, kernel=BWD_SM90)
+    with pytest.raises(ValueError, match="CUDA"):
+        prepare_flash_bwd(*(t.cpu() for t in (q, k, v, out, lse, dout, qo, kl)), causal=True,
+                          scale=1.0)
+    call = prepare_flash_bwd(q, k, v, out, lse, dout, qo, kl, causal=True, scale=D ** -0.5)
+    ptrs, dims, (bq, tiles, scale) = call.args[:12], list(call.args[12:19]), call.args[19:]
+    causal_at = 6  # B, Sq, Sk, H, HKV, D, causal
+    bad = {"non-causal": (ptrs, dims[:causal_at] + [0], bq, tiles),
+           "32-row tiles": (ptrs, dims, bq // 2, tiles),
+           "three tiles a block": (ptrs, dims, bq, 3),
+           "misaligned dq": (ptrs[:7] + (ptrs[7] + 2,) + ptrs[8:], dims, bq, tiles)}
+    for label, (p, d, b, t) in bad.items():
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            kernels.launch(BWD_SM90, *p, *d, b, t, scale)
+        torch.cuda.synchronize()
