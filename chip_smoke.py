@@ -10,10 +10,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``sm_90a`` (build seconds printed), and the registers, stack and spills
    of the Hopper kernels (``cuobjdump -res-usage``), the bf16 prefill body
    (``attention_bf16_sm90.cu``: its paged, ragged and contiguous entries),
-   K7's Hopper backward (``flash_attention_bwd_sm90.cu``) and the fused
-   dequant matmul's decode body (``quant_matmul_decode_sm90.cu``) among
-   them; a Hopper attention kernel that spills (stack or local memory)
-   fails the run.
+   K7's Hopper backward (``flash_attention_bwd_sm90.cu``), the fused
+   dequant matmul's decode body (``quant_matmul_decode_sm90.cu``) and the
+   KV-row writer (``kv_write_sm90.cu``) among them; a Hopper attention
+   kernel or a writer kernel that spills (stack or local memory) fails the
+   run.
 2. Kernels against their plain PyTorch versions on the card, at the serving
    shapes of Llama-3-8B (32 query heads, 8 KV heads, head_dim 128,
    page_size 128, 64 pages per sequence), over a bf16 cache and over an
@@ -22,7 +23,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    C=512 at q_offset 0 and 1024, and over the bf16 cache at the serve's
    q_offset 2048 and a lone 512-token chunk, B=1, at q_offset 0 and
    2048), the
-   decode KV append (B=64 with invalid lanes; the int8 one quantizes), and
+   decode KV append (B=64 with invalid lanes; the int8 one quantizes) by
+   name, beside it the KV-row writer that the engine writes every cache
+   row through (``kv_write_sm90.cu``: ``kv_append_sm90``, and
+   ``kv_append_q8_sm90`` quantizing; the decode step's 64 lanes, the 4 x 512
+   chunk at q_offset 2048 and the serve-shaped round padded to its 2,048
+   bucket, against the chunk scatter, every page bit-exact but the trash
+   page where padding lanes share its rows, two launches identical), and
    ragged attention (two 512-token prefill rows, 60 decode rows, padding to
    a 2048 bucket; over the bf16 cache also a round shaped like the serve's,
    three 512-token rows at q_offset 1024, 2048 and 4096 beside 4 decode rows
@@ -62,15 +69,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    launch is timed alone, its call's checks and tile descriptors built
    once, and the routed wrapper's time, host work included, beside it; the
    appends' launch and K7's backwards as one launch of 20 in a CUDA graph,
-   their yardsticks likewise, the wrapper's time beside it),
+   their yardsticks likewise, the wrapper's time beside it; the writer, its
+   plain version and its yardstick likewise),
    the bound (the
    larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, counted from this
    run's inputs) and a library yardstick the port never calls:
    ``scaled_dot_product_attention`` over the pre-gathered (dequantized) KV
-   on the same work, ``index_put_`` of the same rows for the bf16 append,
+   on the same work, ``index_put_`` of the same rows for the bf16 append
+   and the bf16 writer,
    ``torch.matmul`` with the already dequantized bf16 weight for the
-   matmul (none for the quantizing append: no one call quantizes and
-   scatters). Last, contiguous flash attention (K7, the training path):
+   matmul (none for the quantizing append and writer: no one call quantizes
+   and scatters). Last, contiguous flash attention (K7, the training path):
    the forward causal at B=1 S=2048 and with ``q_offset`` 1024 / ``kv_len``
    1536 at B=4 Sq=512, through the bf16 prefill body's contiguous entry
    (``flash_attention_sm90``, the kernel ``flash_kernel_for`` names) with the
@@ -99,7 +108,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    planes, K8's v2: every
    matmul of at most 64 rows, decode steps and heads, goes to the decode
    body), and the Hopper prefill body of the plane's
-   cache must take every prefill chunk, one launch a layer; one served
+   cache must take every prefill chunk, one launch a layer; the KV-row
+   writer of the plane's cache must take every cache write, one launch a
+   layer of every decode step, prefill chunk and ragged round, and the
+   older appends none; one served
    stream is then
    checked teacher-forced against the plain dense forward (same weights,
    plain attention). Last, one decode step, one prefill chunk and one
@@ -197,19 +209,22 @@ REPO = Path(__file__).resolve().parent
 # the decode body's) and K3 nothing; K8: the Hopper kernel serves prefill
 # (more than 64 rows), the decode body every call of at most 64 rows (decode
 # steps, heads), v2 nothing; int8 attention: the Hopper int8 body also
-# serves every ragged tile, and the older int8 ragged body nothing
+# serves every ragged tile, and the older int8 ragged body nothing; every
+# cache write (decode steps, chunks, rounds) goes to the KV-row writer of the
+# cache, one launch a layer, and the older appends nothing
 PLANES = {
-    "bf16": dict(kernels=("paged_attention_sm90", "paged_attention_decode_sm90", "kv_append",
+    "bf16": dict(kernels=("paged_attention_sm90", "paged_attention_decode_sm90", "kv_append_sm90",
                           "ragged_paged_attention_sm90", "ragged_paged_attention_decode_sm90"),
-                 never=("ragged_paged_attention",), quant="", group=0, kv_quant=""),
+                 never=("ragged_paged_attention", "kv_append"), quant="", group=0, kv_quant=""),
     "int8+kv8": dict(kernels=("paged_attention_q8_decode_sm90", "paged_attention_q8_sm90",
-                              "kv_append_q8", "ragged_paged_attention_q8_sm90",
+                              "kv_append_q8_sm90", "ragged_paged_attention_q8_sm90",
                               "quant_matmul_int8_sm90", "quant_matmul_int8_decode_sm90"),
-                     never=("quant_matmul_int8",), quant="int8", group=0, kv_quant="int8"),
+                     never=("quant_matmul_int8", "kv_append_q8"), quant="int8", group=0,
+                     kv_quant="int8"),
     "int4g128+kv8": dict(kernels=("paged_attention_q8_decode_sm90", "paged_attention_q8_sm90",
-                                  "kv_append_q8", "ragged_paged_attention_q8_sm90",
+                                  "kv_append_q8_sm90", "ragged_paged_attention_q8_sm90",
                                   "quant_matmul_int4_sm90", "quant_matmul_int4_decode_sm90"),
-                         never=("quant_matmul_int4",), quant="int4", group=128,
+                         never=("quant_matmul_int4", "kv_append_q8"), quant="int4", group=128,
                          kv_quant="int8"),
 }
 
@@ -599,6 +614,142 @@ def check_append_q8(torch, gen, dev, results: list) -> None:
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                         wrapper_ms=wrapper_ms))
     del cache, ref, k_pages, v_pages, k_scales, v_scales
+    torch.cuda.empty_cache()
+
+
+def _kv_write_cases(torch, gen, dev, n_pages: int):
+    """The KV-row writer's cases at llama3-8b's KV width, as (name, plan, K,
+    V, padding lanes share trash rows): a decode step of 64 lanes (the
+    append cases' lanes, every 8th invalid at its own offset; K and V the
+    halves of one fused row, each with a row stride of 2 * HD), the 4 x 512
+    chunk at q_offset 2048, and the serve-shaped round (``SERVE_ROUND``:
+    1,540 tokens padded to the 2,048 bucket of a 64-row round, the padding
+    tokens all on the trash page's row 0)."""
+    from finchat_tpu_torch.ops.kv_append import plan_kv_rows, plan_kv_rows_ragged
+
+    HD = HKV * D
+    i32 = dict(dtype=torch.int32, device=dev)
+    bf = dict(generator=gen, device=dev, dtype=torch.bfloat16)
+    pt, pos, n_valid = _append_lanes(torch, gen, dev, 64, n_pages)
+    fused = torch.randn((64, 2 * HD), **bf)
+    yield "decode", plan_kv_rows(pt, pos, n_valid, 1, PS), fused[:, :HD], fused[:, HD:], False
+    pt = _page_table(torch, gen, dev, [2560] * 4, n_pages)
+    plan = plan_kv_rows(pt, torch.full((4,), 2048, **i32), torch.full((4,), 512, **i32), 512, PS)
+    k, v = torch.randn((2048, HD), **bf), torch.randn((2048, HD), **bf)
+    yield "chunk_4x512_q2048", plan, k, v, False
+    R, T = 64, 2048
+    page_rows = torch.zeros((R, MP), **i32)
+    page_rows[:len(SERVE_ROUND)] = _page_table(torch, gen, dev, [p0 + q for q, p0 in SERVE_ROUND],
+                                               n_pages)
+    tok_row = [r for r, (q, _p0) in enumerate(SERVE_ROUND) for _ in range(q)]
+    tok_pos = [p0 + i for q, p0 in SERVE_ROUND for i in range(q)]
+    pad = T - len(tok_row)
+    plan = plan_kv_rows_ragged(page_rows, torch.tensor(tok_row + [R] * pad, **i32),
+                               torch.tensor(tok_pos + [0] * pad, **i32), PS)
+    k, v = torch.randn((T, HD), **bf), torch.randn((T, HD), **bf)
+    yield "round_serve", plan, k, v, True
+
+
+def check_kv_write(torch, dev, results: list, q8: bool) -> None:
+    """The KV-row writer — K2 and K5 redesigned, every cache write of a
+    serve — at the serving cache, per case of ``_kv_write_cases``: the
+    wrapper launches its entry once, the cache is bit-exact against the
+    plain version (the chunk scatter) on the same inputs (every layer and
+    page; where padding lanes share trash rows, every page but the trash
+    page 0), a second launch leaves it identical; the launch is timed as
+    one of 20 in a CUDA graph, as are the plain version and, for the bf16
+    cache, ``index_put_`` of the same rows, the routed wrapper's time (host
+    work included) by events beside it. Its own generator: the draws of
+    the cases after it stay as they were."""
+    from finchat_tpu_torch.engine.kv_cache import scale_rows
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+    from finchat_tpu_torch.ops.kv_append import (
+        paged_kv_write,
+        paged_kv_write_ref,
+        prepare_kv_write,
+    )
+    from finchat_tpu_torch.tools.qmm_decode_diag import graph_ms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2469 if q8 else 2468)
+    L, P, HD, layer = 32, 512, HKV * D, 17  # the serving cache: [32, 512, 128, 1024]
+    kernel = "kv_append_q8_sm90" if q8 else "kv_append_sm90"
+    dtype = torch.int8 if q8 else torch.bfloat16
+
+    def cache():
+        pages = [torch.zeros((L, P, PS, HD), dtype=dtype, device=dev) for _ in range(2)]
+        planes = [torch.zeros((L, P, scale_rows(HKV), PS), device=dev) for _ in range(2)] if q8 \
+            else [None, None]
+        return pages + planes
+
+    got, ref = cache(), cache()
+    label = "kv_write_q8" if q8 else "kv_write"
+    for name, plan, k, v, collide in _kv_write_cases(torch, gen, dev, P):
+        for t in got + ref:
+            if t is not None:
+                t.zero_()
+        kw = dict(n_kv=HKV, k_scales=got[2], v_scales=got[3])
+        kw_ref = dict(n_kv=HKV, k_scales=ref[2], v_scales=ref[3])
+        before = dict(LAUNCHES)
+        paged_kv_write(plan.rows, k, v, got[0], got[1], layer, **kw)
+        torch.cuda.synchronize()
+        moved = {n: LAUNCHES[n] - before[n] for n in LAUNCHES if LAUNCHES[n] != before[n]}
+        if moved != {kernel: 1}:
+            fail(f"{label}_{name}: expected one launch of {kernel}, launches moved: {moved}")
+        paged_kv_write_ref(plan, k, v, ref[0], ref[1], layer, **kw_ref)
+        live = slice(1, None) if collide else slice(None)
+        pairs = [(a, b) for a, b in zip(got, ref) if a is not None]
+        exact = all(bool(torch.equal(a[:, live], b[:, live])) for a, b in pairs)
+        err = max((a[layer, live].float() - b[layer, live].float()).abs().max().item()
+                  for a, b in pairs)
+        first = [a[layer].clone() for a, _b in pairs]
+        call = prepare_kv_write(plan.rows, k, v, got[0], got[1], layer, **kw)
+        call.launch()
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a[layer, live], f[live]))
+                   for (a, _b), f in zip(pairs, first))
+        del first
+        N = plan.rows.numel()
+        log(f"  {label}_{name} [{kernel}]: {N} rows, bit-exact {exact} against the chunk "
+            f"scatter (pages{' and scale planes' if q8 else ''}"
+            f"{', every page but the trash page' if collide else ''}; max_abs_err {err:.3e}), "
+            f"two launches identical: {same}")
+        if not (exact and same):
+            fail(f"{label}_{name}: {kernel} disagrees with its plain version "
+                 f"(bit-exact {exact}, identical {same})")
+
+        def wrapper():
+            paged_kv_write(plan.rows, k, v, got[0], got[1], layer, **kw)
+
+        def plain():
+            paged_kv_write_ref(plan, k, v, ref[0], ref[1], layer, **kw_ref)
+
+        ms = graph_ms(call.launch)
+        wrapper_ms = time_ms(torch, wrapper)
+        plain_ms = graph_ms(plain)
+        lib_ms = None
+        if not q8:  # yardstick: index_put_ of the same rows into each layer's [P * PS, HD] view
+            rows_l = plan.rows.long()
+            k_view, v_view = ref[0][layer].view(-1, HD), ref[1][layer].view(-1, HD)
+
+            def library():
+                k_view.index_put_((rows_l,), k)
+                v_view.index_put_((rows_l,), v)
+
+            lib_ms = graph_ms(library)
+        # K and V rows in (bf16), written (bf16, or int8 and an fp32 scale a
+        # head), and each token's row index
+        out_bytes = 2 * HD + 2 * HKV * 4 if q8 else 2 * HD * 2
+        b_ms, b_by = bound_ms(N * (2 * HD * 2 + out_bytes + 4), 0.0)
+        log(f"  {label}_{name} [{kernel}]: kernel {ms:.4f} ms (a launch of 20 in a CUDA graph; "
+            f"the wrapper, its host work included, {wrapper_ms:.4f} ms), plain {plain_ms:.4f} "
+            f"ms (graph), " + (f"index_put_ {lib_ms:.4f} ms (graph)" if lib_ms is not None
+                               else "library none") + f", bound {b_ms:.6f} ms ({b_by})")
+        results.append(dict(case=f"{label}_{name}", kernel=kernel, err=err, rel_err=None, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                            wrapper_ms=wrapper_ms))
+        del plan, k, v, call
+    del got, ref
     torch.cuda.empty_cache()
 
 
@@ -1161,6 +1312,7 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
     messages = [f"Request {i}: what should I do next with my money?" for i in range(8)]
     mixed0 = METRICS.get("finchat_mixed_dispatches_total")
     coexist0 = METRICS.get("finchat_coexist_iterations_total")
+    decode0 = METRICS.get("finchat_decode_dispatches_total")
     reset_launches()
     await sched.start()
 
@@ -1223,6 +1375,18 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         f"KV bits {METRICS.get('finchat_quant_kv_bits'):.0f}")
     if mixed < 1:
         fail(f"serve {plane}: no packed ragged round ran (prefill never coexisted with decode)")
+    # every cache write: one launch of the writer a layer of each decode
+    # step, prefill chunk and ragged round
+    decode_steps = METRICS.get("finchat_decode_dispatches_total") - decode0
+    writer, older_append = (("kv_append_q8_sm90", "kv_append_q8") if spec["kv_quant"]
+                            else ("kv_append_sm90", "kv_append"))
+    want_writes = int(config.n_layers * (decode_steps + chunk_calls[0] + mixed))
+    log(f"  KV writes: {launches[writer]} launches of {writer} (want {want_writes} = "
+        f"{config.n_layers} x ({decode_steps:.0f} decode steps + {chunk_calls[0]} chunks + "
+        f"{mixed:.0f} rounds)), {launches[older_append]} of the older append")
+    if launches[writer] != want_writes:
+        fail(f"serve {plane}: the KV-row writer took {launches[writer]} layer writes, not one a "
+             f"layer of every step ({want_writes})")
     check = teacher_forced_check(torch, params, config, handles, spec["kv_quant"])
     steps = (profile_steps(torch, engine, context=max(prompt_lens), active=len(handles))
              if profile else None)
@@ -1248,6 +1412,8 @@ def _kernel_class(name: str) -> str:
                             "attention_q8_sm90_kernel", "attention_bf16_sm90_kernel",
                             "combine_splits")):
         return "attention (ours)"
+    if "kv_write" in n:
+        return "kv_append sm90 (ours)"
     if "kv_append" in n:
         return "kv_append (ours)"
     if "quant_matmul_decode" in n:
@@ -1626,13 +1792,15 @@ def main() -> None:
     log_resource_usage(kernels.library_path("attention_q8_sm90.cu"), "attention_q8_sm90_kernel")
     # the bf16 prefill body's paged, ragged and contiguous entries, the
     # decode body's instantiations (paged bf16 and int8, ragged bf16) and
-    # their merges, K7's Hopper backward (pre-pass, dK/dV and dQ bodies)
+    # their merges, K7's Hopper backward (pre-pass, dK/dV and dQ bodies),
+    # the KV-row writer's two kernels
     spills = [src for src, kernel in (("attention_bf16_sm90.cu", "attention_bf16_sm90_kernel"),
                                       ("attention_decode_sm90.cu", "attention_decode_sm90"),
-                                      ("flash_attention_bwd_sm90.cu", "flash_bwd_"))
+                                      ("flash_attention_bwd_sm90.cu", "flash_bwd_"),
+                                      ("kv_write_sm90.cu", "kv_write_"))
               if log_resource_usage(kernels.library_path(src), kernel)]
     if spills:
-        fail(f"the Hopper attention kernels of {spills} spill to local memory")
+        fail(f"the Hopper kernels of {spills} spill to local memory")
 
     log("phase 2: kernels against their plain versions (llama3-8b shapes)")
     gen = torch.Generator(device=dev)
@@ -1649,6 +1817,7 @@ def main() -> None:
     check_paged(torch, "paged_prefill_b1_q0", gen, dev, 512, [0], [512], results)
     check_paged(torch, "paged_prefill_b1_q2048", gen, dev, 512, [2048], [2560], results)
     check_append(torch, gen, dev, results)
+    check_kv_write(torch, dev, results, q8=False)
     dec = [int(x) for x in torch.randint(1, 4096, (60,), generator=gen, device=dev)]
     check_ragged(torch, gen, dev, results, "ragged",
                  [(512, 0), (512, 1024)] + [(1, n - 1) for n in dec], 2048)
@@ -1666,6 +1835,7 @@ def main() -> None:
     check_paged(torch, "paged_q8_prefill_q1024", gen, dev, 512, [1024] * 4, [1536] * 4,
                 results, q8=True)
     check_append_q8(torch, gen, dev, results)
+    check_kv_write(torch, dev, results, q8=True)
     dec = [int(x) for x in torch.randint(1, 4096, (60,), generator=gen, device=dev)]
     check_ragged(torch, gen, dev, results, "ragged_q8",
                  [(512, 0), (512, 1024)] + [(1, n - 1) for n in dec], 2048, q8=True)
@@ -1726,6 +1896,7 @@ def main() -> None:
         "paged_attention": ("paged_attention.cu", paged, "bf16"),
         "paged_attention_sm90": ("attention_bf16_sm90.cu", paged, "bf16"),
         "kv_append": ("kv_append.cu", "finchat_tpu/ops/kv_append.py:241", "bf16"),
+        "kv_append_sm90": ("kv_write_sm90.cu", "finchat_tpu/ops/kv_append.py:241", "bf16"),
         "ragged_paged_attention": ("ragged_paged_attention.cu", ragged, "bf16"),
         "ragged_paged_attention_sm90": ("attention_bf16_sm90.cu", ragged, "bf16"),
         "ragged_paged_attention_decode_sm90": ("attention_decode_sm90.cu", ragged, "bf16"),
@@ -1734,6 +1905,8 @@ def main() -> None:
         "paged_attention_decode_sm90": ("attention_decode_sm90.cu", paged, "bf16"),
         "paged_attention_q8_decode_sm90": ("attention_decode_sm90.cu", q8_paged, "int8+kv8"),
         "kv_append_q8": ("kv_append.cu", "finchat_tpu/ops/kv_append.py:175", "int8+kv8"),
+        "kv_append_q8_sm90": ("kv_write_sm90.cu", "finchat_tpu/ops/kv_append.py:175",
+                              "int8+kv8"),
         "ragged_paged_attention_q8": ("ragged_paged_attention.cu", q8_ragged, "int8+kv8"),
         "ragged_paged_attention_q8_sm90": ("attention_q8_sm90.cu", q8_ragged, "int8+kv8"),
         "quant_matmul_int8": ("quant_matmul.cu", qmm, "int8+kv8"),

@@ -437,18 +437,38 @@ int scale_rows(int g) {
   return most;
 }
 
+// the operands' TMA maps: x [M, K] in boxes of MP x 64, the weight's K tile,
+// and the int4 scale rows of a tile where grouped
 template <bool PACKED, bool GROUPED, int MP>
-cudaError_t launch_body(const CUtensorMap& xmap, const CUtensorMap& qmap, const CUtensorMap& smap,
-                        const float* scale, void* dst, bool out_bf16, int M, int K, int N, int g,
-                        int splits, int k_split, int sr, cudaStream_t stream) {
+bool make_maps(CUtensorMap* xmap, CUtensorMap* qmap, CUtensorMap* smap, const void* x,
+               const void* q, const void* scale, int M, int K, int N, int G, int sr) {
+  return make_map(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, MP, BK,
+                  CU_TENSOR_MAP_SWIZZLE_128B) &&
+         make_map(qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, PACKED ? K / 2 : K, N,
+                  PACKED ? BK / 2 : BK, BN, CU_TENSOR_MAP_SWIZZLE_128B) &&
+         (!GROUPED || make_map(smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scale, G, N, sr, BN,
+                               CU_TENSOR_MAP_SWIZZLE_NONE));
+}
+
+template <bool PACKED, bool GROUPED, int MP>
+cudaError_t launch_body(const void* x, const void* q, const float* scale, void* dst,
+                        bool out_bf16, int M, int K, int N, int G, int g, int splits,
+                        int k_split, int sr, cudaStream_t stream) {
   constexpr int RAW = (PACKED ? BK / 2 : BK) * BN;
   const int stage_bytes = (RAW + MP * BK * 2 + (GROUPED ? sr * BN * 4 : 0) + 1023) / 1024 * 1024;
   const int smem = kStages * stage_bytes + 2 * kStages * 8 + 1024;  // + alignment slack
   auto kernel = out_bf16 ? quant_matmul_decode_sm90_kernel<PACKED, GROUPED, MP, true>
                          : quant_matmul_decode_sm90_kernel<PACKED, GROUPED, MP, false>;
+  // the runtime call first: it makes the device's context current on this
+  // thread (a thread that has made no runtime call, as autograd's backward
+  // thread, may have none yet), which cuTensorMapEncodeTiled needs
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  CUtensorMap xmap, qmap, smap = {};
+  if (!make_maps<PACKED, GROUPED, MP>(&xmap, &qmap, &smap, x, q, scale, M, K, N, G, sr)) {
+    return cudaErrorInvalidValue;
+  }
   dim3 grid((N + BN - 1) / BN, splits);
   kernel<<<grid, THREADS, smem, stream>>>(xmap, qmap, smap, scale, dst, M, K, N, g, k_split, sr,
                                           stage_bytes);
@@ -456,23 +476,22 @@ cudaError_t launch_body(const CUtensorMap& xmap, const CUtensorMap& qmap, const 
 }
 
 template <bool PACKED, bool GROUPED>
-cudaError_t launch_rows(const CUtensorMap& xmap, const CUtensorMap& qmap,
-                        const CUtensorMap& smap, const float* scale, void* dst, bool out_bf16,
-                        int MP, int M, int K, int N, int g, int splits, int k_split, int sr,
-                        cudaStream_t st) {
+cudaError_t launch_rows(const void* x, const void* q, const float* scale, void* dst,
+                        bool out_bf16, int MP, int M, int K, int N, int G, int g, int splits,
+                        int k_split, int sr, cudaStream_t st) {
   switch (MP) {
     case 8:
-      return launch_body<PACKED, GROUPED, 8>(xmap, qmap, smap, scale, dst, out_bf16, M, K, N, g,
-                                             splits, k_split, sr, st);
+      return launch_body<PACKED, GROUPED, 8>(x, q, scale, dst, out_bf16, M, K, N, G, g, splits,
+                                             k_split, sr, st);
     case 16:
-      return launch_body<PACKED, GROUPED, 16>(xmap, qmap, smap, scale, dst, out_bf16, M, K, N, g,
-                                              splits, k_split, sr, st);
+      return launch_body<PACKED, GROUPED, 16>(x, q, scale, dst, out_bf16, M, K, N, G, g, splits,
+                                              k_split, sr, st);
     case 32:
-      return launch_body<PACKED, GROUPED, 32>(xmap, qmap, smap, scale, dst, out_bf16, M, K, N, g,
-                                              splits, k_split, sr, st);
+      return launch_body<PACKED, GROUPED, 32>(x, q, scale, dst, out_bf16, M, K, N, G, g, splits,
+                                              k_split, sr, st);
     default:
-      return launch_body<PACKED, GROUPED, 64>(xmap, qmap, smap, scale, dst, out_bf16, M, K, N, g,
-                                              splits, k_split, sr, st);
+      return launch_body<PACKED, GROUPED, 64>(x, q, scale, dst, out_bf16, M, K, N, G, g, splits,
+                                              k_split, sr, st);
   }
 }
 
@@ -493,28 +512,19 @@ int run(const void* x, const void* q, const void* scale, void* out, void* ws, in
   const bool grouped = PACKED && G > 1;
   const int sr = grouped ? scale_rows(g) : 0;
   const int MP = M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : 64;
-  CUtensorMap xmap, qmap, smap = {};
-  if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, MP, BK,
-                CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, PACKED ? K / 2 : K, N,
-                PACKED ? BK / 2 : BK, BN, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      (grouped && !make_map(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scale, G, N, sr, BN,
-                            CU_TENSOR_MAP_SWIZZLE_NONE))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* sp = static_cast<const float*>(scale);
   void* dst = splits > 1 ? ws : out;
   const bool out_bf16 = splits == 1 && !out_f32;
   cudaError_t err;
   if constexpr (PACKED) {
-    err = grouped ? launch_rows<true, true>(xmap, qmap, smap, sp, dst, out_bf16, MP, M, K, N, g,
-                                            splits, k_split, sr, st)
-                  : launch_rows<true, false>(xmap, qmap, smap, sp, dst, out_bf16, MP, M, K, N, g,
-                                             splits, k_split, sr, st);
+    err = grouped ? launch_rows<true, true>(x, q, sp, dst, out_bf16, MP, M, K, N, G, g, splits,
+                                            k_split, sr, st)
+                  : launch_rows<true, false>(x, q, sp, dst, out_bf16, MP, M, K, N, G, g, splits,
+                                             k_split, sr, st);
   } else {
-    err = launch_rows<false, false>(xmap, qmap, smap, sp, dst, out_bf16, MP, M, K, N, g, splits,
-                                    k_split, sr, st);
+    err = launch_rows<false, false>(x, q, sp, dst, out_bf16, MP, M, K, N, G, g, splits, k_split,
+                                    sr, st);
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
 #ifndef FCT_QMM_NO_REDUCE

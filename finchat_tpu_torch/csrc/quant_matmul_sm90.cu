@@ -341,6 +341,13 @@ int launch(const void* x, const void* q, const void* scale, void* out, int M, in
            cudaStream_t stream) {
   using S = Shape<PACKED, MW>;
   const int g = K / G;
+  // the runtime call first: it makes the device's context current on this
+  // thread (a thread that has made no runtime call, as autograd's backward
+  // thread, may have none yet), which cuTensorMapEncodeTiled needs
+  auto kernel = quant_matmul_sm90_kernel<PACKED, MW>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap xmap, qmap;
   if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, 64 * S::MW, BK,
                 CU_TENSOR_MAP_SWIZZLE_128B) ||
@@ -348,10 +355,6 @@ int launch(const void* x, const void* q, const void* scale, void* out, int M, in
                 CU_TENSOR_MAP_SWIZZLE_NONE)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = quant_matmul_sm90_kernel<PACKED, MW>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((M + S::BM - 1) / S::BM, (N + BN - 1) / BN);
   kernel<<<grid, THREADS, S::SMEM, stream>>>(xmap, qmap, static_cast<const float*>(scale),
                                               static_cast<__nv_bfloat16*>(out), M, K, N, g, G);

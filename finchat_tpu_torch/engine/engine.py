@@ -14,18 +14,22 @@ like:
   bucket, each row with its own length, page list and sampling params.
   Spec-verify rows and fused loop tails are later slices.
 
-The KV cache is updated IN PLACE: the decode write is the append kernel
-(ops/kv_append.py), the prefill and ragged writes an indexed ``index_put_``
-into the layer's pages. The JAX package donates its state to every jitted
-step and aliases the append kernel's output to its input to get the same
-effect; in PyTorch a step writes the tensors it was given. The step
-functions mutate ``state`` and return it for symmetry with the reference.
+The KV cache is updated IN PLACE: a step plans its token rows once
+(``plan_kv_rows``, ``plan_kv_rows_ragged``: ops/kv_append.py), and every
+layer writes its K/V rows through ``kv_write`` — on the card one launch of
+the KV-row writer for decode rows, prefill chunks and ragged rounds alike,
+on the CPU the indexed chunk scatter. The JAX package donates its state to
+every jitted step and aliases the append kernel's output to its input to
+get the same effect; in PyTorch a step writes the tensors it was given. The
+step functions mutate ``state`` and return it for symmetry with the
+reference.
 
 With ``EngineConfig.kv_quant = "int8"`` the pages are int8 with
 per-token-per-head scale planes: every write quantizes its rows (the
-quantizing append kernel, ``scatter_kv_chunk_q8``) and every attention read
-dequantizes them. ``InferenceEngine(quant="int8" | "int4")`` serves
-int8/int4 weights through the fused dequant-matmul kernel.
+writer's int8 entry, ``scatter_kv_chunk_q8`` on the CPU) and every
+attention read dequantizes them. ``InferenceEngine(quant="int8" |
+"int4")`` serves int8/int4 weights through the fused dequant-matmul
+kernel.
 """
 
 from __future__ import annotations
@@ -36,15 +40,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from finchat_tpu_torch.engine.kv_cache import (
-    PagedKVCache,
-    scatter_kv_chunk,
-    scatter_kv_chunk_q8,
-)
+from finchat_tpu_torch.engine.kv_cache import PagedKVCache
 from finchat_tpu_torch.engine.sampler import sample
 from finchat_tpu_torch.models.llama import LlamaConfig, forward, lm_head
 from finchat_tpu_torch.models.quant import quantize_llama_params, validate_quant_mode
-from finchat_tpu_torch.ops.dispatch import kv_append, paged_attention, ragged_paged_attention
+from finchat_tpu_torch.ops.dispatch import kv_write, paged_attention, ragged_paged_attention
+from finchat_tpu_torch.ops.kv_append import plan_kv_rows, plan_kv_rows_ragged
 from finchat_tpu_torch.ops.ragged_paged_attention import plan_ragged
 from finchat_tpu_torch.utils.config import EngineConfig
 from finchat_tpu_torch.utils.logging import get_logger
@@ -112,44 +113,27 @@ def _cache(state: DecodeState) -> tuple:
     return (state.k_pages, state.v_pages, state.k_scales, state.v_scales)
 
 
-def _scatter_kv(cache: tuple, k: torch.Tensor, v: torch.Tensor, page_table: torch.Tensor,
-                start_pos: torch.Tensor, n_valid: torch.Tensor, page_size: int, layer: int,
-                n_kv: int) -> None:
-    """Write one chunk's K/V into the paged cache in place, quantizing for
-    an int8 cache — the one place the write path picks its cache type."""
-    k_pages, v_pages, k_scales, v_scales = cache
-    if k_pages.dtype == torch.int8:
-        scatter_kv_chunk_q8(k_pages, v_pages, k_scales, v_scales, k, v, page_table, start_pos,
-                            n_valid, page_size, layer, n_kv)
-    else:
-        scatter_kv_chunk(k_pages, v_pages, k, v, page_table, start_pos, n_valid, page_size,
-                         layer)
-
-
 def _paged_attention_fn(page_table: torch.Tensor, start_pos: torch.Tensor,
-                        n_valid: torch.Tensor, page_size: int, n_kv: int):
+                        n_valid: torch.Tensor, chunk: int, page_size: int, n_kv: int):
     """The model's attention callback for paged prefill/decode.
 
     ``page_table`` [B, max_pages], ``start_pos`` [B] (position of the first
     query token), ``n_valid`` [B] (real tokens in this chunk; 0 for inactive
-    decode slots). C == 1 writes through the in-place append (kernel on the
-    card; the quantizing one for an int8 cache), a prefill chunk through
-    the indexed scatter; the write lands before the attention launch on the
-    same stream, and ``kv_len`` counts the chunk's own tokens."""
+    decode slots), ``chunk`` tokens a sequence (1 at decode). The step's
+    KV rows are planned here once; each layer writes its chunk through
+    ``kv_write`` (the KV-row writer on the card, quantizing for an int8
+    cache), reading K and V where they lie. The write lands before the
+    attention launch on the same stream, and ``kv_len`` counts the chunk's
+    own tokens."""
     kv_len = (start_pos + n_valid).to(I32)
-    lane_valid = (n_valid > 0).to(I32)
+    kv_rows = plan_kv_rows(page_table, start_pos, n_valid, chunk, page_size)
 
     def attention(q, k, v, cache, layer_idx: int):
         k_pages, v_pages, k_scales, v_scales = cache
         scales = dict(k_scales=k_scales, v_scales=v_scales)
-        B, C = k.shape[:2]
-        if C == 1:
-            kv_new = torch.cat([k.reshape(B, 1, -1), v.reshape(B, 1, -1)], dim=-1)
-            kv_append(kv_new, k_pages, v_pages, page_table, start_pos, lane_valid,
-                      layer_idx, page_size=page_size, n_kv=n_kv, **scales)
-        else:
-            _scatter_kv(cache, k, v, page_table, start_pos, n_valid, page_size, layer_idx,
-                        n_kv)
+        N = k.shape[0] * k.shape[1]
+        kv_write(kv_rows, k.reshape(N, -1), v.reshape(N, -1), k_pages, v_pages, layer_idx,
+                 n_kv=n_kv, **scales)
         out = paged_attention(q, k_pages, v_pages, page_table, start_pos, kv_len,
                               layer_idx, page_size=page_size, n_kv=n_kv, **scales)
         return out, cache
@@ -177,7 +161,7 @@ def prefill_step(
     positions = start_pos[:, None] + torch.arange(C, device=dev, dtype=I32)[None, :]
     page_rows = state.page_table[slots_l]
     attention = _paged_attention_fn(
-        page_rows, (start_pos - state.kv_gaps[slots_l]).to(I32), n_valid,
+        page_rows, (start_pos - state.kv_gaps[slots_l]).to(I32), n_valid, C,
         page_size, config.n_kv_heads,
     )
     hidden, _ = forward(params, tokens, positions, config=config, attention=attention,
@@ -225,7 +209,7 @@ def decode_step(
     positions = state.context_lens[:, None]
     n_valid = active.to(I32)
     attention = _paged_attention_fn(
-        state.page_table, (state.context_lens - state.kv_gaps).to(I32), n_valid,
+        state.page_table, (state.context_lens - state.kv_gaps).to(I32), n_valid, 1,
         page_size, config.n_kv_heads,
     )
     logits, _ = forward(params, tokens, positions, config=config, attention=attention,
@@ -242,30 +226,25 @@ def _ragged_attention_fn(
     tok_row: torch.Tensor,  # [T] int32 — owning row per packed token (R = padding)
     tok_pos: torch.Tensor,  # [T] int32 — absolute position per packed token
     row_kv_len: torch.Tensor,  # [R] int32 — valid KV per row incl. this dispatch
-    tok_valid: torch.Tensor,  # [T] bool — real token (False = buffer padding)
     page_size: int,
     n_kv: int,
     group: int,  # query heads per KV head
     row_gap: torch.Tensor,  # [R] int32 — bounded-KV eviction gap (0 here)
 ):
-    """Attention callback for the packed ragged step: every packed token is
-    one (B=T, C=1) row of the indexed scatter at its own compacted position
-    through its row's page list (padding tokens write the trash page), then
-    the ragged attention reads each row's pages in place. The round's
-    descriptors (compacted positions and lengths, tiles, rows) are built
-    here once and shared by every layer's call, over either cache."""
-    R = page_rows.shape[0]
-    safe_row = tok_row.long().clamp(max=R - 1)
-    pt_tok = page_rows[safe_row]  # [T, max_pages]
-    n_valid_tok = tok_valid.to(I32)
+    """Attention callback for the packed ragged step: every packed token's
+    K/V row lands at its own compacted position through its row's page list
+    (padding tokens write the trash page), then the ragged attention reads
+    each row's pages in place. The round's descriptors (compacted positions
+    and lengths, tiles, rows) and its KV rows are built here once and
+    shared by every layer's call, over either cache."""
     plan = plan_ragged(tok_row, tok_pos, row_kv_len, group=group, kv_gap=row_gap)
+    kv_rows = plan_kv_rows_ragged(page_rows, tok_row, plan.tok_pos, page_size)
 
     def attention(q, k, v, cache, layer_idx: int):
         k_pages, v_pages, k_scales, v_scales = cache
         T = k.shape[1]
-        # each token's K/V row lands at its compacted position
-        _scatter_kv(cache, k.reshape(T, 1, n_kv, -1), v.reshape(T, 1, n_kv, -1), pt_tok,
-                    plan.tok_pos, n_valid_tok, page_size, layer_idx, n_kv)
+        kv_write(kv_rows, k.reshape(T, -1), v.reshape(T, -1), k_pages, v_pages, layer_idx,
+                 n_kv=n_kv, k_scales=k_scales, v_scales=v_scales)
         out = ragged_paged_attention(q[0], k_pages, v_pages, page_rows, tok_row, tok_pos,
                                      row_kv_len, layer_idx, page_size=page_size, n_kv=n_kv,
                                      kv_gap=row_gap, k_scales=k_scales, v_scales=v_scales,
@@ -315,9 +294,9 @@ def _ragged_round_math(
                              torch.zeros_like(row_len)).to(I32)
     row_gap = state.kv_gaps[slot_l]
 
-    attention = _ragged_attention_fn(page_rows, tok_row, tok_pos, row_kv_len, tok_valid,
-                                     page_size, config.n_kv_heads,
-                                     config.n_heads // config.n_kv_heads, row_gap)
+    attention = _ragged_attention_fn(page_rows, tok_row, tok_pos, row_kv_len, page_size,
+                                     config.n_kv_heads, config.n_heads // config.n_kv_heads,
+                                     row_gap)
     hidden, _ = forward(params, tok_in[None], tok_pos[None], config=config,
                         attention=attention, cache=_cache(state), return_hidden=True)
     h = hidden[0]  # [T, D]

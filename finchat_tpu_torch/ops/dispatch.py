@@ -18,10 +18,13 @@ import torch
 from finchat_tpu_torch.models.quant import Q4Tensor, QTensor
 from finchat_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
 from finchat_tpu_torch.ops.kv_append import (
+    KVRows,
     paged_kv_append,
     paged_kv_append_q8,
     paged_kv_append_q8_ref,
     paged_kv_append_ref,
+    paged_kv_write,
+    paged_kv_write_ref,
 )
 from finchat_tpu_torch.ops.paged_attention import (
     paged_attention_q8_ref,
@@ -98,6 +101,29 @@ def kv_append(
         return
     fn = paged_kv_append if k_pages.is_cuda else paged_kv_append_ref
     fn(kv_new, k_pages, v_pages, page_table, pos, n_valid, layer, page_size=page_size)
+
+
+def kv_write(
+    plan: KVRows,  # the step's rows (ops/kv_append.plan_kv_rows / plan_kv_rows_ragged)
+    k: torch.Tensor,  # [N, Hkv*D] — the layer's K rows (after rope), N = plan.rows.numel()
+    v: torch.Tensor,  # [N, Hkv*D]
+    k_pages: torch.Tensor,  # [L, P, page_size, Hkv*D] (or int8)
+    v_pages: torch.Tensor,
+    layer: int,
+    *,
+    n_kv: int,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+) -> None:
+    """Write one layer's K/V rows of a step into the paged cache, in place
+    (ops/kv_append.py): the KV-row writer on the card, the chunk scatter on
+    the CPU; an int8 cache quantizes each head row and writes its scale."""
+    scales = dict(k_scales=k_scales, v_scales=v_scales, n_kv=n_kv)
+    _int8_cache(k_pages, k_scales, v_scales)
+    if k.is_cuda:
+        paged_kv_write(plan.rows, k, v, k_pages, v_pages, layer, **scales)
+    else:
+        paged_kv_write_ref(plan, k, v, k_pages, v_pages, layer, **scales)
 
 
 def ragged_paged_attention(

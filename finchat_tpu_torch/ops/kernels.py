@@ -105,6 +105,22 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # layer, B, P, PS, HKV, D, SPAD, MP
         + [_I] * 8 + [_P],  # stream
     ),
+    # the KV-row writer, every cache write of a serve (decode rows, prefill
+    # chunks, ragged rounds) one launch a layer; the int8 entry quantizes
+    "kv_append_sm90": (
+        "kv_write_sm90.cu", "kv_write_bf16_sm90",
+        # k, v, rows, k_pages, v_pages
+        [_P] * 5
+        # layer, N, P, PS, HD, k_stride, v_stride
+        + [_I] * 7 + [_P],  # stream
+    ),
+    "kv_append_q8_sm90": (
+        "kv_write_sm90.cu", "kv_write_int8_sm90",
+        # k, v, rows, k_pages, v_pages, k_scales, v_scales
+        [_P] * 7
+        # layer, N, P, PS, HKV, D, SPAD, k_stride, v_stride
+        + [_I] * 9 + [_P],  # stream
+    ),
     "ragged_paged_attention": (
         "ragged_paged_attention.cu", "ragged_paged_attention_bf16",
         # q, k_pages, v_pages, out, page_table, tok_pos, kv_len,

@@ -22,7 +22,12 @@ through the decode body's, over a cache whose trash page and stale rows are
 NaN, each case launched twice over an output and a split workspace filled
 with NaN and bit-identical, each entry by name, the older body beside it),
 and the KV append — each over a bf16 cache and over an int8 cache with its
-scale planes — and the fused dequant matmul's three kernels: v2 by name
+scale planes — and the KV-row writer (``-k kv_write``: ``kv_write_sm90.cu``,
+both entries against the chunk scatter: a decode step of 9 lanes, 3 x 100
+chunks over pages of 16 with padding lanes and a lane with no real token,
+a packed 64-token round with padding, int8 head rows of 64, 128 and 256
+values; K and V with row strides of their own; two launches identical;
+the refusals), and the fused dequant matmul's three kernels: v2 by name
 (int8, int4 per column and per group of 128, bf16 and fp32 output, 64- and
 128-row blocks, ragged M, N and unaligned rows), the Hopper kernel (TMA +
 ``wgmma``: ragged M, N off the 128-column tile, K off the 64-row tile,
@@ -31,7 +36,8 @@ decode body (``-k qmm_decode``: split K over a TMA ring, M of 1 to 64,
 llama3-8b's layer shapes at M=64, a head-like fp32 N, int4 groups of 8 to
 128 and a split ending inside a K tile; each case launched twice over a
 workspace and output filled with NaN, bit-identical), with the routing
-rule among them — and contiguous flash attention (K7), forward and
+rule among them, and each of the Hopper entries launched first on a fresh
+thread (``-k fresh_thread``) — and contiguous flash attention (K7), forward and
 backward (causal and not, ``q_offset``/``kv_len`` with an empty sequence,
 GQA groups of 4 and 8, lengths off the 64-row tile; the older forward by
 name), and K7's Hopper forward (``-k "flash and sm90"``: the bf16 prefill
@@ -81,6 +87,8 @@ no valid key (``kv_len == 0``) are zeros in the kernel, forward and
 backward; the plain forward averages over them, so they are masked.
 """
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -106,6 +114,11 @@ from finchat_tpu_torch.ops.kv_append import (  # noqa: E402
     paged_kv_append_q8,
     paged_kv_append_q8_ref,
     paged_kv_append_ref,
+    paged_kv_write,
+    paged_kv_write_ref,
+    plan_kv_rows,
+    plan_kv_rows_ragged,
+    prepare_kv_write,
 )
 from finchat_tpu_torch.ops.paged_attention import (  # noqa: E402
     attention_kernel_for,
@@ -744,6 +757,114 @@ def test_kv_append_q8_kernel_bit_exact(dev):
 
 # (M, K, N, mode, group, out fp32): 64- and 128-row blocks, ragged M and N,
 # N = 260 (rows not 16-byte aligned), K not a multiple of the 64-key tile
+# --- the KV-row writer (csrc/kv_write_sm90.cu) ----------------------------------
+
+# (name, head_dim, page_size): a decode step of 9 lanes (two invalid at
+# distinct offsets, one with pos past its table row), chunks of 3 x 100 over
+# pages of 16 (padding lanes, a lane with n_valid 0), a packed round of 64
+# tokens with padding tokens, and int8 head rows of 64 and 256 values
+KV_WRITE = [("decode_b9", 128, 16), ("chunk_b3x100_ps16", 128, 16), ("round_t64", 128, 16),
+            ("chunk_hd64", 64, 16), ("chunk_hd256", 256, 16)]
+
+
+def _kv_write_call(dev, case: str, hd: int, ps: int, q8: bool, seed: int = 5):
+    """(plan, k, v, cache) of a writer case over 2 KV heads: K a slice of a
+    wider buffer (row stride 2 * HD), V contiguous, an all-zero K head; the
+    cache random (bf16, or int8 with positive scales)."""
+    Hkv = 2
+    HD = Hkv * hd
+    i32 = dict(dtype=torch.int32, device=dev)
+    if case == "decode_b9":
+        B, mp = 9, 4
+        pt = torch.arange(1, 1 + B * mp, **i32).reshape(B, mp)
+        plan = plan_kv_rows(pt, torch.tensor([0, 5, 17, 33, 63, 1, 9, 40, 500], **i32),
+                            torch.tensor([1, 1, 1, 1, 1, 0, 1, 1, 0], **i32), 1, ps)
+    elif case == "round_t64":
+        R, mp, T = 8, 8, 64
+        tok_row, tok_pos = [], []
+        for r, (q_len, p0) in enumerate([(20, 5), (1, 70), (17, 30), (1, 0), (1, 99)]):
+            tok_row += [r] * q_len
+            tok_pos += list(range(p0, p0 + q_len))
+        pad = T - len(tok_row)
+        plan = plan_kv_rows_ragged(torch.arange(1, 1 + R * mp, **i32).reshape(R, mp),
+                                   torch.tensor(tok_row + [R] * pad, **i32),
+                                   torch.tensor(tok_pos + [0] * pad, **i32), ps)
+    else:
+        B, C, mp = 3, 100, 12
+        pt = torch.arange(1, 1 + B * mp, **i32).reshape(B, mp)
+        plan = plan_kv_rows(pt, torch.tensor([3, 40, 500], **i32),
+                            torch.tensor([100, 70, 0], **i32), C, ps)
+    N, P = plan.rows.numel(), int(plan.page_table.max()) + 2
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    wide = torch.randn((N, 2 * HD), generator=g, device=dev, dtype=torch.bfloat16)
+    k, v = wide[:, HD:], torch.randn((N, HD), generator=g, device=dev, dtype=torch.bfloat16)
+    k[2, :hd] = 0  # an all-zero head: scale 1/127
+    shape = (2, P, ps, HD)
+    if not q8:
+        return plan, k, v, [torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+                            for _ in range(2)] + [None, None]
+    sshape = (2, P, scale_rows(Hkv), ps)
+    return plan, k, v, (
+        [torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+         for _ in range(2)]
+        + [torch.rand(sshape, generator=g, device=dev) * 0.02 + 1e-3 for _ in range(2)])
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", KV_WRITE, ids=[c[0] for c in KV_WRITE])
+def test_kv_write_sm90_bit_exact(dev, case, q8):
+    """Both entries against the chunk scatter on the same inputs: pages and
+    scale planes bit-exact (but the trash page where padding lanes share
+    its rows: the decode step's invalid lanes do not, so there the whole
+    cache), the wrapper launching its entry once, two launches identical."""
+    name, hd, ps = case
+    plan, k, v, cache = _kv_write_call(dev, name, hd, ps, q8)
+    ref = [None if t is None else t.clone() for t in cache]
+    again = [None if t is None else t.clone() for t in cache]
+    kernel = "kv_append_q8_sm90" if q8 else "kv_append_sm90"
+
+    def planes(c):
+        return dict(k_scales=c[2], v_scales=c[3], n_kv=2)
+
+    before = dict(LAUNCHES)
+    paged_kv_write(plan.rows, k, v, cache[0], cache[1], 1, **planes(cache))
+    prepare_kv_write(plan.rows, k, v, again[0], again[1], 1, **planes(again)).launch()
+    torch.cuda.synchronize()
+    assert {n: LAUNCHES[n] - before[n] for n in LAUNCHES if LAUNCHES[n] != before[n]} == \
+        {kernel: 2}
+    paged_kv_write_ref(plan, k, v, ref[0], ref[1], 1, **planes(ref))
+    live = slice(None) if name == "decode_b9" else slice(1, None)
+    for got, second, want in zip(cache, again, ref):
+        if got is None:
+            continue
+        assert torch.equal(got[:, live], want[:, live])
+        assert torch.equal(got[:, live], second[:, live])
+    assert not torch.equal(cache[0], _kv_write_call(dev, name, hd, ps, q8)[3][0])
+
+
+def test_kv_write_sm90_refuses_what_it_does_not_take(dev):
+    """A CPU tensor, a wrong dtype, a non-contiguous or int64 ``rows`` and
+    a cache of neither type are refused with a message naming them, and no
+    launch is counted."""
+    plan, k, v, (kp, vp, _ks, _vs) = _kv_write_call(dev, "decode_b9", 128, 16, False)
+    rows = plan.rows
+    before = dict(LAUNCHES)
+    for args, match in (((rows, k.cpu(), v, kp, vp), "k is a CPU tensor"),
+                        ((rows.cpu(), k, v, kp, vp), "rows is a CPU tensor"),
+                        ((rows, k, v.float(), kp, vp), "v must be bf16"),
+                        ((torch.stack([rows, rows], 1)[:, 0], k, v, kp, vp),
+                         "rows must be a contiguous int32"),
+                        ((rows.long(), k, v, kp, vp), "rows must be a contiguous int32"),
+                        ((rows, k, v, kp.float(), vp.float()), "bf16 or int8 cache"),
+                        ((rows[:4], k, v, kp, vp), r"k must be \[4, 256\]")):
+        with pytest.raises(ValueError, match=match):
+            paged_kv_write(*args, 1)
+    with pytest.raises(ValueError, match="int8 cache needs n_kv"):
+        paged_kv_write(rows, k, v, kp.to(torch.int8), vp.to(torch.int8), 1)
+    assert LAUNCHES == before
+
+
 # --- the Hopper decode body (C = 1, csrc/attention_decode_sm90.cu) -------------
 
 def _decode_lens(case: str, B: int, Hkv: int, ps: int, mp: int, dev) -> list[int]:
@@ -1034,6 +1155,45 @@ def test_quant_matmul_routes_between_the_two_kernels(dev, case):
     limit = (K * 2.0 ** -22 * (x.float().abs() @ dequantize(qt, torch.bfloat16).float().abs())
              if f32 else 2.0 ** -7 * want.float().abs().amax(-1, keepdim=True))
     assert bool(((got.float() - want.float()).abs() <= limit).all())
+
+
+# each Hopper K8 entry with its weight mode and rows: (kernel, rows, int4 group)
+K8_SM90 = [("quant_matmul_int8_sm90", 128, 0), ("quant_matmul_int4_sm90", 128, 64),
+           ("quant_matmul_int8_decode_sm90", 16, 0), ("quant_matmul_int4_decode_sm90", 16, 64)]
+
+
+@pytest.mark.parametrize("case", K8_SM90, ids=[c[0] for c in K8_SM90])
+def test_k8_sm90_entry_launches_first_on_a_fresh_thread(dev, case):
+    """``cuTensorMapEncodeTiled`` needs the device's context current on
+    the calling thread, and a thread that has made no runtime call yet
+    (autograd's backward thread) has none: each entry makes its runtime
+    call before it encodes its maps. The call is prepared here and
+    launched first on a new thread, then held against the plain version
+    (a bf16 output row within 2^-7 of its largest value)."""
+    name, M, group = case
+    K, N = 256, 256
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    qt = quantize_int4(w, group) if "int4" in name else quantize(w)
+    x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+    call = prepare(name, x, qt.q, qt.scale)
+    errors = []
+
+    def first_launch():
+        try:
+            call.launch()
+        except RuntimeError as e:
+            errors.append(e)
+
+    thread = threading.Thread(target=first_launch)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    want = quant_matmul_ref(x, qt)
+    limit = 2.0 ** -7 * want.float().abs().amax(-1, keepdim=True)
+    assert bool(((call.out.float() - want.float()).abs() <= limit).all())
 
 
 def test_quantized_wrappers_refuse_what_they_do_not_take(dev):
