@@ -98,34 +98,49 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1e-2). Yardstick: ``scaled_dot_product_attention`` forward, and its
    backward through autograd, on the same work.
 3. Serve: ``llama3-8b`` with random bf16 weights from a seeded generator,
-   ``EngineConfig`` defaults minus the planes not ported yet, behind the
-   scheduler, ``EngineGenerator`` and ``LLMService``. Four greedy requests
-   at once, four more once the first tokens stream (so prefill coexists
-   with decode and the packed ragged rounds run), 64 new tokens each. Every
-   request must complete; every kernel of the plane must be launched in
-   this phase (counts set to 0 just before it), the older paged body may
-   not be launched at all (nor K3 on the bf16 plane, nor, on the quantized
-   planes, K8's v2: every
-   matmul of at most 64 rows, decode steps and heads, goes to the decode
-   body), and the Hopper prefill body of the plane's
-   cache must take every prefill chunk, one launch a layer; the KV-row
-   writer of the plane's cache must take every cache write, one launch a
-   layer of every decode step, prefill chunk and ragged round, and the
-   older appends none; one served
-   stream is then
-   checked teacher-forced against the plain dense forward (same weights,
-   plain attention). Last, one decode step, one prefill chunk and one
-   serve-shaped ragged round at the served context length are timed and
-   profiled (device time by kernel class, and the device's idle share of
-   the profiled window).
+   ``EngineConfig`` defaults minus the planes not ported yet (preemption,
+   the breaker) — the prefix and session KV caches on, the session disk
+   tier in a temporary directory — behind the scheduler, ``EngineGenerator``
+   and ``LLMService``. The rendered system head is registered first, as the
+   app registers it (BOS added, the last token dropped: 30 whole pages);
+   then four greedy requests at once, four more once the first tokens
+   stream (so prefill coexists with decode and the packed ragged rounds
+   run), 64 new tokens each, each its own conversation. Every request must
+   complete; every kernel of the plane must be launched in this window
+   (counts set to 0 just before the registration), the older paged body
+   may not be launched at all (nor K3 on the bf16 plane, nor, on the
+   quantized planes, K8's v2: every matmul of at most 64 rows, decode
+   steps and heads, goes to the decode body), and the Hopper prefill body
+   of the plane's cache must take every prefill chunk, one launch a layer;
+   the KV-row writer of the plane's cache must take every cache write, one
+   launch a layer of every decode step, prefill chunk and ragged round, and
+   the older appends none. The prefix cache must hit 8/8, saving 8 x 3,840
+   tokens, and the prefill rows and tokens the steps carried must equal
+   what the prompts need past the head. Every served stream is then checked
+   teacher-forced against the plain dense forward (same weights, plain
+   attention). Turn 2: four of the conversations send their history plus a
+   new message (16 new tokens), on the same scheduler: 4/4 must resume from
+   their cached pages (RAM or disk) and prefill only the rest; then the
+   head's pages must be bit-identical to their state just after the
+   registration. Turn 3: after ``spill_sessions()`` and
+   ``retire_prefixes()`` (no page may stay allocated), a fresh scheduler on
+   the same engine and directory registers the head again and two
+   conversations resume from disk (2/2). Each later turn is a window of its
+   own for the launch rules and the teacher-forced checks, and prints its
+   TTFT and its restore and offload seconds. Last, one decode step, one
+   prefill chunk and one serve-shaped ragged round at the served context
+   length are timed and profiled (device time by kernel class, and the
+   device's idle share of the profiled window).
 4. Serve the quantized plane the same way: int8 weights made by
    ``init_quantized_params`` (the bf16 tree never exists) and an int8 KV
-   pool, same 8 requests and two waves. The teacher-forced check runs the
-   plain forward on the dequantized weights with every K/V row quantized
-   and dequantized as the cache stores it; then the step profile.
-5. Serve int4 weights (per group of 128) over the int8 KV pool: two
-   requests, one after the other's first token, 16 new tokens each, with
-   the same teacher-forced check — the path of the int4 matmul kernel.
+   pool, the same head, 8 requests in two waves and later turns. The
+   teacher-forced check runs the plain forward on the dequantized weights
+   with every K/V row quantized and dequantized as the cache stores it;
+   then the step profile.
+5. Serve int4 weights (per group of 128) over the int8 KV pool: the head
+   registered, two requests, one after the other's first token, 16 new
+   tokens each, with the same prefix-cache and teacher-forced checks — the
+   path of the int4 matmul kernel.
 6. Train: first ``llama3-8b`` widths at 2 layers, B=1, S=2048 — the loss,
    every leaf's gradient and the one-shot forward's logits through K7
    against the same step with the plain attention (relative per leaf and on
@@ -1246,17 +1261,133 @@ CONTEXTS = [
 ]
 
 
-async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: bool) -> dict:
+class _Counts:
+    """What the engine's steps did in a window: prefill chunks
+    (``prefill_chunk`` calls: one launch of the Hopper prefill body a
+    layer), and the prefill rows and tokens they and the ragged rounds
+    carried (a row of the round that reads its token from the device is a
+    decode row, not a prefill row)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.chunks = self.rows = self.tokens = 0
+        prefill_chunk, ragged_mixed = engine.prefill_chunk, engine.ragged_mixed
+
+        def counting_prefill_chunk(tokens, slots, start_pos, n_valid):
+            self.chunks += 1
+            self.rows += sum(1 for n in n_valid if n > 0)
+            self.tokens += int(sum(n_valid))
+            return prefill_chunk(tokens, slots, start_pos, n_valid)
+
+        def counting_ragged_mixed(tokens, tok_row, row_slot, row_start, row_len,
+                                  row_from_device, *rest):
+            live = [int(n) for n, d in zip(row_len, row_from_device) if n > 0 and not d]
+            self.rows += len(live)
+            self.tokens += sum(live)
+            return ragged_mixed(tokens, tok_row, row_slot, row_start, row_len,
+                                row_from_device, *rest)
+
+        engine.prefill_chunk = counting_prefill_chunk
+        engine.ragged_mixed = counting_ragged_mixed
+
+    def reset(self) -> None:
+        self.chunks = self.rows = self.tokens = 0
+
+    def close(self) -> None:
+        del self.engine.prefill_chunk, self.engine.ragged_mixed
+
+
+def _metric_delta(metrics, before: dict, name: str) -> float:
+    return metrics.snapshot().get(name, 0.0) - before.get(name, 0.0)
+
+
+def _seconds(metrics, before: dict, name: str) -> dict:
+    """A histogram's observations in a window: count, total and mean s."""
+    n = _metric_delta(metrics, before, f"{name}_count")
+    total = _metric_delta(metrics, before, f"{name}_sum")
+    return dict(n=int(n), total_s=total, mean_s=total / n if n else None)
+
+
+def check_window(plane: str, what: str, spec: dict, config, launches: dict, counts: _Counts,
+                 decode_steps: float, rounds: float) -> None:
+    """The launch rules every serving window holds: the Hopper prefill body
+    of the cache takes every prefill chunk, one launch a layer, and the
+    older paged body none; the KV-row writer of the cache takes every cache
+    write, one launch a layer of every decode step, prefill chunk and ragged
+    round; no kernel the routing keeps off this path is launched."""
+    older = "paged_attention_q8" if spec["kv_quant"] else "paged_attention"
+    want_chunks = counts.chunks * config.n_layers
+    log(f"  {what}: prefill chunks {counts.chunks}: {launches[older + '_sm90']} launches of the "
+        f"Hopper prefill body (want {want_chunks}), {launches[older]} of the older paged body")
+    if launches[older] != 0:
+        fail(f"serve {plane} ({what}): {launches[older]} calls reached the older paged body")
+    if launches[older + "_sm90"] != want_chunks:
+        fail(f"serve {plane} ({what}): the Hopper prefill body took "
+             f"{launches[older + '_sm90']} calls, not one a layer of each of {counts.chunks} "
+             "prefill chunks")
+    stray = {k: launches[k] for k in spec.get("never", ()) if launches[k]}
+    if stray:
+        fail(f"serve {plane} ({what}): calls reached kernels the routing keeps off this path: "
+             f"{stray}")
+    writer, older_append = (("kv_append_q8_sm90", "kv_append_q8") if spec["kv_quant"]
+                            else ("kv_append_sm90", "kv_append"))
+    want_writes = int(config.n_layers * (decode_steps + counts.chunks + rounds))
+    log(f"  {what}: KV writes: {launches[writer]} launches of {writer} (want {want_writes} = "
+        f"{config.n_layers} x ({decode_steps:.0f} decode steps + {counts.chunks} chunks + "
+        f"{rounds:.0f} rounds)), {launches[older_append]} of the older append")
+    if launches[writer] != want_writes:
+        fail(f"serve {plane} ({what}): the KV-row writer took {launches[writer]} layer writes, "
+             f"not one a layer of every step ({want_writes})")
+
+
+def check_prefill_rows(plane: str, what: str, handles, counts: _Counts, chunk: int,
+                       start_of) -> None:
+    """Every request prefilled its prompt from where its cached KV ends
+    (``start_of(handle)``), in chunks of ``chunk``: the rows and tokens the
+    engine's steps carried equal what the prompt lengths need."""
+    want_rows = sum(-(-(len(h.prompt_ids) - start_of(h)) // chunk) for h in handles)
+    want_tokens = sum(len(h.prompt_ids) - start_of(h) for h in handles)
+    cold_rows = sum(-(-len(h.prompt_ids) // chunk) for h in handles)
+    log(f"  {what}: prefill rows {counts.rows} carrying {counts.tokens} tokens (want "
+        f"{want_rows} rows, {want_tokens} tokens; {cold_rows} rows without the caches)")
+    if (counts.rows, counts.tokens) != (want_rows, want_tokens):
+        fail(f"serve {plane} ({what}): the steps prefilled {counts.rows} rows / {counts.tokens} "
+             f"tokens, the prompts need {want_rows} / {want_tokens}")
+
+
+async def _stream_ids(sched, seq_id: str, ids: list[int], sampling, conversation_id: str):
+    handle = await sched.submit(seq_id, ids, sampling, conversation_id=conversation_id)
+    while True:
+        event = await handle.events.get()
+        if event["type"] == "done":
+            return handle
+        if event["type"] == "error":
+            fail(f"{seq_id}: {event['message']}")
+
+
+def _head_equal(torch, before: tuple, after: tuple) -> bool:
+    return all((a is None and b is None) or torch.equal(a, b) for a, b in zip(before, after))
+
+
+async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: bool,
+                later_turns: bool) -> dict:
     """Serve ``n_requests`` greedy requests through ``LLMService`` on one
-    serving plane (``PLANES``): half at once, the rest once a first token
-    streams. Launch counts are set to 0 just before and read just after."""
+    serving plane (``PLANES``), the prefix and session caches on: the system
+    head registered first, half the requests at once, the rest once a first
+    token streams, each its own conversation. Launch counts are set to 0
+    just before the head's registration and read just after the serve. With
+    ``later_turns``, then turn 2 of four conversations on the same scheduler
+    and turn 3 of two on a fresh one, each a window of its own."""
+    import shutil
+    import tempfile
+
     from finchat_tpu_torch.engine.engine import InferenceEngine
     from finchat_tpu_torch.engine.generator import EngineGenerator
     from finchat_tpu_torch.engine.sampler import SamplingParams
     from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
     from finchat_tpu_torch.models.llama import PRESETS, init_params, n_params
     from finchat_tpu_torch.models.quant import init_quantized_params
-    from finchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat_head
     from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from finchat_tpu_torch.serve.simple import LLMService
     from finchat_tpu_torch.utils.config import EngineConfig
@@ -1283,122 +1414,224 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         f"weights {weight_gb:.2f} GB on the card ({plane}), random init {init_s:.1f} s, "
         f"init peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above the "
         f"{base / 1e9:.2f} GB held before")
-    ecfg = EngineConfig(prefix_cache=False, session_cache=False, preemption=False,
-                        breaker_threshold=0, kv_quant=spec["kv_quant"])
-    engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
-                             quant_group=spec["group"])
-    chunk_calls = [0]  # prefill chunks: one launch of the Hopper prefill body a layer
-    prefill_chunk = engine.prefill_chunk
+    disk_dir = tempfile.mkdtemp(prefix="finchat-sessions-")
+    try:
+        ecfg = EngineConfig(preemption=False, breaker_threshold=0, kv_quant=spec["kv_quant"],
+                            session_cache_disk_path=disk_dir)
+        engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
+                                 quant_group=spec["group"])
+        counts = _Counts(engine)
+        tok = ByteTokenizer()
+        sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+        handles = []
+        submit = sched.submit
 
-    def counting_prefill_chunk(*a, **k):
-        chunk_calls[0] += 1
-        return prefill_chunk(*a, **k)
+        async def recording_submit(*a, **k):
+            h = await submit(*a, **k)
+            handles.append(h)
+            return h
 
-    engine.prefill_chunk = counting_prefill_chunk
-    tok = ByteTokenizer()
-    sched = ContinuousBatchingScheduler(engine, tok.eos_id)
-    handles = []
-    submit = sched.submit
+        sched.submit = recording_submit
+        system_prompt = (REPO / "prompts" / "system_prompt.txt").read_text()
+        # the head as the app registers it: BOS added, the last token dropped
+        head_ids = tok.encode(render_chat_head(system_prompt), add_bos=True)[:-1]
+        svc = LLMService(EngineGenerator(sched, tok), system_prompt,
+                         SamplingParams(temperature=0.0, max_new_tokens=max_new))
+        messages = [f"Request {i}: what should I do next with my money?" for i in range(8)]
+        m0 = METRICS.snapshot()
+        reset_launches()
+        shared = sched.register_prefix(head_ids)
+        reg_chunks = counts.chunks
+        head_pages = list(sched._prefixes[0].pages) if sched._prefixes else []
+        log(f"  prefix cache: the system head ({len(head_ids)} tokens) registered as {shared} "
+            f"shared tokens, {len(head_pages)} pages, in {reg_chunks} prefill chunks")
+        if shared != (len(head_ids) // engine.page_size) * engine.page_size or not shared:
+            fail(f"serve {plane}: the system head registered {shared} shared tokens")
+        head0 = engine.offload_pages(head_pages)
+        counts.reset()
+        await sched.start()
 
-    async def recording_submit(*a, **k):
-        h = await submit(*a, **k)
-        handles.append(h)
-        return h
+        async def one(i: int) -> str:
+            text = []
+            async for chunk in svc.process_message(messages[i], context=CONTEXTS[i],
+                                                   conversation_id=f"conv-{i}"):
+                text.append(chunk)
+            return "".join(text)
 
-    sched.submit = recording_submit
-    system_prompt = (REPO / "prompts" / "system_prompt.txt").read_text()
-    svc = LLMService(EngineGenerator(sched, tok), system_prompt,
-                     SamplingParams(temperature=0.0, max_new_tokens=max_new))
-    messages = [f"Request {i}: what should I do next with my money?" for i in range(8)]
-    mixed0 = METRICS.get("finchat_mixed_dispatches_total")
-    coexist0 = METRICS.get("finchat_coexist_iterations_total")
-    decode0 = METRICS.get("finchat_decode_dispatches_total")
-    reset_launches()
-    await sched.start()
-
-    async def one(i: int) -> str:
-        text = []
-        async for chunk in svc.process_message(messages[i], context=CONTEXTS[i]):
-            text.append(chunk)
-        return "".join(text)
-
-    t_start = time.perf_counter()
-    first = n_requests // 2
-    wave1 = [asyncio.create_task(one(i)) for i in range(first)]
-    while not any(h.generated > 0 for h in handles):
-        await asyncio.sleep(0.005)
-    wave2 = [asyncio.create_task(one(i)) for i in range(first, n_requests)]
-    await asyncio.gather(*wave1, *wave2)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_start
-    await sched.stop()
-    launches = dict(LAUNCHES)
-    prompt_lens = [len(h.prompt_ids) for h in handles]
-    log(f"  served {len(handles)} requests in {wall:.2f} s; prompt tokens {prompt_lens}")
-    log(f"  launches during serve: {launches}")
-    if len(handles) != n_requests or not all(h.finished and h.generated > 0 for h in handles):
-        fail(f"serve {plane}: not every request completed with tokens")
-    if not all(h.generated == max_new or h.history[-1] == tok.eos_id for h in handles):
-        fail(f"serve {plane}: a request ended before max_new_tokens without EOS")
-    missing = [k for k in spec["kernels"] if launches[k] == 0]
-    if missing:
-        fail(f"serve {plane}: kernels not launched on the main path: {missing}")
-    stray = {k: launches[k] for k in spec.get("never", ()) if launches[k]}
-    if stray:
-        fail(f"serve {plane}: calls reached kernels the routing keeps off this path: {stray}")
-    del engine.prefill_chunk
-    older = "paged_attention_q8" if spec["kv_quant"] else "paged_attention"
-    want_chunks = chunk_calls[0] * config.n_layers
-    log(f"  prefill chunks {chunk_calls[0]}: {launches[older + '_sm90']} launches of the "
-        f"Hopper prefill body (want {want_chunks}), {launches[older]} of the older paged body")
-    if launches[older] != 0:
-        fail(f"serve {plane}: {launches[older]} calls reached the older paged body")
-    if launches[older + "_sm90"] != want_chunks:
-        fail(f"serve {plane}: the Hopper prefill body took {launches[older + '_sm90']} "
-             f"calls, not one a layer of each of {chunk_calls[0]} prefill chunks")
-    if sched.allocator.used_count != 0:
-        fail(f"serve {plane}: {sched.allocator.used_count} KV pages still allocated")
-    if sched.quant_label != plane.replace("g128", ""):
-        fail(f"serve {plane}: the scheduler reports quant label {sched.quant_label}")
-    ttfts = sorted(h.first_token_at - h.submitted_at for h in handles)
-    ttft_p50 = statistics.median(ttfts)
-    decode_tokens = sum(h.generated - 1 for h in handles)
-    t_first = min(h.first_token_at for h in handles)
-    t_last = max(h.last_token_at for h in handles)
-    agg_tps = decode_tokens / max(t_last - t_first, 1e-9)
-    per_stream = statistics.median(
-        (h.generated - 1) / max(h.last_token_at - h.first_token_at, 1e-9) for h in handles)
-    mixed = METRICS.get("finchat_mixed_dispatches_total") - mixed0
-    coexist = METRICS.get("finchat_coexist_iterations_total") - coexist0
-    log(f"  ragged rounds {mixed:.0f}, coexist iterations {coexist:.0f}; gauges: "
-        f"weight bits {METRICS.get('finchat_quant_weight_bits'):.0f}, "
-        f"KV bits {METRICS.get('finchat_quant_kv_bits'):.0f}")
-    if mixed < 1:
-        fail(f"serve {plane}: no packed ragged round ran (prefill never coexisted with decode)")
-    # every cache write: one launch of the writer a layer of each decode
-    # step, prefill chunk and ragged round
-    decode_steps = METRICS.get("finchat_decode_dispatches_total") - decode0
-    writer, older_append = (("kv_append_q8_sm90", "kv_append_q8") if spec["kv_quant"]
-                            else ("kv_append_sm90", "kv_append"))
-    want_writes = int(config.n_layers * (decode_steps + chunk_calls[0] + mixed))
-    log(f"  KV writes: {launches[writer]} launches of {writer} (want {want_writes} = "
-        f"{config.n_layers} x ({decode_steps:.0f} decode steps + {chunk_calls[0]} chunks + "
-        f"{mixed:.0f} rounds)), {launches[older_append]} of the older append")
-    if launches[writer] != want_writes:
-        fail(f"serve {plane}: the KV-row writer took {launches[writer]} layer writes, not one a "
-             f"layer of every step ({want_writes})")
-    check = teacher_forced_check(torch, params, config, handles, spec["kv_quant"])
-    steps = (profile_steps(torch, engine, context=max(prompt_lens), active=len(handles))
-             if profile else None)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    sched.submit = submit  # break the wrapper's cycle so the tree can go
-    del engine, sched, svc, params, recording_submit, submit
-    gc.collect()
-    torch.cuda.empty_cache()
+        t_start = time.perf_counter()
+        first = n_requests // 2
+        wave1 = [asyncio.create_task(one(i)) for i in range(first)]
+        while not any(h.generated > 0 for h in handles):
+            await asyncio.sleep(0.005)
+        wave2 = [asyncio.create_task(one(i)) for i in range(first, n_requests)]
+        await asyncio.gather(*wave1, *wave2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        await sched.stop()
+        sched.submit = submit  # break the wrapper's cycle so the tree can go
+        launches = dict(LAUNCHES)
+        prompt_lens = [len(h.prompt_ids) for h in handles]
+        log(f"  served {len(handles)} requests in {wall:.2f} s; prompt tokens {prompt_lens}")
+        log(f"  launches during serve: {launches}")
+        if len(handles) != n_requests or not all(h.finished and h.generated > 0 for h in handles):
+            fail(f"serve {plane}: not every request completed with tokens")
+        if not all(h.generated == max_new or h.history[-1] == tok.eos_id for h in handles):
+            fail(f"serve {plane}: a request ended before max_new_tokens without EOS")
+        missing = [k for k in spec["kernels"] if launches[k] == 0]
+        if missing:
+            fail(f"serve {plane}: kernels not launched on the main path: {missing}")
+        if sched.quant_label != plane.replace("g128", ""):
+            fail(f"serve {plane}: the scheduler reports quant label {sched.quant_label}")
+        hits = _metric_delta(METRICS, m0, "finchat_prefix_hits_total")
+        saved = _metric_delta(METRICS, m0, "finchat_prefix_tokens_saved_total")
+        log(f"  prefix cache: {hits:.0f}/{n_requests} hits, {saved:.0f} prefill tokens saved "
+            f"(want {n_requests} x {shared})")
+        if hits != n_requests or saved != n_requests * shared or any(
+                h.shared_len != shared for h in handles):
+            fail(f"serve {plane}: {hits:.0f} prefix hits saving {saved:.0f} tokens, not "
+                 f"{n_requests} saving {n_requests * shared}")
+        check_prefill_rows(plane, "turn 1", handles, counts, ecfg.prefill_chunk,
+                           lambda h: h.shared_len)
+        ttfts = sorted(h.first_token_at - h.submitted_at for h in handles)
+        ttft_p50 = statistics.median(ttfts)
+        decode_tokens = sum(h.generated - 1 for h in handles)
+        t_first = min(h.first_token_at for h in handles)
+        t_last = max(h.last_token_at for h in handles)
+        agg_tps = decode_tokens / max(t_last - t_first, 1e-9)
+        per_stream = statistics.median(
+            (h.generated - 1) / max(h.last_token_at - h.first_token_at, 1e-9) for h in handles)
+        mixed = _metric_delta(METRICS, m0, "finchat_mixed_dispatches_total")
+        coexist = _metric_delta(METRICS, m0, "finchat_coexist_iterations_total")
+        log(f"  ragged rounds {mixed:.0f}, coexist iterations {coexist:.0f}; gauges: "
+            f"weight bits {METRICS.get('finchat_quant_weight_bits'):.0f}, "
+            f"KV bits {METRICS.get('finchat_quant_kv_bits'):.0f}")
+        if mixed < 1:
+            fail(f"serve {plane}: no packed ragged round ran (prefill never coexisted with "
+                 "decode)")
+        decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
+        counts.chunks += reg_chunks  # the registration's chunks ran in this window too
+        check_window(plane, "turn 1", spec, config, launches, counts, decode_steps, mixed)
+        offload1 = _seconds(METRICS, m0, "finchat_session_offload_seconds")
+        log(f"  session cache: {len(sched.session_cache)} entries in RAM "
+            f"({sched.session_cache.resident_bytes / 2**20:.1f} MiB of "
+            f"{ecfg.session_cache_bytes / 2**20:.0f}), offloads {offload1['n']} taking "
+            f"{offload1['total_s']:.3f} s, "
+            f"{_metric_delta(METRICS, m0, 'finchat_session_cache_offloaded_pages_total'):.0f} "
+            "pages")
+        if sched.allocator.used_count != len(head_pages):
+            fail(f"serve {plane}: {sched.allocator.used_count} KV pages allocated after the serve, "
+                 f"not the head's {len(head_pages)}")
+        turn1 = dict(ttft_p50_s=ttft_p50, ttft_s=ttfts, prefix_hits=hits, tokens_saved=saved,
+                     prefill_rows=counts.rows, offload=offload1)
+        checks = [teacher_forced_check(torch, params, config, h, spec["kv_quant"])
+                  for h in handles]
+        turns = {}
+        if later_turns:
+            turns["turn2"] = await later_turn(
+                torch, plane, spec, config, engine, sched, counts, handles[:4], 2, shared,
+                METRICS, reset_launches, LAUNCHES, tok, params, SamplingParams, from_disk=False)
+        if not _head_equal(torch, head0, engine.offload_pages(head_pages)):
+            fail(f"serve {plane}: the shared head's pages changed during the serve")
+        log(f"  the head's {len(head_pages)} pages are bit-identical after the serve")
+        if later_turns:
+            spilled = sched.spill_sessions()
+            sched.retire_prefixes()
+            log(f"  spilled {spilled} session entries; after retire_prefixes "
+                f"{sched.allocator.used_count} pages allocated")
+            if sched.allocator.used_count != 0:
+                fail(f"serve {plane}: {sched.allocator.used_count} KV pages leaked")
+            sched.session_cache.disk.close()
+            # a fresh scheduler on the same engine and directory: a restart
+            fresh = ContinuousBatchingScheduler(engine, tok.eos_id)
+            turns["turn3"] = await later_turn(
+                torch, plane, spec, config, engine, fresh, counts,
+                turns["turn2"].pop("handles")[:2], 3, shared, METRICS, reset_launches, LAUNCHES, tok, params, SamplingParams,
+                from_disk=True, head_ids=head_ids)
+            turns["turn3"].pop("handles")
+            sched = fresh
+        sched.retire_prefixes()
+        if sched.allocator.used_count != 0:
+            fail(f"serve {plane}: {sched.allocator.used_count} KV pages still allocated")
+        if sched.session_cache.disk is not None:
+            sched.session_cache.disk.close()
+        counts.close()
+        steps = (profile_steps(torch, engine, context=max(prompt_lens), active=len(handles))
+                 if profile else None)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del engine, sched, svc, params, recording_submit, submit, counts
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(disk_dir, ignore_errors=True)
     return dict(plane=plane, ttft_p50_s=ttft_p50, ttft_s=ttfts, decode_tokens_per_s=agg_tps,
                 decode_tokens_per_s_per_stream=per_stream, wall_s=wall,
                 prompt_tokens=prompt_lens, launches=launches, ragged_rounds=mixed,
-                weight_gb=weight_gb, peak_gb=peak_gb, teacher_forced=check, steps=steps)
+                weight_gb=weight_gb, peak_gb=peak_gb, teacher_forced=checks, steps=steps,
+                shared_tokens=shared, turn1=turn1, **turns)
+
+
+async def later_turn(torch, plane, spec, config, engine, sched, counts, prev, turn: int,
+                     shared: int, metrics, reset_launches, launches_now, tok, params,
+                     sampling_cls, from_disk: bool, head_ids=None) -> dict:
+    """Turn ``turn`` of the conversations of ``prev`` (their handles of the
+    turn before): each prompt is that turn's history plus a new message,
+    16 new tokens, all submitted at once. Every conversation must resume
+    from its own cached pages — from RAM or the disk tier, and only from
+    disk with ``from_disk`` (a fresh scheduler, the head registered anew
+    from ``head_ids``) — and prefill only what follows them."""
+    m0 = metrics.snapshot()
+    reset_launches()
+    counts.reset()
+    if head_ids is not None:
+        if sched.register_prefix(head_ids) != shared:
+            fail(f"serve {plane}: turn {turn}: the head did not register again")
+    reg_chunks = counts.chunks
+    counts.reset()
+    await sched.start()
+    sampling = sampling_cls(temperature=0.0, max_new_tokens=16)
+    t_start = time.perf_counter()
+    handles = await asyncio.gather(*[
+        _stream_ids(sched, f"turn{turn}-{i}",
+                    h.history + tok.encode(f" Follow-up {turn}.{i}: and after that?",
+                                           add_bos=False),
+                    sampling, h.conversation_id)
+        for i, h in enumerate(prev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    await sched.stop()
+    launches = dict(launches_now)
+    n = len(prev)
+    hits = _metric_delta(metrics, m0, "finchat_session_cache_hits_total")
+    disk = _metric_delta(metrics, m0, "finchat_durability_disk_restores_total")
+    restored = _metric_delta(metrics, m0, "finchat_session_cache_restored_tokens_total")
+    restore = _seconds(metrics, m0, "finchat_session_restore_seconds")
+    offload = _seconds(metrics, m0, "finchat_session_offload_seconds")
+    disk_s = _seconds(metrics, m0, "finchat_durability_restore_seconds")
+    prompt_lens = [len(h.prompt_ids) for h in handles]
+    log(f"  turn {turn}: {n} conversations in {wall:.2f} s; prompt tokens {prompt_lens}, "
+        f"resumed {[h.resumed_len for h in handles]}")
+    log(f"  turn {turn}: session hits {hits:.0f}/{n} ({disk:.0f} from disk), restored tokens "
+        f"{restored:.0f}; restores {restore['n']} taking {restore['total_s']:.3f} s, disk "
+        f"reads {disk_s['n']} taking {disk_s['total_s']:.3f} s, offloads {offload['n']} "
+        f"taking {offload['total_s']:.3f} s")
+    if hits != n or any(h.resumed_len <= shared for h in handles):
+        fail(f"serve {plane}: turn {turn}: {hits:.0f}/{n} session hits")
+    if from_disk and disk != n:
+        fail(f"serve {plane}: turn {turn}: {disk:.0f}/{n} conversations restored from disk")
+    if not all(h.finished and h.generated > 0 for h in handles):
+        fail(f"serve {plane}: turn {turn}: not every request completed with tokens")
+    check_prefill_rows(plane, f"turn {turn}", handles, counts, engine.engine_cfg.prefill_chunk,
+                       lambda h: h.resumed_len)
+    decode_steps = _metric_delta(metrics, m0, "finchat_decode_dispatches_total")
+    rounds = _metric_delta(metrics, m0, "finchat_mixed_dispatches_total")
+    counts.chunks += reg_chunks
+    check_window(plane, f"turn {turn}", spec, config, launches, counts, decode_steps, rounds)
+    checks = [teacher_forced_check(torch, params, config, h, spec["kv_quant"]) for h in handles]
+    ttfts = sorted(h.first_token_at - h.submitted_at for h in handles)
+    return dict(handles=handles, ttft_p50_s=statistics.median(ttfts), ttft_s=ttfts,
+                session_hits=hits, disk_restores=disk, restored_tokens=restored,
+                restore=restore, disk_read=disk_s, offload=offload, wall_s=wall,
+                prompt_tokens=prompt_lens, teacher_forced=checks)
 
 
 def _kernel_class(name: str) -> str:
@@ -1533,17 +1766,19 @@ class _Dequantized:
         return dequantize(self.leaf[i])
 
 
-def teacher_forced_check(torch, params, config, handles, kv_quant: str) -> dict:
-    """Re-run the shortest served stream through the plain dense forward
-    (no cache, plain attention, plain matmuls) and require the served greedy
-    token wherever the plain forward's top-2 logit margin exceeds 0.25 —
-    bf16 activations through 32 layers move logits by a few hundredths, so
-    a larger margin cannot flip. A quantized tree runs on its dequantized
+def teacher_forced_check(torch, params, config, h, kv_quant: str) -> dict:
+    """Re-run one served stream through the plain dense forward (no cache,
+    plain attention, plain matmuls) and require the served greedy token
+    wherever the plain forward's top-2 logit margin exceeds 0.25 — bf16
+    activations through 32 layers move logits by a few hundredths, so a
+    larger margin cannot flip. A quantized tree runs on its dequantized
     weights; an int8 KV cache is mirrored by quantizing and dequantizing
     every K/V row (``quantize_kv_rows``) before attention, so both sides see
-    the same values."""
+    the same values. A stream that rode a shared head or resumed cached
+    pages is checked over its whole history all the same: the served
+    tokens must not depend on where their KV came from."""
     from finchat_tpu_torch.engine.kv_cache import quantize_kv_rows
-    from finchat_tpu_torch.models.llama import dense_causal_attention, forward
+    from finchat_tpu_torch.models.llama import dense_causal_attention, forward, lm_head
     from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dequantize
     from finchat_tpu_torch.ops.refs import mha_reference
 
@@ -1562,7 +1797,6 @@ def teacher_forced_check(torch, params, config, handles, kv_quant: str) -> dict:
     def q8_attention(q, k, v, cache, layer_idx):
         return mha_reference(q, kv_roundtrip(k), kv_roundtrip(v), causal=True), cache
 
-    h = min(handles, key=lambda x: len(x.prompt_ids))
     ids = h.history[:-1]
     n_prompt = len(h.prompt_ids)
     dev = params["embed"].device
@@ -1570,10 +1804,11 @@ def teacher_forced_check(torch, params, config, handles, kv_quant: str) -> dict:
     positions = torch.arange(len(ids), device=dev)[None]
     attention = q8_attention if kv_quant else dense_causal_attention
     with torch.no_grad():
-        logits, _ = forward(plain, tokens, positions, config=config, attention=attention)
-        logits = logits[0, n_prompt - 1:]
+        hidden, _ = forward(plain, tokens, positions, config=config, attention=attention,
+                            return_hidden=True)
+        logits = lm_head(plain, hidden[0, n_prompt - 1:], config=config)
     if not bool(torch.isfinite(logits).all().item()):
-        fail("teacher-forced check: non-finite logits from the plain forward")
+        fail(f"teacher-forced check of {h.seq_id}: non-finite logits from the plain forward")
     top2 = torch.topk(logits, 2, dim=-1)
     margin = (top2.values[:, 0] - top2.values[:, 1]).cpu()
     want = top2.indices[:, 0].cpu()
@@ -1582,12 +1817,13 @@ def teacher_forced_check(torch, params, config, handles, kv_quant: str) -> dict:
     decided = margin[:n] > 0.25
     agree = (want[:n] == served[:n])
     bad = int((decided & ~agree).sum())
-    log(f"  teacher-forced: {int(agree.sum())}/{n} served tokens equal the plain forward's "
-        f"argmax; {int(decided.sum())} have margin > 0.25, {bad} of those disagree")
+    log(f"  teacher-forced {h.seq_id} ({n_prompt} prompt tokens, {h.shared_len} shared, "
+        f"{h.resumed_len} resumed): {int(agree.sum())}/{n} served tokens equal the plain "
+        f"forward's argmax; {int(decided.sum())} have margin > 0.25, {bad} of those disagree")
     if bad:
-        fail("teacher-forced check: served tokens disagree with the plain forward")
-    del plain, logits
-    return dict(tokens=n, agree=int(agree.sum()), decided=int(decided.sum()))
+        fail(f"teacher-forced check: {h.seq_id}'s served tokens disagree with the plain forward")
+    del plain, logits, hidden
+    return dict(seq_id=h.seq_id, tokens=n, agree=int(agree.sum()), decided=int(decided.sum()))
 
 
 # --------------------------------------------------------------------------
@@ -1870,10 +2106,18 @@ def main() -> None:
                                                   (4, "int8+kv8", 8, 64, True),
                                                   (5, "int4g128+kv8", 2, 16, False)):
         log(f"phase {phase}: serve llama3-8b ({plane}, random weights) through LLMService")
-        stats = asyncio.run(serve(torch, dev, plane, n_req, max_new, profile))
+        stats = asyncio.run(serve(torch, dev, plane, n_req, max_new, profile,
+                                  later_turns=profile))
         log(f"  TTFT p50 {stats['ttft_p50_s']:.3f} s; decode "
             f"{stats['decode_tokens_per_s']:.1f} tokens/s aggregate, "
-            f"{stats['decode_tokens_per_s_per_stream']:.1f} per stream ({card})")
+            f"{stats['decode_tokens_per_s_per_stream']:.1f} per stream; offloads "
+            f"{stats['turn1']['offload']['total_s']:.3f} s ({card})")
+        for turn in ("turn2", "turn3"):
+            if turn in stats:
+                t = stats[turn]
+                log(f"  {turn}: TTFT p50 {t['ttft_p50_s']:.3f} s; restores "
+                    f"{t['restore']['total_s']:.3f} s, offloads {t['offload']['total_s']:.3f} s "
+                    f"({card})")
         log("serve: " + json.dumps(stats))
         serves[plane] = stats
 

@@ -40,7 +40,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from finchat_tpu_torch.engine.kv_cache import PagedKVCache
+from finchat_tpu_torch.engine.kv_cache import (
+    PagedKVCache,
+    gather_pages_host,
+    scatter_pages_device,
+)
 from finchat_tpu_torch.engine.sampler import sample
 from finchat_tpu_torch.models.llama import LlamaConfig, forward, lm_head
 from finchat_tpu_torch.models.quant import quantize_llama_params, validate_quant_mode
@@ -417,6 +421,9 @@ class InferenceEngine:
         return t.detach().cpu().numpy()
 
     # --- low-level ops used by the scheduler ----------------------------
+    def set_page_table_row(self, slot: int, pages: list[int]) -> None:
+        self.set_page_table_rows({slot: pages})
+
     def set_page_table_rows(self, rows: dict[int, list[int]]) -> None:
         """Assign several slots' page lists in ONE device update."""
         mat = np.zeros((len(rows), self.max_pages_per_seq), np.int32)
@@ -444,6 +451,20 @@ class InferenceEngine:
         s.context_lens[idx] = 0
         s.last_tokens[idx] = 0
         s.kv_gaps[idx] = 0
+
+    def offload_pages(self, page_ids: list[int]) -> tuple:
+        """Snapshot physical pages to the host (all layers, K, V and the
+        int8 scale planes) for the session KV cache. Returns once the copy
+        has landed: the caller is about to free these pages
+        (kv_cache.gather_pages_host)."""
+        s = self.state
+        return gather_pages_host(s.k_pages, s.v_pages, s.k_scales, s.v_scales, page_ids)
+
+    def restore_pages(self, page_ids: list[int], host: tuple) -> None:
+        """Write a host snapshot back into freshly allocated pages (a session
+        resume), in place on the current stream."""
+        s = self.state
+        scatter_pages_device(s.k_pages, s.v_pages, s.k_scales, s.v_scales, page_ids, host)
 
     # --- steps -----------------------------------------------------------
     def prefill_chunk(self, tokens, slots, start_pos, n_valid) -> torch.Tensor:
@@ -482,6 +503,12 @@ class InferenceEngine:
                     last_logits[i] = logits[i]
         assert all(lg is not None for lg in last_logits)
         return last_logits  # type: ignore[return-value]
+
+    def prefill(self, slot: int, prompt_ids: list[int]) -> torch.Tensor:
+        """Chunked prefill of a whole prompt into a slot; returns the final
+        chunk's last-token logits and commits no token (a shared prefix's
+        registration fills exactly its pages with it)."""
+        return self.prefill_batch([(slot, prompt_ids)])[0]
 
     def commit_first_token(self, slot: int, logits: torch.Tensor, temperature: float,
                            top_p: float, top_k: int) -> torch.Tensor:

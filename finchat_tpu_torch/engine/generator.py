@@ -35,7 +35,11 @@ class EngineGenerator:
         max_len = eng.max_pages_per_seq * eng.page_size
         return max(1, max_len - sampling.max_new_tokens)
 
-    async def stream(self, prompt: str, sampling: SamplingParams) -> AsyncIterator[str]:
+    async def stream(self, prompt: str, sampling: SamplingParams,
+                     conversation_id: str | None = None) -> AsyncIterator[str]:
+        """Stream the detokenized response to ``prompt``. ``conversation_id``
+        keys the scheduler's session KV cache (a later turn of the same
+        conversation resumes this one's KV); None = no cross-turn reuse."""
         prompt_ids = self.tokenizer.encode(prompt, add_bos=True)
         budget = self.prompt_budget(sampling)
         if len(prompt_ids) > budget:
@@ -47,7 +51,8 @@ class EngineGenerator:
             logger.warning("prompt of %d tokens exceeds budget %d; splicing head %d + tail %d",
                            len(prompt_ids), budget, head, tail)
             prompt_ids = prompt_ids[:head] + prompt_ids[-tail:]
-        handle = await self.scheduler.submit(f"seq-{next(self._ids)}", prompt_ids, sampling)
+        handle = await self.scheduler.submit(f"seq-{next(self._ids)}", prompt_ids, sampling,
+                                             conversation_id=conversation_id)
         decoder = IncrementalDecoder(self.tokenizer)
         try:
             while True:
@@ -67,5 +72,7 @@ class EngineGenerator:
             if not handle.finished:
                 self.scheduler.cancel(handle)
 
-    async def generate(self, prompt: str, sampling: SamplingParams) -> str:
-        return "".join([piece async for piece in self.stream(prompt, sampling)])
+    async def generate(self, prompt: str, sampling: SamplingParams,
+                       conversation_id: str | None = None) -> str:
+        return "".join([piece async for piece in self.stream(prompt, sampling,
+                                                             conversation_id)])

@@ -20,6 +20,11 @@ or int8 with per-token-per-head scales).
   PyTorch updates the storage it was given).
 - Host side: ``PageAllocator`` — a free list with ownership tracking; a page
   is owned by at most one sequence, and double-free or foreign-free raise.
+- Page snapshots for the session KV cache: ``gather_pages_host`` copies a
+  set of pages (all layers, K, V and the int8 scale planes) to CPU tensors
+  ``[L, n, ...]``, ``scatter_pages_device`` writes such a snapshot back into
+  other pages. The layout is the JAX package's, so a snapshot holds the
+  same bytes in both packages.
 """
 
 from __future__ import annotations
@@ -151,6 +156,75 @@ class PageAllocator:
 
 def pages_needed(n_tokens: int, page_size: int) -> int:
     return max(1, -(-n_tokens // page_size))
+
+
+def gather_pages_host(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scales: torch.Tensor | None,
+    v_scales: torch.Tensor | None,
+    page_ids: list[int],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """Copy a set of physical pages to the host across all layers: returns
+    ``(k [L, n, PS, row], v, k_scales | None, v_scales | None)`` as CPU
+    tensors of the pool's dtypes (a bf16 pool gives ``torch.bfloat16``).
+
+    The session cache's offload path. The gather runs on the current
+    stream, so it is ordered after every step already enqueued that may
+    still append into these pages, and the copy to the host is synchronous:
+    the caller frees the pages right after, and returning before the copy
+    landed would race the next sequence's writes into them. A per-turn
+    cost, never on the per-token path. On the CPU the gather is already a
+    copy that owns its storage."""
+    ids = torch.as_tensor(page_ids, dtype=torch.long).to(k_pages.device)
+
+    def take(pages: torch.Tensor | None) -> torch.Tensor | None:
+        return None if pages is None else pages.index_select(1, ids).cpu()
+
+    quantized = k_pages.dtype == torch.int8
+    return (take(k_pages), take(v_pages), take(k_scales) if quantized else None,
+            take(v_scales) if quantized else None)
+
+
+def scatter_pages_device(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scales: torch.Tensor | None,
+    v_scales: torch.Tensor | None,
+    page_ids: list[int],
+    host: tuple,
+) -> None:
+    """Write a host snapshot (``gather_pages_host``'s layout, or a leading
+    slice of one) into the pages ``page_ids``, IN PLACE: the first
+    ``len(page_ids)`` snapshot pages land in order. The session cache's
+    restore path.
+
+    A snapshot of the other page-pool dtype raises: an int8 snapshot cast
+    into a bf16 pool (or the reverse) would be plausible-looking garbage
+    KV. Callers refuse such snapshots earlier and count them; this is the
+    last line."""
+    k, v, ks, vs = host
+    n = len(page_ids)
+    if k.shape[1] < n:
+        raise ValueError(f"snapshot holds {k.shape[1]} pages, need {n}")
+    if k.dtype != k_pages.dtype:
+        raise ValueError(
+            f"snapshot dtype {str(k.dtype).removeprefix('torch.')} does not match the "
+            f"page-pool dtype {str(k_pages.dtype).removeprefix('torch.')} (cross-mode "
+            "restore refused)")
+    dev = k_pages.device
+    ids = torch.as_tensor(page_ids, dtype=torch.long).to(dev)
+
+    def put(pages: torch.Tensor, snap: torch.Tensor) -> None:
+        pages.index_copy_(1, ids, snap[:, :n].to(dev))
+
+    put(k_pages, k)
+    put(v_pages, v)
+    if k_pages.dtype == torch.int8:
+        if ks is None or vs is None:
+            raise ValueError("an int8 cache needs the snapshot's scale planes")
+        put(k_scales, ks)
+        put(v_scales, vs)
 
 
 def scatter_kv_chunk(

@@ -23,14 +23,27 @@ Many sequences multiplexed onto one model replica:
 - Per-sequence failure isolation: an errored sequence is evicted, its pages
   freed, an error event emitted on its stream; a whole-round failure evicts
   that round's population, and the engine keeps serving the others.
+- Shared-prefix KV cache (``prefix_cache``): ``register_prefix`` prefills a
+  constant prompt head (the system prompt every conversation repeats) ONCE
+  into pages of its own; admission points a matching prompt's page table at
+  those whole pages, read-only and refcounted, and prefills only the rest.
+  ``register_prefix_async`` registers on a running scheduler, the head
+  riding the prefill and ragged rounds a chunk at a time as a row that
+  samples nothing; ``retire_prefixes`` stops matching and frees the pages
+  once the last reference goes.
+- Session KV cache (``session_cache``, engine/session_cache.py): a
+  sequence that retires normally and carries a ``conversation_id`` has its
+  own pages snapshotted to the host before they are freed; the
+  conversation's next turn restores the matched pages and prefills only
+  the new tokens. A RAM miss falls through to the disk tier when
+  ``session_cache_disk_path`` is set.
 
-The serving planes this port does not carry yet — prefix and session KV
-caches, speculative decode, the fused decode loop, the free-running loop,
-bounded KV, recompute preemption and the circuit breaker — are refused at
-construction (``check_supported``) instead of being silently ignored. The
-quantized plane (int8/int4 weights, int8 KV pages) is served: the
-scheduler keeps the engine's quant label and sets the
-``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
+The serving planes this port does not carry yet — speculative decode, the
+fused decode loop, the free-running loop, bounded KV, recompute preemption
+and the circuit breaker — are refused at construction (``check_supported``)
+instead of being silently ignored. The quantized plane (int8/int4 weights,
+int8 KV pages) is served: the scheduler keeps the engine's quant label and
+sets the ``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
 """
 
 from __future__ import annotations
@@ -46,6 +59,13 @@ import numpy as np
 from finchat_tpu_torch.engine.engine import InferenceEngine, round_up_pow2
 from finchat_tpu_torch.engine.kv_cache import PageAllocator, pages_needed
 from finchat_tpu_torch.engine.sampler import CANDIDATES, SamplingParams
+from finchat_tpu_torch.engine.session_cache import (
+    SessionDiskTier,
+    SessionEntry,
+    SessionKVCache,
+    concat_snaps,
+    snap_kv_mode,
+)
 from finchat_tpu_torch.utils.config import EngineConfig
 from finchat_tpu_torch.utils.logging import get_logger
 from finchat_tpu_torch.utils.metrics import METRICS, Timer
@@ -57,8 +77,6 @@ def check_supported(cfg: EngineConfig) -> None:
     """Raise on a config that turns on a serving plane this port does not
     carry yet (each is a later slice)."""
     unsupported = {
-        "prefix_cache": cfg.prefix_cache,
-        "session_cache": cfg.session_cache,
         "spec_tokens > 0": cfg.spec_tokens > 0,
         "decode_loop_depth > 1": cfg.decode_loop_depth > 1,
         "freerun_rounds > 1": cfg.freerun_rounds > 1,
@@ -83,9 +101,23 @@ class SequenceHandle:
     seq_id: str
     prompt_ids: list[int]
     sampling: SamplingParams
+    # session KV cache key: turns of one conversation resume each other's
+    # KV (engine/session_cache.py); None = no cross-turn caching
+    conversation_id: str | None = None
     events: asyncio.Queue = field(default_factory=asyncio.Queue)
     slot: int = -1
     prefill_pos: int = 0  # prompt tokens already prefilled
+    # the slot's logical -> physical page list from admission: shared head
+    # pages first, then its own (retirement offload slices it)
+    page_list: list[int] = field(default_factory=list)
+    # tokens in READ-ONLY referenced head pages; the slot's writes start here
+    shared_len: int = 0
+    # tokens restored from a session snapshot at admission (0 = cold): the
+    # pages of [shared_len, resumed_len) are never rewritten, so retirement
+    # reuses the previous entry's host bytes for them
+    resumed_len: int = 0
+    # the shared-prefix entry the page table references (refcounted)
+    prefix_entry: object | None = None
     generated: int = 0
     history: list[int] = field(default_factory=list)  # prompt + delivered tokens
     submitted_at: float = field(default_factory=time.perf_counter)
@@ -110,6 +142,37 @@ class _InFlightStep:
 
     tokens: object  # [max_seqs] int32, device
     members: list[tuple[int, SequenceHandle]]
+
+
+@dataclass
+class _PrefixJob:
+    """A chunked prefix registration in progress (``register_prefix_async``):
+    the head prefills one chunk per round as a row of the prefill or
+    ragged round that samples nothing, so decode keeps going. Owns its
+    pages and an engine slot until it completes (entry published) or fails
+    (pages freed, future resolves to 0)."""
+
+    ids: list[int]
+    shared_len: int
+    owner: str
+    pages: list[int]
+    slot: int
+    future: asyncio.Future
+    pos: int = 0
+
+
+@dataclass
+class _PrefixEntry:
+    """One registered shared prompt head: its token ids, the pages holding
+    its KV, and a live-reference count, so retirement frees the pages only
+    once no page table and no session entry points at them."""
+
+    ids: list[int]
+    pages: list[int]
+    shared_len: int
+    owner: str
+    refs: int = 0
+    retired: bool = False
 
 
 class ContinuousBatchingScheduler:
@@ -150,6 +213,28 @@ class ContinuousBatchingScheduler:
         self.metrics.set_gauge("finchat_quant_weight_bits",
                                {"int8": 8, "int4": 4}.get(engine.quant, elem_bits))
         self.metrics.set_gauge("finchat_quant_kv_bits", 8 if engine.kv_quant else elem_bits)
+        self.metrics.inc("finchat_quant_dequant_fallbacks_total", 0.0)
+        # shared-prefix KV cache: registered heads and registrations in flight
+        self._prefixes: list[_PrefixEntry] = []
+        self._n_prefixes_ever = 0  # unique allocator owner ids
+        self._prefix_jobs: deque[_PrefixJob] = deque()
+        # session KV cache: the host-RAM tier (None = off), with the disk
+        # tier below it when a path is set; on_drop releases an entry's
+        # reference on its shared head
+        self.session_cache: SessionKVCache | None = None
+        if cfg.session_cache and cfg.session_cache_bytes > 0:
+            disk = None
+            if cfg.session_cache_disk_path:
+                try:
+                    disk = SessionDiskTier(cfg.session_cache_disk_path,
+                                           cfg.session_cache_disk_bytes, metrics=self.metrics,
+                                           kv_quant=engine.kv_quant)
+                except OSError as e:  # durability is best-effort
+                    logger.error("session disk tier unavailable at %s: %s",
+                                 cfg.session_cache_disk_path, e)
+            self.session_cache = SessionKVCache(
+                cfg.session_cache_bytes, page_size=cfg.page_size, on_drop=self._session_drop,
+                metrics=self.metrics, disk=disk)
 
     # --- public API -----------------------------------------------------
     async def start(self) -> None:
@@ -162,9 +247,11 @@ class ContinuousBatchingScheduler:
         self._wakeup.set()
         if self._task:
             await self._task
+        for job in list(self._prefix_jobs):  # stopped mid-registration
+            self._fail_prefix_job(job)
 
-    async def submit(self, seq_id: str, prompt_ids: list[int],
-                     sampling: SamplingParams) -> SequenceHandle:
+    async def submit(self, seq_id: str, prompt_ids: list[int], sampling: SamplingParams,
+                     conversation_id: str | None = None) -> SequenceHandle:
         if not prompt_ids:
             raise ValueError("empty prompt")
         if sampling.grammar:
@@ -187,7 +274,8 @@ class ContinuousBatchingScheduler:
                                "%d; clamping", seq_id, sampling.top_k, CANDIDATES)
             self.metrics.inc("finchat_top_k_clamped_total")
             sampling = dataclasses.replace(sampling, top_k=CANDIDATES)
-        handle = SequenceHandle(seq_id=seq_id, prompt_ids=list(prompt_ids), sampling=sampling)
+        handle = SequenceHandle(seq_id=seq_id, prompt_ids=list(prompt_ids), sampling=sampling,
+                                conversation_id=conversation_id)
         self.pending.append(handle)
         self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
         self._wakeup.set()
@@ -203,20 +291,232 @@ class ContinuousBatchingScheduler:
             return
         self._evict(handle, "cancelled")
 
+    # --- shared-prefix KV cache -------------------------------------------
+    def register_prefix(self, prompt_ids: list[int]) -> int:
+        """Prefill a shared prompt head ONCE and serve its KV to every later
+        request that starts with it (the system prompt is identical for
+        every conversation). Shares whole pages only — a partly filled page
+        would be written by the owning sequence's appends — and the
+        remainder prefills per request. Returns the shared token length (0 =
+        nothing registered). Call while the engine is idle (startup);
+        ``register_prefix_async`` registers on a running scheduler."""
+        prep = self._prefix_prep(prompt_ids)
+        if not isinstance(prep, tuple):
+            return prep  # 0 (unregistrable) or an existing entry's length
+        ids, shared_len, owner, pages, slot = prep
+        try:
+            self.engine.set_page_table_row(slot, pages)
+            self.engine.prefill(slot, ids)  # fills exactly the shared pages
+        except Exception:
+            self.allocator.free(owner, pages)
+            raise
+        finally:
+            try:
+                self.engine.reset_slot(slot)
+            except Exception as e:  # the slot must come back regardless
+                logger.error("slot reset failed after prefix prefill: %s", e)
+            self.free_slots.append(slot)
+        self._prefixes.append(_PrefixEntry(ids, pages, shared_len, owner))
+        logger.info("prefix cache: registered %d shared tokens (%d pages)",
+                    shared_len, len(pages))
+        return shared_len
+
+    def _prefix_prep(self, prompt_ids: list[int]):
+        """What both registrations share: size the whole-page head, dedupe
+        against live entries and jobs, reserve pages and an engine slot.
+        Returns an int (0 = unregistrable or no capacity, or a registered
+        entry's shared length) or ``(ids, shared_len, owner, pages, slot)``."""
+        page = self.engine.page_size
+        n_pages = min(len(prompt_ids) // page, self.engine.max_pages_per_seq)
+        if n_pages <= 0:
+            return 0
+        shared_len = n_pages * page
+        ids = list(prompt_ids[:shared_len])
+        for entry in self._prefixes:
+            if not entry.retired and entry.shared_len == shared_len and entry.ids == ids:
+                return shared_len  # already registered
+        for job in self._prefix_jobs:
+            if job.shared_len == shared_len and job.ids == ids:
+                return 0  # registration already in flight; the caller may retry
+        if not self.allocator.can_allocate(n_pages) or not self.free_slots:
+            logger.warning("prefix cache: no pages/slot free; not registering")
+            return 0
+        owner = f"__prefix_{self._n_prefixes_ever}__"
+        self._n_prefixes_ever += 1
+        pages = self.allocator.allocate(owner, n_pages)
+        slot = self.free_slots.pop()
+        return ids, shared_len, owner, pages, slot
+
+    async def register_prefix_async(self, prompt_ids: list[int]) -> int:
+        """``register_prefix`` for a RUNNING scheduler: the head prefills one
+        chunk per round instead of one monolithic prefill, so in-flight
+        decode keeps advancing. Resolves to the shared token length, 0 on
+        failure (registration is best-effort)."""
+        if not self._running:
+            return self.register_prefix(prompt_ids)  # engine idle: inline
+        prep = self._prefix_prep(prompt_ids)
+        if not isinstance(prep, tuple):
+            return prep
+        ids, shared_len, owner, pages, slot = prep
+        job = _PrefixJob(ids=ids, shared_len=shared_len, owner=owner, pages=pages, slot=slot,
+                         future=asyncio.get_running_loop().create_future())
+        try:
+            self.engine.set_page_table_row(slot, pages)
+        except Exception:
+            # return the reservation: a transient device error must not leak it
+            self.allocator.free(owner, pages)
+            self.free_slots.append(slot)
+            raise
+        self._prefix_jobs.append(job)
+        self._wakeup.set()
+        return await job.future
+
+    def _fail_prefix_job(self, job: _PrefixJob) -> None:
+        self._prefix_jobs.remove(job)
+        self.allocator.free(job.owner, job.pages)
+        try:
+            self.engine.reset_slot(job.slot)
+        except Exception as e:  # the device may be why the job failed
+            logger.error("reset_slot during prefix-job failure: %s", e)
+        # the slot comes back and the future resolves regardless, or the
+        # awaiter of register_prefix_async would hang
+        self.free_slots.append(job.slot)
+        if not job.future.done():
+            job.future.set_result(0)
+
+    def _complete_prefix_job(self, job: _PrefixJob, how: str) -> None:
+        """A chunked registration finished its last chunk: publish the
+        entry, return the engine slot, resolve the caller's future (shared
+        by the prefill and ragged rounds)."""
+        self._prefix_jobs.remove(job)
+        self.engine.reset_slot(job.slot)
+        self.free_slots.append(job.slot)
+        self._prefixes.append(_PrefixEntry(job.ids, job.pages, job.shared_len, job.owner))
+        logger.info("prefix cache: registered %d shared tokens (%d pages, %s)",
+                    job.shared_len, len(job.pages), how)
+        if not job.future.done():
+            job.future.set_result(job.shared_len)
+
+    def retire_prefixes(self) -> None:
+        """Stop matching every registered prefix (the caller is about to
+        register fresh heads). Pages free at once when unreferenced, else
+        when the last sequence using them releases. Session entries
+        referencing a retired head are dropped too: they could never resume
+        again, and would pin the head's pages."""
+        for entry in self._prefixes:
+            entry.retired = True
+        if self.session_cache is not None:
+            self.session_cache.discard_if(
+                lambda e: e.prefix_entry is not None and e.prefix_entry.retired)
+        self._reap_prefixes()
+
+    def _reap_prefixes(self) -> None:
+        for entry in list(self._prefixes):
+            if entry.retired and entry.refs == 0:
+                self.allocator.free(entry.owner, entry.pages)
+                self._prefixes.remove(entry)
+
+    def _match_prefix(self, prompt_ids: list[int]) -> tuple[_PrefixEntry | None, int]:
+        """Longest live registered prefix usable for this prompt: whole
+        shared pages only, and at least one prompt token left to prefill
+        (the first token needs real last-token logits)."""
+        page = self.engine.page_size
+        cap = ((len(prompt_ids) - 1) // page) * page
+        best: tuple[_PrefixEntry | None, int] = (None, 0)
+        for entry in self._prefixes:
+            if entry.retired:
+                continue
+            usable = min(entry.shared_len, cap)
+            if usable > best[1] and prompt_ids[:usable] == entry.ids[:usable]:
+                best = (entry, usable)
+        return best
+
     # --- internals ------------------------------------------------------
     def _admit(self) -> None:
         admitted: dict[int, list[int]] = {}
+        ctx_rows: dict[int, int] = {}
+        page = self.engine.page_size
         while self.pending and self.free_slots:
             handle = self.pending[0]
             # pages for the whole prompt + budget: no mid-flight allocation
-            need = pages_needed(len(handle.prompt_ids) + handle.sampling.max_new_tokens,
-                                self.engine.page_size)
-            if need > self.engine.max_pages_per_seq or not self.allocator.can_allocate(need):
+            total = pages_needed(len(handle.prompt_ids) + handle.sampling.max_new_tokens,
+                                 page)
+            if total > self.engine.max_pages_per_seq:
+                break  # head-of-line waits (refused at submit anyway)
+            entry, shared_len = self._match_prefix(handle.prompt_ids)
+            # session tier: a per-conversation resume takes over whenever it
+            # matches deeper than the shared head (it holds the head as its
+            # own leading pages)
+            s_entry, s_matched = None, 0
+            session_eligible = self.session_cache is not None and bool(handle.conversation_id)
+            if session_eligible:
+                if self.session_cache.get(handle.conversation_id) is None:
+                    # a RAM miss falls through to the disk tier; match()
+                    # below then compares tokens and truncates as usual
+                    self._restore_session_from_disk(handle.conversation_id)
+                s_entry, s_matched = self.session_cache.match(handle.conversation_id,
+                                                              handle.prompt_ids)
+                if s_entry is None or s_matched <= shared_len:
+                    s_entry, s_matched = None, 0
+            if s_entry is not None:
+                # head pages referenced (never copied); the pages past the
+                # head restore from the host snapshot below
+                head_pages = s_entry.prefix_pages[: min(s_matched, s_entry.prefix_len) // page]
+                n_restore = s_entry.own_pages_for(s_matched, page)
+                ref_entry = s_entry.prefix_entry if head_pages else None
+                resume_pos = s_matched
+            else:
+                head_pages = entry.pages[: shared_len // page] if entry else []
+                n_restore = 0
+                ref_entry = entry
+                resume_pos = shared_len
+            need = total - len(head_pages)
+            if not self.allocator.can_allocate(need):
                 break  # head-of-line waits for pages
             self.pending.popleft()
             slot = self.free_slots.pop()
             pages = self.allocator.allocate(handle.seq_id, need)
-            admitted[slot] = pages
+            if n_restore:
+                try:
+                    with Timer(self.metrics, "finchat_session_restore_seconds"):
+                        self.engine.restore_pages(pages[:n_restore], s_entry.snap)
+                    self.metrics.inc("finchat_session_cache_restored_tokens_total", resume_pos)
+                except Exception as e:
+                    # a failed restore must neither kill the stream nor leak
+                    # its pages: return them and start cold on the plain
+                    # shared-prefix plan
+                    logger.error("session cache restore failed for %s: %s", handle.seq_id, e)
+                    self.allocator.free(handle.seq_id, pages)
+                    s_entry = None
+                    head_pages = entry.pages[: shared_len // page] if entry else []
+                    ref_entry = entry
+                    resume_pos = shared_len
+                    need = total - len(head_pages)
+                    if not self.allocator.can_allocate(need):
+                        # the cold plan needs more pages than the resume
+                        self.pending.appendleft(handle)
+                        self.free_slots.append(slot)
+                        break
+                    pages = self.allocator.allocate(handle.seq_id, need)
+            if session_eligible:
+                # counted only for an admission that went through its plan
+                self.metrics.inc("finchat_session_cache_hits_total" if s_entry is not None
+                                 else "finchat_session_cache_misses_total")
+            # head pages lead (logical pages 0..): the slot reads them
+            # read-only, its own writes all land at positions >= resume_pos
+            admitted[slot] = head_pages + pages
+            handle.page_list = admitted[slot]
+            handle.shared_len = len(head_pages) * page
+            handle.resumed_len = resume_pos if s_entry is not None else 0
+            if ref_entry is not None:
+                ref_entry.refs += 1
+                handle.prefix_entry = ref_entry
+            if resume_pos:
+                ctx_rows[slot] = resume_pos
+                handle.prefill_pos = resume_pos
+                if s_entry is None:
+                    self.metrics.inc("finchat_prefix_hits_total")
+                    self.metrics.inc("finchat_prefix_tokens_saved_total", shared_len)
             handle.slot = slot
             self._temperature[slot] = handle.sampling.temperature
             self._top_p[slot] = handle.sampling.top_p
@@ -226,6 +526,8 @@ class ContinuousBatchingScheduler:
         if admitted:
             # ONE device update for the whole admission burst
             self.engine.set_page_table_rows(admitted)
+            if ctx_rows:
+                self.engine.set_context_lens_rows(ctx_rows)
             self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
 
     def _finish(self, handle: SequenceHandle, reason: str) -> None:
@@ -253,8 +555,83 @@ class ContinuousBatchingScheduler:
         self._top_k[handle.slot] = 0
         self.free_slots.append(handle.slot)
         handle.slot = -1
+        if handle.prefix_entry is not None:
+            handle.prefix_entry.refs -= 1
+            handle.prefix_entry = None
+            self._reap_prefixes()
+
+    def _session_drop(self, entry: SessionEntry) -> None:
+        """The session cache's ``on_drop`` hook (eviction, replacement or
+        truncation to nothing): release the entry's reference on its shared
+        head, so retirement can free those pages."""
+        if entry.prefix_entry is not None:
+            entry.prefix_entry.refs -= 1
+            entry.prefix_entry = None
+            self._reap_prefixes()
+
+    def _maybe_offload(self, handle: SequenceHandle) -> None:
+        """Snapshot a normally retiring sequence's KV into the session cache
+        BEFORE its pages are freed. Whole pages only (the matcher is
+        page-granular). The copy blocks (``engine.offload_pages``) by design:
+        the pages return to the allocator the moment this returns, and the
+        next decode step may already be enqueued."""
+        cache = self.session_cache
+        if cache is None or not handle.conversation_id or handle.slot < 0:
+            return
+        if handle.prefill_pos < len(handle.prompt_ids) or not handle.generated:
+            return  # never reached decode; nothing coherent to keep
+        page = self.engine.page_size
+        # KV-cached tokens: prompt + generated minus the last delivered
+        # token, whose append belongs to a step that was never consumed
+        context = len(handle.history) - 1
+        n_tok = (context // page) * page
+        if n_tok <= 0:
+            return
+        shared = min(handle.shared_len, n_tok)
+        # incremental offload: the pages of [shared, resumed_len) were
+        # restored from the previous entry and never rewritten (the slot's
+        # writes start at resumed_len), so reuse those host bytes
+        prev = cache.get(handle.conversation_id)
+        reuse_pages = 0
+        if (prev is not None and prev.snap is not None
+                and prev.prefix_len == shared and handle.resumed_len > shared):
+            m = min(handle.resumed_len, n_tok, prev.n_tokens)
+            reuse_pages = (m - shared) // page
+            if reuse_pages and not np.array_equal(
+                    prev.token_ids[shared : shared + reuse_pages * page],
+                    np.asarray(handle.history[shared : shared + reuse_pages * page], np.int32)):
+                reuse_pages = 0  # the entry was replaced by another stream since
+        own_ids = handle.page_list[shared // page + reuse_pages : n_tok // page]
+        try:
+            with Timer(self.metrics, "finchat_session_offload_seconds"):
+                snap_new = self.engine.offload_pages(own_ids) if own_ids else None
+        except Exception as e:  # the cache is an optimization; never fail eviction
+            logger.error("session cache offload failed for %s: %s", handle.seq_id, e)
+            return
+        entry = SessionEntry(
+            conversation_id=handle.conversation_id,
+            token_ids=np.asarray(handle.history[:n_tok], np.int32),
+            prefix_entry=handle.prefix_entry if shared else None,
+            prefix_pages=list(handle.page_list[: shared // page]),
+            prefix_len=shared,
+            snap=concat_snaps(prev.snap if reuse_pages else None, reuse_pages, snap_new),
+        )
+        # reference the head BEFORE put(): put may drop an older entry
+        # holding the same head, and a momentary refs == 0 would free pages
+        # the new entry is about to point at
+        if entry.prefix_entry is not None:
+            entry.prefix_entry.refs += 1
+        if cache.put(entry):
+            self.metrics.inc("finchat_session_cache_offloaded_pages_total", len(own_ids))
+        elif entry.prefix_entry is not None:
+            entry.prefix_entry.refs -= 1
+            self._reap_prefixes()
 
     def _evict(self, handle: SequenceHandle, reason: str, error: str | None = None) -> None:
+        if error is None and reason in ("eos", "length"):
+            # normal retirement: the KV is a coherent prefix of this
+            # conversation's next turn; offload before the pages free
+            self._maybe_offload(handle)
         self._release(handle)
         if error is not None:
             handle.finished = True
@@ -262,19 +639,113 @@ class ContinuousBatchingScheduler:
         else:
             self._finish(handle, reason)
 
+    # --- session transfer -------------------------------------------------
+    def export_session(self, conversation_id: str | None) -> dict | None:
+        """Device-independent image of a conversation's session entry
+        (SessionKVCache.export_entry)."""
+        if self.session_cache is None or not conversation_id:
+            return None
+        return self.session_cache.export_entry(conversation_id)
+
+    def import_session_entry(self, payload: dict | None, *, spill: bool = True) -> bool:
+        """Adopt an exported session entry (or a disk record). An entry
+        whose KV rode a shared head re-links against THIS scheduler's live
+        registration of the same head, refcounted like a local offload; no
+        matching live head, a bounded-KV record (``kv_gap``: the JAX
+        package's windowed plane, not served here), or a snapshot of the
+        other page-pool dtype refuses it (counted) and the conversation
+        resumes cold."""
+        if payload is None or self.session_cache is None:
+            return False
+        if payload.get("kv_gap"):
+            logger.warning("session import for %s refused: a bounded-KV entry (kv_gap %d) — "
+                           "cold start", payload.get("conversation_id"), payload["kv_gap"])
+            self.metrics.inc("finchat_fleet_session_import_refused_total")
+            return False
+        if (payload.get("snap") is not None
+                and snap_kv_mode(payload["snap"]) != self.engine.kv_quant):
+            logger.warning("session import for %s refused: snapshot kv mode %r vs engine "
+                           "kv_quant %r — cold start", payload.get("conversation_id"),
+                           snap_kv_mode(payload["snap"]), self.engine.kv_quant)
+            self.metrics.inc("finchat_quant_dequant_fallbacks_total")
+            return False
+        prefix_len = int(payload["prefix_len"])
+        entry_ref = None
+        pages: list[int] = []
+        if prefix_len > 0:
+            page = self.engine.page_size
+            head_ids = [int(t) for t in payload["token_ids"][:prefix_len]]
+            if prefix_len % page == 0:
+                for cand in self._prefixes:
+                    if (not cand.retired and cand.shared_len >= prefix_len
+                            and cand.ids[:prefix_len] == head_ids):
+                        entry_ref = cand
+                        pages = cand.pages[: prefix_len // page]
+                        break
+            if entry_ref is None:
+                self.metrics.inc("finchat_fleet_session_import_refused_total")
+                return False
+            # reference BEFORE put (the _maybe_offload discipline)
+            entry_ref.refs += 1
+        ok = self.session_cache.import_entry(payload, prefix_entry=entry_ref,
+                                             prefix_pages=pages, spill=spill)
+        if not ok and entry_ref is not None:
+            entry_ref.refs -= 1
+            self._reap_prefixes()
+        return ok
+
+    def _restore_session_from_disk(self, conversation_id: str) -> bool:
+        """RAM-miss fall-through to the disk tier: load the conversation's
+        record (checksummed; a corrupt one is quarantined) and adopt it
+        through ``import_session_entry``. Returns True when the entry is
+        now resident in RAM."""
+        cache = self.session_cache
+        if cache is None or cache.disk is None or conversation_id not in cache.disk:
+            return False
+        with Timer(self.metrics, "finchat_durability_restore_seconds"):
+            payload = cache.disk.load(conversation_id)
+            if payload is None:
+                return False  # quarantined or set aside: cold start
+            # an over-budget record is trimmed to the prefix that fits; one
+            # that cannot fit at all is dropped (put would refuse it every turn)
+            payload = cache.fit_payload(payload)
+            if payload is None:
+                cache.disk.discard(conversation_id)
+                return False
+            try:
+                # spill=False: these bytes just came off this disk tier
+                ok = self.import_session_entry(payload, spill=False)
+            except Exception as e:
+                logger.error("disk session restore failed for %s: %s", conversation_id, e)
+                return False
+        if ok:
+            self.metrics.inc("finchat_durability_disk_restores_total")
+        return ok
+
+    def spill_sessions(self) -> int:
+        """Write every resident session entry through to the disk tier and
+        wait for the writes (graceful shutdown)."""
+        if self.session_cache is None:
+            return 0
+        return self.session_cache.spill_all()
+
     def _tally_dispatch(self) -> None:
         self._dispatch_tally += 1
 
     async def _prefill_round(self) -> None:
         """Advance every prefilling sequence one chunk in a single batched
         ``prefill_step``, the batch padded to a power of two; completed
-        prompts sample their first token (``commit_first_token``)."""
+        prompts sample their first token (``commit_first_token``). Chunked
+        prefix registrations ride the same step as rows that sample
+        nothing."""
         eng = self.engine
         C = eng.engine_cfg.prefill_chunk
         batch = list(self.prefilling)
-        if not batch:
+        jobs = list(self._prefix_jobs)
+        if not batch and not jobs:
             return
         rows = [(h.slot, h.prompt_ids, h.prefill_pos) for h in batch]
+        rows += [(j.slot, j.ids, j.pos) for j in jobs]
         N = round_up_pow2(len(rows))
         tokens, slots, starts, n_valids = self._pack_prefill_rows(rows, N, C)
         with Timer(self.metrics, "finchat_prefill_seconds"):
@@ -285,6 +756,10 @@ class ContinuousBatchingScheduler:
             handle.prefill_pos += int(n_valids[i])
             if handle.prefill_pos >= len(handle.prompt_ids):
                 completions.append((handle, logits[i]))
+        for i, job in enumerate(jobs, start=len(batch)):
+            job.pos += int(n_valids[i])
+            if job.pos >= job.shared_len:
+                self._complete_prefix_job(job, "chunked")
         if not completions:
             return  # dispatch-only round, no host sync needed
         tokens_dev = []
@@ -323,21 +798,29 @@ class ContinuousBatchingScheduler:
     def _fail_prefill_round(self, error: str) -> None:
         for handle in list(self.prefilling):
             self._evict(handle, "error", error=error)
+        for job in list(self._prefix_jobs):
+            self._fail_prefix_job(job)
+
+    def _prefill_work(self) -> bool:
+        """Is there prefill work: a prefilling sequence or a registration?"""
+        return bool(self.prefilling) or bool(self._prefix_jobs)
 
     def _use_mixed(self) -> bool:
         """One packed ragged dispatch instead of a prefill round plus a
         decode step: both populations must exist."""
-        return self.mixed_enabled and bool(self.decoding) and bool(self.prefilling)
+        return self.mixed_enabled and bool(self.decoding) and self._prefill_work()
 
     async def _ragged_round(self) -> None:
         """Advance every prefilling sequence a chunk and every decoding slot
         a token in ONE packed ragged dispatch, with one host fetch. Prefill
         rows whose prompt completes sample their first token on the device
-        in the same dispatch."""
+        in the same dispatch; chunked prefix registrations ride it as rows
+        that sample nothing."""
         eng = self.engine
         C = eng.engine_cfg.prefill_chunk
         R = B = eng.engine_cfg.max_seqs
         batch = list(self.prefilling)
+        jobs = list(self._prefix_jobs)
         decode_members = list(self.decoding.items())
         row_slot = np.zeros((R,), np.int32)
         row_start = np.zeros((R,), np.int32)
@@ -351,6 +834,7 @@ class ContinuousBatchingScheduler:
         tok_row: list[int] = []
         completions: list[tuple[int, SequenceHandle]] = []
         prefill_rows: list[tuple[int, SequenceHandle]] = []
+        job_rows: list[tuple[int, _PrefixJob]] = []
         decode_rows: list[tuple[int, int, SequenceHandle]] = []
         i = 0
         for h in batch:
@@ -368,6 +852,15 @@ class ContinuousBatchingScheduler:
                 s = h.sampling
                 temp[i], top_p[i], top_k[i] = s.temperature, s.top_p, s.top_k
             prefill_rows.append((i, h))
+            i += 1
+        for job in jobs:
+            chunk = job.ids[job.pos : job.pos + C]
+            row_slot[i] = job.slot
+            row_start[i] = job.pos
+            row_len[i] = len(chunk)
+            packed += chunk
+            tok_row += [i] * len(chunk)
+            job_rows.append((i, job))
             i += 1
         for slot, h in decode_members:
             row_slot[i] = slot
@@ -393,6 +886,10 @@ class ContinuousBatchingScheduler:
         self._tally_dispatch()
         for idx, h in prefill_rows:
             h.prefill_pos += int(row_len[idx])
+        for idx, job in job_rows:
+            job.pos += int(row_len[idx])
+            if job.pos >= job.shared_len:
+                self._complete_prefix_job(job, "ragged")
         emitted = await asyncio.to_thread(eng.to_host, emitted_dev)
         for idx, handle in completions:
             if handle.finished:
@@ -478,7 +975,7 @@ class ContinuousBatchingScheduler:
                 self.metrics.inc("finchat_coexist_dispatches_total",
                                  self._dispatch_tally - self._coexist_mark)
                 self._coexist_mark = None
-            if not (self.pending or self.decoding or self.prefilling):
+            if not (self.pending or self.decoding or self._prefill_work()):
                 if inflight is not None:  # drain the pipeline before idling
                     self._iter_ran_prefill = False
                     inflight = await self._drain_inflight(inflight)
@@ -496,7 +993,7 @@ class ContinuousBatchingScheduler:
                 logger.error("admission error: %s", e)
                 await asyncio.sleep(0.05)
 
-            prefill_active = bool(self.prefilling)
+            prefill_active = self._prefill_work()
             self._iter_ran_prefill = prefill_active
             if prefill_active and self.decoding:
                 self.metrics.inc("finchat_coexist_iterations_total")
@@ -516,7 +1013,7 @@ class ContinuousBatchingScheduler:
                     await asyncio.sleep(0)
                     continue
 
-            if self.prefilling:
+            if self._prefill_work():
                 try:
                     await self._prefill_round()
                 except Exception as e:

@@ -16,8 +16,8 @@ from finchat_tpu_torch.models.tokenizer import render_chat
 
 class LLMService:
     """``prompt | llm`` with streaming, nothing else. The generator is any
-    object with ``stream(prompt, sampling)`` — the engine-backed
-    ``EngineGenerator`` in serving."""
+    object with ``stream(prompt, sampling, conversation_id=None)`` — the
+    engine-backed ``EngineGenerator`` in serving."""
 
     def __init__(self, generator, system_prompt: str,
                  sampling: SamplingParams | None = None):
@@ -31,11 +31,14 @@ class LLMService:
         context: str = "",
         chat_history: Sequence[ChatMessage] = (),
         system_prompt: str | None = None,
+        conversation_id: str | None = None,
     ) -> AsyncIterator[str]:
-        """Stream the response to one user message."""
+        """Stream the response to one user message; ``conversation_id``
+        keys the session KV cache across the conversation's turns."""
         prompt = render_chat(
             system_prompt if system_prompt is not None else self.system_prompt,
             context, list(chat_history), message,
         )
-        async for chunk in self.generator.stream(prompt, self.sampling):
+        async for chunk in self.generator.stream(prompt, self.sampling,
+                                                 conversation_id=conversation_id):
             yield chunk

@@ -2,10 +2,13 @@
 
 Field names and defaults are those of the JAX package's ``ModelConfig`` and
 ``EngineConfig`` so a config written for one package reads the same in the
-other. The serving planes this port does not carry yet (prefix and session
-caches, spec decode, decode loop, free-run, bounded KV, preemption, the
-breaker) keep their fields; the scheduler refuses a config that turns one
-of them on (engine/scheduler.py ``check_supported``). ``kv_quant = "int8"``
+other. The serving planes this port does not carry yet (spec decode, decode
+loop, free-run, bounded KV, preemption, the breaker) keep their fields; the
+scheduler refuses a config that turns one of them on (engine/scheduler.py
+``check_supported``). The prefix and session KV caches are served at their
+defaults: the scheduler reads ``session_cache``, ``session_cache_bytes``,
+``session_cache_disk_path`` and ``session_cache_disk_bytes``, and a caller
+registers shared heads itself (``register_prefix``). ``kv_quant = "int8"``
 (int8 KV pages) and ``ModelConfig.quant`` (int8/int4 weights) are served.
 """
 

@@ -7,6 +7,33 @@ depth, batch occupancy, KV pages used, and the mixed-step family
 ``finchat_coexist_dispatches_total``) that shows how many coexist rounds
 ran as one packed ragged dispatch. The Prometheus rendering comes with the
 HTTP slice.
+
+Prefix and session KV caches (engine/scheduler.py, engine/session_cache.py),
+under the reference's names: ``finchat_prefix_hits_total`` and
+``finchat_prefix_tokens_saved_total`` (admissions that referenced a shared
+head, and the prefill tokens that skipped);
+``finchat_session_cache_hits_total`` / ``_misses_total`` (admissions of
+conversation-keyed submissions), ``finchat_session_cache_resident_bytes``
+and ``finchat_session_cache_entries`` (gauges: the host-RAM tier),
+``finchat_session_cache_restored_tokens_total``,
+``finchat_session_cache_offloaded_pages_total``,
+``finchat_session_cache_evictions_total`` (LRU under the byte budget),
+``finchat_session_cache_truncations_total`` (divergent histories), and the
+``finchat_session_offload_seconds`` / ``finchat_session_restore_seconds``
+histograms (the host copy at retirement, the copy back at admission). The
+disk tier: ``finchat_durability_spills_total`` /
+``finchat_durability_spilled_bytes_total`` /
+``finchat_durability_spill_failures_total``,
+``finchat_durability_disk_resident_bytes`` /
+``finchat_durability_disk_entries`` (gauges),
+``finchat_durability_disk_evictions_total``,
+``finchat_durability_disk_restores_total`` with the
+``finchat_durability_restore_seconds`` histogram,
+``finchat_durability_quarantines_total``, and
+``finchat_quant_dequant_fallbacks_total`` (snapshots of the other KV mode
+refused) and ``finchat_fleet_session_import_refused_total`` (imported
+entries refused: no live twin of their shared head, or a bounded-KV
+entry).
 """
 
 from __future__ import annotations
@@ -83,6 +110,17 @@ class MetricsRegistry:
             if key in self._counters:
                 return self._counters[key]
             return self._gauges.get(key, 0.0)
+
+    def snapshot(self) -> dict[str, float]:
+        """Every counter and gauge, and each histogram as ``{name}_count``
+        and ``{name}_sum``."""
+        with self._lock:
+            snap = dict(self._counters)
+            snap.update(self._gauges)
+            for name, h in self._histograms.items():
+                snap[f"{name}_count"] = h.n
+                snap[f"{name}_sum"] = h.total
+            return snap
 
 
 # Process-global registry (one worker process = one registry).

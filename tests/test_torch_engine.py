@@ -177,9 +177,8 @@ def test_cuda_engine_refuses_to_fall_back(engines):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("prefix_cache", True), ("session_cache", True), ("spec_tokens", 2),
-    ("decode_loop_depth", 4), ("freerun_rounds", 2), ("kv_sink_pages", 2),
-    ("preemption", True), ("breaker_threshold", 3),
+    ("spec_tokens", 2), ("decode_loop_depth", 4), ("freerun_rounds", 2), ("kv_sink_pages", 2),
+    ("kv_window_pages", 4), ("preemption", True), ("breaker_threshold", 3),
 ])
 def test_scheduler_refuses_planes_not_ported(engines, field, value):
     _je, te = engines()

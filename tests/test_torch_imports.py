@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``finchat_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package, and the CUDA
-sources build without PyTorch's headers (plain C interface, ``ctypes``)."""
+``chip_smoke.py`` imports JAX, anything of the JAX package, or
+``ml_dtypes`` (the card's machine has none: a bf16 host tensor is a torch
+tensor), and the CUDA sources build without PyTorch's headers (plain C
+interface, ``ctypes``)."""
 
 import ast
 from pathlib import Path
@@ -24,7 +26,7 @@ def _imported_modules(path: Path) -> list[str]:
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "finchat_tpu") or top.startswith("jax")
+    return top in ("jax", "jaxlib", "finchat_tpu", "ml_dtypes") or top.startswith("jax")
 
 
 def test_port_files_found():
