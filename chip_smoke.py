@@ -98,10 +98,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1e-2). Yardstick: ``scaled_dot_product_attention`` forward, and its
    backward through autograd, on the same work.
 3. Serve: ``llama3-8b`` with random bf16 weights from a seeded generator,
-   ``EngineConfig`` defaults minus the planes not ported yet (preemption,
-   the breaker) — the prefix and session KV caches on, the session disk
-   tier in a temporary directory — behind the scheduler, ``EngineGenerator``
-   and ``LLMService``. The rendered system head is registered first, as the
+   ``EngineConfig``'s defaults with only ``kv_quant`` and the session disk
+   tier's directory (a temporary one) set — the prefix and session KV
+   caches, recompute preemption and the circuit breaker on — behind the
+   scheduler, ``EngineGenerator`` and ``LLMService``. The engine's
+   ``warmup()`` runs first, as the app runs it at start: its seconds, step
+   variants, launches by kernel and peak memory are printed, and every page
+   but the trash page must still be all zero after it (one device
+   reduction). The rendered system head is registered first, as the
    app registers it (BOS added, the last token dropped: 30 whole pages);
    then four greedy requests at once, four more once the first tokens
    stream (so prefill coexists with decode and the packed ragged rounds
@@ -127,18 +131,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the same engine and directory registers the head again and two
    conversations resume from disk (2/2). Each later turn is a window of its
    own for the launch rules and the teacher-forced checks, and prints its
-   TTFT and its restore and offload seconds. Last, one decode step, one
+   TTFT and its restore and offload seconds. Then one decode step, one
    prefill chunk and one serve-shaped ragged round at the served context
    length are timed and profiled (device time by kernel class, and the
-   device's idle share of the profiled window).
+   device's idle share of the profiled window). Then the resilience drills
+   on the same weights. The breaker drill: on the serve's engine, four
+   requests stream over the registered head; once each has 2 tokens,
+   ``scheduler.decode`` fails ``breaker_threshold`` times (a fault armed
+   only inside the drill); the trip rebuilds the pool on the card, an
+   ``on_rebuild`` callback re-registers the head, and the streams replay
+   cold. Every stream must complete teacher-forced, the rebuild counter rise
+   by one and the breaker close; every kernel of the plane must launch
+   after the trip (counts set to 0 in the callback) with the serve's launch
+   rules, and no older body; peak memory across the rebuild must stay below
+   the memory held before the drill plus one pool; a request after the drill
+   must hit the re-registered head. The rebuild and recovery seconds and the
+   replays' first token after the trip are printed. The preemption drill: a
+   second engine over the same weights whose pool holds the head's pages
+   and two requests' own pages but not three; two requests without a
+   deadline, then one with a deadline 60 s out, which must preempt (at
+   least one preemption; all three teacher-forced, each ending at its
+   budget or EOS); then two more requests and ``shutdown_drain()`` once each
+   has a token: each must end with the ``shutting_down`` error, its history
+   on the session tier's disk, and no page left but the head's.
 4. Serve the quantized plane the same way: int8 weights made by
    ``init_quantized_params`` (the bf16 tree never exists) and an int8 KV
-   pool, the same head, 8 requests in two waves and later turns. The
-   teacher-forced check runs the plain forward on the dequantized weights
-   with every K/V row quantized and dequantized as the cache stores it;
-   then the step profile.
-5. Serve int4 weights (per group of 128) over the int8 KV pool: the head
-   registered, two requests, one after the other's first token, 16 new
+   pool, warmed up, the same head, 8 requests in two waves and later turns.
+   The teacher-forced check runs the plain forward on the dequantized
+   weights with every K/V row quantized and dequantized as the cache stores
+   it; then the step profile and the breaker drill (the pool rebuilt with
+   its scale planes).
+5. Serve int4 weights (per group of 128) over the int8 KV pool, warmed
+   up: the head registered, two requests, one after the other's first token, 16 new
    tokens each, with the same prefix-cache and teacher-forced checks — the
    path of the int4 matmul kernel.
 6. Train: first ``llama3-8b`` widths at 2 layers, B=1, S=2048 — the loss,
@@ -1261,6 +1285,11 @@ CONTEXTS = [
 ]
 
 
+MESSAGES = [f"Request {i}: what should I do next with my money?" for i in range(8)]
+# the resilience drills' streams: new tokens each
+DRILL_NEW = 32
+
+
 class _Counts:
     """What the engine's steps did in a window: prefill chunks
     (``prefill_chunk`` calls: one launch of the Hopper prefill body a
@@ -1369,15 +1398,58 @@ def _head_equal(torch, before: tuple, after: tuple) -> bool:
     return all((a is None and b is None) or torch.equal(a, b) for a, b in zip(before, after))
 
 
+def pool_bytes(engine) -> int:
+    """Device bytes of the engine's KV pool (pages and scale planes)."""
+    s = engine.state
+    return sum(t.numel() * t.element_size()
+               for t in (s.k_pages, s.v_pages, s.k_scales, s.v_scales) if t is not None)
+
+
+def pages_zero_past_trash(torch, engine) -> bool:
+    """Whether every page but the trash page 0 is all zero, K, V and the
+    scale planes: one min/max reduction a tensor over its pages 1.., one
+    amax over their results, one host read."""
+    s = engine.state
+    ends = [torch.stack(torch.aminmax(t[:, 1:])).float().abs()
+            for t in (s.k_pages, s.v_pages, s.k_scales, s.v_scales) if t is not None]
+    return float(torch.cat(ends).amax().item()) == 0.0
+
+
+def run_warmup(torch, plane: str, engine, weight_gb: float) -> dict:
+    """``engine.warmup()`` as the app runs it at start: its seconds, its
+    variant count, its launches by kernel (counts set to 0 just before), its
+    peak memory, and the pool checked untouched past the trash page."""
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    seconds = engine.warmup()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    zero = pages_zero_past_trash(torch, engine)
+    log(f"  warmup ({plane}): {engine.compiled_variants} step variants in {seconds:.2f} s; "
+        f"peak {peak_gb:.2f} GB (weights {weight_gb:.2f}, pool {pool_bytes(engine) / 1e9:.2f}); "
+        f"launches {launches}; pages 1.. all zero after it: {zero}")
+    if not zero:
+        fail(f"warmup ({plane}) wrote a page other than the trash page")
+    return dict(seconds=seconds, variants=engine.compiled_variants, launches=launches,
+                peak_gb=peak_gb)
+
+
 async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: bool,
-                later_turns: bool) -> dict:
+                later_turns: bool, drills: tuple = ()) -> dict:
     """Serve ``n_requests`` greedy requests through ``LLMService`` on one
-    serving plane (``PLANES``), the prefix and session caches on: the system
-    head registered first, half the requests at once, the rest once a first
-    token streams, each its own conversation. Launch counts are set to 0
-    just before the head's registration and read just after the serve. With
-    ``later_turns``, then turn 2 of four conversations on the same scheduler
-    and turn 3 of two on a fresh one, each a window of its own."""
+    serving plane (``PLANES``) at ``EngineConfig``'s defaults, the prefix
+    and session caches, preemption and the breaker on: the engine warmed up
+    first, as the app does, then the system head registered, half the
+    requests at once, the rest once a first token streams, each its own
+    conversation. Launch counts are set to 0 just before the head's
+    registration and read just after the serve. With ``later_turns``, then
+    turn 2 of four conversations on the same scheduler and turn 3 of two on
+    a fresh one, each a window of its own. ``drills`` names the resilience
+    drills to run on the same weights afterwards: "breaker" on this engine,
+    "preemption" (with the shutdown drain) on a second, smaller one."""
     import shutil
     import tempfile
 
@@ -1416,10 +1488,11 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         f"{base / 1e9:.2f} GB held before")
     disk_dir = tempfile.mkdtemp(prefix="finchat-sessions-")
     try:
-        ecfg = EngineConfig(preemption=False, breaker_threshold=0, kv_quant=spec["kv_quant"],
-                            session_cache_disk_path=disk_dir)
+        ecfg = EngineConfig(kv_quant=spec["kv_quant"], session_cache_disk_path=disk_dir)
         engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
                                  quant_group=spec["group"])
+        warm = run_warmup(torch, plane, engine, weight_gb)
+        torch.cuda.reset_peak_memory_stats()
         counts = _Counts(engine)
         tok = ByteTokenizer()
         sched = ContinuousBatchingScheduler(engine, tok.eos_id)
@@ -1437,7 +1510,6 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         head_ids = tok.encode(render_chat_head(system_prompt), add_bos=True)[:-1]
         svc = LLMService(EngineGenerator(sched, tok), system_prompt,
                          SamplingParams(temperature=0.0, max_new_tokens=max_new))
-        messages = [f"Request {i}: what should I do next with my money?" for i in range(8)]
         m0 = METRICS.snapshot()
         reset_launches()
         shared = sched.register_prefix(head_ids)
@@ -1453,7 +1525,7 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
 
         async def one(i: int) -> str:
             text = []
-            async for chunk in svc.process_message(messages[i], context=CONTEXTS[i],
+            async for chunk in svc.process_message(MESSAGES[i], context=CONTEXTS[i],
                                                    conversation_id=f"conv-{i}"):
                 text.append(chunk)
             return "".join(text)
@@ -1558,7 +1630,18 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         steps = (profile_steps(torch, engine, context=max(prompt_lens), active=len(handles))
                  if profile else None)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        del engine, sched, svc, params, recording_submit, submit, counts
+        drill = {}
+        if "breaker" in drills:
+            drill["breaker"] = await breaker_drill(torch, plane, spec, config, engine, params,
+                                                   head_ids, system_prompt, shared)
+        del engine, sched, svc, recording_submit, submit, counts
+        gc.collect()
+        torch.cuda.empty_cache()
+        if "preemption" in drills:
+            drill["preemption"] = await preemption_drill(torch, dev, plane, spec, config, params,
+                                                         head_ids, system_prompt, shared,
+                                                         disk_dir)
+        del params
         gc.collect()
         torch.cuda.empty_cache()
     finally:
@@ -1567,7 +1650,7 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
                 decode_tokens_per_s_per_stream=per_stream, wall_s=wall,
                 prompt_tokens=prompt_lens, launches=launches, ragged_rounds=mixed,
                 weight_gb=weight_gb, peak_gb=peak_gb, teacher_forced=checks, steps=steps,
-                shared_tokens=shared, turn1=turn1, **turns)
+                shared_tokens=shared, turn1=turn1, warmup=warm, drills=drill, **turns)
 
 
 async def later_turn(torch, plane, spec, config, engine, sched, counts, prev, turn: int,
@@ -1632,6 +1715,278 @@ async def later_turn(torch, plane, spec, config, engine, sched, counts, prev, tu
                 session_hits=hits, disk_restores=disk, restored_tokens=restored,
                 restore=restore, disk_read=disk_s, offload=offload, wall_s=wall,
                 prompt_tokens=prompt_lens, teacher_forced=checks)
+
+
+def _as_served(h, prompt_ids: list[int]):
+    """A handle seen with the prompt it was submitted with: a replay's
+    ``prompt_ids`` hold its history at the preemption, and the
+    teacher-forced check must cover every token it streamed."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(seq_id=h.seq_id, prompt_ids=prompt_ids, history=h.history,
+                           shared_len=h.shared_len, resumed_len=h.resumed_len)
+
+
+def _stream_ended(plane: str, what: str, h, eos_id: int) -> None:
+    if not (h.finished and (h.generated == h.sampling.max_new_tokens
+                            or h.history[-1] == eos_id)):
+        fail(f"{what} ({plane}): {h.seq_id} ended after {h.generated} of "
+             f"{h.sampling.max_new_tokens} tokens without EOS")
+
+
+def check_trip_launches(plane: str, spec: dict, config, launches: dict, counts: _Counts,
+                        decode_steps: float, rounds: float) -> None:
+    """After the trip, every kernel of the plane launched (the Hopper bodies
+    over the rebuilt pool), the serve's launch rules held, and no older body
+    launched."""
+    missing = [k for k in spec["kernels"] if launches[k] == 0]
+    if missing:
+        fail(f"breaker drill ({plane}): kernels not launched after the trip: {missing}")
+    check_window(plane, "after the trip", spec, config, launches, counts, decode_steps, rounds)
+
+
+async def breaker_drill(torch, plane: str, spec: dict, config, engine, params, head_ids,
+                        system_prompt: str, shared: int) -> dict:
+    """The circuit breaker at full width on the serve's engine and weights,
+    at ``EngineConfig``'s defaults: four requests of the serve's shape
+    stream over the registered head; once each has 2 tokens,
+    ``scheduler.decode`` fails ``breaker_threshold`` times in a row. The
+    trip rebuilds the pool on the card, an ``on_rebuild`` callback
+    re-registers the head (``register_prefix_async``), and the streams
+    replay: each must complete teacher-forced, the rebuild counter rise by
+    one and the breaker close. Launch counts are set to 0 in the callback:
+    every kernel of the plane must launch after the trip, and no older body.
+    Peak memory across the rebuild must stay under the held memory plus one
+    pool. A request after the drill must hit the re-registered head."""
+    from finchat_tpu_torch.engine.generator import EngineGenerator
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.serve.simple import LLMService
+    from finchat_tpu_torch.utils import faults
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    log(f"  breaker drill ({plane}): 4 requests over the head, {DRILL_NEW} new tokens each")
+    tok = ByteTokenizer()
+    sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+    if sched.breaker_threshold < 1 or not sched.preemption_enabled:
+        fail(f"breaker drill ({plane}): EngineConfig's defaults lost the breaker or preemption")
+    if sched.register_prefix(head_ids) != shared:
+        fail(f"breaker drill ({plane}): the head did not register")
+    counts = _Counts(engine)
+    handles, prompts = [], {}
+    submit = sched.submit
+
+    async def recording_submit(*a, **k):
+        h = await submit(*a, **k)
+        handles.append(h)
+        prompts[h.seq_id] = list(h.prompt_ids)
+        return h
+
+    sched.submit = recording_submit
+    deliveries: dict[str, list[float]] = {}
+    deliver = sched._deliver
+
+    def timed_deliver(h, token_id):
+        deliveries.setdefault(h.seq_id, []).append(time.perf_counter())
+        deliver(h, token_id)
+
+    sched._deliver = timed_deliver
+    trip: dict = {}
+
+    def on_rebuild():
+        # the window after the trip starts here: nothing has run on the new pool
+        trip.update(t=sched._breaker_tripped_at, rebuilt=time.perf_counter(),
+                    m=METRICS.snapshot(),
+                    register=asyncio.ensure_future(sched.register_prefix_async(head_ids)))
+        reset_launches()
+        counts.reset()
+
+    sched.on_rebuild.append(on_rebuild)
+    svc = LLMService(EngineGenerator(sched, tok), system_prompt,
+                     SamplingParams(temperature=0.0, max_new_tokens=DRILL_NEW))
+
+    async def one(i: int) -> None:
+        async for _chunk in svc.process_message(MESSAGES[i], context=CONTEXTS[i],
+                                                conversation_id=f"drill-{plane}-{i}"):
+            pass
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    pool = pool_bytes(engine)
+    torch.cuda.reset_peak_memory_stats()
+    m0 = METRICS.snapshot()
+    await sched.start()
+    try:
+        tasks = [asyncio.create_task(one(i)) for i in range(4)]
+        while len(handles) < 4 or not all(h.generated >= 2 or h.finished for h in handles):
+            await asyncio.sleep(0.005)
+        faults.arm("scheduler.decode", faults.n_shot(
+            sched.breaker_threshold, RuntimeError("drill: wedged decode dispatch")))
+        try:
+            await asyncio.gather(*tasks)
+        finally:
+            faults.disarm("scheduler.decode")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if "register" not in trip:
+            fail(f"breaker drill ({plane}): the breaker never rebuilt the engine")
+        re_registered = await trip["register"]
+        if re_registered != shared:
+            fail(f"breaker drill ({plane}): the head re-registered {re_registered} tokens")
+        hits0 = METRICS.get("finchat_prefix_hits_total")
+        await one(4)
+        after = handles[4]
+        hit = METRICS.get("finchat_prefix_hits_total") - hits0
+    finally:
+        faults.disarm_all()
+        await sched.stop()
+    sched.submit = submit
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    rebuilds = _metric_delta(METRICS, m0, "finchat_engine_rebuilds_total")
+    failures = _metric_delta(METRICS, m0, "finchat_dispatch_failures_total")
+    preemptions = _metric_delta(METRICS, m0, "finchat_preemptions_total")
+    state = METRICS.get("finchat_breaker_state")
+    rebuild_s = _seconds(METRICS, m0, "finchat_engine_rebuild_seconds")
+    recovery_s = _seconds(METRICS, m0, "finchat_breaker_recovery_seconds")
+    # a replay's first token after the trip (None: the stream had ended)
+    replay_ttft = [next((t - trip["t"] for t in deliveries[h.seq_id] if t > trip["rebuilt"]),
+                        None) for h in handles[:4]]
+    log(f"  breaker drill ({plane}): {failures:.0f} failed rounds, {preemptions:.0f} "
+        f"preemptions, {rebuilds:.0f} rebuild; rebuild {rebuild_s['total_s']:.4f} s, recovery "
+        f"{recovery_s['total_s']:.3f} s; the replays' first token "
+        f"{[t if t is None else round(t, 3) for t in replay_ttft]} s after the trip; "
+        f"breaker state {state:.0f}")
+    log(f"  breaker drill ({plane}): peak {(peak - held) / 1e9:.2f} GB above the "
+        f"{held / 1e9:.2f} GB held (one pool is {pool / 1e9:.2f} GB); the request after the "
+        f"drill: {hit:.0f} prefix hit, {after.shared_len} shared tokens")
+    log(f"  breaker drill ({plane}): launches after the trip: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if rebuilds != 1 or state != 0:
+        fail(f"breaker drill ({plane}): {rebuilds:.0f} rebuilds, breaker state {state:.0f}")
+    if peak - held >= pool:
+        fail(f"breaker drill ({plane}): peak {(peak - held) / 1e9:.2f} GB above the held memory "
+             f"reaches a second pool ({pool / 1e9:.2f} GB)")
+    if hit != 1 or after.shared_len != shared:
+        fail(f"breaker drill ({plane}): the request after the drill missed the head")
+    for h in handles:
+        _stream_ended(plane, "breaker drill", h, tok.eos_id)
+    decode_steps = _metric_delta(METRICS, trip["m"], "finchat_decode_dispatches_total")
+    rounds = _metric_delta(METRICS, trip["m"], "finchat_mixed_dispatches_total")
+    check_trip_launches(plane, spec, config, launches, counts, decode_steps, rounds)
+    counts.close()
+    if sched.session_cache.disk is not None:
+        sched.session_cache.disk.close()
+    checks = [teacher_forced_check(torch, params, config, _as_served(h, prompts[h.seq_id]),
+                                   spec["kv_quant"]) for h in handles]
+    sched.retire_prefixes()
+    return dict(failed_rounds=failures, preemptions=preemptions, rebuilds=rebuilds,
+                rebuild_s=rebuild_s, recovery_s=recovery_s, replay_ttft_s=replay_ttft,
+                peak_above_held_gb=(peak - held) / 1e9, pool_gb=pool / 1e9,
+                launches_after_trip={k: v for k, v in launches.items() if v},
+                teacher_forced=checks)
+
+
+async def _tokens_then(handle) -> dict:
+    """Consume a handle's events to its terminal one, which it returns."""
+    while True:
+        event = await handle.events.get()
+        if event["type"] != "token":
+            return event
+
+
+async def preemption_drill(torch, dev, plane: str, spec: dict, config, params, head_ids,
+                           system_prompt: str, shared: int, disk_dir: str) -> dict:
+    """Page-pressure preemption at full width on the serve's weights: a
+    second engine whose pool holds the head's pages and two requests' own
+    pages but not three. Two requests without a deadline stream; a third,
+    with a deadline 60 s out, must preempt one of them; all three complete
+    teacher-forced with exactly ``DRILL_NEW`` tokens or EOS. Then two more
+    requests stream and ``shutdown_drain`` runs once each has a token: each
+    ends with the ``shutting_down`` error, its history offloaded to the
+    session tier, and no page is left but the head's."""
+    import os
+
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.engine.kv_cache import pages_needed
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat
+    from finchat_tpu_torch.utils.config import EngineConfig
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    tok = ByteTokenizer()
+    page = EngineConfig().page_size
+    prompts = [tok.encode(render_chat(system_prompt, CONTEXTS[i], [], MESSAGES[i]), add_bos=True)
+               for i in range(3)]
+    own = [pages_needed(len(p) + DRILL_NEW, page) - shared // page for p in prompts]
+    num_pages = 1 + shared // page + sum(own) - 1  # two requests fit, three do not
+    ecfg = EngineConfig(kv_quant=spec["kv_quant"], num_pages=num_pages,
+                        session_cache_disk_path=os.path.join(disk_dir, "drill"))
+    engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
+                             quant_group=spec["group"])
+    sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+    if sched.register_prefix(head_ids) != shared:
+        fail(f"preemption drill ({plane}): the head did not register")
+    log(f"  preemption drill ({plane}): a pool of {num_pages} pages (the head's "
+        f"{shared // page}, own pages a request {own}); two requests, then one with a "
+        "deadline 60 s out")
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=DRILL_NEW)
+    m0 = METRICS.snapshot()
+    await sched.start()
+    try:
+        first = [await sched.submit(f"pressure-{i}", prompts[i], greedy) for i in range(2)]
+        ends = [asyncio.create_task(_tokens_then(h)) for h in first]
+        while not all(h.generated >= 1 or h.finished for h in first):
+            await asyncio.sleep(0.005)
+        urgent = await sched.submit("pressure-urgent", prompts[2], greedy,
+                                    deadline=time.perf_counter() + 60.0)
+        ends.append(asyncio.create_task(_tokens_then(urgent)))
+        events = await asyncio.gather(*ends)
+        handles = first + [urgent]
+        preemptions = _metric_delta(METRICS, m0, "finchat_preemptions_total")
+        log(f"  preemption drill ({plane}): {preemptions:.0f} preemptions; preempted "
+            f"{[h.preempted for h in handles]}; tokens {[h.generated for h in handles]}; "
+            f"ends {[e.get('reason', e.get('message')) for e in events]}")
+        if preemptions < 1:
+            fail(f"preemption drill ({plane}): page pressure preempted nothing")
+        if any(e["type"] != "done" for e in events):
+            fail(f"preemption drill ({plane}): a stream failed: {events}")
+        for h in handles:
+            _stream_ended(plane, "preemption drill", h, tok.eos_id)
+        # the shutdown drain: two more streams, drained once each has a token
+        drain = [await sched.submit(f"drain-{i}", prompts[i], greedy,
+                                    conversation_id=f"drain-{plane}-{i}") for i in range(2)]
+        while not all(h.generated >= 1 for h in drain):
+            await asyncio.sleep(0.005)
+    finally:
+        await sched.shutdown_drain()
+    last = [await _tokens_then(h) for h in drain]
+    disk = sched.session_cache.disk
+    offloaded = [h.conversation_id in disk for h in drain]
+    used = sched.allocator.used_count
+    log(f"  shutdown drain ({plane}): errors {[e.get('code') for e in last]} after "
+        f"{[h.generated for h in drain]} tokens; offloaded to the disk tier {offloaded}; "
+        f"{used} pages left (the head's {shared // page})")
+    want = {"type": "error", "message": "server shutting down; retry with backoff",
+            "code": "shutting_down", "retryable": True}
+    if any(e != want for e in last):
+        fail(f"shutdown drain ({plane}): the stragglers ended with {last}")
+    if not all(offloaded):
+        fail(f"shutdown drain ({plane}): a straggler's history did not reach the session tier")
+    if used != shared // page or sched.decoding or sched.prefilling or sched.pending:
+        fail(f"shutdown drain ({plane}): {used} pages left, not the head's {shared // page}")
+    disk.close()
+    checks = [teacher_forced_check(torch, params, config, _as_served(h, prompts[i]),
+                                   spec["kv_quant"]) for i, h in enumerate(handles)]
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(num_pages=num_pages, own_pages=own, preemptions=preemptions,
+                preempted=[h.preempted for h in handles], teacher_forced=checks,
+                drained_tokens=[h.generated for h in drain], pages_left=used)
 
 
 def _kernel_class(name: str) -> str:
@@ -2102,12 +2457,13 @@ def main() -> None:
                 results, backward=True)
 
     serves = {}
-    for phase, plane, n_req, max_new, profile in ((3, "bf16", 8, 64, True),
-                                                  (4, "int8+kv8", 8, 64, True),
-                                                  (5, "int4g128+kv8", 2, 16, False)):
+    for phase, plane, n_req, max_new, profile, drills in (
+            (3, "bf16", 8, 64, True, ("breaker", "preemption")),
+            (4, "int8+kv8", 8, 64, True, ("breaker",)),
+            (5, "int4g128+kv8", 2, 16, False, ())):
         log(f"phase {phase}: serve llama3-8b ({plane}, random weights) through LLMService")
         stats = asyncio.run(serve(torch, dev, plane, n_req, max_new, profile,
-                                  later_turns=profile))
+                                  later_turns=profile, drills=drills))
         log(f"  TTFT p50 {stats['ttft_p50_s']:.3f} s; decode "
             f"{stats['decode_tokens_per_s']:.1f} tokens/s aggregate, "
             f"{stats['decode_tokens_per_s_per_stream']:.1f} per stream; offloads "

@@ -34,6 +34,7 @@ kernel.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any
 
@@ -396,6 +397,9 @@ class InferenceEngine:
         )
         self.state = create_state(config, engine_cfg, self.max_pages_per_seq, device,
                                   kv_quant=self.kv_quant)
+        # step variants the last warmup() ran (0 = not warmed); the
+        # scheduler sets the finchat_warmup_compiled_variants gauge from it
+        self.compiled_variants = 0
 
     @property
     def quant_label(self) -> str:
@@ -465,6 +469,96 @@ class InferenceEngine:
         resume), in place on the current stream."""
         s = self.state
         scatter_pages_device(s.k_pages, s.v_pages, s.k_scales, s.v_scales, page_ids, host)
+
+    def rebuild_device_state(self) -> None:
+        """Replace the whole device state (the KV pool and its scale planes,
+        page table, context lengths, last tokens, ``kv_gaps``, generator)
+        with a fresh one, the weights kept: the scheduler's circuit breaker
+        recovers a wedged or poisoned state this way, its sequences having
+        been preempted to the host. The old state is dropped before the new
+        one is allocated, so the peak stays at one pool; the allocation is
+        ordered after every step already enqueued on the stream, which is
+        what the freed blocks' last users were. Runs in a worker thread, so
+        the engine's device is made current there first, and returns once
+        the new pool is zeroed on the card: a device error surfaces here,
+        inside the breaker's rebuild, and not at the first replayed step."""
+        self.state = None  # drop the old pool before allocating the new one
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                self.state = create_state(self.config, self.engine_cfg, self.max_pages_per_seq,
+                                          self.device, kv_quant=self.kv_quant)
+                torch.cuda.synchronize(self.device)
+        else:
+            self.state = create_state(self.config, self.engine_cfg, self.max_pages_per_seq,
+                                      self.device, kv_quant=self.kv_quant)
+
+    def warmup(self) -> float:
+        """Run every step variant the scheduler dispatches once, with
+        state-neutral inputs, before the first request: the kernels'
+        libraries load, cuBLAS initialises, and the caching allocator holds
+        the largest step's blocks. The variants are the JAX engine's for the
+        planes this port serves, and ``compiled_variants`` counts them the
+        same way:
+
+        - ``prefill_step`` at every power of two up to the scheduler's
+          largest round (``round_up_pow2(max_seqs)``), ``n_valid = 0``:
+          writes land on the trash page, context lengths gain zero;
+        - ``ragged_mixed_step`` at every packed-token bucket (with
+          ``mixed_step``), every row padding;
+        - ``decode_step`` with ``return_logits`` False and True, every slot
+          inactive;
+        - ``commit_first_token`` on slot 0 (its last token becomes 0; a
+          slot's first prefill completion overwrites it).
+
+        The decode steps sample at temperature 1.0, so warmup advances
+        ``state.generator``; greedy streams do not see that. Returns the
+        wall seconds."""
+        t0 = time.perf_counter()
+        cfg = self.engine_cfg
+        B = cfg.max_seqs
+        n_variants = 0
+        prefill_batch_sizes = [1]
+        while prefill_batch_sizes[-1] < round_up_pow2(B):
+            prefill_batch_sizes.append(prefill_batch_sizes[-1] * 2)
+        C = cfg.prefill_chunk
+        # the step functions themselves, as the JAX engine's warmup calls
+        # them: the engine's methods would count dispatches in the metrics
+        dev = self.device
+        step = dict(config=self.config, page_size=self.page_size)
+
+        def zeros(*shape, dtype=I32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        for n in prefill_batch_sizes:
+            self.state, _ = prefill_step(self.params, self.state, zeros(n, C), zeros(n),
+                                         zeros(n), zeros(n), **step)
+            n_variants += 1
+        if cfg.mixed_step:
+            R = B
+            for t in self.ragged_token_buckets():
+                self.state, *_ = ragged_mixed_step(
+                    self.params, self.state, zeros(t), torch.full((t,), R, dtype=I32, device=dev),
+                    zeros(R), zeros(R), zeros(R), zeros(R, dtype=torch.bool),
+                    zeros(R, dtype=torch.bool), zeros(R, dtype=torch.float32),
+                    torch.ones((R,), dtype=torch.float32, device=dev), zeros(R), **step)
+                n_variants += 1
+        inactive = zeros(B, dtype=torch.bool)
+        ones = torch.ones((B,), dtype=torch.float32, device=dev)
+        for return_logits in (False, True):
+            self.state, _, _ = decode_step(self.params, self.state, inactive, ones, ones,
+                                           zeros(B), return_logits=return_logits, **step)
+            n_variants += 1
+        self.state, _ = commit_first_token(self.state, 0, zeros(self.config.vocab_size,
+                                                                dtype=torch.float32),
+                                           0.0, 1.0, 0)
+        n_variants += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed = time.perf_counter() - t0
+        self.compiled_variants = n_variants
+        logger.info("engine warmup [%s]: prefill batches %s + %d step variants in %.1fs",
+                    self.quant_label, prefill_batch_sizes, n_variants, elapsed)
+        return elapsed
 
     # --- steps -----------------------------------------------------------
     def prefill_chunk(self, tokens, slots, start_pos, n_valid) -> torch.Tensor:

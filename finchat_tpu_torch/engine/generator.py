@@ -19,7 +19,15 @@ logger = get_logger(__name__)
 
 
 class GenerationError(RuntimeError):
-    """Generation failed (the scheduler emitted an error event)."""
+    """Generation failed (the scheduler emitted an error event). ``code`` and
+    ``retryable`` carry the scheduler's structured fields when it gave them
+    (a deadline shed, a shutdown), so the serving layer can answer with a
+    retryable error instead of an opaque one."""
+
+    def __init__(self, message: str, *, code: str | None = None, retryable: bool = False):
+        super().__init__(message)
+        self.code = code
+        self.retryable = retryable
 
 
 class EngineGenerator:
@@ -36,10 +44,13 @@ class EngineGenerator:
         return max(1, max_len - sampling.max_new_tokens)
 
     async def stream(self, prompt: str, sampling: SamplingParams,
-                     conversation_id: str | None = None) -> AsyncIterator[str]:
+                     conversation_id: str | None = None,
+                     deadline: float | None = None) -> AsyncIterator[str]:
         """Stream the detokenized response to ``prompt``. ``conversation_id``
         keys the scheduler's session KV cache (a later turn of the same
-        conversation resumes this one's KV); None = no cross-turn reuse."""
+        conversation resumes this one's KV); None = no cross-turn reuse.
+        ``deadline`` (``time.perf_counter``'s clock) feeds the scheduler's
+        shedding and earliest-deadline-first admission; None = none."""
         prompt_ids = self.tokenizer.encode(prompt, add_bos=True)
         budget = self.prompt_budget(sampling)
         if len(prompt_ids) > budget:
@@ -52,7 +63,7 @@ class EngineGenerator:
                            len(prompt_ids), budget, head, tail)
             prompt_ids = prompt_ids[:head] + prompt_ids[-tail:]
         handle = await self.scheduler.submit(f"seq-{next(self._ids)}", prompt_ids, sampling,
-                                             conversation_id=conversation_id)
+                                             conversation_id=conversation_id, deadline=deadline)
         decoder = IncrementalDecoder(self.tokenizer)
         try:
             while True:
@@ -67,12 +78,14 @@ class EngineGenerator:
                         yield tail
                     return
                 else:
-                    raise GenerationError(event["message"])
+                    raise GenerationError(event["message"], code=event.get("code"),
+                                          retryable=bool(event.get("retryable", False)))
         finally:
             if not handle.finished:
                 self.scheduler.cancel(handle)
 
     async def generate(self, prompt: str, sampling: SamplingParams,
-                       conversation_id: str | None = None) -> str:
-        return "".join([piece async for piece in self.stream(prompt, sampling,
-                                                             conversation_id)])
+                       conversation_id: str | None = None,
+                       deadline: float | None = None) -> str:
+        return "".join([piece async for piece in self.stream(
+            prompt, sampling, conversation_id=conversation_id, deadline=deadline)])

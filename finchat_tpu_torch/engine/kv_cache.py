@@ -110,6 +110,10 @@ class PageAllocator:
         self._owner: dict[int, str] = {}  # page id -> sequence id
 
     @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
     def used_count(self) -> int:
         return len(self._owner)
 
@@ -143,6 +147,15 @@ class PageAllocator:
 
     def owned_by(self, seq_id: str) -> list[int]:
         return [p for p, s in self._owner.items() if s == seq_id]
+
+    def reset(self) -> None:
+        """Return every page to the free list and drop all ownership: the
+        breaker's rebuild path, where the device pool was just replaced and
+        nothing the old owners pointed at exists any more. Never valid while
+        an owner still expects its pages to hold live KV."""
+        self._free = list(range(self.num_pages - 1, 0, -1))
+        self._owner.clear()
+        METRICS.set_gauge("finchat_kv_pages_used", 0)
 
     def check_invariants(self) -> None:
         """Every page is exactly one of {trash, free, owned-once}."""

@@ -37,13 +37,29 @@ Many sequences multiplexed onto one model replica:
   conversation's next turn restores the matched pages and prefills only
   the new tokens. A RAM miss falls through to the disk tier when
   ``session_cache_disk_path`` is set.
+- Resilience: recompute preemption (``_preempt`` frees a victim's slot and
+  KV pages but keeps prompt and generated tokens on the handle; the replay
+  re-prefills its history and resumes with no duplicate or dropped token),
+  used for page pressure (``preemption``: the latest-deadline victim yields
+  to a strictly earlier-deadline candidate) and as the recovery primitive
+  of the engine circuit breaker (``breaker_threshold`` consecutive failed
+  rounds of a plane preempt every live sequence, rebuild the engine's
+  device state with the weights kept, and replay; ``breaker_max_rebuilds``
+  trips without a successful round in between give up and fail the
+  streams). Deadline admission: pending requests past their deadline are
+  shed with a structured retryable error, admission runs earliest deadline
+  first with a starvation guard (``edf_starvation_seconds``), and
+  ``submit`` raises ``OverloadedError`` above ``max_queue_depth``. Every
+  dispatch records its members with their admission epoch, which a
+  preemption bumps, so a replay never receives a token of a step that was
+  in flight when it was preempted.
 
 The serving planes this port does not carry yet — speculative decode, the
-fused decode loop, the free-running loop, bounded KV, recompute preemption
-and the circuit breaker — are refused at construction (``check_supported``)
-instead of being silently ignored. The quantized plane (int8/int4 weights,
-int8 KV pages) is served: the scheduler keeps the engine's quant label and
-sets the ``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
+fused decode loop, the free-running loop and bounded KV — are refused at
+construction (``check_supported``) instead of being silently ignored. The
+quantized plane (int8/int4 weights, int8 KV pages) is served: the
+scheduler keeps the engine's quant label and sets the
+``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
 """
 
 from __future__ import annotations
@@ -67,6 +83,7 @@ from finchat_tpu_torch.engine.session_cache import (
     snap_kv_mode,
 )
 from finchat_tpu_torch.utils.config import EngineConfig
+from finchat_tpu_torch.utils.faults import inject
 from finchat_tpu_torch.utils.logging import get_logger
 from finchat_tpu_torch.utils.metrics import METRICS, Timer
 
@@ -82,14 +99,21 @@ def check_supported(cfg: EngineConfig) -> None:
         "freerun_rounds > 1": cfg.freerun_rounds > 1,
         "bounded KV (kv_sink_pages / kv_window_pages)":
             cfg.kv_sink_pages > 0 or cfg.kv_window_pages > 0,
-        "preemption": cfg.preemption,
-        "breaker_threshold > 0": cfg.breaker_threshold > 0,
     }
     on = [name for name, flag in unsupported.items() if flag]
     if on:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(on) + " (turn these off in EngineConfig)"
         )
+
+
+class OverloadedError(RuntimeError):
+    """``submit`` rejected: the admission queue is at ``max_queue_depth``.
+    Retryable by contract: the serving layer surfaces it as a structured
+    retryable error."""
+
+    code = "overloaded"
+    retryable = True
 
 
 @dataclass
@@ -118,6 +142,19 @@ class SequenceHandle:
     resumed_len: int = 0
     # the shared-prefix entry the page table references (refcounted)
     prefix_entry: object | None = None
+    # completion deadline on time.perf_counter's clock; None = none. A
+    # pending entry past it is shed, admission runs earliest deadline
+    # first, and page pressure preempts the latest-deadline victim
+    deadline: float | None = None
+    # recompute preemptions survived (page pressure, breaker recovery)
+    preempted: int = 0
+    # admission epoch, bumped by _preempt: a dispatch records (slot,
+    # handle, epoch), so a replay re-admitted into the same slot is told
+    # apart from the incarnation the dispatch was built for
+    epoch: int = 0
+    # the scheduler driving this handle (rebound by adopt); cancel()
+    # delegates to it
+    owner: object | None = None
     generated: int = 0
     history: list[int] = field(default_factory=list)  # prompt + delivered tokens
     submitted_at: float = field(default_factory=time.perf_counter)
@@ -138,10 +175,11 @@ class SequenceHandle:
 @dataclass
 class _InFlightStep:
     """A dispatched-but-unconsumed decode step: device tokens plus the
-    membership snapshot it was dispatched against."""
+    membership snapshot it was dispatched against, each member with its
+    admission epoch."""
 
     tokens: object  # [max_seqs] int32, device
-    members: list[tuple[int, SequenceHandle]]
+    members: list[tuple[int, SequenceHandle, int]]
 
 
 @dataclass
@@ -218,6 +256,34 @@ class ContinuousBatchingScheduler:
         self._prefixes: list[_PrefixEntry] = []
         self._n_prefixes_ever = 0  # unique allocator owner ids
         self._prefix_jobs: deque[_PrefixJob] = deque()
+        # --- resilience --------------------------------------------------
+        # the breaker: consecutive whole-round failures per plane ("prefill"
+        # / "decode"; the ragged round rides "decode") before it trips and
+        # the device state is rebuilt; 0 turns it off (a failed round then
+        # evicts its sequences with an error)
+        self.breaker_threshold = max(0, cfg.breaker_threshold)
+        self.breaker_max_rebuilds = max(1, cfg.breaker_max_rebuilds)
+        self.preemption_enabled = bool(cfg.preemption)
+        self.edf_starvation_s = max(0.0, cfg.edf_starvation_seconds)
+        self._fail_streaks = {"prefill": 0, "decode": 0}
+        self._rebuilds_without_success = 0
+        self._breaker_tripped_at: float | None = None
+        # the plane that tripped the breaker: only a successful round of it
+        # closes the breaker (a decode-wedged engine still prefills fine)
+        self._breaker_bucket: str | None = None
+        # callbacks after a rebuild (the serving layer re-registers its
+        # shared heads: the rebuild dropped them) and after a give-up
+        self.on_rebuild: list = []
+        self.on_give_up: list = []
+        # True from a give-up until revive_async()
+        self.gave_up = False
+        # True while a trip's rebuild runs in its worker thread: the rebuild
+        # replaces the page table, so register_prefix_async must not write a
+        # row into the table being dropped
+        self._rebuilding = False
+        # 0 closed, 1 open (rebuilding), 2 half-open (rebuilt, waiting for
+        # the first successful round)
+        self.metrics.set_gauge("finchat_breaker_state", 0)
         # session KV cache: the host-RAM tier (None = off), with the disk
         # tier below it when a path is set; on_drop releases an entry's
         # reference on its shared head
@@ -240,6 +306,9 @@ class ContinuousBatchingScheduler:
     async def start(self) -> None:
         self._wakeup = asyncio.Event()  # rebind to the current loop
         self._running = True
+        # the engine's step-variant count from its last warmup (0 = none)
+        self.metrics.set_gauge("finchat_warmup_compiled_variants",
+                               self.engine.compiled_variants)
         self._task = asyncio.create_task(self._loop())
 
     async def stop(self) -> None:
@@ -251,15 +320,21 @@ class ContinuousBatchingScheduler:
             self._fail_prefix_job(job)
 
     async def submit(self, seq_id: str, prompt_ids: list[int], sampling: SamplingParams,
-                     conversation_id: str | None = None) -> SequenceHandle:
+                     conversation_id: str | None = None,
+                     deadline: float | None = None) -> SequenceHandle:
+        """Queue a sequence. ``deadline`` (on ``time.perf_counter``'s clock)
+        feeds shedding and earliest-deadline-first admission."""
         if not prompt_ids:
             raise ValueError("empty prompt")
         if sampling.grammar:
             raise NotImplementedError("grammar-constrained decoding is not ported yet")
         if self.max_queue_depth > 0 and len(self.pending) >= self.max_queue_depth:
+            # backpressure: new load above the bound is refused, retryable
+            # (preempted sequences bypass submit: they are live streams)
             self.metrics.inc("finchat_overload_rejections_total")
-            raise RuntimeError(
-                f"admission queue full ({len(self.pending)} >= {self.max_queue_depth})"
+            raise OverloadedError(
+                f"admission queue full ({len(self.pending)} >= "
+                f"{self.max_queue_depth}); retry with backoff"
             )
         max_len = self.engine.max_pages_per_seq * self.engine.page_size
         if len(prompt_ids) + sampling.max_new_tokens > max_len:
@@ -275,7 +350,8 @@ class ContinuousBatchingScheduler:
             self.metrics.inc("finchat_top_k_clamped_total")
             sampling = dataclasses.replace(sampling, top_k=CANDIDATES)
         handle = SequenceHandle(seq_id=seq_id, prompt_ids=list(prompt_ids), sampling=sampling,
-                                conversation_id=conversation_id)
+                                conversation_id=conversation_id, deadline=deadline,
+                                owner=self)
         self.pending.append(handle)
         self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
         self._wakeup.set()
@@ -284,6 +360,10 @@ class ContinuousBatchingScheduler:
     def cancel(self, handle: SequenceHandle) -> None:
         """Client went away: evict and free."""
         if handle.finished:
+            return
+        if handle.owner is not None and handle.owner is not self:
+            # adopted by another scheduler: its slot and pages live there
+            handle.owner.cancel(handle)
             return
         if handle in self.pending:
             self.pending.remove(handle)
@@ -354,6 +434,11 @@ class ContinuousBatchingScheduler:
         failure (registration is best-effort)."""
         if not self._running:
             return self.register_prefix(prompt_ids)  # engine idle: inline
+        if self._rebuilding:
+            # a trip's rebuild is replacing the page table in a worker
+            # thread: a row written now would be lost. Best-effort: 0, and
+            # the caller registers again after the rebuild (on_rebuild)
+            return 0
         prep = self._prefix_prep(prompt_ids)
         if not isinstance(prep, tuple):
             return prep
@@ -432,15 +517,69 @@ class ContinuousBatchingScheduler:
         return best
 
     # --- internals ------------------------------------------------------
+    @staticmethod
+    def _remaining_new(handle: SequenceHandle) -> int:
+        """Tokens this sequence may still generate: what its KV allocation
+        must cover beyond the prompt. A preempted replay's prompt already
+        holds its generated tokens."""
+        return max(1, handle.sampling.max_new_tokens - handle.generated)
+
+    def _admission_pages(self, handle: SequenceHandle) -> int:
+        """KV pages an admission must cover for this handle, shared head
+        included: prompt plus what it may still generate (no mid-flight
+        allocation)."""
+        return pages_needed(len(handle.prompt_ids) + self._remaining_new(handle),
+                            self.engine.page_size)
+
+    def _shed_expired(self) -> None:
+        """Pending requests past their deadline are dropped before admission
+        with a structured retryable error: admitting them would spend
+        prefill on an answer the caller has given up on. Live streams are
+        never shed: a preempted handle owes its client the rest."""
+        if not self.pending:
+            return
+        now = time.perf_counter()
+        for handle in list(self.pending):
+            if (handle.deadline is not None and now > handle.deadline
+                    and handle.generated == 0 and not handle.preempted):
+                self.pending.remove(handle)
+                self.metrics.inc("finchat_sheds_total")
+                handle.finished = True
+                handle.events.put_nowait({
+                    "type": "error",
+                    "message": "deadline exceeded before admission; retry with backoff",
+                    "code": "deadline_exceeded",
+                    "retryable": True,
+                })
+        self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
+
+    def _prepare_pending(self) -> None:
+        """Shed expired entries, then order the queue for admission:
+        earliest deadline first (entries without one last, FIFO among
+        themselves), with a starvation guard: an entry that has waited
+        longer than ``edf_starvation_seconds`` goes ahead of deadline order
+        (in queue order among the starved). A queue with no deadline is left
+        as it is."""
+        self._shed_expired()
+        if len(self.pending) <= 1 or all(h.deadline is None for h in self.pending):
+            return
+        now = time.perf_counter()
+
+        def key(h: SequenceHandle):
+            if now - h.submitted_at > self.edf_starvation_s:
+                return (0, 0.0)  # starved: ahead of EDF, in queue order (stable sort)
+            return (1, h.deadline if h.deadline is not None else float("inf"))
+
+        self.pending = deque(sorted(self.pending, key=key))
+
     def _admit(self) -> None:
+        self._prepare_pending()
         admitted: dict[int, list[int]] = {}
         ctx_rows: dict[int, int] = {}
         page = self.engine.page_size
         while self.pending and self.free_slots:
             handle = self.pending[0]
-            # pages for the whole prompt + budget: no mid-flight allocation
-            total = pages_needed(len(handle.prompt_ids) + handle.sampling.max_new_tokens,
-                                 page)
+            total = self._admission_pages(handle)
             if total > self.engine.max_pages_per_seq:
                 break  # head-of-line waits (refused at submit anyway)
             entry, shared_len = self._match_prefix(handle.prompt_ids)
@@ -478,6 +617,7 @@ class ContinuousBatchingScheduler:
             pages = self.allocator.allocate(handle.seq_id, need)
             if n_restore:
                 try:
+                    inject("session.restore", seq_id=handle.seq_id)
                     with Timer(self.metrics, "finchat_session_restore_seconds"):
                         self.engine.restore_pages(pages[:n_restore], s_entry.snap)
                     self.metrics.inc("finchat_session_cache_restored_tokens_total", resume_pos)
@@ -603,6 +743,7 @@ class ContinuousBatchingScheduler:
                 reuse_pages = 0  # the entry was replaced by another stream since
         own_ids = handle.page_list[shared // page + reuse_pages : n_tok // page]
         try:
+            inject("session.offload", seq_id=handle.seq_id)
             with Timer(self.metrics, "finchat_session_offload_seconds"):
                 snap_new = self.engine.offload_pages(own_ids) if own_ids else None
         except Exception as e:  # the cache is an optimization; never fail eviction
@@ -638,6 +779,356 @@ class ContinuousBatchingScheduler:
             handle.events.put_nowait({"type": "error", "message": error})
         else:
             self._finish(handle, reason)
+
+    # --- recompute preemption ---------------------------------------------
+    def _preempt(self, handle: SequenceHandle, *, for_rebuild: bool = False) -> None:
+        """Free the victim's slot and KV pages but keep its prompt and
+        generated tokens on the handle: the replay sets ``prompt_ids`` to
+        the history, so re-admission re-prefills exactly the stream so far
+        (through the shared-prefix and session caches, which usually makes
+        it cheap) and its first commit samples exactly the next token. A
+        token of the victim still riding a dispatch is dropped at consume
+        time (the epoch moved) and recomputed by the replay.
+
+        Used for page pressure and as the breaker's recovery primitive;
+        ``for_rebuild`` skips the per-slot device reset (the whole device
+        state is about to be replaced, and the engine may be wedged)."""
+        if handle.finished:
+            return
+        slot = handle.slot
+        if slot >= 0:
+            pages = self.allocator.owned_by(handle.seq_id)
+            if pages:
+                self.allocator.free(handle.seq_id, pages)
+            self.decoding.pop(slot, None)
+            if handle in self.prefilling:
+                self.prefilling.remove(handle)
+            self._temperature[slot] = 0.0
+            self._top_p[slot] = 1.0
+            self._top_k[slot] = 0
+            self.free_slots.append(slot)
+            handle.slot = -1
+            if handle.prefix_entry is not None:
+                handle.prefix_entry.refs -= 1
+                handle.prefix_entry = None
+                if not for_rebuild:
+                    self._reap_prefixes()
+            if not for_rebuild:
+                try:
+                    self.engine.reset_slot(slot)
+                except Exception as e:
+                    # admission rewrites the row and context length anyway;
+                    # a wedged device trips the breaker
+                    logger.error("slot reset failed preempting %s: %s", handle.seq_id, e)
+        elif handle in self.pending:
+            return  # already queued
+        handle.prompt_ids = list(handle.history)
+        handle.prefill_pos = 0
+        handle.page_list = []
+        handle.shared_len = 0
+        handle.resumed_len = 0
+        handle.preempted += 1
+        handle.epoch += 1  # stale dispatch memberships no longer match
+        # live streams re-admit ahead of new load (EDF ordering applies on
+        # top when deadlines are in play)
+        self.pending.appendleft(handle)
+        self.metrics.inc("finchat_preemptions_total")
+        self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
+        self._wakeup.set()
+
+    def _preemption_plan(self) -> list[SequenceHandle]:
+        """Page pressure: when the earliest-deadline pending request cannot
+        be admitted for lack of KV pages, the latest-deadline decoding
+        victims (no deadline = lowest priority) whose deadlines are strictly
+        later than the candidate's and whose pages make the admission fit.
+        Strict order keeps it livelock-free: a victim can never preempt the
+        sequence it yielded to. [] when preemption is off, nothing is
+        stalled, no victim qualifies, or all of them would not free enough
+        (preempting without admitting is pure loss). Planning only: the
+        loop drains the step in flight before it preempts, so no freed page
+        is still the target of a queued write."""
+        if not self.preemption_enabled or not self.pending or not self.decoding:
+            return []
+        self._prepare_pending()
+        if not self.pending:
+            return []
+        cand = self.pending[0]
+        if cand.deadline is None:
+            return []  # only deadline urgency justifies evicting live KV
+        page = self.engine.page_size
+        total = self._admission_pages(cand)
+        if total > self.engine.max_pages_per_seq:
+            return []
+        # the plan _admit will make: a head the candidate shares needs no pages
+        _, shared_len = self._match_prefix(cand.prompt_ids)
+        need = total - shared_len // page
+        if self.free_slots and self.allocator.can_allocate(need):
+            return []  # admissible as it is
+
+        def eff(h: SequenceHandle) -> float:
+            return h.deadline if h.deadline is not None else float("inf")
+
+        pool = [h for h in self.decoding.values() if not h.finished and eff(h) > cand.deadline]
+        pool.sort(key=eff, reverse=True)
+        victims: list[SequenceHandle] = []
+        freeable = self.allocator.free_count
+        for v in pool:
+            victims.append(v)
+            freeable += len(self.allocator.owned_by(v.seq_id))
+            if freeable >= need:
+                return victims
+        return []
+
+    def adopt(self, handle: SequenceHandle) -> bool:
+        """Admit a handle another scheduler gave up. It arrives device-free
+        (``_preempt`` normalized it) with its ``events`` queue, so its
+        consumer keeps streaming. A live stream (preempted or with tokens)
+        goes to the queue's head and is always taken; a never-admitted one
+        is plain load and honours ``max_queue_depth`` (False = refused).
+        Returns whether the handle was taken."""
+        if handle.finished:
+            return True
+        live = bool(handle.preempted or handle.generated)
+        if (not live and self.max_queue_depth > 0
+                and len(self.pending) >= self.max_queue_depth):
+            return False
+        handle.owner = self  # cancel() must reach this scheduler now
+        if live:
+            self.pending.appendleft(handle)
+        else:
+            self.pending.append(handle)
+        self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
+        self._wakeup.set()
+        return True
+
+    async def shutdown_drain(self) -> None:
+        """Graceful shutdown: stop the loop, then end every straggler with
+        a structured retryable ``shutting_down`` error, its coherent KV
+        offloaded into the session tier (which writes through to disk)
+        before its slot and pages are released. Pending work fails the same
+        way. Afterwards only the shared heads' pages are still owned."""
+        await self.stop()
+        shutdown_error = {
+            "type": "error",
+            "message": "server shutting down; retry with backoff",
+            "code": "shutting_down", "retryable": True,
+        }
+        for handle in list(self.decoding.values()) + list(self.prefilling):
+            try:
+                # a mid-decode straggler's prompt and generated KV are the
+                # snapshot a normal retirement takes
+                self._maybe_offload(handle)
+            except Exception as e:
+                logger.error("shutdown offload failed for %s: %s", handle.seq_id, e)
+            self._release(handle)
+            handle.finished = True
+            handle.events.put_nowait(dict(shutdown_error))
+        for handle in list(self.pending):
+            self.pending.remove(handle)
+            handle.finished = True
+            handle.events.put_nowait(dict(shutdown_error))
+        self.metrics.set_gauge("finchat_queue_depth", 0)
+        self.spill_sessions()
+
+    # --- the circuit breaker ------------------------------------------------
+    async def revive_async(self) -> bool:
+        """Rebuild a given-up scheduler's device state from a clean slate so
+        it serves again. Only callable with nothing live here. The device
+        rebuild runs in a worker thread (a pool's reallocation is seconds at
+        real sizes); the host bookkeeping stays on the loop. Returns True
+        when the engine is serving again."""
+        self._revive_prepare()
+        if not await asyncio.to_thread(self._revive_rebuild):
+            return False
+        self._revive_commit()
+        return True
+
+    def _revive_prepare(self) -> None:
+        """Clean-slate host bookkeeping ahead of the rebuild (idempotent)."""
+        if self.decoding or self.prefilling:
+            raise RuntimeError("revive_async() with live sequences; drain first")
+        self._reset_for_rebuild()
+
+    def _reset_for_rebuild(self) -> None:
+        """What a rebuild of the device state invalidates on the host, reset
+        before the rebuild: the old pool goes either way, and a failed
+        rebuild must not strand pages or slots. Prefix jobs resolve to 0
+        with no device op (the engine may be wedged); caches that refer to
+        device pages are dropped: session entries riding a head first
+        (their on_drop releases the head references), then the heads."""
+        for job in list(self._prefix_jobs):
+            self._prefix_jobs.remove(job)
+            if not job.future.done():
+                job.future.set_result(0)
+        if self.session_cache is not None:
+            self.session_cache.discard_if(
+                lambda e: e.prefix_len > 0 or e.prefix_entry is not None)
+        self._prefixes.clear()
+        self.allocator.reset()
+        self.free_slots = list(range(self.engine.engine_cfg.max_seqs))
+        self._temperature[:] = 0.0
+        self._top_p[:] = 1.0
+        self._top_k[:] = 0
+
+    def _revive_rebuild(self) -> bool:
+        """The device-only half (touches the engine, not the scheduler, so
+        it runs in a thread)."""
+        try:
+            inject("engine.rebuild")
+            with Timer(self.metrics, "finchat_engine_rebuild_seconds"):
+                self.engine.rebuild_device_state()
+        except Exception as e:
+            logger.error("revive: engine rebuild failed: %s", e)
+            return False
+        return True
+
+    def _revive_commit(self) -> None:
+        self.gave_up = False
+        self._rebuilds_without_success = 0
+        for bucket in self._fail_streaks:
+            self._fail_streaks[bucket] = 0
+        self._breaker_bucket = None
+        self._breaker_tripped_at = None
+        self.metrics.set_gauge("finchat_breaker_state", 0)
+        self.metrics.inc("finchat_engine_rebuilds_total")
+        for cb in list(self.on_rebuild):
+            try:
+                cb()
+            except Exception as e:
+                logger.error("on_rebuild callback failed: %s", e)
+        self._wakeup.set()
+
+    async def _round_failed(self, scope: str, error: str) -> None:
+        """A whole-round dispatch failure, not attributable to one sequence.
+        Breaker off (``breaker_threshold`` 0): the round's population is
+        evicted with an error. Breaker on: the plane's failure streak
+        ("prefill", or "decode" for decode and mixed rounds) advances; below
+        the threshold the round's sequences are preempted and replay, at the
+        threshold the breaker trips (``_trip_breaker``). A failed dispatch
+        is never consumed again: a partly consumed step cannot be told from
+        an unconsumed one, and the replay recomputes what was not
+        delivered."""
+        self.metrics.inc("finchat_dispatch_failures_total")
+        if self.breaker_threshold <= 0:
+            if scope in ("prefill", "mixed"):
+                self._fail_prefill_round(error)
+            if scope in ("decode", "mixed"):
+                for handle in list(self.decoding.values()):
+                    self._evict(handle, "error", error=error)
+            return
+        bucket = "prefill" if scope == "prefill" else "decode"
+        self._fail_streaks[bucket] += 1
+        if self._fail_streaks[bucket] >= self.breaker_threshold:
+            await self._trip_breaker(bucket, error)
+            return
+        if scope in ("prefill", "mixed"):
+            for handle in list(self.prefilling):
+                self._preempt(handle)
+            for job in list(self._prefix_jobs):
+                try:  # registration is best-effort
+                    self._fail_prefix_job(job)
+                except Exception as e:
+                    logger.error("failing prefix job during %s failure: %s", scope, e)
+        if scope in ("decode", "mixed"):
+            for handle in list(self.decoding.values()):
+                self._preempt(handle)
+
+    def _note_round_ok(self, bucket: str) -> None:
+        """A round of ``bucket`` completed: its failure streak resets, and
+        if this plane tripped the breaker, the half-open breaker closes (the
+        recovery time observed from the trip) and the consecutive-rebuild
+        count clears."""
+        self._fail_streaks[bucket] = 0
+        if self._breaker_bucket in (None, bucket):
+            self._rebuilds_without_success = 0
+            self._breaker_bucket = None
+            if self._breaker_tripped_at is not None:
+                self.metrics.observe("finchat_breaker_recovery_seconds",
+                                     time.perf_counter() - self._breaker_tripped_at)
+                self._breaker_tripped_at = None
+                self.metrics.set_gauge("finchat_breaker_state", 0)
+
+    async def _trip_breaker(self, bucket: str, error: str) -> None:
+        """Preempt every live sequence to the host, drop every cache entry
+        that refers to device pages (shared heads, session entries riding
+        one), reset the allocator and slots, and rebuild the engine's device
+        state with the weights kept. The next iteration is the half-open
+        probe: admission replays the preempted streams, and the first
+        successful round of the plane closes the breaker.
+        ``breaker_max_rebuilds`` trips without a successful round in between
+        give up instead: the live streams fail with the error, and the
+        scheduler keeps serving new admissions.
+
+        The rebuild runs in a worker thread, so the event loop keeps
+        serving; all host bookkeeping is done before the await, and
+        ``_rebuilding`` gates register_prefix_async meanwhile."""
+        self._breaker_bucket = bucket
+        self._rebuilds_without_success += 1
+        if self._rebuilds_without_success > self.breaker_max_rebuilds:
+            logger.error("breaker: %d consecutive rebuilds without a successful round; "
+                         "failing in-flight streams (%s)",
+                         self._rebuilds_without_success - 1, error)
+            for handle in list(self.decoding.values()) + list(self.prefilling):
+                try:
+                    self._evict(handle, "error", error=error)
+                except Exception as e:
+                    logger.error("evicting %s after breaker give-up: %s", handle.seq_id, e)
+            for job in list(self._prefix_jobs):
+                try:  # the slot and pages come back even on a give-up
+                    self._fail_prefix_job(job)
+                except Exception as e:
+                    logger.error("failing prefix job at breaker give-up: %s", e)
+            for b in self._fail_streaks:
+                self._fail_streaks[b] = 0
+            # degraded but serving: the gauge closes and the trip time goes,
+            # so a later recovery does not count the idle period; the rebuild
+            # count stays, so another trip without a success gives up at once
+            self._breaker_tripped_at = None
+            self.metrics.set_gauge("finchat_breaker_state", 0)
+            self.gave_up = True
+            for cb in list(self.on_give_up):
+                try:
+                    cb()
+                except Exception as e:
+                    logger.error("on_give_up callback failed: %s", e)
+            return
+        logger.error("breaker tripped (%s): preempting %d live sequences and rebuilding the "
+                     "engine's device state", error, len(self.decoding) + len(self.prefilling))
+        if self._breaker_tripped_at is None:
+            self._breaker_tripped_at = time.perf_counter()
+        self.metrics.set_gauge("finchat_breaker_state", 1)
+        for handle in list(self.decoding.values()):
+            self._preempt(handle, for_rebuild=True)
+        for handle in list(self.prefilling):
+            self._preempt(handle, for_rebuild=True)
+        self._reset_for_rebuild()
+        try:
+            self._rebuilding = True
+            try:
+                with Timer(self.metrics, "finchat_engine_rebuild_seconds"):
+                    await asyncio.to_thread(self.engine.rebuild_device_state)
+            finally:
+                self._rebuilding = False
+        except Exception as e:
+            # the rebuild failed (device gone?): fail the preempted streams
+            # and leave the breaker open; the next trip retries the rebuild
+            logger.error("engine rebuild failed: %s", e)
+            for handle in list(self.pending):
+                if handle.preempted:
+                    self.pending.remove(handle)
+                    handle.finished = True
+                    handle.events.put_nowait(
+                        {"type": "error", "message": f"engine rebuild failed: {e}"})
+            return
+        for b in self._fail_streaks:
+            self._fail_streaks[b] = 0
+        self.metrics.inc("finchat_engine_rebuilds_total")
+        self.metrics.set_gauge("finchat_breaker_state", 2)  # half-open
+        for cb in list(self.on_rebuild):
+            try:
+                cb()
+            except Exception as e:
+                logger.error("on_rebuild callback failed: %s", e)
 
     # --- session transfer -------------------------------------------------
     def export_session(self, conversation_id: str | None) -> dict | None:
@@ -740,7 +1231,7 @@ class ContinuousBatchingScheduler:
         nothing."""
         eng = self.engine
         C = eng.engine_cfg.prefill_chunk
-        batch = list(self.prefilling)
+        batch = self._prefill_batch()
         jobs = list(self._prefix_jobs)
         if not batch and not jobs:
             return
@@ -751,11 +1242,13 @@ class ContinuousBatchingScheduler:
         with Timer(self.metrics, "finchat_prefill_seconds"):
             logits = eng.prefill_chunk(tokens, slots, starts, n_valids)
         self._tally_dispatch()
-        completions: list[tuple[SequenceHandle, object]] = []
+        # (handle, logits row, epoch): the epoch tells a preempted and
+        # replayed incarnation from the one this round prefilled
+        completions: list[tuple[SequenceHandle, object, int]] = []
         for i, handle in enumerate(batch):
             handle.prefill_pos += int(n_valids[i])
             if handle.prefill_pos >= len(handle.prompt_ids):
-                completions.append((handle, logits[i]))
+                completions.append((handle, logits[i], handle.epoch))
         for i, job in enumerate(jobs, start=len(batch)):
             job.pos += int(n_valids[i])
             if job.pos >= job.shared_len:
@@ -763,19 +1256,34 @@ class ContinuousBatchingScheduler:
         if not completions:
             return  # dispatch-only round, no host sync needed
         tokens_dev = []
-        for h, row_logits in completions:
+        for h, row_logits, _epoch in completions:
             s = h.sampling
             tokens_dev.append(eng.commit_first_token(h.slot, row_logits, s.temperature,
                                                      s.top_p, s.top_k))
         # one host fetch for all completions (worker thread keeps the loop live)
         fetched = await asyncio.to_thread(
             lambda: [int(eng.to_host(t)) for t in tokens_dev])
-        for (handle, _lg), token_id in zip(completions, fetched):
-            if handle.finished:
-                continue  # cancelled while fetching
+        for (handle, _lg, epoch), token_id in zip(completions, fetched):
+            if handle.finished or handle.epoch != epoch:
+                continue  # cancelled or preempted while fetching
             self.prefilling.remove(handle)
             self.decoding[handle.slot] = handle
             self._deliver(handle, token_id)
+
+    def _prefill_batch(self) -> list[SequenceHandle]:
+        """The prefilling sequences that go into this round: each passes its
+        ``scheduler.prefill`` fault site, and one that fails there is
+        evicted with an error on its own while the others go on."""
+        batch = []
+        for handle in list(self.prefilling):
+            try:
+                inject("scheduler.prefill", seq_id=handle.seq_id)
+            except Exception as e:  # per-sequence isolation
+                logger.error("prefill error for %s: %s", handle.seq_id, e)
+                self._evict(handle, "error", error=str(e))
+                continue
+            batch.append(handle)
+        return batch
 
     @staticmethod
     def _pack_prefill_rows(rows, N: int, C: int):
@@ -819,9 +1327,15 @@ class ContinuousBatchingScheduler:
         eng = self.engine
         C = eng.engine_cfg.prefill_chunk
         R = B = eng.engine_cfg.max_seqs
-        batch = list(self.prefilling)
+        batch = self._prefill_batch()
         jobs = list(self._prefix_jobs)
-        decode_members = list(self.decoding.items())
+        decode_members = [(slot, h, h.epoch) for slot, h in self.decoding.items()]
+        if (not batch and not jobs) or not decode_members:
+            return  # a fault above drained one side; the split path goes on
+        inject("scheduler.decode")
+        # the ragged round's own site: fails this dispatch alone while the
+        # split path stays healthy
+        inject("scheduler.mixed")
         row_slot = np.zeros((R,), np.int32)
         row_start = np.zeros((R,), np.int32)
         row_len = np.zeros((R,), np.int32)
@@ -832,10 +1346,10 @@ class ContinuousBatchingScheduler:
         top_k = np.zeros((R,), np.int32)
         packed: list[int] = []
         tok_row: list[int] = []
-        completions: list[tuple[int, SequenceHandle]] = []
+        completions: list[tuple[int, SequenceHandle, int]] = []  # (row, handle, epoch)
         prefill_rows: list[tuple[int, SequenceHandle]] = []
         job_rows: list[tuple[int, _PrefixJob]] = []
-        decode_rows: list[tuple[int, int, SequenceHandle]] = []
+        decode_rows: list[tuple[int, int, SequenceHandle, int]] = []
         i = 0
         for h in batch:
             chunk = h.prompt_ids[h.prefill_pos : h.prefill_pos + C]
@@ -848,7 +1362,7 @@ class ContinuousBatchingScheduler:
                 # prompt completes this chunk: arm the row so its first
                 # token samples on the device with the sequence's params
                 row_arm[i] = True
-                completions.append((i, h))
+                completions.append((i, h, h.epoch))
                 s = h.sampling
                 temp[i], top_p[i], top_k[i] = s.temperature, s.top_p, s.top_k
             prefill_rows.append((i, h))
@@ -862,7 +1376,7 @@ class ContinuousBatchingScheduler:
             tok_row += [i] * len(chunk)
             job_rows.append((i, job))
             i += 1
-        for slot, h in decode_members:
+        for slot, h, epoch in decode_members:
             row_slot[i] = slot
             row_from_device[i] = True
             row_arm[i] = True
@@ -871,7 +1385,7 @@ class ContinuousBatchingScheduler:
             tok_row.append(i)
             s = h.sampling
             temp[i], top_p[i], top_k[i] = s.temperature, s.top_p, s.top_k
-            decode_rows.append((i, slot, h))
+            decode_rows.append((i, slot, h, epoch))
             i += 1
         assert i <= B
         T = eng.ragged_bucket(len(packed))
@@ -891,14 +1405,14 @@ class ContinuousBatchingScheduler:
             if job.pos >= job.shared_len:
                 self._complete_prefix_job(job, "ragged")
         emitted = await asyncio.to_thread(eng.to_host, emitted_dev)
-        for idx, handle in completions:
-            if handle.finished:
-                continue
+        for idx, handle, epoch in completions:
+            if handle.finished or handle.epoch != epoch:
+                continue  # cancelled or preempted while fetching
             self.prefilling.remove(handle)
             self.decoding[handle.slot] = handle
             self._deliver(handle, int(emitted[idx, 0]))
-        for idx, slot, handle in decode_rows:
-            if handle.finished or handle.slot != slot:
+        for idx, slot, handle, epoch in decode_rows:
+            if handle.finished or handle.slot != slot or handle.epoch != epoch:
                 continue
             self._deliver(handle, int(emitted[idx, 0]))
         self.metrics.set_gauge("finchat_batch_occupancy", len(self.decoding))
@@ -925,13 +1439,14 @@ class ContinuousBatchingScheduler:
 
     def _dispatch_decode(self) -> _InFlightStep:
         """Enqueue one decode step on the device; returns without syncing."""
+        inject("scheduler.decode")
         eng = self.engine
         B = eng.engine_cfg.max_seqs
         active = np.zeros((B,), bool)
         members = []
         for slot, handle in self.decoding.items():
             active[slot] = True
-            members.append((slot, handle))
+            members.append((slot, handle, handle.epoch))
         next_tokens = eng.decode(active, self._temperature, self._top_p, self._top_k)
         self._tally_dispatch()
         return _InFlightStep(tokens=next_tokens, members=members)
@@ -940,27 +1455,21 @@ class ContinuousBatchingScheduler:
         """Fetch a dispatched step's tokens (in a worker thread) and deliver
         them to the sequences that were in the batch when it was dispatched."""
         tokens_host = await asyncio.to_thread(self.engine.to_host, step.tokens)
-        for slot, handle in step.members:
-            if handle.finished or handle.slot != slot:
-                continue  # evicted/cancelled since dispatch
+        for slot, handle, epoch in step.members:
+            if handle.finished or handle.slot != slot or handle.epoch != epoch:
+                continue  # evicted, cancelled or preempted since dispatch
             self._deliver(handle, int(tokens_host[slot]))
         self.metrics.set_gauge("finchat_batch_occupancy", len(self.decoding))
 
-    async def _round_failed(self, scope: str, error: str) -> None:
-        """A whole-round dispatch failure is not attributable to one
-        sequence: the round's population is evicted with an error."""
-        self.metrics.inc("finchat_dispatch_failures_total")
-        if scope in ("prefill", "mixed"):
-            self._fail_prefill_round(error)
-        if scope in ("decode", "mixed"):
-            for handle in list(self.decoding.values()):
-                self._evict(handle, "error", error=error)
-
     async def _drain_inflight(self, inflight: _InFlightStep) -> None:
-        """Consume an in-flight step outside the decode try-block, turning a
-        failure into the whole-round path. Returns None (the new inflight)."""
+        """Consume an in-flight step outside the decode try-block (idle
+        drain, before a ragged round, before a preemption), turning a
+        failure into the whole-round path. A failed consume is never
+        retried: the replay recomputes what was not delivered. Returns None
+        (the caller's new ``inflight``)."""
         try:
             await self._consume_step(inflight)
+            self._note_round_ok("decode")
         except Exception as e:
             logger.error("in-flight step consume error: %s", e)
             await self._round_failed("decode", str(e))
@@ -988,8 +1497,25 @@ class ContinuousBatchingScheduler:
                 continue
 
             try:
+                # page pressure: planned before any dispatch, carried out
+                # only once the step in flight is drained, so no freed page
+                # is still the target of a queued write
+                victims = self._preemption_plan()
+                if victims:
+                    if inflight is not None:
+                        inflight = await self._drain_inflight(inflight)
+                        # consuming may have retired slots or freed pages (or
+                        # on a failure preempted the victims already): plan again
+                        victims = self._preemption_plan()
+                    cand = self.pending[0].seq_id if self.pending else "?"
+                    for victim in victims:
+                        logger.info("page pressure: preempting %s (deadline %.3f) for %s",
+                                    victim.seq_id, victim.deadline or float("inf"), cand)
+                        self._preempt(victim)
                 self._admit()
             except Exception as e:
+                # admission never kills the loop (e.g. a device state lost
+                # to a failed rebuild): log, back off, serve what still runs
                 logger.error("admission error: %s", e)
                 await asyncio.sleep(0.05)
 
@@ -1007,7 +1533,11 @@ class ContinuousBatchingScheduler:
                 if self._use_mixed():  # consuming may have evicted slots
                     try:
                         await self._ragged_round()
+                        self._note_round_ok("decode")
+                        self._note_round_ok("prefill")
                     except Exception as e:
+                        # the round's prefill rows and decode members rode
+                        # one dispatch: they recover together
                         logger.error("mixed step error: %s", e)
                         await self._round_failed("mixed", str(e))
                     await asyncio.sleep(0)
@@ -1016,19 +1546,31 @@ class ContinuousBatchingScheduler:
             if self._prefill_work():
                 try:
                     await self._prefill_round()
+                    self._note_round_ok("prefill")
                 except Exception as e:
                     logger.error("prefill round error: %s", e)
                     await self._round_failed("prefill", str(e))
 
             if self.decoding:
                 try:
+                    # a decode round counts as OK only when a consume
+                    # succeeded: a dispatch-only iteration (nothing in flight
+                    # after a failure) must not reset the streak, or a device
+                    # whose errors surface at the fetch would swing the
+                    # streak 0-1-0 and never trip the breaker
+                    consumed = False
                     # depth-2 pipeline: dispatch N+1, then consume N — the
                     # device computes while the host delivers tokens
                     step = self._dispatch_decode()
                     if inflight is not None:
                         await self._consume_step(inflight)
+                        consumed = True
                     inflight = step
+                    if consumed:
+                        self._note_round_ok("decode")
                 except Exception as e:
+                    # a whole-batch failure: every in-flight decode recovers
+                    # together, and the dropped step is never consumed again
                     logger.error("decode step error: %s", e)
                     inflight = None
                     await self._round_failed("decode", str(e))
@@ -1036,6 +1578,7 @@ class ContinuousBatchingScheduler:
                 inflight = await self._drain_inflight(inflight)
 
             await asyncio.sleep(0)  # let producers/consumers run
-        if inflight is not None:
-            await self._drain_inflight(inflight)
+        # a step still in flight is dropped, as in the reference: its
+        # members are either finished or about to be failed by
+        # shutdown_drain, whose offload covers what was delivered
         logger.info("scheduler loop stopped")

@@ -38,12 +38,16 @@ freshly allocated to the admitted sequence. The only device pages an entry
 points at are a shared head's, owned by their ``__prefix_*__`` owner and
 protected by the entry's reference.
 
+The disk tier's fault sites are the reference's: ``disk.spill`` (a failed
+record write is logged and counted, and never fails the retiring stream)
+and ``disk.restore`` (a failed read quarantines the record and the
+conversation starts cold).
+
 Not carried: the JAX package's warm-state fabric arguments (a fleet's
-shared tier and its holder index) come with the fleet planes, its
-fault-injection sites with ``utils/faults.py``, and its bounded-KV resume
-(gapped entries) with the bounded-KV plane: a record's ``kv_gap``/``kv_sink``
-fields are written as 0, and the scheduler refuses a gapped record at
-import.
+shared tier and its holder index) come with the fleet planes, and its
+bounded-KV resume (gapped entries) with the bounded-KV plane: a record's
+``kv_gap``/``kv_sink`` fields are written as 0, and the scheduler refuses a
+gapped record at import.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from finchat_tpu_torch.utils.faults import inject
 from finchat_tpu_torch.utils.logging import get_logger
 from finchat_tpu_torch.utils.metrics import METRICS
 
@@ -366,6 +371,7 @@ class SessionDiskTier:
         final = self.path / fname
         tmp = self.path / (fname + ".tmp")
         try:
+            inject("disk.spill", key=key)
             blob = self._serialize(key, token_ids, prefix_len, snap)
             with open(tmp, "wb") as f:
                 f.write(blob)
@@ -447,6 +453,7 @@ class SessionDiskTier:
         if entry is None:
             return None
         try:
+            inject("disk.restore", key=key)
             raw = (self.path / entry[0]).read_bytes()
             header, _off = self._read_header(raw)
             if header.get("snap") and self._header_kv_mode(header) != self.kv_quant:

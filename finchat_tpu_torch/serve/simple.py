@@ -17,7 +17,9 @@ from finchat_tpu_torch.models.tokenizer import render_chat
 class LLMService:
     """``prompt | llm`` with streaming, nothing else. The generator is any
     object with ``stream(prompt, sampling, conversation_id=None)`` — the
-    engine-backed ``EngineGenerator`` in serving."""
+    engine-backed ``EngineGenerator`` in serving. A scheduler error reaches
+    the caller as the generator's ``GenerationError``, with its ``code`` and
+    ``retryable``."""
 
     def __init__(self, generator, system_prompt: str,
                  sampling: SamplingParams | None = None):
@@ -32,13 +34,17 @@ class LLMService:
         chat_history: Sequence[ChatMessage] = (),
         system_prompt: str | None = None,
         conversation_id: str | None = None,
+        deadline: float | None = None,
     ) -> AsyncIterator[str]:
         """Stream the response to one user message; ``conversation_id``
-        keys the session KV cache across the conversation's turns."""
+        keys the session KV cache across the conversation's turns, and
+        ``deadline`` (``time.perf_counter``'s clock) is the request's
+        completion deadline."""
         prompt = render_chat(
             system_prompt if system_prompt is not None else self.system_prompt,
             context, list(chat_history), message,
         )
         async for chunk in self.generator.stream(prompt, self.sampling,
-                                                 conversation_id=conversation_id):
+                                                 conversation_id=conversation_id,
+                                                 deadline=deadline):
             yield chunk

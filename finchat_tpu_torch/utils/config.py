@@ -2,14 +2,20 @@
 
 Field names and defaults are those of the JAX package's ``ModelConfig`` and
 ``EngineConfig`` so a config written for one package reads the same in the
-other. The serving planes this port does not carry yet (spec decode, decode
-loop, free-run, bounded KV, preemption, the breaker) keep their fields; the
-scheduler refuses a config that turns one of them on (engine/scheduler.py
-``check_supported``). The prefix and session KV caches are served at their
-defaults: the scheduler reads ``session_cache``, ``session_cache_bytes``,
-``session_cache_disk_path`` and ``session_cache_disk_bytes``, and a caller
-registers shared heads itself (``register_prefix``). ``kv_quant = "int8"``
-(int8 KV pages) and ``ModelConfig.quant`` (int8/int4 weights) are served.
+other. ``EngineConfig()`` as it stands is served. The serving planes this
+port does not carry yet (spec decode, decode loop, free-run, bounded KV)
+keep their fields; the scheduler refuses a config that turns one of them on
+(engine/scheduler.py ``check_supported``). The prefix and session KV caches
+are served at their defaults: the scheduler reads ``session_cache``,
+``session_cache_bytes``, ``session_cache_disk_path`` and
+``session_cache_disk_bytes``, and a caller registers shared heads itself
+(``register_prefix``). Recompute preemption and the circuit breaker are on
+by default, as in the reference: the scheduler reads ``preemption``,
+``breaker_threshold``, ``breaker_max_rebuilds``, ``edf_starvation_seconds``
+and ``max_queue_depth``. ``request_deadline_seconds`` and
+``warmup_on_start`` are read by the serving app, as in the reference (the
+engine's ``warmup`` is there to call). ``kv_quant = "int8"`` (int8 KV
+pages) and ``ModelConfig.quant`` (int8/int4 weights) are served.
 """
 
 from __future__ import annotations

@@ -34,6 +34,19 @@ disk tier: ``finchat_durability_spills_total`` /
 refused) and ``finchat_fleet_session_import_refused_total`` (imported
 entries refused: no live twin of their shared head, or a bounded-KV
 entry).
+
+Resilience (engine/scheduler.py, engine/engine.py), under the reference's
+names: ``finchat_preemptions_total`` (recompute preemptions: page
+pressure, breaker recovery), ``finchat_sheds_total`` (pending requests
+dropped past their deadline), ``finchat_overload_rejections_total``
+(submits refused at ``max_queue_depth``),
+``finchat_dispatch_failures_total`` (whole rounds that failed),
+``finchat_engine_rebuilds_total`` and the ``finchat_engine_rebuild_seconds``
+histogram (the breaker's and ``revive_async``'s device-state rebuilds),
+``finchat_breaker_state`` (gauge: 0 closed, 1 open, 2 half-open),
+``finchat_breaker_recovery_seconds`` (trip to the first successful round of
+the plane) and ``finchat_warmup_compiled_variants`` (gauge: the step
+variants the engine's last ``warmup`` ran).
 """
 
 from __future__ import annotations

@@ -178,7 +178,7 @@ def test_cuda_engine_refuses_to_fall_back(engines):
 
 @pytest.mark.parametrize("field,value", [
     ("spec_tokens", 2), ("decode_loop_depth", 4), ("freerun_rounds", 2), ("kv_sink_pages", 2),
-    ("kv_window_pages", 4), ("preemption", True), ("breaker_threshold", 3),
+    ("kv_window_pages", 4),
 ])
 def test_scheduler_refuses_planes_not_ported(engines, field, value):
     _je, te = engines()
@@ -188,6 +188,19 @@ def test_scheduler_refuses_planes_not_ported(engines, field, value):
     te.engine_cfg = cfg
     with pytest.raises(NotImplementedError):
         ContinuousBatchingScheduler(te, eos_id=258)
+
+
+def test_scheduler_serves_the_default_config(engines):
+    """``EngineConfig()`` as it stands — preemption and the breaker on, the
+    caches on — is a supported config, and a scheduler builds on it."""
+    cfg = EngineConfig()
+    assert cfg.preemption and cfg.breaker_threshold > 0
+    check_supported(cfg)
+    _je, te = engines()
+    te.engine_cfg = dataclasses.replace(EngineConfig(**ENGINE), preemption=True,
+                                        breaker_threshold=3)
+    sched = ContinuousBatchingScheduler(te, eos_id=258)
+    assert sched.preemption_enabled and sched.breaker_threshold == 3
 
 
 @pytest.mark.parametrize("name", ["EngineConfig", "ModelConfig"])
