@@ -154,13 +154,46 @@ Phases, in order; any failure exits non-zero and prints no result line:
    budget or EOS); then two more requests and ``shutdown_drain()`` once each
    has a token: each must end with the ``shutting_down`` error, its history
    on the session tier's disk, and no page left but the head's.
+   Tracing: turn 1 runs traced (every request with a ``trace_id``; tracing
+   is on by default): each request's timeline must hold its lifecycle
+   marks, and the dispatch events must name it in their rows exactly as
+   often as the engine's steps carried its slot (counted at the engine);
+   the window is written as a Chrome trace, and tracing's host µs a decode
+   dispatch is measured at 8 and 64 rows. The breaker drill writes the
+   flight recorder to a temporary directory: the trip's dump must load with
+   its checksum (``load_flight_dump``) and hold the trip and dispatches.
+   ``device_trace`` over two decode steps must write a profiler trace with
+   the engine's ``kv_append`` and ``paged_attention`` ranges, one a layer.
+   The agent's planes, after the later turns on the serve's engine with the
+   head registered on a scheduler of their own: grammar-constrained decode
+   with the tool grammar bound to the model's 128,256-wide vocab (its
+   ``GrammarVocab`` constructor over ``ByteTokenizer``'s texts, empty texts
+   past them), four constrained and four plain requests, greedy, 64 new
+   tokens at most, in waves that send a constrained row down every path
+   (the prefill round's pick, the ragged round's completions and decode
+   rows, a depth-2 step a pending slot sits out, the depth-1 step when
+   every decoding slot waits on a pick). Every constrained output must
+   leave the DFA live or accepting and parse; every plain stream passes the
+   teacher-forced check, every constrained one the same check under the
+   grammar mask each token was picked under; a slot that sat out a step
+   must keep its context length and last token, and for the first four
+   such steps every page of its context bit-identical; the serve's launch
+   rules hold. Then a decode step's time with one constrained row against
+   none, the fetch of one logits row and the host pick. On bf16, partial
+   holds: ``submit_partial`` of the rendered head plus context, parked,
+   grafted by ``extend_prompt`` after 0.2 s (the retrieval), teacher-forced,
+   ``finchat_partial_grafts_total`` up by one, TTFT from the graft printed
+   beside a plain submit's of the same prompt; a divergent graft must be
+   refused and its cancel leave no own page and the head's refcount as it
+   was.
 4. Serve the quantized plane the same way: int8 weights made by
    ``init_quantized_params`` (the bf16 tree never exists) and an int8 KV
    pool, warmed up, the same head, 8 requests in two waves and later turns.
    The teacher-forced check runs the plain forward on the dequantized
    weights with every K/V row quantized and dequantized as the cache stores
-   it; then the step profile and the breaker drill (the pool rebuilt with
-   its scale planes).
+   it; the traced window, the constrained decode (its head through K8's
+   decode body), then the step profile and the breaker drill (the pool
+   rebuilt with its scale planes) with its flight dump.
 5. Serve int4 weights (per group of 128) over the int8 KV pool, warmed
    up: the head registered, two requests, one after the other's first token, 16 new
    tokens each, with the same prefix-cache and teacher-forced checks — the
@@ -1326,6 +1359,123 @@ class _Counts:
         del self.engine.prefill_chunk, self.engine.ragged_mixed
 
 
+class _DispatchBook:
+    """Which requests the engine's steps carried, counted at the engine (not
+    from the trace): a prefill chunk carries the slots of its rows with
+    tokens, a ragged round the slots of its rows with tokens, a decode step
+    its active slots; each is booked to the request in that slot. Rows of a
+    prefix registration (no request) are not booked."""
+
+    NAMES = ("prefill_chunk", "ragged_mixed", "decode")
+
+    def __init__(self, engine, sched):
+        self.engine, self.counts = engine, {}
+        self.saved = {n: (n in vars(engine), getattr(engine, n)) for n in self.NAMES}
+
+        def book(slots):
+            live = {h.slot: h for h in list(sched.prefilling) + list(sched.decoding.values())}
+            for slot in slots:
+                if slot in live:
+                    self.counts[live[slot].seq_id] = self.counts.get(live[slot].seq_id, 0) + 1
+
+        prefill_chunk, ragged_mixed, decode = (self.saved[n][1] for n in self.NAMES)
+
+        def booked_prefill_chunk(tokens, slots, start_pos, n_valid):
+            book([int(s) for s, n in zip(slots, n_valid) if n > 0])
+            return prefill_chunk(tokens, slots, start_pos, n_valid)
+
+        def booked_ragged_mixed(tokens, tok_row, row_slot, row_start, row_len, *rest):
+            book([int(s) for s, n in zip(row_slot, row_len) if n > 0])
+            return ragged_mixed(tokens, tok_row, row_slot, row_start, row_len, *rest)
+
+        def booked_decode(active, *a, **k):
+            book([s for s, on in enumerate(active) if on])
+            return decode(active, *a, **k)
+
+        engine.prefill_chunk = booked_prefill_chunk
+        engine.ragged_mixed = booked_ragged_mixed
+        engine.decode = booked_decode
+
+    def close(self) -> None:
+        for name, (had, fn) in self.saved.items():
+            if had:
+                setattr(self.engine, name, fn)
+            else:
+                delattr(self.engine, name)
+
+
+def trace_cost_us(sched, rows: int, n: int = 20000, block: int = 2000) -> tuple[float, float]:
+    """Host µs a dispatch pays for tracing: the decode dispatch's row list
+    for ``rows`` members built and recorded through the scheduler's own
+    ``_trace_dispatch``, as ``_dispatch_decode`` does under
+    ``TRACER.enabled``. The ring's events are objects the garbage collector
+    walks, so the cost grows with what the ring holds: the mean of the first
+    ``block`` calls (the ring nearly empty) and of the last (``n`` events
+    in it)."""
+    from types import SimpleNamespace
+
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    members = [(s, SimpleNamespace(trace_id=f"trace-{s}", seq_id=f"seq-{s}"), 0)
+               for s in range(rows)]
+    TRACER.clear()
+    means = []
+    for _ in range(n // block):
+        t0 = time.perf_counter()
+        for _ in range(block):
+            if TRACER.enabled:
+                sched._trace_dispatch("decode", [[slot, h.trace_id or h.seq_id, "decode"]
+                                                 for slot, h, _e in members])
+        means.append((time.perf_counter() - t0) / block * 1e6)
+    TRACER.clear()
+    return means[0], means[-1]
+
+
+def check_traced_window(plane: str, handles, book: _DispatchBook, sched) -> dict:
+    """Turn 1 ran traced: every request's timeline (``TRACER.export``) holds
+    its lifecycle marks and the request span, and the dispatch events whose
+    rows name its trace id are exactly as many as the steps that carried it
+    (``_DispatchBook``). The window is written as one Chrome trace (the
+    requests' exports merged) to a temporary file, and tracing's host cost a
+    dispatch is measured (``trace_cost_us``)."""
+    import tempfile
+
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    events = TRACER.snapshot()
+    merged, per = {}, {}
+    for h in handles:
+        tid = h.trace_id
+        rows = sum(1 for ev in events if ev[2] == "dispatch"
+                   and any(r[1] == tid for r in ev[5]["rows"]))
+        export = TRACER.export(tid)
+        names = {e["name"] for e in export["traceEvents"]}
+        per[h.seq_id] = dict(dispatch_rows=rows, booked=book.counts.get(h.seq_id, 0),
+                             events=len(export["traceEvents"]))
+        if not {"admitted", "prefill_done", "first_token", "done", "request"} <= names:
+            fail(f"traced serve ({plane}): {tid}'s timeline lacks marks: {sorted(names)}")
+        if rows != per[h.seq_id]["booked"] or rows == 0:
+            fail(f"traced serve ({plane}): {tid} is in the rows of {rows} dispatches, the "
+                 f"steps carried it {per[h.seq_id]['booked']} times")
+        for e in export["traceEvents"]:
+            merged[(e["ts"], e["name"], e["tid"])] = e
+    path = Path(tempfile.mkdtemp(prefix="finchat-trace-")) / f"serve-{plane}.json"
+    path.write_text(json.dumps({"traceEvents": sorted(merged.values(), key=lambda e: e["ts"]),
+                                "displayTimeUnit": "ms"}))
+    n_dispatch = sum(1 for ev in events if ev[2] == "dispatch")
+    cost = {rows: trace_cost_us(sched, rows) for rows in (8, 64)}
+    log(f"  traced serve ({plane}): {len(events)} events, {n_dispatch} dispatches; each "
+        f"request in as many dispatch rows as steps carried it "
+        f"({[v['dispatch_rows'] for v in per.values()]}); the window as a Chrome trace, "
+        f"{path.stat().st_size} bytes; tracing's host cost a decode dispatch: "
+        + "; ".join(f"{rows} rows {a:.2f} µs (the ring nearly empty), {b:.2f} µs (20,000 "
+                    "events in it)" for rows, (a, b) in cost.items()))
+    path.unlink()
+    path.parent.rmdir()
+    return dict(events=len(events), dispatches=n_dispatch, requests=per,
+                host_us_per_dispatch={str(k): list(v) for k, v in cost.items()})
+
+
 def _metric_delta(metrics, before: dict, name: str) -> float:
     return metrics.snapshot().get(name, 0.0) - before.get(name, 0.0)
 
@@ -1438,7 +1588,7 @@ def run_warmup(torch, plane: str, engine, weight_gb: float) -> dict:
 
 
 async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: bool,
-                later_turns: bool, drills: tuple = ()) -> dict:
+                later_turns: bool, drills: tuple = (), agent: tuple = ()) -> dict:
     """Serve ``n_requests`` greedy requests through ``LLMService`` on one
     serving plane (``PLANES``) at ``EngineConfig``'s defaults, the prefix
     and session caches, preemption and the breaker on: the engine warmed up
@@ -1449,7 +1599,12 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
     turn 2 of four conversations on the same scheduler and turn 3 of two on
     a fresh one, each a window of its own. ``drills`` names the resilience
     drills to run on the same weights afterwards: "breaker" on this engine,
-    "preemption" (with the shutdown drain) on a second, smaller one."""
+    "preemption" (with the shutdown drain) on a second, smaller one.
+    Turn 1 is traced: every request carries a ``trace_id``, and the rows
+    of the dispatch events must name each request exactly as often as the
+    engine's steps carried its slot (``_DispatchBook``). ``agent`` names
+    the agent planes to run on this engine after the later turns:
+    "constrained", and "partial" with it (``agent_planes``)."""
     import shutil
     import tempfile
 
@@ -1464,6 +1619,7 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
     from finchat_tpu_torch.serve.simple import LLMService
     from finchat_tpu_torch.utils.config import EngineConfig
     from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER
 
     spec = PLANES[plane]
     config = PRESETS["llama3-8b"]
@@ -1496,6 +1652,7 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         counts = _Counts(engine)
         tok = ByteTokenizer()
         sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+        book = _DispatchBook(engine, sched)
         handles = []
         submit = sched.submit
 
@@ -1526,10 +1683,12 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         async def one(i: int) -> str:
             text = []
             async for chunk in svc.process_message(MESSAGES[i], context=CONTEXTS[i],
-                                                   conversation_id=f"conv-{i}"):
+                                                   conversation_id=f"conv-{i}",
+                                                   trace_id=f"trace-{plane}-{i}"):
                 text.append(chunk)
             return "".join(text)
 
+        TRACER.clear()
         t_start = time.perf_counter()
         first = n_requests // 2
         wave1 = [asyncio.create_task(one(i)) for i in range(first)]
@@ -1542,6 +1701,8 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         await sched.stop()
         sched.submit = submit  # break the wrapper's cycle so the tree can go
         launches = dict(LAUNCHES)
+        book.close()
+        tracing = check_traced_window(plane, handles, book, sched)
         prompt_lens = [len(h.prompt_ids) for h in handles]
         log(f"  served {len(handles)} requests in {wall:.2f} s; prompt tokens {prompt_lens}")
         log(f"  launches during serve: {launches}")
@@ -1627,6 +1788,9 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         if sched.session_cache.disk is not None:
             sched.session_cache.disk.close()
         counts.close()
+        agent_stats = (await agent_planes(torch, plane, spec, config, engine, params, head_ids,
+                                          system_prompt, shared, partial="partial" in agent)
+                       if "constrained" in agent else None)
         steps = (profile_steps(torch, engine, context=max(prompt_lens), active=len(handles))
                  if profile else None)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1650,7 +1814,8 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
                 decode_tokens_per_s_per_stream=per_stream, wall_s=wall,
                 prompt_tokens=prompt_lens, launches=launches, ragged_rounds=mixed,
                 weight_gb=weight_gb, peak_gb=peak_gb, teacher_forced=checks, steps=steps,
-                shared_tokens=shared, turn1=turn1, warmup=warm, drills=drill, **turns)
+                shared_tokens=shared, turn1=turn1, warmup=warm, drills=drill, tracing=tracing,
+                agent=agent_stats, **turns)
 
 
 async def later_turn(torch, plane, spec, config, engine, sched, counts, prev, turn: int,
@@ -1757,7 +1922,13 @@ async def breaker_drill(torch, plane: str, spec: dict, config, engine, params, h
     one and the breaker close. Launch counts are set to 0 in the callback:
     every kernel of the plane must launch after the trip, and no older body.
     Peak memory across the rebuild must stay under the held memory plus one
-    pool. A request after the drill must hit the re-registered head."""
+    pool. A request after the drill must hit the re-registered head. The
+    flight recorder writes to a temporary directory during the drill: the
+    trip's dump must load through ``load_flight_dump`` (its checksum
+    verified) and hold the trip and the tripped rounds' dispatches."""
+    import shutil
+    import tempfile
+
     from finchat_tpu_torch.engine.generator import EngineGenerator
     from finchat_tpu_torch.engine.sampler import SamplingParams
     from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
@@ -1766,8 +1937,10 @@ async def breaker_drill(torch, plane: str, spec: dict, config, engine, params, h
     from finchat_tpu_torch.serve.simple import LLMService
     from finchat_tpu_torch.utils import faults
     from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER, load_flight_dump
 
     log(f"  breaker drill ({plane}): 4 requests over the head, {DRILL_NEW} new tokens each")
+    flight_dir = tempfile.mkdtemp(prefix="finchat-flight-")
     tok = ByteTokenizer()
     sched = ContinuousBatchingScheduler(engine, tok.eos_id)
     if sched.breaker_threshold < 1 or not sched.preemption_enabled:
@@ -1817,6 +1990,7 @@ async def breaker_drill(torch, plane: str, spec: dict, config, engine, params, h
     pool = pool_bytes(engine)
     torch.cuda.reset_peak_memory_stats()
     m0 = METRICS.snapshot()
+    TRACER.configure(flight_dir=flight_dir)
     await sched.start()
     try:
         tasks = [asyncio.create_task(one(i)) for i in range(4)]
@@ -1842,9 +2016,25 @@ async def breaker_drill(torch, plane: str, spec: dict, config, engine, params, h
     finally:
         faults.disarm_all()
         await sched.stop()
+        TRACER.configure(flight_dir="")
+        TRACER.flush_dumps()  # the dump threads have written before the files are read
     sched.submit = submit
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
+    dumps = sorted(Path(flight_dir).glob("flight-*-breaker_trip.json"))
+    if len(dumps) != 1:
+        fail(f"breaker drill ({plane}): {len(dumps)} breaker_trip flight dumps")
+    record = load_flight_dump(str(dumps[0]))
+    box = record["trace"]["traceEvents"]
+    box_dispatches = sum(1 for e in box if e["name"] == "dispatch")
+    dump_bytes = dumps[0].stat().st_size
+    log(f"  breaker drill ({plane}): the flight dump {dumps[0].name} ({dump_bytes} "
+        f"bytes) loads with its checksum: {len(box)} events, {box_dispatches} dispatches, "
+        f"anomaly args {record['anomaly_args']}")
+    if record["reason"] != "breaker_trip" or not box_dispatches or not any(
+            e["name"] == "breaker_trip" for e in box):
+        fail(f"breaker drill ({plane}): the flight dump lacks the trip or its dispatches")
+    shutil.rmtree(flight_dir, ignore_errors=True)
     rebuilds = _metric_delta(METRICS, m0, "finchat_engine_rebuilds_total")
     failures = _metric_delta(METRICS, m0, "finchat_dispatch_failures_total")
     preemptions = _metric_delta(METRICS, m0, "finchat_preemptions_total")
@@ -1884,6 +2074,8 @@ async def breaker_drill(torch, plane: str, spec: dict, config, engine, params, h
     sched.retire_prefixes()
     return dict(failed_rounds=failures, preemptions=preemptions, rebuilds=rebuilds,
                 rebuild_s=rebuild_s, recovery_s=recovery_s, replay_ttft_s=replay_ttft,
+                flight_dump=dict(events=len(box), dispatches=box_dispatches,
+                                 bytes=dump_bytes),
                 peak_above_held_gb=(peak - held) / 1e9, pool_gb=pool / 1e9,
                 launches_after_trip={k: v for k, v in launches.items() if v},
                 teacher_forced=checks)
@@ -1989,6 +2181,424 @@ async def preemption_drill(torch, dev, plane: str, spec: dict, config, params, h
                 drained_tokens=[h.generated for h in drain], pages_left=used)
 
 
+# the agent's planes (grammar-constrained decode, partial holds): new tokens
+# a stream, and the delay that stands in for a retrieval before the graft
+AGENT_NEW = 64
+RETRIEVAL_S = 0.2
+# sat-out decode steps whose slots' pages are copied and compared whole (on
+# every other one the slot's context length and last token are compared)
+SAT_OUT_PAGE_CHECKS = 4
+
+
+def _sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def grammar_vocab(config, tok):
+    """The tool grammar bound to the model's vocab through the reference's
+    own constructor: ``ByteTokenizer``'s token texts, and an empty text (never
+    allowed) for every id past them, so the masks are as wide as the head's
+    logits rows."""
+    from finchat_tpu_torch.agent.constrained import GrammarVocab, build_tool_grammar, token_texts
+
+    texts = token_texts(tok)
+    return GrammarVocab(build_tool_grammar(), texts + [""] * (config.vocab_size - len(texts)),
+                        tok.eos_id)
+
+
+def _page_tensors(engine) -> list:
+    s = engine.state
+    return [t for t in (s.k_pages, s.v_pages, s.k_scales, s.v_scales) if t is not None]
+
+
+class _AgentProbe:
+    """Instruments one scheduler for the constrained phase: which path each
+    host pick took (the prefill round, the ragged round, a decode step's
+    consume), the depth-2 dispatches a pending slot sat out and the depth-1
+    dispatches (the loop's call of ``_dispatch_decode`` without
+    ``exclude``), and around every decode step a slot sat out: its context
+    length and last token unchanged, and for the first
+    ``SAT_OUT_PAGE_CHECKS`` such steps every page of its context (K, V and
+    scale planes) bit-identical across the step."""
+
+    def __init__(self, torch, sched, engine):
+        self.torch, self.sched, self.engine = torch, sched, engine
+        self.where = [None]
+        self.picks = {"prefill": 0, "ragged": 0, "decode": 0}
+        self.sat_out_dispatches = self.depth1_dispatches = 0
+        self.page_checks = self.scalar_checks = 0
+        self.failures: list[str] = []
+
+        def on(where, fn):
+            async def wrapped(*a, **k):
+                self.where[0] = where
+                try:
+                    return await fn(*a, **k)
+                finally:
+                    self.where[0] = None
+            return wrapped
+
+        sched._prefill_round = on("prefill", sched._prefill_round)
+        sched._ragged_round = on("ragged", sched._ragged_round)
+        sched._consume_step = on("decode", sched._consume_step)
+        pick, dispatch, decode = sched._constrained_pick, sched._dispatch_decode, engine.decode
+
+        def counting_pick(handle, row):
+            self.picks[self.where[0]] += 1
+            return pick(handle, row)
+
+        def counting_dispatch(*a, **k):
+            if not a and not k:
+                self.depth1_dispatches += 1  # every decoding slot waited on a pick
+            elif (a[0] if a else k["exclude"]):
+                self.sat_out_dispatches += 1
+            return dispatch(*a, **k)
+
+        def checking_decode(active, *a, **k):
+            out = [slot for slot in sched.decoding if not active[slot]]
+            before = {}
+            if out:
+                _sync(torch)
+                full = self.page_checks < SAT_OUT_PAGE_CHECKS
+                for slot in out:
+                    st = engine.state
+                    ctx = int(st.context_lens[slot])
+                    pages = sched.decoding[slot].page_list[: ctx // engine.page_size + 1]
+                    idx = torch.tensor(pages, dtype=torch.long, device=st.k_pages.device)
+                    before[slot] = (ctx, int(st.last_tokens[slot]), idx,
+                                    [t[:, idx].clone() for t in _page_tensors(engine)]
+                                    if full else None)
+            result = decode(active, *a, **k)
+            if out:
+                _sync(torch)
+                st = engine.state
+                for slot, (ctx, last, idx, pages) in before.items():
+                    if (int(st.context_lens[slot]), int(st.last_tokens[slot])) != (ctx, last):
+                        self.failures.append(f"slot {slot} sat out a step and its context "
+                                             f"length or last token moved")
+                    if pages is not None and not all(
+                            torch.equal(a_, t[:, idx]) for a_, t in zip(pages, _page_tensors(
+                                engine))):
+                        self.failures.append(f"slot {slot} sat out a step and a page of its "
+                                             "context changed")
+                    self.scalar_checks += 1
+                if before[out[0]][3] is not None:
+                    self.page_checks += 1
+            return result
+
+        sched._constrained_pick = counting_pick
+        sched._dispatch_decode = counting_dispatch
+        engine.decode = checking_decode
+
+    def close(self) -> None:
+        for name in ("_prefill_round", "_ragged_round", "_consume_step", "_constrained_pick",
+                     "_dispatch_decode"):
+            delattr(self.sched, name)
+        del self.engine.decode
+
+
+async def _run_to_end(handle) -> None:
+    while True:
+        event = await handle.events.get()
+        if event["type"] == "done":
+            return
+        if event["type"] == "error":
+            fail(f"{handle.seq_id}: {event['message']}")
+
+
+def constrained_step_cost(torch, engine, vocab, context: int, active: int) -> dict:
+    """What a constrained row adds to a decode step, on the engine's own
+    state (random KV) at ``active`` slots of ``context`` tokens, host clock
+    around work that ends in a synchronize: the decode step alone and the
+    step with its logits and one row selected on the device and fetched, in
+    turns, medians of 20 each; the fetch of one [vocab] fp32 row alone
+    (median of 10); the host pick from it (the grammar's start state,
+    median of 20; the first pick, which builds the state's mask, apart)."""
+    import numpy as np
+
+    from finchat_tpu_torch.agent.constrained import TokenConstraint
+
+    B = engine.engine_cfg.max_seqs
+    per = -(-(context + 8) // engine.page_size)
+    engine.set_page_table_rows({s: list(range(1 + s * per, 1 + (s + 1) * per))
+                                for s in range(active)})
+    engine.set_context_lens_rows({s: context for s in range(active)})
+    act = [s < active for s in range(B)]
+    zeros, ones, izeros = [0.0] * B, [1.0] * B, [0] * B
+
+    def once_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        _sync(torch)
+        return (time.perf_counter() - t0) * 1e3
+
+    def median_ms(fn, n=10):
+        fn()
+        _sync(torch)
+        return statistics.median(once_ms(fn) for _ in range(n))
+
+    def plain():
+        engine.decode(act, zeros, ones, izeros)
+
+    rows = []
+
+    def constrained():
+        _tokens, logits = engine.decode(act, zeros, ones, izeros, return_logits=True)
+        rows.append(engine.to_host(engine.select_rows(logits, [0])))
+
+    # the host-bound step's time moves between steps: the two in turns
+    # (plain, constrained, constrained, plain), medians of 20 each
+    times: dict = {plain: [], constrained: []}
+    for fn in (plain, constrained):
+        fn()
+    _sync(torch)
+    for _ in range(10):
+        for fn in (plain, constrained, constrained, plain):
+            times[fn].append(once_ms(fn))
+    plain_ms = statistics.median(times[plain])
+    constrained_ms = statistics.median(times[constrained])
+    row_dev = torch.randn((1, len(vocab.token_strs)), device=engine.device)
+    fetch_ms = median_ms(lambda: engine.to_host(row_dev))
+    row = rows[-1][0].astype(np.float32)
+    rng = np.random.default_rng(0)
+    vocab._mask_cache.pop(vocab.dfa.start, None)
+    t0 = time.perf_counter()
+    TokenConstraint(vocab).pick(row, 0.0, rng, remaining=AGENT_NEW)
+    first_pick_ms = (time.perf_counter() - t0) * 1e3
+    pick_ms = median_ms(lambda: TokenConstraint(vocab).pick(row, 0.0, rng, remaining=AGENT_NEW),
+                        n=20)
+    engine.reset_slots(list(range(active)))
+    out = dict(active=active, context=context, decode_step_ms=plain_ms,
+               decode_step_one_constrained_row_ms=constrained_ms, fetch_one_row_ms=fetch_ms,
+               host_pick_ms=pick_ms, first_pick_ms=first_pick_ms)
+    log(f"  constrained step cost: a decode step ({active} slots at {context} tokens) "
+        f"{plain_ms:.3f} ms; with one constrained row (logits kept, the row selected on the "
+        f"card and fetched) {constrained_ms:.3f} ms; the fetch of one row alone "
+        f"{fetch_ms:.3f} ms; the host pick {pick_ms:.3f} ms (the first, building the state's "
+        f"mask, {first_pick_ms:.3f} ms)")
+    return out
+
+
+async def agent_planes(torch, plane: str, spec: dict, config, engine, params, head_ids,
+                       system_prompt: str, shared: int, partial: bool) -> dict:
+    """The planes the agent rides on, at full width on the serve's engine and
+    weights, on a scheduler of its own with the system head registered.
+
+    Constrained decode: the tool grammar bound to the model's 128,256-wide
+    vocab (``grammar_vocab``); four of the serve's requests run constrained
+    (greedy, ``AGENT_NEW`` tokens at most) beside four plain ones: two plain
+    and two constrained at once, two plain and one constrained once a first
+    token streams, the last constrained one alone after them. Every path a
+    constrained row takes must run (a pick in the prefill round, in the
+    ragged round, at a decode step's consume; a constrained decode row of a
+    ragged round; a depth-2 step a pending slot sat out; a depth-1 step),
+    every constrained output must leave the grammar's DFA live or accepting
+    and parse (``parse_tool_decision`` never raises), every plain stream pass
+    the teacher-forced check and every constrained one the masked one, every
+    page of a slot that sat out a step stay unchanged across it
+    (``_AgentProbe``), and the window keep the serve's launch rules (the
+    plane's Hopper bodies, no older one). Then ``constrained_step_cost``.
+
+    Partial holds (with ``partial``): for two of the serve's prompts, a
+    plain submit, then ``submit_partial`` of the rendered head plus context,
+    parked, grafted by ``extend_prompt`` after ``RETRIEVAL_S``: the grafted
+    stream must pass the teacher-forced check and ``finchat_partial_grafts_total``
+    rise by one a graft; TTFT from the graft is printed beside the plain
+    submit's. A divergent graft must return False, and its cancel give back
+    every own page with the head's refcount unchanged."""
+    from finchat_tpu_torch.agent.constrained import DEAD, TokenConstraint
+    from finchat_tpu_torch.agent.toolcall import parse_tool_decision
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    tok = ByteTokenizer()
+    t0 = time.perf_counter()
+    vocab = grammar_vocab(config, tok)
+    vocab_s = time.perf_counter() - t0
+    sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+    if sched.register_prefix(head_ids) != shared:
+        fail(f"agent planes ({plane}): the head did not register")
+    entry = sched._prefixes[0]
+    head_pages = len(entry.pages)
+    prompts = [tok.encode(render_chat(system_prompt, CONTEXTS[i], [], MESSAGES[i]), add_bos=True)
+               for i in range(8)]
+    plain_s = SamplingParams(temperature=0.0, max_new_tokens=AGENT_NEW)
+    grammar_s = SamplingParams(temperature=0.0, max_new_tokens=AGENT_NEW, grammar="tool_call")
+    log(f"  constrained decode ({plane}): the tool grammar bound to {len(vocab.token_strs)} "
+        f"tokens in {vocab_s:.2f} s ({len(vocab.dfa.edges)} DFA states); 4 constrained and 4 "
+        f"plain requests over the head, {AGENT_NEW} new tokens at most")
+    counts = _Counts(engine)
+    probe = _AgentProbe(torch, sched, engine)
+    handles: dict[int, object] = {}
+
+    async def run(i: int, constrained: bool):
+        h = await sched.submit(f"{'grammar' if constrained else 'plain'}-{plane}-{i}",
+                               prompts[i], grammar_s if constrained else plain_s,
+                               constraint=TokenConstraint(vocab) if constrained else None)
+        handles[i] = h
+        await _run_to_end(h)
+
+    constrained_ids = (2, 3, 5, 7)
+    m0 = METRICS.snapshot()
+    reset_launches()
+    TRACER.clear()
+    await sched.start()
+    try:
+        t_start = time.perf_counter()
+        wave1 = [asyncio.create_task(run(i, i in constrained_ids)) for i in (0, 1, 2, 3)]
+        while not any(h.generated > 0 for h in handles.values()):
+            await asyncio.sleep(0.005)
+        wave2 = [asyncio.create_task(run(i, i in constrained_ids)) for i in (4, 5, 6)]
+        await asyncio.gather(*wave1, *wave2)
+        await run(7, True)  # alone: the prefill round's pick and the depth-1 branch
+        _sync(torch)
+        wall = time.perf_counter() - t_start
+    finally:
+        await sched.stop()
+    launches = dict(LAUNCHES)
+    probe.close()
+    ragged_constrained_rows = sum(
+        1 for ev in TRACER.snapshot() if ev[2] == "dispatch" and ev[5]["kind"] == "ragged"
+        for r in ev[5]["rows"] if r[2] == "constrained")
+    outputs = {}
+    for i in constrained_ids:
+        h = handles[i]
+        text = tok.decode([t for t in h.history[len(h.prompt_ids):] if t != tok.eos_id])
+        state = vocab.dfa.step_string(vocab.dfa.start, text)
+        try:
+            call = parse_tool_decision(text)
+        except Exception as e:
+            fail(f"constrained decode ({plane}): parse_tool_decision raised {e!r} on {text!r}")
+        if state == DEAD:
+            fail(f"constrained decode ({plane}): {h.seq_id} left the grammar: {text!r}")
+        outputs[h.seq_id] = dict(text=text, tokens=h.generated,
+                                 accepting=bool(vocab.dfa.eos_ok[state]),
+                                 call=None if call is None else [call.name, call.args])
+    log(f"  constrained decode ({plane}): 8 streams in {wall:.2f} s; outputs "
+        + json.dumps(outputs))
+    log(f"  constrained decode ({plane}): picks by path {probe.picks}; constrained decode rows "
+        f"in ragged rounds {ragged_constrained_rows}; depth-2 steps a pending slot sat out "
+        f"{probe.sat_out_dispatches}, depth-1 steps {probe.depth1_dispatches}; sat-out slots "
+        f"checked {probe.scalar_checks} (context and last token), {probe.page_checks} steps "
+        "with every page compared")
+    if probe.failures:
+        fail(f"constrained decode ({plane}): {probe.failures[:4]}")
+    if (min(probe.picks.values()) < 1 or ragged_constrained_rows < 1
+            or probe.sat_out_dispatches < 1 or probe.depth1_dispatches < 1
+            or probe.page_checks < 1):
+        fail(f"constrained decode ({plane}): a path of the constrained rows did not run")
+    for h in handles.values():
+        _stream_ended(plane, "constrained decode", h, tok.eos_id)
+    decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
+    rounds = _metric_delta(METRICS, m0, "finchat_mixed_dispatches_total")
+    missing = [k for k in spec["kernels"] if launches[k] == 0]
+    if missing:
+        fail(f"constrained decode ({plane}): kernels not launched: {missing}")
+    check_window(plane, "constrained decode", spec, config, launches, counts, decode_steps,
+                 rounds)
+    checks = [teacher_forced_check(torch, params, config, handles[i], spec["kv_quant"],
+                                   vocab=vocab if i in constrained_ids else None)
+              for i in sorted(handles)]
+    cost = constrained_step_cost(torch, engine, vocab, SERVE_CONTEXT, 8)
+    out = dict(wall_s=wall, vocab_build_s=vocab_s, outputs=outputs, picks=probe.picks,
+               ragged_constrained_rows=ragged_constrained_rows,
+               sat_out_dispatches=probe.sat_out_dispatches,
+               depth1_dispatches=probe.depth1_dispatches, page_checks=probe.page_checks,
+               scalar_checks=probe.scalar_checks, teacher_forced=checks, step_cost=cost,
+               launches={k: v for k, v in launches.items() if v})
+    if partial:
+        out["partial"] = await partial_holds(torch, plane, spec, config, params, sched, entry,
+                                             head_pages, system_prompt)
+    counts.close()
+    sched.retire_prefixes()
+    if sched.allocator.used_count != 0:
+        fail(f"agent planes ({plane}): {sched.allocator.used_count} KV pages still allocated")
+    if sched.session_cache is not None and sched.session_cache.disk is not None:
+        sched.session_cache.disk.close()
+    return out
+
+
+async def partial_holds(torch, plane, spec, config, params, sched, entry, head_pages: int,
+                        system_prompt: str) -> dict:
+    """The retrieval overlap at full width (see ``agent_planes``)."""
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat, render_chat_prefix
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    tok = ByteTokenizer()
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=AGENT_NEW)
+    rows = []
+    checks = []
+    await sched.start()
+    try:
+        for i in (0, 1):
+            full = tok.encode(render_chat(system_prompt, CONTEXTS[i], [], MESSAGES[i]),
+                              add_bos=True)
+            # the prefix as the generator takes it: BOS added, the last token
+            # dropped (it could merge across the graft)
+            prefix = tok.encode(render_chat_prefix(system_prompt, CONTEXTS[i], []),
+                                add_bos=True)[:-1]
+            if full[: len(prefix)] != prefix:
+                fail(f"partial holds ({plane}): the rendered prefix does not lead the prompt")
+            plain = await sched.submit(f"plain-{plane}-p{i}", full, greedy)
+            await _run_to_end(plain)
+            g0 = METRICS.get("finchat_partial_grafts_total")
+            hold = await sched.submit_partial(f"hold-{plane}-{i}", prefix, greedy)
+            if hold is None:
+                fail(f"partial holds ({plane}): submit_partial refused the prefix")
+            t_park = time.perf_counter()
+            while not (hold.slot >= 0 and hold.prefill_pos >= len(hold.prompt_ids)):
+                await asyncio.sleep(0.002)
+            parked_s = time.perf_counter() - t_park
+            await asyncio.sleep(RETRIEVAL_S)  # the retrieval
+            t_graft = time.perf_counter()
+            if not sched.extend_prompt(hold, full):
+                fail(f"partial holds ({plane}): the graft was refused")
+            graft_host_s = time.perf_counter() - t_graft
+            await _run_to_end(hold)
+            grafts = METRICS.get("finchat_partial_grafts_total") - g0
+            row = dict(prompt_tokens=len(full), prefix_tokens=len(prefix),
+                       shared=hold.shared_len, parked_after_s=parked_s,
+                       graft_host_s=graft_host_s,
+                       ttft_from_graft_s=hold.first_token_at - t_graft,
+                       plain_ttft_s=plain.first_token_at - plain.submitted_at,
+                       grafts=grafts, same_tokens_as_plain=hold.history == plain.history)
+            log(f"  partial hold {i} ({plane}): prompt {len(full)} tokens, prefix {len(prefix)} "
+                f"({hold.shared_len} on the head) parked {parked_s:.3f} s after submit; graft "
+                f"{graft_host_s * 1e3:.3f} ms on the host; TTFT from the graft "
+                f"{row['ttft_from_graft_s']:.3f} s against a plain submit's "
+                f"{row['plain_ttft_s']:.3f} s; grafts +{grafts:.0f}; tokens equal the plain "
+                f"submit's: {row['same_tokens_as_plain']}")
+            if grafts != 1 or not hold.grafted:
+                fail(f"partial holds ({plane}): finchat_partial_grafts_total rose by {grafts}")
+            checks.append(teacher_forced_check(torch, params, config, hold, spec["kv_quant"]))
+            rows.append(row)
+        # a divergent graft: refused, and its cancel gives every own page back
+        prefix = tok.encode(render_chat_prefix(system_prompt, CONTEXTS[2], []), add_bos=True)[:-1]
+        refs0, used0 = entry.refs, sched.allocator.used_count
+        hold = await sched.submit_partial(f"diverge-{plane}", prefix, greedy)
+        while not (hold.slot >= 0 and hold.prefill_pos >= len(hold.prompt_ids)):
+            await asyncio.sleep(0.002)
+        own = len(sched.allocator.owned_by(hold.seq_id))
+        refused = not sched.extend_prompt(hold, [tok.bos_id] + prefix + [65])
+        sched.cancel(hold)
+        left = len(sched.allocator.owned_by(hold.seq_id))
+        log(f"  divergent graft ({plane}): refused {refused}; the hold owned {own} pages, "
+            f"{left} after its cancel; the head's refcount {refs0} -> {entry.refs}; "
+            f"{sched.allocator.used_count} pages allocated (before it {used0}, the head's "
+            f"{head_pages})")
+        if not refused or left or entry.refs != refs0 or sched.allocator.used_count != used0:
+            fail(f"partial holds ({plane}): the divergent graft leaked or was taken")
+    finally:
+        await sched.stop()
+    return dict(holds=rows, teacher_forced=checks, divergent_own_pages=own)
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attention_decode_sm90" in n:
@@ -2015,13 +2625,20 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+# the engine's ``named_scope`` ranges (utils/tracing.py): under a profiler
+# each also spans its kernels on the card's timeline, so it is no kernel of
+# its own and is left out of the device time by class
+ENGINE_RANGES = frozenset({"kv_append", "kv_scatter", "paged_attention", "kv_scatter_ragged",
+                           "ragged_paged_attention"})
+
+
 def device_ms(torch, prof, classify, runs: int = 1, top: int = 4) -> tuple[dict, dict]:
     """Device milliseconds per run by kernel class from a profile, and the
     ``top`` largest kernels of the class "other"."""
     by_class: dict[str, float] = {}
     others: dict[str, float] = {}
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.key in ENGINE_RANGES:
             continue  # host ops also carry their kernels' device time
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -2103,8 +2720,42 @@ def profile_steps(torch, engine, context: int, active: int) -> dict:
         log(f"  {name}: {ev_ms:.2f} ms per step (CUDA events); profiled {window_ms:.2f} ms "
             f"per step, device busy {busy:.2f} ms (idle share {1.0 - busy / window_ms:.3f}): "
             + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_class.items(), key=lambda x: -x[1])))
+    out["device_trace"] = check_device_trace(torch, engine, decode)
     engine.reset_slots(list(range(active)))
     return out
+
+
+def check_device_trace(torch, engine, decode) -> dict:
+    """``utils/tracing.device_trace`` over two decode steps: the profiler
+    trace it writes must hold the engine's ``kv_append`` and
+    ``paged_attention`` ranges, one a layer a step (host ranges; the card's
+    copies of them counted beside)."""
+    import shutil
+    import tempfile
+
+    from finchat_tpu_torch.utils.tracing import device_trace
+
+    log_dir = tempfile.mkdtemp(prefix="finchat-profile-")
+    try:
+        with device_trace(log_dir):
+            decode()
+            decode()
+        path = Path(log_dir) / "trace.json"
+        trace = json.loads(path.read_text())
+        size = path.stat().st_size
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    want = 2 * engine.config.n_layers
+    ranges = {}
+    for name in ("kv_append", "paged_attention"):
+        evs = [e for e in trace["traceEvents"] if e.get("name") == name]
+        ranges[name] = dict(host=sum(1 for e in evs if e.get("cat") == "user_annotation"),
+                            device=sum(1 for e in evs if e.get("cat") == "gpu_user_annotation"))
+    log(f"  device_trace over two decode steps: {size} bytes, ranges {ranges} (want {want} "
+        "host ranges of each)")
+    if any(r["host"] != want for r in ranges.values()):
+        fail("device_trace: the profiler trace lacks the engine's ranges")
+    return dict(bytes=size, ranges=ranges)
 
 
 class _Dequantized:
@@ -2121,7 +2772,31 @@ class _Dequantized:
         return dequantize(self.leaf[i])
 
 
-def teacher_forced_check(torch, params, config, h, kv_quant: str) -> dict:
+def grammar_masks(vocab, served: list[int], budget: int):
+    """The token sets ``TokenConstraint.pick`` chose each served token from:
+    after the tokens before it (the grammar's state), with the budget left
+    (the feasibility rule), EOS where the state accepts; only EOS where
+    nothing is feasible. One [vocab] bool array a served token."""
+    import numpy as np
+
+    only_eos = np.zeros(len(vocab.token_strs), bool)
+    only_eos[vocab.eos_id] = True
+    state = vocab.dfa.start
+    for i, token in enumerate(served):
+        allowed, eos_ok, ends = vocab.mask(state)
+        feasible = allowed & (vocab._distance_np[ends] <= budget - i - 2)
+        if not (feasible.any() or eos_ok):
+            yield only_eos
+        else:
+            allowed = feasible.copy()
+            if eos_ok:
+                allowed[vocab.eos_id] = True
+            yield allowed if allowed.any() else only_eos
+        if token != vocab.eos_id:
+            state = vocab.advance(state, token)
+
+
+def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None) -> dict:
     """Re-run one served stream through the plain dense forward (no cache,
     plain attention, plain matmuls) and require the served greedy token
     wherever the plain forward's top-2 logit margin exceeds 0.25 — bf16
@@ -2131,7 +2806,9 @@ def teacher_forced_check(torch, params, config, h, kv_quant: str) -> dict:
     every K/V row (``quantize_kv_rows``) before attention, so both sides see
     the same values. A stream that rode a shared head or resumed cached
     pages is checked over its whole history all the same: the served
-    tokens must not depend on where their KV came from."""
+    tokens must not depend on where their KV came from. With ``vocab`` (a
+    grammar-constrained stream) the argmax and the margin are taken under
+    the grammar mask each token was picked under (``grammar_masks``)."""
     from finchat_tpu_torch.engine.kv_cache import quantize_kv_rows
     from finchat_tpu_torch.models.llama import dense_causal_attention, forward, lm_head
     from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dequantize
@@ -2164,21 +2841,30 @@ def teacher_forced_check(torch, params, config, h, kv_quant: str) -> dict:
         logits = lm_head(plain, hidden[0, n_prompt - 1:], config=config)
     if not bool(torch.isfinite(logits).all().item()):
         fail(f"teacher-forced check of {h.seq_id}: non-finite logits from the plain forward")
+    served_ids = h.history[n_prompt:]
+    if vocab is not None:
+        import numpy as np
+
+        masks = torch.from_numpy(np.stack(list(grammar_masks(
+            vocab, served_ids, h.sampling.max_new_tokens)))).to(dev)
+        logits = logits[: masks.shape[0]].float().masked_fill(~masks, float("-inf"))
     top2 = torch.topk(logits, 2, dim=-1)
     margin = (top2.values[:, 0] - top2.values[:, 1]).cpu()
     want = top2.indices[:, 0].cpu()
-    served = torch.tensor(h.history[n_prompt:], dtype=torch.int64)
+    served = torch.tensor(served_ids, dtype=torch.int64)
     n = min(len(served), len(want))
-    decided = margin[:n] > 0.25
+    decided = margin[:n] > 0.25  # inf where the mask leaves one token
     agree = (want[:n] == served[:n])
     bad = int((decided & ~agree).sum())
+    what = "the plain forward's argmax" + (" under the grammar mask" if vocab is not None else "")
     log(f"  teacher-forced {h.seq_id} ({n_prompt} prompt tokens, {h.shared_len} shared, "
-        f"{h.resumed_len} resumed): {int(agree.sum())}/{n} served tokens equal the plain "
-        f"forward's argmax; {int(decided.sum())} have margin > 0.25, {bad} of those disagree")
+        f"{h.resumed_len} resumed): {int(agree.sum())}/{n} served tokens equal {what}; "
+        f"{int(decided.sum())} have margin > 0.25, {bad} of those disagree")
     if bad:
         fail(f"teacher-forced check: {h.seq_id}'s served tokens disagree with the plain forward")
     del plain, logits, hidden
-    return dict(seq_id=h.seq_id, tokens=n, agree=int(agree.sum()), decided=int(decided.sum()))
+    return dict(seq_id=h.seq_id, tokens=n, agree=int(agree.sum()), decided=int(decided.sum()),
+                masked=vocab is not None)
 
 
 # --------------------------------------------------------------------------
@@ -2457,13 +3143,13 @@ def main() -> None:
                 results, backward=True)
 
     serves = {}
-    for phase, plane, n_req, max_new, profile, drills in (
-            (3, "bf16", 8, 64, True, ("breaker", "preemption")),
-            (4, "int8+kv8", 8, 64, True, ("breaker",)),
-            (5, "int4g128+kv8", 2, 16, False, ())):
+    for phase, plane, n_req, max_new, profile, drills, agent in (
+            (3, "bf16", 8, 64, True, ("breaker", "preemption"), ("constrained", "partial")),
+            (4, "int8+kv8", 8, 64, True, ("breaker",), ("constrained",)),
+            (5, "int4g128+kv8", 2, 16, False, (), ())):
         log(f"phase {phase}: serve llama3-8b ({plane}, random weights) through LLMService")
         stats = asyncio.run(serve(torch, dev, plane, n_req, max_new, profile,
-                                  later_turns=profile, drills=drills))
+                                  later_turns=profile, drills=drills, agent=agent))
         log(f"  TTFT p50 {stats['ttft_p50_s']:.3f} s; decode "
             f"{stats['decode_tokens_per_s']:.1f} tokens/s aggregate, "
             f"{stats['decode_tokens_per_s_per_stream']:.1f} per stream; offloads "
@@ -2474,6 +3160,18 @@ def main() -> None:
                 log(f"  {turn}: TTFT p50 {t['ttft_p50_s']:.3f} s; restores "
                     f"{t['restore']['total_s']:.3f} s, offloads {t['offload']['total_s']:.3f} s "
                     f"({card})")
+        tr = stats["tracing"]["host_us_per_dispatch"]
+        log(f"  tracing on: {tr['8'][0]:.2f}-{tr['8'][1]:.2f} µs of host a decode dispatch at 8 "
+            f"rows, {tr['64'][0]:.2f}-{tr['64'][1]:.2f} at 64 (the ring empty to 20,000 events; "
+            f"{card})")
+        if stats["agent"]:
+            c = stats["agent"]["step_cost"]
+            log(f"  constrained: decode step {c['decode_step_ms']:.3f} ms, with one constrained "
+                f"row {c['decode_step_one_constrained_row_ms']:.3f} ms; fetch of one row "
+                f"{c['fetch_one_row_ms']:.3f} ms; host pick {c['host_pick_ms']:.3f} ms ({card})")
+            for i, row in enumerate(stats["agent"].get("partial", {}).get("holds", [])):
+                log(f"  partial hold {i}: TTFT from the graft {row['ttft_from_graft_s']:.3f} s, a "
+                    f"plain submit's {row['plain_ttft_s']:.3f} s ({card})")
         log("serve: " + json.dumps(stats))
         serves[plane] = stats
 

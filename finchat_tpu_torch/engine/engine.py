@@ -55,6 +55,7 @@ from finchat_tpu_torch.ops.ragged_paged_attention import plan_ragged
 from finchat_tpu_torch.utils.config import EngineConfig
 from finchat_tpu_torch.utils.logging import get_logger
 from finchat_tpu_torch.utils.metrics import METRICS
+from finchat_tpu_torch.utils.tracing import named_scope
 
 logger = get_logger(__name__)
 
@@ -129,18 +130,23 @@ def _paged_attention_fn(page_table: torch.Tensor, start_pos: torch.Tensor,
     ``kv_write`` (the KV-row writer on the card, quantizing for an int8
     cache), reading K and V where they lie. The write lands before the
     attention launch on the same stream, and ``kv_len`` counts the chunk's
-    own tokens."""
+    own tokens. Under a profiler the write is the ``kv_append`` range at
+    decode and ``kv_scatter`` for a chunk, the attention ``paged_attention``
+    (the JAX engine's scope names)."""
     kv_len = (start_pos + n_valid).to(I32)
     kv_rows = plan_kv_rows(page_table, start_pos, n_valid, chunk, page_size)
+    write_scope = "kv_append" if chunk == 1 else "kv_scatter"
 
     def attention(q, k, v, cache, layer_idx: int):
         k_pages, v_pages, k_scales, v_scales = cache
         scales = dict(k_scales=k_scales, v_scales=v_scales)
         N = k.shape[0] * k.shape[1]
-        kv_write(kv_rows, k.reshape(N, -1), v.reshape(N, -1), k_pages, v_pages, layer_idx,
-                 n_kv=n_kv, **scales)
-        out = paged_attention(q, k_pages, v_pages, page_table, start_pos, kv_len,
-                              layer_idx, page_size=page_size, n_kv=n_kv, **scales)
+        with named_scope(write_scope):
+            kv_write(kv_rows, k.reshape(N, -1), v.reshape(N, -1), k_pages, v_pages, layer_idx,
+                     n_kv=n_kv, **scales)
+        with named_scope("paged_attention"):
+            out = paged_attention(q, k_pages, v_pages, page_table, start_pos, kv_len,
+                                  layer_idx, page_size=page_size, n_kv=n_kv, **scales)
         return out, cache
 
     return attention
@@ -241,19 +247,22 @@ def _ragged_attention_fn(
     (padding tokens write the trash page), then the ragged attention reads
     each row's pages in place. The round's descriptors (compacted positions
     and lengths, tiles, rows) and its KV rows are built here once and
-    shared by every layer's call, over either cache."""
+    shared by every layer's call, over either cache. Under a profiler they
+    are the ``kv_scatter_ragged`` and ``ragged_paged_attention`` ranges."""
     plan = plan_ragged(tok_row, tok_pos, row_kv_len, group=group, kv_gap=row_gap)
     kv_rows = plan_kv_rows_ragged(page_rows, tok_row, plan.tok_pos, page_size)
 
     def attention(q, k, v, cache, layer_idx: int):
         k_pages, v_pages, k_scales, v_scales = cache
         T = k.shape[1]
-        kv_write(kv_rows, k.reshape(T, -1), v.reshape(T, -1), k_pages, v_pages, layer_idx,
-                 n_kv=n_kv, k_scales=k_scales, v_scales=v_scales)
-        out = ragged_paged_attention(q[0], k_pages, v_pages, page_rows, tok_row, tok_pos,
-                                     row_kv_len, layer_idx, page_size=page_size, n_kv=n_kv,
-                                     kv_gap=row_gap, k_scales=k_scales, v_scales=v_scales,
-                                     plan=plan)
+        with named_scope("kv_scatter_ragged"):
+            kv_write(kv_rows, k.reshape(T, -1), v.reshape(T, -1), k_pages, v_pages, layer_idx,
+                     n_kv=n_kv, k_scales=k_scales, v_scales=v_scales)
+        with named_scope("ragged_paged_attention"):
+            out = ragged_paged_attention(q[0], k_pages, v_pages, page_rows, tok_row, tok_pos,
+                                         row_kv_len, layer_idx, page_size=page_size, n_kv=n_kv,
+                                         kv_gap=row_gap, k_scales=k_scales, v_scales=v_scales,
+                                         plan=plan)
         return out[None], cache
 
     return attention
@@ -441,8 +450,17 @@ class InferenceEngine:
         self.state.context_lens[idx] = self.to_device(np.asarray(list(rows.values()), np.int32))
 
     def set_last_token(self, slot: int, token: int) -> None:
-        """Override a slot's next decode input."""
+        """Override a slot's next decode input (the host pick of a
+        constrained slot). Writes the current ``state.last_tokens``, which
+        every step rebinds: the write is ordered after the steps already
+        enqueued and before the next one, which reads it."""
         self.state.last_tokens[slot] = int(token)
+
+    def select_rows(self, t: torch.Tensor, rows: list[int]) -> torch.Tensor:
+        """Rows ``rows`` of a device tensor, selected on the device, so a
+        fetch moves only those (a constrained slot's logits row, not the
+        batch's)."""
+        return t.index_select(0, self.to_device(np.asarray(rows, np.int64)))
 
     def reset_slot(self, slot: int) -> None:
         self.reset_slots([slot])

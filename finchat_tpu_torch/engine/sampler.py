@@ -38,7 +38,9 @@ class SamplingParams:
     top_k: int = 0  # 0 = uncapped within CANDIDATES; clamped to CANDIDATES
     max_new_tokens: int = 1024
     seed: int = 0
-    grammar: str | None = None  # constrained decoding: not ported yet
+    # constrained decoding: "tool_call" makes the generator build the
+    # tool grammar's constraint (agent/constrained.py)
+    grammar: str | None = None
 
 
 def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:

@@ -53,6 +53,27 @@ Many sequences multiplexed onto one model replica:
   dispatch records its members with their admission epoch, which a
   preemption bumps, so a replay never receives a token of a step that was
   in flight when it was preempted.
+- Grammar-constrained decoding (``submit(..., constraint=)``, the agent's
+  tool decision): a constrained slot's token is picked on the host from
+  its logits row under the grammar mask (``agent/constrained.py``) and
+  written back as the slot's next decode input. Only the constrained rows'
+  logits leave the card, selected there first. The prefill round picks a
+  completion's first token, the ragged round brings back the rows of its
+  constrained completions and decode rows, and in the depth-2 pipelined
+  decode a slot whose pick is still pending sits out the next dispatch;
+  when every decoding slot waits on a pick, the loop drains and runs
+  depth-1.
+- Partial holds, the retrieval/prefill overlap (``submit_partial``,
+  ``extend_prompt``): a prompt's static prefix prefills while its tail is
+  still being retrieved and parks, owning its slot and pages, without a
+  first token; the graft appends the full prompt and prefill goes on from
+  the parked position. A parked hold is no work (an idle loop sleeps), and
+  one never grafted is reaped after ``partial_hold_ttl_seconds``.
+- Request tracing (utils/tracing.py): every handle carries a
+  ``RequestSpan`` (marks ``admitted``, ``prefill_done``, ``first_token``,
+  ``done``, finished once at every terminal site), every dispatch records
+  its ``[slot, trace_id, mode]`` rows while ``TRACER.enabled``, and a shed,
+  a breaker trip and a give-up dump the flight recorder.
 
 The serving planes this port does not carry yet — speculative decode, the
 fused decode loop, the free-running loop and bounded KV — are refused at
@@ -69,6 +90,7 @@ import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from typing import TYPE_CHECKING
 
 import numpy as np
 
@@ -86,6 +108,10 @@ from finchat_tpu_torch.utils.config import EngineConfig
 from finchat_tpu_torch.utils.faults import inject
 from finchat_tpu_torch.utils.logging import get_logger
 from finchat_tpu_torch.utils.metrics import METRICS, Timer
+from finchat_tpu_torch.utils.tracing import TRACER, RequestSpan
+
+if TYPE_CHECKING:  # the engine does not import the agent layer at run time
+    from finchat_tpu_torch.agent.constrained import TokenConstraint
 
 logger = get_logger(__name__)
 
@@ -125,6 +151,8 @@ class SequenceHandle:
     seq_id: str
     prompt_ids: list[int]
     sampling: SamplingParams
+    # the grammar cursor of a constrained decode (None = unconstrained)
+    constraint: TokenConstraint | None = None
     # session KV cache key: turns of one conversation resume each other's
     # KV (engine/session_cache.py); None = no cross-turn caching
     conversation_id: str | None = None
@@ -155,31 +183,49 @@ class SequenceHandle:
     # the scheduler driving this handle (rebound by adopt); cancel()
     # delegates to it
     owner: object | None = None
+    # retrieval/prefill overlap (submit_partial): ``prompt_ids`` is only the
+    # prompt's static prefix; it prefills, then parks without a first token
+    # until extend_prompt grafts the full prompt (or the hold goes stale at
+    # ``held_deadline`` and is reaped)
+    held: bool = False
+    held_deadline: float = 0.0
+    # the hold was extended into a full prompt
+    grafted: bool = False
     generated: int = 0
     history: list[int] = field(default_factory=list)  # prompt + delivered tokens
     submitted_at: float = field(default_factory=time.perf_counter)
     first_token_at: float | None = None
     last_token_at: float | None = None
     finished: bool = False
+    # end-to-end trace id (utils/tracing.py); None = untraced
+    trace_id: str | None = None
+    span: RequestSpan = None  # type: ignore[assignment]  # set in __post_init__
 
     def __post_init__(self) -> None:
+        if self.span is None:
+            self.span = RequestSpan(self.seq_id, trace_id=self.trace_id)
         if not self.history:
             self.history = list(self.prompt_ids)
 
     def _emit_first_token_metrics(self) -> None:
         if self.first_token_at is None:
             self.first_token_at = time.perf_counter()
-            METRICS.observe("finchat_ttft_seconds", self.first_token_at - self.submitted_at)
+            self.span.mark("first_token")
+            METRICS.observe("finchat_ttft_seconds", self.first_token_at - self.submitted_at,
+                            trace_id=self.trace_id)
 
 
 @dataclass
 class _InFlightStep:
-    """A dispatched-but-unconsumed decode step: device tokens plus the
-    membership snapshot it was dispatched against, each member with its
-    admission epoch."""
+    """A dispatched-but-unconsumed decode step: device tokens, the logits
+    rows of its constrained members (selected on the device, in
+    ``constrained_slots`` order), and the membership snapshot it was
+    dispatched against, each member with its admission epoch."""
 
     tokens: object  # [max_seqs] int32, device
+    logits: object | None  # [n_constrained, vocab] fp32, device, or None
     members: list[tuple[int, SequenceHandle, int]]
+    constrained_slots: list[int]
 
 
 @dataclass
@@ -232,6 +278,12 @@ class ContinuousBatchingScheduler:
         self._wakeup = asyncio.Event()
         self._task: asyncio.Task | None = None
         self._running = False
+        self._rng = np.random.default_rng(0)  # the host-side constrained picks
+        # a partial hold not grafted within this many seconds has lost its
+        # owner: it is reaped (partial_hold_ttl_seconds)
+        self.hold_ttl_s = max(0.0, cfg.partial_hold_ttl_seconds)
+        # the track of this engine's events on a trace timeline
+        self._trace_track = "engine"
         self.mixed_enabled = bool(cfg.mixed_step)
         self.max_queue_depth = max(0, cfg.max_queue_depth)
         # whether the current loop iteration ran prefill work (the
@@ -320,14 +372,18 @@ class ContinuousBatchingScheduler:
             self._fail_prefix_job(job)
 
     async def submit(self, seq_id: str, prompt_ids: list[int], sampling: SamplingParams,
+                     constraint: TokenConstraint | None = None,
                      conversation_id: str | None = None,
-                     deadline: float | None = None) -> SequenceHandle:
-        """Queue a sequence. ``deadline`` (on ``time.perf_counter``'s clock)
-        feeds shedding and earliest-deadline-first admission."""
+                     deadline: float | None = None,
+                     trace_id: str | None = None) -> SequenceHandle:
+        """Queue a sequence. ``constraint`` makes its decode grammar-
+        constrained (the generator builds it from ``sampling.grammar``; a
+        grammar with no constraint is served unconstrained, as in the
+        reference). ``deadline`` (on ``time.perf_counter``'s clock) feeds
+        shedding and earliest-deadline-first admission. ``trace_id`` puts the
+        request on a trace timeline."""
         if not prompt_ids:
             raise ValueError("empty prompt")
-        if sampling.grammar:
-            raise NotImplementedError("grammar-constrained decoding is not ported yet")
         if self.max_queue_depth > 0 and len(self.pending) >= self.max_queue_depth:
             # backpressure: new load above the bound is refused, retryable
             # (preempted sequences bypass submit: they are live streams)
@@ -350,12 +406,77 @@ class ContinuousBatchingScheduler:
             self.metrics.inc("finchat_top_k_clamped_total")
             sampling = dataclasses.replace(sampling, top_k=CANDIDATES)
         handle = SequenceHandle(seq_id=seq_id, prompt_ids=list(prompt_ids), sampling=sampling,
-                                conversation_id=conversation_id, deadline=deadline,
-                                owner=self)
+                                constraint=constraint, conversation_id=conversation_id,
+                                deadline=deadline, owner=self, trace_id=trace_id)
         self.pending.append(handle)
         self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
         self._wakeup.set()
         return handle
+
+    async def submit_partial(self, seq_id: str, prefix_ids: list[int], sampling: SamplingParams,
+                             conversation_id: str | None = None,
+                             deadline: float | None = None,
+                             trace_id: str | None = None) -> SequenceHandle | None:
+        """Start prefilling a prompt whose tail is not known yet (the
+        retrieval/prefill overlap): ``prefix_ids`` is the static leading part
+        of the final prompt. The sequence admits and prefills as usual but
+        parks when the prefix is done instead of sampling a first token;
+        ``extend_prompt`` grafts the full prompt in and prefill goes on from
+        the parked position. Returns None when the prefix cannot ride this
+        path (empty, or over budget); the caller then submits the full
+        prompt."""
+        if not prefix_ids:
+            return None
+        max_len = self.engine.max_pages_per_seq * self.engine.page_size
+        if len(prefix_ids) + sampling.max_new_tokens > max_len:
+            return None  # the full prompt could never fit either
+        handle = await self.submit(seq_id, prefix_ids, sampling,
+                                   conversation_id=conversation_id, deadline=deadline,
+                                   trace_id=trace_id)
+        # no await ran between submit() queueing the handle and here (the
+        # loop is another task), so admission sees the hold flags set
+        handle.held = True
+        handle.held_deadline = time.perf_counter() + self.hold_ttl_s
+        self.metrics.inc("finchat_partial_holds_total")
+        return handle
+
+    def extend_prompt(self, handle: SequenceHandle, full_ids: list[int]) -> bool:
+        """Graft the full prompt onto a parked or prefilling hold. Returns
+        False, leaving the hold as it was (the caller cancels it and submits
+        the full prompt), when the graft would invalidate what was
+        prefilled (``full_ids`` does not extend the held prefix) or the
+        extra KV pages cannot be had. A hold over a shared head counts the
+        head's pages in its page list, so only the pages past it are
+        allocated."""
+        if handle.finished or not handle.held:
+            return False
+        prefix = handle.prompt_ids
+        if len(full_ids) <= len(prefix) or full_ids[: len(prefix)] != prefix:
+            self.metrics.inc("finchat_partial_fallbacks_total")
+            return False
+        max_len = self.engine.max_pages_per_seq * self.engine.page_size
+        if len(full_ids) + handle.sampling.max_new_tokens > max_len:
+            self.metrics.inc("finchat_partial_fallbacks_total")
+            return False
+        if handle.slot >= 0:
+            total = pages_needed(len(full_ids) + handle.sampling.max_new_tokens,
+                                 self.engine.page_size)
+            extra = total - len(handle.page_list)
+            if extra > 0:
+                if (total > self.engine.max_pages_per_seq
+                        or not self.allocator.can_allocate(extra)):
+                    self.metrics.inc("finchat_partial_fallbacks_total")
+                    return False
+                new_pages = self.allocator.allocate(handle.seq_id, extra)
+                handle.page_list = handle.page_list + new_pages
+                self.engine.set_page_table_rows({handle.slot: handle.page_list})
+        handle.prompt_ids = list(full_ids)
+        handle.history = list(full_ids)
+        handle.held = False
+        handle.grafted = True
+        self.metrics.inc("finchat_partial_grafts_total")
+        self._wakeup.set()
+        return True
 
     def cancel(self, handle: SequenceHandle) -> None:
         """Client went away: evict and free."""
@@ -544,7 +665,9 @@ class ContinuousBatchingScheduler:
                     and handle.generated == 0 and not handle.preempted):
                 self.pending.remove(handle)
                 self.metrics.inc("finchat_sheds_total")
+                TRACER.anomaly("shed", handle.trace_id, args={"seq_id": handle.seq_id})
                 handle.finished = True
+                handle.span.finish()
                 handle.events.put_nowait({
                     "type": "error",
                     "message": "deadline exceeded before admission; retry with backoff",
@@ -658,9 +781,15 @@ class ContinuousBatchingScheduler:
                     self.metrics.inc("finchat_prefix_hits_total")
                     self.metrics.inc("finchat_prefix_tokens_saved_total", shared_len)
             handle.slot = slot
-            self._temperature[slot] = handle.sampling.temperature
-            self._top_p[slot] = handle.sampling.top_p
-            self._top_k[slot] = handle.sampling.top_k
+            handle.span.mark("admitted")
+            if handle.constraint is None:
+                self._temperature[slot] = handle.sampling.temperature
+                self._top_p[slot] = handle.sampling.top_p
+                self._top_k[slot] = handle.sampling.top_k
+            # a constrained slot keeps the non-truncating defaults: its
+            # device-sampled token is always replaced by the host pick, and a
+            # truncating top_p/top_k would take the whole batch off the
+            # sampler's exact full-vocab path
             self.prefilling.append(handle)
             logger.debug("admitted %s into slot %d (%d pages)", handle.seq_id, slot, need)
         if admitted:
@@ -672,6 +801,7 @@ class ContinuousBatchingScheduler:
 
     def _finish(self, handle: SequenceHandle, reason: str) -> None:
         handle.finished = True
+        handle.span.finish()
         handle.events.put_nowait({"type": "done", "reason": reason})
 
     def _release(self, handle: SequenceHandle) -> None:
@@ -776,6 +906,7 @@ class ContinuousBatchingScheduler:
         self._release(handle)
         if error is not None:
             handle.finished = True
+            handle.span.finish()
             handle.events.put_nowait({"type": "error", "message": error})
         else:
             self._finish(handle, reason)
@@ -827,12 +958,17 @@ class ContinuousBatchingScheduler:
         handle.page_list = []
         handle.shared_len = 0
         handle.resumed_len = 0
+        handle.grafted = False
         handle.preempted += 1
         handle.epoch += 1  # stale dispatch memberships no longer match
         # live streams re-admit ahead of new load (EDF ordering applies on
-        # top when deadlines are in play)
+        # top when deadlines are in play); a held prefix re-prefills and
+        # parks again
         self.pending.appendleft(handle)
         self.metrics.inc("finchat_preemptions_total")
+        if TRACER.enabled and handle.trace_id is not None:
+            TRACER.event("preempt", handle.trace_id, track=self._trace_track,
+                         args={"preempted": handle.preempted, "for_rebuild": for_rebuild})
         self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
         self._wakeup.set()
 
@@ -893,6 +1029,9 @@ class ContinuousBatchingScheduler:
                 and len(self.pending) >= self.max_queue_depth):
             return False
         handle.owner = self  # cancel() must reach this scheduler now
+        if TRACER.enabled and handle.trace_id is not None:
+            TRACER.event("adopt", handle.trace_id, track=self._trace_track,
+                         args={"live": live})
         if live:
             self.pending.appendleft(handle)
         else:
@@ -906,7 +1045,9 @@ class ContinuousBatchingScheduler:
         a structured retryable ``shutting_down`` error, its coherent KV
         offloaded into the session tier (which writes through to disk)
         before its slot and pages are released. Pending work fails the same
-        way. Afterwards only the shared heads' pages are still owned."""
+        way. A held prefix is no conversation state: it is released and
+        failed without an offload. Afterwards only the shared heads' pages
+        are still owned."""
         await self.stop()
         shutdown_error = {
             "type": "error",
@@ -914,18 +1055,21 @@ class ContinuousBatchingScheduler:
             "code": "shutting_down", "retryable": True,
         }
         for handle in list(self.decoding.values()) + list(self.prefilling):
-            try:
-                # a mid-decode straggler's prompt and generated KV are the
-                # snapshot a normal retirement takes
-                self._maybe_offload(handle)
-            except Exception as e:
-                logger.error("shutdown offload failed for %s: %s", handle.seq_id, e)
+            if not handle.held:
+                try:
+                    # a mid-decode straggler's prompt and generated KV are
+                    # the snapshot a normal retirement takes
+                    self._maybe_offload(handle)
+                except Exception as e:
+                    logger.error("shutdown offload failed for %s: %s", handle.seq_id, e)
             self._release(handle)
             handle.finished = True
+            handle.span.finish()
             handle.events.put_nowait(dict(shutdown_error))
         for handle in list(self.pending):
             self.pending.remove(handle)
             handle.finished = True
+            handle.span.finish()
             handle.events.put_nowait(dict(shutdown_error))
         self.metrics.set_gauge("finchat_queue_depth", 0)
         self.spill_sessions()
@@ -1023,7 +1167,8 @@ class ContinuousBatchingScheduler:
             return
         if scope in ("prefill", "mixed"):
             for handle in list(self.prefilling):
-                self._preempt(handle)
+                if not self._parked(handle):  # a parked hold was in no round
+                    self._preempt(handle)
             for job in list(self._prefix_jobs):
                 try:  # registration is best-effort
                     self._fail_prefix_job(job)
@@ -1065,6 +1210,12 @@ class ContinuousBatchingScheduler:
         self._breaker_bucket = bucket
         self._rebuilds_without_success += 1
         if self._rebuilds_without_success > self.breaker_max_rebuilds:
+            # the black box of the give-up: the tripped rounds' dispatches
+            # and the failing streams' lifecycle at the moment it gives up
+            TRACER.anomaly("replica_give_up", args={
+                "plane": bucket, "error": str(error)[:200],
+                "rebuilds": self._rebuilds_without_success - 1,
+            })
             logger.error("breaker: %d consecutive rebuilds without a successful round; "
                          "failing in-flight streams (%s)",
                          self._rebuilds_without_success - 1, error)
@@ -1094,12 +1245,22 @@ class ContinuousBatchingScheduler:
             return
         logger.error("breaker tripped (%s): preempting %d live sequences and rebuilding the "
                      "engine's device state", error, len(self.decoding) + len(self.prefilling))
+        # the flight recorder: the trip and the ring up to it (the tripped
+        # rounds' dispatches, every live stream's lifecycle); the dump
+        # writes in a worker thread
+        TRACER.anomaly("breaker_trip", args={
+            "plane": bucket, "error": str(error)[:200],
+            "dispatch_tally": self._dispatch_tally,
+            "live": len(self.decoding) + len(self.prefilling),
+        })
         if self._breaker_tripped_at is None:
             self._breaker_tripped_at = time.perf_counter()
         self.metrics.set_gauge("finchat_breaker_state", 1)
         for handle in list(self.decoding.values()):
             self._preempt(handle, for_rebuild=True)
         for handle in list(self.prefilling):
+            # parked holds too: their prefix KV goes with the pool, so they
+            # re-prefill and park again
             self._preempt(handle, for_rebuild=True)
         self._reset_for_rebuild()
         try:
@@ -1117,6 +1278,7 @@ class ContinuousBatchingScheduler:
                 if handle.preempted:
                     self.pending.remove(handle)
                     handle.finished = True
+                    handle.span.finish()
                     handle.events.put_nowait(
                         {"type": "error", "message": f"engine rebuild failed: {e}"})
             return
@@ -1223,12 +1385,63 @@ class ContinuousBatchingScheduler:
     def _tally_dispatch(self) -> None:
         self._dispatch_tally += 1
 
+    def _trace_dispatch(self, kind: str, rows: list, *, ts: float | None = None,
+                        dur: float | None = None) -> None:
+        """Record one model dispatch in the trace ring: which ``[slot,
+        trace_id, mode]`` rows rode it, so a request's exported timeline
+        shows every dispatch that carried it even when many requests share
+        one ragged dispatch. Host data only, no device sync; callers build
+        the rows only under ``TRACER.enabled``."""
+        TRACER.event("dispatch", ts=ts, dur=dur, track=self._trace_track,
+                     args={"kind": kind, "n": self._dispatch_tally,
+                           "quant": self.quant_label, "rows": rows})
+
+    @staticmethod
+    def _parked(handle: SequenceHandle) -> bool:
+        """A parked hold: its prefix is prefilled and it waits for
+        extend_prompt. It is no prefill work and rides no round: the one
+        predicate the round builders, the round-failure handlers and the
+        idle check share."""
+        return handle.held and handle.prefill_pos >= len(handle.prompt_ids)
+
+    def _reap_stale_holds(self) -> None:
+        """Holds past ``held_deadline`` lost their owner: free them."""
+        now = time.perf_counter()
+        for handle in list(self.prefilling):
+            if handle.held and now > handle.held_deadline:
+                logger.warning("partial hold %s expired after %.0fs without extend_prompt; "
+                               "reclaiming its slot and pages", handle.seq_id, self.hold_ttl_s)
+                self.metrics.inc("finchat_partial_stale_reaps_total")
+                self._evict(handle, "error", error="partial hold expired")
+        for handle in list(self.pending):
+            if handle.held and now > handle.held_deadline:
+                self.metrics.inc("finchat_partial_stale_reaps_total")
+                self.pending.remove(handle)
+                handle.finished = True
+                handle.span.finish()
+                handle.events.put_nowait({"type": "error", "message": "partial hold expired"})
+
+    def _constrained_pick(self, handle: SequenceHandle, row_logits: np.ndarray) -> int:
+        """The host-side grammar pick of one constrained slot: choose the
+        token from its logits row, write it back as the slot's next decode
+        input, and return it for delivery. The write lands in the engine's
+        current ``last_tokens``, the tensor the slot's next dispatch reads:
+        a slot whose pick is pending sits out the step dispatched before
+        it, so that step only carries its old value forward."""
+        s = handle.sampling
+        token = handle.constraint.pick(row_logits, s.temperature, self._rng,
+                                       remaining=s.max_new_tokens - handle.generated,
+                                       top_p=s.top_p, top_k=s.top_k)
+        self.engine.set_last_token(handle.slot, token)
+        return token
+
     async def _prefill_round(self) -> None:
         """Advance every prefilling sequence one chunk in a single batched
         ``prefill_step``, the batch padded to a power of two; completed
-        prompts sample their first token (``commit_first_token``). Chunked
-        prefix registrations ride the same step as rows that sample
-        nothing."""
+        prompts sample their first token (``commit_first_token``), a
+        constrained one on the host from its logits row, and a completed
+        hold parks. Chunked prefix registrations ride the same step as rows
+        that sample nothing."""
         eng = self.engine
         C = eng.engine_cfg.prefill_chunk
         batch = self._prefill_batch()
@@ -1239,16 +1452,22 @@ class ContinuousBatchingScheduler:
         rows += [(j.slot, j.ids, j.pos) for j in jobs]
         N = round_up_pow2(len(rows))
         tokens, slots, starts, n_valids = self._pack_prefill_rows(rows, N, C)
-        with Timer(self.metrics, "finchat_prefill_seconds"):
+        with Timer(self.metrics, "finchat_prefill_seconds") as pt:
             logits = eng.prefill_chunk(tokens, slots, starts, n_valids)
         self._tally_dispatch()
-        # (handle, logits row, epoch): the epoch tells a preempted and
+        if TRACER.enabled:
+            trows = [[h.slot, h.trace_id or h.seq_id, "prefill"] for h in batch]
+            trows += [[j.slot, f"prefix:{j.owner}", "prefix"] for j in jobs]
+            self._trace_dispatch("prefill", trows, ts=pt.started, dur=pt.elapsed)
+        # (handle, batch row, epoch): the epoch tells a preempted and
         # replayed incarnation from the one this round prefilled
-        completions: list[tuple[SequenceHandle, object, int]] = []
+        completions: list[tuple[SequenceHandle, int, int]] = []
         for i, handle in enumerate(batch):
             handle.prefill_pos += int(n_valids[i])
             if handle.prefill_pos >= len(handle.prompt_ids):
-                completions.append((handle, logits[i], handle.epoch))
+                if handle.held:
+                    continue  # park: the first token waits for the graft
+                completions.append((handle, i, handle.epoch))
         for i, job in enumerate(jobs, start=len(batch)):
             job.pos += int(n_valids[i])
             if job.pos >= job.shared_len:
@@ -1256,26 +1475,40 @@ class ContinuousBatchingScheduler:
         if not completions:
             return  # dispatch-only round, no host sync needed
         tokens_dev = []
-        for h, row_logits, _epoch in completions:
+        for h, i, _epoch in completions:
+            h.span.mark("prefill_done")
             s = h.sampling
-            tokens_dev.append(eng.commit_first_token(h.slot, row_logits, s.temperature,
+            tokens_dev.append(eng.commit_first_token(h.slot, logits[i], s.temperature,
                                                      s.top_p, s.top_k))
+        # only the constrained completions' logits rows leave the card
+        picks = [i for h, i, _epoch in completions if h.constraint is not None]
+        picked = eng.select_rows(logits, picks) if picks else None
         # one host fetch for all completions (worker thread keeps the loop live)
-        fetched = await asyncio.to_thread(
-            lambda: [int(eng.to_host(t)) for t in tokens_dev])
-        for (handle, _lg, epoch), token_id in zip(completions, fetched):
+        fetched, logits_host = await asyncio.to_thread(
+            lambda: ([int(eng.to_host(t)) for t in tokens_dev],
+                     eng.to_host(picked) if picked is not None else None))
+        for (handle, i, epoch), token_id in zip(completions, fetched):
             if handle.finished or handle.epoch != epoch:
                 continue  # cancelled or preempted while fetching
-            self.prefilling.remove(handle)
-            self.decoding[handle.slot] = handle
-            self._deliver(handle, token_id)
+            try:
+                if handle.constraint is not None:
+                    token_id = self._constrained_pick(handle, logits_host[picks.index(i)])
+                self.prefilling.remove(handle)
+                self.decoding[handle.slot] = handle
+                self._deliver(handle, int(token_id))
+            except Exception as e:  # a pick or delivery error fails its sequence only
+                logger.error("prefill completion error for %s: %s", handle.seq_id, e)
+                self._evict(handle, "error", error=str(e))
 
     def _prefill_batch(self) -> list[SequenceHandle]:
-        """The prefilling sequences that go into this round: each passes its
-        ``scheduler.prefill`` fault site, and one that fails there is
-        evicted with an error on its own while the others go on."""
+        """The prefilling sequences that go into this round (parked holds
+        stay out): each passes its ``scheduler.prefill`` fault site, and
+        one that fails there is evicted with an error on its own while the
+        others go on."""
         batch = []
         for handle in list(self.prefilling):
+            if self._parked(handle):
+                continue  # awaiting extend_prompt
             try:
                 inject("scheduler.prefill", seq_id=handle.seq_id)
             except Exception as e:  # per-sequence isolation
@@ -1304,14 +1537,20 @@ class ContinuousBatchingScheduler:
         return tokens, slots, starts, n_valids
 
     def _fail_prefill_round(self, error: str) -> None:
+        """A whole prefill round failed: fail what was in it. A parked hold
+        was not (it waits for extend_prompt) and survives."""
         for handle in list(self.prefilling):
+            if self._parked(handle):
+                continue
             self._evict(handle, "error", error=error)
         for job in list(self._prefix_jobs):
             self._fail_prefix_job(job)
 
     def _prefill_work(self) -> bool:
-        """Is there prefill work: a prefilling sequence or a registration?"""
-        return bool(self.prefilling) or bool(self._prefix_jobs)
+        """Is there prefill work: a prefilling sequence that is not a parked
+        hold, or a registration? Parked holds are none, so an otherwise idle
+        loop sleeps instead of spinning through the retrieval."""
+        return any(not self._parked(h) for h in self.prefilling) or bool(self._prefix_jobs)
 
     def _use_mixed(self) -> bool:
         """One packed ragged dispatch instead of a prefill round plus a
@@ -1322,8 +1561,10 @@ class ContinuousBatchingScheduler:
         """Advance every prefilling sequence a chunk and every decoding slot
         a token in ONE packed ragged dispatch, with one host fetch. Prefill
         rows whose prompt completes sample their first token on the device
-        in the same dispatch; chunked prefix registrations ride it as rows
-        that sample nothing."""
+        in the same dispatch (a completed hold parks instead); constrained
+        completions and decode rows bring their logits rows back for the
+        host pick, at the non-truncating sampling defaults. Chunked prefix
+        registrations ride it as rows that sample nothing."""
         eng = self.engine
         C = eng.engine_cfg.prefill_chunk
         R = B = eng.engine_cfg.max_seqs
@@ -1349,7 +1590,9 @@ class ContinuousBatchingScheduler:
         completions: list[tuple[int, SequenceHandle, int]] = []  # (row, handle, epoch)
         prefill_rows: list[tuple[int, SequenceHandle]] = []
         job_rows: list[tuple[int, _PrefixJob]] = []
-        decode_rows: list[tuple[int, int, SequenceHandle, int]] = []
+        plain_rows: list[tuple[int, int, SequenceHandle, int]] = []
+        constrained_decode: list[tuple[int, int, SequenceHandle, int]] = []
+        constrained_rows: list[int] = []  # rows whose logits the host needs
         i = 0
         for h in batch:
             chunk = h.prompt_ids[h.prefill_pos : h.prefill_pos + C]
@@ -1358,13 +1601,17 @@ class ContinuousBatchingScheduler:
             row_len[i] = len(chunk)
             packed += chunk
             tok_row += [i] * len(chunk)
-            if h.prefill_pos + len(chunk) >= len(h.prompt_ids):
+            if not h.held and h.prefill_pos + len(chunk) >= len(h.prompt_ids):
                 # prompt completes this chunk: arm the row so its first
-                # token samples on the device with the sequence's params
+                # token samples on the device with the sequence's params (a
+                # constrained one keeps the defaults: the pick replaces it)
                 row_arm[i] = True
                 completions.append((i, h, h.epoch))
-                s = h.sampling
-                temp[i], top_p[i], top_k[i] = s.temperature, s.top_p, s.top_k
+                if h.constraint is not None:
+                    constrained_rows.append(i)
+                else:
+                    s = h.sampling
+                    temp[i], top_p[i], top_k[i] = s.temperature, s.top_p, s.top_k
             prefill_rows.append((i, h))
             i += 1
         for job in jobs:
@@ -1383,35 +1630,67 @@ class ContinuousBatchingScheduler:
             row_len[i] = 1
             packed.append(0)
             tok_row.append(i)
-            s = h.sampling
-            temp[i], top_p[i], top_k[i] = s.temperature, s.top_p, s.top_k
-            decode_rows.append((i, slot, h, epoch))
+            if h.constraint is not None:
+                # the host pick from this row's logits lands before the
+                # slot's next dispatch (the round is depth-1)
+                constrained_rows.append(i)
+                constrained_decode.append((i, slot, h, epoch))
+            else:
+                s = h.sampling
+                temp[i], top_p[i], top_k[i] = s.temperature, s.top_p, s.top_k
+                plain_rows.append((i, slot, h, epoch))
             i += 1
         assert i <= B
         T = eng.ragged_bucket(len(packed))
         packed += [0] * (T - len(packed))
         tok_row += [R] * (T - len(tok_row))
-        with Timer(self.metrics, "finchat_mixed_step_seconds"):
-            emitted_dev, _n_em, _row_logits = eng.ragged_mixed(
+        with Timer(self.metrics, "finchat_mixed_step_seconds") as mt:
+            emitted_dev, _n_em, row_logits = eng.ragged_mixed(
                 np.asarray(packed, np.int32), np.asarray(tok_row, np.int32),
                 row_slot, row_start, row_len, row_from_device, row_arm,
                 temp, top_p, top_k,
             )
         self._tally_dispatch()
+        if TRACER.enabled:
+            trows = [[h.slot, h.trace_id or h.seq_id, "prefill"] for _i, h in prefill_rows]
+            trows += [[j.slot, f"prefix:{j.owner}", "prefix"] for _i, j in job_rows]
+            trows += [[slot, h.trace_id or h.seq_id, "constrained"]
+                      for _i, slot, h, _e in constrained_decode]
+            trows += [[slot, h.trace_id or h.seq_id, "decode"] for _i, slot, h, _e in plain_rows]
+            self._trace_dispatch("ragged", trows, ts=mt.started, dur=mt.elapsed)
         for idx, h in prefill_rows:
             h.prefill_pos += int(row_len[idx])
         for idx, job in job_rows:
             job.pos += int(row_len[idx])
             if job.pos >= job.shared_len:
                 self._complete_prefix_job(job, "ragged")
-        emitted = await asyncio.to_thread(eng.to_host, emitted_dev)
+        # only the constrained rows' logits cross to the host
+        picked = eng.select_rows(row_logits, constrained_rows) if constrained_rows else None
+        emitted, logits_host = await asyncio.to_thread(
+            lambda: (eng.to_host(emitted_dev),
+                     eng.to_host(picked) if picked is not None else None))
         for idx, handle, epoch in completions:
             if handle.finished or handle.epoch != epoch:
                 continue  # cancelled or preempted while fetching
-            self.prefilling.remove(handle)
-            self.decoding[handle.slot] = handle
-            self._deliver(handle, int(emitted[idx, 0]))
-        for idx, slot, handle, epoch in decode_rows:
+            handle.span.mark("prefill_done")
+            try:
+                if handle.constraint is not None:
+                    token = self._constrained_pick(
+                        handle, logits_host[constrained_rows.index(idx)])
+                else:
+                    token = int(emitted[idx, 0])
+                self.prefilling.remove(handle)
+                self.decoding[handle.slot] = handle
+                self._deliver(handle, token)
+            except Exception as e:  # per-sequence isolation
+                logger.error("prefill completion error for %s: %s", handle.seq_id, e)
+                self._evict(handle, "error", error=str(e))
+        for idx, slot, handle, epoch in constrained_decode:
+            if handle.finished or handle.slot != slot or handle.epoch != epoch:
+                continue
+            self._deliver(handle, self._constrained_pick(
+                handle, logits_host[constrained_rows.index(idx)]))
+        for idx, slot, handle, epoch in plain_rows:
             if handle.finished or handle.slot != slot or handle.epoch != epoch:
                 continue
             self._deliver(handle, int(emitted[idx, 0]))
@@ -1437,28 +1716,56 @@ class ContinuousBatchingScheduler:
         else:
             handle.events.put_nowait({"type": "token", "token_id": token_id})
 
-    def _dispatch_decode(self) -> _InFlightStep:
-        """Enqueue one decode step on the device; returns without syncing."""
+    def _dispatch_decode(self, exclude: set[int] | frozenset = frozenset()) -> _InFlightStep:
+        """Enqueue one decode step on the device without syncing. Slots in
+        ``exclude`` (constrained slots whose pick is still pending) sit it
+        out: inactive, their pages read and not written, their context and
+        last token unchanged. The step's logits come back only while a
+        constrained slot is in it, and only that slot's rows: ``[n, vocab]``,
+        selected on the device, not the batch's ``[max_seqs, vocab]``."""
         inject("scheduler.decode")
         eng = self.engine
         B = eng.engine_cfg.max_seqs
         active = np.zeros((B,), bool)
         members = []
         for slot, handle in self.decoding.items():
+            if slot in exclude:
+                continue
             active[slot] = True
             members.append((slot, handle, handle.epoch))
-        next_tokens = eng.decode(active, self._temperature, self._top_p, self._top_k)
+        constrained_slots = sorted(slot for slot, h, _e in members if h.constraint is not None)
+        logits = None
+        if constrained_slots:
+            next_tokens, logits = eng.decode(active, self._temperature, self._top_p,
+                                             self._top_k, return_logits=True)
+            logits = eng.select_rows(logits, constrained_slots)
+        else:
+            next_tokens = eng.decode(active, self._temperature, self._top_p, self._top_k)
         self._tally_dispatch()
-        return _InFlightStep(tokens=next_tokens, members=members)
+        if TRACER.enabled:
+            self._trace_dispatch("decode", [[slot, h.trace_id or h.seq_id, "decode"]
+                                            for slot, h, _e in members])
+        return _InFlightStep(tokens=next_tokens, logits=logits, members=members,
+                             constrained_slots=constrained_slots)
 
     async def _consume_step(self, step: _InFlightStep) -> None:
-        """Fetch a dispatched step's tokens (in a worker thread) and deliver
-        them to the sequences that were in the batch when it was dispatched."""
-        tokens_host = await asyncio.to_thread(self.engine.to_host, step.tokens)
+        """Fetch a dispatched step's tokens and constrained logits rows (in a
+        worker thread) and deliver them to the sequences that were in the
+        batch when it was dispatched; a constrained member's token is the
+        host pick from its row."""
+        eng = self.engine
+        tokens_host, logits_host = await asyncio.to_thread(
+            lambda: (eng.to_host(step.tokens),
+                     eng.to_host(step.logits) if step.logits is not None else None))
         for slot, handle, epoch in step.members:
             if handle.finished or handle.slot != slot or handle.epoch != epoch:
                 continue  # evicted, cancelled or preempted since dispatch
-            self._deliver(handle, int(tokens_host[slot]))
+            if handle.constraint is not None and logits_host is not None:
+                token = self._constrained_pick(
+                    handle, logits_host[step.constrained_slots.index(slot)])
+                self._deliver(handle, token)
+            else:
+                self._deliver(handle, int(tokens_host[slot]))
         self.metrics.set_gauge("finchat_batch_occupancy", len(self.decoding))
 
     async def _drain_inflight(self, inflight: _InFlightStep) -> None:
@@ -1480,10 +1787,12 @@ class ContinuousBatchingScheduler:
                     self.engine.engine_cfg.max_seqs, self.quant_label)
         inflight: _InFlightStep | None = None
         while self._running:
+            self._reap_stale_holds()
             if self._coexist_mark is not None:
                 self.metrics.inc("finchat_coexist_dispatches_total",
                                  self._dispatch_tally - self._coexist_mark)
                 self._coexist_mark = None
+            # parked holds are not work: the loop sleeps through a retrieval
             if not (self.pending or self.decoding or self._prefill_work()):
                 if inflight is not None:  # drain the pipeline before idling
                     self._iter_ran_prefill = False
@@ -1527,7 +1836,8 @@ class ContinuousBatchingScheduler:
 
             if self._use_mixed():
                 # the mixed path is depth-1 (dispatch + consume within the
-                # iteration): drain any pipelined decode step first
+                # iteration): drain any pipelined decode step first, which
+                # also lands its pending picks
                 if inflight is not None:
                     inflight = await self._drain_inflight(inflight)
                 if self._use_mixed():  # consuming may have evicted slots
@@ -1559,13 +1869,28 @@ class ContinuousBatchingScheduler:
                     # whose errors surface at the fetch would swing the
                     # streak 0-1-0 and never trip the breaker
                     consumed = False
-                    # depth-2 pipeline: dispatch N+1, then consume N — the
-                    # device computes while the host delivers tokens
-                    step = self._dispatch_decode()
-                    if inflight is not None:
-                        await self._consume_step(inflight)
-                        consumed = True
-                    inflight = step
+                    # a constrained slot's next input is the host pick that
+                    # lands when its step is consumed: it sits out the step
+                    # dispatched before that consume and rejoins the next
+                    pending = set(inflight.constrained_slots) if inflight is not None else set()
+                    if any(slot not in pending for slot in self.decoding):
+                        # depth-2 pipeline: dispatch N+1, then consume N — the
+                        # device computes while the host delivers tokens
+                        step = self._dispatch_decode(exclude=pending)
+                        if inflight is not None:
+                            await self._consume_step(inflight)
+                            consumed = True
+                        inflight = step
+                    else:
+                        # every decoding slot waits on a pick: drain, then
+                        # run depth-1
+                        if inflight is not None:
+                            await self._consume_step(inflight)
+                            inflight = None
+                            consumed = True
+                        if self.decoding:
+                            await self._consume_step(self._dispatch_decode())
+                            consumed = True
                     if consumed:
                         self._note_round_ok("decode")
                 except Exception as e:

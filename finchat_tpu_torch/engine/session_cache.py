@@ -69,6 +69,7 @@ import torch
 from finchat_tpu_torch.utils.faults import inject
 from finchat_tpu_torch.utils.logging import get_logger
 from finchat_tpu_torch.utils.metrics import METRICS
+from finchat_tpu_torch.utils.tracing import TRACER
 
 logger = get_logger(__name__)
 
@@ -431,7 +432,7 @@ class SessionDiskTier:
         """Wait for every queued write and discard to land. The single
         worker makes one no-op submission a full drain."""
         if self._writer is not None:
-            self._writer.submit(lambda: None).result()
+            self._writer.submit(lambda: None).result()  # finchat-lint: disable=event-loop-blocking -- FIFO barrier by contract: reached only from the graceful drain (which must leave the tier durable) and the per-key pending-write restore gate
 
     def close(self) -> None:
         if self._writer is not None:
@@ -505,6 +506,10 @@ class SessionDiskTier:
             except OSError:
                 src.unlink(missing_ok=True)
         self.metrics.inc("finchat_durability_quarantines_total")
+        # a corrupt record is silent data loss to the client (a cold
+        # resume): the flight recorder keeps which key, when, and what the
+        # serving plane was doing
+        TRACER.anomaly("record_quarantine", args={"key": key, "file": fname})
         self._publish_gauges()
 
     # --- startup ---------------------------------------------------------

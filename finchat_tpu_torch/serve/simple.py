@@ -35,16 +35,18 @@ class LLMService:
         system_prompt: str | None = None,
         conversation_id: str | None = None,
         deadline: float | None = None,
+        trace_id: str | None = None,
     ) -> AsyncIterator[str]:
         """Stream the response to one user message; ``conversation_id``
         keys the session KV cache across the conversation's turns, and
         ``deadline`` (``time.perf_counter``'s clock) is the request's
-        completion deadline."""
+        completion deadline, and ``trace_id`` puts it on a trace timeline
+        (utils/tracing.py)."""
         prompt = render_chat(
             system_prompt if system_prompt is not None else self.system_prompt,
             context, list(chat_history), message,
         )
         async for chunk in self.generator.stream(prompt, self.sampling,
                                                  conversation_id=conversation_id,
-                                                 deadline=deadline):
+                                                 deadline=deadline, trace_id=trace_id):
             yield chunk

@@ -16,6 +16,10 @@ and ``max_queue_depth``. ``request_deadline_seconds`` and
 ``warmup_on_start`` are read by the serving app, as in the reference (the
 engine's ``warmup`` is there to call). ``kv_quant = "int8"`` (int8 KV
 pages) and ``ModelConfig.quant`` (int8/int4 weights) are served.
+Grammar-constrained decoding (``SamplingParams.grammar``) and the partial
+holds of the retrieval overlap are served: the scheduler reads
+``partial_hold_ttl_seconds``. ``retrieval_overlap`` and ``tool_streaming``
+are the agent's switches and stay unread until the agent is ported.
 """
 
 from __future__ import annotations

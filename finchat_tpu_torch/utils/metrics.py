@@ -47,6 +47,18 @@ histogram (the breaker's and ``revive_async``'s device-state rebuilds),
 ``finchat_breaker_recovery_seconds`` (trip to the first successful round of
 the plane) and ``finchat_warmup_compiled_variants`` (gauge: the step
 variants the engine's last ``warmup`` ran).
+
+Partial holds and tracing (engine/scheduler.py, engine/generator.py,
+utils/tracing.py), under the reference's names:
+``finchat_partial_holds_total`` / ``_grafts_total`` / ``_fallbacks_total``
+/ ``_stale_reaps_total`` (the retrieval overlap's holds, their grafts,
+refused grafts and holds reaped at their TTL), the
+``finchat_retrieval_graft_seconds`` histogram (``extend_prompt`` on the
+host), ``finchat_request_seconds`` (a request's whole span, with a trace
+exemplar), ``finchat_span_double_finish_total`` and
+``finchat_flight_dumps_total`` (by reason). A histogram observed with a
+``trace_id`` keeps the last trace id whose value landed above its p99
+bucket (``exemplar``).
 """
 
 from __future__ import annotations
@@ -67,7 +79,12 @@ def _labeled_key(name: str, labels: dict[str, str] | None) -> str:
 
 @dataclass
 class _Histogram:
-    """Fixed-bucket histogram (seconds-scale by default)."""
+    """Fixed-bucket histogram (seconds-scale by default).
+
+    With a ``trace_id`` passed to ``observe`` it keeps an exemplar: the
+    last trace id whose value landed strictly above the p99 bucket (the
+    first traced observation seeds it), so a latency spike links to that
+    request's exported timeline. "Above p99" is at bucket resolution."""
 
     buckets: tuple[float, ...] = (
         0.005, 0.01, 0.025, 0.05, 0.1, 0.2, 0.3, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 100.0,
@@ -75,19 +92,53 @@ class _Histogram:
     counts: list[int] = field(default_factory=list)
     total: float = 0.0
     n: int = 0
+    # (trace_id, value, unix_ts) of the last above-p99 observation
+    exemplar: tuple[str, float, float] | None = None
 
     def __post_init__(self) -> None:
         if not self.counts:
             self.counts = [0] * (len(self.buckets) + 1)
 
-    def observe(self, value: float) -> None:
-        self.total += value
-        self.n += 1
+    def _bucket_index(self, value: float) -> int:
         for i, edge in enumerate(self.buckets):
             if value <= edge:
-                self.counts[i] += 1
-                return
-        self.counts[-1] += 1
+                return i
+        return len(self.buckets)
+
+    def _q_index(self, q: float) -> int:
+        """Index of the bucket holding the q-quantile."""
+        target = q * self.n
+        seen = 0
+        for i in range(len(self.counts)):
+            seen += self.counts[i]
+            if seen >= target:
+                return i
+        return len(self.counts) - 1
+
+    def observe(self, value: float, trace_id: str | None = None) -> None:
+        self.total += value
+        self.n += 1
+        idx = self._bucket_index(value)
+        self.counts[idx] += 1
+        if trace_id is not None:
+            # strictly above the p99 bucket: when 99% of the mass sits in one
+            # bucket, observations inside it must not churn the exemplar away
+            # from the outlier
+            if self.exemplar is None or idx > self._q_index(0.99):
+                self.exemplar = (trace_id, value, time.time())
+
+    def quantile(self, q: float) -> float:
+        """Approximate quantile from the bucket edges (the bucket's upper
+        bound)."""
+        if self.n == 0:
+            return 0.0
+        target = q * self.n
+        seen = 0
+        for i, edge in enumerate(self.buckets):
+            seen += self.counts[i]
+            if seen >= target:
+                return edge
+        return float("inf")
 
 
 class MetricsRegistry:
@@ -110,12 +161,27 @@ class MetricsRegistry:
             self._gauges[_labeled_key(name, labels)] = value
 
     def observe(self, name: str, value: float,
-                labels: dict[str, str] | None = None) -> None:
+                labels: dict[str, str] | None = None,
+                trace_id: str | None = None) -> None:
         key = _labeled_key(name, labels)
         with self._lock:
             if key not in self._histograms:
                 self._histograms[key] = _Histogram()
-            self._histograms[key].observe(value)
+            self._histograms[key].observe(value, trace_id=trace_id)
+
+    def exemplar(self, name: str,
+                 labels: dict[str, str] | None = None) -> tuple[str, float, float] | None:
+        """The histogram's last above-p99 ``(trace_id, value, unix_ts)``, or
+        None."""
+        with self._lock:
+            hist = self._histograms.get(_labeled_key(name, labels))
+            return hist.exemplar if hist else None
+
+    def quantile(self, name: str, q: float,
+                 labels: dict[str, str] | None = None) -> float:
+        with self._lock:
+            hist = self._histograms.get(_labeled_key(name, labels))
+            return hist.quantile(q) if hist else 0.0
 
     def get(self, name: str, labels: dict[str, str] | None = None) -> float:
         key = _labeled_key(name, labels)

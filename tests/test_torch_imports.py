@@ -33,6 +33,16 @@ def test_port_files_found():
     assert len(PORT_FILES) > 15 and len(CUDA_FILES) >= 3
 
 
+@pytest.mark.parametrize("module", [
+    "agent/__init__.py", "agent/state.py", "agent/toolcall.py", "agent/constrained.py",
+    "tools/plot.py", "utils/tracing.py", "utils/metrics.py", "engine/generator.py",
+])
+def test_the_agent_planes_modules_are_walked(module):
+    """The modules the agent rides on (grammar, tool parsing, tracing, the
+    generator) are among the files walked above."""
+    assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_module_imports_no_jax(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
