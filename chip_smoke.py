@@ -185,15 +185,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``finchat_partial_grafts_total`` up by one, TTFT from the graft printed
    beside a plain submit's of the same prompt; a divergent graft must be
    refused and its cancel leave no own page and the head's refcount as it
-   was.
+   was. Then the agent (``agent_turns``): Penny turns through
+   ``LLMAgent.stream_with_status`` on a scheduler of its own at
+   ``EngineConfig()`` with both of the agent's prompt heads registered, the
+   prompts of ``prompts/``, a fake retriever (0.2 s, fixed rows), greedy,
+   96 decision and 64 response tokens at most. Four engine-decided turns,
+   two at a time, both roles on the model (the decision's tool grammar
+   bound through the generator's own ``GrammarVocab.for_tokenizer`` over a
+   ``ByteTokenizer`` as wide as the logits rows): the reference's event
+   protocol, the decision accepting and the streamed parser agreeing with
+   ``parse_tool_decision``, both streams teacher-forced (the decision under
+   its grammar mask), one graft a retrieving turn with the hold taken at
+   name-commit, the pages after the turns those before. Then two turns
+   decided by a paced ``StubGenerator`` with the overlap and tool streaming
+   on, then off: byte-identical responses; on, one launch a turn adopted,
+   the hold at name-commit (trace marks) and grafted, the response TTFT
+   from the turn's start and ``finchat_tool_overlap_saved_seconds``
+   printed on and off. Every kernel of the plane must launch in these
+   turns, under the serve's launch rules. Last, a turn abandoned once its
+   response has a token: no hold, slot or own page left, the heads'
+   refcounts unchanged.
 4. Serve the quantized plane the same way: int8 weights made by
    ``init_quantized_params`` (the bf16 tree never exists) and an int8 KV
    pool, warmed up, the same head, 8 requests in two waves and later turns.
    The teacher-forced check runs the plain forward on the dequantized
    weights with every K/V row quantized and dequantized as the cache stores
    it; the traced window, the constrained decode (its head through K8's
-   decode body), then the step profile and the breaker drill (the pool
-   rebuilt with its scale planes) with its flight dump.
+   decode body), one pair of the agent's engine-decided turns, then the
+   step profile and the breaker drill (the pool rebuilt with its scale
+   planes) with its flight dump.
 5. Serve int4 weights (per group of 128) over the int8 KV pool, warmed
    up: the head registered, two requests, one after the other's first token, 16 new
    tokens each, with the same prefix-cache and teacher-forced checks — the
@@ -1791,6 +1811,10 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         agent_stats = (await agent_planes(torch, plane, spec, config, engine, params, head_ids,
                                           system_prompt, shared, partial="partial" in agent)
                        if "constrained" in agent else None)
+        if "turns" in agent:
+            agent_stats["turns"] = await agent_turns(
+                torch, plane, spec, config, engine, params, system_prompt,
+                pairs=2 if "overlap" in agent else 1, overlap_runs="overlap" in agent)
         steps = (profile_steps(torch, engine, context=max(prompt_lens), active=len(handles))
                  if profile else None)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2599,6 +2623,484 @@ async def partial_holds(torch, plane, spec, config, params, sched, entry, head_p
     return dict(holds=rows, teacher_forced=checks, divergent_own_pages=own)
 
 
+# the agent's turns (``agent_turns``): new tokens at most for the decision (the
+# response takes ``AGENT_NEW``), the fake retriever's rows (after
+# ``RETRIEVAL_S``), the date the prompts carry, and the stub decision of the
+# overlap comparison, paced a word every ``STUB_WORD_S`` (its search query
+# commits on the second word)
+DECISION_NEW = 96
+TURN_ROWS = [
+    "2026-07-30 COFFEE CORNER -4.50 dining",
+    "2026-07-29 FRESH MARKET -86.12 groceries",
+    "2026-07-28 CITY TRANSIT -2.75 transport",
+    "2026-07-27 NOODLE BAR -23.40 dining",
+    "2026-07-25 PAYROLL +3100.00 income",
+    "2026-07-24 STREAMING CO -15.99 subscriptions",
+    "2026-07-21 FRESH MARKET -64.30 groceries",
+    "2026-07-01 LANDLORD LLC -1850.00 rent",
+]
+AGENT_DAY = "2026-08-03"
+STUB_DECISION = 'retrieve_transactions({"search_query": "dining", "num_transactions": 20})'
+STUB_WORD_S = 0.1
+
+
+class _TurnRetriever:
+    """The agent's fake retriever: ``RETRIEVAL_S`` of latency, then
+    ``TURN_ROWS``. With ``structured`` (given only where matplotlib is
+    installed) it also serves a plot call's rows, each with an amount."""
+
+    def __init__(self, structured: bool):
+        self.calls: list[dict] = []
+        if structured:
+            self.structured = self._structured
+
+    async def __call__(self, args):
+        self.calls.append(dict(args))
+        await asyncio.sleep(RETRIEVAL_S)
+        return list(TURN_ROWS)
+
+    async def _structured(self, args):
+        self.calls.append(dict(args))
+        await asyncio.sleep(RETRIEVAL_S)
+        return [dict(page_content=row, amount=float(i + 1), date=float(i))
+                for i, row in enumerate(TURN_ROWS)]
+
+
+def check_turn_protocol(plane: str, what: str, events: list) -> tuple[bool, int]:
+    """One ``stream_with_status`` turn against the reference's protocol: the
+    two opening statuses; then the retrieval status, ``retrieval_complete``
+    (and a plot event where a chart was drawn), or the no-retrieval status;
+    then "Generating response...", only response chunks, and ``complete``.
+    Returns whether the turn retrieved, and its row count."""
+    status = [{"type": "status", "message": m} for m in (
+        "Starting query processing...",
+        "Analyzing query to determine if transaction data is needed...",
+        "Retrieving relevant transaction data...", "No transaction data retrieval needed",
+        "Generating response...")]
+    complete = {"type": "complete", "message": "Query processing completed"}
+    ok = events[:2] == status[:2] and status[4] in events and events[-1] == complete
+    retrieved, count = False, 0
+    if ok:
+        g = events.index(status[4])
+        middle = events[2:g]
+        ok = all(e["type"] == "response_chunk" and e["content"] for e in events[g + 1:-1])
+        retrieved = bool(middle) and middle[0] == status[2]
+        if retrieved:
+            rc = middle[1] if len(middle) > 1 else {}
+            count = rc.get("count", -1)
+            plot = middle[2:]
+            ok = ok and rc == {"type": "retrieval_complete", "count": count,
+                               "message": f"Retrieved {count} transactions"} and (
+                not plot or (len(plot) == 1 and plot[0]["type"] == "plot"
+                             and plot[0]["data_uri"].startswith("data:image/png;base64,")))
+        else:
+            ok = ok and middle == [status[3]]
+    if not ok:
+        fail(f"agent turns ({plane}, {what}): the events break the protocol: "
+             + json.dumps([e if e["type"] != "plot" else {"type": "plot"} for e in events])[:2000])
+    return retrieved, count
+
+
+def _turn_handles(handles, conv: str) -> tuple:
+    """The decision handle and the response handle (the grafted hold, or the
+    plain submit) of the turn of ``conv``, by their session keys."""
+    tool = [h for h in handles if h.conversation_id == f"{conv}#tool"]
+    resp = [h for h in handles if h.conversation_id == f"{conv}#resp"]
+    return (tool[-1] if tool else None), (resp[-1] if resp else None), resp
+
+
+def _marks(tracer, trace_id: str) -> dict:
+    """The agent's marks of one turn on the trace: name -> first ts."""
+    out = {}
+    for ev in tracer.snapshot():
+        if ev[1] == trace_id and ev[2] not in out:
+            out[ev[2]] = ev[0]
+    return out
+
+
+def _wait_for(cond, what: str, limit_s: float = 10.0):
+    async def waiter():
+        t0 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t0 > limit_s:
+                fail(what)
+            await asyncio.sleep(0.005)
+    return waiter()
+
+
+async def agent_turns(torch, plane: str, spec: dict, config, engine, params, system_prompt: str,
+                      pairs: int, overlap_runs: bool) -> dict:
+    """Penny turns through the port's ``LLMAgent`` at full width, on the
+    serve's engine and weights, on a scheduler of its own at
+    ``EngineConfig()`` with both ``agent.prompt_heads()`` registered (BOS
+    added, the last token dropped, as the app registers them). The prompts
+    are the repo's ``prompts/``; everything is greedy, at most
+    ``DECISION_NEW`` tokens for the decision and ``AGENT_NEW`` for the
+    response; every turn is its own conversation and user, traced.
+
+    1. Engine-decided: both roles are one ``EngineGenerator`` over the model,
+       whose ``ByteTokenizer`` is as wide as the logits rows (its texts past
+       the bytes are empty), so the decision's ``tool_call`` grammar binds to
+       all 128,256 ids. ``pairs`` pairs of turns, two at a time, over the fake
+       retriever. Each turn's events must follow the reference's protocol;
+       the decision text must leave the DFA accepting, and the streamed
+       parser (recorded) must end with no anomaly and agree with
+       ``parse_tool_decision``; the decision passes the teacher-forced check
+       under its grammar mask, the response the plain one;
+       ``finchat_partial_grafts_total`` must rise by one a turn that
+       retrieved (the hold taken at name-commit, before the decision's last
+       token) and the pages after the turns equal those before.
+    2. With ``overlap_runs``: the decision from a ``StubGenerator`` paced a
+       word every ``STUB_WORD_S`` whose search query commits on its second
+       word, the response on the engine; the same two turns with
+       ``retrieval_overlap`` and ``tool_streaming`` on, then both off. The
+       responses must be byte-identical; with them on, the tool must launch
+       once a turn and be adopted (no cancel, no fallback, the
+       ``tool_adopted`` mark), the hold taken at name-commit (the
+       ``name_commit`` then ``response_prefill_hold`` marks, before the
+       stub's decode ended) and grafted; with them off, nothing launches or
+       holds. Every response of both runs passes the teacher-forced check. The response TTFT from the turn's start, on and off, and
+       ``finchat_tool_overlap_saved_seconds`` are printed.
+    3. With ``overlap_runs``: an abandoned turn. Its consumer goes away once
+       the response has its first token (the task iterating
+       ``stream_with_status`` is cancelled, as a client disconnect does, and
+       the generator closed): no hold, slot or own page may be left, and
+       the heads' refcounts must be as before.
+
+    Launch counts are set to 0 after the registrations and read after part
+    2: every kernel of the plane must have launched, under the serve's launch
+    rules (``check_window``)."""
+    import importlib.util
+
+    import finchat_tpu_torch.agent.graph as graph_mod
+    from finchat_tpu_torch.agent import LLMAgent
+    from finchat_tpu_torch.agent.constrained import DEAD
+    from finchat_tpu_torch.agent.toolcall import parse_tool_decision
+    from finchat_tpu_torch.engine.generator import EngineGenerator, StubGenerator
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    tok = ByteTokenizer(vocab_size=config.vocab_size)
+    tool_prompt = (REPO / "prompts" / "tool_prompt.txt").read_text()
+    sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+    gen = EngineGenerator(sched, tok)
+    handles: list = []
+    submit = sched.submit
+
+    async def recording_submit(*a, **k):
+        h = await submit(*a, **k)
+        handles.append(h)
+        return h
+
+    sched.submit = recording_submit
+    decision_s = SamplingParams(temperature=0.0, max_new_tokens=DECISION_NEW, grammar="tool_call")
+    response_s = SamplingParams(temperature=0.0, max_new_tokens=AGENT_NEW)
+
+    def make_agent(tool_gen, retriever, on: bool = True):
+        return LLMAgent(tool_gen, gen, retriever, system_prompt, tool_prompt,
+                        tool_sampling=decision_s, response_sampling=response_s,
+                        today=lambda: AGENT_DAY, retrieval_overlap=on, tool_streaming=on)
+
+    heads = make_agent(gen, None).prompt_heads()
+    shared = [sched.register_prefix(tok.encode(head, add_bos=True)[:-1]) for head in heads]
+    if not all(shared) or len(sched._prefixes) != 2:
+        fail(f"agent turns ({plane}): the two prompt heads registered {shared}")
+    entries = list(sched._prefixes)
+    head_pages = sum(len(e.pages) for e in entries)
+    log(f"  agent turns ({plane}): prompt heads of {shared} shared tokens ({head_pages} pages) "
+        f"registered; matplotlib on this machine: {matplotlib} (the fake retriever "
+        f"{'serves' if matplotlib else 'has no'} structured rows for a plot call)")
+    parsers: list = []
+    base_parser = graph_mod.StreamingToolParser
+
+    class RecordingParser(base_parser):
+        """The agent's streaming parser, kept for the checks."""
+
+        def __init__(self):
+            super().__init__()
+            self.final = "unfinished"
+            parsers.append(self)
+
+        def finish(self):
+            self.final = super().finish()
+            return self.final
+
+    async def turn(agent, i: int, conv: str) -> dict:
+        t0 = time.perf_counter()
+        events = [ev async for ev in agent.stream_with_status(
+            MESSAGES[i], f"user-{conv}", CONTEXTS[i], [], conversation_id=conv, trace_id=conv)]
+        return dict(conv=conv, i=i, t0=t0, events=events)
+
+    counts = _Counts(engine)
+    m0 = METRICS.snapshot()
+    reset_launches()
+    TRACER.clear()
+    graph_mod.StreamingToolParser = RecordingParser
+    out: dict = dict(matplotlib=matplotlib, shared=shared)
+    t_phase = time.perf_counter()
+    await sched.start()
+    try:
+        # 1. engine-decided turns, two at a time
+        used0 = sched.allocator.used_count
+        g0 = METRICS.get("finchat_partial_grafts_total")
+        retriever = _TurnRetriever(structured=matplotlib)
+        agent = make_agent(gen, retriever)
+        if agent.metrics is not sched.metrics:
+            fail(f"agent turns ({plane}): the agent's registry is not its scheduler's")
+        t_start = time.perf_counter()
+        turns = []
+        for p in range(pairs):
+            turns += await asyncio.gather(*(turn(agent, i, f"agent-{plane}-{i}")
+                                            for i in (2 * p, 2 * p + 1)))
+        _sync(torch)
+        wall = time.perf_counter() - t_start
+        await _wait_for(lambda: sched.allocator.used_count == used0 and not sched.decoding
+                        and not sched.prefilling,
+                        f"agent turns ({plane}): {sched.allocator.used_count} pages allocated "
+                        f"after the turns, not the heads' {used0}")
+        grafts = METRICS.get("finchat_partial_grafts_total") - g0
+        vocab = await gen._grammar_vocabs["tool_call"]
+        if len(vocab.token_strs) != config.vocab_size:
+            fail(f"agent turns ({plane}): the grammar is {len(vocab.token_strs)} ids wide")
+        rows, checks, n_retrieved = [], [], 0
+        for t in turns:
+            retrieved, count = check_turn_protocol(plane, t["conv"], t["events"])
+            decision, response, _all = _turn_handles(handles, t["conv"])
+            if decision is None or response is None:
+                fail(f"agent turns ({plane}): {t['conv']} has no decision or response handle")
+            _stream_ended(plane, "agent turns", decision, tok.eos_id)
+            _stream_ended(plane, "agent turns", response, tok.eos_id)
+            text = tok.decode([x for x in decision.history[len(decision.prompt_ids):]
+                               if x != tok.eos_id])
+            state = vocab.dfa.step_string(vocab.dfa.start, text)
+            if state == DEAD or not vocab.dfa.eos_ok[state]:
+                fail(f"agent turns ({plane}): {t['conv']}'s decision leaves the grammar "
+                     f"unaccepted: {text!r}")
+            call = parse_tool_decision(text)
+            if (call is not None) != retrieved:
+                fail(f"agent turns ({plane}): {t['conv']} retrieved {retrieved}, its decision "
+                     f"parses to {call}")
+            n_retrieved += retrieved
+            hold_lead = None
+            if retrieved:
+                # the hold submitted at name-commit, before the decision's last token
+                marks = _marks(TRACER, t["conv"])
+                if not (response.grafted and "name_commit" in marks
+                        and "response_prefill_hold" in marks
+                        and response.submitted_at < decision.last_token_at):
+                    fail(f"agent turns ({plane}): {t['conv']}'s response hold was not taken "
+                         f"at name-commit and grafted: marks {sorted(marks)}")
+                hold_lead = decision.last_token_at - response.submitted_at
+            checks.append(teacher_forced_check(torch, params, config, decision,
+                                               spec["kv_quant"], vocab=vocab))
+            checks.append(teacher_forced_check(torch, params, config, response,
+                                               spec["kv_quant"]))
+            ttft = response.first_token_at - t["t0"]
+            rows.append(dict(conv=t["conv"], decision=text, decision_tokens=decision.generated,
+                             decision_s=decision.last_token_at - decision.submitted_at,
+                             call=None if call is None else [call.name, call.args],
+                             retrieved=retrieved, rows=count, hold_lead_s=hold_lead,
+                             grafted=response.grafted, response_tokens=response.generated,
+                             ttft_from_turn_start_s=ttft,
+                             chunks=sum(e["type"] == "response_chunk" for e in t["events"])))
+            log(f"  agent turn {t['conv']} ({plane}): decision {decision.generated} tokens in "
+                f"{rows[-1]['decision_s']:.3f} s: {text!r}; retrieved {retrieved} ({count} rows)"
+                + (f"; hold taken {hold_lead:.3f} s before the decision's last token, grafted"
+                   if retrieved else "")
+                + f"; response {response.generated} tokens, {rows[-1]['chunks']} text chunks, "
+                f"TTFT from the turn's start {ttft:.3f} s")
+        recorded = sorted((p.text, repr(p.final), p.anomaly) for p in parsers)
+        want = sorted((r["decision"], repr(parse_tool_decision(r["decision"])), None)
+                      for r in rows)
+        if recorded != want or any(p.completed_call is not None and p.completed_call != p.final
+                                   for p in parsers):
+            fail(f"agent turns ({plane}): the streamed parsers {recorded} do not agree with "
+                 f"parse_tool_decision over the decisions {want}")
+        log(f"  agent turns ({plane}): {len(turns)} engine-decided turns in {wall:.2f} s; "
+            f"{n_retrieved} retrieved, partial grafts +{grafts:.0f}; pages after the turns "
+            f"{sched.allocator.used_count} (before {used0}); the streamed parsers agree with "
+            "parse_tool_decision")
+        if grafts != n_retrieved:
+            fail(f"agent turns ({plane}): finchat_partial_grafts_total rose by {grafts}, "
+                 f"{n_retrieved} turns retrieved")
+        out.update(engine_turns=rows, engine_wall_s=wall, grafts=grafts, teacher_forced=checks)
+        if overlap_runs:
+            out["overlap"] = await _overlap_runs(torch, plane, spec, config, params, sched,
+                                                 handles, turn, make_agent, StubGenerator)
+        launches = dict(LAUNCHES)
+        decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
+        rounds = _metric_delta(METRICS, m0, "finchat_mixed_dispatches_total")
+        missing = [k for k in spec["kernels"] if launches[k] == 0]
+        if missing:
+            fail(f"agent turns ({plane}): kernels not launched: {missing}")
+        check_window(plane, "agent turns", spec, config, launches, counts, decode_steps, rounds)
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        if overlap_runs:
+            out["abandoned"] = await _abandoned_turn(plane, sched, handles, entries, make_agent,
+                                                     StubGenerator)
+    finally:
+        graph_mod.StreamingToolParser = base_parser
+        await sched.stop()
+        sched.submit = submit
+        counts.close()
+    sched.retire_prefixes()
+    if sched.allocator.used_count != 0:
+        fail(f"agent turns ({plane}): {sched.allocator.used_count} KV pages still allocated")
+    if sched.session_cache is not None and sched.session_cache.disk is not None:
+        sched.session_cache.disk.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  agent turns ({plane}): the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def _paced_stub(stub_cls):
+    """A ``StubGenerator`` decision paced a word every ``STUB_WORD_S``; its
+    ``ended`` lists when each of its streams ended (the decode's end)."""
+
+    class Paced(stub_cls):
+        def __init__(self):
+            super().__init__(default=STUB_DECISION, chunk_delay=STUB_WORD_S)
+            self.ended: list[float] = []
+
+        async def stream(self, *a, **k):
+            async for piece in super().stream(*a, **k):
+                yield piece
+            self.ended.append(time.perf_counter())
+
+    return Paced()
+
+
+async def _overlap_runs(torch, plane, spec, config, params, sched, handles, turn, make_agent,
+                        stub_cls) -> dict:
+    """Part 2 of ``agent_turns``: the same two turns with the overlap and tool
+    streaming on, then off."""
+    from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    counters = ("finchat_tool_launches_total", "finchat_tool_speculative_cancels_total",
+                "finchat_tool_fallbacks_total", "finchat_partial_holds_total",
+                "finchat_partial_grafts_total")
+    runs = {}
+    for on in (True, False):
+        m0 = METRICS.snapshot()
+        stub = _paced_stub(stub_cls)
+        agent = make_agent(stub, _TurnRetriever(structured=False), on=on)
+        name = "on" if on else "off"
+        turns = await asyncio.gather(*(turn(agent, i, f"stub-{plane}-{name}-{i}")
+                                       for i in (0, 1)))
+        delta = {c: _metric_delta(METRICS, m0, c) for c in counters}
+        saved = _seconds(METRICS, m0, "finchat_tool_overlap_saved_seconds")
+        rows = []
+        for t in turns:
+            retrieved, count = check_turn_protocol(plane, t["conv"], t["events"])
+            _d, response, _all = _turn_handles(handles, t["conv"])
+            if not retrieved or response is None:
+                fail(f"agent turns ({plane}): the stub turn {t['conv']} did not retrieve")
+            marks = _marks(TRACER, t["conv"])
+            text = "".join(e["content"] for e in t["events"] if e["type"] == "response_chunk")
+            rows.append(dict(conv=t["conv"], text=text, rows=count,
+                             tokens=response.history[len(response.prompt_ids):],
+                             grafted=response.grafted, ttft_s=response.first_token_at - t["t0"],
+                             marks={k: v - t["t0"] for k, v in marks.items()}))
+            if on:
+                ok = (response.grafted and "tool_adopted" in marks and "tool_launch" in marks
+                      and marks.get("name_commit", 1e18) <= marks.get("response_prefill_hold", 0)
+                      < min(e for e in stub.ended if e > t["t0"]))
+            else:
+                ok = not response.grafted and not ({"tool_launch", "response_prefill_hold"}
+                                                   & set(marks))
+            if not ok:
+                fail(f"agent turns ({plane}): overlap {name}: {t['conv']}'s marks "
+                     f"{rows[-1]['marks']} (grafted {response.grafted})")
+        checks = [teacher_forced_check(torch, params, config, _turn_handles(handles, t["conv"])[1],
+                                       spec["kv_quant"]) for t in turns]
+        want = (dict(finchat_tool_launches_total=2, finchat_tool_speculative_cancels_total=0,
+                     finchat_tool_fallbacks_total=0, finchat_partial_holds_total=2,
+                     finchat_partial_grafts_total=2) if on else {c: 0 for c in counters})
+        if delta != want or saved["n"] != (2 if on else 0):
+            fail(f"agent turns ({plane}): overlap {name}: counters {delta}, overlap-saved "
+                 f"observations {saved['n']} (want {want}, {2 if on else 0})")
+        runs[name] = dict(turns=rows, counters=delta, overlap_saved=saved, teacher_forced=checks)
+        log(f"  agent overlap {name} ({plane}): response TTFT from the turn's start "
+            + ", ".join(f"{r['ttft_s']:.3f}" for r in rows) + " s; marks (s from the turn's "
+            "start) " + json.dumps([{k: round(v, 4) for k, v in r["marks"].items()
+                                     if k != "dispatch"} for r in rows])
+            + f"; counters {delta}; finchat_tool_overlap_saved_seconds {saved['n']} "
+            f"observations, {saved['total_s']:.3f} s in all")
+    same_text = [a["text"] == b["text"] for a, b in zip(runs["on"]["turns"], runs["off"]["turns"])]
+    same_tokens = [a["tokens"] == b["tokens"]
+                   for a, b in zip(runs["on"]["turns"], runs["off"]["turns"])]
+    # where the greedy ids part (both streams passed the teacher-forced check)
+    first_diff = [next((k for k, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y),
+                       None) for a, b in zip(runs["on"]["turns"], runs["off"]["turns"])]
+    log(f"  agent overlap ({plane}): responses byte-identical on and off: {same_text}; token "
+        f"ids identical: {same_tokens} (first different id at {first_diff})")
+    if not all(same_text):
+        fail(f"agent turns ({plane}): the responses differ with the overlap on and off")
+    for run in runs.values():
+        for r in run["turns"]:
+            r.pop("tokens")
+    return dict(runs=runs, byte_identical=same_text, token_identical=same_tokens,
+                first_different_id=first_diff)
+
+
+async def _abandoned_turn(plane, sched, handles, entries, make_agent, stub_cls) -> dict:
+    """Part 3 of ``agent_turns``: a turn whose consumer goes away once the
+    response has its first token."""
+    free0, used0 = len(sched.free_slots), sched.allocator.used_count
+    refs0 = [e.refs for e in entries]
+    conv = f"abandoned-{plane}"
+    agent = make_agent(stub_cls(default=STUB_DECISION), _TurnRetriever(structured=False))
+    stream = agent.stream_with_status(MESSAGES[3], "user-abandoned", CONTEXTS[3], [],
+                                      conversation_id=conv)
+    seen: list = []
+
+    async def consume():
+        async for ev in stream:
+            seen.append(ev["type"])
+
+    task = asyncio.create_task(consume())
+
+    def started():
+        _d, response, _all = _turn_handles(handles, conv)
+        return task.done() or (response is not None and response.generated >= 1)
+
+    await _wait_for(started, f"agent turns ({plane}): the abandoned turn's response never "
+                             "started")
+    if task.done():
+        fail(f"agent turns ({plane}): the abandoned turn ended before it was abandoned: {seen}")
+    task.cancel()
+    try:
+        await task
+    except asyncio.CancelledError:
+        pass
+    await stream.aclose()
+    _d, response, mine = _turn_handles(handles, conv)
+    await _wait_for(lambda: all(h.finished for h in mine) and not sched.decoding
+                    and not sched.prefilling and not sched.pending
+                    and sched.allocator.used_count == used0,
+                    f"agent turns ({plane}): the abandoned turn left work or pages: "
+                    f"{sched.allocator.used_count} pages (before {used0})")
+    own = sum(len(sched.allocator.owned_by(h.seq_id)) for h in mine)
+    refs = [e.refs for e in entries]
+    held = [h.seq_id for h in mine if h.held]
+    log(f"  agent abandoned turn ({plane}): consumer cancelled after {seen} with the response at "
+        f"{response.generated} tokens (grafted {response.grafted}); {len(mine)} handles, all "
+        f"finished, {own} own pages, {len(held)} holds left; free slots {len(sched.free_slots)} "
+        f"(before {free0}); the heads' refcounts {refs0} -> {refs}; {sched.allocator.used_count} "
+        f"pages allocated (before {used0})")
+    if own or held or refs != refs0 or len(sched.free_slots) != free0 or not response.grafted:
+        fail(f"agent turns ({plane}): the abandoned turn leaked a hold, slot, page or head "
+             "reference")
+    return dict(events_seen=seen, response_tokens=response.generated, own_pages=own,
+                refs=refs)
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attention_decode_sm90" in n:
@@ -3144,8 +3646,9 @@ def main() -> None:
 
     serves = {}
     for phase, plane, n_req, max_new, profile, drills, agent in (
-            (3, "bf16", 8, 64, True, ("breaker", "preemption"), ("constrained", "partial")),
-            (4, "int8+kv8", 8, 64, True, ("breaker",), ("constrained",)),
+            (3, "bf16", 8, 64, True, ("breaker", "preemption"),
+             ("constrained", "partial", "turns", "overlap")),
+            (4, "int8+kv8", 8, 64, True, ("breaker",), ("constrained", "turns")),
             (5, "int4g128+kv8", 2, 16, False, (), ())):
         log(f"phase {phase}: serve llama3-8b ({plane}, random weights) through LLMService")
         stats = asyncio.run(serve(torch, dev, plane, n_req, max_new, profile,
@@ -3172,6 +3675,18 @@ def main() -> None:
             for i, row in enumerate(stats["agent"].get("partial", {}).get("holds", [])):
                 log(f"  partial hold {i}: TTFT from the graft {row['ttft_from_graft_s']:.3f} s, a "
                     f"plain submit's {row['plain_ttft_s']:.3f} s ({card})")
+            turns = stats["agent"]["turns"]
+            for row in turns["engine_turns"]:
+                lead = ("" if row["hold_lead_s"] is None else
+                        f", the hold {row['hold_lead_s']:.3f} s before its end")
+                log(f"  agent turn {row['conv']}: decision {row['decision_tokens']} tokens in "
+                    f"{row['decision_s']:.3f} s{lead}; response TTFT from the turn's start "
+                    f"{row['ttft_from_turn_start_s']:.3f} s ({card})")
+            for name, run in turns.get("overlap", {}).get("runs", {}).items():
+                log(f"  agent overlap {name}: response TTFT from the turn's start "
+                    + ", ".join(f"{r['ttft_s']:.3f}" for r in run["turns"])
+                    + f" s; finchat_tool_overlap_saved_seconds {run['overlap_saved']['total_s']:.3f}"
+                    f" s over {run['overlap_saved']['n']} ({card})")
         log("serve: " + json.dumps(stats))
         serves[plane] = stats
 

@@ -19,7 +19,9 @@ pages) and ``ModelConfig.quant`` (int8/int4 weights) are served.
 Grammar-constrained decoding (``SamplingParams.grammar``) and the partial
 holds of the retrieval overlap are served: the scheduler reads
 ``partial_hold_ttl_seconds``. ``retrieval_overlap`` and ``tool_streaming``
-are the agent's switches and stay unread until the agent is ported.
+are the agent's switches: ``LLMAgent`` (agent/graph.py) takes them as
+arguments, as the reference's does, and the serving app is what passes
+these fields to it.
 """
 
 from __future__ import annotations

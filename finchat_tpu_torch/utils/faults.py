@@ -15,7 +15,10 @@ degradation contracts:
   at retirement never fails the retiring stream);
 - the durability plane: ``disk.spill`` (a failed record write never fails
   the stream) and ``disk.restore`` (a failed read quarantines the record
-  and cold-starts the conversation).
+  and cold-starts the conversation);
+- the agent: ``tool.execute`` fires inside every tool execution,
+  speculative and serial (``agent/graph.py`` ``_execute_tool``), so a test
+  can fail an eagerly launched tool mid-decode and see the serial retry.
 
 Sites are plain strings; ``ctx`` carries site-specific identifiers (e.g.
 ``seq_id``) so a handler can target one victim.

@@ -59,6 +59,17 @@ exemplar), ``finchat_span_double_finish_total`` and
 ``finchat_flight_dumps_total`` (by reason). A histogram observed with a
 ``trace_id`` keeps the last trace id whose value landed above its p99
 bucket (``exemplar``).
+
+Tool streaming (agent/streamparse.py, agent/graph.py), under the
+reference's names: ``finchat_tool_launches_total`` (tool executions the
+launcher started, speculative and adopted),
+``finchat_tool_speculative_cancels_total`` (in-flight launches cancelled
+because a later commit invalidated them, or the final call did not match),
+``finchat_tool_fallbacks_total`` (turns where streaming disengaged: a
+parser anomaly, an incremental/serial mismatch, or a failed speculative
+run retried serially) and the ``finchat_tool_overlap_saved_seconds``
+histogram (per adopted launch, the tool time that ran under the rest of
+the decision decode; its exemplar is the turn's trace id).
 """
 
 from __future__ import annotations

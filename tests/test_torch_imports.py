@@ -36,10 +36,12 @@ def test_port_files_found():
 @pytest.mark.parametrize("module", [
     "agent/__init__.py", "agent/state.py", "agent/toolcall.py", "agent/constrained.py",
     "tools/plot.py", "utils/tracing.py", "utils/metrics.py", "engine/generator.py",
+    "agent/graph.py", "agent/streamparse.py",
 ])
 def test_the_agent_planes_modules_are_walked(module):
-    """The modules the agent rides on (grammar, tool parsing, tracing, the
-    generator) are among the files walked above."""
+    """The agent (its graph, the streaming tool parser) and the modules it
+    rides on (grammar, tool parsing, tracing, the generator) are among the
+    files walked above."""
     assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
 
 
