@@ -205,6 +205,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    turns, under the serve's launch rules. Last, a turn abandoned once its
    response has a token: no hold, slot or own page left, the heads'
    refcounts unchanged.
+   Then ``app_turns``, once the serve's engine and weights are released: the
+   serving app at full width, bf16 — ``build_app`` builds the 8B itself
+   (random weights from ``model.seed``, a ``ByteTokenizer`` as wide as the
+   logits rows, ``EngineConfig()``'s defaults, warmup, both prompt heads
+   registered), over an ``InMemoryBroker``, an ``InMemoryStore`` of four
+   conversations and the agent's fake retriever, greedy, 64 new tokens.
+   Driven through the consume loop: four messages at once, a second turn of
+   two conversations (resumed through the session cache), a redelivered
+   answered message (deduped, nothing produced); over HTTP ``/health``,
+   a ``/chat/stream`` turn, ``/metrics`` and ``/debug/trace/<message_id>``;
+   then ``drain_and_stop()`` (no slot or page left beyond the heads, the
+   session entries on disk, the journal holding exactly the answered ids).
+   Every outbound record follows the chunk protocol, each stored answer is
+   its turn's chunks, every stream is teacher-forced, and every bf16
+   serving kernel launched under the serve's launch rules. It prints the
+   build's seconds and peak memory, TTFT from Kafka ingress (the trace's
+   ingress event to the response's first token) and the app's share of it,
+   the same for the HTTP turn, and the phase's seconds.
 4. Serve the quantized plane the same way: int8 weights made by
    ``init_quantized_params`` (the bf16 tree never exists) and an int8 KV
    pool, warmed up, the same head, 8 requests in two waves and later turns.
@@ -3101,6 +3119,447 @@ async def _abandoned_turn(plane, sched, handles, entries, make_agent, stub_cls) 
                 refs=refs)
 
 
+# the app's turns (``app_turns``): four conversations over the in-memory
+# broker and store, turn 2 of two of them, a redelivery, one HTTP turn
+APP_CONVS = 4
+APP_TURN2 = 2
+APP_WAIT_S = 300.0
+
+
+def _app_context(i: int) -> dict:
+    """A conversation's stored context document (``render_context`` gives
+    the prompt's context block): a few accounts and expenses, so the
+    context runs past the head's last page and a second turn has whole
+    pages of its own to resume."""
+    return {
+        "user_id": f"user-app-{i}", "name": f"Member {i}", "income": 5200 + 100 * i,
+        "savings_goal": 600 + 25 * i,
+        "accounts": [{"official_name": f"Everyday Checking {k}",
+                      "balances": {"current": 1234.5 + 10 * k, "iso_currency_code": "USD"}}
+                     for k in range(4)],
+        "additional_monthly_expenses": [
+            {"name": name, "amount": amount, "description": desc}
+            for name, amount, desc in (("Rent", 1850, "downtown apartment"), ("Gym", 40, ""),
+                                       ("Car loan", 412, "9,800 at 6.9% APR"),
+                                       ("Streaming", 16, "two services"))],
+    }
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, method: str, path: str, body: dict | None = None,
+          headers: dict | None = None) -> tuple[int, str, str]:
+    """One request over a real socket with the stdlib (the card's machine
+    has no HTTP client package): (status, content type, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=APP_WAIT_S)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read().decode()
+    finally:
+        conn.close()
+
+
+def _prometheus_families(text: str) -> set:
+    """The families of a Prometheus text exposition, each line checked: a
+    ``# TYPE`` / ``# exemplar`` comment or a ``name{labels} value`` sample
+    with a float value. Fails on a line that is neither."""
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$')
+    families = set()
+    for line in text.rstrip("\n").split("\n"):
+        if line.startswith("# exemplar "):
+            continue
+        if line.startswith("# TYPE "):
+            families.add(line.split(" ")[2])
+            continue
+        m = sample.match(line)
+        if m is None:
+            fail(f"app turns: /metrics line is not Prometheus text: {line!r}")
+        float(m.group(3))
+    return families
+
+
+def _check_chunks(what: str, raw: list, payloads: dict) -> dict:
+    """Every outbound record of ``ai_response`` parses and follows the
+    reference protocol: response chunks (``last_message`` false, ``error``
+    false, sender ``AIMessage``, every inbound field passed through), then
+    one ``complete`` marker carrying the original user text; an error chunk
+    (no ``type``) fails the phase. Returns message_id -> the concatenated
+    response text."""
+    texts: dict = {}
+    completes: dict = {}
+    for value in raw:
+        chunk = json.loads(value)
+        mid = chunk.get("message_id")
+        if mid not in payloads:
+            fail(f"app turns ({what}): an outbound record of no inbound message: {chunk}")
+        inbound = payloads[mid]
+        if "type" not in chunk or chunk.get("error") is not False:
+            fail(f"app turns ({what}): an error chunk for {mid}: {chunk}")
+        if completes.get(mid):
+            fail(f"app turns ({what}): a record after {mid}'s complete marker: {chunk}")
+        passthrough = all(chunk.get(k) == v for k, v in inbound.items() if k != "message")
+        if chunk["type"] == "response_chunk":
+            ok = (chunk["last_message"] is False and chunk["sender"] == "AIMessage"
+                  and isinstance(chunk["message"], str) and passthrough)
+            texts[mid] = texts.get(mid, "") + chunk["message"]
+        elif chunk["type"] == "complete":
+            ok = (chunk["last_message"] is True and chunk["sender"] == "AIMessage"
+                  and chunk["message"] == inbound["message"] and passthrough)
+            completes[mid] = True
+        else:
+            ok = chunk["type"] == "plot" and chunk["message"].startswith("data:image/png")
+        if not ok:
+            fail(f"app turns ({what}): a record breaks the chunk protocol: {chunk}")
+    missing = [mid for mid in payloads if mid not in completes]
+    if missing:
+        fail(f"app turns ({what}): no complete marker for {missing}")
+    return {mid: texts.get(mid, "") for mid in payloads}
+
+
+async def app_turns(torch, dev, card: str) -> dict:
+    """Penny turns through the port's serving app at ``llama3-8b``'s full
+    width, bf16: ``build_app`` itself builds the model (random weights from
+    ``model.seed``, its ``ByteTokenizer`` as wide as the logits rows), the
+    engine at ``EngineConfig()``'s defaults, warmed up, and registers both
+    prompt heads; an ``InMemoryStore`` holds four conversations, a
+    ``KafkaClient`` rides an ``InMemoryBroker``, the retriever is
+    ``agent_turns``' fake one. Sampling is greedy (``engine.temperature``
+    0, the agent's decision greedy under its grammar) so every stream can be
+    teacher-forced; ``engine.max_new_tokens`` is 64, ``kafka.
+    commit_after_process`` on, the session disk tier, journal and flight
+    recorder in a temporary directory.
+
+    Driven through the consume loop (``app.start(serve_http=True)``): four
+    user messages produced at once, then a second turn of two
+    conversations (resumed through the session cache), then one answered
+    message redelivered (deduped: nothing produced, the skip counter up by
+    one). Over HTTP from a worker thread: ``/health``, one
+    ``/chat/stream`` turn (the reference's SSE event order), ``/metrics``
+    (Prometheus text with ``finchat_ttft_seconds`` and the Kafka families)
+    and ``/debug/trace/<message_id>`` (the message's ingress event and
+    first token). Last ``drain_and_stop()``: no slot or page left beyond the
+    heads, the session entries on disk, the journal holding exactly the
+    answered ids. Launch counts are set to 0 after the build and read before
+    the drain: every bf16 serving kernel launched, under the serve's launch
+    rules, and no older body."""
+    import shutil
+    import tempfile
+
+    import finchat_tpu_torch.engine.engine as engine_mod
+    import finchat_tpu_torch.serve.app as app_mod
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.io.journal import AnsweredJournal
+    from finchat_tpu_torch.io.kafka import InMemoryBroker, KafkaClient
+    from finchat_tpu_torch.io.store import InMemoryStore
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.utils.config import (AI_RESPONSE_TOPIC, USER_MESSAGE_TOPIC,
+                                                KafkaConfig, load_config)
+    from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    t_phase = time.perf_counter()
+    spec = PLANES["bf16"]
+    gc.collect()  # the earlier phases' engines and trees are gone before this one
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="finchat-app-")
+    port = _free_port()
+    cfg = load_config(overrides={
+        "model.preset": "llama3-8b", "engine.max_new_tokens": AGENT_NEW,
+        "engine.temperature": 0.0, "kafka.commit_after_process": True,
+        "engine.session_cache_disk_path": f"{tmp}/sessions", "journal.path": f"{tmp}/journal",
+        "tracing.flight_dir": f"{tmp}/flight", "serve.host": "127.0.0.1", "serve.port": port})
+    store = InMemoryStore()
+    t_hist = int(time.time()) - 600
+    for i in range(APP_CONVS):
+        store.upsert_context(f"app-{i}", _app_context(i))
+        store.add_user_message(f"app-{i}", MESSAGES[i], f"user-app-{i}", timestamp=t_hist)
+    broker = InMemoryBroker()
+    retriever = _TurnRetriever(structured=False)
+    # the build's parts, timed where build_app calls them
+    timed: dict = {}
+    load, warmup = app_mod._load_model_artifacts, engine_mod.InferenceEngine.warmup
+
+    def timed_load(*a, **k):
+        t0 = time.perf_counter()
+        out = load(*a, **k)
+        torch.cuda.synchronize()
+        timed["weights_s"] = time.perf_counter() - t0
+        timed["weights_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+        return out
+
+    def timed_warmup(self):
+        t0 = time.perf_counter()
+        out = warmup(self)
+        timed["warmup_s"] = time.perf_counter() - t0
+        return out
+
+    app_mod._load_model_artifacts = timed_load
+    engine_mod.InferenceEngine.warmup = timed_warmup
+    t0 = time.perf_counter()
+    try:
+        app = app_mod.build_app(cfg, store=store, kafka=KafkaClient(cfg.kafka, broker=broker),
+                                retriever=retriever, device=dev)
+    finally:
+        app_mod._load_model_artifacts = load
+        engine_mod.InferenceEngine.warmup = warmup
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    sched = app.scheduler
+    engine = sched.engine
+    config = engine.config
+    tok = app.agent.tool_generator.tokenizer
+    head_pages = sum(len(e.pages) for e in sched._prefixes)
+    log(f"  app build ({card}): build_app {build_s:.1f} s — weights {timed['weights_s']:.1f} s "
+        f"({timed['weights_gb']:.2f} GB), warmup {timed['warmup_s']:.1f} s "
+        f"({engine.compiled_variants} step variants); peak {build_peak:.2f} GB above the "
+        f"{base / 1e9:.2f} GB held before; tokenizer {tok.vocab_size} ids wide; prompt heads "
+        f"registered by the app: {len(app._registered_heads)} ({head_pages} pages)")
+    if tok.vocab_size != config.vocab_size or len(app._registered_heads) != 2 or not head_pages:
+        fail("app turns: build_app did not give a vocab-wide tokenizer and two registered heads")
+    # the decision greedy under its grammar, as the earlier phases decode it
+    app.agent.tool_sampling = SamplingParams(temperature=0.0, max_new_tokens=DECISION_NEW,
+                                             grammar="tool_call")
+    handles: list = []
+    submit = sched.submit
+
+    async def recording_submit(*a, **k):
+        h = await submit(*a, **k)
+        handles.append(h)
+        return h
+
+    sched.submit = recording_submit
+    counts = _Counts(engine)
+    watcher = KafkaClient(KafkaConfig(), broker=broker)
+    watcher.setup_consumer(topics=[AI_RESPONSE_TOPIC])  # latest: joins before any produce
+    producer = KafkaClient(KafkaConfig(), broker=broker)
+    outbound: list = []
+
+    def drain_watcher() -> int:
+        n = 0
+        while (m := watcher.poll_message()) is not None:
+            outbound.append(m.value())
+            n += 1
+        return n
+
+    payloads: dict = {}
+    produced_at: dict = {}
+
+    def produce(conv: int, mid: str, text: str) -> None:
+        payload = {"message": text, "conversation_id": f"app-{conv}",
+                   "user_id": f"user-app-{conv}", "message_id": mid}
+        payloads[mid] = payload
+        produced_at[mid] = time.time()
+        producer.produce_message(USER_MESSAGE_TOPIC, payload["conversation_id"], payload)
+
+    def completes() -> int:
+        drain_watcher()
+        return sum(json.loads(v).get("type") == "complete" for v in outbound)
+
+    m0 = METRICS.snapshot()
+    reset_launches()
+    TRACER.clear()
+    wall_offset = time.time() - time.perf_counter()
+    out: dict = {}
+    try:
+        await app.start(serve_http=True)
+        # turn 1: four conversations at once
+        t_turns = time.perf_counter()
+        for i in range(APP_CONVS):
+            produce(i, f"app-m{i}", MESSAGES[i])
+        await _wait_for(lambda: completes() >= APP_CONVS,
+                        "app turns: turn 1 did not complete", APP_WAIT_S)
+        hits1 = _metric_delta(METRICS, m0, "finchat_prefix_hits_total")
+        # turn 2 of two conversations: the history now holds turn 1's answer
+        s0 = METRICS.snapshot()
+        for i in range(APP_TURN2):
+            store.add_user_message(f"app-{i}", MESSAGES[4 + i], f"user-app-{i}")
+            produce(i, f"app-m{i}-t2", MESSAGES[4 + i])
+        await _wait_for(lambda: completes() >= APP_CONVS + APP_TURN2,
+                        "app turns: turn 2 did not complete", APP_WAIT_S)
+        turns_s = time.perf_counter() - t_turns
+        session_hits = _metric_delta(METRICS, s0, "finchat_session_cache_hits_total")
+        await _wait_for(lambda: not app._inflight, "app turns: a message stayed in flight")
+        # a redelivery of an answered message
+        n_before = len(outbound)
+        d0 = METRICS.get("finchat_kafka_dedupe_skips_total")
+        producer.produce_message(USER_MESSAGE_TOPIC, "app-0", payloads["app-m0"])
+        await _wait_for(lambda: METRICS.get("finchat_kafka_dedupe_skips_total") > d0,
+                        "app turns: the redelivered message was not deduped")
+        await _wait_for(lambda: not app._inflight, "app turns: the redelivery stayed in flight")
+        drain_watcher()
+        dedupe = dict(skips=METRICS.get("finchat_kafka_dedupe_skips_total") - d0,
+                      new_records=len(outbound) - n_before)
+        if dedupe != dict(skips=1, new_records=0):
+            fail(f"app turns: the redelivery was answered again or not counted: {dedupe}")
+        # HTTP, from a worker thread: the server shares this loop
+        http_out: dict = {}
+        http_out["health"] = await asyncio.to_thread(_http, port, "GET", "/health")
+        store.add_user_message("app-3", MESSAGES[6], "user-app-3")
+        status, ctype, text = await asyncio.to_thread(
+            _http, port, "POST", "/chat/stream",
+            {"conversation_id": "app-3", "message": MESSAGES[6], "user_id": "user-app-3"},
+            {"x-trace-id": "app-http-1"})
+        sse = [json.loads(line[6:]) for line in text.split("\n") if line.startswith("data: ")]
+        http_out["stream"] = (status, ctype, len(sse))
+        if (status, ctype) != (200, "text/event-stream"):
+            fail(f"app turns: /chat/stream answered {status} {ctype}: {text[:500]}")
+        retrieved_http, _count = check_turn_protocol("bf16", "app /chat/stream", sse)
+        status, ctype, metrics_text = await asyncio.to_thread(_http, port, "GET", "/metrics")
+        families = _prometheus_families(metrics_text)
+        want_families = {"finchat_ttft_seconds", "finchat_kafka_produced_total",
+                         "finchat_kafka_commits_total", "finchat_kafka_dedupe_skips_total",
+                         "finchat_durability_journal_appends_total"}
+        http_out["metrics"] = (status, ctype, len(families))
+        if status != 200 or not want_families <= families:
+            fail(f"app turns: /metrics {status} lacks {sorted(want_families - families)}")
+        status, ctype, trace_text = await asyncio.to_thread(_http, port, "GET",
+                                                            "/debug/trace/app-m0")
+        names = [e["name"] for e in json.loads(trace_text)["traceEvents"]] if status == 200 else []
+        http_out["trace"] = (status, len(names))
+        if "ingress" not in names or "first_token" not in names:
+            fail(f"app turns: /debug/trace/app-m0 ({status}) lacks ingress or first_token: "
+                 f"{sorted(set(names))}")
+        if http_out["health"] != (200, "application/json", '{"status": "healthy"}'):
+            fail(f"app turns: /health answered {http_out['health']}")
+        log(f"  app HTTP ({card}): /health ok; /chat/stream {len(sse)} events in the reference "
+            f"order (retrieved {retrieved_http}); /metrics {len(families)} families, "
+            f"Prometheus text; /debug/trace/app-m0 {len(names)} events with ingress and "
+            "first_token")
+        # the window's launches, read before the drain
+        launches = dict(LAUNCHES)
+        decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
+        rounds = _metric_delta(METRICS, m0, "finchat_mixed_dispatches_total")
+        missing = [k for k in spec["kernels"] if launches[k] == 0]
+        if missing:
+            fail(f"app turns: kernels not launched on the app's path: {missing}")
+        check_window("bf16", "app turns", spec, config, launches, counts, decode_steps, rounds)
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        # the drain
+        sp0 = METRICS.get("finchat_durability_spills_total")
+        drain_t0 = time.perf_counter()
+        await app.drain_and_stop()
+        drain_s = time.perf_counter() - drain_t0
+        drain_watcher()
+    finally:
+        sched.submit = submit
+        counts.close()
+        watcher.close()
+    entries = list(sched.session_cache._entries)
+    on_disk = [k for k in entries if k in sched.session_cache.disk]
+    leak = dict(used=sched.allocator.used_count, heads=head_pages,
+                free_slots=len(sched.free_slots), max_seqs=cfg.engine.max_seqs,
+                live=len(sched.decoding) + len(sched.prefilling) + len(sched.pending))
+    log(f"  app drain ({card}): {drain_s:.2f} s; pages {leak['used']} (the heads' "
+        f"{head_pages}), free slots {leak['free_slots']}/{leak['max_seqs']}, live "
+        f"{leak['live']}; session entries {len(entries)} in RAM, {len(on_disk)} on disk, spills "
+        f"+{METRICS.get('finchat_durability_spills_total') - sp0:.0f}")
+    if leak["used"] != head_pages or leak["free_slots"] != leak["max_seqs"] or leak["live"]:
+        fail(f"app turns: the drain left work, a slot or a page: {leak}")
+    if not entries or len(on_disk) != len(entries):
+        fail(f"app turns: session entries not all on disk after the drain: {entries} / {on_disk}")
+    sched.retire_prefixes()
+    if sched.allocator.used_count != 0:
+        fail(f"app turns: {sched.allocator.used_count} pages after retire_prefixes")
+    journal = AnsweredJournal(cfg.journal.path, num_partitions=broker.num_partitions)
+    journaled = sorted(journal.replay(compact=False))
+    journal.close()
+    if journaled != sorted(payloads):
+        fail(f"app turns: the journal holds {journaled}, the answered ids are {sorted(payloads)}")
+    # the chunks, the store, the handles
+    texts = _check_chunks("Kafka", outbound, payloads)
+    ai_by_conv: dict = {}
+    for m in store._messages:
+        if m["sender"] == "AIMessage":
+            ai_by_conv.setdefault(m["conversation_id"], []).append(m["message"])
+    for i in range(APP_CONVS):
+        # the Kafka turns persist their answers; the SSE path does not
+        mids = [f"app-m{i}"] + ([f"app-m{i}-t2"] if i < APP_TURN2 else [])
+        want = [texts[mid] for mid in mids]
+        got = ai_by_conv.get(f"app-{i}", [])
+        if got != want:
+            fail(f"app turns: app-{i}'s stored answers {got} are not its chunks {want}")
+    vocab = await app.agent.tool_generator._grammar_vocabs["tool_call"]
+    if len(vocab.token_strs) != config.vocab_size:
+        fail(f"app turns: the grammar is {len(vocab.token_strs)} ids wide")
+    checks, rows = [], []
+    params = engine.params
+    for h in handles:
+        if not (h.finished and h.generated > 0):
+            continue
+        decision = h.conversation_id.endswith("#tool")
+        _stream_ended("bf16", "app turns", h, tok.eos_id)
+        checks.append(teacher_forced_check(torch, params, config, h, "",
+                                           vocab=vocab if decision else None))
+    for mid in list(payloads) + ["app-http-1"]:
+        mine = [h for h in handles if h.trace_id == mid]
+        response = [h for h in mine if h.conversation_id.endswith("#resp")]
+        marks = [ev for ev in TRACER.snapshot() if ev[1] == mid]
+        ingress = next((ev[0] for ev in marks if ev[2] == "ingress"), None)
+        start = next((ev[0] for ev in marks if ev[2] == "decide_start"), None)
+        if ingress is None or start is None or not response or \
+                response[-1].first_token_at is None:
+            fail(f"app turns: {mid} has no ingress, decide_start or response first token")
+        rows.append(dict(
+            message_id=mid, ttft_s=response[-1].first_token_at - ingress,
+            app_share_s=start - ingress,
+            queue_s=None if mid not in produced_at else ingress + wall_offset - produced_at[mid],
+            resumed=max(h.resumed_len for h in mine), shared=max(h.shared_len for h in mine),
+            resumed_past_head=any(h.resumed_len > h.shared_len for h in mine),
+            response_tokens=response[-1].generated, chunk_chars=len(texts.get(mid, "")),
+            grafted=response[-1].grafted))
+        log(f"  app turn {mid} ({card}): TTFT from ingress {rows[-1]['ttft_s']:.3f} s, of which "
+            f"the app before the agent's turn {rows[-1]['app_share_s'] * 1e3:.2f} ms"
+            + ("" if rows[-1]["queue_s"] is None else
+               f"; produce -> ingress {rows[-1]['queue_s'] * 1e3:.1f} ms")
+            + f"; {rows[-1]['shared']} shared, {rows[-1]['resumed']} resumed tokens; response "
+            f"{rows[-1]['response_tokens']} tokens, {rows[-1]['chunk_chars']} text chars")
+    kafka_rows = [r for r in rows if r["message_id"] != "app-http-1"]
+    turn2 = [r for r in rows if r["message_id"].endswith("-t2")]
+    if hits1 <= 0:
+        fail("app turns: turn 1 did not hit the heads the app registered")
+    if session_hits < APP_TURN2 or not all(r["resumed_past_head"] for r in turn2):
+        fail(f"app turns: turn 2 did not resume through the session cache: hits "
+             f"{session_hits}, rows {turn2}")
+    ttft = sorted(r["ttft_s"] for r in kafka_rows)
+    share = sorted(r["app_share_s"] for r in kafka_rows)
+    http_row = rows[-1]
+    out.update(
+        build_s=build_s, weights_s=timed["weights_s"], warmup_s=timed["warmup_s"],
+        weights_gb=timed["weights_gb"], build_peak_gb=build_peak,
+        phase_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+        turns_s=turns_s, drain_s=drain_s, prefix_hits_turn1=hits1,
+        session_hits_turn2=session_hits, dedupe=dedupe, http=http_out,
+        ttft_p50_s=statistics.median(ttft), ttft_s=ttft,
+        app_share_p50_s=statistics.median(share), http_ttft_s=http_row["ttft_s"],
+        http_app_share_s=http_row["app_share_s"], turns=rows, teacher_forced=checks,
+        journaled=journaled)
+    del app, engine, sched, params, handles, recording_submit, submit
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  app turns ({card}): {len(kafka_rows)} Kafka turns in {turns_s:.2f} s; TTFT from "
+        f"ingress p50 {out['ttft_p50_s']:.3f} s, the app's share p50 "
+        f"{out['app_share_p50_s'] * 1e3:.2f} ms; /chat/stream TTFT {out['http_ttft_s']:.3f} s "
+        f"(the app's share {out['http_app_share_s'] * 1e3:.2f} ms); prefix hits turn 1 "
+        f"{hits1:.0f}, session hits turn 2 {session_hits:.0f}; {len(checks)} streams "
+        f"teacher-forced; the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attention_decode_sm90" in n:
@@ -3689,6 +4148,12 @@ def main() -> None:
                     f" s over {run['overlap_saved']['n']} ({card})")
         log("serve: " + json.dumps(stats))
         serves[plane] = stats
+        if plane == "bf16":
+            log("phase 3, app_turns: llama3-8b (bf16, random weights) through the serving app: "
+                "build_app, Kafka, HTTP, the journal")
+            del stats
+            app = asyncio.run(app_turns(torch, dev, card))
+            log("app: " + json.dumps(app))
 
     log("phase 6: train llama3-8b (random weights) through K7, forward and backward")
     check = train_check(torch, dev)

@@ -5,8 +5,19 @@ as the reference: TTFT and inter-token histograms, tokens generated, queue
 depth, batch occupancy, KV pages used, and the mixed-step family
 (``finchat_mixed_dispatches_total``, ``finchat_coexist_iterations_total``,
 ``finchat_coexist_dispatches_total``) that shows how many coexist rounds
-ran as one packed ragged dispatch. The Prometheus rendering comes with the
-HTTP slice.
+ran as one packed ragged dispatch. ``render_prometheus`` gives the text the
+app's ``GET /metrics`` serves, byte for byte the reference's for the same
+registry contents; ``labeled`` gives a view that stamps fixed labels onto
+every series it touches.
+
+The serving app (serve/app.py, io/kafka.py, io/journal.py), under the
+reference's names: ``finchat_kafka_produced_total``,
+``finchat_kafka_errors_produced_total``, ``finchat_kafka_commits_total`` and
+``finchat_kafka_dedupe_skips_total`` (redelivered answered ids skipped);
+``finchat_durability_journal_appends_total`` /
+``_journal_append_failures_total`` / ``_journal_replayed_total``,
+``finchat_durability_graceful_drains_total`` and the
+``finchat_durability_shutdown_drain_seconds`` histogram.
 
 Prefix and session KV caches (engine/scheduler.py, engine/session_cache.py),
 under the reference's names: ``finchat_prefix_hits_total`` and
@@ -86,6 +97,12 @@ def _labeled_key(name: str, labels: dict[str, str] | None) -> str:
         return name
     inner = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
     return f"{name}{{{inner}}}"
+
+
+def _split_key(key: str) -> tuple[str, str]:
+    """Inverse of ``_labeled_key``: (base name, label string without braces)."""
+    base, _, rest = key.partition("{")
+    return base, rest[:-1] if rest else ""
 
 
 @dataclass
@@ -201,6 +218,12 @@ class MetricsRegistry:
                 return self._counters[key]
             return self._gauges.get(key, 0.0)
 
+    def labeled(self, **labels: str) -> "LabeledMetrics":
+        """A view of this registry that stamps ``labels`` onto every series
+        it touches (a fleet replica's scheduler emits its families under a
+        ``replica`` label this way)."""
+        return LabeledMetrics(self, labels)
+
     def snapshot(self) -> dict[str, float]:
         """Every counter and gauge, and each histogram as ``{name}_count``
         and ``{name}_sum``."""
@@ -211,6 +234,96 @@ class MetricsRegistry:
                 snap[f"{name}_count"] = h.n
                 snap[f"{name}_sum"] = h.total
             return snap
+
+
+    def render_prometheus(self) -> str:
+        """Prometheus text format 0.0.4: counters, then gauges, then
+        histograms, each family's label variants consecutive under one
+        ``# TYPE`` line keyed by the base name; a histogram's bucket lines
+        merge its series labels with the ``le`` edge. A histogram's exemplar
+        is a ``# exemplar`` comment (plain parsers skip it) whose trace id,
+        which a client controls (a Kafka ``message_id``, an ``x-trace-id``
+        header), is escaped so it cannot end the comment and forge a line."""
+        lines: list[str] = []
+        with self._lock:
+            for store, kind in ((self._counters, "counter"), (self._gauges, "gauge")):
+                seen: set[str] = set()
+                for key in sorted(store, key=_split_key):
+                    base, _lbl = _split_key(key)
+                    if base not in seen:
+                        seen.add(base)
+                        lines.append(f"# TYPE {base} {kind}")
+                    lines.append(f"{key} {store[key]}")
+            seen_types: set[str] = set()
+            for key in sorted(self._histograms, key=_split_key):
+                base, lbl = _split_key(key)
+                h = self._histograms[key]
+                if base not in seen_types:
+                    seen_types.add(base)
+                    lines.append(f"# TYPE {base} histogram")
+
+                def series(extra: str = "") -> str:
+                    both = ",".join(x for x in (lbl, extra) if x)
+                    return "{" + both + "}" if both else ""
+
+                cumulative = 0
+                for i, edge in enumerate(h.buckets):
+                    cumulative += h.counts[i]
+                    le = 'le="%s"' % edge
+                    lines.append(f"{base}_bucket{series(le)} {cumulative}")
+                cumulative += h.counts[-1]
+                le_inf = 'le="+Inf"'
+                lines.append(f"{base}_bucket{series(le_inf)} {cumulative}")
+                lines.append(f"{base}_sum{series()} {h.total}")
+                lines.append(f"{base}_count{series()} {h.n}")
+                if h.exemplar is not None:
+                    tid, val, ts = h.exemplar
+                    safe = (tid.replace("\\", "\\\\").replace('"', '\\"')
+                            .replace("\n", "\\n").replace("\r", "\\r"))
+                    lines.append(
+                        f'# exemplar {key} trace_id="{safe}" value={val} ts={ts}'
+                    )
+        return "\n".join(lines) + "\n"
+
+
+class LabeledMetrics:
+    """Registry view with a fixed label set merged into every call: a drop-in
+    for ``METRICS`` at the scheduler's and session cache's call sites
+    (``inc`` / ``set_gauge`` / ``observe`` / ``exemplar`` / ``get`` /
+    ``quantile``, and as a ``Timer`` target). Call-site labels merge over
+    the fixed ones."""
+
+    def __init__(self, registry: MetricsRegistry, labels: dict[str, str]):
+        self._registry = registry
+        self.labels = {k: str(v) for k, v in labels.items()}
+
+    def _merge(self, labels: dict[str, str] | None) -> dict[str, str]:
+        return {**self.labels, **labels} if labels else self.labels
+
+    def inc(self, name: str, value: float = 1.0,
+            labels: dict[str, str] | None = None) -> None:
+        self._registry.inc(name, value, labels=self._merge(labels))
+
+    def set_gauge(self, name: str, value: float,
+                  labels: dict[str, str] | None = None) -> None:
+        self._registry.set_gauge(name, value, labels=self._merge(labels))
+
+    def observe(self, name: str, value: float,
+                labels: dict[str, str] | None = None,
+                trace_id: str | None = None) -> None:
+        self._registry.observe(name, value, labels=self._merge(labels),
+                               trace_id=trace_id)
+
+    def exemplar(self, name: str,
+                 labels: dict[str, str] | None = None) -> tuple[str, float, float] | None:
+        return self._registry.exemplar(name, labels=self._merge(labels))
+
+    def get(self, name: str, labels: dict[str, str] | None = None) -> float:
+        return self._registry.get(name, labels=self._merge(labels))
+
+    def quantile(self, name: str, q: float,
+                 labels: dict[str, str] | None = None) -> float:
+        return self._registry.quantile(name, q, labels=self._merge(labels))
 
 
 # Process-global registry (one worker process = one registry).

@@ -37,11 +37,14 @@ def test_port_files_found():
     "agent/__init__.py", "agent/state.py", "agent/toolcall.py", "agent/constrained.py",
     "tools/plot.py", "utils/tracing.py", "utils/metrics.py", "engine/generator.py",
     "agent/graph.py", "agent/streamparse.py",
+    "utils/config.py", "io/schemas.py", "io/store.py", "io/kafka.py", "io/journal.py",
+    "serve/fleet.py", "serve/http.py", "serve/app.py",
 ])
 def test_the_agent_planes_modules_are_walked(module):
-    """The agent (its graph, the streaming tool parser) and the modules it
-    rides on (grammar, tool parsing, tracing, the generator) are among the
-    files walked above."""
+    """The agent (its graph, the streaming tool parser), the modules it
+    rides on (grammar, tool parsing, tracing, the generator) and the
+    serving app with its transport, store, journal and HTTP server are
+    among the files walked above."""
     assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
 
 

@@ -1,9 +1,10 @@
 """Static checks over the port.
 
 - The JAX package's analyzer (``finchat_tpu.analysis``: event-loop
-  blocking, host syncs on the hot path, metric and span discipline, ...)
-  finds nothing unsuppressed in ``finchat_tpu_torch/``, and every
-  suppression there is justified and used.
+  blocking, host syncs on the hot path, metric and span discipline, the
+  knob rule R4 over the port's ``load_config`` and README.md, ...) finds
+  nothing unsuppressed in ``finchat_tpu_torch/``, and every suppression
+  there is justified and used.
 - Span discipline: every literal name passed to ``.mark(...)``,
   ``TRACER.event(...)``, ``TRACER.anomaly(...)`` or ``TRACER.span(...)``
   in the port is in the port's tracing registries. The analyzer's own rule
@@ -29,9 +30,32 @@ def test_analyzer_finds_nothing_in_the_port():
     assert result.findings == [], "\n".join(map(str, result.findings))
     assert result.meta_findings == []
     assert result.unused_suppressions == []
-    # the one justified suppression: the disk tier's FIFO barrier
-    assert [f.symbol for f, _s in result.suppressed] == ["SessionDiskTier.flush"]
+    # the justified suppressions, each carried from the reference: the disk
+    # tier's FIFO barrier; the journal's fsync-before-commit append and its
+    # compaction rewrite (two findings each: the open and the fsync); the
+    # memory broker's offsets file; the two config-file-only vector knobs
+    # (R4)
+    assert sorted(f.symbol for f, _s in result.suppressed) == [
+        "AnsweredJournal._rewrite", "AnsweredJournal._rewrite",
+        "AnsweredJournal.append", "AnsweredJournal.append",
+        "InMemoryBroker._persist_offsets", "SessionDiskTier.flush",
+        "VectorConfig", "VectorConfig"]
     assert all(s.justified for _f, s in result.suppressed)
+
+
+def test_the_knob_rule_runs_over_the_port(tmp_path):
+    """R4 reads the port's ``utils/config.py``: a field with no env var and
+    no suppression is a finding there."""
+    src = (ROOT / "finchat_tpu_torch" / "utils" / "config.py").read_text()
+    bad = src.replace("    persist_path: str = \"\"  # snapshot directory",
+                      "    unwired_knob: int = 0\n    persist_path: str = \"\"  # snapshot directory")
+    assert bad != src
+    (tmp_path / "utils").mkdir()
+    (tmp_path / "utils" / "config.py").write_text(bad)
+    (tmp_path / "README.md").write_text((ROOT / "README.md").read_text())
+    result = run_analysis(tmp_path, [tmp_path / "utils"])
+    assert [(f.rule, f.symbol) for f in result.findings] == [("knob-consistency", "VectorConfig")]
+    assert "vector.unwired_knob" in result.findings[0].message
 
 
 def _span_literals(path: Path) -> list[tuple[int, str, str]]:
