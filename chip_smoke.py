@@ -96,8 +96,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernels round dS to bf16 before their products) and against autograd of
    the plain ``mha_reference`` in fp32 on the same bf16 inputs (per tensor
    1e-2). Yardstick: ``scaled_dot_product_attention`` forward, and its
-   backward through autograd, on the same work.
-3. Serve: ``llama3-8b`` with random bf16 weights from a seeded generator,
+   backward through autograd, on the same work. Then K8 at the int8
+   encoder's shapes (``bge-base-en``: [768, 2304] qkv, [768, 768] attn_out,
+   [768, 3072] mlp_in, [3072, 768] mlp_out) at M=2048 (an ingest dispatch:
+   the Hopper kernel) and M=32 (a lone query: the decode body), under the
+   same rules; their launches are the retrieval phase's: the int8
+   ingest's window for M=2048, the int8 queries' window for M=32.
+3. Retrieval (``retrieval_phase``): ``bge-base-en`` with random weights
+   from a seeded generator, bf16 and int8 (K8), texts framed by the 8B's
+   ``ByteTokenizer``. 4,096 transactions of 64 users (seeded: kind x
+   merchant x amount x date, three double charges a user) ingested by each
+   encoder through ``TransactionRetriever.upsert_transactions`` from worker
+   threads, 8 texts a call, the microbatcher bound to the loop (the
+   threadsafe path coalesces them); then 258,048 seeded random unit vectors
+   of 1,024 other users, dated over 730 days, into the bf16 index: 262,144
+   rows on the card. 64 retrievals at once through ``structured``, one a
+   corpus user, half over the last 30 days, half of 10 rows: every hit
+   list, and ``query_points`` run serially on the same query vectors, must
+   hold only the user's rows and equal a float64 numpy search of the host
+   copy (ties to the lower row; the same row wherever a score is more than
+   1e-5 from its neighbours, overlap >= 0.99). The same 64 retrievals then
+   go one at a time through the int8 retriever's ``structured`` (the
+   batcher; lone queries) and are held to the plain search over the int8
+   index. The int8 encoder's top-10 over the corpus, on those query
+   vectors, must overlap the bf16 one's >= 0.99 (near ties within 2e-3
+   count). K8's launches are read in two windows, each reset just before:
+   the int8 ingest must launch only the Hopper kernel, 48 a dispatch; the
+   int8 queries only the decode body, 48 a query; neither v2.
+   Printed: ingest texts/s of both, embed dispatches a request, the
+   retrieval embed and search seconds, one scoring call at B=32 over the
+   collection on the card against its bound, peak memory. The bf16
+   retriever stays for the agent's stub turns.
+   Serve: ``llama3-8b`` with random bf16 weights from a seeded generator,
    ``EngineConfig``'s defaults with only ``kv_quant`` and the session disk
    tier's directory (a temporary one) set — the prefix and session KV
    caches, recompute preemption and the circuit breaker on — behind the
@@ -198,7 +228,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    its grammar mask), one graft a retrieving turn with the hold taken at
    name-commit, the pages after the turns those before. Then two turns
    decided by a paced ``StubGenerator`` with the overlap and tool streaming
-   on, then off: byte-identical responses; on, one launch a turn adopted,
+   on, then off, over the retrieval phase's real retriever (two corpus
+   users; each count the plain search's): byte-identical responses; on, one launch a turn adopted,
    the hold at name-commit (trace marks) and grafted, the response TTFT
    from the turn's start and ``finchat_tool_overlap_saved_seconds``
    printed on and off. Every kernel of the plane must launch in these
@@ -209,20 +240,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
    serving app at full width, bf16 — ``build_app`` builds the 8B itself
    (random weights from ``model.seed``, a ``ByteTokenizer`` as wide as the
    logits rows, ``EngineConfig()``'s defaults, warmup, both prompt heads
-   registered), over an ``InMemoryBroker``, an ``InMemoryStore`` of four
-   conversations and the agent's fake retriever, greedy, 64 new tokens.
-   Driven through the consume loop: four messages at once, a second turn of
+   registered) and, with no ``retriever=``, its own retriever (``bge-base-en``,
+   the on-device index snapshotting to a temporary directory), over an
+   ``InMemoryBroker`` and an ``InMemoryStore`` of four conversations,
+   greedy, 64 new tokens. Driven through the consume loop: 12 transactions
+   of each conversation's user first (three users over ``POST
+   /transactions``, one batch on the ``transaction_upsert`` topic), then
+   four messages at once, a second turn of
    two conversations (resumed through the session cache), a redelivered
    answered message (deduped, nothing produced); over HTTP ``/health``,
    a ``/chat/stream`` turn, ``/metrics`` and ``/debug/trace/<message_id>``;
    then ``drain_and_stop()`` (no slot or page left beyond the heads, the
-   session entries on disk, the journal holding exactly the answered ids).
-   Every outbound record follows the chunk protocol, each stored answer is
+   session entries on disk, the journal holding exactly the answered ids,
+   the index's snapshot loading back with the live index's hits). A turn
+   whose decision retrieved must report the plain search's count for its
+   arguments. Every outbound record follows the chunk protocol, each stored answer is
    its turn's chunks, every stream is teacher-forced, and every bf16
    serving kernel launched under the serve's launch rules. It prints the
    build's seconds and peak memory, TTFT from Kafka ingress (the trace's
    ingress event to the response's first token) and the app's share of it,
    the same for the HTTP turn, and the phase's seconds.
+   Then the CLI: ``python -m finchat_tpu_torch --preset llama3-8b --config
+   <json>`` in a subprocess (its in-memory store seeded with one
+   conversation first; the config names ``bge-base-en`` and a snapshot
+   directory): ``GET /health``, ``POST /transactions`` of 8 rows, one
+   ``/chat/stream`` turn in the reference's event order, then SIGTERM: exit
+   0 within the shutdown deadline, the graceful drain in its log, the
+   snapshot holding the rows.
 4. Serve the quantized plane the same way: int8 weights made by
    ``init_quantized_params`` (the bf16 tree never exists) and an int8 KV
    pool, warmed up, the same head, 8 requests in two waves and later turns.
@@ -259,10 +303,13 @@ CUDA device is visible or when the port package is not beside this file.
 
 from __future__ import annotations
 
+import ast
 import asyncio
 import gc
+import importlib.util
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1047,14 +1094,16 @@ def check_ragged_pair(torch, name, pair, want, live, tr, spans, kv_lens, R: int,
 
 
 def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, group: int,
-              out_f32: bool, results: list) -> None:
+              out_f32: bool, results: list, launch_plane: str | None = None) -> None:
     """The fused dequant matmul against its plain version at one shape,
     through the wrapper (which must pick the kernel ``kernel_for`` names).
     Where that is a Hopper kernel, v2 is also held and timed on the same
     inputs, launched by its own name. Each kernel launches twice with
     identical outputs; the kernels' and the library call's times are those
     of one launch of 20 in a CUDA graph (``graph_ms``), the routed
-    wrapper's (host work included) and the plain version's by CUDA events."""
+    wrapper's (host work included) and the plain version's by CUDA events.
+    ``launch_plane`` names the main-path window whose launches the row
+    reports (the serving plane of its mode by default)."""
     from finchat_tpu_torch.models.quant import dequantize, quantize, quantize_int4
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.quant_matmul import (
@@ -1125,8 +1174,10 @@ def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, gro
                  f"or with itself (identical: {same})")
         del got, diff, outs
         ms = graph_ms(call.launch)
-        row = dict(case=name, kernel=kname, plane=plane, err=err, rel_err=worst, ms=ms,
-                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        row = dict(case=name, kernel=kname, plane=launch_plane or plane, err=err, rel_err=worst,
+                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        if launch_plane:
+            row["launch_plane"] = launch_plane
         extra = ""
         if kname == routed:
             row["wrapper_ms"] = time_ms(torch, lambda: fn(x, qt.q, qt.scale, out_dtype=out_dtype))
@@ -1626,7 +1677,8 @@ def run_warmup(torch, plane: str, engine, weight_gb: float) -> dict:
 
 
 async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: bool,
-                later_turns: bool, drills: tuple = (), agent: tuple = ()) -> dict:
+                later_turns: bool, drills: tuple = (), agent: tuple = (),
+                retrieval: dict | None = None) -> dict:
     """Serve ``n_requests`` greedy requests through ``LLMService`` on one
     serving plane (``PLANES``) at ``EngineConfig``'s defaults, the prefix
     and session caches, preemption and the breaker on: the engine warmed up
@@ -1832,7 +1884,8 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         if "turns" in agent:
             agent_stats["turns"] = await agent_turns(
                 torch, plane, spec, config, engine, params, system_prompt,
-                pairs=2 if "overlap" in agent else 1, overlap_runs="overlap" in agent)
+                pairs=2 if "overlap" in agent else 1, overlap_runs="overlap" in agent,
+                retrieval=retrieval)
         steps = (profile_steps(torch, engine, context=max(prompt_lens), active=len(handles))
                  if profile else None)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2747,7 +2800,7 @@ def _wait_for(cond, what: str, limit_s: float = 10.0):
 
 
 async def agent_turns(torch, plane: str, spec: dict, config, engine, params, system_prompt: str,
-                      pairs: int, overlap_runs: bool) -> dict:
+                      pairs: int, overlap_runs: bool, retrieval: dict | None = None) -> dict:
     """Penny turns through the port's ``LLMAgent`` at full width, on the
     serve's engine and weights, on a scheduler of its own at
     ``EngineConfig()`` with both ``agent.prompt_heads()`` registered (BOS
@@ -2771,8 +2824,11 @@ async def agent_turns(torch, plane: str, spec: dict, config, engine, params, sys
     2. With ``overlap_runs``: the decision from a ``StubGenerator`` paced a
        word every ``STUB_WORD_S`` whose search query commits on its second
        word, the response on the engine; the same two turns with
-       ``retrieval_overlap`` and ``tool_streaming`` on, then both off. The
-       responses must be byte-identical; with them on, the tool must launch
+       ``retrieval_overlap`` and ``tool_streaming`` on, then both off, over
+       ``retrieval``'s real ``TransactionRetriever`` where given (the
+       ``retrieval_phase``'s bf16 index of 262,144 rows; each turn a corpus
+       user, its count the plain search's for its arguments), else the
+       fake one. The responses must be byte-identical; with them on, the tool must launch
        once a turn and be adopted (no cancel, no fallback, the
        ``tool_adopted`` mark), the hold taken at name-commit (the
        ``name_commit`` then ``response_prefill_hold`` marks, before the
@@ -2788,7 +2844,6 @@ async def agent_turns(torch, plane: str, spec: dict, config, engine, params, sys
     Launch counts are set to 0 after the registrations and read after part
     2: every kernel of the plane must have launched, under the serve's launch
     rules (``check_window``)."""
-    import importlib.util
 
     import finchat_tpu_torch.agent.graph as graph_mod
     from finchat_tpu_torch.agent import LLMAgent
@@ -2848,11 +2903,12 @@ async def agent_turns(torch, plane: str, spec: dict, config, engine, params, sys
             self.final = super().finish()
             return self.final
 
-    async def turn(agent, i: int, conv: str) -> dict:
+    async def turn(agent, i: int, conv: str, user: str | None = None) -> dict:
         t0 = time.perf_counter()
+        user = user or f"user-{conv}"
         events = [ev async for ev in agent.stream_with_status(
-            MESSAGES[i], f"user-{conv}", CONTEXTS[i], [], conversation_id=conv, trace_id=conv)]
-        return dict(conv=conv, i=i, t0=t0, events=events)
+            MESSAGES[i], user, CONTEXTS[i], [], conversation_id=conv, trace_id=conv)]
+        return dict(conv=conv, i=i, t0=t0, events=events, user=user)
 
     counts = _Counts(engine)
     m0 = METRICS.snapshot()
@@ -2949,7 +3005,8 @@ async def agent_turns(torch, plane: str, spec: dict, config, engine, params, sys
         out.update(engine_turns=rows, engine_wall_s=wall, grafts=grafts, teacher_forced=checks)
         if overlap_runs:
             out["overlap"] = await _overlap_runs(torch, plane, spec, config, params, sched,
-                                                 handles, turn, make_agent, StubGenerator)
+                                                 handles, turn, make_agent, StubGenerator,
+                                                 retrieval)
         launches = dict(LAUNCHES)
         decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
         rounds = _metric_delta(METRICS, m0, "finchat_mixed_dispatches_total")
@@ -2994,9 +3051,11 @@ def _paced_stub(stub_cls):
 
 
 async def _overlap_runs(torch, plane, spec, config, params, sched, handles, turn, make_agent,
-                        stub_cls) -> dict:
+                        stub_cls, retrieval: dict | None = None) -> dict:
     """Part 2 of ``agent_turns``: the same two turns with the overlap and tool
-    streaming on, then off."""
+    streaming on, then off; over ``retrieval``'s real retriever where given
+    (each turn a corpus user, the same on and off), whose reported count
+    must be the plain search's for the stub's arguments."""
     from finchat_tpu_torch.utils.metrics import METRICS
     from finchat_tpu_torch.utils.tracing import TRACER
 
@@ -3007,9 +3066,11 @@ async def _overlap_runs(torch, plane, spec, config, params, sched, handles, turn
     for on in (True, False):
         m0 = METRICS.snapshot()
         stub = _paced_stub(stub_cls)
-        agent = make_agent(stub, _TurnRetriever(structured=False), on=on)
+        real = retrieval["retriever"] if retrieval else None
+        agent = make_agent(stub, real or _TurnRetriever(structured=False), on=on)
         name = "on" if on else "off"
-        turns = await asyncio.gather(*(turn(agent, i, f"stub-{plane}-{name}-{i}")
+        turns = await asyncio.gather(*(turn(agent, i, f"stub-{plane}-{name}-{i}",
+                                            retrieval["users"][i] if real else None)
                                        for i in (0, 1)))
         delta = {c: _metric_delta(METRICS, m0, c) for c in counters}
         saved = _seconds(METRICS, m0, "finchat_tool_overlap_saved_seconds")
@@ -3019,9 +3080,16 @@ async def _overlap_runs(torch, plane, spec, config, params, sched, handles, turn
             _d, response, _all = _turn_handles(handles, t["conv"])
             if not retrieved or response is None:
                 fail(f"agent turns ({plane}): the stub turn {t['conv']} did not retrieve")
+            if real is not None:
+                stub_args = json.loads(STUB_DECISION[len("retrieve_transactions("):-1])
+                plain = plain_count(real.index, {**stub_args, "user_id": t["user"]},
+                                    retrieval["now"])
+                if count != plain:
+                    fail(f"agent turns ({plane}): {t['conv']} retrieved {count} rows of "
+                         f"{t['user']}, the plain search {plain}")
             marks = _marks(TRACER, t["conv"])
             text = "".join(e["content"] for e in t["events"] if e["type"] == "response_chunk")
-            rows.append(dict(conv=t["conv"], text=text, rows=count,
+            rows.append(dict(conv=t["conv"], text=text, rows=count, user=t["user"],
                              tokens=response.history[len(response.prompt_ids):],
                              grafted=response.grafted, ttft_s=response.first_token_at - t["t0"],
                              marks={k: v - t["t0"] for k, v in marks.items()}))
@@ -3121,9 +3189,455 @@ async def _abandoned_turn(plane, sched, handles, entries, make_agent, stub_cls) 
 
 # the app's turns (``app_turns``): four conversations over the in-memory
 # broker and store, turn 2 of two of them, a redelivery, one HTTP turn
+# --------------------------------------------------------------------------
+# retrieval: the encoder, the index, the microbatcher and the retriever
+# --------------------------------------------------------------------------
+
+# the int8 encoder's weight shapes at bge-base-en's widths ([K, N]), in its
+# two regimes: an ingest dispatch of 32 texts in a 64-token bucket (M=2048,
+# the Hopper kernel) and a lone query in its 32-token bucket (M=32, the
+# decode body)
+BGE_QMM_ROWS = (2048, 32)
+BGE_QMM_WEIGHTS = {"qkv": (768, 2304), "attn_out": (768, 768), "mlp_in": (768, 3072),
+                   "mlp_out": (3072, 768)}
+RETRIEVAL_USERS = 64
+RETRIEVAL_TEXTS = 4096
+RETRIEVAL_ROWS = 262_144
+RETRIEVAL_OTHER_USERS = 1024
+# texts an upsert call: four calls fill one 32-text dispatch of the batcher
+INGEST_CALL_TEXTS = 8
+# a reference hit whose score is within SCORE_TIE of a neighbour's may come in
+# either order (the card sums in fp32); the bf16/int8 ranking gate takes a
+# pick within RANK_EPS of the rank-K boundary as a near tie (the rule of
+# tests/test_quant_serving.py's quantized-encoder gate)
+SCORE_TIE = 1e-5
+RANK_K, RANK_EPS = 10, 2e-3
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (TF32 off)
+MERCHANTS = (("COFFEE CORNER", "dining"), ("NOODLE BAR", "dining"), ("FRESH MARKET", "groceries"),
+             ("CORNER GROCER", "groceries"), ("CITY TRANSIT", "transport"),
+             ("RIDE SHARE", "transport"), ("PAYROLL", "income"), ("STREAMING CO", "subscriptions"),
+             ("LANDLORD LLC", "rent"), ("GAS STATION", "fuel"), ("PHARMACY", "health"),
+             ("BOOK SHOP", "shopping"), ("HARDWARE STORE", "shopping"), ("AIRLINE", "travel"),
+             ("HOTEL", "travel"), ("GYM", "health"))
+KINDS = ("CARD", "DEBIT", "CREDIT", "TRANSFER")
+QUERY_PHRASES = ("dining purchases", "grocery spending", "rent payment", "salary deposit",
+                 "transport costs", "subscriptions", "travel bookings", "health expenses")
+
+
+def _day(ts: float) -> str:
+    return time.strftime("%Y-%m-%d", time.gmtime(ts))
+
+
+def transaction_rows(rng, user: str, n: int, now: float, days: int, start: int = 0) -> list[dict]:
+    """``n`` transactions of ``user`` from a seeded generator: kind x merchant
+    x amount x date, dates over the last ``days`` days, each half a day off
+    any whole-day cutoff; the last three repeat earlier rows (a double
+    charge: the same text and date). ``txn`` numbers them from ``start``."""
+    rows: list[dict] = []
+    for j in range(n):
+        if j >= n - 3 and j >= 3:
+            rows.append(dict(rows[int(rng.integers(0, n - 3))], txn=start + j))
+            continue
+        merchant, category = MERCHANTS[int(rng.integers(len(MERCHANTS)))]
+        amount = round(float(rng.normal(0.0, 120.0)), 2) or 1.0
+        date = now - (float(rng.integers(0, days)) + 0.5) * 86400.0
+        text = f"{_day(date)} {KINDS[int(rng.integers(len(KINDS)))]} {merchant} {amount:+.2f} " \
+               f"{category}"
+        rows.append(dict(user=user, text=text, date=date, amount=amount, category=category,
+                         txn=start + j))
+    return rows
+
+
+def plain_search(index, q, user: str, date_gte: float | None):
+    """The float64 numpy search the index is held to, over its host copy of
+    the normalized vectors and filters: every row of ``user`` (dated at or
+    after ``date_gte``), best first, the lower row first among equal
+    scores. Returns (rows, scores) of all the candidates."""
+    import numpy as np
+
+    n = index._count
+    code = index._user_interner.get(user, -2)
+    mask = index._alive[:n] & (index._user_codes[:n] == code)
+    if date_gte is not None:
+        mask &= index._dates[:n] >= date_gte
+    rows = np.nonzero(mask)[0]
+    q64 = np.asarray(q, np.float64)
+    q64 = q64 / max(float(np.linalg.norm(q64)), 1e-9)
+    scores = index._host_vectors[rows].astype(np.float64) @ q64
+    order = np.lexsort((rows, -scores))
+    return rows[order], scores[order]
+
+
+def ranking_agrees(got: list, want_rows, want_scores, limit: int) -> dict:
+    """``got`` (index rows) against the reference's first ``limit`` rows: the
+    same count, the same row at every position whose reference score is more
+    than SCORE_TIE from both neighbours (the candidates past the limit
+    included), and an overlap of at least 0.99."""
+    want = [int(r) for r in want_rows[:limit]]
+    s = want_scores
+    fixed = [i for i in range(len(want))
+             if (i == 0 or s[i - 1] - s[i] > SCORE_TIE)
+             and (i + 1 >= len(s) or s[i] - s[i + 1] > SCORE_TIE)]
+    moved = [i for i in fixed if i >= len(got) or got[i] != want[i]]
+    overlap = len(set(got) & set(want)) / len(want) if want else 1.0
+    return dict(ok=len(got) == len(want) and not moved and overlap >= 0.99, n=len(want),
+                fixed=len(fixed), moved=moved, overlap=overlap, exact=list(got) == want)
+
+
+def plain_count(index, args: dict, now: float, default_limit: int = 10_000) -> int | None:
+    """The rows a retrieval with these tool arguments returns by the plain
+    search's count: the user's rows (in the ``time_period_days`` window),
+    at most ``num_transactions`` (or the default). None where the count
+    depends on the path the agent took (a limit of zero or less: the
+    streamed adoption cuts the default's rows to it, the serial path does
+    not)."""
+    n = args.get("num_transactions")
+    if isinstance(n, int) and n <= 0:
+        return None
+    days = args.get("time_period_days")
+    date_gte = now - days * 86_400.0 if days else None
+    rows, _s = plain_search(index, index._host_vectors[0], args["user_id"], date_gte)
+    return min(int(n or default_limit), len(rows))
+
+
+async def _ingest(torch, retriever, rows: list[dict]) -> dict:
+    """Every row through ``upsert_transactions`` from worker threads,
+    ``INGEST_CALL_TEXTS`` a call, the batcher bound to this loop: the
+    threadsafe path, where concurrent calls coalesce into shared
+    dispatches."""
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    retriever.batcher.bind_loop()
+    calls = []
+    for lo in range(0, len(rows), INGEST_CALL_TEXTS):
+        part = rows[lo: lo + INGEST_CALL_TEXTS]
+        if len({r["user"] for r in part}) != 1:
+            fail("retrieval: an ingest call spans two users")
+        calls.append((part[0]["user"], [r["text"] for r in part], [r["date"] for r in part],
+                      [{"txn": r["txn"], "amount": r["amount"], "category": r["category"]}
+                       for r in part]))
+    m0 = METRICS.snapshot()
+    t0 = time.perf_counter()
+    await asyncio.gather(*(asyncio.to_thread(retriever.upsert_transactions, *c) for c in calls))
+    _sync(torch)
+    seconds = time.perf_counter() - t0
+    dispatches = _metric_delta(METRICS, m0, "finchat_embed_batch_dispatches_total")
+    requests = _metric_delta(METRICS, m0, "finchat_embed_requests_total")
+    return dict(texts=len(rows), calls=len(calls), seconds=seconds,
+                texts_per_s=len(rows) / seconds, dispatches=dispatches, requests=requests,
+                dispatches_per_request=dispatches / max(requests, 1))
+
+
+async def retrieval_phase(torch, dev, card: str) -> tuple[dict, dict]:
+    """Embedding and retrieval at full width: ``bge-base-en`` (12 layers,
+    768 wide), random weights from a seeded generator, framing texts with
+    the 8B's ``ByteTokenizer`` as ``build_app`` does, bf16 and int8 (K8).
+
+    Data: ``RETRIEVAL_TEXTS`` transactions of ``RETRIEVAL_USERS`` users
+    (``transaction_rows``: the last 120 days, three double charges each)
+    ingested through ``TransactionRetriever.upsert_transactions`` from
+    worker threads with the microbatcher bound to this loop, by each
+    encoder into its own index; then ``RETRIEVAL_ROWS - RETRIEVAL_TEXTS``
+    seeded random unit vectors of ``RETRIEVAL_OTHER_USERS`` other users,
+    dated over the last 730 days, through ``index.upsert`` into the bf16
+    one: 262,144 rows, 805 MB of fp32 vectors on the card.
+
+    Queries: one retrieval a corpus user, all 64 at once, through the bf16
+    retriever's ``structured`` (the batcher coalesces their embeds): half
+    with ``time_period_days=30`` (at the default 10,000 rows), half with
+    ``num_transactions=10``. Each hit list must hold only the user's own
+    rows and agree with ``plain_search`` (``ranking_agrees``), and so must
+    ``query_points`` run serially on the same query vectors (the ones the
+    batcher returned). The same retrievals then run one at a time through
+    the int8 retriever's ``structured``, held to ``plain_search`` over the
+    int8 index; the int8 encoder's rankings over the corpus on those query
+    vectors must overlap the bf16 encoder's (top-10, near ties within 2e-3
+    count). K8's launch counts are read in two windows of the main path,
+    each set to 0 just before it: the int8 ingest (``sm90`` only, 48 a
+    dispatch) and the int8 retrievals (the decode body only, 48 a query);
+    the encoder-alone timing and the bf16 embeds of the comparison run
+    outside both.
+
+    Printed: ingest texts/s of both encoders, embed dispatches a request
+    (ingest and queries), the first search after the bulk upsert (the
+    whole matrix uploaded), the ``finchat_retrieval_{embed,search}_seconds``
+    p50 (bucket edges) and means, the device time of one scoring call
+    (``batch_mask`` + ``score_topk``) at B=32 over the collection against
+    its bound, the host time of ``query_points_batch`` at B=32, and the
+    phase's peak memory. Returns the stats and the bf16 retriever's parts
+    for ``agent_turns``."""
+    import numpy as np
+
+    from finchat_tpu_torch.embed import (EMBED_PRESETS, DeviceVectorIndex, EmbeddingEncoder,
+                                         EmbedMicrobatcher, QuerySpec, VectorPoint,
+                                         init_bert_params)
+    from finchat_tpu_torch.embed.index import _split_f64, batch_mask, score_topk
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.tools.retrieval import TransactionRetriever
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = EMBED_PRESETS["bge-base-en"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = init_bert_params(cfg, gen, dev)
+    tok = ByteTokenizer(vocab_size=128256)
+    now = time.time()
+    out: dict = dict(now=now)
+    parts: dict = {}
+    for name, quant in (("bf16", ""), ("int8", "int8")):
+        encoder = EmbeddingEncoder(cfg, params, tok, quant=quant, device=dev)
+        index = DeviceVectorIndex(dim=cfg.dim, device=dev)
+        parts[name] = TransactionRetriever(encoder, index, now=lambda: now,
+                                           batcher=EmbedMicrobatcher(encoder))
+    del params
+    rng = np.random.default_rng(19)
+    per = RETRIEVAL_TEXTS // RETRIEVAL_USERS
+    users = [f"user-{u:03d}" for u in range(RETRIEVAL_USERS)]
+    corpus = [row for u, user in enumerate(users)
+              for row in transaction_rows(rng, user, per, now, 120, start=u * per)]
+    per_call = 4 * cfg.n_layers  # the int8 matmuls of one encoder call
+    for name in ("bf16", "int8"):
+        if name == "int8":
+            reset_launches()  # the int8 ingest's window: only its own launches
+        out[f"ingest_{name}"] = ing = await _ingest(torch, parts[name], corpus)
+        log(f"  retrieval ingest ({name}, {card}): {ing['texts']} texts in {ing['calls']} "
+            f"upsert calls, {ing['seconds']:.2f} s, {ing['texts_per_s']:.0f} texts/s; "
+            f"{ing['dispatches']:.0f} embed dispatches for {ing['requests']:.0f} requests "
+            f"({ing['dispatches_per_request']:.3f} a request)")
+    ingest_launches = dict(LAUNCHES)
+    bf16, int8 = parts["bf16"], parts["int8"]
+    # every dispatch of the int8 ingest holds whole requests of
+    # INGEST_CALL_TEXTS texts in a bucket of 32 tokens or more (M >= 256):
+    # each of its matmuls goes to the Hopper kernel
+    want = dict(sm90=per_call * int(out["ingest_int8"]["dispatches"]), dec=0, v2=0)
+    got = dict(sm90=ingest_launches["quant_matmul_int8_sm90"],
+               dec=ingest_launches["quant_matmul_int8_decode_sm90"],
+               v2=ingest_launches["quant_matmul_int8"])
+    log(f"  retrieval int8 ingest K8 launches: {got} (want {want})")
+    if got != want or want["sm90"] == 0:
+        fail(f"retrieval: the int8 ingest's K8 launches {got}, want {want}: {per_call} Hopper "
+             f"launches a dispatch, none of the decode body or v2")
+    # one dispatch's work without the batcher and the threads: 32 corpus
+    # texts (a 64-token bucket) through each encoder, host clock to numpy
+    texts32 = [r["text"] for r in corpus[:32]]
+    alone = {}
+    for name, r in parts.items():
+        r.encoder.embed_batch(texts32)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            r.encoder.embed_batch(texts32)
+        alone[name] = (time.perf_counter() - t0) / 5 * 1e3
+    out["encoder_alone_ms"] = alone
+    log(f"  retrieval encoder alone ({card}): 32 texts in a 64-token bucket, "
+        + ", ".join(f"{name} {ms:.2f} ms ({32e3 / ms:.0f} texts/s)" for name, ms in alone.items()))
+    index = bf16.index
+    # the rest of the collection: seeded random unit vectors of other users
+    n_other = RETRIEVAL_ROWS - RETRIEVAL_TEXTS
+    rng = np.random.default_rng(20)
+    vectors = rng.standard_normal((n_other, cfg.dim), dtype=np.float32)
+    dates = now - rng.uniform(0.0, 730.0, n_other) * 86400.0
+    owners = rng.integers(0, RETRIEVAL_OTHER_USERS, n_other)
+    t0 = time.perf_counter()
+    index.upsert([VectorPoint(id=f"other-{i}", vector=vectors[i],
+                              payload={"page_content": f"row {i}",
+                                       "metadata": {"user_id": f"other-{owners[i]:04d}",
+                                                    "date": float(dates[i])}})
+                  for i in range(n_other)])
+    out["upsert_random_s"] = time.perf_counter() - t0
+    if index._count != RETRIEVAL_ROWS or index._capacity != RETRIEVAL_ROWS:
+        fail(f"retrieval: the index holds {index._count} rows at capacity {index._capacity}")
+    # the first search after the growth uploads the whole matrix; the
+    # retrievals below then search the resident one
+    t0 = time.perf_counter()
+    index.query_points_batch([QuerySpec(np.ones(cfg.dim, np.float32), limit=1)])
+    out["first_search_s"] = time.perf_counter() - t0
+    txn_row = {p.metadata["txn"]: r for r, p in enumerate(index._points[:RETRIEVAL_TEXTS])}
+    int8_row = {p.metadata["txn"]: r for r, p in enumerate(int8.index._points)}
+
+    def recording(retriever, used: dict):
+        """Wrap the retriever's ``batcher.embed_one`` to keep the query
+        vectors it returns, so the hits can be held to the plain search."""
+        embed_one = retriever.batcher.embed_one
+
+        async def wrapped(text):
+            used[text] = await embed_one(text)
+            return used[text]
+
+        retriever.batcher.embed_one = wrapped
+
+    def check_hits(retriever, rows: dict, a: dict, got: list, q, serial: bool) -> dict:
+        """One retrieval's hits: nonempty, the user's own, and in the float64
+        plain search's order (``ranking_agrees``); ``serial`` also holds the
+        serial plane's ``query_points`` on the same vector to it."""
+        date_gte = now - a["time_period_days"] * 86_400.0 if "time_period_days" in a else None
+        limit = a.get("num_transactions") or retriever.default_limit
+        want_rows, want_s = plain_search(retriever.index, q, a["user_id"], date_gte)
+        if not got or any(r["user_id"] != a["user_id"] for r in got):
+            fail(f"retrieval: {a} returned {len(got)} rows, or another user's: "
+                 f"{[r['user_id'] for r in got][:5]}")
+        batched = ranking_agrees([rows[r["txn"]] for r in got], want_rows, want_s, limit)
+        one = dict(n=batched["n"], fixed=batched["fixed"], overlap=batched["overlap"],
+                   exact=batched["exact"])
+        if serial:
+            serial_hits = retriever.index.query_points(q, limit=limit, user_id=a["user_id"],
+                                                       date_gte=date_gte)
+            agree = ranking_agrees([rows[p.metadata["txn"]] for p in serial_hits], want_rows,
+                                   want_s, limit)
+            one.update(serial_exact=agree["exact"], planes_equal=[
+                p.metadata["txn"] for p in serial_hits] == [r["txn"] for r in got])
+        else:
+            agree = batched
+        if not (batched["ok"] and agree["ok"]):
+            fail(f"retrieval: {a}: the hits disagree with the float64 plain search: batched "
+                 f"{batched}, serial {agree}")
+        return one
+
+    # 64 retrievals at once through the bf16 retriever
+    used: dict = {}
+    recording(bf16, used)
+    args = []
+    for u, user in enumerate(users):
+        a = {"user_id": user, "search_query": f"{QUERY_PHRASES[u % len(QUERY_PHRASES)]} #{u}"}
+        a.update({"time_period_days": 30} if u < RETRIEVAL_USERS // 2 else {"num_transactions": 10})
+        args.append(a)
+    m0 = METRICS.snapshot()
+    t0 = time.perf_counter()
+    hits = await asyncio.gather(*(bf16.structured(a) for a in args))
+    out["queries_wall_s"] = time.perf_counter() - t0
+    del bf16.batcher.embed_one
+    out["query_dispatches"] = _metric_delta(METRICS, m0, "finchat_embed_batch_dispatches_total")
+    embed_s = _seconds(METRICS, m0, "finchat_retrieval_embed_seconds")
+    search_s = _seconds(METRICS, m0, "finchat_retrieval_search_seconds")
+    out["retrieval_seconds"] = dict(
+        embed_p50=METRICS.quantile("finchat_retrieval_embed_seconds", 0.5),
+        search_p50=METRICS.quantile("finchat_retrieval_search_seconds", 0.5),
+        embed_mean=embed_s["mean_s"], search_mean=search_s["mean_s"], n=embed_s["n"])
+    checks = [check_hits(bf16, txn_row, a, got, used[a["search_query"]], True)
+              for a, got in zip(args, hits)]
+    out["checks"] = dict(
+        queries=len(checks), rows=sum(c["n"] for c in checks),
+        fixed_positions=sum(c["fixed"] for c in checks),
+        min_overlap=min(c["overlap"] for c in checks),
+        exact_lists=sum(c["exact"] for c in checks),
+        serial_exact_lists=sum(c["serial_exact"] for c in checks),
+        planes_equal=sum(c["planes_equal"] for c in checks))
+    log(f"  retrieval queries ({card}): {len(args)} at once in {out['queries_wall_s']:.3f} s, "
+        f"{out['query_dispatches']:.0f} embed dispatches; finchat_retrieval_embed_seconds p50 "
+        f"{out['retrieval_seconds']['embed_p50']:.4f} s (mean "
+        f"{out['retrieval_seconds']['embed_mean']:.4f}), finchat_retrieval_search_seconds p50 "
+        f"{out['retrieval_seconds']['search_p50']:.4f} s (mean "
+        f"{out['retrieval_seconds']['search_mean']:.4f}); against the float64 plain search: "
+        + json.dumps(out["checks"]))
+    # the same 64 retrievals through the int8 retriever, one at a time: each
+    # a lone query through the batcher (one text in a 32-token bucket, M=32),
+    # so each of its matmuls goes to the decode body; a window of their own
+    used8: dict = {}
+    recording(int8, used8)
+    m0 = METRICS.snapshot()
+    reset_launches()
+    t0 = time.perf_counter()
+    hits8 = [await int8.structured(a) for a in args]
+    out["int8_queries_wall_s"] = time.perf_counter() - t0
+    query_launches = dict(LAUNCHES)
+    del int8.batcher.embed_one
+    dispatches8 = int(_metric_delta(METRICS, m0, "finchat_embed_batch_dispatches_total"))
+    checks8 = [check_hits(int8, int8_row, a, got, used8[a["search_query"]], False)
+               for a, got in zip(args, hits8)]
+    out["int8_checks"] = dict(queries=len(checks8), dispatches=dispatches8,
+                              min_overlap=min(c["overlap"] for c in checks8),
+                              exact_lists=sum(c["exact"] for c in checks8))
+    want = dict(sm90=0, dec=per_call * len(args), v2=0)
+    got = dict(sm90=query_launches["quant_matmul_int8_sm90"],
+               dec=query_launches["quant_matmul_int8_decode_sm90"],
+               v2=query_launches["quant_matmul_int8"])
+    log(f"  retrieval int8 queries ({card}): {len(args)} one at a time in "
+        f"{out['int8_queries_wall_s']:.3f} s, {dispatches8} embed dispatches; against the float64 "
+        f"plain search over the int8 index: {json.dumps(out['int8_checks'])}; K8 launches: {got} "
+        f"(want {want})")
+    if got != want or dispatches8 != len(args):
+        fail(f"retrieval: the int8 queries' K8 launches {got} in {dispatches8} dispatches, want "
+             f"{want} in {len(args)}: {per_call} decode-body launches a lone query")
+    out["launches"] = dict(ingest=ingest_launches, query=query_launches)
+    # the int8 encoder against the bf16 one, on the query vectors the int8
+    # retrievals used and each bf16 query embedded alone
+    texts = [a["search_query"] for a in args]
+    order = sorted(txn_row)
+    e_bf16 = index._host_vectors[[txn_row[t] for t in order]]
+    e_int8 = int8.index._host_vectors[[int8_row[t] for t in order]]
+    q_bf16 = np.stack([bf16.encoder.embed_query(t) for t in texts])
+    q_int8 = np.stack([used8[t] for t in texts])
+    overlaps, strict = [], []
+    for j in range(len(texts)):
+        s = e_bf16 @ q_bf16[j]
+        picked = np.argsort(-(e_int8 @ q_int8[j]), kind="stable")[:RANK_K]
+        kth = np.sort(s)[-RANK_K]
+        overlaps.append(float(np.mean(s[picked] >= kth - RANK_EPS)))
+        strict.append(float(np.mean(s[picked] >= kth)))
+    cos = (e_bf16 * e_int8).sum(-1)
+    out["int8_vs_bf16"] = ranks = dict(top10_overlap=float(np.mean(overlaps)),
+                                       top10_overlap_no_eps=float(np.mean(strict)),
+                                       min_corpus_cosine=float(cos.min()))
+    log(f"  retrieval int8 vs bf16 encoder: top-10 overlap {ranks['top10_overlap']:.4f}"
+        f" (near ties within {RANK_EPS}; {ranks['top10_overlap_no_eps']:.4f} "
+        f"without), corpus cosine >= {ranks['min_corpus_cosine']:.5f}")
+    if ranks["top10_overlap"] < 0.99:
+        fail(f"retrieval: the int8 encoder's rankings overlap the bf16 one's "
+             f"{ranks['top10_overlap']:.4f} < 0.99")
+    # one scoring call at B=32 over the collection, on the card
+    dv = index._device
+    B = min(32, len(texts))
+    q32 = torch.from_numpy(np.stack([q_bf16[j] / np.linalg.norm(q_bf16[j]) for j in range(B)])
+                           .astype(np.float32)).to(dev)
+    codes = torch.tensor([index._user_interner[a["user_id"]] for a in args[:B]],
+                         dtype=torch.int32, device=dev)
+    hi, lo = _split_f64(np.asarray([now - 30 * 86_400.0 if j % 2 else -np.inf
+                                    for j in range(B)]))
+    hi, lo = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+
+    def scoring():
+        return score_topk(dv["vectors"], q32, batch_mask(dv["alive"], dv["user_codes"],
+                                                         dv["dates_hi"], dv["dates_lo"],
+                                                         codes, hi, lo), RANK_K)
+
+    N = RETRIEVAL_ROWS
+    moved = N * cfg.dim * 4 + N * (1 + 4 + 4 + 4) + B * cfg.dim * 4 + B * RANK_K * 12
+    flops = 2.0 * B * N * cfg.dim
+    bound = max(moved / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
+    score_ms = time_ms(torch, scoring)
+    specs = [QuerySpec(q_bf16[j], limit=RANK_K, user_id=args[j]["user_id"]) for j in range(B)]
+    index.query_points_batch(specs)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        index.query_points_batch(specs)
+    batch_host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    out["scoring"] = dict(B=B, rows=N, k=RANK_K, device_ms=score_ms, bound_ms=bound,
+                          bound_by="bytes" if moved / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S
+                          else "operations", vectors_bound_ms=N * cfg.dim * 4 / HBM_BYTES_PER_S
+                          * 1e3, query_points_batch_host_ms=batch_host_ms)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    out["held_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+    log(f"  retrieval scoring ({card}): B={B} over {N} rows, k={RANK_K}: {score_ms:.4f} ms on the "
+        f"card (mask + product + top-k), bound {bound:.4f} ms ({out['scoring']['bound_by']}; the "
+        f"vectors alone {out['scoring']['vectors_bound_ms']:.4f}); query_points_batch "
+        f"{batch_host_ms:.3f} ms of host time; peak {out['peak_gb']:.2f} GB, held "
+        f"{out['held_gb']:.2f} GB; random rows upserted in {out['upsert_random_s']:.2f} s, the "
+        f"first search after them (the whole matrix uploaded) {out['first_search_s']:.3f} s")
+    del int8, parts, e_int8, q_int8
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  retrieval: the phase took {out['phase_s']:.1f} s")
+    return out, dict(retriever=bf16, users=users, now=now)
+
+
 APP_CONVS = 4
 APP_TURN2 = 2
 APP_WAIT_S = 300.0
+APP_TXNS = 12  # transactions ingested a conversation's user before turn 1
 
 
 def _app_context(i: int) -> dict:
@@ -3232,14 +3746,20 @@ async def app_turns(torch, dev, card: str) -> dict:
     ``model.seed``, its ``ByteTokenizer`` as wide as the logits rows), the
     engine at ``EngineConfig()``'s defaults, warmed up, and registers both
     prompt heads; an ``InMemoryStore`` holds four conversations, a
-    ``KafkaClient`` rides an ``InMemoryBroker``, the retriever is
-    ``agent_turns``' fake one. Sampling is greedy (``engine.temperature``
+    ``KafkaClient`` rides an ``InMemoryBroker``, and with no ``retriever=``
+    ``build_app`` builds its own: the ``bge-base-en`` encoder (random
+    weights), the on-device index snapshotting to ``vector.persist_path``
+    (a temporary directory), the microbatcher and ``TransactionRetriever``.
+    Sampling is greedy (``engine.temperature``
     0, the agent's decision greedy under its grammar) so every stream can be
     teacher-forced; ``engine.max_new_tokens`` is 64, ``kafka.
     commit_after_process`` on, the session disk tier, journal and flight
     recorder in a temporary directory.
 
-    Driven through the consume loop (``app.start(serve_http=True)``): four
+    Driven through the consume loop (``app.start(serve_http=True)``): first
+    ``APP_TXNS`` transactions of each conversation's user, three users'
+    through ``POST /transactions`` and one batch on the
+    ``transaction_upsert`` topic; then four
     user messages produced at once, then a second turn of two
     conversations (resumed through the session cache), then one answered
     message redelivered (deduped: nothing produced, the skip counter up by
@@ -3249,9 +3769,12 @@ async def app_turns(torch, dev, card: str) -> dict:
     and ``/debug/trace/<message_id>`` (the message's ingress event and
     first token). Last ``drain_and_stop()``: no slot or page left beyond the
     heads, the session entries on disk, the journal holding exactly the
-    answered ids. Launch counts are set to 0 after the build and read before
-    the drain: every bf16 serving kernel launched, under the serve's launch
-    rules, and no older body."""
+    answered ids, and the index's snapshot on disk: ``DeviceVectorIndex.load``
+    of it gives the live index's hits. Every turn whose decision retrieved
+    must report the plain search's count for its arguments
+    (``plain_count``). Launch counts are set to 0 after the build and read
+    before the drain: every bf16 serving kernel launched, under the serve's
+    launch rules, and no older body."""
     import shutil
     import tempfile
 
@@ -3260,10 +3783,15 @@ async def app_turns(torch, dev, card: str) -> dict:
     from finchat_tpu_torch.engine.sampler import SamplingParams
     from finchat_tpu_torch.io.journal import AnsweredJournal
     from finchat_tpu_torch.io.kafka import InMemoryBroker, KafkaClient
+    import numpy as np
+
+    from finchat_tpu_torch.embed.encoder import EMBED_PRESETS
+    from finchat_tpu_torch.embed.index import DeviceVectorIndex
     from finchat_tpu_torch.io.store import InMemoryStore
     from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from finchat_tpu_torch.utils.config import (AI_RESPONSE_TOPIC, USER_MESSAGE_TOPIC,
-                                                KafkaConfig, load_config)
+    from finchat_tpu_torch.tools.retrieval import TransactionRetriever
+    from finchat_tpu_torch.utils.config import (AI_RESPONSE_TOPIC, TRANSACTION_UPSERT_TOPIC,
+                                                USER_MESSAGE_TOPIC, KafkaConfig, load_config)
     from finchat_tpu_torch.utils.metrics import METRICS
     from finchat_tpu_torch.utils.tracing import TRACER
 
@@ -3279,14 +3807,14 @@ async def app_turns(torch, dev, card: str) -> dict:
         "model.preset": "llama3-8b", "engine.max_new_tokens": AGENT_NEW,
         "engine.temperature": 0.0, "kafka.commit_after_process": True,
         "engine.session_cache_disk_path": f"{tmp}/sessions", "journal.path": f"{tmp}/journal",
-        "tracing.flight_dir": f"{tmp}/flight", "serve.host": "127.0.0.1", "serve.port": port})
+        "tracing.flight_dir": f"{tmp}/flight", "serve.host": "127.0.0.1", "serve.port": port,
+        "embed.preset": "bge-base-en", "vector.persist_path": f"{tmp}/vectors"})
     store = InMemoryStore()
     t_hist = int(time.time()) - 600
     for i in range(APP_CONVS):
         store.upsert_context(f"app-{i}", _app_context(i))
         store.add_user_message(f"app-{i}", MESSAGES[i], f"user-app-{i}", timestamp=t_hist)
     broker = InMemoryBroker()
-    retriever = _TurnRetriever(structured=False)
     # the build's parts, timed where build_app calls them
     timed: dict = {}
     load, warmup = app_mod._load_model_artifacts, engine_mod.InferenceEngine.warmup
@@ -3310,7 +3838,7 @@ async def app_turns(torch, dev, card: str) -> dict:
     t0 = time.perf_counter()
     try:
         app = app_mod.build_app(cfg, store=store, kafka=KafkaClient(cfg.kafka, broker=broker),
-                                retriever=retriever, device=dev)
+                                device=dev)
     finally:
         app_mod._load_model_artifacts = load
         engine_mod.InferenceEngine.warmup = warmup
@@ -3329,6 +3857,24 @@ async def app_turns(torch, dev, card: str) -> dict:
         f"registered by the app: {len(app._registered_heads)} ({head_pages} pages)")
     if tok.vocab_size != config.vocab_size or len(app._registered_heads) != 2 or not head_pages:
         fail("app turns: build_app did not give a vocab-wide tokenizer and two registered heads")
+    retriever = app.retriever
+    if not (isinstance(retriever, TransactionRetriever) and app.agent.retriever is retriever
+            and retriever.index.device == dev and retriever.batcher is not None
+            and retriever.encoder.config == EMBED_PRESETS["bge-base-en"]):
+        fail(f"app turns: build_app's own retriever is not the on-device one: {retriever}")
+    # each retrieving turn: (user, tool call, the count it reported)
+    retrieved: dict = {}
+    retrieve_node = app.agent._retrieve_data_node
+
+    async def recording_node(state):
+        call = state.tool_calls[0] if state.tool_calls else None
+        state = await retrieve_node(state)
+        if call is not None:
+            retrieved[state.trace_id] = (state.user_id, call.name, dict(call.args),
+                                         len(state.retrieved_transactions))
+        return state
+
+    app.agent._retrieve_data_node = recording_node
     # the decision greedy under its grammar, as the earlier phases decode it
     app.agent.tool_sampling = SamplingParams(temperature=0.0, max_new_tokens=DECISION_NEW,
                                              grammar="tool_call")
@@ -3375,6 +3921,29 @@ async def app_turns(torch, dev, card: str) -> dict:
     out: dict = {}
     try:
         await app.start(serve_http=True)
+        # the users' transactions: three over HTTP, one batch on the topic
+        t_ingest = time.perf_counter()
+        rng = np.random.default_rng(21)
+        txns = {i: transaction_rows(rng, f"user-app-{i}", APP_TXNS, time.time(), 60)
+                for i in range(APP_CONVS)}
+
+        def body(i: int) -> dict:
+            return {"user_id": f"user-app-{i}", "transactions": [
+                {"text": r["text"], "date": r["date"], "amount": r["amount"],
+                 "category": r["category"]} for r in txns[i]]}
+
+        for i in range(APP_CONVS - 1):
+            answer = await asyncio.to_thread(_http, port, "POST", "/transactions", body(i))
+            if answer[0] != 200 or json.loads(answer[2]) != {"upserted": APP_TXNS}:
+                fail(f"app turns: POST /transactions answered {answer}")
+        producer.produce_message(TRANSACTION_UPSERT_TOPIC, f"user-app-{APP_CONVS - 1}",
+                                 body(APP_CONVS - 1))
+        await _wait_for(lambda: len(retriever.index) == APP_CONVS * APP_TXNS,
+                        "app turns: the transaction_upsert batch was not ingested", APP_WAIT_S)
+        out["ingest_s"] = time.perf_counter() - t_ingest
+        log(f"  app ingest ({card}): {APP_CONVS * APP_TXNS} transactions of {APP_CONVS} users, "
+            f"{APP_CONVS - 1} over POST /transactions and one topic batch, in "
+            f"{out['ingest_s']:.2f} s")
         # turn 1: four conversations at once
         t_turns = time.perf_counter()
         for i in range(APP_CONVS):
@@ -3447,6 +4016,23 @@ async def app_turns(torch, dev, card: str) -> dict:
             fail(f"app turns: kernels not launched on the app's path: {missing}")
         check_window("bf16", "app turns", spec, config, launches, counts, decode_steps, rounds)
         out["launches"] = {k: v for k, v in launches.items() if v}
+        # every retrieving turn's count against the plain search
+        now = time.time()
+        counts_vs_plain = []
+        for mid, (user, name, call_args, count) in sorted(retrieved.items()):
+            want = plain_count(retriever.index, {**call_args, "user_id": user}, now)
+            counts_vs_plain.append(dict(message_id=mid, tool=name, args=call_args, count=count,
+                                        plain=want))
+            if want is not None and count != want:
+                fail(f"app turns: {mid} ({name} {call_args}) reported {count} rows, the plain "
+                     f"search {want}")
+        out["retrievals"] = counts_vs_plain
+        log(f"  app retrievals: {len(counts_vs_plain)} turns retrieved; " + json.dumps(
+            [(r["message_id"], r["tool"], r["count"], r["plain"]) for r in counts_vs_plain]))
+        # the live index's hits for each user, to hold the snapshot against
+        probe = np.linspace(-1.0, 1.0, retriever.encoder.dim, dtype=np.float32)
+        live = {i: [p.id for p in retriever.index.query_points(
+            probe, limit=10, user_id=f"user-app-{i}")] for i in range(APP_CONVS)}
         # the drain
         sp0 = METRICS.get("finchat_durability_spills_total")
         drain_t0 = time.perf_counter()
@@ -3478,6 +4064,18 @@ async def app_turns(torch, dev, card: str) -> dict:
     journal.close()
     if journaled != sorted(payloads):
         fail(f"app turns: the journal holds {journaled}, the answered ids are {sorted(payloads)}")
+    snap = cfg.vector.snapshot_base()
+    if not (Path(snap + ".npz").exists() and Path(snap + ".jsonl").exists()):
+        fail(f"app turns: no vector snapshot at {snap} after the drain")
+    restored = DeviceVectorIndex.load(snap, dim=retriever.encoder.dim, device=dev)
+    again = {i: [p.id for p in restored.query_points(probe, limit=10, user_id=f"user-app-{i}")]
+             for i in range(APP_CONVS)}
+    if len(restored) != APP_CONVS * APP_TXNS or again != live or \
+            any(len(v) != 10 for v in live.values()):
+        fail(f"app turns: the snapshot's hits {again} are not the live index's {live}")
+    del restored
+    log(f"  app snapshot: {APP_CONVS * APP_TXNS} rows at {Path(snap).name}.{{npz,jsonl}}; loaded "
+        "back, the same hits for every user")
     # the chunks, the store, the handles
     texts = _check_chunks("Kafka", outbound, payloads)
     ai_by_conv: dict = {}
@@ -3546,7 +4144,8 @@ async def app_turns(torch, dev, card: str) -> dict:
         app_share_p50_s=statistics.median(share), http_ttft_s=http_row["ttft_s"],
         http_app_share_s=http_row["app_share_s"], turns=rows, teacher_forced=checks,
         journaled=journaled)
-    del app, engine, sched, params, handles, recording_submit, submit
+    del app, engine, sched, params, handles, recording_submit, submit, retriever
+    del recording_node, retrieve_node
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(tmp, ignore_errors=True)
@@ -3557,6 +4156,171 @@ async def app_turns(torch, dev, card: str) -> dict:
         f"(the app's share {out['http_app_share_s'] * 1e3:.2f} ms); prefix hits turn 1 "
         f"{hits1:.0f}, session hits turn 2 {session_hits:.0f}; {len(checks)} streams "
         f"teacher-forced; the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+# ``python -m finchat_tpu_torch`` as ``-m`` runs it, after seeding the store:
+# a fresh process's in-memory store is empty, and a chat turn needs a
+# conversation's context and history
+CLI_BOOTSTRAP = """
+import runpy, sys
+import finchat_tpu_torch.serve.app as app_mod
+from finchat_tpu_torch.io.store import InMemoryStore
+
+def seeded(cfg):
+    store = InMemoryStore(cfg)
+    store.upsert_context("cli-1", {"user_id": "user-cli", "name": "Member", "income": 5200,
+                                   "savings_goal": 600})
+    store.add_user_message("cli-1", "How am I doing this month?", "user-cli", timestamp=100)
+    return store
+
+app_mod.make_store = seeded
+sys.argv = ["finchat_tpu_torch", *sys.argv[1:]]
+runpy.run_module("finchat_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+CLI_TXNS = 8
+# the worker's log lines the CLI turn is read from: the agent's decision,
+# the retriever's row count, the agent's tool error where a plot cannot render
+CLI_ARGS_LOG = "LLM requested retrieval with args:"
+CLI_ROWS_LOG = r"Successfully processed (\d+) transactions"
+CLI_NO_MPL_LOG = "Error running tool: No module named 'matplotlib'"
+CLI_WAIT_S = 300.0
+
+
+def cli_phase(torch, card: str) -> dict:
+    """The CLI on the card: ``python -m finchat_tpu_torch --preset llama3-8b
+    --config <json> --port <free port>`` in a subprocess (``CLI_BOOTSTRAP``
+    seeds its store with one conversation), the config naming
+    ``bge-base-en``, a snapshot directory, 32 new tokens and greedy
+    responses. Once ``GET /health`` answers: ``POST /transactions`` of
+    ``CLI_TXNS`` rows, one ``POST /chat/stream`` turn (the reference's event
+    order; where it retrieved, its count must equal the plain count over
+    the posted rows for the decision's arguments, read from the worker's
+    log), then SIGTERM: the process must exit 0 within the shutdown
+    deadline (plus a minute for its drain and exit), its log must show the
+    graceful drain, and the snapshot must hold the rows. The process is
+    killed on any failure."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from finchat_tpu_torch.embed.encoder import EMBED_PRESETS
+    from finchat_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="finchat-cli-"))
+    port = _free_port()
+    overrides = {"serve.host": "127.0.0.1", "embed.preset": "bge-base-en",
+                 "vector.persist_path": str(tmp / "vectors"), "engine.max_new_tokens": 32,
+                 "engine.temperature": 0.0}
+    (tmp / "config.json").write_text(json.dumps(overrides))
+    deadline = load_config(overrides=overrides).shutdown.deadline_seconds
+    log_path = tmp / "cli.log"
+    rng = np.random.default_rng(22)
+    rows = transaction_rows(rng, "user-cli", CLI_TXNS, time.time(), 30)
+    out: dict = {}
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CLI_BOOTSTRAP, "--preset", "llama3-8b", "--config",
+             str(tmp / "config.json"), "--port", str(port)],
+            cwd=str(REPO), env={**os.environ, "PYTHONPATH": str(REPO)}, stdout=log_file,
+            stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        health = None
+        while health is None and proc.poll() is None:
+            if time.perf_counter() - t0 > CLI_WAIT_S:
+                break
+            try:
+                health = _http(port, "GET", "/health")
+            except OSError:
+                time.sleep(0.5)
+        out["startup_s"] = time.perf_counter() - t0
+        if health != (200, "application/json", '{"status": "healthy"}'):
+            fail(f"cli: /health answered {health} after {out['startup_s']:.1f} s (exit "
+                 f"{proc.poll()}): {log_path.read_text()[-3000:]}")
+        answer = _http(port, "POST", "/transactions", {"user_id": "user-cli", "transactions": [
+            {"text": r["text"], "date": r["date"], "amount": r["amount"]} for r in rows]})
+        if answer[0] != 200 or json.loads(answer[2]) != {"upserted": CLI_TXNS}:
+            fail(f"cli: POST /transactions answered {answer}")
+        t1 = time.perf_counter()
+        status, ctype, text = _http(port, "POST", "/chat/stream",
+                                    {"conversation_id": "cli-1", "user_id": "user-cli",
+                                     "message": "Where did my money go this month?"})
+        out["turn_s"] = time.perf_counter() - t1
+        sse = [json.loads(line[6:]) for line in text.split("\n") if line.startswith("data: ")]
+        if (status, ctype) != (200, "text/event-stream"):
+            fail(f"cli: /chat/stream answered {status} {ctype}: {text[:500]}")
+        out["retrieved"], out["count"] = check_turn_protocol("bf16", "cli /chat/stream", sse)
+        if out["retrieved"]:
+            # the decision's arguments, from the worker's log, against the
+            # plain count over the rows posted (the window's edge taken at
+            # both ends of the turn)
+            worker_log = log_path.read_text()
+            calls = [ast.literal_eval(line.split(CLI_ARGS_LOG, 1)[1].strip())
+                     for line in worker_log.splitlines() if CLI_ARGS_LOG in line]
+            if len(calls) != 1:
+                fail(f"cli: the turn retrieved, but the log holds {len(calls)} decisions")
+            out["args"] = call = calls[0]
+            n, days = call.get("num_transactions"), call.get("time_period_days")
+            wants = set()
+            for now in (time.time() - (time.perf_counter() - t1), time.time()):
+                if isinstance(n, int) and n <= 0:
+                    continue  # the count depends on the path (plain_count)
+                window = [r for r in rows if not days or r["date"] >= now - days * 86_400.0]
+                wants.add(min(int(n or 10_000), len(window)))
+            out["plain_count"] = sorted(wants)
+            # each retrieval's own count, as the retriever logs it
+            processed = [int(k) for k in re.findall(CLI_ROWS_LOG, worker_log)]
+            out["render_failed"] = CLI_NO_MPL_LOG in worker_log
+            if out["render_failed"]:
+                # a plot call on a machine without matplotlib: as in the
+                # reference, the render's ImportError turns the tool's rows
+                # into one error entry; the retrieval beneath it still ran
+                ok = ("chart_type" in call and out["count"] == 1
+                      and importlib.util.find_spec("matplotlib") is None
+                      and bool(processed) and (not wants or processed[-1] in wants))
+            else:
+                ok = (not wants or out["count"] in wants) and 0 <= out["count"] <= CLI_TXNS
+            if not ok:
+                fail(f"cli: the turn ({call}) retrieved {out['count']} rows (the retriever "
+                     f"logged {processed}; the render failed: {out['render_failed']}), the "
+                     f"plain count {sorted(wants)} of {CLI_TXNS}")
+        out["events"] = len(sse)
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=deadline + 60.0)
+        except subprocess.TimeoutExpired:
+            rc = None
+        out["exit_s"] = time.perf_counter() - t2
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log_path.read_text()
+    if rc != 0 or "graceful drain" not in text or "worker up: preset=llama3-8b" not in text:
+        fail(f"cli: exit {rc} after SIGTERM ({out['exit_s']:.1f} s): {text[-3000:]}")
+    snap = tmp / "vectors" / "transactions"
+    payloads = [json.loads(line)["payload"]["page_content"]
+                for line in Path(str(snap) + ".jsonl").read_text().splitlines()] \
+        if Path(str(snap) + ".jsonl").exists() else []
+    with np.load(str(snap) + ".npz") as data:
+        shape = tuple(data["vectors"].shape)
+    if payloads != [r["text"] for r in rows] or \
+            shape != (CLI_TXNS, EMBED_PRESETS["bge-base-en"].dim):
+        fail(f"cli: the snapshot holds {payloads} ({shape})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  cli ({card}): python -m finchat_tpu_torch up in {out['startup_s']:.1f} s; "
+        f"/chat/stream {out['events']} events in {out['turn_s']:.2f} s (retrieved "
+        f"{out['retrieved']}, {out['count']} rows); SIGTERM to exit 0 in {out['exit_s']:.2f} s "
+        f"(deadline {deadline:.0f} s), the snapshot of {CLI_TXNS} rows written; the phase took "
+        f"{out['phase_s']:.1f} s")
     return out
 
 
@@ -4093,6 +4857,14 @@ def main() -> None:
             check_qmm(torch, f"int8_m{M}_{K}x{N}", gen, dev, M, K, N, "int8", 0, False, results)
         check_qmm(torch, f"int4_g128_m{M}_4096x14336", gen, dev, M, 4096, 14336, "int4", 128,
                   False, results)
+    log("  fused dequant matmul at bge-base-en's shapes (the int8 encoder: M=2048, an ingest "
+        "dispatch of 32 texts in a 64-token bucket; M=32, a lone query):")
+    for M in BGE_QMM_ROWS:
+        for label, (K, N) in BGE_QMM_WEIGHTS.items():
+            check_qmm(torch, f"bge_int8_m{M}_{label}_{K}x{N}", gen, dev, M, K, N, "int8", 0,
+                      False, results,
+                      # an ingest dispatch's rows, or a lone query's
+                      launch_plane="retrieval_ingest" if M > 64 else "retrieval_query")
     log("  contiguous flash attention (training shapes; the Hopper forward and backward, the "
         "older forward and backward by name beside them):")
     check_flash(torch, "flash_fwd_causal_s2048", gen, dev, 1, 2048, 2048, [0], [2048], results)
@@ -4103,6 +4875,11 @@ def main() -> None:
     check_flash(torch, "flash_bwd_q1024_kv1536", gen, dev, 4, 512, 1536, [1024] * 4, [1536] * 4,
                 results, backward=True)
 
+    log("phase 3, retrieval: bge-base-en (bf16 and int8, random weights), the on-device index "
+        f"of {RETRIEVAL_ROWS} rows, the microbatcher and TransactionRetriever")
+    retrieval, retrieval_parts = asyncio.run(retrieval_phase(torch, dev, card))
+    log("retrieval: " + json.dumps(retrieval))
+
     serves = {}
     for phase, plane, n_req, max_new, profile, drills, agent in (
             (3, "bf16", 8, 64, True, ("breaker", "preemption"),
@@ -4111,7 +4888,8 @@ def main() -> None:
             (5, "int4g128+kv8", 2, 16, False, (), ())):
         log(f"phase {phase}: serve llama3-8b ({plane}, random weights) through LLMService")
         stats = asyncio.run(serve(torch, dev, plane, n_req, max_new, profile,
-                                  later_turns=profile, drills=drills, agent=agent))
+                                  later_turns=profile, drills=drills, agent=agent,
+                                  retrieval=retrieval_parts if plane == "bf16" else None))
         log(f"  TTFT p50 {stats['ttft_p50_s']:.3f} s; decode "
             f"{stats['decode_tokens_per_s']:.1f} tokens/s aggregate, "
             f"{stats['decode_tokens_per_s_per_stream']:.1f} per stream; offloads "
@@ -4150,10 +4928,12 @@ def main() -> None:
         serves[plane] = stats
         if plane == "bf16":
             log("phase 3, app_turns: llama3-8b (bf16, random weights) through the serving app: "
-                "build_app, Kafka, HTTP, the journal")
-            del stats
+                "build_app with its own retriever, Kafka, HTTP, the journal")
+            del stats, retrieval_parts
             app = asyncio.run(app_turns(torch, dev, card))
             log("app: " + json.dumps(app))
+            log("phase 3, cli: python -m finchat_tpu_torch (llama3-8b, bf16) in a subprocess")
+            log("cli: " + json.dumps(cli_phase(torch, card)))
 
     log("phase 6: train llama3-8b (random weights) through K7, forward and backward")
     check = train_check(torch, dev)
@@ -4200,10 +4980,13 @@ def main() -> None:
     }
     launched = {plane: stats["launches"] for plane, stats in serves.items()}
     launched["train"] = train["launches"]
+    launched["retrieval_ingest"] = retrieval["launches"]["ingest"]
+    launched["retrieval_query"] = retrieval["launches"]["query"]
     table = []
     for r in results:
         kname = r["kernel"]
         source, replaces, plane = kernel_rows[kname]
+        plane = r.get("launch_plane", plane)
         row = {
             "name": kname if r["case"] == kname else f"{kname}[{r['case']}]",
             "route": "cuda", "source": src + source, "replaces": replaces,

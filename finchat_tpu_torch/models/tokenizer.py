@@ -43,6 +43,10 @@ class ByteTokenizer:
         ids = list(text.encode("utf-8"))
         return ([self.bos_id] if add_bos else []) + ids
 
+    def encode_with_specials(self, text: str) -> list[int]:
+        """Encoder-style framing (the embedding path's [CLS]...[SEP])."""
+        return [self.bos_id] + self.encode(text) + [self.eos_id]
+
     def decode(self, ids: Sequence[int]) -> str:
         return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
 

@@ -22,18 +22,26 @@ the JAX package's ``serve/app.py``, single engine).
   /chat`` (batch ``LLMAgent.query``), ``POST /chat/stream`` (server-sent
   events of the whole event protocol) and ``POST /transactions`` (and the
   ``transaction_upsert`` topic) for a retriever with
-  ``upsert_transactions``.
+  ``upsert_transactions``: rows are embedded on the device into the vector
+  index, which snapshots to ``vector.persist_path`` (debounced on ingest,
+  forced at shutdown) so retrieval is not empty at boot.
 - ``drain_and_stop``: the graceful shutdown. Admission stops, in-flight
   streams get ``shutdown.deadline_seconds`` to complete, the stragglers
   are preempted with a retryable ``shutting_down`` error, the session
   entries spill, and nothing is left on the pool.
 
-``build_app`` assembles a worker from an ``AppConfig``. It refuses, with an
-error that names the plane, what the port does not carry yet: a fleet
-(``fleet.replicas`` > 1), the warm-state fabric, a pod, a mesh of more than
-one device, a checkpoint or tokenizer path, and a missing ``retriever=``
-(the embedding retriever is not ported yet). The engine runs on ``cuda``
-unless the caller passes ``device="cpu"``.
+``build_app`` assembles a worker from an ``AppConfig``. Without an
+injected ``retriever=`` it builds the retriever the JAX package builds: the
+embedding encoder of ``embed.preset`` (random weights from a seeded
+generator, at ``embed.quant``), then a ``QdrantRetriever`` when
+``vector.url`` is set, else a ``DeviceVectorIndex`` (restored from
+``vector.snapshot_base()`` when set) behind an ``EmbedMicrobatcher`` and a
+``TransactionRetriever``. It refuses, with an error that names the plane,
+what the port does not carry yet: a fleet (``fleet.replicas`` > 1,
+``fleet.roles``), the warm-state fabric, a pod, a mesh of more than one
+device, the decoder's and the encoder's checkpoint and tokenizer paths, and
+the engine planes ``check_supported`` refuses. The engine, the encoder and
+the index run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -48,10 +56,13 @@ from pathlib import Path
 import torch
 
 from finchat_tpu_torch.agent.graph import LLMAgent
+from finchat_tpu_torch.embed.batcher import EmbedMicrobatcher
+from finchat_tpu_torch.embed.encoder import EMBED_PRESETS, EmbeddingEncoder, init_bert_params
+from finchat_tpu_torch.embed.index import DeviceVectorIndex
 from finchat_tpu_torch.engine.engine import InferenceEngine
 from finchat_tpu_torch.engine.generator import EngineGenerator, StubGenerator, TextGenerator
 from finchat_tpu_torch.engine.sampler import SamplingParams
-from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler, check_supported
 from finchat_tpu_torch.io.kafka import KafkaClient
 from finchat_tpu_torch.io.schemas import (
     complete_chunk,
@@ -66,6 +77,7 @@ from finchat_tpu_torch.models.quant import init_quantized_params
 from finchat_tpu_torch.models.tokenizer import ByteTokenizer, get_tokenizer
 from finchat_tpu_torch.serve.fleet import DedupeRing
 from finchat_tpu_torch.serve.http import HTTPServer, Request, Response, StreamingResponse, sse_event
+from finchat_tpu_torch.tools.retrieval import TransactionRetriever
 from finchat_tpu_torch.utils.config import (
     AI_RESPONSE_TOPIC,
     TRANSACTION_UPSERT_TOPIC,
@@ -363,10 +375,27 @@ class App:
         # set while drain_and_stop runs: the HTTP chat paths answer a
         # retryable 503
         self._draining = False
+        # the vector index's snapshot: when the last one was written, and
+        # whether a debounced one is due
+        self._last_persist = float("-inf")
+        self._persist_dirty = False
 
     # --- lifespan -------------------------------------------------------
+    def _embed_batcher(self):
+        """The embedding microbatcher, wherever it is wired: the app's own
+        ingestion retriever or the agent's (one object on the default
+        on-device path)."""
+        return getattr(self.retriever, "batcher", None) or getattr(
+            self.agent.retriever, "batcher", None
+        )
+
     async def start(self, serve_http: bool = True) -> None:
         await self.store.check_connection()
+        batcher = self._embed_batcher()
+        if batcher is not None:
+            # the coalescing flusher on the serving loop, so the threadsafe
+            # ingest path rides the same window as the queries
+            batcher.bind_loop()
         topics = [USER_MESSAGE_TOPIC]
         if self.retriever is not None:
             topics.append(TRANSACTION_UPSERT_TOPIC)
@@ -395,8 +424,13 @@ class App:
             task.cancel()
         if self._inflight:
             await asyncio.gather(*self._inflight, return_exceptions=True)
+        batcher = self._embed_batcher()
+        if batcher is not None:
+            await batcher.close()
         if self.scheduler is not None:
             await self.scheduler.stop()
+        # the snapshot's compression and file IO off the loop
+        await asyncio.to_thread(self._persist_index, True)
         await self.server.stop()
         self.kafka.close()
         if self._journal is not None:
@@ -446,6 +480,29 @@ class App:
         # flight dumps are written by threads: join them off the loop
         await asyncio.to_thread(TRACER.flush_dumps)
         await self.stop()
+
+    # a snapshot rewrites the whole collection, so ingest saves are
+    # debounced; shutdown always forces one
+    _PERSIST_DEBOUNCE_S = 30.0
+
+    def _persist_index(self, force: bool = False) -> None:
+        """Snapshot the local vector index to ``vector.snapshot_base()``
+        (nothing without a persist path or a local index, as with the
+        external Qdrant). Within the debounce window a save is only marked
+        due; the consume loop writes it once idle."""
+        base = self.cfg.vector.snapshot_base()
+        if not base or getattr(self.retriever, "index", None) is None:
+            return
+        now = time.monotonic()
+        if not force and now - self._last_persist < self._PERSIST_DEBOUNCE_S:
+            self._persist_dirty = True
+            return
+        try:
+            self.retriever.index.save(base)
+            self._last_persist = now
+            self._persist_dirty = False
+        except Exception as e:
+            logger.error("failed to persist vector index: %s", e)
 
     def _on_engine_rebuild(self) -> None:
         """A breaker trip rebuilt the engine's device state and the heads'
@@ -666,14 +723,16 @@ class App:
         return Response.json({"upserted": count})
 
     def _ingest_rows(self, user_id: str, rows: list[dict]) -> int:
-        """Upsert (blocking; the callers run it in a thread). A row without
-        a ``date`` is stamped with now; a malformed date raises
+        """Embed and upsert (blocking: device work; the callers run it in a
+        thread), then snapshot the index (debounced). A row without a
+        ``date`` is stamped with now; a malformed date raises
         ``ValueError``."""
         texts = [str(r["text"]) for r in rows]
         now = self.retriever.now()
         dates = [float(r["date"]) if "date" in r else now for r in rows]
         metadatas = [{k: v for k, v in r.items() if k not in ("text", "date")} for r in rows]
         self.retriever.upsert_transactions(user_id, texts, dates=dates, metadatas=metadatas)
+        self._persist_index()
         return len(texts)
 
     # --- Kafka worker loop ----------------------------------------------
@@ -900,6 +959,11 @@ class App:
                     self._spawn_message_task(msg)
                     await asyncio.sleep(0)  # let the new task reach the engine
                 else:
+                    # a snapshot a debounced ingest left due, written off
+                    # the loop once the debounce window has passed
+                    if (self._persist_dirty and time.monotonic() - self._last_persist
+                            >= self._PERSIST_DEBOUNCE_S):
+                        await asyncio.to_thread(self._persist_index)
                     await asyncio.sleep(0.01)
             except asyncio.CancelledError:
                 raise
@@ -908,11 +972,13 @@ class App:
                 await asyncio.sleep(1)
 
 
-def _refuse_unported(cfg: AppConfig, retriever) -> None:
+def _refuse_unported(cfg: AppConfig) -> None:
     """The config planes the port does not carry yet, refused by name."""
     refused = []
     if cfg.fleet.replicas > 1:
         refused.append(f"fleet.replicas={cfg.fleet.replicas} (the engine fleet)")
+    if cfg.fleet.roles:
+        refused.append(f"fleet.roles={cfg.fleet.roles!r} (disaggregated prefill/decode)")
     if cfg.fabric.enabled:
         refused.append("fabric.enabled (the warm-state fabric)")
     if cfg.pod.host_id:
@@ -921,10 +987,57 @@ def _refuse_unported(cfg: AppConfig, retriever) -> None:
         refused.append("model.checkpoint_path (the checkpoint loader)")
     if cfg.model.tokenizer_path:
         refused.append("model.tokenizer_path (HuggingFace tokenizers)")
-    if retriever is None:
-        refused.append("a missing retriever= (the embedding retriever; pass one in)")
+    if cfg.embed.checkpoint_path:
+        refused.append("embed.checkpoint_path (the BERT checkpoint loader)")
+    if cfg.embed.tokenizer_path:
+        refused.append("embed.tokenizer_path (HuggingFace tokenizers)")
     if refused:
         raise NotImplementedError("build_app: not ported yet: " + "; ".join(refused))
+    check_supported(cfg.engine)
+
+
+def build_retriever(cfg: AppConfig, tokenizer=None, device: str | torch.device = "cuda"):
+    """The retriever ``build_app`` builds when none is injected, as the JAX
+    package builds it: the encoder of ``embed.preset`` with random weights
+    (a ``torch.Generator`` seeded with 1) on ``device`` at ``embed.quant``,
+    framing texts with ``tokenizer`` (the decoder's) or the byte tokenizer;
+    then a ``QdrantRetriever`` when ``vector.url`` is set, else the on-device
+    index (restored from ``vector.snapshot_base()`` when set) behind an
+    ``EmbedMicrobatcher`` and a ``TransactionRetriever``."""
+    embed_cfg = EMBED_PRESETS[cfg.embed.preset]
+    logger.warning(
+        "no embedding checkpoint configured; using RANDOM weights "
+        "(preset=%s) — retrieval rankings will be meaningless", cfg.embed.preset,
+    )
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    encoder = EmbeddingEncoder(
+        embed_cfg, init_bert_params(embed_cfg, gen, device), tokenizer or get_tokenizer(),
+        batch_size=cfg.embed.batch_size, quant=cfg.embed.quant, device=device,
+    )
+    if cfg.vector.api_key and not cfg.vector.url:
+        logger.warning(
+            "QDRANT_API_KEY is set but QDRANT_URL is not; using the on-device vector "
+            "index — set QDRANT_URL to select the external Qdrant backend"
+        )
+    if cfg.vector.url:
+        # an existing, populated Qdrant cluster: the embeddings still run on
+        # the device, only the search is external
+        from finchat_tpu_torch.tools.qdrant_retriever import QdrantRetriever
+
+        return QdrantRetriever(
+            encoder, url=cfg.vector.url, api_key=cfg.vector.api_key,
+            collection=cfg.vector.collection, default_limit=cfg.vector.default_limit,
+        )
+    base = cfg.vector.snapshot_base()
+    index = (DeviceVectorIndex.load(base, dim=embed_cfg.dim, device=device) if base
+             else DeviceVectorIndex(dim=embed_cfg.dim, device=device))
+    # concurrent query embeds and ingest upserts coalesce into shared
+    # dispatches; the batcher binds to the serving loop at App.start
+    batcher = EmbedMicrobatcher(encoder, window_ms=cfg.embed.batch_window_ms,
+                                max_batch=cfg.embed.batch_max)
+    return TransactionRetriever(encoder, index, default_limit=cfg.vector.default_limit,
+                                batcher=batcher)
 
 
 def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None = None,
@@ -934,9 +1047,10 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
               retriever=None, device: str | torch.device = "cuda") -> App:
     """Assemble a worker from config, with injection points for tests and
     development. The engine (``model.preset`` other than ``"stub"``, where
-    a generator is not injected) runs on ``device``."""
+    a generator is not injected) and, without an injected ``retriever``,
+    the retriever ``build_retriever`` makes run on ``device``."""
     cfg = cfg or load_config()
-    _refuse_unported(cfg, retriever)
+    _refuse_unported(cfg)
     TRACER.configure(enabled=cfg.tracing.enabled, ring_events=cfg.tracing.ring_events,
                      flight_dir=cfg.tracing.flight_dir)
     store = store or make_store(cfg.store)
@@ -948,6 +1062,8 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
         tool_gen, resp_gen, scheduler, tokenizer = build_generators(cfg, device)
         tool_generator = tool_generator or tool_gen
         response_generator = response_generator or resp_gen
+    if retriever is None:
+        retriever = build_retriever(cfg, tokenizer, device)
 
     system_prompt, tool_prompt = load_prompts()
     agent = LLMAgent(

@@ -22,12 +22,15 @@ and ``prefix_cache``, and passes ``retrieval_overlap`` and
 ``tool_streaming`` to ``LLMAgent``. ``compilation_cache_dir`` is inert here:
 it names XLA's persistent compilation cache, and the port's kernels are
 built from source into ``finchat_tpu_torch/build/`` keyed by a source hash,
-so nothing reads it. The sections of planes not ported yet (``fleet``,
-``fabric``, ``pod``, ``mesh``, ``embed``, ``vector``) are carried so the
-tree reads the same in both packages; ``build_app`` refuses the settings
-that would turn one of them on (a fleet, the fabric, a pod, a mesh of more
-than one device), and ``embed``/``vector`` go unread until the embedding
-retriever is ported (``build_app`` takes an injected ``retriever=``).
+so nothing reads it. ``embed`` and ``vector`` are read by ``build_app``'s
+retriever (serve/app.py ``build_retriever``): the encoder preset, its
+micro-batch, quantization and microbatcher window, the Qdrant URL, key and
+collection, the default limit and the snapshot directory; the encoder's
+checkpoint and tokenizer paths are refused until the loaders are ported.
+The sections of planes not ported yet (``fleet``, ``fabric``, ``pod``,
+``mesh``) are carried so the tree reads the same in both packages;
+``build_app`` refuses the settings that would turn one of them on (a fleet
+or its roles, the fabric, a pod, a mesh of more than one device).
 """
 
 from __future__ import annotations
@@ -147,9 +150,8 @@ class VectorConfig:
     The reference delegates to a remote Qdrant (``tools/qdrant_tool.py``);
     the default backend is an on-device index (brute-force exact cosine)
     with a local durable snapshot (``persist_path``), and ``QDRANT_URL``
-    (the reference's env name) selects an external Qdrant instead. Not
-    ported yet: the port's ``build_app`` takes an injected retriever and
-    reads nothing here.
+    (the reference's env name) selects an external Qdrant instead
+    (serve/app.py ``build_retriever``).
     """
 
     url: str = ""
@@ -252,12 +254,12 @@ class EngineConfig:
 
 @dataclass
 class EmbedConfig:
-    """Embedding encoder (replaces the OpenAI embeddings API; not ported
-    yet, so nothing in the port reads this section).
+    """Embedding encoder (replaces the OpenAI embeddings API; embed/encoder.py).
 
-    ``checkpoint_path``: HF BertModel safetensors dir (e.g. bge-base-en-v1.5)
-    loaded via checkpoints/bert_loader.py; empty = random weights (dev only).
-    ``tokenizer_path``: matching HF tokenizer dir; empty = byte tokenizer.
+    ``checkpoint_path``: HF BertModel safetensors dir (e.g. bge-base-en-v1.5);
+    empty = random weights (dev only). Its loader is not ported yet, and
+    ``build_app`` refuses a path here, as it refuses ``tokenizer_path``
+    (a matching HF tokenizer dir; empty = the byte tokenizer).
     ``batch_size``: rows per device call during batch embedding/ingest.
     """
 

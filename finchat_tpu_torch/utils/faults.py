@@ -19,6 +19,9 @@ degradation contracts:
 - the agent: ``tool.execute`` fires inside every tool execution,
   speculative and serial (``agent/graph.py`` ``_execute_tool``), so a test
   can fail an eagerly launched tool mid-decode and see the serial retry.
+- retrieval: ``embed.dispatch`` fires before each coalesced embed dispatch
+  (``embed/batcher.py``), so a test can fail a shared dispatch and see the
+  per-request retry.
 
 Sites are plain strings; ``ctx`` carries site-specific identifiers (e.g.
 ``seq_id``) so a handler can target one victim.

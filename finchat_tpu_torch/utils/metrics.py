@@ -19,6 +19,16 @@ reference's names: ``finchat_kafka_produced_total``,
 ``finchat_durability_graceful_drains_total`` and the
 ``finchat_durability_shutdown_drain_seconds`` histogram.
 
+Retrieval (embed/batcher.py, tools/retrieval.py,
+tools/qdrant_retriever.py), under the reference's names:
+``finchat_embed_batch_dispatches_total`` / ``_requests_total`` /
+``_texts_total`` / ``_batch_retries_total`` / ``_failures_total``, the
+``finchat_embed_batch_occupancy`` and ``finchat_embed_queue_depth`` gauges,
+the ``finchat_embed_wait_seconds`` histogram, ``finchat_retrievals_total``,
+``finchat_retrieval_security_skips_total`` and the
+``finchat_retrieval_embed_seconds`` / ``finchat_retrieval_search_seconds``
+histograms.
+
 Prefix and session KV caches (engine/scheduler.py, engine/session_cache.py),
 under the reference's names: ``finchat_prefix_hits_total`` and
 ``finchat_prefix_tokens_saved_total`` (admissions that referenced a shared

@@ -817,7 +817,8 @@ REFUSALS = {
     "pod": ({"pod.host_id": "host-a"}, "pod.host_id"),
     "checkpoint": ({"model.checkpoint_path": "/ckpt"}, "model.checkpoint_path"),
     "tokenizer": ({"model.tokenizer_path": "/tok"}, "model.tokenizer_path"),
-    "retriever": ({}, "retriever="),
+    "embed_checkpoint": ({"embed.checkpoint_path": "/bge"}, "embed.checkpoint_path"),
+    "embed_tokenizer": ({"embed.tokenizer_path": "/bge-tok"}, "embed.tokenizer_path"),
     "mesh": ({"model.preset": "tiny", "mesh.data": 2, "mesh.model": 1}, "mesh"),
 }
 
@@ -829,7 +830,7 @@ def test_build_app_refuses_planes_not_ported(case):
     with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
         tapp.build_app(cfg, store=InMemoryStore(), kafka=KafkaClient(cfg.kafka,
                                                                      broker=InMemoryBroker()),
-                       retriever=None if case == "retriever" else retriever, device="cpu")
+                       retriever=retriever, device="cpu")
 
 
 def test_app_keeps_fleet_and_pod_as_none():

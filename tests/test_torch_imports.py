@@ -48,6 +48,17 @@ def test_the_agent_planes_modules_are_walked(module):
     assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
 
 
+@pytest.mark.parametrize("module", [
+    "embed/__init__.py", "embed/encoder.py", "embed/index.py", "embed/batcher.py",
+    "tools/retrieval.py", "tools/qdrant_retriever.py", "__main__.py",
+])
+def test_the_retrieval_modules_are_walked(module):
+    """The encoder, the vector index, the microbatcher, both retrievers and
+    the CLI are among the files walked above (the index's reference imports
+    only numpy and JAX: the port keeps its own copy)."""
+    assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_module_imports_no_jax(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]

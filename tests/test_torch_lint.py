@@ -58,6 +58,24 @@ def test_the_knob_rule_runs_over_the_port(tmp_path):
     assert "vector.unwired_knob" in result.findings[0].message
 
 
+def test_the_knob_rule_reads_the_cli_overrides(tmp_path):
+    """R4 reads the override keys of the port's ``__main__.py`` against the
+    port's config: clean as it stands, a key no section declares is a
+    finding there."""
+    for name in ("utils/config.py", "__main__.py"):
+        (tmp_path / name).parent.mkdir(exist_ok=True)
+        (tmp_path / name).write_text((ROOT / "finchat_tpu_torch" / name).read_text())
+    (tmp_path / "README.md").write_text((ROOT / "README.md").read_text())
+    assert run_analysis(tmp_path, [tmp_path]).findings == []
+    main = (tmp_path / "__main__.py").read_text()
+    bad = main.replace('overrides["fleet.roles"]', 'overrides["fleet.role"]')
+    assert bad != main
+    (tmp_path / "__main__.py").write_text(bad)
+    found = [(f.rule, f.symbol, f.message) for f in run_analysis(tmp_path, [tmp_path]).findings]
+    assert found == [("knob-consistency", "main",
+                      "CLI override targets `fleet.role` but no such config field is declared")]
+
+
 def _span_literals(path: Path) -> list[tuple[int, str, str]]:
     """(line, call, name) of every span/event call with a literal name."""
     found = []
