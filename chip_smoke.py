@@ -280,6 +280,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
    up: the head registered, two requests, one after the other's first token, 16 new
    tokens each, with the same prefix-cache and teacher-forced checks — the
    path of the int4 matmul kernel.
+5b. The decode planes (``decode_planes``): ``llama3-8b`` with random
+   weights from a seeded generator, bf16 then int8 weights over the int8
+   KV pool. Each run is an engine at ``EngineConfig(kv_quant=..., **run)``:
+   bf16 at depth 1, ``decode_loop_depth=4``, ``spec_tokens=3`` and
+   ``freerun_rounds=4`` with ``decode_loop_depth=2``; int8+kv8 at depth 1
+   and ``decode_loop_depth=4``. Each is warmed up (the pages past the trash
+   page still zero; at depth > 1 ``decode_loop_step`` is captured there as
+   a CUDA graph), the system head registered, then 8 greedy requests of 64
+   new tokens in two waves through ``LLMService``. Every stream must pass
+   the teacher-forced check and equal the depth-1 run's stream of the same
+   prompt token for token, except that the two may part at a token whose
+   plain-forward margin (the prefixes equal) is at most 0.25. A replayed
+   block must equal the eager ``decode_loop_step`` on a copy of the same
+   state (tokens, context lengths, last tokens, every page), at warmup and
+   again after ``rebuild_device_state`` (the graph dropped and captured
+   anew), each replay adding the launches its capture
+   recorded. Each run's launches are a window of their own (counts set to
+   0 just before the head's registration): the KV-row writer takes one
+   launch a layer of every forward iteration the engine's calls ran (a
+   block's K, a round's fused tails, a capture's rounds), the older paged
+   body exactly the verify steps' attention, no older append, and every
+   kernel of the plane launches. The spec run must accept a draft (its
+   acceptance rate printed), the free-run run capture at least once with
+   fewer dispatches than rounds in the coexist window and no divergence.
+   Printed: decode tokens/s aggregate and per stream beside the earlier
+   ``EngineConfig()`` serves' (PERF.md §5), TTFT,
+   peak memory with the graph, and on the loop-4 runs a block's time a
+   token, device busy and idle share (``torch.profiler``) against a single
+   decode step's at the served context. Phase 2's ``paged_verify_c4``
+   cases (the verify step's C = 4 query tokens a slot: B=64 over 1-4k
+   tokens, B=8 at 5,236) take their launches from the spec run's window.
 6. Train: first ``llama3-8b`` widths at 2 layers, B=1, S=2048 — the loss,
    every leaf's gradient and the one-shot forward's logits through K7
    against the same step with the plain attention (relative per leaf and on
@@ -576,7 +607,7 @@ def check_attention_calls(torch, name: str, calls, want, live, results: list,
 
 
 def check_paged(torch, name, gen, dev, C: int, q_offsets: list[int], kv_lens: list[int],
-                results: list, q8: bool = False) -> None:
+                results: list, q8: bool = False, launch_plane: str | None = None) -> None:
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.paged_attention import (
         paged_attention_q8_ref,
@@ -632,6 +663,8 @@ def check_paged(torch, name, gen, dev, C: int, q_offsets: list[int], kv_lens: li
     b_ms, b_by = bound_ms(_kv_bytes(sum(kv_lens), q8) + io_bytes, flops)
     extra = dict(plain_ms=time_ms(torch, plain), bound_ms=b_ms, bound_by=b_by,
                  library_ms=lib_ms)
+    if launch_plane is not None:  # the window its launches are read from
+        extra["launch_plane"] = launch_plane
     check_attention_calls(torch, name, calls, want, kv > 0, results, extra,
                           time_ms(torch, wrapper))
     del k_pages, v_pages, k_scales, v_scales, cache, calls, routed
@@ -4521,7 +4554,8 @@ def grammar_masks(vocab, served: list[int], budget: int):
             state = vocab.advance(state, token)
 
 
-def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None) -> dict:
+def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None,
+                         with_margins: bool = False) -> dict:
     """Re-run one served stream through the plain dense forward (no cache,
     plain attention, plain matmuls) and require the served greedy token
     wherever the plain forward's top-2 logit margin exceeds 0.25 — bf16
@@ -4533,7 +4567,8 @@ def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None) ->
     pages is checked over its whole history all the same: the served
     tokens must not depend on where their KV came from. With ``vocab`` (a
     grammar-constrained stream) the argmax and the margin are taken under
-    the grammar mask each token was picked under (``grammar_masks``)."""
+    the grammar mask each token was picked under (``grammar_masks``).
+    ``with_margins`` adds each served token's plain top-2 margin."""
     from finchat_tpu_torch.engine.kv_cache import quantize_kv_rows
     from finchat_tpu_torch.models.llama import dense_causal_attention, forward, lm_head
     from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dequantize
@@ -4588,8 +4623,429 @@ def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None) ->
     if bad:
         fail(f"teacher-forced check: {h.seq_id}'s served tokens disagree with the plain forward")
     del plain, logits, hidden
-    return dict(seq_id=h.seq_id, tokens=n, agree=int(agree.sum()), decided=int(decided.sum()),
-                masked=vocab is not None)
+    out = dict(seq_id=h.seq_id, tokens=n, agree=int(agree.sum()), decided=int(decided.sum()),
+               masked=vocab is not None)
+    if with_margins:
+        out["margins"] = margin[:n].tolist()
+    return out
+
+
+# --------------------------------------------------------------------------
+# decode_planes: the fused decode loop, spec decode, the free-running loop
+# --------------------------------------------------------------------------
+
+# the spec run's drafts a verify step: the verify-shape attention call is
+# C = 1 + VERIFY_DRAFTS query tokens a slot
+VERIFY_DRAFTS = 3
+# the runs of the phase, each an engine of its own over the plane's weights:
+# the depth-1 stream first (what the others are held to), then the planes
+DECODE_RUNS = {
+    "bf16": (("depth1", {}), ("loop4", dict(decode_loop_depth=4)),
+             ("spec3", dict(spec_tokens=VERIFY_DRAFTS)),
+             ("freerun4", dict(freerun_rounds=4, decode_loop_depth=2))),
+    "int8+kv8": (("depth1", {}), ("loop4", dict(decode_loop_depth=4))),
+}
+# a stream is held to the depth-1 stream token by token; the two may part
+# only at a token whose plain-forward margin (on the depth-1 stream, the
+# prefixes being equal) is at most this: the teacher-forced check's rule
+STREAM_MARGIN = 0.25
+
+
+class _PlaneCounts:
+    """What the engine's steps of a run did, counted at the engine: calls of
+    each step (prefill chunks, single decode steps, decode-loop blocks,
+    verify steps, ragged rounds, captured multi-rounds) and the drafts the
+    verify steps and spec rows carried."""
+
+    NAMES = ("prefill_chunk", "decode", "decode_loop", "decode_spec", "ragged_mixed",
+             "ragged_multi")
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.drafts = 0
+        for name in self.NAMES:
+            real = getattr(engine, name)
+
+            def counted(*a, _name=name, _real=real, **k):
+                self.calls[_name] += 1
+                if _name == "decode_spec":
+                    self.drafts += int(sum(a[2]))
+                elif _name == "ragged_mixed" and len(a) > 10 and a[10] is not None:
+                    self.drafts += int(sum(a[10]))
+                return _real(*a, **k)
+
+            setattr(engine, name, counted)
+
+    def close(self) -> None:
+        for name in self.NAMES:
+            delattr(self.engine, name)
+
+
+def _state_copy(torch, state):
+    """A deep copy of an engine state on the card, the generator's position
+    included."""
+    import dataclasses
+
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)}, generator=gen)
+
+
+def check_loop_graph(torch, engine, when: str, head_ids: list[int]) -> dict:
+    """A replayed block of the engine's decode-loop graph against the eager
+    ``decode_loop_step`` on a copy of the same state: two slots armed (the
+    head's tokens as their prompts, one a page longer), one greedy block;
+    the tokens, context lengths, last tokens and every page equal, and the
+    replay adds the launches the capture recorded. Then the slots are
+    cleared (their pages were never the allocator's)."""
+    from finchat_tpu_torch.engine.engine import decode_loop_step
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+
+    B = engine.engine_cfg.max_seqs
+    K = engine.decode_loop_depth
+    per = -(-(len(head_ids) + engine.page_size + 8 * K) // engine.page_size)
+    rows = {0: head_ids, 1: head_ids + head_ids[: engine.page_size]}
+    engine.set_page_table_rows({s: list(range(1 + s * per, 1 + (s + 1) * per)) for s in rows})
+    for slot, ids in rows.items():
+        engine.commit_first_token(slot, engine.prefill(slot, ids), 0.0, 1.0, 0)
+    graph = engine._loop_graph(K)
+    active = [s in rows for s in range(B)]
+    greedy = ([0.0] * B, [1.0] * B, [0] * B)
+    copy = _state_copy(torch, engine.state)
+    before = dict(LAUNCHES)
+    got = engine.decode_loop(active, *greedy, eos_id=-1)
+    torch.cuda.synchronize()
+    moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    dev = engine.device
+    args = [torch.tensor(a, device=dev, dtype=dt) for a, dt in
+            ((active, torch.bool), (greedy[0], torch.float32), (greedy[1], torch.float32),
+             (greedy[2], torch.int32))]
+    _s, want = decode_loop_step(engine.params, copy, *args,
+                                torch.tensor(-1, dtype=torch.int32, device=dev),
+                                config=engine.config, page_size=engine.page_size, loop_depth=K)
+    same = bool(torch.equal(got, want)) and all(
+        torch.equal(getattr(engine.state, n), getattr(copy, n))
+        for n in ("context_lens", "last_tokens", "k_pages", "v_pages"))
+    if engine.state.k_scales is not None:
+        same = same and all(torch.equal(getattr(engine.state, n), getattr(copy, n))
+                            for n in ("k_scales", "v_scales"))
+    log(f"    decode-loop graph ({when}): a replayed block of {K} equals the eager loop on a "
+        f"copy of the state (tokens, context, last tokens, pages): {same}; launches a replay "
+        f"{graph.launches}")
+    if not same:
+        fail(f"decode-loop graph ({when}): the replay disagrees with the eager decode_loop_step")
+    if moved != graph.launches:
+        fail(f"decode-loop graph ({when}): a replay moved the launch counts by {moved}, not "
+             f"the captured {graph.launches}")
+    del copy
+    engine.reset_slots(list(rows))
+    return dict(equal=same, launches_per_replay=graph.launches)
+
+
+def check_plane_launches(label: str, spec: dict, config, launches: dict, calls: dict,
+                         loop_depth: int, freerun: int) -> None:
+    """The launch rules of a decode-plane run, every call counted at the
+    engine: the KV-row writer of the cache takes one launch a layer for
+    every forward iteration (a prefill chunk, a decode step, each of a
+    block's K iterations, a verify step, a ragged round and each of its
+    fused tail iterations, each round of a capture and its tails), the
+    older appends none; the plane's kernels that routing keeps off the path
+    none. The older paged body takes the verify steps' attention (C = 1 +
+    drafts), one launch a layer of each, and nothing else."""
+    L = config.n_layers
+    tails = loop_depth if loop_depth > 1 else 1
+    iters = (calls["prefill_chunk"] + calls["decode"] + loop_depth * calls["decode_loop"]
+             + calls["decode_spec"] + tails * calls["ragged_mixed"]
+             + freerun * tails * calls["ragged_multi"])
+    writer, older_append = (("kv_append_q8_sm90", "kv_append_q8") if spec["kv_quant"]
+                            else ("kv_append_sm90", "kv_append"))
+    older = "paged_attention_q8" if spec["kv_quant"] else "paged_attention"
+    log(f"    {label}: steps {calls}; KV writes {launches[writer]} (want {L * iters}); "
+        f"older paged body {launches[older]} (want {L * calls['decode_spec']}, the verify "
+        "steps)")
+    if launches[writer] != L * iters or launches[older_append]:
+        fail(f"decode_planes {label}: the KV-row writer took {launches[writer]} layer writes, "
+             f"not {L * iters}, or the older append ran")
+    if launches[older] != L * calls["decode_spec"]:
+        fail(f"decode_planes {label}: the older paged body took {launches[older]} calls, not "
+             f"one a layer of each of {calls['decode_spec']} verify steps")
+    stray = {k: launches[k] for k in spec.get("never", ()) if launches[k]}
+    if stray:
+        fail(f"decode_planes {label}: calls reached kernels kept off this path: {stray}")
+    missing = [k for k in spec["kernels"] if launches[k] == 0]
+    if missing:
+        fail(f"decode_planes {label}: kernels not launched on the main path: {missing}")
+
+
+def profile_block(torch, engine, context: int, active: int) -> dict:
+    """Where a decode-loop block's time goes against a single step's, on the
+    engine's own state: ``active`` slots at ``context`` tokens (random KV),
+    a block (one graph replay, K iterations) and a decode step, each timed
+    with CUDA events around whole calls and profiled (device busy by class,
+    idle share of the profiled window) as ``profile_steps`` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B = engine.engine_cfg.max_seqs
+    K = engine.decode_loop_depth
+    per = -(-(context + 8 * K) // engine.page_size)
+    engine.set_page_table_rows({s: list(range(1 + s * per, 1 + (s + 1) * per))
+                                for s in range(active)})
+    engine.set_context_lens_rows({s: context for s in range(active)})
+    act = [s < active for s in range(B)]
+    zeros, ones, izeros = [0.0] * B, [1.0] * B, [0] * B
+    out = {}
+    for name, fn, tokens in (
+            ("decode_step", lambda: engine.decode(act, zeros, ones, izeros), 1),
+            (f"decode_loop_block_k{K}",
+             lambda: engine.decode_loop(act, zeros, ones, izeros, eos_id=-1), K)):
+        engine.set_context_lens_rows({s: context for s in range(active)})
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        w_start = torch.cuda.Event(enable_timing=True)
+        w_end = torch.cuda.Event(enable_timing=True)
+        engine.set_context_lens_rows({s: context for s in range(active)})
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w_start.record()
+            for _ in range(3):
+                fn()
+            w_end.record()
+            torch.cuda.synchronize()
+        window_ms = w_start.elapsed_time(w_end) / 3
+        by_class, _top = device_ms(torch, prof, _kernel_class, runs=3)
+        engine.set_context_lens_rows({s: context for s in range(active)})
+        ev_ms = time_ms(torch, fn, iters=5, warmup=1)
+        busy = sum(by_class.values())
+        out[name] = dict(event_ms=ev_ms, ms_per_token=ev_ms / tokens,
+                         profiled_window_ms=window_ms, device_busy_ms=busy,
+                         idle_share=1.0 - busy / window_ms, device_ms_by_class=by_class)
+        log(f"    {name}: {ev_ms:.2f} ms a call, {ev_ms / tokens:.2f} ms a token (CUDA events); "
+            f"profiled {window_ms:.2f} ms, device busy {busy:.2f} ms (idle share "
+            f"{1.0 - busy / window_ms:.3f}): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_class.items(), key=lambda x: -x[1])))
+    engine.reset_slots(list(range(active)))
+    return out
+
+
+async def _plane_run(torch, dev, plane: str, label: str, extras: dict, params, config,
+                     weight_gb: float, head_ids: list[int], system_prompt: str, card: str,
+                     baseline: dict | None) -> dict:
+    """One run of ``decode_planes``: an engine at ``EngineConfig(kv_quant=...,
+    **extras)`` over the plane's weights, warmed up (the decode-loop graph
+    captured there), the system head registered, 8 greedy requests of 64
+    new tokens in two waves through ``LLMService``; every stream
+    teacher-forced and equal to the depth-1 run's stream unless they part
+    at a low-margin token; the launch rules; the plane's own checks."""
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.engine.generator import EngineGenerator
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.serve.simple import LLMService
+    from finchat_tpu_torch.utils.config import EngineConfig
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    spec = PLANES[plane]
+    name = f"{plane} {label}"
+    log(f"  decode_planes {name}: EngineConfig(kv_quant={spec['kv_quant']!r}, {extras})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ecfg = EngineConfig(kv_quant=spec["kv_quant"], **extras)
+    engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
+                             quant_group=spec["group"])
+    warm = run_warmup(torch, name, engine, weight_gb)
+    K = engine.decode_loop_depth
+    graph = {}
+    if K > 1:
+        graph["warmup"] = check_loop_graph(torch, engine, "at warmup", head_ids)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the serve's peak, the graph's pool held
+    tok = ByteTokenizer()
+    sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+    counts = _PlaneCounts(engine)
+    handles = []
+    submit = sched.submit
+
+    async def recording_submit(*a, **k):
+        h = await submit(*a, **k)
+        handles.append(h)
+        return h
+
+    sched.submit = recording_submit
+    svc = LLMService(EngineGenerator(sched, tok), system_prompt,
+                     SamplingParams(temperature=0.0, max_new_tokens=AGENT_NEW))
+    m0 = METRICS.snapshot()
+    reset_launches()
+    sched.register_prefix(head_ids)
+    await sched.start()
+
+    async def one(i: int) -> None:
+        async for _chunk in svc.process_message(MESSAGES[i], context=CONTEXTS[i],
+                                                conversation_id=f"dp-{i}"):
+            pass
+
+    t0 = time.perf_counter()
+    wave1 = [asyncio.create_task(one(i)) for i in range(4)]
+    while not any(h.generated > 0 for h in handles):
+        await asyncio.sleep(0.005)
+    wave2 = [asyncio.create_task(one(i)) for i in range(4, 8)]
+    await asyncio.gather(*wave1, *wave2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    await sched.stop()
+    sched.submit = submit
+    launches = dict(LAUNCHES)
+    calls = dict(counts.calls)
+    drafts = counts.drafts
+    counts.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(handles) != 8 or not all(h.finished and h.generated > 0 for h in handles):
+        fail(f"decode_planes {name}: not every request completed with tokens")
+    if not all(h.generated == AGENT_NEW or h.history[-1] == tok.eos_id for h in handles):
+        fail(f"decode_planes {name}: a request ended before max_new_tokens without EOS")
+    check_plane_launches(name, spec, config, launches, calls, K, engine.freerun_rounds)
+    decode_tokens = sum(h.generated - 1 for h in handles)
+    t_first = min(h.first_token_at for h in handles)
+    t_last = max(h.last_token_at for h in handles)
+    agg = decode_tokens / max(t_last - t_first, 1e-9)
+    per_stream = statistics.median((h.generated - 1) / max(h.last_token_at - h.first_token_at,
+                                                           1e-9) for h in handles)
+    ttft = statistics.median(h.first_token_at - h.submitted_at for h in handles)
+    checks, margins, held = [], {}, {}
+    for h in handles:
+        c = teacher_forced_check(torch, params, config, h, spec["kv_quant"], with_margins=True)
+        margins[h.conversation_id] = c.pop("margins")
+        checks.append(c)
+    out = dict(label=label, config=extras, warmup=warm, wall_s=wall, ttft_p50_s=ttft,
+               decode_tokens_per_s=agg, decode_tokens_per_s_per_stream=per_stream,
+               calls=calls, peak_gb=peak_gb, teacher_forced=checks,
+               streams={h.conversation_id: h.history[len(h.prompt_ids):] for h in handles},
+               margins=margins)
+    if baseline is not None:
+        for conv, served in out["streams"].items():
+            want, marg = baseline["streams"][conv], baseline["margins"][conv]
+            n = 0
+            while n < min(len(served), len(want)):
+                if served[n] != want[n]:
+                    # the prefixes are equal: the depth-1 stream's plain
+                    # margin at n decides whether the token may differ
+                    if marg[n] > STREAM_MARGIN:
+                        fail(f"decode_planes {name}: {conv}'s token {n} is {served[n]}, the "
+                             f"depth-1 stream's {want[n]} (margin {marg[n]:.3f})")
+                    break
+                n += 1
+            held[conv] = n
+        log(f"    {name}: streams equal the depth-1 streams over {sum(held.values())} of "
+            f"{sum(len(s) for s in out['streams'].values())} tokens (each up to a token of "
+            f"plain margin <= {STREAM_MARGIN} where they part, if they do): {held}")
+        out["held_to_depth1"] = held
+    m = lambda k: _metric_delta(METRICS, m0, k)  # noqa: E731
+    if K > 1:
+        blocks = m("finchat_decode_loop_blocks_total")
+        out["loop"] = dict(blocks=blocks, wasted=m("finchat_decode_loop_wasted_tail_tokens_total"),
+                           graph=graph)
+        log(f"    {name}: {blocks:.0f} blocks of {K}, wasted tail tokens "
+            f"{out['loop']['wasted']:.0f}")
+        if calls["decode_loop"] < 1 or blocks != calls["decode_loop"]:
+            fail(f"decode_planes {name}: {calls['decode_loop']} blocks dispatched, "
+                 f"finchat_decode_loop_blocks_total moved {blocks}")
+    if engine.engine_cfg.spec_tokens:
+        accepted = m("finchat_spec_tokens_accepted_total")
+        out["spec"] = dict(verify_steps=calls["decode_spec"], drafts=drafts, accepted=accepted,
+                           acceptance=accepted / drafts if drafts else None,
+                           demotions=m("finchat_spec_demotions_total"))
+        log(f"    {name}: {calls['decode_spec']} verify steps, {drafts} drafts, {accepted:.0f} "
+            f"accepted (acceptance {accepted / max(drafts, 1):.3f}), demotions "
+            f"{out['spec']['demotions']:.0f}")
+        if calls["decode_spec"] < 1 or accepted < 1:
+            fail(f"decode_planes {name}: no verify step with an accepted draft")
+    if engine.freerun_rounds > 1:
+        fr = m("finchat_freerun_dispatches_total")
+        rounds, disp = m("finchat_coexist_rounds_total"), m("finchat_coexist_dispatches_total")
+        out["freerun"] = dict(dispatches=fr, coexist_rounds=rounds, coexist_dispatches=disp,
+                              dispatches_per_round=disp / rounds if rounds else None,
+                              epoch_breaks=m("finchat_freerun_epoch_breaks_total"),
+                              divergences=m("finchat_freerun_divergences_total"))
+        log(f"    {name}: {fr:.0f} captured dispatches; coexist dispatches {disp:.0f} over "
+            f"{rounds:.0f} rounds ({disp / max(rounds, 1):.3f} a round); epoch breaks "
+            f"{out['freerun']['epoch_breaks']:.0f}, divergences "
+            f"{out['freerun']['divergences']:.0f}")
+        if fr < 1 or not rounds or disp / rounds >= 1 or out["freerun"]["divergences"]:
+            fail(f"decode_planes {name}: the free-running loop did not capture (dispatches "
+                 f"{fr}, {disp} a {rounds} rounds, divergences {out['freerun']['divergences']})")
+    if K > 1 and engine.freerun_rounds == 1:
+        out["profile"] = profile_block(torch, engine, context=max(len(h.prompt_ids)
+                                                                  for h in handles), active=8)
+    out["launches"] = launches
+    log(f"    {name}: {len(handles)} requests in {wall:.2f} s; TTFT p50 {ttft:.3f} s; decode "
+        f"{agg:.1f} tokens/s aggregate, {per_stream:.1f} per stream; peak {peak_gb:.2f} GB "
+        f"(weights {weight_gb:.2f}, pool {pool_bytes(engine) / 1e9:.2f}) ({card})")
+    sched.retire_prefixes()
+    if sched.allocator.used_count:
+        fail(f"decode_planes {name}: {sched.allocator.used_count} pages left allocated")
+    if K > 1:
+        engine.rebuild_device_state()
+        if engine._loop_graphs:
+            fail(f"decode_planes {name}: the graph survived rebuild_device_state")
+        graph["rebuild"] = check_loop_graph(torch, engine, "after rebuild_device_state",
+                                            head_ids)
+    del engine, sched, svc, recording_submit, submit, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+async def decode_planes(torch, dev, card: str) -> dict:
+    """The decode planes at ``llama3-8b`` full width, random weights from a
+    seeded generator, greedy (``DECODE_RUNS``): on bf16 the depth-1 run,
+    ``decode_loop_depth=4``, ``spec_tokens=3`` and ``freerun_rounds=4`` with
+    ``decode_loop_depth=2``; on int8+kv8 the depth-1 run and
+    ``decode_loop_depth=4``. Each run's launches are a window of their own
+    (counts set to 0 just before the head's registration); the spec run's
+    window is the one the verify-shape attention's ``kernels`` row reads."""
+    from finchat_tpu_torch.models.llama import PRESETS, init_params
+    from finchat_tpu_torch.models.quant import init_quantized_params
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat_head
+
+    config = PRESETS["llama3-8b"]
+    system_prompt = (REPO / "prompts" / "system_prompt.txt").read_text()
+    head_ids = ByteTokenizer().encode(render_chat_head(system_prompt), add_bos=True)[:-1]
+    t0 = time.perf_counter()
+    out = {}
+    for plane, runs in DECODE_RUNS.items():
+        spec = PLANES[plane]
+        _free(torch)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        base = torch.cuda.memory_allocated()
+        if spec["quant"]:
+            params = init_quantized_params(config, gen, dev, mode=spec["quant"],
+                                           group_size=spec["group"])
+        else:
+            params = init_params(config, gen, dev)
+        torch.cuda.synchronize()
+        weight_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        baseline = None
+        for label, extras in runs:
+            r = await _plane_run(torch, dev, plane, label, extras, params, config, weight_gb,
+                                 head_ids, system_prompt, card, baseline)
+            if baseline is None:
+                baseline = r
+            out[f"{plane} {label}"] = r
+        for r in out.values():
+            r.pop("margins", None)
+        del params, baseline
+        _free(torch)
+    for r in out.values():
+        r.pop("streams", None)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4813,6 +5269,16 @@ def main() -> None:
     check_paged(torch, "paged_decode", gen, dev, 1, [n - 1 for n in dec_lens], dec_lens, results)
     check_paged(torch, "paged_decode_b8", gen, dev, 1, [n - 1 for n in serve_lens], serve_lens,
                 results)
+    # the spec verify step's attention: C = 1 + drafts query tokens a slot
+    # over the slot batch (its own generator: the cases after it keep their
+    # draws); its launches are the decode_planes spec run's
+    verify_gen = torch.Generator(device=dev)
+    verify_gen.manual_seed(2020)
+    C = 1 + VERIFY_DRAFTS
+    check_paged(torch, f"paged_verify_c{C}", verify_gen, dev, C, [n - C for n in dec_lens],
+                dec_lens, results, launch_plane="spec")
+    check_paged(torch, f"paged_verify_c{C}_b8", verify_gen, dev, C,
+                [n - C for n in serve_lens], serve_lens, results, launch_plane="spec")
     check_paged(torch, "paged_prefill_q0", gen, dev, 512, [0] * 4, [512] * 4, results)
     check_paged(torch, "paged_prefill_q1024", gen, dev, 512, [1024] * 4, [1536] * 4, results)
     check_paged(torch, "paged_prefill_q2048", gen, dev, 512, [2048] * 4, [2560] * 4, results)
@@ -4935,6 +5401,19 @@ def main() -> None:
             log("phase 3, cli: python -m finchat_tpu_torch (llama3-8b, bf16) in a subprocess")
             log("cli: " + json.dumps(cli_phase(torch, card)))
 
+    log("phase 5b, decode_planes: llama3-8b (bf16 and int8+kv8, random weights): the fused "
+        "decode loop (a CUDA graph a block), spec decode, the free-running loop")
+    planes = asyncio.run(decode_planes(torch, dev, card))
+    for name, r in planes.items():
+        if name == "seconds":
+            continue
+        log(f"  {name}: decode {r['decode_tokens_per_s']:.1f} tokens/s aggregate, "
+            f"{r['decode_tokens_per_s_per_stream']:.1f} per stream, TTFT p50 "
+            f"{r['ttft_p50_s']:.3f} s, peak {r['peak_gb']:.2f} GB (the earlier EngineConfig() "
+            f"serves, PERF.md section 5: 116.1-141.0 bf16, 89.3-109.7 int8+kv8 aggregate; "
+            f"{card})")
+    log(f"decode_planes ({planes['seconds']:.1f} s): " + json.dumps(planes))
+
     log("phase 6: train llama3-8b (random weights) through K7, forward and backward")
     check = train_check(torch, dev)
     train = train_full(torch, dev, card)
@@ -4982,6 +5461,7 @@ def main() -> None:
     launched["train"] = train["launches"]
     launched["retrieval_ingest"] = retrieval["launches"]["ingest"]
     launched["retrieval_query"] = retrieval["launches"]["query"]
+    launched["spec"] = planes["bf16 spec3"]["launches"]
     table = []
     for r in results:
         kname = r["kernel"]

@@ -8,11 +8,20 @@ like:
   prompts ride with ``n_valid = 0`` and write the trash page.
 - ``decode_step``: the full ``max_seqs`` slot batch every step; inactive
   slots write the trash page.
+- ``decode_loop_step``: the same slot batch, ``decode_loop_depth`` fused
+  decode iterations a dispatch (sampling and the per-slot EOS mask on the
+  device); on the card one CUDA graph a depth, replayed a block
+  (``DecodeLoopGraph``).
+- ``verify_step``: spec decode's ``[last_token, drafts]`` forward a slot,
+  the accepted prefix and one model token committed together.
 - ``ragged_mixed_step``: ONE packed ragged dispatch advancing every
-  prefilling sequence a chunk and every decoding slot a token — rows of a
-  packed token buffer (ops/ragged_paged_attention.py) padded to a pow-2
-  bucket, each row with its own length, page list and sampling params.
-  Spec-verify rows and fused loop tails are later slices.
+  prefilling sequence a chunk, every decoding slot a token, every spec
+  slot a (1+Kd)-token verify row, and every loop slot a fused
+  ``decode_loop_depth - 1``-token tail — rows of a packed token buffer
+  (ops/ragged_paged_attention.py) padded to a pow-2 bucket, each row with
+  its own length, page list and sampling params.
+- ``ragged_multi_round``: the free-running loop, ``freerun_rounds``
+  ragged rounds over staged descriptors (ops/freerun.py) in one dispatch.
 
 The KV cache is updated IN PLACE: a step plans its token rows once
 (``plan_kv_rows``, ``plan_kv_rows_ragged``: ops/kv_append.py), and every
@@ -200,6 +209,32 @@ def commit_first_token(state: DecodeState, slot: int, logits: torch.Tensor,
     return state, token
 
 
+def _decode_iteration(params: dict[str, Any], state: DecodeState, live: torch.Tensor,
+                      temperature: torch.Tensor, top_p: torch.Tensor, top_k: torch.Tensor, *,
+                      config: LlamaConfig, page_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The body of one decode step for ALL slots, shared by ``decode_step``,
+    ``decode_loop_step`` and the ragged round's fused tail: each ``live``
+    slot's last token is appended at its context length (the others write
+    the trash page), every slot samples, and ``context_lens`` and
+    ``last_tokens`` are updated IN PLACE, so a captured CUDA graph reads and
+    writes the same storage at every replay. Returns (next_tokens [B],
+    step logits [B, vocab])."""
+    tokens = state.last_tokens[:, None]
+    positions = state.context_lens[:, None]
+    n_valid = live.to(I32)
+    attention = _paged_attention_fn(
+        state.page_table, (state.context_lens - state.kv_gaps).to(I32), n_valid, 1,
+        page_size, config.n_kv_heads,
+    )
+    logits, _ = forward(params, tokens, positions, config=config, attention=attention,
+                        cache=_cache(state))
+    step_logits = logits[:, 0, :]
+    next_tokens = sample(step_logits, state.generator, temperature, top_p, top_k)
+    state.context_lens.add_(n_valid)
+    state.last_tokens.copy_(torch.where(live, next_tokens, state.last_tokens))
+    return next_tokens, step_logits
+
+
 def decode_step(
     params: dict[str, Any],
     state: DecodeState,
@@ -216,20 +251,106 @@ def decode_step(
     step logits [max_seqs, vocab] or None). Each active slot's last token
     is appended at its context length; inactive slots write the trash page
     and their sampled tokens are ignored by the host."""
-    tokens = state.last_tokens[:, None]
-    positions = state.context_lens[:, None]
-    n_valid = active.to(I32)
+    next_tokens, step_logits = _decode_iteration(params, state, active, temperature, top_p,
+                                                 top_k, config=config, page_size=page_size)
+    return state, next_tokens, (step_logits if return_logits else None)
+
+
+def decode_loop_step(
+    params: dict[str, Any],
+    state: DecodeState,
+    active: torch.Tensor,  # [max_seqs] bool
+    temperature: torch.Tensor,  # [max_seqs]
+    top_p: torch.Tensor,  # [max_seqs]
+    top_k: torch.Tensor,  # [max_seqs] int32
+    eos_id: torch.Tensor,  # 0-d int32 (< 0 disables the stop mask)
+    *,
+    config: LlamaConfig,
+    page_size: int,
+    loop_depth: int = 4,
+) -> tuple[DecodeState, torch.Tensor]:
+    """``loop_depth`` fused decode iterations in ONE dispatch: the host pays
+    one dispatch and one ``[K, max_seqs]`` token fetch a block instead of
+    one a token. Each iteration is exactly the ``decode_step`` body (same
+    forward, KV writes, sampling with one draw set of the state's generator
+    an iteration), so a K-block greedy stream is token for token K single
+    steps.
+
+    The stop mask is on the device: a slot that samples ``eos_id`` has the
+    EOS recorded, then rides the remaining iterations inactive (KV writes to
+    the trash page, ``context_lens`` frozen, output -1). Slots inactive at
+    entry stay -1 throughout. Returns ``(state, block [K, max_seqs])``.
+
+    On the card ``InferenceEngine.decode_loop`` replays this function
+    captured as one CUDA graph a depth; the eager function is the CPU path
+    and the plain version the graph is held against. Slots that need host
+    control a token (grammar picks, spec drafts, slots within K tokens of
+    their budget) must not ride a block: the scheduler demotes them."""
+    B = active.shape[0]
+    live = active
+    block = torch.full((loop_depth, B), -1, dtype=I32, device=active.device)
+    for i in range(loop_depth):
+        next_tokens, _ = _decode_iteration(params, state, live, temperature, top_p, top_k,
+                                           config=config, page_size=page_size)
+        block[i] = torch.where(live, next_tokens, -1)
+        # EOS is recorded above, THEN the slot goes inactive
+        live = live & (next_tokens != eos_id)
+    return state, block
+
+
+def verify_step(
+    params: dict[str, Any],
+    state: DecodeState,
+    active: torch.Tensor,  # [max_seqs] bool
+    drafts: torch.Tensor,  # [max_seqs, Kd] int32 — host-proposed draft tokens
+    n_drafts: torch.Tensor,  # [max_seqs] int32 — live drafts a slot (0 = plain decode)
+    temperature: torch.Tensor,  # [max_seqs]
+    top_p: torch.Tensor,  # [max_seqs]
+    top_k: torch.Tensor,  # [max_seqs] int32
+    *,
+    config: LlamaConfig,
+    page_size: int,
+    return_logits: bool = False,
+) -> tuple[DecodeState, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The speculative verify step (prompt lookup): one forward over
+    ``[last_token, draft_1..draft_Kd]`` a slot scores every draft in one
+    weights-read; the accepted prefix plus one model token commit together.
+    Returns ``(state, emitted [B, K], n_emitted [B], position-0 logits or
+    None)`` with ``K = Kd + 1``; ``emitted[b, :n_emitted[b]]`` are the
+    slot's tokens of this step (1..K).
+
+    Greedy acceptance: draft i commits iff it equals THIS forward's argmax
+    at its position, and position i attends only to positions <= i, so
+    acceptance never changes a token, only how many commit a step.
+    Draft-free slots (non-greedy, grammar-constrained) sample position 0
+    with the full sampler, as ``decode_step`` does; ``return_logits`` hands
+    the position-0 logits to the host for a constrained pick. Rejected
+    drafts' KV lands beyond the new ``context_lens``: masked by every later
+    step and overwritten when those positions are reached."""
+    B, Kd = drafts.shape
+    K = Kd + 1
+    dev = drafts.device
+    tokens = torch.cat([state.last_tokens[:, None], drafts.to(I32)], dim=1)  # [B, K]
+    positions = state.context_lens[:, None] + torch.arange(K, device=dev, dtype=I32)[None, :]
+    n_valid = torch.where(active, 1 + n_drafts.to(I32), torch.zeros_like(n_drafts)).to(I32)
     attention = _paged_attention_fn(
-        state.page_table, (state.context_lens - state.kv_gaps).to(I32), n_valid, 1,
+        state.page_table, (state.context_lens - state.kv_gaps).to(I32), n_valid, K,
         page_size, config.n_kv_heads,
     )
     logits, _ = forward(params, tokens, positions, config=config, attention=attention,
-                        cache=_cache(state))
+                        cache=_cache(state))  # [B, K, vocab]
+    preds = torch.argmax(logits, dim=-1).to(I32)
+    col = torch.arange(1, K, device=dev)[None, :]
+    match = (col <= n_drafts[:, None]) & (tokens[:, 1:] == preds[:, :-1])
+    accepted = torch.cumprod(match.to(I32), dim=1).sum(dim=1).to(I32)
+    n_emitted = torch.where(active, accepted + 1, torch.zeros_like(accepted)).to(I32)
     step_logits = logits[:, 0, :]
-    next_tokens = sample(step_logits, state.generator, temperature, top_p, top_k)
-    state.context_lens = (state.context_lens + n_valid).to(I32)
-    state.last_tokens = torch.where(active, next_tokens, state.last_tokens)
-    return state, next_tokens, (step_logits if return_logits else None)
+    sampled0 = sample(step_logits, state.generator, temperature, top_p, top_k)
+    emitted = torch.cat([sampled0[:, None], preds[:, 1:]], dim=1)
+    last = torch.gather(emitted, 1, accepted.long()[:, None])[:, 0]
+    state.context_lens.add_(n_emitted)
+    state.last_tokens.copy_(torch.where(active, last, state.last_tokens))
+    return state, emitted, n_emitted, (step_logits if return_logits else None)
 
 
 def _ragged_attention_fn(
@@ -241,16 +362,22 @@ def _ragged_attention_fn(
     n_kv: int,
     group: int,  # query heads per KV head
     row_gap: torch.Tensor,  # [R] int32 — bounded-KV eviction gap (0 here)
+    tok_valid: torch.Tensor | None = None,  # [T] bool — a real token of a live row
 ):
-    """Attention callback for the packed ragged step: every packed token's
-    K/V row lands at its own compacted position through its row's page list
-    (padding tokens write the trash page), then the ragged attention reads
-    each row's pages in place. The round's descriptors (compacted positions
-    and lengths, tiles, rows) and its KV rows are built here once and
-    shared by every layer's call, over either cache. Under a profiler they
-    are the ``kv_scatter_ragged`` and ``ragged_paged_attention`` ranges."""
+    """Attention callback for the packed ragged step: every valid packed
+    token's K/V row lands at its own compacted position through its row's
+    page list; padding tokens and the tokens of a dead free-run row
+    (``tok_valid`` False; None = every row live) write the trash page,
+    while ``tok_row`` keeps its ascending order with the padding as
+    suffix, as the tiles need. Then the
+    ragged attention reads each row's pages in place. The round's
+    descriptors (compacted positions and lengths, tiles, rows) and its KV
+    rows are built here once and shared by every layer's call, over either
+    cache. Under a profiler they are the ``kv_scatter_ragged`` and
+    ``ragged_paged_attention`` ranges."""
     plan = plan_ragged(tok_row, tok_pos, row_kv_len, group=group, kv_gap=row_gap)
-    kv_rows = plan_kv_rows_ragged(page_rows, tok_row, plan.tok_pos, page_size)
+    kv_rows = plan_kv_rows_ragged(page_rows, tok_row, plan.tok_pos, page_size,
+                                  tok_valid=tok_valid)
 
     def attention(q, k, v, cache, layer_idx: int):
         k_pages, v_pages, k_scales, v_scales = cache
@@ -277,24 +404,49 @@ def _ragged_round_math(
     row_start: torch.Tensor,  # [R] int32 — abs pos of the row's first token (prefill)
     row_len: torch.Tensor,  # [R] int32 — tokens in the row (0 = padding row)
     row_from_device: torch.Tensor,  # [R] bool — token 0 reads last_tokens[slot] and the
-    #   row starts at context_lens[slot] (decode rows)
+    #   row starts at context_lens[slot] (decode rows, spec verify rows)
     row_arm: torch.Tensor,  # [R] bool — commit this row's sampled token to last_tokens
+    row_n_drafts: torch.Tensor,  # [R] int32 — spec rows: row_len == 1 + n_drafts
     temperature: torch.Tensor,  # [R] — PER-ROW sampling params
     top_p: torch.Tensor,  # [R]
     top_k: torch.Tensor,  # [R] int32
+    loop_active: torch.Tensor,  # [max_seqs] bool — slots riding the fused tail
+    loop_temperature: torch.Tensor,  # [max_seqs] — per-SLOT params for the tail
+    loop_top_p: torch.Tensor,  # [max_seqs]
+    loop_top_k: torch.Tensor,  # [max_seqs] int32
+    eos_id: torch.Tensor,  # 0-d int32 (< 0 disables the tail's stop mask)
+    row_live: torch.Tensor | None,  # [R] bool — the free-run stop mask (None = all live)
     *,
     config: LlamaConfig,
     page_size: int,
-) -> tuple[DecodeState, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The packed ragged round body for plain rows (prefill chunks and
-    1-token decode rows): see ``ragged_mixed_step``."""
+    spec_width: int = 0,
+    loop_depth: int = 1,
+) -> tuple[DecodeState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The packed ragged round body, shared by ``ragged_mixed_step`` and the
+    free-run capture ``ragged_multi_round``, so a captured round is the same
+    math as a host-stepped one.
+
+    ``row_live`` is the decode loop's per-slot stop mask over the ragged
+    rows: a dead row rides the round inert — its KV writes go to the trash
+    page, nothing arms, its slot's ``context_lens`` and ``last_tokens``
+    stay as they were, and it emits 0. The single round passes None
+    (every row live), which leaves every gate below out. (See
+    ``ragged_mixed_step`` for the row contract.)"""
     T = tokens.shape[0]
     R = row_slot.shape[0]
+    B = state.context_lens.shape[0]
+    W = spec_width + 1
     dev = tokens.device
     slot_l = row_slot.long()
     tok_row = tok_row.to(I32)
     safe_row = tok_row.long().clamp(max=R - 1)
     tok_valid = tok_row < R
+    dead_rows = row_live is not None
+    if dead_rows:
+        # a dead row's tokens write the trash page and arm nothing; tok_row
+        # itself keeps the rows' ascending order
+        tok_valid = tok_valid & row_live[safe_row]
+        row_arm = row_arm & row_live
     q_start = torch.cumsum(row_len, 0, dtype=I32) - row_len  # [R] exclusive
     tok_off = torch.arange(T, device=dev, dtype=I32) - q_start[safe_row]
     eff_start = torch.where(row_from_device, state.context_lens[slot_l], row_start)
@@ -310,20 +462,66 @@ def _ragged_round_math(
 
     attention = _ragged_attention_fn(page_rows, tok_row, tok_pos, row_kv_len, page_size,
                                      config.n_kv_heads, config.n_heads // config.n_kv_heads,
-                                     row_gap)
+                                     row_gap, **({"tok_valid": tok_valid} if dead_rows else {}))
     hidden, _ = forward(params, tok_in[None], tok_pos[None], config=config,
                         attention=attention, cache=_cache(state), return_hidden=True)
     h = hidden[0]  # [T, D]
+    # sampling positions: a spec row needs logits at every row position (for
+    # the drafts' acceptance); every other row only at its last valid token,
+    # where all W columns point, so column 0 is always the sampling position
     last_off = (row_len - 1).clamp(min=0)
-    sel_idx = (q_start + last_off).clamp(0, T - 1).long()
-    row_logits = lm_head(params, h[sel_idx], config=config)  # [R, vocab] fp32
-    sampled = sample(row_logits, state.generator, temperature, top_p, top_k)
-    emitted = sampled[:, None]
-    n_emitted = row_arm.to(I32)
-    delta = torch.where(row_arm, sampled - row_last, torch.zeros_like(sampled))
-    state.context_lens.index_add_(0, slot_l, row_len.to(I32))
+    if W == 1:
+        sel_idx = (q_start + last_off).clamp(0, T - 1).long()
+        logits = lm_head(params, h[sel_idx], config=config)[:, None]  # [R, 1, vocab] fp32
+    else:
+        col = torch.arange(W, device=dev, dtype=I32)[None, :]
+        sel_off = torch.where((row_n_drafts > 0)[:, None], torch.minimum(col, last_off[:, None]),
+                              last_off[:, None])
+        sel_idx = (q_start[:, None] + sel_off).clamp(0, T - 1).long()  # [R, W]
+        logits = lm_head(params, h[sel_idx.reshape(-1)], config=config).reshape(R, W, -1)
+    preds = torch.argmax(logits, dim=-1).to(I32)  # [R, W]
+    if W > 1:
+        # verify_step's acceptance over the packed drafts: draft column i
+        # (1..W-1) commits while every earlier draft matched and it equals
+        # the model's prediction for its position
+        cols_d = torch.arange(1, W, device=dev, dtype=I32)[None, :]
+        draft_tok = tok_in[(q_start[:, None] + cols_d).clamp(0, T - 1).long()]
+        match = (cols_d <= row_n_drafts[:, None]) & (draft_tok == preds[:, :-1])
+        accepted = torch.cumprod(match.to(I32), dim=1).sum(dim=1).to(I32)
+    else:
+        accepted = torch.zeros((R,), dtype=I32, device=dev)
+    row_logits = logits[:, 0, :]  # [R, vocab] — each row's sampling position
+    sampled0 = sample(row_logits, state.generator, temperature, top_p, top_k)
+    emitted = torch.cat([sampled0[:, None], preds[:, 1:]], dim=1)  # [R, W]
+    spec = row_n_drafts > 0
+    zeros = torch.zeros_like(accepted)
+    n_emitted = torch.where(row_arm, torch.where(spec, accepted + 1, zeros + 1), zeros).to(I32)
+    last_tok = torch.gather(emitted, 1, accepted.long()[:, None])[:, 0]
+    # context advance: a spec row moves by what it emitted (rejected drafts'
+    # KV stays beyond the new length), every other row by its packed length
+    # (a chunk, 1 for decode, 0 for padding), a dead row not at all
+    advance = torch.where(spec, n_emitted, row_len.to(I32))
+    if dead_rows:
+        advance = torch.where(row_live, advance, zeros)
+    # last_tokens commits as a DELTA add, so duplicate-slot padding rows
+    # (delta 0) cannot race the real row's write
+    delta = torch.where(row_arm, last_tok - row_last, zeros)
+    state.context_lens.index_add_(0, slot_l, advance.to(I32))
     state.last_tokens.index_add_(0, slot_l, delta.to(I32))
-    return state, emitted, n_emitted, row_logits
+
+    # the fused tail: loop slots run loop_depth - 1 further iterations in
+    # the same dispatch, the decode_loop_step body (same forward, writes,
+    # sampling, stop mask), reading the tokens committed above
+    block = torch.full((max(loop_depth - 1, 0), B), -1, dtype=I32, device=dev)
+    if loop_depth > 1:
+        live = loop_active & (state.last_tokens != eos_id)
+        for i in range(loop_depth - 1):
+            next_tokens, _ = _decode_iteration(params, state, live, loop_temperature,
+                                               loop_top_p, loop_top_k, config=config,
+                                               page_size=page_size)
+            block[i] = torch.where(live, next_tokens, -1)
+            live = live & (next_tokens != eos_id)
+    return state, emitted, n_emitted, row_logits, block
 
 
 def ragged_mixed_step(
@@ -336,31 +534,111 @@ def ragged_mixed_step(
     row_len: torch.Tensor,
     row_from_device: torch.Tensor,
     row_arm: torch.Tensor,
+    row_n_drafts: torch.Tensor,
     temperature: torch.Tensor,
     top_p: torch.Tensor,
     top_k: torch.Tensor,
+    loop_active: torch.Tensor,
+    loop_temperature: torch.Tensor,
+    loop_top_p: torch.Tensor,
+    loop_top_k: torch.Tensor,
+    eos_id: torch.Tensor,
     *,
     config: LlamaConfig,
     page_size: int,
-) -> tuple[DecodeState, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """ONE packed ragged dispatch advancing every prefilling row a chunk and
-    every decoding row a token. Returns ``(state, emitted [R, 1], n_emitted
-    [R], row_logits [R, vocab])``.
+    spec_width: int = 0,
+    loop_depth: int = 1,
+) -> tuple[DecodeState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ONE packed ragged dispatch advancing every serving population at
+    once: prefill chunks of any length, 1-token decode rows,
+    grammar-constrained rows (host picks from the returned logits) and
+    (1+Kd)-token spec verify rows are rows of one packed buffer;
+    loop-eligible decode slots then run ``loop_depth - 1`` further fused
+    iterations in the same dispatch. Returns ``(state, emitted [R, W],
+    n_emitted [R], row_logits [R, vocab], loop_block [loop_depth-1,
+    max_seqs])`` with ``W = spec_width + 1``.
 
     - Device-read rows (``row_from_device``) take their first token from
       ``state.last_tokens[slot]`` and start at ``context_lens[slot]`` on the
-      device.
-    - Each row samples at its last valid token with its own params; armed
-      rows (decode rows, and prefill rows whose prompt completes) commit the
-      sample to ``last_tokens`` as a DELTA add, so duplicate-slot padding
-      rows (delta 0) cannot race the real row's write.
-    - Context advances by each row's packed length (0 for padding rows).
+      device; spec rows' drafts ride the packed buffer at offsets 1..Kd.
+    - Spec acceptance is ``verify_step``'s; ``emitted[r, :n_emitted[r]]``
+      are the row's tokens (1..Kd+1 for spec rows, 1 for armed plain rows,
+      0 for mid-prompt prefill rows).
+    - ``row_logits`` is each row's sampling-position logits (position 0 of
+      a device row, the last valid chunk token of a prefill row).
+    - One draw set of the state's generator for the round plus one a tail
+      iteration, as ``decode_step`` / ``decode_loop_step`` draw.
     """
     return _ragged_round_math(
         params, state, tokens, tok_row, row_slot, row_start, row_len,
-        row_from_device, row_arm, temperature, top_p, top_k,
-        config=config, page_size=page_size,
+        row_from_device, row_arm, row_n_drafts, temperature, top_p, top_k,
+        loop_active, loop_temperature, loop_top_p, loop_top_k, eos_id,
+        None,  # every row live: the host stepped this round
+        config=config, page_size=page_size, spec_width=spec_width, loop_depth=loop_depth,
     )
+
+
+def ragged_multi_round(
+    params: dict[str, Any],
+    state: DecodeState,
+    tokens: torch.Tensor,  # [F, T] int32 — staged packed token buffer a round
+    tok_row: torch.Tensor,  # [F, T] int32
+    row_slot: torch.Tensor,  # [R] int32 — the row/slot binding is fixed across the run
+    row_start: torch.Tensor,  # [F, R] int32
+    row_len: torch.Tensor,  # [F, R] int32
+    row_from_device: torch.Tensor,  # [F, R] bool
+    row_arm: torch.Tensor,  # [F, R] bool
+    temperature: torch.Tensor,  # [R] — per-row sampling params (fixed across rounds)
+    top_p: torch.Tensor,  # [R]
+    top_k: torch.Tensor,  # [R] int32
+    loop_active: torch.Tensor,  # [F, max_seqs] bool — staged fused-tail schedule
+    loop_temperature: torch.Tensor,  # [max_seqs]
+    loop_top_p: torch.Tensor,  # [max_seqs]
+    loop_top_k: torch.Tensor,  # [max_seqs] int32
+    eos_id: torch.Tensor,  # 0-d int32
+    *,
+    config: LlamaConfig,
+    page_size: int,
+    loop_depth: int = 1,
+) -> tuple[DecodeState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The free-running serving loop: ``F = freerun_rounds`` consecutive
+    ragged rounds of the ``_ragged_round_math`` body over staged
+    descriptors (``ops/freerun.stage_freerun``), enqueued back to back with
+    no host read between them.
+
+    - The leading ``[F, ...]`` axis is a queue the rounds drain in order;
+      a prompt that completes in round r is staged as a device-read decode
+      row from round r + 1 (its first token commits to ``last_tokens`` on
+      the device).
+    - Budget stops are staged away by the host; EOS is the device's: each
+      round recomputes ``row_live`` from ``last_tokens[row_slot] ==
+      eos_id`` for device-read rows, so a row that committed EOS (in its
+      round or its tail) rides every later round inert, emitting 0.
+    - Output ring: ``ring_tokens [F, R]`` (each armed row's token),
+      ``ring_n [F, R]`` (0 = mid-prompt chunk or dead row),
+      ``ring_blocks [F, loop_depth-1, max_seqs]`` (the fused tails).
+
+    No spec rows ride a capture (drafts are proposed from delivered
+    tokens), so ``spec_width`` is 0. Returns ``(state, ring_tokens,
+    ring_n, ring_blocks)``. Round r is the same math as the r-th
+    host-stepped ``ragged_mixed_step`` over the same descriptors."""
+    F = tokens.shape[0]
+    R = row_slot.shape[0]
+    slot_l = row_slot.long()
+    no_drafts = torch.zeros((R,), dtype=I32, device=tokens.device)
+    ring_tokens, ring_n, ring_blocks = [], [], []
+    for r in range(F):
+        row_live = ~(row_from_device[r] & (state.last_tokens[slot_l] == eos_id))
+        state, emitted, n_emitted, _row_logits, blk = _ragged_round_math(
+            params, state, tokens[r], tok_row[r], row_slot, row_start[r], row_len[r],
+            row_from_device[r], row_arm[r], no_drafts, temperature, top_p, top_k,
+            loop_active[r], loop_temperature, loop_top_p, loop_top_k, eos_id, row_live,
+            config=config, page_size=page_size, spec_width=0, loop_depth=loop_depth,
+        )
+        ring_tokens.append(emitted[:, 0])
+        ring_n.append(n_emitted)
+        ring_blocks.append(blk)
+    return state, torch.stack(ring_tokens), torch.stack(ring_n), torch.stack(ring_blocks)
 
 
 class InferenceEngine:
@@ -406,6 +684,15 @@ class InferenceEngine:
         )
         self.state = create_state(config, engine_cfg, self.max_pages_per_seq, device,
                                   kv_quant=self.kv_quant)
+        # fused multi-step decode (decode_loop_step): tokens a dispatch;
+        # 1 = decode_step only
+        self.decode_loop_depth = max(1, engine_cfg.decode_loop_depth)
+        # the free-running loop (ragged_multi_round): ragged rounds a
+        # dispatch; 1 = host-stepped rounds only
+        self.freerun_rounds = max(1, engine_cfg.freerun_rounds)
+        # on the card: decode_loop_step captured as a CUDA graph, one a depth
+        # (dropped with the state it was captured over)
+        self._loop_graphs: dict[int, DecodeLoopGraph] = {}
         # step variants the last warmup() ran (0 = not warmed); the
         # scheduler sets the finchat_warmup_compiled_variants gauge from it
         self.compiled_variants = 0
@@ -451,9 +738,9 @@ class InferenceEngine:
 
     def set_last_token(self, slot: int, token: int) -> None:
         """Override a slot's next decode input (the host pick of a
-        constrained slot). Writes the current ``state.last_tokens``, which
-        every step rebinds: the write is ordered after the steps already
-        enqueued and before the next one, which reads it."""
+        constrained slot). Writes ``state.last_tokens`` in place (every
+        step updates that same tensor): the write is ordered after the
+        steps already enqueued and before the next one, which reads it."""
         self.state.last_tokens[slot] = int(token)
 
     def select_rows(self, t: torch.Tensor, rows: list[int]) -> torch.Tensor:
@@ -501,6 +788,9 @@ class InferenceEngine:
         the new pool is zeroed on the card: a device error surfaces here,
         inside the breaker's rebuild, and not at the first replayed step."""
         self.state = None  # drop the old pool before allocating the new one
+        # the graphs read and write the old state's storage: recaptured over
+        # the new one at their next use
+        self._loop_graphs.clear()
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
                 self.state = create_state(self.config, self.engine_cfg, self.max_pages_per_seq,
@@ -514,17 +804,21 @@ class InferenceEngine:
         """Run every step variant the scheduler dispatches once, with
         state-neutral inputs, before the first request: the kernels'
         libraries load, cuBLAS initialises, and the caching allocator holds
-        the largest step's blocks. The variants are the JAX engine's for the
-        planes this port serves, and ``compiled_variants`` counts them the
-        same way:
+        the largest step's blocks. The variants are the JAX engine's, and
+        ``compiled_variants`` counts them the same way:
 
         - ``prefill_step`` at every power of two up to the scheduler's
           largest round (``round_up_pow2(max_seqs)``), ``n_valid = 0``:
           writes land on the trash page, context lengths gain zero;
         - ``ragged_mixed_step`` at every packed-token bucket (with
-          ``mixed_step``), every row padding;
+          ``mixed_step``) at the engine's spec width and loop depth, every
+          row padding and no loop slot; with ``freerun_rounds`` > 1 also
+          ``ragged_multi_round`` at every bucket, every round padding;
         - ``decode_step`` with ``return_logits`` False and True, every slot
-          inactive;
+          inactive; with ``decode_loop_depth`` > 1 ``decode_loop_step``
+          (on the card then captured as its CUDA graph); with
+          ``spec_tokens`` > 0 ``verify_step`` with ``return_logits`` False
+          and True;
         - ``commit_first_token`` on slot 0 (its last token becomes 0; a
           slot's first prefill completion overwrites it).
 
@@ -547,25 +841,55 @@ class InferenceEngine:
         def zeros(*shape, dtype=I32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        def ones(*shape):
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+
+        no_eos = torch.tensor(-1, dtype=I32, device=dev)
+        loop = dict(loop_depth=self.decode_loop_depth)
         for n in prefill_batch_sizes:
             self.state, _ = prefill_step(self.params, self.state, zeros(n, C), zeros(n),
                                          zeros(n), zeros(n), **step)
             n_variants += 1
         if cfg.mixed_step:
             R = B
+            flags, tail = zeros(R, dtype=torch.bool), (zeros(B, dtype=torch.bool), ones(B),
+                                                       ones(B), zeros(B))
             for t in self.ragged_token_buckets():
                 self.state, *_ = ragged_mixed_step(
                     self.params, self.state, zeros(t), torch.full((t,), R, dtype=I32, device=dev),
-                    zeros(R), zeros(R), zeros(R), zeros(R, dtype=torch.bool),
-                    zeros(R, dtype=torch.bool), zeros(R, dtype=torch.float32),
-                    torch.ones((R,), dtype=torch.float32, device=dev), zeros(R), **step)
+                    zeros(R), zeros(R), zeros(R), flags, flags, zeros(R),
+                    zeros(R, dtype=torch.float32), ones(R), zeros(R), *tail, no_eos,
+                    spec_width=cfg.spec_tokens, **loop, **step)
                 n_variants += 1
+            if self.freerun_rounds > 1:
+                F = self.freerun_rounds
+                for t in self.ragged_token_buckets():
+                    self.state, *_ = ragged_multi_round(
+                        self.params, self.state, zeros(F, t),
+                        torch.full((F, t), R, dtype=I32, device=dev), zeros(R), zeros(F, R),
+                        zeros(F, R), zeros(F, R, dtype=torch.bool),
+                        zeros(F, R, dtype=torch.bool), zeros(R, dtype=torch.float32), ones(R),
+                        zeros(R), zeros(F, B, dtype=torch.bool), ones(B), ones(B), zeros(B),
+                        no_eos, **loop, **step)
+                    n_variants += 1
         inactive = zeros(B, dtype=torch.bool)
-        ones = torch.ones((B,), dtype=torch.float32, device=dev)
         for return_logits in (False, True):
-            self.state, _, _ = decode_step(self.params, self.state, inactive, ones, ones,
+            self.state, _, _ = decode_step(self.params, self.state, inactive, ones(B), ones(B),
                                            zeros(B), return_logits=return_logits, **step)
             n_variants += 1
+        if self.decode_loop_depth > 1:
+            self.state, _ = decode_loop_step(self.params, self.state, inactive, ones(B), ones(B),
+                                             zeros(B), no_eos, **loop, **step)
+            n_variants += 1
+            if dev.type == "cuda":
+                self._loop_graph(self.decode_loop_depth)
+        if cfg.spec_tokens > 0:
+            for return_logits in (False, True):
+                self.state, *_ = verify_step(self.params, self.state, inactive,
+                                             zeros(B, cfg.spec_tokens), zeros(B), ones(B),
+                                             ones(B), zeros(B), return_logits=return_logits,
+                                             **step)
+                n_variants += 1
         self.state, _ = commit_first_token(self.state, 0, zeros(self.config.vocab_size,
                                                                 dtype=torch.float32),
                                            0.0, 1.0, 0)
@@ -656,16 +980,168 @@ class InferenceEngine:
         return next(b for b in self.ragged_token_buckets() if b >= n_tokens)
 
     def ragged_mixed(self, tokens, tok_row, row_slot, row_start, row_len,
-                     row_from_device, row_arm, temperature, top_p, top_k):
+                     row_from_device, row_arm, temperature, top_p, top_k,
+                     row_n_drafts=None, loop_active=None, loop_temperature=None,
+                     loop_top_p=None, loop_top_k=None, eos_id: int = -1):
         """One packed ragged dispatch (see ragged_mixed_step) from host
-        arrays; returns ``(emitted, n_emitted, row_logits)`` device tensors."""
+        arrays; returns ``(emitted [R, W], n_emitted, row_logits,
+        loop_block)`` device tensors. The spec and fused-tail arguments
+        default to none: no drafts, no loop slot."""
         METRICS.inc("finchat_mixed_dispatches_total")
         d = self.to_device
-        self.state, emitted, n_emitted, row_logits = ragged_mixed_step(
+        R = len(row_slot)
+        B = self.engine_cfg.max_seqs
+        if row_n_drafts is None:
+            row_n_drafts = np.zeros((R,), np.int32)
+        if loop_active is None:
+            loop_active = np.zeros((B,), bool)
+        tail = [np.zeros((B,), np.float32) if loop_temperature is None else loop_temperature,
+                np.ones((B,), np.float32) if loop_top_p is None else loop_top_p,
+                np.zeros((B,), np.int32) if loop_top_k is None else loop_top_k]
+        self.state, emitted, n_emitted, row_logits, loop_block = ragged_mixed_step(
+            self.params, self.state, d(tokens, I32), d(tok_row, I32), d(row_slot, I32),
+            d(row_start, I32), d(row_len, I32), d(row_from_device, torch.bool),
+            d(row_arm, torch.bool), d(row_n_drafts, I32), d(temperature, torch.float32),
+            d(top_p, torch.float32), d(top_k, I32), d(loop_active, torch.bool),
+            d(tail[0], torch.float32), d(tail[1], torch.float32), d(tail[2], I32),
+            self._eos(eos_id),
+            config=self.config, page_size=self.page_size, spec_width=self.engine_cfg.spec_tokens,
+            loop_depth=self.decode_loop_depth,
+        )
+        return emitted, n_emitted, row_logits, loop_block
+
+    def ragged_multi(self, tokens, tok_row, row_slot, row_start, row_len, row_from_device,
+                     row_arm, temperature, top_p, top_k, loop_active, loop_temperature,
+                     loop_top_p, loop_top_k, eos_id: int):
+        """One captured multi-round dispatch (see ragged_multi_round) from
+        host arrays: ``tokens.shape[0]`` rounds enqueued back to back,
+        returning the token ring ``(ring_tokens, ring_n, ring_blocks)`` as
+        device tensors. Counted once at the dispatch seam, which is why
+        dispatches a round drop below 1."""
+        METRICS.inc("finchat_mixed_dispatches_total")
+        d = self.to_device
+        self.state, ring_tokens, ring_n, ring_blocks = ragged_multi_round(
             self.params, self.state, d(tokens, I32), d(tok_row, I32), d(row_slot, I32),
             d(row_start, I32), d(row_len, I32), d(row_from_device, torch.bool),
             d(row_arm, torch.bool), d(temperature, torch.float32), d(top_p, torch.float32),
-            d(top_k, I32),
-            config=self.config, page_size=self.page_size,
+            d(top_k, I32), d(loop_active, torch.bool), d(loop_temperature, torch.float32),
+            d(loop_top_p, torch.float32), d(loop_top_k, I32), self._eos(eos_id),
+            config=self.config, page_size=self.page_size, loop_depth=self.decode_loop_depth,
         )
-        return emitted, n_emitted, row_logits
+        return ring_tokens, ring_n, ring_blocks
+
+    def decode_loop(self, active, temperature, top_p, top_k, eos_id: int,
+                    depth: int | None = None) -> torch.Tensor:
+        """Fused multi-step decode (see decode_loop_step) from host arrays:
+        K iterations, sampling and the EOS stop mask on the device. Returns
+        the ``[K, max_seqs]`` token block (device; callers fetch once).
+        ``depth`` overrides ``decode_loop_depth``. On the card the block is
+        a replay of the depth's CUDA graph (captured here at first use, or
+        at ``warmup()``); a capture that fails raises, and nothing falls
+        back to the eager loop. Counted once at the dispatch seam."""
+        K = depth if depth is not None else self.decode_loop_depth
+        assert K >= 1
+        METRICS.inc("finchat_decode_dispatches_total")
+        d = self.to_device
+        args = (d(active, torch.bool), d(temperature, torch.float32),
+                d(top_p, torch.float32), d(top_k, I32))
+        if self.device.type == "cuda":
+            return self._loop_graph(K).replay(*args, eos_id)
+        self.state, block = decode_loop_step(self.params, self.state, *args, self._eos(eos_id),
+                                             config=self.config, page_size=self.page_size,
+                                             loop_depth=K)
+        return block
+
+    def decode_spec(self, active, drafts, n_drafts, temperature, top_p, top_k,
+                    return_logits: bool = False):
+        """The speculative verify step (see verify_step) from host arrays;
+        ``drafts`` [B, Kd] sets the shape (callers pad to a fixed Kd).
+        Returns ``(emitted, n_emitted)``, with the position-0 logits too
+        when ``return_logits``. Counted at the dispatch seam like
+        ``decode``."""
+        METRICS.inc("finchat_decode_dispatches_total")
+        d = self.to_device
+        self.state, emitted, n_emitted, logits = verify_step(
+            self.params, self.state, d(active, torch.bool), d(drafts, I32), d(n_drafts, I32),
+            d(temperature, torch.float32), d(top_p, torch.float32), d(top_k, I32),
+            config=self.config, page_size=self.page_size, return_logits=return_logits,
+        )
+        return (emitted, n_emitted, logits) if return_logits else (emitted, n_emitted)
+
+    def _eos(self, eos_id: int) -> torch.Tensor:
+        """The stop token as the 0-d int32 device tensor the steps take."""
+        return self.to_device(np.asarray(eos_id, np.int32))
+
+    def _loop_graph(self, depth: int) -> DecodeLoopGraph:
+        """The CUDA graph of ``decode_loop_step`` at ``depth`` over the
+        current state, captured on first use."""
+        graph = self._loop_graphs.get(depth)
+        if graph is None or graph.state is not self.state:
+            with torch.cuda.device(self.device):
+                graph = DecodeLoopGraph(self, depth)
+            self._loop_graphs[depth] = graph
+        return graph
+
+
+class DecodeLoopGraph:
+    """``decode_loop_step`` at one depth captured as one CUDA graph over an
+    engine's state, replayed for every block.
+
+    The body updates ``context_lens``, ``last_tokens`` and the pages in
+    place, so every replay reads and writes the state's own storage; the
+    block's inputs (active mask, per-slot temperature, ``top_p``,
+    ``top_k``, ``eos_id``) are copied into static buffers before each
+    replay, and the output block is copied out after it (the next replay
+    overwrites the captured one while the scheduler may still be fetching
+    it). The state's generator is registered with the graph, so each
+    replay draws fresh noise. ``kernels.launch`` counts a launch in Python,
+    which a replay does not pass through: the launches the capture recorded
+    (and did not run, so they are taken back) are added to
+    ``kernels.LAUNCHES`` at every replay. The capture runs one eager block
+    first on its side stream (every slot inactive: trash-page writes only),
+    as capture wants libraries loaded and workspaces sized. A capture that
+    fails raises."""
+
+    def __init__(self, engine: InferenceEngine, depth: int):
+        from finchat_tpu_torch.ops import kernels
+
+        self.state = state = engine.state
+        self.depth = depth
+        B = engine.engine_cfg.max_seqs
+        dev = engine.device
+        self.active = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.temperature = torch.ones((B,), dtype=torch.float32, device=dev)
+        self.top_p = torch.ones((B,), dtype=torch.float32, device=dev)
+        self.top_k = torch.zeros((B,), dtype=I32, device=dev)
+        self.eos_id = torch.full((), -1, dtype=I32, device=dev)
+        body = dict(config=engine.config, page_size=engine.page_size, loop_depth=depth)
+        ins = (self.active, self.temperature, self.top_p, self.top_k, self.eos_id)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            decode_loop_step(engine.params, state, *ins, **body)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(kernels.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(state.generator)
+        with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+            _, self.block = decode_loop_step(engine.params, state, *ins, **body)
+        self.launches = {name: n - before.get(name, 0) for name, n in kernels.LAUNCHES.items()
+                         if n != before.get(name, 0)}
+        for name, n in self.launches.items():  # the capture ran nothing
+            kernels.LAUNCHES[name] -= n
+        self._kernels = kernels
+
+    def replay(self, active: torch.Tensor, temperature: torch.Tensor, top_p: torch.Tensor,
+               top_k: torch.Tensor, eos_id: int) -> torch.Tensor:
+        """One block: copy the inputs in, replay, return a copy of the
+        ``[K, max_seqs]`` block (all on the current stream, no host sync)."""
+        self.active.copy_(active)
+        self.temperature.copy_(temperature)
+        self.top_p.copy_(top_p)
+        self.top_k.copy_(top_k)
+        self.eos_id.fill_(int(eos_id))
+        self.graph.replay()
+        for name, n in self.launches.items():
+            self._kernels.LAUNCHES[name] += n
+        return self.block.clone()

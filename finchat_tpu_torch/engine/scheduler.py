@@ -75,12 +75,34 @@ Many sequences multiplexed onto one model replica:
   its ``[slot, trace_id, mode]`` rows while ``TRACER.enabled``, and a shed,
   a breaker trip and a give-up dump the flight recorder.
 
-The serving planes this port does not carry yet — speculative decode, the
-fused decode loop, the free-running loop and bounded KV — are refused at
-construction (``check_supported``) instead of being silently ignored. The
-quantized plane (int8/int4 weights, int8 KV pages) is served: the
-scheduler keeps the engine's quant label and sets the
-``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
+- Fused multi-step decode (``decode_loop_depth`` K > 1): slots that need
+  no per-token host control ride ``decode_loop_step`` blocks, K iterations
+  with on-device sampling and the EOS stop mask in one dispatch (one CUDA
+  graph replay on the card), the host fetching a ``[K, max_seqs]`` block a
+  round trip. It composes with the depth-2 pipeline. Grammar-constrained
+  slots and slots within K tokens of their budget are demoted to a single
+  step riding the same iteration; a slot that finishes mid-block runs into
+  the trash page and its tail counts as waste. In the ragged round a
+  loop-eligible decode row runs the same K-1 iterations as a fused tail.
+- Speculative decode (``spec_tokens`` > 0, engine/spec.py): greedy slots
+  propose drafts from their own history (prompt lookup) and a depth-1
+  verify step commits the accepted prefix plus one token; in the ragged
+  round the drafts ride as rows of 1 + Kd tokens. After
+  ``SPEC_MISS_DEMOTE`` consecutive steps with nothing accepted the loop
+  goes back to the pipelined path for ``SPEC_RETRY_EVERY`` steps.
+- The free-running loop (``freerun_rounds`` F > 1): when the ragged path
+  runs and no row needs a host decision a round (no constrained row, no
+  live spec proposal), up to F ragged rounds are staged
+  (``ops/freerun.stage_freerun``) and enqueued as one dispatch
+  (``engine.ragged_multi``); EOS stops on the device, budget stops are
+  staged away, and the host drains the token ring while the device runs
+  the next capture. Stale ring tokens (a member evicted or preempted since
+  the dispatch) are dropped once and recomputed by the replay.
+
+Bounded KV is refused at construction (``check_supported``) instead of
+being silently ignored. The quantized plane (int8/int4 weights, int8 KV
+pages) is served: the scheduler keeps the engine's quant label and sets
+the ``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
 """
 
 from __future__ import annotations
@@ -97,6 +119,7 @@ import numpy as np
 from finchat_tpu_torch.engine.engine import InferenceEngine, round_up_pow2
 from finchat_tpu_torch.engine.kv_cache import PageAllocator, pages_needed
 from finchat_tpu_torch.engine.sampler import CANDIDATES, SamplingParams
+from finchat_tpu_torch.engine.spec import NgramIndex
 from finchat_tpu_torch.engine.session_cache import (
     SessionDiskTier,
     SessionEntry,
@@ -104,6 +127,7 @@ from finchat_tpu_torch.engine.session_cache import (
     concat_snaps,
     snap_kv_mode,
 )
+from finchat_tpu_torch.ops.freerun import RowSpec, stage_freerun
 from finchat_tpu_torch.utils.config import EngineConfig
 from finchat_tpu_torch.utils.faults import inject
 from finchat_tpu_torch.utils.logging import get_logger
@@ -118,11 +142,8 @@ logger = get_logger(__name__)
 
 def check_supported(cfg: EngineConfig) -> None:
     """Raise on a config that turns on a serving plane this port does not
-    carry yet (each is a later slice)."""
+    carry yet (bounded KV is a later slice)."""
     unsupported = {
-        "spec_tokens > 0": cfg.spec_tokens > 0,
-        "decode_loop_depth > 1": cfg.decode_loop_depth > 1,
-        "freerun_rounds > 1": cfg.freerun_rounds > 1,
         "bounded KV (kv_sink_pages / kv_window_pages)":
             cfg.kv_sink_pages > 0 or cfg.kv_window_pages > 0,
     }
@@ -200,6 +221,10 @@ class SequenceHandle:
     # end-to-end trace id (utils/tracing.py); None = untraced
     trace_id: str | None = None
     span: RequestSpan = None  # type: ignore[assignment]  # set in __post_init__
+    # the incremental n-gram index over ``history`` (engine/spec.NgramIndex),
+    # built at the slot's first spec step and kept in step by _deliver, so a
+    # proposal is O(1) on the event loop
+    ngram_index: NgramIndex | None = None
 
     def __post_init__(self) -> None:
         if self.span is None:
@@ -226,6 +251,40 @@ class _InFlightStep:
     logits: object | None  # [n_constrained, vocab] fp32, device, or None
     members: list[tuple[int, SequenceHandle, int]]
     constrained_slots: list[int]
+
+
+@dataclass
+class _InFlightBlock:
+    """A dispatched-but-unconsumed fused decode block: the ``[K, max_seqs]``
+    device block of the loop-eligible slots, and the single decode step of
+    the slots demoted in the same iteration (constrained, or within K of
+    their budget), if any."""
+
+    block_tokens: object  # [K, max_seqs] int32, device (-1 = no token)
+    block_members: list[tuple[int, SequenceHandle, int]]
+    step: _InFlightStep | None
+
+
+@dataclass
+class _InFlightRing:
+    """A dispatched-but-unconsumed captured multi-round run: the token ring
+    from ``engine.ragged_multi`` and the staged plan's host bookkeeping.
+    Members carry the admission epoch, as an ``_InFlightStep``'s do: a row
+    evicted or preempted while the capture was in flight has its ring
+    tokens dropped at the drain, and its replay recomputes them, so
+    delivery stays exactly-once."""
+
+    tokens: object  # [F, R] int32, device — each armed row's round token
+    n_emitted: object  # [F, R] int32, device (0 = mid-prompt chunk / dead row)
+    blocks: object  # [F, K-1, max_seqs] int32, device — the fused tails
+    rounds: int
+    # (row, slot, owner, epoch, kind): owner a SequenceHandle for "prefill"
+    # and "decode" rows, a _PrefixJob for "job" rows (no tokens)
+    members: list
+    armed: np.ndarray  # [F, R] staged arm mask, the exactly-once reference
+    loop_rounds: np.ndarray  # [F, max_seqs] staged fused-tail schedule
+    completes_at: dict  # row -> round its prompt completes (first token)
+    ahead: dict  # slot -> staged emissions (the next dispatch's budget)
 
 
 @dataclass
@@ -260,6 +319,20 @@ class _PrefixEntry:
 
 
 class ContinuousBatchingScheduler:
+    # spec decode's all-miss demotion: after this many consecutive verify
+    # steps with nothing accepted, the loop goes back to the pipelined
+    # path...
+    SPEC_MISS_DEMOTE = 4
+    # ...and probes again after this many steps
+    SPEC_RETRY_EVERY = 16
+    # every label finchat_mixed_demotions_total can carry, pre-seeded at 0:
+    # the ragged round takes spec rows, loop tails and constrained rows, so
+    # none of them demotes it
+    MIXED_DEMOTION_REASONS = ("spec", "decode_loop", "constrained", "ring", "other")
+    # every reason a free-run capture is cut to one host-stepped round,
+    # pre-seeded at 0 when the loop is on
+    FREERUN_CAP_REASONS = ("constrained", "spec", "underfill", "boundedkv")
+
     def __init__(self, engine: InferenceEngine, eos_id: int):
         cfg = engine.engine_cfg
         check_supported(cfg)
@@ -285,6 +358,29 @@ class ContinuousBatchingScheduler:
         # the track of this engine's events on a trace timeline
         self._trace_track = "engine"
         self.mixed_enabled = bool(cfg.mixed_step)
+        for reason in self.MIXED_DEMOTION_REASONS:
+            self.metrics.inc("finchat_mixed_demotions_total", 0.0, labels={"reason": reason})
+        # speculative decode: > 0 turns the decode path into depth-1 verify
+        # steps with Kd host-proposed drafts (a draft needs the previous
+        # token on the host, which the depth-2 pipeline has not fetched)
+        self.spec_k = cfg.spec_tokens
+        self._spec_miss_streak = 0
+        self._spec_cooldown = 0
+        # fused multi-step decode: K > 1 turns the pipelined path into
+        # K-token blocks for slots that need no per-token host control
+        self.loop_depth = engine.decode_loop_depth
+        self.metrics.set_gauge("finchat_decode_loop_depth", self.loop_depth)
+        # the free-running loop: ragged rounds captured a dispatch (1 =
+        # host-stepped). _round_tally counts serving rounds the way
+        # _dispatch_tally counts dispatches (a capture books F rounds for
+        # its one dispatch); both land in the coexist counters, so their
+        # ratio is dispatches a round
+        self.freerun_rounds = max(1, engine.freerun_rounds)
+        self._round_tally = 0
+        self._coexist_round_mark = 0
+        if self.freerun_rounds > 1:
+            for reason in self.FREERUN_CAP_REASONS:
+                self.metrics.inc("finchat_freerun_capped_total", 0.0, labels={"reason": reason})
         self.max_queue_depth = max(0, cfg.max_queue_depth)
         # whether the current loop iteration ran prefill work (the
         # finchat_inter_token_seconds label)
@@ -1146,7 +1242,7 @@ class ContinuousBatchingScheduler:
         """A whole-round dispatch failure, not attributable to one sequence.
         Breaker off (``breaker_threshold`` 0): the round's population is
         evicted with an error. Breaker on: the plane's failure streak
-        ("prefill", or "decode" for decode and mixed rounds) advances; below
+        ("prefill", or "decode" for decode, mixed and spec rounds) advances; below
         the threshold the round's sequences are preempted and replay, at the
         threshold the breaker trips (``_trip_breaker``). A failed dispatch
         is never consumed again: a partly consumed step cannot be told from
@@ -1156,7 +1252,7 @@ class ContinuousBatchingScheduler:
         if self.breaker_threshold <= 0:
             if scope in ("prefill", "mixed"):
                 self._fail_prefill_round(error)
-            if scope in ("decode", "mixed"):
+            if scope in ("decode", "mixed", "spec"):
                 for handle in list(self.decoding.values()):
                     self._evict(handle, "error", error=error)
             return
@@ -1174,7 +1270,7 @@ class ContinuousBatchingScheduler:
                     self._fail_prefix_job(job)
                 except Exception as e:
                     logger.error("failing prefix job during %s failure: %s", scope, e)
-        if scope in ("decode", "mixed"):
+        if scope in ("decode", "mixed", "spec"):
             for handle in list(self.decoding.values()):
                 self._preempt(handle)
 
@@ -1558,16 +1654,22 @@ class ContinuousBatchingScheduler:
         return self.mixed_enabled and bool(self.decoding) and self._prefill_work()
 
     async def _ragged_round(self) -> None:
-        """Advance every prefilling sequence a chunk and every decoding slot
-        a token in ONE packed ragged dispatch, with one host fetch. Prefill
-        rows whose prompt completes sample their first token on the device
-        in the same dispatch (a completed hold parks instead); constrained
-        completions and decode rows bring their logits rows back for the
-        host pick, at the non-truncating sampling defaults. Chunked prefix
-        registrations ride it as rows that sample nothing."""
+        """Advance every serving population in ONE packed ragged dispatch,
+        with one host fetch: prefilling sequences a chunk each, plain
+        decode slots a token, constrained slots a token with their logits
+        row returned for the host pick, spec-eligible slots a (1+Kd)-token
+        verify row, and loop-eligible slots a further fused ``loop_depth -
+        1``-token tail. Prefill rows whose prompt completes sample their
+        first token on the device in the same dispatch (a completed hold
+        parks instead); constrained completions and decode rows keep the
+        non-truncating sampling defaults. Chunked prefix registrations ride
+        it as rows that sample nothing."""
         eng = self.engine
         C = eng.engine_cfg.prefill_chunk
         R = B = eng.engine_cfg.max_seqs
+        self._round_tally += 1  # one host-stepped serving round
+        Kd = self.spec_k
+        spec_on = Kd > 0 and self._spec_cooldown == 0
         batch = self._prefill_batch()
         jobs = list(self._prefix_jobs)
         decode_members = [(slot, h, h.epoch) for slot, h in self.decoding.items()]
@@ -1582,17 +1684,22 @@ class ContinuousBatchingScheduler:
         row_len = np.zeros((R,), np.int32)
         row_from_device = np.zeros((R,), bool)
         row_arm = np.zeros((R,), bool)
+        row_n_drafts = np.zeros((R,), np.int32)
         temp = np.zeros((R,), np.float32)
         top_p = np.ones((R,), np.float32)
         top_k = np.zeros((R,), np.int32)
+        loop_active = np.zeros((B,), bool)
         packed: list[int] = []
         tok_row: list[int] = []
         completions: list[tuple[int, SequenceHandle, int]] = []  # (row, handle, epoch)
         prefill_rows: list[tuple[int, SequenceHandle]] = []
         job_rows: list[tuple[int, _PrefixJob]] = []
         plain_rows: list[tuple[int, int, SequenceHandle, int]] = []
+        spec_rows: list[tuple[int, int, SequenceHandle, int]] = []
         constrained_decode: list[tuple[int, int, SequenceHandle, int]] = []
         constrained_rows: list[int] = []  # rows whose logits the host needs
+        loop_members: list[tuple[int, SequenceHandle, int]] = []
+        spec_consulted = False
         i = 0
         for h in batch:
             chunk = h.prompt_ids[h.prefill_pos : h.prefill_pos + C]
@@ -1627,28 +1734,53 @@ class ContinuousBatchingScheduler:
             row_slot[i] = slot
             row_from_device[i] = True
             row_arm[i] = True
-            row_len[i] = 1
-            packed.append(0)
-            tok_row.append(i)
             if h.constraint is not None:
                 # the host pick from this row's logits lands before the
                 # slot's next dispatch (the round is depth-1)
+                row_len[i] = 1
+                packed.append(0)
+                tok_row.append(i)
                 constrained_rows.append(i)
                 constrained_decode.append((i, slot, h, epoch))
+                i += 1
+                continue
+            prop: list[int] = []
+            if spec_on and self._spec_eligible(h):
+                spec_consulted = True
+                prop = self._propose(h)
+            s = h.sampling
+            temp[i], top_p[i], top_k[i] = s.temperature, s.top_p, s.top_k
+            if prop:
+                # a spec verify row: [device last token, d1..dKd'], the drafts
+                # in the packed buffer, acceptance on the device
+                row_len[i] = 1 + len(prop)
+                row_n_drafts[i] = len(prop)
+                packed.append(0)
+                tok_row.append(i)
+                packed += [int(t) for t in prop]
+                tok_row += [i] * len(prop)
+                spec_rows.append((i, slot, h, epoch))
             else:
-                s = h.sampling
-                temp[i], top_p[i], top_k[i] = s.temperature, s.top_p, s.top_k
+                row_len[i] = 1
+                packed.append(0)
+                tok_row.append(i)
                 plain_rows.append((i, slot, h, epoch))
+                if self.loop_depth > 1 and self._loop_eligible(h, 0):
+                    # the fused tail in the same dispatch: the row's token
+                    # plus loop_depth - 1 tail tokens fit the budget
+                    loop_active[slot] = True
+                    loop_members.append((slot, h, epoch))
             i += 1
         assert i <= B
         T = eng.ragged_bucket(len(packed))
         packed += [0] * (T - len(packed))
         tok_row += [R] * (T - len(tok_row))
         with Timer(self.metrics, "finchat_mixed_step_seconds") as mt:
-            emitted_dev, _n_em, row_logits = eng.ragged_mixed(
+            emitted_dev, n_em_dev, row_logits, block_dev = eng.ragged_mixed(
                 np.asarray(packed, np.int32), np.asarray(tok_row, np.int32),
                 row_slot, row_start, row_len, row_from_device, row_arm,
-                temp, top_p, top_k,
+                temp, top_p, top_k, row_n_drafts, loop_active, self._temperature, self._top_p,
+                self._top_k, self.eos_id,
             )
         self._tally_dispatch()
         if TRACER.enabled:
@@ -1656,7 +1788,10 @@ class ContinuousBatchingScheduler:
             trows += [[j.slot, f"prefix:{j.owner}", "prefix"] for _i, j in job_rows]
             trows += [[slot, h.trace_id or h.seq_id, "constrained"]
                       for _i, slot, h, _e in constrained_decode]
-            trows += [[slot, h.trace_id or h.seq_id, "decode"] for _i, slot, h, _e in plain_rows]
+            trows += [[slot, h.trace_id or h.seq_id,
+                       "decode_loop" if loop_active[slot] else "decode"]
+                      for _i, slot, h, _e in plain_rows]
+            trows += [[slot, h.trace_id or h.seq_id, "spec"] for _i, slot, h, _e in spec_rows]
             self._trace_dispatch("ragged", trows, ts=mt.started, dur=mt.elapsed)
         for idx, h in prefill_rows:
             h.prefill_pos += int(row_len[idx])
@@ -1664,10 +1799,11 @@ class ContinuousBatchingScheduler:
             job.pos += int(row_len[idx])
             if job.pos >= job.shared_len:
                 self._complete_prefix_job(job, "ragged")
-        # only the constrained rows' logits cross to the host
+        # only the constrained rows' logits cross to the host; ONE fetch
+        # serves tokens, spec acceptances, first tokens and the tail block
         picked = eng.select_rows(row_logits, constrained_rows) if constrained_rows else None
-        emitted, logits_host = await asyncio.to_thread(
-            lambda: (eng.to_host(emitted_dev),
+        emitted, n_emitted, block, logits_host = await asyncio.to_thread(
+            lambda: (eng.to_host(emitted_dev), eng.to_host(n_em_dev), eng.to_host(block_dev),
                      eng.to_host(picked) if picked is not None else None))
         for idx, handle, epoch in completions:
             if handle.finished or handle.epoch != epoch:
@@ -1694,7 +1830,49 @@ class ContinuousBatchingScheduler:
             if handle.finished or handle.slot != slot or handle.epoch != epoch:
                 continue
             self._deliver(handle, int(emitted[idx, 0]))
+        accepted_total = 0
+        for idx, slot, handle, epoch in spec_rows:
+            if handle.finished or handle.slot != slot or handle.epoch != epoch:
+                continue
+            n = int(n_emitted[idx])
+            accepted_total += max(0, n - 1)
+            for token in emitted[idx, :n]:
+                self._deliver(handle, int(token))
+                if handle.finished:  # EOS or length inside the prefix
+                    break
+        if accepted_total:
+            self.metrics.inc("finchat_spec_tokens_accepted_total", accepted_total)
+        if spec_consulted:
+            # the all-miss demotion keeps its cadence: a round where every
+            # proposal missed or nothing was accepted advances the streak
+            self._spec_note_step(accepted=accepted_total)
+        # the fused tail: each loop slot's [loop_depth - 1] column, -1 where
+        # the device's stop mask took over after an EOS
+        self._drain_tail(block, loop_members)
         self.metrics.set_gauge("finchat_batch_occupancy", len(self.decoding))
+
+    def _drain_tail(self, block: np.ndarray, members) -> None:
+        """Deliver each member slot's column of a ``[K, max_seqs]`` token
+        block until EOS or its length finishes the sequence, or a -1 marks
+        where the device's stop mask took over. Iterations the device ran
+        past a finished slot are counted as wasted tail tokens."""
+        K = block.shape[0]
+        wasted = 0
+        for slot, handle, epoch in members:
+            if handle.finished or handle.slot != slot or handle.epoch != epoch:
+                wasted += K  # finished, cancelled or preempted since dispatch
+                continue
+            for j in range(K):
+                token = int(block[j, slot])
+                if token < 0:  # the device's stop mask
+                    wasted += K - j
+                    break
+                self._deliver(handle, token)
+                if handle.finished:  # EOS (host view) / length / cancel
+                    wasted += K - j - 1
+                    break
+        if wasted:
+            self.metrics.inc("finchat_decode_loop_wasted_tail_tokens_total", wasted)
 
     def _deliver(self, handle: SequenceHandle, token_id: int) -> None:
         now = time.perf_counter()
@@ -1707,6 +1885,8 @@ class ContinuousBatchingScheduler:
         handle._emit_first_token_metrics()
         handle.generated += 1
         handle.history.append(token_id)
+        if handle.ngram_index is not None:
+            handle.ngram_index.push(token_id)
         self.metrics.inc("finchat_tokens_generated_total")
         if token_id == self.eos_id:
             self._evict(handle, "eos")
@@ -1716,23 +1896,30 @@ class ContinuousBatchingScheduler:
         else:
             handle.events.put_nowait({"type": "token", "token_id": token_id})
 
-    def _dispatch_decode(self, exclude: set[int] | frozenset = frozenset()) -> _InFlightStep:
+    def _dispatch_decode(self, exclude: set[int] | frozenset = frozenset(),
+                         membership: list[tuple[int, SequenceHandle, int]] | None = None,
+                         ) -> _InFlightStep:
         """Enqueue one decode step on the device without syncing. Slots in
         ``exclude`` (constrained slots whose pick is still pending) sit it
         out: inactive, their pages read and not written, their context and
-        last token unchanged. The step's logits come back only while a
-        constrained slot is in it, and only that slot's rows: ``[n, vocab]``,
-        selected on the device, not the batch's ``[max_seqs, vocab]``."""
+        last token unchanged. ``membership`` pins the step to a given
+        ``(slot, handle, epoch)`` snapshot instead of ``self.decoding`` (the
+        demoted slots of a decode-loop iteration). The step's logits come
+        back only while a constrained slot is in it, and only that slot's
+        rows: ``[n, vocab]``, selected on the device, not the batch's
+        ``[max_seqs, vocab]``."""
         inject("scheduler.decode")
         eng = self.engine
         B = eng.engine_cfg.max_seqs
+        if membership is None:
+            membership = [(slot, h, h.epoch) for slot, h in self.decoding.items()]
         active = np.zeros((B,), bool)
         members = []
-        for slot, handle in self.decoding.items():
+        for slot, handle, epoch in membership:
             if slot in exclude:
                 continue
             active[slot] = True
-            members.append((slot, handle, handle.epoch))
+            members.append((slot, handle, epoch))
         constrained_slots = sorted(slot for slot, h, _e in members if h.constraint is not None)
         logits = None
         if constrained_slots:
@@ -1747,6 +1934,364 @@ class ContinuousBatchingScheduler:
                                             for slot, h, _e in members])
         return _InFlightStep(tokens=next_tokens, logits=logits, members=members,
                              constrained_slots=constrained_slots)
+
+    def _undelivered(self, inflight) -> dict[int, int]:
+        """Tokens a slot has in the still-unconsumed in-flight dispatch:
+        ``handle.generated`` lags by exactly this at the next dispatch
+        (depth 2 dispatches N+1 before consuming N), so budget checks
+        subtract it; else a slot with K tokens left would ride two blocks
+        and the second one's writes would run past its page allocation."""
+        if inflight is None:
+            return {}
+        if isinstance(inflight, _InFlightRing):
+            return dict(inflight.ahead)
+        if isinstance(inflight, _InFlightBlock):
+            ahead = {slot: self.loop_depth for slot, _h, _e in inflight.block_members}
+            if inflight.step is not None:
+                for slot, _h, _e in inflight.step.members:
+                    ahead[slot] = 1
+            return ahead
+        return {slot: 1 for slot, _h, _e in inflight.members}
+
+    def _loop_eligible(self, handle: SequenceHandle, ahead: int = 0) -> bool:
+        """Can this slot ride a fused K-token block? It needs no per-token
+        host control for the next ``loop_depth`` tokens: no grammar
+        constraint, and at least K tokens of ``max_new_tokens`` left beyond
+        the ``ahead`` tokens undelivered in the in-flight dispatch (its
+        pages cover prompt + max_new, so this also bounds the block's
+        writes). A slot that fails is demoted to the single step riding the
+        same iteration and rejoins blocks when it qualifies again."""
+        return (handle.constraint is None
+                and handle.sampling.max_new_tokens - handle.generated - ahead
+                >= self.loop_depth)
+
+    def _dispatch_decode_loop(self, exclude: set[int] | frozenset = frozenset(),
+                              ahead: dict[int, int] | None = None) -> _InFlightBlock:
+        """Enqueue one fused K-token decode block (plus one decode step for
+        the demoted slots) without syncing; the caller guarantees at least
+        one loop-eligible slot outside ``exclude``. ``exclude`` slots
+        (constrained picks still pending) sit both out; ``ahead`` is
+        ``_undelivered()`` of the in-flight dispatch.
+
+        ONE membership snapshot drives both dispatches: the demoted step is
+        built from the same ``(slot, handle, epoch)`` view as the block,
+        never re-read from ``self.decoding``, so a slot vacated and filled
+        again between the two dispatches cannot be stepped twice."""
+        inject("scheduler.decode")
+        eng = self.engine
+        ahead = ahead or {}
+        B = eng.engine_cfg.max_seqs
+        membership = [(slot, h, h.epoch) for slot, h in self.decoding.items()]
+        active = np.zeros((B,), bool)
+        block_members = []
+        demoted: list[tuple[int, SequenceHandle, int]] = []
+        for slot, handle, epoch in membership:
+            if slot in exclude:
+                continue
+            if self._loop_eligible(handle, ahead.get(slot, 0)):
+                active[slot] = True
+                block_members.append((slot, handle, epoch))
+            else:
+                demoted.append((slot, handle, epoch))
+        block = eng.decode_loop(active, self._temperature, self._top_p, self._top_k,
+                                eos_id=self.eos_id)
+        self._tally_dispatch()
+        if TRACER.enabled:
+            self._trace_dispatch("decode_loop", [[slot, h.trace_id or h.seq_id, "decode_loop"]
+                                                 for slot, h, _e in block_members])
+        self.metrics.inc("finchat_decode_loop_blocks_total")
+        self.metrics.set_gauge("finchat_decode_loop_demoted_slots", len(demoted))
+        step = self._dispatch_decode(membership=demoted) if demoted else None
+        return _InFlightBlock(block_tokens=block, block_members=block_members, step=step)
+
+    async def _consume_block(self, blk: _InFlightBlock) -> None:
+        """Fetch a block's ``[K, max_seqs]`` tokens (one round trip for K
+        steps) and drain each member's column (``_drain_tail``), then
+        consume the demoted step."""
+        eng = self.engine
+        block = await asyncio.to_thread(lambda: eng.to_host(blk.block_tokens))
+        self._drain_tail(block, blk.block_members)
+        if blk.step is not None:
+            await self._consume_step(blk.step)
+        self.metrics.set_gauge("finchat_batch_occupancy", len(self.decoding))
+
+    # --- speculative decode ---------------------------------------------
+    @staticmethod
+    def _spec_eligible(handle: SequenceHandle) -> bool:
+        """Can drafts help this slot? Greedy, unconstrained, at least 2
+        tokens to go (a draft needs room for itself and the bonus token)."""
+        return (handle.constraint is None and handle.sampling.temperature <= 0.0
+                and handle.sampling.max_new_tokens - handle.generated >= 2)
+
+    def _spec_candidates(self) -> bool:
+        """Can at least one decoding slot use a verify step? Otherwise the
+        pipelined path is strictly better."""
+        return any(self._spec_eligible(h) for h in self.decoding.values())
+
+    def _propose(self, handle: SequenceHandle) -> list[int]:
+        """A spec-eligible slot's drafts: up to ``spec_tokens``, and at most
+        its budget less the bonus token, from its n-gram index (built here
+        once; ``_deliver`` keeps it in step)."""
+        if handle.ngram_index is None:
+            handle.ngram_index = NgramIndex(handle.history)
+        cap = min(self.spec_k, handle.sampling.max_new_tokens - handle.generated - 1)
+        return handle.ngram_index.propose(cap) if cap > 0 else []
+
+    def _spec_proposal_live(self) -> bool:
+        """Would the spec path propose drafts this round? Eligibility alone
+        is no live proposal: a slot whose lookup misses runs a plain decode
+        round anyway, so a free-run capture must not be cut for it."""
+        return any(self._spec_eligible(h) and self._propose(h)
+                   for h in self.decoding.values())
+
+    def _spec_note_step(self, *, accepted: int) -> None:
+        """The zero-accept streak behind spec's demotion: ``SPEC_MISS_DEMOTE``
+        consecutive steps with nothing accepted put the loop back on the
+        pipelined path for ``SPEC_RETRY_EVERY`` steps."""
+        if accepted > 0:
+            self._spec_miss_streak = 0
+            return
+        self._spec_miss_streak += 1
+        if self._spec_miss_streak >= self.SPEC_MISS_DEMOTE:
+            self._spec_miss_streak = 0
+            self._spec_cooldown = self.SPEC_RETRY_EVERY
+            self.metrics.inc("finchat_spec_demotions_total")
+
+    async def _run_spec_step(self) -> None:
+        """One speculative verify step: drafts from each greedy slot's
+        n-gram index, every draft scored in one forward, the accepted prefix
+        and the bonus token delivered a slot. Depth-1 (the drafts extend the
+        last delivered token); a constrained slot rides draft-free and gets
+        its host pick. When every lookup misses, the plain decode step runs
+        instead (a (Kd+1)-wide forward would emit one token a slot)."""
+        if not self.decoding:
+            return  # consuming the drained pipeline step may have evicted all
+        inject("scheduler.decode")
+        eng = self.engine
+        B = eng.engine_cfg.max_seqs
+        Kd = self.spec_k
+        active = np.zeros((B,), bool)
+        drafts = np.zeros((B, Kd), np.int32)
+        n_drafts = np.zeros((B,), np.int32)
+        members = []
+        for slot, handle in self.decoding.items():
+            active[slot] = True
+            members.append((slot, handle, handle.epoch))
+            if self._spec_eligible(handle):
+                prop = self._propose(handle)
+                drafts[slot, : len(prop)] = prop
+                n_drafts[slot] = len(prop)
+        if not n_drafts.any():
+            self._spec_note_step(accepted=0)
+            await self._consume_step(self._dispatch_decode())
+            return
+        constrained_slots = sorted(slot for slot, h, _e in members if h.constraint is not None)
+        logits = None
+        if constrained_slots:
+            emitted, n_emitted, logits = eng.decode_spec(
+                active, drafts, n_drafts, self._temperature, self._top_p, self._top_k,
+                return_logits=True)
+            logits = eng.select_rows(logits, constrained_slots)
+        else:
+            emitted, n_emitted = eng.decode_spec(active, drafts, n_drafts, self._temperature,
+                                                 self._top_p, self._top_k)
+        self._tally_dispatch()
+        if TRACER.enabled:
+            self._trace_dispatch("spec", [[slot, h.trace_id or h.seq_id, "spec"]
+                                          for slot, h, _e in members])
+        emitted_host, n_host, logits_host = await asyncio.to_thread(
+            lambda: (eng.to_host(emitted), eng.to_host(n_emitted),
+                     eng.to_host(logits) if logits is not None else None))
+        accepted_total = 0
+        for slot, handle, epoch in members:
+            if handle.finished or handle.slot != slot or handle.epoch != epoch:
+                continue  # evicted, cancelled or preempted since dispatch
+            if handle.constraint is not None and logits_host is not None:
+                self._deliver(handle, self._constrained_pick(
+                    handle, logits_host[constrained_slots.index(slot)]))
+                continue
+            n = int(n_host[slot])
+            accepted_total += max(0, n - 1)
+            for token in emitted_host[slot, :n]:
+                self._deliver(handle, int(token))
+                if handle.finished:  # EOS or length inside the prefix
+                    break
+        if accepted_total:
+            self.metrics.inc("finchat_spec_tokens_accepted_total", accepted_total)
+        self._spec_note_step(accepted=accepted_total)
+        self.metrics.set_gauge("finchat_batch_occupancy", len(self.decoding))
+
+    # --- the free-running loop --------------------------------------------
+    def _freerun_rounds_cap(self) -> int:
+        """How many rounds the next capture may run. Rows that need a host
+        decision every round cut it to 1, the host-stepped round:
+        constrained rows (the pick feeds the next round's input) and live
+        spec proposals (drafts come from delivered tokens the device still
+        holds)."""
+        F = self.freerun_rounds
+        if F <= 1:
+            return 1
+        if (any(h.constraint is not None for h in self.decoding.values())
+                or any(h.constraint is not None for h in self.prefilling
+                       if not self._parked(h))):
+            self.metrics.inc("finchat_freerun_capped_total", labels={"reason": "constrained"})
+            return 1
+        if self.spec_k > 0 and self._spec_cooldown == 0 and self._spec_proposal_live():
+            self.metrics.inc("finchat_freerun_capped_total", labels={"reason": "spec"})
+            return 1
+        return F
+
+    def _dispatch_freerun(self, rounds: int,
+                          ahead: dict[int, int]) -> _InFlightRing | None:
+        """Stage and enqueue ONE captured multi-round dispatch: every
+        prefilling row's next ``rounds`` chunks, every decode slot's next
+        ``rounds`` tokens (with fused tails where they fit) and the
+        completion-to-decode flips between them go into the descriptor
+        queue (``ops/freerun.stage_freerun``), and the device runs the
+        rounds with no host round trip. Returns None (the caller runs the
+        host-stepped round) when the work runs out before the capture
+        would. ``ahead`` is ``_undelivered()`` of the unconsumed in-flight
+        dispatch: budgets are staged net of it."""
+        eng = self.engine
+        C = eng.engine_cfg.prefill_chunk
+        B = eng.engine_cfg.max_seqs
+        specs: list[RowSpec] = []
+        members: list[tuple] = []
+        loop_ok = self.loop_depth > 1
+
+        def budget(h: SequenceHandle) -> int:
+            return max(0, h.sampling.max_new_tokens - h.generated - ahead.get(h.slot, 0))
+
+        def decode_spec(h: SequenceHandle) -> RowSpec:
+            s = h.sampling
+            return RowSpec(slot=h.slot, kind="decode", budget=budget(h), loop_ok=loop_ok,
+                           temperature=s.temperature, top_p=s.top_p, top_k=s.top_k)
+
+        for handle in self._prefill_batch():
+            if handle.prefill_pos >= len(handle.prompt_ids):
+                # completed inside a still-unconsumed ring: its first token
+                # is in flight (counted in ``ahead``), a decode row here
+                specs.append(decode_spec(handle))
+                members.append((len(specs) - 1, handle.slot, handle, handle.epoch, "decode"))
+                continue
+            s = handle.sampling
+            specs.append(RowSpec(slot=handle.slot, kind="prefill", ids=handle.prompt_ids,
+                                 pos=handle.prefill_pos, arm=not handle.held,
+                                 budget=budget(handle), loop_ok=loop_ok,
+                                 temperature=s.temperature, top_p=s.top_p, top_k=s.top_k))
+            members.append((len(specs) - 1, handle.slot, handle, handle.epoch, "prefill"))
+        for job in list(self._prefix_jobs):
+            specs.append(RowSpec(slot=job.slot, kind="job", ids=job.ids[: job.shared_len],
+                                 pos=job.pos, arm=False))
+            members.append((len(specs) - 1, job.slot, job, 0, "job"))
+        for slot, handle in self.decoding.items():
+            specs.append(decode_spec(handle))
+            members.append((len(specs) - 1, slot, handle, handle.epoch, "decode"))
+        if not specs:
+            return None  # a fault drained everything; the split paths go on
+        plan = stage_freerun(specs, rounds=rounds, chunk=C, loop_depth=self.loop_depth,
+                             max_seqs=B, bucket=eng.ragged_bucket)
+        if plan.active_rounds < rounds:
+            # the work runs out before the capture would: run the
+            # host-stepped round rather than empty device rounds
+            self.metrics.inc("finchat_freerun_capped_total", labels={"reason": "underfill"})
+            return None
+        inject("scheduler.decode")
+        inject("scheduler.mixed")
+        with Timer(self.metrics, "finchat_mixed_step_seconds") as mt:
+            ring_tok, ring_n, ring_blk = eng.ragged_multi(
+                plan.tokens, plan.tok_row, plan.row_slot, plan.row_start, plan.row_len,
+                plan.row_from_device, plan.row_arm, plan.temperature, plan.top_p, plan.top_k,
+                plan.loop_active, self._temperature, self._top_p, self._top_k, self.eos_id)
+        self._tally_dispatch()
+        self._round_tally += rounds
+        self.metrics.inc("finchat_freerun_dispatches_total")
+        # the unit is rounds: rounds a dispatch
+        self.metrics.observe("finchat_freerun_rounds_per_dispatch", rounds)
+        if TRACER.enabled:
+            trows = [[slot, f"prefix:{owner.owner}" if kind == "job"
+                      else (owner.trace_id or owner.seq_id), "freerun"]
+                     for _row, slot, owner, _epoch, kind in members]
+            self._trace_dispatch("freerun", trows, ts=mt.started, dur=mt.elapsed)
+        # the prompt cursors advance at dispatch, as in the ragged round:
+        # the staged chunks are dispatched
+        for row, _slot, owner, _epoch, kind in members:
+            adv = plan.advanced.get(row, 0)
+            if kind == "job":
+                if adv:
+                    owner.pos += adv
+                    if owner.pos >= owner.shared_len:
+                        self._complete_prefix_job(owner, "freerun")
+            elif adv:
+                owner.prefill_pos += adv
+        return _InFlightRing(tokens=ring_tok, n_emitted=ring_n, blocks=ring_blk, rounds=rounds,
+                             members=members, armed=plan.row_arm, loop_rounds=plan.loop_active,
+                             completes_at=plan.completes_at, ahead=plan.ahead)
+
+    async def _consume_ring(self, ring: _InFlightRing) -> None:
+        """Drain a captured run's token ring: ONE fetch (in a worker thread)
+        for up to ``rounds`` tokens a row plus the fused tails, delivered
+        round by round in device order, while the device may already run
+        the next capture. Stale rows (evicted, preempted or replayed since
+        the dispatch, told by the ``(slot, handle, epoch)`` snapshot) have
+        their ring tokens dropped exactly once, the replay recomputing
+        them: the epoch boundary, a ``freerun_epoch_break`` trace event. A
+        round emitting where the staged plan armed nothing is a free-run
+        divergence: the flight recorder dumps, those cells deliver
+        nothing."""
+        eng = self.engine
+        tok_host, n_host, blk_host = await asyncio.to_thread(
+            lambda: (eng.to_host(ring.tokens), eng.to_host(ring.n_emitted),
+                     eng.to_host(ring.blocks)))
+        armed = ring.armed
+        stray = (n_host > 0) & ~armed
+        if stray.any():
+            self.metrics.inc("finchat_freerun_divergences_total")
+            TRACER.anomaly("freerun_divergence", args={"rounds": ring.rounds,
+                                                       "cells": int(stray.sum())})
+        K1 = int(blk_host.shape[1])
+        wasted = 0
+        epoch_break = False
+        for r in range(ring.rounds):
+            for row, slot, owner, epoch, kind in ring.members:
+                if kind == "job":
+                    continue
+                handle: SequenceHandle = owner
+                stale = handle.finished or handle.slot != slot or handle.epoch != epoch
+                n = int(n_host[r, row])
+                if n > 0 and armed[r, row]:
+                    if stale:
+                        # the replay recomputes this token: dropping it here
+                        # keeps delivery exactly-once
+                        epoch_break = True
+                        wasted += n
+                    else:
+                        if ring.completes_at.get(row) == r:
+                            handle.span.mark("prefill_done")
+                            self.prefilling.remove(handle)
+                            self.decoding[handle.slot] = handle
+                        self._deliver(handle, int(tok_host[r, row]))
+                        stale = handle.finished or handle.slot != slot or handle.epoch != epoch
+                if K1 and ring.loop_rounds[r, slot]:
+                    if stale:
+                        wasted += K1
+                        continue
+                    for j in range(K1):
+                        token = int(blk_host[r, j, slot])
+                        if token < 0:  # the device's stop mask
+                            wasted += K1 - j
+                            break
+                        self._deliver(handle, token)
+                        if handle.finished:
+                            wasted += K1 - j - 1
+                            break
+        if wasted:
+            self.metrics.inc("finchat_decode_loop_wasted_tail_tokens_total", wasted)
+        if epoch_break:
+            self.metrics.inc("finchat_freerun_epoch_breaks_total")
+            TRACER.event("freerun_epoch_break", track=self._trace_track,
+                         args={"rounds": ring.rounds})
+        self.metrics.set_gauge("finchat_batch_occupancy", len(self.decoding))
 
     async def _consume_step(self, step: _InFlightStep) -> None:
         """Fetch a dispatched step's tokens and constrained logits rows (in a
@@ -1768,29 +2313,56 @@ class ContinuousBatchingScheduler:
                 self._deliver(handle, int(tokens_host[slot]))
         self.metrics.set_gauge("finchat_batch_occupancy", len(self.decoding))
 
-    async def _drain_inflight(self, inflight: _InFlightStep) -> None:
-        """Consume an in-flight step outside the decode try-block (idle
+    @staticmethod
+    def _pending_constrained(inflight) -> set[int]:
+        """Constrained slots whose host pick lands only when ``inflight`` is
+        consumed: they sit out the next dispatch. In a block they ride only
+        the demoted step; a free-run capture never carries them."""
+        if inflight is None or isinstance(inflight, _InFlightRing):
+            return set()
+        if isinstance(inflight, _InFlightBlock):
+            return set(inflight.step.constrained_slots) if inflight.step else set()
+        return set(inflight.constrained_slots)
+
+    async def _consume_inflight(self, inflight) -> None:
+        if isinstance(inflight, _InFlightRing):
+            await self._consume_ring(inflight)
+        elif isinstance(inflight, _InFlightBlock):
+            await self._consume_block(inflight)
+        else:
+            await self._consume_step(inflight)
+
+    async def _drain_inflight(self, inflight) -> None:
+        """Consume an in-flight dispatch outside the decode try-block (idle
         drain, before a ragged round, before a preemption), turning a
         failure into the whole-round path. A failed consume is never
         retried: the replay recomputes what was not delivered. Returns None
         (the caller's new ``inflight``)."""
+        ring = isinstance(inflight, _InFlightRing)
         try:
-            await self._consume_step(inflight)
+            await self._consume_inflight(inflight)
             self._note_round_ok("decode")
+            if ring:  # a capture carried the prefill rows too
+                self._note_round_ok("prefill")
         except Exception as e:
             logger.error("in-flight step consume error: %s", e)
-            await self._round_failed("decode", str(e))
+            await self._round_failed("mixed" if ring else "decode", str(e))
         return None
 
     async def _loop(self) -> None:
         logger.info("scheduler loop started (max_seqs=%d, quant=%s)",
                     self.engine.engine_cfg.max_seqs, self.quant_label)
-        inflight: _InFlightStep | None = None
+        inflight: _InFlightStep | _InFlightBlock | _InFlightRing | None = None
         while self._running:
             self._reap_stale_holds()
             if self._coexist_mark is not None:
                 self.metrics.inc("finchat_coexist_dispatches_total",
                                  self._dispatch_tally - self._coexist_mark)
+                # and the serving rounds they advanced (a capture books F
+                # rounds for its one dispatch): their ratio is dispatches a
+                # round
+                self.metrics.inc("finchat_coexist_rounds_total",
+                                 self._round_tally - self._coexist_round_mark)
                 self._coexist_mark = None
             # parked holds are not work: the loop sleeps through a retrieval
             if not (self.pending or self.decoding or self._prefill_work()):
@@ -1807,8 +2379,8 @@ class ContinuousBatchingScheduler:
 
             try:
                 # page pressure: planned before any dispatch, carried out
-                # only once the step in flight is drained, so no freed page
-                # is still the target of a queued write
+                # only once the dispatch in flight is drained, so no freed
+                # page is still the target of a queued write
                 victims = self._preemption_plan()
                 if victims:
                     if inflight is not None:
@@ -1833,11 +2405,40 @@ class ContinuousBatchingScheduler:
             if prefill_active and self.decoding:
                 self.metrics.inc("finchat_coexist_iterations_total")
                 self._coexist_mark = self._dispatch_tally
+                self._coexist_round_mark = self._round_tally
+
+            if self._spec_cooldown > 0:
+                # demoted after all-miss steps: count down to the next probe
+                self._spec_cooldown -= 1
 
             if self._use_mixed():
-                # the mixed path is depth-1 (dispatch + consume within the
-                # iteration): drain any pipelined decode step first, which
-                # also lands its pending picks
+                rounds = self._freerun_rounds_cap()
+                if rounds > 1:
+                    # the free-running loop, depth 2: stage and dispatch the
+                    # next capture FIRST, then drain the previous dispatch
+                    # while the device runs it. A membership change between
+                    # (admit, evict, preempt, a trip) ends re-entry at this
+                    # round boundary; stale ring tokens replay exactly once
+                    ring = None
+                    try:
+                        ring = self._dispatch_freerun(rounds, self._undelivered(inflight))
+                    except Exception as e:
+                        logger.error("freerun dispatch error: %s", e)
+                        if inflight is not None:
+                            inflight = await self._drain_inflight(inflight)
+                        await self._round_failed("mixed", str(e))
+                        await asyncio.sleep(0)
+                        continue
+                    if ring is not None:
+                        prev, inflight = inflight, ring
+                        if prev is not None:
+                            await self._drain_inflight(prev)
+                        await asyncio.sleep(0)
+                        continue
+                    # the staging underfilled: the host-stepped round below
+                # the host-stepped ragged round is depth-1 (dispatch and
+                # consume within the iteration): drain any pipelined
+                # dispatch first, which also lands its pending picks
                 if inflight is not None:
                     inflight = await self._drain_inflight(inflight)
                 if self._use_mixed():  # consuming may have evicted slots
@@ -1853,6 +2454,14 @@ class ContinuousBatchingScheduler:
                     await asyncio.sleep(0)
                     continue
 
+            if isinstance(inflight, _InFlightRing):
+                # leaving the ragged path with a capture in flight: drain it
+                # before any split round. A prompt that completed inside the
+                # capture is still in ``prefilling`` until the drain moves
+                # it to decoding; a split prefill round run first would
+                # complete it again on an empty chunk
+                inflight = await self._drain_inflight(inflight)
+
             if self._prefill_work():
                 try:
                     await self._prefill_round()
@@ -1861,7 +2470,21 @@ class ContinuousBatchingScheduler:
                     logger.error("prefill round error: %s", e)
                     await self._round_failed("prefill", str(e))
 
-            if self.decoding:
+            if (self.decoding and self.spec_k > 0 and self._spec_cooldown == 0
+                    and self._spec_candidates()):
+                try:
+                    # speculative decode is depth-1: drain the pipelined
+                    # dispatch left over from the depth-2 path first
+                    if inflight is not None:
+                        await self._consume_inflight(inflight)
+                        inflight = None
+                    await self._run_spec_step()
+                    self._note_round_ok("decode")
+                except Exception as e:
+                    logger.error("spec decode step error: %s", e)
+                    inflight = None
+                    await self._round_failed("spec", str(e))
+            elif self.decoding:
                 try:
                     # a decode round counts as OK only when a consume
                     # succeeded: a dispatch-only iteration (nothing in flight
@@ -1872,20 +2495,33 @@ class ContinuousBatchingScheduler:
                     # a constrained slot's next input is the host pick that
                     # lands when its step is consumed: it sits out the step
                     # dispatched before that consume and rejoins the next
-                    pending = set(inflight.constrained_slots) if inflight is not None else set()
-                    if any(slot not in pending for slot in self.decoding):
+                    pending = self._pending_constrained(inflight)
+                    ahead = self._undelivered(inflight)
+                    use_loop = self.loop_depth > 1 and any(
+                        slot not in pending and self._loop_eligible(h, ahead.get(slot, 0))
+                        for slot, h in self.decoding.items())
+                    if use_loop:
+                        # depth-2 blocks: dispatch block N+1 (the demoted
+                        # slots one step, pending constrained slots out),
+                        # then consume N
+                        blk = self._dispatch_decode_loop(exclude=pending, ahead=ahead)
+                        if inflight is not None:
+                            await self._consume_inflight(inflight)
+                            consumed = True
+                        inflight = blk
+                    elif any(slot not in pending for slot in self.decoding):
                         # depth-2 pipeline: dispatch N+1, then consume N — the
                         # device computes while the host delivers tokens
                         step = self._dispatch_decode(exclude=pending)
                         if inflight is not None:
-                            await self._consume_step(inflight)
+                            await self._consume_inflight(inflight)
                             consumed = True
                         inflight = step
                     else:
                         # every decoding slot waits on a pick: drain, then
                         # run depth-1
                         if inflight is not None:
-                            await self._consume_step(inflight)
+                            await self._consume_inflight(inflight)
                             inflight = None
                             consumed = True
                         if self.decoding:
@@ -1895,7 +2531,7 @@ class ContinuousBatchingScheduler:
                         self._note_round_ok("decode")
                 except Exception as e:
                     # a whole-batch failure: every in-flight decode recovers
-                    # together, and the dropped step is never consumed again
+                    # together, and the dropped dispatch is never consumed again
                     logger.error("decode step error: %s", e)
                     inflight = None
                     await self._round_failed("decode", str(e))
@@ -1903,7 +2539,7 @@ class ContinuousBatchingScheduler:
                 inflight = await self._drain_inflight(inflight)
 
             await asyncio.sleep(0)  # let producers/consumers run
-        # a step still in flight is dropped, as in the reference: its
+        # a dispatch still in flight is dropped, as in the reference: its
         # members are either finished or about to be failed by
         # shutdown_drain, whose offload covers what was delivered
         logger.info("scheduler loop stopped")

@@ -150,7 +150,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     D = x.shape[-1]
     half = D // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    # the base made on the device (a fill, no host copy: the decode loop
+    # runs this under CUDA graph capture)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device), exps)
     angles = positions[:, :, None].float() * freqs[None, None, :]  # [B,S,half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

@@ -276,12 +276,14 @@ def plan_kv_rows(page_table: torch.Tensor, start_pos: torch.Tensor, n_valid: tor
 
 
 def plan_kv_rows_ragged(page_rows: torch.Tensor, tok_row: torch.Tensor, tok_pos: torch.Tensor,
-                        page_size: int) -> KVRows:
+                        page_size: int, tok_valid: torch.Tensor | None = None) -> KVRows:
     """The rows of a packed ragged round: token t of row ``tok_row[t]``
     (``R`` = padding, which goes to the trash page) at ``tok_pos[t]``,
     through ``page_rows[tok_row[t]]``. One lookup a token, where the chunk
     rule over the gathered ``page_rows[tok_row]`` [T, max_pages] table
-    gives the same rows (tests/test_torch_kv_write.py)."""
+    gives the same rows (tests/test_torch_kv_write.py). ``tok_valid`` [T]
+    bool sends further tokens to the trash page (a dead free-run row's),
+    leaving ``tok_row`` as it is."""
     dev = page_rows.device
     _check_index("page_rows", page_rows, 2, dev)
     _check_index("tok_row", tok_row, 1, dev)
@@ -290,6 +292,11 @@ def plan_kv_rows_ragged(page_rows: torch.Tensor, tok_row: torch.Tensor, tok_pos:
     check(tok_pos.shape == tok_row.shape, f"plan_kv_rows_ragged: tok_pos "
           f"{tuple(tok_pos.shape)} and tok_row {tuple(tok_row.shape)} disagree")
     valid = tok_row < R
+    if tok_valid is not None:
+        check(tok_valid.dtype == torch.bool and tok_valid.shape == tok_row.shape
+              and tok_valid.device == dev, "plan_kv_rows_ragged: tok_valid must be a bool "
+              f"tensor shaped like tok_row on {dev}")
+        valid = valid & tok_valid
     safe = tok_row.long().clamp(max=R - 1)
     pos = tok_pos.long()
     logical = torch.where(valid, pos // page_size, 0).clamp(max=max_pages - 1)

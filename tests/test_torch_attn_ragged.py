@@ -485,7 +485,7 @@ def _round_outputs(monkeypatch, per_layer: bool):
     T = eng.ragged_bucket(len(packed))
     packed += [0] * (T - len(packed))
     tok_row += [R] * (T - len(tok_row))
-    em, _n, logits = eng.ragged_mixed(
+    em, _n, logits, _blk = eng.ragged_mixed(
         np.asarray(packed, np.int32), np.asarray(tok_row, np.int32),
         np.asarray([0, 2, 1, 3], np.int32), np.asarray([16, 0, 0, 0], np.int32),
         np.asarray([16, 16, 1, 1], np.int32), np.asarray([False, False, True, True]),

@@ -1561,3 +1561,93 @@ def test_flash_attention_bwd_sm90_refuses_what_it_does_not_take(dev):
         with pytest.raises(RuntimeError, match="cudaError 1"):
             kernels.launch(BWD_SM90, *p, *d, b, t, scale)
         torch.cuda.synchronize()
+
+
+# --- decode_loop_step as a CUDA graph ----------------------------------------------
+
+
+def _loop_engine(dev, kv_quant=""):
+    """A 2-layer bf16 engine at head_dim 128 and a group of 4, pages of 64
+    (the decode body's), the fused loop at depth 4, warmed up (which
+    captures the graph), two slots prefilled with their first tokens."""
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.models.llama import LlamaConfig, init_params
+    from finchat_tpu_torch.utils.config import EngineConfig
+
+    config = LlamaConfig(vocab_size=260, dim=512, n_layers=2, n_heads=4, n_kv_heads=1,
+                         hidden_dim=1024)
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    params = init_params(config, g, dev)
+    ecfg = EngineConfig(max_seqs=4, page_size=64, num_pages=16, max_seq_len=256,
+                        prefill_chunk=64, decode_loop_depth=4, kv_quant=kv_quant)
+    engine = InferenceEngine(config, params, ecfg, device=dev)
+    engine.warmup()
+    return engine
+
+
+def _arm_loop_slots(engine):
+    for slot, (first_page, n) in {0: (1, 70), 2: (5, 9)}.items():
+        engine.set_page_table_row(slot, list(range(first_page, first_page + 3)))
+        prompt = [(7 * i + slot) % 250 + 1 for i in range(n)]
+        engine.commit_first_token(slot, engine.prefill(slot, prompt), 0.0, 1.0, 0)
+
+
+def _state_copy(state):
+    """A deep copy of an engine state, the generator's position included."""
+    import dataclasses
+
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)}, generator=gen)
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8_kv"])
+def test_decode_loop_graph_matches_eager_before_and_after_rebuild(dev, kv_quant):
+    """``InferenceEngine.decode_loop`` on the card replays the graph captured
+    at warmup: its block, context lengths, last tokens and pages equal the
+    eager ``decode_loop_step`` on a copy of the same state (greedy, two
+    blocks, one slot stopping at a stop token mid-block), and each replay
+    adds the captured launches to ``LAUNCHES`` while the capture added
+    none. After ``rebuild_device_state`` the graph is captured again over
+    the new state and holds the same way."""
+    from finchat_tpu_torch.engine.engine import DecodeLoopGraph, decode_loop_step
+
+    engine = _loop_engine(dev, kv_quant)
+    graph = engine._loop_graphs[4]
+    assert isinstance(graph, DecodeLoopGraph) and graph.state is engine.state
+    assert graph.launches and all(n > 0 for n in graph.launches.values())
+    B = 4
+    active = np.zeros(B, bool)
+    active[[0, 2]] = True
+    greedy = (np.zeros(B, np.float32), np.ones(B, np.float32), np.zeros(B, np.int32))
+    dev_args = [torch.as_tensor(a, device=dev) for a in (active, *greedy)]
+    for round_ in ("warmup", "rebuild"):
+        _arm_loop_slots(engine)
+        graph = engine._loop_graph(4)
+        assert graph.state is engine.state
+        def eager(state, eos):
+            return decode_loop_step(engine.params, state, *dev_args,
+                                    torch.tensor(eos, dtype=torch.int32, device=dev),
+                                    config=engine.config, page_size=engine.page_size,
+                                    loop_depth=4)[1]
+
+        for block_i in range(2):
+            eos = -1
+            if block_i:  # slot 2 stops at its second token of this block
+                eos = int(eager(_state_copy(engine.state), -1)[1, 2])
+            copy = _state_copy(engine.state)
+            before = dict(LAUNCHES)
+            got = engine.decode_loop(active, *greedy, eos_id=eos)
+            torch.cuda.synchronize()
+            assert {k: LAUNCHES[k] - before[k] for k in graph.launches} == graph.launches
+            want = eager(copy, eos)
+            assert torch.equal(got, want), (round_, block_i, got, want)
+            for name in ("context_lens", "last_tokens", "k_pages", "v_pages"):
+                assert torch.equal(getattr(engine.state, name), getattr(copy, name)), name
+        assert (got[2:, 2] == -1).all()
+        if round_ == "warmup":
+            engine.rebuild_device_state()
+            assert not engine._loop_graphs

@@ -152,7 +152,7 @@ def test_ragged_mixed_step_matches_jax(engines):
         *[jnp.asarray(a) for a in args], jnp.zeros(R, jnp.int32), jnp.asarray(temp),
         jnp.asarray(top_p), jnp.asarray(top_k), jnp.zeros(R, bool), jnp.zeros(R, jnp.float32),
         jnp.ones(R, jnp.float32), jnp.zeros(R, jnp.int32), -1)
-    em_t, n_t, logits_t = te.ragged_mixed(*args, temp, top_p, top_k)
+    em_t, n_t, logits_t, _blk_t = te.ragged_mixed(*args, temp, top_p, top_k)
     em_j, n_j, logits_j = np.asarray(em_j), np.asarray(n_j), np.asarray(logits_j)
     np.testing.assert_array_equal(n_t.numpy(), n_j)
     for r in range(4):
@@ -176,13 +176,28 @@ def test_cuda_engine_refuses_to_fall_back(engines):
         InferenceEngine(te.config, te.params, te.engine_cfg)  # the default device
 
 
+# the decode planes are served; bounded KV is still refused by name
+SERVED_PLANES = ("spec_tokens", "decode_loop_depth", "freerun_rounds")
+
+
 @pytest.mark.parametrize("field,value", [
     ("spec_tokens", 2), ("decode_loop_depth", 4), ("freerun_rounds", 2), ("kv_sink_pages", 2),
     ("kv_window_pages", 4),
 ])
 def test_scheduler_refuses_planes_not_ported(engines, field, value):
+    """Spec decode, the fused decode loop and the free-running loop are
+    accepted, and a scheduler over an engine of that config takes their
+    knobs; bounded KV is refused at ``check_supported`` and at
+    construction."""
     _je, te = engines()
     cfg = dataclasses.replace(EngineConfig(**ENGINE), **{field: value})
+    if field in SERVED_PLANES:
+        check_supported(cfg)
+        sched = ContinuousBatchingScheduler(InferenceEngine(te.config, te.params, cfg,
+                                                            device="cpu"), eos_id=258)
+        assert (sched.spec_k, sched.loop_depth, sched.freerun_rounds) == (
+            cfg.spec_tokens, max(1, cfg.decode_loop_depth), max(1, cfg.freerun_rounds))
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         check_supported(cfg)
     te.engine_cfg = cfg

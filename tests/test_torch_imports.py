@@ -73,3 +73,13 @@ def test_cuda_sources_use_plain_c_interface(path):
         assert 'extern "C"' in text
         # every source opens with its note: the TPU kernel it replaces
         assert "Replaces the TPU kernel finchat_tpu/ops/" in text.split("#include")[0]
+
+
+@pytest.mark.parametrize("module", ["engine/spec.py", "ops/freerun.py", "engine/engine.py",
+                                    "engine/scheduler.py"])
+def test_the_decode_planes_modules_are_walked(module):
+    """The prompt-lookup proposer and the free-run staging (numpy-only in
+    the JAX package, which the port does not import: it keeps its own
+    copies), and the engine and scheduler that carry the decode loop, spec
+    decode and the free-running loop, are among the files walked above."""
+    assert ROOT / "finchat_tpu_torch" / module in PORT_FILES

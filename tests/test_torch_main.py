@@ -3,7 +3,7 @@
 - Every flag makes the config overrides the JAX package's CLI makes (the
   JAX ``main`` is stopped at its ``load_config`` call to read them).
 - Flags of planes the port does not carry yet reach ``build_app`` and are
-  refused there by name.
+  refused there by name; ``--decode-loop-depth`` builds and serves a turn.
 - A subprocess drive at ``--preset stub --device cpu``: ``GET /health``,
   ``POST /transactions``, ``POST /chat`` over a real socket, then SIGTERM:
   exit 0 after the graceful drain, the vector snapshot written. A fresh
@@ -12,6 +12,7 @@
   runs it (``runpy.run_module(..., run_name="__main__")``).
 """
 
+import asyncio
 import http.client
 import json
 import os
@@ -74,11 +75,42 @@ def test_overrides_equal_the_jax_cli(monkeypatch, argv):
     (["--fleet-replicas", "2"], "fleet.replicas"),
     (["--fleet-roles", "prefill,decode"], "fleet.roles"),
     (["--fabric-path", "/fabric"], "fabric.enabled"),
-    (["--decode-loop-depth", "2"], "decode_loop_depth > 1"),
+    (["--decode-loop-depth", "2"], None),
 ], ids=["fleet_replicas", "fleet_roles", "fabric", "decode_loop"])
-def test_unported_plane_flags_are_refused_by_name(flags, name):
-    with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
-        tmain.main(["--preset", "stub", "--device", "cpu", *flags])
+def test_unported_plane_flags_are_refused_by_name(monkeypatch, flags, name):
+    """The fleet and fabric flags are refused by name; ``--decode-loop-depth
+    2`` (the fused decode loop, served) builds the app, which answers a
+    ``/chat`` turn."""
+    argv = ["--preset", "stub", "--device", "cpu", *flags]
+    if name is not None:
+        with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
+            tmain.main(argv)
+        return
+    import finchat_tpu_torch.serve.app as app_mod
+    from finchat_tpu_torch.io.store import InMemoryStore
+    from finchat_tpu_torch.serve.http import Request
+
+    built = {}
+    real_build = app_mod.build_app
+
+    def build_then_turn(cfg, **kw):
+        store = InMemoryStore(cfg)
+        store.upsert_context("c1", {"user_id": "u1", "name": "Alex", "income": 5000,
+                                    "savings_goal": 800})
+        store.add_user_message("c1", "How am I doing?", "u1", timestamp=100)
+        app = real_build(cfg, store=store, **kw)
+        body = json.dumps({"conversation_id": "c1", "user_id": "u1", "message": "Any advice?"})
+        resp = asyncio.run(app.chat(Request("POST", "/chat", {}, body.encode())))
+        built.update(depth=cfg.engine.decode_loop_depth, status=resp.status,
+                     body=json.loads(resp.body))
+        raise _Stop
+
+    monkeypatch.setattr(app_mod, "build_app", build_then_turn)
+    with pytest.raises(_Stop):
+        tmain.main(argv)
+    assert built == {"depth": 2, "status": 200, "body": {
+        "response": "I'm Penny, here to help with your finances.",
+        "retrieved_transactions_count": 0}}
 
 
 def _free_port() -> int:

@@ -573,7 +573,7 @@ def test_quantized_engine_matches_jax(mode, group):
         *[jnp.asarray(a) for a in args], jnp.zeros(R, jnp.int32), jnp.asarray(temp),
         jnp.asarray(top_p), jnp.asarray(top_k), jnp.zeros(R, bool), jnp.zeros(R, jnp.float32),
         jnp.ones(R, jnp.float32), jnp.zeros(R, jnp.int32), -1)
-    em_t, n_t, logits_t = te.ragged_mixed(*args, temp, top_p, top_k)
+    em_t, n_t, logits_t, _blk_t = te.ragged_mixed(*args, temp, top_p, top_k)
     em_j, logits_j = np.asarray(em_j), np.asarray(logits_j)
     np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
     for r in range(4):
