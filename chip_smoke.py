@@ -3123,6 +3123,7 @@ async def _overlap_runs(torch, plane, spec, config, params, sched, handles, turn
             marks = _marks(TRACER, t["conv"])
             text = "".join(e["content"] for e in t["events"] if e["type"] == "response_chunk")
             rows.append(dict(conv=t["conv"], text=text, rows=count, user=t["user"],
+                             prompt=list(response.prompt_ids),
                              tokens=response.history[len(response.prompt_ids):],
                              grafted=response.grafted, ttft_s=response.first_token_at - t["t0"],
                              marks={k: v - t["t0"] for k, v in marks.items()}))
@@ -3137,7 +3138,9 @@ async def _overlap_runs(torch, plane, spec, config, params, sched, handles, turn
                 fail(f"agent turns ({plane}): overlap {name}: {t['conv']}'s marks "
                      f"{rows[-1]['marks']} (grafted {response.grafted})")
         checks = [teacher_forced_check(torch, params, config, _turn_handles(handles, t["conv"])[1],
-                                       spec["kv_quant"]) for t in turns]
+                                       spec["kv_quant"], with_margins=True) for t in turns]
+        for r, c in zip(rows, checks):
+            r["margins"] = c.pop("margins")
         want = (dict(finchat_tool_launches_total=2, finchat_tool_speculative_cancels_total=0,
                      finchat_tool_fallbacks_total=0, finchat_partial_holds_total=2,
                      finchat_partial_grafts_total=2) if on else {c: 0 for c in counters})
@@ -3157,15 +3160,27 @@ async def _overlap_runs(torch, plane, spec, config, params, sched, handles, turn
     # where the greedy ids part (both streams passed the teacher-forced check)
     first_diff = [next((k for k, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y),
                        None) for a, b in zip(runs["on"]["turns"], runs["off"]["turns"])]
+    # where they part: are the grafted and the plain response prompts the
+    # same bytes (a graft fault if not), and how close was the plain
+    # forward's top-2 at that token (a near tie after another chunking if so)
+    same_prompts = [a["prompt"] == b["prompt"]
+                    for a, b in zip(runs["on"]["turns"], runs["off"]["turns"])]
+    margin_at_diff = [None if n is None else a["margins"][n]
+                      for n, a in zip(first_diff, runs["on"]["turns"])]
     log(f"  agent overlap ({plane}): responses byte-identical on and off: {same_text}; token "
-        f"ids identical: {same_tokens} (first different id at {first_diff})")
+        f"ids identical: {same_tokens} (first different id at {first_diff}); grafted and plain "
+        f"response prompts byte-equal: {same_prompts}; the plain forward's top-2 margin at "
+        f"the first different id (on the overlap-on stream): {margin_at_diff}")
     if not all(same_text):
         fail(f"agent turns ({plane}): the responses differ with the overlap on and off")
     for run in runs.values():
         for r in run["turns"]:
             r.pop("tokens")
+            r.pop("prompt")
+            r.pop("margins")
     return dict(runs=runs, byte_identical=same_text, token_identical=same_tokens,
-                first_different_id=first_diff)
+                first_different_id=first_diff, prompts_equal=same_prompts,
+                margin_at_first_difference=margin_at_diff)
 
 
 async def _abandoned_turn(plane, sched, handles, entries, make_agent, stub_cls) -> dict:
@@ -4555,7 +4570,7 @@ def grammar_masks(vocab, served: list[int], budget: int):
 
 
 def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None,
-                         with_margins: bool = False) -> dict:
+                         with_margins: bool = False, visible=None) -> dict:
     """Re-run one served stream through the plain dense forward (no cache,
     plain attention, plain matmuls) and require the served greedy token
     wherever the plain forward's top-2 logit margin exceeds 0.25 — bf16
@@ -4568,11 +4583,14 @@ def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None,
     tokens must not depend on where their KV came from. With ``vocab`` (a
     grammar-constrained stream) the argmax and the margin are taken under
     the grammar mask each token was picked under (``grammar_masks``).
-    ``with_margins`` adds each served token's plain top-2 margin."""
+    ``with_margins`` adds each served token's plain top-2 margin. ``visible``
+    (a bool [S, S] tensor over the history but its last token, True where
+    query row p may see key j) replaces the causal mask: a bounded-KV
+    stream's mask from its replayed gap schedule (``bounded_mask``)."""
     from finchat_tpu_torch.engine.kv_cache import quantize_kv_rows
     from finchat_tpu_torch.models.llama import dense_causal_attention, forward, lm_head
     from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dequantize
-    from finchat_tpu_torch.ops.refs import mha_reference
+    from finchat_tpu_torch.ops.refs import masked_logits, mha_reference
 
     def plain_leaf(leaf):
         return _Dequantized(leaf) if isinstance(leaf, (QTensor, Q4Tensor)) else leaf
@@ -4589,12 +4607,27 @@ def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None,
     def q8_attention(q, k, v, cache, layer_idx):
         return mha_reference(q, kv_roundtrip(k), kv_roundtrip(v), causal=True), cache
 
+    def bounded_attention(q, k, v, cache, layer_idx):
+        # mha_reference's arithmetic under the given mask
+        if kv_quant:
+            k, v = kv_roundtrip(k), kv_roundtrip(v)
+        weights = torch.softmax(masked_logits(q, k, blocked, q.shape[-1] ** -0.5), dim=-1)
+        v = v.repeat_interleave(q.shape[2] // v.shape[2], dim=2)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float())
+        return out.to(q.dtype), cache
+
     ids = h.history[:-1]
     n_prompt = len(h.prompt_ids)
     dev = params["embed"].device
     tokens = torch.tensor([ids], dtype=torch.int64, device=dev)
     positions = torch.arange(len(ids), device=dev)[None]
     attention = q8_attention if kv_quant else dense_causal_attention
+    if visible is not None:
+        if tuple(visible.shape) != (len(ids), len(ids)):
+            fail(f"teacher-forced check of {h.seq_id}: a {tuple(visible.shape)} mask for "
+                 f"{len(ids)} tokens")
+        blocked = ~visible.to(dev)[None, None]
+        attention = bounded_attention
     with torch.no_grad():
         hidden, _ = forward(plain, tokens, positions, config=config, attention=attention,
                             return_hidden=True)
@@ -4617,6 +4650,7 @@ def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None,
     agree = (want[:n] == served[:n])
     bad = int((decided & ~agree).sum())
     what = "the plain forward's argmax" + (" under the grammar mask" if vocab is not None else "")
+    what += " under the bounded mask" if visible is not None else ""
     log(f"  teacher-forced {h.seq_id} ({n_prompt} prompt tokens, {h.shared_len} shared, "
         f"{h.resumed_len} resumed): {int(agree.sum())}/{n} served tokens equal {what}; "
         f"{int(decided.sum())} have margin > 0.25, {bad} of those disagree")
@@ -4780,20 +4814,50 @@ def check_plane_launches(label: str, spec: dict, config, launches: dict, calls: 
         fail(f"decode_planes {label}: kernels not launched on the main path: {missing}")
 
 
+def _profile_call(torch, fn, reset) -> dict:
+    """One engine call timed with CUDA events around whole calls and profiled
+    (device busy by class, idle share of the profiled window) as
+    ``profile_steps`` does; ``reset`` puts the state back before each
+    measurement (two warm calls, three profiled, the events' own)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reset()
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    w_start = torch.cuda.Event(enable_timing=True)
+    w_end = torch.cuda.Event(enable_timing=True)
+    reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w_start.record()
+        for _ in range(3):
+            fn()
+        w_end.record()
+        torch.cuda.synchronize()
+    window_ms = w_start.elapsed_time(w_end) / 3
+    by_class, _top = device_ms(torch, prof, _kernel_class, runs=3)
+    reset()
+    ev_ms = time_ms(torch, fn, iters=5, warmup=1)
+    busy = sum(by_class.values())
+    return dict(event_ms=ev_ms, profiled_window_ms=window_ms, device_busy_ms=busy,
+                idle_share=1.0 - busy / window_ms, device_ms_by_class=by_class)
+
+
+def _by_class(p: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in sorted(p["device_ms_by_class"].items(),
+                                                       key=lambda x: -x[1]))
+
+
 def profile_block(torch, engine, context: int, active: int) -> dict:
     """Where a decode-loop block's time goes against a single step's, on the
     engine's own state: ``active`` slots at ``context`` tokens (random KV),
-    a block (one graph replay, K iterations) and a decode step, each timed
-    with CUDA events around whole calls and profiled (device busy by class,
-    idle share of the profiled window) as ``profile_steps`` does."""
-    from torch.profiler import ProfilerActivity, profile
-
+    a block (one graph replay, K iterations) and a decode step, each
+    measured by ``_profile_call``."""
     B = engine.engine_cfg.max_seqs
     K = engine.decode_loop_depth
     per = -(-(context + 8 * K) // engine.page_size)
     engine.set_page_table_rows({s: list(range(1 + s * per, 1 + (s + 1) * per))
                                 for s in range(active)})
-    engine.set_context_lens_rows({s: context for s in range(active)})
     act = [s < active for s in range(B)]
     zeros, ones, izeros = [0.0] * B, [1.0] * B, [0] * B
     out = {}
@@ -4801,31 +4865,13 @@ def profile_block(torch, engine, context: int, active: int) -> dict:
             ("decode_step", lambda: engine.decode(act, zeros, ones, izeros), 1),
             (f"decode_loop_block_k{K}",
              lambda: engine.decode_loop(act, zeros, ones, izeros, eos_id=-1), K)):
-        engine.set_context_lens_rows({s: context for s in range(active)})
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        w_start = torch.cuda.Event(enable_timing=True)
-        w_end = torch.cuda.Event(enable_timing=True)
-        engine.set_context_lens_rows({s: context for s in range(active)})
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            w_start.record()
-            for _ in range(3):
-                fn()
-            w_end.record()
-            torch.cuda.synchronize()
-        window_ms = w_start.elapsed_time(w_end) / 3
-        by_class, _top = device_ms(torch, prof, _kernel_class, runs=3)
-        engine.set_context_lens_rows({s: context for s in range(active)})
-        ev_ms = time_ms(torch, fn, iters=5, warmup=1)
-        busy = sum(by_class.values())
-        out[name] = dict(event_ms=ev_ms, ms_per_token=ev_ms / tokens,
-                         profiled_window_ms=window_ms, device_busy_ms=busy,
-                         idle_share=1.0 - busy / window_ms, device_ms_by_class=by_class)
-        log(f"    {name}: {ev_ms:.2f} ms a call, {ev_ms / tokens:.2f} ms a token (CUDA events); "
-            f"profiled {window_ms:.2f} ms, device busy {busy:.2f} ms (idle share "
-            f"{1.0 - busy / window_ms:.3f}): "
-            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_class.items(), key=lambda x: -x[1])))
+        p = _profile_call(torch, fn, lambda: engine.set_context_lens_rows(
+            {s: context for s in range(active)}))
+        p["ms_per_token"] = p["event_ms"] / tokens
+        out[name] = p
+        log(f"    {name}: {p['event_ms']:.2f} ms a call, {p['ms_per_token']:.2f} ms a token "
+            f"(CUDA events); profiled {p['profiled_window_ms']:.2f} ms, device busy "
+            f"{p['device_busy_ms']:.2f} ms (idle share {p['idle_share']:.3f}): {_by_class(p)}")
     engine.reset_slots(list(range(active)))
     return out
 
@@ -5044,6 +5090,382 @@ async def decode_planes(torch, dev, card: str) -> dict:
         _free(torch)
     for r in out.values():
         r.pop("streams", None)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------------------------------------
+# bounded_kv: sink + window eviction through the Hopper bodies
+# --------------------------------------------------------------------------
+
+# a sink of 1 page and a window of 16 (17 pages of 128 = 2,176 tokens), below
+# every Penny prompt, so every row evicts during prefill and decode; the
+# window is >= ceil(512 / 128) + 2, as the policy's validation requires
+BOUNDED = dict(kv_sink_pages=1, kv_window_pages=16)
+# (plane, label, EngineConfig extras, the system head registered). With a
+# bounded policy a registered head is cut to the sink's pages (at
+# registration and at admission, as in the JAX package), so the head run
+# pins 1 page and keeps the 16-page window: every row still evicts.
+BOUNDED_RUNS = (
+    ("bf16", "depth1", dict(BOUNDED), False),
+    ("bf16", "loop4", dict(BOUNDED, decode_loop_depth=4), False),
+    ("bf16", "head", dict(BOUNDED), True),
+    ("int8+kv8", "depth1", dict(BOUNDED), False),
+)
+
+
+def replay_gaps(policy, prompt_len: int, start: int, n_written: int, chunk: int,
+                capacity: int, pinned: int) -> tuple[list[int], int, int]:
+    """The gap each written position of a bounded row was computed under,
+    from ``BoundedKVPolicy.plan_eviction`` alone: a wave before every
+    dispatch, a prefill dispatch writing ``min(chunk, remaining)`` tokens
+    from ``start`` (a shared head's end) and a decode dispatch one, the
+    row's ``pinned`` pages kept. Returns ``(gaps of positions [0,
+    n_written), the gap after the last dispatch's wave, the gap one more
+    wave would set)``: a row whose finish lands after a wave its next
+    dispatch never followed holds the last."""
+    gaps = [0] * start
+    ctx, gap = start, 0
+
+    def incoming() -> int:
+        return min(chunk, prompt_len - ctx) if ctx < prompt_len else 1
+
+    while ctx < n_written:
+        n = incoming()
+        gap += policy.plan_eviction(ctx - gap, n, capacity, pinned) * policy.page_size
+        gaps += [gap] * n
+        ctx += n
+    nxt = gap + policy.plan_eviction(ctx - gap, incoming(), capacity, pinned) * policy.page_size
+    return gaps[:n_written], gap, nxt
+
+
+def bounded_mask(torch, gaps: list[int], sink_end: int, dev):
+    """[S, S] bool: query p sees key j <= p unless j lies in the evicted span
+    [sink_end, sink_end + gap_p) of the gap p was computed under."""
+    S = len(gaps)
+    j = torch.arange(S, device=dev)[None, :]
+    p = torch.arange(S, device=dev)[:, None]
+    g = torch.tensor(gaps, device=dev)[:, None]
+    return (j <= p) & ((j < sink_end) | (j >= sink_end + g))
+
+
+def bounded_feasible(policy, prompt_lens: list[int], max_new: int, chunk: int,
+                     pinned: int, start: int) -> None:
+    """Host check before a run: every prompt's replayed schedule is feasible
+    (``plan_eviction`` raises on a row the wave would have to fail)."""
+    for n in prompt_lens:
+        try:
+            replay_gaps(policy, n, start, n + max_new, chunk,
+                        policy.row_pages(n + max_new), pinned)
+        except Exception as e:
+            fail(f"bounded_kv: a {n}-token prompt is infeasible under {policy}: {e}")
+
+
+# the state's page planes, [layers, pages, ...]: page 0 is the trash page
+PAGE_PLANES = ("k_pages", "v_pages", "k_scales", "v_scales")
+
+
+def check_graph_after_wave(torch, engine, sched) -> dict:
+    """At a wave that evicted a decoding row, mid-serve: one replay of the
+    decode-loop graph over the scheduler's decoding slots against the eager
+    ``decode_loop_step`` on a copy of the state (tokens, context lengths,
+    last tokens, gaps, table, every page but the trash page equal), then the
+    state put back in place and the
+    launch counts as they were (the serve goes on as if nothing ran; the
+    streams are greedy, so the generator's draws do not matter)."""
+    from finchat_tpu_torch.engine.engine import decode_loop_step
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+
+    torch.cuda.synchronize()
+    dev = engine.device
+    B = engine.engine_cfg.max_seqs
+    K = engine.decode_loop_depth
+    slots = sorted(sched.decoding)
+    names = [n for n in ("k_pages", "v_pages", "k_scales", "v_scales", "page_table",
+                         "context_lens", "last_tokens", "kv_gaps")
+             if getattr(engine.state, n) is not None]
+    saved = {n: getattr(engine.state, n).clone() for n in names}
+    copy = _state_copy(torch, engine.state)
+    before = dict(LAUNCHES)
+    args = [torch.tensor(a, device=dev, dtype=dt) for a, dt in
+            (([s in slots for s in range(B)], torch.bool), ([0.0] * B, torch.float32),
+             ([1.0] * B, torch.float32), ([0] * B, torch.int32))]
+    got = engine._loop_graph(K).replay(*args, sched.eos_id)
+    _s, want = decode_loop_step(engine.params, copy, *args,
+                                torch.tensor(sched.eos_id, dtype=torch.int32, device=dev),
+                                config=engine.config, page_size=engine.page_size, loop_depth=K)
+    torch.cuda.synchronize()
+    # the trash page (page 0) is left out: every slot outside the block
+    # writes it, the prefilling ones with rows of their own, in no order
+    parts = {"block": bool(torch.equal(got, want))}
+    for n in names:
+        a, b = getattr(engine.state, n), getattr(copy, n)
+        parts[n] = bool(torch.equal(a[:, 1:], b[:, 1:]) if n in PAGE_PLANES else torch.equal(a, b))
+    same = all(parts.values())
+    gaps = [int(x) for x in engine.state.kv_gaps[slots].tolist()]
+    for n in names:
+        getattr(engine.state, n).copy_(saved[n])
+    LAUNCHES.clear()
+    LAUNCHES.update(before)
+    del saved, copy
+    torch.cuda.synchronize()
+    log(f"    decode-loop graph (after a wave): a replayed block of {K} over slots {slots} "
+        f"(gaps {gaps}) equals the eager loop on a copy of the state: {same} {parts}")
+    if not same:
+        fail("bounded_kv: after an eviction wave the decode-loop graph disagrees with the "
+             "eager decode_loop_step")
+    return dict(equal=same, slots=slots, gaps=gaps)
+
+
+def profile_bounded_step(torch, engine, context: int, active: int) -> dict:
+    """A bounded decode step against an unbounded one on the same engine:
+    ``active`` slots at ``context`` absolute tokens, unbounded (every page,
+    gap 0) and bounded (the budget's pages, the gap that compacts the
+    context into them), each measured by ``_profile_call``."""
+    B = engine.engine_cfg.max_seqs
+    page = engine.page_size
+    bp = engine.bounded_kv
+    act = [s < active for s in range(B)]
+    zeros, ones, izeros = [0.0] * B, [1.0] * B, [0] * B
+    full = -(-(context + 8) // page)
+    gap = max(0, -(-(context + 8 - bp.budget_pages * page) // page)) * page
+    out = {}
+    for name, per, g in (("decode_step_unbounded", full, 0),
+                         ("decode_step_bounded", bp.budget_pages, gap)):
+        def reset(per=per, g=g):
+            engine.set_page_table_rows({s: list(range(1 + s * per, 1 + (s + 1) * per))
+                                        for s in range(active)})
+            engine.set_context_lens_rows({s: context for s in range(active)})
+            engine.set_kv_gap_rows({s: g for s in range(active)})
+
+        p = _profile_call(torch, lambda: engine.decode(act, zeros, ones, izeros), reset)
+        out[name] = dict(p, pages_a_slot=per, gap=g)
+        log(f"    {name} ({active} slots at {context} tokens, {per} pages a slot, gap {g}): "
+            f"{p['event_ms']:.2f} ms (CUDA events); profiled {p['profiled_window_ms']:.2f} ms, "
+            f"device busy {p['device_busy_ms']:.2f} ms (idle share {p['idle_share']:.3f}): "
+            f"{_by_class(p)}")
+    engine.reset_slots(list(range(active)))
+    return out
+
+
+async def _bounded_run(torch, dev, plane: str, label: str, extras: dict, head: bool, params,
+                       config, weight_gb: float, head_ids: list[int], system_prompt: str,
+                       card: str) -> dict:
+    """One run of ``bounded_kv``: an engine at ``EngineConfig(kv_quant=...,
+    **extras)``, warmed up, 8 greedy Penny requests of 64 new tokens in two
+    waves through ``LLMService`` (the system head registered first in the
+    head run). Every wave is watched: a row's page list within its budget,
+    the page table and ``kv_gaps`` in the storage they had, and in the
+    loop run the graph held to the eager block after the first wave that
+    evicted a decoding row. Then every stream is teacher-forced under the
+    mask its replayed gap schedule gives, whose final gap must be the
+    row's; every row evicted; the launch rules; no page left."""
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.engine.generator import EngineGenerator
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.serve.simple import LLMService
+    from finchat_tpu_torch.utils.config import EngineConfig
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    spec = PLANES[plane]
+    name = f"{plane} {label}"
+    log(f"  bounded_kv {name}: EngineConfig(kv_quant={spec['kv_quant']!r}, {extras}), "
+        f"system head {'registered' if head else 'not registered'}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ecfg = EngineConfig(kv_quant=spec["kv_quant"], **extras)
+    engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
+                             quant_group=spec["group"])
+    bp = engine.bounded_kv
+    page, chunk = engine.page_size, ecfg.prefill_chunk
+    tok = ByteTokenizer()
+    prompt_lens = [len(tok.encode(render_chat(system_prompt, CONTEXTS[i], [], MESSAGES[i]),
+                                  add_bos=True)) for i in range(8)]
+    bounded_feasible(bp, prompt_lens, AGENT_NEW, chunk, bp.sink_pages,
+                     bp.sink_tokens if head else 0)
+    warm = run_warmup(torch, name, engine, weight_gb)
+    K = engine.decode_loop_depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+    counts = _PlaneCounts(engine)
+    handles = []
+    submit = sched.submit
+
+    async def recording_submit(*a, **k):
+        h = await submit(*a, **k)
+        handles.append(h)
+        return h
+
+    sched.submit = recording_submit
+    watch = dict(waves=0, evicting=0, peak_rows=0, peak_held=0, moved=0, graph=None)
+    table = engine.state.page_table
+    wave = sched._bounded_evict_wave
+
+    def watched_wave():
+        live = list(sched.prefilling) + list(sched.decoding.values())
+        gaps0 = {h.seq_id: h.kv_gap for h in live}
+        ptrs = (engine.state.page_table.data_ptr(), engine.state.kv_gaps.data_ptr())
+        wave()
+        watch["waves"] += 1
+        rows = [h for h in list(sched.prefilling) + list(sched.decoding.values())
+                if h.slot >= 0 and not h.finished]
+        limit = max(bp.budget_pages, max((sched._bounded_pinned_pages(h) + bp.window_pages
+                                          for h in rows), default=0))
+        held = sum(len(sched.allocator.owned_by(h.seq_id)) for h in rows)
+        watch["peak_rows"] = max([watch["peak_rows"]] + [len(h.page_list) for h in rows])
+        watch["peak_held"] = max(watch["peak_held"], held)
+        if any(len(h.page_list) > limit for h in rows):
+            fail(f"bounded_kv {name}: a row holds more than {limit} pages")
+        if (engine.state.page_table.data_ptr(), engine.state.kv_gaps.data_ptr()) != ptrs or (
+                engine.state.page_table is not table):
+            watch["moved"] += 1
+        if any(h.kv_gap != gaps0.get(h.seq_id, h.kv_gap) for h in rows):
+            watch["evicting"] += 1
+        evicted = [h for h in sched.decoding.values() if h.kv_gap != gaps0.get(h.seq_id, 0)]
+        if K > 1 and evicted and watch["graph"] is None:
+            watch["graph"] = check_graph_after_wave(torch, engine, sched)
+
+    sched._bounded_evict_wave = watched_wave
+    svc = LLMService(EngineGenerator(sched, tok), system_prompt,
+                     SamplingParams(temperature=0.0, max_new_tokens=AGENT_NEW))
+    m0 = METRICS.snapshot()
+    reset_launches()
+    if head:
+        shared = sched.register_prefix(head_ids)
+        if shared != bp.sink_tokens:
+            fail(f"bounded_kv {name}: the head registered {shared} tokens, not the sink's "
+                 f"{bp.sink_tokens}")
+    await sched.start()
+
+    async def one(i: int) -> None:
+        async for _chunk in svc.process_message(MESSAGES[i], context=CONTEXTS[i],
+                                                conversation_id=f"bkv-{i}"):
+            pass
+
+    t0 = time.perf_counter()
+    wave1 = [asyncio.create_task(one(i)) for i in range(4)]
+    while not any(h.generated > 0 for h in handles):
+        await asyncio.sleep(0.005)
+    wave2 = [asyncio.create_task(one(i)) for i in range(4, 8)]
+    await asyncio.gather(*wave1, *wave2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    await sched.stop()
+    sched.submit = submit
+    sched._bounded_evict_wave = wave
+    launches = dict(LAUNCHES)
+    calls = dict(counts.calls)
+    counts.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(handles) != 8 or not all(h.finished and h.generated > 0 for h in handles):
+        fail(f"bounded_kv {name}: not every request completed with tokens")
+    if not all(h.generated == AGENT_NEW or h.history[-1] == tok.eos_id for h in handles):
+        fail(f"bounded_kv {name}: a request ended before max_new_tokens without EOS")
+    check_plane_launches(name, spec, config, launches, calls, K, 1)
+    m = lambda k: _metric_delta(METRICS, m0, k)  # noqa: E731
+    evicted = m("finchat_boundedkv_evicted_pages_total")
+    gaps = {h.conversation_id: h.kv_gap for h in handles}
+    log(f"    {name}: {watch['waves']} waves, {watch['evicting']} evicted; "
+        f"{evicted:.0f} pages evicted; final gaps {gaps}; peak {watch['peak_rows']} pages a "
+        f"row, {watch['peak_held']} held by the rows at once; table or gaps rebound "
+        f"{watch['moved']} times")
+    if evicted <= 0 or not all(g > 0 for g in gaps.values()):
+        fail(f"bounded_kv {name}: a row never evicted (evicted pages {evicted}, gaps {gaps})")
+    if watch["moved"]:
+        fail(f"bounded_kv {name}: a wave rebound state.page_table or state.kv_gaps")
+    if K > 1 and (watch["graph"] is None or calls["decode_loop"] < 1):
+        fail(f"bounded_kv {name}: no decode-loop block ran across a wave")
+    if head and m("finchat_prefix_hits_total") != 8:
+        fail(f"bounded_kv {name}: {m('finchat_prefix_hits_total')} prefix hits, not 8")
+    checks = []
+    for h in handles:
+        n_prompt, served = len(h.prompt_ids), h.generated
+        written = n_prompt + served - 1
+        if not written <= h.kv_ctx <= written + 1:
+            fail(f"bounded_kv {name}: {h.seq_id}'s kv_ctx {h.kv_ctx} against {written} written")
+        pinned = max(bp.sink_pages, h.shared_len // page)
+        replayed, final, nxt = replay_gaps(bp, n_prompt, h.shared_len, h.kv_ctx, chunk,
+                                           bp.row_pages(n_prompt + AGENT_NEW), pinned)
+        if h.kv_gap not in (final, nxt):
+            fail(f"bounded_kv {name}: {h.seq_id}'s gap {h.kv_gap}, the replay's {final} "
+                 f"(or {nxt} after one more wave)")
+        visible = bounded_mask(torch, replayed[:written], pinned * page, dev)
+        c = teacher_forced_check(torch, params, config, h, spec["kv_quant"], visible=visible)
+        c.update(kv_gap=h.kv_gap, replayed_gap=final, prompt=n_prompt)
+        checks.append(c)
+        del visible
+    decode_tokens = sum(h.generated - 1 for h in handles)
+    t_first = min(h.first_token_at for h in handles)
+    t_last = max(h.last_token_at for h in handles)
+    agg = decode_tokens / max(t_last - t_first, 1e-9)
+    per_stream = statistics.median((h.generated - 1) / max(h.last_token_at - h.first_token_at,
+                                                           1e-9) for h in handles)
+    ttft = statistics.median(h.first_token_at - h.submitted_at for h in handles)
+    out = dict(label=label, config=extras, head=head, warmup=warm, wall_s=wall, ttft_p50_s=ttft,
+               decode_tokens_per_s=agg, decode_tokens_per_s_per_stream=per_stream,
+               calls=calls, peak_gb=peak_gb, pages_evicted=evicted,
+               peak_pages_a_row=watch["peak_rows"], peak_pages_held=watch["peak_held"],
+               waves=watch["waves"], evicting_waves=watch["evicting"], final_gaps=gaps,
+               graph_after_wave=watch["graph"], teacher_forced=checks,
+               bounded_sessions=m("finchat_boundedkv_bounded_sessions_total"),
+               recompute_fallbacks=m("finchat_boundedkv_recompute_fallbacks_total"),
+               launches={k: v for k, v in launches.items() if v})
+    if label == "depth1" and plane == "bf16":
+        out["profile"] = profile_bounded_step(torch, engine, context=max(prompt_lens),
+                                              active=8)
+    log(f"    {name}: {len(handles)} requests in {wall:.2f} s; TTFT p50 {ttft:.3f} s; decode "
+        f"{agg:.1f} tokens/s aggregate, {per_stream:.1f} per stream; pages held at peak "
+        f"{watch['peak_held']} ({watch['peak_rows']} a row), {evicted:.0f} evicted; peak "
+        f"{peak_gb:.2f} GB ({card})")
+    sched.retire_prefixes()
+    if sched.allocator.used_count:
+        fail(f"bounded_kv {name}: {sched.allocator.used_count} pages left allocated")
+    del engine, sched, svc, recording_submit, submit, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+async def bounded_kv(torch, dev, card: str) -> dict:
+    """Bounded KV at ``llama3-8b`` full width, random weights from a seeded
+    generator, greedy (``BOUNDED_RUNS``): bf16 at depth 1, at
+    ``decode_loop_depth=4`` (the graph replaying across eviction waves) and
+    with the system head registered; int8+kv8 at depth 1 (K4, K5, K6 and K8
+    with gaps). Each run's launches are a window of their own."""
+    from finchat_tpu_torch.models.llama import PRESETS, init_params
+    from finchat_tpu_torch.models.quant import init_quantized_params
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat_head
+
+    config = PRESETS["llama3-8b"]
+    system_prompt = (REPO / "prompts" / "system_prompt.txt").read_text()
+    head_ids = ByteTokenizer().encode(render_chat_head(system_prompt), add_bos=True)[:-1]
+    t0 = time.perf_counter()
+    out = {}
+    for plane in dict.fromkeys(p for p, *_r in BOUNDED_RUNS):
+        spec = PLANES[plane]
+        _free(torch)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        base = torch.cuda.memory_allocated()
+        if spec["quant"]:
+            params = init_quantized_params(config, gen, dev, mode=spec["quant"],
+                                           group_size=spec["group"])
+        else:
+            params = init_params(config, gen, dev)
+        torch.cuda.synchronize()
+        weight_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        for p, label, extras, head in BOUNDED_RUNS:
+            if p == plane:
+                out[f"{plane} {label}"] = await _bounded_run(
+                    torch, dev, plane, label, extras, head, params, config, weight_gb,
+                    head_ids, system_prompt, card)
+        del params
+        _free(torch)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5413,6 +5835,21 @@ def main() -> None:
             f"serves, PERF.md section 5: 116.1-141.0 bf16, 89.3-109.7 int8+kv8 aggregate; "
             f"{card})")
     log(f"decode_planes ({planes['seconds']:.1f} s): " + json.dumps(planes))
+
+    log("phase 5c, bounded_kv: llama3-8b (bf16 and int8+kv8, random weights) with a sink of 1 "
+        "page and a window of 16: every row evicts through the Hopper bodies")
+    bkv = asyncio.run(bounded_kv(torch, dev, card))
+    for name, r in bkv.items():
+        if name == "seconds":
+            continue
+        log(f"  {name}: TTFT p50 {r['ttft_p50_s']:.3f} s; decode {r['decode_tokens_per_s']:.1f} "
+            f"tokens/s aggregate, {r['decode_tokens_per_s_per_stream']:.1f} per stream; pages "
+            f"held at peak {r['peak_pages_held']}, evicted {r['pages_evicted']:.0f} ({card})")
+        for step, p in r.get("profile", {}).items():
+            log(f"  {name} {step}: device busy {p['device_busy_ms']:.3f} ms of "
+                f"{p['profiled_window_ms']:.3f} (idle share {p['idle_share']:.3f}); "
+                f"{p['event_ms']:.3f} ms a step ({card})")
+    log(f"bounded_kv ({bkv['seconds']:.1f} s): " + json.dumps(bkv))
 
     log("phase 6: train llama3-8b (random weights) through K7, forward and backward")
     check = train_check(torch, dev)

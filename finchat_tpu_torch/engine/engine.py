@@ -39,6 +39,11 @@ writer's int8 entry, ``scatter_kv_chunk_q8`` on the CPU) and every
 attention read dequantizes them. ``InferenceEngine(quant="int8" |
 "int4")`` serves int8/int4 weights through the fused dequant-matmul
 kernel.
+
+Bounded KV (``kv_sink_pages`` / ``kv_window_pages``): the engine builds
+and validates the sink + window policy (``bounded_kv``) and holds each
+slot's eviction gap in ``state.kv_gaps``; the scheduler evicts. Every step
+writes and masks at compacted positions, on the same kernels.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import numpy as np
 import torch
 
 from finchat_tpu_torch.engine.kv_cache import (
+    BoundedKVPolicy,
     PagedKVCache,
     gather_pages_host,
     scatter_pages_device,
@@ -87,9 +93,12 @@ class DecodeState:
     ``k_scales``/``v_scales`` are the int8 cache's scale planes, ``None``
     for a float cache (the JAX package keeps placeholders there only for
     its pytree's shape). ``kv_gaps`` is the bounded-KV compaction offset
-    per slot; this port does not carry bounded KV yet, so it stays zero and
-    every compacted expression reduces to the absolute one. ``generator``
-    is the sampling noise source (the JAX package's ``rng`` key)."""
+    per slot (``kv_cache.BoundedKVPolicy``): the tokens evicted from the
+    slot's page list, so every KV write and mask runs at ``context_lens -
+    kv_gaps``; 0 for an unbounded engine, where each compacted expression
+    is the absolute one. The scheduler's eviction wave writes it in place
+    (``set_kv_gap_rows``). ``generator`` is the sampling noise source (the
+    JAX package's ``rng`` key)."""
 
     k_pages: torch.Tensor  # [L, P, page_size, Hkv*hd] (model dtype, or int8)
     v_pages: torch.Tensor
@@ -98,7 +107,7 @@ class DecodeState:
     page_table: torch.Tensor  # [max_seqs, max_pages_per_seq] int32 (0 = trash)
     context_lens: torch.Tensor  # [max_seqs] int32 — tokens seen (rotary)
     last_tokens: torch.Tensor  # [max_seqs] int32 — next decode input per slot
-    kv_gaps: torch.Tensor  # [max_seqs] int32 — always 0 in this slice
+    kv_gaps: torch.Tensor  # [max_seqs] int32 — evicted tokens per slot (bounded KV)
     generator: torch.Generator
 
 
@@ -180,8 +189,10 @@ def prefill_step(
     slots_l = slots.long()
     positions = start_pos[:, None] + torch.arange(C, device=dev, dtype=I32)[None, :]
     page_rows = state.page_table[slots_l]
+    # compacted positions; the clamp holds a padding row (n_valid 0, start 0)
+    # on a slot that has evicted at 0, where a real row never goes below
     attention = _paged_attention_fn(
-        page_rows, (start_pos - state.kv_gaps[slots_l]).to(I32), n_valid, C,
+        page_rows, (start_pos - state.kv_gaps[slots_l]).clamp(min=0).to(I32), n_valid, C,
         page_size, config.n_kv_heads,
     )
     hidden, _ = forward(params, tokens, positions, config=config, attention=attention,
@@ -361,7 +372,7 @@ def _ragged_attention_fn(
     page_size: int,
     n_kv: int,
     group: int,  # query heads per KV head
-    row_gap: torch.Tensor,  # [R] int32 — bounded-KV eviction gap (0 here)
+    row_gap: torch.Tensor,  # [R] int32 — bounded-KV eviction gap of the row's slot
     tok_valid: torch.Tensor | None = None,  # [T] bool — a real token of a live row
 ):
     """Attention callback for the packed ragged step: every valid packed
@@ -687,6 +698,17 @@ class InferenceEngine:
         # fused multi-step decode (decode_loop_step): tokens a dispatch;
         # 1 = decode_step only
         self.decode_loop_depth = max(1, engine_cfg.decode_loop_depth)
+        # bounded KV serving: the sink + window eviction policy (host math;
+        # the device side is state.kv_gaps and the compacted write and mask
+        # positions of every step). None = unbounded
+        policy = BoundedKVPolicy(max(0, engine_cfg.kv_sink_pages),
+                                 max(0, engine_cfg.kv_window_pages), engine_cfg.page_size)
+        if policy.enabled:
+            policy.validate(prefill_chunk=engine_cfg.prefill_chunk,
+                            max_pages_per_seq=self.max_pages_per_seq,
+                            decode_loop_depth=self.decode_loop_depth,
+                            spec_tokens=engine_cfg.spec_tokens)
+        self.bounded_kv = policy if policy.enabled else None
         # the free-running loop (ragged_multi_round): ragged rounds a
         # dispatch; 1 = host-stepped rounds only
         self.freerun_rounds = max(1, engine_cfg.freerun_rounds)
@@ -735,6 +757,16 @@ class InferenceEngine:
     def set_context_lens_rows(self, rows: dict[int, int]) -> None:
         idx = self.to_device(np.asarray(list(rows), np.int64))
         self.state.context_lens[idx] = self.to_device(np.asarray(list(rows.values()), np.int32))
+
+    def set_kv_gap_rows(self, rows: dict[int, int]) -> None:
+        """Set several slots' bounded-KV gaps in ONE device update (an
+        eviction wave, a gapped resume). Writes ``state.kv_gaps`` in place,
+        as ``set_page_table_rows`` writes the table: a captured decode-loop
+        graph reads the state's own storage at every replay, so a rebound
+        tensor would leave it reading a stale gap. The write is ordered
+        after the steps already enqueued and before the next one."""
+        idx = self.to_device(np.asarray(list(rows), np.int64))
+        self.state.kv_gaps[idx] = self.to_device(np.asarray(list(rows.values()), np.int32))
 
     def set_last_token(self, slot: int, token: int) -> None:
         """Override a slot's next decode input (the host pick of a

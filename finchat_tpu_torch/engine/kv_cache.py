@@ -20,6 +20,8 @@ or int8 with per-token-per-head scales).
   PyTorch updates the storage it was given).
 - Host side: ``PageAllocator`` — a free list with ownership tracking; a page
   is owned by at most one sequence, and double-free or foreign-free raise.
+  ``BoundedKVPolicy`` is the sink + window eviction plan of bounded KV
+  serving (host integer math; the scheduler's eviction wave applies it).
 - Page snapshots for the session KV cache: ``gather_pages_host`` copies a
   set of pages (all layers, K, V and the int8 scale planes) to CPU tensors
   ``[L, n, ...]``, ``scatter_pages_device`` writes such a snapshot back into
@@ -169,6 +171,110 @@ class PageAllocator:
 
 def pages_needed(n_tokens: int, page_size: int) -> int:
     return max(1, -(-n_tokens // page_size))
+
+
+@dataclass(frozen=True)
+class BoundedKVPolicy:
+    """Bounded KV serving (the JAX package's ``BoundedKVPolicy``): the first
+    ``sink_pages`` pages of a row are pinned (the attention sink) and a
+    sliding window of the ``window_pages`` most recent pages survives;
+    everything between is evicted back to the page pool as the context
+    grows, so a live session holds at most ``sink_pages + window_pages``
+    pages whatever its length.
+
+    Eviction is host metadata riding the paged indirection: an evicted page
+    leaves the row's logical page list (later pages shift down one logical
+    slot, physically nothing moves) and returns to the allocator. The row
+    tracks ``kv_gap``, the evicted tokens (a whole number of pages), and
+    every KV write and attention mask runs at the compacted position
+    ``absolute - kv_gap`` while positions and rotary stay absolute. The
+    compacted mask is exact for the surviving set: a new query's position
+    is past every evicted one, so ``c_kv <= c_q`` iff ``abs_kv <= abs_q``
+    for sink and window tokens alike.
+
+    Every method is host integer math (no device work, no sync): the
+    scheduler's eviction wave calls them between dispatches, and the
+    free-run staging uses them to cap a capture at the next eviction
+    boundary, so a captured round sees the host-stepped gap schedule."""
+
+    sink_pages: int
+    window_pages: int
+    page_size: int
+
+    @property
+    def enabled(self) -> bool:
+        return self.sink_pages > 0 and self.window_pages > 0
+
+    @property
+    def budget_pages(self) -> int:
+        """The most pages a bounded row ever holds (its whole page list)."""
+        return self.sink_pages + self.window_pages
+
+    @property
+    def sink_tokens(self) -> int:
+        return self.sink_pages * self.page_size
+
+    def validate(self, *, prefill_chunk: int, max_pages_per_seq: int,
+                 decode_loop_depth: int = 1, spec_tokens: int = 0) -> None:
+        """Feasibility at engine construction: the window must always be
+        able to make room for the next dispatch's writes by evicting full
+        post-sink pages, so a chunk (prefill) or a fused or spec burst
+        (decode) plus one partly written tail page must fit."""
+        if not self.enabled:
+            return
+        if self.sink_pages < 1 or self.window_pages < 1:
+            raise ValueError(
+                "bounded KV needs kv_sink_pages >= 1 and kv_window_pages >= 1 "
+                f"(got sink={self.sink_pages}, window={self.window_pages}); "
+                "set both to 0 for unbounded serving"
+            )
+        burst = max(prefill_chunk, 1 + max(decode_loop_depth - 1, spec_tokens))
+        need = -(-burst // self.page_size) + 2  # burst + partial tail + slack
+        if self.window_pages < need:
+            raise ValueError(
+                f"kv_window_pages={self.window_pages} cannot hold a "
+                f"{burst}-token dispatch burst between eviction waves; "
+                f"need >= {need} pages of {self.page_size} tokens "
+                "(grow the window or shrink prefill_chunk)"
+            )
+        if self.budget_pages > max_pages_per_seq:
+            raise ValueError(
+                f"bounded budget {self.budget_pages} pages exceeds "
+                f"max_pages_per_seq={max_pages_per_seq}; grow max_seq_len "
+                "or shrink the sink/window"
+            )
+
+    def row_pages(self, n_tokens: int) -> int:
+        """Pages a bounded row needs for ``n_tokens`` of compacted context:
+        the unbounded requirement capped at the budget."""
+        return min(pages_needed(n_tokens, self.page_size), self.budget_pages)
+
+    def plan_eviction(self, compacted_ctx: int, incoming: int,
+                      capacity_pages: int, pinned_pages: int) -> int:
+        """How many whole post-sink pages to evict so the next dispatch's
+        ``incoming`` tokens fit the row's ``capacity_pages`` page list.
+        ``compacted_ctx`` is the row's compacted written length (absolute
+        less ``kv_gap``, tokens still in flight included); ``pinned_pages``
+        is the unevictable head (the sink, or a larger shared head pinned
+        whole). Returns 0 when everything fits; raises
+        ``PageAllocationError`` when not enough full post-sink pages exist.
+        A function of the written-token count alone, which the free-run
+        capture's equality with the host-stepped loop leans on."""
+        need = -(-(compacted_ctx + incoming) // self.page_size)
+        e = max(0, need - capacity_pages)
+        if e == 0:
+            return 0
+        # only FULL post-sink pages are evictable (the newest, possibly
+        # partial page holds the live tail; pinned head pages never move)
+        evictable = max(0, compacted_ctx // self.page_size - pinned_pages)
+        if e > evictable:
+            raise PageAllocationError(
+                f"bounded eviction infeasible: need {e} pages, only "
+                f"{evictable} evictable (ctx={compacted_ctx}, "
+                f"incoming={incoming}, capacity={capacity_pages}, "
+                f"pinned={pinned_pages})"
+            )
+        return e
 
 
 def gather_pages_host(

@@ -99,10 +99,22 @@ Many sequences multiplexed onto one model replica:
   the next capture. Stale ring tokens (a member evicted or preempted since
   the dispatch) are dropped once and recomputed by the replay.
 
-Bounded KV is refused at construction (``check_supported``) instead of
-being silently ignored. The quantized plane (int8/int4 weights, int8 KV
-pages) is served: the scheduler keeps the engine's quant label and sets
-the ``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
+- Bounded KV (``kv_sink_pages`` / ``kv_window_pages``, the engine's
+  ``BoundedKVPolicy``): between dispatches an eviction wave drops the
+  oldest post-sink pages of any row whose next dispatch would not fit its
+  sink + window page list, and records the evicted tokens as the row's
+  ``kv_gap`` (mirrored in the engine's ``state.kv_gaps``; every write and
+  mask runs at compacted positions). The schedule's only input is
+  ``kv_ctx``, the row's context after every dispatched step, advanced at
+  each dispatch site, so the gap a token sees is a function of its
+  position alone: fused blocks and spec spans are gated to stay inside the
+  next eviction boundary, free-run captures are capped at it, a bounded
+  row preempts by snapshotting its surviving pages, and a gapped session
+  entry resumes whole or salvages its sink.
+
+The quantized plane (int8/int4 weights, int8 KV pages) is served: the
+scheduler keeps the engine's quant label and sets the
+``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
 """
 
 from __future__ import annotations
@@ -117,7 +129,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from finchat_tpu_torch.engine.engine import InferenceEngine, round_up_pow2
-from finchat_tpu_torch.engine.kv_cache import PageAllocator, pages_needed
+from finchat_tpu_torch.engine.kv_cache import PageAllocationError, PageAllocator, pages_needed
 from finchat_tpu_torch.engine.sampler import CANDIDATES, SamplingParams
 from finchat_tpu_torch.engine.spec import NgramIndex
 from finchat_tpu_torch.engine.session_cache import (
@@ -138,20 +150,6 @@ if TYPE_CHECKING:  # the engine does not import the agent layer at run time
     from finchat_tpu_torch.agent.constrained import TokenConstraint
 
 logger = get_logger(__name__)
-
-
-def check_supported(cfg: EngineConfig) -> None:
-    """Raise on a config that turns on a serving plane this port does not
-    carry yet (bounded KV is a later slice)."""
-    unsupported = {
-        "bounded KV (kv_sink_pages / kv_window_pages)":
-            cfg.kv_sink_pages > 0 or cfg.kv_window_pages > 0,
-    }
-    on = [name for name, flag in unsupported.items() if flag]
-    if on:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(on) + " (turn these off in EngineConfig)"
-        )
 
 
 class OverloadedError(RuntimeError):
@@ -195,6 +193,25 @@ class SequenceHandle:
     # pending entry past it is shed, admission runs earliest deadline
     # first, and page pressure preempts the latest-deadline victim
     deadline: float | None = None
+    # bounded KV: tokens evicted from this row's page list (whole pages
+    # between the pinned sink and the surviving window; 0 = none), mirrored
+    # in the engine's state.kv_gaps by the same wave
+    kv_gap: int = 0
+    # kv_ctx at the row's latest eviction wave (0 = never evicted): while it
+    # exceeds the delivered context, an undelivered in-flight token was
+    # computed under an older gap
+    kv_gap_pos: int = 0
+    # the slot's device context length after every DISPATCHED step,
+    # advanced where each dispatch is built: the eviction schedule's only
+    # input. At a wave it is exactly the next dispatch's write position, so
+    # the gap a token sees depends on its position alone, whatever the
+    # pipeline depth, capture depth or preempt boundary
+    kv_ctx: int = 0
+    # a bounded row's preempt snapshot: its surviving pages (sink + window,
+    # compacted, the partial tail page included), restored by the replay,
+    # which re-prefills only the residual tail; None otherwise
+    bounded_snap: tuple | None = None
+    bounded_snap_tokens: int = 0  # compacted tokens the snapshot covers
     # recompute preemptions survived (page pressure, breaker recovery)
     preempted: int = 0
     # admission epoch, bumped by _preempt: a dispatch records (slot,
@@ -335,7 +352,6 @@ class ContinuousBatchingScheduler:
 
     def __init__(self, engine: InferenceEngine, eos_id: int):
         cfg = engine.engine_cfg
-        check_supported(cfg)
         self.engine = engine
         self.eos_id = eos_id
         self.metrics = METRICS
@@ -382,6 +398,16 @@ class ContinuousBatchingScheduler:
             for reason in self.FREERUN_CAP_REASONS:
                 self.metrics.inc("finchat_freerun_capped_total", 0.0, labels={"reason": reason})
         self.max_queue_depth = max(0, cfg.max_queue_depth)
+        # bounded KV: the engine's sink + window policy (None = unbounded).
+        # The gauges show the configured shape and the counters render from
+        # zero, so the first eviction wave (or recompute fallback) shows
+        self.bounded_kv = engine.bounded_kv
+        bp = self.bounded_kv
+        self.metrics.set_gauge("finchat_boundedkv_sink_pages", bp.sink_pages if bp else 0)
+        self.metrics.set_gauge("finchat_boundedkv_window_pages", bp.window_pages if bp else 0)
+        self.metrics.inc("finchat_boundedkv_evicted_pages_total", 0.0)
+        self.metrics.inc("finchat_boundedkv_bounded_sessions_total", 0.0)
+        self.metrics.inc("finchat_boundedkv_recompute_fallbacks_total", 0.0)
         # whether the current loop iteration ran prefill work (the
         # finchat_inter_token_seconds label)
         self._iter_ran_prefill = False
@@ -489,7 +515,9 @@ class ContinuousBatchingScheduler:
                 f"{self.max_queue_depth}); retry with backoff"
             )
         max_len = self.engine.max_pages_per_seq * self.engine.page_size
-        if len(prompt_ids) + sampling.max_new_tokens > max_len:
+        if len(prompt_ids) + sampling.max_new_tokens > max_len and self.bounded_kv is None:
+            # bounded KV lifts the bound: eviction keeps a row within its
+            # sink + window pages whatever its length
             raise ValueError(
                 f"sequence {seq_id}: prompt {len(prompt_ids)} + max_new "
                 f"{sampling.max_new_tokens} exceeds max length {max_len}"
@@ -551,12 +579,15 @@ class ContinuousBatchingScheduler:
             self.metrics.inc("finchat_partial_fallbacks_total")
             return False
         max_len = self.engine.max_pages_per_seq * self.engine.page_size
-        if len(full_ids) + handle.sampling.max_new_tokens > max_len:
+        if (len(full_ids) + handle.sampling.max_new_tokens > max_len
+                and self.bounded_kv is None):
             self.metrics.inc("finchat_partial_fallbacks_total")
             return False
         if handle.slot >= 0:
             total = pages_needed(len(full_ids) + handle.sampling.max_new_tokens,
                                  self.engine.page_size)
+            if self.bounded_kv is not None:
+                total = min(total, self.bounded_kv.budget_pages)
             extra = total - len(handle.page_list)
             if extra > 0:
                 if (total > self.engine.max_pages_per_seq
@@ -625,6 +656,10 @@ class ContinuousBatchingScheduler:
         entry's shared length) or ``(ids, shared_len, owner, pages, slot)``."""
         page = self.engine.page_size
         n_pages = min(len(prompt_ids) // page, self.engine.max_pages_per_seq)
+        if self.bounded_kv is not None:
+            # bounded rows reference at most the sink-sized lead of a head
+            # (see _admit): pages registered past it would never be read
+            n_pages = min(n_pages, self.bounded_kv.sink_pages)
         if n_pages <= 0:
             return 0
         shared_len = n_pages * page
@@ -744,9 +779,14 @@ class ContinuousBatchingScheduler:
     def _admission_pages(self, handle: SequenceHandle) -> int:
         """KV pages an admission must cover for this handle, shared head
         included: prompt plus what it may still generate (no mid-flight
-        allocation)."""
-        return pages_needed(len(handle.prompt_ids) + self._remaining_new(handle),
-                            self.engine.page_size)
+        allocation), in compacted tokens (a bounded replay's ``kv_gap``
+        tokens have no pages), capped at the bounded budget, where the
+        eviction waves keep the row."""
+        n = len(handle.prompt_ids) + self._remaining_new(handle) - handle.kv_gap
+        total = pages_needed(n, self.engine.page_size)
+        if self.bounded_kv is not None:
+            total = min(total, self.bounded_kv.budget_pages)
+        return total
 
     def _shed_expired(self) -> None:
         """Pending requests past their deadline are dropped before admission
@@ -795,39 +835,85 @@ class ContinuousBatchingScheduler:
         self._prepare_pending()
         admitted: dict[int, list[int]] = {}
         ctx_rows: dict[int, int] = {}
+        gap_rows: dict[int, int] = {}
         page = self.engine.page_size
+        bp = self.bounded_kv
         while self.pending and self.free_slots:
             handle = self.pending[0]
             total = self._admission_pages(handle)
             if total > self.engine.max_pages_per_seq:
                 break  # head-of-line waits (refused at submit anyway)
-            entry, shared_len = self._match_prefix(handle.prompt_ids)
-            # session tier: a per-conversation resume takes over whenever it
-            # matches deeper than the shared head (it holds the head as its
-            # own leading pages)
-            s_entry, s_matched = None, 0
-            session_eligible = self.session_cache is not None and bool(handle.conversation_id)
-            if session_eligible:
-                if self.session_cache.get(handle.conversation_id) is None:
-                    # a RAM miss falls through to the disk tier; match()
-                    # below then compares tokens and truncates as usual
-                    self._restore_session_from_disk(handle.conversation_id)
-                s_entry, s_matched = self.session_cache.match(handle.conversation_id,
-                                                              handle.prompt_ids)
-                if s_entry is None or s_matched <= shared_len:
-                    s_entry, s_matched = None, 0
-            if s_entry is not None:
-                # head pages referenced (never copied); the pages past the
-                # head restore from the host snapshot below
-                head_pages = s_entry.prefix_pages[: min(s_matched, s_entry.prefix_len) // page]
-                n_restore = s_entry.own_pages_for(s_matched, page)
-                ref_entry = s_entry.prefix_entry if head_pages else None
-                resume_pos = s_matched
+            bsnap = handle.bounded_snap
+            if bsnap is not None:
+                # a bounded replay: restore the surviving sink + window pages
+                # from the preempt snapshot and re-prefill only the residual
+                # tail. No prefix or session matching: the snapshot holds
+                # the head region, and the evicted tokens have no pages
+                session_eligible = False
+                entry, shared_len = None, 0
+                s_entry = None
+                head_pages: list[int] = []
+                ref_entry = None
+                n_restore = -(-handle.bounded_snap_tokens // page)
+                resume_pos = handle.bounded_snap_tokens + handle.kv_gap
+                restore_snap = bsnap
+                resume_gap = handle.kv_gap
             else:
-                head_pages = entry.pages[: shared_len // page] if entry else []
-                n_restore = 0
-                ref_entry = entry
-                resume_pos = shared_len
+                entry, shared_len = self._match_prefix(handle.prompt_ids)
+                if bp is not None and shared_len > bp.sink_tokens:
+                    # bounded rows reference at most the sink-sized lead of a
+                    # shared head: head pages pin whole (read-only references
+                    # the wave cannot free), so a deeper head would pin more
+                    # than the budget can make room around. The rest
+                    # re-prefills and evicts like any other context
+                    shared_len = bp.sink_tokens
+                # session tier: a per-conversation resume takes over whenever
+                # it matches deeper than the shared head (it holds the head
+                # as its own leading pages)
+                s_entry, s_matched = None, 0
+                session_eligible = (self.session_cache is not None
+                                    and bool(handle.conversation_id))
+                if session_eligible:
+                    if self.session_cache.get(handle.conversation_id) is None:
+                        # a RAM miss falls through to the disk tier; match()
+                        # below then compares tokens and truncates as usual
+                        self._restore_session_from_disk(handle.conversation_id)
+                    s_entry, s_matched = self.session_cache.match(handle.conversation_id,
+                                                                  handle.prompt_ids)
+                    if s_entry is None or s_matched <= shared_len:
+                        s_entry, s_matched = None, 0
+                    if s_entry is not None and bp is None:
+                        if s_entry.kv_gap:
+                            # a gapped entry has no eviction machinery to
+                            # live under on an unbounded engine: cold start
+                            s_entry, s_matched = None, 0
+                    elif (s_entry is not None
+                            and (s_entry.prefix_len > bp.sink_tokens
+                                 or pages_needed(s_matched - s_entry.kv_gap, page)
+                                 > bp.budget_pages)):
+                        # a resume whose head reference or restored pages
+                        # exceed the bounded budget cannot be laid out
+                        # (entries written by this bounded engine fit by
+                        # construction): cold start
+                        s_entry, s_matched = None, 0
+                if s_entry is not None:
+                    # head pages referenced (never copied); the pages past
+                    # the head restore from the host snapshot below
+                    head_pages = s_entry.prefix_pages[: min(s_matched, s_entry.prefix_len) // page]
+                    n_restore = s_entry.own_pages_for(s_matched, page)
+                    ref_entry = s_entry.prefix_entry if head_pages else None
+                    resume_pos = s_matched
+                    restore_snap = s_entry.snap
+                    # a bounded entry resumes with its sink + window intact:
+                    # the gap travels with the snapshot
+                    resume_gap = s_entry.kv_gap
+                else:
+                    head_pages = entry.pages[: shared_len // page] if entry else []
+                    n_restore = 0
+                    ref_entry = entry
+                    resume_pos = shared_len
+                    restore_snap = None
+                    resume_gap = 0
             need = total - len(head_pages)
             if not self.allocator.can_allocate(need):
                 break  # head-of-line waits for pages
@@ -838,7 +924,7 @@ class ContinuousBatchingScheduler:
                 try:
                     inject("session.restore", seq_id=handle.seq_id)
                     with Timer(self.metrics, "finchat_session_restore_seconds"):
-                        self.engine.restore_pages(pages[:n_restore], s_entry.snap)
+                        self.engine.restore_pages(pages[:n_restore], restore_snap)
                     self.metrics.inc("finchat_session_cache_restored_tokens_total", resume_pos)
                 except Exception as e:
                     # a failed restore must neither kill the stream nor leak
@@ -846,7 +932,17 @@ class ContinuousBatchingScheduler:
                     # shared-prefix plan
                     logger.error("session cache restore failed for %s: %s", handle.seq_id, e)
                     self.allocator.free(handle.seq_id, pages)
+                    if bsnap is not None:
+                        # a bounded replay falls back to recomputing its
+                        # whole history: the surviving bytes are gone, so
+                        # the gap resets (counted)
+                        handle.bounded_snap = None
+                        handle.bounded_snap_tokens = 0
+                        handle.kv_gap = 0
+                        self.metrics.inc("finchat_boundedkv_recompute_fallbacks_total")
+                        total = self._admission_pages(handle)
                     s_entry = None
+                    resume_gap = 0
                     head_pages = entry.pages[: shared_len // page] if entry else []
                     ref_entry = entry
                     resume_pos = shared_len
@@ -857,6 +953,10 @@ class ContinuousBatchingScheduler:
                         self.free_slots.append(slot)
                         break
                     pages = self.allocator.allocate(handle.seq_id, need)
+                else:
+                    if bsnap is not None:
+                        handle.bounded_snap = None
+                        handle.bounded_snap_tokens = 0
             if session_eligible:
                 # counted only for an admission that went through its plan
                 self.metrics.inc("finchat_session_cache_hits_total" if s_entry is not None
@@ -867,13 +967,17 @@ class ContinuousBatchingScheduler:
             handle.page_list = admitted[slot]
             handle.shared_len = len(head_pages) * page
             handle.resumed_len = resume_pos if s_entry is not None else 0
+            handle.kv_gap = resume_gap
+            handle.kv_ctx = resume_pos
+            if resume_gap:
+                gap_rows[slot] = resume_gap
             if ref_entry is not None:
                 ref_entry.refs += 1
                 handle.prefix_entry = ref_entry
             if resume_pos:
                 ctx_rows[slot] = resume_pos
                 handle.prefill_pos = resume_pos
-                if s_entry is None:
+                if s_entry is None and bsnap is None:
                     self.metrics.inc("finchat_prefix_hits_total")
                     self.metrics.inc("finchat_prefix_tokens_saved_total", shared_len)
             handle.slot = slot
@@ -893,6 +997,8 @@ class ContinuousBatchingScheduler:
             self.engine.set_page_table_rows(admitted)
             if ctx_rows:
                 self.engine.set_context_lens_rows(ctx_rows)
+            if gap_rows:
+                self.engine.set_kv_gap_rows(gap_rows)
             self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
 
     def _finish(self, handle: SequenceHandle, reason: str) -> None:
@@ -948,18 +1054,22 @@ class ContinuousBatchingScheduler:
             return  # never reached decode; nothing coherent to keep
         page = self.engine.page_size
         # KV-cached tokens: prompt + generated minus the last delivered
-        # token, whose append belongs to a step that was never consumed
-        context = len(handle.history) - 1
+        # token, whose append belongs to a step that was never consumed. A
+        # bounded row counts compacted tokens: the snapshot holds only the
+        # surviving sink + window pages, and the entry records the gap
+        gap = handle.kv_gap
+        context = len(handle.history) - 1 - gap
         n_tok = (context // page) * page
         if n_tok <= 0:
             return
         shared = min(handle.shared_len, n_tok)
         # incremental offload: the pages of [shared, resumed_len) were
         # restored from the previous entry and never rewritten (the slot's
-        # writes start at resumed_len), so reuse those host bytes
+        # writes start at resumed_len), so reuse those host bytes. Gapped
+        # rows re-copy (a bounded snapshot is at most sink + window pages)
         prev = cache.get(handle.conversation_id)
         reuse_pages = 0
-        if (prev is not None and prev.snap is not None
+        if (gap == 0 and prev is not None and prev.snap is not None and prev.kv_gap == 0
                 and prev.prefix_len == shared and handle.resumed_len > shared):
             m = min(handle.resumed_len, n_tok, prev.n_tokens)
             reuse_pages = (m - shared) // page
@@ -977,11 +1087,16 @@ class ContinuousBatchingScheduler:
             return
         entry = SessionEntry(
             conversation_id=handle.conversation_id,
-            token_ids=np.asarray(handle.history[:n_tok], np.int32),
+            # the token ids cover the absolute span [0, n_tok + gap): the
+            # evicted tokens' ids must still match the next turn's prompt
+            # for the surviving KV to be valid
+            token_ids=np.asarray(handle.history[: n_tok + gap], np.int32),
             prefix_entry=handle.prefix_entry if shared else None,
             prefix_pages=list(handle.page_list[: shared // page]),
             prefix_len=shared,
             snap=concat_snaps(prev.snap if reuse_pages else None, reuse_pages, snap_new),
+            kv_gap=gap,
+            kv_sink=self.bounded_kv.sink_tokens if gap and self.bounded_kv is not None else 0,
         )
         # reference the head BEFORE put(): put may drop an older entry
         # holding the same head, and a momentary refs == 0 would free pages
@@ -1007,6 +1122,151 @@ class ContinuousBatchingScheduler:
         else:
             self._finish(handle, reason)
 
+    # --- bounded KV ---------------------------------------------------------
+    def _bounded_pinned_pages(self, handle: SequenceHandle) -> int:
+        """Unevictable leading pages of a bounded row: the sink, widened to
+        the whole shared head when that is larger (head pages are
+        read-only references the wave cannot free)."""
+        return max(self.bounded_kv.sink_pages, handle.shared_len // self.engine.page_size)
+
+    def _bounded_evict_wave(self) -> None:
+        """Page-granular eviction between dispatches: a bounded row whose
+        next dispatch would not fit its page list drops its oldest post-sink
+        pages (they leave the logical page list, later pages shift down,
+        nothing moves on the device), returns them to the pool and takes as
+        many fresh tail pages for the incoming writes. ``kv_gap`` grows a
+        page a page evicted, and the page table and ``state.kv_gaps`` are
+        written in the same wave, in place: every dispatch enqueued after it
+        sees a table and gap that agree, and stream order keeps a dispatch
+        already in flight reading the table it was built against (the
+        freed pages' next writers are enqueued after it too).
+
+        The wave's only inputs are each row's ``kv_ctx`` and the config's
+        reserve constants, so the gap a token is computed under depends on
+        its position alone: a free-run capture (capped at the next
+        boundary, ``_bounded_freerun_cap``) and a preempt replay see the
+        host-stepped schedule."""
+        bp = self.bounded_kv
+        if bp is None:
+            return
+        page = self.engine.page_size
+        chunk = self.engine.engine_cfg.prefill_chunk
+        pt_rows: dict[int, list[int]] = {}
+        gap_rows: dict[int, int] = {}
+        evicted_total = 0
+        for handle in list(self.prefilling) + list(self.decoding.values()):
+            if handle.slot < 0 or handle.finished or self._parked(handle):
+                continue
+            # the reserve is what the next dispatch writes for this row: a
+            # prefill chunk, or ONE decode token. Fused spans (loop tails,
+            # spec verify rows) are gated to stay inside the boundary
+            # (_bounded_span_room), so only a single token ever reaches it;
+            # reserving the whole burst would evict a dispatch early where
+            # the gate demotes, and a replay regrouping those positions
+            # would see another schedule
+            if handle.prefill_pos < len(handle.prompt_ids):
+                incoming = min(chunk, len(handle.prompt_ids) - handle.prefill_pos)
+            else:
+                incoming = 1
+            try:
+                e = bp.plan_eviction(handle.kv_ctx - handle.kv_gap, incoming,
+                                     len(handle.page_list), self._bounded_pinned_pages(handle))
+            except PageAllocationError as err:
+                # an infeasible plan is a policy violation for THIS row (a
+                # shared head pinning almost the whole budget): it fails
+                # alone, the others keep serving
+                logger.error("bounded eviction infeasible for %s: %s", handle.seq_id, err)
+                self._evict(handle, "error", error=str(err))
+                continue
+            if not e:
+                continue
+            if handle.kv_gap == 0:
+                self.metrics.inc("finchat_boundedkv_bounded_sessions_total")
+            pin = self._bounded_pinned_pages(handle)
+            victims = handle.page_list[pin : pin + e]
+            handle.page_list = handle.page_list[:pin] + handle.page_list[pin + e :]
+            self.allocator.free(handle.seq_id, victims)
+            # capacity stays constant: fresh tail pages for the incoming
+            # writes (the LIFO free list usually hands the same pages back)
+            handle.page_list = handle.page_list + self.allocator.allocate(handle.seq_id, e)
+            handle.kv_gap += e * page
+            handle.kv_gap_pos = handle.kv_ctx
+            pt_rows[handle.slot] = handle.page_list
+            gap_rows[handle.slot] = handle.kv_gap
+            evicted_total += e
+        if pt_rows:
+            self.engine.set_page_table_rows(pt_rows)
+            self.engine.set_kv_gap_rows(gap_rows)
+            self.metrics.inc("finchat_boundedkv_evicted_pages_total", evicted_total)
+            if TRACER.enabled:
+                TRACER.event("boundedkv_evict", track=self._trace_track,
+                             args={"pages": evicted_total, "slots": sorted(pt_rows)})
+
+    def _bounded_span_room(self, handle: SequenceHandle) -> int:
+        """Tokens this row may still write before its next eviction boundary
+        (page-list capacity + ``kv_gap``). A fused multi-token dispatch
+        (a loop block or tail, a spec verify span) must fit it: a span
+        crossing the boundary would give its tail the pre-eviction gap, and
+        a replay or capture regrouping spans would then see another gap for
+        the same position. Unbounded rows have unlimited room (their pages
+        cover prompt + max_new)."""
+        if self.bounded_kv is None:
+            return 1 << 30
+        boundary = len(handle.page_list) * self.engine.page_size + handle.kv_gap
+        return max(0, boundary - handle.kv_ctx)
+
+    def _bounded_freerun_cap(self) -> int:
+        """Rounds the next capture may run before some bounded row needs an
+        eviction wave: within it the staged writes fit every row's current
+        page list, so the captured rounds see the host-stepped gap
+        schedule."""
+        cap = self.freerun_rounds
+        if self.bounded_kv is None:
+            return cap
+        chunk = self.engine.engine_cfg.prefill_chunk
+        decode_burst = 1 + max(self.loop_depth - 1, self.spec_k)
+        for handle in list(self.prefilling) + list(self.decoding.values()):
+            if handle.slot < 0 or handle.finished or self._parked(handle):
+                continue
+            room = self._bounded_span_room(handle)
+            # a prefill row may turn into a decode row mid-capture: the
+            # larger of a chunk and a decode burst bounds both roles' writes
+            prefilling = handle.prefill_pos < len(handle.prompt_ids)
+            per_round = max(chunk, decode_burst) if prefilling else decode_burst
+            cap = min(cap, max(1, room // max(1, per_round)))
+        return cap
+
+    def _bounded_preempt_snapshot(self, handle: SequenceHandle, for_rebuild: bool) -> None:
+        """Snapshot a bounded row's surviving pages for its replay (see
+        ``_preempt``). A ``for_rebuild`` preempt runs against a possibly
+        wedged device: no snapshot is tried, and the row falls back to
+        recomputing its whole history (gap reset; tokens past the window
+        may then differ from the uninterrupted stream; counted).
+
+        The snapshot covers the exact compacted context, the partial tail
+        page included: the tail tokens' KV was computed against pages that
+        may since have been evicted, so recomputing them would attend
+        another set. Only the last history token (whose KV belongs to the
+        never-consumed step) re-prefills. This holds for a preempt taken at
+        a consumed boundary (``kv_gap_pos <= len(history) - 1``), as the
+        page-pressure path's is (it drains the dispatch in flight first);
+        a preempt inside an eviction transition recomputes the boundary
+        token under the newer gap, a valid bounded decode."""
+        page = self.engine.page_size
+        snap_tokens = len(handle.history) - 1 - handle.kv_gap
+        if not for_rebuild and snap_tokens > 0:
+            try:
+                n = -(-snap_tokens // page)  # whole pages, the partial tail included
+                handle.bounded_snap = self.engine.offload_pages(handle.page_list[:n])
+                handle.bounded_snap_tokens = snap_tokens
+                return
+            except Exception as e:
+                logger.error("bounded preempt snapshot failed for %s: %s", handle.seq_id, e)
+        handle.bounded_snap = None
+        handle.bounded_snap_tokens = 0
+        handle.kv_gap = 0
+        self.metrics.inc("finchat_boundedkv_recompute_fallbacks_total")
+
     # --- recompute preemption ---------------------------------------------
     def _preempt(self, handle: SequenceHandle, *, for_rebuild: bool = False) -> None:
         """Free the victim's slot and KV pages but keep its prompt and
@@ -1017,6 +1277,10 @@ class ContinuousBatchingScheduler:
         token of the victim still riding a dispatch is dropped at consume
         time (the epoch moved) and recomputed by the replay.
 
+        A bounded row that has evicted preempts by snapshot instead
+        (``_bounded_preempt_snapshot``): its surviving pages go to the host
+        and the replay restores them.
+
         Used for page pressure and as the breaker's recovery primitive;
         ``for_rebuild`` skips the per-slot device reset (the whole device
         state is about to be replaced, and the engine may be wedged)."""
@@ -1024,6 +1288,12 @@ class ContinuousBatchingScheduler:
             return
         slot = handle.slot
         if slot >= 0:
+            if self.bounded_kv is not None and handle.kv_gap:
+                # a bounded row preempts by snapshot, not recompute: the
+                # window's KV attended to tokens that are gone, so it cannot
+                # be recomputed from the token stream. Its surviving pages go
+                # to the host before they free; the replay restores them
+                self._bounded_preempt_snapshot(handle, for_rebuild)
             pages = self.allocator.owned_by(handle.seq_id)
             if pages:
                 self.allocator.free(handle.seq_id, pages)
@@ -1051,6 +1321,7 @@ class ContinuousBatchingScheduler:
             return  # already queued
         handle.prompt_ids = list(handle.history)
         handle.prefill_pos = 0
+        handle.kv_ctx = 0
         handle.page_list = []
         handle.shared_len = 0
         handle.resumed_len = 0
@@ -1399,16 +1670,18 @@ class ContinuousBatchingScheduler:
     def import_session_entry(self, payload: dict | None, *, spill: bool = True) -> bool:
         """Adopt an exported session entry (or a disk record). An entry
         whose KV rode a shared head re-links against THIS scheduler's live
-        registration of the same head, refcounted like a local offload; no
-        matching live head, a bounded-KV record (``kv_gap``: the JAX
-        package's windowed plane, not served here), or a snapshot of the
-        other page-pool dtype refuses it (counted) and the conversation
-        resumes cold."""
+        registration of the same head, refcounted like a local offload. A
+        gapped entry (``kv_gap``, written under bounded KV) is taken by a
+        bounded engine and resumes whole or salvages its sink. No matching
+        live head, a gapped entry on an unbounded engine (it has no eviction
+        machinery to live under), or a snapshot of the other page-pool
+        dtype refuses it (counted) and the conversation resumes cold."""
         if payload is None or self.session_cache is None:
             return False
-        if payload.get("kv_gap"):
-            logger.warning("session import for %s refused: a bounded-KV entry (kv_gap %d) — "
-                           "cold start", payload.get("conversation_id"), payload["kv_gap"])
+        if payload.get("kv_gap") and self.bounded_kv is None:
+            logger.warning("session import for %s refused: a bounded-KV entry (kv_gap %d) on "
+                           "an unbounded engine — cold start", payload.get("conversation_id"),
+                           payload["kv_gap"])
             self.metrics.inc("finchat_fleet_session_import_refused_total")
             return False
         if (payload.get("snap") is not None
@@ -1560,6 +1833,7 @@ class ContinuousBatchingScheduler:
         completions: list[tuple[SequenceHandle, int, int]] = []
         for i, handle in enumerate(batch):
             handle.prefill_pos += int(n_valids[i])
+            handle.kv_ctx = handle.prefill_pos
             if handle.prefill_pos >= len(handle.prompt_ids):
                 if handle.held:
                     continue  # park: the first token waits for the graft
@@ -1742,6 +2016,7 @@ class ContinuousBatchingScheduler:
                 tok_row.append(i)
                 constrained_rows.append(i)
                 constrained_decode.append((i, slot, h, epoch))
+                h.kv_ctx += 1
                 i += 1
                 continue
             prop: list[int] = []
@@ -1760,6 +2035,9 @@ class ContinuousBatchingScheduler:
                 packed += [int(t) for t in prop]
                 tok_row += [i] * len(prop)
                 spec_rows.append((i, slot, h, epoch))
+                # the context advances by n_emitted (>= 1): the accepted
+                # drafts land on kv_ctx at the consume below
+                h.kv_ctx += 1
             else:
                 row_len[i] = 1
                 packed.append(0)
@@ -1767,9 +2045,14 @@ class ContinuousBatchingScheduler:
                 plain_rows.append((i, slot, h, epoch))
                 if self.loop_depth > 1 and self._loop_eligible(h, 0):
                     # the fused tail in the same dispatch: the row's token
-                    # plus loop_depth - 1 tail tokens fit the budget
+                    # plus loop_depth - 1 tail tokens fit the budget and the
+                    # eviction-boundary room (checked before the bump: the
+                    # span starts at the row's own write)
                     loop_active[slot] = True
                     loop_members.append((slot, h, epoch))
+                    h.kv_ctx += self.loop_depth
+                else:
+                    h.kv_ctx += 1
             i += 1
         assert i <= B
         T = eng.ragged_bucket(len(packed))
@@ -1795,6 +2078,7 @@ class ContinuousBatchingScheduler:
             self._trace_dispatch("ragged", trows, ts=mt.started, dur=mt.elapsed)
         for idx, h in prefill_rows:
             h.prefill_pos += int(row_len[idx])
+            h.kv_ctx = h.prefill_pos
         for idx, job in job_rows:
             job.pos += int(row_len[idx])
             if job.pos >= job.shared_len:
@@ -1835,6 +2119,7 @@ class ContinuousBatchingScheduler:
             if handle.finished or handle.slot != slot or handle.epoch != epoch:
                 continue
             n = int(n_emitted[idx])
+            handle.kv_ctx += max(0, n - 1)  # the accepted drafts' context advance
             accepted_total += max(0, n - 1)
             for token in emitted[idx, :n]:
                 self._deliver(handle, int(token))
@@ -1920,6 +2205,7 @@ class ContinuousBatchingScheduler:
                 continue
             active[slot] = True
             members.append((slot, handle, epoch))
+            handle.kv_ctx += 1
         constrained_slots = sorted(slot for slot, h, _e in members if h.constraint is not None)
         logits = None
         if constrained_slots:
@@ -1959,11 +2245,15 @@ class ContinuousBatchingScheduler:
         constraint, and at least K tokens of ``max_new_tokens`` left beyond
         the ``ahead`` tokens undelivered in the in-flight dispatch (its
         pages cover prompt + max_new, so this also bounds the block's
-        writes). A slot that fails is demoted to the single step riding the
-        same iteration and rejoins blocks when it qualifies again."""
+        writes). A bounded row's block must also stay inside its next
+        eviction boundary (``_bounded_span_room``). A slot that fails is
+        demoted to the single step riding the same iteration and rejoins
+        blocks when it qualifies again (after the wave, for a bounded
+        row)."""
         return (handle.constraint is None
                 and handle.sampling.max_new_tokens - handle.generated - ahead
-                >= self.loop_depth)
+                >= self.loop_depth
+                and self._bounded_span_room(handle) >= self.loop_depth)
 
     def _dispatch_decode_loop(self, exclude: set[int] | frozenset = frozenset(),
                               ahead: dict[int, int] | None = None) -> _InFlightBlock:
@@ -1991,6 +2281,7 @@ class ContinuousBatchingScheduler:
             if self._loop_eligible(handle, ahead.get(slot, 0)):
                 active[slot] = True
                 block_members.append((slot, handle, epoch))
+                handle.kv_ctx += self.loop_depth
             else:
                 demoted.append((slot, handle, epoch))
         block = eng.decode_loop(active, self._temperature, self._top_p, self._top_k,
@@ -2029,12 +2320,15 @@ class ContinuousBatchingScheduler:
         return any(self._spec_eligible(h) for h in self.decoding.values())
 
     def _propose(self, handle: SequenceHandle) -> list[int]:
-        """A spec-eligible slot's drafts: up to ``spec_tokens``, and at most
-        its budget less the bonus token, from its n-gram index (built here
-        once; ``_deliver`` keeps it in step)."""
+        """A spec-eligible slot's drafts: up to ``spec_tokens``, at most its
+        budget less the bonus token, and for a bounded row few enough that
+        the (1 + drafts) verify span fits its eviction-boundary room
+        (``_bounded_span_room``, taken before the dispatch's bump), from its
+        n-gram index (built here once; ``_deliver`` keeps it in step)."""
         if handle.ngram_index is None:
             handle.ngram_index = NgramIndex(handle.history)
-        cap = min(self.spec_k, handle.sampling.max_new_tokens - handle.generated - 1)
+        cap = min(self.spec_k, handle.sampling.max_new_tokens - handle.generated - 1,
+                  self._bounded_span_room(handle) - 1)
         return handle.ngram_index.propose(cap) if cap > 0 else []
 
     def _spec_proposal_live(self) -> bool:
@@ -2082,9 +2376,12 @@ class ContinuousBatchingScheduler:
                 drafts[slot, : len(prop)] = prop
                 n_drafts[slot] = len(prop)
         if not n_drafts.any():
+            # the plain step instead, which books its own kv_ctx advance
             self._spec_note_step(accepted=0)
             await self._consume_step(self._dispatch_decode())
             return
+        for _slot, handle, _epoch in members:
+            handle.kv_ctx += 1  # the verify's position-0 write
         constrained_slots = sorted(slot for slot, h, _e in members if h.constraint is not None)
         logits = None
         if constrained_slots:
@@ -2111,6 +2408,7 @@ class ContinuousBatchingScheduler:
                     handle, logits_host[constrained_slots.index(slot)]))
                 continue
             n = int(n_host[slot])
+            handle.kv_ctx += max(0, n - 1)  # the accepted drafts' context advance
             accepted_total += max(0, n - 1)
             for token in emitted_host[slot, :n]:
                 self._deliver(handle, int(token))
@@ -2127,7 +2425,8 @@ class ContinuousBatchingScheduler:
         decision every round cut it to 1, the host-stepped round:
         constrained rows (the pick feeds the next round's input) and live
         spec proposals (drafts come from delivered tokens the device still
-        holds)."""
+        holds). A bounded row caps it at its next eviction boundary, so a
+        capture sees the host-stepped gap schedule."""
         F = self.freerun_rounds
         if F <= 1:
             return 1
@@ -2139,6 +2438,12 @@ class ContinuousBatchingScheduler:
         if self.spec_k > 0 and self._spec_cooldown == 0 and self._spec_proposal_live():
             self.metrics.inc("finchat_freerun_capped_total", labels={"reason": "spec"})
             return 1
+        if self.bounded_kv is not None:
+            # eviction is staged at capture boundaries, like budget stops
+            cap = self._bounded_freerun_cap()
+            if cap < F:
+                self.metrics.inc("finchat_freerun_capped_total", labels={"reason": "boundedkv"})
+                return max(1, cap)
         return F
 
     def _dispatch_freerun(self, rounds: int,
@@ -2215,15 +2520,25 @@ class ContinuousBatchingScheduler:
             self._trace_dispatch("freerun", trows, ts=mt.started, dur=mt.elapsed)
         # the prompt cursors advance at dispatch, as in the ragged round:
         # the staged chunks are dispatched
-        for row, _slot, owner, _epoch, kind in members:
+        for row, slot, owner, _epoch, kind in members:
             adv = plan.advanced.get(row, 0)
             if kind == "job":
                 if adv:
                     owner.pos += adv
                     if owner.pos >= owner.shared_len:
                         self._complete_prefix_job(owner, "freerun")
-            elif adv:
+                continue
+            if adv:
                 owner.prefill_pos += adv
+                owner.kv_ctx = owner.prefill_pos
+            # the staged decode rounds advance the context a token an armed
+            # round, and the fused tails theirs: plan.ahead counts exactly
+            # those emissions, less a completion's first token (sampled,
+            # its KV not yet written)
+            extra = plan.ahead.get(slot, 0)
+            if row in plan.completes_at:
+                extra -= 1
+            owner.kv_ctx += max(0, extra)
         return _InFlightRing(tokens=ring_tok, n_emitted=ring_n, blocks=ring_blk, rounds=rounds,
                              members=members, armed=plan.row_arm, loop_rounds=plan.loop_active,
                              completes_at=plan.completes_at, ahead=plan.ahead)
@@ -2394,6 +2709,12 @@ class ContinuousBatchingScheduler:
                                     victim.seq_id, victim.deadline or float("inf"), cand)
                         self._preempt(victim)
                 self._admit()
+                # the bounded eviction wave runs between dispatches: its table
+                # and gap writes enqueue after every dispatch in flight and
+                # before this iteration's, so stream order keeps each dispatch
+                # reading the table it was built against, and the freed
+                # pages' next writers come after it
+                self._bounded_evict_wave()
             except Exception as e:
                 # admission never kills the loop (e.g. a device state lost
                 # to a failed rebuild): log, back off, serve what still runs
@@ -2469,6 +2790,14 @@ class ContinuousBatchingScheduler:
                 except Exception as e:
                     logger.error("prefill round error: %s", e)
                     await self._round_failed("prefill", str(e))
+                try:
+                    # a completion joins THIS iteration's decode dispatch
+                    # below: its first decode write needs the wave's room at
+                    # the advanced kv_ctx (a no-op when no boundary was
+                    # crossed)
+                    self._bounded_evict_wave()
+                except Exception as e:
+                    logger.error("bounded eviction wave error: %s", e)
 
             if (self.decoding and self.spec_k > 0 and self._spec_cooldown == 0
                     and self._spec_candidates()):

@@ -43,11 +43,14 @@ record write is logged and counted, and never fails the retiring stream)
 and ``disk.restore`` (a failed read quarantines the record and the
 conversation starts cold).
 
+- BOUNDED KV: an entry written under a bounded policy carries ``kv_gap``
+  (the evicted tokens) and ``kv_sink``; its snapshot holds only the
+  surviving pages while ``token_ids`` spans the absolute range. It resumes
+  whole when the prompt extends past its span unchanged, or on divergence
+  salvages the pre-gap sink region as an ordinary gap-free prefix.
+
 Not carried: the JAX package's warm-state fabric arguments (a fleet's
-shared tier and its holder index) come with the fleet planes, and its
-bounded-KV resume (gapped entries) with the bounded-KV plane: a record's
-``kv_gap``/``kv_sink`` fields are written as 0, and the scheduler refuses a
-gapped record at import.
+shared tier and its holder index) come with the fleet planes.
 """
 
 from __future__ import annotations
@@ -194,9 +197,9 @@ class SessionDiskTier:
     across. ``load`` barriers on a queued write of its own key, and
     ``flush`` drains the queue. A closed tier (``close``) writes inline.
 
-    The bounded-KV fields are written as 0 and read back as the record
-    holds them: the port serves no bounded KV, and its scheduler refuses a
-    gapped record at import.
+    The bounded-KV fields carry the entry's gap and sink, so a gapped
+    record reads back as it was written (an unbounded scheduler refuses it
+    at import).
     """
 
     MAGIC = b"FSKV"
@@ -250,7 +253,7 @@ class SessionDiskTier:
     # --- record (de)serialization ---------------------------------------
     @staticmethod
     def _serialize(key: str, token_ids: np.ndarray, prefix_len: int,
-                   snap: tuple | None) -> bytes:
+                   snap: tuple | None, kv_gap: int = 0, kv_sink: int = 0) -> bytes:
         token_ids = np.ascontiguousarray(token_ids, np.int32)
         chunks = [token_ids.tobytes()]
         specs: list[dict | None] | None = None
@@ -269,8 +272,8 @@ class SessionDiskTier:
             "n_tokens": int(token_ids.shape[0]),
             "snap": specs,
             "kv": snap_kv_mode(snap),
-            "kv_gap": 0,
-            "kv_sink": 0,
+            "kv_gap": int(kv_gap),
+            "kv_sink": int(kv_sink),
             "payload_len": len(payload),
             "crc": zlib.crc32(payload),
         }).encode()
@@ -340,7 +343,7 @@ class SessionDiskTier:
 
     # --- write path ------------------------------------------------------
     def spill(self, key: str, token_ids: np.ndarray, prefix_len: int,
-              snap: tuple | None) -> bool:
+              snap: tuple | None, kv_gap: int = 0, kv_sink: int = 0) -> bool:
         """Record one entry (atomic write and rename), then LRU-evict records
         past the byte budget. Write-behind: the work runs on the writer
         thread and this returns at once (True = accepted); a failed write
@@ -349,9 +352,10 @@ class SessionDiskTier:
         if self._writer is not None:
             with self._lock:
                 self._pending[key] = self._pending.get(key, 0) + 1
-            self._writer.submit(self._write_record, key, token_ids, prefix_len, snap)
+            self._writer.submit(self._write_record, key, token_ids, prefix_len, snap, kv_gap,
+                                kv_sink)
             return True
-        return self._write_record(key, token_ids, prefix_len, snap)
+        return self._write_record(key, token_ids, prefix_len, snap, kv_gap, kv_sink)
 
     def _unpend_locked(self, key: str) -> None:
         n = self._pending.get(key, 0) - 1
@@ -366,14 +370,14 @@ class SessionDiskTier:
             self._unpend_locked(key)
 
     def _write_record(self, key: str, token_ids: np.ndarray, prefix_len: int,
-                      snap: tuple | None) -> bool:
+                      snap: tuple | None, kv_gap: int = 0, kv_sink: int = 0) -> bool:
         """The writer thread's body (inline once the tier is closed)."""
         fname = self._fname(key)
         final = self.path / fname
         tmp = self.path / (fname + ".tmp")
         try:
             inject("disk.spill", key=key)
-            blob = self._serialize(key, token_ids, prefix_len, snap)
+            blob = self._serialize(key, token_ids, prefix_len, snap, kv_gap, kv_sink)
             with open(tmp, "wb") as f:
                 f.write(blob)
                 f.flush()
@@ -567,6 +571,17 @@ class SessionEntry:
     ``prefix_entry`` (a scheduler ``_PrefixEntry`` or None) carries one
     reference held for the entry's lifetime; the cache's ``on_drop``
     callback releases it.
+
+    ``kv_gap`` (bounded KV): tokens the eviction policy dropped between the
+    pinned sink (``kv_sink`` absolute tokens) and the surviving window when
+    the sequence retired. The snapshot then covers only the surviving
+    pages, ``n_tokens - kv_gap - prefix_len`` tokens, while ``token_ids``
+    spans the absolute range (the evicted tokens' ids must match the next
+    turn's prompt for the surviving KV to be valid). Such an entry resumes
+    whole when the prompt extends past its span unchanged; on divergence
+    the windowed remainder is unusable (it attended to the mismatched
+    history), and ``match`` salvages at most the pre-gap sink region as an
+    ordinary gap-free prefix.
     """
 
     conversation_id: str
@@ -575,6 +590,12 @@ class SessionEntry:
     prefix_pages: list[int] = field(default_factory=list)  # device page ids, referenced
     prefix_len: int = 0  # tokens covered by prefix_pages (page multiple)
     snap: tuple | None = None  # host pages covering [prefix_len, n_tokens)
+    kv_gap: int = 0  # bounded-KV evicted tokens (page multiple; 0 = exact)
+    # the absolute position the gap starts at (the sink's end; a page
+    # multiple): tokens below it attended only earlier sink tokens, so they
+    # stay a valid prefix when the windowed remainder is stale. 0 when
+    # kv_gap is 0
+    kv_sink: int = 0
 
     @property
     def n_tokens(self) -> int:
@@ -585,8 +606,9 @@ class SessionEntry:
         return _snap_nbytes(self.snap)
 
     def own_pages_for(self, matched: int, page_size: int) -> int:
-        """How many snapshot pages a ``matched``-token resume restores."""
-        return max(0, matched - self.prefix_len) // page_size
+        """How many snapshot pages a ``matched``-token resume restores (the
+        evicted gap has no pages)."""
+        return max(0, matched - self.prefix_len - self.kv_gap) // page_size
 
 
 class SessionKVCache:
@@ -682,7 +704,7 @@ class SessionKVCache:
         if self.disk is None or entry.n_tokens == 0:
             return False
         return self.disk.spill(entry.conversation_id, entry.token_ids, entry.prefix_len,
-                               entry.snap)
+                               entry.snap, entry.kv_gap, entry.kv_sink)
 
     def spill_all(self) -> int:
         """Re-spill every resident entry and flush the write-behind queue
@@ -702,6 +724,11 @@ class SessionKVCache:
         nbytes = _snap_nbytes(snap)
         if nbytes <= self.budget_bytes:
             return payload
+        if payload.get("kv_gap"):
+            # a bounded entry is whole or not: trimming would cut the window
+            # its gap depends on (a bounded snapshot is at most sink + window
+            # pages, so one over the RAM budget is a configuration problem)
+            return None
         prefix_len = int(payload["prefix_len"])
         own_pages = (len(payload["token_ids"]) - prefix_len) // self.page_size
         keep = int(own_pages * self.budget_bytes // nbytes)
@@ -731,6 +758,8 @@ class SessionKVCache:
             "token_ids": np.array(entry.token_ids, copy=True),
             "prefix_len": int(entry.prefix_len),
             "snap": entry.snap,
+            "kv_gap": int(entry.kv_gap),
+            "kv_sink": int(entry.kv_sink),
         }
 
     def import_entry(self, payload: dict, *, prefix_entry: Any | None = None,
@@ -749,6 +778,8 @@ class SessionKVCache:
             prefix_pages=list(prefix_pages or []),
             prefix_len=prefix_len,
             snap=payload["snap"],
+            kv_gap=int(payload.get("kv_gap", 0)),
+            kv_sink=int(payload.get("kv_sink", 0)),
         )
         return self.put(entry, spill=spill)
 
@@ -762,7 +793,10 @@ class SessionKVCache:
 
         Divergence is handled here: if the new turn's tokens split from the
         stored stream before its end, the entry is truncated to the common
-        prefix."""
+        prefix. A gapped entry resumes whole (``matched`` is its whole span)
+        when the prompt extends past it unchanged, is kept as it is when the
+        prompt merely stops short, and on divergence keeps only its pre-gap
+        sink region, as a gap-free entry."""
         entry = self._entries.get(conversation_id)
         if entry is None or not prompt_ids:
             return None, 0
@@ -771,6 +805,24 @@ class SessionKVCache:
         n = min(entry.n_tokens, len(prompt))
         neq = np.nonzero(entry.token_ids[:n] != prompt[:n])[0]
         common = int(neq[0]) if neq.size else n
+        if entry.kv_gap:
+            if not neq.size:
+                if common >= entry.n_tokens and len(prompt) - 1 >= entry.n_tokens:
+                    self._entries.move_to_end(conversation_id)
+                    return entry, entry.n_tokens
+                # a prompt that stops short cannot use the entry but has
+                # not staled it: it waits for the turn that extends past it
+                return None, 0
+            # divergence: the windowed remainder attended to the evicted
+            # tokens and is stale; the sink tokens attended only earlier sink
+            # tokens, so they truncate into an ordinary gap-free entry
+            salvage = (min(common, entry.kv_sink) // page) * page
+            entry.kv_gap = 0
+            entry.kv_sink = 0
+            self._truncate(entry, min(salvage, entry.n_tokens))
+            if entry.n_tokens == 0:
+                return None, 0
+            common = min(common, entry.n_tokens)
         if common < entry.n_tokens:
             self._truncate(entry, (common // page) * page)
             if entry.n_tokens == 0:

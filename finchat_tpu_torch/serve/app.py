@@ -39,8 +39,8 @@ generator, at ``embed.quant``), then a ``QdrantRetriever`` when
 ``TransactionRetriever``. It refuses, with an error that names the plane,
 what the port does not carry yet: a fleet (``fleet.replicas`` > 1,
 ``fleet.roles``), the warm-state fabric, a pod, a mesh of more than one
-device, the decoder's and the encoder's checkpoint and tokenizer paths, and
-the engine planes ``check_supported`` refuses. The engine, the encoder and
+device, and the decoder's and the encoder's checkpoint and tokenizer paths;
+every engine plane is served. The engine, the encoder and
 the index run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -62,7 +62,7 @@ from finchat_tpu_torch.embed.index import DeviceVectorIndex
 from finchat_tpu_torch.engine.engine import InferenceEngine
 from finchat_tpu_torch.engine.generator import EngineGenerator, StubGenerator, TextGenerator
 from finchat_tpu_torch.engine.sampler import SamplingParams
-from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler, check_supported
+from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
 from finchat_tpu_torch.io.kafka import KafkaClient
 from finchat_tpu_torch.io.schemas import (
     complete_chunk,
@@ -993,7 +993,6 @@ def _refuse_unported(cfg: AppConfig) -> None:
         refused.append("embed.tokenizer_path (HuggingFace tokenizers)")
     if refused:
         raise NotImplementedError("build_app: not ported yet: " + "; ".join(refused))
-    check_supported(cfg.engine)
 
 
 def build_retriever(cfg: AppConfig, tokenizer=None, device: str | torch.device = "cuda"):

@@ -10,11 +10,11 @@ Product-contract constants: topics ``user_message`` / ``ai_response`` /
 collections ``contexts`` / ``messages``, vector collection
 ``transactions``.
 
-What the port reads. ``EngineConfig()`` as it stands is served. The serving
-planes this port does not carry yet (spec decode, decode loop, free-run,
-bounded KV) keep their fields; the scheduler refuses a config that turns one
-of them on (engine/scheduler.py ``check_supported``). The prefix and session
-KV caches, recompute preemption, the circuit breaker, deadline admission,
+What the port reads. ``EngineConfig()`` as it stands is served, and so is
+every engine plane: spec decode, the decode loop, the free-running loop and
+bounded KV (``kv_sink_pages`` / ``kv_window_pages``, env
+``FINCHAT_KV_SINK_PAGES`` / ``FINCHAT_KV_WINDOW_PAGES``). The prefix and
+session KV caches, recompute preemption, the circuit breaker, deadline admission,
 grammar-constrained decoding and the partial holds are read by the
 scheduler. The serving app (serve/app.py) reads ``watchdog_seconds``,
 ``stream_flush_tokens``, ``warmup_on_start``, ``request_deadline_seconds``

@@ -54,7 +54,7 @@ disk tier: ``finchat_durability_spills_total`` /
 ``finchat_quant_dequant_fallbacks_total`` (snapshots of the other KV mode
 refused) and ``finchat_fleet_session_import_refused_total`` (imported
 entries refused: no live twin of their shared head, or a bounded-KV
-entry).
+entry on an unbounded engine).
 
 Resilience (engine/scheduler.py, engine/engine.py), under the reference's
 names: ``finchat_preemptions_total`` (recompute preemptions: page
@@ -68,6 +68,16 @@ histogram (the breaker's and ``revive_async``'s device-state rebuilds),
 ``finchat_breaker_recovery_seconds`` (trip to the first successful round of
 the plane) and ``finchat_warmup_compiled_variants`` (gauge: the step
 variants the engine's last ``warmup`` ran).
+
+Bounded KV (engine/scheduler.py), under the reference's names, pre-seeded
+by every scheduler: the ``finchat_boundedkv_sink_pages`` /
+``_window_pages`` gauges (the configured shape, 0 when unbounded),
+``finchat_boundedkv_evicted_pages_total`` (pages the eviction waves
+returned to the pool), ``finchat_boundedkv_bounded_sessions_total`` (rows
+that evicted for the first time) and
+``finchat_boundedkv_recompute_fallbacks_total`` (bounded preempts or
+replays that recomputed the whole history instead of restoring a
+snapshot).
 
 Partial holds and tracing (engine/scheduler.py, engine/generator.py,
 utils/tracing.py), under the reference's names:

@@ -1651,3 +1651,104 @@ def test_decode_loop_graph_matches_eager_before_and_after_rebuild(dev, kv_quant)
         if round_ == "warmup":
             engine.rebuild_device_state()
             assert not engine._loop_graphs
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8_kv"])
+def test_bounded_kv_waves_keep_the_graph_and_its_storage(dev, kv_quant):
+    """Bounded KV on the card (a sink of 1 page, a window of 3; pages of 64):
+    three greedy streams past the budget at decode loop depth 4. Every
+    eviction wave writes the page table and ``kv_gaps`` in place (their
+    storage never moves), and at the first wave that evicts a decoding row
+    one replay of the graph equals the eager ``decode_loop_step`` on a copy
+    of the state (the state put back after it). Every row evicts, holds at
+    most its 4 pages, and ends with the gap the host replay of
+    ``plan_eviction`` gives; no page is left."""
+    import asyncio
+
+    from finchat_tpu_torch.engine.engine import InferenceEngine, decode_loop_step
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.models.llama import LlamaConfig, init_params
+    from finchat_tpu_torch.utils.config import EngineConfig
+
+    config = LlamaConfig(vocab_size=260, dim=512, n_layers=2, n_heads=4, n_kv_heads=1,
+                         hidden_dim=1024)
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    params = init_params(config, g, dev)
+    ecfg = EngineConfig(max_seqs=4, page_size=64, num_pages=32, max_seq_len=1024,
+                        prefill_chunk=64, decode_loop_depth=4, kv_quant=kv_quant,
+                        kv_sink_pages=1, kv_window_pages=3)
+    engine = InferenceEngine(config, params, ecfg, device=dev)
+    engine.warmup()
+    sched = ContinuousBatchingScheduler(engine, eos_id=-1)
+    bp = engine.bounded_kv
+    storage = (engine.state.page_table.data_ptr(), engine.state.kv_gaps.data_ptr())
+    seen = {"graph": None, "peak": 0, "moved": 0}
+    wave = sched._bounded_evict_wave
+
+    def watched():
+        gaps0 = {h.seq_id: h.kv_gap for h in sched.decoding.values()}
+        wave()
+        st = engine.state
+        seen["moved"] += (st.page_table.data_ptr(), st.kv_gaps.data_ptr()) != storage
+        seen["peak"] = max([seen["peak"]] + [len(h.page_list) for h in sched.decoding.values()])
+        evicted = [h for h in sched.decoding.values() if h.kv_gap != gaps0.get(h.seq_id, 0)]
+        if evicted and seen["graph"] is None:
+            torch.cuda.synchronize()
+            names = [n for n in ("k_pages", "v_pages", "k_scales", "v_scales", "page_table",
+                                 "context_lens", "last_tokens", "kv_gaps")
+                     if getattr(st, n) is not None]
+            saved = {n: getattr(st, n).clone() for n in names}
+            copy = _state_copy(st)
+            args = [torch.as_tensor(a, device=dev) for a in (
+                np.isin(np.arange(4), sorted(sched.decoding)), np.zeros(4, np.float32),
+                np.ones(4, np.float32), np.zeros(4, np.int32))]
+            got = engine._loop_graph(4).replay(*args, -1)
+            want = decode_loop_step(engine.params, copy, *args,
+                                    torch.tensor(-1, dtype=torch.int32, device=dev),
+                                    config=engine.config, page_size=engine.page_size,
+                                    loop_depth=4)[1]
+            torch.cuda.synchronize()
+            # every page but the trash page 0, which the slots outside the
+            # block write in no order
+            seen["graph"] = bool(torch.equal(got, want)) and all(
+                torch.equal(getattr(st, n)[:, 1:], getattr(copy, n)[:, 1:])
+                if n.endswith(("_pages", "_scales")) else torch.equal(getattr(st, n),
+                                                                     getattr(copy, n))
+                for n in names)
+            seen["gaps"] = [h.kv_gap for h in evicted]
+            for n in names:
+                getattr(st, n).copy_(saved[n])
+
+    sched._bounded_evict_wave = watched
+    prompts = [[(5 * i + s) % 250 + 1 for i in range(n)] for s, n in enumerate((300, 270, 330))]
+
+    async def run():
+        handles = [await sched.submit(f"b{i}", p, SamplingParams(temperature=0.0,
+                                                                   max_new_tokens=48))
+                   for i, p in enumerate(prompts)]
+        await sched.start()
+        try:
+            for h in handles:
+                while not h.finished:
+                    ev = await asyncio.wait_for(h.events.get(), timeout=120)
+                    assert ev["type"] in ("token", "done"), ev
+        finally:
+            await sched.stop()
+        return handles
+
+    handles = asyncio.run(run())
+    assert seen["graph"] is True and all(gp > 0 for gp in seen["gaps"])
+    assert seen["moved"] == 0 and seen["peak"] <= bp.budget_pages
+    for h, p in zip(handles, prompts):
+        assert h.generated == 48 and h.kv_gap > 0
+        ctx = gap = 0
+        cap = bp.row_pages(len(p) + 48)
+        while ctx < h.kv_ctx:  # the host replay of the wave before every dispatch
+            n = min(64, len(p) - ctx) if ctx < len(p) else 1
+            gap += bp.plan_eviction(ctx - gap, n, cap, bp.sink_pages) * 64
+            ctx += n
+        nxt = gap + bp.plan_eviction(ctx - gap, 1, cap, bp.sink_pages) * 64
+        assert h.kv_gap in (gap, nxt), (h.seq_id, h.kv_gap, gap, nxt)
+    assert sched.allocator.used_count == 0

@@ -375,3 +375,104 @@ def test_warmup_counts_the_planes_variants_as_jax(models):
     assert te.compiled_variants == je.compiled_variants == 11
     assert not te.state.k_pages[:, 1:].any() and not te.state.v_pages[:, 1:].any()
     assert not te.state.context_lens.any()
+
+
+# --- what the schedulers dispatch between a submit and its first token --------
+
+MINI_ENGINE = dict(max_seqs=4, page_size=16, num_pages=64, max_seq_len=512, prefill_chunk=32,
+                   prefix_cache=False, session_cache=False, preemption=False,
+                   breaker_threshold=0, decode_loop_depth=K)
+
+
+@pytest.fixture(scope="module")
+def mini_models():
+    jcfg = dataclasses.replace(jllama.PRESETS["mini"], dtype=jnp.float32)
+    jparams = jllama.init_params(jcfg, jax.random.key(0))
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg) if f.name != "dtype"}
+    tcfg = tllama.LlamaConfig(**fields, dtype=torch.float32)
+    return jcfg, jparams, tcfg, params_from_numpy(jax.device_get(jparams), "cpu")
+
+
+def _second_wave_dispatches(models, side: str, bounded: bool) -> list:
+    """Two streams decode in loop-4 blocks; once the third block has been
+    dispatched a second wave (a 70-token prompt) is submitted from a task of
+    its own, as a client's request arrives. Returns every dispatch from that
+    submit to the wave's first token as (kind, sorted row modes), with the
+    submit and the first token marked where they fell."""
+    from finchat_tpu.engine.sampler import SamplingParams as JaxSampling
+    from finchat_tpu.engine.scheduler import ContinuousBatchingScheduler as JaxScheduler
+    from finchat_tpu.utils.tracing import TRACER as JAX_TRACER
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    jcfg, jparams, tcfg, tparams = models
+    extra = dict(kv_sink_pages=1, kv_window_pages=4) if bounded else {}
+    if side == "jax":
+        eng = JaxEngine(jcfg, jparams, JaxEngineConfig(**MINI_ENGINE, **extra), attn_backend="ref")
+        sched, sampling, tracer = JaxScheduler(eng, eos_id=-1), JaxSampling, JAX_TRACER
+    else:
+        eng = InferenceEngine(tcfg, tparams, EngineConfig(**MINI_ENGINE, **extra), device="cpu")
+        sched, sampling = ContinuousBatchingScheduler(eng, eos_id=-1), SamplingParams
+        tracer = TRACER
+    tracer.configure(enabled=True)
+    rng = np.random.default_rng(5)
+    wave1 = [rng.integers(1, 255, size=40).tolist() for _ in range(2)]
+    wave2 = rng.integers(1, 255, size=70).tolist()
+    log: list = []
+    state = {"blocks": 0, "task": None, "submitted": False, "first": False}
+    trace_dispatch, deliver, submit = sched._trace_dispatch, sched._deliver, sched.submit
+
+    async def submit_wave2():
+        state["handle"] = await submit("w2", wave2, sampling(temperature=0.0, max_new_tokens=4))
+        state["submitted"] = True
+        log.append(("submit",))
+
+    def traced(kind, rows, **kw):
+        if state["submitted"] and not state["first"]:
+            log.append((kind, tuple(sorted(r[2] for r in rows))))
+        if kind == "decode_loop":
+            state["blocks"] += 1
+            if state["blocks"] == 3:
+                state["task"] = asyncio.get_running_loop().create_task(submit_wave2())
+        return trace_dispatch(kind, rows, **kw)
+
+    def delivering(handle, token_id):
+        if handle.seq_id == "w2" and handle.generated == 0:
+            state["first"] = True
+            log.append(("first_token",))
+        return deliver(handle, token_id)
+
+    sched._trace_dispatch, sched._deliver = traced, delivering
+
+    async def go():
+        handles = [await sched.submit(f"w1-{i}", p, sampling(temperature=0.0, max_new_tokens=56))
+                   for i, p in enumerate(wave1)]
+        await sched.start()
+        try:
+            for h in handles:
+                while not h.finished:
+                    await asyncio.wait_for(h.events.get(), timeout=300)
+            while "handle" not in state or not state["handle"].finished:
+                await asyncio.sleep(0.01)
+        finally:
+            await sched.stop()
+        assert sched.allocator.used_count == 0
+        return [h.kv_gap for h in handles]
+
+    gaps = asyncio.run(go())
+    assert all(g > 0 for g in gaps) == bounded, gaps
+    return log
+
+
+@pytest.mark.parametrize("bounded", [False, True], ids=["unbounded", "bounded"])
+def test_second_wave_dispatches_equal_jax(mini_models, bounded):
+    """The TTFT behind a decode-loop block: from a submit that lands while
+    loop-4 blocks stream to that request's first token, the port's scheduler
+    makes the JAX scheduler's dispatches, kind for kind and row for row, with
+    bounded KV off and on (mini, fp32). The wait is the plane's own: the
+    block in flight drains, then the prompt's chunks ride ragged rounds."""
+    got = _second_wave_dispatches(mini_models, "port", bounded)
+    want = _second_wave_dispatches(mini_models, "jax", bounded)
+    assert got == want
+    assert got[0] == ("submit",) and got[-1] == ("first_token",)
+    kinds = [entry[0] for entry in got[1:-1]]
+    assert kinds and "ragged" in kinds

@@ -13,6 +13,7 @@ Tolerances and why:
   JAX token, so one near tie cannot derail the rest of the comparison.
 """
 
+import asyncio
 import dataclasses
 
 import numpy as np
@@ -28,7 +29,8 @@ from finchat_tpu.engine.engine import commit_first_token as jax_commit  # noqa: 
 from finchat_tpu.models import llama as jllama  # noqa: E402
 from finchat_tpu.utils.config import EngineConfig as JaxEngineConfig  # noqa: E402
 from finchat_tpu_torch.engine.engine import InferenceEngine  # noqa: E402
-from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler, check_supported  # noqa: E402
+from finchat_tpu_torch.engine.sampler import SamplingParams  # noqa: E402
+from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler  # noqa: E402
 from finchat_tpu_torch.models import llama as tllama  # noqa: E402
 from finchat_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from finchat_tpu_torch.utils.config import EngineConfig  # noqa: E402
@@ -176,33 +178,61 @@ def test_cuda_engine_refuses_to_fall_back(engines):
         InferenceEngine(te.config, te.params, te.engine_cfg)  # the default device
 
 
-# the decode planes are served; bounded KV is still refused by name
+# every engine plane is served: the decode planes and bounded KV
 SERVED_PLANES = ("spec_tokens", "decode_loop_depth", "freerun_rounds")
+# a bounded case turns the policy on with its partner knob (each alone
+# leaves it off, as in the JAX package)
+BOUNDED_PAIR = {"kv_sink_pages": ("kv_window_pages", 4), "kv_window_pages": ("kv_sink_pages", 1)}
 
 
 @pytest.mark.parametrize("field,value", [
     ("spec_tokens", 2), ("decode_loop_depth", 4), ("freerun_rounds", 2), ("kv_sink_pages", 2),
     ("kv_window_pages", 4),
 ])
-def test_scheduler_refuses_planes_not_ported(engines, field, value):
-    """Spec decode, the fused decode loop and the free-running loop are
-    accepted, and a scheduler over an engine of that config takes their
-    knobs; bounded KV is refused at ``check_supported`` and at
-    construction."""
+def test_scheduler_serves_every_engine_plane(engines, field, value):
+    """Spec decode, the fused decode loop, the free-running loop and bounded
+    KV are each served: a scheduler over an engine of that config takes the
+    knobs, and a bounded one evicts a prompt past its budget and streams it
+    to the end with the JAX engine's policy and every page back."""
     _je, te = engines()
     cfg = dataclasses.replace(EngineConfig(**ENGINE), **{field: value})
     if field in SERVED_PLANES:
-        check_supported(cfg)
         sched = ContinuousBatchingScheduler(InferenceEngine(te.config, te.params, cfg,
                                                             device="cpu"), eos_id=258)
         assert (sched.spec_k, sched.loop_depth, sched.freerun_rounds) == (
             cfg.spec_tokens, max(1, cfg.decode_loop_depth), max(1, cfg.freerun_rounds))
         return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        check_supported(cfg)
-    te.engine_cfg = cfg
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingScheduler(te, eos_id=258)
+    other, other_value = BOUNDED_PAIR[field]
+    cfg = dataclasses.replace(cfg, **{other: other_value})
+    jcfg = dataclasses.replace(JaxEngineConfig(**ENGINE), kv_sink_pages=cfg.kv_sink_pages,
+                               kv_window_pages=cfg.kv_window_pages)
+    jp = JaxEngine(_je.config, _je.params, jcfg, attn_backend="ref").bounded_kv
+    sched = ContinuousBatchingScheduler(InferenceEngine(te.config, te.params, cfg,
+                                                        device="cpu"), eos_id=-1)
+    bp = sched.bounded_kv
+    assert (bp.sink_pages, bp.window_pages, bp.page_size) == (
+        jp.sink_pages, jp.window_pages, jp.page_size)
+    budget = bp.budget_pages * bp.page_size
+    prompt = [(7 * i) % 250 + 1 for i in range(budget + 5)]
+
+    async def run():
+        await sched.start()
+        try:
+            h = await sched.submit("b", prompt, SamplingParams(temperature=0.0,
+                                                                max_new_tokens=6))
+            n = 0
+            while True:
+                ev = await asyncio.wait_for(h.events.get(), timeout=120)
+                if ev["type"] == "done":
+                    return h, n
+                assert ev["type"] == "token", ev
+                n += 1
+        finally:
+            await sched.stop()
+
+    h, n = asyncio.run(run())
+    assert n == 6 and h.kv_gap > 0 and len(h.page_list) == bp.budget_pages
+    assert sched.allocator.used_count == 0
 
 
 def test_scheduler_serves_the_default_config(engines):
@@ -210,7 +240,6 @@ def test_scheduler_serves_the_default_config(engines):
     caches on — is a supported config, and a scheduler builds on it."""
     cfg = EngineConfig()
     assert cfg.preemption and cfg.breaker_threshold > 0
-    check_supported(cfg)
     _je, te = engines()
     te.engine_cfg = dataclasses.replace(EngineConfig(**ENGINE), preemption=True,
                                         breaker_threshold=3)

@@ -40,7 +40,7 @@ from finchat_tpu.models import llama as jllama  # noqa: E402
 from finchat_tpu.utils.config import EngineConfig as JaxEngineConfig  # noqa: E402
 from finchat_tpu_torch.engine.engine import InferenceEngine  # noqa: E402
 from finchat_tpu_torch.engine.sampler import SamplingParams  # noqa: E402
-from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler, check_supported  # noqa: E402
+from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler  # noqa: E402
 from finchat_tpu_torch.models import llama as tllama  # noqa: E402
 from finchat_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from finchat_tpu_torch.models.tokenizer import ByteTokenizer  # noqa: E402
@@ -124,12 +124,14 @@ def _assert_teacher_forced(models, prompt, got, want):
     assert top2[1] - top2[0] <= MARGIN, (n, got[n], want[n], top2)
 
 
-def test_check_supported_accepts_the_caches_at_their_defaults():
+def test_check_supported_accepts_the_caches_at_their_defaults(models):
     """``EngineConfig(preemption=False, breaker_threshold=0)`` — prefix and
-    session caches at their defaults — is a supported config."""
+    session caches at their defaults — is served: a scheduler over an
+    engine that keeps both caches at their defaults builds both."""
     cfg = EngineConfig(preemption=False, breaker_threshold=0)
     assert cfg.prefix_cache and cfg.session_cache
-    check_supported(cfg)
+    sched = _port(models)
+    assert sched.engine.engine_cfg.prefix_cache and sched.session_cache is not None
 
 
 def test_register_shares_whole_pages_only(models):

@@ -18,9 +18,9 @@ tests/test_durability.py and tests/test_quant_serving.py hold it there:
   starts cold, a failed write never fails a stream, a record of the other
   KV mode is set aside, an over-budget record resumes partly, a restarted
   scheduler resumes from disk as deep as the RAM tier would, a closed tier
-  writes inline; a bounded-KV entry (the JAX package's ``kv_gap``) is
-  refused at import, from a payload or a disk record, and the turn starts
-  cold.
+  writes inline; a bounded-KV entry (``kv_gap``) is refused at import by
+  an unbounded engine, from a payload or a disk record, and the turn starts
+  cold, while a bounded engine takes it and resumes it whole.
 
 Across packages: a record serializes to the same bytes in both and each
 reads the other's; a JAX ``gather_pages_host`` snapshot restored into the
@@ -769,16 +769,47 @@ def test_import_session_entry_cross_mode_refused_and_counted(models):
 
 @pytest.mark.parametrize("snap", [None, "own"])
 def test_import_session_entry_refuses_bounded_kv_entry(models, snap):
-    """A bounded-KV entry (``kv_gap`` > 0, the JAX package's windowed plane)
-    is refused and counted; nothing is held and no page is taken."""
-    sched = _port(models)
-    own = _f32_snap(2, 1, PAGE, 16) if snap else None
-    payload = {"conversation_id": "g", "token_ids": np.arange(16, dtype=np.int32),
+    """A bounded-KV entry (``kv_gap`` > 0) on an UNBOUNDED engine is refused
+    and counted; nothing is held and no page is taken (the payload without
+    a snapshot). A bounded engine takes the gapped entry with its own
+    snapshot, and the next turn resumes it whole: its surviving page
+    restored, its gap carried into the slot."""
+    _jc, _jp, tcfg, _tp = models
+    width = tcfg.n_kv_heads * tcfg.head_dim
+    own = _f32_snap(tcfg.n_layers, 1, PAGE, width) if snap else None
+    payload = {"conversation_id": "g", "token_ids": np.arange(1, 17, dtype=np.int32),
                "prefix_len": 0, "snap": own, "kv_gap": PAGE, "kv_sink": PAGE}
-    before = METRICS.get("finchat_fleet_session_import_refused_total")
-    assert not sched.import_session_entry(payload)
-    assert METRICS.get("finchat_fleet_session_import_refused_total") == before + 1
-    assert sched.session_cache.get("g") is None and len(sched.session_cache) == 0
+    if snap is None:
+        sched = _port(models)
+        before = METRICS.get("finchat_fleet_session_import_refused_total")
+        assert not sched.import_session_entry(payload)
+        assert METRICS.get("finchat_fleet_session_import_refused_total") == before + 1
+        assert sched.session_cache.get("g") is None and len(sched.session_cache) == 0
+        assert sched.allocator.used_count == 0
+        return
+    sched = _port(models, eos_id=-1, kv_sink_pages=1, kv_window_pages=4)
+    assert sched.import_session_entry(payload)
+    entry = sched.session_cache.get("g")
+    assert (entry.kv_gap, entry.kv_sink, entry.n_tokens) == (PAGE, PAGE, 16)
+    hits = METRICS.get("finchat_session_cache_hits_total")
+    restored = METRICS.get("finchat_session_cache_restored_tokens_total")
+
+    async def run():
+        await sched.start()
+        try:
+            return await _collect(sched, "g-t2", list(range(1, 17)) + [5, 6, 7], 4,
+                                  conversation_id="g")
+        finally:
+            await sched.stop()
+
+    h, toks = asyncio.run(run())
+    assert len(toks) == 4
+    # the context counts every dispatched write: the prompt and the tokens
+    # but the last, and the pipelined step in flight at the finish
+    assert h.resumed_len == 16 and h.kv_gap == PAGE and 19 + 3 <= h.kv_ctx <= 19 + 4
+    assert METRICS.get("finchat_session_cache_hits_total") == hits + 1
+    assert METRICS.get("finchat_session_cache_restored_tokens_total") == restored + 16
+    sched.allocator.check_invariants()
     assert sched.allocator.used_count == 0
 
 
