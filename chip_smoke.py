@@ -267,6 +267,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``/chat/stream`` turn in the reference's event order, then SIGTERM: exit
    0 within the shutdown deadline, the graceful drain in its log, the
    snapshot holding the rows.
+   Then ``checkpoint_phase``: ``llama3-8b``'s seeded bf16 tree and
+   ``bge-base-en``'s written as HF safetensors checkpoints by the port's own
+   writer (four shards and a ``config.json``; q/k/v un-fused and a zero
+   token-type table for bge) into a temporary directory (the phase fails
+   first when its filesystem has under 20 GB free), loaded back by
+   ``checkpoints/hf_loader.py`` in bf16 (every leaf bit-equal to the
+   source's) and with ``quant="int8"`` at load (every leaf bit-equal to
+   ``quantize_stacked`` of the source's), the RSS growth of the write and
+   of each load held under 4 GB; then ``build_app`` over both checkpoints on
+   the int8+kv8 plane (``EngineConfig()`` otherwise, warmed up): the app's
+   encoder embeds a query bit-equal to one over the source bge tree, and
+   two Kafka turns run through the consume loop, every stream
+   teacher-forced on the loaded tree, every int8 serving kernel launched
+   under the serve's launch rules. It prints the write and load seconds,
+   the peak device memory above the source tree (bf16) and of the int8
+   load against the int8 tree plus its largest bf16 leaf, the peak RSS,
+   and each turn's TTFT from ingress and decode rate.
 4. Serve the quantized plane the same way: int8 weights made by
    ``init_quantized_params`` (the bf16 tree never exists) and an int8 KV
    pool, warmed up, the same head, 8 requests in two waves and later turns.
@@ -327,7 +344,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    model-FLOP share of the bf16 peak, the peak memory, and a sixth step's
    device time by class (profiler).
 
-The line before the last is the ``kernels`` JSON; the last line is
+The line before the last is the ``kernels`` JSON (each row's
+``launches`` from its plane's serve or run, ``checkpoint_launches`` from
+the checkpoint phase's serve); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or when the port package is not beside this file.
 """
@@ -4372,6 +4391,461 @@ def cli_phase(torch, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# checkpoint_phase: HF checkpoints written, loaded (bf16, int8 at load) and
+# served through build_app
+# --------------------------------------------------------------------------
+
+CKPT_SHARDS = 4
+CKPT_MIN_FREE_GB = 20.0
+CKPT_MAX_RSS_GROWTH_GB = 4.0
+CKPT_TURNS = 2
+# the port's stacked layer leaves and their HF names in one layer, with
+# whether HF stores the transpose ([out, in] against our [in, out])
+HF_LLAMA_LAYER = {
+    "attn_q": ("self_attn.q_proj.weight", True), "attn_k": ("self_attn.k_proj.weight", True),
+    "attn_v": ("self_attn.v_proj.weight", True), "attn_o": ("self_attn.o_proj.weight", True),
+    "ln_attn": ("input_layernorm.weight", False),
+    "ln_mlp": ("post_attention_layernorm.weight", False),
+    "mlp_gate": ("mlp.gate_proj.weight", True), "mlp_up": ("mlp.up_proj.weight", True),
+    "mlp_down": ("mlp.down_proj.weight", True),
+}
+HF_BERT_LAYER = {
+    "attn_out": ("attention.output.dense.weight", True),
+    "attn_out_bias": ("attention.output.dense.bias", False),
+    "ln1_scale": ("attention.output.LayerNorm.weight", False),
+    "ln1_bias": ("attention.output.LayerNorm.bias", False),
+    "mlp_in": ("intermediate.dense.weight", True),
+    "mlp_in_bias": ("intermediate.dense.bias", False),
+    "mlp_out": ("output.dense.weight", True), "mlp_out_bias": ("output.dense.bias", False),
+    "ln2_scale": ("output.LayerNorm.weight", False), "ln2_bias": ("output.LayerNorm.bias", False),
+}
+
+
+def write_hf_llama(torch, params, config, path, n_shards: int = CKPT_SHARDS) -> None:
+    """Write a stacked Llama tree as an HF checkpoint (the layout inversion
+    of ``checkpoints/hf_loader.py``, kept here as test scaffolding): each
+    layer's ``[in, out]`` slice passed as a transposed view, which the
+    port's writer makes contiguous on the card (HF's ``[out, in]``) and
+    copies to the host one tensor at a time, the layers split evenly over
+    ``model-0000k-of-0000n.safetensors`` (the embedding in the first shard,
+    the norm and the head in the last), and a ``config.json`` with the
+    preset's keys."""
+    from finchat_tpu_torch.checkpoints.safetensors_io import save_file
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    L = config.n_layers
+    per = -(-L // n_shards)
+    for k in range(n_shards):
+        tensors = {}
+        if k == 0:
+            tensors["model.embed_tokens.weight"] = params["embed"]
+        for i in range(k * per, min(L, (k + 1) * per)):
+            for leaf, (name, transpose) in HF_LLAMA_LAYER.items():
+                t = params["layers"][leaf][i]
+                tensors[f"model.layers.{i}.{name}"] = t.t() if transpose else t
+        if k == n_shards - 1:
+            tensors["model.norm.weight"] = params["norm"]
+            tensors["lm_head.weight"] = params["lm_head"].t()
+        save_file(tensors, path / f"model-{k + 1:05d}-of-{n_shards:05d}.safetensors",
+                  metadata={"format": "pt"})
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "hidden_size": config.dim, "num_hidden_layers": L,
+        "num_attention_heads": config.n_heads, "num_key_value_heads": config.n_kv_heads,
+        "intermediate_size": config.hidden_dim, "vocab_size": config.vocab_size,
+        "rope_theta": config.rope_theta, "rms_norm_eps": config.norm_eps,
+        "max_position_embeddings": config.max_seq_len, "tie_word_embeddings": False,
+        "torch_dtype": str(config.dtype).removeprefix("torch.")}, indent=1))
+
+
+def write_hf_bert(torch, params, config, path) -> None:
+    """Write an encoder tree as an HF ``BertModel`` checkpoint: q/k/v
+    un-fused from ``qkv``/``qkv_bias``, every matmul weight transposed to
+    ``[out, in]``, a zero token-type table (so the loader's fold gives the
+    position table back), and a ``config.json``."""
+    from finchat_tpu_torch.checkpoints.safetensors_io import save_file
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    D, layers = config.dim, params["layers"]
+    tensors = {
+        "embeddings.word_embeddings.weight": params["tok_embed"],
+        "embeddings.position_embeddings.weight": params["pos_embed"],
+        "embeddings.token_type_embeddings.weight": torch.zeros(
+            (2, D), dtype=config.dtype, device=params["pos_embed"].device),
+        "embeddings.LayerNorm.weight": params["embed_ln_scale"],
+        "embeddings.LayerNorm.bias": params["embed_ln_bias"],
+    }
+    for i in range(config.n_layers):
+        for j, name in enumerate(("query", "key", "value")):
+            cols = slice(j * D, (j + 1) * D)
+            tensors[f"encoder.layer.{i}.attention.self.{name}.weight"] = \
+                layers["qkv"][i][:, cols].t()
+            tensors[f"encoder.layer.{i}.attention.self.{name}.bias"] = layers["qkv_bias"][i][cols]
+        for leaf, (name, transpose) in HF_BERT_LAYER.items():
+            t = layers[leaf][i]
+            tensors[f"encoder.layer.{i}.{name}"] = t.t() if transpose else t
+    save_file(tensors, path / "model.safetensors", metadata={"format": "pt"})
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["BertModel"], "model_type": "bert", "hidden_size": D,
+        "num_hidden_layers": config.n_layers, "num_attention_heads": config.n_heads,
+        "intermediate_size": config.hidden_dim, "vocab_size": config.vocab_size,
+        "max_position_embeddings": config.max_position, "type_vocab_size": 2,
+        "layer_norm_eps": config.norm_eps, "hidden_act": "gelu"}, indent=1))
+
+
+def tree_leaves(tree, prefix: str = ""):
+    """``(path, tensor)`` of a parameter tree, a quantized leaf as its
+    ``.q`` and ``.scale``."""
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from tree_leaves(value, f"{prefix}{name}/")
+        elif hasattr(value, "q") and hasattr(value, "scale"):
+            yield f"{prefix}{name}.q", value.q
+            yield f"{prefix}{name}.scale", value.scale
+        else:
+            yield prefix + name, value
+
+
+def bit_equal(torch, a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+class _RssPeak:
+    """This process's resident set (``VmRSS`` of ``/proc/self/status``),
+    sampled every 10 ms by a thread while the block runs: ``start`` and
+    ``peak`` bytes."""
+
+    @staticmethod
+    def read() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = self.read()
+        self._stop = threading.Event()
+
+        def run():
+            while not self._stop.wait(0.01):
+                self.peak = max(self.peak, self.read())
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.read())
+
+
+async def checkpoint_phase(torch, dev, card: str) -> dict:
+    """HF checkpoints on the card. ``llama3-8b``'s seeded
+    random bf16 tree (``model.seed``, as ``build_app`` makes it) and
+    ``bge-base-en``'s (seed 1) are written as HF safetensors checkpoints
+    into a temporary directory (``write_hf_llama``: four shards and a
+    ``config.json``; ``write_hf_bert``); the phase fails first when that
+    filesystem has under ``CKPT_MIN_FREE_GB`` free. Then:
+
+    - a bf16 load (``checkpoints/hf_loader.load_llama_params``): every leaf
+      bit-equal to the source's; its seconds, device memory above the
+      source tree and the process's peak RSS;
+    - an int8 load (``quant="int8"``, quantized at load): every leaf
+      bit-equal to ``quantize_stacked`` of the source leaf; its seconds and
+      its own peak device memory against the int8 tree plus one bf16 leaf;
+    - ``build_app`` over both checkpoints (``model.quant="int8"``,
+      ``engine.kv_quant="int8"``, ``EngineConfig()`` otherwise, warmed up;
+      the wide ``ByteTokenizer`` as in ``app_turns``): the app's encoder
+      embeds a query bit-equal to an encoder over the source bge tree, then
+      ``CKPT_TURNS`` Kafka turns through the consume loop, the chunk
+      protocol held, every stream teacher-forced on the loaded tree
+      (``teacher_forced_check``, the decision under its grammar), every
+      int8 serving kernel launched under the serve's launch rules and no
+      older body (counts set to 0 after the build). It prints the write and
+      load seconds, the memory, and each turn's TTFT from Kafka ingress and
+      its response's decode rate. The directory is removed at the end."""
+    import resource
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import finchat_tpu_torch.serve.app as app_mod
+    from finchat_tpu_torch.checkpoints.hf_loader import load_llama_params
+    from finchat_tpu_torch.embed.encoder import EMBED_PRESETS, EmbeddingEncoder, init_bert_params
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.io.kafka import InMemoryBroker, KafkaClient
+    from finchat_tpu_torch.io.store import InMemoryStore
+    from finchat_tpu_torch.models.llama import PRESETS, init_params
+    from finchat_tpu_torch.models.quant import QTensor, quantize_stacked
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.utils.config import (AI_RESPONSE_TOPIC, USER_MESSAGE_TOPIC, KafkaConfig,
+                                                load_config)
+    from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    t_phase = time.perf_counter()
+    spec = PLANES["int8+kv8"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.gettempdir()
+    free_gb = shutil.disk_usage(root).free / 1e9
+    log(f"  checkpoint ({card}): {free_gb:.1f} GB free under {root} (the phase needs "
+        f"{CKPT_MIN_FREE_GB:.0f}); peak RSS of the process so far "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB")
+    if free_gb < CKPT_MIN_FREE_GB:
+        fail(f"checkpoint: {free_gb:.1f} GB free under {root}, the phase needs "
+             f"{CKPT_MIN_FREE_GB:.0f} GB for the 8B checkpoint")
+    tmp = Path(tempfile.mkdtemp(prefix="finchat-ckpt-"))
+    out: dict = dict(free_gb=free_gb)
+    try:
+        base_cfg = load_config(overrides={"model.preset": "llama3-8b"})
+        config = PRESETS["llama3-8b"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(base_cfg.model.seed)
+        source = init_params(config, gen, dev)
+        embed_cfg = EMBED_PRESETS["bge-base-en"]
+        bgen = torch.Generator(device=dev)
+        bgen.manual_seed(1)
+        bge = init_bert_params(embed_cfg, bgen, dev)
+        torch.cuda.synchronize()
+        llama_dir, bge_dir = tmp / "llama3-8b", tmp / "bge-base-en"
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            write_hf_llama(torch, source, config, llama_dir)
+            write_hf_bert(torch, bge, embed_cfg, bge_dir)
+            out["write_s"] = time.perf_counter() - t0
+        out["write_rss_peak_gb"] = rss.peak / 1e9
+        rss_growth = {"write": (rss.peak - rss.start) / 1e9}
+        out["checkpoint_gb"] = sum(f.stat().st_size for f in llama_dir.glob("*.safetensors")) / 1e9
+        log(f"  checkpoint write ({card}): llama3-8b {out['checkpoint_gb']:.2f} GB in "
+            f"{CKPT_SHARDS} shards and bge-base-en in {out['write_s']:.1f} s; peak RSS "
+            f"{out['write_rss_peak_gb']:.2f} GB")
+
+        # the bf16 load, against the source tree
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            loaded = load_llama_params(llama_dir, config, device=dev)
+            torch.cuda.synchronize()
+            out["bf16_load_s"] = time.perf_counter() - t0
+        out["bf16_load_rss_peak_gb"] = rss.peak / 1e9
+        rss_growth["bf16_load"] = (rss.peak - rss.start) / 1e9
+        out["bf16_load_peak_above_source_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        want = dict(tree_leaves(source))
+        got = dict(tree_leaves(loaded))
+        bad = [n for n in want if n not in got or not bit_equal(torch, got[n], want[n])]
+        log(f"  checkpoint bf16 load ({card}): {len(got)} leaves in {out['bf16_load_s']:.1f} s, "
+            f"{len(want) - len(bad)}/{len(want)} bit-equal to the source; device memory above "
+            f"the source tree at peak {out['bf16_load_peak_above_source_gb']:.2f} GB; peak RSS "
+            f"{out['bf16_load_rss_peak_gb']:.2f} GB")
+        if bad or sorted(got) != sorted(want):
+            fail(f"checkpoint: the bf16 load differs from the source at {bad or sorted(got)}")
+        del loaded, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the int8 load, quantized at load, against quantize_stacked of the source
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            q = load_llama_params(llama_dir, config, device=dev, quant="int8")
+            torch.cuda.synchronize()
+            out["int8_load_s"] = time.perf_counter() - t0
+        out["int8_load_rss_peak_gb"] = rss.peak / 1e9
+        rss_growth["int8_load"] = (rss.peak - rss.start) / 1e9
+        out["int8_load_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        out["int8_tree_gb"] = sum(t.numel() * t.element_size() for _n, t in tree_leaves(q)) / 1e9
+        largest = max(t.numel() * t.element_size() for _n, t in tree_leaves(source))
+        out["largest_bf16_leaf_gb"] = largest / 1e9
+        n_leaves, bad = 0, []
+        for group in ("", "layers"):
+            tree, src = (q, source) if not group else (q[group], source[group])
+            for name, leaf in tree.items():
+                if isinstance(leaf, dict):
+                    continue
+                n_leaves += 1
+                ref = quantize_stacked(src[name], mode="int8") if isinstance(leaf, QTensor) \
+                    else src[name]
+                pairs = [(leaf.q, ref.q), (leaf.scale, ref.scale)] if isinstance(leaf, QTensor) \
+                    else [(leaf, ref)]
+                if not all(bit_equal(torch, a, b) for a, b in pairs):
+                    bad.append(f"{group}/{name}".lstrip("/"))
+                del ref, pairs
+        log(f"  checkpoint int8 load ({card}): {n_leaves} leaves in {out['int8_load_s']:.1f} s, "
+            f"{n_leaves - len(bad)}/{n_leaves} bit-equal to quantize_stacked of the source; peak "
+            f"device memory of the load {out['int8_load_peak_gb']:.2f} GB (the int8 tree "
+            f"{out['int8_tree_gb']:.2f} GB + the largest bf16 leaf {largest / 1e9:.2f} GB = "
+            f"{out['int8_tree_gb'] + largest / 1e9:.2f}); peak RSS "
+            f"{out['int8_load_rss_peak_gb']:.2f} GB")
+        if bad:
+            fail(f"checkpoint: the int8 load differs from quantize_stacked of the source at {bad}")
+        del q, source
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["rss_peak_process_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        out["rss_growth_gb"] = rss_growth
+        log(f"  checkpoint host memory ({card}): RSS grew by at most "
+            + ", ".join(f"{k} {v:.2f} GB" for k, v in rss_growth.items())
+            + f" over the 16 GB streamed; the process's peak RSS {out['rss_peak_process_gb']:.2f} GB")
+        # one tensor's host copy (the 1 GB embedding or head) at a time, not the tree
+        if max(rss_growth.values()) > CKPT_MAX_RSS_GROWTH_GB:
+            fail(f"checkpoint: the streamed write or a load grew the RSS by more than "
+                 f"{CKPT_MAX_RSS_GROWTH_GB} GB: {rss_growth}")
+
+        # serve both checkpoints through build_app on the int8+kv8 plane
+        cfg = load_config(overrides={
+            "model.preset": "llama3-8b", "model.checkpoint_path": str(llama_dir),
+            "model.quant": "int8", "engine.kv_quant": "int8", "embed.preset": "bge-base-en",
+            "embed.checkpoint_path": str(bge_dir), "engine.max_new_tokens": AGENT_NEW,
+            "engine.temperature": 0.0, "kafka.commit_after_process": True,
+            "engine.session_cache_disk_path": f"{tmp}/sessions", "journal.path": f"{tmp}/journal",
+            "tracing.flight_dir": f"{tmp}/flight"})
+        store = InMemoryStore()
+        t_hist = int(time.time()) - 600
+        for i in range(CKPT_TURNS):
+            store.upsert_context(f"ckpt-{i}", _app_context(i))
+            store.add_user_message(f"ckpt-{i}", MESSAGES[i], f"user-app-{i}", timestamp=t_hist)
+        broker = InMemoryBroker()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        app = app_mod.build_app(cfg, store=store, kafka=KafkaClient(cfg.kafka, broker=broker),
+                                device=dev)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        out["app_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+        sched = app.scheduler
+        engine = sched.engine
+        config = engine.config
+        tok = app.agent.tool_generator.tokenizer
+        query = "What did I spend on groceries and rent last month?"
+        source_encoder = EmbeddingEncoder(embed_cfg, bge, tok, batch_size=cfg.embed.batch_size,
+                                          device=dev)
+        got_v = app.retriever.encoder.embed_query(query)
+        want_v = source_encoder.embed_query(query)
+        out["embedding_bit_equal"] = bool(np.array_equal(got_v.view(np.uint32),
+                                                         want_v.view(np.uint32)))
+        log(f"  checkpoint app ({card}): build_app over both checkpoints in {out['build_s']:.1f} s "
+            f"({engine.compiled_variants} step variants warmed up; {out['app_gb']:.2f} GB); the "
+            f"app's encoder embeds a query bit-equal to the source encoder: "
+            f"{out['embedding_bit_equal']}")
+        if not out["embedding_bit_equal"] or not isinstance(engine.params["layers"]["mlp_up"],
+                                                            QTensor):
+            fail("checkpoint: the app's encoder differs from the source, or its weights are not "
+                 "the int8 load")
+        del source_encoder, bge
+        app.agent.tool_sampling = SamplingParams(temperature=0.0, max_new_tokens=DECISION_NEW,
+                                                 grammar="tool_call")
+        handles: list = []
+        submit = sched.submit
+
+        async def recording_submit(*a, **k):
+            h = await submit(*a, **k)
+            handles.append(h)
+            return h
+
+        sched.submit = recording_submit
+        counts = _Counts(engine)
+        watcher = KafkaClient(KafkaConfig(), broker=broker)
+        watcher.setup_consumer(topics=[AI_RESPONSE_TOPIC])
+        producer = KafkaClient(KafkaConfig(), broker=broker)
+        outbound: list = []
+        payloads: dict = {}
+
+        def completes() -> int:
+            while (m := watcher.poll_message()) is not None:
+                outbound.append(m.value())
+            return sum(json.loads(v).get("type") == "complete" for v in outbound)
+
+        m0 = METRICS.snapshot()
+        reset_launches()
+        TRACER.clear()
+        try:
+            await app.start(serve_http=False)
+            t0 = time.perf_counter()
+            for i in range(CKPT_TURNS):
+                payload = {"message": MESSAGES[i], "conversation_id": f"ckpt-{i}",
+                           "user_id": f"user-app-{i}", "message_id": f"ckpt-m{i}"}
+                payloads[payload["message_id"]] = payload
+                producer.produce_message(USER_MESSAGE_TOPIC, payload["conversation_id"], payload)
+            await _wait_for(lambda: completes() >= CKPT_TURNS,
+                            "checkpoint: the turns did not complete", APP_WAIT_S)
+            await _wait_for(lambda: not app._inflight, "checkpoint: a message stayed in flight")
+            out["turns_s"] = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
+            rounds = _metric_delta(METRICS, m0, "finchat_mixed_dispatches_total")
+            missing = [k for k in spec["kernels"] if launches[k] == 0]
+            if missing:
+                fail(f"checkpoint: int8 serving kernels not launched on the app's path: {missing}")
+            check_window("int8+kv8", "checkpoint turns", spec, config, launches, counts,
+                         decode_steps, rounds)
+            out["launches"] = {k: v for k, v in launches.items() if v}
+            await app.drain_and_stop()
+            completes()
+        finally:
+            sched.submit = submit
+            counts.close()
+            watcher.close()
+        texts = _check_chunks("checkpoint", outbound, payloads)
+        vocab = await app.agent.tool_generator._grammar_vocabs["tool_call"]
+        checks, rows = [], []
+        for h in handles:
+            if not (h.finished and h.generated > 0):
+                continue
+            _stream_ended("int8+kv8", "checkpoint", h, tok.eos_id)
+            decision = h.conversation_id.endswith("#tool")
+            checks.append(teacher_forced_check(torch, engine.params, config, h, "int8",
+                                               vocab=vocab if decision else None))
+        for mid in payloads:
+            response = [h for h in handles
+                        if h.trace_id == mid and h.conversation_id.endswith("#resp")]
+            ingress = next((ev[0] for ev in TRACER.snapshot()
+                            if ev[1] == mid and ev[2] == "ingress"), None)
+            if ingress is None or not response or response[-1].first_token_at is None:
+                fail(f"checkpoint: {mid} has no ingress or response first token")
+            r = response[-1]
+            span = (r.last_token_at or r.first_token_at) - r.first_token_at
+            rows.append(dict(message_id=mid, ttft_s=r.first_token_at - ingress,
+                             response_tokens=r.generated, chunk_chars=len(texts[mid]),
+                             decode_tokens_per_s=(r.generated - 1) / span if span > 0 else None))
+            log(f"  checkpoint turn {mid} ({card}): TTFT from ingress {rows[-1]['ttft_s']:.3f} s; "
+                f"response {r.generated} tokens"
+                + ("" if rows[-1]["decode_tokens_per_s"] is None else
+                   f" at {rows[-1]['decode_tokens_per_s']:.1f} tokens/s")
+                + f", {rows[-1]['chunk_chars']} text chars")
+        if len(checks) < 2 * CKPT_TURNS:
+            fail(f"checkpoint: {len(checks)} streams finished, want a decision and a response "
+                 f"for each of {CKPT_TURNS} turns")
+        out.update(turns=rows, teacher_forced=checks,
+                   ttft_p50_s=statistics.median(r["ttft_s"] for r in rows))
+        del app, engine, sched, handles, recording_submit, submit
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  checkpoint ({card}): write {out['write_s']:.1f} s, bf16 load "
+        f"{out['bf16_load_s']:.1f} s, int8 load {out['int8_load_s']:.1f} s (peak "
+        f"{out['int8_load_peak_gb']:.2f} GB); {CKPT_TURNS} turns, TTFT p50 "
+        f"{out['ttft_p50_s']:.3f} s, {len(out['teacher_forced'])} streams teacher-forced; the "
+        f"phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attention_decode_sm90" in n:
@@ -5822,6 +6296,11 @@ def main() -> None:
             log("app: " + json.dumps(app))
             log("phase 3, cli: python -m finchat_tpu_torch (llama3-8b, bf16) in a subprocess")
             log("cli: " + json.dumps(cli_phase(torch, card)))
+            log("phase 3, checkpoint: llama3-8b and bge-base-en written as HF safetensors "
+                "checkpoints, loaded (bf16; int8 at load) and served through build_app "
+                "(int8+kv8)")
+            ckpt = asyncio.run(checkpoint_phase(torch, dev, card))
+            log("checkpoint: " + json.dumps(ckpt))
 
     log("phase 5b, decode_planes: llama3-8b (bf16 and int8+kv8, random weights): the fused "
         "decode loop (a CUDA graph a block), spec decode, the free-running loop")
@@ -5899,6 +6378,7 @@ def main() -> None:
     launched["retrieval_ingest"] = retrieval["launches"]["ingest"]
     launched["retrieval_query"] = retrieval["launches"]["query"]
     launched["spec"] = planes["bf16 spec3"]["launches"]
+    launched["checkpoint"] = ckpt["launches"]
     table = []
     for r in results:
         kname = r["kernel"]
@@ -5914,6 +6394,8 @@ def main() -> None:
         for key in ("wrapper_ms", "pair_ms"):
             if key in r:
                 row[key] = r[key]
+        # the same kernel's launches in the checkpoint phase's serve
+        row["checkpoint_launches"] = launched["checkpoint"].get(kname, 0)
         table.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -77,31 +77,36 @@ def symmetric_scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:
     return num / torch.full_like(num, qmax)
 
 
+def _amax(w32: torch.Tensor, dim: int) -> torch.Tensor:
+    """``|w|.amax(dim)`` as ``max(w.amax(dim), -w.amin(dim))``: the same
+    values, without a full-size ``abs`` temporary."""
+    return torch.maximum(w32.amax(dim=dim), w32.amin(dim=dim).neg_())
+
+
 def quantize(w: torch.Tensor) -> QTensor:
-    """Symmetric int8 per-output-column quantization of ``w[..., K, N]``."""
-    w32 = w.float()
-    amax = w32.abs().amax(dim=-2)  # [..., N]
-    scale = symmetric_scale(amax, 127.0)
-    q = torch.clamp(torch.round(w32 / scale[..., None, :]), -127, 127).to(torch.int8)
+    """Symmetric int8 per-output-column quantization of ``w[..., K, N]``.
+    One fp32 copy of ``w`` is the only full-size temporary (the division,
+    rounding and clamp run in place on it)."""
+    w32 = w.to(torch.float32, copy=True)
+    scale = symmetric_scale(_amax(w32, -2), 127.0)  # [..., N]
+    q = w32.div_(scale[..., None, :]).round_().clamp_(-127, 127).to(torch.int8)
     return QTensor(q=q, scale=scale)
 
 
 def quantize_int4(w: torch.Tensor, group_size: int = 0) -> Q4Tensor:
     """Symmetric int4 quantization of ``w[..., K, N]`` with per-group
     (``group_size`` rows of K per scale; 0 = whole column) scales."""
-    w32 = w.float()
-    K, N = w32.shape[-2:]
+    K, N = w.shape[-2:]
     if K % 2:
         raise ValueError(f"int4 packing needs an even contraction dim, got {K}")
     g = group_size or K
     if K % g or g % 2:
         raise ValueError(f"group size {g} must be even and divide K={K}")
     G = K // g
-    lead = w32.shape[:-2]
-    wg = w32.reshape(*lead, G, g, N)
-    amax = wg.abs().amax(dim=-2)  # [..., G, N]
-    scale = symmetric_scale(amax, 7.0)
-    q = torch.clamp(torch.round(wg / scale[..., None, :]), -8, 7).to(torch.int8)
+    lead = w.shape[:-2]
+    wg = w.to(torch.float32, copy=True).reshape(*lead, G, g, N)
+    scale = symmetric_scale(_amax(wg, -2), 7.0)  # [..., G, N]
+    q = wg.div_(scale[..., None, :]).round_().clamp_(-8, 7).to(torch.int8)
     q = q.reshape(*lead, K, N)
     packed = (q[..., 0::2, :] & 0x0F) | (q[..., 1::2, :] << 4)
     return Q4Tensor(q=packed, scale=scale)

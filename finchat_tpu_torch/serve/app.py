@@ -30,17 +30,20 @@ the JAX package's ``serve/app.py``, single engine).
   are preempted with a retryable ``shutting_down`` error, the session
   entries spill, and nothing is left on the pool.
 
-``build_app`` assembles a worker from an ``AppConfig``. Without an
-injected ``retriever=`` it builds the retriever the JAX package builds: the
-embedding encoder of ``embed.preset`` (random weights from a seeded
-generator, at ``embed.quant``), then a ``QdrantRetriever`` when
+``build_app`` assembles a worker from an ``AppConfig``. The model comes
+from ``model.checkpoint_path`` (an HF safetensors checkpoint, quantized at
+load with ``model.quant``) or from a seeded generator, its tokenizer from
+``model.tokenizer_path`` (an HF tokenizer). Without an injected
+``retriever=`` it builds the retriever the JAX package builds: the
+embedding encoder of ``embed.preset`` (``embed.checkpoint_path`` and
+``embed.tokenizer_path``, or random weights from a seeded generator, at
+``embed.quant``), then a ``QdrantRetriever`` when
 ``vector.url`` is set, else a ``DeviceVectorIndex`` (restored from
 ``vector.snapshot_base()`` when set) behind an ``EmbedMicrobatcher`` and a
 ``TransactionRetriever``. It refuses, with an error that names the plane,
 what the port does not carry yet: a fleet (``fleet.replicas`` > 1,
-``fleet.roles``), the warm-state fabric, a pod, a mesh of more than one
-device, and the decoder's and the encoder's checkpoint and tokenizer paths;
-every engine plane is served. The engine, the encoder and
+``fleet.roles``), the warm-state fabric, a pod and a mesh of more than one
+device; every engine plane is served. The engine, the encoder and
 the index run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -56,6 +59,8 @@ from pathlib import Path
 import torch
 
 from finchat_tpu_torch.agent.graph import LLMAgent
+from finchat_tpu_torch.checkpoints.bert_loader import load_bert_params
+from finchat_tpu_torch.checkpoints.hf_loader import load_llama_params
 from finchat_tpu_torch.embed.batcher import EmbedMicrobatcher
 from finchat_tpu_torch.embed.encoder import EMBED_PRESETS, EmbeddingEncoder, init_bert_params
 from finchat_tpu_torch.embed.index import DeviceVectorIndex
@@ -251,14 +256,20 @@ def _mesh_devices(mesh: MeshConfig, n_available: int) -> int:
 
 
 def _load_model_artifacts(cfg: AppConfig, device: str | torch.device = "cuda") -> tuple:
-    """(model config, params, tokenizer, device): random weights from a
-    ``torch.Generator`` seeded with ``model.seed``, made on the device
-    (int8/int4 leaves quantized as they are made with ``model.quant``, so
-    the full-precision tree never exists). Where no tokenizer path is given
-    and the model's rows are wider than the byte tokenizer's 260 ids, the
-    tokenizer is a ``ByteTokenizer`` as wide as the rows (its ids past 255
-    decode to nothing), so the decision's grammar masks are as wide as the
-    logits they mask."""
+    """(model config, params, tokenizer, device). ``model.checkpoint_path``
+    loads an HF safetensors checkpoint (``checkpoints/hf_loader.py``) with
+    ``model.quant`` applied at load, one leaf at a time, so the
+    full-precision tree never exists on the device; without one, random
+    weights from a ``torch.Generator`` seeded with ``model.seed``, made on
+    the device (int8/int4 leaves quantized as they are made). The tokenizer
+    is ``model.tokenizer_path``'s HF tokenizer; without one, and where the
+    model's rows are wider than the byte tokenizer's 260 ids, a
+    ``ByteTokenizer`` as wide as the rows (its ids past 255 decode to
+    nothing), so the decision's grammar masks are as wide as the logits
+    they mask. An HF tokenizer of another width than the rows is refused:
+    the JAX package's app builds it, then fails at the decision's grammar
+    mask (a mask of the tokenizer's width cannot mask a logits row of the
+    model's)."""
     device = torch.device(device)
     n_available = torch.cuda.device_count() if device.type == "cuda" else 1
     n_mesh = _mesh_devices(cfg.mesh, n_available)
@@ -273,15 +284,24 @@ def _load_model_artifacts(cfg: AppConfig, device: str | torch.device = "cuda") -
         tokenizer = ByteTokenizer(vocab_size=config.vocab_size)
     else:
         tokenizer = get_tokenizer(cfg.model.tokenizer_path)
-    logger.warning("no checkpoint configured; using RANDOM weights (preset=%s)",
-                   cfg.model.preset)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(cfg.model.seed)
-    if cfg.model.quant:
-        params = init_quantized_params(config, gen, device, mode=cfg.model.quant,
-                                       group_size=cfg.model.quant_group)
+    if cfg.model.tokenizer_path and tokenizer.vocab_size != config.vocab_size:
+        raise ValueError(
+            f"model.tokenizer_path: the tokenizer has {tokenizer.vocab_size} ids, the model "
+            f"{config.vocab_size} logits rows (preset {cfg.model.preset}); the decision's "
+            "grammar mask must be as wide as the rows")
+    if cfg.model.checkpoint_path:
+        params = load_llama_params(cfg.model.checkpoint_path, config, device=device,
+                                   quant=cfg.model.quant, quant_group=cfg.model.quant_group)
     else:
-        params = init_params(config, gen, device)
+        logger.warning("no checkpoint configured; using RANDOM weights (preset=%s)",
+                       cfg.model.preset)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(cfg.model.seed)
+        if cfg.model.quant:
+            params = init_quantized_params(config, gen, device, mode=cfg.model.quant,
+                                           group_size=cfg.model.quant_group)
+        else:
+            params = init_params(config, gen, device)
     return config, params, tokenizer, device
 
 
@@ -983,35 +1003,45 @@ def _refuse_unported(cfg: AppConfig) -> None:
         refused.append("fabric.enabled (the warm-state fabric)")
     if cfg.pod.host_id:
         refused.append(f"pod.host_id={cfg.pod.host_id!r} (the multi-host pod plane)")
-    if cfg.model.checkpoint_path:
-        refused.append("model.checkpoint_path (the checkpoint loader)")
-    if cfg.model.tokenizer_path:
-        refused.append("model.tokenizer_path (HuggingFace tokenizers)")
-    if cfg.embed.checkpoint_path:
-        refused.append("embed.checkpoint_path (the BERT checkpoint loader)")
-    if cfg.embed.tokenizer_path:
-        refused.append("embed.tokenizer_path (HuggingFace tokenizers)")
     if refused:
         raise NotImplementedError("build_app: not ported yet: " + "; ".join(refused))
 
 
 def build_retriever(cfg: AppConfig, tokenizer=None, device: str | torch.device = "cuda"):
     """The retriever ``build_app`` builds when none is injected, as the JAX
-    package builds it: the encoder of ``embed.preset`` with random weights
-    (a ``torch.Generator`` seeded with 1) on ``device`` at ``embed.quant``,
-    framing texts with ``tokenizer`` (the decoder's) or the byte tokenizer;
-    then a ``QdrantRetriever`` when ``vector.url`` is set, else the on-device
-    index (restored from ``vector.snapshot_base()`` when set) behind an
-    ``EmbedMicrobatcher`` and a ``TransactionRetriever``."""
+    package builds it: the encoder of ``embed.preset`` on ``device`` at
+    ``embed.quant``, its weights from ``embed.checkpoint_path`` (an HF BERT
+    checkpoint, ``checkpoints/bert_loader.py``) or random (a
+    ``torch.Generator`` seeded with 1), framing texts with
+    ``embed.tokenizer_path``'s tokenizer, else ``tokenizer`` (the
+    decoder's) or the byte tokenizer; then a ``QdrantRetriever`` when
+    ``vector.url`` is set, else the on-device index (restored from
+    ``vector.snapshot_base()`` when set) behind an ``EmbedMicrobatcher``
+    and a ``TransactionRetriever``."""
     embed_cfg = EMBED_PRESETS[cfg.embed.preset]
-    logger.warning(
-        "no embedding checkpoint configured; using RANDOM weights "
-        "(preset=%s) — retrieval rankings will be meaningless", cfg.embed.preset,
-    )
-    gen = torch.Generator(device=device)
-    gen.manual_seed(1)
+    if cfg.embed.checkpoint_path:
+        embed_params = load_bert_params(cfg.embed.checkpoint_path, embed_cfg, device=device)
+    else:
+        logger.warning(
+            "no embedding checkpoint configured; using RANDOM weights "
+            "(preset=%s) — retrieval rankings will be meaningless", cfg.embed.preset,
+        )
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+        embed_params = init_bert_params(embed_cfg, gen, device)
+    if cfg.embed.tokenizer_path:
+        embed_tokenizer = get_tokenizer(cfg.embed.tokenizer_path)
+    else:
+        if cfg.embed.checkpoint_path:
+            logger.warning(
+                "embed.checkpoint_path is set but embed.tokenizer_path is "
+                "not; falling back to the LLM/byte tokenizer, whose ids "
+                "will NOT match the BERT vocab — retrieval rankings will "
+                "be meaningless. Set FINCHAT_EMBED_TOKENIZER."
+            )
+        embed_tokenizer = tokenizer or get_tokenizer()
     encoder = EmbeddingEncoder(
-        embed_cfg, init_bert_params(embed_cfg, gen, device), tokenizer or get_tokenizer(),
+        embed_cfg, embed_params, embed_tokenizer,
         batch_size=cfg.embed.batch_size, quant=cfg.embed.quant, device=device,
     )
     if cfg.vector.api_key and not cfg.vector.url:

@@ -25,8 +25,10 @@ built from source into ``finchat_tpu_torch/build/`` keyed by a source hash,
 so nothing reads it. ``embed`` and ``vector`` are read by ``build_app``'s
 retriever (serve/app.py ``build_retriever``): the encoder preset, its
 micro-batch, quantization and microbatcher window, the Qdrant URL, key and
-collection, the default limit and the snapshot directory; the encoder's
-checkpoint and tokenizer paths are refused until the loaders are ported.
+collection, the default limit, the snapshot directory, and the encoder's
+checkpoint and tokenizer paths. ``model.checkpoint_path`` and
+``model.tokenizer_path`` are read by ``build_app``'s model load
+(``checkpoints/hf_loader.py``, ``models/tokenizer.HFTokenizer``).
 The sections of planes not ported yet (``fleet``, ``fabric``, ``pod``,
 ``mesh``) are carried so the tree reads the same in both packages;
 ``build_app`` refuses the settings that would turn one of them on (a fleet
@@ -256,10 +258,10 @@ class EngineConfig:
 class EmbedConfig:
     """Embedding encoder (replaces the OpenAI embeddings API; embed/encoder.py).
 
-    ``checkpoint_path``: HF BertModel safetensors dir (e.g. bge-base-en-v1.5);
-    empty = random weights (dev only). Its loader is not ported yet, and
-    ``build_app`` refuses a path here, as it refuses ``tokenizer_path``
-    (a matching HF tokenizer dir; empty = the byte tokenizer).
+    ``checkpoint_path``: HF BertModel safetensors dir (e.g. bge-base-en-v1.5),
+    read by ``checkpoints/bert_loader.py``; empty = random weights (dev
+    only). ``tokenizer_path``: the matching HF tokenizer dir; empty = the
+    decoder's or the byte tokenizer.
     ``batch_size``: rows per device call during batch embedding/ingest.
     """
 

@@ -21,6 +21,14 @@ tests/test_durability.py.
 - One case per plane ``build_app`` refuses, the tokenizer-width rule, and
   the reference-side finding that rule answers: a 260-wide grammar mask
   cannot mask a wider logits row in the JAX package.
+- Over a checkpoint and tokenizers written here (``tiny`` fp32 from a seeded
+  transformers ``LlamaForCausalLM`` with a 260-id byte-level BPE, and
+  ``bge-tiny`` from a seeded ``BertModel`` with a WordPiece vocabulary),
+  both packages' ``build_app`` load them: a Kafka turn's response passes
+  gate (b) and the chunks agree wherever the tokens do, the apps' encoders
+  embed a query alike, an HF tokenizer of another width than the rows is
+  refused (the JAX app fails at the decision's mask), and with
+  ``model.quant="int8"`` the app's leaves equal the JAX app's streamed load.
 
 No wall-clock assertion: a case waits on the broker's log or on a
 counter, never on a duration.
@@ -815,10 +823,6 @@ REFUSALS = {
     "fleet": ({"fleet.replicas": 2}, "fleet.replicas"),
     "fabric": ({"fabric.enabled": True}, "fabric.enabled"),
     "pod": ({"pod.host_id": "host-a"}, "pod.host_id"),
-    "checkpoint": ({"model.checkpoint_path": "/ckpt"}, "model.checkpoint_path"),
-    "tokenizer": ({"model.tokenizer_path": "/tok"}, "model.tokenizer_path"),
-    "embed_checkpoint": ({"embed.checkpoint_path": "/bge"}, "embed.checkpoint_path"),
-    "embed_tokenizer": ({"embed.tokenizer_path": "/bge-tok"}, "embed.tokenizer_path"),
     "mesh": ({"model.preset": "tiny", "mesh.data": 2, "mesh.model": 1}, "mesh"),
 }
 
@@ -867,3 +871,216 @@ def test_reference_grammar_mask_cannot_mask_a_wider_logits_row():
         JaxTokenConstraint(vocab).pick(logits, 0.0, np.random.default_rng(0))
     ok = JaxTokenConstraint(vocab).pick(logits[:260], 0.0, np.random.default_rng(0))
     assert 0 <= ok < 260
+
+
+# --- checkpoints and HF tokenizers through build_app -----------------------------
+
+TINY_HF = dict(vocab_size=260, hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=2, intermediate_size=256, max_position_embeddings=2048,
+               rope_theta=10_000.0, rms_norm_eps=1e-5)
+BGE_TINY_HF = dict(vocab_size=260, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                   intermediate_size=128, max_position_embeddings=512, type_vocab_size=2,
+                   hidden_act="gelu", layer_norm_eps=1e-12)
+TOKEN_CORPUS = [SYSTEM, TOOL, "What did I spend on coffee?", "How am I doing?",
+                "Hello there friend", "retrieve_transactions coffee"]
+
+
+def _bpe_tokenizer(path, vocab_size: int) -> None:
+    """A byte-level BPE of ``vocab_size`` ids: 256 bytes, 3 specials, the
+    rest merges."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+
+    tok = Tokenizer(models.BPE(unk_token=None))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(TOKEN_CORPUS, trainers.BpeTrainer(
+        vocab_size=vocab_size, special_tokens=["<s>", "</s>", "<pad>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    assert tok.get_vocab_size() == vocab_size
+    path.mkdir(parents=True, exist_ok=True)
+    tok.save(str(path / "tokenizer.json"))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast",
+        "bos_token": "<s>", "eos_token": "</s>", "pad_token": "<pad>"}))
+
+
+def _wordpiece_tokenizer(path) -> None:
+    from tokenizers import Tokenizer, decoders, models, normalizers, pre_tokenizers, processors
+
+    vocab = {t: i for i, t in enumerate(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"])}
+    for ch in "abcdefghijklmnopqrstuvwxyz0123456789.,?!'$-":
+        vocab.setdefault(ch, len(vocab))
+        vocab.setdefault("##" + ch, len(vocab))
+    for word in ("coffee", "spend", "what", "did", "on", "how", "am", "doing"):
+        vocab.setdefault(word, len(vocab))
+    tok = Tokenizer(models.WordPiece(vocab, unk_token="[UNK]"))
+    tok.normalizer = normalizers.BertNormalizer(lowercase=True)
+    tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tok.decoder = decoders.WordPiece()
+    tok.post_processor = processors.BertProcessing(("[SEP]", 3), ("[CLS]", 2))
+    path.mkdir(parents=True, exist_ok=True)
+    tok.save(str(path / "tokenizer.json"))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "cls_token": "[CLS]",
+        "sep_token": "[SEP]", "pad_token": "[PAD]", "unk_token": "[UNK]",
+        "mask_token": "[MASK]"}))
+
+
+@pytest.fixture(scope="module")
+def artifacts(tmp_path_factory):
+    """An HF ``tiny`` Llama checkpoint (fp32), its 260-id tokenizer, a
+    ``bge-tiny`` BERT checkpoint and its WordPiece tokenizer, all seeded."""
+    transformers = pytest.importorskip("transformers")
+    from safetensors.torch import save_file as st_save
+
+    root = tmp_path_factory.mktemp("app_ckpt")
+    torch.manual_seed(17)
+    llama = transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        **TINY_HF, attn_implementation="eager")).eval()
+    (root / "llama").mkdir()
+    st_save({k: v.detach().float().contiguous() for k, v in llama.state_dict().items()},
+            str(root / "llama" / "model.safetensors"))
+    (root / "llama" / "config.json").write_text(json.dumps({**TINY_HF, "model_type": "llama"}))
+    torch.manual_seed(18)
+    bert = transformers.BertModel(transformers.BertConfig(
+        **BGE_TINY_HF, attn_implementation="eager")).eval()
+    (root / "bge").mkdir()
+    st_save({k: v.detach().float().contiguous() for k, v in bert.state_dict().items()},
+            str(root / "bge" / "model.safetensors"))
+    (root / "bge" / "config.json").write_text(json.dumps({**BGE_TINY_HF, "model_type": "bert"}))
+    _bpe_tokenizer(root / "tok", 260)
+    _wordpiece_tokenizer(root / "bge-tok")
+    return root
+
+
+def _ckpt_overrides(root, **extra) -> dict:
+    return {"model.preset": "tiny", "model.dtype": "float32",
+            "model.checkpoint_path": str(root / "llama"), "model.tokenizer_path": str(root / "tok"),
+            "embed.preset": "bge-tiny", "embed.checkpoint_path": str(root / "bge"),
+            "embed.tokenizer_path": str(root / "bge-tok"), "engine.warmup_on_start": False,
+            **extra}
+
+
+def _jax_checkpoint_logits(root, ids: list[int]) -> np.ndarray:
+    from finchat_tpu.checkpoints.hf_loader import load_llama_params as jax_load
+
+    jcfg = dataclasses.replace(jllama.PRESETS["tiny"], dtype=jnp.float32)
+    jparams = jax_load(str(root / "llama"), jcfg)
+    x = jnp.asarray([ids], jnp.int32)
+    return np.asarray(jllama.forward_full(jparams, x, jnp.arange(len(ids))[None], config=jcfg,
+                                          attn_backend="ref"))[0]
+
+
+def test_kafka_turn_over_a_checkpoint_matches_jax(artifacts, short_prompts, one_thread):
+    """Both packages' ``build_app`` over the same checkpoint, tokenizer, BERT
+    checkpoint and BERT tokenizer (a stub decision that retrieves, the
+    response on each app's own engine, each app's own retriever): the
+    port's response passes gate (b) against the JAX forward on the JAX
+    load, both apps render the same prompt ids through their HF
+    tokenizers, the chunks are byte-equal wherever the tokens are, and the
+    apps' encoders embed the query alike."""
+    async def run(name):
+        side = SIDES[name]
+        cfg = _engine_cfg(side, **_ckpt_overrides(artifacts))
+        store = side.Store()
+        store.upsert_context("c1", CONTEXT_DOC)
+        store.add_user_message("c1", "How am I doing?", "u9", timestamp=100)
+        broker = side.Broker()
+        kw = {"device": "cpu"} if name == "port" else {}
+        app = side.build_app(cfg, store=store, kafka=side.Client(cfg.kafka, broker=broker),
+                             tool_generator=side.Stub(default=RETRIEVE), **kw)
+        sched = app.scheduler
+        handles = _recording(sched)
+        tok = app.agent.response_generator.tokenizer
+        embedding = app.retriever.encoder.embed_query("What did I spend on coffee?")
+        await sched.start()
+        try:
+            answered = await app.process_message(
+                kafka_msg(side, inbound("What did I spend on coffee?", message_id="mk-c")))
+        finally:
+            await sched.stop()
+        return answered, handles, drained(broker), tok, embedding
+
+    got = {name: asyncio.run(run(name)) for name in SIDES}
+    answered, handles, out, tok, embedding = got["port"]
+    janswered, jhandles, jout, jtok, jembedding = got["jax"]
+    assert answered and janswered
+    assert type(tok).__name__ == "HFTokenizer" and tok.vocab_size == jtok.vocab_size == 260
+    # bge-tiny runs in bf16 in both packages: held as test_torch_embed.py
+    # holds the bf16 encoders, by cosine
+    cosine = float(embedding @ jembedding / np.linalg.norm(embedding) / np.linalg.norm(jembedding))
+    assert cosine >= 0.999, cosine
+    response, jresponse = handles[-1], jhandles[-1]
+    prompt = list(response.prompt_ids)
+    assert prompt == list(jresponse.prompt_ids) and max(prompt) >= 256  # merged BPE ids
+    served = list(response.history[len(prompt):])
+    logits = _jax_checkpoint_logits(artifacts, prompt + served[:-1])[len(prompt) - 1:]
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > MARGIN
+    assert decided.sum() > 0
+    assert all(logits[i].argmax() == served[i] for i in range(len(served)) if decided[i])
+    jserved = list(jresponse.history[len(prompt):])
+    n = next((k for k, (a, b) in enumerate(zip(served, jserved)) if a != b), None)
+    chunks = [json.loads(v) for v in out]
+    assert chunks[-1]["type"] == "complete"
+    assert "".join(c["message"] for c in chunks if c.get("type") == "response_chunk") == \
+        tok.decode([t for t in served if t != tok.eos_id])
+    if n is None:
+        assert served == jserved and out == jout
+    else:  # the packages parted at a near tie of the JAX forward
+        row = _jax_checkpoint_logits(artifacts, prompt + jserved[:n])[-1]
+        top = np.sort(row)[-2:]
+        assert top[1] - top[0] <= MARGIN, (n, served[n], jserved[n], top)
+
+
+def test_int8_app_leaves_equal_the_jax_apps_streamed_load(artifacts):
+    overrides = _ckpt_overrides(artifacts, **{"model.quant": "int8"})
+    config, params, tok, _dev = tapp._load_model_artifacts(load_config(overrides=overrides),
+                                                           "cpu")
+    _jc, jparams, jtok, _mesh = japp._load_model_artifacts(jax_load_config(overrides=overrides))
+    assert tok.vocab_size == jtok.vocab_size == config.vocab_size
+
+    def flat(tree, prefix=""):
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                yield from flat(value, f"{prefix}{name}/")
+            elif hasattr(value, "q"):
+                yield f"{prefix}{name}.q", value.q
+                yield f"{prefix}{name}.scale", value.scale
+            else:
+                yield prefix + name, value
+
+    want = dict(flat(params_from_numpy(jax.device_get(jparams), "cpu")))
+    mine = dict(flat(params))
+    assert sorted(mine) == sorted(want) and "lm_head.q" in mine and "layers/mlp_up.q" in mine
+    for name, leaf in mine.items():
+        assert leaf.dtype == want[name].dtype and torch.equal(leaf, want[name]), name
+
+
+def test_build_app_refuses_a_tokenizer_of_another_width(artifacts, tmp_path):
+    """A 300-id tokenizer over ``tiny``'s 260 rows: the JAX app builds, then
+    its decision's grammar mask (the tokenizer's width) cannot mask a
+    logits row (the model's); the port refuses at ``build_app``, naming
+    both widths."""
+    _bpe_tokenizer(tmp_path / "wide-tok", 300)
+    overrides = _ckpt_overrides(artifacts, **{"model.tokenizer_path": str(tmp_path / "wide-tok")})
+    cfg = load_config(overrides=overrides)
+    with pytest.raises(ValueError, match="the tokenizer has 300 ids, the model 260 logits rows"):
+        tapp.build_app(cfg, store=InMemoryStore(), kafka=KafkaClient(cfg.kafka,
+                                                                     broker=InMemoryBroker()),
+                       retriever=retriever, device="cpu")
+    from finchat_tpu.models.tokenizer import HFTokenizer as JaxHFTokenizer
+
+    vocab = JaxGrammarVocab.for_tokenizer(JaxHFTokenizer(str(tmp_path / "wide-tok")))
+    assert len(vocab.token_strs) == 300
+    logits = np.random.default_rng(0).standard_normal(260).astype(np.float32)
+    with pytest.raises(ValueError, match="broadcast"):
+        JaxTokenConstraint(vocab).pick(logits, 0.0, np.random.default_rng(0))
+
+
+def test_embed_checkpoint_without_tokenizer_warns_as_jax(artifacts, caplog):
+    overrides = _ckpt_overrides(artifacts, **{"embed.tokenizer_path": ""})
+    with caplog.at_level("WARNING"):
+        r = tapp.build_retriever(load_config(overrides=overrides), None, "cpu")
+    assert "embed.checkpoint_path is set but embed.tokenizer_path is not" in caplog.text
+    assert isinstance(r.encoder.tokenizer, ByteTokenizer)

@@ -1752,3 +1752,62 @@ def test_bounded_kv_waves_keep_the_graph_and_its_storage(dev, kv_quant):
         nxt = gap + bp.plan_eviction(ctx - gap, 1, cap, bp.sink_pages) * 64
         assert h.kv_gap in (gap, nxt), (h.seq_id, h.kv_gap, gap, nxt)
     assert sched.allocator.used_count == 0
+
+
+# --- HF checkpoints loaded onto the card ---------------------------------------------
+
+
+def _card_checkpoint(dev, path):
+    """``mini``'s widths at ``llama3-8b``'s 32 layers (a layer slice is 1/32
+    of a stacked leaf, as at 8B), seeded random bf16 weights on the card,
+    written as an HF checkpoint of two shards by ``chip_smoke``'s writer."""
+    import dataclasses
+
+    import chip_smoke
+    from finchat_tpu_torch.models.llama import PRESETS, init_params
+
+    config = dataclasses.replace(PRESETS["mini"], n_layers=32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    params = init_params(config, g, dev)
+    chip_smoke.write_hf_llama(torch, params, config, path, n_shards=2)
+    return config, params
+
+
+def test_checkpoint_loads_bit_equal_on_the_card(dev, tmp_path):
+    """The bf16 load puts every leaf on the card bit-equal to the tree that
+    was written; the int8 load gives ``quantize_stacked`` of each matmul
+    leaf bit for bit, and its peak device memory stays under the int8 tree
+    plus one bf16 leaf plus 10 %."""
+    import chip_smoke
+    from finchat_tpu_torch.checkpoints.hf_loader import load_llama_params
+    from finchat_tpu_torch.models.quant import QTensor, quantize_stacked
+
+    config, source = _card_checkpoint(dev, tmp_path / "ckpt")
+    loaded = load_llama_params(tmp_path / "ckpt", config, device=dev)
+    want = dict(chip_smoke.tree_leaves(source))
+    got = dict(chip_smoke.tree_leaves(loaded))
+    assert sorted(got) == sorted(want)
+    assert all(v.device.type == "cuda" for v in got.values())
+    assert [n for n in want if not chip_smoke.bit_equal(torch, got[n], want[n])] == []
+    del loaded, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    q = load_llama_params(tmp_path / "ckpt", config, device=dev, quant="int8")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    tree = sum(t.numel() * t.element_size() for _n, t in chip_smoke.tree_leaves(q))
+    leaf = max(t.numel() * t.element_size() for t in want.values())
+    assert peak <= 1.10 * (tree + leaf), (peak, tree, leaf)
+    for name, leaf_q in [*q["layers"].items(), ("lm_head", q["lm_head"])]:
+        src = source["layers"][name] if name in source["layers"] else source[name]
+        if isinstance(leaf_q, QTensor):
+            ref = quantize_stacked(src, mode="int8")
+            assert chip_smoke.bit_equal(torch, leaf_q.q, ref.q), name
+            assert chip_smoke.bit_equal(torch, leaf_q.scale, ref.scale), name
+        else:
+            assert chip_smoke.bit_equal(torch, leaf_q, src), name
+    assert isinstance(q["lm_head"], QTensor) and chip_smoke.bit_equal(torch, q["embed"],
+                                                                       source["embed"])

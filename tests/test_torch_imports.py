@@ -83,3 +83,24 @@ def test_the_decode_planes_modules_are_walked(module):
     copies), and the engine and scheduler that carry the decode loop, spec
     decode and the free-running loop, are among the files walked above."""
     assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["checkpoints/__init__.py", "checkpoints/safetensors_io.py",
+                                    "checkpoints/hf_loader.py", "checkpoints/bert_loader.py",
+                                    "checkpoints/native_io.py", "models/tokenizer.py"])
+def test_the_checkpoint_modules_are_walked(module):
+    """The safetensors reader and writer, both HF loaders, native
+    save/restore and the tokenizers are among the files walked above."""
+    assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_needs_no_hf_package_but_tokenizers(path):
+    """The card's machine has none of ``safetensors``, ``transformers`` and
+    ``tokenizers``: the port reads and writes safetensors with its own code,
+    and only ``models/tokenizer.py`` imports ``tokenizers``, inside
+    ``HFTokenizer``, for a tokenizer path."""
+    tops = {m.split(".")[0] for m in _imported_modules(path)}
+    assert not tops & {"safetensors", "transformers", "huggingface_hub"}, path
+    if "tokenizers" in tops:
+        assert path == ROOT / "finchat_tpu_torch" / "models" / "tokenizer.py"
