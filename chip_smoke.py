@@ -328,6 +328,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    decode step's at the served context. Phase 2's ``paged_verify_c4``
    cases (the verify step's C = 4 query tokens a slot: B=64 over 1-4k
    tokens, B=8 at 5,236) take their launches from the spec run's window.
+5d. The engine fleet (``fleet_phase``): ``build_app`` with three
+   ``llama3-8b`` bf16 replicas, ``fleet.roles`` "prefill,decode,decode",
+   over one weight tree (every engine's parameter tensors the same,
+   ``data_ptr``; each replica grows device memory by its KV pool only).
+   Four cold Kafka turns land on the decode replica the router computed in
+   this script picks, each decision and response prefilled on replica 0
+   and handed over (the handoff's seconds); a cold turn with replica 0 out
+   of the pool prefills locally (its TTFT beside the handed-off ones). A
+   turn whose response streams on replica 1 gets replica 1's decode and
+   rebuild wedged: the breaker drains it to replica 2 (its chunks decode
+   to its served tokens), probes trip replica 1 to its give-up (OUT), and
+   healed it respawns (its pool rebuilt on a worker thread while replica 2
+   serves a turn) and the drained conversation's next turn routes back,
+   migrating its session bytes. Every stream is teacher-forced; every bf16
+   serving kernel launches in the phase's window under the serve's launch
+   rules summed over the replicas (the ``fleet_launches`` of the kernels
+   line), and the drain leaves no slot or page beyond the heads.
 6. Train: first ``llama3-8b`` widths at 2 layers, B=1, S=2048 — the loss,
    every leaf's gradient and the one-shot forward's logits through K7
    against the same step with the plain attention (relative per leaf and on
@@ -346,7 +363,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 The line before the last is the ``kernels`` JSON (each row's
 ``launches`` from its plane's serve or run, ``checkpoint_launches`` from
-the checkpoint phase's serve); the last line is
+the checkpoint phase's serve, ``fleet_launches`` from the fleet phase); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or when the port package is not beside this file.
 """
@@ -5956,6 +5973,503 @@ K7_KERNELS = ("flash_attention_sm90", "flash_attention", "flash_attention_bwd",
               "flash_attention_bwd_sm90")
 
 
+# --------------------------------------------------------------------------
+# fleet_phase: three llama3-8b replicas over one weight tree, disaggregated
+# --------------------------------------------------------------------------
+
+FLEET_ROLES = "prefill,decode,decode"
+FLEET_HISTORY = 6  # prior messages a conversation holds: a residue past one prefill chunk
+# the session tier's RAM budget a replica: an 8B entry is 128 KiB a token, so
+# EngineConfig()'s 256 MB holds no entry of over ~2k own tokens, and the
+# handoff (whose wire format is the session entry) would fall back
+FLEET_SESSION_BYTES = 4 << 30
+FLEET_WAIT_S = 300.0
+FLEET_PROBES = 6  # probes sent to the wedged replica until its breaker gives up
+
+
+def plain_route(conv: str, serving: list[str], num_partitions: int) -> str:
+    """The fleet's route, computed here: the conversation's CRC32 partition,
+    then the serving replica whose blake2b weight for it is highest."""
+    import hashlib
+    import zlib
+
+    part = str(zlib.crc32(conv.encode()) % num_partitions)
+
+    def weight(cand: str) -> int:
+        return int.from_bytes(hashlib.blake2b(f"{part}\x00{cand}".encode(),
+                                              digest_size=8).digest(), "big")
+
+    return max(sorted(serving), key=weight)
+
+
+async def fleet_phase(torch, dev, card: str) -> dict:
+    """The engine fleet at ``llama3-8b``'s full width, bf16: ``build_app``
+    with ``fleet.replicas`` 3 and ``fleet.roles`` "prefill,decode,decode"
+    (random weights from ``model.seed``, every engine at ``EngineConfig()``'s
+    defaults, warmed up, the prompt heads registered on each), a stub
+    retriever and an ``InMemoryBroker``; greedy sampling so every stream is
+    teacher-forced.
+
+    - One weight tree: every engine's parameter tensors are replica 0's
+      (``data_ptr``), and each added replica grows device memory by its KV
+      pool, not by 16 GB.
+    - Routing and disaggregation: four cold Kafka turns (each conversation's
+      history puts its residue past one 512-token chunk) land on the decode
+      replica the router computed here picks (``plain_route``); each
+      decision and response prefills on replica 0 and is imported on its
+      owner (``finchat_disagg_handoffs_total``, the handoff's seconds), and
+      the owner's admission resumes from the import. One more cold turn with
+      replica 0 out of the pool prefills locally (``no_prefill_replica``):
+      its TTFT from ingress beside the handed-off turns'.
+    - Drain: a turn homed on replica 1 whose response has streamed a few
+      tokens gets ``scheduler.decode`` and ``engine.rebuild`` wedged for
+      replica 1: the breaker trips and drains the stream to replica 2,
+      where it completes; its chunks follow the protocol and decode to its
+      served tokens, which are teacher-forced.
+    - Give-up and respawn: probes to replica 1 trip it until it gives up
+      (OUT, two live replicas); healed, the supervisor revives it (the pool
+      rebuilt on a worker thread while replica 2 serves a turn) and it is
+      LIVE again with its heads; the drained conversation's next turn
+      routes back to it and migrates its session bytes
+      (``finchat_fleet_session_migrations_total``).
+
+    Launch counts are set to 0 after the build and read before the drain:
+    every bf16 serving kernel launched, under the serve's launch rules
+    summed over the replicas, and no older body."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import finchat_tpu_torch.serve.app as app_mod
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.io.kafka import InMemoryBroker, KafkaClient
+    from finchat_tpu_torch.io.store import InMemoryStore
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.serve.fleet import LIVE, OUT
+    from finchat_tpu_torch.utils import faults
+    from finchat_tpu_torch.utils.config import (AI_RESPONSE_TOPIC, USER_MESSAGE_TOPIC,
+                                                KafkaConfig, load_config)
+    from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    t_phase = time.perf_counter()
+    spec = PLANES["bf16"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="finchat-fleet-")
+    cfg = load_config(overrides={
+        "model.preset": "llama3-8b", "fleet.replicas": 3, "fleet.roles": FLEET_ROLES,
+        "fleet.respawn_backoff_seconds": 0.2, "fleet.supervisor_interval_seconds": 0.05,
+        "engine.max_new_tokens": AGENT_NEW, "engine.temperature": 0.0,
+        "engine.session_cache_bytes": FLEET_SESSION_BYTES,
+        "kafka.commit_after_process": True, "tracing.flight_dir": f"{tmp}/flight"})
+    store = InMemoryStore()
+    broker = InMemoryBroker()
+    mem: list = []
+    load, make = app_mod._load_model_artifacts, app_mod.make_engine_replica
+
+    def timed_load(*a, **k):
+        t0 = time.perf_counter()
+        out = load(*a, **k)
+        torch.cuda.synchronize()
+        mem.append(("weights", time.perf_counter() - t0, torch.cuda.memory_allocated()))
+        return out
+
+    def timed_make(*a, **k):
+        t0 = time.perf_counter()
+        out = make(*a, **k)
+        torch.cuda.synchronize()
+        mem.append((k.get("replica_id"), time.perf_counter() - t0, torch.cuda.memory_allocated()))
+        return out
+
+    app_mod._load_model_artifacts, app_mod.make_engine_replica = timed_load, timed_make
+    retriever = _TurnRetriever(structured=False)
+    t0 = time.perf_counter()
+    try:
+        app = app_mod.build_app(cfg, store=store, kafka=KafkaClient(cfg.kafka, broker=broker),
+                                retriever=retriever, device=dev)
+    finally:
+        app_mod._load_model_artifacts, app_mod.make_engine_replica = load, make
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fleet = app.fleet
+    if fleet is None or [r.role for r in fleet.replicas] != FLEET_ROLES.split(","):
+        fail(f"fleet: build_app built {fleet} with roles "
+             f"{None if fleet is None else [r.role for r in fleet.replicas]}")
+    reps = fleet.replicas
+    engines = [r.scheduler.engine for r in reps]
+    config = engines[0].config
+    tok = app.agent.tool_generator.tokenizer
+
+    # --- one weight tree -------------------------------------------------
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix[:-1], tree
+
+    ref = dict(leaves(engines[0].params))
+    shared = all(dict((k, v.data_ptr()) for k, v in leaves(e.params)) ==
+                 {k: v.data_ptr() for k, v in ref.items()} for e in engines[1:])
+    weights_gb = (mem[0][2] - base) / 1e9
+    growth = [(mem[i + 1][2] - mem[i][2]) / 1e9 for i in range(len(reps))]
+    pools = [pool_bytes(e) / 1e9 for e in engines]
+    memory = dict(weights_gb=weights_gb, weights_s=mem[0][1],
+                  replica_growth_gb=growth, replica_pool_gb=pools,
+                  replica_build_s=[m[1] for m in mem[1:]], build_s=build_s,
+                  build_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    log(f"  fleet build ({card}): build_app {build_s:.1f} s; weights {weights_gb:.2f} GB in "
+        f"{mem[0][1]:.1f} s; each replica (engine, warmup, scheduler) "
+        + ", ".join(f"+{g:.2f} GB (pool {p:.2f} GB) in {m[1]:.1f} s"
+                    for g, p, m in zip(growth, pools, mem[1:]))
+        + f"; peak {memory['build_peak_gb']:.2f} GB above the {base / 1e9:.2f} GB held before; "
+        f"one parameter tree: {shared} ({len(ref)} leaves)")
+    if not shared:
+        fail("fleet: the replicas' engines do not share one parameter tree")
+    for g, p in zip(growth, pools):
+        if not p <= g <= 1.1 * p + 0.5:
+            fail(f"fleet: a replica grew device memory by {g:.2f} GB, its pool is {p:.2f} GB")
+    for r in reps:
+        if not r.registered_heads or len(r.registered_heads) != 2:
+            fail(f"fleet: replica {r.replica_id} registered {len(r.registered_heads)} heads")
+
+    # --- the drive's bookkeeping -----------------------------------------
+    serving = [r.replica_id for r in reps if r.role != "prefill"]
+    n_part = fleet.num_partitions
+    convs, i = {"1": [], "2": []}, 0
+    while len(convs["1"]) < 3 or len(convs["2"]) < 4:
+        conv = f"fleet-{i}"
+        convs[plain_route(conv, serving, n_part)].append(conv)
+        i += 1
+    # turn 1: two conversations a decode replica at once, all handed off;
+    # then one handed-off turn alone and one prefilled locally alone (their
+    # TTFTs compared); the drained conversation (homed on 1); a turn-1
+    # conversation homed on 1 served again while 1 respawns
+    turn1 = convs["1"][:2] + convs["2"][:2]
+    alone_conv, local_conv = convs["2"][2], convs["2"][3]
+    drained_conv, during_conv = convs["1"][2], convs["1"][0]
+    cold = turn1 + [alone_conv, local_conv, drained_conv]
+    history = [f"Earlier question {k}: how much did I spend on groceries and dining out in "
+               f"week {k}, and is that more than my plan allows?" for k in range(FLEET_HISTORY)]
+    t_hist = int(time.time()) - 3600
+    for k, conv in enumerate(cold):
+        store.upsert_context(conv, _app_context(k % APP_CONVS))
+        for line in history:
+            store.add_user_message(conv, line, f"user-app-{k % APP_CONVS}", timestamp=t_hist)
+    greedy_decision = SamplingParams(temperature=0.0, max_new_tokens=DECISION_NEW,
+                                     grammar="tool_call")
+    for r in reps:
+        r.agent.tool_sampling = greedy_decision
+    handles: list = []  # (replica id, handle) of every submission
+    delivered: dict = {}  # id(handle) -> the token ids its consumer was handed
+    # id(handle) -> its prompt's length at its first token (a partial hold's
+    # prompt grows at the graft; a replay after a drain takes the stream so
+    # far as its prompt)
+    n_prompt: dict = {}
+    submits = {}
+    for r in reps:
+        submit = r.scheduler.submit
+
+        async def recording(*a, _submit=submit, _rid=r.replica_id, **k):
+            h = await _submit(*a, **k)
+            handles.append((_rid, h))
+            put, seen = h.events.put_nowait, delivered.setdefault(id(h), [])
+
+            def put_recorded(ev, _put=put, _seen=seen, _h=h):
+                if ev.get("type") == "token":
+                    if not _seen:
+                        n_prompt[id(_h)] = len(_h.history) - 1
+                    _seen.append(ev["token_id"])
+                _put(ev)
+
+            h.events.put_nowait = put_recorded
+            return h
+
+        submits[r.replica_id] = submit
+        r.scheduler.submit = recording
+    counts = {r.replica_id: _Counts(r.scheduler.engine) for r in reps}
+    watcher = KafkaClient(KafkaConfig(), broker=broker)
+    watcher.setup_consumer(topics=[AI_RESPONSE_TOPIC])
+    producer = KafkaClient(KafkaConfig(), broker=broker)
+    outbound: list = []
+    payloads: dict = {}
+
+    def drain_watcher() -> None:
+        while (m := watcher.poll_message()) is not None:
+            outbound.append(m.value())
+
+    def produce(conv: str, mid: str) -> None:
+        k = cold.index(conv) % APP_CONVS
+        payload = {"message": MESSAGES[len(payloads) % len(MESSAGES)], "conversation_id": conv,
+                   "user_id": f"user-app-{k}", "message_id": mid}
+        store.add_user_message(conv, payload["message"], payload["user_id"])
+        payloads[mid] = payload
+        producer.produce_message(USER_MESSAGE_TOPIC, conv, payload)
+
+    def completes() -> int:
+        drain_watcher()
+        return sum(json.loads(v).get("type") == "complete" for v in outbound)
+
+    def of(conv: str, role: str) -> list:
+        """The turn's own submissions (a prefill pass on replica 0 carries
+        the same session key)."""
+        return [(rid, h) for rid, h in handles if h.conversation_id == f"{conv}#{role}"
+                and not h.seq_id.startswith("__disagg_")]
+
+    def ttft_from_ingress(mid: str, conv: str) -> float:
+        ingress = next(ev[0] for ev in TRACER.snapshot() if ev[1] == mid and ev[2] == "ingress")
+        return of(conv, "resp")[-1][1].first_token_at - ingress
+
+    def handoff_seconds(m0: dict) -> dict:
+        out = {}
+        for rid in serving:
+            out[rid] = _seconds(METRICS, m0, f'finchat_disagg_handoff_seconds{{replica="{rid}"}}')
+        return out
+
+    m0 = METRICS.snapshot()
+    reset_launches()
+    TRACER.clear()
+    for c in counts.values():
+        c.reset()
+    out: dict = {"memory": memory}
+    victim = fleet._by_id["1"]
+    sibling = fleet._by_id["2"]
+    try:
+        await app.start(serve_http=False)
+        # --- turn 1: cold, handed off -------------------------------------
+        t_turn = time.perf_counter()
+        for k, conv in enumerate(turn1):
+            produce(conv, f"fleet-m{k}")
+        await _wait_for(lambda: completes() >= len(turn1), "fleet: turn 1 did not complete",
+                        FLEET_WAIT_S)
+        turn1_s = time.perf_counter() - t_turn
+        routes = {conv: sorted({rid for rid, _h in of(conv, "tool") + of(conv, "resp")})
+                  for conv in turn1}
+        want_routes = {conv: [plain_route(conv, serving, n_part)] for conv in turn1}
+        handoffs = {rid: _metric_delta(METRICS, m0, f'finchat_disagg_handoffs_total'
+                                       f'{{replica="{rid}"}}') for rid in serving}
+        passes = [h for rid, h in handles if rid == "0" and h.seq_id.startswith("__disagg_")]
+        resumed = {conv: [h.resumed_len for _rid, h in of(conv, "tool") + of(conv, "resp")]
+                   for conv in turn1}
+        log(f"  fleet turn 1 ({card}): {len(turn1)} cold Kafka turns in {turn1_s:.2f} s; routes "
+            f"{routes} (the plain router's {want_routes}); handoffs by decode replica "
+            f"{handoffs}, {len(passes)} prefill passes on replica 0; resumed tokens {resumed}")
+        if routes != want_routes:
+            fail(f"fleet: the turns did not land where the router computed here sends them")
+        if sum(handoffs.values()) < len(turn1) or len(passes) < len(turn1):
+            fail(f"fleet: the cold turns were not handed off: {handoffs}, {len(passes)} passes")
+        if not all(all(n > 0 for n in v) for v in resumed.values()):
+            fail(f"fleet: a handed-off turn did not resume from the imported KV: {resumed}")
+        ttft_turn1 = [ttft_from_ingress(f"fleet-m{k}", conv) for k, conv in enumerate(turn1)]
+        # --- one cold turn alone, handed off --------------------------------
+        h0 = sum(handoffs.values())
+        produce(alone_conv, "fleet-alone")
+        await _wait_for(lambda: completes() >= len(turn1) + 1, "fleet: the handed-off turn "
+                        "alone did not complete", FLEET_WAIT_S)
+        alone_handoffs = sum(_metric_delta(METRICS, m0, f'finchat_disagg_handoffs_total'
+                                           f'{{replica="{rid}"}}') for rid in serving) - h0
+        if alone_handoffs != 2:
+            fail(f"fleet: the turn alone made {alone_handoffs} handoffs, not its decision's and "
+                 "its response's")
+        ttft_handed = ttft_from_ingress("fleet-alone", alone_conv)
+        h0 += alone_handoffs
+        # --- a cold turn prefilled locally: replica 0 out of the pool (as
+        # after its give-up, which keeps it out of the pool; marking it OUT
+        # would have the supervisor respawn it) --------------------------
+        fb0 = METRICS.get("finchat_disagg_fallbacks_total",
+                          {"replica": "2", "reason": "no_prefill_replica"})
+        reps[0].scheduler.gave_up = True
+        produce(local_conv, "fleet-local")
+        await _wait_for(lambda: completes() >= len(turn1) + 2, "fleet: the local turn did not "
+                        "complete", FLEET_WAIT_S)
+        reps[0].scheduler.gave_up = False
+        fallbacks = METRICS.get("finchat_disagg_fallbacks_total",
+                                {"replica": "2", "reason": "no_prefill_replica"}) - fb0
+        ttft_local = ttft_from_ingress("fleet-local", local_conv)
+        if fallbacks < 1:
+            fail("fleet: the turn with no prefill replica was not counted as a fallback")
+        local_handoffs = sum(_metric_delta(METRICS, m0, f'finchat_disagg_handoffs_total'
+                                           f'{{replica="{rid}"}}') for rid in serving) - h0
+        if local_handoffs:
+            fail(f"fleet: {local_handoffs} handoffs with replica 0 out of the pool")
+        out["handoff"] = dict(handoffs=handoffs, seconds=handoff_seconds(m0), turn1_s=turn1_s,
+                              ttft_turn1_s=ttft_turn1, ttft_handed_off_alone_s=ttft_handed,
+                              ttft_local_alone_s=ttft_local, local_fallbacks=fallbacks)
+        hs = out["handoff"]["seconds"]
+        log(f"  fleet handoff ({card}): finchat_disagg_handoff_seconds "
+            + ", ".join(f"replica {rid}: {v['n']} in {v['total_s']:.3f} s" for rid, v in hs.items())
+            + f"; TTFT from ingress: turn 1 (four at once) p50 {statistics.median(ttft_turn1):.3f}"
+            f" s; a turn alone, handed off {ttft_handed:.3f} s, prefilled locally "
+            f"{ttft_local:.3f} s")
+
+        # --- the drain ------------------------------------------------------
+        d0 = METRICS.snapshot()
+        produce(drained_conv, "fleet-drain")
+        await _wait_for(lambda: any(h.generated >= 4 for _r, h in of(drained_conv, "resp")),
+                        "fleet: the drained turn's response did not stream", FLEET_WAIT_S)
+        dead = [True]
+
+        def wedge(**ctx):
+            if dead[0] and ctx.get("replica") == victim.replica_id:
+                raise RuntimeError("fleet drill: replica 1 wedged")
+
+        resp = of(drained_conv, "resp")[-1][1]
+        at_arm = resp.generated
+        faults.arm("scheduler.decode", wedge)
+        faults.arm("engine.rebuild", wedge)
+        t_arm = time.perf_counter()
+        await _wait_for(lambda: resp.owner is sibling.scheduler or resp.finished,
+                        "fleet: the wedged replica's stream was not drained", FLEET_WAIT_S)
+        t_drained = time.perf_counter()
+        at_drain = resp.generated
+        await _wait_for(lambda: resp.generated > at_drain or resp.finished,
+                        "fleet: the drained stream made no progress on the sibling", FLEET_WAIT_S)
+        t_resumed = time.perf_counter()
+        await _wait_for(lambda: completes() >= len(turn1) + 3, "fleet: the drained turn did "
+                        "not complete", FLEET_WAIT_S)
+        drained = _metric_delta(METRICS, d0, "finchat_fleet_drained_streams_total")
+        if resp.owner is not sibling.scheduler or drained < 1:
+            fail(f"fleet: the response was not drained to replica 2 ({drained} drained)")
+        # --- give-up, OUT, respawn ------------------------------------------
+        probes = []
+        for k in range(FLEET_PROBES):
+            if victim.state != LIVE:
+                break
+            h = await victim.scheduler.submit(f"fleet-probe{k}", list(range(40 + k, 56 + k)),
+                                              SamplingParams(temperature=0.0, max_new_tokens=3))
+            probes.append(h)
+            await _wait_for(lambda h=h: h.finished, "fleet: a probe did not end", FLEET_WAIT_S)
+        await _wait_for(lambda: victim.state != LIVE, "fleet: replica 1 did not give up",
+                        FLEET_WAIT_S)
+        t_out = time.perf_counter()
+        live_during = METRICS.get("finchat_fleet_replicas_live")
+        probe_errors = [h.seq_id for h in probes if h.generated != 3]
+        dead[0] = False
+        faults.disarm_all()
+        t_heal = time.perf_counter()
+        # a conversation homed on replica 1, rerouted to 2 while 1 respawns
+        produce(during_conv, "fleet-during")
+        await _wait_for(lambda: victim.state == LIVE, "fleet: replica 1 did not respawn",
+                        FLEET_WAIT_S)
+        t_live = time.perf_counter()
+        await _wait_for(lambda: completes() >= len(turn1) + 4, "fleet: the turn served during "
+                        "the respawn did not complete", FLEET_WAIT_S)
+        live_after = METRICS.get("finchat_fleet_replicas_live")
+        during_on = sorted({rid for rid, h in of(during_conv, "resp")
+                            if h.trace_id == "fleet-during"})
+        # the drained conversation's next turn routes back and migrates
+        mig0 = METRICS.get("finchat_fleet_session_migrations_total")
+        produce(drained_conv, "fleet-back")
+        await _wait_for(lambda: completes() >= len(turn1) + 5, "fleet: the turn after the "
+                        "respawn did not complete", FLEET_WAIT_S)
+        migrations = METRICS.get("finchat_fleet_session_migrations_total") - mig0
+        back = [(rid, h) for rid, h in of(drained_conv, "tool") + of(drained_conv, "resp")
+                if h.trace_id == "fleet-back"]
+        out["drill"] = dict(
+            drained=drained, drain_s=t_drained - t_arm, drain_to_next_token_s=t_resumed - t_arm,
+            give_up_s=t_out - t_drained, respawn_s=t_live - t_heal, live_during=live_during,
+            live_after=live_after, probes=len(probes), probe_errors=probe_errors,
+            served_during_respawn_on=during_on, migrations=migrations,
+            back_on=sorted({rid for rid, _h in back}),
+            back_resumed=[h.resumed_len for _rid, h in back],
+            respawns=_metric_delta(METRICS, d0, "finchat_fleet_respawns_total"))
+        dr = out["drill"]
+        log(f"  fleet drill ({card}): trip to drained {dr['drain_s'] * 1e3:.1f} ms, to the next "
+            f"token on replica 2 {dr['drain_to_next_token_s'] * 1e3:.1f} ms; {len(probes)} "
+            f"probes to give-up ({dr['give_up_s']:.2f} s), live {live_during:.0f}; respawn "
+            f"(rebuild on a worker thread, heads registered) {dr['respawn_s']:.2f} s while "
+            f"{during_conv} was served on {during_on}; live {live_after:.0f}; the next turn of "
+            f"{drained_conv} on {dr['back_on']}, resumed {dr['back_resumed']}, migrations "
+            f"{migrations:.0f}")
+        if (live_during, live_after) != (2, 3) or dr["respawns"] < 1:
+            fail(f"fleet: give-up and respawn: live {live_during} then {live_after}")
+        if probe_errors:
+            fail(f"fleet: probes failed instead of draining: {probe_errors}")
+        if during_on != ["2"]:
+            fail(f"fleet: the turn during the respawn was served on {during_on}, not replica 2")
+        if dr["back_on"] != ["1"] or migrations < 1 or not all(n > 0 for n in dr["back_resumed"]):
+            fail(f"fleet: the turn after the respawn did not route back and resume from its "
+                 f"migrated session bytes: {dr}")
+        await _wait_for(lambda: not app._inflight, "fleet: a message stayed in flight")
+        # the window's launches, read before the drain
+        launches = dict(LAUNCHES)
+        decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
+        rounds = _metric_delta(METRICS, m0, "finchat_mixed_dispatches_total")
+        missing = [k for k in spec["kernels"] if launches[k] == 0]
+        if missing:
+            fail(f"fleet: kernels not launched on the fleet's path: {missing}")
+        total = SimpleNamespace(chunks=sum(c.chunks for c in counts.values()))
+        check_window("bf16", "fleet", spec, config, launches, total, decode_steps, rounds)
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        out["prefill"] = {rid: dict(chunks=c.chunks, rows=c.rows, tokens=c.tokens)
+                          for rid, c in counts.items()}
+        log(f"  fleet prefill by replica (chunks, rows, tokens): "
+            + ", ".join(f"{rid}: ({c.chunks}, {c.rows}, {c.tokens})" for rid, c in counts.items()))
+        t_drain = time.perf_counter()
+        await app.drain_and_stop()
+        out["drain_and_stop_s"] = time.perf_counter() - t_drain
+        drain_watcher()
+    finally:
+        faults.disarm_all()
+        for r in reps:
+            r.scheduler.submit = submits[r.replica_id]
+        for c in counts.values():
+            c.close()
+        watcher.close()
+    for r in reps:
+        s = r.scheduler
+        heads = sum(len(e.pages) for e in s._prefixes)
+        if (s.allocator.used_count != heads or len(s.free_slots) != cfg.engine.max_seqs
+                or s.decoding or s.prefilling or s.pending):
+            fail(f"fleet: replica {r.replica_id} left work, a slot or a page after the drain")
+    texts = _check_chunks("fleet", outbound, payloads)
+    # the drained response's consumer was handed each served token once, in
+    # order, across the drain, and its chunks are those tokens' text
+    from finchat_tpu_torch.models.tokenizer import IncrementalDecoder
+
+    served = resp.history[n_prompt[id(resp)]:]
+    if served and served[-1] == tok.eos_id:  # a stop token ends the stream, not a token event
+        served = served[:-1]
+    if delivered[id(resp)] != served:
+        fail(f"fleet: the drained stream's consumer got {delivered[id(resp)]}, the served "
+             f"tokens are {served}")
+    decoder = IncrementalDecoder(tok)
+    served_text = "".join(decoder.push(t) for t in served) + decoder.flush()
+    if texts["fleet-drain"] != served_text:
+        fail(f"fleet: the drained turn's chunks {texts['fleet-drain']!r} are not its served "
+             f"tokens' text {served_text!r}")
+    vocab = None
+    for r in reps:
+        task = r.generator._grammar_vocabs.get("tool_call")
+        if task is not None:
+            vocab = await task
+            break
+    params = engines[0].params
+    checks = []
+    for rid, h in handles:
+        if not (h.finished and h.generated > 0) or h.seq_id.startswith("__disagg_"):
+            continue
+        decision = (h.conversation_id or "").endswith("#tool")
+        # held over everything it served, across a drain's replay too
+        whole = SimpleNamespace(seq_id=h.seq_id, history=h.history, shared_len=h.shared_len,
+                                resumed_len=h.resumed_len, sampling=h.sampling,
+                                prompt_ids=h.history[:n_prompt.get(id(h), len(h.prompt_ids))])
+        checks.append(teacher_forced_check(torch, params, config, whole, "",
+                                           vocab=vocab if decision else None))
+    out.update(teacher_forced=len(checks), drained_tokens=resp.generated,
+               phase_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    del app, fleet, reps, engines, params, handles, resp, victim, sibling, probes
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  fleet ({card}): {len(checks)} streams teacher-forced (the drained response's "
+        f"{out['drained_tokens']} tokens among them); peak {out['phase_peak_gb']:.2f} GB; the "
+        f"phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def _free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -6330,6 +6844,12 @@ def main() -> None:
                 f"{p['event_ms']:.3f} ms a step ({card})")
     log(f"bounded_kv ({bkv['seconds']:.1f} s): " + json.dumps(bkv))
 
+    log("phase 5d, fleet: three llama3-8b replicas (bf16, random weights) over one weight "
+        "tree through build_app: prefill,decode,decode; the handoff, a drained trip, the "
+        "give-up and respawn")
+    fleet = asyncio.run(fleet_phase(torch, dev, card))
+    log("fleet: " + json.dumps(fleet))
+
     log("phase 6: train llama3-8b (random weights) through K7, forward and backward")
     check = train_check(torch, dev)
     train = train_full(torch, dev, card)
@@ -6379,6 +6899,7 @@ def main() -> None:
     launched["retrieval_query"] = retrieval["launches"]["query"]
     launched["spec"] = planes["bf16 spec3"]["launches"]
     launched["checkpoint"] = ckpt["launches"]
+    launched["fleet"] = fleet["launches"]
     table = []
     for r in results:
         kname = r["kernel"]
@@ -6396,6 +6917,8 @@ def main() -> None:
                 row[key] = r[key]
         # the same kernel's launches in the checkpoint phase's serve
         row["checkpoint_launches"] = launched["checkpoint"].get(kname, 0)
+        # and in the fleet phase's window (every replica's)
+        row["fleet_launches"] = launched["fleet"].get(kname, 0)
         table.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -1,12 +1,13 @@
 """Process entrypoint: ``python -m finchat_tpu_torch`` (the CLI of the JAX
 package's ``python -m finchat_tpu``, over the port's ``build_app``).
 
-One process owns the engine on one card; concurrency comes from the
+One process owns the engine on one card (or, with ``--fleet-replicas`` N,
+N engine replicas over one parameter tree, ``--fleet-roles`` typing them
+into prefill and serving pools); concurrency comes from the
 continuous-batching scheduler, not from worker replication. The flags and
-the config keys they override are the JAX package's; flags of planes the
-port does not carry yet (``--fleet-replicas`` > 1, ``--fleet-roles``,
-``--fabric-path``, ``--decode-loop-depth`` > 1) reach ``build_app``, which
-refuses them by name. One flag is the port's own: ``--device`` (default
+the config keys they override are the JAX package's; ``--fabric-path``, a
+plane the port does not carry yet, reaches ``build_app``, which refuses it
+by name. One flag is the port's own: ``--device`` (default
 ``cuda``), the counterpart of the JAX package's ``JAX_PLATFORMS``; tests
 pass ``cpu``.
 
@@ -55,11 +56,12 @@ def parse_overrides(argv: list[str] | None = None) -> tuple[argparse.Namespace, 
                         "goes earliest-deadline-first; 0 = off — also "
                         "FINCHAT_REQUEST_DEADLINE_SECONDS")
     p.add_argument("--fleet-replicas", type=int, default=None,
-                   help="engine replicas of this worker; the port serves 1 (build_app "
-                        "refuses more) — also FINCHAT_FLEET_REPLICAS")
+                   help="engine replicas of this worker, over one parameter tree behind "
+                        "the conversation-affinity router — also FINCHAT_FLEET_REPLICAS")
     p.add_argument("--fleet-roles", default=None,
-                   help="per-replica roles, e.g. 'prefill,decode'; not ported (build_app "
-                        "refuses them) — also FINCHAT_FLEET_ROLES")
+                   help="per-replica roles, e.g. 'prefill,decode,decode': prefill replicas "
+                        "run cold prompts and hand the KV to the serving pool — also "
+                        "FINCHAT_FLEET_ROLES")
     p.add_argument("--fabric-path", default=None,
                    help="cluster-wide warm-state fabric directory; implies fabric.enabled, "
                         "which the port does not carry yet (build_app refuses it) — also "

@@ -48,6 +48,7 @@ writes and masks at compacted positions, on the same kernels.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -73,6 +74,12 @@ from finchat_tpu_torch.utils.metrics import METRICS
 from finchat_tpu_torch.utils.tracing import named_scope
 
 logger = get_logger(__name__)
+
+# A fleet's engines share one card and one process: a replica's device-state
+# rebuild runs in a worker thread (the breaker's and the supervisor's) while
+# its siblings serve on the event loop's thread. A CUDA graph capture and an
+# allocation of a whole pool on another thread are kept apart by this lock.
+DEVICE_STATE_LOCK = threading.Lock()
 
 I32 = torch.int32
 
@@ -824,7 +831,8 @@ class InferenceEngine:
         # the new one at their next use
         self._loop_graphs.clear()
         if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
+            # never while a sibling engine captures a graph (DEVICE_STATE_LOCK)
+            with DEVICE_STATE_LOCK, torch.cuda.device(self.device):
                 self.state = create_state(self.config, self.engine_cfg, self.max_pages_per_seq,
                                           self.device, kv_quant=self.kv_quant)
                 torch.cuda.synchronize(self.device)
@@ -1109,7 +1117,8 @@ class InferenceEngine:
         current state, captured on first use."""
         graph = self._loop_graphs.get(depth)
         if graph is None or graph.state is not self.state:
-            with torch.cuda.device(self.device):
+            # never while a sibling engine rebuilds its pool on another thread
+            with DEVICE_STATE_LOCK, torch.cuda.device(self.device):
                 graph = DecodeLoopGraph(self, depth)
             self._loop_graphs[depth] = graph
         return graph

@@ -115,6 +115,14 @@ Many sequences multiplexed onto one model replica:
 The quantized plane (int8/int4 weights, int8 KV pages) is served: the
 scheduler keeps the engine's quant label and sets the
 ``finchat_quant_weight_bits`` / ``finchat_quant_kv_bits`` gauges.
+
+- Fleet identity and drain (serve/fleet.py): ``replica_id`` stamps the
+  fault sites and the trace track, ``metrics`` (a
+  ``METRICS.labeled(replica=...)`` view) labels every family. With a
+  ``drain_sink`` a breaker trip, and a give-up, hand every preempted stream
+  and its conversation's session bytes to a sibling replica; ``revive``
+  brings a given-up replica back. With ``disagg`` set (serve/disagg.py)
+  ``submit`` first runs a cold prompt's prefill on the prefill pool.
 """
 
 from __future__ import annotations
@@ -350,11 +358,16 @@ class ContinuousBatchingScheduler:
     # pre-seeded at 0 when the loop is on
     FREERUN_CAP_REASONS = ("constrained", "spec", "underfill", "boundedkv")
 
-    def __init__(self, engine: InferenceEngine, eos_id: int):
+    def __init__(self, engine: InferenceEngine, eos_id: int, metrics=None,
+                 replica_id: str | None = None):
         cfg = engine.engine_cfg
         self.engine = engine
         self.eos_id = eos_id
-        self.metrics = METRICS
+        # fleet identity: ``replica_id`` tags the fault sites (a drill can
+        # wedge one replica) and ``metrics`` is a METRICS.labeled(replica=...)
+        # view, so every family comes out per replica
+        self.replica_id = replica_id
+        self.metrics = metrics if metrics is not None else METRICS
         self.allocator = PageAllocator(cfg.num_pages)
         self.free_slots: list[int] = list(range(cfg.max_seqs))
         self.pending: deque[SequenceHandle] = deque()
@@ -371,8 +384,9 @@ class ContinuousBatchingScheduler:
         # a partial hold not grafted within this many seconds has lost its
         # owner: it is reaped (partial_hold_ttl_seconds)
         self.hold_ttl_s = max(0.0, cfg.partial_hold_ttl_seconds)
-        # the track of this engine's events on a trace timeline
-        self._trace_track = "engine"
+        # the track of this engine's events on a trace timeline (one a
+        # replica, so a fleet's timelines stay apart in one export)
+        self._trace_track = f"replica-{replica_id}" if replica_id is not None else "engine"
         self.mixed_enabled = bool(cfg.mixed_step)
         for reason in self.MIXED_DEMOTION_REASONS:
             self.metrics.inc("finchat_mixed_demotions_total", 0.0, labels={"reason": reason})
@@ -449,8 +463,16 @@ class ContinuousBatchingScheduler:
         # shared heads: the rebuild dropped them) and after a give-up
         self.on_rebuild: list = []
         self.on_give_up: list = []
-        # True from a give-up until revive_async()
+        # True from a give-up until revive(): the fleet router skips it
         self.gave_up = False
+        # the fleet's drain sink (serve/fleet.py): a breaker trip offers every
+        # preempted stream and its conversation's exported session bytes to
+        # it, and a sibling replica that adopts one continues its stream;
+        # ``(handle, session_payload) -> bool``
+        self.drain_sink = None
+        # the fleet's DisaggCoordinator (serve/disagg.py), set on serving-pool
+        # schedulers only: submit runs a cold prompt's prefill through it
+        self.disagg = None
         # True while a trip's rebuild runs in its worker thread: the rebuild
         # replaces the page table, so register_prefix_async must not write a
         # row into the table being dropped
@@ -529,6 +551,18 @@ class ContinuousBatchingScheduler:
                                "%d; clamping", seq_id, sampling.top_k, CANDIDATES)
             self.metrics.inc("finchat_top_k_clamped_total")
             sampling = dataclasses.replace(sampling, top_k=CANDIDATES)
+        if self.disagg is not None and conversation_id:
+            # disaggregated serving: a cold prompt prefills on the prefill
+            # pool and its KV arrives through the session tier before
+            # admission, so the match at admission resumes from it. Any
+            # failure leaves the local prefill path, counted
+            try:
+                await self.disagg.maybe_prefill(self, prompt_ids, conversation_id,
+                                                trace_id=trace_id)
+            except Exception as e:
+                logger.error("disagg handoff for %s failed: %s", conversation_id, e)
+                self.metrics.inc("finchat_disagg_fallbacks_total",
+                                 labels={"reason": "prefill_error"})
         handle = SequenceHandle(seq_id=seq_id, prompt_ids=list(prompt_ids), sampling=sampling,
                                 constraint=constraint, conversation_id=conversation_id,
                                 deadline=deadline, owner=self, trace_id=trace_id)
@@ -1442,6 +1476,53 @@ class ContinuousBatchingScheduler:
         self.spill_sessions()
 
     # --- the circuit breaker ------------------------------------------------
+    def _drain_to_sink(self) -> int:
+        """Offer every pending handle (the just-preempted live streams and
+        the queued, never-admitted ones) to the fleet's drain sink with its
+        conversation's exported session bytes. An adopted handle leaves this
+        scheduler, and its session entry goes with it. Runs before the trip
+        purges the caches that refer to device pages (the export must still
+        see the entries). Held overlap handles are skipped: their
+        ``extend_prompt`` seam is bound to this scheduler, and they replay
+        here. Returns how many were adopted."""
+        sink = self.drain_sink
+        if sink is None:
+            return 0
+        adopted = 0
+        for handle in list(self.pending):
+            if handle.held:
+                continue
+            payload = None
+            try:
+                payload = self.export_session(handle.conversation_id)
+            except Exception as e:
+                logger.error("session export failed for %s: %s", handle.conversation_id, e)
+            try:
+                taken = bool(sink(handle, payload))
+            except Exception as e:
+                logger.error("drain sink failed for %s: %s", handle.seq_id, e)
+                taken = False
+            if taken:
+                self.pending.remove(handle)
+                if handle.conversation_id and self.session_cache is not None:
+                    # the bytes moved with the stream: a source copy left
+                    # here could resume a later divergent turn stale
+                    self.session_cache.discard(handle.conversation_id)
+                adopted += 1
+        self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
+        return adopted
+
+    def revive(self) -> bool:
+        """Rebuild a given-up scheduler's device state from a clean slate
+        on the calling thread (the fleet supervisor runs ``revive_async``).
+        Only callable with nothing live here. Returns True when the engine
+        is serving again."""
+        self._revive_prepare()
+        if not self._revive_rebuild():
+            return False
+        self._revive_commit()
+        return True
+
     async def revive_async(self) -> bool:
         """Rebuild a given-up scheduler's device state from a clean slate so
         it serves again. Only callable with nothing live here. The device
@@ -1457,7 +1538,7 @@ class ContinuousBatchingScheduler:
     def _revive_prepare(self) -> None:
         """Clean-slate host bookkeeping ahead of the rebuild (idempotent)."""
         if self.decoding or self.prefilling:
-            raise RuntimeError("revive_async() with live sequences; drain first")
+            raise RuntimeError("revive() with live sequences; drain first")
         self._reset_for_rebuild()
 
     def _reset_for_rebuild(self) -> None:
@@ -1485,7 +1566,7 @@ class ContinuousBatchingScheduler:
         """The device-only half (touches the engine, not the scheduler, so
         it runs in a thread)."""
         try:
-            inject("engine.rebuild")
+            inject("engine.rebuild", replica=self.replica_id)
             with Timer(self.metrics, "finchat_engine_rebuild_seconds"):
                 self.engine.rebuild_device_state()
         except Exception as e:
@@ -1581,16 +1662,49 @@ class ContinuousBatchingScheduler:
             # and the failing streams' lifecycle at the moment it gives up
             TRACER.anomaly("replica_give_up", args={
                 "plane": bucket, "error": str(error)[:200],
+                "replica": self.replica_id,
                 "rebuilds": self._rebuilds_without_success - 1,
             })
-            logger.error("breaker: %d consecutive rebuilds without a successful round; "
-                         "failing in-flight streams (%s)",
-                         self._rebuilds_without_success - 1, error)
-            for handle in list(self.decoding.values()) + list(self.prefilling):
-                try:
-                    self._evict(handle, "error", error=error)
-                except Exception as e:
-                    logger.error("evicting %s after breaker give-up: %s", handle.seq_id, e)
+            if self.drain_sink is not None:
+                # a fleet give-up: the streams go on on siblings. Every live
+                # sequence is preempted to the host and offered to the sink;
+                # what no sibling adopts fails with the retryable error
+                logger.error("breaker: giving up after %d rebuilds; draining %d live "
+                             "sequences to sibling replicas (%s)",
+                             self._rebuilds_without_success - 1,
+                             len(self.decoding) + len(self.prefilling), error)
+                for handle in list(self.decoding.values()) + list(self.prefilling):
+                    try:
+                        self._preempt(handle, for_rebuild=True)
+                    except Exception as e:
+                        logger.error("preempting %s at breaker give-up: %s", handle.seq_id, e)
+                self._drain_to_sink()
+                # whatever was not adopted (preempted streams, held overlap
+                # handles, never-admitted queue entries) fails now: this
+                # replica goes OUT, and work left queued here would burn
+                # another fail streak per handle on a wedged engine
+                for handle in list(self.pending):
+                    self.pending.remove(handle)
+                    # the one site counting a drain failure, once per stream;
+                    # a fleet-level series, unlabeled like every finchat_fleet_*
+                    METRICS.inc("finchat_fleet_drain_failures_total")
+                    handle.finished = True
+                    handle.span.finish()
+                    handle.events.put_nowait({
+                        "type": "error", "message": error,
+                        "code": "replica_out", "retryable": True,
+                    })
+                # an OUT replica exports no phantom backlog
+                self.metrics.set_gauge("finchat_queue_depth", len(self.pending))
+            else:
+                logger.error("breaker: %d consecutive rebuilds without a successful round; "
+                             "failing in-flight streams (%s)",
+                             self._rebuilds_without_success - 1, error)
+                for handle in list(self.decoding.values()) + list(self.prefilling):
+                    try:
+                        self._evict(handle, "error", error=error)
+                    except Exception as e:
+                        logger.error("evicting %s after breaker give-up: %s", handle.seq_id, e)
             for job in list(self._prefix_jobs):
                 try:  # the slot and pages come back even on a give-up
                     self._fail_prefix_job(job)
@@ -1617,7 +1731,7 @@ class ContinuousBatchingScheduler:
         # writes in a worker thread
         TRACER.anomaly("breaker_trip", args={
             "plane": bucket, "error": str(error)[:200],
-            "dispatch_tally": self._dispatch_tally,
+            "replica": self.replica_id, "dispatch_tally": self._dispatch_tally,
             "live": len(self.decoding) + len(self.prefilling),
         })
         if self._breaker_tripped_at is None:
@@ -1629,6 +1743,14 @@ class ContinuousBatchingScheduler:
             # parked holds too: their prefix KV goes with the pool, so they
             # re-prefill and park again
             self._preempt(handle, for_rebuild=True)
+        if self.drain_sink is not None:
+            # fleet drain: the preempted streams and their conversations'
+            # session bytes go to siblings now, before the purge below drops
+            # the entries, so they go on there while this replica rebuilds;
+            # what no sibling adopts stays pending and replays here
+            adopted = self._drain_to_sink()
+            if adopted:
+                logger.info("breaker drain: %d streams adopted by siblings", adopted)
         self._reset_for_rebuild()
         try:
             self._rebuilding = True
@@ -1682,7 +1804,7 @@ class ContinuousBatchingScheduler:
             logger.warning("session import for %s refused: a bounded-KV entry (kv_gap %d) on "
                            "an unbounded engine — cold start", payload.get("conversation_id"),
                            payload["kv_gap"])
-            self.metrics.inc("finchat_fleet_session_import_refused_total")
+            METRICS.inc("finchat_fleet_session_import_refused_total")
             return False
         if (payload.get("snap") is not None
                 and snap_kv_mode(payload["snap"]) != self.engine.kv_quant):
@@ -1705,7 +1827,8 @@ class ContinuousBatchingScheduler:
                         pages = cand.pages[: prefix_len // page]
                         break
             if entry_ref is None:
-                self.metrics.inc("finchat_fleet_session_import_refused_total")
+                # a fleet-level series, unlabeled like every finchat_fleet_*
+                METRICS.inc("finchat_fleet_session_import_refused_total")
                 return False
             # reference BEFORE put (the _maybe_offload discipline)
             entry_ref.refs += 1
@@ -1880,7 +2003,7 @@ class ContinuousBatchingScheduler:
             if self._parked(handle):
                 continue  # awaiting extend_prompt
             try:
-                inject("scheduler.prefill", seq_id=handle.seq_id)
+                inject("scheduler.prefill", seq_id=handle.seq_id, replica=self.replica_id)
             except Exception as e:  # per-sequence isolation
                 logger.error("prefill error for %s: %s", handle.seq_id, e)
                 self._evict(handle, "error", error=str(e))
@@ -1949,10 +2072,10 @@ class ContinuousBatchingScheduler:
         decode_members = [(slot, h, h.epoch) for slot, h in self.decoding.items()]
         if (not batch and not jobs) or not decode_members:
             return  # a fault above drained one side; the split path goes on
-        inject("scheduler.decode")
+        inject("scheduler.decode", replica=self.replica_id)
         # the ragged round's own site: fails this dispatch alone while the
         # split path stays healthy
-        inject("scheduler.mixed")
+        inject("scheduler.mixed", replica=self.replica_id)
         row_slot = np.zeros((R,), np.int32)
         row_start = np.zeros((R,), np.int32)
         row_len = np.zeros((R,), np.int32)
@@ -2193,7 +2316,7 @@ class ContinuousBatchingScheduler:
         back only while a constrained slot is in it, and only that slot's
         rows: ``[n, vocab]``, selected on the device, not the batch's
         ``[max_seqs, vocab]``."""
-        inject("scheduler.decode")
+        inject("scheduler.decode", replica=self.replica_id)
         eng = self.engine
         B = eng.engine_cfg.max_seqs
         if membership is None:
@@ -2267,7 +2390,7 @@ class ContinuousBatchingScheduler:
         built from the same ``(slot, handle, epoch)`` view as the block,
         never re-read from ``self.decoding``, so a slot vacated and filled
         again between the two dispatches cannot be stepped twice."""
-        inject("scheduler.decode")
+        inject("scheduler.decode", replica=self.replica_id)
         eng = self.engine
         ahead = ahead or {}
         B = eng.engine_cfg.max_seqs
@@ -2360,7 +2483,7 @@ class ContinuousBatchingScheduler:
         instead (a (Kd+1)-wide forward would emit one token a slot)."""
         if not self.decoding:
             return  # consuming the drained pipeline step may have evicted all
-        inject("scheduler.decode")
+        inject("scheduler.decode", replica=self.replica_id)
         eng = self.engine
         B = eng.engine_cfg.max_seqs
         Kd = self.spec_k
@@ -2501,8 +2624,8 @@ class ContinuousBatchingScheduler:
             # host-stepped round rather than empty device rounds
             self.metrics.inc("finchat_freerun_capped_total", labels={"reason": "underfill"})
             return None
-        inject("scheduler.decode")
-        inject("scheduler.mixed")
+        inject("scheduler.decode", replica=self.replica_id)
+        inject("scheduler.mixed", replica=self.replica_id)
         with Timer(self.metrics, "finchat_mixed_step_seconds") as mt:
             ring_tok, ring_n, ring_blk = eng.ragged_multi(
                 plan.tokens, plan.tok_row, plan.row_slot, plan.row_start, plan.row_len,

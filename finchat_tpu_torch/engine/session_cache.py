@@ -678,6 +678,17 @@ class SessionKVCache:
         self._publish_gauges()
         return True
 
+    def discard(self, conversation_id: str) -> None:
+        """Drop a conversation's entry from both tiers: its bytes moved to
+        another replica (a fleet migration or drain handoff), and a twin
+        left here could later resume a turn that no longer routes here."""
+        if self.disk is not None:
+            self.disk.discard(conversation_id)
+        entry = self._entries.pop(conversation_id, None)
+        if entry is not None:
+            self._drop(entry)
+            self._publish_gauges()
+
     def discard_if(self, pred: Callable[[SessionEntry], bool]) -> int:
         """Drop every RAM entry matching ``pred``; returns how many (prefix
         retirement: an entry referencing a retired head would pin its pages

@@ -1,5 +1,5 @@
 """The serving app: the Kafka worker loop and the HTTP surface (own copy of
-the JAX package's ``serve/app.py``, single engine).
+the JAX package's ``serve/app.py``).
 
 - Lifespan: store connection check, consumer setup, scheduler start,
   consume task, prefix-cache refresh task, HTTP server.
@@ -26,9 +26,16 @@ the JAX package's ``serve/app.py``, single engine).
   index, which snapshots to ``vector.persist_path`` (debounced on ingest,
   forced at shutdown) so retrieval is not empty at boot.
 - ``drain_and_stop``: the graceful shutdown. Admission stops, in-flight
-  streams get ``shutdown.deadline_seconds`` to complete, the stragglers
-  are preempted with a retryable ``shutting_down`` error, the session
-  entries spill, and nothing is left on the pool.
+  streams get ``shutdown.deadline_seconds`` to complete, the fleet's
+  supervisor stops, the stragglers are preempted with a retryable
+  ``shutting_down`` error, the session entries spill, and nothing is left
+  on any pool.
+- The engine fleet (serve/fleet.py): with ``fleet.replicas`` > 1 every chat
+  path (HTTP and Kafka) takes its agent from ``EngineFleet.agent_for``, the
+  conversation-affinity route that also migrates session bytes; with no
+  live replica the client gets a retryable error. Each replica registers
+  the shared prompt heads on its own device state, again after its rebuilds
+  (the refresh loop) and eagerly after a respawn.
 
 ``build_app`` assembles a worker from an ``AppConfig``. The model comes
 from ``model.checkpoint_path`` (an HF safetensors checkpoint, quantized at
@@ -40,11 +47,14 @@ embedding encoder of ``embed.preset`` (``embed.checkpoint_path`` and
 ``embed.quant``), then a ``QdrantRetriever`` when
 ``vector.url`` is set, else a ``DeviceVectorIndex`` (restored from
 ``vector.snapshot_base()`` when set) behind an ``EmbedMicrobatcher`` and a
-``TransactionRetriever``. It refuses, with an error that names the plane,
-what the port does not carry yet: a fleet (``fleet.replicas`` > 1,
-``fleet.roles``), the warm-state fabric, a pod and a mesh of more than one
-device; every engine plane is served. The engine, the encoder and
-the index run on ``cuda`` unless the caller passes ``device="cpu"``.
+``TransactionRetriever``. ``fleet.replicas`` > 1 builds that many engine
+replicas over one parameter tree behind an ``EngineFleet``, with
+``fleet.roles`` typing them into prefill and serving pools
+(serve/disagg.py); the ``stub`` preset builds no fleet. It refuses, with an
+error that names the plane, what the port does not carry yet: the
+warm-state fabric, a pod and a mesh of more than one device. The engines,
+the encoder and the index run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -80,7 +90,7 @@ from finchat_tpu_torch.io.store import ConversationStore, make_store
 from finchat_tpu_torch.models.llama import PRESETS, init_params
 from finchat_tpu_torch.models.quant import init_quantized_params
 from finchat_tpu_torch.models.tokenizer import ByteTokenizer, get_tokenizer
-from finchat_tpu_torch.serve.fleet import DedupeRing
+from finchat_tpu_torch.serve.fleet import LIVE, DedupeRing, EngineFleet, EngineReplica
 from finchat_tpu_torch.serve.http import HTTPServer, Request, Response, StreamingResponse, sse_event
 from finchat_tpu_torch.tools.retrieval import TransactionRetriever
 from finchat_tpu_torch.utils.config import (
@@ -234,13 +244,48 @@ async def _maybe_refresh_prefix_cache(app: "App") -> None:
 
 async def _prefix_refresh_loop(app: "App") -> None:
     """Check the shared heads every ``_prefix_refresh_check_s``; the check is
-    a few string comparisons, a registration at most once a day."""
+    a few string comparisons, a registration at most once a day. With a
+    fleet, every live replica is checked: a registration belongs to one
+    device state."""
     while app._running:
         try:
-            await _maybe_refresh_prefix_cache(app)
+            for target in app._prefix_targets():
+                await _maybe_refresh_prefix_cache(target)
         except Exception as e:  # best-effort: the cache is an optimization
             logger.error("prefix cache refresh error: %s", e)
         await asyncio.sleep(app._prefix_refresh_check_s)
+
+
+class _ReplicaPrefixView:
+    """A fleet replica as ``_maybe_refresh_prefix_cache``'s target: the
+    app's attribute surface, with the registered heads kept on the replica
+    (its shared heads live in its own device state)."""
+
+    def __init__(self, app: "App", rep: EngineReplica):
+        self._rep = rep
+        self._prefix_cache_enabled = app._prefix_cache_enabled
+        self.scheduler = rep.scheduler
+        self.agent = rep.agent
+
+    @property
+    def _registered_heads(self) -> set:
+        return self._rep.registered_heads
+
+    @_registered_heads.setter
+    def _registered_heads(self, value: set) -> None:
+        self._rep.registered_heads = set(value)
+
+
+def _make_rebuild_hook(rep: EngineReplica):
+    """One replica's ``on_rebuild`` callback: the rebuild dropped its heads,
+    so they are marked unregistered there (the refresh loop registers them
+    again). Keyed, so ``App.start`` adds it once across restarts."""
+
+    def hook() -> None:
+        rep.registered_heads.clear()
+
+    hook.key = ("fleet_heads", rep.replica_id)
+    return hook
 
 
 def _mesh_devices(mesh: MeshConfig, n_available: int) -> int:
@@ -305,16 +350,22 @@ def _load_model_artifacts(cfg: AppConfig, device: str | torch.device = "cuda") -
     return config, params, tokenizer, device
 
 
-def make_engine_replica(cfg: AppConfig, artifacts: tuple
+def make_engine_replica(cfg: AppConfig, artifacts: tuple, replica_id: str | None = None
                         ) -> tuple[EngineGenerator, ContinuousBatchingScheduler]:
-    """The engine over the artifacts: its KV page pool, scheduler and session
-    cache, warmed up first when ``engine.warmup_on_start`` is set."""
+    """One engine over the shared artifacts: its own KV page pool, scheduler
+    and session cache over the artifacts' parameter tensors (an already
+    quantized tree is kept as it is, so replicas share it too), warmed up
+    first when ``engine.warmup_on_start`` is set. A ``replica_id`` labels
+    the scheduler's metrics (``METRICS.labeled(replica=...)``) and stamps its
+    fault sites."""
     config, params, tokenizer, device = artifacts
+    metrics = METRICS.labeled(replica=replica_id) if replica_id is not None else None
     engine = InferenceEngine(config, params, cfg.engine, device=device,
                              quant=cfg.model.quant, quant_group=cfg.model.quant_group)
     if cfg.engine.warmup_on_start:
         engine.warmup()
-    scheduler = ContinuousBatchingScheduler(engine, eos_id=tokenizer.eos_id)
+    scheduler = ContinuousBatchingScheduler(engine, eos_id=tokenizer.eos_id, metrics=metrics,
+                                            replica_id=replica_id)
     return EngineGenerator(scheduler, tokenizer), scheduler
 
 
@@ -333,18 +384,22 @@ def build_generators(cfg: AppConfig, device: str | torch.device = "cuda"
 
 
 class App:
-    """One worker process: HTTP surface, Kafka consume loop and engine."""
+    """One worker process: HTTP surface, Kafka consume loop and engine (or
+    engine fleet)."""
 
     def __init__(self, cfg: AppConfig, *, agent: LLMAgent, store: ConversationStore,
                  kafka: KafkaClient, scheduler: ContinuousBatchingScheduler | None = None,
-                 retriever=None):
+                 retriever=None, fleet: EngineFleet | None = None):
         self.cfg = cfg
         self.agent = agent
         self.store = store
         self.kafka = kafka
         self.scheduler = scheduler
-        # the reference's fleet and pod planes; not ported, always None
-        self.fleet = None
+        # the engine fleet: every chat path routes its conversation through
+        # _agent_for; ``agent`` and ``scheduler`` stay replica 0's, started
+        # and stopped through the fleet
+        self.fleet = fleet
+        # the reference's pod plane; not ported, always None
         self.pod = None
         self.retriever = retriever
         self.server = HTTPServer(cfg.serve.host, cfg.serve.port)
@@ -374,7 +429,9 @@ class App:
         self._commit_enabled = cfg.kafka.commit_after_process
         self._done_offsets: dict[tuple[str, int], set[int]] = {}
         self._commit_next: dict[tuple[str, int], int] = {}
-        self._dedupe = DedupeRing()
+        # the ring lives at the router level: with a fleet it is the fleet's,
+        # so a redelivery to a sibling replica finds the answer recorded
+        self._dedupe = fleet.dedupe if fleet is not None else DedupeRing()
         # answered ids are fsynced here before their offsets commit, and a
         # restart replays them into the ring; failed ids are never journaled
         self._journal = None
@@ -420,7 +477,17 @@ class App:
         if self.retriever is not None:
             topics.append(TRANSACTION_UPSERT_TOPIC)
         self.kafka.setup_consumer(topics=topics)
-        if self.scheduler is not None:
+        if self.fleet is not None:
+            # a rebuild drops its own replica's heads only (the refresh loop
+            # registers them again there); a respawn registers them at once
+            for rep in self.fleet.replicas:
+                hook = _make_rebuild_hook(rep)
+                if hook.key not in {getattr(cb, "key", None) for cb in rep.scheduler.on_rebuild}:
+                    rep.scheduler.on_rebuild.append(hook)
+            if self._respawn_heads not in self.fleet.on_respawn:
+                self.fleet.on_respawn.append(self._respawn_heads)
+            await self.fleet.start()
+        elif self.scheduler is not None:
             if self._on_engine_rebuild not in self.scheduler.on_rebuild:
                 self.scheduler.on_rebuild.append(self._on_engine_rebuild)
             await self.scheduler.start()
@@ -447,7 +514,9 @@ class App:
         batcher = self._embed_batcher()
         if batcher is not None:
             await batcher.close()
-        if self.scheduler is not None:
+        if self.fleet is not None:
+            await self.fleet.stop()
+        elif self.scheduler is not None:
             await self.scheduler.stop()
         # the snapshot's compression and file IO off the loop
         await asyncio.to_thread(self._persist_index, True)
@@ -485,12 +554,16 @@ class App:
                     "graceful drain: %d in-flight message(s) past the %.1fs deadline; "
                     "preempting to host", len(stragglers), deadline,
                 )
+        # the supervisor goes first: a respawn's rebuild racing a replica's
+        # shutdown_drain on the same engine could leave slots or pages behind
+        if self.fleet is not None:
+            await self.fleet.stop_supervisor()
         # the stragglers' handles fail with the retryable shutting_down
-        # error and their KV spills; the loop stops first, so no dispatch
+        # error and their KV spills; each loop stops first, so no dispatch
         # races the offload
-        if self.scheduler is not None:
+        for sched in self._all_schedulers():
             try:
-                await self.scheduler.shutdown_drain()
+                await sched.shutdown_drain()
             except Exception as e:
                 logger.error("scheduler shutdown drain failed: %s", e)
         # the straggler tasks emit their error chunks and commit their offsets
@@ -529,6 +602,36 @@ class App:
         prefilled KV went with it: mark them unregistered, so the refresh
         loop registers them again through the chunked path."""
         self._registered_heads = set()
+
+    # --- fleet routing ------------------------------------------------------
+    def _all_schedulers(self) -> list:
+        if self.fleet is not None:
+            return [rep.scheduler for rep in self.fleet.replicas]
+        return [self.scheduler] if self.scheduler is not None else []
+
+    def _agent_for(self, conversation_id: str) -> LLMAgent:
+        """The agent serving this conversation: the fleet's route (which
+        also migrates its session bytes home), else the one agent. Raises
+        RuntimeError when no replica is live."""
+        if self.fleet is not None:
+            return self.fleet.agent_for(conversation_id)
+        return self.agent
+
+    def _prefix_targets(self) -> list:
+        """The shared-head refresh targets: each live replica with a fleet,
+        else the app itself."""
+        if self.fleet is not None:
+            return [_ReplicaPrefixView(self, rep) for rep in self.fleet.replicas
+                    if rep.state == LIVE and rep.agent is not None]
+        return [self]
+
+    async def _respawn_heads(self, rep: EngineReplica) -> None:
+        """``fleet.on_respawn``: register the shared heads on a revived
+        replica at once (the refresh loop could leave it head-cold for a
+        whole interval)."""
+        if self._prefix_cache_enabled and rep.agent is not None:
+            rep.registered_heads = set()
+            await _maybe_refresh_prefix_cache(_ReplicaPrefixView(self, rep))
 
     def _request_deadline(self, wall_anchor_s: float | None = None) -> float | None:
         """The request's deadline on ``time.perf_counter``'s clock, or None
@@ -680,7 +783,13 @@ class App:
         )
         trace_id = self._http_trace_id(request)
         self._trace_ingress(trace_id, "http:/chat", conversation_id)
-        result = await self.agent.query(
+        try:
+            agent = self._agent_for(conversation_id)
+        except RuntimeError:
+            # the whole fleet is out: the retryable signal the Kafka path sends
+            return Response.json({"detail": "no live engine replica; retry with backoff",
+                                  "retryable": True}, status=503)
+        result = await agent.query(
             payload["message"], user_id, user_context, chat_history,
             conversation_id=conversation_id, deadline=self._request_deadline(),
             trace_id=trace_id,
@@ -705,9 +814,14 @@ class App:
         deadline = self._request_deadline()
         trace_id = self._http_trace_id(request)
         self._trace_ingress(trace_id, "http:/chat/stream", conversation_id)
+        try:
+            agent = self._agent_for(conversation_id)
+        except RuntimeError:
+            return Response.json({"detail": "no live engine replica; retry with backoff",
+                                  "retryable": True}, status=503)
 
         async def events():
-            updates = self.agent.stream_with_status(
+            updates = agent.stream_with_status(
                 payload["message"], user_id, user_context, chat_history,
                 conversation_id=conversation_id, deadline=deadline, trace_id=trace_id,
             )
@@ -789,9 +903,20 @@ class App:
                 )
                 logger.debug("Processed chunk: %s", text)
 
+        try:
+            agent = self._agent_for(conversation_id)
+        except RuntimeError as e:
+            # the whole fleet is out: a retryable error, not a silent drop
+            # (the dedupe ring forgets the id)
+            logger.error("no replica for conversation %s: %s", conversation_id, e)
+            self.kafka.produce_error_message(
+                AI_RESPONSE_TOPIC, conversation_id,
+                error_chunk(message_value, code="overloaded", retryable=True),
+            )
+            return False
         trace_id = self._kafka_trace_id(message_value) or uuid.uuid4().hex[:16]
         self._trace_ingress(trace_id, f"kafka:{USER_MESSAGE_TOPIC}", conversation_id)
-        updates = self.agent.stream_with_status(
+        updates = agent.stream_with_status(
             msg, user_id, context, chat_history, conversation_id=conversation_id,
             deadline=self._request_deadline(self._message_wall_ts(message)),
             trace_id=trace_id,
@@ -951,8 +1076,14 @@ class App:
         task.add_done_callback(_done)
 
     def _max_inflight(self) -> int:
-        """The poll gate: one full batch of the engine."""
-        return max(self.cfg.engine.max_seqs, 1)
+        """The poll gate: a full batch a live replica. OUT and respawning
+        replicas are no capacity (a worker polling for the whole fleet in an
+        outage hoards what the consumer group should spread); at least one
+        batch, so a fleet all out still answers with retryable errors."""
+        n_replicas = 1
+        if self.fleet is not None:
+            n_replicas = max(1, len(self.fleet.live_replicas()))
+        return max(self.cfg.engine.max_seqs, 1) * n_replicas
 
     async def consume_messages(self) -> None:
         """Poll Kafka and fan messages out as concurrent tasks, so many
@@ -995,10 +1126,6 @@ class App:
 def _refuse_unported(cfg: AppConfig) -> None:
     """The config planes the port does not carry yet, refused by name."""
     refused = []
-    if cfg.fleet.replicas > 1:
-        refused.append(f"fleet.replicas={cfg.fleet.replicas} (the engine fleet)")
-    if cfg.fleet.roles:
-        refused.append(f"fleet.roles={cfg.fleet.roles!r} (disaggregated prefill/decode)")
     if cfg.fabric.enabled:
         refused.append("fabric.enabled (the warm-state fabric)")
     if cfg.pod.host_id:
@@ -1075,9 +1202,10 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
               response_generator: TextGenerator | None = None,
               retriever=None, device: str | torch.device = "cuda") -> App:
     """Assemble a worker from config, with injection points for tests and
-    development. The engine (``model.preset`` other than ``"stub"``, where
-    a generator is not injected) and, without an injected ``retriever``,
-    the retriever ``build_retriever`` makes run on ``device``."""
+    development. The engines (``model.preset`` other than ``"stub"``, where
+    a generator is not injected: one, or ``fleet.replicas`` over one
+    parameter tree) and, without an injected ``retriever``, the retriever
+    ``build_retriever`` makes run on ``device``."""
     cfg = cfg or load_config()
     _refuse_unported(cfg)
     TRACER.configure(enabled=cfg.tracing.enabled, ring_events=cfg.tracing.ring_events,
@@ -1087,27 +1215,63 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
 
     scheduler = None
     tokenizer = None
+    fleet_replicas: list[EngineReplica] | None = None
     if tool_generator is None or response_generator is None:
-        tool_gen, resp_gen, scheduler, tokenizer = build_generators(cfg, device)
-        tool_generator = tool_generator or tool_gen
-        response_generator = response_generator or resp_gen
+        if cfg.fleet.replicas > 1 and cfg.model.preset != "stub":
+            # the engine fleet: N replicas over ONE parameter tree, each with
+            # its own pool, scheduler, session cache and labeled metrics;
+            # fleet.roles types each into the prefill or the serving pool
+            from finchat_tpu_torch.serve.disagg import parse_roles
+
+            roles = parse_roles(cfg.fleet.roles, cfg.fleet.replicas)
+            artifacts = _load_model_artifacts(cfg, device)
+            tokenizer = artifacts[2]
+            fleet_replicas = []
+            for i in range(cfg.fleet.replicas):
+                gen, sched = make_engine_replica(cfg, artifacts, replica_id=str(i))
+                fleet_replicas.append(EngineReplica(replica_id=str(i), scheduler=sched,
+                                                    generator=gen, role=roles[i]))
+            scheduler = fleet_replicas[0].scheduler
+            tool_generator = tool_generator or fleet_replicas[0].generator
+            response_generator = response_generator or fleet_replicas[0].generator
+        else:
+            tool_gen, resp_gen, scheduler, tokenizer = build_generators(cfg, device)
+            tool_generator = tool_generator or tool_gen
+            response_generator = response_generator or resp_gen
     if retriever is None:
         retriever = build_retriever(cfg, tokenizer, device)
 
     system_prompt, tool_prompt = load_prompts()
-    agent = LLMAgent(
-        tool_generator, response_generator, retriever, system_prompt, tool_prompt,
-        response_sampling=SamplingParams(
-            temperature=cfg.engine.temperature, top_p=cfg.engine.top_p,
-            top_k=cfg.engine.top_k, max_new_tokens=cfg.engine.max_new_tokens,
-        ),
-        retrieval_overlap=cfg.engine.retrieval_overlap,
-        tool_streaming=cfg.engine.tool_streaming,
-    )
+
+    def make_agent(tool_gen, resp_gen) -> LLMAgent:
+        return LLMAgent(
+            tool_gen, resp_gen, retriever, system_prompt, tool_prompt,
+            response_sampling=SamplingParams(
+                temperature=cfg.engine.temperature, top_p=cfg.engine.top_p,
+                top_k=cfg.engine.top_k, max_new_tokens=cfg.engine.max_new_tokens,
+            ),
+            retrieval_overlap=cfg.engine.retrieval_overlap,
+            tool_streaming=cfg.engine.tool_streaming,
+        )
+
+    agent = make_agent(tool_generator, response_generator)
+    fleet = None
+    if fleet_replicas is not None:
+        # an agent a replica (prompts and retriever shared, the generators
+        # bound to the replica's scheduler); replica 0's is the app's agent
+        fleet_replicas[0].agent = agent
+        for rep in fleet_replicas[1:]:
+            rep.agent = make_agent(rep.generator, rep.generator)
+        fleet = EngineFleet(fleet_replicas, cfg.fleet, num_partitions=kafka.num_partitions)
     # ingestion works with any retriever that has upsert_transactions
     app_retriever = retriever if hasattr(retriever, "upsert_transactions") else None
     app = App(cfg, agent=agent, store=store, kafka=kafka, scheduler=scheduler,
-              retriever=app_retriever)
+              retriever=app_retriever, fleet=fleet)
     if app._prefix_cache_enabled and tokenizer is not None:
-        app._registered_heads = register_prompt_prefixes(agent, scheduler, tokenizer)
+        if fleet is not None:
+            for rep in fleet.replicas:
+                rep.registered_heads = register_prompt_prefixes(rep.agent, rep.scheduler,
+                                                                tokenizer)
+        else:
+            app._registered_heads = register_prompt_prefixes(agent, scheduler, tokenizer)
     return app

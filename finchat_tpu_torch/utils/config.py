@@ -29,10 +29,11 @@ collection, the default limit, the snapshot directory, and the encoder's
 checkpoint and tokenizer paths. ``model.checkpoint_path`` and
 ``model.tokenizer_path`` are read by ``build_app``'s model load
 (``checkpoints/hf_loader.py``, ``models/tokenizer.HFTokenizer``).
-The sections of planes not ported yet (``fleet``, ``fabric``, ``pod``,
-``mesh``) are carried so the tree reads the same in both packages;
-``build_app`` refuses the settings that would turn one of them on (a fleet
-or its roles, the fabric, a pod, a mesh of more than one device).
+``fleet`` is read by ``build_app``'s engine fleet (serve/fleet.py,
+serve/disagg.py). The sections of planes not ported yet (``fabric``,
+``pod``, ``mesh``) are carried so the tree reads the same in both packages;
+``build_app`` refuses the settings that would turn one of them on (the
+fabric, a pod, a mesh of more than one device).
 """
 
 from __future__ import annotations
@@ -293,8 +294,7 @@ class FleetConfig:
     (io/kafka.py partition_for_key, the SAME hash the broker uses for
     key→partition placement) to a live replica, so a conversation's
     session-cache entries and prefix heads stay local and routing agrees
-    with partition assignment by construction. Not ported yet:
-    ``build_app`` refuses ``replicas`` > 1.
+    with partition assignment by construction.
     """
 
     replicas: int = 1

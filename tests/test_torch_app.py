@@ -820,7 +820,8 @@ def test_port_build_app_on_mini_equals_a_direct_agent_turn(models, short_prompts
 # --- refusals, the tokenizer width, the reference-side finding ------------------------
 
 REFUSALS = {
-    "fleet": ({"fleet.replicas": 2}, "fleet.replicas"),
+    # served since the engine fleet was ported: the case holds it served
+    "fleet": ({"fleet.replicas": 2, "fleet.roles": "prefill,decode"}, None),
     "fabric": ({"fabric.enabled": True}, "fabric.enabled"),
     "pod": ({"pod.host_id": "host-a"}, "pod.host_id"),
     "mesh": ({"model.preset": "tiny", "mesh.data": 2, "mesh.model": 1}, "mesh"),
@@ -829,12 +830,38 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_build_app_refuses_planes_not_ported(case):
+    """The planes not ported are refused by name. The fleet is served as the
+    JAX package serves it: the stub preset builds no fleet (both packages);
+    ``tiny`` builds an ``EngineFleet`` of two replicas with the parsed
+    roles."""
     overrides, name = REFUSALS[case]
     cfg = load_config(overrides={"model.preset": "stub", **overrides})
-    with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
-        tapp.build_app(cfg, store=InMemoryStore(), kafka=KafkaClient(cfg.kafka,
-                                                                     broker=InMemoryBroker()),
-                       retriever=retriever, device="cpu")
+
+    def build(cfg):
+        return tapp.build_app(cfg, store=InMemoryStore(),
+                              kafka=KafkaClient(cfg.kafka, broker=InMemoryBroker()),
+                              retriever=retriever, device="cpu")
+
+    if name is not None:
+        with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
+            build(cfg)
+        return
+    jcfg = jax_load_config(overrides={"model.preset": "stub", **overrides})
+    jax_app = japp.build_app(jcfg, store=JaxStore(),
+                             kafka=JaxKafkaClient(jcfg.kafka, broker=JaxBroker()),
+                             retriever=retriever)
+    app = build(cfg)
+    assert app.fleet is None and jax_app.fleet is None
+    assert app._max_inflight() == jax_app._max_inflight() == cfg.engine.max_seqs
+    cfg = load_config(overrides={
+        "model.preset": "tiny", **overrides, "engine.max_seqs": 2, "engine.num_pages": 16,
+        "engine.max_seq_len": 256, "engine.prefill_chunk": 32,
+        "engine.warmup_on_start": False, "engine.prefix_cache": False})
+    app = build(cfg)
+    assert type(app.fleet).__name__ == "EngineFleet" and app.fleet.replicas[1].agent is not None
+    assert [r.role for r in app.fleet.replicas] == ["prefill", "decode"]
+    assert app.fleet.disagg is not None and app._dedupe is app.fleet.dedupe
+    assert app._max_inflight() == 2 * cfg.engine.max_seqs
 
 
 def test_app_keeps_fleet_and_pod_as_none():

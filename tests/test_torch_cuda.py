@@ -1653,6 +1653,63 @@ def test_decode_loop_graph_matches_eager_before_and_after_rebuild(dev, kv_quant)
             assert not engine._loop_graphs
 
 
+def test_fleet_rebuild_beside_graph_capture(dev):
+    """Two engines of a fleet over one parameter tree: while one rebuilds its
+    pool on a worker thread, again and again (the supervisor's and the
+    breaker's rebuilds run there), the other captures its decode-loop graph
+    on this thread (``engine.DEVICE_STATE_LOCK`` keeps the two apart); each
+    capture replays equal to the eager ``decode_loop_step`` on a copy of the
+    state, and the rebuilt engine's new pool is whole and zero."""
+    from finchat_tpu_torch.engine.engine import InferenceEngine, decode_loop_step
+    from finchat_tpu_torch.utils.config import EngineConfig
+
+    engine = _loop_engine(dev)
+    sibling = InferenceEngine(engine.config, engine.params,
+                              EngineConfig(max_seqs=4, page_size=64, num_pages=4096,
+                                           max_seq_len=256, prefill_chunk=64), device=dev)
+    assert all(sibling.params["layers"][k].data_ptr() == v.data_ptr()
+               for k, v in engine.params["layers"].items())
+    done, errors, rebuilds = threading.Event(), [], [0]
+
+    def rebuild_loop():
+        try:
+            while not done.is_set():
+                sibling.rebuild_device_state()
+                rebuilds[0] += 1
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    worker = threading.Thread(target=rebuild_loop)
+    worker.start()
+    B = 4
+    active = np.zeros(B, bool)
+    active[[0, 2]] = True
+    greedy = (np.zeros(B, np.float32), np.ones(B, np.float32), np.zeros(B, np.int32))
+    dev_args = [torch.as_tensor(a, device=dev) for a in (active, *greedy)]
+    try:
+        for _ in range(4):
+            engine.rebuild_device_state()  # drops the graph
+            _arm_loop_slots(engine)
+            # the capture (its eager block writes the trash page) before the copy
+            assert engine._loop_graph(4).state is engine.state
+            copy = _state_copy(engine.state)
+            got = engine.decode_loop(active, *greedy, eos_id=-1)
+            torch.cuda.synchronize()
+            want = decode_loop_step(engine.params, copy, *dev_args,
+                                    torch.tensor(-1, dtype=torch.int32, device=dev),
+                                    config=engine.config, page_size=engine.page_size,
+                                    loop_depth=4)[1]
+            assert torch.equal(got, want)
+            for name in ("context_lens", "last_tokens", "k_pages", "v_pages"):
+                assert torch.equal(getattr(engine.state, name), getattr(copy, name)), name
+    finally:
+        done.set()
+        worker.join()
+    assert not errors, errors
+    assert rebuilds[0] >= 1
+    assert int(sibling.state.k_pages.count_nonzero()) == 0
+
+
 @pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8_kv"])
 def test_bounded_kv_waves_keep_the_graph_and_its_storage(dev, kv_quant):
     """Bounded KV on the card (a sink of 1 page, a window of 3; pages of 64):

@@ -104,3 +104,10 @@ def test_port_needs_no_hf_package_but_tokenizers(path):
     assert not tops & {"safetensors", "transformers", "huggingface_hub"}, path
     if "tokenizers" in tops:
         assert path == ROOT / "finchat_tpu_torch" / "models" / "tokenizer.py"
+
+
+@pytest.mark.parametrize("module", ["serve/fleet.py", "serve/disagg.py", "engine/scheduler.py"])
+def test_the_fleet_modules_are_walked(module):
+    """The engine fleet, the disaggregation coordinator and the scheduler's
+    drain plane are among the files walked above."""
+    assert ROOT / "finchat_tpu_torch" / module in PORT_FILES

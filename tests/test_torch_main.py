@@ -13,6 +13,7 @@
 """
 
 import asyncio
+import dataclasses
 import http.client
 import json
 import os
@@ -72,15 +73,17 @@ def test_overrides_equal_the_jax_cli(monkeypatch, argv):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--fleet-replicas", "2"], "fleet.replicas"),
-    (["--fleet-roles", "prefill,decode"], "fleet.roles"),
+    (["--fleet-replicas", "2"], None),
+    (["--fleet-replicas", "2", "--fleet-roles", "prefill,decode"], None),
     (["--fabric-path", "/fabric"], "fabric.enabled"),
     (["--decode-loop-depth", "2"], None),
 ], ids=["fleet_replicas", "fleet_roles", "fabric", "decode_loop"])
 def test_unported_plane_flags_are_refused_by_name(monkeypatch, flags, name):
-    """The fleet and fabric flags are refused by name; ``--decode-loop-depth
-    2`` (the fused decode loop, served) builds the app, which answers a
-    ``/chat`` turn."""
+    """The fabric flag is refused by name. ``--decode-loop-depth 2`` (the
+    fused decode loop) and the fleet flags are served: the app is built and
+    answers a ``/chat`` turn; with the stub preset it has no fleet, as the
+    JAX package's, and the same flags on ``tiny`` build an ``EngineFleet``
+    of the parsed roles."""
     argv = ["--preset", "stub", "--device", "cpu", *flags]
     if name is not None:
         with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
@@ -102,15 +105,33 @@ def test_unported_plane_flags_are_refused_by_name(monkeypatch, flags, name):
         body = json.dumps({"conversation_id": "c1", "user_id": "u1", "message": "Any advice?"})
         resp = asyncio.run(app.chat(Request("POST", "/chat", {}, body.encode())))
         built.update(depth=cfg.engine.decode_loop_depth, status=resp.status,
-                     body=json.loads(resp.body))
+                     body=json.loads(resp.body), fleet=app.fleet)
+        if cfg.fleet.replicas > 1:
+            # the same flags on a model: a fleet of the parsed roles
+            small = dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, preset="tiny"),
+                engine=dataclasses.replace(cfg.engine, max_seqs=2, num_pages=16,
+                                           max_seq_len=256, prefill_chunk=32,
+                                           warmup_on_start=False, prefix_cache=False))
+
+            async def no_rows(**_kw):
+                return []
+
+            fleet = real_build(small, store=store, retriever=no_rows, device="cpu").fleet
+            built["roles"] = [r.role for r in fleet.replicas]
         raise _Stop
 
     monkeypatch.setattr(app_mod, "build_app", build_then_turn)
     with pytest.raises(_Stop):
         tmain.main(argv)
-    assert built == {"depth": 2, "status": 200, "body": {
-        "response": "I'm Penny, here to help with your finances.",
-        "retrieved_transactions_count": 0}}
+    roles = built.pop("roles", None)
+    assert built == {"depth": 2 if "--decode-loop-depth" in flags else 1, "status": 200,
+                     "fleet": None, "body": {
+                         "response": "I'm Penny, here to help with your finances.",
+                         "retrieved_transactions_count": 0}}
+    if "--fleet-replicas" in flags:
+        assert roles == (["prefill", "decode"] if "--fleet-roles" in flags else
+                         ["mixed", "mixed"])
 
 
 def _free_port() -> int:
