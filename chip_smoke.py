@@ -297,9 +297,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    up: the head registered, two requests, one after the other's first token, 16 new
    tokens each, with the same prefix-cache and teacher-forced checks — the
    path of the int4 matmul kernel.
-5b. The decode planes (``decode_planes``): ``llama3-8b`` with random
-   weights from a seeded generator, bf16 then int8 weights over the int8
-   KV pool. Each run is an engine at ``EngineConfig(kv_quant=..., **run)``:
+5b. The decode planes (``decode_planes``): ``llama3-8b`` at full width
+   over ``PLANE_DEPTH`` (16) of its 32 layers, with random weights from a
+   seeded generator, bf16 then int8 weights over the int8 KV pool. Each run is an engine at ``EngineConfig(kv_quant=..., **run)``:
    bf16 at depth 1, ``decode_loop_depth=4``, ``spec_tokens=3`` and
    ``freerun_rounds=4`` with ``decode_loop_depth=2``; int8+kv8 at depth 1
    and ``decode_loop_depth=4``. Each is warmed up (the pages past the trash
@@ -328,6 +328,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    decode step's at the served context. Phase 2's ``paged_verify_c4``
    cases (the verify step's C = 4 query tokens a slot: B=64 over 1-4k
    tokens, B=8 at 5,236) take their launches from the spec run's window.
+5c. Bounded KV (``bounded_kv``): the same model at ``PLANE_DEPTH`` layers
+   under a sink of 1 page and a window of 16: every row evicts through the
+   Hopper bodies.
 5d. The engine fleet (``fleet_phase``): ``build_app`` with three
    ``llama3-8b`` bf16 replicas, ``fleet.roles`` "prefill,decode,decode",
    over one weight tree (every engine's parameter tensors the same,
@@ -345,6 +348,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    serving kernel launches in the phase's window under the serve's launch
    rules summed over the replicas (the ``fleet_launches`` of the kernels
    line), and the drain leaves no slot or page beyond the heads.
+5e. The warm-state fabric (``fabric_phase``): ``build_app`` with two
+   ``llama3-8b`` bf16 replicas and ``fabric.enabled`` at a temporary path.
+   Replica 0 prefills the two prompt heads and publishes them; replica 1's
+   registrations are fabric hits with no prefill chunk (each head's
+   seconds on both). Two Kafka turns on replica 0 at once; a follow-up of
+   one submitted to replica 1, which never saw it, resumes warm from the
+   shared tier (fabric hits, ``finchat_fabric_restore_seconds``) and equals
+   the same submission on replica 0. A turn on replica 1, then replica 1
+   out of the pool: the next turn routes to replica 0 by the holder index,
+   the source keeps no RAM copy and the shared records stay. A wedged
+   replica 1 gives up and respawns with both heads from the fabric (no
+   prefill chunk; its seconds beside PR 23's), and a turn on it rides them.
+5f. The pod (``pod_phase``): two hosts in one process, each a ``build_app``
+   with its own ``llama3-8b`` bf16 tree (host A two replicas, since a
+   one-engine app serves no pull; host B one), one consumer group, one
+   store, one journal directory, liaisons over loopback TCP, the fabric
+   off. A serves turn 1 of three conversations; B joins and two of them
+   move to it; their turn 2 on B pulls the session records from A (each
+   record's bytes, ``finchat_pod_transfer_seconds``, the event loop's
+   longest stall in a pull), and the short one resumes warm with the
+   stream of the same submission on A. A is killed: B declares it dead,
+   evicts its member, adopts its partitions and replays A's journal, so A's
+   answered message delivered again is skipped; the third conversation's
+   next turn, with no live peer, starts cold and answers. Both phases:
+   every stream teacher-forced, every bf16 serving kernel launched in the
+   window (``fabric_launches``, ``pod_launches``), no older body. The
+   fleet, fabric and pod phases' decisions stop at ``PLANE_DECISION_NEW``
+   (32) tokens, the agent phases' at ``DECISION_NEW`` (96).
 6. Train: first ``llama3-8b`` widths at 2 layers, B=1, S=2048 — the loss,
    every leaf's gradient and the one-shot forward's logits through K7
    against the same step with the plain attention (relative per leaf and on
@@ -363,7 +394,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 The line before the last is the ``kernels`` JSON (each row's
 ``launches`` from its plane's serve or run, ``checkpoint_launches`` from
-the checkpoint phase's serve, ``fleet_launches`` from the fleet phase); the last line is
+the checkpoint phase's serve, ``fleet_launches``, ``fabric_launches`` and
+``pod_launches`` from the fleet, fabric and pod phases); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or when the port package is not beside this file.
 """
@@ -5162,6 +5194,10 @@ def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None,
 # the spec run's drafts a verify step: the verify-shape attention call is
 # C = 1 + VERIFY_DRAFTS query tokens a slot
 VERIFY_DRAFTS = 3
+# the decode planes and bounded KV run at full width over 16 of the model's 32
+# layers (the depth cut, not a check dropped), so the script stays inside its
+# time limit with the fleet planes' phases after them
+PLANE_DEPTH = 16
 # the runs of the phase, each an engine of its own over the plane's weights:
 # the depth-1 stream first (what the others are held to), then the planes
 DECODE_RUNS = {
@@ -5539,18 +5575,21 @@ async def _plane_run(torch, dev, plane: str, label: str, extras: dict, params, c
 
 
 async def decode_planes(torch, dev, card: str) -> dict:
-    """The decode planes at ``llama3-8b`` full width, random weights from a
-    seeded generator, greedy (``DECODE_RUNS``): on bf16 the depth-1 run,
+    """The decode planes at ``llama3-8b`` full width over ``PLANE_DEPTH`` of
+    its layers, random weights from a seeded generator, greedy
+    (``DECODE_RUNS``): on bf16 the depth-1 run,
     ``decode_loop_depth=4``, ``spec_tokens=3`` and ``freerun_rounds=4`` with
     ``decode_loop_depth=2``; on int8+kv8 the depth-1 run and
     ``decode_loop_depth=4``. Each run's launches are a window of their own
     (counts set to 0 just before the head's registration); the spec run's
     window is the one the verify-shape attention's ``kernels`` row reads."""
+    import dataclasses
+
     from finchat_tpu_torch.models.llama import PRESETS, init_params
     from finchat_tpu_torch.models.quant import init_quantized_params
     from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat_head
 
-    config = PRESETS["llama3-8b"]
+    config = dataclasses.replace(PRESETS["llama3-8b"], n_layers=PLANE_DEPTH)
     system_prompt = (REPO / "prompts" / "system_prompt.txt").read_text()
     head_ids = ByteTokenizer().encode(render_chat_head(system_prompt), add_bos=True)[:-1]
     t0 = time.perf_counter()
@@ -5923,16 +5962,18 @@ async def _bounded_run(torch, dev, plane: str, label: str, extras: dict, head: b
 
 
 async def bounded_kv(torch, dev, card: str) -> dict:
-    """Bounded KV at ``llama3-8b`` full width, random weights from a seeded
-    generator, greedy (``BOUNDED_RUNS``): bf16 at depth 1, at
+    """Bounded KV at ``llama3-8b`` full width over ``PLANE_DEPTH`` of its
+    layers, random weights from a seeded generator, greedy (``BOUNDED_RUNS``): bf16 at depth 1, at
     ``decode_loop_depth=4`` (the graph replaying across eviction waves) and
     with the system head registered; int8+kv8 at depth 1 (K4, K5, K6 and K8
     with gaps). Each run's launches are a window of their own."""
+    import dataclasses
+
     from finchat_tpu_torch.models.llama import PRESETS, init_params
     from finchat_tpu_torch.models.quant import init_quantized_params
     from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat_head
 
-    config = PRESETS["llama3-8b"]
+    config = dataclasses.replace(PRESETS["llama3-8b"], n_layers=PLANE_DEPTH)
     system_prompt = (REPO / "prompts" / "system_prompt.txt").read_text()
     head_ids = ByteTokenizer().encode(render_chat_head(system_prompt), add_bos=True)[:-1]
     t0 = time.perf_counter()
@@ -5974,6 +6015,145 @@ K7_KERNELS = ("flash_attention_sm90", "flash_attention", "flash_attention_bwd",
 
 
 # --------------------------------------------------------------------------
+# the serving-app phases' bookkeeping (fleet_phase, fabric_phase, pod_phase)
+# --------------------------------------------------------------------------
+
+PLANE_WAIT_S = 300.0
+
+
+def _record_submits(reps, handles: list, delivered: dict, n_prompt: dict) -> dict:
+    """Wrap each replica's ``scheduler.submit`` (``reps``: replica id ->
+    scheduler) so every submission lands in ``handles`` as (replica id,
+    handle), the token ids its consumer was handed in ``delivered`` and its
+    prompt's length at its first token in ``n_prompt`` (a partial hold's
+    prompt grows at the graft). Returns the real submits, to put back."""
+    real = {}
+    for rid, sched in reps.items():
+        submit = sched.submit
+
+        async def recording(*a, _submit=submit, _rid=rid, **k):
+            h = await _submit(*a, **k)
+            handles.append((_rid, h))
+            put, seen = h.events.put_nowait, delivered.setdefault(id(h), [])
+
+            def put_recorded(ev, _put=put, _seen=seen, _h=h):
+                if ev.get("type") == "token":
+                    if not _seen:
+                        n_prompt[id(_h)] = len(_h.history) - 1
+                    _seen.append(ev["token_id"])
+                _put(ev)
+
+            h.events.put_nowait = put_recorded
+            return h
+
+        real[rid] = submit
+        sched.submit = recording
+    return real
+
+
+class _Turns:
+    """Kafka traffic of a phase: a producer, a watcher of ``ai_response``,
+    the payloads by message id and the complete markers seen."""
+
+    def __init__(self, broker, store, prefix: str):
+        from finchat_tpu_torch.io.kafka import KafkaClient
+        from finchat_tpu_torch.utils.config import AI_RESPONSE_TOPIC, KafkaConfig
+
+        self.store, self.prefix = store, prefix
+        self.watcher = KafkaClient(KafkaConfig(), broker=broker)
+        self.watcher.setup_consumer(topics=[AI_RESPONSE_TOPIC])
+        self.producer = KafkaClient(KafkaConfig(), broker=broker)
+        self.outbound: list = []
+        self.payloads: dict = {}
+        self.users: dict = {}
+
+    def add_conversation(self, conv: str, k: int, history: int) -> None:
+        self.users[conv] = f"user-app-{k % APP_CONVS}"
+        self.store.upsert_context(conv, _app_context(k % APP_CONVS))
+        t_hist = int(time.time()) - 3600
+        for j in range(history):
+            self.store.add_user_message(
+                conv, f"Earlier question {j}: how much did I spend on groceries and dining out "
+                f"in week {j}, and is that more than my plan allows?", self.users[conv],
+                timestamp=t_hist)
+
+    def produce(self, conv: str, mid: str, payload: dict | None = None) -> None:
+        """One user message (or, with ``payload``, that message again: a
+        redelivery)."""
+        from finchat_tpu_torch.utils.config import USER_MESSAGE_TOPIC
+
+        if payload is None:
+            payload = {"message": MESSAGES[len(self.payloads) % len(MESSAGES)],
+                       "conversation_id": conv, "user_id": self.users[conv], "message_id": mid}
+            self.store.add_user_message(conv, payload["message"], payload["user_id"])
+            self.payloads[mid] = payload
+        self.producer.produce_message(USER_MESSAGE_TOPIC, conv, payload)
+
+    def completes(self) -> int:
+        while (m := self.watcher.poll_message()) is not None:
+            self.outbound.append(m.value())
+        return sum(json.loads(v).get("type") == "complete" for v in self.outbound)
+
+    async def wait(self, n: int, what: str, *apps) -> None:
+        """Until ``n`` complete markers are out and no message is in flight
+        on ``apps`` (its answer journaled, its offset committed)."""
+        await _wait_for(lambda: self.completes() >= n and not any(a._inflight for a in apps),
+                        f"{self.prefix}: {what}", PLANE_WAIT_S)
+
+    def close(self) -> None:
+        self.watcher.close()
+
+
+def _of(handles, conv: str, role: str) -> list:
+    """(replica id, handle) of a conversation role's submissions."""
+    return [(rid, h) for rid, h in handles if h.conversation_id == f"{conv}#{role}"]
+
+
+def _teacher_force_all(torch, params_of, config, handles, n_prompt: dict, vocab) -> int:
+    """Every finished stream with tokens through ``teacher_forced_check``
+    over everything it served (a decision under its grammar's masks);
+    ``params_of(replica id)`` gives the weights it was served from."""
+    from types import SimpleNamespace
+
+    n = 0
+    for rid, h in handles:
+        if not (h.finished and h.generated > 0):
+            continue
+        decision = (h.conversation_id or "").endswith("#tool")
+        whole = SimpleNamespace(seq_id=h.seq_id, history=h.history, shared_len=h.shared_len,
+                                resumed_len=h.resumed_len, sampling=h.sampling,
+                                prompt_ids=h.history[:n_prompt.get(id(h), len(h.prompt_ids))])
+        teacher_forced_check(torch, params_of(rid), config, whole, "",
+                             vocab=vocab if decision else None)
+        n += 1
+    return n
+
+
+async def _grammar_vocab(generators):
+    for gen in generators:
+        task = gen._grammar_vocabs.get("tool_call")
+        if task is not None:
+            return await task
+    return None
+
+
+def _check_plane_window(what: str, spec: dict, config, launches: dict, counts: list,
+                        metrics, m0: dict) -> dict:
+    """The serving window's launch rules over every engine of the phase:
+    every bf16 serving kernel launched, no older body."""
+    from types import SimpleNamespace
+
+    missing = [k for k in spec["kernels"] if launches[k] == 0]
+    if missing:
+        fail(f"{what}: kernels not launched on the phase's path: {missing}")
+    decode_steps = _metric_delta(metrics, m0, "finchat_decode_dispatches_total")
+    rounds = _metric_delta(metrics, m0, "finchat_mixed_dispatches_total")
+    check_window("bf16", what, spec, config, launches,
+                 SimpleNamespace(chunks=sum(c.chunks for c in counts)), decode_steps, rounds)
+    return {k: v for k, v in launches.items() if v}
+
+
+# --------------------------------------------------------------------------
 # fleet_phase: three llama3-8b replicas over one weight tree, disaggregated
 # --------------------------------------------------------------------------
 
@@ -5985,6 +6165,10 @@ FLEET_HISTORY = 6  # prior messages a conversation holds: a residue past one pre
 FLEET_SESSION_BYTES = 4 << 30
 FLEET_WAIT_S = 300.0
 FLEET_PROBES = 6  # probes sent to the wedged replica until its breaker gives up
+# the decision's token budget in the fleet, fabric and pod phases: shorter than
+# the agent phases' DECISION_NEW (its grammar's budget closes the call), so the
+# script stays inside its time limit; every check of those phases holds
+PLANE_DECISION_NEW = 32
 
 
 def plain_route(conv: str, serving: list[str], num_partitions: int) -> str:
@@ -6037,7 +6221,6 @@ async def fleet_phase(torch, dev, card: str) -> dict:
     every bf16 serving kernel launched, under the serve's launch rules
     summed over the replicas, and no older body."""
     import tempfile
-    from types import SimpleNamespace
 
     import finchat_tpu_torch.serve.app as app_mod
     from finchat_tpu_torch.engine.sampler import SamplingParams
@@ -6158,7 +6341,7 @@ async def fleet_phase(torch, dev, card: str) -> dict:
         store.upsert_context(conv, _app_context(k % APP_CONVS))
         for line in history:
             store.add_user_message(conv, line, f"user-app-{k % APP_CONVS}", timestamp=t_hist)
-    greedy_decision = SamplingParams(temperature=0.0, max_new_tokens=DECISION_NEW,
+    greedy_decision = SamplingParams(temperature=0.0, max_new_tokens=PLANE_DECISION_NEW,
                                      grammar="tool_call")
     for r in reps:
         r.agent.tool_sampling = greedy_decision
@@ -6168,27 +6351,8 @@ async def fleet_phase(torch, dev, card: str) -> dict:
     # prompt grows at the graft; a replay after a drain takes the stream so
     # far as its prompt)
     n_prompt: dict = {}
-    submits = {}
-    for r in reps:
-        submit = r.scheduler.submit
-
-        async def recording(*a, _submit=submit, _rid=r.replica_id, **k):
-            h = await _submit(*a, **k)
-            handles.append((_rid, h))
-            put, seen = h.events.put_nowait, delivered.setdefault(id(h), [])
-
-            def put_recorded(ev, _put=put, _seen=seen, _h=h):
-                if ev.get("type") == "token":
-                    if not _seen:
-                        n_prompt[id(_h)] = len(_h.history) - 1
-                    _seen.append(ev["token_id"])
-                _put(ev)
-
-            h.events.put_nowait = put_recorded
-            return h
-
-        submits[r.replica_id] = submit
-        r.scheduler.submit = recording
+    submits = _record_submits({r.replica_id: r.scheduler for r in reps}, handles, delivered,
+                              n_prompt)
     counts = {r.replica_id: _Counts(r.scheduler.engine) for r in reps}
     watcher = KafkaClient(KafkaConfig(), broker=broker)
     watcher.setup_consumer(topics=[AI_RESPONSE_TOPIC])
@@ -6394,15 +6558,8 @@ async def fleet_phase(torch, dev, card: str) -> dict:
                  f"migrated session bytes: {dr}")
         await _wait_for(lambda: not app._inflight, "fleet: a message stayed in flight")
         # the window's launches, read before the drain
-        launches = dict(LAUNCHES)
-        decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
-        rounds = _metric_delta(METRICS, m0, "finchat_mixed_dispatches_total")
-        missing = [k for k in spec["kernels"] if launches[k] == 0]
-        if missing:
-            fail(f"fleet: kernels not launched on the fleet's path: {missing}")
-        total = SimpleNamespace(chunks=sum(c.chunks for c in counts.values()))
-        check_window("bf16", "fleet", spec, config, launches, total, decode_steps, rounds)
-        out["launches"] = {k: v for k, v in launches.items() if v}
+        out["launches"] = _check_plane_window("fleet", spec, config, dict(LAUNCHES),
+                                              list(counts.values()), METRICS, m0)
         out["prefill"] = {rid: dict(chunks=c.chunks, rows=c.rows, tokens=c.tokens)
                           for rid, c in counts.items()}
         log(f"  fleet prefill by replica (chunks, rows, tokens): "
@@ -6440,33 +6597,668 @@ async def fleet_phase(torch, dev, card: str) -> dict:
     if texts["fleet-drain"] != served_text:
         fail(f"fleet: the drained turn's chunks {texts['fleet-drain']!r} are not its served "
              f"tokens' text {served_text!r}")
-    vocab = None
-    for r in reps:
-        task = r.generator._grammar_vocabs.get("tool_call")
-        if task is not None:
-            vocab = await task
-            break
+    vocab = await _grammar_vocab([r.generator for r in reps])
     params = engines[0].params
-    checks = []
-    for rid, h in handles:
-        if not (h.finished and h.generated > 0) or h.seq_id.startswith("__disagg_"):
-            continue
-        decision = (h.conversation_id or "").endswith("#tool")
-        # held over everything it served, across a drain's replay too
-        whole = SimpleNamespace(seq_id=h.seq_id, history=h.history, shared_len=h.shared_len,
-                                resumed_len=h.resumed_len, sampling=h.sampling,
-                                prompt_ids=h.history[:n_prompt.get(id(h), len(h.prompt_ids))])
-        checks.append(teacher_forced_check(torch, params, config, whole, "",
-                                           vocab=vocab if decision else None))
-    out.update(teacher_forced=len(checks), drained_tokens=resp.generated,
+    # every stream but the prefill passes, over everything it served (across a
+    # drain's replay too)
+    served = [(rid, h) for rid, h in handles if not h.seq_id.startswith("__disagg_")]
+    checked = _teacher_force_all(torch, lambda rid: params, config, served, n_prompt, vocab)
+    out.update(teacher_forced=checked, drained_tokens=resp.generated,
                phase_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
     del app, fleet, reps, engines, params, handles, resp, victim, sibling, probes
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"  fleet ({card}): {len(checks)} streams teacher-forced (the drained response's "
+    log(f"  fleet ({card}): {checked} streams teacher-forced (the drained response's "
         f"{out['drained_tokens']} tokens among them); peak {out['phase_peak_gb']:.2f} GB; the "
         f"phase took {out['phase_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# fabric_phase and pod_phase: the warm-state fabric over two replicas, and two
+# pod hosts in one process
+# --------------------------------------------------------------------------
+
+async def fabric_phase(torch, dev, card: str) -> dict:
+    """The warm-state fabric at ``llama3-8b``'s full width, bf16:
+    ``build_app`` with ``fleet.replicas`` 2 (both mixed) and
+    ``fabric.enabled`` at a temporary ``fabric.path`` (random weights from
+    ``model.seed``, ``EngineConfig()`` but the session RAM tier, 4 GB a
+    replica as in ``fleet_phase``), a stub retriever and an
+    ``InMemoryBroker``; greedy, every stream teacher-forced.
+
+    - The heads are prefilled once a fleet: replica 0's two registrations
+      miss the fabric and prefill (chunks counted), replica 1's are fabric
+      hits with no prefill chunk; each head's registration seconds on both.
+    - Any replica resumes any conversation: two Kafka turns homed on
+      replica 0 run at once; the response of one, with a follow-up, is
+      submitted to replica 1, which never saw it: it resumes warm from the
+      shared tier (``finchat_fabric_hits_total``,
+      ``finchat_fabric_restore_seconds``), its stream equal to the same
+      submission on replica 0, where the conversation lived.
+    - Route-time migration: a turn homed on replica 1, then replica 1 out of
+      the pool; the next turn routes to replica 0, which asks the holder
+      index (``WarmFabric.holder``), moves the RAM entries, and the shared
+      records stay; the turn resumes.
+    - Give-up and respawn: probes to a wedged replica 1 until it gives up;
+      healed, its respawn registers both heads from the fabric (two hits, no
+      prefill chunk), its seconds beside PR 23's re-prefilling respawn; a
+      turn homed on it then rides the restored heads.
+
+    Launch counts are set to 0 after the build and read before the drain:
+    every bf16 serving kernel launched over both replicas, no older body."""
+    import tempfile
+
+    import finchat_tpu_torch.serve.app as app_mod
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.io.kafka import InMemoryBroker, KafkaClient
+    from finchat_tpu_torch.io.store import InMemoryStore
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.serve.fleet import LIVE, RESPAWNING
+    from finchat_tpu_torch.utils import faults
+    from finchat_tpu_torch.utils.config import load_config
+    from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    t_phase = time.perf_counter()
+    spec = PLANES["bf16"]
+    _free(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="finchat-fabric-")
+    cfg = load_config(overrides={
+        "model.preset": "llama3-8b", "fleet.replicas": 2,
+        "fleet.respawn_backoff_seconds": 0.2, "fleet.supervisor_interval_seconds": 0.05,
+        "fabric.enabled": True, "fabric.path": f"{tmp}/fabric",
+        "engine.max_new_tokens": AGENT_NEW, "engine.temperature": 0.0,
+        "engine.session_cache_bytes": FLEET_SESSION_BYTES,
+        "kafka.commit_after_process": True, "tracing.flight_dir": f"{tmp}/flight"})
+    store, broker = InMemoryStore(), InMemoryBroker()
+
+    def hits(rid: str) -> float:
+        return METRICS.get("finchat_fabric_hits_total", {"replica": rid})
+
+    # each head's registration: its seconds, its prefill chunks, a hit or not
+    regs: dict = {}
+    register = app_mod.register_prompt_prefixes
+
+    def timed_register(agent, scheduler, tokenizer):
+        counts, real = _Counts(scheduler.engine), scheduler.register_prefix
+        rows = regs.setdefault(scheduler.replica_id, [])
+
+        def one(ids):
+            counts.reset()
+            h0 = hits(scheduler.replica_id)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = real(ids)
+            torch.cuda.synchronize()
+            rows.append(dict(tokens=n, s=time.perf_counter() - t0, chunks=counts.chunks,
+                             hit=hits(scheduler.replica_id) - h0))
+            return n
+
+        scheduler.register_prefix = one
+        try:
+            return register(agent, scheduler, tokenizer)
+        finally:
+            del scheduler.register_prefix
+            counts.close()
+
+    app_mod.register_prompt_prefixes = timed_register
+    t0 = time.perf_counter()
+    try:
+        app = app_mod.build_app(cfg, store=store, kafka=KafkaClient(cfg.kafka, broker=broker),
+                                retriever=_TurnRetriever(structured=False), device=dev)
+    finally:
+        app_mod.register_prompt_prefixes = register
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fleet = app.fleet
+    reps = fleet.replicas if fleet is not None else []
+    fabric = reps[0].scheduler.fabric if reps else None
+    if len(reps) != 2 or fabric is None or reps[1].scheduler.fabric is not fabric:
+        fail(f"fabric: build_app built {len(reps)} replicas over fabric {fabric}")
+    engines = [r.scheduler.engine for r in reps]
+    config = engines[0].config
+    tok = app.agent.tool_generator.tokenizer
+    out: dict = {"build_s": build_s, "memory_gb": (torch.cuda.memory_allocated() - base) / 1e9,
+                 "heads": regs}
+    log(f"  fabric build ({card}): build_app {build_s:.1f} s; head registrations "
+        + "; ".join(f"replica {rid}: " + ", ".join(
+            f"{r['tokens']} tokens in {r['s'] * 1e3:.1f} ms ({r['chunks']} prefill chunks, "
+            f"hit {r['hit']:.0f})" for r in rows) for rid, rows in sorted(regs.items())))
+    r0, r1 = regs.get("0", []), regs.get("1", [])
+    if (len(r0) != 2 or len(r1) != 2 or any(r["hit"] or not r["chunks"] for r in r0)
+            or any(r["hit"] != 1 or r["chunks"] for r in r1)
+            or [r["tokens"] for r in r0] != [r["tokens"] for r in r1]):
+        fail(f"fabric: the heads were not prefilled once a fleet (replica 1 from the fabric, "
+             f"no prefill chunk): {regs}")
+
+    # --- the drive's bookkeeping -----------------------------------------
+    serving = [r.replica_id for r in reps]
+    n_part = fleet.num_partitions
+    homes: dict = {"0": [], "1": []}
+    i = 0
+    while len(homes["0"]) < 2 or len(homes["1"]) < 2:
+        conv = f"fabric-{i}"
+        homes[plain_route(conv, serving, n_part)].append(conv)
+        i += 1
+    (conv_a, conv_a2), (conv_b, conv_c) = homes["0"][:2], homes["1"][:2]
+    turns = _Turns(broker, store, "fabric")
+    for k, conv in enumerate((conv_a, conv_a2, conv_b, conv_c)):
+        turns.add_conversation(conv, k, FLEET_HISTORY if k == 1 else 0)
+    greedy_decision = SamplingParams(temperature=0.0, max_new_tokens=PLANE_DECISION_NEW,
+                                     grammar="tool_call")
+    for r in reps:
+        r.agent.tool_sampling = greedy_decision
+    handles: list = []
+    delivered: dict = {}
+    n_prompt: dict = {}
+    submits = _record_submits({r.replica_id: r.scheduler for r in reps}, handles, delivered,
+                              n_prompt)
+    counts = {r.replica_id: _Counts(r.scheduler.engine) for r in reps}
+    holder_calls = [0]
+    holder = fabric.holder
+
+    def counted_holder(key):
+        holder_calls[0] += 1
+        return holder(key)
+
+    fabric.holder = counted_holder
+    m0 = METRICS.snapshot()
+    reset_launches()
+    TRACER.clear()
+    for c in counts.values():
+        c.reset()
+    victim = fleet._by_id["1"]
+    try:
+        await app.start(serve_http=False)
+        # --- two turns on replica 0 at once --------------------------------
+        turns.produce(conv_a, "fabric-m0")
+        turns.produce(conv_a2, "fabric-m1")
+        await turns.wait(2, "the turns on replica 0 did not complete", app)
+        on = sorted({rid for conv in (conv_a, conv_a2) for rid, _h in
+                     _of(handles, conv, "tool") + _of(handles, conv, "resp")})
+        if on != ["0"]:
+            fail(f"fabric: the turns homed on replica 0 ran on {on}")
+        # --- a replica that never saw the conversation resumes it warm -------
+        resp = _of(handles, conv_a, "resp")[-1][1]
+        follow = list(resp.history) + tok.encode(" Thanks. And what about next month?")
+        await asyncio.to_thread(fabric.flush)
+        key = f"{conv_a}#resp"
+        if reps[1].scheduler.session_cache.get(key) is not None or key not in fabric.tier:
+            fail("fabric: the conversation is in replica 1's RAM, or not on the shared tier")
+        f0 = METRICS.snapshot()
+        h0 = hits("1")
+        sampling = SamplingParams(temperature=0.0, max_new_tokens=16)
+        never_seen = await _stream_ids(reps[1].scheduler, "fabric-warm-1", follow, sampling, key)
+        warm_hits = hits("1") - h0
+        restore = _seconds(METRICS, f0, 'finchat_fabric_restore_seconds{replica="1"}')
+        where_lived = await _stream_ids(reps[0].scheduler, "fabric-warm-0", follow, sampling, key)
+        out["warm_resume"] = dict(
+            resumed=never_seen.resumed_len, prompt=len(follow), hits=warm_hits,
+            restore=restore, ttft_s=never_seen.first_token_at - never_seen.submitted_at,
+            lived_resumed=where_lived.resumed_len,
+            lived_ttft_s=where_lived.first_token_at - where_lived.submitted_at)
+        wr = out["warm_resume"]
+        log(f"  fabric warm resume ({card}): replica 1 resumed {wr['resumed']} of "
+            f"{wr['prompt']} tokens of a conversation it never saw (fabric hits {warm_hits:.0f}, "
+            f"finchat_fabric_restore_seconds {restore['total_s']:.3f} s over {restore['n']}); "
+            f"TTFT {wr['ttft_s']:.3f} s, on replica 0 from its RAM {wr['lived_ttft_s']:.3f} s")
+        if never_seen.resumed_len <= 0 or warm_hits < 1 or restore["n"] < 1:
+            fail(f"fabric: replica 1 did not resume the conversation from the fabric: {wr}")
+        got = never_seen.history[len(follow):]
+        want = where_lived.history[len(follow):]
+        if got != want or never_seen.resumed_len != where_lived.resumed_len:
+            fail(f"fabric: the resume on replica 1 served {got}, where the conversation lived "
+                 f"{want}")
+        # --- route-time migration by the holder index ------------------------
+        turns.produce(conv_b, "fabric-m2")
+        await turns.wait(3, "the turn on replica 1 did not complete", app)
+        keys = [f"{conv_b}#tool", f"{conv_b}#resp"]
+        held = [fabric.holder(k) for k in keys]
+        victim.state = RESPAWNING  # out of the pool; the supervisor leaves it alone
+        mig0, holder_calls[0] = METRICS.get("finchat_fleet_session_migrations_total"), 0
+        turns.produce(conv_b, "fabric-m3")
+        await turns.wait(4, "the turn after the migration did not complete", app)
+        victim.state = LIVE
+        await asyncio.to_thread(fabric.flush)
+        back = [(rid, h) for rid, h in _of(handles, conv_b, "tool") + _of(handles, conv_b, "resp")
+                if h.trace_id == "fabric-m3"]
+        out["migration"] = dict(
+            holders_before=held, migrations=METRICS.get("finchat_fleet_session_migrations_total")
+            - mig0, holder_lookups=holder_calls[0], on=sorted({rid for rid, _h in back}),
+            resumed=[h.resumed_len for _rid, h in back],
+            source_ram=[victim.scheduler.session_cache.get(k) is not None for k in keys],
+            shared_records=[k in fabric.tier for k in keys])
+        mg = out["migration"]
+        log(f"  fabric migration ({card}): holders {held}; the next turn on {mg['on']}: "
+            f"{mg['migrations']:.0f} migrations by {mg['holder_lookups']} holder lookups, resumed "
+            f"{mg['resumed']}; the source's RAM copies {mg['source_ram']}, the shared records "
+            f"{mg['shared_records']}")
+        if (any(h is None or h[0] != "1" for h in held) or mg["on"] != ["0"]
+                or mg["migrations"] < 1 or mg["holder_lookups"] < 1 or any(mg["source_ram"])
+                or not all(mg["shared_records"]) or not all(n > 0 for n in mg["resumed"])):
+            fail(f"fabric: the migration did not go by the holder index and keep the shared "
+                 f"records: {mg}")
+        # --- give-up and respawn: the heads come back from the fabric ---------
+        dead = [True]
+
+        def wedge(**ctx):
+            if dead[0] and ctx.get("replica") == victim.replica_id:
+                raise RuntimeError("fabric drill: replica 1 wedged")
+
+        faults.arm("scheduler.decode", wedge)
+        faults.arm("engine.rebuild", wedge)
+        probes = []
+        for k in range(FLEET_PROBES):
+            if victim.state != LIVE:
+                break
+            h = await victim.scheduler.submit(f"fabric-probe{k}", list(range(40 + k, 56 + k)),
+                                              SamplingParams(temperature=0.0, max_new_tokens=3))
+            probes.append(h)
+            await _wait_for(lambda h=h: h.finished, "fabric: a probe did not end", PLANE_WAIT_S)
+        await _wait_for(lambda: victim.state != LIVE, "fabric: replica 1 did not give up",
+                        PLANE_WAIT_S)
+        hits_before, chunks_before = hits("1"), counts["1"].chunks
+        dead[0] = False
+        faults.disarm_all()
+        t_heal = time.perf_counter()
+        await _wait_for(lambda: victim.state == LIVE, "fabric: replica 1 did not respawn",
+                        PLANE_WAIT_S)
+        respawn_s = time.perf_counter() - t_heal
+        out["respawn"] = dict(respawn_s=respawn_s, head_hits=hits("1") - hits_before,
+                              prefill_chunks=counts["1"].chunks - chunks_before,
+                              heads=len(victim.registered_heads),
+                              probes=len(probes))
+        rs = out["respawn"]
+        log(f"  fabric respawn ({card}): {len(probes)} probes to the give-up; respawn (the pool "
+            f"rebuilt on a worker thread, {rs['heads']} heads from the fabric: {rs['head_hits']:.0f} "
+            f"hits, {rs['prefill_chunks']} prefill chunks) {respawn_s:.2f} s (PR 23's, heads "
+            f"re-prefilled: 1.10-1.21 s)")
+        if rs["head_hits"] != 2 or rs["prefill_chunks"] or rs["heads"] != 2:
+            fail(f"fabric: the respawn did not register both heads from the fabric: {rs}")
+        turns.produce(conv_c, "fabric-m4")
+        await turns.wait(5, "the turn after the respawn did not complete", app)
+        after = [(rid, h) for rid, h in _of(handles, conv_c, "tool") + _of(handles, conv_c, "resp")]
+        out["after_respawn"] = dict(on=sorted({rid for rid, _h in after}),
+                                    shared=[h.shared_len for _rid, h in after])
+        if out["after_respawn"]["on"] != ["1"] or not all(n > 0 for n in
+                                                           out["after_respawn"]["shared"]):
+            fail(f"fabric: the turn after the respawn did not ride the restored heads on replica "
+                 f"1: {out['after_respawn']}")
+        launches = dict(LAUNCHES)
+        out["launches"] = _check_plane_window("fabric", spec, config, launches,
+                                              list(counts.values()), METRICS, m0)
+        await app.drain_and_stop()
+        turns.completes()
+    finally:
+        faults.disarm_all()
+        fabric.holder = holder
+        for r in reps:
+            r.scheduler.submit = submits[r.replica_id]
+        for c in counts.values():
+            c.close()
+        turns.close()
+    _check_chunks("fabric", turns.outbound, turns.payloads)
+    vocab = await _grammar_vocab([r.generator for r in reps])
+    params = engines[0].params
+    out["teacher_forced"] = _teacher_force_all(torch, lambda rid: params, config, handles,
+                                               n_prompt, vocab)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    await asyncio.to_thread(fabric.close)
+    del app, fleet, reps, engines, params, handles, victim, fabric
+    _free(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  fabric ({card}): {out['teacher_forced']} streams teacher-forced; peak "
+        f"{out['peak_gb']:.2f} GB; the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+class _LoopLag:
+    """How late the event loop wakes a 5 ms sleeper: (wake time, lateness)
+    samples, read over a window."""
+
+    def __init__(self):
+        self.samples: list = []
+        self.task = None
+
+    async def _run(self):
+        while True:
+            t = time.perf_counter()
+            await asyncio.sleep(0.005)
+            now = time.perf_counter()
+            self.samples.append((now, now - t - 0.005))
+
+    def start(self) -> None:
+        self.task = asyncio.create_task(self._run())
+
+    def max_in(self, t0: float, t1: float) -> float:
+        return max((lag for t, lag in self.samples if t0 <= t <= t1 + 0.05), default=0.0)
+
+    async def stop(self) -> None:
+        self.task.cancel()
+        try:
+            await self.task
+        except asyncio.CancelledError:
+            pass
+
+
+async def pod_phase(torch, dev, card: str) -> dict:
+    """Two pod hosts in one process at ``llama3-8b``'s full width, bf16,
+    the fabric off: host A ``build_app`` with ``fleet.replicas`` 2 (a
+    one-engine app hands its ``PodCoordinator`` no fleet, so it can serve no
+    pull, in the JAX package as here), host B with one engine, each its own
+    weight tree from ``model.seed``; one ``InMemoryBroker`` consumer group,
+    one store, one journal directory (the scenario is a host's death), and
+    liaisons over ``tcp:127.0.0.1:<free port>`` both ways; greedy, every
+    stream teacher-forced.
+
+    - Host A alone serves turn 1 of three conversations at once: a short
+      one, one of ``fleet_phase``'s shape (six prior messages), and one that
+      stays on A's share. Host B joins the group: the first two
+      conversations' partitions move to B.
+    - Turn 2 of each on B pulls its session records from A over TCP before
+      admission (``finchat_pod_session_pulls_total``, each record's bytes,
+      ``finchat_pod_transfer_seconds``, the event loop's longest stall in
+      the pull): the short one resumes warm, and each pulled stream equals
+      the same submission on A, uninterrupted.
+    - A is killed (its liaison off the wire, its consumer silent): B
+      declares it dead after ``heartbeat_miss_threshold`` misses, evicts its
+      member, adopts its partitions and replays A's journal: A's answered
+      message, delivered again, is not answered twice
+      (``finchat_kafka_dedupe_skips_total``). The third conversation's next
+      turn, with no live peer, is a counted cold start that still answers.
+
+    Launch counts are set to 0 after both builds and read before the
+    drain: every bf16 serving kernel launched over the three engines, no
+    older body."""
+    import tempfile
+
+    import finchat_tpu_torch.serve.app as app_mod
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.io.kafka import InMemoryBroker, KafkaClient
+    from finchat_tpu_torch.io.store import InMemoryStore
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.serve.pod import PEER_DEAD, PEER_LIVE
+    from finchat_tpu_torch.utils.config import USER_MESSAGE_TOPIC, load_config
+    from finchat_tpu_torch.utils.metrics import METRICS
+    from finchat_tpu_torch.utils.tracing import TRACER
+
+    t_phase = time.perf_counter()
+    spec = PLANES["bf16"]
+    _free(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="finchat-pod-")
+    ports = {"A": _free_port(), "B": _free_port()}
+    common = {"model.preset": "llama3-8b", "engine.max_new_tokens": AGENT_NEW,
+              "engine.temperature": 0.0, "engine.session_cache_bytes": FLEET_SESSION_BYTES,
+              "kafka.commit_after_process": True, "journal.path": f"{tmp}/journal",
+              "tracing.flight_dir": f"{tmp}/flight"}
+    cfgs = {h: load_config(overrides={
+        **common, "fleet.replicas": 2 if h == "A" else 1, "fleet.respawn": False,
+        "pod.host_id": f"host{h}", "pod.listen": f"tcp:127.0.0.1:{ports[h]}",
+        "pod.peers": f"host{o}=tcp:127.0.0.1:{ports[o]}", "serve.port": _free_port()})
+        for h, o in (("A", "B"), ("B", "A"))}
+    store, broker = InMemoryStore(), InMemoryBroker()
+    kafka = {}
+    apps = {}
+    memory = {}
+    for h in ("A", "B"):
+        kafka[h] = KafkaClient(cfgs[h].kafka, broker=broker)
+        kafka[h]._member_id = f"member-host{h}"  # the assignment, fixed across runs
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        apps[h] = app_mod.build_app(cfgs[h], store=store, kafka=kafka[h],
+                                    retriever=_TurnRetriever(structured=False), device=dev)
+        torch.cuda.synchronize()
+        memory[h] = dict(build_s=time.perf_counter() - t0,
+                         device_gb=(torch.cuda.memory_allocated() - before) / 1e9)
+    app_a, app_b = apps["A"], apps["B"]
+    pod_a, pod_b = app_a.pod, app_b.pod
+    if pod_a is None or pod_b is None or pod_a.fleet is None:
+        fail(f"pod: build_app built pods {pod_a} / {pod_b}")
+    scheds = {f"A{r.replica_id}": r.scheduler for r in app_a.fleet.replicas}
+    scheds["B"] = app_b.scheduler
+    engines = {rid: s.engine for rid, s in scheds.items()}
+    config = engines["B"].config
+    out: dict = {"memory": memory,
+                 "total_gb": (torch.cuda.memory_allocated() - base) / 1e9}
+    log(f"  pod build ({card}): host A (two replicas) {memory['A']['device_gb']:.2f} GB in "
+        f"{memory['A']['build_s']:.1f} s, host B (one) {memory['B']['device_gb']:.2f} GB in "
+        f"{memory['B']['build_s']:.1f} s; {out['total_gb']:.2f} GB on the card for both hosts")
+
+    # --- which conversations move: the assignment of both members ------------
+    probe = InMemoryBroker()
+    members = {}
+    for h in ("A", "B"):
+        members[h] = KafkaClient(cfgs[h].kafka, broker=probe)
+        members[h]._member_id = f"member-host{h}"
+        members[h].setup_consumer(topics=[USER_MESSAGE_TOPIC])
+    share = {h: {p for _t, p in c.assignment()} for h, c in members.items()}
+    for c in members.values():
+        c.close()
+    part_of = kafka["A"].partition_for
+    picked: dict = {}
+    short_home = None
+    for i in range(100_000):
+        conv = f"pod-{i}"
+        part = part_of(conv)
+        if part in share["B"]:
+            # both moving conversations homed on one replica of A, so their
+            # turns coexist there (the ragged rounds)
+            home = app_a.fleet.replica_for_partition(part).replica_id
+            if "short" not in picked:
+                picked["short"], short_home = conv, home
+            elif "long" not in picked and home == short_home:
+                picked["long"] = conv
+        elif "stay" not in picked:
+            picked["stay"] = conv
+        if len(picked) == 3:
+            break
+    else:
+        fail(f"pod: no conversations found for the shares {share}")
+    short, long_, stay = picked["short"], picked["long"], picked["stay"]
+    turns = _Turns(broker, store, "pod")
+    turns.add_conversation(short, 0, 0)
+    turns.add_conversation(long_, 1, FLEET_HISTORY)
+    turns.add_conversation(stay, 2, 0)
+    greedy_decision = SamplingParams(temperature=0.0, max_new_tokens=PLANE_DECISION_NEW,
+                                     grammar="tool_call")
+    for app in apps.values():
+        for agent in ([r.agent for r in app.fleet.replicas] if app.fleet else [app.agent]):
+            agent.tool_sampling = greedy_decision
+    handles: list = []
+    delivered: dict = {}
+    n_prompt: dict = {}
+    submits = _record_submits(scheds, handles, delivered, n_prompt)
+    counts = {rid: _Counts(e) for rid, e in engines.items()}
+    # A's exports: each record's key, bytes and seconds to serialize; B's pulls
+    exports: list = []
+    pulls: list = []
+    export = pod_a.export_record
+    pull_from = pod_b._pull_from
+
+    async def timed_export(key):
+        t0 = time.perf_counter()
+        rec = await export(key)
+        exports.append(dict(key=key, bytes=0 if rec is None else len(rec),
+                            export_s=time.perf_counter() - t0))
+        return rec
+
+    async def timed_pull(peer, sched, cache, key, trace_id):
+        t0 = time.perf_counter()
+        ok = await pull_from(peer, sched, cache, key, trace_id)
+        pulls.append(dict(key=key, t0=t0, t1=time.perf_counter(), settled=ok,
+                          warm=cache.get(key) is not None))
+        return ok
+
+    pod_a.export_record, pod_b._pull_from = timed_export, timed_pull
+    lag = _LoopLag()
+    m0 = METRICS.snapshot()
+    reset_launches()
+    TRACER.clear()
+    for c in counts.values():
+        c.reset()
+    try:
+        lag.start()
+        await app_a.start(serve_http=False)
+        # A alone: its detector finds no host B yet
+        await _wait_for(lambda: pod_a.peers["hostB"].state == PEER_DEAD,
+                        "pod: host A did not find host B down", 30.0)
+        # --- turn 1 of the three on A, at once -------------------------------
+        for k, conv in enumerate((short, long_, stay)):
+            turns.produce(conv, f"pod-m{k}")
+        # quiesced before B joins: an answer whose offset is not committed yet
+        # would be delivered to B again at the rebalance (the joiner replays
+        # no journal; only an adopter does)
+        await turns.wait(3, "turn 1 on host A did not complete", app_a)
+        on_a = sorted({rid for rid, _h in handles})
+        # --- B joins ---------------------------------------------------------
+        await app_b.start(serve_http=False)
+        await _wait_for(lambda: (pod_b.peers["hostA"].member_id is not None
+                                 and pod_a.peers["hostB"].state == PEER_LIVE),
+                        "pod: the hosts did not find each other", 30.0)
+        got_share = {p for _t, p in kafka["B"].assignment()}
+        if got_share != share["B"] or part_of(short) not in got_share \
+                or part_of(long_) not in got_share or part_of(stay) in got_share:
+            fail(f"pod: host B's share is {got_share}, the conversations' partitions "
+                 f"{part_of(short)}, {part_of(long_)}, {part_of(stay)}")
+        # --- turn 2 on B, pulled over TCP: the short one, then the long one ----
+        p0 = METRICS.snapshot()
+        turns.produce(short, "pod-m3")
+        await turns.wait(4, "the short turn 2 on host B did not complete", app_b)
+        short_pulls = list(pulls)
+        turns.produce(long_, "pod-m4")
+        await turns.wait(5, "the long turn 2 on host B did not complete", app_b)
+        transfer = _seconds(METRICS, p0, "finchat_pod_transfer_seconds")
+        cold = {r: _metric_delta(METRICS, p0, f'finchat_pod_cold_starts_total{{reason="{r}"}}')
+                for r in ("breaker_open", "peer_unreachable", "transfer_corrupt",
+                          "import_refused")}
+        by_key = {e["key"]: e for e in exports}
+        rows = []
+        for p in pulls:
+            e = by_key.get(p["key"], {})
+            rows.append(dict(key=p["key"], bytes=e.get("bytes", 0),
+                             export_s=e.get("export_s"), pull_s=p["t1"] - p["t0"],
+                             warm=p["warm"], loop_stall_ms=lag.max_in(p["t0"], p["t1"]) * 1e3))
+        turn2 = {conv: [(rid, h.conversation_id, h.resumed_len) for rid, h in handles
+                        if h.trace_id == mid]
+                 for conv, mid in ((short, "pod-m3"), (long_, "pod-m4"))}
+        out["pull"] = dict(records=rows, transfer=transfer, cold_starts=cold, turn2=turn2,
+                           pulls=_metric_delta(METRICS, p0, "finchat_pod_session_pulls_total"),
+                           misses=_metric_delta(METRICS, p0, "finchat_pod_pull_misses_total"))
+        for r in rows:
+            log(f"  pod pull ({card}): {r['key']}: {r['bytes'] / 1e6:.1f} MB, serialized on A in "
+                f"{(r['export_s'] or 0) * 1e3:.1f} ms, the pull {r['pull_s'] * 1e3:.1f} ms, warm "
+                f"{r['warm']}, the event loop's longest stall in it {r['loop_stall_ms']:.1f} ms")
+        log(f"  pod pull ({card}): finchat_pod_transfer_seconds {transfer['n']} in "
+            f"{transfer['total_s']:.3f} s; cold starts {cold}; turn 2 (replica, key, resumed) "
+            f"{turn2}")
+        if any(rid != "B" for v in turn2.values() for rid, _k, _n in v):
+            fail(f"pod: turn 2 was not served on host B: {turn2}")
+        warm_short = [p for p in short_pulls if p["warm"]]
+        if not warm_short or out["pull"]["pulls"] < 1:
+            fail(f"pod: the short conversation was not pulled warm: {short_pulls}")
+        # each pulled short stream equals the same submission on A, uninterrupted
+        equal = []
+        for p in warm_short:
+            h = next(h for rid, h in handles if h.trace_id == "pod-m3"
+                     and h.conversation_id == p["key"])
+            if h.resumed_len <= 0:
+                fail(f"pod: {p['key']} was pulled but resumed {h.resumed_len} tokens")
+            src = next(s for rid, s in scheds.items() if rid.startswith("A")
+                       and s.session_cache.get(p["key"]) is not None)
+            gen = next(r.generator for r in app_a.fleet.replicas if r.scheduler is src)
+            constraint = (await gen._make_constraint(h.sampling.grammar)
+                          if h.sampling.grammar else None)
+            ref = await src.submit(f"pod-ref-{p['key']}", list(h.prompt_ids), h.sampling,
+                                   constraint=constraint, conversation_id=p["key"])
+            await _wait_for(lambda ref=ref: ref.finished, "pod: the reference turn on A did "
+                            "not end", PLANE_WAIT_S)
+            served = h.history[len(h.prompt_ids):]
+            want = ref.history[len(h.prompt_ids):]
+            equal.append(dict(key=p["key"], equal=served == want, resumed=h.resumed_len,
+                              ref_resumed=ref.resumed_len, tokens=len(served)))
+            if served != want:
+                fail(f"pod: {p['key']} pulled to B served {served}, uninterrupted on A {want}")
+        out["pull"]["equal_to_a"] = equal
+        # --- A dies -----------------------------------------------------------
+        d0 = METRICS.snapshot()
+        t_kill = time.perf_counter()
+        pod_a.kill()
+        app_a._consume_task.cancel()
+        try:
+            await app_a._consume_task
+        except asyncio.CancelledError:
+            pass
+        app_a._consume_task = None
+        await _wait_for(lambda: pod_b.peers["hostA"].state == PEER_DEAD,
+                        "pod: host B did not declare host A dead", 30.0)
+        t_dead = time.perf_counter()
+        await _wait_for(lambda: {p for _t, p in kafka["B"].assignment()} == share["A"] | share["B"],
+                        "pod: host B did not adopt host A's partitions", 10.0)
+        adopted = _metric_delta(METRICS, d0, "finchat_pod_partition_adoptions_total")
+        replayed = _metric_delta(METRICS, d0, "finchat_pod_adopted_ids_replayed_total")
+        # A's answered turn-1 message of the staying conversation, delivered again
+        s0 = METRICS.get("finchat_kafka_dedupe_skips_total")
+        turns.produce(stay, "pod-m2", payload=turns.payloads["pod-m2"])
+        await _wait_for(lambda: METRICS.get("finchat_kafka_dedupe_skips_total") > s0,
+                        "pod: the redelivered answered message was not skipped", 30.0)
+        # its next turn: no live peer, a cold start that answers
+        miss0 = METRICS.get("finchat_session_cache_misses_total")
+        pulls0 = METRICS.get("finchat_pod_session_pulls_total")
+        turns.produce(stay, "pod-m5")
+        await turns.wait(6, "the adopted conversation's turn did not complete", app_b)
+        stay2 = [(rid, h.conversation_id, h.resumed_len) for rid, h in handles
+                 if h.trace_id == "pod-m5"]
+        out["adoption"] = dict(
+            detect_s=t_dead - t_kill, adopted_partitions=adopted, replayed_ids=replayed,
+            dedupe_skips=METRICS.get("finchat_kafka_dedupe_skips_total") - s0,
+            answers_of_redelivered=sum(json.loads(v).get("type") == "complete" and
+                                       json.loads(v).get("message_id") == "pod-m2"
+                                       for v in turns.outbound),
+            cold_turn=stay2, cold_pulls=METRICS.get("finchat_pod_session_pulls_total") - pulls0,
+            session_misses=METRICS.get("finchat_session_cache_misses_total") - miss0)
+        ad = out["adoption"]
+        log(f"  pod adoption ({card}): host A declared dead {ad['detect_s']:.2f} s after the "
+            f"kill; {adopted:.0f} partitions adopted, {replayed:.0f} answered ids replayed; the "
+            f"redelivered answer skipped {ad['dedupe_skips']:.0f} time(s), answered "
+            f"{ad['answers_of_redelivered']} time(s) in all; the adopted conversation's turn "
+            f"(replica, key, resumed) {stay2}, pulls {ad['cold_pulls']:.0f}")
+        if (adopted != len(share["A"]) or replayed < 1 or ad["dedupe_skips"] < 1
+                or ad["answers_of_redelivered"] != 1 or ad["cold_pulls"]
+                or not stay2 or any(rid != "B" or n != 0 for rid, _k, n in stay2)):
+            fail(f"pod: the adoption: {ad}")
+        launches = dict(LAUNCHES)
+        out["launches"] = _check_plane_window("pod", spec, config, launches,
+                                              list(counts.values()), METRICS, m0)
+        out["turn1_on"] = on_a
+        await app_b.drain_and_stop()
+        await app_a.stop()
+        turns.completes()
+    finally:
+        pod_a.export_record, pod_b._pull_from = export, pull_from
+        for rid, s in scheds.items():
+            s.submit = submits[rid]
+        for c in counts.values():
+            c.close()
+        turns.close()
+        await lag.stop()
+    _check_chunks("pod", turns.outbound, turns.payloads)
+    vocab = await _grammar_vocab([app_b.agent.tool_generator] +
+                                 [r.generator for r in app_a.fleet.replicas])
+    params = {rid: e.params for rid, e in engines.items()}
+    out["teacher_forced"] = _teacher_force_all(torch, lambda rid: params[rid], config, handles,
+                                               n_prompt, vocab)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del apps, app_a, app_b, pod_a, pod_b, scheds, engines, params, handles
+    _free(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  pod ({card}): {out['teacher_forced']} streams teacher-forced; peak "
+        f"{out['peak_gb']:.2f} GB; the phase took {out['phase_s']:.1f} s")
     return out
 
 
@@ -6816,7 +7608,8 @@ def main() -> None:
             ckpt = asyncio.run(checkpoint_phase(torch, dev, card))
             log("checkpoint: " + json.dumps(ckpt))
 
-    log("phase 5b, decode_planes: llama3-8b (bf16 and int8+kv8, random weights): the fused "
+    log(f"phase 5b, decode_planes: llama3-8b (bf16 and int8+kv8, random weights, {PLANE_DEPTH} "
+        "layers): the fused "
         "decode loop (a CUDA graph a block), spec decode, the free-running loop")
     planes = asyncio.run(decode_planes(torch, dev, card))
     for name, r in planes.items():
@@ -6824,13 +7617,13 @@ def main() -> None:
             continue
         log(f"  {name}: decode {r['decode_tokens_per_s']:.1f} tokens/s aggregate, "
             f"{r['decode_tokens_per_s_per_stream']:.1f} per stream, TTFT p50 "
-            f"{r['ttft_p50_s']:.3f} s, peak {r['peak_gb']:.2f} GB (the earlier EngineConfig() "
-            f"serves, PERF.md section 5: 116.1-141.0 bf16, 89.3-109.7 int8+kv8 aggregate; "
-            f"{card})")
+            f"{r['ttft_p50_s']:.3f} s, peak {r['peak_gb']:.2f} GB ({PLANE_DEPTH} of the 32 "
+            f"layers; {card})")
     log(f"decode_planes ({planes['seconds']:.1f} s): " + json.dumps(planes))
 
-    log("phase 5c, bounded_kv: llama3-8b (bf16 and int8+kv8, random weights) with a sink of 1 "
-        "page and a window of 16: every row evicts through the Hopper bodies")
+    log(f"phase 5c, bounded_kv: llama3-8b (bf16 and int8+kv8, random weights, {PLANE_DEPTH} "
+        "layers) with a sink of 1 page and a window of 16: every row evicts through the Hopper "
+        "bodies")
     bkv = asyncio.run(bounded_kv(torch, dev, card))
     for name, r in bkv.items():
         if name == "seconds":
@@ -6849,6 +7642,18 @@ def main() -> None:
         "give-up and respawn")
     fleet = asyncio.run(fleet_phase(torch, dev, card))
     log("fleet: " + json.dumps(fleet))
+
+    log("phase 5e, fabric: two llama3-8b replicas (bf16, random weights) over one weight tree "
+        "and one warm-state fabric: the heads prefilled once a fleet, a warm resume on a "
+        "replica that never saw the conversation, the migration by the holder index, the "
+        "respawn's heads from the fabric")
+    fabric = asyncio.run(fabric_phase(torch, dev, card))
+    log("fabric: " + json.dumps(fabric))
+
+    log("phase 5f, pod: two llama3-8b hosts (bf16, random weights, a tree each) in one "
+        "process: liaisons over loopback TCP, session pulls, a host's death and its adoption")
+    pod = asyncio.run(pod_phase(torch, dev, card))
+    log("pod: " + json.dumps(pod))
 
     log("phase 6: train llama3-8b (random weights) through K7, forward and backward")
     check = train_check(torch, dev)
@@ -6900,6 +7705,8 @@ def main() -> None:
     launched["spec"] = planes["bf16 spec3"]["launches"]
     launched["checkpoint"] = ckpt["launches"]
     launched["fleet"] = fleet["launches"]
+    launched["fabric"] = fabric["launches"]
+    launched["pod"] = pod["launches"]
     table = []
     for r in results:
         kname = r["kernel"]
@@ -6919,6 +7726,9 @@ def main() -> None:
         row["checkpoint_launches"] = launched["checkpoint"].get(kname, 0)
         # and in the fleet phase's window (every replica's)
         row["fleet_launches"] = launched["fleet"].get(kname, 0)
+        # and in the fabric and the pod phases' windows
+        row["fabric_launches"] = launched["fabric"].get(kname, 0)
+        row["pod_launches"] = launched["pod"].get(kname, 0)
         table.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

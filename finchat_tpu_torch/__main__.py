@@ -5,9 +5,8 @@ One process owns the engine on one card (or, with ``--fleet-replicas`` N,
 N engine replicas over one parameter tree, ``--fleet-roles`` typing them
 into prefill and serving pools); concurrency comes from the
 continuous-batching scheduler, not from worker replication. The flags and
-the config keys they override are the JAX package's; ``--fabric-path``, a
-plane the port does not carry yet, reaches ``build_app``, which refuses it
-by name. One flag is the port's own: ``--device`` (default
+the config keys they override are the JAX package's. One flag is the
+port's own: ``--device`` (default
 ``cuda``), the counterpart of the JAX package's ``JAX_PLATFORMS``; tests
 pass ``cpu``.
 
@@ -63,9 +62,10 @@ def parse_overrides(argv: list[str] | None = None) -> tuple[argparse.Namespace, 
                         "run cold prompts and hand the KV to the serving pool — also "
                         "FINCHAT_FLEET_ROLES")
     p.add_argument("--fabric-path", default=None,
-                   help="cluster-wide warm-state fabric directory; implies fabric.enabled, "
-                        "which the port does not carry yet (build_app refuses it) — also "
-                        "FINCHAT_FABRIC_PATH")
+                   help="cluster-wide warm-state fabric directory (engine/warm_fabric.py): "
+                        "one shared session disk tier and holder index, so any replica "
+                        "resumes any conversation warm and the shared prompt heads prefill "
+                        "once a fleet; implies fabric.enabled — also FINCHAT_FABRIC_PATH")
     p.add_argument("--journal-dir", default=None,
                    help="durability directory (io/journal.py): answered message ids are "
                         "journaled here (fsync before the Kafka commit) and replayed into "

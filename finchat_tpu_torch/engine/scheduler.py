@@ -122,13 +122,25 @@ scheduler keeps the engine's quant label and sets the
   ``drain_sink`` a breaker trip, and a give-up, hand every preempted stream
   and its conversation's session bytes to a sibling replica; ``revive``
   brings a given-up replica back. With ``disagg`` set (serve/disagg.py)
-  ``submit`` first runs a cold prompt's prefill on the prefill pool.
+  ``submit`` first runs a cold prompt's prefill on the prefill pool. A
+  replica without the fabric keeps its session records in its own
+  ``replica-<id>`` subdirectory of ``session_cache_disk_path``.
+- The warm-state fabric (engine/warm_fabric.py, ``fabric=``): every
+  replica's session tier is the fabric's one shared tier, so any replica
+  resumes any conversation warm (``_restore_session_from_disk`` counts the
+  fabric's hits and misses), and a shared prompt head is prefilled once a
+  fleet: ``register_prefix`` restores a head the fabric holds with one
+  scatter into the reserved pages, and publishes a head it prefilled.
+- The pod plane (serve/pod.py): with ``pod`` set, ``submit`` first asks the
+  coordinator to pull the conversation's newest session record from a peer
+  host when nothing local resumes it warm.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -136,7 +148,7 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 
-from finchat_tpu_torch.engine.engine import InferenceEngine, round_up_pow2
+from finchat_tpu_torch.engine.engine import DEVICE_STATE_LOCK, InferenceEngine, round_up_pow2
 from finchat_tpu_torch.engine.kv_cache import PageAllocationError, PageAllocator, pages_needed
 from finchat_tpu_torch.engine.sampler import CANDIDATES, SamplingParams
 from finchat_tpu_torch.engine.spec import NgramIndex
@@ -359,7 +371,7 @@ class ContinuousBatchingScheduler:
     FREERUN_CAP_REASONS = ("constrained", "spec", "underfill", "boundedkv")
 
     def __init__(self, engine: InferenceEngine, eos_id: int, metrics=None,
-                 replica_id: str | None = None):
+                 replica_id: str | None = None, fabric=None):
         cfg = engine.engine_cfg
         self.engine = engine
         self.eos_id = eos_id
@@ -473,6 +485,21 @@ class ContinuousBatchingScheduler:
         # the fleet's DisaggCoordinator (serve/disagg.py), set on serving-pool
         # schedulers only: submit runs a cold prompt's prefill through it
         self.disagg = None
+        # the warm-state fabric (engine/warm_fabric.py): when set, the
+        # session tier is the fleet's shared one and the shared heads restore
+        # from and publish to it; None = the per-replica layout
+        self.fabric = fabric
+        # the app's PodCoordinator (serve/pod.py): submit asks it to pull a
+        # conversation's session record from a peer host first
+        self.pod = None
+        if fabric is not None:
+            # counted on this replica's view: hits and misses at a head's
+            # registration and at a shared-tier restore, refusals of a head
+            # snapshot of the other KV mode (a refused disk record counts on
+            # the tier's own replica="fabric" view)
+            self.metrics.inc("finchat_fabric_hits_total", 0.0)
+            self.metrics.inc("finchat_fabric_misses_total", 0.0)
+            self.metrics.inc("finchat_fabric_import_refused_total", 0.0)
         # True while a trip's rebuild runs in its worker thread: the rebuild
         # replaces the page table, so register_prefix_async must not write a
         # row into the table being dropped
@@ -485,18 +512,25 @@ class ContinuousBatchingScheduler:
         # reference on its shared head
         self.session_cache: SessionKVCache | None = None
         if cfg.session_cache and cfg.session_cache_bytes > 0:
+            # a fleet replica keeps its records in its own subdirectory
+            # (replica ids are stable across restarts; route-time migration
+            # moves a conversation between replicas), unless the fabric is on:
+            # then every replica shares the fabric's one tier
             disk = None
-            if cfg.session_cache_disk_path:
+            disk_path = cfg.session_cache_disk_path
+            if fabric is not None:
+                disk = fabric.tier
+            elif disk_path:
+                if replica_id is not None:
+                    disk_path = os.path.join(disk_path, f"replica-{replica_id}")
                 try:
-                    disk = SessionDiskTier(cfg.session_cache_disk_path,
-                                           cfg.session_cache_disk_bytes, metrics=self.metrics,
-                                           kv_quant=engine.kv_quant)
-                except OSError as e:  # durability is best-effort
-                    logger.error("session disk tier unavailable at %s: %s",
-                                 cfg.session_cache_disk_path, e)
+                    disk = SessionDiskTier(disk_path, cfg.session_cache_disk_bytes,
+                                           metrics=self.metrics, kv_quant=engine.kv_quant)
+                except Exception as e:  # durability is best-effort
+                    logger.error("session disk tier unavailable at %s: %s", disk_path, e)
             self.session_cache = SessionKVCache(
                 cfg.session_cache_bytes, page_size=cfg.page_size, on_drop=self._session_drop,
-                metrics=self.metrics, disk=disk)
+                metrics=self.metrics, disk=disk, fabric=fabric, fabric_replica=replica_id)
 
     # --- public API -----------------------------------------------------
     async def start(self) -> None:
@@ -563,6 +597,15 @@ class ContinuousBatchingScheduler:
                 logger.error("disagg handoff for %s failed: %s", conversation_id, e)
                 self.metrics.inc("finchat_disagg_fallbacks_total",
                                  labels={"reason": "prefill_error"})
+        if self.pod is not None and conversation_id:
+            # the pod plane: a conversation another host may have served
+            # pulls its newest session record over the liaison before
+            # admission, so the match at admission resumes from it. Every
+            # failure inside is a counted cold start, never an error here
+            try:
+                await self.pod.maybe_pull(self, conversation_id, trace_id=trace_id)
+            except Exception as e:
+                logger.error("pod session pull for %s failed: %s", conversation_id, e)
         handle = SequenceHandle(seq_id=seq_id, prompt_ids=list(prompt_ids), sampling=sampling,
                                 constraint=constraint, conversation_id=conversation_id,
                                 deadline=deadline, owner=self, trace_id=trace_id)
@@ -666,6 +709,12 @@ class ContinuousBatchingScheduler:
         if not isinstance(prep, tuple):
             return prep  # 0 (unregistrable) or an existing entry's length
         ids, shared_len, owner, pages, slot = prep
+        if self._fabric_restore_head(ids, shared_len, pages):
+            # a fabric hit: the head's KV scattered into the reserved pages,
+            # no prefill dispatch, the slot never used
+            self.free_slots.append(slot)
+            self._prefixes.append(_PrefixEntry(ids, pages, shared_len, owner))
+            return shared_len
         try:
             self.engine.set_page_table_row(slot, pages)
             self.engine.prefill(slot, ids)  # fills exactly the shared pages
@@ -679,9 +728,54 @@ class ContinuousBatchingScheduler:
                 logger.error("slot reset failed after prefix prefill: %s", e)
             self.free_slots.append(slot)
         self._prefixes.append(_PrefixEntry(ids, pages, shared_len, owner))
+        self._fabric_store_head(ids, pages)
         logger.info("prefix cache: registered %d shared tokens (%d pages)",
                     shared_len, len(pages))
         return shared_len
+
+    def _fabric_restore_head(self, ids: list[int], shared_len: int, pages: list[int]) -> bool:
+        """Serve a head registration from the warm-state fabric: a hit
+        scatters the fleet's snapshot into the reserved ``pages``, in place,
+        instead of running the prefill. Hits, misses and refusals count on
+        this replica's view; a snapshot of the other KV mode is refused (a
+        scatter would cast it into garbage KV)."""
+        if self.fabric is None:
+            return False
+        snap = self.fabric.load_head(ids)
+        if snap is None:
+            self.metrics.inc("finchat_fabric_misses_total")
+            return False
+        if snap_kv_mode(snap) != self.engine.kv_quant:
+            self.metrics.inc("finchat_fabric_import_refused_total")
+            return False
+        try:
+            t0 = time.perf_counter()
+            # never beside a sibling's graph capture or pool rebuild
+            with DEVICE_STATE_LOCK:
+                self.engine.restore_pages(pages, snap)
+        except Exception as e:
+            logger.error("fabric head restore failed (%d tokens): %s — falling back to "
+                         "local prefill", shared_len, e)
+            return False
+        self.metrics.inc("finchat_fabric_hits_total")
+        self.metrics.observe("finchat_fabric_restore_seconds", time.perf_counter() - t0)
+        if TRACER.enabled:
+            TRACER.event("fabric_hit", track="fabric", args={"kind": "head", "tokens": shared_len})
+        logger.info("prefix cache: head (%d shared tokens) restored from the warm fabric",
+                    shared_len)
+        return True
+
+    def _fabric_store_head(self, ids: list[int], pages: list[int]) -> None:
+        """Publish a freshly prefilled head fleet-wide (best-effort: the
+        registration already succeeded)."""
+        if self.fabric is None:
+            return
+        try:
+            with DEVICE_STATE_LOCK:  # the snapshot's copy, as the restore's
+                snap = self.engine.offload_pages(pages)
+            self.fabric.store_head(ids, snap)
+        except Exception as e:
+            logger.error("fabric head publish failed: %s", e)
 
     def _prefix_prep(self, prompt_ids: list[int]):
         """What both registrations share: size the whole-page head, dedupe
@@ -729,6 +823,13 @@ class ContinuousBatchingScheduler:
         if not isinstance(prep, tuple):
             return prep
         ids, shared_len, owner, pages, slot = prep
+        if self._fabric_restore_head(ids, shared_len, pages):
+            # a fabric hit: one scatter, no chunked prefill rounds. This path
+            # never writes the fabric: its chunked job retires pages piece by
+            # piece, and a partial snapshot would be garbage
+            self.free_slots.append(slot)
+            self._prefixes.append(_PrefixEntry(ids, pages, shared_len, owner))
+            return shared_len
         job = _PrefixJob(ids=ids, shared_len=shared_len, owner=owner, pages=pages, slot=slot,
                          future=asyncio.get_running_loop().create_future())
         try:
@@ -1845,8 +1946,15 @@ class ContinuousBatchingScheduler:
         through ``import_session_entry``. Returns True when the entry is
         now resident in RAM."""
         cache = self.session_cache
-        if cache is None or cache.disk is None or conversation_id not in cache.disk:
+        if cache is None or cache.disk is None:
             return False
+        if conversation_id not in cache.disk:
+            if self.fabric is not None:
+                # the shared tier is the fleet-wide lookup: no replica ever
+                # retired this conversation
+                self.metrics.inc("finchat_fabric_misses_total")
+            return False
+        t0 = time.perf_counter()
         with Timer(self.metrics, "finchat_durability_restore_seconds"):
             payload = cache.disk.load(conversation_id)
             if payload is None:
@@ -1865,6 +1973,16 @@ class ContinuousBatchingScheduler:
                 return False
         if ok:
             self.metrics.inc("finchat_durability_disk_restores_total")
+            if self.fabric is not None:
+                # off the fleet-shared tier: any replica's retirement (or a
+                # handoff) may have written it, and this one resumes it warm
+                self.metrics.inc("finchat_fabric_hits_total")
+                self.metrics.observe("finchat_fabric_restore_seconds", time.perf_counter() - t0)
+                if TRACER.enabled:
+                    TRACER.event("fabric_hit", track="fabric",
+                                 args={"kind": "session", "key": conversation_id})
+        elif self.fabric is not None:
+            self.metrics.inc("finchat_fabric_misses_total")
         return ok
 
     def spill_sessions(self) -> int:

@@ -49,8 +49,12 @@ conversation starts cold).
   whole when the prompt extends past its span unchanged, or on divergence
   salvages the pre-gap sink region as an ordinary gap-free prefix.
 
-Not carried: the JAX package's warm-state fabric arguments (a fleet's
-shared tier and its holder index) come with the fleet planes.
+- THE WARM-STATE FABRIC (engine/warm_fabric.py): with ``fabric`` set, the
+  cache's ``disk`` is the fleet's one shared tier, and the cache keeps the
+  fabric's holder index current: ``put`` notes this replica as the key's
+  RAM holder, a drop forgets it (holder-guarded), and ``drop_local`` drops
+  the RAM copy only, leaving the shared record a migration's target just
+  refreshed.
 """
 
 from __future__ import annotations
@@ -621,7 +625,8 @@ class SessionKVCache:
 
     def __init__(self, budget_bytes: int, page_size: int,
                  on_drop: Callable[[SessionEntry], None] | None = None,
-                 metrics=None, disk: SessionDiskTier | None = None):
+                 metrics=None, disk: SessionDiskTier | None = None,
+                 fabric=None, fabric_replica: str | None = None):
         if budget_bytes <= 0 or page_size <= 0:
             raise ValueError("session cache needs a positive byte budget and page size")
         self.budget_bytes = budget_bytes
@@ -630,6 +635,11 @@ class SessionKVCache:
         self.metrics = metrics if metrics is not None else METRICS
         # entries write THROUGH to the disk tier at put; None = RAM only
         self.disk = disk
+        # the warm-state fabric: ``disk`` is then its shared tier, and puts
+        # and drops keep its holder index (which replica's RAM holds a key,
+        # how deep) current for the router's migration lookup
+        self.fabric = fabric
+        self.fabric_replica = fabric_replica
         self._entries: OrderedDict[str, SessionEntry] = OrderedDict()
         self._resident_bytes = 0
         self._publish_gauges()
@@ -675,6 +685,9 @@ class SessionKVCache:
             self._drop(victim)
             self.metrics.inc("finchat_session_cache_evictions_total")
             logger.debug("session cache: evicted %s (LRU, %d bytes)", victim_id, victim.nbytes)
+        if self.fabric is not None and entry.conversation_id in self._entries:
+            # the insert itself may have been evicted by the LRU pass
+            self.fabric.note(entry.conversation_id, self.fabric_replica, entry.n_tokens)
         self._publish_gauges()
         return True
 
@@ -684,6 +697,16 @@ class SessionKVCache:
         left here could later resume a turn that no longer routes here."""
         if self.disk is not None:
             self.disk.discard(conversation_id)
+        entry = self._entries.pop(conversation_id, None)
+        if entry is not None:
+            self._drop(entry)
+            self._publish_gauges()
+
+    def drop_local(self, conversation_id: str) -> None:
+        """Drop the RAM copy only: the fabric's counterpart of ``discard``.
+        The bytes moved to a replica whose put wrote through to the shared
+        tier, so deleting the record here would erase the one the target
+        just refreshed (both ride the tier's one writer)."""
         entry = self._entries.pop(conversation_id, None)
         if entry is not None:
             self._drop(entry)
@@ -706,6 +729,10 @@ class SessionKVCache:
         entry.snap = None
         if self._on_drop is not None:
             self._on_drop(entry)
+        if self.fabric is not None:
+            # holder-guarded: a migration's target that noted its copy first
+            # keeps its claim when the source drops here
+            self.fabric.forget(entry.conversation_id, self.fabric_replica)
 
     # --- disk tier -------------------------------------------------------
     def _spill(self, entry: SessionEntry) -> bool:

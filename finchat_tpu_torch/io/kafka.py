@@ -235,6 +235,16 @@ class InMemoryBroker:
                 group.members.remove(member_id)
                 group.subscriptions.pop(member_id, None)
 
+    def evict_member(self, group_id: str, member_id: str) -> None:
+        """Kick a dead member out of the group: what a real broker does
+        itself when a consumer misses ``session.timeout.ms`` of heartbeats.
+        The memory broker has no timer, so the pod plane (serve/pod.py)
+        drives this from its own verdict: a host declared dead is evicted
+        here and every survivor's next poll sees the rebalanced assignment
+        (a rejoin under the old member id restores the exact mapping, the
+        assignment being positional over the sorted member ids)."""
+        self.leave_group(group_id, member_id)
+
     def _assignment(self, group: _GroupState, member_id: str, topics: list[str]) -> list[tuple[str, int]]:
         """Round-robin partition assignment, per topic, among the members
         actually subscribed to that topic (so mixed-subscription groups

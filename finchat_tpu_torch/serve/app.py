@@ -36,6 +36,14 @@ the JAX package's ``serve/app.py``).
   live replica the client gets a retryable error. Each replica registers
   the shared prompt heads on its own device state, again after its rebuilds
   (the refresh loop) and eagerly after a respawn.
+- The warm-state fabric (engine/warm_fabric.py, ``fabric.enabled`` with a
+  ``fabric.path``): one a process, shared by every replica's session tier
+  and shared heads, so a head is prefilled once a fleet and any replica
+  resumes any conversation warm.
+- The pod plane (serve/pod.py, ``pod.host_id``): the app's
+  ``PodCoordinator`` starts after the consumer is set up (its partition
+  assignment is the adoption baseline), is attached to every scheduler
+  (session pulls before admission), and stops before the fleet.
 
 ``build_app`` assembles a worker from an ``AppConfig``. The model comes
 from ``model.checkpoint_path`` (an HF safetensors checkpoint, quantized at
@@ -50,11 +58,10 @@ embedding encoder of ``embed.preset`` (``embed.checkpoint_path`` and
 ``TransactionRetriever``. ``fleet.replicas`` > 1 builds that many engine
 replicas over one parameter tree behind an ``EngineFleet``, with
 ``fleet.roles`` typing them into prefill and serving pools
-(serve/disagg.py); the ``stub`` preset builds no fleet. It refuses, with an
-error that names the plane, what the port does not carry yet: the
-warm-state fabric, a pod and a mesh of more than one device. The engines,
-the encoder and the index run on ``cuda`` unless the caller passes
-``device="cpu"``.
+(serve/disagg.py); the ``stub`` preset builds no fleet and no fabric. It
+refuses, with an error that names the plane, what the port does not carry
+yet: a mesh of more than one device. The engines, the encoder and the index
+run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -350,14 +357,16 @@ def _load_model_artifacts(cfg: AppConfig, device: str | torch.device = "cuda") -
     return config, params, tokenizer, device
 
 
-def make_engine_replica(cfg: AppConfig, artifacts: tuple, replica_id: str | None = None
-                        ) -> tuple[EngineGenerator, ContinuousBatchingScheduler]:
+def make_engine_replica(cfg: AppConfig, artifacts: tuple, replica_id: str | None = None,
+                        fabric=None) -> tuple[EngineGenerator, ContinuousBatchingScheduler]:
     """One engine over the shared artifacts: its own KV page pool, scheduler
     and session cache over the artifacts' parameter tensors (an already
     quantized tree is kept as it is, so replicas share it too), warmed up
     first when ``engine.warmup_on_start`` is set. A ``replica_id`` labels
     the scheduler's metrics (``METRICS.labeled(replica=...)``) and stamps its
-    fault sites."""
+    fault sites. ``fabric`` (engine/warm_fabric.py) makes the replica's
+    session tier the fleet's shared one, and its shared prompt heads restore
+    from and publish to it."""
     config, params, tokenizer, device = artifacts
     metrics = METRICS.labeled(replica=replica_id) if replica_id is not None else None
     engine = InferenceEngine(config, params, cfg.engine, device=device,
@@ -365,11 +374,30 @@ def make_engine_replica(cfg: AppConfig, artifacts: tuple, replica_id: str | None
     if cfg.engine.warmup_on_start:
         engine.warmup()
     scheduler = ContinuousBatchingScheduler(engine, eos_id=tokenizer.eos_id, metrics=metrics,
-                                            replica_id=replica_id)
+                                            replica_id=replica_id, fabric=fabric)
     return EngineGenerator(scheduler, tokenizer), scheduler
 
 
-def build_generators(cfg: AppConfig, device: str | torch.device = "cuda"
+def make_warm_fabric(cfg: AppConfig):
+    """The process's warm-state fabric, or None. Best-effort: an unusable
+    path logs and serves without it (each replica then keeps its own session
+    directory)."""
+    if not (cfg.fabric.enabled and cfg.fabric.path):
+        if cfg.fabric.enabled:
+            logger.warning("fabric.enabled is set but fabric.path is empty; the warm-state "
+                           "fabric stays off")
+        return None
+    from finchat_tpu_torch.engine.warm_fabric import WarmFabric
+
+    try:
+        return WarmFabric(cfg.fabric.path, cfg.engine.session_cache_disk_bytes,
+                          kv_quant=cfg.engine.kv_quant)
+    except Exception as e:
+        logger.error("warm-state fabric unavailable at %s: %s", cfg.fabric.path, e)
+        return None
+
+
+def build_generators(cfg: AppConfig, device: str | torch.device = "cuda", fabric=None
                      ) -> tuple[TextGenerator, TextGenerator,
                                 ContinuousBatchingScheduler | None, object]:
     """(tool_generator, response_generator, scheduler, tokenizer):
@@ -379,7 +407,7 @@ def build_generators(cfg: AppConfig, device: str | torch.device = "cuda"
         stub = StubGenerator(default="I'm Penny, here to help with your finances.")
         return stub, stub, None, get_tokenizer()
     artifacts = _load_model_artifacts(cfg, device)
-    generator, scheduler = make_engine_replica(cfg, artifacts)
+    generator, scheduler = make_engine_replica(cfg, artifacts, fabric=fabric)
     return generator, generator, scheduler, artifacts[2]
 
 
@@ -399,8 +427,6 @@ class App:
         # _agent_for; ``agent`` and ``scheduler`` stay replica 0's, started
         # and stopped through the fleet
         self.fleet = fleet
-        # the reference's pod plane; not ported, always None
-        self.pod = None
         self.retriever = retriever
         self.server = HTTPServer(cfg.serve.host, cfg.serve.port)
         self.server.route("GET", "/health", self.health)
@@ -449,6 +475,23 @@ class App:
                 logger.error("answered journal unavailable at %s: %s",
                              cfg.journal.path, e)
                 self._journal = None
+        # the pod plane (serve/pod.py): with pod.host_id set this process is
+        # one host of a pod, with liaison heartbeats to its peers, partition
+        # adoption (the inherited journals replayed into the dedupe ring) on
+        # a peer's death, and session pulls before admission. Off, the app is
+        # the plain fleet
+        self.pod = None
+        if cfg.pod.host_id:
+            from finchat_tpu_torch.serve.pod import PodCoordinator
+
+            try:
+                self.pod = PodCoordinator(cfg.pod, fleet=fleet, kafka=kafka,
+                                          journal=self._journal, dedupe=self._dedupe)
+                for sched in self._all_schedulers():
+                    sched.pod = self.pod
+            except Exception as e:  # the pod plane is best-effort too
+                logger.error("pod plane unavailable: %s", e)
+                self.pod = None
         # set while drain_and_stop runs: the HTTP chat paths answer a
         # retryable 503
         self._draining = False
@@ -491,6 +534,10 @@ class App:
             if self._on_engine_rebuild not in self.scheduler.on_rebuild:
                 self.scheduler.on_rebuild.append(self._on_engine_rebuild)
             await self.scheduler.start()
+        if self.pod is not None:
+            # after setup_consumer: the coordinator takes this host's real
+            # partition assignment as its adoption baseline
+            await self.pod.start()
         self._running = True
         self._consume_task = asyncio.create_task(self.consume_messages())
         if self._prefix_cache_enabled:
@@ -514,6 +561,8 @@ class App:
         batcher = self._embed_batcher()
         if batcher is not None:
             await batcher.close()
+        if self.pod is not None:
+            await self.pod.stop()
         if self.fleet is not None:
             await self.fleet.stop()
         elif self.scheduler is not None:
@@ -1123,17 +1172,6 @@ class App:
                 await asyncio.sleep(1)
 
 
-def _refuse_unported(cfg: AppConfig) -> None:
-    """The config planes the port does not carry yet, refused by name."""
-    refused = []
-    if cfg.fabric.enabled:
-        refused.append("fabric.enabled (the warm-state fabric)")
-    if cfg.pod.host_id:
-        refused.append(f"pod.host_id={cfg.pod.host_id!r} (the multi-host pod plane)")
-    if refused:
-        raise NotImplementedError("build_app: not ported yet: " + "; ".join(refused))
-
-
 def build_retriever(cfg: AppConfig, tokenizer=None, device: str | torch.device = "cuda"):
     """The retriever ``build_app`` builds when none is injected, as the JAX
     package builds it: the encoder of ``embed.preset`` on ``device`` at
@@ -1207,7 +1245,6 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
     parameter tree) and, without an injected ``retriever``, the retriever
     ``build_retriever`` makes run on ``device``."""
     cfg = cfg or load_config()
-    _refuse_unported(cfg)
     TRACER.configure(enabled=cfg.tracing.enabled, ring_events=cfg.tracing.ring_events,
                      flight_dir=cfg.tracing.flight_dir)
     store = store or make_store(cfg.store)
@@ -1217,6 +1254,10 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
     tokenizer = None
     fleet_replicas: list[EngineReplica] | None = None
     if tool_generator is None or response_generator is None:
+        # the warm-state fabric: one shared session tier and head store for
+        # every replica built below (a one-engine worker uses it too: restarts
+        # and other processes on the path resume each other's conversations)
+        fabric = make_warm_fabric(cfg) if cfg.model.preset != "stub" else None
         if cfg.fleet.replicas > 1 and cfg.model.preset != "stub":
             # the engine fleet: N replicas over ONE parameter tree, each with
             # its own pool, scheduler, session cache and labeled metrics;
@@ -1228,14 +1269,16 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
             tokenizer = artifacts[2]
             fleet_replicas = []
             for i in range(cfg.fleet.replicas):
-                gen, sched = make_engine_replica(cfg, artifacts, replica_id=str(i))
+                gen, sched = make_engine_replica(cfg, artifacts, replica_id=str(i),
+                                                 fabric=fabric)
                 fleet_replicas.append(EngineReplica(replica_id=str(i), scheduler=sched,
                                                     generator=gen, role=roles[i]))
             scheduler = fleet_replicas[0].scheduler
             tool_generator = tool_generator or fleet_replicas[0].generator
             response_generator = response_generator or fleet_replicas[0].generator
         else:
-            tool_gen, resp_gen, scheduler, tokenizer = build_generators(cfg, device)
+            tool_gen, resp_gen, scheduler, tokenizer = build_generators(cfg, device,
+                                                                        fabric=fabric)
             tool_generator = tool_generator or tool_gen
             response_generator = response_generator or resp_gen
     if retriever is None:

@@ -28,8 +28,9 @@ only, so a prefill replica's own submissions never recurse. A conversation's
 prefill replica is chosen by ``io/kafka.py partition_for_key`` over the
 pool, so its cold turns keep landing on the same one.
 
-Without the warm-state fabric (not carried by the port), the prefill
-replica's copy of the entry is always discarded after the handoff.
+After the handoff the prefill replica's copy of the entry is discarded, or,
+with the warm-state fabric (engine/warm_fabric.py), only its RAM copy is
+dropped: the serving replica's import refreshed the shared record.
 """
 
 from __future__ import annotations
@@ -157,9 +158,13 @@ class DisaggCoordinator:
                 ok = False
             src = rep.scheduler.session_cache
             if src is not None:
-                # no shared tier (the fabric, not carried): the source's copy
-                # goes either way, a stale twin could serve diverged KV
-                src.discard(conversation_id)
+                if ok and src.fabric is not None:
+                    # the shared tier: the target's put just refreshed the
+                    # record, only the source's RAM copy goes
+                    src.drop_local(conversation_id)
+                else:
+                    # a stale twin could serve diverged KV
+                    src.discard(conversation_id)
             if not ok:
                 metrics.inc("finchat_disagg_fallbacks_total", labels={"reason": "import_refused"})
                 return

@@ -31,8 +31,9 @@ copy of the JAX package's ``serve/fleet.py``).
   serving pool's schedulers run cold prompts' prefill there first.
 
 One process, one event loop: handles and their event queues cross
-schedulers freely. The warm-state fabric (a shared disk tier and holder
-index) is not carried: migration scans the siblings' RAM tiers.
+schedulers freely. Migration scans the siblings' RAM tiers, or, with the
+warm-state fabric (engine/warm_fabric.py), asks its holder index and drops
+only the source's RAM copy, keeping the record the replicas share.
 
 ``DedupeRing`` is the answered-``message_id`` ring at the router level: one
 ring for the whole fleet, so a replica's loss and Kafka's redelivery to a
@@ -293,10 +294,25 @@ class EngineFleet:
             self._migrate_key(session_key(conversation_id, role), target)
 
     def _migrate_key(self, key: str, target: EngineReplica) -> None:
-        # the scan of the siblings' RAM tiers (the fabric's holder index,
-        # an O(1) lookup in the JAX package, is not carried)
-        have = target.scheduler.session_cache.get(key)
+        t_cache = target.scheduler.session_cache
+        have = t_cache.get(key)
         have_n = have.n_tokens if have is not None else 0
+        fabric = getattr(t_cache, "fabric", None)
+        if fabric is not None:
+            # the warm-state fabric: deeper-entry-wins is one lookup in its
+            # holder index. No holder, or a shallower one, leaves nothing to
+            # move: the shared tier serves any replica's record at admission,
+            # so the scan's other job (finding disk-only bytes) is moot
+            hold = fabric.holder(key)
+            if hold is None:
+                return
+            rid, n_tokens = hold
+            if rid == target.replica_id or n_tokens <= have_n:
+                return
+            rep = self._by_id.get(rid)
+            if rep is not None and rep is not target:
+                self._move_entry(rep, target, key)
+            return
         for rep in self.replicas:
             if rep is target:
                 continue
@@ -321,9 +337,16 @@ class EngineFleet:
             logger.error("session migration %s→%s failed for %s: %s", rep.replica_id,
                          target.replica_id, key, e)
             return False
-        # the source's copy goes either way: a stale twin could serve
-        # diverged KV if routing ever flips back
-        rep.scheduler.session_cache.discard(key)
+        s_cache = rep.scheduler.session_cache
+        if imported and s_cache.fabric is not None:
+            # the shared tier: the target's put just refreshed the record,
+            # and deleting it here would erase the target's own copy (both
+            # ride the tier's one writer); only the RAM copy goes
+            s_cache.drop_local(key)
+        else:
+            # the source's copy goes either way: a stale twin could serve
+            # diverged KV if routing ever flips back
+            s_cache.discard(key)
         if imported:
             self.metrics.inc("finchat_fleet_session_migrations_total")
             if TRACER.enabled:

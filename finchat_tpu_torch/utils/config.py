@@ -30,10 +30,11 @@ checkpoint and tokenizer paths. ``model.checkpoint_path`` and
 ``model.tokenizer_path`` are read by ``build_app``'s model load
 (``checkpoints/hf_loader.py``, ``models/tokenizer.HFTokenizer``).
 ``fleet`` is read by ``build_app``'s engine fleet (serve/fleet.py,
-serve/disagg.py). The sections of planes not ported yet (``fabric``,
-``pod``, ``mesh``) are carried so the tree reads the same in both packages;
-``build_app`` refuses the settings that would turn one of them on (the
-fabric, a pod, a mesh of more than one device).
+serve/disagg.py), ``fabric`` by its warm-state fabric
+(engine/warm_fabric.py) and ``pod`` by its pod plane (serve/pod.py). The
+``mesh`` section, of a plane not ported yet, is carried so the tree reads
+the same in both packages; ``build_app`` refuses a mesh of more than one
+device.
 """
 
 from __future__ import annotations
@@ -332,8 +333,7 @@ class FabricConfig:
     shared prompt heads' prefill is paid once per fleet — later replicas
     and respawns restore the head KV from the fabric with one H2D
     scatter. The tier's byte budget reuses
-    ``engine.session_cache_disk_bytes``. Not ported yet: ``build_app``
-    refuses ``enabled``.
+    ``engine.session_cache_disk_bytes``.
     """
 
     enabled: bool = False  # FINCHAT_FABRIC
@@ -371,8 +371,7 @@ class PodConfig:
     per-partition journals into the dedupe ring, and resume the dead
     host's conversations via the warm fabric or a liaison pull. Empty
     ``host_id`` = the plane entirely off: single-host behavior is
-    bit-identical to the plain fleet. Not ported yet: ``build_app``
-    refuses a ``host_id``.
+    bit-identical to the plain fleet.
     """
 
     host_id: str = ""  # this host's name in the pod; "" = pod plane off

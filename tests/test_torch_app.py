@@ -822,19 +822,25 @@ def test_port_build_app_on_mini_equals_a_direct_agent_turn(models, short_prompts
 REFUSALS = {
     # served since the engine fleet was ported: the case holds it served
     "fleet": ({"fleet.replicas": 2, "fleet.roles": "prefill,decode"}, None),
-    "fabric": ({"fabric.enabled": True}, "fabric.enabled"),
-    "pod": ({"pod.host_id": "host-a"}, "pod.host_id"),
+    # served since the warm-state fabric and the pod plane were ported: the
+    # cases hold them built
+    "fabric": ({"fabric.enabled": True}, None),
+    "pod": ({"pod.host_id": "host-a"}, None),
     "mesh": ({"model.preset": "tiny", "mesh.data": 2, "mesh.model": 1}, "mesh"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_build_app_refuses_planes_not_ported(case):
-    """The planes not ported are refused by name. The fleet is served as the
-    JAX package serves it: the stub preset builds no fleet (both packages);
-    ``tiny`` builds an ``EngineFleet`` of two replicas with the parsed
-    roles."""
+def test_build_app_refuses_planes_not_ported(case, tmp_path):
+    """The planes not ported are refused by name (the mesh). The others are
+    built as the JAX package builds them: the stub preset builds no fleet and
+    no fabric (both packages), and ``tiny`` builds an ``EngineFleet`` of two
+    replicas with the parsed roles, or one engine over a ``WarmFabric`` at
+    ``fabric.path``; ``pod.host_id`` builds a ``PodCoordinator`` of that
+    host, with the app's Kafka client, journal and dedupe ring."""
     overrides, name = REFUSALS[case]
+    if case == "fabric":
+        overrides = {**overrides, "fabric.path": str(tmp_path / "fabric")}
     cfg = load_config(overrides={"model.preset": "stub", **overrides})
 
     def build(cfg):
@@ -853,11 +859,26 @@ def test_build_app_refuses_planes_not_ported(case):
     app = build(cfg)
     assert app.fleet is None and jax_app.fleet is None
     assert app._max_inflight() == jax_app._max_inflight() == cfg.engine.max_seqs
+    if case == "pod":
+        assert type(app.pod).__name__ == type(jax_app.pod).__name__ == "PodCoordinator"
+        assert app.pod.host_id == jax_app.pod.host_id == "host-a"
+        assert app.pod.kafka is app.kafka and app.pod.dedupe is app._dedupe
+        assert app.pod.peers == {} and app.pod.identity() == {
+            "host_id": "host-a", "member_id": app.kafka.member_id}
+        return
+    assert app.pod is None and jax_app.pod is None
     cfg = load_config(overrides={
         "model.preset": "tiny", **overrides, "engine.max_seqs": 2, "engine.num_pages": 16,
         "engine.max_seq_len": 256, "engine.prefill_chunk": 32,
         "engine.warmup_on_start": False, "engine.prefix_cache": False})
     app = build(cfg)
+    if case == "fabric":
+        fabric = app.scheduler.fabric
+        assert type(fabric).__name__ == "WarmFabric" and app.fleet is None
+        assert app.scheduler.session_cache.disk is fabric.tier
+        assert str(fabric.tier.path) == str(tmp_path / "fabric")
+        fabric.close()
+        return
     assert type(app.fleet).__name__ == "EngineFleet" and app.fleet.replicas[1].agent is not None
     assert [r.role for r in app.fleet.replicas] == ["prefill", "decode"]
     assert app.fleet.disagg is not None and app._dedupe is app.fleet.dedupe
@@ -865,9 +886,18 @@ def test_build_app_refuses_planes_not_ported(case):
 
 
 def test_app_keeps_fleet_and_pod_as_none():
+    """With the planes off the app has no fleet and no pod; with
+    ``pod.host_id`` it builds the pod plane, as the JAX app does, and attaches
+    it to every scheduler it has (the stub preset has none)."""
     app, _b, _s = make_app(SIDES["port"])
     assert app.fleet is None and app.pod is None and app.scheduler is None
     assert app._max_inflight() == app.cfg.engine.max_seqs
+    pods = {name: make_app(side, overrides={"pod.host_id": "host-b",
+                                            "pod.listen": "inproc:app-host-b"})[0].pod
+            for name, side in SIDES.items()}
+    assert pods["port"].host_id == pods["jax"].host_id == "host-b"
+    assert pods["port"].fleet is None and pods["jax"].fleet is None
+    assert pods["port"].cfg.listen == pods["jax"].cfg.listen == "inproc:app-host-b"
 
 
 def test_tokenizer_width_rule(monkeypatch):

@@ -1711,6 +1711,96 @@ def test_fleet_rebuild_beside_graph_capture(dev):
 
 
 @pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8_kv"])
+def test_fabric_head_restore_equals_the_prefilled_pages(dev, kv_quant, tmp_path):
+    """The warm-state fabric on the card: replica A registers a 2-page head
+    (its prefill through the kernels, then the snapshot published under
+    ``engine.DEVICE_STATE_LOCK``), replica B registers the same head from the
+    fabric (a hit: no prefill, one scatter under the lock) while a third
+    engine over the same tree rebuilds its pool on a worker thread, again and
+    again. B's head pages equal A's bit for bit (K, V and, for int8 KV, the
+    scale planes), the scatter wrote B's pool in place (its storage and the
+    graph captured at warmup over it unchanged), and the graph it captured
+    serves the same greedy stream over B's restored head as over A's."""
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.engine.warm_fabric import WarmFabric
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    engine_a = _loop_engine(dev, kv_quant)
+    engine_b = InferenceEngine(engine_a.config, engine_a.params, engine_a.engine_cfg, device=dev)
+    engine_b.warmup()
+    sibling = InferenceEngine(engine_a.config, engine_a.params, engine_a.engine_cfg, device=dev)
+    graph_b = engine_b._loop_graphs[4]
+    storage_b = engine_b.state.k_pages.data_ptr()
+    fabric = WarmFabric(str(tmp_path), 1 << 30, kv_quant=kv_quant)
+    tag = f"cuda-fabric-{kv_quant or 'bf16'}"
+    a, b = (ContinuousBatchingScheduler(e, eos_id=-1, replica_id=f"{tag}-{r}", fabric=fabric,
+                                        metrics=METRICS.labeled(replica=f"{tag}-{r}"))
+            for e, r in ((engine_a, "a"), (engine_b, "b")))
+    head = [(3 * i) % 250 + 1 for i in range(128)]
+    done, errors, rebuilds = threading.Event(), [], [0]
+
+    def rebuild_loop():
+        try:
+            while not done.is_set():
+                sibling.rebuild_device_state()
+                rebuilds[0] += 1
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    calls = []
+    real_prefill = engine_b.prefill
+    engine_b.prefill = lambda *a_, **k: (calls.append(1), real_prefill(*a_, **k))[1]
+    worker = threading.Thread(target=rebuild_loop)
+    worker.start()
+    try:
+        assert a.register_prefix(head) == 128
+        hits0 = METRICS.get("finchat_fabric_hits_total", {"replica": f"{tag}-b"})
+        assert b.register_prefix(head) == 128
+        torch.cuda.synchronize()
+    finally:
+        done.set()
+        worker.join()
+    assert not errors, errors
+    assert calls == []
+    assert METRICS.get("finchat_fabric_hits_total", {"replica": f"{tag}-b"}) == hits0 + 1
+    pages_a, pages_b = a._prefixes[0].pages, b._prefixes[0].pages
+    ia = torch.as_tensor(pages_a, device=dev)
+    ib = torch.as_tensor(pages_b, device=dev)
+    names = ["k_pages", "v_pages"] + (["k_scales", "v_scales"] if kv_quant else [])
+    for name in names:
+        want = getattr(engine_a.state, name).index_select(1, ia)
+        got = getattr(engine_b.state, name).index_select(1, ib)
+        assert torch.equal(got, want), name
+    assert engine_b.state.k_pages.data_ptr() == storage_b
+    assert engine_b._loop_graphs[4] is graph_b and graph_b.state is engine_b.state
+    # a stream over each head, through the scheduler (the tail prefilled, the
+    # decode in graph blocks reading the pool): B's restored head serves A's
+    # stream exactly
+    import asyncio
+
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+
+    async def stream(sched):
+        await sched.start()
+        try:
+            h = await sched.submit("s", head + [5, 6, 7], SamplingParams(temperature=0.0,
+                                                                         max_new_tokens=12))
+            toks = []
+            while (ev := await asyncio.wait_for(h.events.get(), 120))["type"] == "token":
+                toks.append(ev["token_id"])
+            assert ev["type"] == "done", ev
+            return toks, h.shared_len
+        finally:
+            await sched.stop()
+
+    got, want = asyncio.run(stream(b)), asyncio.run(stream(a))
+    assert got == want and got[1] == 128
+    fabric.close()
+    assert rebuilds[0] >= 1
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8_kv"])
 def test_bounded_kv_waves_keep_the_graph_and_its_storage(dev, kv_quant):
     """Bounded KV on the card (a sink of 1 page, a window of 3; pages of 64):
     three greedy streams past the budget at decode loop depth 4. Every

@@ -902,3 +902,56 @@ def test_build_app_fleet_shares_one_parameter_tree(quant):
         agent = app._agent_for(conv)
         want = jax_app.fleet.replica_for(conv).replica_id
         assert agent is fleet._by_id[want].agent
+
+
+# --- the session disk tier a replica ----------------------------------------
+
+def test_replicas_keep_their_session_records_apart(models, tmp_path):
+    """Two replicas over one ``session_cache_disk_path``, no fabric: each
+    keeps its records in its own ``replica-<id>`` subdirectory, as the JAX
+    scheduler does. A conversation retired on replica 0 is on disk under
+    ``replica-0`` only, replica 1's RAM miss does not restore it (it starts
+    cold), and ``finchat_durability_disk_restores_total`` moves on neither
+    replica: the layout, the resumed lengths and the counters are equal
+    across packages."""
+    prompt = list(range(1, 30))
+
+    async def scenario(side, name):
+        root = tmp_path / name
+        reps = [side.replica(f"d{i}", session_cache_disk_path=str(root)) for i in range(2)]
+        name_ = "finchat_durability_disk_restores_total"
+        before = [side.metrics.get(name_, {"replica": r.replica_id}) for r in reps]
+        a, b = reps[0].scheduler, reps[1].scheduler
+        await a.start()
+        try:
+            h = await a.submit("t1", prompt, side.greedy(6), conversation_id="conv-d")
+            t1, err = await _drain(h)
+            assert err is None
+        finally:
+            await a.stop()
+        a.session_cache.disk.flush()
+        layout = sorted(str(p.relative_to(root)) for p in root.rglob("*"))
+        await b.start()
+        try:
+            assert b.session_cache.get("conv-d") is None
+            h2 = await b.submit("t2", prompt + t1 + [3, 4], side.greedy(4),
+                                conversation_id="conv-d")
+            _t2, err = await _drain(h2)
+            assert err is None
+        finally:
+            await b.stop()
+        for r in reps:
+            r.scheduler.session_cache.disk.close()
+        restores = [side.metrics.get(name_, {"replica": r.replica_id}) - v
+                    for r, v in zip(reps, before)]
+        return dict(layout=layout, resumed=h2.resumed_len, restores=restores, t1=t1)
+
+    out = {name: asyncio.run(scenario(side, name)) for name, side in _sides(models).items()}
+    assert out["port"]["layout"] == out["jax"]["layout"]
+    assert any(p.startswith("replica-d0/") and p.endswith(".skv")
+               for p in out["port"]["layout"])
+    assert not any(p.startswith("replica-d1/") and p.endswith(".skv")
+                   for p in out["port"]["layout"])
+    assert out["port"]["resumed"] == out["jax"]["resumed"] == 0
+    assert out["port"]["restores"] == out["jax"]["restores"] == [0.0, 0.0]
+    _assert_teacher_forced(models, prompt, out["port"]["t1"], out["jax"]["t1"])

@@ -111,3 +111,11 @@ def test_the_fleet_modules_are_walked(module):
     """The engine fleet, the disaggregation coordinator and the scheduler's
     drain plane are among the files walked above."""
     assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["engine/warm_fabric.py", "serve/pod.py",
+                                    "engine/session_cache.py", "io/kafka.py"])
+def test_the_fleet_planes_modules_are_walked(module):
+    """The warm-state fabric, the pod plane, and the session cache's and the
+    broker's hooks for them are among the files walked above."""
+    assert ROOT / "finchat_tpu_torch" / module in PORT_FILES

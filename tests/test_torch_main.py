@@ -75,15 +75,17 @@ def test_overrides_equal_the_jax_cli(monkeypatch, argv):
 @pytest.mark.parametrize("flags,name", [
     (["--fleet-replicas", "2"], None),
     (["--fleet-replicas", "2", "--fleet-roles", "prefill,decode"], None),
-    (["--fabric-path", "/fabric"], "fabric.enabled"),
+    (["--fabric-path", "<tmp>"], None),
     (["--decode-loop-depth", "2"], None),
 ], ids=["fleet_replicas", "fleet_roles", "fabric", "decode_loop"])
-def test_unported_plane_flags_are_refused_by_name(monkeypatch, flags, name):
-    """The fabric flag is refused by name. ``--decode-loop-depth 2`` (the
-    fused decode loop) and the fleet flags are served: the app is built and
-    answers a ``/chat`` turn; with the stub preset it has no fleet, as the
-    JAX package's, and the same flags on ``tiny`` build an ``EngineFleet``
-    of the parsed roles."""
+def test_unported_plane_flags_are_refused_by_name(monkeypatch, tmp_path, flags, name):
+    """Every plane flag here is served (a refused one would raise by name).
+    ``--decode-loop-depth 2`` (the fused decode loop), the fleet flags and
+    ``--fabric-path`` build the app, which answers a ``/chat`` turn; with the
+    stub preset it has no fleet and no fabric, as the JAX package's, and the
+    same flags on ``tiny`` build an ``EngineFleet`` of the parsed roles, or
+    one engine over a ``WarmFabric`` at the flag's ``fabric.path``."""
+    flags = [str(tmp_path / "fabric") if f == "<tmp>" else f for f in flags]
     argv = ["--preset", "stub", "--device", "cpu", *flags]
     if name is not None:
         with pytest.raises(NotImplementedError, match=name.replace(".", r"\.")):
@@ -119,12 +121,28 @@ def test_unported_plane_flags_are_refused_by_name(monkeypatch, flags, name):
 
             fleet = real_build(small, store=store, retriever=no_rows, device="cpu").fleet
             built["roles"] = [r.role for r in fleet.replicas]
+        if cfg.fabric.enabled:
+            # the flag reached fabric.path: on a model, one engine over a fabric there
+            small = dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, preset="tiny"),
+                engine=dataclasses.replace(cfg.engine, max_seqs=2, num_pages=16,
+                                           max_seq_len=256, prefill_chunk=32,
+                                           warmup_on_start=False, prefix_cache=False))
+
+            async def no_rows(**_kw):
+                return []
+
+            fabric = real_build(small, store=store, retriever=no_rows,
+                                device="cpu").scheduler.fabric
+            built["fabric"] = (cfg.fabric.path, type(fabric).__name__, str(fabric.tier.path))
+            fabric.close()
         raise _Stop
 
     monkeypatch.setattr(app_mod, "build_app", build_then_turn)
     with pytest.raises(_Stop):
         tmain.main(argv)
     roles = built.pop("roles", None)
+    fabric = built.pop("fabric", None)
     assert built == {"depth": 2 if "--decode-loop-depth" in flags else 1, "status": 200,
                      "fleet": None, "body": {
                          "response": "I'm Penny, here to help with your finances.",
@@ -132,6 +150,9 @@ def test_unported_plane_flags_are_refused_by_name(monkeypatch, flags, name):
     if "--fleet-replicas" in flags:
         assert roles == (["prefill", "decode"] if "--fleet-roles" in flags else
                          ["mixed", "mixed"])
+    if "--fabric-path" in flags:
+        want = str(tmp_path / "fabric")
+        assert fabric == (want, "WarmFabric", want)
 
 
 def _free_port() -> int:
