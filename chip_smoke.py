@@ -298,7 +298,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tokens each, with the same prefix-cache and teacher-forced checks — the
    path of the int4 matmul kernel.
 5b. The decode planes (``decode_planes``): ``llama3-8b`` at full width
-   over ``PLANE_DEPTH`` (16) of its 32 layers, with random weights from a
+   over ``PLANE_DEPTH`` (8) of its 32 layers, with random weights from a
    seeded generator, bf16 then int8 weights over the int8 KV pool. Each run is an engine at ``EngineConfig(kv_quant=..., **run)``:
    bf16 at depth 1, ``decode_loop_depth=4``, ``spec_tokens=3`` and
    ``freerun_rounds=4`` with ``decode_loop_depth=2``; int8+kv8 at depth 1
@@ -376,6 +376,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    window (``fabric_launches``, ``pod_launches``), no older body. The
    fleet, fabric and pod phases' decisions stop at ``PLANE_DECISION_NEW``
    (32) tokens, the agent phases' at ``DECISION_NEW`` (96).
+5g. MoE (``moe_phase``): ``mixtral-8x7b`` at full width and depth (32
+   layers, 8 experts a layer, top 2, vocab 32,000), int8 weights made by
+   ``init_quantized_params`` (each expert leaf one layer's ``[E, D, F]``
+   slice at a time; its bf16 tree, 93 GB, does not fit the card) over an
+   int8 KV pool sized to the memory left but ``MOE_HEADROOM_GB``, 8 slots
+   (``MOE_SLOTS``), ``EngineConfig``'s defaults otherwise, warmed up, the
+   system head registered, then ``MOE_REQUESTS`` (4) greedy requests of
+   ``MOE_NEW`` (32) new tokens through ``LLMService`` in two waves. The expert einsums run
+   on inline-dequantized weights (``models/llama.moe_mlp``, as the JAX
+   package computes them): every other matmul and all attention through
+   the int8+kv8 plane's kernels under its launch rules (K4's Hopper
+   prefill body every chunk, its decode body, the writer every cache
+   write, K6's Hopper body, both K8 bodies; K8's v2 and the older int8
+   append never), ``finchat_quantmatmul_fallbacks_total`` up (0 in phase
+   4's dense serve), every dispatch on
+   ``finchat_quantmatmul_fused_dispatches_total``, every stream
+   teacher-forced against the plain forward on the same quantized tree
+   (each layer's experts dequantized in turn). Phase 2's K8 cases
+   ``int8_m{64,4}_head32000_fp32`` (the Mixtral head) take their launches
+   from this window. Prints the init seconds and peak against the int8
+   tree, the pool, TTFT, the decode rate and a decode step's profile
+   (device time by class, PyTorch's elementwise kernels a class of their
+   own).
 6. Train: first ``llama3-8b`` widths at 2 layers, B=1, S=2048 — the loss,
    every leaf's gradient and the one-shot forward's logits through K7
    against the same step with the plain attention (relative per leaf and on
@@ -395,7 +418,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 The line before the last is the ``kernels`` JSON (each row's
 ``launches`` from its plane's serve or run, ``checkpoint_launches`` from
 the checkpoint phase's serve, ``fleet_launches``, ``fabric_launches`` and
-``pod_launches`` from the fleet, fabric and pod phases); the last line is
+``pod_launches`` from the fleet, fabric and pod phases, ``moe_launches``
+from the Mixtral serve); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or when the port package is not beside this file.
 """
@@ -1836,6 +1860,7 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
     disk_dir = tempfile.mkdtemp(prefix="finchat-sessions-")
     try:
         ecfg = EngineConfig(kv_quant=spec["kv_quant"], session_cache_disk_path=disk_dir)
+        fb0 = METRICS.get("finchat_quantmatmul_fallbacks_total")
         engine = InferenceEngine(config, params, ecfg, device=dev, quant=spec["quant"],
                                  quant_group=spec["group"])
         warm = run_warmup(torch, plane, engine, weight_gb)
@@ -1935,6 +1960,12 @@ async def serve(torch, dev, plane: str, n_requests: int, max_new: int, profile: 
         decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
         counts.chunks += reg_chunks  # the registration's chunks ran in this window too
         check_window(plane, "turn 1", spec, config, launches, counts, decode_steps, mixed)
+        # a dense tree: every quantized matmul goes to a kernel, none falls
+        # back (moe_phase's expert einsums do)
+        fb = METRICS.get("finchat_quantmatmul_fallbacks_total") - fb0
+        log(f"  finchat_quantmatmul_fallbacks_total +{fb:.0f} since the engine was built")
+        if fb:
+            fail(f"serve {plane}: {fb:.0f} quantized matmuls fell back from the kernels")
         offload1 = _seconds(METRICS, m0, "finchat_session_offload_seconds")
         log(f"  session cache: {len(sched.session_cache)} entries in RAM "
             f"({sched.session_cache.resident_bytes / 2**20:.1f} MiB of "
@@ -4459,6 +4490,9 @@ HF_LLAMA_LAYER = {
     "mlp_gate": ("mlp.gate_proj.weight", True), "mlp_up": ("mlp.up_proj.weight", True),
     "mlp_down": ("mlp.down_proj.weight", True),
 }
+# Mixtral's experts: the port's expert leaves and HF's name of each expert's
+# weight (``block_sparse_moe.experts.{e}.<name>.weight``, stored [out, in])
+HF_MOE_EXPERTS = {"moe_gate": "w1", "moe_up": "w3", "moe_down": "w2"}
 HF_BERT_LAYER = {
     "attn_out": ("attention.output.dense.weight", True),
     "attn_out_bias": ("attention.output.dense.bias", False),
@@ -4479,12 +4513,15 @@ def write_hf_llama(torch, params, config, path, n_shards: int = CKPT_SHARDS) -> 
     copies to the host one tensor at a time, the layers split evenly over
     ``model-0000k-of-0000n.safetensors`` (the embedding in the first shard,
     the norm and the head in the last), and a ``config.json`` with the
-    preset's keys."""
+    preset's keys. An MoE tree is written as Mixtral's: each layer's router
+    as ``block_sparse_moe.gate`` ([E, D], fp32) and each expert's slice of
+    the expert leaves as ``block_sparse_moe.experts.{e}.w1/w3/w2``."""
     from finchat_tpu_torch.checkpoints.safetensors_io import save_file
 
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    L = config.n_layers
+    L, E = config.n_layers, config.n_experts
+    layers = params["layers"]
     per = -(-L // n_shards)
     for k in range(n_shards):
         tensors = {}
@@ -4492,15 +4529,24 @@ def write_hf_llama(torch, params, config, path, n_shards: int = CKPT_SHARDS) -> 
             tensors["model.embed_tokens.weight"] = params["embed"]
         for i in range(k * per, min(L, (k + 1) * per)):
             for leaf, (name, transpose) in HF_LLAMA_LAYER.items():
-                t = params["layers"][leaf][i]
-                tensors[f"model.layers.{i}.{name}"] = t.t() if transpose else t
+                if leaf in layers:
+                    t = layers[leaf][i]
+                    tensors[f"model.layers.{i}.{name}"] = t.t() if transpose else t
+            if E:
+                moe = f"model.layers.{i}.block_sparse_moe"
+                tensors[f"{moe}.gate.weight"] = layers["router"][i].t()
+                for leaf, name in HF_MOE_EXPERTS.items():
+                    for e in range(E):
+                        tensors[f"{moe}.experts.{e}.{name}.weight"] = layers[leaf][i, e].t()
         if k == n_shards - 1:
             tensors["model.norm.weight"] = params["norm"]
             tensors["lm_head.weight"] = params["lm_head"].t()
         save_file(tensors, path / f"model-{k + 1:05d}-of-{n_shards:05d}.safetensors",
                   metadata={"format": "pt"})
+    moe = dict(num_local_experts=E, num_experts_per_tok=config.top_k_experts) if E else {}
     (path / "config.json").write_text(json.dumps({
-        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "architectures": ["MixtralForCausalLM" if E else "LlamaForCausalLM"],
+        "model_type": "mixtral" if E else "llama", **moe,
         "hidden_size": config.dim, "num_hidden_layers": L,
         "num_attention_heads": config.n_heads, "num_key_value_heads": config.n_kv_heads,
         "intermediate_size": config.hidden_dim, "vocab_size": config.vocab_size,
@@ -4948,7 +4994,11 @@ def device_ms(torch, prof, classify, runs: int = 1, top: int = 4) -> tuple[dict,
     return by_class, dict(sorted(others.items(), key=lambda x: -x[1])[:top])
 
 
-def profile_steps(torch, engine, context: int, active: int) -> dict:
+PROFILED_STEPS = ("decode_step", "prefill_chunk_4x512", "ragged_round_serve")
+
+
+def profile_steps(torch, engine, context: int, active: int, classify=None,
+                  kinds: tuple = PROFILED_STEPS) -> dict:
     """Where a step's time goes, after serving: a decode step with ``active``
     slots at ``context`` tokens, a 4 x 512 prefill chunk at q_offset 2048,
     and a ragged round shaped like the serve's (``SERVE_ROUND``: three
@@ -4959,7 +5009,9 @@ def profile_steps(torch, engine, context: int, active: int) -> dict:
     device busy / window, both taken in the same profiled window: CUDA events recorded inside the profile around
     its steps (the profiler's own host cost is in that window, so the share
     reads high against an unprofiled step). Uses the engine's own state
-    (random KV), slots 0..active-1."""
+    (random KV), slots 0..active-1. ``classify`` maps a kernel's name to its
+    class (``_kernel_class`` by default); ``kinds`` names the steps to
+    profile."""
     from torch.profiler import ProfilerActivity, profile
 
     B = engine.engine_cfg.max_seqs
@@ -4995,6 +5047,8 @@ def profile_steps(torch, engine, context: int, active: int) -> dict:
     out = {}
     for name, fn in (("decode_step", decode), ("prefill_chunk_4x512", prefill),
                      ("ragged_round_serve", ragged)):
+        if name not in kinds:
+            continue
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
@@ -5007,7 +5061,7 @@ def profile_steps(torch, engine, context: int, active: int) -> dict:
             w_end.record()
             torch.cuda.synchronize()
         window_ms = w_start.elapsed_time(w_end) / 3
-        by_class, top_other = device_ms(torch, prof, _kernel_class, runs=3)
+        by_class, top_other = device_ms(torch, prof, classify or _kernel_class, runs=3)
         ev_ms = time_ms(torch, fn, iters=5, warmup=1)
         busy = sum(by_class.values())
         out[name] = dict(event_ms=ev_ms, profiled_window_ms=window_ms, device_busy_ms=busy,
@@ -5194,10 +5248,10 @@ def teacher_forced_check(torch, params, config, h, kv_quant: str, vocab=None,
 # the spec run's drafts a verify step: the verify-shape attention call is
 # C = 1 + VERIFY_DRAFTS query tokens a slot
 VERIFY_DRAFTS = 3
-# the decode planes and bounded KV run at full width over 16 of the model's 32
+# the decode planes and bounded KV run at full width over 8 of the model's 32
 # layers (the depth cut, not a check dropped), so the script stays inside its
-# time limit with the fleet planes' phases after them
-PLANE_DEPTH = 16
+# time limit with the fleet planes' and the Mixtral phases after them
+PLANE_DEPTH = 8
 # the runs of the phase, each an engine of its own over the plane's weights:
 # the depth-1 stream first (what the others are held to), then the planes
 DECODE_RUNS = {
@@ -7262,6 +7316,210 @@ async def pod_phase(torch, dev, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# moe_phase: mixtral-8x7b, int8 weights over an int8 KV pool
+# --------------------------------------------------------------------------
+
+# the Mixtral serve: requests in two waves and their new tokens, and the
+# engine's slots (its warmup runs a variant a bucket up to slots x 512 tokens,
+# and every step dequantizes all 32 layers' experts: ~0.3 s a step on the
+# H100, PERF.md section 5)
+MOE_REQUESTS = 4
+MOE_NEW = 32
+MOE_SLOTS = 8
+# device memory left out of the KV pool for the steps' activations (the
+# largest bucket's, blocks of the expert products) and the plain forward of
+# the teacher-forced check
+MOE_HEADROOM_GB = 20.0
+
+
+def _moe_class(name: str) -> str:
+    """``_kernel_class``, with PyTorch's elementwise kernels (the experts'
+    dequantization, the SiLU, the gates) a class of their own."""
+    cls = _kernel_class(name)
+    return "elementwise (torch)" if cls == "other" and "elementwise" in name.lower() else cls
+
+
+async def moe_phase(torch, dev, card: str) -> dict:
+    """``mixtral-8x7b`` at full width and depth (32 layers, 8 experts, top 2)
+    on the int8+kv8 plane: int8 weights made by ``init_quantized_params``
+    (each expert leaf drawn and quantized one layer's ``[E, D, F]`` slice at
+    a time: a bf16 tree of 93 GB does not fit the card), the KV pool int8,
+    sized to the memory left but ``MOE_HEADROOM_GB``, ``MOE_SLOTS`` slots,
+    ``EngineConfig``'s defaults otherwise. Warmed up, the system head
+    registered, then ``MOE_REQUESTS`` greedy requests of ``MOE_NEW`` new tokens through
+    ``LLMService`` in two waves (the second once a first token streams: the
+    ragged rounds run). Launches are counted from just before the
+    registration to just after the serve, under the int8+kv8 plane's rules
+    (``PLANES``: K4's Hopper prefill body takes every prefill chunk, the
+    writer every cache write; K4's decode body, K6's Hopper body and both
+    K8 bodies launch; K8's v2 and the older int8 append never). The expert
+    einsums run on inline-dequantized weights, no kernel: the engine books
+    them on ``finchat_quantmatmul_fallbacks_total`` (must rise), and every
+    dispatch on ``finchat_quantmatmul_fused_dispatches_total`` (the backend
+    gauge at 2). Every stream is teacher-forced against the plain forward
+    on the same quantized tree. Prints the init seconds and peak memory
+    against the tree, TTFT, the decode rate and a decode step's profile."""
+    import shutil
+    import tempfile
+
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.engine.generator import EngineGenerator
+    from finchat_tpu_torch.engine.kv_cache import page_hbm_bytes
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.models.llama import PRESETS, n_params
+    from finchat_tpu_torch.models.quant import init_quantized_params
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat_head
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.serve.simple import LLMService
+    from finchat_tpu_torch.utils.config import EngineConfig
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    t_phase = time.perf_counter()
+    plane, spec = "moe int8+kv8", PLANES["int8+kv8"]
+    config = PRESETS["mixtral-8x7b"]
+    _free(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_quantized_params(config, gen, dev, mode="int8")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tree = sum(t.numel() * t.element_size() for _n, t in tree_leaves(params))
+    init_peak = torch.cuda.max_memory_allocated() - base
+    log(f"  mixtral-8x7b: {config.n_layers} layers, {config.n_experts} experts (top "
+        f"{config.top_k_experts}), {n_params(config) / 1e9:.2f} B params; the int8 tree "
+        f"{tree / 2**30:.2f} GiB ({tree / 1e9:.2f} GB) on the card, random init {init_s:.1f} s, "
+        f"init peak {init_peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held before "
+        f"(the tree plus {(init_peak - tree) / 2**30:.2f} GiB; {card})")
+    free, _total = torch.cuda.mem_get_info()
+    num_pages = int((free - MOE_HEADROOM_GB * 1e9) // page_hbm_bytes(config, 128, "int8"))
+    disk_dir = tempfile.mkdtemp(prefix="finchat-moe-sessions-")
+    fallbacks = "finchat_quantmatmul_fallbacks_total"
+    try:
+        fb0 = METRICS.get(fallbacks)
+        ecfg = EngineConfig(kv_quant="int8", num_pages=num_pages, max_seqs=MOE_SLOTS,
+                            session_cache_disk_path=disk_dir)
+        engine = InferenceEngine(config, params, ecfg, device=dev, quant="int8")
+        log(f"  KV pool: {num_pages} int8 pages of 128 tokens ({pool_bytes(engine) / 2**30:.2f} "
+            f"GiB; {num_pages * 128} tokens), {MOE_HEADROOM_GB:.0f} GB of the card left to the "
+            "steps")
+        warm = run_warmup(torch, plane, engine, tree / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        counts = _Counts(engine)
+        tok = ByteTokenizer()
+        sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+        handles = []
+        submit = sched.submit
+
+        async def recording_submit(*a, **k):
+            h = await submit(*a, **k)
+            handles.append(h)
+            return h
+
+        sched.submit = recording_submit
+        system_prompt = (REPO / "prompts" / "system_prompt.txt").read_text()
+        head_ids = tok.encode(render_chat_head(system_prompt), add_bos=True)[:-1]
+        svc = LLMService(EngineGenerator(sched, tok), system_prompt,
+                         SamplingParams(temperature=0.0, max_new_tokens=MOE_NEW))
+        m0 = METRICS.snapshot()
+        reset_launches()
+        shared = sched.register_prefix(head_ids)
+        reg_chunks = counts.chunks
+        counts.reset()
+        log(f"  prefix cache: the system head ({len(head_ids)} tokens) registered as {shared} "
+            f"shared tokens in {reg_chunks} prefill chunks")
+        if shared != (len(head_ids) // engine.page_size) * engine.page_size or not shared:
+            fail(f"moe: the system head registered {shared} shared tokens")
+        await sched.start()
+
+        async def one(i: int) -> str:
+            return "".join([c async for c in svc.process_message(
+                MESSAGES[i], context=CONTEXTS[i], conversation_id=f"moe-{i}")])
+
+        t_start = time.perf_counter()
+        first = MOE_REQUESTS // 2
+        wave1 = [asyncio.create_task(one(i)) for i in range(first)]
+        while not any(h.generated > 0 for h in handles):
+            await asyncio.sleep(0.005)
+        wave2 = [asyncio.create_task(one(i)) for i in range(first, MOE_REQUESTS)]
+        await asyncio.gather(*wave1, *wave2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        await sched.stop()
+        sched.submit = submit
+        launches = dict(LAUNCHES)
+        prompt_lens = [len(h.prompt_ids) for h in handles]
+        log(f"  served {len(handles)} requests in {wall:.2f} s; prompt tokens {prompt_lens}")
+        log(f"  launches during the serve: { {k: v for k, v in launches.items() if v} }")
+        if len(handles) != MOE_REQUESTS or not all(h.finished and h.generated > 0
+                                                   for h in handles):
+            fail("moe: not every request completed with tokens")
+        if not all(h.generated == MOE_NEW or h.history[-1] == tok.eos_id for h in handles):
+            fail("moe: a request ended before max_new_tokens without EOS")
+        missing = [k for k in spec["kernels"] if launches[k] == 0]
+        if missing:
+            fail(f"moe: kernels not launched on the main path: {missing}")
+        hits = _metric_delta(METRICS, m0, "finchat_prefix_hits_total")
+        if hits != MOE_REQUESTS or any(h.shared_len != shared for h in handles):
+            fail(f"moe: {hits:.0f} prefix hits, not {MOE_REQUESTS}")
+        check_prefill_rows(plane, "moe serve", handles, counts, ecfg.prefill_chunk,
+                           lambda h: h.shared_len)
+        mixed = _metric_delta(METRICS, m0, "finchat_mixed_dispatches_total")
+        if mixed < 1:
+            fail("moe: no packed ragged round ran (prefill never coexisted with decode)")
+        decode_steps = _metric_delta(METRICS, m0, "finchat_decode_dispatches_total")
+        counts.chunks += reg_chunks  # the registration's chunks ran in this window too
+        check_window(plane, "moe serve", spec, config, launches, counts, decode_steps, mixed)
+        fb = METRICS.get(fallbacks) - fb0
+        fused = _metric_delta(METRICS, m0, "finchat_quantmatmul_fused_dispatches_total")
+        backend = METRICS.get("finchat_quantmatmul_backend")
+        served_chunks = counts.chunks - reg_chunks  # the registration is no scheduler dispatch
+        log(f"  finchat_quantmatmul_fallbacks_total +{fb:.0f} (the expert products, inline "
+            f"dequantized), finchat_quantmatmul_fused_dispatches_total +{fused:.0f} (want "
+            f"{decode_steps:.0f} decode steps + {mixed:.0f} ragged rounds + {served_chunks} "
+            f"prefill chunks); finchat_quantmatmul_backend {backend:.0f}")
+        if fb <= 0 or fused != decode_steps + mixed + served_chunks or backend != 2:
+            fail(f"moe: the quantmatmul family reads fallbacks +{fb}, fused dispatches +{fused}, "
+                 f"backend {backend}")
+        ttfts = sorted(h.first_token_at - h.submitted_at for h in handles)
+        decode_tokens = sum(h.generated - 1 for h in handles)
+        t_first = min(h.first_token_at for h in handles)
+        t_last = max(h.last_token_at for h in handles)
+        agg_tps = decode_tokens / max(t_last - t_first, 1e-9)
+        per_stream = statistics.median(
+            (h.generated - 1) / max(h.last_token_at - h.first_token_at, 1e-9) for h in handles)
+        log(f"  TTFT p50 {statistics.median(ttfts):.3f} s; decode {agg_tps:.2f} tokens/s "
+            f"aggregate, {per_stream:.2f} per stream ({card})")
+        checks = [teacher_forced_check(torch, params, config, h, "int8") for h in handles]
+        sched.retire_prefixes()
+        if sched.allocator.used_count != 0:
+            fail(f"moe: {sched.allocator.used_count} KV pages still allocated after the serve")
+        if sched.session_cache.disk is not None:
+            sched.session_cache.disk.close()
+        counts.close()
+        steps = profile_steps(torch, engine, context=max(prompt_lens), active=MOE_REQUESTS,
+                              classify=_moe_class, kinds=("decode_step",))
+        peak = torch.cuda.max_memory_allocated() - base
+        del engine, sched, svc, recording_submit, submit, counts, params
+    finally:
+        shutil.rmtree(disk_dir, ignore_errors=True)
+    _free(torch)
+    out = dict(init_s=init_s, tree_gib=tree / 2**30, init_peak_gib=init_peak / 2**30,
+               num_pages=num_pages, warmup=warm, ttft_p50_s=statistics.median(ttfts),
+               ttft_s=ttfts, decode_tokens_per_s=agg_tps,
+               decode_tokens_per_s_per_stream=per_stream, wall_s=wall,
+               prompt_tokens=prompt_lens, launches=launches, ragged_rounds=mixed,
+               decode_steps=decode_steps, fallbacks=fb, fused_dispatches=fused,
+               teacher_forced=checks, steps=steps, peak_gib=peak / 2**30)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  moe ({card}): peak {out['peak_gib']:.2f} GiB; the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def _free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -7516,6 +7774,13 @@ def main() -> None:
                   results)
     check_qmm(torch, "int8_m64_head_fp32", gen, dev, 64, 4096, 128256, "int8", 0, True, results)
     check_qmm(torch, "int8_m4_head_fp32", gen, dev, 4, 4096, 128256, "int8", 0, True, results)
+    # mixtral-8x7b's head (vocab 32,000): its own generator (the cases after
+    # it keep their draws); its launches are moe_phase's
+    moe_gen = torch.Generator(device=dev)
+    moe_gen.manual_seed(2525)
+    for M in (64, 4):
+        check_qmm(torch, f"int8_m{M}_head32000_fp32", moe_gen, dev, M, 4096, 32000, "int8", 0,
+                  True, results, launch_plane="moe")
     check_qmm(torch, "int4_g0_m64_4096x14336", gen, dev, 64, 4096, 14336, "int4", 0, False,
               results)
     check_qmm(torch, "int4_g128_m64_4096x14336", gen, dev, 64, 4096, 14336, "int4", 128, False,
@@ -7655,6 +7920,20 @@ def main() -> None:
     pod = asyncio.run(pod_phase(torch, dev, card))
     log("pod: " + json.dumps(pod))
 
+    log("phase 5g, moe: mixtral-8x7b (int8 weights over an int8 KV pool, random weights, 32 "
+        "layers at full width) through LLMService; the experts inline-dequantized")
+    moe = asyncio.run(moe_phase(torch, dev, card))
+    dstep = moe["steps"]["decode_step"]
+    log(f"  moe: init {moe['init_s']:.1f} s, peak {moe['peak_gib']:.2f} GiB (the int8 tree "
+        f"{moe['tree_gib']:.2f} GiB); TTFT p50 {moe['ttft_p50_s']:.3f} s; decode "
+        f"{moe['decode_tokens_per_s']:.2f} tokens/s aggregate, "
+        f"{moe['decode_tokens_per_s_per_stream']:.2f} per stream; a decode step "
+        f"{dstep['event_ms']:.1f} ms, device "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(dstep["device_ms_by_class"].items(),
+                                                       key=lambda x: -x[1]))
+        + f" ms ({card})")
+    log("moe: " + json.dumps(moe))
+
     log("phase 6: train llama3-8b (random weights) through K7, forward and backward")
     check = train_check(torch, dev)
     train = train_full(torch, dev, card)
@@ -7707,6 +7986,7 @@ def main() -> None:
     launched["fleet"] = fleet["launches"]
     launched["fabric"] = fabric["launches"]
     launched["pod"] = pod["launches"]
+    launched["moe"] = moe["launches"]
     table = []
     for r in results:
         kname = r["kernel"]
@@ -7729,6 +8009,8 @@ def main() -> None:
         # and in the fabric and the pod phases' windows
         row["fabric_launches"] = launched["fabric"].get(kname, 0)
         row["pod_launches"] = launched["pod"].get(kname, 0)
+        # and in the Mixtral serve's window
+        row["moe_launches"] = launched["moe"].get(kname, 0)
         table.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

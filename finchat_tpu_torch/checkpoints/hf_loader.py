@@ -21,9 +21,15 @@ as soon as it is complete, before the next leaf exists: the device holds
 the quantized tree plus one full-precision leaf, the same numerics as
 quantizing after a full load.
 
-MoE checkpoints (Mixtral's ``block_sparse_moe``) are refused: a config with
-``n_experts`` by ``models/llama._check_dense``, a ``config.json`` with
-``num_local_experts`` by the key check.
+Mixtral checkpoints (``n_experts`` > 0): ``block_sparse_moe.gate`` becomes
+the fp32 router ``[L, D, E]``, ``block_sparse_moe.experts.{e}.w1/w3/w2``
+the expert leaves ``moe_gate``/``moe_up``/``moe_down`` ``[L, E, in, out]``
+(each ``[out, in]`` tensor transposed), as the JAX loader stacks them; a
+``config.json`` without ``num_local_experts`` is refused with the JAX
+loader's message. With ``quant`` an expert leaf is built and quantized one
+layer's ``[E, in, out]`` slice at a time: the device holds the quantized
+tree plus one layer's full-precision experts, never a whole expert leaf
+(28 GiB in bf16 for mixtral-8x7b).
 """
 
 from __future__ import annotations
@@ -35,16 +41,22 @@ from typing import Any
 import torch
 
 from finchat_tpu_torch.checkpoints.safetensors_io import ShardIndex
-from finchat_tpu_torch.models.llama import LlamaConfig, _check_dense
-from finchat_tpu_torch.models.quant import quantize_stacked, should_quantize, validate_quant_mode
+from finchat_tpu_torch.models.llama import LlamaConfig, check_experts
+from finchat_tpu_torch.models.quant import (
+    quantize_stacked,
+    should_quantize,
+    validate_quant_mode,
+    write_slice,
+)
 from finchat_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
 
-def check_hf_config(path: Path, expected: dict[str, Any]) -> None:
+def check_hf_config(path: Path, expected: dict[str, Any], n_experts: int = 0) -> None:
     """``config.json`` (where the directory has one) against our config:
-    a key present in both must agree."""
+    a key present in both must agree, and an MoE config (``n_experts``)
+    needs an MoE checkpoint."""
     cfg_file = path / "config.json"
     if not cfg_file.exists():
         return
@@ -53,6 +65,10 @@ def check_hf_config(path: Path, expected: dict[str, Any]) -> None:
         if hf_key in hf_cfg and hf_cfg[hf_key] != ours:
             raise ValueError(
                 f"checkpoint {hf_key}={hf_cfg[hf_key]} != config {ours}; wrong preset?")
+    if n_experts and "num_local_experts" not in hf_cfg:
+        raise ValueError(
+            f"config expects an MoE checkpoint (n_experts={n_experts}) but config.json has no "
+            "num_local_experts")
 
 
 def _copy_in(dst: torch.Tensor, src: torch.Tensor, transpose: bool) -> None:
@@ -67,7 +83,7 @@ def load_llama_params(checkpoint_dir: str | Path, config: LlamaConfig, *,
                       quant_group: int = 0) -> dict[str, Any]:
     """Load HF Llama weights into the stacked tree on ``device``;
     ``quant``/``quant_group`` quantize each matmul leaf at load."""
-    _check_dense(config)
+    check_experts(config)
     validate_quant_mode(quant)
     path = Path(checkpoint_dir)
     device = torch.device(device)
@@ -82,8 +98,8 @@ def load_llama_params(checkpoint_dir: str | Path, config: LlamaConfig, *,
         "vocab_size": config.vocab_size,
         "num_local_experts": config.n_experts,  # Mixtral-family
         "num_experts_per_tok": config.top_k_experts,
-    })
-    L = config.n_layers
+    }, n_experts=config.n_experts)
+    L, E = config.n_layers, config.n_experts
 
     def finish(name: str, leaf: torch.Tensor) -> Any:
         if quant and should_quantize(name):
@@ -99,19 +115,46 @@ def load_llama_params(checkpoint_dir: str | Path, config: LlamaConfig, *,
 
         return finish(name, tensors.read(hf_name, fill))
 
-    def stack(name: str, fmt: str, transpose: bool = True) -> Any:
+    def stack(name: str, fmt: str, transpose: bool = True,
+              dtype: torch.dtype | None = None) -> Any:
         leaf = None
 
         def fill(src: torch.Tensor, i: int) -> None:
             nonlocal leaf
             if leaf is None:
                 shape = tuple(reversed(src.shape)) if transpose else tuple(src.shape)
-                leaf = torch.empty((L,) + shape, dtype=config.dtype, device=device)
+                leaf = torch.empty((L,) + shape, dtype=dtype or config.dtype, device=device)
             _copy_in(leaf[i], src, transpose)
 
         for i in range(L):
             tensors.read(fmt.format(i=i), lambda src: fill(src, i))
         return finish(name, leaf)
+
+    def experts(w: str) -> Any:
+        # one layer's [E, in, out] slice on the device at a time; with
+        # ``quant`` each expert of it quantized straight into the leaf before
+        # the next layer's is read
+        leaf = part = None
+
+        def fill(src: torch.Tensor, e: int) -> None:
+            nonlocal part
+            if part is None:
+                part = torch.empty((E,) + tuple(reversed(src.shape)), dtype=config.dtype,
+                                   device=device)
+            _copy_in(part[e], src, True)
+
+        for i in range(L):
+            part = None
+            for e in range(E):
+                tensors.read(f"model.layers.{i}.block_sparse_moe.experts.{e}.{w}.weight",
+                             lambda src: fill(src, e))
+            if not quant:
+                leaf = write_slice(leaf, i, (L,), part)
+                continue
+            for e in range(E):
+                leaf = write_slice(leaf, (i, e), (L, E),
+                                   quantize_stacked(part[e], mode=quant, group_size=quant_group))
+        return leaf
 
     try:
         params: dict[str, Any] = {
@@ -125,12 +168,25 @@ def load_llama_params(checkpoint_dir: str | Path, config: LlamaConfig, *,
                                  transpose=False),
                 "ln_mlp": stack("ln_mlp", "model.layers.{i}.post_attention_layernorm.weight",
                                 transpose=False),
-                "mlp_gate": stack("mlp_gate", "model.layers.{i}.mlp.gate_proj.weight"),
-                "mlp_up": stack("mlp_up", "model.layers.{i}.mlp.up_proj.weight"),
-                "mlp_down": stack("mlp_down", "model.layers.{i}.mlp.down_proj.weight"),
             },
             "norm": single("norm", "model.norm.weight"),
         }
+        if E:
+            # Mixtral: the router (fp32 whatever the model dtype: routing is
+            # precision-sensitive), then w1/w3/w2 (gate/up/down) of every expert
+            params["layers"].update({
+                "router": stack("router", "model.layers.{i}.block_sparse_moe.gate.weight",
+                                dtype=torch.float32),
+                "moe_gate": experts("w1"),
+                "moe_up": experts("w3"),
+                "moe_down": experts("w2"),
+            })
+        else:
+            params["layers"].update({
+                "mlp_gate": stack("mlp_gate", "model.layers.{i}.mlp.gate_proj.weight"),
+                "mlp_up": stack("mlp_up", "model.layers.{i}.mlp.up_proj.weight"),
+                "mlp_down": stack("mlp_down", "model.layers.{i}.mlp.down_proj.weight"),
+            })
         # tied embeddings (TinyLlama and Llama-3.2 style) ship no lm_head
         head = "lm_head.weight" if "lm_head.weight" in tensors else "model.embed_tokens.weight"
         params["lm_head"] = single("lm_head", head, transpose=True)

@@ -34,15 +34,15 @@ from __future__ import annotations
 import json
 import os
 import threading
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Iterator
+from typing import Any
 
 import numpy as np
 import torch
 
 from finchat_tpu_torch.utils.logging import get_logger
+from finchat_tpu_torch.utils.precision import ieee_fp32 as _ieee_fp32
 
 logger = get_logger(__name__)
 
@@ -87,29 +87,6 @@ def _split_f64(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     lo = np.zeros_like(x)
     np.subtract(x, hi.astype(np.float64), out=lo, where=finite)
     return hi, lo.astype(np.float32)
-
-
-# one lock for every index: scoring runs in worker threads, and the TF32
-# flag it turns off is process-wide
-_TF32_LOCK = threading.Lock()
-
-
-@contextmanager
-def _ieee_fp32() -> Iterator[None]:
-    """fp32 products without TF32 for the scoring call, whatever the
-    process-wide setting. ``_TF32_LOCK`` serializes the save, set and
-    restore across every index and thread that scores, so no two of them
-    interleave. It cannot fence code outside this module: a thread that
-    turns TF32 on while a product is launched here makes that product
-    TF32, and a thread that launches an fp32 product of its own in that
-    window gets it without TF32."""
-    with _TF32_LOCK:
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            yield
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 @torch.inference_mode()

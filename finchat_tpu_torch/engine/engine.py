@@ -64,7 +64,12 @@ from finchat_tpu_torch.engine.kv_cache import (
 )
 from finchat_tpu_torch.engine.sampler import sample
 from finchat_tpu_torch.models.llama import LlamaConfig, forward, lm_head
-from finchat_tpu_torch.models.quant import quantize_llama_params, validate_quant_mode
+from finchat_tpu_torch.models.quant import (
+    Q4Tensor,
+    QTensor,
+    quantize_llama_params,
+    validate_quant_mode,
+)
 from finchat_tpu_torch.ops.dispatch import kv_write, paged_attention, ragged_paged_attention
 from finchat_tpu_torch.ops.kv_append import plan_kv_rows, plan_kv_rows_ragged
 from finchat_tpu_torch.ops.ragged_paged_attention import plan_ragged
@@ -725,6 +730,22 @@ class InferenceEngine:
         # step variants the last warmup() ran (0 = not warmed); the
         # scheduler sets the finchat_warmup_compiled_variants gauge from it
         self.compiled_variants = 0
+        # quantized expert leaves on the card: the expert products run on
+        # inline-dequantized weights (models/llama.moe_mlp), not on a kernel.
+        # Booked on finchat_quantmatmul_fallbacks_total, three (gate, up,
+        # down) once per step kind, the first time the engine dispatches the
+        # kind (warmup runs the steps directly and books none); the JAX
+        # package counts them once per trace of a compiled step
+        self._expert_fallback = (device.type == "cuda" and config.n_experts > 0 and isinstance(
+            params["layers"]["moe_gate"], (QTensor, Q4Tensor)))
+        self._fallback_kinds: set[str] = set()
+
+    def _count_fallback(self, kind: str) -> None:
+        """Book the expert products of step kind ``kind`` on
+        ``finchat_quantmatmul_fallbacks_total`` the first time it runs."""
+        if self._expert_fallback and kind not in self._fallback_kinds:
+            self._fallback_kinds.add(kind)
+            METRICS.inc("finchat_quantmatmul_fallbacks_total", 3.0)
 
     @property
     def quant_label(self) -> str:
@@ -946,6 +967,7 @@ class InferenceEngine:
     def prefill_chunk(self, tokens, slots, start_pos, n_valid) -> torch.Tensor:
         """One batched prefill chunk from host arrays; returns the
         last-valid-token logits [N, vocab] (device)."""
+        self._count_fallback("prefill")
         d = self.to_device
         self.state, logits = prefill_step(
             self.params, self.state, d(tokens, I32), d(slots, I32), d(start_pos, I32),
@@ -996,6 +1018,7 @@ class InferenceEngine:
         """One decode step from host arrays; returns next tokens (device),
         with the step logits too when ``return_logits``."""
         METRICS.inc("finchat_decode_dispatches_total")
+        self._count_fallback("decode")
         self.state, next_tokens, logits = decode_step(
             self.params, self.state, self.to_device(active, torch.bool),
             self.to_device(temperature, torch.float32), self.to_device(top_p, torch.float32),
@@ -1028,6 +1051,7 @@ class InferenceEngine:
         loop_block)`` device tensors. The spec and fused-tail arguments
         default to none: no drafts, no loop slot."""
         METRICS.inc("finchat_mixed_dispatches_total")
+        self._count_fallback("ragged")
         d = self.to_device
         R = len(row_slot)
         B = self.engine_cfg.max_seqs
@@ -1059,6 +1083,7 @@ class InferenceEngine:
         device tensors. Counted once at the dispatch seam, which is why
         dispatches a round drop below 1."""
         METRICS.inc("finchat_mixed_dispatches_total")
+        self._count_fallback("ragged_multi")
         d = self.to_device
         self.state, ring_tokens, ring_n, ring_blocks = ragged_multi_round(
             self.params, self.state, d(tokens, I32), d(tok_row, I32), d(row_slot, I32),
@@ -1082,6 +1107,7 @@ class InferenceEngine:
         K = depth if depth is not None else self.decode_loop_depth
         assert K >= 1
         METRICS.inc("finchat_decode_dispatches_total")
+        self._count_fallback("decode_loop")
         d = self.to_device
         args = (d(active, torch.bool), d(temperature, torch.float32),
                 d(top_p, torch.float32), d(top_k, I32))
@@ -1100,6 +1126,7 @@ class InferenceEngine:
         when ``return_logits``. Counted at the dispatch seam like
         ``decode``."""
         METRICS.inc("finchat_decode_dispatches_total")
+        self._count_fallback("verify")
         d = self.to_device
         self.state, emitted, n_emitted, logits = verify_step(
             self.params, self.state, d(active, torch.bool), d(drafts, I32), d(n_drafts, I32),

@@ -452,6 +452,19 @@ class ContinuousBatchingScheduler:
                                {"int8": 8, "int4": 4}.get(engine.quant, elem_bits))
         self.metrics.set_gauge("finchat_quant_kv_bits", 8 if engine.kv_quant else elem_bits)
         self.metrics.inc("finchat_quant_dequant_fallbacks_total", 0.0)
+        self.metrics.inc("finchat_quant_envelope_exceeded_total", 0.0)
+        # the fused dequant-matmul plane: where the quantized matmuls run as
+        # a gauge, and pre-seeded dispatch / fallback counters, so fused
+        # engagement (or an inline-dequantized stacked expert leaf) shows
+        # from zero per replica. The gauge keeps the JAX package's codes: 0
+        # = the plain ``quant_matmul_ref`` (a CPU engine, or no quantized
+        # weights), 2 = the Hopper kernels (a quantized engine on the card);
+        # 1 (the JAX package's interpret mode) is never set, the port has
+        # no interpret mode
+        self._qm_fused = bool(engine.quant) and engine.device.type == "cuda"
+        self.metrics.set_gauge("finchat_quantmatmul_backend", 2 if self._qm_fused else 0)
+        self.metrics.inc("finchat_quantmatmul_fused_dispatches_total", 0.0)
+        self.metrics.inc("finchat_quantmatmul_fallbacks_total", 0.0)
         # shared-prefix KV cache: registered heads and registrations in flight
         self._prefixes: list[_PrefixEntry] = []
         self._n_prefixes_ever = 0  # unique allocator owner ids
@@ -1993,7 +2006,13 @@ class ContinuousBatchingScheduler:
         return self.session_cache.spill_all()
 
     def _tally_dispatch(self) -> None:
+        """Count one model dispatch (the coexist attribution); an engine
+        whose quantized matmuls go to the kernels also books it on
+        ``finchat_quantmatmul_fused_dispatches_total``: every model dispatch
+        of that engine reads packed weights."""
         self._dispatch_tally += 1
+        if self._qm_fused:
+            self.metrics.inc("finchat_quantmatmul_fused_dispatches_total")
 
     def _trace_dispatch(self, kind: str, rows: list, *, ts: float | None = None,
                         dur: float | None = None) -> None:

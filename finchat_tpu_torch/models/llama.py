@@ -1,13 +1,17 @@
-"""Llama-family decoder in PyTorch (dense MLP), the JAX package's layout.
+"""Llama-family decoder in PyTorch (dense MLP or Mixtral-style MoE), the
+JAX package's layout.
 
 - Params are a plain dict with all layers STACKED on a leading axis:
   ``embed [vocab, dim]``, ``layers/attn_{q,k,v} [L, dim, heads*hd]``,
   ``layers/attn_o [L, heads*hd, dim]``, ``layers/mlp_{gate,up} [L, dim,
   hidden]``, ``layers/mlp_down [L, hidden, dim]``, ``layers/ln_{attn,mlp}
   [L, dim]``, ``norm [dim]``, ``lm_head [dim, vocab]`` — so a JAX tree
-  converts leaf by leaf (models/convert.py). ``forward`` loops over layers
-  in Python, indexing each stacked leaf; ``remat`` checkpoints each layer
-  for training (train/train_step.py).
+  converts leaf by leaf (models/convert.py). With ``n_experts`` E > 0 the
+  ``mlp_*`` leaves give way to ``layers/router [L, dim, E]`` (fp32),
+  ``layers/moe_{gate,up} [L, E, dim, hidden]`` and ``layers/moe_down [L, E,
+  hidden, dim]`` (``moe_mlp``). ``forward`` loops over layers in Python,
+  indexing each stacked leaf; ``remat`` checkpoints each layer for training
+  (train/train_step.py).
 - Dtype policy of the reference: bf16 weights and activations; RMSNorm and
   RoPE math in fp32 (the normalized activations cast to the model dtype
   BEFORE the weight multiply); SiLU in fp32 then cast; fp32 logits.
@@ -17,6 +21,9 @@
 - Every matmul goes through ``models/quant.dense``: a plain weight is
   ``x @ w``, an int8/int4 leaf (``QTensor``/``Q4Tensor``, quantized serving)
   the fused dequant matmul; a quantized ``lm_head`` produces fp32 logits.
+  The stacked expert einsums are the exception: no kernel tiles their
+  leading E axis, so a quantized expert leaf is dequantized inline, one
+  layer's ``[E, K, N]`` slice at a time, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from typing import Any, Callable
 import torch
 import torch.utils.checkpoint
 
-from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dense
+from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dense, dequantize, write_slice
+from finchat_tpu_torch.utils.precision import ieee_fp32
 
 # attention callback signature:
 #   fn(q[B,S,H,D], k[B,S,Hkv,D], v[B,S,Hkv,D], cache, layer_idx) ->
@@ -49,7 +57,9 @@ class LlamaConfig:
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False
-    n_experts: int = 0  # MoE is not ported yet: must be 0
+    # MoE (Mixtral family): 0 = dense MLP; > 0 = that many SwiGLU experts a
+    # layer, each token routed to ``top_k_experts`` of them (``moe_mlp``)
+    n_experts: int = 0
     top_k_experts: int = 2
 
     @property
@@ -75,6 +85,16 @@ PRESETS: dict[str, LlamaConfig] = {
         vocab_size=128_256, dim=8192, n_layers=80, n_heads=64, n_kv_heads=8,
         hidden_dim=28_672, rope_theta=500_000.0, max_seq_len=8192,
     ),
+    # random-weight MoE debug config (Mixtral-shaped routing, tiny widths)
+    "moe-tiny": LlamaConfig(
+        vocab_size=260, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+        hidden_dim=256, n_experts=4, top_k_experts=2,
+    ),
+    "mixtral-8x7b": LlamaConfig(
+        vocab_size=32_000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        hidden_dim=14_336, rope_theta=1_000_000.0, max_seq_len=8192,
+        n_experts=8, top_k_experts=2,
+    ),
 }
 
 
@@ -93,9 +113,12 @@ def n_params(config: LlamaConfig) -> int:
     return total
 
 
-def _check_dense(config: LlamaConfig) -> None:
-    if config.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet (n_experts must be 0)")
+def check_experts(config: LlamaConfig) -> None:
+    """An MoE config must route each token to between 1 and ``n_experts``
+    experts (``torch.topk`` would otherwise fail mid-step)."""
+    if config.n_experts and not 0 < config.top_k_experts <= config.n_experts:
+        raise ValueError(f"top_k_experts={config.top_k_experts} must be in 1..n_experts="
+                         f"{config.n_experts}")
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
@@ -105,33 +128,52 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     """Random weights made directly in the model dtype on ``device`` (no fp32
     intermediate: the 8B tree is 16 GB in bf16), each matmul weight scaled
     by ``fan_in ** -0.5`` as the JAX package's ``init_params`` does; norms
-    are ones. ``generator`` must live on ``device``. The values differ from
-    the JAX package's (another generator); tests convert a JAX tree with
-    ``models/convert.py`` instead. ``leaf_transform(name, leaf)`` is applied
-    to each random leaf as soon as it is made, before the next one exists
-    (``models/quant.init_quantized_params`` quantizes there)."""
-    _check_dense(config)
+    are ones, the MoE router fp32. ``generator`` must live on ``device``.
+    The values differ from the JAX package's (another generator); tests
+    convert a JAX tree with ``models/convert.py`` instead.
+    ``leaf_transform(name, leaf)`` is applied to each random leaf as soon as
+    it is made, before the next one exists
+    (``models/quant.init_quantized_params`` quantizes there). An expert
+    leaf is drawn, transformed and stored one layer's ``[E, ...]`` slice at
+    a time: a whole bf16 expert leaf of mixtral-8x7b is 28 GiB."""
+    check_experts(config)
     c = config
     L, D, H, Hkv, hd, F = c.n_layers, c.dim, c.n_heads, c.n_kv_heads, c.head_dim, c.hidden_dim
+    E = c.n_experts
 
     def rand(name: str, shape: tuple[int, ...], fan_in: int) -> Any:
         w = torch.randn(shape, generator=generator, device=device, dtype=c.dtype)
         w.mul_(fan_in ** -0.5)
         return leaf_transform(name, w) if leaf_transform is not None else w
 
+    def rand_layers(name: str, shape: tuple[int, ...], fan_in: int) -> Any:
+        leaf = None
+        for i in range(L):
+            leaf = write_slice(leaf, i, (L,), rand(name, shape, fan_in))
+        return leaf
+
+    embed = rand("embed", (c.vocab_size, D), D)
+    layers: dict[str, Any] = {
+        "attn_q": rand("attn_q", (L, D, H * hd), D),
+        "attn_k": rand("attn_k", (L, D, Hkv * hd), D),
+        "attn_v": rand("attn_v", (L, D, Hkv * hd), D),
+        "attn_o": rand("attn_o", (L, H * hd, D), H * hd),
+        "ln_attn": torch.ones((L, D), dtype=c.dtype, device=device),
+        "ln_mlp": torch.ones((L, D), dtype=c.dtype, device=device),
+    }
+    if E:
+        router = torch.randn((L, D, E), generator=generator, device=device, dtype=torch.float32)
+        layers["router"] = router.mul_(D ** -0.5)
+        layers["moe_gate"] = rand_layers("moe_gate", (E, D, F), D)
+        layers["moe_up"] = rand_layers("moe_up", (E, D, F), D)
+        layers["moe_down"] = rand_layers("moe_down", (E, F, D), F)
+    else:
+        layers["mlp_gate"] = rand("mlp_gate", (L, D, F), D)
+        layers["mlp_up"] = rand("mlp_up", (L, D, F), D)
+        layers["mlp_down"] = rand("mlp_down", (L, F, D), F)
     params: dict[str, Any] = {
-        "embed": rand("embed", (c.vocab_size, D), D),
-        "layers": {
-            "attn_q": rand("attn_q", (L, D, H * hd), D),
-            "attn_k": rand("attn_k", (L, D, Hkv * hd), D),
-            "attn_v": rand("attn_v", (L, D, Hkv * hd), D),
-            "attn_o": rand("attn_o", (L, H * hd, D), H * hd),
-            "ln_attn": torch.ones((L, D), dtype=c.dtype, device=device),
-            "ln_mlp": torch.ones((L, D), dtype=c.dtype, device=device),
-            "mlp_gate": rand("mlp_gate", (L, D, F), D),
-            "mlp_up": rand("mlp_up", (L, D, F), D),
-            "mlp_down": rand("mlp_down", (L, F, D), F),
-        },
+        "embed": embed,
+        "layers": layers,
         "norm": torch.ones((D,), dtype=c.dtype, device=device),
     }
     if not c.tie_embeddings:
@@ -162,6 +204,83 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return rotated.to(x.dtype)
 
 
+# tokens a block of the expert einsums (moe_mlp): a block's [T, E, F]
+# activations at mixtral-8x7b's widths are ~1 GB in bf16 and ~2 GB at the
+# fp32 SiLU
+MOE_BLOCK_TOKENS = 4096
+
+
+def moe_gates(h: torch.Tensor, router: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+    """Each token's expert weights ``[B, S, E]`` in ``h.dtype``, zero for
+    an expert it was not routed to:
+
+    - the router product in fp32 (``h`` upcast, the ``router`` leaf fp32)
+      with TF32 off in its own scope (``utils/precision.ieee_fp32``): a
+      flipped near tie changes the expert, and with it the token;
+    - exactly ``top_k_experts`` experts a token, the lower index first among
+      equal logits (``jax.lax.top_k``'s order, by a stable descending sort:
+      ``torch.topk`` promises no order);
+    - a softmax over the k selected logits (Mixtral's renormalization),
+      scattered back to their E positions."""
+    with ieee_fp32():
+        r = torch.matmul(h.float(), router)  # [B, S, E]
+    top_vals, top_idx = torch.sort(r, dim=-1, descending=True, stable=True)
+    k = config.top_k_experts
+    w = torch.softmax(top_vals[..., :k], dim=-1)
+    return torch.zeros_like(r).scatter_(-1, top_idx[..., :k], w).to(h.dtype)
+
+
+def moe_mlp(h: torch.Tensor, lp: dict[str, Any], config: LlamaConfig) -> torch.Tensor:
+    """Mixtral-style top-k routed SwiGLU experts, the JAX package's
+    ``moe_mlp``: dense dispatch, every expert over every token with the gate
+    of an expert the token was not routed to at zero (no capacity, no
+    dropped token), in the reference's order of types:
+
+    - the gates of ``moe_gates`` (the router in fp32, exactly k experts a
+      token, the softmax over the k selected logits), cast to ``h.dtype``;
+    - ``silu(gate)`` in fp32 cast to ``up.dtype``, times ``up``, times the
+      gates, before the down projection; the sum over experts inside the
+      down product.
+
+    The expert products are plain batched matmuls (the JAX package's
+    einsums, computed outside any Pallas kernel): gate and up one ``[T, D]
+    @ [D, F]`` product an expert (``[E, T, F]``, the weights read in place:
+    an einsum would copy each ``[E, D, F]`` weight to put D first), down one
+    ``[T, E * F] @ [E * F, D]`` product (the sum over experts inside it, as
+    the reference's einsum contracts ``e`` and ``f`` together). They run over
+    ``MOE_BLOCK_TOKENS`` tokens at a time (each token's output is its own:
+    the blocks change no value's arithmetic, only how many activations are
+    live). A quantized expert leaf (``QTensor`` / ``Q4Tensor``) is
+    dequantized inline, this layer's ``[E, K, N]`` slice only, as the
+    reference does. On the card the engine books those products on
+    ``finchat_quantmatmul_fallbacks_total``: three (gate, up, down) once per
+    engine and step kind, the first time it dispatches the kind
+    (``InferenceEngine``); the JAX package counts them once per trace of a
+    compiled step."""
+    gates = moe_gates(h, lp["router"], config)
+    w_gate, w_up, w_down = (dequantize(w, h.dtype) if isinstance(w, (QTensor, Q4Tensor)) else w
+                            for w in (lp["moe_gate"], lp["moe_up"], lp["moe_down"]))
+    E, F, D = w_down.shape
+
+    def experts(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:  # [T, D], [T, E]
+        gate = torch.matmul(x, w_gate)  # [E, T, F]
+        up = torch.matmul(x, w_up)
+        act = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
+        act = act * g.t()[..., None]  # the experts a token was not routed to: zero
+        return act.transpose(0, 1).reshape(x.shape[0], E * F) @ w_down.reshape(E * F, D)
+
+    lead = h.shape[:-1]
+    x, g = h.reshape(-1, D), gates.reshape(-1, E)
+    R = MOE_BLOCK_TOKENS
+    if x.shape[0] <= R:
+        return experts(x, g).reshape(*lead, D)
+    # a block of tokens at a time: every token's [E, F] activations (in fp32
+    # at the SiLU) would otherwise be live at once, ~40 GB for a 32k-token
+    # round of mixtral-8x7b
+    out = torch.cat([experts(x[i:i + R], g[i:i + R]) for i in range(0, x.shape[0], R)])
+    return out.reshape(*lead, D)
+
+
 def _layer(
     x: torch.Tensor,
     lp: dict[str, torch.Tensor],
@@ -186,6 +305,8 @@ def _layer(
     x = x + dense(attn_out.reshape(B, S, -1), lp["attn_o"])
 
     h = rms_norm(x, lp["ln_mlp"], c.norm_eps)
+    if c.n_experts:
+        return x + moe_mlp(h, lp, c), cache
     gate = dense(h, lp["mlp_gate"])
     up = dense(h, lp["mlp_up"])
     act = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
@@ -211,7 +332,6 @@ def forward(
     counterpart of the JAX package's ``jax.checkpoint`` on its scan body):
     live activations stay one layer's instead of every layer's. A stacked
     leaf may also be a list of per-layer tensors (the train step's views)."""
-    _check_dense(config)
     c = config
     x = params["embed"][tokens.long()]
     layers = params["layers"]

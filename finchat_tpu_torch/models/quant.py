@@ -9,8 +9,9 @@
   per-column fp32 ``scale [..., G, N]`` (``G = K / group_size``; G = 1 is
   per-channel).
 - Both index like the stacked leaves they replace: ``leaf[i]`` is layer
-  ``i``'s ``[K, N]`` weight, which is how ``models/llama.forward`` slices a
-  layer.
+  ``i``'s ``[K, N]`` weight (an MoE expert leaf ``[L, E, K, N]``: layer
+  ``i``'s ``[E, K, N]`` experts with scales ``[E, N]``, or ``[E, G, N]``
+  for int4), which is how ``models/llama.forward`` slices a layer.
 - Quantization is symmetric: ``scale = amax / 127`` (int8) or ``amax / 7``
   (int4), 1/127 or 1/7 for an all-zero column, ``q = clip(round(w /
   scale))`` — a true division and round-half-even, bit for bit the JAX
@@ -30,9 +31,10 @@ from typing import Any
 import torch
 
 # layer-stack leaves that are matmul weights [., K, N] (contract over -2);
-# norms stay full precision. (The MoE leaves of the JAX set are not ported.)
+# norms and the (precision-sensitive, small) MoE router stay full precision
 QUANT_LAYER_LEAVES = frozenset({
     "attn_q", "attn_k", "attn_v", "attn_o", "mlp_gate", "mlp_up", "mlp_down",
+    "moe_gate", "moe_up", "moe_down",
 })
 
 
@@ -126,7 +128,10 @@ def _unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 
 def dequantize(qt: QTensor | Q4Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Materialize the represented weight: ``float(q) * scale`` in fp32,
-    then cast to ``dtype`` (the JAX package's cast point)."""
+    then cast to ``dtype`` (the JAX package's cast point). The int8 product
+    is one elementwise op written straight into ``dtype`` (it computes in
+    fp32, the promoted type, and rounds once on the store): on the card no
+    fp32 copy of the weight is written and read back."""
     if isinstance(qt, Q4Tensor):
         K, N = qt.shape[-2:]
         G = qt.scale.shape[-2]
@@ -134,31 +139,46 @@ def dequantize(qt: QTensor | Q4Tensor, dtype: torch.dtype = torch.bfloat16) -> t
         w = _unpack_int4(qt.q).float()
         wg = w.reshape(*lead, G, K // G, N) * qt.scale[..., None, :]
         return wg.reshape(*lead, K, N).to(dtype)
-    return (qt.q.float() * qt.scale[..., None, :]).to(dtype)
+    out = torch.empty(qt.q.shape, dtype=dtype, device=qt.q.device)
+    return torch.mul(qt.q, qt.scale[..., None, :], out=out)
+
+
+def write_slice(leaf: Any, index: int | tuple[int, ...], lead: tuple[int, ...],
+                part: Any) -> Any:
+    """Store ``part`` (a tensor, ``QTensor`` or ``Q4Tensor``) at ``index``
+    of the stacked ``leaf`` of leading shape ``lead``, which the first call
+    (``leaf`` None) allocates like ``part``; returns the leaf. How a stacked
+    leaf is built one layer slice (or one expert of one layer) at a time."""
+    quantized = isinstance(part, (QTensor, Q4Tensor))
+    if leaf is None:
+        def empty(t: torch.Tensor) -> torch.Tensor:
+            return t.new_empty(tuple(lead) + tuple(t.shape))
+
+        leaf = type(part)(q=empty(part.q), scale=empty(part.scale)) if quantized else empty(part)
+    if quantized:
+        leaf.q[index] = part.q
+        leaf.scale[index] = part.scale
+    else:
+        leaf[index] = part
+    return leaf
 
 
 def quantize_stacked(w: torch.Tensor, mode: str = "int8",
                      group_size: int = 0) -> QTensor | Q4Tensor:
     """``quantize`` (or ``quantize_int4``) of a layer-stacked leaf
-    ``[L, K, N]`` one layer slice at a time, so the fp32 transient stays at
-    1/L of the leaf; bit for bit the whole-leaf result (the amax runs over
-    the contraction axis only). 2-D weights quantize whole."""
+    ``[L, ..., K, N]`` one leading slice at a time, so the fp32 transient
+    stays at 1/L of the leaf (an expert leaf ``[L, E, K, N]`` goes one
+    ``[E, K, N]`` slice at a time, scales ``[L, E, N]``); bit for bit the
+    whole-leaf result (the amax runs over the contraction axis only). 2-D
+    weights quantize whole."""
     qfn = (lambda x: quantize_int4(x, group_size)) if mode == "int4" else quantize
-    cls = Q4Tensor if mode == "int4" else QTensor
     if w.dim() < 3:
         return qfn(w)
     L = w.shape[0]
-    q = scale = None
+    leaf = None
     for i in range(L):
-        part = qfn(w[i])
-        if q is None:
-            q = torch.empty((L,) + tuple(part.q.shape), dtype=part.q.dtype, device=w.device)
-            scale = torch.empty((L,) + tuple(part.scale.shape), dtype=part.scale.dtype,
-                                device=w.device)
-        q[i] = part.q
-        scale[i] = part.scale
-        del part
-    return cls(q=q, scale=scale)
+        leaf = write_slice(leaf, i, (L,), qfn(w[i]))
+    return leaf
 
 
 def dense(x: torch.Tensor, w: torch.Tensor | QTensor | Q4Tensor) -> torch.Tensor:
@@ -210,8 +230,10 @@ def init_quantized_params(config: Any, generator: torch.Generator, device: torch
     made in the model dtype exactly as ``init_params`` makes it (same
     generator calls, same order) and quantized slice by slice before the
     next leaf exists, so the full bf16 tree (16 GB for llama3-8b) never
-    does. Equal to ``quantize_llama_params(init_params(...))`` on the same
-    generator state."""
+    does; an expert leaf is made and quantized one layer's ``[E, K, N]``
+    slice at a time (a whole bf16 one of mixtral-8x7b is 28 GiB). Equal to
+    ``quantize_llama_params(init_params(...))`` on the same generator
+    state."""
     from finchat_tpu_torch.models.llama import init_params
 
     validate_quant_mode(mode or "int8")

@@ -21,7 +21,8 @@ stacked leaf in the forward would make each layer's backward materialise a
 zero tensor of the whole stacked shape.
 
 Not ported yet, and refused: a mesh (data / tensor parallelism), ring or
-Ulysses sequence parallelism, and MoE configs.
+Ulysses sequence parallelism, and MoE configs (MoE serves, but the JAX
+package's MoE training runs over an expert-parallel mesh).
 """
 
 from __future__ import annotations
@@ -182,7 +183,8 @@ def make_train_step(
     is the one ``init_train_state`` bound to the state (kept in the JAX
     signature). Planes not ported yet raise ``NotImplementedError``."""
     if config.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet (n_experts must be 0)")
+        raise NotImplementedError("MoE training is not ported yet: the JAX package trains MoE "
+                                  "over an expert x data x tensor mesh (n_experts must be 0)")
     if mesh is not None:
         raise NotImplementedError("training over a mesh (data / tensor parallelism) is not "
                                   "ported yet: the train step runs on one card")

@@ -51,7 +51,12 @@ train step through it), and K7's Hopper backward (``-k "flash and bwd"``:
 Hopper forward's out and lse over the same calls; dq, dk and dv over
 outputs filled with NaN, at the card's SM count and at one SM, two launches
 bit-identical, the refusals; the older backward is held by name in the
-contiguous cases above).
+contiguous cases above), and the Mixtral expert plane (``-k mixtral``: a
+2-layer full-width ``mixtral-8x7b`` checkpoint written and read back with
+``quant="int8"`` at load, bit-equal to the quantized source tree, its peak
+device memory under the int8 tree plus one layer's bf16 expert slice plus
+10 %; the experts' one-op dequantization bit-equal to the two-step one, and
+the MoE layer on the card against the same layer in fp32 on the CPU).
 
 Tolerance for attention, per output row (one token of one head):
 ``max|got - want| <= min(2e-2, 2^-6 * max|want|)`` over the row. Both sides
@@ -1958,3 +1963,97 @@ def test_checkpoint_loads_bit_equal_on_the_card(dev, tmp_path):
             assert chip_smoke.bit_equal(torch, leaf_q, src), name
     assert isinstance(q["lm_head"], QTensor) and chip_smoke.bit_equal(torch, q["embed"],
                                                                        source["embed"])
+
+
+# --- Mixtral: the expert plane on the card -------------------------------------------
+
+
+def test_mixtral_checkpoint_int8_load_on_the_card(dev, tmp_path):
+    """``mixtral-8x7b`` at full width and 2 layers, seeded random bf16 weights
+    on the card (~6.3 GB), written as an HF Mixtral checkpoint of two shards
+    by ``chip_smoke``'s writer and read back with ``quant="int8"`` at load:
+    every quantized leaf is ``quantize_stacked`` of its source leaf bit for
+    bit, every other leaf (the fp32 router among them) the source's, and the
+    load's peak device memory stays under the int8 tree plus one layer's
+    bf16 expert slice (``[E, D, F]``: the loader builds one at a time), plus
+    10 % (the quantizer's fp32 copy of one expert)."""
+    import dataclasses
+
+    import chip_smoke
+    from finchat_tpu_torch.checkpoints.hf_loader import load_llama_params
+    from finchat_tpu_torch.models.llama import PRESETS, init_params
+    from finchat_tpu_torch.models.quant import QTensor, quantize_stacked
+
+    config = dataclasses.replace(PRESETS["mixtral-8x7b"], n_layers=2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    source = init_params(config, g, dev)
+    chip_smoke.write_hf_llama(torch, source, config, tmp_path / "ckpt", n_shards=2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    q = load_llama_params(tmp_path / "ckpt", config, device=dev, quant="int8")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    tree = sum(t.numel() * t.element_size() for _n, t in chip_smoke.tree_leaves(q))
+    expert_slice = config.n_experts * config.dim * config.hidden_dim * 2
+    print(f"mixtral 2-layer int8 load: peak {peak / 1e9:.3f} GB above the source tree, int8 tree "
+          f"{tree / 1e9:.3f} GB, one layer's bf16 expert slice {expert_slice / 1e9:.3f} GB")
+    assert peak <= 1.10 * (tree + expert_slice), (peak, tree, expert_slice)
+    assert set(q["layers"]) == set(source["layers"])
+    for name, leaf_q in [*q["layers"].items(), ("lm_head", q["lm_head"])]:
+        src = source["layers"][name] if name in source["layers"] else source[name]
+        if isinstance(leaf_q, QTensor):
+            ref = quantize_stacked(src, mode="int8")
+            assert chip_smoke.bit_equal(torch, leaf_q.q, ref.q), name
+            assert chip_smoke.bit_equal(torch, leaf_q.scale, ref.scale), name
+            del ref
+        else:
+            assert chip_smoke.bit_equal(torch, leaf_q, src), name
+    assert isinstance(q["layers"]["moe_down"], QTensor) and q["layers"]["router"].dtype == \
+        torch.float32
+    assert chip_smoke.bit_equal(torch, q["embed"], source["embed"])
+
+
+def test_mixtral_expert_dequant_and_layer_on_the_card(dev):
+    """One layer's int8 experts at ``mixtral-8x7b``'s width: ``dequantize``
+    (one elementwise op into bf16) bit-equal to ``bf16(float(q) * scale)``
+    on the card, and ``moe_mlp`` on the card over 16 tokens, with TF32 on
+    for the process, within 2e-2 (relative L2) of the same layer in fp32 on
+    the CPU from the same bf16 inputs and the same routes."""
+    import dataclasses
+
+    from finchat_tpu_torch.models.llama import PRESETS, moe_gates, moe_mlp
+
+    config = PRESETS["mixtral-8x7b"]
+    E, D, F = config.n_experts, config.dim, config.hidden_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    lp = {"router": torch.randn((D, E), generator=g, device=dev) * D ** -0.5}
+    for name, shape in (("moe_gate", (E, D, F)), ("moe_up", (E, D, F)), ("moe_down", (E, F, D))):
+        w = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16) * shape[1] ** -0.5
+        lp[name] = quantize(w)
+        del w
+    qt = lp["moe_gate"]
+    two_step = (qt.q.float() * qt.scale[..., None, :]).to(torch.bfloat16)
+    assert torch.equal(dequantize(qt, torch.bfloat16), two_step)
+    del two_step
+    h = torch.randn((1, 16, D), generator=g, device=dev).to(torch.bfloat16)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = moe_mlp(h, lp, config).float().cpu()
+        gates = moe_gates(h, lp["router"], config).cpu()
+        assert torch.backends.cuda.matmul.allow_tf32  # restored by the router's scope
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = {"router": lp["router"].cpu()}
+    for name in ("moe_gate", "moe_up", "moe_down"):
+        cpu[name] = dequantize(lp[name], torch.bfloat16).cpu().float()
+    cfg32 = dataclasses.replace(config, dtype=torch.float32)
+    want_gates = moe_gates(h.cpu().float(), cpu["router"], cfg32)
+    assert torch.equal(gates > 0, want_gates > 0)
+    want = moe_mlp(h.cpu().float(), cpu, cfg32)
+    rel = float((got - want).norm() / want.norm())
+    assert rel < 2e-2, rel

@@ -12,7 +12,8 @@ On it:
 - greedy decode through the port's ``InferenceEngine`` (chunked prefill,
   paged decode) gives torch's greedy ids exactly;
 - the tied checkpoint, two shards equal to one, the config-mismatch
-  message, the MoE refusals;
+  message, the MoE refusals (the Mixtral branch itself:
+  tests/test_torch_mixtral_loader.py);
 - the streamed int8 / int4 loads (per column, and per group of 32: K is 64
   or 96 here, so 128 divides none) are bit-equal both to the port's
   load-then-quantize and to the JAX streamed load;
@@ -285,9 +286,17 @@ def test_numpy_reader_needs_ml_dtypes_for_bf16(bf16_checkpoint):
 
 
 def test_moe_refusals(checkpoint, tmp_path):
+    """An MoE config over a dense checkpoint, and a dense config over a
+    checkpoint whose ``config.json`` names experts: the JAX loader's
+    messages, word for word."""
     path, _m, _t = checkpoint
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError) as got:
         load_llama_params(path, _tcfg(n_experts=8), device="cpu")
+    with pytest.raises(ValueError) as want:
+        jax_load(str(path), dataclasses.replace(_jcfg(), n_experts=8))
+    assert str(got.value) == str(want.value) == (
+        "config expects an MoE checkpoint (n_experts=8) but config.json has no "
+        "num_local_experts")
     shutil.copy(path / "model.safetensors", tmp_path / "model.safetensors")
     (tmp_path / "config.json").write_text(json.dumps({**HF_CFG, "num_local_experts": 8}))
     with pytest.raises(ValueError) as got:

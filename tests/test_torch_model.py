@@ -127,9 +127,17 @@ def test_init_params_layout_matches_jax():
 
 
 def test_moe_config_raises():
-    cfg = tllama.LlamaConfig(n_experts=4)
-    with pytest.raises(NotImplementedError):
-        tllama.init_params(cfg, torch.Generator(), "cpu")
+    """An MoE config that routes to more experts than it has (or to none)
+    is refused at init; a valid one builds the expert leaves and no dense
+    MLP (tests/test_torch_moe.py holds the layer against the JAX one)."""
+    for top_k in (0, 5):
+        cfg = tllama.LlamaConfig(n_experts=4, top_k_experts=top_k)
+        with pytest.raises(ValueError, match="top_k_experts"):
+            tllama.init_params(cfg, torch.Generator(), "cpu")
+    params = tllama.init_params(tllama.LlamaConfig(n_experts=4), torch.Generator(), "cpu")
+    assert params["layers"]["moe_gate"].shape == (2, 4, 128, 256)
+    assert params["layers"]["router"].dtype == torch.float32
+    assert not {"mlp_gate", "mlp_up", "mlp_down"} & set(params["layers"])
 
 
 def test_bf16_norm_and_silu_cast_order_match_jax():

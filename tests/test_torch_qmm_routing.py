@@ -105,6 +105,16 @@ def test_fp32_head_stays_on_v2(mode, group, M):
     assert kernel_for(mode, M, K, N, _group(K, group), out_f32=True) == want
 
 
+@pytest.mark.parametrize("M", (1, 4, 8, 64))
+def test_mixtral_head_goes_to_the_decode_body(M):
+    """``mixtral-8x7b``'s int8 head (vocab 32,000, fp32 logits) at the
+    calls its serve makes (a decode batch, a prefill chunk's or a ragged
+    round's last rows: at most 64): the decode body, never v2."""
+    c = PRESETS["mixtral-8x7b"]
+    assert kernel_for("int8", M, c.dim, c.vocab_size, c.dim, out_f32=True) == \
+        "quant_matmul_int8_decode_sm90"
+
+
 # (M, K, N, group rows, aligned, kernel for bf16 output): the edges of the
 # rule — "decode" (at most 64 rows), "sm90" (more), "" for v2; with fp32
 # output the decode body keeps its calls, and v2 takes the Hopper kernel's

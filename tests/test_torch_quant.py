@@ -183,7 +183,8 @@ def test_init_quantized_params_equals_quantized_init(mode, group):
     got = tquant.init_quantized_params(cfg, g1, "cpu", mode=mode, group_size=group)
     want = tquant.quantize_llama_params(tllama.init_params(cfg, g2, "cpu"), mode=mode,
                                         group_size=group)
-    for name in tquant.QUANT_LAYER_LEAVES:
+    # the dense tree's matmul leaves (the set also names MoE's expert leaves)
+    for name in tquant.QUANT_LAYER_LEAVES & set(want["layers"]):
         assert torch.equal(got["layers"][name].q, want["layers"][name].q)
         assert torch.equal(got["layers"][name].scale, want["layers"][name].scale)
     assert torch.equal(got["embed"], want["embed"])
