@@ -399,6 +399,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tree, the pool, TTFT, the decode rate and a decode step's profile
    (device time by class, PyTorch's elementwise kernels a class of their
    own).
+5h. Tensor parallelism (``tp_phase``): ``llama3-8b`` at ``PLANE_DEPTH``
+   layers, full width, seed 0, greedy, ``TP_NEW`` (32) new tokens over the
+   registered head. (a) A one-rank NCCL mesh against no mesh, 8 requests
+   at depth 1 and at loop 4 (the loop's CUDA graph captures the NCCL
+   all-reduces): the streams bit-equal and every kernel's launches equal.
+   (b) Two gloo ranks on the one card (rank 1 a spawned process following
+   rank 0's engine calls), bf16 then int8+kv8, ``TP_REQUESTS`` (4)
+   requests at depth 1 (gloo is not captured): every stream teacher-forced,
+   the plane's kernels launched and the two ranks' launches equal; a
+   conversation's KV offloaded at TP=2 into one record, restored into a
+   one-device engine whose next turn is teacher-forced. (c) The route of
+   every rank shape and the weight bytes a rank against one device. (d) K8
+   at a rank's shapes (M=64 and 2,048, the head at M=64) and the decode
+   body at 4 KV heads against their plain versions, timed (rows ``tp_*``,
+   their launches rank 0's in (b)). No number of the phase is a TP speed.
 6. Train: first ``llama3-8b`` widths at 2 layers, B=1, S=2048 — the loss,
    every leaf's gradient and the one-shot forward's logits through K7
    against the same step with the plain attention (relative per leaf and on
@@ -419,7 +434,8 @@ The line before the last is the ``kernels`` JSON (each row's
 ``launches`` from its plane's serve or run, ``checkpoint_launches`` from
 the checkpoint phase's serve, ``fleet_launches``, ``fabric_launches`` and
 ``pod_launches`` from the fleet, fabric and pod phases, ``moe_launches``
-from the Mixtral serve); the last line is
+from the Mixtral serve, ``tp_one_rank_launches``, ``tp_rank0_launches``
+and ``tp_rank1_launches`` from the tp phase's ranks); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or when the port package is not beside this file.
 """
@@ -932,7 +948,8 @@ def _kv_write_cases(torch, gen, dev, n_pages: int):
     yield "round_serve", plan, k, v, True
 
 
-def check_kv_write(torch, dev, results: list, q8: bool) -> None:
+def check_kv_write(torch, dev, results: list, q8: bool, launch_plane: str | None = None,
+                   prefix: str = "") -> None:
     """The KV-row writer — K2 and K5 redesigned, every cache write of a
     serve — at the serving cache, per case of ``_kv_write_cases``: the
     wrapper launches its entry once, the cache is bit-exact against the
@@ -942,7 +959,9 @@ def check_kv_write(torch, dev, results: list, q8: bool) -> None:
     one of 20 in a CUDA graph, as are the plain version and, for the bf16
     cache, ``index_put_`` of the same rows, the routed wrapper's time (host
     work included) by events beside it. Its own generator: the draws of
-    the cases after it stay as they were."""
+    the cases after it stay as they were. ``launch_plane`` names the
+    main-path window whose launches its rows report, ``prefix`` their
+    cases'."""
     from finchat_tpu_torch.engine.kv_cache import scale_rows
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.kv_append import (
@@ -965,7 +984,8 @@ def check_kv_write(torch, dev, results: list, q8: bool) -> None:
         return pages + planes
 
     got, ref = cache(), cache()
-    label = "kv_write_q8" if q8 else "kv_write"
+    label = prefix + ("kv_write_q8" if q8 else "kv_write")
+    plane = dict(launch_plane=launch_plane) if launch_plane else {}
     for name, plan, k, v, collide in _kv_write_cases(torch, gen, dev, P):
         for t in got + ref:
             if t is not None:
@@ -1029,7 +1049,7 @@ def check_kv_write(torch, dev, results: list, q8: bool) -> None:
                                else "library none") + f", bound {b_ms:.6f} ms ({b_by})")
         results.append(dict(case=f"{label}_{name}", kernel=kernel, err=err, rel_err=None, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                            wrapper_ms=wrapper_ms))
+                            wrapper_ms=wrapper_ms, **plane))
         del plan, k, v, call
     del got, ref
     torch.cuda.empty_cache()
@@ -1075,12 +1095,15 @@ def _ragged_work(spans, kv_lens, rows, q8: bool, io: float):
 
 
 def check_ragged(torch, gen, dev, results: list, name: str, spans, T: int, R: int = 64,
-                 q8: bool = False) -> None:
+                 q8: bool = False, launch_plane: str | None = None,
+                 with_older: bool = True) -> None:
     """A ragged round (``spans``: (tokens, first position) per row, rows
     padded with empty ones to ``R``, tokens to ``T``) through the routed
     launches against the plain version; over the bf16 cache the pair of
     Hopper entries, each held on its own rows and timed alone, with the
-    older body (K3) by name beside them on the same inputs."""
+    older body (K3) by name beside them on the same inputs (``with_older``
+    False: the routed launches alone). ``launch_plane`` names the main-path
+    window whose launches its rows report."""
     from finchat_tpu_torch.ops.kernels import LAUNCHES, PreparedSeq
     from finchat_tpu_torch.ops.ragged_paged_attention import (
         prepare_ragged,
@@ -1142,16 +1165,19 @@ def check_ragged(torch, gen, dev, results: list, name: str, spans, T: int, R: in
     b_ms, b_by = _ragged_work(spans, kv_lens, live_rows, q8, io)
     plain_ms = time_ms(torch, plain, iters=3, warmup=1)
     extra = dict(plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    if launch_plane is not None:
+        extra["launch_plane"] = launch_plane
     live = torch.arange(T, device=dev) < n_real
     wrapper_ms = time_ms(torch, wrapper)
     if isinstance(routed, PreparedSeq):
         check_ragged_pair(torch, name, routed, want, live, tr, spans, kv_lens, R, n_real, T,
                           (q, k_rows, v_rows, kv), plain, results, wrapper_ms, extra)
-        calls = [prepare_ragged(kind, *args, **kw, **scales, route=False)]
-        check_attention_calls(torch, name, calls, want, live, results, extra, None)
+        calls = [prepare_ragged(kind, *args, **kw, **scales, route=False)] if with_older else []
+        if calls:
+            check_attention_calls(torch, name, calls, want, live, results, extra, None)
     else:
         calls = [routed]
-        if routed.name != kind:  # the older body on the same inputs, launched by name
+        if routed.name != kind and with_older:  # the older body on the same inputs, by name
             calls.append(prepare_ragged(kind, *args, **kw, **scales, route=False))
         check_attention_calls(torch, name, calls, want, live, results, extra, wrapper_ms)
     del k_rows, v_rows, k_pages, v_pages, k_scales, v_scales, cache, calls, routed
@@ -1213,13 +1239,17 @@ def check_ragged_pair(torch, name, pair, want, live, tr, spans, kv_lens, R: int,
         log(f"  {name} [{part.name}]: its rows max_abs_err {p_err:.3e}, row-relative "
             f"{p_rel:.3e}; kernel {ms:.4f} ms alone, plain {p_plain:.4f} ms, sdpa {lib:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
-        results.append(dict(case=name, kernel=part.name, err=p_err, rel_err=p_rel, ms=ms,
-                            plain_ms=p_plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                            pair_ms=pair_ms, wrapper_ms=wrapper_ms))
+        row = dict(case=name, kernel=part.name, err=p_err, rel_err=p_rel, ms=ms,
+                   plain_ms=p_plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                   pair_ms=pair_ms, wrapper_ms=wrapper_ms)
+        if "launch_plane" in whole:
+            row["launch_plane"] = whole["launch_plane"]
+        results.append(row)
 
 
 def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, group: int,
-              out_f32: bool, results: list, launch_plane: str | None = None) -> None:
+              out_f32: bool, results: list, launch_plane: str | None = None,
+              with_v2: bool = True) -> None:
     """The fused dequant matmul against its plain version at one shape,
     through the wrapper (which must pick the kernel ``kernel_for`` names).
     Where that is a Hopper kernel, v2 is also held and timed on the same
@@ -1228,7 +1258,8 @@ def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, gro
     of one launch of 20 in a CUDA graph (``graph_ms``), the routed
     wrapper's (host work included) and the plain version's by CUDA events.
     ``launch_plane`` names the main-path window whose launches the row
-    reports (the serving plane of its mode by default)."""
+    reports (the serving plane of its mode by default). ``with_v2`` False
+    holds and times the routed kernel alone."""
     from finchat_tpu_torch.models.quant import dequantize, quantize, quantize_int4
     from finchat_tpu_torch.ops.kernels import LAUNCHES
     from finchat_tpu_torch.ops.quant_matmul import (
@@ -1269,7 +1300,7 @@ def check_qmm(torch, name: str, gen, dev, M: int, K: int, N: int, mode: str, gro
     b_ms, b_by = bound_ms(moved, 2.0 * M * K * N)
     plane = "int4g128+kv8" if mode == "int4" else "int8+kv8"
     v2 = f"quant_matmul_{mode}"
-    for kname in (routed, v2) if routed != v2 else (routed,):
+    for kname in (routed, v2) if routed != v2 and with_v2 else (routed,):
         if kname == routed:  # the wrapper launches what kernel_for names
             before = dict(LAUNCHES)
             fn(x, qt.q, qt.scale, out_dtype=out_dtype)
@@ -7520,6 +7551,508 @@ async def moe_phase(torch, dev, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# tp_phase: the mesh and tensor-parallel serving (one-rank NCCL, two gloo ranks)
+# --------------------------------------------------------------------------
+
+# new tokens a stream of the phase; (b)'s requests; the session record's next
+# turn (new tokens decoded on the one-device engine)
+TP_NEW = 32
+TP_REQUESTS = 4
+TP_NEXT_NEW = 16
+TP_NEXT = "And what about next month, once rent is paid?"
+# every collective and the follower's rendezvous wait at most this long
+TP_TIMEOUT_S = 300.0
+# llama3-8b's K8 shapes on a rank of two ([K, N]; the head's is TP_HEAD)
+TP_RANK_QMM = {"q": (4096, 2048), "k_v": (4096, 512), "o": (2048, 4096),
+               "gate_up": (4096, 7168), "down": (7168, 4096)}
+TP_HEAD = (4096, 64128)
+
+
+class _RankHeads:
+    """The attention checks' head counts (``H``, ``HKV``) set to one rank's
+    for the ``with`` block: llama3-8b on a rank of two holds 16 query heads
+    and 4 KV heads, the same group of 4."""
+
+    def __init__(self, h: int, hkv: int):
+        self.heads = (h, hkv)
+
+    def __enter__(self):
+        global H, HKV
+        self.saved = (H, HKV)
+        H, HKV = self.heads
+
+    def __exit__(self, *exc):
+        global H, HKV
+        H, HKV = self.saved
+
+
+def _tp_params(torch, config, plane: str, dev, leaf_transform=None):
+    """The phase's weights of ``plane`` from seed 0 (every rank draws the
+    same tree; ``leaf_transform`` a rank's ``leaf_sharder``, which cuts each
+    leaf to its slice as it is made)."""
+    from finchat_tpu_torch.models.llama import init_params
+    from finchat_tpu_torch.models.quant import init_quantized_params
+
+    spec = PLANES[plane]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    if spec["quant"]:
+        return init_quantized_params(config, gen, dev, mode=spec["quant"],
+                                     group_size=spec["group"], leaf_transform=leaf_transform)
+    return init_params(config, gen, dev, leaf_transform=leaf_transform)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _name, t in tree_leaves(tree))
+
+
+def _tp_follower(init_method: str, planes: tuple, device: str, queue) -> None:
+    """Rank 1 of the two-rank mesh on the one card (a spawned process): its
+    shard of the first plane made before it joins (while rank 0 runs the
+    one-rank mesh), each leaf cut as it is made (``leaf_sharder``), then an
+    engine a plane over the gloo group, following rank 0's calls; after each
+    plane its launches, its weight bytes and the peak of its shard's making
+    (above what it held before) go to ``queue``."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed as dist
+
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.models.llama import PRESETS
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+        initialize_distributed,
+        make_abstract_mesh,
+    )
+    from finchat_tpu_torch.parallel.ranks import RankChannel, follow
+    from finchat_tpu_torch.parallel.sharding import leaf_sharder
+    from finchat_tpu_torch.utils.config import EngineConfig
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    config = dataclasses.replace(PRESETS["llama3-8b"], n_layers=PLANE_DEPTH)
+    me = make_abstract_mesh((1, 1, 1, 1, 2), rank=1)
+
+    def shard(plane):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        local = _tp_params(torch, config, plane, dev, leaf_sharder(me, dev))
+        torch.cuda.synchronize()
+        return local, torch.cuda.max_memory_allocated(dev) - base
+
+    local, peak = shard(planes[0])
+    initialize_distributed(2, 1, backend="gloo", init_method=init_method,
+                           timeout_s=TP_TIMEOUT_S, device=dev)
+    try:
+        mesh = build_mesh(MeshSpec(model=2), [dev, dev], "gloo")
+        channel = RankChannel(mesh, TP_TIMEOUT_S)
+        for plane in planes:
+            if local is None:
+                local, peak = shard(plane)
+            spec = PLANES[plane]
+            engine = InferenceEngine(config, local, EngineConfig(kv_quant=spec["kv_quant"]),
+                                     quant=spec["quant"], quant_group=spec["group"], mesh=mesh)
+            weight = _tree_bytes(engine.params)
+            local = None
+            reset_launches()
+            calls = follow(engine, channel)
+            torch.cuda.synchronize()
+            queue.put((plane, calls, dict(LAUNCHES), weight, peak))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+async def _tp_serve(torch, engine, head_ids: list[int], system_prompt: str, n_req: int,
+                    tag: str, waves: bool = False) -> dict:
+    """``n_req`` greedy Penny requests of ``TP_NEW`` tokens over the
+    registered head through ``LLMService``, every request queued before the
+    scheduler starts (so two serves of the same engine config batch alike);
+    with ``waves`` half of them, the rest once the first has a token (so
+    their prefill coexists with the first wave's decode: the packed ragged
+    rounds). The launches counted from the head's registration to the last
+    token; ``mixed`` the ragged rounds dispatched."""
+    from finchat_tpu_torch.engine.generator import EngineGenerator
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from finchat_tpu_torch.ops import tp_overlap
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.serve.simple import LLMService
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    tok = ByteTokenizer()
+    sched = ContinuousBatchingScheduler(engine, tok.eos_id)
+    handles = []
+    submit = sched.submit
+
+    async def recording_submit(*a, **k):
+        h = await submit(*a, **k)
+        handles.append(h)
+        return h
+
+    sched.submit = recording_submit
+    svc = LLMService(EngineGenerator(sched, tok), system_prompt,
+                     SamplingParams(temperature=0.0, max_new_tokens=TP_NEW))
+    reset_launches()
+    tp_overlap.reset_collectives()
+    sched.register_prefix(head_ids)
+
+    async def one(i: int) -> None:
+        async for _chunk in svc.process_message(MESSAGES[i], context=CONTEXTS[i],
+                                                conversation_id=f"{tag}-{i}"):
+            pass
+
+    mixed0 = METRICS.get("finchat_mixed_dispatches_total")
+    t0 = time.perf_counter()
+    first = n_req // 2 if waves else n_req
+    tasks = [asyncio.create_task(one(i)) for i in range(first)]
+    for _ in range(100000):  # bounded: the submits are host work of a few ms
+        if len(sched.pending) == first:
+            break
+        await asyncio.sleep(0.001)
+    await sched.start()
+    if waves:
+        for _ in range(60000):  # bounded: 300 s of 5 ms ticks
+            if any(h.generated > 0 for h in handles):
+                break
+            await asyncio.sleep(0.005)
+        tasks += [asyncio.create_task(one(i)) for i in range(first, n_req)]
+    await asyncio.gather(*tasks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    await sched.stop()
+    sched.submit = submit
+    launches = dict(LAUNCHES)
+    collectives = dict(tp_overlap.COLLECTIVES)
+    mixed = METRICS.get("finchat_mixed_dispatches_total") - mixed0
+    if len(handles) != n_req or not all(h.finished and h.generated > 0 for h in handles):
+        fail(f"tp {tag}: not every request completed with tokens")
+    streams = {h.conversation_id: list(h.history[len(h.prompt_ids):]) for h in handles}
+    return dict(sched=sched, handles=handles, launches=launches, collectives=collectives,
+                streams=streams, wall_s=wall, mixed=mixed)
+
+
+def _tp_record_turn(torch, engine, sched, h) -> tuple:
+    """Conversation ``h``'s KV made again on the TP engine (its history but
+    the last token prefilled into pages taken from the scheduler's
+    allocator) and offloaded: every rank's heads gathered into one record of
+    the one-device layout. Returns ``(record, ids)``."""
+    ids = list(h.history[:-1])
+    pages = sched.allocator.allocate("tp-record", -(-len(ids) // engine.page_size))
+    try:
+        engine.set_page_table_row(0, pages)
+        engine.prefill(0, ids)
+        record = engine.offload_pages(pages)
+        engine.reset_slot(0)
+    finally:
+        sched.allocator.free("tp-record", pages)
+    return record, ids
+
+
+def _next_turn_on_one_device(torch, config, params, plane: str, record, ids: list[int],
+                             card: str) -> dict:
+    """The TP record restored into a fresh one-device engine, the next
+    turn's tokens prefilled after it and ``TP_NEXT_NEW`` greedy tokens
+    decoded there; the stream teacher-forced over its whole history."""
+    import types
+
+    import numpy as np
+
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer
+    from finchat_tpu_torch.utils.config import EngineConfig
+
+    spec = PLANES[plane]
+    engine = InferenceEngine(config, params, EngineConfig(kv_quant=spec["kv_quant"]),
+                             device=params["embed"].device, quant=spec["quant"],
+                             quant_group=spec["group"])
+    ps, C = engine.page_size, engine.engine_cfg.prefill_chunk
+    new = ByteTokenizer().encode(TP_NEXT)
+    total = len(ids) + len(new) + TP_NEXT_NEW
+    pages = list(range(1, 1 + -(-total // ps)))
+    engine.set_page_table_row(0, pages)
+    engine.restore_pages(pages[:-(-len(ids) // ps)], record)
+    engine.set_context_lens_rows({0: len(ids)})
+    logits = engine.prefill_chunk([new + [0] * (C - len(new))], [0], [len(ids)], [len(new)])[0]
+    served = [int(engine.commit_first_token(0, logits, 0.0, 1.0, 0))]
+    B = engine.engine_cfg.max_seqs
+    active = np.zeros(B, bool)
+    active[0] = True
+    z, o, zk = np.zeros(B, np.float32), np.ones(B, np.float32), np.zeros(B, np.int32)
+    for _ in range(TP_NEXT_NEW - 1):
+        served.append(int(engine.decode(active, z, o, zk)[0]))
+    h = types.SimpleNamespace(seq_id=f"tp {plane} next turn", prompt_ids=ids + new,
+                              history=ids + new + served, shared_len=0, resumed_len=len(ids),
+                              sampling=SamplingParams(temperature=0.0,
+                                                      max_new_tokens=TP_NEXT_NEW))
+    check = teacher_forced_check(torch, params, config, h, spec["kv_quant"])
+    del engine
+    _free(torch)
+    return dict(resumed_tokens=len(ids), new_tokens=len(new), teacher_forced=check)
+
+
+def _tp_routes(torch) -> dict:
+    """The kernel each per-rank shape is routed to (llama3-8b on a rank of
+    two: 16 query heads, 4 KV heads, group 4, 512-wide KV rows)."""
+    from finchat_tpu_torch.ops.kv_append import append_kernel_for
+    from finchat_tpu_torch.ops.paged_attention import (
+        attention_kernel_for,
+        decode_splits,
+        ragged_kernels_for,
+    )
+    from finchat_tpu_torch.ops.quant_matmul import kernel_for
+
+    group, hd = 4, 128
+    qmm = {}
+    for M in (64, 2048):  # a decode step's slots; a chunk of 4 x 512
+        for label, (K, N) in TP_RANK_QMM.items():
+            qmm[f"int8 M={M} {label} [{K}, {N}]"] = kernel_for("int8", M, K, N, K, False)
+    for M in (64, 4):  # the head: a decode step's slots; a chunk's last rows
+        qmm[f"int8 M={M} head [{TP_HEAD[0]}, {TP_HEAD[1]}] fp32"] = kernel_for(
+            "int8", M, *TP_HEAD, TP_HEAD[0], True)
+    attn = {}
+    for kind in ("paged_attention", "paged_attention_q8"):
+        splits, _per = decode_splits(1, MP)
+        attn[f"{kind} decode"] = attention_kernel_for(kind, group, PS, splits, decode=True)
+        attn[f"{kind} prefill"] = attention_kernel_for(kind, 64, PS, 1)
+    for kind in ("ragged_paged_attention", "ragged_paged_attention_q8"):
+        attn[f"{kind} round"] = list(ragged_kernels_for(kind, 64, PS, group))
+    writer = {f"{name} rows of {4 * hd}": append_kernel_for(dtype, 4, hd)
+              for name, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8))}
+    return dict(quant_matmul=qmm, attention=attn, kv_write=writer)
+
+
+async def tp_phase(torch, dev, card: str, results: list) -> dict:
+    """The mesh and tensor-parallel serving at ``llama3-8b`` full width over
+    ``PLANE_DEPTH`` layers, random weights from seed 0, greedy.
+
+    (a) A one-rank NCCL mesh against no mesh, 8 requests of ``TP_NEW``
+    tokens over the registered head, at depth 1 and at loop 4 (the loop's
+    CUDA graph captures the NCCL all-reduces): the streams bit-equal, the
+    launches of every kernel equal.
+    (b) Two ranks on the one card over gloo (rank 1 a spawned process), bf16
+    then int8+kv8, ``TP_REQUESTS`` requests in two waves at depth 1 (the
+    second's prefill in packed ragged rounds with the first's decode; every
+    kernel of the plane launched on both ranks): every stream
+    teacher-forced against the one-device plain forward; each rank's
+    launches (equal: the ranks run the same steps on their shards); a
+    conversation's KV offloaded at TP=2 into one record, restored into a
+    one-device engine whose next turn is teacher-forced.
+    (c) Each per-rank shape's route; the weight bytes on each rank against
+    the one-device tree.
+    (d) Each per-rank K8 shape, and at 4 KV heads the decode and prefill
+    bodies (bf16 and int8), the ragged round (the bf16 pair and the int8
+    body) and the KV-row writers on 512-wide rows, against their plain
+    versions, timed by the script's rules (rows of the ``kernels`` line,
+    their launches rank 0's in (b)).
+    No number of the phase is a TP speed: a gloo step stages through the
+    host."""
+    import dataclasses
+    import multiprocessing as mp
+
+    import torch.distributed as dist
+
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.models.llama import PRESETS
+    from finchat_tpu_torch.models.tokenizer import ByteTokenizer, render_chat_head
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+    from finchat_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+        default_backend,
+        initialize_distributed,
+    )
+    from finchat_tpu_torch.parallel.ranks import Leader, RankChannel, rendezvous
+    from finchat_tpu_torch.utils.config import EngineConfig
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    t0 = time.perf_counter()
+    config = dataclasses.replace(PRESETS["llama3-8b"], n_layers=PLANE_DEPTH)
+    system_prompt = (REPO / "prompts" / "system_prompt.txt").read_text()
+    head_ids = ByteTokenizer().encode(render_chat_head(system_prompt), add_bos=True)[:-1]
+    planes = ("bf16", "int8+kv8")
+    init = rendezvous()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    follower = ctx.Process(target=_tp_follower, args=(init, planes, str(dev), queue),
+                           daemon=True, name="tp-rank-1")
+    follower.start()
+    out: dict = {"card": card}
+    try:
+        _free(torch)
+        params = _tp_params(torch, config, "bf16", dev)
+        # (a) one rank over NCCL against no mesh
+        initialize_distributed(1, 0, backend=default_backend(dev), device=dev)
+        mesh1 = build_mesh(MeshSpec(model=1), [dev])
+        one_rank = {}
+        for depth in (1, 4):
+            runs = {}
+            for meshed in (False, True):
+                engine = InferenceEngine(config, params, EngineConfig(decode_loop_depth=depth),
+                                         device=dev, mesh=mesh1 if meshed else None)
+                tag = f"tp-a{depth}{'m' if meshed else ''}"
+                b0 = METRICS.get("finchat_decode_loop_blocks_total")
+                r = await _tp_serve(torch, engine, head_ids, system_prompt, 8, tag)
+                r["blocks"] = METRICS.get("finchat_decode_loop_blocks_total") - b0
+                r["graph"] = depth in engine._loop_graphs
+                r["sched"].retire_prefixes()
+                runs[meshed] = r
+                del engine
+                _free(torch)
+            plain, meshed = runs[False], runs[True]
+            same = all(plain["streams"][f"tp-a{depth}-{i}"] == meshed["streams"][f"tp-a{depth}m-{i}"]
+                       for i in range(8))
+            moved = {k: (plain["launches"].get(k, 0), n) for k, n in meshed["launches"].items()
+                     if plain["launches"].get(k, 0) != n}
+            log(f"  tp (a) depth {depth}: one-rank NCCL mesh against no mesh: streams bit-equal "
+                f"{same}; launches equal {not moved}; collectives issued "
+                f"{meshed['collectives']}; blocks {meshed['blocks']:.0f}, graph captured "
+                f"{meshed['graph']}; {meshed['wall_s']:.2f} s against {plain['wall_s']:.2f} s "
+                f"({card})")
+            if not same or moved:
+                fail(f"tp (a) depth {depth}: the one-rank mesh parted from no mesh (streams "
+                     f"equal {same}, launches that differ {moved})")
+            if depth > 1 and not (meshed["graph"] and meshed["blocks"] > 0
+                                  and meshed["collectives"]["row_parallel"] > 0):
+                fail(f"tp (a) loop {depth}: no captured block with the mesh's collectives")
+            one_rank[f"depth{depth}"] = dict(
+                launches=meshed["launches"], collectives=meshed["collectives"],
+                blocks=meshed["blocks"], wall_s=meshed["wall_s"], plain_wall_s=plain["wall_s"],
+                tokens=sum(len(s) for s in meshed["streams"].values()))
+            del runs, plain, meshed
+        dist.destroy_process_group()
+        out["one_rank_nccl"] = one_rank
+        # (b) two gloo ranks on the one card
+        initialize_distributed(2, 0, backend="gloo", init_method=init, timeout_s=TP_TIMEOUT_S,
+                               device=dev)
+        mesh2 = build_mesh(MeshSpec(model=2), [dev, dev], "gloo")
+        channel = RankChannel(mesh2, TP_TIMEOUT_S)
+        two = {}
+        for plane in planes:
+            spec = PLANES[plane]
+            if plane != "bf16":
+                del params
+                _free(torch)
+                params = _tp_params(torch, config, plane, dev)
+            engine = InferenceEngine(config, params, EngineConfig(kv_quant=spec["kv_quant"]),
+                                     device=dev, quant=spec["quant"], quant_group=spec["group"],
+                                     mesh=mesh2)
+            leader = Leader(engine, channel)
+            try:
+                r = await _tp_serve(torch, engine, head_ids, system_prompt, TP_REQUESTS,
+                                    f"tp-b-{plane}", waves=True)
+                record, ids = _tp_record_turn(torch, engine, r["sched"], r["handles"][0])
+                r["sched"].retire_prefixes()
+            finally:
+                leader.stop()
+            torch.cuda.synchronize()
+            r["launches"] = dict(LAUNCHES)  # the serve's window and the record's turn
+            f_plane, f_calls, f_launches, f_weight, f_peak = queue.get(timeout=TP_TIMEOUT_S)
+            checks = [teacher_forced_check(torch, params, config, h, spec["kv_quant"])
+                      for h in r["handles"]]
+            mine = {k: n for k, n in r["launches"].items() if n}
+            theirs = {k: n for k, n in f_launches.items() if n}
+            missing = [k for k in spec["kernels"] if not mine.get(k)]
+            full_bytes, rank_bytes = _tree_bytes(params), _tree_bytes(engine.params)
+            # the largest whole leaf as made (bf16), and what its making may
+            # hold beside the rank's shard: the leaf, and for int8 its fp32
+            # copy and its int8 result while it is quantized (quant.quantize)
+            leaf = max(t.numel() for _n, t in tree_leaves(params)) * 2
+            load_bound = f_weight + leaf * (3.5 if spec["quant"] else 1.0) * 1.05 + (64 << 20)
+            log(f"  tp (b) {plane}: {TP_REQUESTS} requests in two waves over 2 gloo ranks in "
+                f"{r['wall_s']:.2f} s (host-staged: not a TP rate), {r['mixed']:.0f} packed "
+                f"ragged rounds; rank 1 made {f_calls} calls; "
+                f"launches rank 0 {mine}, rank 1 equal: {mine == theirs}; weights rank 0 "
+                f"{rank_bytes / 1e9:.3f} GB, rank 1 {f_weight / 1e9:.3f} GB, one device "
+                f"{full_bytes / 1e9:.3f} GB; rank 1's peak while making its shard leaf by leaf "
+                f"{f_peak / 1e9:.3f} GB (its shard plus the largest whole leaf, {leaf / 1e9:.3f} "
+                f"GB in bf16{', with its quantization' if spec['quant'] else ''}: bound "
+                f"{load_bound / 1e9:.3f} GB) ({card})")
+            if f_peak > load_bound:
+                fail(f"tp (b) {plane}: rank 1 held {f_peak / 1e9:.3f} GB while making its shard, "
+                     f"above its shard plus one whole leaf ({load_bound / 1e9:.3f} GB)")
+            if f_plane != plane or mine != theirs or missing or r["mixed"] < 1:
+                fail(f"tp (b) {plane}: the ranks' launches differ ({mine} against {theirs}), "
+                     f"kernels were not launched ({missing}) or no packed ragged round ran "
+                     f"({r['mixed']:.0f})")
+            nxt = _next_turn_on_one_device(torch, config, params, plane, record, ids, card)
+            log(f"  tp (b) {plane}: a conversation's record offloaded at TP=2 "
+                f"({nxt['resumed_tokens']} tokens, {sum(t.numel() * t.element_size() for t in record if t is not None) / 1e6:.1f} MB) "
+                f"restored into one device; its next turn teacher-forced: "
+                f"{nxt['teacher_forced']}")
+            two[plane] = dict(launches=r["launches"], follower_launches=f_launches,
+                              follower_calls=f_calls, collectives=r["collectives"],
+                              ragged_rounds=r["mixed"],
+                              wall_s=r["wall_s"], teacher_forced=checks, next_turn=nxt,
+                              weight_bytes=dict(rank0=rank_bytes, rank1=f_weight,
+                                                one_device=full_bytes),
+                              rank1_load_peak_bytes=f_peak, largest_leaf_bytes=leaf)
+            del engine, leader, r, record
+            _free(torch)
+        del params
+        dist.destroy_process_group()
+        out["two_ranks_gloo"] = two
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        follower.join(timeout=60)
+        if follower.is_alive():
+            follower.terminate()
+            follower.join(timeout=10)
+            fail("tp: rank 1 did not stop")
+    if follower.exitcode != 0:
+        fail(f"tp: rank 1 exited with {follower.exitcode}")
+    # (c) routes
+    out["routes"] = _tp_routes(torch)
+    log("  tp (c) routes at a rank's shapes: " + json.dumps(out["routes"]))
+    # (d) the per-rank shapes against their plain versions, timed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2626)
+    for M in (64, 2048):
+        for label, (K, N) in TP_RANK_QMM.items():
+            check_qmm(torch, f"tp_int8_m{M}_{label}_{K}x{N}", gen, dev, M, K, N, "int8", 0,
+                      False, results, launch_plane="tp", with_v2=False)
+    check_qmm(torch, "tp_int8_m64_head_fp32", gen, dev, 64, *TP_HEAD, "int8", 0, True, results,
+              launch_plane="tp", with_v2=False)
+    lens = [SERVE_CONTEXT] * 8
+    with _RankHeads(16, 4):
+        # K1/K4's decode and prefill bodies, K3's pair and K6, the KV-row
+        # writers (K2/K5) at a rank's 4 KV heads and 512-wide rows
+        check_paged(torch, "tp_paged_decode_b8_kv4", gen, dev, 1, [n - 1 for n in lens], lens,
+                    results, launch_plane="tp")
+        check_paged(torch, "tp_paged_q8_decode_b8_kv4", gen, dev, 1, [n - 1 for n in lens],
+                    lens, results, q8=True, launch_plane="tp")
+        check_paged(torch, "tp_paged_prefill_q2048_kv4", gen, dev, 512, [2048] * 4, [2560] * 4,
+                    results, launch_plane="tp")
+        check_paged(torch, "tp_paged_q8_prefill_q1024_kv4", gen, dev, 512, [1024] * 4,
+                    [1536] * 4, results, q8=True, launch_plane="tp")
+        check_ragged(torch, gen, dev, results, "tp_ragged_serve_kv4", SERVE_ROUND, 2048,
+                     launch_plane="tp", with_older=False)
+        check_ragged(torch, gen, dev, results, "tp_ragged_q8_serve_kv4", SERVE_ROUND, 2048,
+                     q8=True, launch_plane="tp", with_older=False)
+        for q8 in (False, True):
+            check_kv_write(torch, dev, results, q8, launch_plane="tp", prefix="tp_kv4_")
+    launches = {}
+    for plane in planes:
+        for k, n in out["two_ranks_gloo"][plane]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -7934,6 +8467,12 @@ def main() -> None:
         + f" ms ({card})")
     log("moe: " + json.dumps(moe))
 
+    log(f"phase 5h, tp: llama3-8b ({PLANE_DEPTH} layers, random weights) over a mesh: one "
+        "NCCL rank against no mesh (depth 1, loop 4), two gloo ranks on the card (bf16, "
+        "int8+kv8), a session record across, the per-rank shapes")
+    tp = asyncio.run(tp_phase(torch, dev, card, results))
+    log(f"tp ({tp['seconds']:.1f} s): " + json.dumps(tp))
+
     log("phase 6: train llama3-8b (random weights) through K7, forward and backward")
     check = train_check(torch, dev)
     train = train_full(torch, dev, card)
@@ -7987,6 +8526,18 @@ def main() -> None:
     launched["fabric"] = fabric["launches"]
     launched["pod"] = pod["launches"]
     launched["moe"] = moe["launches"]
+    launched["tp"] = tp["launches"]
+    # each rank's launches in the tp phase: the one-rank NCCL mesh's (both
+    # depths), and rank 0's and rank 1's over the two gloo planes
+    tp_ranks = {"tp_one_rank_launches": {}, "tp_rank0_launches": {}, "tp_rank1_launches": {}}
+    for run in tp["one_rank_nccl"].values():
+        for k, n in run["launches"].items():
+            tp_ranks["tp_one_rank_launches"][k] = tp_ranks["tp_one_rank_launches"].get(k, 0) + n
+    for run in tp["two_ranks_gloo"].values():
+        for col, key in (("tp_rank0_launches", "launches"),
+                         ("tp_rank1_launches", "follower_launches")):
+            for k, n in run[key].items():
+                tp_ranks[col][k] = tp_ranks[col].get(k, 0) + n
     table = []
     for r in results:
         kname = r["kernel"]
@@ -8011,6 +8562,9 @@ def main() -> None:
         row["pod_launches"] = launched["pod"].get(kname, 0)
         # and in the Mixtral serve's window
         row["moe_launches"] = launched["moe"].get(kname, 0)
+        # and on each rank of the tp phase
+        for col, counts in tp_ranks.items():
+            row[col] = counts.get(kname, 0)
         table.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

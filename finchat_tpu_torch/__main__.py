@@ -3,8 +3,9 @@ package's ``python -m finchat_tpu``, over the port's ``build_app``).
 
 One process owns the engine on one card (or, with ``--fleet-replicas`` N,
 N engine replicas over one parameter tree, ``--fleet-roles`` typing them
-into prefill and serving pools); concurrency comes from the
-continuous-batching scheduler, not from worker replication. The flags and
+into prefill and serving pools; or, with ``mesh.model`` N, rank 0 of a
+tensor-parallel group whose other ranks it spawns and stops); concurrency
+comes from the continuous-batching scheduler, not from worker replication. The flags and
 the config keys they override are the JAX package's. One flag is the
 port's own: ``--device`` (default
 ``cuda``), the counterpart of the JAX package's ``JAX_PLATFORMS``; tests

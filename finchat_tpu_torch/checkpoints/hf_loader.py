@@ -80,9 +80,12 @@ def _copy_in(dst: torch.Tensor, src: torch.Tensor, transpose: bool) -> None:
 
 def load_llama_params(checkpoint_dir: str | Path, config: LlamaConfig, *,
                       device: str | torch.device = "cuda", quant: str = "",
-                      quant_group: int = 0) -> dict[str, Any]:
+                      quant_group: int = 0, leaf_transform: Any = None) -> dict[str, Any]:
     """Load HF Llama weights into the stacked tree on ``device``;
-    ``quant``/``quant_group`` quantize each matmul leaf at load."""
+    ``quant``/``quant_group`` quantize each matmul leaf at load;
+    ``leaf_transform(name, leaf)`` then takes each leaf but the experts'
+    as soon as it is loaded (``parallel/sharding.leaf_sharder`` cuts a
+    tensor-parallel rank's slice there)."""
     check_experts(config)
     validate_quant_mode(quant)
     path = Path(checkpoint_dir)
@@ -103,8 +106,8 @@ def load_llama_params(checkpoint_dir: str | Path, config: LlamaConfig, *,
 
     def finish(name: str, leaf: torch.Tensor) -> Any:
         if quant and should_quantize(name):
-            return quantize_stacked(leaf, mode=quant, group_size=quant_group)
-        return leaf
+            leaf = quantize_stacked(leaf, mode=quant, group_size=quant_group)
+        return leaf_transform(name, leaf) if leaf_transform is not None else leaf
 
     def single(name: str, hf_name: str, transpose: bool = False) -> Any:
         def fill(src: torch.Tensor) -> torch.Tensor:

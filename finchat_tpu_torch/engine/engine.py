@@ -48,6 +48,7 @@ writes and masks at compacted positions, on the same kernels.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from dataclasses import dataclass
@@ -205,7 +206,7 @@ def prefill_step(
     # on a slot that has evicted at 0, where a real row never goes below
     attention = _paged_attention_fn(
         page_rows, (start_pos - state.kv_gaps[slots_l]).clamp(min=0).to(I32), n_valid, C,
-        page_size, config.n_kv_heads,
+        page_size, config.local_kv_heads,
     )
     hidden, _ = forward(params, tokens, positions, config=config, attention=attention,
                         cache=_cache(state), return_hidden=True)
@@ -247,7 +248,7 @@ def _decode_iteration(params: dict[str, Any], state: DecodeState, live: torch.Te
     n_valid = live.to(I32)
     attention = _paged_attention_fn(
         state.page_table, (state.context_lens - state.kv_gaps).to(I32), n_valid, 1,
-        page_size, config.n_kv_heads,
+        page_size, config.local_kv_heads,
     )
     logits, _ = forward(params, tokens, positions, config=config, attention=attention,
                         cache=_cache(state))
@@ -358,7 +359,7 @@ def verify_step(
     n_valid = torch.where(active, 1 + n_drafts.to(I32), torch.zeros_like(n_drafts)).to(I32)
     attention = _paged_attention_fn(
         state.page_table, (state.context_lens - state.kv_gaps).to(I32), n_valid, K,
-        page_size, config.n_kv_heads,
+        page_size, config.local_kv_heads,
     )
     logits, _ = forward(params, tokens, positions, config=config, attention=attention,
                         cache=_cache(state))  # [B, K, vocab]
@@ -484,7 +485,7 @@ def _ragged_round_math(
     row_gap = state.kv_gaps[slot_l]
 
     attention = _ragged_attention_fn(page_rows, tok_row, tok_pos, row_kv_len, page_size,
-                                     config.n_kv_heads, config.n_heads // config.n_kv_heads,
+                                     config.local_kv_heads, config.n_heads // config.n_kv_heads,
                                      row_gap, **({"tok_valid": tok_valid} if dead_rows else {}))
     hidden, _ = forward(params, tok_in[None], tok_pos[None], config=config,
                         attention=attention, cache=_cache(state), return_hidden=True)
@@ -664,6 +665,105 @@ def ragged_multi_round(
     return state, torch.stack(ring_tokens), torch.stack(ring_n), torch.stack(ring_blocks)
 
 
+def check_tp_servable(config: LlamaConfig, shape: dict[str, int]) -> None:
+    """Refuse by name a mesh (its axis sizes) or a model the TP engine does
+    not serve: any axis but ``model`` above 1, an MoE model, and a ``model``
+    axis that does not divide the heads or the KV heads. ``build_app``
+    asks before it starts any rank; the engine asks again."""
+    others = {a: n for a, n in shape.items() if a != "model" and n > 1}
+    if others:
+        raise NotImplementedError(
+            f"mesh: {others}: sequence parallelism (seq) and the pipeline, data and expert "
+            "axes are not served yet; a serving mesh shards over model only")
+    if config.n_experts:
+        raise NotImplementedError("mesh: an MoE model is not served on a mesh yet (expert and "
+                                  "tensor parallelism for MoE are not ported)")
+    from finchat_tpu_torch.parallel.sharding import check_kv_heads
+
+    tp_size = shape["model"]
+    if config.n_heads % tp_size:
+        raise NotImplementedError(
+            f"mesh: model={tp_size} does not divide n_heads={config.n_heads}; a rank must hold "
+            "whole heads")
+    check_kv_heads(config.n_kv_heads, tp_size)
+
+
+def _place_tp(config: LlamaConfig, params: dict[str, Any], engine_cfg: EngineConfig, mesh: Any,
+              quant: str, quant_group: int) -> tuple[LlamaConfig, dict[str, Any]]:
+    """A tensor-parallel rank's config (``config.tp`` set) and weight shard;
+    refuses the planes this engine does not serve on a mesh, by name."""
+    from finchat_tpu_torch.ops.tp_overlap import TPShard, chunk_row_parallel
+    from finchat_tpu_torch.parallel.sharding import llama_param_shardings, shard_params
+
+    check_tp_servable(config, mesh.shape)
+    tp_size = mesh.shape["model"]
+    if mesh.device.type == "cuda" and mesh.backend == "gloo" and engine_cfg.decode_loop_depth > 1:
+        raise NotImplementedError(
+            f"mesh: decode_loop_depth={engine_cfg.decode_loop_depth} over a gloo group on the "
+            "card: a gloo collective cannot be captured in the decode loop's CUDA graph (use "
+            "nccl, or decode_loop_depth=1)")
+    if mesh.group("model") is None:
+        raise ValueError("a TP engine needs a distributed mesh (parallel/mesh.build_mesh), not "
+                         "a shape-only one")
+    tp = TPShard(group=mesh.group("model"), size=tp_size, rank=mesh.coords["model"],
+                 overlap=engine_cfg.tp_overlap, n_chunks=engine_cfg.tp_overlap_chunks)
+    local = dataclasses.replace(config, tp=tp)
+    full_q = config.n_heads * config.head_dim
+    n_q = params["layers"]["attn_q"].shape[-1]
+    if n_q == full_q:
+        if quant:
+            params = quantize_llama_params(params, mode=quant, group_size=quant_group)
+        params = shard_params(params, llama_param_shardings(mesh), mesh)
+    elif n_q * tp_size == full_q:
+        if quant and not isinstance(params["layers"]["attn_q"], (QTensor, Q4Tensor)):
+            raise ValueError("a float weight shard cannot be quantized on its rank (a "
+                             "row-parallel scale spans every rank's rows): quantize the whole "
+                             "tree, then shard it")
+    else:
+        raise ValueError(f"attn_q has {n_q} columns: neither the whole model's {full_q} nor a "
+                         f"rank's {full_q // tp_size}")
+    if tp.overlap:
+        layers = dict(params["layers"])
+        for name in ("attn_o", "mlp_down"):
+            layers[name] = chunk_row_parallel(layers[name], tp.n_chunks)
+        params = {**params, "layers": layers}
+    return local, params
+
+
+def _tp_broadcast_parts(local: torch.Tensor, tp: Any) -> list[torch.Tensor]:
+    """Every rank's ``local`` tensor, in rank order, on every rank (one
+    broadcast a rank: gloo takes broadcasts of CUDA tensors)."""
+    import torch.distributed as dist
+
+    parts = [local if r == tp.rank else torch.empty_like(local) for r in range(tp.size)]
+    for r, part in enumerate(parts):
+        dist.broadcast(part, src=dist.get_global_rank(tp.group, r), group=tp.group)
+    return parts
+
+
+def _gather_tp_record(state: DecodeState, page_ids: list[int], config: LlamaConfig) -> tuple:
+    """``gather_pages_host``'s record of a tensor-parallel pool: every rank's
+    KV of these pages made into one record of the one-device layout
+    (``parallel/sharding.kv_full``)."""
+    from finchat_tpu_torch.parallel.sharding import kv_full
+
+    tp = config.tp
+    ids = torch.as_tensor(page_ids, dtype=torch.long).to(state.k_pages.device)
+    mine = [None if t is None else t.index_select(1, ids)
+            for t in (state.k_pages, state.v_pages, state.k_scales, state.v_scales)]
+    by_field = [None if t is None else _tp_broadcast_parts(t, tp) for t in mine]
+    parts = [tuple(None if f is None else f[r].cpu() for f in by_field) for r in range(tp.size)]
+    return kv_full(parts, config.n_kv_heads)
+
+
+def _local_tp_record(host: tuple, config: LlamaConfig) -> tuple:
+    """This rank's KV of a one-device record (``_gather_tp_record``'s
+    inverse; ``parallel/sharding.kv_local``)."""
+    from finchat_tpu_torch.parallel.sharding import kv_local
+
+    return kv_local(*host, config.n_kv_heads, config.tp.size, config.tp.rank)
+
+
 class InferenceEngine:
     """Host-side wrapper owning the device state and the step functions.
 
@@ -676,12 +776,39 @@ class InferenceEngine:
     = per column) serves quantized weights: a float tree is quantized here,
     a tree that is already quantized (``models/quant.init_quantized_params``)
     is kept as it is. ``engine_cfg.kv_quant = "int8"`` makes the page pool
-    int8 with scale planes."""
+    int8 with scale planes.
+
+    ``mesh`` (``parallel/mesh.build_mesh``) makes the engine one rank of a
+    tensor-parallel group over the ``model`` axis, on the mesh's device
+    (the JAX package's ``InferenceEngine(mesh=...)``, SPMD):
+
+    - ``params`` is the whole tree (quantized first, then cut to this
+      rank's Megatron shard by ``parallel/sharding.shard_params``) or the
+      rank's shard already;
+    - the pool is the rank's own ``[L, P, page_size, (Hkv / tp) * hd]``
+      with the scale planes of its heads, and every step runs over the
+      rank's heads with the layers' collectives on the axis's group
+      (``models/llama._layer``, ``lm_head``); every rank samples the same
+      token from the same full logits row and generator state;
+    - ``engine.tp_overlap`` / ``tp_overlap_chunks`` chunk the row-parallel
+      outputs (``ops/tp_overlap``), cut once here;
+    - ``offload_pages`` gathers every rank's heads into one record of the
+      one-device layout and ``restore_pages`` takes this rank's heads out
+      of one, so a session record moves between a TP engine and a
+      one-device engine either way.
+
+    Every rank must make the same calls in the same order
+    (``parallel/ranks``). Refused by name: a ``data``, ``pipe``, ``seq`` or
+    ``expert`` axis above 1, an MoE model, a ``model`` axis that does not
+    divide ``n_heads`` or ``n_kv_heads``, and a decode loop deeper than 1
+    over a gloo group on the card (a gloo collective cannot be captured in
+    a CUDA graph)."""
 
     def __init__(self, config: LlamaConfig, params: dict[str, Any], engine_cfg: EngineConfig,
-                 device: str | torch.device = "cuda", quant: str = "", quant_group: int = 0):
+                 device: str | torch.device = "cuda", quant: str = "", quant_group: int = 0,
+                 mesh: Any = None):
         validate_quant_mode(quant)
-        device = torch.device(device)
+        device = torch.device(mesh.device if mesh is not None else device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("InferenceEngine on cuda: no CUDA device is available "
@@ -692,10 +819,13 @@ class InferenceEngine:
             raise ValueError(f"params live on {params['embed'].device}, engine on {device}")
         if params["embed"].dtype != config.dtype:
             raise ValueError(f"params are {params['embed'].dtype}, config is {config.dtype}")
-        if quant:
+        if mesh is not None:
+            config, params = _place_tp(config, params, engine_cfg, mesh, quant, quant_group)
+        elif quant:
             params = quantize_llama_params(params, mode=quant, group_size=quant_group)
         self.config = config
         self.params = params
+        self.mesh = mesh
         self.quant = quant
         self.kv_quant = engine_cfg.kv_quant
         self.engine_cfg = engine_cfg
@@ -825,14 +955,22 @@ class InferenceEngine:
         """Snapshot physical pages to the host (all layers, K, V and the
         int8 scale planes) for the session KV cache. Returns once the copy
         has landed: the caller is about to free these pages
-        (kv_cache.gather_pages_host)."""
+        (kv_cache.gather_pages_host). Under tensor parallelism every rank
+        calls it, and each gets the whole record: every rank's heads in
+        head order, in the one-device layout."""
         s = self.state
+        if self.config.tp is not None:
+            return _gather_tp_record(s, page_ids, self.config)
         return gather_pages_host(s.k_pages, s.v_pages, s.k_scales, s.v_scales, page_ids)
 
     def restore_pages(self, page_ids: list[int], host: tuple) -> None:
         """Write a host snapshot back into freshly allocated pages (a session
-        resume), in place on the current stream."""
+        resume), in place on the current stream. Under tensor parallelism
+        ``host`` is a whole record of the one-device layout and this rank
+        writes its own heads."""
         s = self.state
+        if self.config.tp is not None:
+            host = _local_tp_record(host, self.config)
         scatter_pages_device(s.k_pages, s.v_pages, s.k_scales, s.v_scales, page_ids, host)
 
     def rebuild_device_state(self) -> None:

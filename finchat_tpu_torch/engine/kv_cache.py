@@ -4,8 +4,9 @@ or int8 with per-token-per-head scales).
 - Device side: ``k_pages``/``v_pages`` shaped ``[n_layers, num_pages,
   page_size, n_kv_heads * head_dim]`` — token-major pages with the KV heads
   fused into the minor dim, the JAX package's layout, so the kernels and
-  the tests see the same tensors on both sides. Physical page 0 is a TRASH
-  page: writes from padding lanes and inactive slots are redirected there,
+  the tests see the same tensors on both sides (a tensor-parallel rank's
+  pool holds its own KV heads, ``config.local_kv_heads``). Physical page 0
+  is a TRASH page: writes from padding lanes and inactive slots go there,
   which keeps every step a fixed-shape write with no host branching. Its
   contents are garbage by design; attention masks by ``kv_len`` and
   causality alone.
@@ -64,11 +65,11 @@ class PagedKVCache:
     def create(cls, config: LlamaConfig, num_pages: int, page_size: int,
                device: torch.device | str, kv_quant: str = "") -> "PagedKVCache":
         shape = (config.n_layers, num_pages, page_size,
-                 config.n_kv_heads * config.head_dim)
+                 config.local_kv_heads * config.head_dim)
         if kv_quant:
             if kv_quant != "int8":
                 raise ValueError(f"unknown kv_quant mode {kv_quant!r} (supported: 'int8')")
-            sshape = (config.n_layers, num_pages, scale_rows(config.n_kv_heads), page_size)
+            sshape = (config.n_layers, num_pages, scale_rows(config.local_kv_heads), page_size)
             return cls(
                 k_pages=torch.zeros(shape, dtype=torch.int8, device=device),
                 v_pages=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -85,12 +86,13 @@ class PagedKVCache:
 
 def page_hbm_bytes(config: LlamaConfig, page_size: int, kv_quant: str = "") -> int:
     """Device bytes ONE page costs across all layers (K and V, plus the int8
-    scale rows), computed without allocating; mirrors ``create``'s shapes."""
-    row = config.n_kv_heads * config.head_dim
+    scale rows), computed without allocating; mirrors ``create``'s shapes
+    (a tensor-parallel rank's own slice: its KV heads)."""
+    row = config.local_kv_heads * config.head_dim
     itemsize = 1 if kv_quant else config.dtype.itemsize
     per = 2 * config.n_layers * page_size * row * itemsize
     if kv_quant:
-        per += 2 * config.n_layers * scale_rows(config.n_kv_heads) * page_size * 4
+        per += 2 * config.n_layers * scale_rows(config.local_kv_heads) * page_size * 4
     return per
 
 

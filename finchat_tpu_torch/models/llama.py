@@ -28,13 +28,14 @@ JAX package's layout.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
 import torch.utils.checkpoint
 
 from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dense, dequantize, write_slice
+from finchat_tpu_torch.ops.tp_overlap import COLLECTIVES, row_parallel_dense
 from finchat_tpu_torch.utils.precision import ieee_fp32
 
 # attention callback signature:
@@ -61,10 +62,28 @@ class LlamaConfig:
     # layer, each token routed to ``top_k_experts`` of them (``moe_mlp``)
     n_experts: int = 0
     top_k_experts: int = 2
+    # tensor parallelism: this rank's shard of the model
+    # (``ops/tp_overlap.TPShard``), None for the whole model on one device.
+    # Set by the TP engine; the widths above stay the whole model's
+    tp: Any = field(default=None, compare=False, repr=False)
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    @property
+    def tp_size(self) -> int:
+        return self.tp.size if self.tp is not None else 1
+
+    @property
+    def local_heads(self) -> int:
+        """Query heads on this rank."""
+        return self.n_heads // self.tp_size
+
+    @property
+    def local_kv_heads(self) -> int:
+        """KV heads on this rank (its slice of the KV pool)."""
+        return self.n_kv_heads // self.tp_size
 
 
 # Model shapes follow the public architecture cards; "tiny"/"mini" are
@@ -291,26 +310,44 @@ def _layer(
     config: LlamaConfig,
     attention: AttentionFn,
 ) -> tuple[torch.Tensor, Any]:
-    """One decoder layer; ``lp`` holds this layer's slice of every leaf."""
+    """One decoder layer; ``lp`` holds this layer's slice of every leaf.
+
+    Under tensor parallelism (``config.tp``, the JAX package's manual-TP
+    layer with its ``tp_axis``, ``tp_overlap`` and ``tp_chunks``) ``lp`` is
+    this rank's shard: q/k/v run over the rank's heads (``n_heads / tp`` and
+    ``n_kv_heads / tp``: the same GQA group, so every attention route is
+    the one-device one), and ``attn_o`` and ``mlp_down`` end in the
+    row-parallel all-reduce (``ops/tp_overlap.row_parallel_dense``, chunked
+    with ``tp.overlap``). The norms and the residual stream are replicated."""
     c = config
+    tp = c.tp
     B, S, _ = x.shape
+
+    def out_proj(a: torch.Tensor, w: Any) -> torch.Tensor:
+        if tp is None:
+            return dense(a, w)
+        return row_parallel_dense(a, w, tp.group, overlap=tp.overlap, n_chunks=tp.n_chunks)
+
     h = rms_norm(x, lp["ln_attn"], c.norm_eps)
-    q = dense(h, lp["attn_q"]).view(B, S, c.n_heads, c.head_dim)
-    k = dense(h, lp["attn_k"]).view(B, S, c.n_kv_heads, c.head_dim)
-    v = dense(h, lp["attn_v"]).view(B, S, c.n_kv_heads, c.head_dim)
+    q = dense(h, lp["attn_q"]).view(B, S, c.local_heads, c.head_dim)
+    k = dense(h, lp["attn_k"]).view(B, S, c.local_kv_heads, c.head_dim)
+    v = dense(h, lp["attn_v"]).view(B, S, c.local_kv_heads, c.head_dim)
     q = rope(q, positions, c.rope_theta)
     k = rope(k, positions, c.rope_theta)
 
     attn_out, cache = attention(q, k, v, cache, layer_idx)
-    x = x + dense(attn_out.reshape(B, S, -1), lp["attn_o"])
+    x = x + out_proj(attn_out.reshape(B, S, -1), lp["attn_o"])
 
     h = rms_norm(x, lp["ln_mlp"], c.norm_eps)
     if c.n_experts:
+        if tp is not None:
+            raise NotImplementedError("mesh: MoE layers under tensor parallelism are not "
+                                      "ported yet")
         return x + moe_mlp(h, lp, c), cache
     gate = dense(h, lp["mlp_gate"])
     up = dense(h, lp["mlp_up"])
     act = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
-    return x + dense(act, lp["mlp_down"]), cache
+    return x + out_proj(act, lp["mlp_down"]), cache
 
 
 def forward(
@@ -372,8 +409,29 @@ def lm_head(params: dict[str, Any], x: torch.Tensor, *, config: LlamaConfig) -> 
     head multiplies in bf16 with an fp32 result (``out_dtype`` on the card),
     never through an fp32 copy of the [D, vocab] weight; a quantized head
     goes through the fused dequant matmul with fp32 output, as the JAX
-    package's ``preferred_element_type=float32``."""
+    package's ``preferred_element_type=float32``.
+
+    Under tensor parallelism the head is this rank's vocab slice: its fp32
+    logits are placed in a zero row of the full vocab and all-reduced, so
+    every rank holds the same full row bit for bit (x + 0 = x) and samples
+    the same token from the same generator state. A head that replicated
+    (a vocab the mesh does not divide) needs no gather."""
     head = params["embed"].T if config.tie_embeddings else params["lm_head"]
+    out = _head_logits(x, head)
+    tp = config.tp
+    if tp is None or out.shape[-1] == config.vocab_size:
+        return out
+    import torch.distributed as dist
+
+    n = out.shape[-1]
+    full = out.new_zeros(tuple(out.shape[:-1]) + (config.vocab_size,))
+    full[..., tp.rank * n:(tp.rank + 1) * n] = out
+    COLLECTIVES["logits_gather"] += 1
+    dist.all_reduce(full, group=tp.group)
+    return full
+
+
+def _head_logits(x: torch.Tensor, head: Any) -> torch.Tensor:
     if isinstance(head, (QTensor, Q4Tensor)):
         from finchat_tpu_torch.ops.dispatch import quant_matmul
 

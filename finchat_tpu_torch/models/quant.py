@@ -225,7 +225,8 @@ def quantize_llama_params(params: dict[str, Any], mode: str = "int8",
 
 
 def init_quantized_params(config: Any, generator: torch.Generator, device: torch.device | str,
-                          mode: str = "int8", group_size: int = 0) -> dict[str, Any]:
+                          mode: str = "int8", group_size: int = 0,
+                          leaf_transform: Any = None) -> dict[str, Any]:
     """Random weights with every matmul leaf ALREADY int8/int4: each leaf is
     made in the model dtype exactly as ``init_params`` makes it (same
     generator calls, same order) and quantized slice by slice before the
@@ -233,13 +234,15 @@ def init_quantized_params(config: Any, generator: torch.Generator, device: torch
     does; an expert leaf is made and quantized one layer's ``[E, K, N]``
     slice at a time (a whole bf16 one of mixtral-8x7b is 28 GiB). Equal to
     ``quantize_llama_params(init_params(...))`` on the same generator
-    state."""
+    state. ``leaf_transform(name, leaf)`` then takes each quantized leaf
+    (``parallel/sharding.leaf_sharder`` cuts a rank's slice there)."""
     from finchat_tpu_torch.models.llama import init_params
 
     validate_quant_mode(mode or "int8")
 
-    def leaf_transform(name: str, w: torch.Tensor) -> Any:
-        return quantize_stacked(w, mode=mode or "int8", group_size=group_size) \
+    def quantize_leaf(name: str, w: torch.Tensor) -> Any:
+        leaf = quantize_stacked(w, mode=mode or "int8", group_size=group_size) \
             if should_quantize(name) else w
+        return leaf_transform(name, leaf) if leaf_transform is not None else leaf
 
-    return init_params(config, generator, device, leaf_transform=leaf_transform)
+    return init_params(config, generator, device, leaf_transform=quantize_leaf)

@@ -81,7 +81,7 @@ from finchat_tpu_torch.checkpoints.hf_loader import load_llama_params
 from finchat_tpu_torch.embed.batcher import EmbedMicrobatcher
 from finchat_tpu_torch.embed.encoder import EMBED_PRESETS, EmbeddingEncoder, init_bert_params
 from finchat_tpu_torch.embed.index import DeviceVectorIndex
-from finchat_tpu_torch.engine.engine import InferenceEngine
+from finchat_tpu_torch.engine.engine import InferenceEngine, check_tp_servable
 from finchat_tpu_torch.engine.generator import EngineGenerator, StubGenerator, TextGenerator
 from finchat_tpu_torch.engine.sampler import SamplingParams
 from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
@@ -97,6 +97,7 @@ from finchat_tpu_torch.io.store import ConversationStore, make_store
 from finchat_tpu_torch.models.llama import PRESETS, init_params
 from finchat_tpu_torch.models.quant import init_quantized_params
 from finchat_tpu_torch.models.tokenizer import ByteTokenizer, get_tokenizer
+from finchat_tpu_torch.parallel.mesh import AXES, MeshSpec, mesh_devices
 from finchat_tpu_torch.serve.fleet import LIVE, DedupeRing, EngineFleet, EngineReplica
 from finchat_tpu_torch.serve.http import HTTPServer, Request, Response, StreamingResponse, sse_event
 from finchat_tpu_torch.tools.retrieval import TransactionRetriever
@@ -105,7 +106,6 @@ from finchat_tpu_torch.utils.config import (
     TRANSACTION_UPSERT_TOPIC,
     USER_MESSAGE_TOPIC,
     AppConfig,
-    MeshConfig,
     load_config,
 )
 from finchat_tpu_torch.utils.logging import get_logger
@@ -295,19 +295,8 @@ def _make_rebuild_hook(rep: EngineReplica):
     return hook
 
 
-def _mesh_devices(mesh: MeshConfig, n_available: int) -> int:
-    """How many devices the mesh config resolves to: a -1 axis absorbs
-    every device, a fully fixed mesh uses its own product."""
-    sizes = (mesh.data, mesh.pipe, mesh.seq, mesh.expert, mesh.model)
-    if -1 in sizes:
-        return n_available
-    n = 1
-    for s in sizes:
-        n *= s
-    return n
-
-
-def _load_model_artifacts(cfg: AppConfig, device: str | torch.device = "cuda") -> tuple:
+def _load_model_artifacts(cfg: AppConfig, device: str | torch.device = "cuda",
+                          mesh=None) -> tuple:
     """(model config, params, tokenizer, device). ``model.checkpoint_path``
     loads an HF safetensors checkpoint (``checkpoints/hf_loader.py``) with
     ``model.quant`` applied at load, one leaf at a time, so the
@@ -321,14 +310,11 @@ def _load_model_artifacts(cfg: AppConfig, device: str | torch.device = "cuda") -
     they mask. An HF tokenizer of another width than the rows is refused:
     the JAX package's app builds it, then fails at the decision's grammar
     mask (a mask of the tokenizer's width cannot mask a logits row of the
-    model's)."""
+    model's). With a ``mesh`` (a tensor-parallel rank) each leaf is cut to
+    this rank's slice on its device as soon as it is made or loaded
+    (``parallel/sharding.leaf_sharder``): the rank holds its shard and at
+    most one whole leaf, never the whole tree."""
     device = torch.device(device)
-    n_available = torch.cuda.device_count() if device.type == "cuda" else 1
-    n_mesh = _mesh_devices(cfg.mesh, n_available)
-    if n_mesh > 1:
-        raise NotImplementedError(
-            f"mesh: the config resolves to {n_mesh} devices; the parallel plane is not "
-            "ported yet (set every mesh axis to 1, or leave model=-1 on one card)")
     config = PRESETS[cfg.model.preset]
     if cfg.model.dtype:
         config = dataclasses.replace(config, dtype=getattr(torch, cfg.model.dtype))
@@ -341,9 +327,15 @@ def _load_model_artifacts(cfg: AppConfig, device: str | torch.device = "cuda") -
             f"model.tokenizer_path: the tokenizer has {tokenizer.vocab_size} ids, the model "
             f"{config.vocab_size} logits rows (preset {cfg.model.preset}); the decision's "
             "grammar mask must be as wide as the rows")
+    shard = None
+    if mesh is not None:
+        from finchat_tpu_torch.parallel.sharding import leaf_sharder
+
+        shard = leaf_sharder(mesh, device)
     if cfg.model.checkpoint_path:
         params = load_llama_params(cfg.model.checkpoint_path, config, device=device,
-                                   quant=cfg.model.quant, quant_group=cfg.model.quant_group)
+                                   quant=cfg.model.quant, quant_group=cfg.model.quant_group,
+                                   leaf_transform=shard)
     else:
         logger.warning("no checkpoint configured; using RANDOM weights (preset=%s)",
                        cfg.model.preset)
@@ -351,14 +343,16 @@ def _load_model_artifacts(cfg: AppConfig, device: str | torch.device = "cuda") -
         gen.manual_seed(cfg.model.seed)
         if cfg.model.quant:
             params = init_quantized_params(config, gen, device, mode=cfg.model.quant,
-                                           group_size=cfg.model.quant_group)
+                                           group_size=cfg.model.quant_group,
+                                           leaf_transform=shard)
         else:
-            params = init_params(config, gen, device)
+            params = init_params(config, gen, device, leaf_transform=shard)
     return config, params, tokenizer, device
 
 
 def make_engine_replica(cfg: AppConfig, artifacts: tuple, replica_id: str | None = None,
-                        fabric=None) -> tuple[EngineGenerator, ContinuousBatchingScheduler]:
+                        fabric=None, mesh=None, channel=None
+                        ) -> tuple[EngineGenerator, ContinuousBatchingScheduler]:
     """One engine over the shared artifacts: its own KV page pool, scheduler
     and session cache over the artifacts' parameter tensors (an already
     quantized tree is kept as it is, so replicas share it too), warmed up
@@ -366,11 +360,17 @@ def make_engine_replica(cfg: AppConfig, artifacts: tuple, replica_id: str | None
     the scheduler's metrics (``METRICS.labeled(replica=...)``) and stamps its
     fault sites. ``fabric`` (engine/warm_fabric.py) makes the replica's
     session tier the fleet's shared one, and its shared prompt heads restore
-    from and publish to it."""
+    from and publish to it. With a ``mesh`` the engine is rank 0 of a
+    tensor-parallel group, and ``channel`` mirrors its calls on the other
+    ranks (``parallel/ranks.Leader``, kept as ``engine.leader``)."""
     config, params, tokenizer, device = artifacts
     metrics = METRICS.labeled(replica=replica_id) if replica_id is not None else None
     engine = InferenceEngine(config, params, cfg.engine, device=device,
-                             quant=cfg.model.quant, quant_group=cfg.model.quant_group)
+                             quant=cfg.model.quant, quant_group=cfg.model.quant_group, mesh=mesh)
+    if channel is not None:
+        from finchat_tpu_torch.parallel.ranks import Leader
+
+        engine.leader = Leader(engine, channel)
     if cfg.engine.warmup_on_start:
         engine.warmup()
     scheduler = ContinuousBatchingScheduler(engine, eos_id=tokenizer.eos_id, metrics=metrics,
@@ -397,18 +397,60 @@ def make_warm_fabric(cfg: AppConfig):
         return None
 
 
-def build_generators(cfg: AppConfig, device: str | torch.device = "cuda", fabric=None
+def build_generators(cfg: AppConfig, device: str | torch.device = "cuda", fabric=None,
+                     mesh=None, channel=None
                      ) -> tuple[TextGenerator, TextGenerator,
                                 ContinuousBatchingScheduler | None, object]:
     """(tool_generator, response_generator, scheduler, tokenizer):
     ``model.preset == "stub"`` gives canned generators and no engine;
-    anything else one engine whose scheduler serves both agent roles."""
+    anything else one engine whose scheduler serves both agent roles (rank
+    0 of a tensor-parallel group with a ``mesh`` and its ``channel``)."""
     if cfg.model.preset == "stub":
         stub = StubGenerator(default="I'm Penny, here to help with your finances.")
         return stub, stub, None, get_tokenizer()
-    artifacts = _load_model_artifacts(cfg, device)
-    generator, scheduler = make_engine_replica(cfg, artifacts, fabric=fabric)
+    artifacts = _load_model_artifacts(cfg, mesh.device if mesh is not None else device, mesh=mesh)
+    generator, scheduler = make_engine_replica(cfg, artifacts, fabric=fabric, mesh=mesh,
+                                               channel=channel)
     return generator, generator, scheduler, artifacts[2]
+
+
+def _refuse_mesh_planes(cfg: AppConfig, n_devices: int) -> None:
+    """The planes a mesh does not serve yet, refused by name before any
+    rank starts: the engine's (``check_tp_servable``) and the app's own."""
+    sizes = dict(zip(AXES, MeshSpec.from_config(cfg.mesh).resolve(n_devices)))
+    check_tp_servable(PRESETS[cfg.model.preset], sizes)
+    if cfg.fleet.replicas > 1:
+        raise NotImplementedError(
+            f"mesh: a fleet of {cfg.fleet.replicas} replicas (fleet.roles "
+            f"{cfg.fleet.roles!r}) over a mesh: each replica needs a rank group of its own, "
+            "not served yet")
+    if cfg.pod.host_id:
+        raise NotImplementedError(
+            f"mesh: the pod plane (pod.host_id {cfg.pod.host_id!r}) over a mesh is not served "
+            "yet")
+
+
+def _start_mesh(cfg: AppConfig, devices: list) -> tuple:
+    """Rank 0 of a served mesh: the followers spawned (each loads its own
+    shard), the process group joined, the mesh and the channel built.
+    Returns ``(mesh, channel, procs)``."""
+    from finchat_tpu_torch.parallel.mesh import build_mesh, default_backend, initialize_distributed
+    from finchat_tpu_torch.parallel.ranks import RankChannel, rendezvous, spawn_followers
+
+    backend = default_backend(devices[0])
+    init_method = rendezvous()
+    procs = spawn_followers(cfg, devices, backend, init_method)
+    try:
+        if devices[0].type == "cuda":
+            torch.cuda.set_device(devices[0])
+        initialize_distributed(len(devices), 0, backend=backend, init_method=init_method,
+                               device=devices[0])
+        mesh = build_mesh(MeshSpec.from_config(cfg.mesh), devices, backend)
+        return mesh, RankChannel(mesh), procs
+    except BaseException:
+        for p in procs:
+            p.terminate()
+        raise
 
 
 class App:
@@ -427,6 +469,9 @@ class App:
         # _agent_for; ``agent`` and ``scheduler`` stay replica 0's, started
         # and stopped through the fleet
         self.fleet = fleet
+        # a served mesh (parallel/ranks.RankGroup): this process is rank 0;
+        # stop() stops and joins the other ranks
+        self.ranks = None
         self.retriever = retriever
         self.server = HTTPServer(cfg.serve.host, cfg.serve.port)
         self.server.route("GET", "/health", self.health)
@@ -567,6 +612,9 @@ class App:
             await self.fleet.stop()
         elif self.scheduler is not None:
             await self.scheduler.stop()
+        if self.ranks is not None:
+            # a served mesh: the followers stop and are joined, no rank left
+            await asyncio.to_thread(self.ranks.close)
         # the snapshot's compression and file IO off the loop
         await asyncio.to_thread(self._persist_index, True)
         await self.server.stop()
@@ -661,7 +709,11 @@ class App:
     def _agent_for(self, conversation_id: str) -> LLMAgent:
         """The agent serving this conversation: the fleet's route (which
         also migrates its session bytes home), else the one agent. Raises
-        RuntimeError when no replica is live."""
+        RuntimeError when no replica is live, or when a rank of a served
+        mesh is gone."""
+        down = self.ranks.down() if self.ranks is not None and not self.ranks.closed else None
+        if down is not None:
+            raise RuntimeError(f"mesh: {down}")
         if self.fleet is not None:
             return self.fleet.agent_for(conversation_id)
         return self.agent
@@ -800,6 +852,10 @@ class App:
 
     # --- HTTP handlers --------------------------------------------------
     async def health(self, request: Request) -> Response:
+        down = self.ranks.down() if self.ranks is not None and not self.ranks.closed else None
+        if down is not None:  # a served mesh lost a rank: not ready, retry elsewhere
+            return Response.json({"status": "unhealthy", "detail": f"mesh: {down}",
+                                  "retryable": True}, status=503)
         return Response.json({"status": "healthy"})
 
     async def metrics(self, request: Request) -> Response:
@@ -1243,7 +1299,15 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
     development. The engines (``model.preset`` other than ``"stub"``, where
     a generator is not injected: one, or ``fleet.replicas`` over one
     parameter tree) and, without an injected ``retriever``, the retriever
-    ``build_retriever`` makes run on ``device``."""
+    ``build_retriever`` makes run on ``device``.
+
+    A ``mesh`` config that resolves to more than one device
+    (``parallel/mesh.mesh_devices``) serves the model tensor-parallel: this
+    process is rank 0 and serves, one follower process a further device is
+    spawned (each loads its own shard from the same seed or checkpoint), and
+    ``App.stop`` (so ``drain_and_stop``) stops and joins them. Refused by
+    name on a mesh: the data, pipe, seq and expert axes, an MoE preset, a
+    fleet (and so disagg) and the pod plane."""
     cfg = cfg or load_config()
     TRACER.configure(enabled=cfg.tracing.enabled, ring_events=cfg.tracing.ring_events,
                      flight_dir=cfg.tracing.flight_dir)
@@ -1253,11 +1317,16 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
     scheduler = None
     tokenizer = None
     fleet_replicas: list[EngineReplica] | None = None
+    ranks = None
     if tool_generator is None or response_generator is None:
         # the warm-state fabric: one shared session tier and head store for
         # every replica built below (a one-engine worker uses it too: restarts
         # and other processes on the path resume each other's conversations)
         fabric = make_warm_fabric(cfg) if cfg.model.preset != "stub" else None
+        devices = (mesh_devices(MeshSpec.from_config(cfg.mesh), device)
+                   if cfg.model.preset != "stub" else [])
+        if len(devices) > 1:
+            _refuse_mesh_planes(cfg, len(devices))
         if cfg.fleet.replicas > 1 and cfg.model.preset != "stub":
             # the engine fleet: N replicas over ONE parameter tree, each with
             # its own pool, scheduler, session cache and labeled metrics;
@@ -1277,8 +1346,23 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
             tool_generator = tool_generator or fleet_replicas[0].generator
             response_generator = response_generator or fleet_replicas[0].generator
         else:
-            tool_gen, resp_gen, scheduler, tokenizer = build_generators(cfg, device,
-                                                                        fabric=fabric)
+            mesh = channel = None
+            if len(devices) > 1:
+                # tensor parallelism: this process is rank 0 and drives the
+                # engine; ranks 1.. follow its calls on their shards
+                from finchat_tpu_torch.parallel.ranks import RankGroup
+
+                mesh, channel, procs = _start_mesh(cfg, devices)
+                ranks = RankGroup(None, procs)
+            try:
+                tool_gen, resp_gen, scheduler, tokenizer = build_generators(
+                    cfg, device, fabric=fabric, mesh=mesh, channel=channel)
+            except BaseException:
+                if ranks is not None:
+                    ranks.close(join_s=5.0)
+                raise
+            if ranks is not None:
+                ranks.attach(scheduler.engine.leader)
             tool_generator = tool_generator or tool_gen
             response_generator = response_generator or resp_gen
     if retriever is None:
@@ -1310,6 +1394,7 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
     app_retriever = retriever if hasattr(retriever, "upsert_transactions") else None
     app = App(cfg, agent=agent, store=store, kafka=kafka, scheduler=scheduler,
               retriever=app_retriever, fleet=fleet)
+    app.ranks = ranks
     if app._prefix_cache_enabled and tokenizer is not None:
         if fleet is not None:
             for rep in fleet.replicas:

@@ -190,9 +190,9 @@ class ModelConfig:
 
 @dataclass
 class MeshConfig:
-    """Device mesh axes. The port serves one card: ``build_app`` refuses a
-    mesh that resolves to more than one device until the parallel plane is
-    ported.
+    """Device mesh axes. ``build_app`` serves a mesh that resolves to more
+    than one device tensor-parallel over ``model`` (``parallel/``, one
+    process a rank) and refuses the other axes above 1 by name.
 
     Axis names follow the scaling-book convention: ``data`` (DP/batch),
     ``pipe`` (PP stages), ``model`` (TP), ``seq`` (SP/ring attention),

@@ -42,6 +42,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_leak_audit import port_scheduler_leak_audit  # noqa: E402,F401  (the leak audit)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

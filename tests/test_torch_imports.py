@@ -119,3 +119,13 @@ def test_the_fleet_planes_modules_are_walked(module):
     """The warm-state fabric, the pod plane, and the session cache's and the
     broker's hooks for them are among the files walked above."""
     assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["parallel/__init__.py", "parallel/mesh.py",
+                                    "parallel/sharding.py", "parallel/ranks.py",
+                                    "ops/tp_overlap.py"])
+def test_the_parallel_modules_are_walked(module):
+    """The mesh, the sharding rules, the rank protocol and the row-parallel
+    collective are among the files walked above (the JAX package's
+    counterparts import JAX: the port keeps its own)."""
+    assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
