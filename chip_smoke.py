@@ -1364,7 +1364,8 @@ def grad_errors(torch, got, want) -> tuple[float, float, float]:
 
 
 def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list[int],
-                kv_lens: list[int], results: list, backward: bool = False) -> None:
+                kv_lens: list[int], results: list, backward: bool = False,
+                launch_plane: str | None = None) -> None:
     """K7 against its plain version at one causal shape: the forward (out
     and log-sum-exp) through the kernel ``flash_kernel_for`` names, and the
     older forward by name beside it where that is another; or with
@@ -1374,7 +1375,8 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
     filled with NaN, each backward over dq, dk and dv filled with NaN
     (identical results); a forward's prepared launch is timed alone, a
     backward's as one launch of 20 in a CUDA graph, the routed wrapper's
-    time beside it."""
+    time beside it. ``launch_plane`` names the main-path window whose
+    launches the row reports (default: the train phase's)."""
     import torch.nn.functional as F
 
     from finchat_tpu_torch.ops.flash_attention import (
@@ -1392,6 +1394,7 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
 
+    plane = dict(launch_plane=launch_plane) if launch_plane else {}
     q, k, v, dout = rnd(B, Sq, H, D), rnd(B, Sk, HKV, D), rnd(B, Sk, HKV, D), rnd(B, Sq, H, D)
     qo = torch.tensor(q_offsets, dtype=torch.int32, device=dev)
     kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
@@ -1463,7 +1466,7 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
                    if routed_ms else ""))
             results.append(dict(case=name, kernel=call.name, err=err, rel_err=rel, ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                library_ms=lib_ms, **routed_ms))
+                                library_ms=lib_ms, **routed_ms, **plane))
         torch.cuda.empty_cache()
         return
     log(f"  {name}: the backwards read the out and lse of {routed.name}")
@@ -1542,7 +1545,7 @@ def check_flash(torch, name, gen, dev, B: int, Sq: int, Sk: int, q_offsets: list
             f"backward less forward), bound {b_ms:.4f} ms ({b_by}), share {b_ms / ms:.2f}")
         results.append(dict(case=name, kernel=call.name, err=err, rel_err=worst, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                            **routed_ms))
+                            **routed_ms, **plane))
     del leaves
     torch.cuda.empty_cache()
 
@@ -8214,6 +8217,304 @@ def train_full(torch, dev, card: str, steps: int = 5) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 6b: training over a mesh
+# --------------------------------------------------------------------------
+
+TRAIN_MESH_DEPTH = 4
+TRAIN_MESH_B, TRAIN_MESH_S = 2, 1024
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_SEED = 0
+# every collective, the ranks' rendezvous and each read of their results
+# wait at most this long
+TRAIN_MESH_TIMEOUT_S = 300.0
+TRAIN_MESH_RANKS = 4
+# (b) holds each step's loss within TRAIN_LOSS_TOL of the one-device step's;
+# for the routed model a later step is held instead within twice the
+# one-device run's own spread (if larger): the same steps with the expert
+# products in blocks of this many tokens, an equally valid rounding. bf16
+# AdamW's first step is sign-like (an element with a gradient at rounding
+# level moves 2 lr either way) and the fp32 router turns that into other
+# experts for near-tie tokens, so the trajectory moves under rounding alone
+# (0.021 and 0.14 at steps 2 and 3 on the card, against 5.8e-4 at step 1)
+TRAIN_MESH_SPREAD_BLOCK = 128
+# the meshes of (b), one after the other over one world of four gloo ranks
+# on the card: (name, axis sizes, preset, layers, B, S, n_micro or None)
+TRAIN_MESHES = (
+    ("data2_model2", dict(data=2, model=2), "llama3-8b", TRAIN_MESH_DEPTH, TRAIN_MESH_B,
+     TRAIN_MESH_S, None),
+    ("pipe2_model2", dict(pipe=2, model=2), "llama3-8b", TRAIN_MESH_DEPTH, TRAIN_MESH_B,
+     TRAIN_MESH_S, 2),
+    ("expert2_model2", dict(expert=2, model=2), "mixtral-8x7b", 2, 1, 512, None),
+)
+
+
+def _mesh_train_run(torch, dev, config, B: int, S: int, mesh=None, n_micro: int | None = None,
+                    transform=None, keep_params: bool = False) -> dict:
+    """``TRAIN_MESH_STEPS`` AdamW steps (default settings, remat on) from
+    the weights and batch of ``TRAIN_MESH_SEED``: ``make_train_step`` with
+    no mesh or over ``mesh`` (this rank's batch slice), or the pipeline's at
+    ``n_micro`` (the whole batch); ``transform`` cuts each leaf as it is
+    made. Launches are counted from 0 just before the steps. The losses, step
+    seconds, launches, this rank's weight bytes and its peak (and with
+    ``keep_params`` the parameters after the steps)."""
+    from finchat_tpu_torch.models.llama import init_params
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.parallel.pipeline import make_pipeline_train_step
+    from finchat_tpu_torch.parallel.sharding import shard_batch
+    from finchat_tpu_torch.train.train_step import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_MESH_SEED)
+    params = init_params(config, gen, dev, leaf_transform=transform)
+    tokens = torch.randint(0, config.vocab_size, (B, S), generator=gen, device=dev)
+    weight_gb = _tree_bytes(params) / 1e9
+    optimizer = make_optimizer()
+    state = init_train_state(config, params, optimizer)
+    if n_micro:
+        step = make_pipeline_train_step(config, optimizer, mesh, n_micro=n_micro)
+        batch = tokens
+    else:
+        step = make_train_step(config, optimizer, mesh)
+        batch = shard_batch(tokens, mesh) if mesh is not None else tokens
+    losses, times = [], []
+    reset_launches()
+    for _ in range(TRAIN_MESH_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    out = dict(losses=losses, step_s=times, launches={k: n for k, n in LAUNCHES.items() if n},
+               weight_gb=weight_gb, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    if keep_params:
+        for _path, leaf in tree_leaves(state.params):
+            leaf.grad = None
+        out["params"] = state.params
+    del state, params, step
+    _free(torch)
+    return out
+
+
+def _k7_expected(layers: int, n_micro: int | None) -> dict:
+    """K7's launches in ``TRAIN_MESH_STEPS`` steps of a rank running
+    ``layers`` layers over ``n_micro`` microbatches: the Hopper forward
+    twice a layer a microbatch (remat), the Hopper backward once, nothing
+    else."""
+    n = layers * (n_micro or 1) * TRAIN_MESH_STEPS
+    return {"flash_attention_sm90": 2 * n, "flash_attention_bwd_sm90": n}
+
+
+def _train_mesh_rank(rank: int, init_method: str, device: str, go, queue) -> None:
+    """One of the four gloo ranks of (b), a spawned process on the card: its
+    CUDA context made while the parent runs (a), then, once ``go`` is set,
+    every mesh of ``TRAIN_MESHES`` over the same world in turn (each leaf
+    cut to the rank's slice as it is made), its results to ``queue`` and
+    its state freed before the next."""
+    import dataclasses
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from finchat_tpu_torch.models.llama import PRESETS
+    from finchat_tpu_torch.parallel.mesh import MeshSpec, build_mesh, initialize_distributed
+    from finchat_tpu_torch.parallel.pipeline import pipeline_shardings
+    from finchat_tpu_torch.parallel.sharding import leaf_sharder
+
+    dev = torch.device(device)
+    try:
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)
+        if not go.wait(TRAIN_MESH_TIMEOUT_S):
+            raise TimeoutError("the parent never started the meshes")
+        initialize_distributed(TRAIN_MESH_RANKS, rank, backend="gloo", init_method=init_method,
+                               timeout_s=TRAIN_MESH_TIMEOUT_S, device=dev)
+        try:
+            for name, sizes, preset, depth, B, S, n_micro in TRAIN_MESHES:
+                mesh = build_mesh(MeshSpec(**sizes), [dev] * TRAIN_MESH_RANKS, "gloo",
+                                  timeout_s=TRAIN_MESH_TIMEOUT_S)
+                config = dataclasses.replace(PRESETS[preset], n_layers=depth)
+                specs = pipeline_shardings(config, mesh) if n_micro else None
+                res = _mesh_train_run(torch, dev, config, B, S, mesh=mesh, n_micro=n_micro,
+                                      transform=leaf_sharder(mesh, dev, specs))
+                queue.put((rank, name, res))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # the process's boundary: the parent reports it
+        queue.put((rank, "error", traceback.format_exc()))
+
+
+def train_mesh_phase(torch, dev, card: str, results: list) -> dict:
+    """Training over a mesh: the DP x TP train step, the GPipe pipeline and
+    expert-parallel MoE training, on the one card.
+
+    (a) ``llama3-8b`` at full width over ``TRAIN_MESH_DEPTH`` layers, B=2,
+    S=1024, random bf16 weights from ``TRAIN_MESH_SEED``, remat on: three
+    AdamW steps with no mesh and three over a one-rank NCCL mesh from the
+    same weights: the losses and the parameters after the third step
+    bit-equal, K7's launches equal (the Hopper forward twice a layer a step,
+    the Hopper backward once, nothing else). The no-mesh losses are (b)'s
+    reference; then ``mixtral-8x7b`` at its published widths over 2 layers,
+    B=1, S=512, three steps on one device: the MoE reference.
+    (b) Four gloo ranks on the card (spawned at the phase's start, started
+    once both references are freed), three meshes over the same world in
+    turn: data=2 x model=2 and pipe=2 x model=2 (n_micro=2) on (a)'s model
+    and batch, expert=2 x model=2 on the Mixtral one. Every loss finite, the
+    third below the first, each within ``TRAIN_LOSS_TOL`` of the one-device
+    step's (a later Mixtral step within twice the one-device run's own
+    spread, if larger: ``TRAIN_MESH_SPREAD_BLOCK``) and equal on every rank;
+    every rank's K7 launches exact for its layers and microbatches and equal
+    across ranks.
+    (c) K7 forward and backward at a rank's heads (16 query, 4 KV, head dim
+    128; B=1, S=1024, causal) against their plain versions, timed by the
+    script's rules (rows of the ``kernels`` line, their launches rank 0's in
+    (b)).
+    No number of the phase is a training rate over ranks: a gloo collective
+    stages through the host."""
+    import dataclasses
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    import torch.distributed as dist
+
+    from finchat_tpu_torch.models import llama
+    from finchat_tpu_torch.models.llama import PRESETS
+    from finchat_tpu_torch.ops.kernels import LAUNCHES
+    from finchat_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from finchat_tpu_torch.parallel.ranks import rendezvous
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    queue, go = ctx.Queue(), ctx.Event()
+    init = rendezvous()
+    ranks = [ctx.Process(target=_train_mesh_rank, args=(r, init, str(dev), go, queue),
+                         daemon=True, name=f"train-mesh-rank-{r}")
+             for r in range(TRAIN_MESH_RANKS)]
+    for p in ranks:
+        p.start()
+    out: dict = {"card": card}
+    try:
+        _free(torch)
+        dense = dataclasses.replace(PRESETS["llama3-8b"], n_layers=TRAIN_MESH_DEPTH)
+        plain = _mesh_train_run(torch, dev, dense, TRAIN_MESH_B, TRAIN_MESH_S, keep_params=True)
+        mesh = build_mesh(MeshSpec(model=1), [dev])
+        try:
+            one = _mesh_train_run(torch, dev, dense, TRAIN_MESH_B, TRAIN_MESH_S, mesh=mesh,
+                                  keep_params=True)
+        finally:
+            dist.destroy_process_group()
+        plain_params, one_params = plain.pop("params"), one.pop("params")
+        same = [path for (path, a), (_p, b) in zip(tree_leaves(plain_params),
+                                                   tree_leaves(one_params))
+                if torch.equal(a, b)]
+        n_leaves = len(list(tree_leaves(plain_params)))
+        del plain_params, one_params
+        _free(torch)
+        want = _k7_expected(TRAIN_MESH_DEPTH, None)
+        log(f"  (a) llama3-8b, {TRAIN_MESH_DEPTH} layers, B={TRAIN_MESH_B} S={TRAIN_MESH_S}: "
+            f"losses no mesh {plain['losses']}, one NCCL rank {one['losses']}; parameters "
+            f"bit-equal after {TRAIN_MESH_STEPS} steps: {len(same)} of {n_leaves} leaves; "
+            f"launches {plain['launches']} / {one['launches']}; step seconds "
+            f"{[round(t, 4) for t in plain['step_s']]} / {[round(t, 4) for t in one['step_s']]}; "
+            f"peak {plain['peak_gb']:.2f} / {one['peak_gb']:.2f} GB ({card})")
+        if not (plain["losses"] == one["losses"] and len(same) == n_leaves
+                and plain["launches"] == one["launches"] == want):
+            fail(f"train_mesh (a): a one-rank NCCL mesh does not train bit-equal to no mesh, or "
+                 f"K7's launches are not {want}")
+        _n, _sizes, preset, depth, B, S, _m = TRAIN_MESHES[-1]
+        moe = dataclasses.replace(PRESETS[preset], n_layers=depth)
+        moe_ref = _mesh_train_run(torch, dev, moe, B, S)
+        block, llama.MOE_BLOCK_TOKENS = llama.MOE_BLOCK_TOKENS, TRAIN_MESH_SPREAD_BLOCK
+        try:
+            moe_alt = _mesh_train_run(torch, dev, moe, B, S)
+        finally:
+            llama.MOE_BLOCK_TOKENS = block
+        spread = [abs(a - b) for a, b in zip(moe_alt["losses"], moe_ref["losses"])]
+        log(f"  (a) {preset}, {depth} layers, B={B} S={S}, one device: losses "
+            f"{moe_ref['losses']}; with the experts in blocks of {TRAIN_MESH_SPREAD_BLOCK} "
+            f"tokens {moe_alt['losses']} (spread {spread}); launches {moe_ref['launches']}; "
+            f"step seconds {[round(t, 4) for t in moe_ref['step_s']]}; peak "
+            f"{moe_ref['peak_gb']:.2f} GB ({card})")
+        out["a"] = dict(no_mesh=plain, one_rank_nccl=one, moe_reference=moe_ref,
+                        moe_spread=dict(losses=moe_alt["losses"], spread=spread))
+        reference = {"llama3-8b": plain["losses"], preset: moe_ref["losses"]}
+        limits = {"llama3-8b": [TRAIN_LOSS_TOL] * TRAIN_MESH_STEPS,
+                  preset: [TRAIN_LOSS_TOL] + [max(TRAIN_LOSS_TOL, 2 * x) for x in spread[1:]]}
+        _free(torch)
+        out["references_s"] = time.perf_counter() - t0
+
+        go.set()
+        got: dict = {}
+        for _ in range(TRAIN_MESH_RANKS * len(TRAIN_MESHES)):
+            try:
+                rank, name, res = queue.get(timeout=TRAIN_MESH_TIMEOUT_S)
+            except queue_mod.Empty:
+                fail("train_mesh (b): a rank sent no result in time")
+            if name == "error":
+                fail(f"train_mesh (b): rank {rank} failed:\n{res}")
+            got.setdefault(name, {})[rank] = res
+        for p in ranks:
+            p.join(timeout=60)
+        summed: dict = {r: {} for r in range(TRAIN_MESH_RANKS)}
+        for name, sizes, preset, depth, B, S, n_micro in TRAIN_MESHES:
+            runs = got[name]
+            want = _k7_expected(depth // sizes.get("pipe", 1), n_micro)
+            ref, limit = reference[preset], limits[preset]
+            for rank in sorted(runs):
+                r = runs[rank]
+                log(f"  (b) {name} ({preset}, {depth} layers, B={B} S={S}"
+                    + (f", n_micro={n_micro}" if n_micro else "") + f") rank {rank}: losses "
+                    f"{r['losses']} (one device {ref}); step seconds "
+                    f"{[round(t, 3) for t in r['step_s']]} (gloo stages through the host: not a "
+                    f"rate); launches {r['launches']}; weights {r['weight_gb']:.3f} GB, peak "
+                    f"{r['peak_gb']:.2f} GB ({card})")
+                for k, n in r["launches"].items():
+                    summed[rank][k] = summed[rank].get(k, 0) + n
+                losses = r["losses"]
+                if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                        and all(abs(a - b) <= t for a, b, t in zip(losses, ref, limit))
+                        and losses == runs[0]["losses"] and r["launches"] == want):
+                    fail(f"train_mesh (b) {name} rank {rank}: losses {losses} against one "
+                         f"device's {ref} (limits {limit}) and rank 0's, or launches "
+                         f"{r['launches']} against {want}")
+        if any(summed[r] != summed[0] for r in summed):
+            fail(f"train_mesh (b): the ranks' launches differ: {summed}")
+        out["b"] = got
+        # every kernel's count, those no rank launched at 0 (the kernels line reads them all)
+        out["launches"] = {k: summed[0].get(k, 0) for k in LAUNCHES}
+        out["meshes_s"] = time.perf_counter() - t0 - out["references_s"]
+        log(f"  the references {out['references_s']:.1f} s, the meshes {out['meshes_s']:.1f} s "
+            "(the ranks' start overlapping the references)")
+
+        log("  (c) K7 at a rank's heads (16 query, 4 KV, head dim 128; B=1, S=1024, causal):")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2727)
+        with _RankHeads(16, 4):
+            check_flash(torch, "flash_fwd_causal_s1024_h16", gen, dev, 1, 1024, 1024, [0], [1024],
+                        results, launch_plane="train_mesh")
+            check_flash(torch, "flash_bwd_causal_s1024_h16", gen, dev, 1, 1024, 1024, [0], [1024],
+                        results, backward=True, launch_plane="train_mesh")
+    finally:
+        go.set()
+        for p in ranks:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=10)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -8479,6 +8780,13 @@ def main() -> None:
     train["check"] = check
     log("train: " + json.dumps(train))
 
+    log(f"phase 6b, train_mesh: llama3-8b ({TRAIN_MESH_DEPTH} layers) and mixtral-8x7b (2 "
+        "layers), random weights, trained over meshes: one NCCL rank against no mesh; four "
+        "gloo ranks on the card: data=2 x model=2, pipe=2 x model=2, expert=2 x model=2; K7 at "
+        "a rank's heads")
+    train_mesh = train_mesh_phase(torch, dev, card, results)
+    log(f"train_mesh ({train_mesh['seconds']:.1f} s): " + json.dumps(train_mesh))
+
     src = "finchat_tpu_torch/csrc/"
     paged = "finchat_tpu/ops/paged_attention.py:305"
     q8_paged = "finchat_tpu/ops/paged_attention.py:221"
@@ -8527,6 +8835,7 @@ def main() -> None:
     launched["pod"] = pod["launches"]
     launched["moe"] = moe["launches"]
     launched["tp"] = tp["launches"]
+    launched["train_mesh"] = train_mesh["launches"]
     # each rank's launches in the tp phase: the one-rank NCCL mesh's (both
     # depths), and rank 0's and rank 1's over the two gloo planes
     tp_ranks = {"tp_one_rank_launches": {}, "tp_rank0_launches": {}, "tp_rank1_launches": {}}
@@ -8565,6 +8874,9 @@ def main() -> None:
         # and on each rank of the tp phase
         for col, counts in tp_ranks.items():
             row[col] = counts.get(kname, 0)
+        # and on rank 0 of the train_mesh phase's four gloo ranks (equal on
+        # every rank)
+        row["train_mesh_launches"] = launched["train_mesh"].get(kname, 0)
         table.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

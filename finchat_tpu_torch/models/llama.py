@@ -34,8 +34,21 @@ from typing import Any, Callable
 import torch
 import torch.utils.checkpoint
 
-from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dense, dequantize, write_slice
+from finchat_tpu_torch.models.quant import (
+    Q4Tensor,
+    QTensor,
+    dense,
+    dense_fp32,
+    dequantize,
+    write_slice,
+)
 from finchat_tpu_torch.ops.tp_overlap import COLLECTIVES, row_parallel_dense
+from finchat_tpu_torch.parallel.collectives import (
+    copy_to_group,
+    group_size,
+    reduce_from_group,
+    sum_in_place,
+)
 from finchat_tpu_torch.utils.precision import ieee_fp32
 
 # attention callback signature:
@@ -271,7 +284,18 @@ def moe_mlp(h: torch.Tensor, lp: dict[str, Any], config: LlamaConfig) -> torch.T
     the blocks change no value's arithmetic, only how many activations are
     live). A quantized expert leaf (``QTensor`` / ``Q4Tensor``) is
     dequantized inline, this layer's ``[E, K, N]`` slice only, as the
-    reference does. On the card the engine books those products on
+    reference does.
+
+    Under a shard (``config.tp`` with its ``expert_group``, training over
+    a mesh) ``lp`` holds this rank's ``E / ep`` experts over its ``F / tp``
+    columns: the rank runs them over every token and its partial output is
+    summed over the ``("expert", "model")`` group in one all-reduce (not
+    over ``expert`` and then ``model``, whose two roundings differ), a bf16
+    rank's part in fp32, rounded once (parts rounded to bf16 and summed
+    would differ from the one-device product by more than its rounding). The
+    router and the gates stay replicated; the gates and the experts' input
+    enter through ``copy_to_group`` on that group, so the router's gradient
+    is the whole one on every rank. On the card the engine books those products on
     ``finchat_quantmatmul_fallbacks_total``: three (gate, up, down) once per
     engine and step kind, the first time it dispatches the kind
     (``InferenceEngine``); the JAX package counts them once per trace of a
@@ -280,23 +304,37 @@ def moe_mlp(h: torch.Tensor, lp: dict[str, Any], config: LlamaConfig) -> torch.T
     w_gate, w_up, w_down = (dequantize(w, h.dtype) if isinstance(w, (QTensor, Q4Tensor)) else w
                             for w in (lp["moe_gate"], lp["moe_up"], lp["moe_down"]))
     E, F, D = w_down.shape
+    tp = config.tp
+    group = tp.expert_group if tp is not None else None
+    sharded = group_size(group) > 1
+    if sharded:
+        h = copy_to_group(h, group)
+        gates = copy_to_group(gates, group)
+        if E != gates.shape[-1]:  # this rank's experts
+            gates = gates[..., tp.ep_rank * E:(tp.ep_rank + 1) * E]
 
     def experts(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:  # [T, D], [T, E]
         gate = torch.matmul(x, w_gate)  # [E, T, F]
         up = torch.matmul(x, w_up)
         act = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
         act = act * g.t()[..., None]  # the experts a token was not routed to: zero
-        return act.transpose(0, 1).reshape(x.shape[0], E * F) @ w_down.reshape(E * F, D)
+        act = act.transpose(0, 1).reshape(x.shape[0], E * F)
+        if sharded:  # a part of the sum: fp32, rounded once the parts are summed
+            return dense_fp32(act, w_down.reshape(E * F, D))
+        return act @ w_down.reshape(E * F, D)
 
     lead = h.shape[:-1]
     x, g = h.reshape(-1, D), gates.reshape(-1, E)
     R = MOE_BLOCK_TOKENS
     if x.shape[0] <= R:
-        return experts(x, g).reshape(*lead, D)
-    # a block of tokens at a time: every token's [E, F] activations (in fp32
-    # at the SiLU) would otherwise be live at once, ~40 GB for a 32k-token
-    # round of mixtral-8x7b
-    out = torch.cat([experts(x[i:i + R], g[i:i + R]) for i in range(0, x.shape[0], R)])
+        out = experts(x, g)
+    else:
+        # a block of tokens at a time: every token's [E, F] activations (in
+        # fp32 at the SiLU) would otherwise be live at once, ~40 GB for a
+        # 32k-token round of mixtral-8x7b
+        out = torch.cat([experts(x[i:i + R], g[i:i + R]) for i in range(0, x.shape[0], R)])
+    if sharded:
+        out = reduce_from_group(out, group).to(h.dtype)
     return out.reshape(*lead, D)
 
 
@@ -318,7 +356,12 @@ def _layer(
     ``n_kv_heads / tp``: the same GQA group, so every attention route is
     the one-device one), and ``attn_o`` and ``mlp_down`` end in the
     row-parallel all-reduce (``ops/tp_overlap.row_parallel_dense``, chunked
-    with ``tp.overlap``). The norms and the residual stream are replicated."""
+    with ``tp.overlap``). The norms and the residual stream are replicated.
+    For training, the input of each column-parallel product (q/k/v,
+    gate/up) enters through ``copy_to_group``: its gradient is summed over
+    the ranks, so the norms' and the embedding's gradients are whole on
+    every rank. An MoE layer's experts run under ``moe_mlp``'s own shard
+    rule."""
     c = config
     tp = c.tp
     B, S, _ = x.shape
@@ -328,7 +371,10 @@ def _layer(
             return dense(a, w)
         return row_parallel_dense(a, w, tp.group, overlap=tp.overlap, n_chunks=tp.n_chunks)
 
-    h = rms_norm(x, lp["ln_attn"], c.norm_eps)
+    def column_input(a: torch.Tensor) -> torch.Tensor:
+        return a if tp is None else copy_to_group(a, tp.group)
+
+    h = column_input(rms_norm(x, lp["ln_attn"], c.norm_eps))
     q = dense(h, lp["attn_q"]).view(B, S, c.local_heads, c.head_dim)
     k = dense(h, lp["attn_k"]).view(B, S, c.local_kv_heads, c.head_dim)
     v = dense(h, lp["attn_v"]).view(B, S, c.local_kv_heads, c.head_dim)
@@ -340,10 +386,8 @@ def _layer(
 
     h = rms_norm(x, lp["ln_mlp"], c.norm_eps)
     if c.n_experts:
-        if tp is not None:
-            raise NotImplementedError("mesh: MoE layers under tensor parallelism are not "
-                                      "ported yet")
         return x + moe_mlp(h, lp, c), cache
+    h = column_input(h)
     gate = dense(h, lp["mlp_gate"])
     up = dense(h, lp["mlp_up"])
     act = torch.nn.functional.silu(gate.float()).to(up.dtype) * up
@@ -386,24 +430,6 @@ def forward(
     return lm_head(params, x, config=c), cache
 
 
-class _HeadMatmul(torch.autograd.Function):
-    """bf16 ``x @ head`` with an fp32 result on the card (``torch.mm``'s
-    ``out_dtype``), and its gradient without an fp32 copy of the head: the
-    fp32 logit gradient is rounded to bf16 and both products run in bf16
-    with fp32 accumulation."""
-
-    @staticmethod
-    def forward(ctx, x2, head):
-        ctx.save_for_backward(x2, head)
-        return torch.mm(x2, head, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, head = ctx.saved_tensors
-        g16 = g.to(head.dtype)
-        return torch.mm(g16, head.t()), torch.mm(x2.t(), g16)
-
-
 def lm_head(params: dict[str, Any], x: torch.Tensor, *, config: LlamaConfig) -> torch.Tensor:
     """Project hidden states [..., D] to fp32 logits [..., vocab]. A bf16
     head multiplies in bf16 with an fp32 result (``out_dtype`` on the card),
@@ -415,20 +441,19 @@ def lm_head(params: dict[str, Any], x: torch.Tensor, *, config: LlamaConfig) -> 
     logits are placed in a zero row of the full vocab and all-reduced, so
     every rank holds the same full row bit for bit (x + 0 = x) and samples
     the same token from the same generator state. A head that replicated
-    (a vocab the mesh does not divide) needs no gather."""
+    (a vocab the mesh does not divide) needs no gather. For training the
+    sliced head's input enters through ``copy_to_group`` and the gather is
+    differentiable (each rank's slice of the logits' gradient)."""
     head = params["embed"].T if config.tie_embeddings else params["lm_head"]
-    out = _head_logits(x, head)
     tp = config.tp
-    if tp is None or out.shape[-1] == config.vocab_size:
-        return out
-    import torch.distributed as dist
-
-    n = out.shape[-1]
+    n = head.shape[-1]
+    if tp is None or n == config.vocab_size:
+        return _head_logits(x, head)
+    out = _head_logits(copy_to_group(x, tp.group), head)
     full = out.new_zeros(tuple(out.shape[:-1]) + (config.vocab_size,))
     full[..., tp.rank * n:(tp.rank + 1) * n] = out
     COLLECTIVES["logits_gather"] += 1
-    dist.all_reduce(full, group=tp.group)
-    return full
+    return sum_in_place(full, tp.group)
 
 
 def _head_logits(x: torch.Tensor, head: Any) -> torch.Tensor:
@@ -441,7 +466,7 @@ def _head_logits(x: torch.Tensor, head: Any) -> torch.Tensor:
     if head.dtype == torch.float32:
         out = x2.float() @ head
     elif x2.is_cuda:
-        out = _HeadMatmul.apply(x2, head)
+        out = dense_fp32(x2, head)
     else:
         out = x2.float() @ head.float()
     return out.reshape(*lead, head.shape[-1])

@@ -192,6 +192,37 @@ def dense(x: torch.Tensor, w: torch.Tensor | QTensor | Q4Tensor) -> torch.Tensor
     return x @ w
 
 
+class _WideMatmul(torch.autograd.Function):
+    """``x2 @ w`` (2-D, one dtype) with an fp32 result: bf16 operands with
+    fp32 accumulation rounded never (``torch.mm``'s ``out_dtype`` on the
+    card), and its gradient without an fp32 copy of either operand: the
+    fp32 output gradient is rounded to the operands' dtype and both products
+    run in it, as autograd runs the plain product's."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        if x2.dtype == torch.float32:
+            return x2 @ w
+        if x2.is_cuda:
+            return torch.mm(x2, w, out_dtype=torch.float32)
+        return x2.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        return g.mm(w.t()), x2.t().mm(g)
+
+
+def dense_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a plain weight ``[K, N]`` with an fp32 result (a
+    partial sum that is summed on before it is rounded: the head's logits,
+    a sharded product's part), differentiable."""
+    lead = x.shape[:-1]
+    return _WideMatmul.apply(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[-1])
+
+
 def should_quantize(name: str) -> bool:
     """Which param leaves quantize: the layer-stack matmul weights plus the
     (untied) ``lm_head``."""

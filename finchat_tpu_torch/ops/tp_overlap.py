@@ -28,6 +28,16 @@ chunk c runs while chunk c + 1 multiplies.
 - ``COLLECTIVES`` counts the collectives issued, by kind (the JAX package's
   test counts ``psum`` equations in the jaxpr): ``n_chunks`` a chunked call,
   one a serial call.
+- Under autograd (training over a mesh, plain weights) the output is
+  differentiable with the row-parallel rule: the sum over the ranks
+  forward, the gradient as it comes backward. Over more than one rank both
+  schedules are one node (``_RowParallel``) whose backward is the plain
+  product's own (the same two matmuls on the whole output gradient), so the
+  knob changes no bit of a gradient either; a bf16 rank's part is taken
+  with an fp32 result and summed in fp32, rounded once, as one device
+  rounds its whole contraction once (summing rounded parts would move a
+  routed MoE token's experts on near ties). On one rank the serial schedule
+  is autograd's own product, bit-equal to no mesh.
 - A quantized weight is chunked WITHOUT unpacking, and once, at placement
   (``chunk_row_parallel``): each chunk is a contiguous weight of its own, so
   the fused dequant matmul gets contiguous, aligned operands on every call.
@@ -48,7 +58,8 @@ from typing import Any
 
 import torch
 
-from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dense
+from finchat_tpu_torch.models.quant import Q4Tensor, QTensor, dense, dense_fp32
+from finchat_tpu_torch.parallel.collectives import group_size, sum_in_place
 from finchat_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -67,13 +78,19 @@ def reset_collectives() -> None:
 class TPShard:
     """A rank's place in the tensor-parallel group (``LlamaConfig.tp``):
     the ``model`` axis's process group, its size, this rank's index on it,
-    and the ``tp_overlap`` knob with its chunk count."""
+    and the ``tp_overlap`` knob with its chunk count. An MoE layer's
+    experts split over ``expert`` too: ``expert_group`` is the
+    ``("expert", "model")`` group its output sums over, ``ep_size`` and
+    ``ep_rank`` this rank's place on ``expert``."""
 
     group: Any
     size: int
     rank: int
     overlap: bool = False
     n_chunks: int = 4
+    expert_group: Any = None
+    ep_size: int = 1
+    ep_rank: int = 0
 
 
 @dataclass(frozen=True)
@@ -133,31 +150,71 @@ def row_parallel_dense(x: torch.Tensor, w, group, *, overlap: bool = False,
     ranks each sum is taken in rank order (``_ordered_sum``). An output dim
     the chunks do not divide runs serial, with a warning."""
     N = w.shape[-1]
-    if not overlap:
-        parts = None
-    elif isinstance(w, ColumnChunks):
-        parts = w.parts
-    elif n_chunks < 1 or N % n_chunks:
-        logger.warning("tp_overlap: output dim %d not divisible into %d chunks; running the "
-                       "serial collective", N, n_chunks)
-        parts = None
-    elif n_chunks == 1:
-        parts = (w,)
-    else:
-        size = N // n_chunks
-        parts = tuple(_slice_out_cols(w, c * size, size) for c in range(n_chunks))
-    if parts is None:
-        import torch.distributed as dist
+    chunks = 0
+    if overlap and not isinstance(w, ColumnChunks):
+        if n_chunks >= 1 and N % n_chunks == 0:
+            chunks = n_chunks
+        else:
+            logger.warning("tp_overlap: output dim %d not divisible into %d chunks; running the "
+                           "serial collective", N, n_chunks)
+    if (isinstance(w, torch.Tensor) and torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)
+            and (chunks or group_size(group) > 1)):
+        return _RowParallel.apply(x, w, group, chunks)
+    if overlap and isinstance(w, ColumnChunks):
+        return _chunked(x, w.parts, group)
+    if chunks:
+        return _chunked(x, _column_parts(w, chunks), group)
+    y = dense(x, w)  # under autograd on one rank: autograd's own product, as with no mesh
+    COLLECTIVES["row_parallel"] += 1
+    return sum_in_place(y, group)
 
-        y = dense(x, w)
-        COLLECTIVES["row_parallel"] += 1
-        dist.all_reduce(y, group=group)
-        return y
+
+def _column_parts(w, chunks: int) -> tuple:
+    """``w`` as ``chunks`` output-column slices (itself for one)."""
+    if chunks == 1:
+        return (w,)
+    size = w.shape[-1] // chunks
+    return tuple(_slice_out_cols(w, c * size, size) for c in range(chunks))
+
+
+def _chunked(x: torch.Tensor, parts: tuple, group, product=dense) -> torch.Tensor:
+    """The overlapped schedule over the weight's column chunks ``parts``."""
     async_op = not (x.is_cuda and torch.cuda.is_current_stream_capturing())
-    pending = [_ordered_sum(dense(x, p), group, async_op) for p in parts]
+    pending = [_ordered_sum(product(x, p), group, async_op) for p in parts]
     if len(pending) == 1:
         return pending[0]()
     return torch.cat([finish() for finish in pending], dim=-1)
+
+
+class _RowParallel(torch.autograd.Function):
+    """The row-parallel output as one autograd node: serial (``chunks`` 0:
+    one product, one sum) or overlapped. Over more than one rank a bf16
+    part is taken with an fp32 result and summed in fp32, then rounded once.
+    Its backward is the plain product's (``x @ w`` folds ``x`` to ``[T,
+    K]`` and autograd takes ``g @ w^T`` and ``x^T @ g``), whatever the
+    schedule."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, chunks):
+        ctx.save_for_backward(x, w)
+        wide = x.dtype != torch.float32 and group_size(group) > 1
+        product = dense_fp32 if wide else dense
+        if chunks:
+            y = _chunked(x, _column_parts(w, chunks), group, product)
+        else:
+            y = product(x, w)
+            COLLECTIVES["row_parallel"] += 1
+            sum_in_place(y, group)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, w.shape[-1])
+        gx = g2.mm(w.t()).view(x.shape) if ctx.needs_input_grad[0] else None
+        gw = x.reshape(-1, w.shape[0]).t().mm(g2) if ctx.needs_input_grad[1] else None
+        return gx, gw, None, None
 
 
 def _ordered_sum(y: torch.Tensor, group, async_op: bool):

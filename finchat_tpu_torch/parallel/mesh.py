@@ -19,6 +19,18 @@ differ only along it. The ``model`` axis always has one once the mesh is
 distributed, a one-rank group included: the tensor-parallel layer issues its
 collectives on it whatever its size.
 
+Two kinds of group serve the training half beside the axes' own:
+
+- ``("expert", "model")``: the ranks that differ only along ``expert`` and
+  ``model`` (the expert index outermost), over which an MoE layer's output
+  sums (``models/llama.moe_mlp``);
+- the pipe neighbours ``("pipe", s)``: stages ``s`` and ``s + 1`` of this
+  rank's pipe line, over which the pipeline hops an activation forward and
+  its gradient back (``parallel/pipeline.py``).
+
+A mesh may span a subset of the world's ranks (``ranks``): every rank of the
+world still creates every group, in the same fixed order.
+
 A mesh with no process group (``make_abstract_mesh``) carries only the
 shape and a rank's coordinates: the sharding rules and the shape checks
 read nothing else.
@@ -115,7 +127,8 @@ class Mesh:
     rank: int = 0
     device: torch.device | None = None
     backend: str | None = None
-    groups: dict[str, Any] = field(default_factory=dict)
+    groups: dict[Any, Any] = field(default_factory=dict)
+    world_ranks: tuple[int, ...] | None = None  # the world rank of each mesh rank
 
     @property
     def shape(self) -> dict[str, int]:
@@ -131,9 +144,21 @@ class Mesh:
             r //= s
         return {name: out[name] for name in self.names}
 
-    def group(self, axis: str):
+    def peer(self, axis: str, index: int) -> int:
+        """The world rank of the rank at ``index`` along ``axis`` with this
+        rank's other coordinates (a collective's ``src``)."""
+        i = self.names.index(axis)
+        stride = 1
+        for s in self.sizes[i + 1:]:
+            stride *= s
+        local = self.rank + (index - self.coords[axis]) * stride
+        return local if self.world_ranks is None else self.world_ranks[local]
+
+    def group(self, axis):
         """The process group of ``axis`` (None on a shape-only mesh, or for
-        an axis of size 1 other than ``model``)."""
+        an axis of size 1 other than ``model``); ``("expert", "model")``
+        names the MoE output's group, ``("pipe", s)`` the pipe neighbours
+        ``s`` and ``s + 1`` of this rank's line (held only by those two)."""
         return self.groups.get(axis)
 
 
@@ -146,20 +171,24 @@ def make_abstract_mesh(sizes: tuple, names: tuple = AXES, rank: int = 0) -> Mesh
     return Mesh(tuple(int(s) for s in sizes), tuple(names), rank=rank)
 
 
-def _axis_rank_sets(sizes: tuple[int, ...], axis: int) -> list[list[int]]:
-    """The rank sets that differ only along ``axis``, in a fixed order
-    (every rank must create every group, in the same order)."""
+def _axis_rank_sets(sizes: tuple[int, ...], *axes: int) -> list[list[int]]:
+    """The rank sets that differ only along ``axes``, in a fixed order
+    (every rank must create every group, in the same order); within a set
+    the ranks run row-major over ``axes``, the first outermost."""
     strides = [1] * len(sizes)
     for i in range(len(sizes) - 2, -1, -1):
         strides[i] = strides[i + 1] * sizes[i + 1]
     total = strides[0] * sizes[0]
+    offsets = [0]
+    for a in axes:
+        offsets = [o + i * strides[a] for o in offsets for i in range(sizes[a])]
     seen, out = set(), []
     for r in range(total):
-        base = r - ((r // strides[axis]) % sizes[axis]) * strides[axis]
+        base = r - sum(((r // strides[a]) % sizes[a]) * strides[a] for a in axes)
         if base in seen:
             continue
         seen.add(base)
-        out.append([base + i * strides[axis] for i in range(sizes[axis])])
+        out.append([base + o for o in offsets])
     return out
 
 
@@ -192,14 +221,22 @@ def initialize_distributed(world_size: int = 1, rank: int = 0, *, backend: str =
 
 
 def build_mesh(spec: MeshSpec | None = None, devices: list | None = None,
-               backend: str | None = None) -> Mesh:
+               backend: str | None = None, ranks: list[int] | None = None,
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh | None:
     """This rank's mesh: ``spec`` resolved over ``devices`` (one rank a
     device; a device may repeat, as two gloo ranks on one card do), this
     rank's device and coordinates, and the process group of every axis of
-    size > 1 and of ``model``. The process group must be initialized first
-    (``initialize_distributed``) with one rank a device, except for a
+    size > 1 and of ``model``, of ``("expert", "model")`` and of each pipe
+    neighbour pair this rank is in. The process group must be initialized
+    first (``initialize_distributed``) with one rank a device, except for a
     single device, whose one-rank group is made here. The backend defaults
-    to ``nccl`` for CUDA devices and ``gloo`` for the CPU."""
+    to ``nccl`` for CUDA devices and ``gloo`` for the CPU.
+
+    ``ranks``: the world ranks the mesh spans, in mesh order (default: the
+    whole world). Every rank of the world calls ``build_mesh`` alike (a
+    group is made by all of them); a rank outside ``ranks`` gets None.
+    ``timeout_s`` bounds every collective of a group made here (a new group
+    does not take the world's)."""
     import torch.distributed as dist
 
     spec = spec or MeshSpec()
@@ -211,16 +248,41 @@ def build_mesh(spec: MeshSpec | None = None, devices: list | None = None,
             raise RuntimeError(f"build_mesh over {len(devices)} devices: call "
                                "initialize_distributed on every rank first")
         initialize_distributed(1, 0, backend=backend, device=devices[0])
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if world != len(devices):
-        raise ValueError(f"the process group has {world} ranks, the mesh {len(devices)} devices")
-    mesh = Mesh(sizes, AXES, rank=rank, device=devices[rank], backend=backend)
+    world, me = dist.get_world_size(), dist.get_rank()
+    ranks = list(range(world)) if ranks is None else list(ranks)
+    if len(ranks) != len(devices):
+        raise ValueError(f"the mesh spans {len(ranks)} ranks and {len(devices)} devices")
+    if len(set(ranks)) != len(ranks) or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"mesh ranks {ranks} are not distinct ranks of a world of {world}")
+    rank = ranks.index(me) if me in ranks else None
+    mesh = None if rank is None else Mesh(sizes, AXES, rank=rank, device=devices[rank],
+                                          backend=backend, world_ranks=tuple(ranks))
+
+    def make(key, local_sets: list[list[int]]) -> None:
+        for local in local_sets:
+            members = [ranks[i] for i in local]
+            group = dist.group.WORLD if len(members) == world else dist.new_group(
+                members, timeout=datetime.timedelta(seconds=timeout_s))
+            if mesh is not None and rank in local:
+                mesh.groups[key] = group
+
+    axis = {name: i for i, name in enumerate(AXES)}
     for i, name in enumerate(AXES):
         if sizes[i] == 1 and name != "model":
             continue
-        for ranks in _axis_rank_sets(sizes, i):
-            group = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
-            if rank in ranks:
-                mesh.groups[name] = group
-    logger.info("mesh: %s, rank %d on %s (%s)", mesh.shape, rank, mesh.device, backend)
+        make(name, _axis_rank_sets(sizes, i))
+    if sizes[axis["expert"]] > 1:
+        make(("expert", "model"), _axis_rank_sets(sizes, axis["expert"], axis["model"]))
+    elif mesh is not None:
+        mesh.groups[("expert", "model")] = mesh.groups["model"]
+    n_pipe = sizes[axis["pipe"]]
+    for s in range(n_pipe - 1):
+        if n_pipe == 2:  # the one pair is the pipe line itself
+            if mesh is not None:
+                mesh.groups[("pipe", 0)] = mesh.groups["pipe"]
+            break
+        make(("pipe", s), [line[s:s + 2] for line in _axis_rank_sets(sizes, axis["pipe"])])
+    if mesh is not None:
+        logger.info("mesh: %s, rank %d (world rank %d) on %s (%s)", mesh.shape, rank, me,
+                    mesh.device, backend)
     return mesh

@@ -20,6 +20,13 @@ down to THIS rank's slice; the layer issues the collectives itself
 A spec axis whose mesh extent does not divide the dim replicates with a
 warning, and raises for a tensor above 256 MiB (``_fit_sharding``).
 
+For training over a mesh the MoE leaves split by the same table:
+``moe_{gate,up}`` ``[L, E, D, F]`` over ``expert`` on E and ``model`` on F,
+``moe_down`` ``[L, E, F, D]`` likewise, the router replicated
+(``models/llama.moe_mlp`` sums the experts' output over the ``("expert",
+"model")`` group); ``tp_shard`` is a rank's ``TPShard`` of a distributed
+mesh, and ``shard_batch`` its slice of the batch over ``data``.
+
 One deliberate difference from the JAX package: a row-parallel
 ``Q4Tensor`` (``attn_o``, ``mlp_down``) takes ITS OWN groups' scale rows,
 ``[G / tp, N]``, so its K shard is a whole int4 weight that the fused
@@ -206,19 +213,30 @@ def shard_leaf(x: Any, spec: Spec, mesh: Mesh, device: torch.device | None = Non
     return _local(x, _fit_sharding(spec, tuple(x.shape), _nbytes(x), mesh), mesh, device)
 
 
-def leaf_sharder(mesh: Mesh, device: torch.device | str | None = None):
+def leaf_sharder(mesh: Mesh, device: torch.device | str | None = None,
+                 specs: dict[str, Any] | None = None):
     """A ``leaf_transform`` for ``models/llama.init_params``,
     ``models/quant.init_quantized_params`` and
     ``checkpoints/hf_loader.load_llama_params``: each leaf, named as the
     param tree names it, cut to this rank's slice (``shard_leaf``) as soon
     as it is made or loaded, so a rank never holds more than its shard and
-    one whole leaf (with its quantized copy while it is quantized)."""
-    specs = llama_param_shardings(mesh)
+    one whole leaf (with its quantized copy while it is quantized).
+    ``specs``: the spec tree (default ``llama_param_shardings``; the
+    pipeline's is ``parallel/pipeline.pipeline_shardings``)."""
+    specs = specs if specs is not None else llama_param_shardings(mesh)
     by_name = {**{k: v for k, v in specs.items() if k != "layers"}, **specs["layers"]}
     device = torch.device(device) if device is not None else mesh.device
 
     def transform(name: str, leaf: Any) -> Any:
-        return shard_leaf(leaf, by_name[name], mesh, device, name=name)
+        spec = by_name[name]
+        ndim = len((leaf.q if isinstance(leaf, (QTensor, Q4Tensor)) else leaf).shape)
+        if name.startswith("moe_") and ndim == 3:  # one layer's [E, ...] of an expert leaf
+            if spec and spec[0] is not None:
+                raise NotImplementedError(
+                    f"{name}: a layer's experts are made one layer at a time and cannot be cut "
+                    f"over {spec[0]!r} as they are made; cut the whole tree instead")
+            spec = spec[1:]
+        return shard_leaf(leaf, spec, mesh, device, name=name)
 
     return transform
 
@@ -296,3 +314,35 @@ def shard_decode_state(state, mesh: Mesh, n_kv_heads: int):
                             n_kv_heads, tp, rank)
     return dataclasses.replace(state, k_pages=k.contiguous(), v_pages=v.contiguous(),
                                k_scales=ks, v_scales=vs)
+
+
+def tp_shard(mesh: Mesh, *, overlap: bool = False, n_chunks: int = 4):
+    """This rank's ``TPShard`` (``LlamaConfig.tp``) of a distributed mesh:
+    the ``model`` group and coordinate, and for MoE layers the ``("expert",
+    "model")`` group with this rank's place on ``expert``."""
+    from finchat_tpu_torch.ops.tp_overlap import TPShard
+
+    if mesh.group("model") is None:
+        raise ValueError("a sharded model needs a distributed mesh (parallel/mesh.build_mesh), "
+                         "not a shape-only one")
+    return TPShard(group=mesh.group("model"), size=mesh.shape["model"],
+                   rank=mesh.coords["model"], overlap=overlap, n_chunks=n_chunks,
+                   expert_group=mesh.group(("expert", "model")), ep_size=mesh.shape["expert"],
+                   ep_rank=mesh.coords["expert"])
+
+
+def shard_batch(tokens: torch.Tensor, mesh: Mesh, seq_sharded: bool = False) -> torch.Tensor:
+    """This rank's slice of a batch ``[B, ...]`` over ``data`` (contiguous,
+    on the mesh's device): the JAX package's ``shard_batch``. A batch the
+    data axis does not divide is refused; ``seq_sharded`` (the sequence
+    axis over ``seq``) is not ported."""
+    if seq_sharded:
+        raise NotImplementedError("shard_batch: a seq-sharded batch (sequence parallelism, ring "
+                                  "or Ulysses attention) is not ported yet")
+    dp, r = mesh.shape["data"], mesh.coords["data"]
+    B = tokens.shape[0]
+    if B % dp:
+        raise ValueError(f"shard_batch: batch {B} does not split over data={dp}")
+    b = B // dp
+    out = tokens[r * b:(r + 1) * b]
+    return out.to(mesh.device).contiguous() if mesh.device is not None else out.contiguous()

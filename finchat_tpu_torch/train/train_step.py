@@ -20,9 +20,20 @@ one stacked buffer through per-layer views (``_backward``) — indexing the
 stacked leaf in the forward would make each layer's backward materialise a
 zero tensor of the whole stacked shape.
 
-Not ported yet, and refused: a mesh (data / tensor parallelism), ring or
-Ulysses sequence parallelism, and MoE configs (MoE serves, but the JAX
-package's MoE training runs over an expert-parallel mesh).
+Over a mesh (the JAX package's GSPMD step, as SPMD ranks over
+``torch.distributed``): each rank holds its shard of the tree
+(``parallel/sharding.shard_params`` with ``llama_param_shardings``) and its
+slice of the batch (``shard_batch``); the layer's differentiable
+collectives (``parallel/collectives``) stand for the ones GSPMD inserts:
+tensor parallelism over ``model``, MoE experts over ``expert`` x ``model``.
+Every leaf's gradient is then averaged over ``data`` and the loss is the
+global one on every rank; AdamW is elementwise, so each rank's update of
+its shard is the JAX update of the whole tree there. MoE configs train on
+one card too.
+
+Not ported yet, and refused by name: ring or Ulysses sequence parallelism
+and a mesh with ``seq > 1`` (A9c); ``pipe > 1`` belongs to
+``parallel/pipeline.make_pipeline_train_step``.
 """
 
 from __future__ import annotations
@@ -36,9 +47,11 @@ import torch.nn.functional as F
 from finchat_tpu_torch.models.llama import (
     AttentionFn,
     LlamaConfig,
+    check_experts,
     forward,
     make_causal_attention,
 )
+from finchat_tpu_torch.parallel.collectives import mean_grads, mean_over
 
 
 def named_leaves(tree: Any, prefix: str = "") -> Iterator[tuple[str, torch.Tensor]]:
@@ -117,13 +130,12 @@ def loss_fn(params: dict[str, Any], tokens: torch.Tensor, *, config: LlamaConfig
     return F.cross_entropy(pred, tokens[:, 1:].reshape(-1).long())
 
 
-def _backward(params: dict[str, Any], tokens: torch.Tensor, *, config: LlamaConfig,
-              attention: AttentionFn, remat: bool) -> torch.Tensor:
-    """Loss forward and backward with every leaf's gradient in its
-    ``.grad``. A stacked layer leaf's ``.grad`` is one buffer (made on the
-    first call, zeroed on later ones); the forward reads per-layer views of
-    the leaf whose ``.grad`` are views of that buffer, so autograd adds each
-    layer's gradient in place. Other leaves get a fresh gradient."""
+def layer_views(params: dict[str, Any]) -> dict[str, Any]:
+    """The tree with each stacked ``[L, ...]`` layer leaf as a list of
+    per-layer views whose ``.grad`` are views of one stacked buffer (made on
+    the first call, zeroed on later ones), so autograd adds each layer's
+    gradient in place; the other leaves' ``.grad`` unset. ``L`` is the
+    leaf's own (a pipeline stage's ``L / P``)."""
     layers = {}
     for name, leaf in params["layers"].items():
         if leaf.grad is None:
@@ -131,7 +143,7 @@ def _backward(params: dict[str, Any], tokens: torch.Tensor, *, config: LlamaConf
         else:
             leaf.grad.zero_()
         views = []
-        for i in range(config.n_layers):
+        for i in range(leaf.shape[0]):
             w = leaf.detach()[i].requires_grad_()
             w.grad = leaf.grad[i]
             views.append(w)
@@ -139,24 +151,72 @@ def _backward(params: dict[str, Any], tokens: torch.Tensor, *, config: LlamaConf
     for name, leaf in params.items():
         if name != "layers":
             leaf.grad = None
-    loss = loss_fn({**params, "layers": layers}, tokens, config=config, attention=attention,
-                   remat=remat)
+    return {**params, "layers": layers}
+
+
+def _backward(params: dict[str, Any], tokens: torch.Tensor, *, config: LlamaConfig,
+              attention: AttentionFn, remat: bool) -> torch.Tensor:
+    """Loss forward and backward with every leaf's gradient in its
+    ``.grad``: a stacked layer leaf's through ``layer_views`` (indexing the
+    stacked leaf in the forward would make each layer's backward
+    materialise a zero tensor of the whole stacked shape), the others
+    fresh."""
+    loss = loss_fn(layer_views(params), tokens, config=config, attention=attention, remat=remat)
     loss.backward()
     return loss.detach()
 
 
+def mesh_config(config: LlamaConfig, mesh: Any) -> LlamaConfig:
+    """``config`` with this rank's shard (``config.tp``) of a distributed
+    mesh. A mesh a rank cannot hold whole heads, whole columns or whole
+    experts of is refused by name (the JAX package's GSPMD would replicate
+    such a leaf; the port's layer reads the rank's widths from the
+    config)."""
+    import dataclasses
+
+    from finchat_tpu_torch.parallel.sharding import tp_shard
+
+    tp, ep = mesh.shape["model"], mesh.shape["expert"]
+    for what, n, k in (("n_heads", config.n_heads, tp), ("n_kv_heads", config.n_kv_heads, tp),
+                       ("hidden_dim", config.hidden_dim, tp)):
+        if n % k:
+            raise NotImplementedError(f"mesh: model={k} does not divide {what}={n}; a rank must "
+                                      "hold whole heads and whole columns")
+    if config.n_experts and config.n_experts % ep:
+        raise NotImplementedError(f"mesh: expert={ep} does not divide n_experts="
+                                  f"{config.n_experts}; a rank must hold whole experts")
+    return dataclasses.replace(config, tp=tp_shard(mesh))
+
+
+def _mesh_backward(params: dict[str, Any], tokens: torch.Tensor, *, config: LlamaConfig,
+                   attention: AttentionFn, remat: bool, mesh: Any) -> torch.Tensor:
+    """``_backward`` on this rank's shard and batch slice (``config`` the
+    rank's, ``mesh_config``), every leaf's gradient then averaged over
+    ``data``; the global loss (the mean over ``data``)."""
+    loss = _backward(params, tokens, config=config, attention=attention, remat=remat)
+    if mesh is None:
+        return loss
+    group = mesh.group("data")
+    mean_grads(params, group)
+    return mean_over(loss, group)
+
+
 def value_and_grad(params: dict[str, Any], tokens: torch.Tensor, *, config: LlamaConfig,
-                   attention: AttentionFn | None = None,
-                   remat: bool = True) -> tuple[torch.Tensor, dict[str, Any]]:
+                   attention: AttentionFn | None = None, remat: bool = True,
+                   mesh: Any = None) -> tuple[torch.Tensor, dict[str, Any]]:
     """``(loss, grads)`` with grads a tree shaped like ``params`` (the
     counterpart of ``jax.value_and_grad`` of the JAX step's loss).
     ``attention`` defaults to ``make_causal_attention()``; a plain callback
     (``dense_causal_attention``) gives the reference gradient. The leaves'
-    ``.grad`` are handed over and left unset."""
+    ``.grad`` are handed over and left unset. Over a ``mesh``: ``params``
+    this rank's shard, ``tokens`` its ``shard_batch`` slice; the global
+    loss, and this rank's shard of the gradient of the whole batch."""
     for _path, leaf in named_leaves(params):
         leaf.requires_grad_(True)
-    loss = _backward(params, tokens, config=config,
-                     attention=attention or make_causal_attention(), remat=remat)
+    local = config if mesh is None else mesh_config(config, mesh)
+    loss = _mesh_backward(params, tokens, config=local,
+                          attention=attention or make_causal_attention(), remat=remat,
+                          mesh=mesh)
 
     def take(tree):
         out = {}
@@ -181,22 +241,29 @@ def make_train_step(
 ):
     """Build ``train_step(state, tokens) -> (state, loss)``. ``optimizer``
     is the one ``init_train_state`` bound to the state (kept in the JAX
-    signature). Planes not ported yet raise ``NotImplementedError``."""
-    if config.n_experts:
-        raise NotImplementedError("MoE training is not ported yet: the JAX package trains MoE "
-                                  "over an expert x data x tensor mesh (n_experts must be 0)")
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh (data / tensor parallelism) is not "
-                                  "ported yet: the train step runs on one card")
+    signature). Over a ``mesh`` (this rank's, ``parallel/mesh.build_mesh``)
+    the state holds this rank's shard (``shard_params(...,
+    llama_param_shardings(mesh), mesh)``) and ``tokens`` are its
+    ``shard_batch`` slice; the loss returned is the global one. Planes not
+    ported yet raise ``NotImplementedError``."""
+    check_experts(config)
     if use_ring_attention:
         if sp_mode not in ("ring", "ulysses"):
             raise ValueError(f"unknown sp_mode {sp_mode!r} (want 'ring' or 'ulysses')")
         raise NotImplementedError(f"sequence parallelism ({sp_mode}) is not ported yet")
+    if mesh is not None and mesh.shape["seq"] > 1:
+        raise NotImplementedError(f"mesh: seq={mesh.shape['seq']}: sequence parallelism (the "
+                                  "seq axis) is not ported yet")
+    if mesh is not None and mesh.shape["pipe"] > 1:
+        raise NotImplementedError(f"mesh: pipe={mesh.shape['pipe']}: a pipelined step is "
+                                  "parallel/pipeline.make_pipeline_train_step's")
     del optimizer
     attention = make_causal_attention()
+    local = config if mesh is None else mesh_config(config, mesh)
 
     def train_step(state: TrainState, tokens: torch.Tensor) -> tuple[TrainState, torch.Tensor]:
-        loss = _backward(state.params, tokens, config=config, attention=attention, remat=remat)
+        loss = _mesh_backward(state.params, tokens, config=local, attention=attention,
+                              remat=remat, mesh=mesh)
         state.opt_state.step()
         state.step += 1
         return state, loss

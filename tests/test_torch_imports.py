@@ -129,3 +129,12 @@ def test_the_parallel_modules_are_walked(module):
     collective are among the files walked above (the JAX package's
     counterparts import JAX: the port keeps its own)."""
     assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["parallel/collectives.py", "parallel/pipeline.py",
+                                    "train/train_step.py"])
+def test_the_parallel_training_modules_are_walked(module):
+    """The differentiable collectives, the stage pipeline and the mesh train
+    step are among the files walked above (the JAX package's pipeline and
+    train step import JAX and optax: the port keeps its own)."""
+    assert ROOT / "finchat_tpu_torch" / module in PORT_FILES

@@ -41,6 +41,9 @@ from finchat_tpu.models import llama as jllama  # noqa: E402
 from finchat_tpu.train import train_step as jtrain  # noqa: E402
 from finchat_tpu_torch.models import llama as tllama  # noqa: E402
 from finchat_tpu_torch.models.convert import params_from_numpy, train_state_from_numpy  # noqa: E402
+from finchat_tpu_torch.parallel.mesh import make_abstract_mesh  # noqa: E402
+from finchat_tpu_torch.parallel.pipeline import pipeline_forward  # noqa: E402
+from finchat_tpu_torch.parallel.sharding import shard_batch  # noqa: E402
 from finchat_tpu_torch.train import train_step as ttrain  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
@@ -198,15 +201,95 @@ def test_jax_state_resumes_in_the_port(monkeypatch):
     _assert_tree_close(tstate.params, jax.device_get(jstate.params), rel=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(use_ring_attention=True),
+@pytest.mark.parametrize("kw", [dict(mesh=make_abstract_mesh((1, 1, 2, 1, 1))),
+                                dict(use_ring_attention=True),
                                 dict(use_ring_attention=True, sp_mode="ulysses")],
                          ids=["mesh", "ring", "ulysses"])
 def test_planes_not_ported_are_refused(kw):
-    with pytest.raises(NotImplementedError):
+    """Sequence parallelism waits for A9c: ring and Ulysses attention, and
+    a mesh with seq > 1 (any other mesh trains:
+    tests/test_torch_train_parallel.py)."""
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
         ttrain.make_train_step(tllama.PRESETS["tiny"], ttrain.make_optimizer(), **kw)
 
 
-def test_moe_config_is_refused():
-    cfg = dataclasses.replace(tllama.PRESETS["tiny"], n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttrain.make_train_step(cfg, ttrain.make_optimizer())
+def test_moe_config_is_refused(monkeypatch):
+    """A one-device MoE step runs (it was refused before MoE training was
+    ported): the MoE config of tests/test_moe.py at fp32, the loss and every
+    leaf's gradient against the JAX ``value_and_grad``, and three steps'
+    losses against the JAX ``make_train_step``, under this test's rules."""
+    monkeypatch.setenv("FINCHAT_ATTN", "ref")
+    moe = dict(vocab_size=64, dim=32, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=64,
+               max_seq_len=32, n_experts=4, top_k_experts=2)
+    jcfg = jllama.LlamaConfig(**moe, dtype=jnp.float32)
+    tcfg = tllama.LlamaConfig(**moe, dtype=torch.float32)
+    jp = jllama.init_params(jcfg, jax.random.key(5))
+    tokens = np.random.default_rng(5).integers(0, 64, (B, S)).astype(np.int32)
+    jloss, jgrads = jax.value_and_grad(_jax_loss(jcfg))(jp, jnp.asarray(tokens))
+    loss, grads = ttrain.value_and_grad(params_from_numpy(jax.device_get(jp), "cpu"),
+                                        torch.from_numpy(tokens), config=tcfg)
+    assert abs(loss.item() - float(jloss)) <= 1e-5
+    _assert_tree_close(grads, jax.device_get(jgrads), rel=1e-4)
+    jopt = jtrain.make_optimizer(learning_rate=LR)
+    jstate, jstep = jtrain.init_train_state(jcfg, jp, jopt), jtrain.make_train_step(jcfg, jopt)
+    tstate = ttrain.init_train_state(tcfg, params_from_numpy(jax.device_get(jp), "cpu"),
+                                     ttrain.make_optimizer(learning_rate=LR))
+    tstep = ttrain.make_train_step(tcfg, ttrain.make_optimizer(learning_rate=LR))
+    jl, tl = [], []
+    for _ in range(3):
+        jstate, l1 = jstep(jstate, jnp.asarray(tokens))
+        tstate, l2 = tstep(tstate, torch.from_numpy(tokens))
+        jl.append(float(l1))
+        tl.append(l2.item())
+    np.testing.assert_allclose(tl, jl, atol=1e-4)
+    assert tl[2] < tl[0]
+
+
+def _refuse_seq_step():
+    ttrain.make_train_step(tllama.PRESETS["tiny"], ttrain.make_optimizer(),
+                           make_abstract_mesh((2, 1, 2, 1, 1)))
+
+
+def _refuse_seq_batch():
+    shard_batch(torch.zeros((2, 8), dtype=torch.int32), make_abstract_mesh((1, 1, 1, 1, 1)),
+                seq_sharded=True)
+
+
+def _refuse_seq_pipeline():
+    cfg = tllama.PRESETS["tiny"]
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    pipeline_forward({}, tokens, tokens, config=cfg, mesh=make_abstract_mesh((1, 2, 2, 1, 1)),
+                     n_micro=1)
+
+
+def _refuse_pipe_step():
+    ttrain.make_train_step(tllama.PRESETS["tiny"], ttrain.make_optimizer(),
+                           make_abstract_mesh((1, 2, 1, 1, 1)))
+
+
+def _refuse_moe_app():
+    from finchat_tpu_torch.io.kafka import InMemoryBroker, KafkaClient
+    from finchat_tpu_torch.io.store import InMemoryStore
+    from finchat_tpu_torch.serve.app import build_app
+    from finchat_tpu_torch.utils.config import load_config
+
+    cfg = load_config(overrides={"model.preset": "moe-tiny", "mesh.model": 2})
+    build_app(cfg, store=InMemoryStore(), kafka=KafkaClient(cfg.kafka, broker=InMemoryBroker()),
+              retriever=lambda a: [], device="cpu")
+
+
+@pytest.mark.parametrize("call,words", [
+    (_refuse_seq_step, "seq=2: sequence parallelism"),
+    (_refuse_seq_batch, "seq-sharded batch \\(sequence parallelism"),
+    (_refuse_seq_pipeline, "seq=2: sequence parallelism"),
+    (_refuse_pipe_step, "pipe=2: a pipelined step is parallel/pipeline.make_pipeline_train_step"),
+    (_refuse_moe_app, "mesh: an MoE model is not served on a mesh"),
+], ids=["seq_train_step", "seq_shard_batch", "seq_pipeline", "pipe_train_step", "moe_build_app"])
+def test_planes_kept_for_later_are_refused_by_name(call, words):
+    """What stays refused, matched by name: a mesh with seq > 1 in the train
+    step, ``shard_batch`` and ``pipeline_forward`` (A9c); pipe > 1 in
+    ``make_train_step`` (the pipeline step's); an MoE model on a mesh at
+    ``build_app`` (serving MoE over a mesh is A item 4). No rank starts."""
+    with pytest.raises(NotImplementedError, match=words):
+        call()
+    assert not torch.distributed.is_initialized()
