@@ -5005,7 +5005,7 @@ def _kernel_class(name: str) -> str:
 # each also spans its kernels on the card's timeline, so it is no kernel of
 # its own and is left out of the device time by class
 ENGINE_RANGES = frozenset({"kv_append", "kv_scatter", "paged_attention", "kv_scatter_ragged",
-                           "ragged_paged_attention"})
+                           "ragged_paged_attention", "ring_attention"})
 
 
 def device_ms(torch, prof, classify, runs: int = 1, top: int = 4) -> tuple[dict, dict]:
@@ -8222,7 +8222,9 @@ def train_full(torch, dev, card: str, steps: int = 5) -> dict:
 
 TRAIN_MESH_DEPTH = 4
 TRAIN_MESH_B, TRAIN_MESH_S = 2, 1024
-TRAIN_MESH_STEPS = 3
+# two steps, for the script's clock: every check of the phase holds at two
+# (the second loss below the first)
+TRAIN_MESH_STEPS = 2
 TRAIN_MESH_SEED = 0
 # every collective, the ranks' rendezvous and each read of their results
 # wait at most this long
@@ -8359,18 +8361,18 @@ def train_mesh_phase(torch, dev, card: str, results: list) -> dict:
     expert-parallel MoE training, on the one card.
 
     (a) ``llama3-8b`` at full width over ``TRAIN_MESH_DEPTH`` layers, B=2,
-    S=1024, random bf16 weights from ``TRAIN_MESH_SEED``, remat on: three
-    AdamW steps with no mesh and three over a one-rank NCCL mesh from the
-    same weights: the losses and the parameters after the third step
-    bit-equal, K7's launches equal (the Hopper forward twice a layer a step,
+    S=1024, random bf16 weights from ``TRAIN_MESH_SEED``, remat on:
+    ``TRAIN_MESH_STEPS`` AdamW steps with no mesh and as many over a
+    one-rank NCCL mesh from the same weights: the losses and the parameters
+    after the last step bit-equal, K7's launches equal (the Hopper forward twice a layer a step,
     the Hopper backward once, nothing else). The no-mesh losses are (b)'s
     reference; then ``mixtral-8x7b`` at its published widths over 2 layers,
-    B=1, S=512, three steps on one device: the MoE reference.
+    B=1, S=512, as many steps on one device: the MoE reference.
     (b) Four gloo ranks on the card (spawned at the phase's start, started
     once both references are freed), three meshes over the same world in
     turn: data=2 x model=2 and pipe=2 x model=2 (n_micro=2) on (a)'s model
     and batch, expert=2 x model=2 on the Mixtral one. Every loss finite, the
-    third below the first, each within ``TRAIN_LOSS_TOL`` of the one-device
+    last below the first, each within ``TRAIN_LOSS_TOL`` of the one-device
     step's (a later Mixtral step within twice the one-device run's own
     spread, if larger: ``TRAIN_MESH_SPREAD_BLOCK``) and equal on every rank;
     every rank's K7 launches exact for its layers and microbatches and equal
@@ -8512,6 +8514,527 @@ def train_mesh_phase(torch, dev, card: str, results: list) -> dict:
             p.join(timeout=10)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+SP_NEW = 32
+SP_LONG = 7936  # the long prompt (ring bucket 8,192)
+SP_HEAD, SP_TAIL = 3840, 4032  # the registered head (30 whole pages) and the prompt's tail
+SP_SHORT = 64  # the stream decoding beside the long prompt
+SP_RANKS = 4  # seq=2 x model=2 on the one card, over gloo
+SP_TIMEOUT_S = 300.0
+# gate (b) on the CPU at fp32 (a top-1 may differ only where the reference's
+# top-2 margin is <= 1e-3); bf16 on the card moves logits by hundredths between
+# the ring's fp32 fold and the one-device kernels (a flip at a top-2 margin of
+# 0.0183 on an H100 80GB HBM3 at 700 W), so a served token is held where the
+# one-device margin exceeds STREAM_MARGIN, as every stream of the script, and
+# the tokens inside 1e-3 are counted
+SP_MARGIN = 1e-3
+# (case, plane, the engine's settings): bf16 first, then int8 weights over an
+# int8 KV pool (the ranks' weights remade once)
+SP_CASES = (
+    ("monolithic", "bf16", dict(ring_prefill_chunk=0, mixed_step=False)),
+    ("segmented", "bf16", dict(mixed_step=False)),
+    ("prefix", "bf16", dict(mixed_step=False, prefix_cache=True)),
+    ("ulysses", "bf16", dict(mixed_step=False, sp_mode="ulysses")),
+    ("mixed", "bf16", dict(mixed_step=True)),
+    ("int8", "int8+kv8", dict(mixed_step=False)),
+)
+
+
+def _sp_engine_cfg(plane: str, extra: dict):
+    """A case's engine settings: the default ring knobs (4,096 tokens, the
+    4,096-token segment), depth 1 (a gloo collective cannot be captured),
+    pages for a long prompt and a short stream."""
+    from finchat_tpu_torch.utils.config import EngineConfig
+
+    kw = dict(max_seqs=4, num_pages=160, decode_loop_depth=1, prefix_cache=False,
+              session_cache=False, warmup_on_start=False, kv_quant=PLANES[plane]["kv_quant"])
+    return EngineConfig(**{**kw, **extra})
+
+
+def _sp_config(torch):
+    import dataclasses
+
+    from finchat_tpu_torch.models.llama import PRESETS
+
+    return dataclasses.replace(PRESETS["llama3-8b"], n_layers=PLANE_DEPTH)
+
+
+def _sp_prompts() -> dict:
+    """The phase's prompts, seeded token ids of the 8B vocabulary."""
+    import numpy as np
+
+    rng = np.random.default_rng(2828)
+    ids = lambda n: [int(x) for x in rng.integers(1, 128_000, size=n)]  # noqa: E731
+    head = ids(SP_HEAD)
+    return dict(long=ids(SP_LONG), short=ids(SP_SHORT), head=head, prefixed=head + ids(SP_TAIL))
+
+
+def _sp_follower(rank: int, init_method: str, device: str, queue) -> None:
+    """A follower of the seq=2 x model=2 mesh on the one card (a spawned
+    process): its bf16 shard made (each leaf cut as it is made) while rank 0
+    runs the references, then an engine a case over the gloo group following
+    rank 0's calls; after each case its calls, launches and peak go to
+    ``queue`` (its int8 shard made before the int8 case)."""
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed as dist
+
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+        initialize_distributed,
+        make_abstract_mesh,
+    )
+    from finchat_tpu_torch.parallel.ranks import RankChannel, follow
+    from finchat_tpu_torch.parallel.sharding import leaf_sharder
+
+    dev = torch.device(device)
+    try:
+        torch.cuda.set_device(dev)
+        config = _sp_config(torch)
+        me = make_abstract_mesh((1, 1, 2, 1, 2), rank=rank)
+        planes: dict = {"bf16": _tp_params(torch, config, "bf16", dev, leaf_sharder(me, dev))}
+        initialize_distributed(SP_RANKS, rank, backend="gloo", init_method=init_method,
+                               timeout_s=SP_TIMEOUT_S, device=dev)
+        try:
+            mesh = build_mesh(MeshSpec(seq=2, model=2), [dev] * SP_RANKS, "gloo",
+                              timeout_s=SP_TIMEOUT_S)
+            channel = RankChannel(mesh, SP_TIMEOUT_S)
+            for name, plane, extra in SP_CASES:
+                if plane not in planes:
+                    planes.clear()
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    planes[plane] = _tp_params(torch, config, plane, dev, leaf_sharder(me, dev))
+                spec = PLANES[plane]
+                engine = InferenceEngine(config, planes[plane], _sp_engine_cfg(plane, extra),
+                                         quant=spec["quant"], quant_group=spec["group"],
+                                         mesh=mesh)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_launches()
+                calls = follow(engine, channel)
+                torch.cuda.synchronize()
+                queue.put((rank, name, dict(calls=calls, launches=dict(LAUNCHES),
+                                            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                                            sp_mode=engine.sp_mode)))
+                del engine
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # the process's boundary: the parent reports it
+        queue.put((rank, "error", traceback.format_exc()))
+
+
+def _sp_one_device(torch, config, params, plane: str, prompt: list[int]) -> dict:
+    """One device's chunked prefill of ``prompt`` (no mesh): its wall,
+    peak and device time by class ((c)'s yardstick)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+
+    spec = PLANES[plane]
+    engine = InferenceEngine(config, params, _sp_engine_cfg(plane, {}), device=params[
+        "embed"].device, quant=spec["quant"], quant_group=spec["group"])
+    pages = list(range(1, 1 + -(-len(prompt) // engine.page_size)))
+    engine.set_page_table_row(0, pages)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.prefill(0, list(prompt))
+    torch.cuda.synchronize()
+    out = dict(prefill_s=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    engine.reset_slot(0)
+    engine.set_page_table_row(0, pages)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.prefill(0, list(prompt))
+        torch.cuda.synchronize()
+    out["device_ms_by_class"], _top = device_ms(torch, prof, _sp_class)
+    del engine
+    _free(torch)
+    return out
+
+
+def _sp_teacher(torch, engine, what: str, prompt: list[int], served: list[int]) -> dict:
+    """``served`` teacher-forced on one device (``engine``, no mesh): the
+    prompt's chunked prefill, then each served token fed back a decode step;
+    each served token must be the one-device argmax wherever that margin
+    exceeds ``STREAM_MARGIN``. Returns the tokens held, those inside gate
+    (b)'s 1e-3 and the margins where the two differ."""
+    import numpy as np
+
+    ps = engine.page_size
+    pages = list(range(1, 1 + -(-(len(prompt) + len(served)) // ps)))
+    engine.set_page_table_row(0, pages)
+    rows = [engine.prefill(0, list(prompt))]
+    B = engine.engine_cfg.max_seqs
+    active = np.zeros(B, bool)
+    active[0] = True
+    z, o, zk = np.zeros(B, np.float32), np.ones(B, np.float32), np.zeros(B, np.int32)
+    for tok in served[:-1]:
+        engine.set_last_token(0, tok)
+        _t, lg = engine.decode(active, z, o, zk, return_logits=True)
+        rows.append(lg[0])
+    top = torch.stack(rows).topk(2, dim=-1)
+    best = top.indices[:, 0].tolist()
+    margins = (top.values[:, 0] - top.values[:, 1]).tolist()
+    engine.reset_slot(0)
+    apart = {i: round(m, 4) for i, (t, b, m) in enumerate(zip(served, best, margins)) if t != b}
+    if any(m > STREAM_MARGIN for m in apart.values()):
+        fail(f"sp (b) {what}: served tokens part from one device's at margins {apart} (limit "
+             f"{STREAM_MARGIN})")
+    return dict(tokens=len(served), apart=apart,
+                apart_past_gate_b=sum(m > SP_MARGIN for m in apart.values()))
+
+
+def _sp_class(name: str) -> str:
+    """The ring prefill's device time by class: the fold's fp32 products
+    (cuBLAS sgemm), the model's bf16 products, our kernels, the gloo staging
+    copies, and the fold's and the layers' elementwise passes."""
+    n = name.lower()
+    if "memcpy" in n:
+        return "copies (gloo staging, host <-> device)"
+    cls = _kernel_class(name)
+    if cls == "matmul (cuBLAS)":
+        return ("fold fp32 products (cuBLAS)" if ("f32f32" in n or "sgemm" in n) and "bf16" not in n
+                else "matmul bf16 (cuBLAS)")
+    return "elementwise and other" if cls == "other" else cls
+
+
+async def _sp_serve(torch, engine, name: str, prompts: dict) -> dict:
+    """Case ``name`` through a scheduler on rank 0: its streams, the seq-
+    sharded entries it took (with the short stream's tokens at each), the
+    step functions it ran (each writes the cache once a layer)."""
+    from finchat_tpu_torch.engine.sampler import SamplingParams
+    from finchat_tpu_torch.engine.scheduler import ContinuousBatchingScheduler
+    from finchat_tpu_torch.utils.metrics import METRICS
+
+    sched = ContinuousBatchingScheduler(engine, eos_id=-1)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=SP_NEW)
+    entries: list = []
+    short = None
+    forwarding = {e: getattr(engine, e) for e in ("prefill_ring", "prefill_ring_segment")}
+    for entry, real in forwarding.items():
+
+        def spy(*a, _real=real, _entry=entry, **k):
+            entries.append((_entry, short.generated if short is not None else None))
+            return _real(*a, **k)
+
+        setattr(engine, entry, spy)
+    hits = METRICS.get("finchat_prefix_hits_total")
+    if name == "prefix":
+        if sched.register_prefix(prompts["head"]) != SP_HEAD:
+            fail("sp (b) prefix: the head was not registered whole")
+    long_ids = prompts["prefixed" if name == "prefix" else "long"]
+
+    async def tokens(h) -> list[int]:
+        out = []
+        while True:
+            ev = await asyncio.wait_for(h.events.get(), timeout=SP_TIMEOUT_S)
+            if ev["type"] == "done":
+                return out
+            if ev["type"] != "token":
+                fail(f"sp (b) {name}: {ev}")
+            out.append(ev["token_id"])
+
+    await sched.start()
+    try:
+        t0 = time.perf_counter()
+        out: dict = {}
+        if name in ("segmented", "mixed"):
+            short = await sched.submit("short", prompts["short"], greedy)
+            first = await asyncio.wait_for(short.events.get(), timeout=SP_TIMEOUT_S)
+            h = await sched.submit("long", long_ids, greedy)
+            rest, out["long"] = await asyncio.gather(tokens(short), tokens(h))
+            out["short"] = [first["token_id"]] + rest
+        else:
+            h = await sched.submit("long", long_ids, greedy)
+            out["long"] = await tokens(h)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["ttft_s"] = h.first_token_at - h.submitted_at
+    finally:
+        await sched.stop()
+    sched.retire_prefixes()
+    for entry, real in forwarding.items():
+        setattr(engine, entry, real)
+    out.update(entries=entries, ring_path=h.ring_path,
+               prefix_hits=METRICS.get("finchat_prefix_hits_total") - hits,
+               pages_in_use=sched.allocator.used_count)
+    return out
+
+
+def sp_phase(torch, dev, card: str, results: list) -> dict:
+    """Sequence-parallel serving: a long prompt's prefill split over the
+    ``seq`` ranks by ring or Ulysses attention, on the one card.
+
+    (a) ``llama3-8b`` at full width over ``PLANE_DEPTH`` layers, random
+    weights from seed 0, greedy, with no mesh: the port's chunked prefill of
+    the 7,936-token prompt, its peak and device time by class. The whole
+    tree stays on rank 0 beside a one-device engine: every served stream of
+    (b) is teacher-forced there (``_sp_teacher``: each token the one-device
+    argmax wherever its top-2 margin exceeds ``STREAM_MARGIN``, the tokens
+    inside gate (b)'s 1e-3 counted).
+    (b) Four gloo ranks on the card (ranks 1-3 spawned at the phase's start),
+    ``seq=2 x model=2``, the default ``ring_prefill_min_tokens`` and
+    ``ring_prefill_chunk`` (4,096), depth 1, served through the scheduler on
+    rank 0: the long prompt monolithic; segmented (two segments) with the
+    short stream decoding (``mixed_step`` off: it gains a token between the
+    segments); the head registered and the prompt's one segment starting
+    past it (``finchat_prefix_hits_total`` +1); Ulysses segmented; the long
+    prompt admitted while the short stream decodes with ``mixed_step`` on (it
+    rides the packed rounds: no seq-sharded entry); int8 weights over an
+    int8 KV pool, segmented (the 3,840-token head with a 4,032-token tail in
+    the prefix case, the 7,936-token prompt elsewhere, ``SP_NEW`` tokens a
+    stream). Every stream teacher-forced on one device; the entries each
+    case took; every rank's launches equal; the KV-row writer
+    launched once a layer a step; the older bodies never.
+    (c) Monolithic, on rank 0: one more ring prefill of the long prompt
+    profiled, its device time by class against (a)'s; each rank's peak
+    against one device's; K7 at Ulysses' head group on a rank (8 query and
+    2 KV heads, S=4,096) against its plain version (a row of the
+    ``kernels`` line).
+    No number of the phase is an SP speed: a gloo collective stages through
+    the host."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    import torch.distributed as dist
+
+    from finchat_tpu_torch.engine import engine as engine_mod
+    from finchat_tpu_torch.engine.engine import InferenceEngine
+    from finchat_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from finchat_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+        initialize_distributed,
+        make_abstract_mesh,
+    )
+    from finchat_tpu_torch.parallel.ranks import Leader, RankChannel, rendezvous
+    from finchat_tpu_torch.parallel.sharding import llama_param_shardings, shard_params
+
+    t0 = time.perf_counter()
+    config = _sp_config(torch)
+    prompts = _sp_prompts()
+    init = rendezvous()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    followers = [ctx.Process(target=_sp_follower, args=(r, init, str(dev), queue), daemon=True,
+                             name=f"sp-rank-{r}") for r in range(1, SP_RANKS)]
+    for p in followers:
+        p.start()
+    out: dict = {"card": card}
+    me = make_abstract_mesh((1, 1, 2, 1, 2), rank=0)
+    try:
+        # (a) one device: the yardstick of (c); the tree stays for teacher forcing
+        _free(torch)
+        full = _tp_params(torch, config, "bf16", dev)
+        one = _sp_one_device(torch, config, full, "bf16", prompts["long"])
+        log(f"  sp (a) one device, {SP_LONG}-token prompt: chunked prefill {one['prefill_s']:.3f} s, "
+            f"peak {one['peak_gb']:.2f} GB; device ms by class {one['device_ms_by_class']} ({card})")
+        out["a"] = one
+        out["references_s"] = time.perf_counter() - t0
+        log(f"  sp (a) took {out['references_s']:.1f} s (the tree, the prefill twice, the "
+            "followers starting meanwhile)")
+
+        # (b) four gloo ranks
+        initialize_distributed(SP_RANKS, 0, backend="gloo", init_method=init,
+                               timeout_s=SP_TIMEOUT_S, device=dev)
+        mesh = build_mesh(MeshSpec(seq=2, model=2), [dev] * SP_RANKS, "gloo",
+                          timeout_s=SP_TIMEOUT_S)
+        channel = RankChannel(mesh, SP_TIMEOUT_S)
+        cases: dict = {}
+        summed: dict = {r: {} for r in range(SP_RANKS)}
+        steps = ("prefill_step", "decode_step", "ragged_mixed_step", "_sp_prefill")
+        shard = teacher = None
+        taught: dict = {}
+        for name, plane, extra in SP_CASES:
+            t_case = time.perf_counter()
+            spec = PLANES[plane]
+            if teacher is None or teacher.quant_label != plane:
+                shard = teacher = None
+                if plane != "bf16":
+                    full = None
+                    _free(torch)
+                    full = _tp_params(torch, config, plane, dev)
+                # rank 0's shard, and a one-device engine on the whole tree
+                shard = shard_params(full, llama_param_shardings(me), me, dev)
+                teacher = InferenceEngine(config, full, _sp_engine_cfg(plane, {}), device=dev,
+                                          quant=spec["quant"], quant_group=spec["group"])
+            engine = InferenceEngine(config, shard, _sp_engine_cfg(plane, extra),
+                                     device=dev, quant=spec["quant"], quant_group=spec["group"],
+                                     mesh=mesh)
+            if engine.sp_mode != extra.get("sp_mode", "ring"):
+                fail(f"sp (b) {name}: the engine runs {engine.sp_mode}")
+            counted = {s: 0 for s in steps}
+            real = {s: getattr(engine_mod, s) for s in steps}
+
+            def counting(s):
+                def call(*a, **k):
+                    counted[s] += 1
+                    return real[s](*a, **k)
+                return call
+
+            leader = Leader(engine, channel)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            try:
+                for s in steps:
+                    setattr(engine_mod, s, counting(s))
+                try:
+                    r = asyncio.run(_sp_serve(torch, engine, name, prompts))
+                    if name == "monolithic":  # (c): one more ring prefill, profiled
+                        r["profile"] = _sp_profile(torch, engine, prompts["long"])
+                finally:
+                    for s in steps:
+                        setattr(engine_mod, s, real[s])
+                torch.cuda.synchronize()
+                r["launches"] = {k: n for k, n in LAUNCHES.items() if n}
+                # rank 0's own: less the whole tree and the one-device engine's
+                # pool that the parent holds beside it for teacher forcing
+                held = _tree_bytes(full) + pool_bytes(teacher)
+                r["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+                r["steps"] = dict(counted)
+            finally:
+                leader.stop()
+            got = {0: dict(launches=r["launches"], peak_gb=r["peak_gb"], calls=None)}
+            for _ in range(SP_RANKS - 1):
+                try:
+                    rank, case, res = queue.get(timeout=SP_TIMEOUT_S)
+                except queue_mod.Empty:
+                    fail(f"sp (b) {name}: a rank sent no result in time")
+                if case == "error":
+                    fail(f"sp (b): rank {rank} failed:\n{res}")
+                got[rank] = dict(res, launches={k: n for k, n in res["launches"].items() if n})
+            r["followers_s"] = time.perf_counter() - t_case - r["wall_s"]
+            t_teach = time.perf_counter()
+            long_ids = prompts["prefixed" if name == "prefix" else "long"]
+            r["teacher_forced"] = {}
+            for key, ids in (("long", long_ids), ("short", prompts["short"])):
+                if key not in r:
+                    continue
+                memo = (plane, tuple(ids), tuple(r[key]))  # a stream served alike is held once
+                if memo not in taught:
+                    taught[memo] = _sp_teacher(torch, teacher, f"{name} {key}", ids, r[key])
+                r["teacher_forced"][key] = taught[memo]
+            r["teacher_s"] = time.perf_counter() - t_teach
+            _sp_check(name, plane, r, got)
+            for rank, g in got.items():
+                for k, n in g["launches"].items():
+                    summed[rank][k] = summed[rank].get(k, 0) + n
+            cases[name] = dict(r, ranks=got)
+            del engine, leader
+            _free(torch)
+        shard = teacher = full = None
+        dist.destroy_process_group()
+        if any(summed[k] != summed[0] for k in summed):
+            fail(f"sp (b): the ranks' launches differ: {summed}")
+        out["b"] = cases
+        out["launches"] = {k: summed[0].get(k, 0) for k in LAUNCHES}
+        prof = cases["monolithic"]["profile"]
+        peaks = {rank: max(c["ranks"][rank]["peak_gb"] for c in cases.values())
+                 for rank in range(SP_RANKS)}
+        log(f"  sp (c) monolithic ring prefill of {SP_LONG} tokens on rank 0: wall "
+            f"{prof['wall_s']:.3f} s (host-paced over gloo: not an SP rate); device ms by class "
+            f"{prof['device_ms_by_class']} against one device's chunked prefill "
+            f"{one['device_ms_by_class']}; peak GB by rank {peaks} against one device's "
+            f"{one['peak_gb']:.2f} ({card})")
+        out["c"] = dict(profile=prof, peak_gb_by_rank=peaks, one_device_peak_gb=one["peak_gb"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for p in followers:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+                fail(f"sp: {p.name} did not stop")
+    for p in followers:
+        if p.exitcode != 0:
+            fail(f"sp: {p.name} exited with {p.exitcode}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2828)
+    with _RankHeads(8, 2):
+        check_flash(torch, "flash_fwd_causal_s4096_h8_kv2", gen, dev, 1, 4096, 4096, [0], [4096],
+                    results, launch_plane="sp")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _sp_profile(torch, engine, prompt: list[int]) -> dict:
+    """One ring prefill of ``prompt`` into fresh pages of slot 0 (every rank
+    mirrors it), profiled on rank 0: its wall and device time by class."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    pages = list(range(1, 1 + -(-len(prompt) // engine.page_size)))
+    engine.set_page_table_row(0, pages)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.prefill_ring(0, list(prompt))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine.reset_slot(0)
+    by_class, top = device_ms(torch, prof, _sp_class)
+    return dict(wall_s=wall, device_ms_by_class=by_class, device_busy_ms=sum(by_class.values()),
+                top_other=top)
+
+
+def _sp_check(name: str, plane: str, r: dict, got: dict) -> None:
+    """(b)'s checks of one case (see ``sp_phase``), the streams'
+    teacher-forcing done."""
+    spec = PLANES[plane]
+    L = PLANE_DEPTH
+    kinds = [e for e, _ in r["entries"]]
+    want = {"monolithic": ["prefill_ring"],
+            "segmented": ["prefill_ring_segment", "prefill_ring", "prefill_ring_segment"],
+            "prefix": ["prefill_ring_segment"],
+            "ulysses": ["prefill_ring_segment", "prefill_ring", "prefill_ring_segment"],
+            "mixed": [],
+            "int8": ["prefill_ring_segment", "prefill_ring", "prefill_ring_segment"]}[name]
+    if kinds != want:
+        fail(f"sp (b) {name}: seq-sharded entries {kinds}, the schedule implies {want}")
+    if name == "segmented":
+        at = [g for e, g in r["entries"] if e == "prefill_ring_segment"]
+        if not at[1] > at[0]:
+            fail(f"sp (b) segmented: the short stream gained no token between the segments "
+                 f"({at})")
+    if name == "prefix" and r["prefix_hits"] != 1:
+        fail(f"sp (b) prefix: finchat_prefix_hits_total rose by {r['prefix_hits']}")
+    writes = L * sum(r["steps"].values())
+    writer = "kv_append_q8_sm90" if spec["kv_quant"] else "kv_append_sm90"
+    launched = r["launches"]
+    k7 = launched.get("flash_attention_sm90", 0)
+    # Ulysses' plain step (the first segment) runs K7 once a layer; its
+    # segment step folds in fp32
+    want_k7 = L * kinds.count("prefill_ring") if name == "ulysses" else 0
+    bad = [k for k in spec["never"] if launched.get(k)]
+    if launched.get(writer, 0) != writes or bad or k7 != want_k7 or r["pages_in_use"]:
+        fail(f"sp (b) {name}: {writer} launched {launched.get(writer, 0)} times against {writes} "
+             f"({L} layers x {r['steps']}); older bodies launched {bad}; K7 {k7} against "
+             f"{want_k7}; pages still held {r['pages_in_use']}")
+    if any(g["launches"] != launched for g in got.values()):
+        fail(f"sp (b) {name}: the ranks' launches differ: "
+             f"{ {k: g['launches'] for k, g in got.items()} }")
+    modes = {k: g.get("sp_mode") for k, g in got.items() if k}
+    if set(modes.values()) != {"ulysses" if name == "ulysses" else "ring"}:
+        fail(f"sp (b) {name}: the followers run {modes}")
+    log(f"  sp (b) {name} ({plane}): streams teacher-forced on one device "
+        f"{r['teacher_forced']} ({r['teacher_s']:.2f} s) in {r['wall_s']:.2f} s (the engines "
+        f"and the followers' results {r['followers_s']:.2f} s more), TTFT {r['ttft_s']:.3f} s (host-paced over gloo: not an SP "
+        f"rate); entries {r['entries']}; steps {r['steps']}; followers' modes {modes}; launches "
+        f"{launched} on every rank; peak GB by rank "
+        f"{ {k: round(g['peak_gb'], 2) for k, g in got.items()} }")
 
 
 # --------------------------------------------------------------------------
@@ -8787,6 +9310,12 @@ def main() -> None:
     train_mesh = train_mesh_phase(torch, dev, card, results)
     log(f"train_mesh ({train_mesh['seconds']:.1f} s): " + json.dumps(train_mesh))
 
+    log(f"phase 6c, sp: llama3-8b ({PLANE_DEPTH} layers, random weights) served with a long "
+        "prompt's prefill split over seq: four gloo ranks on the card, seq=2 x model=2; ring "
+        "monolithic and segmented, a shared head, Ulysses, packed rounds, int8+kv8")
+    sp = sp_phase(torch, dev, card, results)
+    log(f"sp ({sp['seconds']:.1f} s): " + json.dumps(sp))
+
     src = "finchat_tpu_torch/csrc/"
     paged = "finchat_tpu/ops/paged_attention.py:305"
     q8_paged = "finchat_tpu/ops/paged_attention.py:221"
@@ -8836,6 +9365,7 @@ def main() -> None:
     launched["moe"] = moe["launches"]
     launched["tp"] = tp["launches"]
     launched["train_mesh"] = train_mesh["launches"]
+    launched["sp"] = sp["launches"]
     # each rank's launches in the tp phase: the one-rank NCCL mesh's (both
     # depths), and rank 0's and rank 1's over the two gloo planes
     tp_ranks = {"tp_one_rank_launches": {}, "tp_rank0_launches": {}, "tp_rank1_launches": {}}
@@ -8877,6 +9407,8 @@ def main() -> None:
         # and on rank 0 of the train_mesh phase's four gloo ranks (equal on
         # every rank)
         row["train_mesh_launches"] = launched["train_mesh"].get(kname, 0)
+        # and on rank 0 of the sp phase's four gloo ranks (equal on every rank)
+        row["sp_launches"] = launched["sp"].get(kname, 0)
         table.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": table}), flush=True)

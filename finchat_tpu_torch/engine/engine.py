@@ -22,6 +22,10 @@ like:
   its own length, page list and sampling params.
 - ``ragged_multi_round``: the free-running loop, ``freerun_rounds``
   ragged rounds over staged descriptors (ops/freerun.py) in one dispatch.
+- ``ring_prefill_step`` / ``ring_prefill_segment_step``: a long prompt (or
+  one segment of it) prefilled with its sequence split over the mesh's
+  ``seq`` ranks, by ring or Ulysses attention (``ops/ring_attention.py``,
+  ``ops/ulysses.py``).
 
 The KV cache is updated IN PLACE: a step plans its token rows once
 (``plan_kv_rows``, ``plan_kv_rows_ragged``: ops/kv_append.py), and every
@@ -60,6 +64,7 @@ import torch
 from finchat_tpu_torch.engine.kv_cache import (
     BoundedKVPolicy,
     PagedKVCache,
+    gather_kv_any,
     gather_pages_host,
     scatter_pages_device,
 )
@@ -665,16 +670,134 @@ def ragged_multi_round(
     return state, torch.stack(ring_tokens), torch.stack(ring_n), torch.stack(ring_blocks)
 
 
+def _sp_attention_fn(mesh: Any, page_row: torch.Tensor, start_pos: int, n_valid: int, S: int,
+                     page_size: int, n_kv: int, sp_mode: str, prefix_pages: int):
+    """The attention callback of a seq-sharded prefill of ``S`` tokens (a
+    whole prompt, or one segment at ``start_pos``) into ``page_row`` [1,
+    max_pages]: SP attention over the ``seq`` axis for the compute (ring or
+    Ulysses by ``sp_mode``), and the cache write through ``kv_write``.
+
+    The pages are replicated over ``seq``, so every seq rank writes every
+    token's row: each layer gathers the K/V blocks over ``seq``
+    (``parallel/collectives.gather_seq``) and writes the whole segment with
+    one plan (``plan_kv_rows``; the KV-row writer on the card, quantizing for
+    an int8 pool). Padding tokens (past ``n_valid``) write the trash page.
+
+    With ``prefix_pages`` > 0 the cached earlier tokens (positions before
+    ``start_pos``, the first ``prefix_pages`` pages of the row) are gathered
+    (``gather_kv_any``: an int8 pool dequantized) and folded into the
+    attention first; the gather comes before the segment's own write, so the
+    fold sees only positions ``< start_pos``."""
+    from finchat_tpu_torch.parallel.collectives import gather_seq
+
+    if sp_mode == "ulysses":
+        from finchat_tpu_torch.ops.ulysses import (
+            ulysses_attention as attend,
+            ulysses_attention_with_prefix as attend_with_prefix,
+        )
+    else:
+        from finchat_tpu_torch.ops.ring_attention import (
+            ring_attention as attend,
+            ring_attention_with_prefix as attend_with_prefix,
+        )
+    dev = page_row.device
+    plan = plan_kv_rows(page_row, torch.tensor([start_pos], dtype=I32, device=dev),
+                        torch.tensor([n_valid], dtype=I32, device=dev), S, page_size)
+    sp = dict(mesh=mesh, axis="seq", head_axis="model", causal=True)
+
+    def attention(q, k, v, cache, layer_idx: int):
+        k_pages, v_pages, k_scales, v_scales = cache
+        with named_scope("ring_attention"):
+            if prefix_pages:
+                kp, vp = gather_kv_any(k_pages, v_pages, k_scales, v_scales,
+                                       page_row[:, :prefix_pages], page_size, layer_idx, n_kv,
+                                       dtype=q.dtype)
+                out = attend_with_prefix(q, k, v, kp, vp, start_pos, **sp)
+            else:
+                out = attend(q, k, v, **sp)
+        with named_scope("kv_scatter"):
+            rows = k.shape[0] * k.shape[1]
+            kw = gather_seq(k.reshape(rows, -1), mesh)
+            vw = gather_seq(v.reshape(rows, -1), mesh)
+            kv_write(plan, kw, vw, k_pages, v_pages, layer_idx, n_kv=n_kv, k_scales=k_scales,
+                     v_scales=v_scales)
+        return out, cache
+
+    return attention
+
+
+def _sp_prefill(params: dict[str, Any], state: DecodeState, tokens: torch.Tensor, slot: int,
+                start_pos: int, n_valid: int, *, config: LlamaConfig, page_size: int, mesh: Any,
+                sp_mode: str, prefix_pages: int) -> tuple[DecodeState, torch.Tensor]:
+    """The body of both seq-sharded prefill steps on this rank: its block of
+    ``tokens`` [1, S] (``S / n`` tokens at their absolute positions, so
+    RoPE sees the whole prompt's) through the layers, tensor parallelism
+    over ``model`` inside each seq coordinate as in every step. The last
+    valid token sits on seq rank ``(n_valid - 1) // (S / n)``; its hidden
+    row is broadcast over ``seq`` and every rank runs the head (gathered
+    over ``model``), so every rank holds the same logits and launches the
+    same head work."""
+    from finchat_tpu_torch.parallel.collectives import broadcast_seq
+
+    n, idx = mesh.shape["seq"], mesh.coords["seq"]
+    S = tokens.shape[1]
+    Sq = S // n
+    dev = tokens.device
+    positions = (start_pos + idx * Sq + torch.arange(Sq, device=dev, dtype=I32))[None, :]
+    page_row = state.page_table[slot:slot + 1]
+    attention = _sp_attention_fn(mesh, page_row, start_pos, n_valid, S, page_size,
+                                 config.local_kv_heads, sp_mode, prefix_pages)
+    hidden, _ = forward(params, tokens[:, idx * Sq:(idx + 1) * Sq], positions, config=config,
+                        attention=attention, cache=_cache(state), return_hidden=True)
+    last = max(n_valid - 1, 0)
+    owner = last // Sq
+    row = hidden[:, last - owner * Sq] if idx == owner else hidden.new_empty((1, hidden.shape[-1]))
+    row = broadcast_seq(row, mesh, owner)
+    last_logits = lm_head(params, row, config=config)[0]
+    state.context_lens[slot:slot + 1].add_(n_valid)
+    return state, last_logits
+
+
+def ring_prefill_step(params: dict[str, Any], state: DecodeState, tokens: torch.Tensor,
+                      slot: int, n_valid: int, *, config: LlamaConfig, page_size: int,
+                      mesh: Any, sp_mode: str = "ring") -> tuple[DecodeState, torch.Tensor]:
+    """Seq-sharded one-shot prefill of a long prompt (``tokens`` [1, S], the
+    whole prompt padded to a seq multiple; ``n_valid`` real tokens): a
+    rank's activations and attention state are O(S / seq), the exchange by
+    ``sp_mode`` (ring hops, or Ulysses' head scatter). Returns (state, the
+    last valid token's logits [vocab] fp32)."""
+    return _sp_prefill(params, state, tokens, slot, 0, n_valid, config=config,
+                       page_size=page_size, mesh=mesh, sp_mode=sp_mode, prefix_pages=0)
+
+
+def ring_prefill_segment_step(params: dict[str, Any], state: DecodeState, tokens: torch.Tensor,
+                              slot: int, start_pos: int, n_valid: int, *, config: LlamaConfig,
+                              page_size: int, mesh: Any, prefix_pages: int,
+                              sp_mode: str = "ring") -> tuple[DecodeState, torch.Tensor]:
+    """One segment of a segmented seq-sharded prefill (``tokens`` [1, S] at
+    absolute ``start_pos``): it attends to the cached earlier segments
+    through the prefix fold and to itself through the ring (or Ulysses), so
+    the scheduler can interleave decode steps between segments. Returns
+    (state, the last valid token's logits [vocab]; the final segment's are
+    the prompt's). ``prefix_pages`` (the caller's power-of-two bucket)
+    bounds the gather and fold to the pages that can hold the prefix."""
+    return _sp_prefill(params, state, tokens, slot, start_pos, n_valid, config=config,
+                       page_size=page_size, mesh=mesh, sp_mode=sp_mode,
+                       prefix_pages=prefix_pages)
+
+
 def check_tp_servable(config: LlamaConfig, shape: dict[str, int]) -> None:
-    """Refuse by name a mesh (its axis sizes) or a model the TP engine does
-    not serve: any axis but ``model`` above 1, an MoE model, and a ``model``
-    axis that does not divide the heads or the KV heads. ``build_app``
-    asks before it starts any rank; the engine asks again."""
-    others = {a: n for a, n in shape.items() if a != "model" and n > 1}
+    """Refuse by name a mesh (its axis sizes) or a model the mesh engine does
+    not serve: a ``data``, ``pipe`` or ``expert`` axis above 1, an MoE
+    model, and a ``model`` axis that does not divide the heads or the KV
+    heads. ``seq`` is served (the long-prompt prefill splits its sequence
+    over it; every other step replicates over it). ``build_app`` asks before
+    it starts any rank; the engine asks again."""
+    others = {a: n for a, n in shape.items() if a not in ("model", "seq") and n > 1}
     if others:
         raise NotImplementedError(
-            f"mesh: {others}: sequence parallelism (seq) and the pipeline, data and expert "
-            "axes are not served yet; a serving mesh shards over model only")
+            f"mesh: {others}: the pipeline, data and expert axes are not served yet; a "
+            "serving mesh shards over seq and model only")
     if config.n_experts:
         raise NotImplementedError("mesh: an MoE model is not served on a mesh yet (expert and "
                                   "tensor parallelism for MoE are not ported)")
@@ -690,8 +813,9 @@ def check_tp_servable(config: LlamaConfig, shape: dict[str, int]) -> None:
 
 def _place_tp(config: LlamaConfig, params: dict[str, Any], engine_cfg: EngineConfig, mesh: Any,
               quant: str, quant_group: int) -> tuple[LlamaConfig, dict[str, Any]]:
-    """A tensor-parallel rank's config (``config.tp`` set) and weight shard;
-    refuses the planes this engine does not serve on a mesh, by name."""
+    """A tensor-parallel rank's config (``config.tp`` set) and weight shard
+    (cut over ``model`` only: the same on every seq coordinate); refuses
+    the planes this engine does not serve on a mesh, by name."""
     from finchat_tpu_torch.ops.tp_overlap import TPShard, chunk_row_parallel
     from finchat_tpu_torch.parallel.sharding import llama_param_shardings, shard_params
 
@@ -743,8 +867,8 @@ def _tp_broadcast_parts(local: torch.Tensor, tp: Any) -> list[torch.Tensor]:
 
 def _gather_tp_record(state: DecodeState, page_ids: list[int], config: LlamaConfig) -> tuple:
     """``gather_pages_host``'s record of a tensor-parallel pool: every rank's
-    KV of these pages made into one record of the one-device layout
-    (``parallel/sharding.kv_full``)."""
+    KV of these pages (over its ``model`` group) made into one record of the
+    one-device layout (``parallel/sharding.kv_full``)."""
     from finchat_tpu_torch.parallel.sharding import kv_full
 
     tp = config.tp
@@ -797,8 +921,19 @@ class InferenceEngine:
       of one, so a session record moves between a TP engine and a
       one-device engine either way.
 
+    A ``seq`` axis above 1 adds sequence parallelism (the JAX package's
+    ``mesh.seq``): the weights and the page pool are replicated over
+    ``seq`` (sharded over ``model`` as above), every step runs alike on
+    every seq coordinate, and a prompt of at least
+    ``ring_prefill_min_tokens`` tokens prefills with its sequence split over
+    the seq ranks (``prefill_ring``, or ``prefill_ring_segment`` a segment
+    of ``ring_segment_tokens()`` at a time), by ring or Ulysses attention
+    (``sp_mode``; Ulysses falls back to ring when the seq axis does not
+    divide a shard's heads). A session record is read from seq coordinate
+    0's ``model`` group (the pages are the same on every coordinate).
+
     Every rank must make the same calls in the same order
-    (``parallel/ranks``). Refused by name: a ``data``, ``pipe``, ``seq`` or
+    (``parallel/ranks``). Refused by name: a ``data``, ``pipe`` or
     ``expert`` axis above 1, an MoE model, a ``model`` axis that does not
     divide ``n_heads`` or ``n_kv_heads``, and a decode loop deeper than 1
     over a gloo group on the card (a gloo collective cannot be captured in
@@ -869,6 +1004,28 @@ class InferenceEngine:
         self._expert_fallback = (device.type == "cuda" and config.n_experts > 0 and isinstance(
             params["layers"]["moe_gate"], (QTensor, Q4Tensor)))
         self._fallback_kinds: set[str] = set()
+        # the SP mode a seq-sharded prefill runs ("ring" | "ulysses")
+        self.sp_mode = self._resolve_sp_mode(engine_cfg.sp_mode)
+
+    def _resolve_sp_mode(self, sp_mode: str) -> str:
+        """The configured SP mode checked against this model and mesh: an
+        unknown mode raises; Ulysses needs a shard's heads divisible by the
+        seq axis (``ops/ulysses.ulysses_supported``) and falls back to ring
+        (always valid) otherwise, with a warning."""
+        if sp_mode not in ("ring", "ulysses"):
+            raise ValueError(f"unknown sp_mode {sp_mode!r} (supported: 'ring', 'ulysses')")
+        if sp_mode == "ulysses" and self.mesh is not None:
+            from finchat_tpu_torch.ops.ulysses import ulysses_supported
+
+            c = self.config
+            if not ulysses_supported(c.n_heads, c.n_kv_heads, self.mesh, axis="seq",
+                                     head_axis="model"):
+                logger.warning(
+                    "sp_mode=ulysses needs per-shard heads divisible by the seq axis (H=%d, "
+                    "Hkv=%d, mesh=%s); falling back to ring", c.n_heads, c.n_kv_heads,
+                    self.mesh.shape)
+                return "ring"
+        return sp_mode
 
     def _count_fallback(self, kind: str) -> None:
         """Book the expert products of step kind ``kind`` on
@@ -956,10 +1113,14 @@ class InferenceEngine:
         int8 scale planes) for the session KV cache. Returns once the copy
         has landed: the caller is about to free these pages
         (kv_cache.gather_pages_host). Under tensor parallelism every rank
-        calls it, and each gets the whole record: every rank's heads in
-        head order, in the one-device layout."""
+        calls it, and each rank of seq coordinate 0 gets the whole record:
+        every rank's heads in head order, in the one-device layout (the
+        pages are replicated over ``seq``; the other coordinates get
+        None)."""
         s = self.state
         if self.config.tp is not None:
+            if self.mesh.coords["seq"]:
+                return None  # seq coordinate 0's ranks read it; a follower discards it
             return _gather_tp_record(s, page_ids, self.config)
         return gather_pages_host(s.k_pages, s.v_pages, s.k_scales, s.v_scales, page_ids)
 
@@ -1019,7 +1180,9 @@ class InferenceEngine:
           ``spec_tokens`` > 0 ``verify_step`` with ``return_logits`` False
           and True;
         - ``commit_first_token`` on slot 0 (its last token becomes 0; a
-          slot's first prefill completion overwrites it).
+          slot's first prefill completion overwrites it);
+        - on a ``seq > 1`` mesh, the seq-sharded prefill's buckets
+          (``_warm_ring``).
 
         The decode steps sample at temperature 1.0, so warmup advances
         ``state.generator``; greedy streams do not see that. Returns the
@@ -1093,6 +1256,8 @@ class InferenceEngine:
                                                                 dtype=torch.float32),
                                            0.0, 1.0, 0)
         n_variants += 1
+        if self.mesh is not None and self.mesh.shape.get("seq", 1) > 1:
+            n_variants += self._warm_ring(step)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0
@@ -1100,6 +1265,43 @@ class InferenceEngine:
         logger.info("engine warmup [%s]: prefill batches %s + %d step variants in %.1fs",
                     self.quant_label, prefill_batch_sizes, n_variants, elapsed)
         return elapsed
+
+    def _warm_ring(self, step: dict) -> int:
+        """The seq-sharded prefill's variants the JAX engine's warmup
+        compiles, each run once with ``n_valid = 0`` (the writes go to the
+        trash page): ``ring_prefill_step`` at every bucket the router can
+        produce (segmented: ``bucket(min(ring_min, rc))`` to
+        ``bucket(rc)``; monolithic: ``bucket(ring_min)`` up to the one
+        covering ``max_seq_len``), and with segments the segment step at
+        every prefix-page bucket a start can map to. Returns their count."""
+        cfg = self.engine_cfg
+        sp = dict(mesh=self.mesh, sp_mode=self.sp_mode, **step)
+        rc = self.ring_segment_tokens()
+        ring_min = cfg.ring_prefill_min_tokens
+        if rc > 0:
+            S, top = self._ring_bucket(min(ring_min, rc)), self._ring_bucket(rc)
+        else:
+            S, top = self._ring_bucket(ring_min), self._ring_bucket(cfg.max_seq_len)
+        n = 0
+        while True:
+            self.state, _ = ring_prefill_step(self.params, self.state, self._token_row([], S), 0,
+                                              0, **sp)
+            n += 1
+            if S >= top:
+                break
+            S = self._ring_bucket(S + 1)
+        if rc > 0:
+            pb = self._prefix_page_bucket(rc)
+            top_pb = self._prefix_page_bucket(cfg.max_seq_len)
+            while True:
+                self.state, _ = ring_prefill_segment_step(
+                    self.params, self.state, self._token_row([], rc), 0, rc, 0,
+                    prefix_pages=pb, **sp)
+                n += 1
+                if pb >= top_pb:
+                    break
+                pb = min(pb * 2, top_pb)
+        return n
 
     # --- steps -----------------------------------------------------------
     def prefill_chunk(self, tokens, slots, start_pos, n_valid) -> torch.Tensor:
@@ -1117,8 +1319,22 @@ class InferenceEngine:
     def prefill_batch(self, items: list[tuple[int, list[int]]]) -> list[torch.Tensor]:
         """Chunked prefill of N whole prompts together; returns each
         sequence's final-chunk last-token logits ([vocab] each, in order).
-        Exhausted prompts ride the remaining rounds with ``n_valid = 0``."""
+        Exhausted prompts ride the remaining rounds with ``n_valid = 0``.
+        Prompts of at least ``ring_prefill_min_tokens`` on a ``seq > 1``
+        mesh take the seq-sharded path instead (``prefill_ring``, one
+        shot)."""
         assert items, "empty prefill batch"
+        ring = [(i, slot, ids) for i, (slot, ids) in enumerate(items)
+                if self._use_ring_prefill(len(ids))]
+        if ring:
+            results: list[torch.Tensor | None] = [None] * len(items)
+            for i, slot, ids in ring:
+                results[i] = self.prefill_ring(slot, ids)
+            rest = [(i, it) for i, it in enumerate(items) if results[i] is None]
+            if rest:
+                for (i, _), lg in zip(rest, self.prefill_batch([it for _, it in rest])):
+                    results[i] = lg
+            return results  # type: ignore[return-value]
         C = self.engine_cfg.prefill_chunk
         N = len(items)
         slots = [slot for slot, _ in items]
@@ -1145,6 +1361,76 @@ class InferenceEngine:
         chunk's last-token logits and commits no token (a shared prefix's
         registration fills exactly its pages with it)."""
         return self.prefill_batch([(slot, prompt_ids)])[0]
+
+    # --- the seq-sharded long-prompt prefill -----------------------------
+    def _use_ring_prefill(self, prompt_len: int) -> bool:
+        """Does a prompt of ``prompt_len`` tokens take the seq-sharded
+        prefill? (A pure function of the length: every rank routes alike.)"""
+        return (self.mesh is not None and self.mesh.shape.get("seq", 1) > 1
+                and prompt_len >= self.engine_cfg.ring_prefill_min_tokens)
+
+    def _ring_bucket(self, n: int) -> int:
+        """A ring prefill's length padded to a power of two, rounded up to a
+        seq multiple (the JAX engine's compiled shapes; the warmup runs
+        each)."""
+        n_seq = self.mesh.shape["seq"]
+        return -(-round_up_pow2(n) // n_seq) * n_seq
+
+    def _token_row(self, tokens: list[int], S: int) -> torch.Tensor:
+        """``tokens`` padded with zeros to [1, S] on the device."""
+        return self.to_device(np.asarray([tokens + [0] * (S - len(tokens))], np.int32))
+
+    def prefill_ring(self, slot: int, prompt_ids: list[int]) -> torch.Tensor:
+        """Seq-sharded one-shot prefill of a long prompt
+        (``ring_prefill_step`` at ``_ring_bucket``); returns the last
+        token's logits."""
+        assert self.mesh is not None and self.mesh.shape.get("seq", 1) > 1
+        n = len(prompt_ids)
+        self.state, last_logits = ring_prefill_step(
+            self.params, self.state, self._token_row(prompt_ids, self._ring_bucket(n)), slot, n,
+            config=self.config, page_size=self.page_size, mesh=self.mesh, sp_mode=self.sp_mode)
+        return last_logits
+
+    def ring_segment_tokens(self) -> int:
+        """The segment of the segmented SP prefill (0 = monolithic): the
+        configured ``ring_prefill_chunk`` rounded up to a seq multiple; both
+        SP modes have a segment variant."""
+        rc = self.engine_cfg.ring_prefill_chunk
+        if rc <= 0 or self.mesh is None:
+            return 0
+        n_seq = self.mesh.shape.get("seq", 1)
+        return -(-rc // n_seq) * n_seq
+
+    def _prefix_page_bucket(self, start_pos: int) -> int:
+        """The page count of a segment's prefix gather: a power-of-two bucket
+        of the pages holding positions [0, start_pos), capped at the row's
+        width, and floored at the pages one segment spans (a prefix shorter
+        than a segment, a shared head's hit on the first segment, takes the
+        smallest bucket; the extra pages are masked, their cost at most one
+        segment's)."""
+        floor = -(-self.ring_segment_tokens() // self.page_size)
+        need = max(-(-start_pos // self.page_size), 1)
+        return min(max(round_up_pow2(need), round_up_pow2(floor)), self.max_pages_per_seq)
+
+    def prefill_ring_segment(self, slot: int, seg_ids: list[int], start_pos: int
+                             ) -> torch.Tensor:
+        """One segment of a segmented seq-sharded prefill. A segment with no
+        cached prefix (``start_pos == 0``) runs the plain ring step (the
+        monolithic path's bucket); one with a prefix (a later segment, or a
+        first one past a shared head) runs the prefix-fold step at the
+        segment's shape. Returns the last valid token's logits (the final
+        segment's are the prompt's)."""
+        rc = self.ring_segment_tokens()
+        assert rc > 0, "a segmented ring prefill needs ring_prefill_chunk > 0"
+        n = len(seg_ids)
+        assert 0 < n <= rc
+        if start_pos == 0:
+            return self.prefill_ring(slot, seg_ids)
+        self.state, last_logits = ring_prefill_segment_step(
+            self.params, self.state, self._token_row(seg_ids, rc), slot, start_pos, n,
+            config=self.config, page_size=self.page_size, mesh=self.mesh,
+            prefix_pages=self._prefix_page_bucket(start_pos), sp_mode=self.sp_mode)
+        return last_logits
 
     def commit_first_token(self, slot: int, logits: torch.Tensor, temperature: float,
                            top_p: float, top_k: int) -> torch.Tensor:

@@ -134,6 +134,16 @@ scheduler keeps the engine's quant label and sets the
 - The pod plane (serve/pod.py): with ``pod`` set, ``submit`` first asks the
   coordinator to pull the conversation's newest session record from a peer
   host when nothing local resumes it warm.
+- Sequence parallelism (an engine over a mesh with ``seq > 1``): a prompt
+  of at least ``ring_prefill_min_tokens`` tokens prefills with its sequence
+  split over the seq ranks (``_ring_routed``), in one shot
+  (``engine.prefill_ring``, ``ring_prefill_chunk = 0``) or one segment a
+  round (``engine.prefill_ring_segment``), so decode steps interleave
+  between segments. A monolithic ring prompt skips prefix matching, a
+  segmented one keeps the shared head (its first segment starts past it),
+  and a ring prompt never resumes a session. When decode coexists, a
+  ring-routed prompt rides the packed ragged round as ordinary chunk rows;
+  the seq-sharded steps run only on the split path.
 """
 
 from __future__ import annotations
@@ -209,6 +219,9 @@ class SequenceHandle:
     resumed_len: int = 0
     # the shared-prefix entry the page table references (refcounted)
     prefix_entry: object | None = None
+    # on the segmented seq-sharded prefill (prefill_pos > 0 there means
+    # "mid-ring", not "ride the chunked batch")
+    ring_path: bool = False
     # completion deadline on time.perf_counter's clock; None = none. A
     # pending entry past it is shed, admission runs earliest deadline
     # first, and page pressure preempts the latest-deadline victim
@@ -637,13 +650,16 @@ class ContinuousBatchingScheduler:
         parks when the prefix is done instead of sampling a first token;
         ``extend_prompt`` grafts the full prompt in and prefill goes on from
         the parked position. Returns None when the prefix cannot ride this
-        path (empty, or over budget); the caller then submits the full
-        prompt."""
+        path (empty, over budget, or long enough for the seq-sharded
+        prefill, which owns its prompt from end to end); the caller then
+        submits the full prompt."""
         if not prefix_ids:
             return None
         max_len = self.engine.max_pages_per_seq * self.engine.page_size
         if len(prefix_ids) + sampling.max_new_tokens > max_len:
             return None  # the full prompt could never fit either
+        if self.engine._use_ring_prefill(len(prefix_ids)):
+            return None
         handle = await self.submit(seq_id, prefix_ids, sampling,
                                    conversation_id=conversation_id, deadline=deadline,
                                    trace_id=trace_id)
@@ -1007,7 +1023,15 @@ class ContinuousBatchingScheduler:
                 restore_snap = bsnap
                 resume_gap = handle.kv_gap
             else:
-                entry, shared_len = self._match_prefix(handle.prompt_ids)
+                # a monolithic ring prefill starts at position 0, so it
+                # matches no prefix (a hit would force the prompt onto the
+                # chunked path); a segmented one keeps the shared head, its
+                # first segment starting past it with the head folded in
+                ring = bp is None and self.engine._use_ring_prefill(len(handle.prompt_ids))
+                if ring and self.engine.ring_segment_tokens() == 0:
+                    entry, shared_len = None, 0
+                else:
+                    entry, shared_len = self._match_prefix(handle.prompt_ids)
                 if bp is not None and shared_len > bp.sink_tokens:
                     # bounded rows reference at most the sink-sized lead of a
                     # shared head: head pages pin whole (read-only references
@@ -1017,10 +1041,11 @@ class ContinuousBatchingScheduler:
                     shared_len = bp.sink_tokens
                 # session tier: a per-conversation resume takes over whenever
                 # it matches deeper than the shared head (it holds the head
-                # as its own leading pages)
+                # as its own leading pages); a ring prompt keeps the
+                # seq-sharded prefill and takes no resume
                 s_entry, s_matched = None, 0
                 session_eligible = (self.session_cache is not None
-                                    and bool(handle.conversation_id))
+                                    and bool(handle.conversation_id) and not ring)
                 if session_eligible:
                     if self.session_cache.get(handle.conversation_id) is None:
                         # a RAM miss falls through to the disk tier; match()
@@ -1473,6 +1498,7 @@ class ContinuousBatchingScheduler:
         handle.page_list = []
         handle.shared_len = 0
         handle.resumed_len = 0
+        handle.ring_path = False
         handle.grafted = False
         handle.preempted += 1
         handle.epoch += 1  # stale dispatch memberships no longer match
@@ -1510,8 +1536,13 @@ class ContinuousBatchingScheduler:
         total = self._admission_pages(cand)
         if total > self.engine.max_pages_per_seq:
             return []
-        # the plan _admit will make: a head the candidate shares needs no pages
-        _, shared_len = self._match_prefix(cand.prompt_ids)
+        # the plan _admit will make: a head the candidate shares needs no
+        # pages (a monolithic ring prompt shares none)
+        ring = self.engine._use_ring_prefill(len(cand.prompt_ids))
+        if ring and self.engine.ring_segment_tokens() == 0:
+            shared_len = 0
+        else:
+            _, shared_len = self._match_prefix(cand.prompt_ids)
         need = total - shared_len // page
         if self.free_slots and self.allocator.can_allocate(need):
             return []  # admissible as it is
@@ -2025,6 +2056,20 @@ class ContinuousBatchingScheduler:
                      args={"kind": kind, "n": self._dispatch_tally,
                            "quant": self.quant_label, "rows": rows})
 
+    def _ring_routed(self, handle: SequenceHandle) -> bool:
+        """Does this prefilling handle take the seq-sharded prefill this
+        round (``prefill_ring`` / ``prefill_ring_segment``) rather than the
+        chunked batch? Bounded rows never do (the seq-sharded steps write at
+        absolute positions, and a segment's burst exceeds the eviction
+        wave's reserve), nor a grafted hold (both paths schedule the prompt
+        from position 0); a handle does from position 0, on the ring path
+        already, or with a shared-prefix entry."""
+        return (self.bounded_kv is None
+                and self.engine._use_ring_prefill(len(handle.prompt_ids))
+                and not handle.grafted
+                and (handle.prefill_pos == 0 or handle.ring_path
+                     or handle.prefix_entry is not None))
+
     @staticmethod
     def _parked(handle: SequenceHandle) -> bool:
         """A parked hold: its prefix is prefilled and it waits for
@@ -2070,65 +2115,113 @@ class ContinuousBatchingScheduler:
         prompts sample their first token (``commit_first_token``), a
         constrained one on the host from its logits row, and a completed
         hold parks. Chunked prefix registrations ride the same step as rows
-        that sample nothing."""
+        that sample nothing. A ring-routed prompt (``_ring_routed``) takes
+        the seq-sharded prefill instead: the whole prompt in this round
+        (``ring_prefill_chunk = 0``: every decoding stream waits for it), or
+        its next segment."""
         eng = self.engine
         C = eng.engine_cfg.prefill_chunk
-        batch = self._prefill_batch()
+        batch = []
+        # (handle, logits [N, vocab], row, epoch) of each prompt completed
+        # this round: the epoch tells a preempted and replayed incarnation
+        # from the one this round prefilled
+        completions: list[tuple[SequenceHandle, object, int, int]] = []
+        for handle in self._prefill_batch():
+            if not self._ring_routed(handle):
+                batch.append(handle)
+                continue
+            try:
+                done = self._ring_step(handle)
+            except Exception as e:  # per-sequence isolation
+                logger.error("prefill error for %s: %s", handle.seq_id, e)
+                self._evict(handle, "error", error=str(e))
+                continue
+            if done is not None:
+                completions.append((handle, done[None], 0, handle.epoch))
         jobs = list(self._prefix_jobs)
-        if not batch and not jobs:
-            return
-        rows = [(h.slot, h.prompt_ids, h.prefill_pos) for h in batch]
-        rows += [(j.slot, j.ids, j.pos) for j in jobs]
-        N = round_up_pow2(len(rows))
-        tokens, slots, starts, n_valids = self._pack_prefill_rows(rows, N, C)
-        with Timer(self.metrics, "finchat_prefill_seconds") as pt:
-            logits = eng.prefill_chunk(tokens, slots, starts, n_valids)
-        self._tally_dispatch()
-        if TRACER.enabled:
-            trows = [[h.slot, h.trace_id or h.seq_id, "prefill"] for h in batch]
-            trows += [[j.slot, f"prefix:{j.owner}", "prefix"] for j in jobs]
-            self._trace_dispatch("prefill", trows, ts=pt.started, dur=pt.elapsed)
-        # (handle, batch row, epoch): the epoch tells a preempted and
-        # replayed incarnation from the one this round prefilled
-        completions: list[tuple[SequenceHandle, int, int]] = []
-        for i, handle in enumerate(batch):
-            handle.prefill_pos += int(n_valids[i])
-            handle.kv_ctx = handle.prefill_pos
-            if handle.prefill_pos >= len(handle.prompt_ids):
-                if handle.held:
-                    continue  # park: the first token waits for the graft
-                completions.append((handle, i, handle.epoch))
-        for i, job in enumerate(jobs, start=len(batch)):
-            job.pos += int(n_valids[i])
-            if job.pos >= job.shared_len:
-                self._complete_prefix_job(job, "chunked")
+        if batch or jobs:
+            rows = [(h.slot, h.prompt_ids, h.prefill_pos) for h in batch]
+            rows += [(j.slot, j.ids, j.pos) for j in jobs]
+            N = round_up_pow2(len(rows))
+            tokens, slots, starts, n_valids = self._pack_prefill_rows(rows, N, C)
+            with Timer(self.metrics, "finchat_prefill_seconds") as pt:
+                logits = eng.prefill_chunk(tokens, slots, starts, n_valids)
+            self._tally_dispatch()
+            if TRACER.enabled:
+                trows = [[h.slot, h.trace_id or h.seq_id, "prefill"] for h in batch]
+                trows += [[j.slot, f"prefix:{j.owner}", "prefix"] for j in jobs]
+                self._trace_dispatch("prefill", trows, ts=pt.started, dur=pt.elapsed)
+            for i, handle in enumerate(batch):
+                handle.prefill_pos += int(n_valids[i])
+                handle.kv_ctx = handle.prefill_pos
+                if handle.prefill_pos >= len(handle.prompt_ids):
+                    if handle.held:
+                        continue  # park: the first token waits for the graft
+                    completions.append((handle, logits, i, handle.epoch))
+            for i, job in enumerate(jobs, start=len(batch)):
+                job.pos += int(n_valids[i])
+                if job.pos >= job.shared_len:
+                    self._complete_prefix_job(job, "chunked")
         if not completions:
             return  # dispatch-only round, no host sync needed
         tokens_dev = []
-        for h, i, _epoch in completions:
+        for h, lg, i, _epoch in completions:
             h.span.mark("prefill_done")
             s = h.sampling
-            tokens_dev.append(eng.commit_first_token(h.slot, logits[i], s.temperature,
+            tokens_dev.append(eng.commit_first_token(h.slot, lg[i], s.temperature,
                                                      s.top_p, s.top_k))
-        # only the constrained completions' logits rows leave the card
-        picks = [i for h, i, _epoch in completions if h.constraint is not None]
-        picked = eng.select_rows(logits, picks) if picks else None
+        # only the constrained completions' logits rows leave the card, the
+        # rows of each logits tensor selected on the device together
+        picks: dict[int, tuple[object, list[int]]] = {}
+        for h, lg, i, _epoch in completions:
+            if h.constraint is not None:
+                picks.setdefault(id(lg), (lg, []))[1].append(i)
+        picked = [eng.select_rows(lg, rows) for lg, rows in picks.values()]
         # one host fetch for all completions (worker thread keeps the loop live)
-        fetched, logits_host = await asyncio.to_thread(
+        fetched, picked_host = await asyncio.to_thread(
             lambda: ([int(eng.to_host(t)) for t in tokens_dev],
-                     eng.to_host(picked) if picked is not None else None))
-        for (handle, i, epoch), token_id in zip(completions, fetched):
+                     [eng.to_host(p) for p in picked]))
+        logits_host = {(key, i): host[r] for (key, (_lg, rows)), host
+                       in zip(picks.items(), picked_host) for r, i in enumerate(rows)}
+        for (handle, lg, i, epoch), token_id in zip(completions, fetched):
             if handle.finished or handle.epoch != epoch:
                 continue  # cancelled or preempted while fetching
             try:
                 if handle.constraint is not None:
-                    token_id = self._constrained_pick(handle, logits_host[picks.index(i)])
+                    token_id = self._constrained_pick(handle, logits_host[(id(lg), i)])
                 self.prefilling.remove(handle)
                 self.decoding[handle.slot] = handle
                 self._deliver(handle, int(token_id))
             except Exception as e:  # a pick or delivery error fails its sequence only
                 logger.error("prefill completion error for %s: %s", handle.seq_id, e)
                 self._evict(handle, "error", error=str(e))
+
+    def _ring_step(self, handle: SequenceHandle):
+        """One seq-sharded dispatch for a ring-routed handle: its whole
+        prompt (monolithic), or its next segment, at its prefill position
+        (a first segment past a shared head folds the head in). Returns the
+        last token's logits [vocab] once the prompt is done, else None."""
+        eng = self.engine
+        rc = eng.ring_segment_tokens()
+        if rc == 0:
+            assert handle.prefill_pos == 0  # a monolithic ring matches no prefix (_admit)
+            kind = "ring"
+            with Timer(self.metrics, "finchat_prefill_seconds") as pt:
+                logits = eng.prefill_ring(handle.slot, handle.prompt_ids)
+            handle.prefill_pos = len(handle.prompt_ids)
+        else:
+            kind = "ring_segment"
+            handle.ring_path = True
+            seg = handle.prompt_ids[handle.prefill_pos:handle.prefill_pos + rc]
+            with Timer(self.metrics, "finchat_prefill_seconds") as pt:
+                logits = eng.prefill_ring_segment(handle.slot, seg, handle.prefill_pos)
+            handle.prefill_pos += len(seg)
+        self._tally_dispatch()
+        if TRACER.enabled:
+            self._trace_dispatch(kind, [[handle.slot, handle.trace_id or handle.seq_id, "ring"]],
+                                 ts=pt.started, dur=pt.elapsed)
+        handle.kv_ctx = handle.prefill_pos
+        return logits if handle.prefill_pos >= len(handle.prompt_ids) else None
 
     def _prefill_batch(self) -> list[SequenceHandle]:
         """The prefilling sequences that go into this round (parked holds

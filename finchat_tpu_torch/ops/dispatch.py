@@ -165,9 +165,17 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     """Full contiguous causal attention (training, one-shot forward): K7's
     differentiable kernel on the card, the plain ``flash_attention_ref``
     (plain autograd) on the CPU."""
+    return contiguous_attention(q, k, v, causal=True)
+
+
+def contiguous_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool) -> torch.Tensor:
+    """Contiguous attention over the whole sequence, causal or full, from
+    position 0 (``causal_attention``, Ulysses' head groups): K7 on the card
+    (routed by ``flash_kernel_for``), ``flash_attention_ref`` on the CPU."""
     if q.is_cuda:
-        return flash_attention(q, k, v, causal=True)
-    return flash_attention_ref(q, k, v, causal=True)[0]
+        return flash_attention(q, k, v, causal=causal)
+    return flash_attention_ref(q, k, v, causal=causal)[0]
 
 
 def quant_matmul(x: torch.Tensor, w: QTensor | Q4Tensor,

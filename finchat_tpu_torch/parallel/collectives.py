@@ -13,6 +13,22 @@ that its pipeline's manual Megatron stage block issues by hand.
   ``group`` in place (the data axis's gradient reduce); ``mean_over`` a
   value's mean (the global loss).
 
+Sequence parallelism's collectives (serving's long-prompt prefill; forward
+only, outside autograd) move a rank's block of the sequence over the mesh's
+``seq`` axis:
+
+- ``ring_shift(x, mesh)``: every rank's block to the next seq rank, the
+  previous rank's block in (``lax.ppermute`` with ``perm = [(i, (i + 1) %
+  n)]``): one block a hop, by a broadcast over each neighbour pair
+  (``("seq", s)``) in pair order, which gloo takes for CUDA tensors and which
+  no cycle of waits can deadlock;
+- ``seq_to_heads`` / ``heads_to_seq``: the tiled all-to-alls of Ulysses
+  attention, ``[B, S / n, h, D]`` to ``[B, S, h / n, D]`` and back;
+- ``gather_seq``: every rank's block along the sequence (the KV cache is
+  replicated over ``seq``, so every rank writes every token's row);
+- ``broadcast_seq``: one seq rank's tensor on every seq rank (the last valid
+  token's hidden row).
+
 A group of one rank (or ``None``) does no arithmetic and issues nothing, so
 a one-rank mesh stays bit-equal to no mesh. With autograd off (serving) or
 on a tensor that needs no gradient, ``copy_to_group`` is ``x`` itself and
@@ -22,7 +38,9 @@ on a tensor that needs no gradient, ``copy_to_group`` is ``x`` itself and
 ``ops/tp_overlap.COLLECTIVES``, which counts the row-parallel outputs and
 the head's logits gather): ``copy_to_group`` one a backward call,
 ``reduce_from_group`` one a forward call, ``mean_grads`` one a leaf,
-``mean_over`` one a call.
+``mean_over`` one a call, and each sequence collective one a call (its
+key made at its first count, so a process that runs none counts what it
+always did).
 
 Every rank of a group must issue the same collectives in the same order:
 the backward's (the autograd engine runs the same graph in the same order
@@ -147,3 +165,104 @@ def mean_over(x: torch.Tensor, group) -> torch.Tensor:
         return x
     COLLECTIVES["mean_over"] += 1
     return _all_reduce(x.detach().clone(), group).div_(n)
+
+
+# --- sequence parallelism (forward only) ----------------------------------------------
+
+
+def _count(kind: str) -> None:
+    COLLECTIVES[kind] = COLLECTIVES.get(kind, 0) + 1
+
+
+def _seq(mesh, axis: str) -> tuple[int, int]:
+    """(size, this rank's index) of ``axis`` (1, 0 with no mesh)."""
+    if mesh is None:
+        return 1, 0
+    return mesh.shape.get(axis, 1), mesh.coords.get(axis, 0)
+
+
+def ring_shift(x: torch.Tensor, mesh, axis: str = "seq") -> torch.Tensor:
+    """The previous seq rank's ``x`` (every rank's to the next). Pair ``i``
+    (seq ranks ``i`` and ``(i + 1) % n``) broadcasts from ``i``, pairs in
+    order: rank ``i`` receives on pair ``i - 1`` before it sends on pair
+    ``i`` (rank 0 sends first), so the hops chain and never wait in a
+    cycle."""
+    n, idx = _seq(mesh, axis)
+    if n == 1:
+        return x
+    import torch.distributed as dist
+
+    _count("ring_shift")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    for i in range(n):
+        if idx in (i, (i + 1) % n):
+            dist.broadcast(x if idx == i else out, src=mesh.peer(axis, i),
+                           group=mesh.group((axis, i)))
+    return out
+
+
+def _all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x [n, ...]``: block ``j`` to seq rank ``j``; returns the blocks
+    from every rank, ``[n, ...]`` in rank order."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=mesh.group(axis))
+    return out
+
+
+def seq_to_heads(x: torch.Tensor, mesh, axis: str = "seq") -> torch.Tensor:
+    """``[B, S / n, h, D]`` (this rank's block of the sequence) to ``[B, S,
+    h / n, D]`` (the whole sequence of this rank's head group, contiguous
+    heads: ``lax.all_to_all(split_axis=2, concat_axis=1, tiled=True)``)."""
+    n, _ = _seq(mesh, axis)
+    if n == 1:
+        return x
+    _count("seq_to_heads")
+    B, Sq, h, D = x.shape
+    blocks = x.reshape(B, Sq, n, h // n, D).permute(2, 0, 1, 3, 4)
+    got = _all_to_all(blocks, mesh, axis)  # [n, B, Sq, h / n, D], by seq block
+    return got.permute(1, 0, 2, 3, 4).reshape(B, n * Sq, h // n, D)
+
+
+def heads_to_seq(x: torch.Tensor, mesh, axis: str = "seq") -> torch.Tensor:
+    """``seq_to_heads``'s inverse: ``[B, S, h / n, D]`` to ``[B, S / n, h,
+    D]``."""
+    n, _ = _seq(mesh, axis)
+    if n == 1:
+        return x
+    _count("heads_to_seq")
+    B, S, hg, D = x.shape
+    blocks = x.reshape(B, n, S // n, hg, D).permute(1, 0, 2, 3, 4)
+    got = _all_to_all(blocks, mesh, axis)  # [n, B, S / n, hg, D], by head group
+    return got.permute(1, 2, 0, 3, 4).reshape(B, S // n, n * hg, D)
+
+
+def gather_seq(x: torch.Tensor, mesh, axis: str = "seq", dim: int = 0) -> torch.Tensor:
+    """Every seq rank's ``x`` concatenated along ``dim`` in rank order."""
+    n, _ = _seq(mesh, axis)
+    if n == 1:
+        return x
+    import torch.distributed as dist
+
+    _count("gather_seq")
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=mesh.group(axis))
+    return torch.cat(parts, dim=dim)
+
+
+def broadcast_seq(x: torch.Tensor, mesh, src: int, axis: str = "seq") -> torch.Tensor:
+    """Seq rank ``src``'s ``x`` on every seq rank (``x`` is the buffer the
+    others receive into, of the same shape and dtype)."""
+    n, _ = _seq(mesh, axis)
+    if n == 1:
+        return x
+    import torch.distributed as dist
+
+    _count("broadcast_seq")
+    x = x.contiguous()
+    dist.broadcast(x, src=mesh.peer(axis, src), group=mesh.group(axis))
+    return x

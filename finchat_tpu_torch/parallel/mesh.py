@@ -28,6 +28,16 @@ Two kinds of group serve the training half beside the axes' own:
   rank's pipe line, over which the pipeline hops an activation forward and
   its gradient back (``parallel/pipeline.py``).
 
+Sequence parallelism (serving's long-prompt prefill) adds:
+
+- the seq neighbours ``("seq", s)``: seq ranks ``s`` and ``(s + 1) % n`` of
+  this rank's seq line (one a coordinate of the other axes), the pair a ring
+  hop moves a block over (``parallel/collectives.ring_shift``); with two seq
+  ranks the one pair is the ``seq`` group itself;
+- ``"world"``: every rank of the mesh, over which rank 0 ships a forwarded
+  call's tensors (``parallel/ranks.RankChannel``): with ``seq > 1`` the
+  ``model`` group no longer holds every rank.
+
 A mesh may span a subset of the world's ranks (``ranks``): every rank of the
 world still creates every group, in the same fixed order.
 
@@ -158,7 +168,9 @@ class Mesh:
         """The process group of ``axis`` (None on a shape-only mesh, or for
         an axis of size 1 other than ``model``); ``("expert", "model")``
         names the MoE output's group, ``("pipe", s)`` the pipe neighbours
-        ``s`` and ``s + 1`` of this rank's line (held only by those two)."""
+        ``s`` and ``s + 1`` of this rank's line and ``("seq", s)`` the seq
+        neighbours ``s`` and ``(s + 1) % n`` (each held only by those two),
+        ``"world"`` every rank of the mesh."""
         return self.groups.get(axis)
 
 
@@ -226,8 +238,8 @@ def build_mesh(spec: MeshSpec | None = None, devices: list | None = None,
     """This rank's mesh: ``spec`` resolved over ``devices`` (one rank a
     device; a device may repeat, as two gloo ranks on one card do), this
     rank's device and coordinates, and the process group of every axis of
-    size > 1 and of ``model``, of ``("expert", "model")`` and of each pipe
-    neighbour pair this rank is in. The process group must be initialized
+    size > 1 and of ``model``, of ``("expert", "model")``, of each pipe and
+    seq neighbour pair this rank is in, and of the whole mesh (``"world"``). The process group must be initialized
     first (``initialize_distributed``) with one rank a device, except for a
     single device, whose one-rank group is made here. The backend defaults
     to ``nccl`` for CUDA devices and ``gloo`` for the CPU.
@@ -282,6 +294,15 @@ def build_mesh(spec: MeshSpec | None = None, devices: list | None = None,
                 mesh.groups[("pipe", 0)] = mesh.groups["pipe"]
             break
         make(("pipe", s), [line[s:s + 2] for line in _axis_rank_sets(sizes, axis["pipe"])])
+    n_seq = sizes[axis["seq"]]
+    if n_seq == 2:  # the one pair is the seq line itself
+        if mesh is not None:
+            mesh.groups[("seq", 0)] = mesh.groups[("seq", 1)] = mesh.groups["seq"]
+    elif n_seq > 2:
+        for s in range(n_seq):
+            make(("seq", s), [[line[s], line[(s + 1) % n_seq]]
+                              for line in _axis_rank_sets(sizes, axis["seq"])])
+    make("world", [list(range(len(ranks)))])
     if mesh is not None:
         logger.info("mesh: %s, rank %d (world rank %d) on %s (%s)", mesh.shape, rank, me,
                     mesh.device, backend)

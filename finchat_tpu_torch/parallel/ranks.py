@@ -15,8 +15,9 @@ does, and the other ranks only mirror its engine:
   and in one order.
 - The channel is a CPU gloo group of its own: one pickled object broadcast
   a call. The call's tensor arguments (a logits row, a session record)
-  travel on the mesh's ``model`` group, by broadcast from rank 0, and
-  arrive on each rank's device.
+  travel on the mesh's ``"world"`` group (every rank of the mesh: with
+  ``seq > 1`` the ``model`` group holds only one seq coordinate's ranks),
+  by broadcast from rank 0, and arrive on each rank's device.
 - Every other rank runs ``follow``: it executes each call on its own shard
   and discards the results (every rank computes the same tokens).
 - A stop message ends the loop. So does the channel's error when rank 0 is
@@ -64,7 +65,8 @@ class RankDown(RuntimeError):
 FORWARDED = (
     "set_page_table_row", "set_page_table_rows", "set_context_lens_rows", "set_kv_gap_rows",
     "set_last_token", "reset_slot", "reset_slots",
-    "prefill", "prefill_batch", "prefill_chunk", "commit_first_token",
+    "prefill", "prefill_batch", "prefill_chunk", "prefill_ring", "prefill_ring_segment",
+    "commit_first_token",
     "decode", "ragged_mixed", "ragged_multi", "decode_loop", "decode_spec",
     "offload_pages", "restore_pages", "rebuild_device_state", "warmup",
 )
@@ -115,15 +117,18 @@ def _shipped(obj: Any) -> list:
 
 class RankChannel:
     """Rank 0's messages to every rank: a CPU gloo group of its own for the
-    pickled calls, the mesh's ``model`` group for their tensors. Every rank
-    must construct it at the same point (it creates a process group)."""
+    pickled calls, the mesh's ``"world"`` group for their tensors. Every rank
+    of the world must construct it at the same point (it creates a process
+    group over the world), or pass ``group``: a CPU gloo group over the
+    mesh's ranks that every rank of the world made alike (a mesh over part of
+    a world)."""
 
-    def __init__(self, mesh: Any, timeout_s: float = DEFAULT_TIMEOUT_S):
+    def __init__(self, mesh: Any, timeout_s: float = DEFAULT_TIMEOUT_S, group: Any = None):
         import torch.distributed as dist
 
-        self.group = dist.new_group(backend="gloo",
-                                    timeout=datetime.timedelta(seconds=timeout_s))
-        self.mesh_group = mesh.group("model")
+        self.group = group if group is not None else dist.new_group(
+            backend="gloo", timeout=datetime.timedelta(seconds=timeout_s))
+        self.mesh_group = mesh.group("world")
         self.device = mesh.device
         self.rank = mesh.rank
         self.timeout_s = timeout_s

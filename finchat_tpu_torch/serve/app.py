@@ -1302,12 +1302,13 @@ def build_app(cfg: AppConfig | None = None, *, store: ConversationStore | None =
     ``build_retriever`` makes run on ``device``.
 
     A ``mesh`` config that resolves to more than one device
-    (``parallel/mesh.mesh_devices``) serves the model tensor-parallel: this
-    process is rank 0 and serves, one follower process a further device is
-    spawned (each loads its own shard from the same seed or checkpoint), and
-    ``App.stop`` (so ``drain_and_stop``) stops and joins them. Refused by
-    name on a mesh: the data, pipe, seq and expert axes, an MoE preset, a
-    fleet (and so disagg) and the pod plane."""
+    (``parallel/mesh.mesh_devices``) serves the model tensor-parallel over
+    ``model`` and, with ``seq``, a long prompt's prefill split over the seq
+    ranks: this process is rank 0 and serves, one follower process a further
+    device is spawned (each loads its own shard from the same seed or
+    checkpoint), and ``App.stop`` (so ``drain_and_stop``) stops and joins
+    them. Refused by name on a mesh: the data, pipe and expert axes, an MoE
+    preset, a fleet (and so disagg) and the pod plane."""
     cfg = cfg or load_config()
     TRACER.configure(enabled=cfg.tracing.enabled, ring_events=cfg.tracing.ring_events,
                      flight_dir=cfg.tracing.flight_dir)

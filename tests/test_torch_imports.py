@@ -138,3 +138,12 @@ def test_the_parallel_training_modules_are_walked(module):
     step are among the files walked above (the JAX package's pipeline and
     train step import JAX and optax: the port keeps its own)."""
     assert ROOT / "finchat_tpu_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["ops/ring_attention.py", "ops/ulysses.py",
+                                    "parallel/collectives.py", "engine/engine.py"])
+def test_the_sequence_parallel_modules_are_walked(module):
+    """Ring and Ulysses attention, the sequence collectives and the engine's
+    seq-sharded prefill are among the files walked above (the JAX package's
+    ops import JAX: the port keeps its own)."""
+    assert ROOT / "finchat_tpu_torch" / module in PORT_FILES

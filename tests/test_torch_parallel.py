@@ -414,7 +414,8 @@ MESH_REFUSALS = {
     "data": ({"mesh.data": 2}, "pipeline, data and expert axes are"),
     "pipe": ({"mesh.pipe": 2}, "pipeline, data and expert axes are"),
     "expert": ({"mesh.expert": 2}, "pipeline, data and expert axes are"),
-    "seq": ({"mesh.seq": 2}, "sequence parallelism"),
+    # seq is served: a mesh with seq is still refused by name on its data axis
+    "seq": ({"mesh.seq": 2, "mesh.data": 2}, "pipeline, data and expert axes are"),
     "moe": ({"model.preset": "moe-tiny"}, "MoE"),
     "fleet": ({"fleet.replicas": 2}, "fleet of 2"),
     "disagg": ({"fleet.replicas": 2, "fleet.roles": "prefill,decode"}, "fleet of 2"),
@@ -426,7 +427,7 @@ MESH_REFUSALS = {
 @pytest.mark.parametrize("case", list(MESH_REFUSALS))
 def test_build_app_refuses_the_planes_a_mesh_does_not_serve(case):
     """Each plane kept for later (data, pipe and expert for the pipeline and
-    expert parallelism, seq for sequence parallelism, an MoE preset, a fleet
+    expert parallelism, also beside a served seq axis, an MoE preset, a fleet
     or disagg of more than one replica, the pod plane, and a model axis that
     does not divide the KV heads) raises by name, with ``mesh`` in the
     message, before any rank is spawned."""

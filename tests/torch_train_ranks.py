@@ -224,9 +224,10 @@ class World:
     """``world`` ranks spawned over ``cases`` at construction; ``results()``
     waits for every rank's results (raising with the first failed rank's
     traceback), so the caller can work while they run. ``close()`` joins
-    or terminates every rank."""
+    or terminates every rank. ``target``: the rank's function, ``rank_main``'s
+    signature (another rank module's)."""
 
-    def __init__(self, world: int, cases: dict):
+    def __init__(self, world: int, cases: dict, target=None):
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
@@ -237,7 +238,7 @@ class World:
         # would hold the parent until the child has imported torch, one rank
         # after the other
         torch.save(cases, tmp / "cases.pt")
-        self.procs = [ctx.Process(target=rank_main,
+        self.procs = [ctx.Process(target=target or rank_main,
                                   args=(r, world, init, str(tmp / "cases.pt"), self.queue),
                                   daemon=True) for r in range(world)]
         for p in self.procs:
